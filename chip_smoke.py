@@ -5,29 +5,56 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Three phases, in order; any failure raises and exits non-zero:
+Seven phases, in order; any failure raises and exits non-zero:
 
-1. **Kernels.**  Builds every CUDA kernel of the serving path from
-   ``flexflow_torch/csrc`` and holds each against its plain PyTorch
-   version on the card (f32: ``o`` within 1e-4; bf16: ``o`` within 2e-2,
-   the bf16 rounding of ``p`` and of the output; ``lse`` within 1e-3),
-   with each kernel's median device time over 20 runs beside its plain
-   version's and ``F.scaled_dot_product_attention``'s (a yardstick the
-   port never calls).
-2. **Serve.**  Runs the full-width bf16 LM (vocab 32768, d_model 512,
+1. **Kernels.**  Builds every CUDA kernel of the port from
+   ``flexflow_torch/csrc`` and holds the serving kernels against their
+   plain PyTorch versions on the card (f32: ``o`` within 1e-4; bf16:
+   ``o`` within 2e-2, the bf16 rounding of ``p`` and of the output;
+   ``lse`` within 1e-3), with each kernel's median device time over 20
+   runs beside its plain version's and ``F.scaled_dot_product_attention``'s
+   (a yardstick the port never calls).
+2. **Training kernels.**  K1b (flash backward) against its plain
+   backward with non-zero ``o`` and ``lse`` cotangents, at the training
+   shape (16, 8, 2048, 64) bf16 causal and at non-causal, ragged (t = 80,
+   1, 130) and f32 shapes: every gradient within ``TOL_GRAD`` of the
+   plain one, relative to its largest magnitude (f32 1e-4: sums in
+   another order; bf16 2^-7: one bf16 ulp).  K3 (fused cross-entropy)
+   forward and backward against its plain version at (32768, 32768)
+   bf16, at a ragged V (32771) and on an f32 case with planted argmax
+   ties, labels over the whole vocabulary (0, V-1 and chunk edges
+   included): ``nll``/``lse`` within 1e-4, ``dlogits`` within
+   ``TOL_GRAD``, ``pred`` exactly.  Times: median device time beside the
+   plain version, the bound and SDPA's backward / ``F.cross_entropy`` as
+   yardsticks; K1f again at the training shape.
+3. **Serve.**  Runs the full-width bf16 LM (vocab 32768, d_model 512,
    8 heads, 6 layers, max_seq 128, 8 slots, buckets 64/128, 16 requests
    of 4-32 prompt tokens and 32 new tokens, decode K=8) through
    ``flexflow_torch.apps.serve.main`` and checks that every request
-   completes with finite logits and that the kernels' launch counters
-   equal ``layers x prefills`` (flash prefill) and ``layers x K x
-   supersteps`` (flash decode).
-3. **Parity.**  Serves the same requests in f32 with the decode kernel
+   completes and that the kernels' launch counters equal ``layers x
+   prefills`` (flash prefill) and ``layers x K x supersteps`` (flash
+   decode), and that no training kernel ran.
+4. **Parity.**  Serves the same requests in f32 with the decode kernel
    and with the plain einsum decode: the greedy tokens must be identical.
+5. **Train.**  Trains the full-width bf16 LM (batch 16, seq 2048, 6
+   layers, vocab 32768, Adam lr 1e-4; ``bench.py``'s LM shape) through
+   ``flexflow_torch.apps.transformer.main`` for 1 warmup and 5 timed
+   steps: the loss is finite at every step and falls from the first to
+   the last, and the launch counts are exact (K1f = K1b = 6 x steps,
+   K3 forward = backward = steps, no decode).  Prints tokens/s, ms/step,
+   MFU against 989 TFLOP/s and the share of the step in K1f, K1b and K3.
+6. **Train parity.**  One f32 Adam step of a 2-layer LM at vocab 32768
+   (batch 2, seq 256, TF32 off) from the same params and batch on the
+   card (kernels) and on the CPU (plain versions): loss, every gradient
+   and every updated parameter agree within the stated tolerances.
+7. **Profile.**  One warm train step of the phase 5 model under
+   ``torch.profiler``: the device busy share and device time by kernel.
 
-Then it prints a ``kernels`` JSON line, the card's name and power limit
-from ``nvidia-smi``, and as its last line the JSON object
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2
-and prints no result.
+Then it prints a ``kernels`` JSON line (``launches``: the serve and
+train runs together, split in ``launches_by_path``), the card's name
+and power limit from ``nvidia-smi``, and as its last line the JSON
+object ``{"ok": true, "device": {...}}``.  Without a CUDA device it
+exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -52,6 +79,27 @@ SERVE = dict(vocab=32768, d_model=512, heads=8, layers=6, max_seq=128,
 
 TOL_O = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL_LSE = 1e-3
+#: Gradients (K1b's dq/dk/dv, K3's dlogits) against the plain versions,
+#: relative to the plain gradient's largest magnitude: f32 sums taken in
+#: another order; bf16 outputs one ulp apart.
+TOL_GRAD = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+#: K3's per-row nll and lse: f32 sums of up to 32771 exponentials.
+TOL_XENT = 1e-4
+
+#: The training configuration of phase 5 (bench.py's LM leg,
+#: ``_bench_lm(batch=16, seq=2048, layers=6)``).
+TRAIN = dict(batch=16, seq=2048, layers=6, vocab=32768, d_model=512,
+             heads=8, lr=1e-4, iters=5, warmup=1, seed=1234)
+#: The f32 parity step of phase 6, and its tolerances: loss absolute;
+#: gradients relative to each tensor's largest magnitude plus an
+#: absolute floor (the key biases' gradient is zero in exact arithmetic
+#: and rounding noise on both sides); Adam's first step is about
+#: lr * sign(g), so updated params are compared within 1e-3 * lr where
+#: |g| >= max(1e-4 * max|g|, 1e-6) and within 2 * lr elsewhere.
+PARITY_TRAIN = dict(batch=2, seq=256, layers=2, vocab=32768, d_model=512,
+                    heads=8, lr=1e-4, seed=0)
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_GRAD = (1e-4, 1e-7)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -180,6 +228,177 @@ def phase_kernels(torch, kernels, F):
     return rows
 
 
+def _grad_err(got, want):
+    """Max |got - want| over the largest |want|."""
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    scale = max(b.float().abs().max().item() for b in want)
+    return err / scale if scale > 0 else err
+
+
+def phase_train_kernels(torch, kernels, F):
+    """Check and time K1b and K3 (and K1f at the training shape);
+    returns per-kernel rows for the training path's shapes."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+
+    def randn(shape, dt, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device="cuda")).to(dt)
+
+    # -- K1b: flash-attention backward --
+    train_shape = (TRAIN["batch"], TRAIN["heads"], TRAIN["seq"],
+                   TRAIN["d_model"] // TRAIN["heads"])
+    for shape, causal, dt in ((train_shape, True, torch.bfloat16),
+                              ((2, 8, 80, 64), False, torch.float32),
+                              ((2, 8, 80, 64), True, torch.bfloat16),
+                              ((1, 8, 1, 64), True, torch.float32),
+                              ((1, 2, 130, 128), False, torch.bfloat16),
+                              ((2, 4, 256, 32), True, torch.float32)):
+        name = _dtype_name(dt)
+        q, k, v = (randn(shape, dt) for _ in range(3))
+        o, lse = kernels.flash_attention_lse_plain(q, k, v, causal)
+        do, g_lse = randn(shape, dt), randn(shape[:3], torch.float32)
+        got = kernels.flash_attention_lse_bwd(q, k, v, o, lse, do, g_lse,
+                                              causal)
+        want = kernels.flash_attention_lse_bwd_plain(q, k, v, o, lse, do,
+                                                     g_lse, causal)
+        torch.cuda.synchronize()
+        err = _grad_err(got, want)
+        _check(math.isfinite(err) and err <= TOL_GRAD[name],
+               f"flash_attention_lse_bwd {shape} causal={causal} {name}: "
+               f"relative |grad| err {err}")
+        print(f"[train-kernels] flash_attention_lse_bwd {shape} "
+              f"causal={causal} {name}: relative err {err:.3g}")
+        if shape != train_shape:
+            continue
+        b, h, t, hd = shape
+        pairs = t * (t + 1) // 2 if causal else t * t
+        isz = q.element_size()
+        ms = _device_ms(lambda: kernels.flash_attention_lse_bwd(
+            q, k, v, o, lse, do, g_lse, causal))
+        plain_ms = _device_ms(lambda: kernels.flash_attention_lse_bwd_plain(
+            q, k, v, o, lse, do, g_lse, causal))
+        qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        lib_ms = _device_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True))
+        # Five t x t x hd products (s, dp, dv, dq, dk) over the causal
+        # pairs; q, k, v, o, do, lse, g_lse read once, dq, dk, dv written.
+        bound, by = _bound_ms(8 * b * h * t * hd * isz + 2 * b * h * t * 4,
+                              10 * b * h * hd * pairs, name)
+        print(f"[train-kernels] flash_attention_lse_bwd {shape} {name}: "
+              f"{ms:.4f} ms (plain {plain_ms:.4f}, sdpa backward "
+              f"{lib_ms:.4f}, bound {bound:.5f} by {by})")
+        rows["flash_attention_lse_bwd"] = dict(
+            max_abs_err=max((a.float() - w.float()).abs().max().item()
+                            for a, w in zip(got, want)),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=lib_ms)
+        # K1f at the training shape (a row of its own in PERF.md).
+        fo, flse = kernels.flash_attention_lse(q, k, v, causal)
+        torch.cuda.synchronize()
+        f_err = (fo.float() - o.float()).abs().max().item()
+        _check(f_err <= TOL_O[name] and (flse - lse).abs().max().item()
+               <= TOL_LSE, f"flash_attention_lse {shape}: |o| err {f_err}")
+        with torch.no_grad():
+            f_ms = _device_ms(lambda: kernels.flash_attention_lse(q, k, v,
+                                                                  causal))
+        f_plain = _device_ms(lambda: kernels.flash_attention_lse_plain(
+            q, k, v, causal))
+        f_lib = _device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal))
+        f_bound, f_by = _bound_ms(4 * b * h * t * hd * isz + b * h * t * 4,
+                                  4 * b * h * hd * pairs, name)
+        print(f"[train-kernels] flash_attention_lse {shape} causal {name}: "
+              f"{f_ms:.4f} ms (plain {f_plain:.4f}, sdpa {f_lib:.4f}, bound "
+              f"{f_bound:.5f} by {f_by})")
+        rows["flash_attention_lse@train"] = dict(
+            max_abs_err=f_err, ms=f_ms, plain_ms=f_plain, bound_ms=f_bound,
+            bound_by=f_by, library_ms=f_lib)
+        del q, k, v, o, lse, do, got, want, qs, ks, vs, out, fo
+
+    # -- K3: fused softmax cross-entropy, forward and backward --
+    n_main = TRAIN["batch"] * TRAIN["seq"]
+    for n, v, dt, ties in ((n_main, TRAIN["vocab"], torch.bfloat16, False),
+                           (1000, 32771, torch.bfloat16, False),
+                           (1000, 32771, torch.float32, False),
+                           (512, 32768, torch.float32, True)):
+        name = _dtype_name(dt)
+        x = randn((n, v), torch.float32, 3.0)
+        labels = torch.randint(0, v, (n,), generator=g, device="cuda",
+                               dtype=torch.int32)
+        labels[:4] = torch.tensor([0, v - 1, 8 * 256 - 1, 8 * 256],
+                                  device="cuda", dtype=torch.int32)
+        if ties:
+            # Equal maxima inside one 8-element chunk, across the chunks
+            # of one thread, across threads and at the row's two ends.
+            top = x.max() + 1.0
+            for r, cols in enumerate(((3, 5), (9, 2048 + 9), (2047, 2048),
+                                      (v - 1, 0), (100, 7, 30000))):
+                x[r, list(cols)] = top
+        x = x.to(dt)
+        nll, lse, pred = kernels.softmax_xent(x, labels)
+        gn = torch.full((n,), 1.0 / n, device="cuda")
+        gl = randn((n,), torch.float32)
+        d = kernels.softmax_xent_bwd(x, labels, lse, gn, gl)
+        pn, pl, pp = kernels.softmax_xent_plain(x, labels)
+        pd = kernels.softmax_xent_bwd_plain(x, labels, pl, gn, gl)
+        torch.cuda.synchronize()
+        e_nll = (nll - pn).abs().max().item()
+        e_lse = (lse - pl).abs().max().item()
+        e_d = _grad_err([d], [pd])
+        miss = int((pred != pp).sum().item())
+        _check(e_nll <= TOL_XENT and e_lse <= TOL_XENT
+               and math.isfinite(e_d) and e_d <= TOL_GRAD[name] and miss == 0,
+               f"softmax_xent ({n}, {v}) {name}: nll err {e_nll}, lse err "
+               f"{e_lse}, relative dlogits err {e_d}, {miss} pred mismatches")
+        if ties:
+            _check([int(pred[r]) for r in range(5)] == [3, 9, 2047, 0, 7],
+                   f"softmax_xent ties: pred {pred[:5].tolist()}")
+        print(f"[train-kernels] softmax_xent ({n}, {v}) {name}"
+              f"{' ties' if ties else ''}: nll err {e_nll:.3g} lse err "
+              f"{e_lse:.3g} relative dlogits err {e_d:.3g}, pred exact")
+        if n != n_main:
+            continue
+        isz = x.element_size()
+        ms = _device_ms(lambda: kernels.softmax_xent(x, labels))
+        plain_ms = _device_ms(lambda: kernels.softmax_xent_plain(x, labels))
+        lab64 = labels.long()
+        lib_ms = _device_ms(lambda: F.cross_entropy(x, lab64,
+                                                    reduction="none"))
+        # Logits read once, labels read, nll/lse/pred written; about four
+        # f32 operations per logit (max, subtract, exp, sum).
+        bound, by = _bound_ms(n * v * isz + 16 * n, 4 * n * v, "float32")
+        print(f"[train-kernels] softmax_xent ({n}, {v}) {name}: {ms:.4f} ms "
+              f"(plain {plain_ms:.4f}, F.cross_entropy {lib_ms:.4f}, bound "
+              f"{bound:.5f} by {by})")
+        rows["softmax_xent"] = dict(
+            max_abs_err=max(e_nll, e_lse), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        b_ms = _device_ms(lambda: kernels.softmax_xent_bwd(x, labels, lse,
+                                                           gn, gl))
+        b_plain = _device_ms(lambda: kernels.softmax_xent_bwd_plain(
+            x, labels, pl, gn, gl))
+        xr = x.detach().clone().requires_grad_(True)
+        ce = F.cross_entropy(xr, lab64, reduction="none")
+        gce = gn.to(ce.dtype)
+        b_lib = _device_ms(lambda: torch.autograd.grad(ce, xr, gce,
+                                                       retain_graph=True))
+        # Logits read and dlogits written once, rows' scalars read; about
+        # four f32 operations per logit (subtract, exp, multiply, select).
+        b_bound, b_by = _bound_ms(2 * n * v * isz + 16 * n, 4 * n * v,
+                                  "float32")
+        print(f"[train-kernels] softmax_xent_bwd ({n}, {v}) {name}: "
+              f"{b_ms:.4f} ms (plain {b_plain:.4f}, F.cross_entropy backward "
+              f"{b_lib:.4f}, bound {b_bound:.5f} by {b_by})")
+        rows["softmax_xent_bwd"] = dict(
+            max_abs_err=(d.float() - pd.float()).abs().max().item(),
+            ms=b_ms, plain_ms=b_plain, bound_ms=b_bound, bound_by=b_by,
+            library_ms=b_lib)
+        del xr, ce, gce, pd, d, pn, pl, pp
+    return rows
+
+
 def _serve_argv(dtype: str):
     c = SERVE
     return ["--vocab", str(c["vocab"]), "--d-model", str(c["d_model"]),
@@ -211,6 +430,8 @@ def phase_serve(torch, kernels):
             "flash_decode": L * K * stats["decode_supersteps"]}
     _check(all(launches[n] == want[n] > 0 for n in want),
            f"launch counts {launches}, expected {want}")
+    _check(all(c == 0 for n, c in launches.items() if n not in want),
+           f"serving launched a training kernel: {launches}")
     steps = K * stats["decode_supersteps"]
     print(f"[serve] tokens/s {stats['tokens_per_s']:.1f}; decode "
           f"{stats['decode_s'] * 1e3 / steps:.3f} ms/step "
@@ -259,6 +480,178 @@ def phase_parity(torch):
           f"{len(tokens[None])} requests, {n} tokens")
 
 
+def _train_argv():
+    c = TRAIN
+    return ["-b", str(c["batch"]), "--seq", str(c["seq"]),
+            "--layers", str(c["layers"]), "--vocab", str(c["vocab"]),
+            "--d-model", str(c["d_model"]), "--heads", str(c["heads"]),
+            "--optimizer", "adam", "--lr", str(c["lr"]),
+            "--dtype", "bfloat16", "-i", str(c["iters"]),
+            "--seed", str(c["seed"])]
+
+
+def train_flops() -> float:
+    """FLOPs of one train step of the TRAIN model: 3 x the forward, the
+    forward ``L (24 b s d^2 + 4 b s^2 d) + 2 b s d V`` (bench.py's
+    ``_train_flops`` over ``search/cost_model.py::op_cost``)."""
+    c = TRAIN
+    b, s, d, L, V = c["batch"], c["seq"], c["d_model"], c["layers"], c["vocab"]
+    return 3.0 * (L * (24 * b * s * d * d + 4 * b * s * s * d)
+                  + 2 * b * s * d * V)
+
+
+def phase_train(torch, kernels, rows):
+    """The full-width bf16 LM trained through the app; returns the
+    launch counts of this run."""
+    from flexflow_torch.apps import transformer
+
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.KERNELS:
+        fn.launches = 0
+    rc = transformer.main(_train_argv(), device="cuda", stats_out=stats)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check(rc == 0, f"transformer exited {rc}")
+    losses = stats["step_losses"]
+    steps = TRAIN["warmup"] + TRAIN["iters"]
+    _check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+           f"step losses {losses}")
+    _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    L = TRAIN["layers"]
+    want = {"flash_attention_lse": L * steps,
+            "flash_attention_lse_bwd": L * steps, "softmax_xent": steps,
+            "softmax_xent_bwd": steps, "flash_decode": 0}
+    _check(launches == want, f"launch counts {launches}, expected {want}")
+    ms_step = stats["elapsed_s"] * 1e3 / stats["iterations"]
+    tokens_s = stats["samples_per_s"] * TRAIN["seq"]
+    mfu = train_flops() / (ms_step * 1e-3) / PEAK_FLOPS["bfloat16"]
+    shares = {
+        "K1f": L * rows["flash_attention_lse@train"]["ms"],
+        "K1b": L * rows["flash_attention_lse_bwd"]["ms"],
+        "K3": rows["softmax_xent"]["ms"] + rows["softmax_xent_bwd"]["ms"],
+    }
+    share_s = ", ".join(f"{k} {v:.3f} ms ({100 * v / ms_step:.1f}%)"
+                        for k, v in shares.items())
+    print(f"[train] losses {[round(x, 5) for x in losses]}; {ms_step:.3f} "
+          f"ms/step, tokens/s {tokens_s:.1f}, MFU {100 * mfu:.2f}% of 989 "
+          f"TFLOP/s ({train_flops():.4g} FLOP/step); from the kernels' "
+          f"measured times: {share_s}; peak memory {peak_gb:.2f} GB; "
+          f"launches {launches}")
+    return launches
+
+
+def phase_profile(torch):
+    """One warm train step of the TRAIN model under torch.profiler:
+    device time by kernel name and the step's device busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_torch.apps.common import make_optimizer
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.transformer import build_transformer_lm
+    from flexflow_torch.runtime.executor import Executor
+    from flexflow_torch.runtime.trainer import Trainer
+
+    c = TRAIN
+    cfg = FFConfig(batch_size=c["batch"], compute_dtype="bfloat16",
+                   optimizer="adam", learning_rate=c["lr"], seed=c["seed"])
+    ff = build_transformer_lm(batch_size=c["batch"], seq_len=c["seq"],
+                              vocab_size=c["vocab"], d_model=c["d_model"],
+                              num_heads=c["heads"], num_layers=c["layers"],
+                              config=cfg)
+    ex = Executor(ff, cfg, optimizer=make_optimizer(cfg), device="cuda")
+    params, opt, state = ex.init()
+    batch = Trainer(ex).synthetic_batch()
+    for _ in range(2):
+        params, opt, state, _ = ex.train_step(params, opt, state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, state, _ = ex.train_step(params, opt, state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side events only (kernels, copies): host ops would count
+    # their kernels' time a second time.
+    dev = sorted(((e.self_device_time_total, e.key, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_ms = sum(us for us, _, _ in dev) / 1e3
+    print(f"[profile] one train step: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%, idle "
+          f"{100 - 100 * busy_ms / wall_ms:.1f}%)")
+    for us, key, count in dev[:20]:
+        print(f"[profile] {us / 1e3:10.3f} ms ({100 * us / 1e3 / wall_ms:5.1f}%)"
+              f" x{count:<4d} {key[:80]}")
+
+
+def phase_train_parity(torch, kernels):
+    """One f32 Adam step on the card (kernels) and on the CPU (plain
+    versions) from the same params and batch."""
+    import numpy as np
+
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.data.loader import synthetic_host_batch
+    from flexflow_torch.models.transformer import build_transformer_lm
+    from flexflow_torch.optim import AdamOptimizer
+    from flexflow_torch.runtime.executor import Executor
+
+    c = PARITY_TRAIN
+    cfg = FFConfig(batch_size=c["batch"], compute_dtype="float32",
+                   seed=c["seed"])
+    ff = build_transformer_lm(
+        batch_size=c["batch"], seq_len=c["seq"], vocab_size=c["vocab"],
+        d_model=c["d_model"], num_heads=c["heads"], num_layers=c["layers"],
+        config=cfg)
+    params0, _, _ = Executor(ff, cfg, device="cpu").init()
+    batch = synthetic_host_batch(ff, np.random.default_rng(c["seed"]),
+                                 {"tokens": c["vocab"], "label": c["vocab"]})
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ex = Executor(ff, cfg, optimizer=AdamOptimizer(lr=c["lr"]), device=dev)
+        params = {op: {k: p.detach().clone().to(ex.device)
+                       for k, p in g.items()}
+                  for op, g in params0.items()}
+        before = kernels.flash_attention_lse_bwd.launches
+        # The two halves of Executor.train_step (no --clip-norm here).
+        loss, _, _, grads = ex.loss_and_grads(params, {}, batch)
+        grads_cpu = {op: {k: v.detach().cpu() for k, v in g.items()}
+                     for op, g in grads.items()}
+        ex.optimizer.update(params, ex.optimizer.init(params), grads)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            _check(kernels.flash_attention_lse_bwd.launches - before
+                   == c["layers"], "the f32 parity step did not run K1b")
+        out[dev] = (float(loss), grads_cpu,
+                    {op: {k: v.detach().cpu() for k, v in g.items()}
+                     for op, g in params.items()})
+    (lc, gc, pc), (lp, gp, pp) = out["cuda"], out["cpu"]
+    _check(abs(lc - lp) <= TOL_TRAIN_LOSS,
+           f"f32 step loss: card {lc}, CPU {lp}")
+    rtol, atol = TOL_TRAIN_GRAD
+    worst_g = worst_p = 0.0
+    for op in gp:
+        for k in gp[op]:
+            want, got = gp[op][k], gc[op][k]
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            _check(err <= rtol * scale + atol,
+                   f"f32 grad {op}.{k}: err {err} at scale {scale}")
+            worst_g = max(worst_g, err / (rtol * scale + atol))
+            g = want.abs()
+            big = g >= max(1e-4 * g.max().item(), 1e-6)
+            diff = (pc[op][k] - pp[op][k]).abs()
+            d_big = diff[big].max().item() if big.any() else 0.0
+            _check(d_big <= 1e-3 * c["lr"] and diff.max().item() <= 2 * c["lr"],
+                   f"f32 updated {op}.{k}: err {d_big} where |g| is not "
+                   f"noise, {diff.max().item()} overall")
+            worst_p = max(worst_p, d_big)
+    print(f"[train-parity] f32 step card vs CPU: loss {lc:.7f} vs {lp:.7f}; "
+          f"worst grad err {worst_g:.3g} of its tolerance; worst "
+          f"updated-param err {worst_p:.3g} (lr {c['lr']})")
+
+
 def main() -> int:
     import torch
 
@@ -273,28 +666,45 @@ def main() -> int:
     # f32 references in full f32: no TF32 in matmuls or convolutions.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
+    t = [time.perf_counter()]
     rows = phase_kernels(torch, kernels, F)
-    t1 = time.perf_counter()
-    launches = phase_serve(torch, kernels)
-    t2 = time.perf_counter()
+    t.append(time.perf_counter())
+    rows.update(phase_train_kernels(torch, kernels, F))
+    t.append(time.perf_counter())
+    serve_launches = phase_serve(torch, kernels)
+    t.append(time.perf_counter())
     phase_parity(torch)
-    t3 = time.perf_counter()
-    print(f"[phases] kernels {t1 - t0:.1f}s, serve {t2 - t1:.1f}s, parity "
-          f"{t3 - t2:.1f}s")
+    t.append(time.perf_counter())
+    train_launches = phase_train(torch, kernels, rows)
+    t.append(time.perf_counter())
+    phase_train_parity(torch, kernels)
+    t.append(time.perf_counter())
+    phase_profile(torch)
+    t.append(time.perf_counter())
+    names = ("kernels", "train-kernels", "serve", "parity", "train",
+             "train-parity", "profile")
+    print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
+                                  for n, a, b in zip(names, t, t[1:])))
 
+    src, pk = "flexflow_torch/csrc/", "flexflow_tpu/ops/pallas_kernels.py"
     meta = {
-        "flash_attention_lse": ("flexflow_torch/csrc/flash_fwd.cu",
-                                "flexflow_tpu/ops/pallas_kernels.py:147"),
-        "flash_decode": ("flexflow_torch/csrc/flash_decode.cu",
-                         "flexflow_tpu/ops/pallas_kernels.py:1085"),
+        "flash_attention_lse": (src + "flash_fwd.cu", pk + ":147"),
+        "flash_decode": (src + "flash_decode.cu", pk + ":1085"),
+        "flash_attention_lse_bwd": (src + "flash_bwd.cu", pk + ":719"),
+        "softmax_xent": (src + "softmax_xent.cu", pk + ":1187"),
+        "softmax_xent_bwd": (src + "softmax_xent.cu", pk + ":1227"),
     }
-    line = {"kernels": [
-        dict(name=name, route="cuda", source=meta[name][0],
-             replaces=meta[name][1], launches=launches[name], **rows[name])
-        for name in ("flash_attention_lse", "flash_decode")
-    ]}
-    print(json.dumps(line))
+    entries = []
+    for name, (source, replaces) in meta.items():
+        by_path = {"serve": serve_launches[name],
+                   "train": train_launches[name]}
+        entry = dict(name=name, route="cuda", source=source,
+                     replaces=replaces, launches=sum(by_path.values()),
+                     launches_by_path=by_path, **rows[name])
+        if name == "flash_attention_lse":
+            entry["train_shape"] = rows["flash_attention_lse@train"]
+        entries.append(entry)
+    print(json.dumps({"kernels": entries}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -31,28 +31,6 @@ constexpr int kRows = 4;       // query rows per thread
 constexpr int kCols = 8;       // key columns per thread in a score tile
 constexpr int kPLd = kBlockK + 1;
 
-// Copies rows [row0, row0 + rows) of a (t, hd) slab into shared memory as
-// f32 with row stride ld; rows at or past t are zero-filled (a masked key
-// must meet a zero value row: 0 * garbage could be NaN).
-template <typename T>
-__device__ void load_tile(float* dst, const T* src, int row0, int rows, int t,
-                          int hd, int ld) {
-  const int per_row = hd / 8;
-  for (int c = threadIdx.x; c < rows * per_row; c += kThreads) {
-    const int r = c / per_row;
-    const int d0 = (c - r * per_row) * 8;
-    float vals[8];
-    if (row0 + r < t) {
-      ff::load8(src + (size_t)(row0 + r) * hd + d0, vals);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vals[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[r * ld + d0 + i] = vals[i];
-  }
-}
-
 // NJ bounds the head dim: hd <= 8 * NJ (the per-thread accumulator columns).
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads)
@@ -74,7 +52,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x % 8;  // lane within the row group
   const int nj = hd / 8;
 
-  load_tile(qs, q + slab, q0, kBlockQ, t, hd, ld);
+  ff::load_tile(qs, q + slab, q0, kBlockQ, t, hd, ld);
 
   float m[kRows], l[kRows], acc[kRows][NJ];
 #pragma unroll
@@ -90,8 +68,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < kend; k0 += kBlockK) {
     const int kn = min(kBlockK, kend - k0);
     __syncthreads();  // the previous tile's readers are done with ks/vs/ps
-    load_tile(ks, k + slab, k0, kn, t, hd, ld);
-    load_tile(vs, v + slab, k0, kn, t, hd, ld);
+    ff::load_tile(ks, k + slab, k0, kn, t, hd, ld);
+    ff::load_tile(vs, v + slab, k0, kn, t, hd, ld);
     __syncthreads();
 
     float s[kRows][kCols];

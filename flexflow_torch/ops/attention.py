@@ -3,8 +3,8 @@
 
 ``LayerNorm``, ``PositionEmbedding`` and ``MultiHeadAttention`` with its
 dense forward and the padded KV-cache protocol (prefill and decode).
-Dense attention always runs the port's flash kernel
-(``kernels.flash_attention_lse``); cached decode runs the flash-decode
+Dense attention always runs the port's flash kernels
+(``kernels.flash_attention_lse``: K1f forward, K1b backward); cached decode runs the flash-decode
 kernel (``kernels.flash_decode``) unless ``decode_kernel`` is False,
 which selects the plain ``_einsum_decode``.  On CPU tensors both kernel
 wrappers run their plain versions.  The ring (sequence-parallel), paged
@@ -17,6 +17,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from flexflow_torch.initializers import GlorotUniform, OnesInitializer, ZeroInitializer
 from flexflow_torch.ops import kernels
@@ -58,7 +59,14 @@ def _einsum_attention(q, k, v, causal: bool):
 
 
 class LayerNorm(Op):
-    """Layer normalization over the last (feature) dim, in f32."""
+    """Layer normalization over the last (feature) dim, in f32.
+
+    The reference computes ``((x - mean) * rsqrt(var + eps)) * scale +
+    bias`` in f32 (biased variance) and rounds once to the input dtype.
+    ``F.layer_norm`` computes the same in f32 for f32 and bf16 inputs and
+    keeps only the input and per-row statistics for its backward, where
+    the op written out would keep several f32 copies of the activation
+    per layer."""
 
     def __init__(self, name: str, x: TensorSpec, eps: float = 1e-5):
         super().__init__(name, [x])
@@ -75,12 +83,9 @@ class LayerNorm(Op):
 
     def forward(self, params, xs, state, training):
         (x,) = xs
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = (xf - mean).square().mean(dim=-1, keepdim=True)  # biased
-        y = (xf - mean) * torch.rsqrt(var + self.attrs["eps"])
-        y = y * params["scale"].float() + params["bias"].float()
-        return [y.to(x.dtype)], state
+        y = F.layer_norm(x, (x.shape[-1],), params["scale"].to(x.dtype),
+                         params["bias"].to(x.dtype), self.attrs["eps"])
+        return [y], state
 
 
 class PositionEmbedding(Op):

@@ -14,6 +14,12 @@ There is no fallback from the kernel to the plain version.  Each
 wrapper counts its launches in a plain integer attribute
 (``flash_attention_lse.launches``), so a run can show that its main
 path went through the kernel.
+
+The differentiable kernels (flash attention, the fused cross-entropy)
+are ``torch.autograd.Function``s on every device: on the CPU their
+forward and backward run the plain versions explicitly, so the CPU
+tests exercise the very backward formulas the CUDA kernels implement,
+not torch's autograd through the plain forward.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ _NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 #: One shared library per kernel source.
-_SOURCES = ("flash_fwd", "flash_decode")
+_SOURCES = ("flash_fwd", "flash_bwd", "flash_decode", "softmax_xent")
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -122,9 +128,17 @@ def _load(name: str) -> ctypes.CDLL:
     if name == "flash_fwd":
         lib.ff_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
         lib.ff_flash_fwd.restype = i
+    elif name == "flash_bwd":
+        lib.ff_flash_bwd.argtypes = [p] * 11 + [i, i, i, i, f, i, p]
+        lib.ff_flash_bwd.restype = i
     elif name == "flash_decode":
         lib.ff_flash_decode.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
         lib.ff_flash_decode.restype = i
+    elif name == "softmax_xent":
+        lib.ff_xent_fwd.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.ff_xent_fwd.restype = i
+        lib.ff_xent_bwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
+        lib.ff_xent_bwd.restype = i
     _libs[name] = lib
     return lib
 
@@ -142,7 +156,10 @@ def _dense(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _check_cuda(what: str, *tensors: torch.Tensor) -> int:
+def _check_cuda(what: str, *tensors: torch.Tensor, head_dim: bool = True) -> int:
+    """The kernel's dtype code for CUDA operands of one device and
+    dtype; raises for anything else (and, with ``head_dim``, for a last
+    dim the attention kernels do not take)."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{what}: tensors on {dev} (the kernel needs CUDA; "
@@ -158,7 +175,7 @@ def _check_cuda(what: str, *tensors: torch.Tensor) -> int:
         raise ValueError(f"{what}: dtype {dt} is not instantiated "
                          f"(float32, bfloat16)")
     hd = tensors[0].shape[-1]
-    if hd % 8 or not 8 <= hd <= 128:
+    if head_dim and (hd % 8 or not 8 <= hd <= 128):
         raise ValueError(f"{what}: head dim {hd} must be a multiple of 8 in "
                          f"[8, 128]")
     return _KERNEL_DTYPES[dt]
@@ -193,23 +210,20 @@ def flash_attention_lse_plain(q, k, v, causal: bool = True):
     return o.to(dtype), (m + torch.log(l))[..., 0]
 
 
-def flash_attention_lse(q, k, v, causal: bool = True):
-    """Blocked flash attention over ``(b, h, t, hd)`` heads.
+def _flash_shapes(what, q, k, v):
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{what}: q, k, v must share one (b, h, t, hd) "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
 
-    Returns ``(o, lse)``: ``o`` in the input dtype and ``lse`` as
-    ``(b, h, t)`` f32.  The port of ``pallas_kernels.flash_attention_lse``
-    (forward kernel ``_fwd_kernel``); source ``csrc/flash_fwd.cu``.
-    Every ``t >= 1`` is supported: ragged tiles are masked in the kernel.
-    """
+
+def _flash_fwd(q, k, v, causal: bool):
+    """K1f on already dense operands: the plain version on the CPU, the
+    kernel on CUDA (counted in ``flash_attention_lse.launches``)."""
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, causal)
     code = _check_cuda("flash_attention_lse", q, k, v)
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_attention_lse: q, k, v must share one "
-                         f"(b, h, t, hd) shape, got {q.shape}, {k.shape}, "
-                         f"{v.shape}")
     b, h, t, hd = q.shape
-    q, k, v = _dense(q), _dense(k), _dense(v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -223,7 +237,124 @@ def flash_attention_lse(q, k, v, causal: bool = True):
     return o, lse
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K1f forward, K1b backward; both outputs are differentiable (the
+    lse cotangent enters the backward as ``delta -= g_lse``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.device.type != "cpu":
+            q, k, v = _dense(q), _dense(k), _dense(v)
+        o, lse = _flash_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g_o, g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if g_o is None:
+            g_o = torch.zeros_like(o)
+        dq, dk, dv = flash_attention_lse_bwd(q, k, v, o, lse, g_o, g_lse,
+                                             ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_lse(q, k, v, causal: bool = True):
+    """Blocked flash attention over ``(b, h, t, hd)`` heads.
+
+    Returns ``(o, lse)``: ``o`` in the input dtype and ``lse`` as
+    ``(b, h, t)`` f32, both differentiable.  The port of
+    ``pallas_kernels.flash_attention_lse`` (forward kernel
+    ``_fwd_kernel``, source ``csrc/flash_fwd.cu``; backward
+    :func:`flash_attention_lse_bwd`).  Every ``t >= 1`` is supported:
+    ragged tiles are masked in the kernels.
+    """
+    _flash_shapes("flash_attention_lse", q, k, v)
+    return _FlashAttention.apply(q, k, v, bool(causal))
+
+
 flash_attention_lse.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1b: flash-attention backward
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_lse_bwd_plain(q, k, v, o, lse, do, g_lse=None,
+                                  causal: bool = True):
+    """Plain version of :func:`flash_attention_lse_bwd`, with the
+    kernels' cast points: ``delta = rowsum(o * do) - g_lse`` in f32,
+    ``do`` in the input dtype, ``p = exp(s - lse)`` recomputed from f32
+    scores (scale after the dot, the finite ``-1e30`` mask), ``p`` and
+    ``ds = p * (dp - delta)`` rounded to the operand dtype before their
+    products, f32 sums written in the input dtype."""
+    dtype = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = (o.float() * do.float()).sum(dim=-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    do = do.to(dtype)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        t = s.shape[-1]
+        mask = torch.ones((t, t), dtype=torch.bool, device=s.device).tril()
+        s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None])
+    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), do.float())
+    ds = ds.to(dtype).float()
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+def flash_attention_lse_bwd(q, k, v, o, lse, do, g_lse=None,
+                            causal: bool = True):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_lse` from
+    the cotangents ``do`` of ``o`` and ``g_lse`` of ``lse`` (None is
+    zero).  The port of ``pallas_kernels._bwd_call`` (kernels
+    ``_dq_kernel`` and ``_dkv_kernel``, with the delta preprocess of
+    ``_cotangent_delta_lanes``); source ``csrc/flash_bwd.cu``.  Takes
+    every shape the forward takes."""
+    if q.device.type == "cpu":
+        return flash_attention_lse_bwd_plain(q, k, v, o, lse, do, g_lse,
+                                             causal)
+    _flash_shapes("flash_attention_lse_bwd", q, k, v)
+    do = do.to(q.dtype)
+    code = _check_cuda("flash_attention_lse_bwd", q, k, v, o, do)
+    b, h, t, hd = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_lse_bwd: o {tuple(o.shape)} and "
+                         f"do {tuple(do.shape)} must be {tuple(q.shape)}")
+    rows = [lse] if g_lse is None else [lse, g_lse]
+    for r in rows:
+        if r.shape != (b, h, t) or r.device != q.device:
+            raise ValueError(f"flash_attention_lse_bwd: lse/g_lse must be "
+                             f"({b}, {h}, {t}) on {q.device}, got "
+                             f"{tuple(r.shape)} on {r.device}")
+    q, k, v, o, do = (_dense(x) for x in (q, k, v, o, do))
+    lse = lse.float().contiguous()
+    g_lse = None if g_lse is None else g_lse.float().contiguous()
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _load("flash_bwd").ff_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(),
+        None if g_lse is None else g_lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, t, hd,
+        int(bool(causal)), 1.0 / math.sqrt(hd), code, stream,
+    )
+    _raise_on(err, "flash_attention_lse_bwd")
+    flash_attention_lse_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_lse_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -288,5 +419,131 @@ def flash_decode(q, cache_k, cache_v, lengths):
 flash_decode.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K3: fused softmax cross-entropy
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent_plain(logits, labels):
+    """Plain version of :func:`softmax_xent`: f32 ``lse``, ``nll = lse -
+    x[label]`` and ``pred`` the first index of the row maximum."""
+    x = logits.float()
+    lse = torch.logsumexp(x, dim=-1)
+    target = x.gather(-1, labels.long()[:, None])[:, 0]
+    return lse - target, lse, torch.argmax(x, dim=-1).to(torch.int32)
+
+
+def softmax_xent_bwd_plain(logits, labels, lse, g_nll=None, g_lse=None):
+    """Plain version of :func:`softmax_xent_bwd`: ``exp(x - lse) *
+    (g_nll + g_lse) - onehot * g_nll`` in f32, rounded once to the
+    logits' dtype."""
+    n = logits.shape[0]
+    zeros = torch.zeros((n,), dtype=torch.float32, device=logits.device)
+    gn = zeros if g_nll is None else g_nll.float()
+    gl = zeros if g_lse is None else g_lse.float()
+    d = torch.exp(logits.float() - lse[:, None]) * (gn + gl)[:, None]
+    d[torch.arange(n, device=logits.device), labels.long()] -= gn
+    return d.to(logits.dtype)
+
+
+def _xent_check(what, logits, labels):
+    if logits.dim() != 2 or labels.shape != logits.shape[:1]:
+        raise ValueError(f"{what}: logits must be (N, V) and labels (N,), "
+                         f"got {tuple(logits.shape)} and "
+                         f"{tuple(labels.shape)}")
+    if labels.device != logits.device or labels.dtype != torch.int32:
+        raise ValueError(f"{what}: labels must be int32 on {logits.device}, "
+                         f"got {labels.dtype} on {labels.device}")
+    return _check_cuda(what, logits, head_dim=False)
+
+
+def _xent_fwd(logits, labels):
+    """K3 forward on already dense operands: the plain version on the
+    CPU, the kernel on CUDA (counted in ``softmax_xent.launches``)."""
+    if logits.device.type == "cpu":
+        return softmax_xent_plain(logits, labels)
+    code = _xent_check("softmax_xent", logits, labels)
+    n, v = logits.shape
+    nll = torch.empty((n,), dtype=torch.float32, device=logits.device)
+    lse = torch.empty_like(nll)
+    pred = torch.empty((n,), dtype=torch.int32, device=logits.device)
+    stream = torch.cuda.current_stream(logits.device).cuda_stream
+    err = _load("softmax_xent").ff_xent_fwd(
+        logits.data_ptr(), labels.data_ptr(), nll.data_ptr(), lse.data_ptr(),
+        pred.data_ptr(), n, v, code, stream,
+    )
+    _raise_on(err, "softmax_xent")
+    softmax_xent.launches += 1
+    return nll, lse, pred
+
+
+def softmax_xent_bwd(logits, labels, lse, g_nll=None, g_lse=None):
+    """``dlogits`` of :func:`softmax_xent` from the cotangents of
+    ``nll`` and ``lse`` (None is zero; ``pred`` has none), in the
+    logits' dtype.  The port of ``pallas_kernels._xent_bwd_kernel``;
+    source ``csrc/softmax_xent.cu``."""
+    if logits.device.type == "cpu":
+        return softmax_xent_bwd_plain(logits, labels, lse, g_nll, g_lse)
+    code = _xent_check("softmax_xent_bwd", logits, labels)
+    n, v = logits.shape
+    logits, labels = _dense(logits), labels.contiguous()
+    lse = lse.float().contiguous()
+    g_nll = None if g_nll is None else g_nll.float().contiguous()
+    g_lse = None if g_lse is None else g_lse.float().contiguous()
+    dlogits = torch.empty_like(logits)
+    stream = torch.cuda.current_stream(logits.device).cuda_stream
+    err = _load("softmax_xent").ff_xent_bwd(
+        logits.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+        None if g_nll is None else g_nll.data_ptr(),
+        None if g_lse is None else g_lse.data_ptr(), dlogits.data_ptr(), n, v,
+        code, stream,
+    )
+    _raise_on(err, "softmax_xent_bwd")
+    softmax_xent_bwd.launches += 1
+    return dlogits
+
+
+softmax_xent_bwd.launches = 0
+
+
+class _SoftmaxXent(torch.autograd.Function):
+    """K3 forward and backward; ``pred`` is integer and gets no
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        if logits.device.type != "cpu":
+            logits, labels = _dense(logits), labels.contiguous()
+        nll, lse, pred = _xent_fwd(logits, labels)
+        ctx.save_for_backward(logits, labels, lse)
+        ctx.mark_non_differentiable(pred)
+        ctx.set_materialize_grads(False)
+        return nll, lse, pred
+
+    @staticmethod
+    def backward(ctx, g_nll, g_lse, _g_pred):
+        logits, labels, lse = ctx.saved_tensors
+        return softmax_xent_bwd(logits, labels, lse, g_nll, g_lse), None
+
+
+def softmax_xent(logits, labels):
+    """Fused cross-entropy over ``(N, V)`` logits (f32 or bf16) with
+    int32 ``(N,)`` labels in ``[0, V)``: returns per-row ``(nll, lse,
+    pred)`` (f32, f32, int32) without materialising the softmax; ``nll``
+    and ``lse`` are differentiable.  The port of
+    ``pallas_kernels.softmax_xent`` (kernels ``_xent_fwd_kernel`` and
+    ``_xent_bwd_kernel``); source ``csrc/softmax_xent.cu``.  Every
+    ``(N, V)`` is supported."""
+    if logits.dim() != 2 or labels.shape != logits.shape[:1]:
+        raise ValueError(f"softmax_xent: logits must be (N, V) and labels "
+                         f"(N,), got {tuple(logits.shape)} and "
+                         f"{tuple(labels.shape)}")
+    return _SoftmaxXent.apply(logits, labels)
+
+
+softmax_xent.launches = 0
+
+
 #: The port's kernel wrappers, for callers that reset and read the counters.
-KERNELS = (flash_attention_lse, flash_decode)
+KERNELS = (flash_attention_lse, flash_attention_lse_bwd, flash_decode,
+           softmax_xent, softmax_xent_bwd)

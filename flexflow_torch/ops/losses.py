@@ -1,19 +1,25 @@
-"""Loss operators: ``SoftmaxCrossEntropy`` as a graph node.
+"""Loss operators: ``SoftmaxCrossEntropy``, the port of
+``flexflow_tpu/ops/losses.py``.
 
-The serving path excludes loss ops, so this slice needs the node only so
-that ``build_transformer_lm`` builds the same graph as the JAX package.
-Its forward belongs to the training slice, which ports the fused
-cross-entropy kernel K3 (``pallas_kernels.softmax_xent``); until then it
-raises instead of computing a plain cross-entropy.
+Every row of the logits goes through the fused cross-entropy kernel K3
+(``kernels.softmax_xent``), which has no shape gate on the GPU; on the
+CPU its plain version (the JAX op's unfused branch, ``losses.py:112-116``)
+runs.  The softmax probabilities are not computed: no op of a training
+or eval step reads them (in JAX, XLA removes them as dead code), and in
+eager PyTorch they would be an ``(N, V)`` tensor per step.
 """
 
 from __future__ import annotations
 
+import torch
+
+from flexflow_torch.ops import kernels
 from flexflow_torch.ops.base import Op, TensorSpec
 
 
 class SoftmaxCrossEntropy(Op):
-    """Softmax + cross-entropy against int labels, mean over batch."""
+    """Softmax + cross-entropy against int labels, mean over every
+    leading dim, with optional uniform label smoothing."""
 
     is_loss = True
 
@@ -30,8 +36,33 @@ class SoftmaxCrossEntropy(Op):
         self._make_output(logits.shape, logits.dtype, logits.dim_axes)
 
     def forward(self, params, xs, state, training):
-        raise NotImplementedError(
-            f"{self.name}: the softmax cross-entropy forward comes with the "
-            f"training slice of the port, which ports the fused kernel K3 "
-            f"(ROADMAP.md queue 1, item 2; queue 2, K3)"
-        )
+        """Returns ``((loss, metrics, []), state)``: the loss and the
+        metrics ``train_loss``, ``train_correct`` and ``train_all`` stay
+        tensors (no host sync per step); no probabilities are returned.
+
+        The logits are read in their own dtype: the kernel widens them
+        to f32 in registers, which gives exactly the values of the JAX
+        op's f32 cast, and its gradient is rounded once to the logits'
+        dtype, as the cast's VJP rounds."""
+        logits, labels = xs
+        v = logits.shape[-1]
+        nll, lse, pred = kernels.softmax_xent(
+            logits.reshape(-1, v), labels.reshape(-1).to(torch.int32))
+        eps = self.attrs["label_smoothing"]
+        if eps > 0.0:
+            # (1-eps)*nll + eps*(1/V) sum_j -log p_j
+            # = (1-eps)*nll + eps*(lse - mean(logits)): exact from row
+            # statistics, so it composes with the fused kernel.
+            mean = logits.reshape(-1, v).float().mean(dim=-1)
+            nll = (1.0 - eps) * nll + eps * (lse - mean)
+        loss = nll.mean()
+        correct = (pred == labels.reshape(-1).to(torch.int32)).sum(
+            dtype=torch.int32)
+        metrics = {
+            "train_loss": loss.detach(),
+            "train_correct": correct,
+            # A fill, not a host-to-device copy (which would sync).
+            "train_all": torch.full((), labels.numel(), dtype=torch.int32,
+                                    device=labels.device),
+        }
+        return (loss, metrics, []), state

@@ -1,4 +1,4 @@
-"""Carrying parameters across from the JAX package.
+"""Carrying parameters and optimizer state across from the JAX package.
 
 The port keeps the JAX package's parameter names and logical layouts
 (``(out, in)`` linear kernels, ``(in, out)`` attention projections), so
@@ -40,3 +40,18 @@ def params_from_numpy(
                 t = t.to(dtype)
             out[op][name] = t.to(device)
     return out
+
+
+def opt_state_from_numpy(np_state, device="cuda"):
+    """A JAX optimizer state, after ``jax.device_get``, as the port's:
+    Adam's ``{"m": tree, "v": tree, "t": array}`` becomes f32 moment
+    trees and a host int step count; SGD's momentum tree (or None)
+    becomes a tree of tensors in its own dtype (or None).  Both packages
+    can then continue from one state."""
+    if np_state is None:
+        return None
+    if set(np_state) == {"m", "v", "t"}:
+        return {"m": params_from_numpy(np_state["m"], device),
+                "v": params_from_numpy(np_state["v"], device),
+                "t": int(np.asarray(np_state["t"]))}
+    return params_from_numpy(np_state, device)

@@ -150,3 +150,248 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         kernels.build()
     assert not any(f.endswith(".so")
                    for f in os.listdir(tmp_path / "build"))
+
+
+# ---------------------------------------------------------------------------
+# K1b: the flash backward, and the autograd Function around K1f/K1b
+# ---------------------------------------------------------------------------
+
+
+def _cotangents(seed, shape):
+    r = np.random.default_rng(seed)
+    return (r.standard_normal(shape).astype(np.float32),
+            r.standard_normal(shape[:3]).astype(np.float32))
+
+
+def _jax_flash_vjp(q, k, v, g_o, g_lse, causal, dtype=jnp.float32):
+    import jax
+
+    args = [jnp.asarray(a, dtype) for a in (q, k, v)]
+    _, vjp = jax.vjp(
+        lambda a, b, c: pallas_kernels.flash_attention_lse(a, b, c, causal),
+        *args)
+    return vjp((jnp.asarray(g_o, dtype), jnp.asarray(g_lse)))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [16, 32, 64])
+def test_flash_backward_plain_matches_pallas(t, causal):
+    """K1b's plain version against ``jax.vjp`` of the Pallas kernels
+    (interpret mode), with non-zero cotangents of both ``o`` and ``lse``;
+    f32 within 1e-5."""
+    shape = (2, 2, t, 16)
+    assert pallas_kernels.flash_supported(shape, jnp.float32)
+    q, k, v = _qkv(200 + t + int(causal), shape)
+    g_o, g_lse = _cotangents(300 + t, shape)
+    want = _jax_flash_vjp(q, k, v, g_o, g_lse, causal)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o, lse = kernels.flash_attention_lse_plain(tq, tk, tv, causal)
+    before = kernels.flash_attention_lse_bwd.launches
+    got = kernels.flash_attention_lse_bwd(tq, tk, tv, o, lse,
+                                          torch.from_numpy(g_o),
+                                          torch.from_numpy(g_lse), causal)
+    assert kernels.flash_attention_lse_bwd.launches == before
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_plain_bf16_matches_pallas(causal):
+    """bf16: the same cast points (p and ds rounded to bf16 before their
+    products, f32 sums rounded once).  Both sides round f32 sums taken in
+    another order, so a gradient may differ by one bf16 ulp at its own
+    magnitude; at most 5% of the entries differ."""
+    shape = (2, 2, 64, 16)
+    assert pallas_kernels.flash_supported(shape, jnp.bfloat16)
+    q, k, v = _qkv(7, shape)
+    g_o, g_lse = _cotangents(8, shape)
+    want = _jax_flash_vjp(q, k, v, g_o, g_lse, causal, jnp.bfloat16)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    o, lse = kernels.flash_attention_lse_plain(tq, tk, tv, causal)
+    got = kernels.flash_attention_lse_bwd(
+        tq, tk, tv, o, lse, torch.from_numpy(g_o).to(torch.bfloat16),
+        torch.from_numpy(g_lse), causal)
+    for g, w in zip(got, want):
+        a = g.float().numpy()
+        b = np.asarray(w.astype(jnp.float32))
+        assert g.dtype == torch.bfloat16
+        assert np.all(np.abs(a - b) <= 2.0 ** -7 * np.abs(b) + 1e-6)
+        assert (a != b).mean() < 0.05
+
+
+@pytest.mark.parametrize("t", [1, 5, 80])
+def test_flash_backward_plain_any_length_matches_einsum(t):
+    """Lengths the Pallas kernels do not take, against the gradients of
+    the JAX einsum oracle (no lse cotangent: the oracle returns ``o``)."""
+    import jax
+
+    shape = (1, 2, t, 16)
+    q, k, v = _qkv(400 + t, shape)
+    g_o, _ = _cotangents(500 + t, shape)
+    _, vjp = jax.vjp(lambda a, b, c: jattn._einsum_attention(a, b, c, True),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(g_o))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o, lse = kernels.flash_attention_lse(tq, tk, tv, True)
+    got = kernels.flash_attention_lse_bwd(tq, tk, tv, o, lse,
+                                          torch.from_numpy(g_o), None, True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL, rtol=0)
+
+
+def test_flash_attention_is_differentiated_through_its_function():
+    """On the CPU, ``flash_attention_lse`` goes through its autograd
+    Function, whose backward is the explicit plain K1b formula: the
+    gradients equal ``flash_attention_lse_bwd_plain`` bit for bit, and
+    agree with torch's autograd through the plain forward within 1e-5."""
+    shape = (2, 2, 24, 16)
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _qkv(9, shape))
+    g_o, g_lse = (torch.from_numpy(a) for a in _cotangents(10, shape))
+    o, lse = kernels.flash_attention_lse(q, k, v, True)
+    assert type(o.grad_fn).__name__ == "_FlashAttentionBackward"
+    assert lse.grad_fn is o.grad_fn
+    got = torch.autograd.grad((o * g_o).sum() + (lse * g_lse).sum(),
+                              (q, k, v))
+    want = kernels.flash_attention_lse_bwd_plain(
+        q.detach(), k.detach(), v.detach(), o.detach(), lse.detach(), g_o,
+        g_lse, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    po, plse = kernels.flash_attention_lse_plain(q, k, v, True)
+    auto = torch.autograd.grad((po * g_o).sum() + (plse * g_lse).sum(),
+                               (q, k, v))
+    for g, w in zip(got, auto):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=TOL, rtol=0)
+
+
+def test_flash_attention_lse_cotangent_alone():
+    """Only ``lse`` used: ``g_o`` is zero and delta is ``-g_lse``."""
+    shape = (1, 2, 16, 8)
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _qkv(11, shape))
+    _, g_lse = _cotangents(12, shape)
+    _, lse = kernels.flash_attention_lse(q, k, v, False)
+    got = torch.autograd.grad((lse * torch.from_numpy(g_lse)).sum(), (q, k, v))
+    want = _jax_flash_vjp(*(x.detach().numpy() for x in (q, k, v)),
+                          np.zeros(shape, np.float32), g_lse, False)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K3: the fused softmax cross-entropy
+# ---------------------------------------------------------------------------
+
+
+def _xent_inputs(seed, n=64, v=1024):
+    r = np.random.default_rng(seed)
+    logits = (3 * r.standard_normal((n, v))).astype(np.float32)
+    labels = r.integers(0, v, n).astype(np.int32)
+    labels[:3] = (0, v - 1, v // 2)  # the vocabulary's edges and its middle
+    return logits, labels
+
+
+def test_softmax_xent_plain_matches_pallas():
+    """K3's plain forward and backward against ``softmax_xent`` and its
+    VJP (Pallas, interpret mode) at a shape the JAX gate admits: ``nll``,
+    ``lse`` and ``dlogits`` within 1e-5, ``pred`` exactly."""
+    import jax
+
+    n, v = 64, 1024
+    assert pallas_kernels.xent_supported(n, v)
+    logits, labels = _xent_inputs(13, n, v)
+    r = np.random.default_rng(14)
+    g_nll = r.standard_normal(n).astype(np.float32)
+    g_lse = r.standard_normal(n).astype(np.float32)
+    (jnll, jlse, jpred), vjp = jax.vjp(
+        lambda x: pallas_kernels.softmax_xent(x, jnp.asarray(labels)),
+        jnp.asarray(logits))
+    (jd,) = vjp((jnp.asarray(g_nll), jnp.asarray(g_lse),
+                 np.zeros(n, jax.dtypes.float0)))
+    tl, tlab = torch.from_numpy(logits), torch.from_numpy(labels)
+    before = (kernels.softmax_xent.launches, kernels.softmax_xent_bwd.launches)
+    nll, lse, pred = kernels.softmax_xent(tl, tlab)
+    d = kernels.softmax_xent_bwd(tl, tlab, lse, torch.from_numpy(g_nll),
+                                 torch.from_numpy(g_lse))
+    assert (kernels.softmax_xent.launches,
+            kernels.softmax_xent_bwd.launches) == before
+    assert pred.dtype == torch.int32
+    np.testing.assert_allclose(nll.numpy(), np.asarray(jnll), atol=TOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=TOL, rtol=0)
+    np.testing.assert_array_equal(pred.numpy(), np.asarray(jpred))
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=TOL, rtol=0)
+
+
+def test_softmax_xent_pred_breaks_ties_at_the_first_index():
+    """Planted equal maxima, inside one vocabulary block and across
+    blocks: ``pred`` is the first index, as ``jnp.argmax`` gives and as
+    the Pallas kernel's strict '>' across blocks keeps it."""
+    n, v = 16, 1024
+    logits, labels = _xent_inputs(15, n, v)
+    top = logits.max() + 1.0
+    ties = {0: (5, 700), 1: (600, 100), 2: (511, 512), 3: (1023, 0),
+            4: (7, 9, 1000)}
+    for row, cols in ties.items():
+        logits[row, list(cols)] = top
+    want = np.asarray(pallas_kernels.softmax_xent(jnp.asarray(logits),
+                                                  jnp.asarray(labels))[2])
+    _, _, pred = kernels.softmax_xent(torch.from_numpy(logits),
+                                      torch.from_numpy(labels))
+    np.testing.assert_array_equal(pred.numpy(), want)
+    np.testing.assert_array_equal(pred.numpy(), logits.argmax(axis=1))
+    assert [int(pred[r]) for r in ties] == [min(c) for c in ties.values()]
+
+
+def test_softmax_xent_is_differentiated_through_its_function():
+    """On the CPU the loss kernel is differentiated by its Function's
+    explicit backward (``softmax_xent_bwd_plain``), equal to torch's
+    autograd through the plain forward within 1e-5."""
+    logits, labels = _xent_inputs(16, 32, 96)
+    x = torch.from_numpy(logits).requires_grad_(True)
+    lab = torch.from_numpy(labels)
+    nll, lse, pred = kernels.softmax_xent(x, lab)
+    assert type(nll.grad_fn).__name__ == "_SoftmaxXentBackward"
+    assert not pred.requires_grad
+    w = torch.linspace(-1, 1, 32)
+    (got,) = torch.autograd.grad((nll * w).sum() + lse.sum() * 0.5, x)
+    pn, pl, _ = kernels.softmax_xent_plain(x, lab)
+    (auto,) = torch.autograd.grad((pn * w).sum() + pl.sum() * 0.5, x)
+    np.testing.assert_allclose(got.numpy(), auto.numpy(), atol=TOL, rtol=0)
+
+
+def test_softmax_xent_bf16_reads_logits_in_their_dtype():
+    """bf16 logits: the values equal the f32 computation on the widened
+    logits (the widening is exact), and the gradient is that f32
+    gradient rounded once to bf16."""
+    logits, labels = _xent_inputs(17, 16, 100)
+    xb = torch.from_numpy(logits).to(torch.bfloat16)
+    lab = torch.from_numpy(labels)
+    nll, lse, pred = kernels.softmax_xent(xb, lab)
+    fn, fl, fp = kernels.softmax_xent(xb.float(), lab)
+    assert torch.equal(nll, fn) and torch.equal(lse, fl)
+    assert torch.equal(pred, fp)
+    g = torch.full((16,), 1 / 16)
+    d = kernels.softmax_xent_bwd(xb, lab, lse, g)
+    assert d.dtype == torch.bfloat16
+    assert torch.equal(d, kernels.softmax_xent_bwd(xb.float(), lab, fl,
+                                                   g).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("which", ["bwd", "xent", "xent_bwd"])
+def test_training_kernels_never_fall_back(which):
+    """Meta tensors (an unsupported device) are refused, not computed
+    by the plain versions."""
+    with pytest.raises(ValueError, match="needs CUDA"):
+        if which == "bwd":
+            x = torch.empty((1, 2, 16, 16), device="meta")
+            lse = torch.empty((1, 2, 16), device="meta")
+            kernels.flash_attention_lse_bwd(x, x, x, x, lse, x)
+        else:
+            lg = torch.empty((4, 32), device="meta")
+            lab = torch.empty((4,), dtype=torch.int32, device="meta")
+            if which == "xent":
+                kernels.softmax_xent(lg, lab)
+            else:
+                kernels.softmax_xent_bwd(lg, lab, torch.empty((4,),
+                                                              device="meta"))

@@ -1,8 +1,10 @@
-"""Each op of the port's serving slice held against its JAX op.
+"""Each op of the port held against its JAX op.
 
 The same numpy inputs and parameters go through the ``flexflow_tpu``
 op and its ``flexflow_torch`` counterpart on the CPU; outputs (and KV
-caches, for the cached attention protocol) agree in f32 within 1e-5.
+caches, for the cached attention protocol) agree in f32 within 1e-5,
+and the gradients of every op on the training path agree with
+``jax.vjp`` within 1e-5 relative to their largest magnitude.
 Where the JAX op reaches a Pallas kernel (dense attention at t >= 16,
 cached decode) it runs in interpret mode, as the JAX package's own
 tests run it.
@@ -195,12 +197,17 @@ def test_einsum_decode_reference():
 
 
 def test_softmax_forward_refuses():
+    """The loss forward runs K3: on a device that is neither the CPU nor
+    CUDA (meta tensors stand in) it refuses instead of computing a plain
+    cross-entropy."""
     _, lg = _specs("lg", (2, 4, 10))
     _, lb = _specs("lb", (2, 4), "int32")
     top = tops.SoftmaxCrossEntropy("softmax", lg, lb)
     assert top.is_loss
-    with pytest.raises(NotImplementedError, match="K3"):
-        top.forward({}, [], {}, True)
+    logits = torch.empty((2, 4, 10), device="meta")
+    labels = torch.empty((2, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="needs CUDA"):
+        top.forward({}, [logits, labels], {}, True)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -228,3 +235,105 @@ def test_moe_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbuild(batch_size=1, seq_len=8, vocab_size=16, d_model=8,
                num_heads=2, num_layers=1, moe_experts=2)
+
+
+# ---------------------------------------------------------------------------
+# backward of each op, against jax.vjp
+# ---------------------------------------------------------------------------
+
+
+def _grads_match(jop, top, jp, tp, xs, tol=TOL, float_inputs=(0,)):
+    """Gradients of ``sum(y * g)`` w.r.t. the params and the float inputs
+    agree with ``jax.vjp`` of the JAX op within ``tol`` times the
+    larger of 1 and the gradient's largest magnitude (f32 sums in another
+    order; attention's input gradients reach ~20 here)."""
+    import jax
+
+    jxs = [jnp.asarray(x) for x in xs]
+    txs = [torch.from_numpy(np.asarray(x)) for x in xs]
+
+    def jf(params, fl):
+        ins = list(jxs)
+        for i, x in zip(float_inputs, fl):
+            ins[i] = x
+        return jop.forward(params, ins, {}, True)[0][0]
+
+    jy, vjp = jax.vjp(jf, jp, [jxs[i] for i in float_inputs])
+    g = np.random.default_rng(99).standard_normal(jy.shape).astype(np.float32)
+    jgp, jgx = vjp(jnp.asarray(g, jy.dtype))
+    tp = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    for i in float_inputs:
+        txs[i] = txs[i].clone().requires_grad_(True)
+    ty = top.forward(tp, txs, {}, True)[0][0]
+    leaves = list(tp.values()) + [txs[i] for i in float_inputs]
+    got = torch.autograd.grad((ty.float() * torch.from_numpy(g)).sum(), leaves)
+    want = [jgp[k] for k in tp] + list(jgx)
+    for name, a, b in zip(list(tp) + ["x"] * len(float_inputs), got, want):
+        assert a.dtype == torch.float32 or str(a.dtype).endswith(
+            np.dtype(b.dtype).name), name
+        b = np.asarray(b, np.float32)
+        np.testing.assert_allclose(a.float().numpy(), b,
+                                   atol=tol * max(1.0, float(np.abs(b).max())),
+                                   rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("act", [None, "gelu", "relu"])
+def test_linear_backward(act):
+    js, ts = _specs("x", (3, 5, 16))
+    jop = jops.Linear("d", js, 24, activation=act)
+    top = tops.Linear("d", ts, 24, activation=act)
+    jp, tp = _params(jop, top, 30)
+    _grads_match(jop, top, jp, tp, [_x(31, (3, 5, 16))])
+
+
+def test_layer_norm_backward():
+    js, ts = _specs("x", (2, 6, 20))
+    jop, top = jops.LayerNorm("ln", js), tops.LayerNorm("ln", ts)
+    jp, tp = _params(jop, top, 32)
+    _grads_match(jop, top, jp, tp, [5 + 2 * _x(33, (2, 6, 20))])
+
+
+def test_position_embedding_and_add_backward():
+    js, ts = _specs("x", (2, 10, 8), axes=("n", "s", None))
+    jop, top = jops.PositionEmbedding("pos", js), tops.PositionEmbedding("pos", ts)
+    jp, tp = _params(jop, top, 34)
+    _grads_match(jop, top, jp, tp, [_x(35, (2, 10, 8))])
+    jadd, tadd = jops.Add("add", js, js), tops.Add("add", ts, ts)
+    _grads_match(jadd, tadd, {}, {}, [_x(36, (2, 10, 8)), _x(37, (2, 10, 8))],
+                 float_inputs=(0, 1))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_backward(causal):
+    """t = 16: the JAX op differentiates through its Pallas flash VJP
+    (interpret mode), the port through K1b's plain backward."""
+    jop, top, jp, tp = _mha(causal)
+    _grads_match(jop, top, jp, tp, [_x(38, (2, 16, 32))])
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_word_embedding_backward(out_dtype):
+    """The table stays f32 when the output is bf16 (the graph's rule
+    under sparse embedding updates), so its gradient is f32: the bf16
+    cotangent is widened and scatter-added in f32, as JAX's cast VJP
+    and gather transpose do.  Repeated ids sum."""
+    import jax
+
+    js, ts = _specs("tok", (2, 9), "int32", ("n", "s"))
+    jdt = jnp.bfloat16 if out_dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if out_dtype == "bfloat16" else torch.float32
+    jop = jops.WordEmbedding("embed", js, 50, 12, out_dtype=jdt)
+    top = tops.WordEmbedding("embed", ts, 50, 12, out_dtype=tdt)
+    jp, tp = _params(jop, top, 39)
+    ids = np.random.default_rng(40).integers(0, 8, (2, 9)).astype(np.int32)
+    g = _x(41, (2, 9, 12))
+    _, vjp = jax.vjp(lambda p: jop.forward(p, [jnp.asarray(ids)], {}, True)[0][0],
+                     jp)
+    (jg,) = vjp(jnp.asarray(g, jdt))
+    table = tp["table"].clone().requires_grad_(True)
+    y = top.forward({"table": table}, [torch.from_numpy(ids)], {}, True)[0][0]
+    assert y.dtype == tdt and table.dtype == torch.float32
+    (tg,) = torch.autograd.grad(y, table, torch.from_numpy(g).to(tdt))
+    assert tg.dtype == torch.float32
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg["table"]), atol=1e-6,
+                               rtol=0)
