@@ -17,6 +17,24 @@ from flexflow_torch.ops import kernels
 from flexflow_torch.ops.base import Op, TensorSpec
 
 
+class _RowMean(torch.autograd.Function):
+    """Row means of ``(N, V)`` logits in f32 with no f32 copy of the
+    logits (the reduction widens them as it reads them).  The backward
+    is the per-row constant ``g / V`` in the logits' dtype, broadcast as
+    a view: autograd adds it to K3's dlogits, so the step holds no other
+    ``(N, V)`` tensor.  In bf16 that sum rounds a second time, where the
+    JAX op adds both terms in f32 and rounds once."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.v, ctx.dtype = x.shape[-1], x.dtype
+        return x.mean(dim=-1, dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g / ctx.v).to(ctx.dtype)[:, None].expand(-1, ctx.v)
+
+
 class SoftmaxCrossEntropy(Op):
     """Softmax + cross-entropy against int labels, mean over every
     leading dim, with optional uniform label smoothing."""
@@ -45,16 +63,15 @@ class SoftmaxCrossEntropy(Op):
         op's f32 cast, and its gradient is rounded once to the logits'
         dtype, as the cast's VJP rounds."""
         logits, labels = xs
-        v = logits.shape[-1]
+        flat = logits.reshape(-1, logits.shape[-1])
         nll, lse, pred = kernels.softmax_xent(
-            logits.reshape(-1, v), labels.reshape(-1).to(torch.int32))
+            flat, labels.reshape(-1).to(torch.int32))
         eps = self.attrs["label_smoothing"]
         if eps > 0.0:
             # (1-eps)*nll + eps*(1/V) sum_j -log p_j
             # = (1-eps)*nll + eps*(lse - mean(logits)): exact from row
             # statistics, so it composes with the fused kernel.
-            mean = logits.reshape(-1, v).float().mean(dim=-1)
-            nll = (1.0 - eps) * nll + eps * (lse - mean)
+            nll = (1.0 - eps) * nll + eps * (lse - _RowMean.apply(flat))
         loss = nll.mean()
         correct = (pred == labels.reshape(-1).to(torch.int32)).sum(
             dtype=torch.int32)

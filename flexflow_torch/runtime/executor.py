@@ -3,9 +3,10 @@ dense single-device train step.
 
 The single-device path of ``flexflow_tpu/runtime/executor.py``:
 
-- ``init`` returns ``(params, opt_state, state)`` on the device;
-- ``forward`` runs every op and returns ``(loss, metrics, new_state,
-  env)``;
+- ``init_params`` returns the params on the device, and ``init``
+  ``(params, opt_state, state)`` for training;
+- ``forward`` runs the ops (every op, or those given) and returns
+  ``(loss, metrics, new_state, env)``;
 - ``train_step`` is one iteration (forward, backward by autograd through
   the kernels' ``torch.autograd.Function``s, ``--clip-norm``, the
   optimizer update) and returns ``(params, opt_state, state, metrics)``.
@@ -27,7 +28,6 @@ import torch
 
 from flexflow_torch.config import FFConfig
 from flexflow_torch.graph import FFModel
-from flexflow_torch.optim import SGDOptimizer
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -76,18 +76,25 @@ class Executor:
         self.model = model
         self.config = config or model.config
         self.device = resolve_device(device)
-        self.optimizer = optimizer or SGDOptimizer(
-            lr=self.config.learning_rate,
-            weight_decay=self.config.weight_decay)
+        #: None for an executor that only runs forwards; ``init`` and
+        #: ``train_step`` need one (``apps.common.make_optimizer`` builds
+        #: it from the flags).
+        self.optimizer = optimizer
+
+    def _require_optimizer(self, what: str):
+        if self.optimizer is None:
+            raise ValueError(
+                f"Executor.{what} needs an optimizer: pass optimizer="
+                f"make_optimizer(cfg) (flexflow_torch.apps.common)")
+        return self.optimizer
 
     # -- initialization ------------------------------------------------------
 
-    def init(self, seed: Optional[int] = None):
-        """Fresh ``(params, opt_state, state)`` on the device.  Params
-        are ``{op_name: {param: tensor}}`` drawn from a ``torch.Generator``
-        seeded with ``seed`` (default ``config.seed``), op by op and key
-        by key in sorted order: the JAX package's order, not its values.
-        No op of the port keeps state yet, so ``state`` is ``{}``."""
+    def init_params(self, seed: Optional[int] = None) -> Tree:
+        """Fresh params ``{op_name: {param: tensor}}`` on the device,
+        drawn from a ``torch.Generator`` seeded with ``seed`` (default
+        ``config.seed``), op by op and key by key in sorted order: the JAX
+        package's order, not its values."""
         seed = self.config.seed if seed is None else seed
         gen = torch.Generator().manual_seed(int(seed))
         params: Tree = {}
@@ -99,7 +106,14 @@ class Executor:
                                             specs[k].dtype).to(self.device)
                     for k in sorted(specs)
                 }
-        return params, self.optimizer.init(params), {}
+        return params
+
+    def init(self, seed: Optional[int] = None):
+        """Fresh ``(params, opt_state, state)`` for training.  No op of
+        the port keeps state yet, so ``state`` is ``{}``."""
+        opt = self._require_optimizer("init")
+        params = self.init_params(seed)
+        return params, opt.init(params), {}
 
     def shard_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """A host batch as tensors on the device, each in its input's
@@ -125,16 +139,18 @@ class Executor:
         return env
 
     def forward(self, params, state, batch: Mapping[str, Any],
-                training: bool):
-        """Run the op graph.  Returns ``(loss, metrics, new_state,
-        env)``; ``env`` maps every tensor name to its value, except the
-        loss ops' outputs, which no op reads and the port does not
-        compute (``ops/losses.py``)."""
-        env = self._inputs(batch, {t.name for t in self.model.input_tensors})
+                training: bool, layers: Optional[List] = None):
+        """Run the op graph, or the ops in ``layers`` (in graph order);
+        ``batch`` needs only the inputs they read.  Returns ``(loss,
+        metrics, new_state, env)``; ``env`` maps every tensor name to its
+        value, except the loss ops' outputs, which no op reads and the
+        port does not compute (``ops/losses.py``)."""
+        layers = self.model.layers if layers is None else layers
+        env = self._inputs(batch, {t.name for op in layers for t in op.inputs})
         total_loss = None
         metrics: Dict[str, torch.Tensor] = {}
         new_state: Dict[str, Any] = {}
-        for op in self.model.layers:
+        for op in layers:
             xs = [env[t.name] for t in op.inputs]
             s = state.get(op.name, {})
             result, s_new = op.forward(params.get(op.name, {}), xs, s,
@@ -162,14 +178,9 @@ class Executor:
         op output by tensor name (``outs["lm_head:out"]`` is the LM's
         full-sequence logits).  ``batch`` needs only the inputs those
         ops read (an LM's labels feed its loss alone)."""
-        layers: List = [op for op in self.model.layers if not op.is_loss]
-        env = self._inputs(batch, {t.name for op in layers for t in op.inputs})
-        for op in layers:
-            xs = [env[t.name] for t in op.inputs]
-            ys, _ = op.forward(params.get(op.name, {}), xs, {},
-                               training=False)
-            for t, y in zip(op.outputs, ys):
-                env[t.name] = y
+        layers = [op for op in self.model.layers if not op.is_loss]
+        _, _, _, env = self.forward(params, {}, batch, training=False,
+                                    layers=layers)
         return {t.name: env[t.name] for op in layers for t in op.outputs}
 
     # -- steps ---------------------------------------------------------------
@@ -210,10 +221,11 @@ class Executor:
     def train_step(self, params, opt_state, state, batch):
         """One iteration: forward, backward, clip, optimizer update in
         place.  Returns ``(params, opt_state, state, metrics)``."""
+        opt = self._require_optimizer("train_step")
         _loss, metrics, new_state, grads = self.loss_and_grads(
             params, state, batch)
         grads = self._clip_grads(grads)
-        params, opt_state = self.optimizer.update(params, opt_state, grads)
+        params, opt_state = opt.update(params, opt_state, grads)
         return params, opt_state, new_state, metrics
 
     @torch.no_grad()

@@ -131,8 +131,8 @@ class ServingExecutor:
 
     def init(self, seed: Optional[int] = None):
         """Fresh ``(params, op_state)`` on the serving device."""
-        params, _opt, _state = Executor(self.model, config=self.config,
-                                        device=self.device).init(seed)
+        params = Executor(self.model, config=self.config,
+                          device=self.device).init_params(seed)
         return params, {}
 
     # -- caches -------------------------------------------------------------

@@ -8,7 +8,10 @@ against the JAX package on the CPU with the same numpy inputs.
   moments and step count included.
 - ``SoftmaxCrossEntropy``: loss and metrics equal the JAX op's (1e-5),
   label smoothing included, on the fused (V = 1024) and the unfused
-  (V = 10) JAX paths; the gradient of the loss agrees within 1e-5.
+  (V = 10) JAX paths; the gradient of the loss agrees within 1e-5, and
+  with bf16 logits the smoothed gradient is the f32 one within bf16
+  rounding.
+- ``Executor`` without an optimizer runs forwards and refuses to train.
 - ``PerfMetrics``, ``mean_metrics`` and ``synthetic_host_batch`` match.
 """
 
@@ -202,7 +205,7 @@ def test_loss_graph_goes_through_the_kernel_functions():
     from flexflow_torch.runtime.executor import Executor
 
     ex = Executor(ff, device="cpu")
-    params, _, state = ex.init()
+    params, state = ex.init_params(), {}
     for g in params.values():
         for p in g.values():
             p.requires_grad_(True)
@@ -218,6 +221,61 @@ def test_loss_graph_goes_through_the_kernel_functions():
         stack.extend(f for f, _ in fn.next_functions)
     assert names.count("_SoftmaxXentBackward") == 1
     assert names.count("_FlashAttentionBackward") == 2
+
+
+def test_label_smoothing_bf16_gradient():
+    """With label smoothing, the row mean's gradient is a per-row
+    constant ``c = -eps / (V N)`` in the logits' dtype added to K3's
+    dlogits: bf16 logits get the f32 gradient within the roundings of
+    both terms and of their sum, 2^-7 of ``|grad| + |c|`` (the sum may
+    cancel)."""
+    shape, eps = (2, 16, 1024), 0.1
+    r = np.random.default_rng(11)
+    logits = (2 * r.standard_normal(shape)).astype(np.float32)
+    labels = torch.from_numpy(r.integers(0, 1024, shape[:2]).astype(np.int32))
+    grads = {}
+    for dt in (torch.float32, torch.bfloat16):
+        op = tops.SoftmaxCrossEntropy(
+            "softmax", TSpec("lg", shape, dt, ("n", "s", None)),
+            TSpec("lb", shape[:2], torch.int32, ("n", "s")),
+            label_smoothing=eps)
+        x = torch.from_numpy(logits).to(dt).requires_grad_(True)
+        (loss, _, _), _ = op.forward({}, [x, labels], {}, True)
+        (grads[dt],) = torch.autograd.grad(loss, x)
+        assert grads[dt].dtype == dt
+    # Same bf16 inputs in f32, so only the gradient's rounding differs.
+    x32 = torch.from_numpy(logits).to(torch.bfloat16).float()
+    x32.requires_grad_(True)
+    (loss, _, _), _ = op.forward({}, [x32, labels], {}, True)
+    (want,) = torch.autograd.grad(loss, x32)
+    err = (grads[torch.bfloat16].float() - want).abs()
+    c = eps / (shape[-1] * shape[0] * shape[1])
+    assert bool((err <= 2.0 ** -7 * (want.abs() + c)).all()), err.max()
+
+
+def test_executor_needs_an_optimizer_to_train():
+    """An executor without an optimizer gives params and runs forwards,
+    and refuses ``init`` and ``train_step``; ``forward_step`` returns the
+    non-loss outputs of the same walk as ``forward``."""
+    from flexflow_torch.runtime.executor import Executor
+
+    ff = tbuild(batch_size=2, seq_len=16, vocab_size=64, d_model=32,
+                num_heads=2, num_layers=1, config=TConfig(batch_size=2, seed=0))
+    ex = Executor(ff, device="cpu")
+    params = ex.init_params()
+    batch = t_batch(ff, np.random.default_rng(0))
+    with pytest.raises(ValueError, match="needs an optimizer"):
+        ex.init()
+    with pytest.raises(ValueError, match="needs an optimizer"):
+        ex.train_step(params, None, {}, batch)
+    outs = ex.forward_step(params, {"tokens": batch["tokens"]})
+    with torch.no_grad():
+        _, _, _, env = ex.forward(params, {}, batch, training=False)
+    assert outs and all(torch.equal(v, env[k]) for k, v in outs.items())
+    trained = Executor(ff, optimizer=toptim.SGDOptimizer(lr=0.1), device="cpu")
+    p, s, st = trained.init()
+    assert all(torch.equal(p[op][k], params[op][k])
+               for op in params for k in params[op])
 
 
 # ---------------------------------------------------------------------------
