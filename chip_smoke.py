@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Seven phases, in order; any failure raises and exits non-zero:
+Eleven phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -49,9 +49,31 @@ Seven phases, in order; any failure raises and exits non-zero:
    and every updated parameter agree within the stated tolerances.
 7. **Profile.**  One warm train step of the phase 5 model under
    ``torch.profiler``: the device busy share and device time by kernel.
+8. **DLRM kernels.**  K4 (row gather) and K5 (row scatter-add) against
+   their plain versions bit for bit, and K5 against itself across two
+   launches, at the main-path shape ((8 x 10^6, 64) f32, 2048 uniform
+   ids), with zipf(1.2) ids, all ids equal, n = 0 and 1, D = 16, 65 and
+   512, and the LM's token table (32768 ids into (32768, 512)); rows the
+   ids do not name never change.  Times beside the byte bound, the plain
+   version and ``F.embedding`` / ``index_add_``.
+9. **DLRM train.**  ``bench.py``'s DLRM leg (8 x 10^6 x 64 tables, MLPs
+   64-512-512-64 and 576-1024-1024-1024-1, batch 256, bf16) through
+   ``flexflow_torch.apps.dlrm.main`` for 1 warmup and 10 timed steps:
+   plain SGD and lazy Adam on the row-sparse path (K4 = K5 = steps;
+   K4 = 4 x steps and K5 = 3 x steps), momentum SGD on the dense path
+   (no K4/K5): finite losses, exact launch counts, no attention or
+   cross-entropy launch, only the batch's rows changed.  Prints
+   samples/s, ms/step, MFU and peak memory.
+10. **DLRM parity.**  One f32 step at 8 x 100,000 x 64 (ids over the
+    whole vocabulary with planted duplicates) on the card and on the CPU
+    for plain SGD, lazy momentum and lazy Adam: the loss, every
+    parameter's step and the optimizer state agree within the stated
+    tolerances, and untouched rows stay bit-identical on both sides.
+11. **DLRM profile.**  One warm plain-SGD DLRM step under
+    ``torch.profiler``.
 
-Then it prints a ``kernels`` JSON line (``launches``: the serve and
-train runs together, split in ``launches_by_path``), the card's name
+Then it prints a ``kernels`` JSON line (``launches``: the serve, train
+and DLRM runs together, split in ``launches_by_path``), the card's name
 and power limit from ``nvidia-smi``, and as its last line the JSON
 object ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits 2 and prints no result.
@@ -115,6 +137,26 @@ PARITY_TRAIN = dict(batch=2, seq=256, layers=2, vocab=32768, d_model=512,
                     heads=8, lr=1e-4, seed=0)
 TOL_TRAIN_LOSS = 1e-4
 TOL_TRAIN_GRAD = (1e-4, 1e-7)
+
+#: The DLRM configuration of phases 9 and 11: bench.py's DLRM leg on one
+#: chip (``bench.py:205-235``: ``dlrm_random_benchmark_config(8)``, batch
+#: 256, bf16, ``SGDOptimizer(lr=0.01)``) through ``apps.dlrm.main``, 1
+#: warmup + 10 timed steps.  ``--momentum 0 --wd 0`` make the flags'
+#: optimizer the leg's: FFConfig's defaults (momentum 0.9, wd 1e-4) would
+#: take the dense path.
+DLRM = dict(batch=256, tables=8, vocab=1_000_000, dim=64,
+            bot=(64, 512, 512, 64), top=(576, 1024, 1024, 1024, 1), lr=0.01,
+            iters=10, warmup=1, seed=1234)
+#: The f32 step of phase 10: 8 x 100,000 x 64 tables, batch 256.
+DLRM_PARITY = dict(batch=256, vocab=100_000, seed=0)
+#: Phase 10's tolerances: the loss absolute; each parameter's step
+#: ``p1 - p0`` within ``rtol`` of the tensor's largest step plus two f32
+#: ulps of its largest value (``p1`` is rounded to f32 on each side); each
+#: optimizer state tensor within ``rtol`` of its largest magnitude plus
+#: ``atol`` (f32 sums in another order on the two sides).  Lazy Adam's
+#: first step is about lr * sign(g), so its params are held as in phase 6.
+TOL_DLRM_LOSS = 1e-5
+TOL_DLRM_STEP = (1e-4, 1e-9)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -603,7 +645,8 @@ def phase_train(torch, kernels, rows):
     L = TRAIN["layers"]
     want = {"flash_attention_lse": L * steps,
             "flash_attention_lse_bwd": L * steps, "softmax_xent": steps,
-            "softmax_xent_bwd": steps, "flash_decode": 0}
+            "softmax_xent_bwd": steps, "flash_decode": 0, "gather_rows": 0,
+            "scatter_add_rows": 0}
     _check(launches == want, f"launch counts {launches}, expected {want}")
     ms_step = stats["elapsed_s"] * 1e3 / stats["iterations"]
     tokens_s = stats["samples_per_s"] * TRAIN["seq"]
@@ -623,12 +666,36 @@ def phase_train(torch, kernels, rows):
     return launches
 
 
-def phase_profile(torch):
-    """One warm train step of the TRAIN model under torch.profiler:
-    device time by kernel name and the step's device busy share."""
+def _profile_step(torch, tag: str, step) -> None:
+    """``step()`` once under torch.profiler: the device busy share of its
+    wall time and device time by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side events only (kernels, copies): host ops would count
+    # their kernels' time a second time.
+    dev = sorted(((e.self_device_time_total, e.key, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_ms = sum(us for us, _, _ in dev) / 1e3
+    print(f"[{tag}] one train step: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%, idle "
+          f"{100 - 100 * busy_ms / wall_ms:.1f}%), {sum(n for _, _, n in dev)} "
+          f"device events")
+    for us, key, count in dev[:20]:
+        print(f"[{tag}] {us / 1e3:10.3f} ms ({100 * us / 1e3 / wall_ms:5.1f}%)"
+              f" x{count:<4d} {key[:80]}")
+
+
+def phase_profile(torch):
+    """One warm train step of the TRAIN model under torch.profiler:
+    device time by kernel name and the step's device busy share."""
     from flexflow_torch.apps.common import make_optimizer
     from flexflow_torch.config import FFConfig
     from flexflow_torch.models.transformer import build_transformer_lm
@@ -643,28 +710,15 @@ def phase_profile(torch):
                               num_heads=c["heads"], num_layers=c["layers"],
                               config=cfg)
     ex = Executor(ff, cfg, optimizer=make_optimizer(cfg), device="cuda")
-    params, opt, state = ex.init()
+    state = list(ex.init())
     batch = Trainer(ex).synthetic_batch()
+
+    def step():
+        state[:3] = ex.train_step(*state, batch)[:3]
+
     for _ in range(2):
-        params, opt, state, _ = ex.train_step(params, opt, state, batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        params, opt, state, _ = ex.train_step(params, opt, state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side events only (kernels, copies): host ops would count
-    # their kernels' time a second time.
-    dev = sorted(((e.self_device_time_total, e.key, e.count)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA), reverse=True)
-    busy_ms = sum(us for us, _, _ in dev) / 1e3
-    print(f"[profile] one train step: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%, idle "
-          f"{100 - 100 * busy_ms / wall_ms:.1f}%)")
-    for us, key, count in dev[:20]:
-        print(f"[profile] {us / 1e3:10.3f} ms ({100 * us / 1e3 / wall_ms:5.1f}%)"
-              f" x{count:<4d} {key[:80]}")
+        step()
+    _profile_step(torch, "profile", step)
 
 
 def phase_train_parity(torch, kernels):
@@ -733,6 +787,339 @@ def phase_train_parity(torch, kernels):
           f"updated-param err {worst_p:.3g} (lr {c['lr']})")
 
 
+def _dlrm_model(batch: int, vocab: int, dtype: str, seed: int, **cfg_kw):
+    """The DLRM graph of the DLRM phases (``apps.dlrm``'s for the same
+    flags) and its config."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.dlrm import DLRMConfig, build_dlrm
+
+    c = DLRM
+    cfg = FFConfig(batch_size=batch, compute_dtype=dtype, seed=seed, **cfg_kw)
+    spec = DLRMConfig(sparse_feature_size=c["dim"],
+                      embedding_size=[vocab] * c["tables"],
+                      mlp_bot=list(c["bot"]), mlp_top=list(c["top"]))
+    return build_dlrm(batch, spec, cfg), cfg
+
+
+def _dlrm_argv(optimizer: str = "sgd", extra=()):
+    c = DLRM
+
+    def dash(xs):
+        return "-".join(str(x) for x in xs)
+
+    return ["-b", str(c["batch"]), "-i", str(c["iters"]), "--dtype", "bfloat16",
+            "--optimizer", optimizer, "--lr", str(c["lr"]), "--momentum", "0",
+            "--wd", "0", "--seed", str(c["seed"]),
+            "--arch-sparse-feature-size", str(c["dim"]),
+            "--arch-embedding-size", dash([c["vocab"]] * c["tables"]),
+            "--arch-mlp-bot", dash(c["bot"]), "--arch-mlp-top", dash(c["top"]),
+            *extra]
+
+
+def dlrm_flops(ff) -> float:
+    """FLOPs of one train step: 3 x the forward's ``2 B in out`` of every
+    linear layer (``bench.py::_train_flops`` for these ops)."""
+    from flexflow_torch.ops import Linear
+
+    b = ff.input_tensors[0].shape[0]
+    return 3.0 * sum(2 * b * op.in_dim * op.attrs["out_dim"]
+                     for op in ff.layers if isinstance(op, Linear))
+
+
+def _touched(torch, ids, shape):
+    """(T, V) bool on the card: the rows of each table that a (B, T) id
+    batch addresses."""
+    mask = torch.zeros(shape, dtype=torch.bool, device="cuda")
+    for t in range(shape[0]):
+        mask[t, torch.as_tensor(ids[:, t], device="cuda").long()] = True
+    return mask
+
+
+def phase_dlrm_kernels(torch, kernels, F):
+    """K4 and K5 against their plain versions on the card, bit for bit,
+    and K5 against itself across two launches; device times beside the
+    byte bound, the plain version and ``F.embedding`` / ``index_add_``.
+    Returns the rows of the main-path shape."""
+    import numpy as np
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    c = DLRM
+    main_rows = c["tables"] * c["vocab"]
+    main_n = c["batch"] * c["tables"]
+    cases = (
+        ("main", main_rows, c["dim"], main_n, "uniform"),
+        ("zipf", main_rows, c["dim"], main_n, "zipf"),
+        ("equal", main_rows, c["dim"], main_n, "equal"),
+        ("n=0", 100_000, c["dim"], 0, "uniform"),
+        ("n=1", 100_000, c["dim"], 1, "uniform"),
+        ("D=16", 100_000, 16, main_n, "uniform"),
+        ("D=65", 100_000, 65, main_n, "zipf"),
+        ("D=512", 100_000, 512, main_n, "zipf"),
+        ("wte", 32768, 512, 32768, "uniform"),
+    )
+    out = {}
+    for name, R, D, n, kind in cases:
+        table = torch.randn((R, D), generator=g, device="cuda")
+        if kind == "uniform":
+            ids = torch.randint(0, R, (n,), generator=g, device="cuda")
+        elif kind == "zipf":  # data/trace.py's skew
+            z = np.minimum(np.random.default_rng(5).zipf(1.2, n), R) - 1
+            ids = torch.as_tensor(z, device="cuda")
+        else:
+            ids = torch.full((n,), R // 2, device="cuda", dtype=torch.int64)
+        if name == "wte":
+            ids = ids.to(torch.int32)  # the LM's token ids
+        upd = torch.randn((n, D), generator=g, device="cuda")
+        rows = kernels.gather_rows(table, ids)
+        want = kernels.gather_rows_plain(table, ids)
+        t1, t2, t3 = table.clone(), table.clone(), table.clone()
+        kernels.scatter_add_rows(t1, ids, upd)
+        kernels.scatter_add_rows(t2, ids, upd)
+        kernels.scatter_add_rows_plain(t3, ids, upd)
+        torch.cuda.synchronize()
+        hit = torch.zeros((R,), dtype=torch.bool, device="cuda")
+        hit[ids.long()] = True
+        stray = bool(((t1 != table).any(1) & ~hit).any())
+        _check(torch.equal(rows.view(torch.int32), want.view(torch.int32))
+               and torch.equal(t1, t3) and torch.equal(t1, t2) and not stray,
+               f"row kernels {name} ({R}, {D}) n={n}: gather exact "
+               f"{torch.equal(rows, want)}, scatter exact {torch.equal(t1, t3)}, "
+               f"repeat exact {torch.equal(t1, t2)}, rows outside the ids "
+               f"changed {stray}")
+        err_g = (rows - want).abs().max().item() if n else 0.0
+        err_s = (t1 - t3).abs().max().item() if n else 0.0
+        del t2, t3
+        uniq = int(torch.unique(ids).numel())
+        line = (f"[dlrm-kernels] {name}: table ({R}, {D}) f32, {n} "
+                f"{str(ids.dtype)[6:]} ids ({kind}, {uniq} distinct): gather "
+                f"and scatter bit-exact against the plain versions, scatter "
+                f"bit-identical across two launches")
+        if n == 0:
+            _check(torch.equal(t1, table), "scatter with n = 0 changed the table")
+            print(line)
+            continue
+        isz = ids.element_size()
+        ms_g = _device_ms(lambda: kernels.gather_rows(table, ids))
+        plain_g = _device_ms(lambda: kernels.gather_rows_plain(table, ids))
+        lib_g = _device_ms(lambda: F.embedding(ids, table))
+        bound_g, by_g = _bound_ms(n * isz + uniq * D * 4 + n * D * 4, 0.0,
+                                  "float32")
+        ms_s = _device_ms(lambda: kernels.scatter_add_rows(t1, ids, upd))
+        plain_s = _device_ms(lambda: kernels.scatter_add_rows_plain(t1, ids, upd))
+        lib_s = _device_ms(lambda: t1.index_add_(0, ids, upd))
+        bound_s, by_s = _bound_ms(n * isz + n * D * 4 + 2 * uniq * D * 4,
+                                  n * D, "float32")
+        print(f"{line}; gather {ms_g:.5f} ms (plain {plain_g:.5f}, "
+              f"F.embedding {lib_g:.5f}, bound {bound_g:.6f} by {by_g}); "
+              f"scatter {ms_s:.5f} ms (plain {plain_s:.5f}, index_add_ "
+              f"{lib_s:.5f}, bound {bound_s:.6f} by {by_s})")
+        if name == "main":
+            out["gather_rows"] = dict(max_abs_err=err_g, ms=ms_g, plain_ms=plain_g,
+                                      bound_ms=bound_g, bound_by=by_g,
+                                      library_ms=lib_g)
+            out["scatter_add_rows"] = dict(
+                max_abs_err=err_s, ms=ms_s, plain_ms=plain_s, bound_ms=bound_s,
+                bound_by=by_s, library_ms=lib_s)
+        del table, t1, rows, want, upd, hit
+    return out
+
+
+def phase_dlrm_train(torch, kernels):
+    """The full-width DLRM through ``apps.dlrm.main``: plain SGD and lazy
+    Adam on the row-sparse path, momentum SGD on the dense path.  Returns
+    the launch counts by run and the SGD run's trained params."""
+    import numpy as np
+
+    from flexflow_torch.apps import dlrm
+    from flexflow_torch.data.loader import synthetic_host_batch
+    from flexflow_torch.runtime.executor import Executor
+
+    c = DLRM
+    ff, cfg = _dlrm_model(c["batch"], c["vocab"], "bfloat16", c["seed"])
+    t0 = time.perf_counter()
+    table0 = Executor(ff, cfg, device="cuda").init_params()["embeddings"]["tables"]
+    init_s = time.perf_counter() - t0
+    # The app's fixed synthetic batch: ids in {0, 1} (Trainer.synthetic_batch).
+    ids = synthetic_host_batch(ff, np.random.default_rng(0))["sparse_input"]
+    touched = _touched(torch, ids, table0.shape[:2])
+    flops = dlrm_flops(ff)
+    steps = c["warmup"] + c["iters"]
+    runs = (("sgd", _dlrm_argv("sgd"), 1, 1),
+            # Lazy Adam gathers the batch's rows, then the unique rows of
+            # the table, m and v; it scatters into the table, m and v.
+            ("lazy_adam", _dlrm_argv("adam", ["--lazy-sparse-opt"]), 4, 3),
+            ("dense", _dlrm_argv("sgd", ["--momentum", "0.9"]), 0, 0))
+    by_run, sgd_params = {}, None
+    for name, argv, k4, k5 in runs:
+        stats = {}
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for fn in kernels.KERNELS:
+            fn.launches = 0
+        rc = dlrm.main(argv, device="cuda", stats_out=stats)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        # The run's own peak, above what this script already holds.
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        _check(rc == 0, f"dlrm {name} exited {rc}")
+        losses = stats["step_losses"]
+        _check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+               f"dlrm {name} step losses {losses}")
+        want = {n: 0 for n in launches}
+        want.update(gather_rows=k4 * steps, scatter_add_rows=k5 * steps)
+        _check(launches == want, f"dlrm {name} launch counts {launches}, "
+               f"expected {want}")
+        params, opt_state, _ = stats.pop("final")
+        table = params["embeddings"]["tables"]
+        changed = (table != table0).any(-1)
+        _check(not bool((changed & ~touched).any()) and bool(changed[touched].all()),
+               f"dlrm {name}: rows outside the batch changed, or a batch row "
+               f"did not")
+        if name == "lazy_adam":
+            m = opt_state["m"]["embeddings"]["tables"]
+            _check(not bool(((m != 0).any(-1) & ~touched).any()),
+                   "lazy Adam moved the moments of untouched rows")
+        ms_step = stats["elapsed_s"] * 1e3 / stats["iterations"]
+        mfu = flops / (ms_step * 1e-3) / PEAK_FLOPS["bfloat16"]
+        print(f"[dlrm-train] {name}: losses {[round(x, 6) for x in losses]}; "
+              f"{ms_step:.4f} ms/step, samples/s {stats['samples_per_s']:.1f}, "
+              f"MFU {100 * mfu:.4f}% of 989 TFLOP/s ({flops:.4g} FLOP/step); "
+              f"peak memory {peak_gb:.2f} GB; {int(touched.sum())} touched "
+              f"rows changed, the other rows bit-identical; launches {launches}")
+        by_run[name] = launches
+        if name == "sgd":
+            sgd_params = params
+        del stats, params, opt_state, table, changed
+    print(f"[dlrm-train] table init (CPU draw of 8 x 10^6 x 64 f32, then "
+          f"copied to the card) {init_s:.1f}s")
+    return by_run, sgd_params
+
+
+def phase_dlrm_parity(torch, kernels):
+    """One f32 step at 8 x 100,000 x 64 on the card (kernels) and on the
+    CPU (plain versions) from the same params and batch, for plain SGD,
+    lazy momentum and lazy Adam."""
+    import numpy as np
+
+    from flexflow_torch.data.loader import synthetic_host_batch
+    from flexflow_torch.optim import AdamOptimizer, SGDOptimizer
+    from flexflow_torch.runtime.executor import Executor
+
+    c = DLRM_PARITY
+    ff, cfg = _dlrm_model(c["batch"], c["vocab"], "float32", c["seed"])
+    params0 = Executor(ff, cfg, device="cpu").init_params()
+    batch = synthetic_host_batch(ff, np.random.default_rng(c["seed"]),
+                                 {"sparse_input": c["vocab"]})
+    ids = batch["sparse_input"]
+    ids[1:9] = ids[0]                      # duplicates at distances 1 to 8
+    ids[200] = ids[20]                     # and at distance 180
+    ids[:, 3] = np.minimum(ids[:, 3], 5)   # table 3: six rows, 256 ids
+    touched = _touched(torch, ids, params0["embeddings"]["tables"].shape[:2]).cpu()
+    b1 = 0.9
+    opts = {
+        "sgd": (lambda: SGDOptimizer(lr=0.1), 1, 1),
+        "lazy_momentum": (lambda: SGDOptimizer(lr=0.1, momentum=0.9,
+                                               weight_decay=1e-4,
+                                               lazy_sparse=True), 3, 2),
+        "lazy_adam": (lambda: AdamOptimizer(lr=1e-3, b1=b1,
+                                            lazy_sparse=True), 4, 3),
+    }
+    rtol, atol = TOL_DLRM_STEP
+    for name, (make, k4, k5) in opts.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            opt = make()
+            ex = Executor(ff, cfg, optimizer=opt, device=dev)
+            _check([op.name for op in ex._sparse_ops] == ["embeddings"],
+                   f"dlrm parity {name}: the tables are not on the sparse path")
+            params = {op: {k: p.clone().to(ex.device) for k, p in g.items()}
+                      for op, g in params0.items()}
+            before = (kernels.gather_rows.launches,
+                      kernels.scatter_add_rows.launches)
+            params, state, _, m = ex.train_step(params, opt.init(params), {},
+                                                ex.shard_batch(batch))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                _check((kernels.gather_rows.launches - before[0],
+                        kernels.scatter_add_rows.launches - before[1]) == (k4, k5),
+                       f"dlrm parity {name}: not one launch set of K4/K5")
+            cpu = {op: {k: v.detach().cpu() for k, v in g.items()}
+                   for op, g in params.items()}
+            if isinstance(state, dict) and "t" in state:
+                state = {"m": state["m"], "v": state["v"]}
+            elif state is not None:
+                state = {"v": state}
+            state = {s: {op: {k: v.cpu() for k, v in g.items()}
+                         for op, g in tree.items()}
+                     for s, tree in (state or {}).items()}
+            out[dev] = (float(m["train_loss"]), cpu, state)
+        (lc, pc, sc), (lp, pp, sp) = out["cuda"], out["cpu"]
+        _check(abs(lc - lp) <= TOL_DLRM_LOSS,
+               f"dlrm parity {name}: loss card {lc}, CPU {lp}")
+        worst = 0.0
+        for op in pp:
+            for k in pp[op]:
+                p0 = params0[op][k]
+                dc, dp = pc[op][k] - p0, pp[op][k] - p0
+                if name == "lazy_adam":
+                    g = (sp["m"][op][k] / (1 - b1)).abs()
+                    big = g >= max(1e-4 * g.max().item(), 1e-6)
+                    diff = (dc - dp).abs()
+                    lr = 1e-3
+                    err = diff[big].max().item() if big.any() else 0.0
+                    _check(err <= 1e-3 * lr and diff.max().item() <= 2 * lr,
+                           f"dlrm parity {name} {op}.{k}: step err {err}")
+                    worst = max(worst, err / (1e-3 * lr))
+                else:
+                    tol = (rtol * dp.abs().max().item()
+                           + 2.0 ** -22 * p0.abs().max().item())
+                    err = (dc - dp).abs().max().item()
+                    _check(err <= tol, f"dlrm parity {name} {op}.{k}: step "
+                           f"err {err} against {tol}")
+                    worst = max(worst, err / tol)
+                if op == "embeddings":
+                    cold = ~touched
+                    _check(torch.equal(pc[op][k][cold], p0[cold])
+                           and torch.equal(pp[op][k][cold], p0[cold]),
+                           f"dlrm parity {name}: untouched rows moved")
+        for s in sp:
+            for op in sp[s]:
+                for k in sp[s][op]:
+                    want, got = sp[s][op][k], sc[s][op][k]
+                    tol = rtol * want.abs().max().item() + atol
+                    err = (got - want).abs().max().item()
+                    _check(err <= tol, f"dlrm parity {name} state {s} {op}.{k}: "
+                           f"err {err} against {tol}")
+                    worst = max(worst, err / tol)
+        print(f"[dlrm-parity] {name}: loss card {lc:.8f} CPU {lp:.8f}; worst "
+              f"param step / state error {worst:.3g} of its tolerance; "
+              f"{int(touched.sum())} touched rows, every other row "
+              f"bit-identical to its initial value on both sides")
+
+
+def phase_dlrm_profile(torch, params) -> None:
+    """One warm full-width plain-SGD DLRM step (the sparse path) under
+    torch.profiler, from the dlrm-train SGD run's params."""
+    from flexflow_torch.apps.common import make_optimizer
+    from flexflow_torch.runtime.executor import Executor
+    from flexflow_torch.runtime.trainer import Trainer
+
+    c = DLRM
+    ff, cfg = _dlrm_model(c["batch"], c["vocab"], "bfloat16", c["seed"],
+                          optimizer="sgd", learning_rate=c["lr"],
+                          momentum=0.0, weight_decay=0.0)
+    ex = Executor(ff, cfg, optimizer=make_optimizer(cfg), device="cuda")
+    _check(bool(ex._sparse_ops), "the profiled DLRM step is not sparse")
+    batch = Trainer(ex).synthetic_batch()
+
+    def step():
+        ex.train_step(params, None, {}, batch)
+
+    for _ in range(2):
+        step()
+    _profile_step(torch, "dlrm-profile", step)
+
+
 def main() -> int:
     import torch
 
@@ -762,8 +1149,18 @@ def main() -> int:
     t.append(time.perf_counter())
     phase_profile(torch)
     t.append(time.perf_counter())
+    rows.update(phase_dlrm_kernels(torch, kernels, F))
+    t.append(time.perf_counter())
+    dlrm_launches, dlrm_params = phase_dlrm_train(torch, kernels)
+    t.append(time.perf_counter())
+    phase_dlrm_parity(torch, kernels)
+    t.append(time.perf_counter())
+    phase_dlrm_profile(torch, dlrm_params)
+    del dlrm_params
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
-             "train-parity", "profile")
+             "train-parity", "profile", "dlrm-kernels", "dlrm-train",
+             "dlrm-parity", "dlrm-profile")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -774,11 +1171,15 @@ def main() -> int:
         "flash_attention_lse_bwd": (src + "flash_bwd.cu", pk + ":719"),
         "softmax_xent": (src + "softmax_xent.cu", pk + ":1187"),
         "softmax_xent_bwd": (src + "softmax_xent.cu", pk + ":1227"),
+        "gather_rows": (src + "embedding_rows.cu", pk + ":1379"),
+        "scatter_add_rows": (src + "embedding_rows.cu", pk + ":1412"),
     }
     entries = []
     for name, (source, replaces) in meta.items():
         by_path = {"serve": serve_launches[name],
-                   "train": train_launches[name]}
+                   "train": train_launches[name],
+                   **{f"dlrm_{run}": counts[name]
+                      for run, counts in dlrm_launches.items()}}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])

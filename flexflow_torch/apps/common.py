@@ -109,13 +109,14 @@ def make_optimizer(cfg: FFConfig):
                          "only")
     if cfg.optimizer == "sgd":
         return SGDOptimizer(lr=cfg.learning_rate, momentum=cfg.momentum,
-                            weight_decay=cfg.weight_decay)
+                            weight_decay=cfg.weight_decay,
+                            lazy_sparse=cfg.lazy_sparse_optimizer)
     if cfg.optimizer == "adam":
         return AdamOptimizer(
             lr=cfg.learning_rate, weight_decay=cfg.weight_decay,
             schedule=cfg.lr_schedule, warmup_steps=cfg.warmup_steps,
             decay_steps=cfg.decay_steps, min_lr=cfg.min_lr,
-            gamma=cfg.lr_gamma)
+            gamma=cfg.lr_gamma, lazy_sparse=cfg.lazy_sparse_optimizer)
     raise SystemExit(f"unknown --optimizer {cfg.optimizer!r} (sgd|adam)")
 
 
@@ -126,7 +127,8 @@ def run_training(ff, cfg: FFConfig, label: str = "samples",
     batch (the reference's syntheticInput), and print the reference
     throughput lines (``cnn.cc:128-129``, ``dlrm.cc:159-166``).  The
     batch is ``Trainer.synthetic_batch``'s: as in the JAX package, its
-    integer inputs are drawn in ``{0, 1}``."""
+    integer inputs are drawn in ``{0, 1}``.  Returns the fit stats, with
+    the trained ``(params, opt_state, state)`` under ``"final"``."""
     from flexflow_torch.runtime.executor import Executor
     from flexflow_torch.runtime.trainer import Trainer
 
@@ -136,4 +138,7 @@ def run_training(ff, cfg: FFConfig, label: str = "samples",
                         warmup=1, log_every=cfg.print_freq)
     print(f"ELAPSED TIME = {stats['elapsed_s']:.4f}s")
     print(f"THROUGHPUT = {stats['samples_per_s']:.2f} {label}/s")
+    #: The trained (params, opt_state, state), for a caller that checks
+    #: or evaluates them.
+    stats["final"] = trainer.final
     return stats

@@ -3,8 +3,8 @@
 Apps call its methods to append ops to ``self.layers``; each method
 infers shapes and does no compute.  Op naming (``_unique``) and the
 dtype rules match the JAX package, so the two packages make graphs with
-the same op names, parameter keys and shapes.  This slice ports the
-methods that ``build_transformer_lm`` calls.
+the same op names, parameter keys and shapes.  The port has the methods
+that ``build_transformer_lm`` and ``build_dlrm`` call.
 """
 
 from __future__ import annotations
@@ -16,11 +16,18 @@ import torch
 from flexflow_torch.config import FFConfig
 from flexflow_torch.ops import (
     Add,
+    Concat,
+    DotInteraction,
+    Embedding,
+    HeteroEmbedding,
     LayerNorm,
     Linear,
+    MSELoss,
+    MultiEmbedding,
     MultiHeadAttention,
     Op,
     PositionEmbedding,
+    Reshape,
     SoftmaxCrossEntropy,
     TensorSpec,
     WordEmbedding,
@@ -110,10 +117,36 @@ class FFModel:
             torch.float32 if self.config.sparse_embedding_updates else out,
         )
 
+    def embedding(self, x: TensorSpec, num_entries: int, out_dim: int,
+                  aggr: str = "sum", name: Optional[str] = None,
+                  **kw) -> TensorSpec:
+        """Single-table lookup with bag sum/avg, (batch, bag) -> (batch,
+        dim); ``--shard-embeddings`` is refused by the op."""
+        self._embedding_dtypes(kw)
+        kw.setdefault("shard_rows", self.config.shard_embeddings)
+        return self._add(Embedding(self._unique("embedding", name), x,
+                                   num_entries, out_dim, aggr=aggr, **kw))
+
+    def multi_embedding(self, x: TensorSpec, num_tables: int,
+                        num_entries: int, out_dim: int,
+                        name: Optional[str] = None, **kw) -> TensorSpec:
+        """T same-vocabulary tables stacked, (batch, T) -> (batch, T, dim)."""
+        self._embedding_dtypes(kw)
+        return self._add(MultiEmbedding(self._unique("embeddings", name), x,
+                                        num_tables, num_entries, out_dim, **kw))
+
+    def hetero_embedding(self, x: TensorSpec, vocab_sizes, out_dim: int,
+                         name: Optional[str] = None, **kw) -> TensorSpec:
+        """T different-vocabulary tables concatenated by rows."""
+        self._embedding_dtypes(kw)
+        return self._add(HeteroEmbedding(self._unique("embeddings", name), x,
+                                         vocab_sizes, out_dim, **kw))
+
     def word_embedding(self, x: TensorSpec, num_entries: int, out_dim: int,
                        name: Optional[str] = None, **kw) -> TensorSpec:
         """Token embedding (batch, seq) -> (batch, seq, dim)."""
         self._embedding_dtypes(kw)
+        kw.setdefault("shard_rows", self.config.shard_embeddings)
         return self._add(WordEmbedding(self._unique("word_embedding", name),
                                        x, num_entries, out_dim, **kw))
 
@@ -145,6 +178,26 @@ class FFModel:
             self._unique("softmax", name), logits, labels,
             label_smoothing=label_smoothing,
         ))
+
+    def concat(self, inputs: Sequence[TensorSpec], axis: int,
+               name: Optional[str] = None) -> TensorSpec:
+        return self._add(Concat(self._unique("concat", name), inputs, axis))
+
+    def dot_interaction(self, dense: TensorSpec, sparse: TensorSpec,
+                        name: Optional[str] = None) -> TensorSpec:
+        """DLRM pairwise-dot interaction."""
+        return self._add(DotInteraction(self._unique("interact", name), dense,
+                                        sparse))
+
+    def reshape(self, x: TensorSpec, shape: Sequence[int],
+                name: Optional[str] = None) -> TensorSpec:
+        return self._add(Reshape(self._unique("reshape", name), x, shape))
+
+    def mse_loss(self, pred: TensorSpec, label: TensorSpec,
+                 reduction: str = "mean",
+                 name: Optional[str] = None) -> TensorSpec:
+        return self._add(MSELoss(self._unique("mseloss", name), pred, label,
+                                 reduction))
 
     # -- introspection ----------------------------------------------------
 

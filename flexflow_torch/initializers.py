@@ -54,6 +54,18 @@ class ZeroInitializer(Initializer):
 
 
 @dataclasses.dataclass
+class UniformInitializer(Initializer):
+    """Uniform in ``[min_val, max_val]``, drawn in one pass in f32."""
+
+    min_val: float = -0.1
+    max_val: float = 0.1
+
+    def __call__(self, gen, shape, dtype):
+        u = torch.empty(tuple(shape), dtype=torch.float32)
+        return u.uniform_(self.min_val, self.max_val, generator=gen).to(dtype)
+
+
+@dataclasses.dataclass
 class NormInitializer(Initializer):
     """Gaussian N(mean, stddev)."""
 

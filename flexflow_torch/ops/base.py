@@ -4,7 +4,9 @@ An op is a node in the graph: it declares its parameters (shape, dtype,
 initializer), infers its output specs at build time, and implements
 ``forward(params, xs, state, training)`` on torch tensors with the same
 contract as the JAX package, so graphs, parameter dicts and the serving
-state protocol carry over name for name.
+state protocol carry over name for name.  Embedding ops also implement
+the row-sparse gradient protocol (``sparse_*``) that the executor's
+sparse train step drives.
 """
 
 from __future__ import annotations
@@ -63,6 +65,45 @@ class Op:
 
     def param_specs(self) -> Dict[str, ParamSpec]:
         return {}
+
+    # -- sparse-gradient protocol -----------------------------------------
+    #
+    # Embedding-style ops (output == gathered rows, up to a linear
+    # aggregation) opt in by returning their table keys from
+    # ``sparse_keys``.  The executor then differentiates with respect to
+    # the GATHERED ROWS instead of the table and applies the row gradient
+    # with an in-place scatter-add, so no table-sized gradient ever
+    # exists (``flexflow_tpu/ops/base.py``'s protocol; the row kernels
+    # are K4/K5 in ``ops/kernels.py``).
+
+    def sparse_keys(self) -> Tuple[str, ...]:
+        """Param keys eligible for row-sparse updates (() = none)."""
+        return ()
+
+    def sparse_ok(self) -> bool:
+        """Whether the sparse path is valid for this op (one device: the
+        JAX package's placement check has nothing to check here)."""
+        return True
+
+    def sparse_rows(self, params, xs):
+        """Gather: params + graph inputs -> the rows (small)."""
+        raise NotImplementedError
+
+    def sparse_forward(self, rows, xs, state, training):
+        """Forward given pre-gathered rows; must not touch the table."""
+        raise NotImplementedError
+
+    def sparse_apply(self, params, xs, row_grads, lr):
+        """Scatter the row gradients in place: ``table[ids] += -lr * g``."""
+        raise NotImplementedError
+
+    def sparse_flat_ids(self, params, xs):
+        """Row ids of every gathered row into the ``(R, D)`` flat view of
+        the (single) sparse table, ``table.reshape(-1, last_dim)``; the
+        shape of ``row_grads[..., 0]``.  Lets the executor sum
+        duplicate-id row gradients generically (exact global-norm
+        clipping; one lazy momentum/Adam update per unique row)."""
+        raise NotImplementedError
 
     def forward(
         self,

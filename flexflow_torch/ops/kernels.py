@@ -45,7 +45,8 @@ _NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 #: One shared library per kernel source.
-_SOURCES = ("flash_fwd", "flash_bwd", "flash_decode", "softmax_xent")
+_SOURCES = ("flash_fwd", "flash_bwd", "flash_decode", "softmax_xent",
+            "embedding_rows")
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -139,6 +140,12 @@ def _load(name: str) -> ctypes.CDLL:
         lib.ff_xent_fwd.restype = i
         lib.ff_xent_bwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
         lib.ff_xent_bwd.restype = i
+    elif name == "embedding_rows":
+        ll = ctypes.c_longlong
+        lib.ff_gather_rows.argtypes = [p, p, p, ll, i, i, i, i, i, p]
+        lib.ff_gather_rows.restype = i
+        lib.ff_scatter_add_rows.argtypes = [p, p, p, p, ll, i, i, i, i, i, p]
+        lib.ff_scatter_add_rows.restype = i
     _libs[name] = lib
     return lib
 
@@ -544,6 +551,151 @@ def softmax_xent(logits, labels):
 softmax_xent.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K4 / K5: embedding row gather and deterministic row scatter-add
+# ---------------------------------------------------------------------------
+
+
+def _row_ids_ok(ids: torch.Tensor, num_rows: int) -> torch.Tensor:
+    return (ids >= 0) & (ids < num_rows)
+
+
+def gather_rows_plain(table, ids):
+    """Plain version of :func:`gather_rows`: ``table[ids]``, with a NaN
+    row (``jnp.take``'s fill) for an id outside ``[0, R)``."""
+    ok = _row_ids_ok(ids, table.shape[0])
+    rows = table.index_select(0, torch.where(ok, ids, 0).long())
+    return torch.where(ok[:, None], rows, torch.full_like(rows, math.nan))
+
+
+def scatter_add_rows_plain(table, ids, upd):
+    """Plain version of :func:`scatter_add_rows`, in place, with the
+    kernel's exact arithmetic: the updates of each row are summed in f32
+    from 0 in stable-sorted order (batch order within a row), and the sum
+    is added to the table row once; updates of ids outside ``[0, R)`` are
+    dropped.  Round ``k`` adds the ``k``-th update of every run at once;
+    a run that has ended adds ``+0.0``, which leaves its sum unchanged
+    (a sum that starts at ``+0.0`` is never ``-0.0``)."""
+    n = ids.shape[0]
+    if n == 0:
+        return table
+    sid, perm = torch.sort(ids, stable=True)
+    su = upd.float().index_select(0, perm)
+    first = torch.ones(n, dtype=torch.bool, device=ids.device)
+    first[1:] = sid[1:] != sid[:-1]
+    starts = first.nonzero().squeeze(1)
+    lens = torch.diff(starts, append=starts.new_tensor([n]))
+    acc = torch.zeros((starts.shape[0], su.shape[1]), dtype=torch.float32,
+                      device=su.device)
+    for k in range(int(lens.max())):
+        nth = su.index_select(0, (starts + k).clamp_(max=n - 1))
+        acc += torch.where((lens > k)[:, None], nth, 0.0)
+    rows = sid[starts]
+    ok = _row_ids_ok(rows, table.shape[0])
+    table[rows[ok]] += acc[ok]
+    return table
+
+
+def _row_check(what, table, ids, upd=None):
+    """Shapes common to both row kernels, on every device."""
+    if table.dim() != 2 or ids.dim() != 1:
+        raise ValueError(f"{what}: table must be (R, D) and ids (n,), got "
+                         f"{tuple(table.shape)} and {tuple(ids.shape)}")
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{what}: ids must be int32 or int64, got {ids.dtype}")
+    if upd is not None and upd.shape != (ids.shape[0], table.shape[1]):
+        raise ValueError(f"{what}: updates must be ({ids.shape[0]}, "
+                         f"{table.shape[1]}), got {tuple(upd.shape)}")
+
+
+def _row_cuda(what, table, *others):
+    """The launch geometry of a row kernel on CUDA operands: ``log2`` of
+    the threads per row and whether 16-byte vectors fit; raises for what
+    the kernels do not take."""
+    _check_cuda(what, table, head_dim=False)
+    if table.dtype != torch.float32:
+        raise ValueError(f"{what}: the row kernels take f32 tables, got "
+                         f"{table.dtype}")
+    for x in others:
+        if x.device != table.device:
+            raise ValueError(f"{what}: operands on {x.device} and "
+                             f"{table.device}")
+    if not table.is_contiguous():
+        raise ValueError(f"{what}: the table must be contiguous")
+    d = table.shape[1]
+    vec = d % 4 == 0 and all(x.data_ptr() % 16 == 0
+                             for x in (table,) + others if x.is_floating_point())
+    units = d // 4 if vec else d
+    g = 1
+    while g < min(units, 32):
+        g *= 2
+    return g.bit_length() - 1, vec
+
+
+def gather_rows(table, ids):
+    """``table (R, D) [ids (n,)] -> (n, D)``, reading only the addressed
+    rows; an id outside ``[0, R)`` gives a NaN row.  The port of
+    ``pallas_kernels.gather_rows`` (kernel ``_gather_kernel``); source
+    ``csrc/embedding_rows.cu``.  Any ``D``; f32 tables, int32 or int64
+    ids."""
+    _row_check("gather_rows", table, ids)
+    if table.device.type == "cpu":
+        return gather_rows_plain(table, ids)
+    ids = ids.contiguous()
+    log_g, vec = _row_cuda("gather_rows", table, ids)
+    n, d = ids.shape[0], table.shape[1]
+    out = torch.empty((n, d), dtype=table.dtype, device=table.device)
+    if n == 0:
+        return out
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    err = _load("embedding_rows").ff_gather_rows(
+        table.data_ptr(), ids.data_ptr(), out.data_ptr(), table.shape[0], d,
+        n, log_g, int(ids.dtype == torch.int64), int(vec), stream,
+    )
+    _raise_on(err, "gather_rows")
+    gather_rows.launches += 1
+    return out
+
+
+gather_rows.launches = 0
+
+
+def scatter_add_rows(table, ids, upd):
+    """``table[ids] += upd`` IN PLACE, touching only the addressed rows,
+    with no float atomics: duplicate ids are summed in f32 in batch order
+    and added to their row once, so two calls on the same inputs give
+    bit-identical tables; updates of ids outside ``[0, R)`` are dropped
+    and ``n = 0`` is a no-op.  Returns ``table``.  The port of
+    ``pallas_kernels.scatter_add_rows`` (kernel ``_scatter_add_kernel``,
+    with ``_collapse_runs``' glue as a stable ``torch.sort``); source
+    ``csrc/embedding_rows.cu``.  Any ``D``; f32 tables and updates, int32
+    or int64 ids."""
+    _row_check("scatter_add_rows", table, ids, upd)
+    if table.device.type == "cpu":
+        return scatter_add_rows_plain(table, ids, upd)
+    if upd.dtype != table.dtype:
+        raise ValueError(f"scatter_add_rows: updates must be {table.dtype}, "
+                         f"got {upd.dtype}")
+    upd = _dense(upd)
+    log_g, vec = _row_cuda("scatter_add_rows", table, ids, upd)
+    n = ids.shape[0]
+    if n == 0:
+        return table
+    sid, perm = torch.sort(ids.contiguous(), stable=True)
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    err = _load("embedding_rows").ff_scatter_add_rows(
+        table.data_ptr(), sid.data_ptr(), perm.data_ptr(), upd.data_ptr(),
+        table.shape[0], table.shape[1], n, log_g,
+        int(ids.dtype == torch.int64), int(vec), stream,
+    )
+    _raise_on(err, "scatter_add_rows")
+    scatter_add_rows.launches += 1
+    return table
+
+
+scatter_add_rows.launches = 0
+
+
 #: The port's kernel wrappers, for callers that reset and read the counters.
 KERNELS = (flash_attention_lse, flash_attention_lse_bwd, flash_decode,
-           softmax_xent, softmax_xent_bwd)
+           softmax_xent, softmax_xent_bwd, gather_rows, scatter_add_rows)

@@ -1,4 +1,4 @@
-"""Loss operators: ``SoftmaxCrossEntropy``, the port of
+"""Loss operators: ``SoftmaxCrossEntropy`` and ``MSELoss``, the port of
 ``flexflow_tpu/ops/losses.py``.
 
 Every row of the logits goes through the fused cross-entropy kernel K3
@@ -83,3 +83,48 @@ class SoftmaxCrossEntropy(Op):
                                     device=labels.device),
         }
         return (loss, metrics, []), state
+
+
+class MSELoss(Op):
+    """Mean-squared error in f32 with the reference's accuracy rule:
+    with one column a prediction is correct when ``|pred - label| <
+    0.5``, with several when the argmaxes match (``mse_loss.cu:61-125``);
+    ``reduction`` is ``mean`` or ``sum``."""
+
+    is_loss = True
+
+    def __init__(self, name: str, pred: TensorSpec, label: TensorSpec,
+                 reduction: str = "mean"):
+        super().__init__(name, [pred, label])
+        if pred.shape != label.shape:
+            raise ValueError(f"{name}: pred {pred.shape} and label "
+                             f"{label.shape} differ")
+        if reduction not in ("mean", "sum"):
+            raise ValueError(f"{name}: reduction must be mean or sum, got "
+                             f"{reduction!r}")
+        self.reduction = reduction
+        self._make_output((), torch.float32, ())
+
+    def forward(self, params, xs, state, training):
+        """Returns ``((loss, metrics, [loss]), state)``; every metric
+        stays a device tensor."""
+        pred, label = (x.float() for x in xs)
+        se = (pred - label).square()
+        loss = se.mean() if self.reduction == "mean" else se.sum()
+        if pred.dim() == 2 and pred.shape[1] == 1:
+            correct = ((pred - label).abs() < 0.5).sum(dtype=torch.int32)
+            total = pred.shape[0]
+        elif pred.dim() == 2:
+            correct = (pred.argmax(dim=1) == label.argmax(dim=1)).sum(
+                dtype=torch.int32)
+            total = pred.shape[0]
+        else:
+            correct = torch.zeros((), dtype=torch.int32, device=pred.device)
+            total = pred.shape[0] if pred.dim() >= 1 else 1
+        metrics = {
+            "train_loss": loss.detach(),
+            "train_correct": correct,
+            "train_all": torch.full((), total, dtype=torch.int32,
+                                    device=pred.device),
+        }
+        return (loss, metrics, [loss]), state

@@ -1,9 +1,39 @@
-"""Structural tensor operators: the ``Add`` of
-``flexflow_tpu/ops/tensor_ops.py`` (the others come with later slices)."""
+"""Structural tensor operators: ``Concat``, ``Add``, ``Reshape`` and
+``DotInteraction`` of ``flexflow_tpu/ops/tensor_ops.py`` (the others come
+with later slices)."""
 
 from __future__ import annotations
 
+import math
+from typing import Dict, Optional, Sequence
+
+import torch
+
 from flexflow_torch.ops.base import Op, TensorSpec
+
+
+class Concat(Op):
+    def __init__(self, name: str, inputs: Sequence[TensorSpec], axis: int):
+        super().__init__(name, inputs)
+        ndim = inputs[0].ndim
+        if axis < 0:
+            axis += ndim
+        self.axis = axis
+        for t in inputs:
+            if t.ndim != ndim or any(t.shape[d] != inputs[0].shape[d]
+                                     for d in range(ndim) if d != axis):
+                raise ValueError(f"concat {name}: {t.shape} does not match "
+                                 f"{inputs[0].shape} off axis {axis}")
+        out_shape = list(inputs[0].shape)
+        out_shape[axis] = sum(t.shape[axis] for t in inputs)
+        # The concatenated dim inherits no sharding tag; the others keep
+        # the first input's.
+        dim_axes = list(inputs[0].dim_axes)
+        dim_axes[axis] = None
+        self._make_output(tuple(out_shape), inputs[0].dtype, tuple(dim_axes))
+
+    def forward(self, params, xs, state, training):
+        return [torch.cat(list(xs), dim=self.axis)], state
 
 
 class Add(Op):
@@ -19,3 +49,59 @@ class Add(Op):
     def forward(self, params, xs, state, training):
         a, b = xs
         return [a + b], state
+
+
+class Reshape(Op):
+    """Free-form reshape; the batch dim must be preserved."""
+
+    def __init__(self, name: str, x: TensorSpec, shape: Sequence[int],
+                 dim_axes: Optional[Sequence[Optional[str]]] = None):
+        super().__init__(name, [x])
+        shape = tuple(shape)
+        if shape[0] != x.shape[0] or math.prod(shape) != math.prod(x.shape):
+            raise ValueError(f"{name}: cannot reshape {x.shape} to {shape} "
+                             f"(the batch dim must be kept)")
+        if dim_axes is None:
+            dim_axes = ("n",) + tuple(None for _ in shape[1:])
+        self._make_output(shape, x.dtype, tuple(dim_axes))
+
+    def forward(self, params, xs, state, training):
+        (x,) = xs
+        # The sample dim may shrink (a smaller batch than declared).
+        return [x.reshape((x.shape[0],) + self.outputs[0].shape[1:])], state
+
+
+class DotInteraction(Op):
+    """DLRM pairwise-dot feature interaction: dense features (batch, d)
+    and stacked embeddings (batch, T, d) -> the dense features followed by
+    the strictly-lower-triangular pairwise dots of the T+1 feature vectors,
+    in ``tril_indices(k=-1)`` order: (batch, d + (T+1)T/2)."""
+
+    def __init__(self, name: str, dense: TensorSpec, sparse: TensorSpec):
+        super().__init__(name, [dense, sparse])
+        if dense.ndim != 2 or sparse.ndim != 3 or \
+                dense.shape[0] != sparse.shape[0] or \
+                dense.shape[1] != sparse.shape[2]:
+            raise ValueError(f"{name}: needs dense (b, d) and sparse (b, T, d), "
+                             f"got {dense.shape} and {sparse.shape}")
+        b, t, d = sparse.shape
+        f = t + 1
+        self._pairs: Dict[torch.device, torch.Tensor] = {}
+        self._make_output((b, d + f * (f - 1) // 2), dense.dtype, ("n", None))
+
+    def _tril(self, f: int, device) -> torch.Tensor:
+        """Flat indices ``i*f + j`` of the pairs ``j < i`` (row-major),
+        made on the device once."""
+        idx = self._pairs.get(device)
+        if idx is None:
+            li, lj = torch.tril_indices(f, f, offset=-1, device=device)
+            idx = self._pairs[device] = li * f + lj
+        return idx
+
+    def forward(self, params, xs, state, training):
+        dense, sparse = xs
+        feats = torch.cat([dense[:, None, :], sparse], dim=1)      # (b, F, d)
+        dots = torch.bmm(feats, feats.transpose(1, 2))              # (b, F, F)
+        f = feats.shape[1]
+        pairs = dots.reshape(dots.shape[0], f * f)[:, self._tril(f, dots.device)]
+        return [torch.cat([dense, pairs.to(dense.dtype)], dim=1)], state

@@ -10,8 +10,16 @@ JAX update operation for operation, in f32, and each parameter is
 rounded once to its own dtype (bf16 parameters keep no f32 master copy,
 as in the JAX package).  Scalar factors (scheduled lr, bias corrections)
 are computed on the host in float32 with the JAX expressions, so no
-device value is read.  The lazy row-sparse variants (``lazy_sparse``)
-belong to the DLRM slice and are refused.
+device value is read.
+
+Both also carry the row-sparse protocol the executor's sparse train step
+drives (``flexflow_tpu/optim.py``): ``supports_sparse_rows`` (plain SGD,
+or ``lazy_sparse`` -- ``--lazy-sparse-opt`` -- for momentum SGD and
+Adam), ``sparse_row_step`` (one update restricted to gathered rows,
+returning scatter-addable deltas) and the helpers that filter the sparse
+tables' state out of the dense update and put it back.  Lazy semantics
+are torch SparseAdam's: decay and moments advance only for rows a step
+touches; Adam's bias correction uses the global step count.
 """
 
 from __future__ import annotations
@@ -23,15 +31,6 @@ import numpy as np
 import torch
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
-
-
-def _refuse_lazy(lazy_sparse: bool) -> None:
-    if lazy_sparse:
-        raise NotImplementedError(
-            "lazy_sparse (--lazy-sparse-opt): the row-sparse optimizer "
-            "path comes with the DLRM slice of the port (ROADMAP.md queue "
-            "1, item 1)"
-        )
 
 
 def _leaves(*trees: Tree):
@@ -50,8 +49,67 @@ class SGDOptimizer:
     weight_decay: float = 0.0
     lazy_sparse: bool = False
 
-    def __post_init__(self):
-        _refuse_lazy(self.lazy_sparse)
+    @property
+    def supports_sparse_rows(self) -> bool:
+        """Row-sparse updates equal the dense update only for plain SGD
+        (momentum needs a dense buffer, weight decay touches every row);
+        ``lazy_sparse`` opts into the lazy deviation instead."""
+        return (self.momentum == 0.0 and self.weight_decay == 0.0) or \
+            self.lazy_sparse
+
+    @property
+    def stateless_sparse(self) -> bool:
+        """The row update is a scaled scatter-add, linear in the gradient:
+        duplicate ids may be scattered per occurrence."""
+        return self.momentum == 0.0 and self.weight_decay == 0.0
+
+    def sparse_state_buffers(self, opt_state, op_name: str, key: str):
+        """The table-shaped state tensors of one sparse param, by name."""
+        if self.momentum == 0.0 or opt_state is None:
+            return {}
+        return {"v": opt_state[op_name][key]}
+
+    def with_sparse_state_buffers(self, opt_state, op_name: str, key: str,
+                                  new):
+        if not new:
+            return opt_state
+        out = dict(opt_state)
+        out[op_name] = {**out[op_name], key: new["v"]}
+        return out
+
+    def sparse_step_count(self, opt_state):
+        return None
+
+    @torch.no_grad()
+    def sparse_row_step(self, p_rows, g_rows, state_rows, t=None):
+        """One step restricted to gathered unique rows: ``(delta_p,
+        delta_state)`` for the caller to scatter-add back."""
+        g = g_rows.float()
+        if self.weight_decay > 0.0:
+            g = g + self.weight_decay * p_rows.float()
+        if self.momentum > 0.0:
+            v = state_rows["v"].float()
+            v_new = self.momentum * v + g
+            step = g + self.momentum * v_new if self.nesterov else v_new
+            d_state = {"v": (v_new - v).to(state_rows["v"].dtype)}
+        else:
+            step, d_state = g, {}
+        return (-self.lr * step).to(p_rows.dtype), d_state
+
+    def map_param_states(self, opt_state, fn):
+        """``fn`` applied to the params-shaped state (None passes)."""
+        return None if opt_state is None else fn(opt_state)
+
+    def restore_param_states(self, new_state, old_state, names):
+        """``new_state`` with the subtrees of ``names`` taken back from
+        ``old_state`` (the sparse tables left out of the dense update)."""
+        if old_state is None:
+            return new_state
+        merged = dict(new_state or {})
+        for n in names:
+            if n in old_state:
+                merged[n] = old_state[n]
+        return merged
 
     def init(self, params: Tree) -> Any:
         """Momentum buffers in the parameters' dtype (the reference's
@@ -104,7 +162,6 @@ class AdamOptimizer:
     lazy_sparse: bool = False
 
     def __post_init__(self):
-        _refuse_lazy(self.lazy_sparse)
         if self.schedule not in ("constant", "cosine", "step"):
             raise ValueError(f"unknown schedule {self.schedule!r} "
                              f"(constant|cosine|step)")
@@ -126,6 +183,66 @@ class AdamOptimizer:
         k = np.floor((tf - f(1.0)) / f(max(self.decay_steps, 1)))
         return f(f(self.lr) * np.power(f(self.gamma), k))
 
+    @property
+    def supports_sparse_rows(self) -> bool:
+        return self.lazy_sparse
+
+    @property
+    def stateless_sparse(self) -> bool:
+        return False
+
+    def sparse_state_buffers(self, opt_state, op_name: str, key: str):
+        return {"m": opt_state["m"][op_name][key],
+                "v": opt_state["v"][op_name][key]}
+
+    def with_sparse_state_buffers(self, opt_state, op_name: str, key: str,
+                                  new):
+        out = {"m": dict(opt_state["m"]), "v": dict(opt_state["v"]),
+               "t": opt_state["t"]}
+        out["m"][op_name] = {**out["m"][op_name], key: new["m"]}
+        out["v"][op_name] = {**out["v"][op_name], key: new["v"]}
+        return out
+
+    def sparse_step_count(self, opt_state):
+        return opt_state["t"]
+
+    def _factors(self, t: int):
+        """Scheduled lr and the bias corrections of step ``t``, as host
+        floats computed in float32."""
+        f = np.float32
+        return (float(self._lr_at(t)),
+                float(f(1.0) - np.power(f(self.b1), f(t))),
+                float(f(1.0) - np.power(f(self.b2), f(t))))
+
+    @torch.no_grad()
+    def sparse_row_step(self, p_rows, g_rows, state_rows, t=None):
+        """SparseAdam row step with the dense update's arithmetic; ``t``
+        is the global step count after the dense update's increment.
+        Returns scatter-addable deltas."""
+        lr, c1, c2 = self._factors(int(t))
+        g = g_rows.float()
+        m, v = state_rows["m"], state_rows["v"]
+        m_new = m.mul(self.b1).add_(g, alpha=1.0 - self.b1)
+        v_new = v.mul(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+        upd = (m_new / c1) / ((v_new / c2).sqrt() + self.eps)
+        if self.weight_decay > 0.0:
+            upd = upd + self.weight_decay * p_rows.float()
+        return (-lr * upd).to(p_rows.dtype), {"m": m_new - m, "v": v_new - v}
+
+    def map_param_states(self, opt_state, fn):
+        """``fn`` applied to the params-shaped m and v; t passes."""
+        return {"m": fn(opt_state["m"]), "v": fn(opt_state["v"]),
+                "t": opt_state["t"]}
+
+    def restore_param_states(self, new_state, old_state, names):
+        out = {"m": dict(new_state["m"]), "v": dict(new_state["v"]),
+               "t": new_state["t"]}
+        for n in names:
+            if n in old_state["m"]:
+                out["m"][n] = old_state["m"][n]
+                out["v"][n] = old_state["v"][n]
+        return out
+
     def init(self, params: Tree) -> Dict[str, Any]:
         def zeros(g):
             return {k: torch.zeros(p.shape, dtype=torch.float32,
@@ -139,10 +256,7 @@ class AdamOptimizer:
     def update(self, params: Tree, opt_state, grads: Tree):
         """One step in place; returns ``(params, opt_state)``."""
         t = int(opt_state["t"]) + 1
-        f = np.float32
-        lr = float(self._lr_at(t))
-        c1 = float(f(1.0) - np.power(f(self.b1), f(t)))
-        c2 = float(f(1.0) - np.power(f(self.b2), f(t)))
+        lr, c1, c2 = self._factors(t)
         for p, g, m, v in _leaves(params, grads, opt_state["m"],
                                   opt_state["v"]):
             g = g.float()

@@ -15,12 +15,21 @@ The single-device path of ``flexflow_tpu/runtime/executor.py``:
   step never waits on the device;
 - ``eval_step`` and the eval ``forward_step`` (every non-loss output).
 
-Strategies and meshes, the row-sparse embedding path, supersteps and
-gradient accumulation come with later slices (ROADMAP.md queue 1).
+The row-sparse embedding path (``_sparse_ops``): when the config enables
+it and the optimizer's rule allows it, an embedding op's rows are
+gathered (K4), autograd differentiates with respect to those rows only,
+and the row gradients are scatter-added into the table in place (K5), so
+no table-sized gradient exists.  Plain SGD scatters ``-lr * g`` per
+occurrence; lazy momentum/Adam (``--lazy-sparse-opt``) sum the gradients
+per unique row and scatter-add deltas of the parameter and state rows.
+
+Strategies and meshes, supersteps and gradient accumulation come with
+later slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
@@ -28,6 +37,8 @@ import torch
 
 from flexflow_torch.config import FFConfig
 from flexflow_torch.graph import FFModel
+from flexflow_torch.ops.base import Op
+from flexflow_torch.ops.embedding import _gather_dispatch, _scatter_add_dispatch
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -44,6 +55,32 @@ def resolve_device(device=None) -> torch.device:
             "CPU"
         )
     return dev
+
+
+def _unique_row_sums(flat_ids, flat_g):
+    """Sum the row gradients of duplicate ids: ``(uids, gsum, mask)``,
+    each of the fixed size ``n`` so nothing waits on the device.  The ids
+    are sorted stably; slot ``i`` holds sorted id ``uids[i]``, and where
+    ``mask[i]`` (the last slot of each run of equal ids) ``gsum[i]`` is
+    the run's summed gradient, elsewhere zeros.  That is what the dense
+    scatter-add gradient holds per touched row, at batch size.  The sums
+    come from a segmented scan (log2 n passes of elementwise adds) in a
+    fixed order: deterministic, with no float atomics."""
+    n = flat_ids.shape[0]
+    uids, order = torch.sort(flat_ids, stable=True)
+    acc = flat_g.index_select(0, order)
+    first = torch.ones(n, dtype=torch.bool, device=flat_ids.device)
+    first[1:] = uids[1:] != uids[:-1]
+    seg = torch.cumsum(first.int(), 0)
+    off = 1
+    while off < n:
+        same = (seg[off:] == seg[:-off])[:, None]
+        acc = torch.cat([acc[:off],
+                         acc[off:] + torch.where(same, acc[:-off], 0.0)])
+        off *= 2
+    mask = torch.ones(n, dtype=torch.bool, device=flat_ids.device)
+    mask[:-1] = first[1:]
+    return uids, torch.where(mask[:, None], acc, 0.0), mask
 
 
 def _merge_metrics(acc: Dict[str, torch.Tensor],
@@ -139,13 +176,17 @@ class Executor:
         return env
 
     def forward(self, params, state, batch: Mapping[str, Any],
-                training: bool, layers: Optional[List] = None):
+                training: bool, layers: Optional[List] = None,
+                rows_override: Optional[Mapping[str, torch.Tensor]] = None):
         """Run the op graph, or the ops in ``layers`` (in graph order);
         ``batch`` needs only the inputs they read.  Returns ``(loss,
         metrics, new_state, env)``; ``env`` maps every tensor name to its
         value, except the loss ops' outputs, which no op reads and the
-        port does not compute (``ops/losses.py``)."""
+        port does not compute (``ops/losses.py``).  ``rows_override``
+        maps an op name to its pre-gathered embedding rows: that op runs
+        ``sparse_forward`` and never touches its table."""
         layers = self.model.layers if layers is None else layers
+        rows_override = rows_override or {}
         env = self._inputs(batch, {t.name for op in layers for t in op.inputs})
         total_loss = None
         metrics: Dict[str, torch.Tensor] = {}
@@ -153,8 +194,12 @@ class Executor:
         for op in layers:
             xs = [env[t.name] for t in op.inputs]
             s = state.get(op.name, {})
-            result, s_new = op.forward(params.get(op.name, {}), xs, s,
-                                       training)
+            if op.name in rows_override:
+                result, s_new = op.sparse_forward(rows_override[op.name], xs,
+                                                  s, training)
+            else:
+                result, s_new = op.forward(params.get(op.name, {}), xs, s,
+                                           training)
             if op.is_loss:
                 loss, m, ys = result
                 total_loss = loss if total_loss is None else total_loss + loss
@@ -189,12 +234,21 @@ class Executor:
         """``(loss, metrics, new_state, grads)`` of one training forward
         and backward; ``grads`` has the params' structure and dtypes
         (zeros for a parameter the loss does not reach, as JAX gives)."""
+        loss, metrics, new_state, grads, _ = self._grads(params, state, batch)
+        return loss, metrics, new_state, grads
+
+    def _grads(self, params, state, batch, rows=None):
+        """The forward and one ``torch.autograd.grad`` over the params and
+        the pre-gathered ``rows`` (op name -> rows, made leaves here):
+        ``(loss, metrics, new_state, grads, row_grads)``."""
+        rows = {k: r.requires_grad_(True) for k, r in (rows or {}).items()}
         leaves = [p.requires_grad_(True) for g in params.values()
                   for p in g.values()]
-        loss, metrics, new_state, env = self.forward(params, state, batch,
-                                                     training=True)
+        loss, metrics, new_state, env = self.forward(
+            params, state, batch, training=True, rows_override=rows)
         del env  # free what autograd does not keep before the backward
-        flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+        flat = torch.autograd.grad(loss, leaves + list(rows.values()),
+                                   allow_unused=True)
         it = iter(flat)
         grads = {}
         for op, group in params.items():
@@ -202,31 +256,145 @@ class Executor:
             for k, p in group.items():
                 g = next(it)
                 grads[op][k] = torch.zeros_like(p) if g is None else g
-        return loss.detach(), metrics, new_state, grads
+        row_grads = {}
+        for op, r in rows.items():
+            g = next(it)
+            row_grads[op] = torch.zeros_like(r) if g is None else g
+        return loss.detach(), metrics, new_state, grads, row_grads
 
-    def _clip_grads(self, grads):
-        """--clip-norm: scale every gradient by ``min(1, c / ||g||)`` over
-        the global L2 norm (one f32 device scalar; nothing is read back)."""
-        c = self.config.clip_norm
-        if not c or c <= 0.0:
-            return grads
-        sq = sum(g.float().square().sum() for group in grads.values()
-                 for g in group.values())
-        scale = torch.clamp(c * torch.rsqrt(torch.clamp(sq, min=1e-30)),
-                            max=1.0)
+    def _clip_scale(self, grads, extra_sq=0.0):
+        """The --clip-norm factor ``min(1, c / ||g||)`` over the global L2
+        norm of ``grads`` plus ``extra_sq`` (the sparse ops' squared
+        per-unique-row sums): one f32 device scalar, nothing read back.
+        One formula for the dense and the sparse step."""
+        sq = extra_sq + sum(g.float().square().sum() for group in grads.values()
+                            for g in group.values())
+        return torch.clamp(self.config.clip_norm
+                           * torch.rsqrt(torch.clamp(sq, min=1e-30)), max=1.0)
+
+    @staticmethod
+    def _scaled(grads, scale):
         return {op: {k: (g.float() * scale).to(g.dtype)
                      for k, g in group.items()}
                 for op, group in grads.items()}
+
+    def _clip_grads(self, grads):
+        """--clip-norm: scale every gradient by ``min(1, c / ||g||)``."""
+        c = self.config.clip_norm
+        if not c or c <= 0.0:
+            return grads
+        return self._scaled(grads, self._clip_scale(grads))
+
+    @functools.cached_property
+    def _sparse_ops(self) -> List[Op]:
+        """Ops taking the row-sparse update path: embedding ops whose
+        params are all sparse keys, f32 (a narrower table would round per
+        duplicate in the scatter, unlike the dense update's one rounding)
+        and indexed straight from the batch, when the config enables the
+        path and the optimizer's rule allows it."""
+        if not self.config.sparse_embedding_updates or \
+                not getattr(self.optimizer, "supports_sparse_rows", False):
+            return []
+        input_names = {t.name for t in self.model.input_tensors}
+        out = []
+        for op in self.model.layers:
+            keys, specs = op.sparse_keys(), op.param_specs()
+            if keys and set(keys) == set(specs) and \
+                    all(s.dtype == torch.float32 for s in specs.values()) and \
+                    all(t.name in input_names for t in op.inputs) and \
+                    op.sparse_ok():
+                out.append(op)
+        return out
 
     def train_step(self, params, opt_state, state, batch):
         """One iteration: forward, backward, clip, optimizer update in
         place.  Returns ``(params, opt_state, state, metrics)``."""
         opt = self._require_optimizer("train_step")
+        if self._sparse_ops:
+            return self._sparse_train_step(params, opt_state, state, batch)
         _loss, metrics, new_state, grads = self.loss_and_grads(
             params, state, batch)
         grads = self._clip_grads(grads)
         params, opt_state = opt.update(params, opt_state, grads)
         return params, opt_state, new_state, metrics
+
+    def _sparse_train_step(self, params, opt_state, state, batch):
+        """The train step with the sparse ops' tables updated row-wise
+        (``flexflow_tpu/runtime/executor.py``'s sparse step): the rows
+        are gathered, the dense params and the rows differentiated in one
+        backward, the dense params updated first (the sparse tables'
+        optimizer state filtered out and put back), then the tables."""
+        opt = self.optimizer
+        ops = self._sparse_ops
+        names = {op.name for op in ops}
+        env = self._inputs(batch, {t.name for op in ops for t in op.inputs})
+        xs = {op.name: [env[t.name] for t in op.inputs] for op in ops}
+        with torch.no_grad():
+            rows = {op.name: op.sparse_rows(params[op.name], xs[op.name])
+                    for op in ops}
+        dense = {k: v for k, v in params.items() if k not in names}
+        _loss, metrics, new_state, dg, rg = self._grads(dense, state, batch,
+                                                        rows)
+        stateless = opt.stateless_sparse
+        clip = self.config.clip_norm > 0.0
+        uniq = {}
+        if clip or not stateless:
+            for op in ops:
+                ids = op.sparse_flat_ids(params[op.name], xs[op.name])
+                g = rg[op.name]
+                uniq[op.name] = _unique_row_sums(ids.reshape(-1),
+                                                 g.reshape(-1, g.shape[-1]))
+        scale = None
+        if clip:
+            extra_sq = sum(gsum.square().sum() for _, gsum, _ in uniq.values())
+            scale = self._clip_scale(dg, extra_sq)
+            dg = self._scaled(dg, scale)
+        opt_dense = opt.map_param_states(
+            opt_state, lambda tree: {k: v for k, v in tree.items()
+                                     if k not in names})
+        _, new_opt = opt.update(dense, opt_dense, dg)
+        if new_opt is not None:
+            new_opt = opt.restore_param_states(new_opt, opt_state, names)
+        with torch.no_grad():
+            for op in ops:
+                if stateless:
+                    g = rg[op.name] if scale is None else rg[op.name] * scale
+                    op.sparse_apply(params[op.name], xs[op.name], g, opt.lr)
+                else:
+                    new_opt = self._sparse_stateful_apply(
+                        op, params[op.name], new_opt, uniq[op.name], scale)
+        return params, new_opt, new_state, metrics
+
+    def _sparse_stateful_apply(self, op, op_params, opt_state, uniq, scale):
+        """Lazy momentum/Adam row update of one sparse op, in place:
+        gather the unique rows of the param and of its optimizer state,
+        run the optimizer's row step, scatter-add the deltas back (so the
+        state becomes ``v + (v_new - v)``, as in JAX).  Masked slots
+        carry exact-zero deltas into row 0.  Returns the optimizer
+        state."""
+        opt = self.optimizer
+        uids, gsum, mask = uniq
+        if scale is not None:
+            gsum = gsum * scale
+        key = op.sparse_keys()[0]
+        table = op_params[key]
+        flat = table.reshape(-1, table.shape[-1])
+        safe = torch.where(mask, uids, 0)
+        p_rows = _gather_dispatch(flat, safe)
+        bufs = {k: b.reshape(-1, b.shape[-1]) for k, b in
+                opt.sparse_state_buffers(opt_state, op.name, key).items()}
+        buf_rows = {k: _gather_dispatch(b, safe) for k, b in bufs.items()}
+        d_p, d_bufs = opt.sparse_row_step(p_rows, gsum, buf_rows,
+                                          t=opt.sparse_step_count(opt_state))
+        m = mask[:, None]
+        _scatter_add_dispatch(flat, safe, torch.where(m, d_p, 0.0))
+        for k, b in bufs.items():
+            _scatter_add_dispatch(b, safe, torch.where(m, d_bufs[k], 0.0))
+        if bufs:
+            opt_state = opt.with_sparse_state_buffers(
+                opt_state, op.name, key,
+                {k: b.reshape(table.shape) for k, b in bufs.items()})
+        return opt_state
 
     @torch.no_grad()
     def eval_step(self, params, state, batch):

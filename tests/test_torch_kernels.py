@@ -395,3 +395,125 @@ def test_training_kernels_never_fall_back(which):
             else:
                 kernels.softmax_xent_bwd(lg, lab, torch.empty((4,),
                                                               device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5: the embedding row gather and scatter-add
+# ---------------------------------------------------------------------------
+
+
+def _rows_inputs(seed, r, d, idx):
+    g = np.random.default_rng(seed)
+    return (g.standard_normal((r, d)).astype(np.float32),
+            np.asarray(idx, np.int32),
+            g.standard_normal((len(idx), d)).astype(np.float32))
+
+
+#: Duplicate ids at distance 1 (7, 7), 2 (3 _ 3) and 5 (11 ... 11), the
+#: table's first and last rows, and ids that share a 128-lane row of the
+#: JAX kernel's packed layout.
+_DUP_IDS = [7, 7, 3, 0, 3, 11, 39, 1, 2, 4, 11, 5, 38]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_gather_rows_plain_matches_pallas(d):
+    table, idx, _ = _rows_inputs(50 + d, 40, d, _DUP_IDS)
+    want = pallas_kernels.gather_rows(jnp.asarray(table), jnp.asarray(idx),
+                                      interpret=True)
+    before = kernels.gather_rows.launches
+    got = kernels.gather_rows(torch.from_numpy(table), torch.from_numpy(idx))
+    assert kernels.gather_rows.launches == before
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))  # a copy
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_scatter_add_rows_plain_matches_pallas(d):
+    """f32 within 1e-6 relative plus 1e-6: the Pallas kernel adds runs of
+    equal ids to the table one after another, the port sums a row's
+    updates first and adds once, so duplicates round in another order."""
+    table, idx, upd = _rows_inputs(60 + d, 40, d, _DUP_IDS)
+    want = pallas_kernels.scatter_add_rows(jnp.asarray(table), jnp.asarray(idx),
+                                           jnp.asarray(upd), interpret=True)
+    t = torch.from_numpy(table.copy())
+    before = kernels.scatter_add_rows.launches
+    out = kernels.scatter_add_rows(t, torch.from_numpy(idx), torch.from_numpy(upd))
+    assert out is t and kernels.scatter_add_rows.launches == before
+    np.testing.assert_allclose(t.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+def test_scatter_add_rows_empty_batch_is_a_no_op():
+    table, _, _ = _rows_inputs(70, 40, 64, [])
+    want = pallas_kernels.scatter_add_rows(
+        jnp.asarray(table), jnp.zeros((0,), jnp.int32),
+        jnp.zeros((0, 64), jnp.float32), interpret=True)
+    t = torch.from_numpy(table.copy())
+    kernels.scatter_add_rows(t, torch.zeros((0,), dtype=torch.int32),
+                             torch.zeros((0, 64)))
+    np.testing.assert_array_equal(t.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(t.numpy(), table)
+    assert kernels.gather_rows(t, torch.zeros((0,), dtype=torch.int64)).shape \
+        == (0, 64)
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_scatter_add_rows_sums_each_row_in_batch_order(id_dtype):
+    """The exact arithmetic the CUDA kernel shares: per row, the updates
+    summed in f32 from 0 in batch order, then added to the row once
+    (a numpy loop does the same float32 operations); bit for bit, and
+    bit-identical across calls."""
+    g = np.random.default_rng(71)
+    table = g.standard_normal((50, 24)).astype(np.float32)
+    idx = g.integers(0, 6, 200)
+    upd = (g.standard_normal((200, 24)) * 10.0 ** g.integers(-3, 4, (200, 1))
+           ).astype(np.float32)
+    want = table.copy()
+    for row in np.unique(idx):
+        acc = np.zeros(24, np.float32)
+        for i in np.flatnonzero(idx == row):
+            acc = acc + upd[i]
+        want[row] = want[row] + acc
+    runs = []
+    for _ in range(2):
+        t = torch.from_numpy(table.copy())
+        kernels.scatter_add_rows(t, torch.from_numpy(idx).to(id_dtype),
+                                 torch.from_numpy(upd))
+        runs.append(t.numpy())
+    np.testing.assert_array_equal(runs[0], want)
+    np.testing.assert_array_equal(runs[1], runs[0])
+
+
+def test_row_kernels_out_of_range_ids():
+    """An id outside [0, R) gathers a NaN row and its update is dropped.
+    JAX agrees for ids >= R (``jnp.take``'s fill, ``.at[].add``'s drop);
+    a negative id, which JAX wraps, is out of range in the port."""
+    table, _, upd = _rows_inputs(72, 10, 8, [0, 0, 0, 0])
+    idx = np.array([3, 10, 12, -1], np.int32)
+    got = kernels.gather_rows(torch.from_numpy(table), torch.from_numpy(idx))
+    want = np.asarray(jnp.take(jnp.asarray(table), jnp.asarray(idx[:3]), axis=0))
+    np.testing.assert_array_equal(got.numpy()[:3], want)
+    assert np.isnan(got.numpy()[1:]).all()
+    t = torch.from_numpy(table.copy())
+    kernels.scatter_add_rows(t, torch.from_numpy(idx), torch.from_numpy(upd))
+    want = np.asarray(jnp.asarray(table).at[jnp.asarray(idx[:3])].add(upd[:3]))
+    np.testing.assert_array_equal(t.numpy(), want)
+
+
+@pytest.mark.parametrize("which", ["gather", "scatter"])
+def test_row_kernels_never_fall_back(which):
+    table = torch.empty((10, 8), device="meta")
+    ids = torch.zeros((4,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="needs CUDA"):
+        if which == "gather":
+            kernels.gather_rows(table, ids)
+        else:
+            kernels.scatter_add_rows(table, ids, torch.empty((4, 8),
+                                                             device="meta"))
+
+
+def test_row_kernels_refuse_bad_shapes():
+    t = torch.zeros((10, 8))
+    with pytest.raises(ValueError, match="int32 or int64"):
+        kernels.gather_rows(t, torch.zeros((3,)))
+    with pytest.raises(ValueError, match="updates must be"):
+        kernels.scatter_add_rows(t, torch.zeros((3,), dtype=torch.int32),
+                                 torch.zeros((3, 9)))

@@ -134,11 +134,61 @@ def test_adam_bf16_params_keep_no_master_copy():
                 np.asarray(jp[op][k].astype(jnp.float32)))
 
 
+_SPARSE_CONFIGS = [
+    ("sgd", dict()), ("sgd", dict(momentum=0.9)), ("sgd", dict(weight_decay=1e-4)),
+    ("sgd", dict(momentum=0.9, lazy_sparse=True)),
+    ("sgd", dict(weight_decay=1e-4, lazy_sparse=True)),
+    ("adam", dict()), ("adam", dict(lazy_sparse=True)),
+]
+
+
 def test_lazy_sparse_is_refused():
-    with pytest.raises(NotImplementedError, match="DLRM"):
-        toptim.AdamOptimizer(lazy_sparse=True)
-    with pytest.raises(NotImplementedError, match="DLRM"):
-        toptim.SGDOptimizer(lazy_sparse=True)
+    """The row-sparse path is refused exactly where the JAX package
+    refuses it: momentum, weight decay or Adam without ``lazy_sparse``
+    (``--lazy-sparse-opt``) keep the tables dense; with it, the lazy row
+    update is taken.  ``stateless_sparse`` (per-occurrence scatter) agrees
+    too."""
+    for kind, kw in _SPARSE_CONFIGS:
+        cls = "SGDOptimizer" if kind == "sgd" else "AdamOptimizer"
+        j, t = getattr(joptim, cls)(**kw), getattr(toptim, cls)(**kw)
+        assert t.supports_sparse_rows == j.supports_sparse_rows, (kind, kw)
+        assert t.stateless_sparse == j.stateless_sparse, (kind, kw)
+    assert not toptim.AdamOptimizer().supports_sparse_rows
+    assert not toptim.SGDOptimizer(momentum=0.9).supports_sparse_rows
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("sgd", dict(lr=0.1, momentum=0.9, weight_decay=1e-3)),
+    ("sgd", dict(lr=0.1, momentum=0.9, nesterov=True)),
+    ("sgd", dict(lr=0.1, weight_decay=1e-2)),
+    ("adam", dict(lr=1e-2, weight_decay=1e-3)),
+    ("adam", dict(lr=1e-2, schedule="cosine", warmup_steps=2, decay_steps=5)),
+])
+def test_sparse_row_step_matches_jax(kind, kw):
+    """One lazy row step on gathered rows (params, gradients and state
+    rows from numpy, Adam at step t = 3): the parameter and state deltas
+    within 1e-6 of JAX's."""
+    r = np.random.default_rng(5)
+    p, g = (r.standard_normal((6, 8)).astype(np.float32) for _ in range(2))
+    names = ("v",) if kind == "sgd" else ("m", "v")
+    state = {n: np.abs(r.standard_normal((6, 8))).astype(np.float32)
+             for n in names}
+    if kind == "sgd" and not kw.get("momentum"):
+        state = {}
+    cls = "SGDOptimizer" if kind == "sgd" else "AdamOptimizer"
+    j = getattr(joptim, cls)(lazy_sparse=True, **kw)
+    t = getattr(toptim, cls)(lazy_sparse=True, **kw)
+    jd, jds = j.sparse_row_step(jnp.asarray(p), jnp.asarray(g),
+                                {n: jnp.asarray(a) for n, a in state.items()},
+                                t=jnp.int32(3))
+    td, tds = t.sparse_row_step(torch.from_numpy(p), torch.from_numpy(g),
+                                {n: torch.from_numpy(a) for n, a in state.items()},
+                                t=3)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-6, rtol=0)
+    assert sorted(tds) == sorted(jds)
+    for n in jds:
+        np.testing.assert_allclose(tds[n].numpy(), np.asarray(jds[n]),
+                                   atol=1e-6, rtol=0)
 
 
 def test_opt_state_converter_round_trips_jax_adam_state():
