@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Eleven phases, in order; any failure raises and exits non-zero:
+Fourteen phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -71,9 +71,31 @@ Eleven phases, in order; any failure raises and exits non-zero:
     tolerances, and untouched rows stay bit-identical on both sides.
 11. **DLRM profile.**  One warm plain-SGD DLRM step under
     ``torch.profiler``.
+12. **Stream kernels.**  K1s and K1sb (``csrc/flash_stream.cu``) against
+    their plain versions (K1f's and K1b's) element by element with
+    ``TOL_ELEM``, non-zero ``o`` and ``lse`` cotangents, at the shapes of
+    phases 1-2, at (1, 8, 8192, 64), ragged t (1, 80, 130), causal and
+    not, f32 and bf16, hd 32/64/128; at the main-path shape (4, 8, 8192,
+    64) bf16 causal against the plain versions run one batch row at a
+    time and against K1f/K1b (twice ``TOL_ELEM``), at (1, 8, 32768, 64)
+    against K1f/K1b, and the chunked form (chunk 8192) against K1f.
+    Registers, spills and shared memory of each streamed kernel, and
+    device times at the main-path shape beside the bound, the plain
+    version and SDPA.
+13. **Long-context train.**  ``bench.py``'s 8k and 32k legs (vocab 32768,
+    d_model 512, 8 heads, 6 layers, Adam lr 1e-4, bf16) through
+    ``apps.transformer.main``: 8k streamed (1 + 5 steps; K1s = K1sb = 6
+    x steps, no K1f/K1b), 8k default dispatch (1 + 2 steps; K1f = K1b =
+    6 x steps, no K1s/K1sb), 32k streamed (1 + 2 steps); K3 forward =
+    backward = steps; finite, falling losses; ms/step, tokens/s, MFU,
+    peak memory and the kernels' shares; then one warm 8k streamed step
+    under ``torch.profiler``.  The dispatch is chosen by setting
+    ``kernels._STREAMED`` in this process.
+14. **Long-context parity.**  Phase 6's f32 step under the streamed
+    dispatch: K1s/K1sb on the card against the plain versions on the CPU.
 
-Then it prints a ``kernels`` JSON line (``launches``: the serve, train
-and DLRM runs together, split in ``launches_by_path``), the card's name
+Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
+DLRM and long-context runs together, split in ``launches_by_path``), the card's name
 and power limit from ``nvidia-smi``, and as its last line the JSON
 object ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits 2 and prints no result.
@@ -111,9 +133,17 @@ TOL_LSE = 1e-3
 #: maximum may move by 2^-8 of itself; K1b rounds ``p`` and ``ds`` from
 #: the same lse and delta as the plain version, so only the rare values
 #: that straddle a rounding boundary move.
+#: K1sb (``stream_bwd``) takes its scores from the tensor cores, summed
+#: in another order than the plain version's f32 product, so any ``p`` or
+#: ``ds`` may round to the other side of a bf16 boundary, not only the
+#: rare one: a term then moves by at most one bf16 ulp, 2^-7 of itself,
+#: and all the terms together by at most 2^-7 of the mass (K1b's 2^-11
+#: does not hold: the (16, 8, 2048, 64) case reaches 1.7 of it).
 TOL_ELEM = {
     "fwd": {"float32": (0.0, 2.0 ** -18), "bfloat16": (2.0 ** -7, 2.0 ** -8)},
     "bwd": {"float32": (0.0, 2.0 ** -18), "bfloat16": (2.0 ** -7, 2.0 ** -11)},
+    "stream_bwd": {"float32": (0.0, 2.0 ** -18),
+                   "bfloat16": (2.0 ** -7, 2.0 ** -7)},
 }
 #: K3's dlogits against the plain version, element by element: both
 #: sides compute one f32 value from the same lse and round it once, so
@@ -301,30 +331,40 @@ def _close(got, want, mass, rtol: float, arel: float) -> float:
     return ratio.max().item()
 
 
-def _flash_bwd_mass(q, k, v, o, lse, do, g_lse, causal):
+def _flash_bwd_mass(q, k, v, o, lse, do, g_lse, causal, rows: int = 4096):
     """Per element of ``(dq, dk, dv)``, the sum of the absolute terms
-    the backward adds up, in f32, one batch row at a time: ``p^T |do|``
-    for dv, and ``scale |ds| |k|`` / ``scale |ds|^T |q|`` for dq / dk
-    with ``|ds|`` taken as ``p (|do| |v|^T + rowsum |o do| + |g_lse|)``,
-    since ``dp - delta`` may cancel down to the rounding of its terms."""
+    the backward adds up, in f32, one head and ``rows`` query rows at a
+    time: ``p^T |do|`` for dv, and ``scale |ds| |k|`` / ``scale |ds|^T |q|``
+    for dq / dk with ``|ds|`` taken as ``p (|do| |v|^T + rowsum |o do| +
+    |g_lse|)``, since ``dp - delta`` may cancel down to the rounding of
+    its terms."""
     import torch
 
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    out = ([], [], [])
-    for i in range(q.shape[0]):
-        qi, ki, vi, oi, doi = (x[i].float() for x in (q, k, v, o, do))
-        s = qi @ ki.transpose(-1, -2) * scale
-        if causal:
-            t = s.shape[-1]
-            keep = torch.ones((t, t), dtype=torch.bool, device=s.device).tril()
-            s = s.masked_fill(~keep, -math.inf)
-        p = torch.exp(s - lse[i][..., None])
-        delta = (oi * doi).abs().sum(-1) + g_lse[i].abs()
-        ds = p * (doi.abs() @ vi.abs().transpose(-1, -2) + delta[..., None])
-        out[0].append(scale * ds @ ki.abs())
-        out[1].append(scale * ds.transpose(-1, -2) @ qi.abs())
-        out[2].append(p.transpose(-1, -2) @ doi.abs())
-    return tuple(torch.stack(x) for x in out)
+    b, h, t, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    out = tuple(torch.empty((b, h, t, hd), device=q.device) for _ in range(3))
+    cols = torch.arange(t, device=q.device)
+    for i in range(b):
+        for j in range(h):
+            qi, ki, vi, oi, doi = (x[i, j].float() for x in (q, k, v, o, do))
+            mk = torch.zeros((t, hd), device=q.device)
+            mv = torch.zeros((t, hd), device=q.device)
+            for r in range(0, t, rows):
+                sl = slice(r, min(t, r + rows))
+                s = qi[sl] @ ki.transpose(0, 1) * scale
+                if causal:
+                    s = s.masked_fill(cols[None, :] > cols[sl, None], -math.inf)
+                p = torch.exp(s - lse[i, j, sl, None])
+                delta = (oi[sl] * doi[sl]).abs().sum(-1) + g_lse[i, j, sl].abs()
+                ds = p * (doi[sl].abs() @ vi.abs().transpose(0, 1)
+                          + delta[:, None])
+                out[0][i, j, sl] = scale * ds @ ki.abs()
+                mk += scale * ds.transpose(0, 1) @ qi[sl].abs()
+                mv += p.transpose(0, 1) @ doi[sl].abs()
+                del s, p, ds
+            out[1][i, j] = mk
+            out[2][i, j] = mv
+    return out
 
 
 def _flash_fwd_close(kernels, q, k, v, causal, o, po) -> float:
@@ -603,8 +643,7 @@ def phase_parity(torch):
           f"{len(tokens[None])} requests, {n} tokens")
 
 
-def _train_argv():
-    c = TRAIN
+def _train_argv(c):
     return ["-b", str(c["batch"]), "--seq", str(c["seq"]),
             "--layers", str(c["layers"]), "--vocab", str(c["vocab"]),
             "--d-model", str(c["d_model"]), "--heads", str(c["heads"]),
@@ -613,11 +652,11 @@ def _train_argv():
             "--seed", str(c["seed"])]
 
 
-def train_flops() -> float:
-    """FLOPs of one train step of the TRAIN model: 3 x the forward, the
-    forward ``L (24 b s d^2 + 4 b s^2 d) + 2 b s d V`` (bench.py's
-    ``_train_flops`` over ``search/cost_model.py::op_cost``)."""
-    c = TRAIN
+def train_flops(c) -> float:
+    """FLOPs of one train step of the LM configuration ``c``: 3 x the
+    forward, the forward ``L (24 b s d^2 + 4 b s^2 d) + 2 b s d V``
+    (bench.py's ``_train_flops`` over ``search/cost_model.py::op_cost``;
+    the full ``s^2`` even when causal)."""
     b, s, d, L, V = c["batch"], c["seq"], c["d_model"], c["layers"], c["vocab"]
     return 3.0 * (L * (24 * b * s * d * d + 4 * b * s * s * d)
                   + 2 * b * s * d * V)
@@ -632,7 +671,7 @@ def phase_train(torch, kernels, rows):
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.KERNELS:
         fn.launches = 0
-    rc = transformer.main(_train_argv(), device="cuda", stats_out=stats)
+    rc = transformer.main(_train_argv(TRAIN), device="cuda", stats_out=stats)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -643,14 +682,14 @@ def phase_train(torch, kernels, rows):
            f"step losses {losses}")
     _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     L = TRAIN["layers"]
-    want = {"flash_attention_lse": L * steps,
-            "flash_attention_lse_bwd": L * steps, "softmax_xent": steps,
-            "softmax_xent_bwd": steps, "flash_decode": 0, "gather_rows": 0,
-            "scatter_add_rows": 0}
+    want = {n: 0 for n in launches}
+    want.update(flash_attention_lse=L * steps,
+                flash_attention_lse_bwd=L * steps, softmax_xent=steps,
+                softmax_xent_bwd=steps)
     _check(launches == want, f"launch counts {launches}, expected {want}")
     ms_step = stats["elapsed_s"] * 1e3 / stats["iterations"]
     tokens_s = stats["samples_per_s"] * TRAIN["seq"]
-    mfu = train_flops() / (ms_step * 1e-3) / PEAK_FLOPS["bfloat16"]
+    mfu = train_flops(TRAIN) / (ms_step * 1e-3) / PEAK_FLOPS["bfloat16"]
     shares = {
         "K1f": L * rows["flash_attention_lse@train"]["ms"],
         "K1b": L * rows["flash_attention_lse_bwd"]["ms"],
@@ -660,7 +699,7 @@ def phase_train(torch, kernels, rows):
                         for k, v in shares.items())
     print(f"[train] losses {[round(x, 5) for x in losses]}; {ms_step:.3f} "
           f"ms/step, tokens/s {tokens_s:.1f}, MFU {100 * mfu:.2f}% of 989 "
-          f"TFLOP/s ({train_flops():.4g} FLOP/step); from the kernels' "
+          f"TFLOP/s ({train_flops(TRAIN):.4g} FLOP/step); from the kernels' "
           f"measured times: {share_s}; peak memory {peak_gb:.2f} GB; "
           f"launches {launches}")
     return launches
@@ -693,16 +732,17 @@ def _profile_step(torch, tag: str, step) -> None:
               f" x{count:<4d} {key[:80]}")
 
 
-def phase_profile(torch):
-    """One warm train step of the TRAIN model under torch.profiler:
-    device time by kernel name and the step's device busy share."""
+def phase_profile(torch, c=None, tag: str = "profile"):
+    """One warm train step of the LM configuration ``c`` (phase 5's by
+    default) under torch.profiler: device time by kernel name and the
+    step's device busy share."""
     from flexflow_torch.apps.common import make_optimizer
     from flexflow_torch.config import FFConfig
     from flexflow_torch.models.transformer import build_transformer_lm
     from flexflow_torch.runtime.executor import Executor
     from flexflow_torch.runtime.trainer import Trainer
 
-    c = TRAIN
+    c = c or TRAIN
     cfg = FFConfig(batch_size=c["batch"], compute_dtype="bfloat16",
                    optimizer="adam", learning_rate=c["lr"], seed=c["seed"])
     ff = build_transformer_lm(batch_size=c["batch"], seq_len=c["seq"],
@@ -718,12 +758,14 @@ def phase_profile(torch):
 
     for _ in range(2):
         step()
-    _profile_step(torch, "profile", step)
+    _profile_step(torch, tag, step)
 
 
-def phase_train_parity(torch, kernels):
+def phase_train_parity(torch, kernels, streamed: bool = False):
     """One f32 Adam step on the card (kernels) and on the CPU (plain
-    versions) from the same params and batch."""
+    versions) from the same params and batch; with ``streamed``, under
+    the streamed dispatch (``kernels._STREAMED`` set in this process),
+    so the card runs K1s/K1sb."""
     import numpy as np
 
     from flexflow_torch.config import FFConfig
@@ -743,21 +785,28 @@ def phase_train_parity(torch, kernels):
     batch = synthetic_host_batch(ff, np.random.default_rng(c["seed"]),
                                  {"tokens": c["vocab"], "label": c["vocab"]})
     out = {}
+    bwd = (kernels.flash_attention_lse_streamed_bwd if streamed
+           else kernels.flash_attention_lse_bwd)
+    tag = "longctx-parity" if streamed else "train-parity"
     for dev in ("cuda", "cpu"):
         ex = Executor(ff, cfg, optimizer=AdamOptimizer(lr=c["lr"]), device=dev)
         params = {op: {k: p.detach().clone().to(ex.device)
                        for k, p in g.items()}
                   for op, g in params0.items()}
-        before = kernels.flash_attention_lse_bwd.launches
+        before = bwd.launches
         # The two halves of Executor.train_step (no --clip-norm here).
-        loss, _, _, grads = ex.loss_and_grads(params, {}, batch)
+        saved, kernels._STREAMED = kernels._STREAMED, streamed
+        try:
+            loss, _, _, grads = ex.loss_and_grads(params, {}, batch)
+        finally:
+            kernels._STREAMED = saved
         grads_cpu = {op: {k: v.detach().cpu() for k, v in g.items()}
                      for op, g in grads.items()}
         ex.optimizer.update(params, ex.optimizer.init(params), grads)
         if dev == "cuda":
             torch.cuda.synchronize()
-            _check(kernels.flash_attention_lse_bwd.launches - before
-                   == c["layers"], "the f32 parity step did not run K1b")
+            _check(bwd.launches - before == c["layers"],
+                   f"the f32 parity step did not run {bwd.__name__}")
         out[dev] = (float(loss), grads_cpu,
                     {op: {k: v.detach().cpu() for k, v in g.items()}
                      for op, g in params.items()})
@@ -782,7 +831,7 @@ def phase_train_parity(torch, kernels):
                    f"f32 updated {op}.{k}: err {d_big} where |g| is not "
                    f"noise, {diff.max().item()} overall")
             worst_p = max(worst_p, d_big)
-    print(f"[train-parity] f32 step card vs CPU: loss {lc:.7f} vs {lp:.7f}; "
+    print(f"[{tag}] f32 step card vs CPU: loss {lc:.7f} vs {lp:.7f}; "
           f"worst grad err {worst_g:.3g} of its tolerance; worst "
           f"updated-param err {worst_p:.3g} (lr {c['lr']})")
 
@@ -1120,6 +1169,282 @@ def phase_dlrm_profile(torch, params) -> None:
     _profile_step(torch, "dlrm-profile", step)
 
 
+#: The long-context legs of phase 13 (``bench.py:287-308``,
+#: ``bench_transformer_longctx`` and ``bench_transformer_32k``): the
+#: phase 5 model at seq 8192 (batch 4) and 32768 (batch 1).
+LONGCTX_8K = dict(TRAIN, batch=4, seq=8192, iters=5)
+LONGCTX_32K = dict(TRAIN, batch=1, seq=32768, iters=2)
+
+
+def _per_row(fn, *xs):
+    """``fn`` over the leading batch dim one row at a time, outputs
+    concatenated: the plain versions at long t, whose f32 t x t
+    temporaries for the whole batch would not fit the card."""
+    import torch
+
+    outs = [fn(*(x[i:i + 1] if x is not None else None for x in xs))
+            for i in range(xs[0].shape[0])]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _hold_stream(torch, kernels, q, k, v, do, g_lse, causal, ref: str):
+    """K1s's ``o``/``lse`` and K1sb's gradients against ``ref``: ``plain``
+    (the plain versions, one batch row at a time, within ``TOL_ELEM``'s
+    ``fwd`` and ``stream_bwd``) or ``k1`` (K1f and K1b, within twice
+    those: each side is held within them of the same plain version).  The backward takes the
+    reference forward's ``o`` and ``lse``.  Returns (worst element ratio,
+    worst absolute error)."""
+    name = _dtype_name(q.dtype)
+    if ref == "plain":
+        fwd = lambda a, b, c: _per_row(
+            lambda x, y, z: kernels.flash_attention_lse_plain(x, y, z, causal),
+            a, b, c)
+        bwd = lambda *a: _per_row(
+            lambda *x: kernels.flash_attention_lse_bwd_plain(*x, causal), *a)
+        factor = 1.0
+    else:
+        fwd = lambda a, b, c: kernels.flash_attention_lse(a, b, c, causal)
+        bwd = lambda *a: kernels.flash_attention_lse_bwd(*a, causal)
+        factor = 2.0
+    with torch.no_grad():
+        o, lse = kernels._stream_fwd(q, k, v, causal)
+        po, plse = fwd(q, k, v)
+        mass = fwd(q, k, v.abs())[0]
+    rtol, arel = TOL_ELEM["fwd"][name]
+    worst = _close(o, po, mass, factor * rtol, factor * arel)
+    parts = {"o": worst}
+    e_lse = (lse - plse).abs().max().item()
+    _check(e_lse <= TOL_LSE, f"streamed lse {tuple(q.shape)}: err {e_lse}")
+    err = max((o.float() - po.float()).abs().max().item(), e_lse)
+    del o, lse, mass
+    got = kernels.flash_attention_lse_streamed_bwd(q, k, v, po, plse, do,
+                                                   g_lse, causal)
+    want = bwd(q, k, v, po, plse, do, g_lse)
+    masses = _flash_bwd_mass(q, k, v, po, plse, do, g_lse, causal)
+    rtol, arel = TOL_ELEM["stream_bwd"][name]
+    for key, a, w, m in zip(("dq", "dk", "dv"), got, want, masses):
+        parts[key] = _close(a, w, m, factor * rtol, factor * arel)
+        err = max(err, (a.float() - w.float()).abs().max().item())
+    worst = max(parts.values())
+    _check(worst <= 1.0, f"streamed kernels {tuple(q.shape)} causal={causal} "
+           f"{name} against {ref}: " + ", ".join(
+               f"{k} {v:.3g}" for k, v in parts.items())
+           + " of the element tolerance")
+    return worst, err
+
+
+def phase_stream_kernels(torch, kernels, F):
+    """K1s and K1sb against their plain versions on the card, element by
+    element, and against K1f/K1b at the long-context shapes; device times
+    at the main-path shape.  Returns per-kernel rows."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = {}
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    for hd in kernels._STREAM_HEAD_DIMS:
+        for dt in (torch.float32, torch.bfloat16):
+            a = kernels.flash_stream_attrs(hd, dt)
+            print(f"[stream-kernels] hd {hd} {_dtype_name(dt)}: "
+                  + ", ".join(f"{k} {r} registers, {sp} spilled bytes, "
+                              f"{sm} B shared" for k, (r, sp, sm) in a.items()))
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(shape, causal, dt)
+             for shape in ((1, 8, 64, 64), (1, 8, 128, 64), (2, 8, 2048, 64),
+                           (1, 8, 80, 64))
+             for causal in (True, False) for dt in (f32, bf16)]
+    cases += [((16, 8, 2048, 64), True, bf16), ((2, 8, 80, 64), False, f32),
+              ((2, 8, 80, 64), True, bf16), ((1, 8, 1, 64), True, f32),
+              ((1, 2, 130, 128), False, bf16), ((2, 4, 256, 32), True, f32),
+              ((1, 8, 130, 64), True, bf16), ((1, 2, 130, 32), True, bf16),
+              ((1, 2, 200, 128), True, f32), ((1, 8, 8192, 64), True, bf16)]
+    worst = 0.0
+    for shape, causal, dt in cases:
+        q, k, v, do = (randn(shape, dt) for _ in range(4))
+        g_lse = randn(shape[:3], f32)
+        ratio, _ = _hold_stream(torch, kernels, q, k, v, do, g_lse, causal,
+                                "plain")
+        torch.cuda.synchronize()
+        _check(ratio <= 1.0, f"streamed kernels {shape} causal={causal} "
+               f"{_dtype_name(dt)}: {ratio} of the element tolerance")
+        worst = max(worst, ratio)
+        del q, k, v, do, g_lse
+    print(f"[stream-kernels] {len(cases)} shapes against the plain versions "
+          f"(o, lse, dq, dk, dv; causal and not, f32 and bf16, t = 1 to "
+          f"8192, hd 32/64/128): worst element {worst:.3g} of its tolerance")
+
+    # -- the main-path shape: against plain and K1f/K1b, then timed --
+    main = (LONGCTX_8K["batch"], LONGCTX_8K["heads"], LONGCTX_8K["seq"],
+            LONGCTX_8K["d_model"] // LONGCTX_8K["heads"])
+    b, h, t, hd = main
+    q, k, v, do = (randn(main, bf16) for _ in range(4))
+    g_lse = randn(main[:3], f32)
+    r_plain, err = _hold_stream(torch, kernels, q, k, v, do, g_lse, True,
+                                "plain")
+    r_k1, _ = _hold_stream(torch, kernels, q, k, v, do, g_lse, True, "k1")
+    torch.cuda.synchronize()
+    _check(r_plain <= 1.0 and r_k1 <= 1.0,
+           f"streamed kernels {main}: {r_plain} (plain) and {r_k1} (K1f/K1b) "
+           f"of the element tolerance")
+    pairs = t * (t + 1) // 2
+    fb, fby = _bound_ms(4 * b * h * t * hd * 2 + b * h * t * 4,
+                        4 * b * h * hd * pairs, "bfloat16")
+    bb, bby = _bound_ms(8 * b * h * t * hd * 2 + 2 * b * h * t * 4,
+                        10 * b * h * hd * pairs, "bfloat16")
+    with torch.no_grad():
+        o, lse = kernels.flash_attention_lse(q, k, v, True)
+        t_s = _device_ms(lambda: kernels._stream_fwd(q, k, v, True))
+        t_f = _device_ms(lambda: kernels._flash_fwd(q, k, v, True))
+        t_pf = _device_ms(lambda: _per_row(
+            lambda *x: kernels.flash_attention_lse_plain(*x, True), q, k, v))
+        t_lf = _device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+    t_sb = _device_ms(lambda: kernels.flash_attention_lse_streamed_bwd(
+        q, k, v, o, lse, do, g_lse, True))
+    t_b = _device_ms(lambda: kernels.flash_attention_lse_bwd(
+        q, k, v, o, lse, do, g_lse, True))
+    t_pb = _device_ms(lambda: _per_row(
+        lambda *x: kernels.flash_attention_lse_bwd_plain(*x, True),
+        q, k, v, o, lse, do, g_lse))
+    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    t_lb = _device_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                  retain_graph=True))
+    del qs, ks, vs, out
+    for what, ms, bound, by, lib in (
+            ("K1s", t_s, fb, fby, t_lf), ("K1f", t_f, fb, fby, t_lf),
+            ("K1sb", t_sb, bb, bby, t_lb), ("K1b", t_b, bb, bby, t_lb)):
+        plain = t_pf if what in ("K1s", "K1f") else t_pb
+        print(f"[stream-kernels] {what} {main} bf16 causal: {ms:.4f} ms "
+              f"({ms / bound:.1f}x its bound {bound:.5f} by {by}; plain "
+              f"{plain:.4f}, one batch row at a time; sdpa "
+              f"{'forward' if lib is t_lf else 'backward'} {lib:.4f})")
+    print(f"[stream-kernels] {main}: worst element {r_plain:.3g} (plain), "
+          f"{r_k1:.3g} (K1f/K1b) of its tolerance")
+    rows["flash_attention_lse_streamed"] = dict(
+        max_abs_err=err, ms=t_s, plain_ms=t_pf, bound_ms=fb, bound_by=fby,
+        library_ms=t_lf)
+    rows["flash_attention_lse_streamed_bwd"] = dict(
+        max_abs_err=err, ms=t_sb, plain_ms=t_pb, bound_ms=bb, bound_by=bby,
+        library_ms=t_lb)
+    rows["flash_attention_lse@8k"] = dict(ms=t_f, plain_ms=t_pf, bound_ms=fb,
+                                          bound_by=fby, library_ms=t_lf)
+    rows["flash_attention_lse_bwd@8k"] = dict(ms=t_b, plain_ms=t_pb,
+                                              bound_ms=bb, bound_by=bby,
+                                              library_ms=t_lb)
+    del q, k, v, do, g_lse, o, lse
+
+    # -- 32k: against K1f/K1b (no plain: its t x t temporaries do not
+    # fit), and the chunked form against K1f --
+    big = (1, 8, 32768, 64)
+    q, k, v, do = (randn(big, bf16) for _ in range(4))
+    g_lse = randn(big[:3], f32)
+    r_big, _ = _hold_stream(torch, kernels, q, k, v, do, g_lse, True, "k1")
+    with torch.no_grad():
+        o, lse = kernels.flash_attention_lse(q, k, v, True)
+        co, clse = kernels.flash_attention_lse_chunked(q, k, v, True,
+                                                       chunk=8192)
+        mass = kernels.flash_attention_lse(q, k, v.abs(), True)[0]
+    # Each chunk's o is rounded to bf16 before the f32 merge (2^-8 of its
+    # own mass) and each side rounds p against its own running maximum
+    # (2^-8 each): 3 x 2^-8 < 2^-6 of the mass, plus one output ulp.
+    r_chunk = _close(co, o, mass, 2.0 ** -7, 2.0 ** -6)
+    e_clse = (clse - lse).abs().max().item()
+    torch.cuda.synchronize()
+    _check(r_big <= 1.0 and r_chunk <= 1.0 and e_clse <= TOL_LSE,
+           f"32k: streamed {r_big}, chunked {r_chunk} of the element "
+           f"tolerance, chunked lse err {e_clse}")
+    with torch.no_grad():
+        t_s32 = _device_ms(lambda: kernels._stream_fwd(q, k, v, True), 5)
+    t_sb32 = _device_ms(lambda: kernels.flash_attention_lse_streamed_bwd(
+        q, k, v, o, lse, do, g_lse, True), 5)
+    print(f"[stream-kernels] {big} bf16 causal: K1s/K1sb worst element "
+          f"{r_big:.3g} of twice TOL_ELEM against K1f/K1b; chunked (chunk "
+          f"8192) {r_chunk:.3g} of its tolerance, lse err {e_clse:.3g}; K1s "
+          f"{t_s32:.4f} ms, K1sb {t_sb32:.4f} ms (median of 5)")
+    rows["stream@32k"] = dict(fwd_ms=t_s32, bwd_ms=t_sb32)
+    del q, k, v, do, g_lse, o, lse, co, clse, mass
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_longctx_train(torch, kernels, rows):
+    """``bench.py``'s long-context legs through ``apps.transformer.main``
+    at full width: 8k with the streamed dispatch and with the default
+    one, 32k streamed.  The dispatch is chosen by setting
+    ``kernels._STREAMED`` in this process, as ``tests/test_pallas.py``
+    sets ``pallas_kernels._STREAMED``.  Then one warm 8k streamed step
+    under torch.profiler.  Returns launch counts by leg."""
+    from flexflow_torch.apps import transformer
+
+    legs = (("longctx_8k_streamed", LONGCTX_8K, True),
+            ("longctx_8k_default", dict(LONGCTX_8K, iters=2), False),
+            ("longctx_32k", LONGCTX_32K, True))
+    by_leg = {}
+    for name, c, streamed in legs:
+        stats = {}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for fn in kernels.KERNELS:
+            fn.launches = 0
+        saved, kernels._STREAMED = kernels._STREAMED, streamed
+        try:
+            rc = transformer.main(_train_argv(c), device="cuda",
+                                  stats_out=stats)
+            torch.cuda.synchronize()
+        finally:
+            kernels._STREAMED = saved
+        launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        _check(rc == 0, f"{name} exited {rc}")
+        losses = stats["step_losses"]
+        steps = c["warmup"] + c["iters"]
+        _check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+               f"{name} step losses {losses}")
+        _check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
+        L = c["layers"]
+        fwd, bwd = (("flash_attention_lse_streamed",
+                     "flash_attention_lse_streamed_bwd") if streamed else
+                    ("flash_attention_lse", "flash_attention_lse_bwd"))
+        want = {n: 0 for n in launches}
+        want.update({fwd: L * steps, bwd: L * steps, "softmax_xent": steps,
+                     "softmax_xent_bwd": steps})
+        _check(launches == want, f"{name} launch counts {launches}, "
+               f"expected {want}")
+        ms_step = stats["elapsed_s"] * 1e3 / stats["iterations"]
+        tokens_s = stats["samples_per_s"] * c["seq"]
+        flops = train_flops(c)
+        mfu = flops / (ms_step * 1e-3) / PEAK_FLOPS["bfloat16"]
+        if c["seq"] == 32768:
+            a_f, a_b = rows["stream@32k"]["fwd_ms"], rows["stream@32k"]["bwd_ms"]
+        elif streamed:
+            a_f = rows["flash_attention_lse_streamed"]["ms"]
+            a_b = rows["flash_attention_lse_streamed_bwd"]["ms"]
+        else:
+            a_f = rows["flash_attention_lse@8k"]["ms"]
+            a_b = rows["flash_attention_lse_bwd@8k"]["ms"]
+        names = ("K1s", "K1sb") if streamed else ("K1f", "K1b")
+        shares = {names[0]: L * a_f, names[1]: L * a_b,
+                  "K3": rows["softmax_xent"]["ms"] + rows["softmax_xent_bwd"]["ms"]}
+        share_s = ", ".join(f"{k} {v:.3f} ms ({100 * v / ms_step:.1f}%)"
+                            for k, v in shares.items())
+        print(f"[longctx-train] {name} (batch {c['batch']} x seq {c['seq']}, "
+              f"{c['warmup']} + {c['iters']} steps): losses "
+              f"{[round(x, 5) for x in losses]}; {ms_step:.3f} ms/step, "
+              f"tokens/s {tokens_s:.1f}, MFU {100 * mfu:.2f}% of 989 TFLOP/s "
+              f"({flops:.4g} FLOP/step); from the kernels' measured times: "
+              f"{share_s}; peak memory {peak_gb:.2f} GB; launches {launches}")
+        by_leg[name] = launches
+    saved, kernels._STREAMED = kernels._STREAMED, True
+    try:
+        phase_profile(torch, LONGCTX_8K, "longctx-profile")
+    finally:
+        kernels._STREAMED = saved
+    return by_leg
+
+
 def main() -> int:
     import torch
 
@@ -1158,9 +1483,16 @@ def main() -> int:
     phase_dlrm_profile(torch, dlrm_params)
     del dlrm_params
     t.append(time.perf_counter())
+    rows.update(phase_stream_kernels(torch, kernels, F))
+    t.append(time.perf_counter())
+    longctx_launches = phase_longctx_train(torch, kernels, rows)
+    t.append(time.perf_counter())
+    phase_train_parity(torch, kernels, streamed=True)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
-             "dlrm-parity", "dlrm-profile")
+             "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
+             "longctx-parity")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -1173,18 +1505,26 @@ def main() -> int:
         "softmax_xent_bwd": (src + "softmax_xent.cu", pk + ":1227"),
         "gather_rows": (src + "embedding_rows.cu", pk + ":1379"),
         "scatter_add_rows": (src + "embedding_rows.cu", pk + ":1412"),
+        "flash_attention_lse_streamed": (src + "flash_stream.cu", pk + ":361"),
+        "flash_attention_lse_streamed_bwd": (src + "flash_stream.cu",
+                                             pk + ":664"),
     }
     entries = []
     for name, (source, replaces) in meta.items():
         by_path = {"serve": serve_launches[name],
                    "train": train_launches[name],
                    **{f"dlrm_{run}": counts[name]
-                      for run, counts in dlrm_launches.items()}}
+                      for run, counts in dlrm_launches.items()},
+                   **{leg: counts[name]
+                      for leg, counts in longctx_launches.items()}}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])
         if name == "flash_attention_lse":
             entry["train_shape"] = rows["flash_attention_lse@train"]
+            entry["longctx_shape"] = rows["flash_attention_lse@8k"]
+        if name == "flash_attention_lse_bwd":
+            entry["longctx_shape"] = rows["flash_attention_lse_bwd@8k"]
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     smi = subprocess.run(

@@ -3,8 +3,10 @@
 
 Builds the decoder-only LM (``build_transformer_lm``) and trains it on
 one fixed synthetic batch through ``run_training`` →
-``Executor.train_step`` → ``Trainer.fit``: flash attention forward and
-backward (kernels K1f, K1b) in every layer and the fused cross-entropy
+``Executor.train_step`` → ``Trainer.fit``: attention through the flash
+dispatcher ``kernels.flash_attention_lse_auto`` in every layer (the
+kernels K1f forward and K1b backward; with ``FF_FLASH_STREAMED=1`` in
+the environment, the streamed K1s and K1sb) and the fused cross-entropy
 (K3) over the vocabulary.  Prints the reference throughput lines and
 ``tokens/s``.
 
@@ -18,6 +20,13 @@ Example (the shape ``bench.py`` trains the LM at)::
     python -m flexflow_torch.apps.transformer -b 16 --seq 2048 --layers 6 \\
         --vocab 32768 --d-model 512 --heads 8 --optimizer adam --lr 1e-4 \\
         --dtype bfloat16 -i 5
+
+Long context (``bench.py``'s 8k leg; its 32k leg is ``-b 1 --seq 32768
+-i 3``) on the streamed kernels::
+
+    FF_FLASH_STREAMED=1 python -m flexflow_torch.apps.transformer -b 4 \\
+        --seq 8192 --layers 6 --vocab 32768 --d-model 512 --heads 8 \\
+        --optimizer adam --lr 1e-4 --dtype bfloat16 -i 5
 """
 
 from __future__ import annotations

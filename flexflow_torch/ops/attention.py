@@ -3,8 +3,12 @@
 
 ``LayerNorm``, ``PositionEmbedding`` and ``MultiHeadAttention`` with its
 dense forward and the padded KV-cache protocol (prefill and decode).
-Dense attention always runs the port's flash kernels
-(``kernels.flash_attention_lse``: K1f forward, K1b backward); cached decode runs the flash-decode
+Dense attention (training, and the serving prefill) goes through
+``kernels.flash_attention_lse_auto``, as JAX's ``_flash_dense`` does: K1f
+forward and K1b backward for every head dim they take, the streamed K1s
+and K1sb under ``FF_FLASH_STREAMED=1``, the plain blocked form at
+``t >= 4096`` for other head dims, and the einsum when it returns None.
+Cached decode runs the flash-decode
 kernel (``kernels.flash_decode``) unless ``decode_kernel`` is False,
 which selects the plain ``_einsum_decode``.  On CPU tensors both kernel
 wrappers run their plain versions.  The ring (sequence-parallel), paged
@@ -189,8 +193,13 @@ class MultiHeadAttention(Op):
         return x.transpose(1, 2).reshape(b, t, h * hd).to(dtype)
 
     def _attend_dense(self, q, k, v, dtype):
+        """The single-device branch of JAX's ``_attend_dense`` /
+        ``_flash_dense``: the dispatcher's formulation, or the einsum when
+        it returns None."""
         q, k, v = map(self._split_heads, (q, k, v))
-        out, _lse = kernels.flash_attention_lse(q, k, v, self.attrs["causal"])
+        causal = self.attrs["causal"]
+        res = kernels.flash_attention_lse_auto(q, k, v, causal)
+        out = _einsum_attention(q, k, v, causal) if res is None else res[0]
         return self._merge_heads(out, dtype)
 
     def _out_proj(self, params, y):

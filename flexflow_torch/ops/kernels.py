@@ -15,6 +15,11 @@ wrapper counts its launches in a plain integer attribute
 (``flash_attention_lse.launches``), so a run can show that its main
 path went through the kernel.
 
+Dense attention reaches the flash kernels through the dispatcher
+:func:`flash_attention_lse_auto` at the end of this module, which also
+holds the plain-torch formulations JAX keeps in jnp around its kernels
+(``merge_lse``, the chunked and blocked forms).
+
 The differentiable kernels (flash attention, the fused cross-entropy)
 are ``torch.autograd.Function``s on every device: on the CPU their
 forward and backward run the plain versions explicitly, so the CPU
@@ -45,8 +50,8 @@ _NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 #: One shared library per kernel source.
-_SOURCES = ("flash_fwd", "flash_bwd", "flash_decode", "softmax_xent",
-            "embedding_rows")
+_SOURCES = ("flash_fwd", "flash_bwd", "flash_stream", "flash_decode",
+            "softmax_xent", "embedding_rows")
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -132,6 +137,13 @@ def _load(name: str) -> ctypes.CDLL:
     elif name == "flash_bwd":
         lib.ff_flash_bwd.argtypes = [p] * 11 + [i, i, i, i, f, i, p]
         lib.ff_flash_bwd.restype = i
+    elif name == "flash_stream":
+        lib.ff_flash_stream_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
+        lib.ff_flash_stream_fwd.restype = i
+        lib.ff_flash_stream_bwd.argtypes = [p] * 11 + [i, i, i, i, f, i, p]
+        lib.ff_flash_stream_bwd.restype = i
+        lib.ff_flash_stream_attrs.argtypes = [i, i, i, p]
+        lib.ff_flash_stream_attrs.restype = i
     elif name == "flash_decode":
         lib.ff_flash_decode.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
         lib.ff_flash_decode.restype = i
@@ -245,16 +257,18 @@ def _flash_fwd(q, k, v, causal: bool):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K1f forward, K1b backward; both outputs are differentiable (the
-    lse cotangent enters the backward as ``delta -= g_lse``)."""
+    """K1f forward and K1b backward, or with ``streamed`` K1s and K1sb;
+    both outputs are differentiable (the lse cotangent enters the
+    backward as ``delta -= g_lse``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, streamed):
         if q.device.type != "cpu":
             q, k, v = _dense(q), _dense(k), _dense(v)
-        o, lse = _flash_fwd(q, k, v, causal)
+        o, lse = (_stream_fwd if streamed else _flash_fwd)(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
+        ctx.streamed = streamed
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -263,9 +277,10 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if g_o is None:
             g_o = torch.zeros_like(o)
-        dq, dk, dv = flash_attention_lse_bwd(q, k, v, o, lse, g_o, g_lse,
-                                             ctx.causal)
-        return dq, dk, dv, None
+        bwd = (flash_attention_lse_streamed_bwd if ctx.streamed
+               else flash_attention_lse_bwd)
+        dq, dk, dv = bwd(q, k, v, o, lse, g_o, g_lse, ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_lse(q, k, v, causal: bool = True):
@@ -279,7 +294,7 @@ def flash_attention_lse(q, k, v, causal: bool = True):
     ragged tiles are masked in the kernels.
     """
     _flash_shapes("flash_attention_lse", q, k, v)
-    return _FlashAttention.apply(q, k, v, bool(causal))
+    return _FlashAttention.apply(q, k, v, bool(causal), False)
 
 
 flash_attention_lse.launches = 0
@@ -330,38 +345,155 @@ def flash_attention_lse_bwd(q, k, v, o, lse, do, g_lse=None,
     if q.device.type == "cpu":
         return flash_attention_lse_bwd_plain(q, k, v, o, lse, do, g_lse,
                                              causal)
-    _flash_shapes("flash_attention_lse_bwd", q, k, v)
+    dq, dk, dv = _launch_bwd("flash_attention_lse_bwd", False, q, k, v, o,
+                             lse, do, g_lse, causal)
+    flash_attention_lse_bwd.launches += 1
+    return dq, dk, dv
+
+
+def _launch_bwd(what, streamed, q, k, v, o, lse, do, g_lse, causal):
+    """Checks the backward's CUDA operands and launches the two-pass
+    backward, K1b's or (``streamed``) K1sb's: the two share one C
+    signature.  Returns ``(dq, dk, dv)``."""
+    _flash_shapes(what, q, k, v)
     do = do.to(q.dtype)
-    code = _check_cuda("flash_attention_lse_bwd", q, k, v, o, do)
+    code = _check_cuda(what, q, k, v, o, do, head_dim=not streamed)
+    if streamed:
+        _stream_check(what, q)
     b, h, t, hd = q.shape
     if o.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"flash_attention_lse_bwd: o {tuple(o.shape)} and "
-                         f"do {tuple(do.shape)} must be {tuple(q.shape)}")
+        raise ValueError(f"{what}: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must be {tuple(q.shape)}")
     rows = [lse] if g_lse is None else [lse, g_lse]
     for r in rows:
         if r.shape != (b, h, t) or r.device != q.device:
-            raise ValueError(f"flash_attention_lse_bwd: lse/g_lse must be "
-                             f"({b}, {h}, {t}) on {q.device}, got "
-                             f"{tuple(r.shape)} on {r.device}")
+            raise ValueError(f"{what}: lse/g_lse must be ({b}, {h}, {t}) on "
+                             f"{q.device}, got {tuple(r.shape)} on {r.device}")
     q, k, v, o, do = (_dense(x) for x in (q, k, v, o, do))
     lse = lse.float().contiguous()
     g_lse = None if g_lse is None else g_lse.float().contiguous()
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _load("flash_bwd").ff_flash_bwd(
+    launch = (_load("flash_stream").ff_flash_stream_bwd if streamed
+              else _load("flash_bwd").ff_flash_bwd)
+    err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(),
         None if g_lse is None else g_lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, t, hd,
         int(bool(causal)), 1.0 / math.sqrt(hd), code, stream,
     )
-    _raise_on(err, "flash_attention_lse_bwd")
-    flash_attention_lse_bwd.launches += 1
+    _raise_on(err, what)
     return dq, dk, dv
 
 
 flash_attention_lse_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1s / K1sb: streamed flash-attention forward and backward
+# ---------------------------------------------------------------------------
+
+#: Head dims ``csrc/flash_stream.cu`` is instantiated for.
+_STREAM_HEAD_DIMS = (32, 64, 128)
+
+
+def flash_stream_supported(shape, dtype=torch.float32) -> bool:
+    """Whether the streamed kernels (K1s, K1sb) take ``(b, h, t, hd)``
+    attention of ``dtype``: f32 or bf16, ``hd`` in {32, 64, 128}, any
+    ``t >= 1`` (ragged tiles are masked), ``b * h <= 65535`` (one grid
+    row per head).  Hopper's gate in place of the TPU's
+    ``_stream_blocks`` / ``_stream_default_block``, which fit blocks to
+    VMEM."""
+    if len(shape) != 4:
+        return False
+    b, h, t, hd = shape
+    return (dtype in _KERNEL_DTYPES and t >= 1 and hd in _STREAM_HEAD_DIMS
+            and 1 <= b * h <= 65535)
+
+
+def _stream_check(what, q):
+    if not flash_stream_supported(tuple(q.shape), q.dtype):
+        raise ValueError(f"{what}: shape {tuple(q.shape)} {q.dtype} is "
+                         f"outside the streamed kernels' gate (head dim in "
+                         f"{_STREAM_HEAD_DIMS}, b * h <= 65535)")
+
+
+def _stream_fwd(q, k, v, causal: bool):
+    """K1s on already dense operands: the plain version on the CPU, the
+    kernel on CUDA (counted in ``flash_attention_lse_streamed.launches``)."""
+    if q.device.type == "cpu":
+        return flash_attention_lse_plain(q, k, v, causal)
+    code = _check_cuda("flash_attention_lse_streamed", q, k, v,
+                       head_dim=False)
+    _stream_check("flash_attention_lse_streamed", q)
+    b, h, t, hd = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _load("flash_stream").ff_flash_stream_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b * h, t, hd, int(bool(causal)),
+        1.0 / math.sqrt(hd), code, stream,
+    )
+    _raise_on(err, "flash_attention_lse_streamed")
+    flash_attention_lse_streamed.launches += 1
+    return o, lse
+
+
+def flash_attention_lse_streamed(q, k, v, causal: bool = True):
+    """Streamed flash attention over ``(b, h, t, hd)`` heads: the same
+    ``(o, lse)`` as :func:`flash_attention_lse`, both differentiable.
+    The port of ``pallas_kernels.flash_attention_lse_streamed`` (forward
+    kernel ``_fwd_stream_kernel``; backward
+    :func:`flash_attention_lse_streamed_bwd`), source
+    ``csrc/flash_stream.cu``: K/V tiles through a two-stage ``cp.async``
+    ring, bf16 products on the tensor cores.  The TPU signature's
+    ``block_q``/``block_k`` (VMEM tiling) are dropped.  Its plain version
+    is :func:`flash_attention_lse_plain`: the function and the cast
+    points are K1f's.  Takes the shapes :func:`flash_stream_supported`
+    admits."""
+    _flash_shapes("flash_attention_lse_streamed", q, k, v)
+    return _FlashAttention.apply(q, k, v, bool(causal), True)
+
+
+flash_attention_lse_streamed.launches = 0
+
+
+def flash_attention_lse_streamed_bwd(q, k, v, o, lse, do, g_lse=None,
+                                     causal: bool = True):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_lse_streamed`
+    from the cotangents ``do`` and ``g_lse`` (None is zero).  The port of
+    ``pallas_kernels._bwd_stream_call`` (kernels ``_dq_stream_kernel`` and
+    ``_dkv_stream_kernel``, with the delta of ``_cotangent_delta_lanes``
+    computed in the dq pass); source ``csrc/flash_stream.cu``, no atomics.
+    Its plain version is :func:`flash_attention_lse_bwd_plain`, K1b's:
+    the function and the cast points are the same."""
+    if q.device.type == "cpu":
+        return flash_attention_lse_bwd_plain(q, k, v, o, lse, do, g_lse,
+                                             causal)
+    dq, dk, dv = _launch_bwd("flash_attention_lse_streamed_bwd", True, q, k,
+                             v, o, lse, do, g_lse, causal)
+    flash_attention_lse_streamed_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_lse_streamed_bwd.launches = 0
+
+
+def flash_stream_attrs(hd: int, dtype) -> Dict[str, Tuple[int, int, int]]:
+    """Registers per thread, spilled bytes per thread and dynamic shared
+    bytes of the three streamed kernels (``fwd``, ``dq``, ``dkv``) at head
+    dim ``hd``, as the loaded library reports them (CUDA only)."""
+    lib = _load("flash_stream")
+    out = {}
+    for which, name in enumerate(("fwd", "dq", "dkv")):
+        vals = (ctypes.c_int * 3)()
+        _raise_on(lib.ff_flash_stream_attrs(which, hd, _KERNEL_DTYPES[dtype],
+                                            vals), "flash_stream_attrs")
+        out[name] = tuple(vals)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -696,6 +828,201 @@ def scatter_add_rows(table, ids, upd):
 scatter_add_rows.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# around the flash kernels: the dispatcher and its plain-torch formulations
+# ---------------------------------------------------------------------------
+#
+# The JAX package computes these in jnp around its Pallas kernels
+# (pallas_kernels.py:813-1047); here they are plain torch, differentiable
+# by autograd through the kernels' Functions.
+
+
+def merge_lse(o1, lse1, o2, lse2):
+    """Combine two flash partials ``(o_i, lse_i) -> (o, lse)``: the
+    streaming-softmax merge of ``pallas_kernels.merge_lse``.  ``o_i``
+    ``(..., t, hd)`` f32, ``lse_i`` ``(..., t)`` f32; ``lse = -1e30`` marks
+    an empty partial, whose weight is then 0."""
+    lse = torch.logaddexp(lse1, lse2)
+    w1 = torch.exp(lse1 - lse)[..., None]
+    w2 = torch.exp(lse2 - lse)[..., None]
+    return o1 * w1 + o2 * w2, lse
+
+
+def flash_supported(shape, dtype=torch.float32) -> bool:
+    """K1f/K1b's gate: f32 or bf16, ``hd`` a multiple of 8 in [8, 128],
+    any ``t >= 1`` (the port keeps no t < 16 einsum branch: the kernel
+    masks ragged tiles).  Hopper's gate in place of the TPU's VMEM block
+    cap."""
+    if len(shape) != 4:
+        return False
+    _, _, t, hd = shape
+    return (dtype in _KERNEL_DTYPES and t >= 1 and hd % 8 == 0
+            and 8 <= hd <= 128 and -(-t // 64) <= 65535)
+
+
+def flash_chunked_supported(shape, dtype=torch.float32) -> bool:
+    """Never true on Hopper.  On the TPU the chunked form catches shapes
+    past the single launch's VMEM cap (bf16 t >= 16384 at hd 64); K1f
+    keeps no resident K/V and takes every t in one launch, so no shape
+    needs it.  Kept so that the dispatcher reads as JAX's; the chunked
+    form itself runs under ``FF_FLASH_FORCE_CHUNK`` or when called."""
+    return False
+
+
+#: Sequences at least this long that no kernel takes stream through the
+#: plain blocked formulation instead of a t x t einsum.
+_BLOCKED_MIN_T = 4096
+
+
+def blocked_attention_applies(shape) -> bool:
+    """Long-context shapes :func:`attention_lse_blocked` absorbs when no
+    kernel takes them (the einsum would materialise a t x t matrix)."""
+    if len(shape) != 4:
+        return False
+    _, _, t, hd = shape
+    return t >= _BLOCKED_MIN_T and hd >= 8
+
+
+def flash_any_supported(shape, dtype=torch.float32) -> bool:
+    """Whether :func:`flash_attention_lse_auto` returns a flash
+    formulation with the flags unset: False means the einsum is the
+    right call."""
+    return (flash_supported(shape, dtype)
+            or flash_chunked_supported(shape, dtype)
+            or blocked_attention_applies(shape))
+
+
+def flash_attention_lse_chunked(q, k, v, causal: bool = True,
+                                chunk=None):
+    """Flash attention as sequence chunks: one K1f launch per (q chunk, k
+    chunk) pair that the mask leaves visible, partials combined by
+    :func:`merge_lse` in f32 (``pallas_kernels.flash_attention_lse_chunked``).
+    ``chunk`` must divide ``t`` and be shorter than it: on Hopper no
+    shape needs chunks (:func:`flash_chunked_supported`), so there is no
+    automatic length."""
+    b, h, t, hd = q.shape
+    c = chunk or 0
+    if c <= 0 or c >= t or t % c:
+        raise ValueError(f"flash_attention_lse_chunked: chunk {chunk} must "
+                         f"divide t={t} and be shorter than it")
+    n = t // c
+
+    def sl(x, i):
+        return x[:, :, i * c:(i + 1) * c]
+
+    outs, lses = [], []
+    for i in range(n):
+        qi = sl(q, i)
+        # The diagonal chunk under the kernel's own mask; the others are
+        # fully visible (all of them when not causal, j < i when causal).
+        o, lse = flash_attention_lse(qi, sl(k, i), sl(v, i), causal)
+        o = o.float()
+        for j in range(i) if causal else range(n):
+            if j == i:
+                continue
+            o_j, lse_j = flash_attention_lse(qi, sl(k, j), sl(v, j), False)
+            o, lse = merge_lse(o, lse, o_j.float(), lse_j)
+        outs.append(o)
+        lses.append(lse)
+    return torch.cat(outs, dim=2).to(q.dtype), torch.cat(lses, dim=2)
+
+
+def _blocked_rows(qi, kp, vp, q0: int, t: int, causal: bool, block_k: int):
+    """One q block of :func:`attention_lse_blocked`: the online softmax
+    over the k blocks in f32, ``p`` rounded to v's dtype before P.V."""
+    b, h, bq, hd = qi.shape
+    scale = 1.0 / math.sqrt(hd)
+    q_pos = q0 + torch.arange(bq, device=qi.device)
+    m = torch.full((b, h, bq, 1), _NEG_INF, dtype=torch.float32,
+                   device=qi.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, h, bq, hd), dtype=torch.float32, device=qi.device)
+    nk = kp.shape[2] // block_k
+    # Causal: the blocks past the diagonal are masked whole and would add
+    # exact zeros (p = 0, corr = 1), so the loop stops there.
+    stop = min(nk, -(-(q0 + bq) // block_k)) if causal else nk
+    qf = qi.float()
+    for j in range(stop):
+        kj = kp[:, :, j * block_k:(j + 1) * block_k]
+        vj = vp[:, :, j * block_k:(j + 1) * block_k]
+        s = torch.matmul(qf, kj.float().transpose(-1, -2)) * scale
+        k_pos = j * block_k + torch.arange(block_k, device=qi.device)
+        valid = (k_pos < t)[None, :]
+        if causal:
+            valid = valid & (k_pos[None, :] <= q_pos[:, None])
+        s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        acc = acc * corr + torch.matmul(p.to(vj.dtype).float(), vj.float())
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        m = m_new
+    l_safe = l.clamp_min(1e-30)
+    return (acc / l_safe).to(qi.dtype), (m + torch.log(l_safe))[..., 0]
+
+
+def attention_lse_blocked(q, k, v, causal: bool = True, block_q: int = 512,
+                          block_k: int = 512):
+    """Plain streaming attention ``(o, lse)`` over ``(b, h, t, hd)`` for
+    any ``t`` and ``hd`` (tails padded and masked), in ``O(t * block)``
+    memory: the port of ``pallas_kernels.attention_lse_blocked``, the
+    long-context safety net for shapes no kernel takes.  A Python loop
+    over q blocks replaces ``lax.scan``; each q block runs under
+    ``torch.utils.checkpoint``, so the backward recomputes its k loop
+    instead of keeping every score block."""
+    from torch.utils.checkpoint import checkpoint
+
+    b, h, t, hd = q.shape
+    nq, nk = -(-t // block_q), -(-t // block_k)
+    qp = torch.nn.functional.pad(q, (0, 0, 0, nq * block_q - t))
+    kp = torch.nn.functional.pad(k, (0, 0, 0, nk * block_k - t))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, nk * block_k - t))
+    outs, lses = [], []
+    for i in range(nq):
+        o, lse = checkpoint(_blocked_rows,
+                            qp[:, :, i * block_q:(i + 1) * block_q], kp, vp,
+                            i * block_q, t, causal, block_k,
+                            use_reentrant=False, preserve_rng_state=False)
+        outs.append(o)
+        lses.append(lse)
+    return (torch.cat(outs, dim=2)[:, :, :t], torch.cat(lses, dim=2)[:, :, :t])
+
+
+#: FF_FLASH_FORCE_CHUNK=<len>: route the shapes K1f takes through the
+#: chunked form at that chunk length (0 = off), as in the JAX package.
+_FORCE_CHUNK = int(os.environ.get("FF_FLASH_FORCE_CHUNK", "0") or 0)
+
+#: FF_FLASH_STREAMED=1: route every shape the streamed kernels take
+#: through them (K1s forward, K1sb backward), as in the JAX package.
+_STREAMED = os.environ.get("FF_FLASH_STREAMED", "0") == "1"
+
+
+def flash_attention_lse_auto(q, k, v, causal: bool = True):
+    """``(o, lse)`` by the first formulation whose gate takes the shape,
+    in the order of ``pallas_kernels.flash_attention_lse_auto``: the
+    streamed kernels under ``FF_FLASH_STREAMED=1``, the chunked form
+    under ``FF_FLASH_FORCE_CHUNK``, one K1f launch, the chunked form
+    (never, on Hopper), the blocked form at ``t >= 4096``; ``None`` when
+    none applies, which callers take as the signal for the einsum.
+    Every route is chosen by a gate before any launch, and the gates are
+    the same on the CPU and on the card."""
+    b, h, t, hd = q.shape
+    if _STREAMED and flash_stream_supported(q.shape, q.dtype):
+        return flash_attention_lse_streamed(q, k, v, causal)
+    if (_FORCE_CHUNK and t > _FORCE_CHUNK and t % _FORCE_CHUNK == 0
+            and flash_supported((b, h, _FORCE_CHUNK, hd), q.dtype)):
+        return flash_attention_lse_chunked(q, k, v, causal,
+                                           chunk=_FORCE_CHUNK)
+    if flash_supported(q.shape, q.dtype):
+        return flash_attention_lse(q, k, v, causal)
+    if flash_chunked_supported(q.shape, q.dtype):
+        return flash_attention_lse_chunked(q, k, v, causal)
+    if blocked_attention_applies(q.shape):
+        return attention_lse_blocked(q, k, v, causal)
+    return None
+
+
 #: The port's kernel wrappers, for callers that reset and read the counters.
 KERNELS = (flash_attention_lse, flash_attention_lse_bwd, flash_decode,
-           softmax_xent, softmax_xent_bwd, gather_rows, scatter_add_rows)
+           softmax_xent, softmax_xent_bwd, gather_rows, scatter_add_rows,
+           flash_attention_lse_streamed, flash_attention_lse_streamed_bwd)
