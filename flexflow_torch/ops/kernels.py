@@ -860,15 +860,6 @@ def flash_supported(shape, dtype=torch.float32) -> bool:
             and 8 <= hd <= 128 and -(-t // 64) <= 65535)
 
 
-def flash_chunked_supported(shape, dtype=torch.float32) -> bool:
-    """Never true on Hopper.  On the TPU the chunked form catches shapes
-    past the single launch's VMEM cap (bf16 t >= 16384 at hd 64); K1f
-    keeps no resident K/V and takes every t in one launch, so no shape
-    needs it.  Kept so that the dispatcher reads as JAX's; the chunked
-    form itself runs under ``FF_FLASH_FORCE_CHUNK`` or when called."""
-    return False
-
-
 #: Sequences at least this long that no kernel takes stream through the
 #: plain blocked formulation instead of a t x t einsum.
 _BLOCKED_MIN_T = 4096
@@ -883,23 +874,15 @@ def blocked_attention_applies(shape) -> bool:
     return t >= _BLOCKED_MIN_T and hd >= 8
 
 
-def flash_any_supported(shape, dtype=torch.float32) -> bool:
-    """Whether :func:`flash_attention_lse_auto` returns a flash
-    formulation with the flags unset: False means the einsum is the
-    right call."""
-    return (flash_supported(shape, dtype)
-            or flash_chunked_supported(shape, dtype)
-            or blocked_attention_applies(shape))
-
-
 def flash_attention_lse_chunked(q, k, v, causal: bool = True,
                                 chunk=None):
     """Flash attention as sequence chunks: one K1f launch per (q chunk, k
     chunk) pair that the mask leaves visible, partials combined by
     :func:`merge_lse` in f32 (``pallas_kernels.flash_attention_lse_chunked``).
-    ``chunk`` must divide ``t`` and be shorter than it: on Hopper no
-    shape needs chunks (:func:`flash_chunked_supported`), so there is no
-    automatic length."""
+    ``chunk`` must divide ``t`` and be shorter than it.  There is no
+    automatic length and no gate that picks this form: on the TPU it
+    catches shapes past the single launch's VMEM cap, while K1f keeps no
+    resident K/V and takes every ``t`` in one launch."""
     b, h, t, hd = q.shape
     c = chunk or 0
     if c <= 0 or c >= t or t % c:
@@ -1001,9 +984,10 @@ def flash_attention_lse_auto(q, k, v, causal: bool = True):
     """``(o, lse)`` by the first formulation whose gate takes the shape,
     in the order of ``pallas_kernels.flash_attention_lse_auto``: the
     streamed kernels under ``FF_FLASH_STREAMED=1``, the chunked form
-    under ``FF_FLASH_FORCE_CHUNK``, one K1f launch, the chunked form
-    (never, on Hopper), the blocked form at ``t >= 4096``; ``None`` when
-    none applies, which callers take as the signal for the einsum.
+    under ``FF_FLASH_FORCE_CHUNK``, one K1f launch, the blocked form at
+    ``t >= 4096``; ``None`` when none applies, which callers take as the
+    signal for the einsum.  (JAX's automatic chunked branch, for shapes
+    past its VMEM cap, has no Hopper counterpart: K1f takes every ``t``.)
     Every route is chosen by a gate before any launch, and the gates are
     the same on the CPU and on the card."""
     b, h, t, hd = q.shape
@@ -1015,8 +999,6 @@ def flash_attention_lse_auto(q, k, v, causal: bool = True):
                                            chunk=_FORCE_CHUNK)
     if flash_supported(q.shape, q.dtype):
         return flash_attention_lse(q, k, v, causal)
-    if flash_chunked_supported(q.shape, q.dtype):
-        return flash_attention_lse_chunked(q, k, v, causal)
     if blocked_attention_applies(q.shape):
         return attention_lse_blocked(q, k, v, causal)
     return None

@@ -1,0 +1,275 @@
+"""Numerics of the streamed flash kernels (K1s, K1sb) on the card.
+
+Run from the root of a checkout, on a machine with a CUDA card:
+
+    python3 -m flexflow_torch.tools.stream_numerics [--mutants]
+
+It prints, for the bf16 instantiations of ``csrc/flash_stream.cu``:
+
+1. ``scores``: the error of the tensor-core score against the f64 dot,
+   read from K1s's lse at t = 1 (where lse is the scaled score itself),
+   beside K1f's FMA score, in units of 2^-24 of ``scale sum |q_i k_i|``.
+2. ``flips``: the share of p values that K1sb, K1b and the plain version
+   round to bf16 otherwise than p rounded from f64 scores.  Each is read
+   from the backward's dv with ``do`` the identity at t = hd, where
+   ``dv^T`` is exactly the rounded p.
+3. ``f64``: dq, dk and dv of K1sb, K1b and the plain version against an
+   f64 backward with the same cast points, and K1sb and K1b against the
+   plain version (phase 12 of ``chip_smoke.py``).  For each: the least
+   ``arel`` that ``|got - want| <= 2^-7 |want| + arel * mass`` needs
+   (``mass`` as ``chip_smoke._flash_bwd_mass``), and the reading of
+   ``chip_smoke.TOL_ELEM["stream_bwd"]`` (above 1 fails).
+4. With ``--mutants``: copies of the source with a planted fault (bf16
+   scores in K1sb; a key tile dropped from the dq pass; a query tile
+   dropped from the dk/dv pass), built beside the real one under
+   ``flexflow_torch/_build/mutants/``, held as phase 12 holds K1sb at
+   (4, 8, 8192, 64) and (1, 8, 32768, 64).  Each must fail.
+
+The card's name and power limit come first.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import shutil
+import subprocess
+import sys
+
+import torch
+
+
+def _line(tag: str, msg: str) -> None:
+    print(f"[{tag}] {msg}", flush=True)
+
+
+def _log2(x: float) -> str:
+    return f"2^{math.log2(x):.2f}" if x > 0 else "0"
+
+
+def scores(kernels, hd: int, n: int = 8192) -> None:
+    g = torch.Generator(device="cuda").manual_seed(10 + hd)
+    q, k, v = (torch.randn((1, n, 1, hd), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    scale = 1.0 / math.sqrt(hd)
+    prod = q.double() * k.double()
+    dot = prod.sum(-1) * scale
+    unit = prod.abs().sum(-1) * scale * 2.0 ** -24
+    with torch.no_grad():
+        for name, fn in (("K1s", kernels.flash_attention_lse_streamed),
+                         ("K1f", kernels.flash_attention_lse)):
+            lse = fn(q, k, v, True)[1].double()
+            e = (lse - dot) / unit
+            _line("scores", f"hd {hd} {name}: |err| max {e.abs().max().item():.3f}, "
+                  f"mean {e.abs().mean().item():.4f}, signed mean "
+                  f"{e.mean().item():+.4f} (units of 2^-24 scale sum |q k|, "
+                  f"{n} dots)")
+
+
+def flips(kernels, hd: int, heads: int = 2048) -> None:
+    g = torch.Generator(device="cuda").manual_seed(20 + hd)
+    t = hd
+    bf16 = torch.bfloat16
+    q, k, v = (torch.randn((1, heads, t, hd), generator=g, device="cuda")
+               .to(bf16) for _ in range(3))
+    do = torch.eye(t, device="cuda", dtype=bf16).expand(1, heads, t, hd)
+    do = do.contiguous()
+    po, plse = kernels.flash_attention_lse_plain(q, k, v, False)
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) / math.sqrt(hd)
+    ref = torch.exp(s - plse.double()[..., None]).float().to(bf16).float()
+    got = {
+        "K1sb": kernels.flash_attention_lse_streamed_bwd(q, k, v, po, plse, do,
+                                                         None, False)[2],
+        "K1b": kernels.flash_attention_lse_bwd(q, k, v, po, plse, do, None,
+                                               False)[2],
+        "plain": kernels.flash_attention_lse_bwd_plain(q, k, v, po, plse, do,
+                                                       None, False)[2],
+    }
+    p = {name: dv.transpose(-1, -2).float() for name, dv in got.items()}
+    for name, pk in p.items():
+        diff = pk != ref
+        up = (pk > ref).float().sum().item()
+        _line("flips", f"hd {hd} {name} vs f64: {diff.float().mean().item():.3e} "
+              f"of {diff.numel()} p values round the other way ({int(up)} up, "
+              f"{int(diff.sum().item() - up)} down)")
+    for name in ("K1sb", "K1b"):
+        diff = p[name] != p["plain"]
+        _line("flips", f"hd {hd} {name} vs plain: "
+              f"{diff.float().mean().item():.3e}")
+
+
+def _reference(q, k, v, o, lse, do, g_lse, causal):
+    """dq, dk, dv of the flash backward in f64 with the plain version's
+    cast points (p and ds rounded to bf16 before their products)."""
+    b, h, t, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    out = tuple(torch.empty((b, h, t, hd), device=q.device) for _ in range(3))
+    cols = torch.arange(t, device=q.device)
+    for i in range(b):
+        for j in range(h):
+            qd, kd, vd, od, dod = (x[i, j].double() for x in (q, k, v, o, do))
+            s = qd @ kd.T * scale
+            if causal:
+                s.masked_fill_(cols[None, :] > cols[:, None], -math.inf)
+            p = torch.exp(s - lse[i, j, :, None].double())
+            delta = (od * dod).sum(-1) - g_lse[i, j].double()
+            ds = p * (dod @ vd.T - delta[:, None])
+            pr = p.float().to(q.dtype).double()
+            dsr = ds.float().to(q.dtype).double()
+            del s, p, ds
+            out[0][i, j] = dsr @ kd * scale
+            out[1][i, j] = dsr.T @ qd * scale
+            out[2][i, j] = pr.T @ dod
+            del pr, dsr
+    return out
+
+
+def _arel(got, want, mass) -> float:
+    err = (got.float() - want.float()).abs() - 2.0 ** -7 * want.float().abs()
+    return (err / mass).clamp_min(0).max().item()
+
+
+def f64_hold(kernels, shape) -> None:
+    import chip_smoke as cs
+
+    g = torch.Generator(device="cuda").manual_seed(30)
+    bf16, f32 = torch.bfloat16, torch.float32
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(bf16)
+                   for _ in range(4))
+    g_lse = torch.randn(shape[:3], generator=g, device="cuda", dtype=f32)
+    fwd = lambda *x: kernels.flash_attention_lse_plain(*x, True)
+    po, plse = cs._per_row(fwd, q, k, v)
+    got = {
+        "K1sb": kernels.flash_attention_lse_streamed_bwd(q, k, v, po, plse, do,
+                                                         g_lse, True),
+        "K1b": kernels.flash_attention_lse_bwd(q, k, v, po, plse, do, g_lse,
+                                               True),
+        "plain": cs._per_row(
+            lambda *x: kernels.flash_attention_lse_bwd_plain(*x, True),
+            q, k, v, po, plse, do, g_lse),
+    }
+    ref = _reference(q, k, v, po, plse, do, g_lse, True)
+    masses = cs._flash_bwd_mass(q, k, v, po, plse, do, g_lse, True)
+    tops = cs._flash_bwd_top(q, k, v, po, plse, do, g_lse, True)
+    rtol, arel, atop = cs.TOL_ELEM["stream_bwd"]["bfloat16"]
+    pairs = [(name, "f64", got[name], ref) for name in got]
+    pairs += [(name, "plain", got[name], got["plain"]) for name in ("K1sb", "K1b")]
+    for name, against, grads, want in pairs:
+        parts = []
+        for key, a, w, m, tp in zip(("dq", "dk", "dv"), grads, want, masses,
+                                    tops):
+            need = _arel(a, w, m)
+            reading = cs._close(a, w, m, rtol, arel, tp, atop)
+            parts.append(f"{key} arel {_log2(need)}, rule {reading:.3g}")
+        _line("f64", f"{shape} {name} vs {against}: " + "; ".join(parts))
+    del got, ref, masses, tops
+
+
+#: Planted faults: (old, new) replacements in csrc/flash_stream.cu.
+MUTANTS = {
+    # K1sb's two passes round the score to bf16 before the exp.
+    "bf16-scores": [
+        ("expf(s[nt][e] * scale - ls[h])",
+         "expf(__bfloat162float(__float2bfloat16(s[nt][e])) * scale - ls[h])"),
+        ("expf(p[nt][e] * scale - ls[c])",
+         "expf(__bfloat162float(__float2bfloat16(p[nt][e])) * scale - ls[c])"),
+    ],
+    # The dq pass skips the first key tile of every q tile but the first.
+    "dq-drops-key-tile": [
+        ("    warp_pv<kBN, HD>(acc, s, kt, kLd, wbuf);\n    __syncthreads();\n"
+         "  }\n  store_rows<T, HD>(dq",
+         "    if (j > 0 || nk == 1) warp_pv<kBN, HD>(acc, s, kt, kLd, wbuf);\n"
+         "    __syncthreads();\n  }\n  store_rows<T, HD>(dq"),
+    ],
+    # The dk/dv pass skips the last query tile of every key tile but the
+    # last.
+    "dkv-drops-q-tile": [
+        ("    warp_pv<BN, HD>(adv, p, dot, kLd, wbuf);",
+         "    if (i + 1 < ni || i == i0) warp_pv<BN, HD>(adv, p, dot, kLd, wbuf);"),
+        ("    warp_pv<BN, HD>(adk, p, qt, kLd, wbuf);",
+         "    if (i + 1 < ni || i == i0) warp_pv<BN, HD>(adk, p, qt, kLd, wbuf);"),
+    ],
+}
+
+
+def _mutant_dir(kernels, name: str) -> str:
+    root = os.path.join(kernels._BUILD_DIR, "mutants", name)
+    src = os.path.join(root, "csrc")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(kernels._SRC_DIR, src)
+    path = os.path.join(src, "flash_stream.cu")
+    with open(path) as fh:
+        text = fh.read()
+    for old, new in MUTANTS[name]:
+        if text.count(old) != 1:
+            raise RuntimeError(f"mutant {name}: {old!r} found "
+                               f"{text.count(old)} times")
+        text = text.replace(old, new)
+    with open(path, "w") as fh:
+        fh.write(text)
+    return root
+
+
+def mutants(kernels) -> None:
+    import chip_smoke as cs
+
+    g = torch.Generator(device="cuda").manual_seed(40)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for shape, refs in (((4, 8, 8192, 64), ("plain", "k1")),
+                        ((1, 8, 32768, 64), ("k1",))):
+        x = [torch.randn(shape, generator=g, device="cuda").to(bf16)
+             for _ in range(4)]
+        x.append(torch.randn(shape[:3], generator=g, device="cuda", dtype=f32))
+        cases.append((shape, refs, x))
+    real = (kernels._SRC_DIR, kernels._BUILD_DIR)
+    for name in [None, *MUTANTS]:
+        kernels._libs.pop("flash_stream", None)
+        try:
+            if name is not None:
+                root = _mutant_dir(kernels, name)
+                kernels._SRC_DIR = os.path.join(root, "csrc")
+                kernels._BUILD_DIR = os.path.join(root, "build")
+            for shape, refs, (q, k, v, do, g_lse) in cases:
+                for ref in refs:
+                    parts, _ = cs._stream_parts(torch, kernels, q, k, v, do,
+                                                g_lse, True, ref)
+                    worst = max(parts.values())
+                    _line("mutants", f"{name or 'unmutated'} {shape} against "
+                          f"{ref}: " + ", ".join(
+                              f"{k} {v:.3g}" for k, v in parts.items())
+                          + f" of the element tolerance: "
+                          + ("FAILS" if worst > 1.0 else "passes"))
+        finally:
+            kernels._SRC_DIR, kernels._BUILD_DIR = real
+            kernels._libs.pop("flash_stream", None)
+    shutil.rmtree(os.path.join(real[1], "mutants"), ignore_errors=True)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not torch.cuda.is_available():
+        print("stream_numerics: no CUDA device", file=sys.stderr)
+        return 2
+    from flexflow_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    print(smi.stdout.strip(), flush=True)
+    kernels.build()
+    for hd in kernels._STREAM_HEAD_DIMS:
+        scores(kernels, hd)
+    for hd in kernels._STREAM_HEAD_DIMS:
+        flips(kernels, hd)
+    for shape in ((16, 8, 2048, 64), (4, 8, 8192, 64)):
+        f64_hold(kernels, shape)
+        torch.cuda.empty_cache()
+    if "--mutants" in argv:
+        mutants(kernels)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
