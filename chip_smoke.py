@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Fourteen phases, in order; any failure raises and exits non-zero:
+Fifteen phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -94,9 +94,24 @@ Fourteen phases, in order; any failure raises and exits non-zero:
     ``kernels._STREAMED`` in this process.
 14. **Long-context parity.**  Phase 6's f32 step under the streamed
     dispatch: K1s/K1sb on the card against the plain versions on the CPU.
+15. **Probe kernels.**  The kernels of the P1/P2 race (v2, v3, v4 of
+    ``csrc/flash_probe.cu``, b2 of ``csrc/flash_probe_bwd.cu``) against
+    their plain versions element by element with ``TOL_ELEM`` (the
+    forward variants by K1f's rule, b2 by ``stream_bwd``) at every block
+    they instantiate: (16, 8, 2048, 64) bf16 causal, non-causal, f32, hd
+    128 and ragged t (1, 80, 130, 200); at (4, 8, 8192, 64) against the
+    plain versions run one batch row at a time and against K1f/K1b (twice
+    ``TOL_ELEM``); exact launch counts.  Device times at the race's
+    shapes beside the bound, the plain version and SDPA.  Then the path
+    that runs them: ``flexflow_torch.tools.probe_flash_variants`` and
+    ``probe_flash_bwd_variants`` in-process at (16, 8, 2048, 64) and (4,
+    8, 8192, 64); every variant prints a finite positive time and an
+    error within ``TOL_RACE``, the launch counts equal the races' calls,
+    and the races' chain slopes for K1f, K1s, K1b and K1sb are printed
+    beside phase 12's device times.
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
-DLRM and long-context runs together, split in ``launches_by_path``), the card's name
+DLRM, long-context and race runs together, split in ``launches_by_path``), the card's name
 and power limit from ``nvidia-smi``, and as its last line the JSON
 object ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits 2 and prints no result.
@@ -192,6 +207,21 @@ TOL_DLRM_STEP = (1e-4, 1e-9)
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def _zero_counts() -> None:
+    """Sets the launch count of every kernel wrapper of the port to 0."""
+    from flexflow_torch.ops import probe_kernels
+
+    for fn in probe_kernels.KERNELS:
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    """{wrapper name: launches} for every kernel wrapper of the port."""
+    from flexflow_torch.ops import probe_kernels
+
+    return {fn.__name__: fn.launches for fn in probe_kernels.KERNELS}
 
 
 def _device_ms(fn, reps: int = 20) -> float:
@@ -620,11 +650,10 @@ def phase_serve(torch, kernels):
     from flexflow_torch.apps import serve
 
     stats = {}
-    for fn in kernels.KERNELS:
-        fn.launches = 0
+    _zero_counts()
     rc = serve.main(_serve_argv("bfloat16"), device="cuda", stats_out=stats)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    launches = _counts()
     _check(rc == 0, f"serve exited {rc}")
     _check(stats["completed"] == SERVE["requests"] and stats["failed"] == 0,
            f"serve completed {stats['completed']} of {SERVE['requests']}, "
@@ -710,11 +739,10 @@ def phase_train(torch, kernels, rows):
 
     stats = {}
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.KERNELS:
-        fn.launches = 0
+    _zero_counts()
     rc = transformer.main(_train_argv(TRAIN), device="cuda", stats_out=stats)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     _check(rc == 0, f"transformer exited {rc}")
     losses = stats["step_losses"]
@@ -1044,11 +1072,10 @@ def phase_dlrm_train(torch, kernels):
         stats = {}
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        for fn in kernels.KERNELS:
-            fn.launches = 0
+        _zero_counts()
         rc = dlrm.main(argv, device="cuda", stats_out=stats)
         torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        launches = _counts()
         # The run's own peak, above what this script already holds.
         peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
         _check(rc == 0, f"dlrm {name} exited {rc}")
@@ -1434,6 +1461,7 @@ def phase_stream_kernels(torch, kernels, F):
                           kernels.flash_attention_lse_streamed_bwd)]
         print(f"[stream-kernels] {shape} bf16 causal: K1f {ms[0]:.4f} ms, "
               f"K1s {ms[1]:.4f} ms; K1b {ms[2]:.4f} ms, K1sb {ms[3]:.4f} ms")
+        rows[f"stream@{shape}"] = dict(zip(("K1f", "K1s", "K1b", "K1sb"), ms))
         del q, k, v, do, g_lse, o, lse
     return rows
 
@@ -1456,8 +1484,7 @@ def phase_longctx_train(torch, kernels, rows):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        for fn in kernels.KERNELS:
-            fn.launches = 0
+        _zero_counts()
         saved, kernels._STREAMED = kernels._STREAMED, streamed
         try:
             rc = transformer.main(_train_argv(c), device="cuda",
@@ -1465,7 +1492,7 @@ def phase_longctx_train(torch, kernels, rows):
             torch.cuda.synchronize()
         finally:
             kernels._STREAMED = saved
-        launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        launches = _counts()
         peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
         _check(rc == 0, f"{name} exited {rc}")
         losses = stats["step_losses"]
@@ -1514,6 +1541,248 @@ def phase_longctx_train(torch, kernels, rows):
     return by_leg
 
 
+#: Phase 15's race shapes: the LM's attention at the 2k training shape and
+#: at the 8k long-context shape (phases 5 and 13), bf16 causal.
+PROBE_RACE = ((16, 8, 2048, 64), (4, 8, 8192, 64))
+#: The races' printed error (against K1f / K1b, the first 64 rows of the
+#: first head) within this share of that slice's largest magnitude: four
+#: bf16 ulps.  It checks that a race times the function it names; the race
+#: kernels are held element by element before it.
+TOL_RACE = 2.0 ** -5
+#: The kernel wrapper each race variant launches (None: the yardstick).
+RACE_WRAPPERS = {
+    "v1_base": "flash_attention_lse", "v2_lanes": "flash_fwd_row_state",
+    "v3_twopass": "flash_fwd_two_pass", "v4_fullrow": "flash_fwd_full_row",
+    "v5_sdpa": None, "v6_stream": "flash_attention_lse_streamed",
+    "b1_prod": "flash_attention_lse_bwd", "b2_lanes": "flash_bwd_row_state",
+    "b3_stream": "flash_attention_lse_streamed_bwd", "b4_sdpa": None,
+}
+
+
+def _probe_hold(torch, kernels, probe, q, k, v, do, g_lse, causal, block,
+                ref: str, calls):
+    """The race kernels v2, v3, v4 and b2 at ``block`` against ``ref``:
+    ``plain`` (the plain versions, one batch row at a time; the forward
+    variants within ``TOL_ELEM["fwd"]``, K1f's rule, and b2 within
+    ``TOL_ELEM["stream_bwd"]``, since its products round as K1sb's) or
+    ``k1`` (K1f and K1b, within twice those).  b2 takes ``delta =
+    rowsum(o do) - g_lse`` and ``lse`` from the reference forward.  Adds
+    the wrappers' calls to ``calls``; fails the run above the tolerance.
+    Returns (worst element ratio, {wrapper: worst absolute error})."""
+    name = _dtype_name(q.dtype)
+    if ref == "plain":
+        fwd = lambda a, b, c: _per_row(
+            lambda x, y, z: kernels.flash_attention_lse_plain(x, y, z, causal),
+            a, b, c)
+        bwd = lambda *a: _per_row(
+            lambda *x: kernels.flash_attention_lse_bwd_plain(*x, causal), *a)
+        factor = 1.0
+    else:
+        fwd = lambda a, b, c: kernels.flash_attention_lse(a, b, c, causal)
+        bwd = lambda *a: kernels.flash_attention_lse_bwd(*a, causal)
+        factor = 2.0
+    with torch.no_grad():
+        po, plse = fwd(q, k, v)
+        mass = fwd(q, k, v.abs())[0]
+    rtol, arel = TOL_ELEM["fwd"][name]
+    parts, errs = {}, {}
+    for fn in (probe.flash_fwd_row_state, probe.flash_fwd_two_pass,
+               probe.flash_fwd_full_row):
+        o = fn(q, k, v, causal, block)
+        calls[fn.__name__] += 1
+        parts[fn.__name__] = _close(o, po, mass, factor * rtol,
+                                    factor * arel)
+        errs[fn.__name__] = (o.float() - po.float()).abs().max().item()
+        del o
+    del mass
+    delta = (po.float() * do.float()).sum(dim=-1) - g_lse
+    got = probe.flash_bwd_row_state(q, k, v, do, plse, delta, causal, block)
+    calls["flash_bwd_row_state"] += 1
+    want = bwd(q, k, v, po, plse, do, g_lse)
+    rtol, arel, atop = TOL_ELEM["stream_bwd"][name]
+    masses = _flash_bwd_mass(q, k, v, po, plse, do, g_lse, causal)
+    tops = (_flash_bwd_top(q, k, v, po, plse, do, g_lse, causal) if atop
+            else (None,) * 3)
+    errs["flash_bwd_row_state"] = 0.0
+    for key, a, w, m, tp in zip(("dq", "dk", "dv"), got, want, masses, tops):
+        parts[f"b2 {key}"] = _close(a, w, m, factor * rtol, factor * arel, tp,
+                                    factor * atop)
+        errs["flash_bwd_row_state"] = max(
+            errs["flash_bwd_row_state"],
+            (a.float() - w.float()).abs().max().item())
+    worst = max(parts.values())
+    _check(worst <= 1.0, f"race kernels {tuple(q.shape)} causal={causal} "
+           f"{name} block {block} against {ref}: " + ", ".join(
+               f"{k} {v:.3g}" for k, v in parts.items())
+           + " of the element tolerance")
+    return worst, errs
+
+
+def phase_probe_kernels(torch, kernels, F, rows):
+    """The kernels of the P1/P2 race (v2, v3, v4 of ``csrc/flash_probe.cu``,
+    b2 of ``csrc/flash_probe_bwd.cu``) against their plain versions element
+    by element, then timed at the race's shapes; then the path that runs
+    them: both races (``flexflow_torch.tools.probe_flash_variants`` and
+    ``probe_flash_bwd_variants``) at the 2k and 8k shapes, in-process, with
+    exact launch counts.  Returns (per-kernel rows, the races' launch
+    counts)."""
+    from flexflow_torch.ops import probe_kernels as probe
+    from flexflow_torch.tools import (probe_flash_bwd_variants,
+                                      probe_flash_variants)
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    f32, bf16 = torch.float32, torch.bfloat16
+    blocks = probe.PROBE_BLOCKS
+    out = {}
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    # -- element by element against the plain versions --
+    calls = {fn.__name__: 0 for fn in probe.PROBE_KERNELS}
+    _zero_counts()
+    train, long = PROBE_RACE
+    cases = [(train, True, bf16), ((2, 8, 1024, 64), False, bf16),
+             ((2, 8, 1024, 64), True, f32), ((2, 8, 1024, 128), True, bf16),
+             ((1, 4, 256, 128), False, f32), ((1, 8, 80, 64), True, bf16),
+             ((1, 8, 1, 64), True, f32), ((1, 2, 130, 128), False, bf16),
+             ((1, 2, 200, 64), False, f32), ((1, 2, 200, 128), True, f32)]
+    worst, err_train = 0.0, {}
+    for shape, causal, dt in cases:
+        q, k, v, do = (randn(shape, dt) for _ in range(4))
+        g_lse = randn(shape[:3], f32)
+        for block in blocks:
+            ratio, errs = _probe_hold(torch, kernels, probe, q, k, v, do,
+                                      g_lse, causal, block, "plain", calls)
+            worst = max(worst, ratio)
+            if shape == train and block == blocks[0]:
+                err_train = errs
+        del q, k, v, do, g_lse
+    torch.cuda.synchronize()
+    print(f"[probe-kernels] {len(cases)} shapes x blocks {blocks} against "
+          f"the plain versions (v2, v3, v4: o; b2: dq, dk, dv; causal and "
+          f"not, f32 and bf16, hd 64/128, t = 1 to 2048): worst element "
+          f"{worst:.3g} of its tolerance")
+    q, k, v, do = (randn(long, bf16) for _ in range(4))
+    g_lse = randn(long[:3], f32)
+    for block in blocks:
+        r_plain, _ = _probe_hold(torch, kernels, probe, q, k, v, do, g_lse,
+                                 True, block, "plain", calls)
+        r_k1, _ = _probe_hold(torch, kernels, probe, q, k, v, do, g_lse, True,
+                              block, "k1", calls)
+        print(f"[probe-kernels] {long} bf16 causal block {block}: worst "
+              f"element {r_plain:.3g} (plain, row by row), {r_k1:.3g} "
+              f"(K1f/K1b, twice the tolerance) of its tolerance")
+    del q, k, v, do, g_lse
+    torch.cuda.synchronize()
+    got = _counts()
+    _check(all(got[n] == c > 0 for n, c in calls.items()),
+           f"race kernel launches {got} against the calls made {calls}")
+
+    # -- device times at the race's shapes --
+    for shape in PROBE_RACE:
+        b, h, t, hd = shape
+        q, k, v, do = (randn(shape, bf16) for _ in range(4))
+        with torch.no_grad():
+            o, lse = kernels.flash_attention_lse(q, k, v, True)
+        delta = (o.float() * do.float()).sum(dim=-1)
+        full = t <= 2048  # the plain versions' f32 t x t temporaries fit
+        pairs = t * (t + 1) // 2
+        # The causal function's work (v3 computes 1.5x its products, v4
+        # 3x): q, k, v read and o written; q, k, v, do, lse, delta read
+        # and dq, dk, dv written.
+        fb, fby = _bound_ms(4 * b * h * t * hd * 2, 4 * b * h * hd * pairs,
+                            "bfloat16")
+        bb, bby = _bound_ms(7 * b * h * t * hd * 2 + 2 * b * h * t * 4,
+                            10 * b * h * hd * pairs, "bfloat16")
+        plain_f = lambda *x: probe.flash_fwd_row_state_plain(*x, True)
+        plain_b = lambda *x: probe.flash_bwd_row_state_plain(*x, True)
+        with torch.no_grad():
+            pf = _device_ms(lambda: plain_f(q, k, v) if full else _per_row(
+                lambda *x: (plain_f(*x),), q, k, v), 5)
+            lf = _device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True))
+        pb = _device_ms(lambda: plain_b(q, k, v, do, lse, delta) if full
+                        else _per_row(plain_b, q, k, v, do, lse, delta), 5)
+        qs, ks, vs = (x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v))
+        sd = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        lb = _device_ms(lambda: torch.autograd.grad(sd, (qs, ks, vs), do,
+                                                    retain_graph=True))
+        del qs, ks, vs, sd
+        leg = "train" if shape == train else "longctx"
+        for fn in probe.PROBE_KERNELS:
+            bwd = fn is probe.flash_bwd_row_state
+            with torch.no_grad():
+                ms = {block: _device_ms(
+                    (lambda: fn(q, k, v, do, lse, delta, True, block)) if bwd
+                    else (lambda: fn(q, k, v, True, block)))
+                    for block in blocks}
+            bound, by = (bb, bby) if bwd else (fb, fby)
+            plain, lib = (pb, lb) if bwd else (pf, lf)
+            print(f"[probe-kernels] {fn.__name__} {shape} bf16 causal: "
+                  + ", ".join(f"block {blk} {m:.4f} ms" for blk, m in
+                              ms.items())
+                  + f" ({min(ms.values()) / bound:.1f}x its bound {bound:.5f} "
+                  f"by {by}; plain {plain:.4f}"
+                  f"{'' if full else ', one batch row at a time'}; sdpa "
+                  f"{'backward' if bwd else 'forward'} {lib:.4f})")
+            row = dict(ms=ms[blocks[0]], ms_by_block=ms, plain_ms=plain,
+                       bound_ms=bound, bound_by=by, library_ms=lib)
+            if leg == "train":
+                out[fn.__name__] = dict(max_abs_err=err_train[fn.__name__],
+                                        **row)
+            else:
+                out[fn.__name__]["longctx_shape"] = row
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+
+    # -- the path: both races at the 2k and 8k shapes --
+    _zero_counts()
+    race = []
+    for shape in PROBE_RACE:
+        argv = [str(x) for x in shape]
+        for tool in (probe_flash_variants, probe_flash_bwd_variants):
+            _check(tool.main(argv, rows_out=race) == 0,
+                   f"{tool.__name__} {argv} failed")
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = {n: 0 for n in launches}
+    for r in race:
+        if RACE_WRAPPERS[r["name"]] is not None:
+            want[RACE_WRAPPERS[r["name"]]] += r["calls"]
+    # The backward race's K1f forward, for o and lse, once per run.
+    want["flash_attention_lse"] += len(PROBE_RACE)
+    _check(launches == want and all(
+        launches[fn.__name__] > 0 for fn in probe.PROBE_KERNELS),
+        f"race launch counts {launches}, expected {want}")
+    for r in race:
+        _check(r["unsupported"] is None and r["ms"] is not None
+               and math.isfinite(r["ms"]) and r["ms"] > 0
+               and r["err"] <= TOL_RACE * r["scale"],
+               f"race row {r}: no finite positive time, or its error beyond "
+               f"{TOL_RACE} of {r['scale']}")
+    # The race's timer against the kernel table's (_device_ms, phase 12).
+    table = {(train, "v1_base"): rows[f"stream@{train}"]["K1f"],
+             (train, "v6_stream"): rows[f"stream@{train}"]["K1s"],
+             (train, "b1_prod"): rows[f"stream@{train}"]["K1b"],
+             (train, "b3_stream"): rows[f"stream@{train}"]["K1sb"],
+             (long, "v1_base"): rows["flash_attention_lse@8k"]["ms"],
+             (long, "v6_stream"): rows["flash_attention_lse_streamed"]["ms"],
+             (long, "b1_prod"): rows["flash_attention_lse_bwd@8k"]["ms"],
+             (long, "b3_stream"):
+                 rows["flash_attention_lse_streamed_bwd"]["ms"]}
+    pairs = [(r, table[r["shape"], r["name"]]) for r in race
+             if (r["shape"], r["name"]) in table]
+    print("[probe-kernels] race slope / phase 12 device time: " + ", ".join(
+        f"{r['name']} {r['shape']} {r['ms']:.4f} / {ms:.4f} = "
+        f"{r['ms'] / ms:.3f}" for r, ms in pairs))
+    print(f"[probe-kernels] races at {PROBE_RACE}: {len(race)} rows, every "
+          f"error within {TOL_RACE} of its slice; launches {launches}")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -1558,10 +1827,13 @@ def main() -> int:
     t.append(time.perf_counter())
     phase_train_parity(torch, kernels, streamed=True)
     t.append(time.perf_counter())
+    probe_rows, probe_launches = phase_probe_kernels(torch, kernels, F, rows)
+    rows.update(probe_rows)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
              "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
-             "longctx-parity")
+             "longctx-parity", "probe-kernels")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -1577,6 +1849,14 @@ def main() -> int:
         "flash_attention_lse_streamed": (src + "flash_stream.cu", pk + ":361"),
         "flash_attention_lse_streamed_bwd": (src + "flash_stream.cu",
                                              pk + ":664"),
+        "flash_fwd_row_state": (src + "flash_probe.cu",
+                                "tools/probe_flash_variants.py:46"),
+        "flash_fwd_two_pass": (src + "flash_probe.cu",
+                               "tools/probe_flash_variants.py:103"),
+        "flash_fwd_full_row": (src + "flash_probe.cu",
+                               "tools/probe_flash_variants.py:174"),
+        "flash_bwd_row_state": (src + "flash_probe_bwd.cu",
+                                "tools/probe_flash_bwd_variants.py:155"),
     }
     entries = []
     for name, (source, replaces) in meta.items():
@@ -1585,7 +1865,8 @@ def main() -> int:
                    **{f"dlrm_{run}": counts[name]
                       for run, counts in dlrm_launches.items()},
                    **{leg: counts[name]
-                      for leg, counts in longctx_launches.items()}}
+                      for leg, counts in longctx_launches.items()},
+                   "probe": probe_launches[name]}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])

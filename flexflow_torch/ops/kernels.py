@@ -51,7 +51,7 @@ _NVCC_FLAGS = (
 )
 #: One shared library per kernel source.
 _SOURCES = ("flash_fwd", "flash_bwd", "flash_stream", "flash_decode",
-            "softmax_xent", "embedding_rows")
+            "softmax_xent", "embedding_rows", "flash_probe", "flash_probe_bwd")
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -158,6 +158,13 @@ def _load(name: str) -> ctypes.CDLL:
         lib.ff_gather_rows.restype = i
         lib.ff_scatter_add_rows.argtypes = [p, p, p, p, ll, i, i, i, i, i, p]
         lib.ff_scatter_add_rows.restype = i
+    elif name == "flash_probe":
+        lib.ff_flash_probe_fwd.argtypes = [i] + [p] * 4 + [i, i, i, i, f, i,
+                                                              i, p]
+        lib.ff_flash_probe_fwd.restype = i
+    elif name == "flash_probe_bwd":
+        lib.ff_flash_probe_bwd.argtypes = [p] * 9 + [i, i, i, i, f, i, i, p]
+        lib.ff_flash_probe_bwd.restype = i
     _libs[name] = lib
     return lib
 
@@ -313,11 +320,19 @@ def flash_attention_lse_bwd_plain(q, k, v, o, lse, do, g_lse=None,
     scores (scale after the dot, the finite ``-1e30`` mask), ``p`` and
     ``ds = p * (dp - delta)`` rounded to the operand dtype before their
     products, f32 sums written in the input dtype."""
-    dtype = q.dtype
-    scale = 1.0 / math.sqrt(q.shape[-1])
     delta = (o.float() * do.float()).sum(dim=-1)
     if g_lse is not None:
         delta = delta - g_lse.float()
+    return flash_attention_bwd_delta_plain(q, k, v, do, lse, delta, causal)
+
+
+def flash_attention_bwd_delta_plain(q, k, v, do, lse, delta,
+                                    causal: bool = True):
+    """The flash backward from the caller's f32 ``delta`` (``rowsum(o *
+    do) - g_lse``), with :func:`flash_attention_lse_bwd_plain`'s cast
+    points; that function computes ``delta`` and calls this one."""
+    dtype = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
     do = do.to(dtype)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:

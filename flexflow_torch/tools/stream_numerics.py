@@ -33,7 +33,6 @@ from __future__ import annotations
 import math
 import os
 import shutil
-import subprocess
 import sys
 
 import torch
@@ -253,11 +252,10 @@ def main(argv=None) -> int:
         return 2
     from flexflow_torch.ops import kernels
 
+    from flexflow_torch.tools.probe_common import card
+
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    print(smi.stdout.strip(), flush=True)
+    print(card(), flush=True)
     kernels.build()
     for hd in kernels._STREAM_HEAD_DIMS:
         scores(kernels, hd)
