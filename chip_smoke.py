@@ -14,12 +14,19 @@ Fifteen phases, in order; any failure raises and exits non-zero:
    ``lse`` within 1e-3; K1f's ``o`` also element by element, see
    ``TOL_ELEM``), with each kernel's median device time over 20 runs
    beside its plain version's and ``F.scaled_dot_product_attention``'s
-   (a yardstick the port never calls).
+   (a yardstick the port never calls).  K1f also at the head dims its
+   bf16 wgmma kernel pads (8, 24, 72, 128) at t = 1, 80, 130, causal and
+   not, f32 and bf16; the registers, spills and shared memory of the
+   bf16 K1f/K1b kernels at each tile width; the host side of one K1f
+   call at the serve shape (bf16, which encodes three tensor maps, and
+   f32).
 2. **Training kernels.**  K1b (flash backward) against its plain
    backward with non-zero ``o`` and ``lse`` cotangents, at the training
-   shape (16, 8, 2048, 64) bf16 causal and at non-causal, ragged (t = 80,
-   1, 130) and f32 shapes: every element of every gradient within
-   ``TOL_ELEM`` of the plain one.  K3 (fused cross-entropy) forward and
+   shape (16, 8, 2048, 64) bf16 causal, at non-causal, ragged (t = 80,
+   1, 130) and f32 shapes, and at hd 8, 24, 72 and 128 x t = 1, 80, 130,
+   causal and not, f32 and bf16: every element of every gradient within
+   ``TOL_ELEM`` of the plain one (bf16 ``stream_bwd``, f32 ``bwd``), and
+   bit-identical across two launches.  K3 (fused cross-entropy) forward and
    backward against its plain version at (32768, 32768) bf16, at a
    ragged V (32771) and on an f32 case with planted argmax ties, labels
    over the whole vocabulary (0, V-1 and chunk edges included):
@@ -79,18 +86,19 @@ Fifteen phases, in order; any failure raises and exits non-zero:
     64) bf16 causal against the plain versions run one batch row at a
     time and against K1f/K1b (twice ``TOL_ELEM``), at (1, 8, 32768, 64)
     against K1f/K1b, and the chunked form (chunk 8192) against K1f.
-    Registers, spills and shared memory of each streamed kernel, and
-    device times at the main-path shape beside the bound, the plain
-    version and SDPA; K1s/K1sb beside K1f/K1b at the serve and 2k
-    training shapes.
+    Registers, spills and shared memory of each streamed kernel.  Device
+    times, bf16 causal, at the serve (t = 64, 128), 2k, 8k and 32k
+    shapes: K1f beside K1s and K1b beside K1sb timed in turns in this
+    warm process, each with its share of 989 TFLOP/s, SDPA and the
+    bound (the plain versions at 8k).
 13. **Long-context train.**  ``bench.py``'s 8k and 32k legs (vocab 32768,
     d_model 512, 8 heads, 6 layers, Adam lr 1e-4, bf16) through
     ``apps.transformer.main``: 8k streamed (1 + 5 steps; K1s = K1sb = 6
     x steps, no K1f/K1b), 8k default dispatch (1 + 2 steps; K1f = K1b =
     6 x steps, no K1s/K1sb), 32k streamed (1 + 2 steps); K3 forward =
     backward = steps; finite, falling losses; ms/step, tokens/s, MFU,
-    peak memory and the kernels' shares; then one warm 8k streamed step
-    under ``torch.profiler``.  The dispatch is chosen by setting
+    peak memory and the kernels' shares; then one warm 8k step of each
+    dispatch under ``torch.profiler``.  The dispatch is chosen by setting
     ``kernels._STREAMED`` in this process.
 14. **Long-context parity.**  Phase 6's f32 step under the streamed
     dispatch: K1s/K1sb on the card against the plain versions on the CPU.
@@ -149,11 +157,15 @@ TOL_LSE = 1e-3
 #: maximum may move by 2^-8 of itself; K1b rounds ``p`` and ``ds`` from
 #: the same lse and delta as the plain version, so only the rare values
 #: that straddle a rounding boundary move.
-#: K1sb (``stream_bwd``) is held to K1b's bounds plus one bf16 ulp of
-#: the element's largest term (``atop * top``, ``_flash_bwd_top``): a
-#: ``p`` or ``ds`` that straddles a rounding boundary moves its term by
-#: one ulp, at most 2^-7 of the term, and in a sum of a few terms that
-#: cancel, one such move is more than 2^-11 of the mass.
+#: The bf16 K1b, K1sb and b2 (``stream_bwd``) are held to the bounds of
+#: ``bwd`` plus one bf16 ulp of the element's largest term (``atop *
+#: top``, ``_flash_bwd_top``): their scores come from the tensor cores and
+#: their exponent from ex2 of one FFMA, so a ``p`` or ``ds`` that
+#: straddles a rounding boundary rounds the other way more often than in
+#: the f32 FMA kernels; it moves its term by one ulp, at most 2^-7 of the
+#: term, and in a sum of a few terms that cancel one such move is more
+#: than 2^-11 of the mass.  ``bwd`` holds the f32 K1b (the same numbers as
+#: ``stream_bwd``'s f32 row).
 TOL_ELEM = {
     "fwd": {"float32": (0.0, 2.0 ** -18), "bfloat16": (2.0 ** -7, 2.0 ** -8)},
     "bwd": {"float32": (0.0, 2.0 ** -18), "bfloat16": (2.0 ** -7, 2.0 ** -11)},
@@ -246,6 +258,15 @@ def _device_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def _pair_ms(a, b, reps: int = 20):
+    """Device ms of ``a()`` and ``b()`` timed in turns (a, b, b, a) in one
+    warm process, each the mean of its two medians (``_device_ms``)."""
+    ta = _device_ms(a, reps)
+    tb = _device_ms(b, reps)
+    tb = (tb + _device_ms(b, reps)) / 2
+    return (ta + _device_ms(a, reps)) / 2, tb
+
+
 def _bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -307,6 +328,48 @@ def phase_kernels(torch, kernels, F):
                     rows["flash_attention_lse"] = dict(
                         max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    # The head dims the bf16 kernel pads to a tile width of 32, 64 or 128,
+    # at ragged lengths (checked, not timed).
+    worst, n = 0.0, 0
+    for hd in (8, 24, 72, 128):
+        for t in (1, 80, 130):
+            for causal in (True, False):
+                for dt in (torch.float32, torch.bfloat16):
+                    q, k, v = (randn((1, 2, t, hd), dt) for _ in range(3))
+                    o, lse = kernels.flash_attention_lse(q, k, v, causal)
+                    po, plse = kernels.flash_attention_lse_plain(q, k, v,
+                                                                 causal)
+                    torch.cuda.synchronize()
+                    elem = _flash_fwd_close(kernels, q, k, v, causal, o, po)
+                    err_lse = (lse - plse).abs().max().item()
+                    _check(elem <= 1.0 and err_lse <= TOL_LSE,
+                           f"flash_attention_lse (1, 2, {t}, {hd}) causal="
+                           f"{causal} {_dtype_name(dt)}: {elem} of the "
+                           f"element tolerance, |lse| err {err_lse}")
+                    worst, n = max(worst, elem), n + 1
+    print(f"[kernels] flash_attention_lse at hd 8/24/72/128 x t 1/80/130, "
+          f"causal and not, f32 and bf16 ({n} cases): worst element "
+          f"{worst:.3g} of its tolerance")
+    for width in (32, 64, 128):
+        print(f"[kernels] bf16 K1f/K1b at tile width {width}: " + ", ".join(
+            f"{k} {r} registers, {sp} spilled bytes, {sm} B shared"
+            for k, (r, sp, sm) in kernels.flash_attrs(width).items()))
+    # The host side of one K1f call at the serve shape: the bf16 wrapper
+    # encodes three tensor maps per call, the f32 one none.
+    host = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (randn((1, 8, 64, 64), dt) for _ in range(3))
+        with torch.no_grad():
+            kernels.flash_attention_lse(q, k, v, True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                kernels.flash_attention_lse(q, k, v, True)
+            host[_dtype_name(dt)] = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+    print(f"[kernels] host side of one flash_attention_lse call at (1, 8, "
+          f"64, 64), mean of 200 unsynchronised calls: bf16 "
+          f"{host['bfloat16']:.2f} us, f32 {host['float32']:.2f} us")
 
     # -- K6: flash decode --
     cases = (((8, 128, 8, 64), [5, 128, 1, 33, 47, 64, 99, 20]),
@@ -472,31 +535,51 @@ def phase_train_kernels(torch, kernels, F):
     # -- K1b: flash-attention backward --
     train_shape = (TRAIN["batch"], TRAIN["heads"], TRAIN["seq"],
                    TRAIN["d_model"] // TRAIN["heads"])
-    for shape, causal, dt in ((train_shape, True, torch.bfloat16),
-                              ((2, 8, 80, 64), False, torch.float32),
-                              ((2, 8, 80, 64), True, torch.bfloat16),
-                              ((1, 8, 1, 64), True, torch.float32),
-                              ((1, 2, 130, 128), False, torch.bfloat16),
-                              ((2, 4, 256, 32), True, torch.float32)):
+    # The timed training shape, the shapes of earlier slices, then the
+    # head dims the bf16 kernels pad (8, 24, 72, 128) at ragged lengths.
+    cases = [(train_shape, True, torch.bfloat16),
+             ((2, 8, 80, 64), False, torch.float32),
+             ((2, 8, 80, 64), True, torch.bfloat16),
+             ((1, 8, 1, 64), True, torch.float32),
+             ((1, 2, 130, 128), False, torch.bfloat16),
+             ((2, 4, 256, 32), True, torch.float32)]
+    n_named = len(cases)
+    cases += [((1, 2, t, hd), causal, dt) for hd in (8, 24, 72, 128)
+              for t in (1, 80, 130) for causal in (True, False)
+              for dt in (torch.bfloat16, torch.float32)]
+    worst_small = 0.0
+    for i_case, (shape, causal, dt) in enumerate(cases):
         name = _dtype_name(dt)
         q, k, v = (randn(shape, dt) for _ in range(3))
         o, lse = kernels.flash_attention_lse_plain(q, k, v, causal)
         do, g_lse = randn(shape, dt), randn(shape[:3], torch.float32)
         got = kernels.flash_attention_lse_bwd(q, k, v, o, lse, do, g_lse,
                                               causal)
+        again = kernels.flash_attention_lse_bwd(q, k, v, o, lse, do, g_lse,
+                                                causal)
         want = kernels.flash_attention_lse_bwd_plain(q, k, v, o, lse, do,
                                                      g_lse, causal)
         torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        # bf16 K1b runs on the tensor cores (stream_bwd), f32 on FMA (bwd).
+        rtol, arel, atop = (TOL_ELEM["stream_bwd"][name] if name == "bfloat16"
+                            else TOL_ELEM["bwd"][name] + (0.0,))
         mass = _flash_bwd_mass(q, k, v, o, lse, do, g_lse, causal)
-        err = max(_close(a, w, m, *TOL_ELEM["bwd"][name])
-                  for a, w, m in zip(got, want, mass))
-        _check(err <= 1.0,
+        tops = (_flash_bwd_top(q, k, v, o, lse, do, g_lse, causal) if atop
+                else (None,) * 3)
+        err = max(_close(a, w, m, rtol, arel, tp, atop)
+                  for a, w, m, tp in zip(got, want, mass, tops))
+        _check(err <= 1.0 and same,
                f"flash_attention_lse_bwd {shape} causal={causal} {name}: "
-               f"gradient error {err} of the element tolerance")
-        print(f"[train-kernels] flash_attention_lse_bwd {shape} "
-              f"causal={causal} {name}: worst element {err:.3g} of its "
-              f"tolerance")
-        del mass
+               f"gradient error {err} of the element tolerance, two "
+               f"launches bit-identical: {same}")
+        if i_case >= n_named:
+            worst_small = max(worst_small, err)
+        else:
+            print(f"[train-kernels] flash_attention_lse_bwd {shape} "
+                  f"causal={causal} {name}: worst element {err:.3g} of its "
+                  f"tolerance, two launches bit-identical")
+        del mass, tops, again
         if shape != train_shape:
             continue
         b, h, t, hd = shape
@@ -547,6 +630,11 @@ def phase_train_kernels(torch, kernels, F):
             max_abs_err=f_err, ms=f_ms, plain_ms=f_plain, bound_ms=f_bound,
             bound_by=f_by, library_ms=f_lib)
         del q, k, v, o, lse, do, got, want, qs, ks, vs, out, fo
+
+    print(f"[train-kernels] flash_attention_lse_bwd at hd 8/24/72/128 x t "
+          f"1/80/130, causal and not, bf16 and f32: worst element "
+          f"{worst_small:.3g} of its tolerance, every case bit-identical "
+          f"across two launches")
 
     # -- K3: fused softmax cross-entropy, forward and backward --
     n_main = TRAIN["batch"] * TRAIN["seq"]
@@ -1255,16 +1343,24 @@ def _per_row(fn, *xs):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def _stream_parts(torch, kernels, q, k, v, do, g_lse, causal, ref: str):
-    """K1s's ``o``/``lse`` (through ``flash_attention_lse_streamed``) and
-    K1sb's gradients against ``ref``: ``plain`` (the plain versions, one
-    batch row at a time, within ``TOL_ELEM``'s ``fwd`` and ``stream_bwd``)
-    or ``k1`` (K1f and K1b, within twice those: each side is held within
-    them of the same plain version).  The backward takes the reference
-    forward's ``o`` and ``lse``.  Returns ({"o", "lse", "dq", "dk", "dv":
-    worst element ratio, above 1 fails}, {"fwd", "bwd": worst absolute
-    error}); lse is held within ``TOL_LSE``."""
+def _flash_parts(torch, kernels, q, k, v, do, g_lse, causal, ref: str,
+                 pair: str = "stream"):
+    """The forward's ``o``/``lse`` and the backward's gradients of a kernel
+    pair, ``stream`` (K1s/K1sb, through ``flash_attention_lse_streamed``)
+    or ``k1`` (K1f/K1b), against ``ref``: ``plain`` (the plain versions,
+    one batch row at a time, within ``TOL_ELEM``'s ``fwd`` and
+    ``stream_bwd``) or, for ``stream``, ``k1`` (K1f and K1b, within twice
+    those: each side is held within them of the same plain version).  The
+    backward takes the reference forward's ``o`` and ``lse``.  Returns
+    ({"o", "lse", "dq", "dk", "dv": worst element ratio, above 1 fails},
+    {"fwd", "bwd": worst absolute error}); lse is held within
+    ``TOL_LSE``."""
     name = _dtype_name(q.dtype)
+    if pair == "stream":
+        fwd_t = kernels.flash_attention_lse_streamed
+        bwd_t = kernels.flash_attention_lse_streamed_bwd
+    else:
+        fwd_t, bwd_t = kernels.flash_attention_lse, kernels.flash_attention_lse_bwd
     if ref == "plain":
         fwd = lambda a, b, c: _per_row(
             lambda x, y, z: kernels.flash_attention_lse_plain(x, y, z, causal),
@@ -1277,7 +1373,7 @@ def _stream_parts(torch, kernels, q, k, v, do, g_lse, causal, ref: str):
         bwd = lambda *a: kernels.flash_attention_lse_bwd(*a, causal)
         factor = 2.0
     with torch.no_grad():
-        o, lse = kernels.flash_attention_lse_streamed(q, k, v, causal)
+        o, lse = fwd_t(q, k, v, causal)
         po, plse = fwd(q, k, v)
         mass = fwd(q, k, v.abs())[0]
     rtol, arel = TOL_ELEM["fwd"][name]
@@ -1286,8 +1382,7 @@ def _stream_parts(torch, kernels, q, k, v, do, g_lse, causal, ref: str):
              "lse": e_lse / TOL_LSE if math.isfinite(e_lse) else math.inf}
     errs = {"fwd": max((o.float() - po.float()).abs().max().item(), e_lse)}
     del o, lse, mass
-    got = kernels.flash_attention_lse_streamed_bwd(q, k, v, po, plse, do,
-                                                   g_lse, causal)
+    got = bwd_t(q, k, v, po, plse, do, g_lse, causal)
     want = bwd(q, k, v, po, plse, do, g_lse)
     rtol, arel, atop = TOL_ELEM["stream_bwd"][name]
     masses = _flash_bwd_mass(q, k, v, po, plse, do, g_lse, causal)
@@ -1301,13 +1396,15 @@ def _stream_parts(torch, kernels, q, k, v, do, g_lse, causal, ref: str):
     return parts, errs
 
 
-def _hold_stream(torch, kernels, q, k, v, do, g_lse, causal, ref: str):
-    """:func:`_stream_parts`, failing the run above the tolerance.
-    Returns (worst element ratio, {"fwd", "bwd": worst absolute error})."""
-    parts, errs = _stream_parts(torch, kernels, q, k, v, do, g_lse, causal,
-                                ref)
+def _hold_stream(torch, kernels, q, k, v, do, g_lse, causal, ref: str,
+                 pair: str = "stream"):
+    """:func:`_flash_parts` of K1s/K1sb (or, with ``pair="k1"``, of
+    K1f/K1b), failing the run above the tolerance.  Returns (worst element
+    ratio, {"fwd", "bwd": worst absolute error})."""
+    parts, errs = _flash_parts(torch, kernels, q, k, v, do, g_lse, causal,
+                               ref, pair)
     worst = max(parts.values())
-    _check(worst <= 1.0, f"streamed kernels {tuple(q.shape)} causal={causal} "
+    _check(worst <= 1.0, f"{pair} kernels {tuple(q.shape)} causal={causal} "
            f"{_dtype_name(q.dtype)} against {ref}: " + ", ".join(
                f"{k} {v:.3g}" for k, v in parts.items())
            + " of the element tolerance")
@@ -1355,64 +1452,24 @@ def phase_stream_kernels(torch, kernels, F):
           f"(o, lse, dq, dk, dv; causal and not, f32 and bf16, t = 1 to "
           f"8192, hd 32/64/128): worst element {worst:.3g} of its tolerance")
 
-    # -- the main-path shape: against plain and K1f/K1b, then timed --
+    # -- the main-path shape: against plain and K1f/K1b --
     main = (LONGCTX_8K["batch"], LONGCTX_8K["heads"], LONGCTX_8K["seq"],
             LONGCTX_8K["d_model"] // LONGCTX_8K["heads"])
-    b, h, t, hd = main
     q, k, v, do = (randn(main, bf16) for _ in range(4))
     g_lse = randn(main[:3], f32)
     r_plain, err = _hold_stream(torch, kernels, q, k, v, do, g_lse, True,
                                 "plain")
     r_k1, _ = _hold_stream(torch, kernels, q, k, v, do, g_lse, True, "k1")
+    # K1f/K1b themselves at the 8k default arm's shape (phase 13), element
+    # by element against the plain versions
+    r_k1_plain, err_k1 = _hold_stream(torch, kernels, q, k, v, do, g_lse,
+                                      True, "plain", pair="k1")
     torch.cuda.synchronize()
-    pairs = t * (t + 1) // 2
-    fb, fby = _bound_ms(4 * b * h * t * hd * 2 + b * h * t * 4,
-                        4 * b * h * hd * pairs, "bfloat16")
-    bb, bby = _bound_ms(8 * b * h * t * hd * 2 + 2 * b * h * t * 4,
-                        10 * b * h * hd * pairs, "bfloat16")
-    with torch.no_grad():
-        o, lse = kernels.flash_attention_lse(q, k, v, True)
-        t_s = _device_ms(
-            lambda: kernels.flash_attention_lse_streamed(q, k, v, True))
-        t_f = _device_ms(lambda: kernels.flash_attention_lse(q, k, v, True))
-        t_pf = _device_ms(lambda: _per_row(
-            lambda *x: kernels.flash_attention_lse_plain(*x, True), q, k, v))
-        t_lf = _device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True))
-    t_sb = _device_ms(lambda: kernels.flash_attention_lse_streamed_bwd(
-        q, k, v, o, lse, do, g_lse, True))
-    t_b = _device_ms(lambda: kernels.flash_attention_lse_bwd(
-        q, k, v, o, lse, do, g_lse, True))
-    t_pb = _device_ms(lambda: _per_row(
-        lambda *x: kernels.flash_attention_lse_bwd_plain(*x, True),
-        q, k, v, o, lse, do, g_lse))
-    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    t_lb = _device_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
-                                                  retain_graph=True))
-    del qs, ks, vs, out
-    for what, ms, bound, by, lib in (
-            ("K1s", t_s, fb, fby, t_lf), ("K1f", t_f, fb, fby, t_lf),
-            ("K1sb", t_sb, bb, bby, t_lb), ("K1b", t_b, bb, bby, t_lb)):
-        plain = t_pf if what in ("K1s", "K1f") else t_pb
-        print(f"[stream-kernels] {what} {main} bf16 causal: {ms:.4f} ms "
-              f"({ms / bound:.1f}x its bound {bound:.5f} by {by}; plain "
-              f"{plain:.4f}, one batch row at a time; sdpa "
-              f"{'forward' if lib is t_lf else 'backward'} {lib:.4f})")
-    print(f"[stream-kernels] {main}: worst element {r_plain:.3g} (plain), "
-          f"{r_k1:.3g} (K1f/K1b) of its tolerance")
-    rows["flash_attention_lse_streamed"] = dict(
-        max_abs_err=err["fwd"], ms=t_s, plain_ms=t_pf, bound_ms=fb,
-        bound_by=fby, library_ms=t_lf)
-    rows["flash_attention_lse_streamed_bwd"] = dict(
-        max_abs_err=err["bwd"], ms=t_sb, plain_ms=t_pb, bound_ms=bb,
-        bound_by=bby, library_ms=t_lb)
-    rows["flash_attention_lse@8k"] = dict(ms=t_f, plain_ms=t_pf, bound_ms=fb,
-                                          bound_by=fby, library_ms=t_lf)
-    rows["flash_attention_lse_bwd@8k"] = dict(ms=t_b, plain_ms=t_pb,
-                                              bound_ms=bb, bound_by=bby,
-                                              library_ms=t_lb)
-    del q, k, v, do, g_lse, o, lse
+    print(f"[stream-kernels] {main}: K1s/K1sb worst element {r_plain:.3g} "
+          f"(plain), {r_k1:.3g} (K1f/K1b) of its tolerance; K1f/K1b worst "
+          f"element {r_k1_plain:.3g} (plain), max abs err fwd "
+          f"{err_k1['fwd']:.3g}, bwd {err_k1['bwd']:.3g}")
+    del q, k, v, do, g_lse
 
     # -- 32k: against K1f/K1b (no plain: its t x t temporaries do not
     # fit), and the chunked form against K1f --
@@ -1434,35 +1491,89 @@ def phase_stream_kernels(torch, kernels, F):
     _check(r_big <= 1.0 and r_chunk <= 1.0 and e_clse <= TOL_LSE,
            f"32k: streamed {r_big}, chunked {r_chunk} of the element "
            f"tolerance, chunked lse err {e_clse}")
-    with torch.no_grad():
-        t_s32 = _device_ms(
-            lambda: kernels.flash_attention_lse_streamed(q, k, v, True), 5)
-    t_sb32 = _device_ms(lambda: kernels.flash_attention_lse_streamed_bwd(
-        q, k, v, o, lse, do, g_lse, True), 5)
     print(f"[stream-kernels] {big} bf16 causal: K1s/K1sb worst element "
           f"{r_big:.3g} of twice TOL_ELEM against K1f/K1b; chunked (chunk "
-          f"8192) {r_chunk:.3g} of its tolerance, lse err {e_clse:.3g}; K1s "
-          f"{t_s32:.4f} ms, K1sb {t_sb32:.4f} ms (median of 5)")
-    rows["stream@32k"] = dict(fwd_ms=t_s32, bwd_ms=t_sb32)
+          f"8192) {r_chunk:.3g} of its tolerance, lse err {e_clse:.3g}")
     del q, k, v, do, g_lse, o, lse, co, clse, mass
     torch.cuda.empty_cache()
 
-    # -- K1s/K1sb against K1f/K1b at the serving and 2k training shapes --
-    for shape in ((1, 8, 64, 64), (1, 8, 128, 64), (16, 8, 2048, 64)):
+    # -- device times, bf16 causal: K1f beside K1s and K1b beside K1sb in
+    # turns (_pair_ms), at the serve, 2k, 8k and 32k shapes, with SDPA and
+    # the bound (the plain versions at 8k, one batch row at a time; at 2k
+    # and the serve shape phases 1 and 2 time them; at 32k they do not fit)
+    for shape in ((1, 8, 64, 64), (1, 8, 128, 64), (16, 8, 2048, 64), main,
+                  big):
+        b, h, t, hd = shape
+        reps = 5 if t >= 32768 else 20
         q, k, v, do = (randn(shape, bf16) for _ in range(4))
         g_lse = randn(shape[:3], f32)
         with torch.no_grad():
             o, lse = kernels.flash_attention_lse(q, k, v, True)
-            ms = [_device_ms(lambda: fn(q, k, v, True)) for fn in (
-                kernels.flash_attention_lse,
-                kernels.flash_attention_lse_streamed)]
-        ms += [_device_ms(lambda: fn(q, k, v, o, lse, do, g_lse, True))
-               for fn in (kernels.flash_attention_lse_bwd,
-                          kernels.flash_attention_lse_streamed_bwd)]
-        print(f"[stream-kernels] {shape} bf16 causal: K1f {ms[0]:.4f} ms, "
-              f"K1s {ms[1]:.4f} ms; K1b {ms[2]:.4f} ms, K1sb {ms[3]:.4f} ms")
-        rows[f"stream@{shape}"] = dict(zip(("K1f", "K1s", "K1b", "K1sb"), ms))
+            t_f, t_s = _pair_ms(
+                lambda: kernels.flash_attention_lse(q, k, v, True),
+                lambda: kernels.flash_attention_lse_streamed(q, k, v, True),
+                reps)
+            t_lf = _device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), reps)
+        t_b, t_sb = _pair_ms(
+            lambda: kernels.flash_attention_lse_bwd(q, k, v, o, lse, do,
+                                                    g_lse, True),
+            lambda: kernels.flash_attention_lse_streamed_bwd(
+                q, k, v, o, lse, do, g_lse, True), reps)
+        qs, ks, vs = (x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        t_lb = _device_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True), reps)
+        del qs, ks, vs, out
+        t_pf = t_pb = None
+        if shape == main:
+            with torch.no_grad():
+                t_pf = _device_ms(lambda: _per_row(
+                    lambda *x: kernels.flash_attention_lse_plain(*x, True),
+                    q, k, v))
+            t_pb = _device_ms(lambda: _per_row(
+                lambda *x: kernels.flash_attention_lse_bwd_plain(*x, True),
+                q, k, v, o, lse, do, g_lse))
+        pairs = t * (t + 1) // 2
+        f_flops, b_flops = 4 * b * h * hd * pairs, 10 * b * h * hd * pairs
+        fb, fby = _bound_ms(4 * b * h * t * hd * 2 + b * h * t * 4, f_flops,
+                            "bfloat16")
+        bb, bby = _bound_ms(8 * b * h * t * hd * 2 + 2 * b * h * t * 4,
+                            b_flops, "bfloat16")
+
+        def pct(flops, ms):
+            return 100 * flops / (ms * 1e-3) / PEAK_FLOPS["bfloat16"]
+
+        print(f"[stream-kernels] {shape} bf16 causal: K1f {t_f:.4f} ms "
+              f"({pct(f_flops, t_f):.1f}% of 989 TFLOP/s), K1s {t_s:.4f} "
+              f"({pct(f_flops, t_s):.1f}%), sdpa {t_lf:.4f} "
+              f"({pct(f_flops, t_lf):.1f}%), bound {fb:.5f} by {fby}; K1b "
+              f"{t_b:.4f} ({pct(b_flops, t_b):.1f}%), K1sb {t_sb:.4f} "
+              f"({pct(b_flops, t_sb):.1f}%), sdpa backward {t_lb:.4f} "
+              f"({pct(b_flops, t_lb):.1f}%), bound {bb:.5f} by {bby}"
+              + ("" if t_pf is None else f"; plain {t_pf:.4f} / {t_pb:.4f} "
+                 f"(one batch row at a time)"))
+        rows[f"stream@{shape}"] = dict(K1f=t_f, K1s=t_s, K1b=t_b, K1sb=t_sb)
+        fwd = dict(ms=t_f, plain_ms=t_pf, bound_ms=fb, bound_by=fby,
+                   library_ms=t_lf)
+        bwd = dict(ms=t_b, plain_ms=t_pb, bound_ms=bb, bound_by=bby,
+                   library_ms=t_lb)
+        if shape == main:
+            rows["flash_attention_lse_streamed"] = dict(
+                fwd, ms=t_s, max_abs_err=err["fwd"])
+            rows["flash_attention_lse_streamed_bwd"] = dict(
+                bwd, ms=t_sb, max_abs_err=err["bwd"])
+            rows["flash_attention_lse@8k"] = dict(
+                fwd, max_abs_err=err_k1["fwd"])
+            rows["flash_attention_lse_bwd@8k"] = dict(
+                bwd, max_abs_err=err_k1["bwd"])
+        elif shape == big:
+            rows["stream@32k"] = dict(fwd_ms=t_s, bwd_ms=t_sb)
+            rows["flash_attention_lse@32k"] = fwd
+            rows["flash_attention_lse_bwd@32k"] = bwd
         del q, k, v, do, g_lse, o, lse
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1471,8 +1582,8 @@ def phase_longctx_train(torch, kernels, rows):
     at full width: 8k with the streamed dispatch and with the default
     one, 32k streamed.  The dispatch is chosen by setting
     ``kernels._STREAMED`` in this process, as ``tests/test_pallas.py``
-    sets ``pallas_kernels._STREAMED``.  Then one warm 8k streamed step
-    under torch.profiler.  Returns launch counts by leg."""
+    sets ``pallas_kernels._STREAMED``.  Then one warm 8k step of each
+    dispatch under torch.profiler.  Returns launch counts by leg."""
     from flexflow_torch.apps import transformer
 
     legs = (("longctx_8k_streamed", LONGCTX_8K, True),
@@ -1533,11 +1644,13 @@ def phase_longctx_train(torch, kernels, rows):
               f"({flops:.4g} FLOP/step); from the kernels' measured times: "
               f"{share_s}; peak memory {peak_gb:.2f} GB; launches {launches}")
         by_leg[name] = launches
-    saved, kernels._STREAMED = kernels._STREAMED, True
-    try:
-        phase_profile(torch, LONGCTX_8K, "longctx-profile")
-    finally:
-        kernels._STREAMED = saved
+    for streamed, tag in ((True, "longctx-profile"),
+                          (False, "longctx-profile-default")):
+        saved, kernels._STREAMED = kernels._STREAMED, streamed
+        try:
+            phase_profile(torch, LONGCTX_8K, tag)
+        finally:
+            kernels._STREAMED = saved
     return by_leg
 
 
@@ -1873,8 +1986,10 @@ def main() -> int:
         if name == "flash_attention_lse":
             entry["train_shape"] = rows["flash_attention_lse@train"]
             entry["longctx_shape"] = rows["flash_attention_lse@8k"]
+            entry["longctx_32k_shape"] = rows["flash_attention_lse@32k"]
         if name == "flash_attention_lse_bwd":
             entry["longctx_shape"] = rows["flash_attention_lse_bwd@8k"]
+            entry["longctx_32k_shape"] = rows["flash_attention_lse_bwd@32k"]
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     smi = subprocess.run(

@@ -1,4 +1,4 @@
-// Flash-attention backward for Hopper (sm_90a).
+// Flash-attention backward (K1b) for Hopper (sm_90a).
 //
 // Replaces the TPU kernels flexflow_tpu/ops/pallas_kernels.py::_dq_kernel and
 // ::_dkv_kernel (launched by _bwd_call, the VJP of flash_attention_lse), and
@@ -16,26 +16,55 @@
 // ds.astype(k/q.dtype) for dq/dk), dq/dk/dv accumulated in f32 and written
 // in the input type.
 //
-// Design.  Two passes with no atomics, both 128-thread CTAs over 64-row
-// tiles staged through shared memory as f32, the layout of flash_fwd.cu
-// (16 row groups x 8 lanes; a thread owns 4 rows and 8 strided columns of
-// a 64 x 64 score tile and 4 rows x hd/8 columns of its accumulator):
-//   1. dq: one CTA per (bh, 64-row q tile).  It first computes delta for
-//      its rows from o and do (and g_lse), writes it to the delta buffer,
-//      then streams the k/v tiles up to the causal diagonal.
-//   2. dk/dv: one CTA per (bh, 64-key tile), launched after pass 1 on the
-//      same stream (it reads pass 1's delta); it streams the q/do tiles
-//      from the diagonal down and computes the transposed score tile
-//      s^T = k q^T directly, so no reduction crosses threads.
+// Two passes with no atomics, in both instantiations: two launches on the
+// same inputs give the same bits.
+//   1. dq: one CTA per (bh, q tile).  It first computes delta for its rows
+//      from o and do (and g_lse), writes it to the delta buffer, then
+//      streams the k/v tiles up to the causal diagonal.
+//   2. dk/dv: one CTA per (bh, key tile), launched after pass 1 on the same
+//      stream (it reads pass 1's delta); it streams the q/do tiles from the
+//      diagonal on and computes the transposed score tile s^T = k q^T
+//      directly, so no reduction crosses threads.
 // Rows past t (a ragged last tile) are zero-filled and masked, so every
 // t >= 1 runs; the causal loops skip the tiles above the diagonal.
 //
-// Bound.  Seven t x t x hd products (three in pass 1, four in pass 2) on
-// the FMA pipes in f32: at long t the kernel is bound by operations, far
-// below the bf16 tensor-core roofline.  wgmma/TMA tiles are the later fix.
+// Bound.  Five t x t x hd products (s, dp, dq in pass 1; s^T, dp^T, dv, dk
+// in pass 2, s and dp recomputed): 10 b h hd t^2 / 2 tensor-core FLOPs
+// when causal, at long t bound by operations (0.174 ms at (16, 8, 2048,
+// 64) bf16 against 0.032 ms of bytes).
+//
+// bf16: wgmma from TMA-fed shared memory (wg_dq_kernel, wg_dkv_kernel; the
+// machinery of wgmma_tile.cuh).  CTAs of three warpgroups: a producer whose
+// one thread keeps TMA loads in flight through a three-stage mbarrier ring
+// and gives its registers up (setmaxnreg), and two consumer warpgroups of
+// 64 rows each, every product a wgmma on the f32 accumulators' registers:
+//   dq pass, 128 query rows per CTA, 64-key K/V tiles streamed: S = Q K^T
+//     and dP = dO V^T from shared memory; P = exp(S scale - lse) and dS =
+//     P (dP - delta) on the accumulators; dS rounded to bf16 in registers
+//     is the A operand of dQ += dS K (K read MN-major by the descriptor's
+//     transpose bit); dQ scaled once at the end.
+//   dk/dv pass, 128 key rows per CTA (64 per warpgroup: the dK and dV
+//     accumulators take 128 registers a thread at hd 128), 64-row Q/dO
+//     tiles and their lse/delta streamed: S^T = K Q^T, so P^T and dS^T come
+//     out as A fragments; dV += P^T dO, dP^T = V dO^T, dK += dS^T Q.
+// Each warpgroup stops at its own causal diagonal and skips the tiles its
+// rows cannot see; the head dim is padded to a tile width of 32, 64 or 128
+// (zero-filled by the tensor maps, masked at the stores, the scale from
+// the true hd).
+//
+// f32: the FMA kernels (flash_dq_kernel, flash_dkv_kernel): wgmma takes f32
+// only as TF32.  128-thread CTAs over 64-row tiles staged through shared
+// memory as f32 (16 row groups x 8 lanes; a thread owns 4 rows and 8
+// strided columns of a 64 x 64 score tile and 4 rows x hd/8 columns of its
+// accumulator).
 #include "common.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32: FMA kernels
+// ---------------------------------------------------------------------------
 
 constexpr int kBlock = 64;     // q and k tile edge
 constexpr int kThreads = 128;  // 16 row groups x 8 lanes
@@ -307,11 +336,13 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NJ>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
-                   const void* dout, const float* lse, const float* g_lse,
-                   float* delta, void* dq, void* dk, void* dv, int bh, int t,
-                   int hd, int causal, float scale, cudaStream_t stream) {
+template <int NJ>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       const float* g_lse, float* delta, void* dq, void* dk,
+                       void* dv, int bh, int t, int hd, int causal,
+                       float scale, cudaStream_t stream) {
+  using T = float;
   const size_t tile = (size_t)kBlock * (hd + 1);
   const size_t ptile = (size_t)kBlock * kPLd;
   const size_t smem_dq = sizeof(float) * (4 * tile + ptile + 2 * kBlock);
@@ -340,19 +371,531 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const void* o, const void* dout, const float* lse,
-                     const float* g_lse, float* delta, void* dq, void* dk,
-                     void* dv, int bh, int t, int hd, int causal, float scale,
-                     cudaStream_t s) {
-  if (hd <= 32)
-    return launch<T, 4>(q, k, v, o, dout, lse, g_lse, delta, dq, dk, dv, bh, t, hd, causal, scale, s);
-  if (hd <= 64)
-    return launch<T, 8>(q, k, v, o, dout, lse, g_lse, delta, dq, dk, dv, bh, t, hd, causal, scale, s);
-  if (hd <= 96)
-    return launch<T, 12>(q, k, v, o, dout, lse, g_lse, delta, dq, dk, dv, bh, t, hd, causal, scale, s);
-  return launch<T, 16>(q, k, v, o, dout, lse, g_lse, delta, dq, dk, dv, bh, t, hd, causal, scale, s);
+#define FF_BWD_ARGS q, k, v, o, dout, lse, g_lse, delta, dq, dk, dv, bh, t, hd, causal, scale, s
+
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
+                         const void* o, const void* dout, const float* lse,
+                         const float* g_lse, float* delta, void* dq, void* dk,
+                         void* dv, int bh, int t, int hd, int causal,
+                         float scale, cudaStream_t s) {
+  if (hd <= 32) return launch_f32<4>(FF_BWD_ARGS);
+  if (hd <= 64) return launch_f32<8>(FF_BWD_ARGS);
+  if (hd <= 96) return launch_f32<12>(FF_BWD_ARGS);
+  return launch_f32<16>(FF_BWD_ARGS);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma kernels
+// ---------------------------------------------------------------------------
+
+using namespace ff::wg;
+using bf16 = __nv_bfloat16;
+
+constexpr int kWgBM = 128;       // dq pass: query rows per CTA
+constexpr int kWgBN = 64;        // dq pass: keys per streamed K/V tile
+constexpr int kWgKM = 128;       // dk/dv pass: key rows per CTA
+constexpr int kWgQN = 64;        // dk/dv pass: query rows per streamed tile
+constexpr int kStages = 3;       // ring depth
+constexpr int kWgThreads = 384;  // warpgroups 0, 1 consume; 2 produces
+constexpr float kLog2e = 1.4426950408889634f;
+// The dk/dv pass loads a tile's lse and delta as one TMA box each from the
+// flat (bh t) f32 arrays.  A box must start on 16 bytes, and row bh t + qi0
+// need not, so the box starts at that row rounded down to a multiple of 4
+// and holds 4 values more than the tile; each lands in a slot of kRowSlot.
+constexpr int kRowBox = kWgQN + 4;
+constexpr int kRowSlot = 128;
+using Rg = Ring<kStages>;
+
+template <int HDP>
+struct DqSmem {
+  using QT = Tile<HDP, kWgBM>;
+  using KT = Tile<HDP, kWgBN>;
+  static constexpr int kDo = QT::kBytes;
+  static constexpr int kK = 2 * QT::kBytes;
+  static constexpr int kV = kK + kStages * KT::kBytes;
+  static constexpr int kBars = kV + kStages * KT::kBytes;
+  static constexpr int kBytes = kBars + (int)sizeof(Rg) + 8 + 1024;
+};
+
+template <int HDP>
+struct DkvSmem {
+  using KT = Tile<HDP, kWgKM>;
+  using QT = Tile<HDP, kWgQN>;
+  static constexpr int kV = KT::kBytes;
+  static constexpr int kQ = 2 * KT::kBytes;
+  static constexpr int kDo = kQ + kStages * QT::kBytes;
+  static constexpr int kRowVals = kDo + kStages * QT::kBytes;  // lse, delta
+  static constexpr int kRowBytes = 2 * kRowSlot * 4;            // per stage
+  static constexpr int kBars = kRowVals + kStages * kRowBytes;
+  static constexpr int kBytes = kBars + (int)sizeof(Rg) + 8 + 1024;
+};
+
+// Stores a warpgroup's 64 x HDP accumulator (in panels), times mul, as
+// bf16 rows of a (t, hd) slab: rows[h] < t, columns < hd.
+template <int W, int P>
+__device__ __forceinline__ void store_acc(bf16* slab, const float (*acc)[W / 2],
+                                          const int* rows, int t, int hd,
+                                          float mul) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (rows[h] >= t) continue;
+    bf16* out = slab + (size_t)rows[h] * hd;
+#pragma unroll
+    for (int pp = 0; pp < P; ++pp) {
+#pragma unroll
+      for (int b = 0; b < W / 8; ++b) {
+        const int col = pp * W + 8 * b + 2 * tq;
+        if (col < hd) {
+          *reinterpret_cast<__nv_bfloat162*>(out + col) =
+              __floats2bfloat162_rn(acc[pp][4 * b + 2 * h] * mul,
+                                    acc[pp][4 * b + 2 * h + 1] * mul);
+        }
+      }
+    }
+  }
+}
+
+// dQ += dS K, dS in registers (bf16 A fragments), the K tile kt read
+// MN-major: issued, not committed.
+template <int HDP>
+__device__ __forceinline__ void issue_dq(float (*acc)[Tile<HDP, kWgBN>::kW / 2],
+                                         const uint32_t (*da)[4],
+                                         const uint8_t* kt) {
+  using KT = Tile<HDP, kWgBN>;
+#pragma unroll
+  for (int kk = 0; kk < kWgBN / 16; ++kk) {
+#pragma unroll
+    for (int pp = 0; pp < KT::kPanels; ++pp) {
+      mma_rs<KT::kW>(acc[pp], da[kk], KT::mnmajor(kt, kk, pp), 1);
+    }
+  }
+}
+
+// Pass 1: delta and dq.
+template <int HDP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+wg_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+             const __grid_constant__ CUtensorMap map_do,
+             const __grid_constant__ CUtensorMap map_k,
+             const __grid_constant__ CUtensorMap map_v,
+             const bf16* __restrict__ o, const bf16* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ g_lse,
+             float* __restrict__ delta, bf16* __restrict__ dq, int t, int hd,
+             int causal, float scale) {
+  using QT = Tile<HDP, kWgBM>;
+  using KT = Tile<HDP, kWgBN>;
+  using SM = DqSmem<HDP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint8_t* qs = sm;
+  uint8_t* dos = sm + SM::kDo;
+  uint8_t* ks = sm + SM::kK;
+  uint8_t* vs = sm + SM::kV;
+  Rg* ring = reinterpret_cast<Rg*>(sm + SM::kBars);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(ring + 1);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBM;  // longest rows first
+  const int kend = causal ? min(t, q0 + kWgBM) : t;
+  const int nk = (kend + kWgBN - 1) / kWgBN;
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    ring->init(8);  // each of the 8 consumer warps releases every stage
+    bar_init(q_bar, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      bar_expect(q_bar, 2 * QT::kBytes);
+      QT::load(qs, &map_q, q_bar, q0, bh);
+      QT::load(dos, &map_do, q_bar, q0, bh);
+      for (int j = 0; j < nk; ++j) {
+        ring->acquire(j, 2 * KT::kBytes);
+        const int st = Rg::stage(j);
+        KT::load(ks + st * KT::kBytes, &map_k, &ring->full[st], j * kWgBN, bh);
+        KT::load(vs + st * KT::kBytes, &map_v, &ring->full[st], j * kWgBN, bh);
+      }
+    }
+  } else {
+    reg_alloc<240>();
+    constexpr int kW = KT::kW, kP = KT::kPanels, kAcc = kW / 2;
+    constexpr int kS = kWgBN / 2;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, tq = lane & 3;
+    const int r0 = q0 + wgi * 64;
+    const int rows[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+    const int kend_wg = causal ? min(t, r0 + 64) : t;
+    const int nk_wg = r0 < t ? (kend_wg + kWgBN - 1) / kWgBN : 0;
+    const float sl2 = scale * kLog2e;
+    const size_t base = (size_t)bh * t;
+
+    // delta = rowsum(o do) - g_lse for the warp's 16 rows, written for
+    // the dk/dv pass and kept for the two rows this thread holds.
+    float dl[2] = {0.f, 0.f};
+    for (int rr = 0; rr < 16; ++rr) {
+      const int row = r0 + warp * 16 + rr;
+      float a = 0.f;
+      if (row < t) {
+        const bf16* orow = o + (base + row) * hd;
+        const bf16* drow = dout + (base + row) * hd;
+        for (int d = 2 * lane; d < hd; d += 64) {
+          const float2 x = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(orow + d));
+          const float2 y = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(drow + d));
+          a = fmaf(x.x, y.x, a);
+          a = fmaf(x.y, y.y, a);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+      if (row < t) {
+        a -= g_lse != nullptr ? g_lse[base + row] : 0.f;
+        if (lane == 0) delta[base + row] = a;
+      }
+      if (rr == g) dl[0] = a;
+      if (rr == g + 8) dl[1] = a;
+    }
+    float ls2[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ls2[h] = rows[h] < t ? lse[base + rows[h]] * kLog2e : 0.f;
+    }
+
+    float acc[kP][kAcc];
+#pragma unroll
+    for (int pp = 0; pp < kP; ++pp)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) acc[pp][i] = 0.f;
+
+    if (nk_wg > 0) {
+      // Tile j's S and dP are issued before tile j-1's dQ += dS K, and
+      // tile j's dS is computed while that product runs.
+      float s[kS], dp[kS];
+      uint32_t da[kWgBN / 16][4];
+      bar_wait(q_bar, 0);
+      for (int j = 0; j < nk_wg; ++j) {
+        ring->wait(j);
+        const uint8_t* kt = ks + Rg::stage(j) * KT::kBytes;
+        const uint8_t* vt = vs + Rg::stage(j) * KT::kBytes;
+        pin<kS>(s);
+        pin<kS>(dp);
+#pragma unroll
+        for (int pp = 0; pp < kP; ++pp) pin<kAcc>(acc[pp]);
+        mma_fence();
+        // S = Q K^T and dP = dO V^T (64 x kWgBN per warpgroup), f32.
+#pragma unroll
+        for (int kk = 0; kk < HDP / 16; ++kk) {
+          mma_ss_n64(s, QT::kmajor(qs, wgi * 64, kk), KT::kmajor(kt, 0, kk),
+                     kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < HDP / 16; ++kk) {
+          mma_ss_n64(dp, QT::kmajor(dos, wgi * 64, kk), KT::kmajor(vt, 0, kk),
+                     kk > 0);
+        }
+        mma_commit();
+        if (j > 0) issue_dq<HDP>(acc, da, ks + Rg::stage(j - 1) * KT::kBytes);
+        mma_commit();
+        mma_wait<1>();  // S and dP have landed; dQ may still run
+        pin<kS>(s);
+        pin<kS>(dp);
+
+        // P = exp(S scale - lse), dS = P (dP - delta), in place of S.
+        const int k0 = j * kWgBN;
+        const bool edge = k0 + kWgBN > t || (causal && k0 + kWgBN - 1 > r0);
+#pragma unroll
+        for (int i = 0; i < kS; ++i) {
+          const int h = frag_half(i);
+          float p = exp2_approx(fmaf(s[i], sl2, -ls2[h]));
+          if (edge) {
+            const int col = k0 + frag_col(i, tq);
+            if (col >= t || (causal && col > rows[h])) p = 0.f;
+          }
+          s[i] = p * (dp[i] - dl[h]);
+        }
+        mma_wait<0>();
+#pragma unroll
+        for (int pp = 0; pp < kP; ++pp) pin<kAcc>(acc[pp]);
+        if (j > 0) ring->release(j - 1);
+        // dS rounded to bf16 in registers: the A operand of dQ += dS K.
+#pragma unroll
+        for (int kk = 0; kk < kWgBN / 16; ++kk) frag_a(da[kk], s, kk);
+      }
+#pragma unroll
+      for (int pp = 0; pp < kP; ++pp) pin<kAcc>(acc[pp]);
+      mma_fence();
+      issue_dq<HDP>(acc, da, ks + Rg::stage(nk_wg - 1) * KT::kBytes);
+      mma_commit();
+      mma_wait<0>();
+#pragma unroll
+      for (int pp = 0; pp < kP; ++pp) pin<kAcc>(acc[pp]);
+      ring->release(nk_wg - 1);
+    }
+    // Tiles past the warpgroup's diagonal: waited for, then released (see
+    // Ring).
+    for (int j = nk_wg; j < nk; ++j) {
+      ring->wait(j);
+      ring->release(j);
+    }
+    store_acc<kW, kP>(dq + base * hd, acc, rows, t, hd, scale);
+  }
+}
+
+// Pass 2: dk and dv.
+template <int HDP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+wg_dkv_kernel(const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_v,
+              const __grid_constant__ CUtensorMap map_q,
+              const __grid_constant__ CUtensorMap map_do,
+              const __grid_constant__ CUtensorMap map_lse,
+              const __grid_constant__ CUtensorMap map_delta,
+              bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int hd,
+              int causal, float scale) {
+  using KT = Tile<HDP, kWgKM>;
+  using QT = Tile<HDP, kWgQN>;
+  using SM = DkvSmem<HDP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint8_t* ks = sm;
+  uint8_t* vs = sm + SM::kV;
+  uint8_t* qs = sm + SM::kQ;
+  uint8_t* dos = sm + SM::kDo;
+  uint8_t* rv = sm + SM::kRowVals;
+  Rg* ring = reinterpret_cast<Rg*>(sm + SM::kBars);
+  uint64_t* k_bar = reinterpret_cast<uint64_t*>(ring + 1);
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kWgKM;  // the first key tiles see the most rows
+  const int i0 = causal ? k0 / kWgQN : 0;
+  const int nq = (t + kWgQN - 1) / kWgQN;
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    ring->init(8);
+    bar_init(k_bar, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      bar_expect(k_bar, 2 * KT::kBytes);
+      KT::load(ks, &map_k, k_bar, k0, bh);
+      KT::load(vs, &map_v, k_bar, k0, bh);
+      for (int i = i0; i < nq; ++i) {
+        const int j = i - i0;
+        ring->acquire(j, 2 * QT::kBytes + 2 * kRowBox * 4);
+        const int st = Rg::stage(j);
+        uint64_t* bar = &ring->full[st];
+        QT::load(qs + st * QT::kBytes, &map_q, bar, i * kWgQN, bh);
+        QT::load(dos + st * QT::kBytes, &map_do, bar, i * kWgQN, bh);
+        float* r = reinterpret_cast<float*>(rv + st * SM::kRowBytes);
+        const int r0 = (bh * t + i * kWgQN) & ~3;
+        tma_row(r, &map_lse, bar, r0);
+        tma_row(r + kRowSlot, &map_delta, bar, r0);
+      }
+    }
+  } else {
+    reg_alloc<240>();
+    constexpr int kW = QT::kW, kP = QT::kPanels, kAcc = kW / 2;
+    constexpr int kS = kWgQN / 2;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, tq = lane & 3;
+    const int kr0 = k0 + wgi * 64;  // this warpgroup's first key
+    const int keys[2] = {kr0 + warp * 16 + g, kr0 + warp * 16 + g + 8};
+    const bool live = kr0 < t;
+    const float sl2 = scale * kLog2e;
+
+    float adk[kP][kAcc], adv[kP][kAcc];
+#pragma unroll
+    for (int pp = 0; pp < kP; ++pp)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) adk[pp][i] = adv[pp][i] = 0.f;
+    if (live) bar_wait(k_bar, 0);
+
+    for (int i = i0; i < nq; ++i) {
+      const int j = i - i0;
+      const int qi0 = i * kWgQN;
+      ring->wait(j);  // also for a skipped tile: see Ring
+      // Skip a tile no key of this warpgroup sees (all its rows above the
+      // diagonal), and every tile when all its keys lie past t.
+      if (live && !(causal && qi0 + kWgQN - 1 < kr0)) {
+        const int st = Rg::stage(j);
+        const uint8_t* qt = qs + st * QT::kBytes;
+        const uint8_t* dot = dos + st * QT::kBytes;
+        const float* lse_t =
+            reinterpret_cast<const float*>(rv + st * SM::kRowBytes) +
+            ((bh * t + qi0) & 3);
+        const float* dl_t = lse_t + kRowSlot;
+
+        // S^T = K Q^T (64 keys x kWgQN queries per warpgroup), f32.
+        float s[kS];
+        pin<kS>(s);
+        mma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HDP / 16; ++kk) {
+          mma_ss_n64(s, KT::kmajor(ks, wgi * 64, kk), QT::kmajor(qt, 0, kk),
+                     kk > 0);
+        }
+        mma_commit();
+        mma_wait<0>();
+        pin<kS>(s);
+
+        // P^T = exp(S^T scale - lse[query]), masked above the diagonal and
+        // past t; rounded to bf16 as the A operand of dV += P^T dO.
+        const bool edge = qi0 + kWgQN > t || (causal && kr0 + 63 > qi0);
+#pragma unroll
+        for (int b = 0; b < kS / 4; ++b) {
+          const float L[2] = {lse_t[8 * b + 2 * tq], lse_t[8 * b + 2 * tq + 1]};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i2 = 4 * b + e;
+            const int col = qi0 + frag_col(i2, tq);
+            const float ls2 = L[e & 1] * kLog2e;
+            float p = exp2_approx(fmaf(s[i2], sl2, -ls2));
+            if (edge && (col >= t || (causal && keys[frag_half(i2)] > col))) {
+              p = 0.f;
+            }
+            s[i2] = p;
+          }
+        }
+        uint32_t pa[kWgQN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kWgQN / 16; ++kk) frag_a(pa[kk], s, kk);
+
+        // dV += P^T dO and dP^T = V dO^T.
+        float dp[kS];
+        pin<kS>(dp);
+#pragma unroll
+        for (int pp = 0; pp < kP; ++pp) pin<kAcc>(adv[pp]);
+        mma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgQN / 16; ++kk) {
+#pragma unroll
+          for (int pp = 0; pp < kP; ++pp) {
+            mma_rs<kW>(adv[pp], pa[kk], QT::mnmajor(dot, kk, pp), 1);
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < HDP / 16; ++kk) {
+          mma_ss_n64(dp, KT::kmajor(vs, wgi * 64, kk), QT::kmajor(dot, 0, kk),
+                     kk > 0);
+        }
+        mma_commit();
+        mma_wait<0>();
+        pin<kS>(dp);
+#pragma unroll
+        for (int pp = 0; pp < kP; ++pp) pin<kAcc>(adv[pp]);
+
+        // dS^T = P^T (dP^T - delta[query]), rounded to bf16: dK += dS^T Q.
+#pragma unroll
+        for (int b = 0; b < kS / 4; ++b) {
+          const float D[2] = {dl_t[8 * b + 2 * tq], dl_t[8 * b + 2 * tq + 1]};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i2 = 4 * b + e;
+            s[i2] = s[i2] * (dp[i2] - D[e & 1]);
+          }
+        }
+        uint32_t da[kWgQN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kWgQN / 16; ++kk) frag_a(da[kk], s, kk);
+#pragma unroll
+        for (int pp = 0; pp < kP; ++pp) pin<kAcc>(adk[pp]);
+        mma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgQN / 16; ++kk) {
+#pragma unroll
+          for (int pp = 0; pp < kP; ++pp) {
+            mma_rs<kW>(adk[pp], da[kk], QT::mnmajor(qt, kk, pp), 1);
+          }
+        }
+        mma_commit();
+        mma_wait<0>();
+#pragma unroll
+        for (int pp = 0; pp < kP; ++pp) pin<kAcc>(adk[pp]);
+      }
+      ring->release(j);
+    }
+    const size_t slab = (size_t)bh * t * hd;
+    store_acc<kW, kP>(dk + slab, adk, keys, t, hd, scale);
+    store_acc<kW, kP>(dv + slab, adv, keys, t, hd, 1.f);
+  }
+}
+
+template <int HDP>
+cudaError_t launch_wg(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      const float* g_lse, float* delta, void* dq, void* dk,
+                      void* dv, int bh, int t, int hd, int causal,
+                      float scale, cudaStream_t stream) {
+  if ((long long)bh * t > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // Pass 1 streams 64-key K/V tiles past 128-row Q/dO tiles; pass 2
+  // streams 64-row Q/dO tiles (and their lse/delta) past 128-key K/V
+  // tiles.
+  CUtensorMap q_bm, do_bm, k_bn, v_bn, k_km, v_km, q_qn, do_qn, m_lse, m_delta;
+  cudaError_t err = tile_map<HDP, kWgBM>(&q_bm, q, hd, t, bh);
+  if (err == cudaSuccess) err = tile_map<HDP, kWgBM>(&do_bm, dout, hd, t, bh);
+  if (err == cudaSuccess) err = tile_map<HDP, kWgBN>(&k_bn, k, hd, t, bh);
+  if (err == cudaSuccess) err = tile_map<HDP, kWgBN>(&v_bn, v, hd, t, bh);
+  if (err == cudaSuccess) err = tile_map<HDP, kWgKM>(&k_km, k, hd, t, bh);
+  if (err == cudaSuccess) err = tile_map<HDP, kWgKM>(&v_km, v, hd, t, bh);
+  if (err == cudaSuccess) err = tile_map<HDP, kWgQN>(&q_qn, q, hd, t, bh);
+  if (err == cudaSuccess) err = tile_map<HDP, kWgQN>(&do_qn, dout, hd, t, bh);
+  if (err == cudaSuccess) err = map_row_f32(&m_lse, lse, (uint64_t)bh * t, kRowBox);
+  if (err == cudaSuccess) err = map_row_f32(&m_delta, delta, (uint64_t)bh * t, kRowBox);
+  if (err != cudaSuccess) return err;
+  constexpr int smem_dq = DqSmem<HDP>::kBytes;
+  constexpr int smem_dkv = DkvSmem<HDP>::kBytes;
+  err = cudaFuncSetAttribute(wg_dq_kernel<HDP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_dq);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(wg_dkv_kernel<HDP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_dkv);
+  if (err != cudaSuccess) return err;
+  wg_dq_kernel<HDP><<<dim3(bh, (t + kWgBM - 1) / kWgBM), kWgThreads, smem_dq,
+                      stream>>>(
+      q_bm, do_bm, k_bn, v_bn, static_cast<const bf16*>(o),
+      static_cast<const bf16*>(dout), lse, g_lse, delta,
+      static_cast<bf16*>(dq), t, hd, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wg_dkv_kernel<HDP><<<dim3(bh, (t + kWgKM - 1) / kWgKM), kWgThreads,
+                       smem_dkv, stream>>>(
+      k_km, v_km, q_qn, do_qn, m_lse, m_delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), t, hd, causal, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
+                          const void* o, const void* dout, const float* lse,
+                          const float* g_lse, float* delta, void* dq, void* dk,
+                          void* dv, int bh, int t, int hd, int causal,
+                          float scale, cudaStream_t s) {
+  FF_WG_WIDTH_DISPATCH((launch_wg<HDP>(FF_BWD_ARGS)));
+}
+
+template <int HDP>
+cudaError_t attrs_wg(int which, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      which == 0 ? cudaFuncGetAttributes(&a, wg_dq_kernel<HDP>)
+                 : cudaFuncGetAttributes(&a, wg_dkv_kernel<HDP>);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = which == 0 ? DqSmem<HDP>::kBytes : DkvSmem<HDP>::kBytes;
+  return err;
 }
 
 }  // namespace
@@ -377,10 +920,19 @@ extern "C" int ff_flash_bwd(const void* q, const void* k, const void* v,
   const float* g_f = static_cast<const float*>(g_lse);
   float* delta_f = static_cast<float*>(delta);
   if (dtype == ff::kFloat32)
-    return (int)dispatch<float>(q, k, v, o, dout, lse_f, g_f, delta_f, dq, dk,
-                                dv, bh, t, hd, causal, scale, s);
+    return (int)dispatch_f32(q, k, v, o, dout, lse_f, g_f, delta_f, dq, dk,
+                             dv, bh, t, hd, causal, scale, s);
   if (dtype == ff::kBFloat16)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, o, dout, lse_f, g_f, delta_f,
-                                        dq, dk, dv, bh, t, hd, causal, scale, s);
+    return (int)dispatch_bf16(q, k, v, o, dout, lse_f, g_f, delta_f, dq, dk,
+                              dv, bh, t, hd, causal, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// out[0..2] = registers per thread, local (spill) bytes per thread and the
+// dynamic shared memory of the bf16 kernel `which` (0: dq pass, 1: dk/dv
+// pass) at head dim hd's tile width.
+extern "C" int ff_flash_bwd_attrs(int which, int hd, int* out) {
+  if (which < 0 || which > 1 || hd < 8 || hd > 128)
+    return (int)cudaErrorInvalidValue;
+  FF_WG_WIDTH_DISPATCH((int)attrs_wg<HDP>(which, out));
 }

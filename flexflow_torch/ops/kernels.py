@@ -134,9 +134,13 @@ def _load(name: str) -> ctypes.CDLL:
     if name == "flash_fwd":
         lib.ff_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
         lib.ff_flash_fwd.restype = i
+        lib.ff_flash_fwd_attrs.argtypes = [i, p]
+        lib.ff_flash_fwd_attrs.restype = i
     elif name == "flash_bwd":
         lib.ff_flash_bwd.argtypes = [p] * 11 + [i, i, i, i, f, i, p]
         lib.ff_flash_bwd.restype = i
+        lib.ff_flash_bwd_attrs.argtypes = [i, i, p]
+        lib.ff_flash_bwd_attrs.restype = i
     elif name == "flash_stream":
         lib.ff_flash_stream_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
         lib.ff_flash_stream_fwd.restype = i
@@ -404,6 +408,22 @@ def _launch_bwd(what, streamed, q, k, v, o, lse, do, g_lse, causal):
 
 
 flash_attention_lse_bwd.launches = 0
+
+
+def flash_attrs(hd: int) -> Dict[str, Tuple[int, int, int]]:
+    """Registers per thread, spilled bytes per thread and dynamic shared
+    bytes of the bf16 K1f/K1b kernels (``fwd``, ``dq``, ``dkv``) at head
+    dim ``hd``'s tile width, as the loaded libraries report them (CUDA
+    only; the f32 instantiations are the FMA kernels)."""
+    out = {}
+    for name, call in (
+            ("fwd", lambda v: _load("flash_fwd").ff_flash_fwd_attrs(hd, v)),
+            ("dq", lambda v: _load("flash_bwd").ff_flash_bwd_attrs(0, hd, v)),
+            ("dkv", lambda v: _load("flash_bwd").ff_flash_bwd_attrs(1, hd, v))):
+        vals = (ctypes.c_int * 3)()
+        _raise_on(call(vals), "flash_attrs")
+        out[name] = tuple(vals)
+    return out
 
 
 # ---------------------------------------------------------------------------

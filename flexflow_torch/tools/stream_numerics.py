@@ -19,11 +19,16 @@ It prints, for the bf16 instantiations of ``csrc/flash_stream.cu``:
    ``arel`` that ``|got - want| <= 2^-7 |want| + arel * mass`` needs
    (``mass`` as ``chip_smoke._flash_bwd_mass``), and the reading of
    ``chip_smoke.TOL_ELEM["stream_bwd"]`` (above 1 fails).
-4. With ``--mutants``: copies of the source with a planted fault (bf16
-   scores in K1sb; a key tile dropped from the dq pass; a query tile
-   dropped from the dk/dv pass), built beside the real one under
-   ``flexflow_torch/_build/mutants/``, held as phase 12 holds K1sb at
-   (4, 8, 8192, 64) and (1, 8, 32768, 64).  Each must fail.
+4. With ``--mutants``: copies of a source with a planted fault, built
+   beside the real ones under ``flexflow_torch/_build/mutants/``: in
+   ``flash_stream.cu`` bf16 scores in K1sb, a key tile dropped from its
+   dq pass, a query tile dropped from its dk/dv pass, held as phase 12 of
+   ``chip_smoke.py`` holds K1s/K1sb at (4, 8, 8192, 64) and (1, 8, 32768,
+   64); in ``flash_bwd.cu`` and ``flash_fwd.cu`` the same three faults in
+   the bf16 K1b and a key tile dropped from K1f, held as phases 1 and 2
+   hold K1f/K1b (``TOL_ELEM["fwd"]`` and ``["stream_bwd"]`` against the
+   plain versions) at (16, 8, 2048, 64) and (4, 8, 8192, 64).  The
+   unmutated kernels pass and each mutant must fail.
 
 The card's name and power limit come first.
 """
@@ -164,44 +169,85 @@ def f64_hold(kernels, shape) -> None:
     del got, ref, masses, tops
 
 
-#: Planted faults: (old, new) replacements in csrc/flash_stream.cu.
+#: Planted faults: name -> (the source in csrc/ it edits, the kernel pair
+#: it is held in, (old, new) replacements).
 MUTANTS = {
     # K1sb's two passes round the score to bf16 before the exp.
-    "bf16-scores": [
+    "bf16-scores": ("flash_stream.cu", "stream", [
         ("expf(s[nt][e] * scale - ls[h])",
          "expf(__bfloat162float(__float2bfloat16(s[nt][e])) * scale - ls[h])"),
         ("expf(p[nt][e] * scale - ls[c])",
          "expf(__bfloat162float(__float2bfloat16(p[nt][e])) * scale - ls[c])"),
-    ],
+    ]),
     # The dq pass skips the first key tile of every q tile but the first.
-    "dq-drops-key-tile": [
+    "dq-drops-key-tile": ("flash_stream.cu", "stream", [
         ("    warp_pv<kBN, HD>(acc, s, kt, kLd, wbuf);\n    __syncthreads();\n"
          "  }\n  store_rows<T, HD>(dq",
          "    if (j > 0 || nk == 1) warp_pv<kBN, HD>(acc, s, kt, kLd, wbuf);\n"
          "    __syncthreads();\n  }\n  store_rows<T, HD>(dq"),
-    ],
+    ]),
     # The dk/dv pass skips the last query tile of every key tile but the
     # last.
-    "dkv-drops-q-tile": [
+    "dkv-drops-q-tile": ("flash_stream.cu", "stream", [
         ("    warp_pv<BN, HD>(adv, p, dot, kLd, wbuf);",
          "    if (i + 1 < ni || i == i0) warp_pv<BN, HD>(adv, p, dot, kLd, wbuf);"),
         ("    warp_pv<BN, HD>(adk, p, qt, kLd, wbuf);",
          "    if (i + 1 < ni || i == i0) warp_pv<BN, HD>(adk, p, qt, kLd, wbuf);"),
-    ],
+    ]),
+    # K1b's two passes round the score to bf16 before the exp.
+    "k1b-bf16-scores": ("flash_bwd.cu", "k1", [
+        ("exp2_approx(fmaf(s[i], sl2, -ls2[h]))",
+         "exp2_approx(fmaf(__bfloat162float(__float2bfloat16(s[i])), sl2, "
+         "-ls2[h]))"),
+        ("exp2_approx(fmaf(s[i2], sl2, -ls2))",
+         "exp2_approx(fmaf(__bfloat162float(__float2bfloat16(s[i2])), sl2, "
+         "-ls2))"),
+    ]),
+    # K1b's dq pass skips the first key tile of every warpgroup that has
+    # more than one.
+    "k1b-dq-drops-key-tile": ("flash_bwd.cu", "k1", [
+        ("if (j > 0) issue_dq<HDP>(acc, da, ks + Rg::stage(j - 1) * KT::kBytes);",
+         "if (j > 1) issue_dq<HDP>(acc, da, ks + Rg::stage(j - 1) * KT::kBytes);"),
+    ]),
+    # K1b's dk/dv pass skips the last query tile of every key tile but the
+    # last.
+    "k1b-dkv-drops-q-tile": ("flash_bwd.cu", "k1", [
+        ("      if (live && !(causal && qi0 + kWgQN - 1 < kr0)) {",
+         "      if (live && !(causal && qi0 + kWgQN - 1 < kr0) &&\n"
+         "          (i + 1 < nq || i == i0)) {"),
+    ]),
+    # K1f drops the P V product of the first key tile of every warpgroup
+    # that has more than one.
+    "k1f-drops-key-tile": ("flash_fwd.cu", "k1", [
+        ("        issue_pv<HDP>(acc, pa, vs + R::stage(j - 1) * KT::kBytes);",
+         "        if (j != 1)\n"
+         "          issue_pv<HDP>(acc, pa, vs + R::stage(j - 1) * KT::kBytes);"),
+    ]),
+}
+#: The libraries a pair's checks load.
+PAIR_LIBS = {"stream": ("flash_stream",), "k1": ("flash_fwd", "flash_bwd")}
+#: The shapes (bf16 causal) and references each pair's mutants are held at:
+#: K1s/K1sb as phase 12 holds them, K1f/K1b as phases 1 and 2 do at the
+#: 2k training and 8k long-context shapes.
+MUTANT_CASES = {
+    "stream": (((4, 8, 8192, 64), ("plain", "k1")), ((1, 8, 32768, 64), ("k1",))),
+    "k1": (((16, 8, 2048, 64), ("plain",)), ((4, 8, 8192, 64), ("plain",))),
 }
 
 
-def _mutant_dir(kernels, name: str) -> str:
+def _variant_dir(kernels, name: str, source: str, edits) -> str:
+    """A copy of csrc/ under ``_build/mutants/<name>`` with the (old, new)
+    ``edits`` made to ``source`` (each ``old`` must occur once)."""
     root = os.path.join(kernels._BUILD_DIR, "mutants", name)
     src = os.path.join(root, "csrc")
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(kernels._SRC_DIR, src)
-    path = os.path.join(src, "flash_stream.cu")
+    path = os.path.join(src, source)
     with open(path) as fh:
         text = fh.read()
-    for old, new in MUTANTS[name]:
+    for old, new in edits:
         if text.count(old) != 1:
-            raise RuntimeError(f"mutant {name}: {old!r} found "
+            raise RuntimeError(f"variant {name}: {old!r} found "
                                f"{text.count(old)} times")
         text = text.replace(old, new)
     with open(path, "w") as fh:
@@ -214,34 +260,43 @@ def mutants(kernels) -> None:
 
     g = torch.Generator(device="cuda").manual_seed(40)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = []
-    for shape, refs in (((4, 8, 8192, 64), ("plain", "k1")),
-                        ((1, 8, 32768, 64), ("k1",))):
-        x = [torch.randn(shape, generator=g, device="cuda").to(bf16)
-             for _ in range(4)]
-        x.append(torch.randn(shape[:3], generator=g, device="cuda", dtype=f32))
-        cases.append((shape, refs, x))
+    inputs = {}
+    for cases in MUTANT_CASES.values():
+        for shape, _ in cases:
+            if shape not in inputs:
+                x = [torch.randn(shape, generator=g, device="cuda").to(bf16)
+                     for _ in range(4)]
+                x.append(torch.randn(shape[:3], generator=g, device="cuda",
+                                     dtype=f32))
+                inputs[shape] = x
     real = (kernels._SRC_DIR, kernels._BUILD_DIR)
-    for name in [None, *MUTANTS]:
-        kernels._libs.pop("flash_stream", None)
+    runs = [(None, pair) for pair in MUTANT_CASES]
+    runs += [(name, MUTANTS[name][1]) for name in MUTANTS]
+    for name, pair in runs:
+        for lib in PAIR_LIBS[pair]:
+            kernels._libs.pop(lib, None)
         try:
             if name is not None:
-                root = _mutant_dir(kernels, name)
+                source, _, edits = MUTANTS[name]
+                root = _variant_dir(kernels, name, source, edits)
                 kernels._SRC_DIR = os.path.join(root, "csrc")
                 kernels._BUILD_DIR = os.path.join(root, "build")
-            for shape, refs, (q, k, v, do, g_lse) in cases:
+            for shape, refs in MUTANT_CASES[pair]:
+                q, k, v, do, g_lse = inputs[shape]
                 for ref in refs:
-                    parts, _ = cs._stream_parts(torch, kernels, q, k, v, do,
-                                                g_lse, True, ref)
+                    parts, _ = cs._flash_parts(torch, kernels, q, k, v, do,
+                                               g_lse, True, ref, pair)
                     worst = max(parts.values())
-                    _line("mutants", f"{name or 'unmutated'} {shape} against "
-                          f"{ref}: " + ", ".join(
+                    _line("mutants", f"{name or 'unmutated'} ({pair}) "
+                          f"{shape} against {ref}: " + ", ".join(
                               f"{k} {v:.3g}" for k, v in parts.items())
                           + f" of the element tolerance: "
                           + ("FAILS" if worst > 1.0 else "passes"))
+                    torch.cuda.empty_cache()
         finally:
             kernels._SRC_DIR, kernels._BUILD_DIR = real
-            kernels._libs.pop("flash_stream", None)
+            for lib in PAIR_LIBS[pair]:
+                kernels._libs.pop(lib, None)
     shutil.rmtree(os.path.join(real[1], "mutants"), ignore_errors=True)
 
 

@@ -144,7 +144,11 @@ def test_stream_mutants_each_match_the_source_once():
 
     with open(f"{kernels._SRC_DIR}/flash_stream.cu") as fh:
         src = fh.read()
-    for name, reps in stream_numerics.MUTANTS.items():
+    stream = {name: reps for name, (source, pair, reps)
+              in stream_numerics.MUTANTS.items() if source == "flash_stream.cu"}
+    assert len(stream) == 3
+    for name, reps in stream.items():
+        assert stream_numerics.MUTANTS[name][1] == "stream"
         for old, new in reps:
             assert src.count(old) == 1, (name, old)
             assert old != new

@@ -28,10 +28,23 @@ def _qkv(seed, shape):
     return [r.standard_normal(shape).astype(np.float32) for _ in range(3)]
 
 
+#: (t, hd) cases of the two plain-vs-Pallas flash tests: hd 16 at three
+#: lengths, then the head dims the bf16 CUDA kernels pad to a tile width
+#: of 32, 64 or 128 (8, 24, 72) and the widths themselves (64, 128).
+FLASH_T_HD = [(16, 16), (32, 16), (64, 16), (16, 8), (16, 24), (16, 64),
+              (16, 72), (16, 128)]
+FLASH_T_HD_IDS = [str(t) if hd == 16 else f"{t}-hd{hd}"
+                  for t, hd in FLASH_T_HD]
+
+
+def _hd_seed(hd):
+    return 0 if hd == 16 else 1000 + hd
+
+
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("t", [16, 32, 64])
-def test_flash_attention_plain_matches_pallas(t, causal):
-    q, k, v = _qkv(t + int(causal), (2, 2, t, 16))
+@pytest.mark.parametrize("t, hd", FLASH_T_HD, ids=FLASH_T_HD_IDS)
+def test_flash_attention_plain_matches_pallas(t, hd, causal):
+    q, k, v = _qkv(t + int(causal) + _hd_seed(hd), (2, 2, t, hd))
     o_j, lse_j = pallas_kernels.flash_attention_lse(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal)
     before = kernels.flash_attention_lse.launches
@@ -174,15 +187,15 @@ def _jax_flash_vjp(q, k, v, g_o, g_lse, causal, dtype=jnp.float32):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("t", [16, 32, 64])
-def test_flash_backward_plain_matches_pallas(t, causal):
+@pytest.mark.parametrize("t, hd", FLASH_T_HD, ids=FLASH_T_HD_IDS)
+def test_flash_backward_plain_matches_pallas(t, hd, causal):
     """K1b's plain version against ``jax.vjp`` of the Pallas kernels
     (interpret mode), with non-zero cotangents of both ``o`` and ``lse``;
     f32 within 1e-5."""
-    shape = (2, 2, t, 16)
+    shape = (2, 2, t, hd)
     assert pallas_kernels.flash_supported(shape, jnp.float32)
-    q, k, v = _qkv(200 + t + int(causal), shape)
-    g_o, g_lse = _cotangents(300 + t, shape)
+    q, k, v = _qkv(200 + t + int(causal) + _hd_seed(hd), shape)
+    g_o, g_lse = _cotangents(300 + t + _hd_seed(hd), shape)
     want = _jax_flash_vjp(q, k, v, g_o, g_lse, causal)
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     o, lse = kernels.flash_attention_lse_plain(tq, tk, tv, causal)
