@@ -59,10 +59,14 @@ Fifteen phases, in order; any failure raises and exits non-zero:
 8. **DLRM kernels.**  K4 (row gather) and K5 (row scatter-add) against
    their plain versions bit for bit, and K5 against itself across two
    launches, at the main-path shape ((8 x 10^6, 64) f32, 2048 uniform
-   ids), with zipf(1.2) ids, all ids equal, n = 0 and 1, D = 16, 65 and
-   512, and the LM's token table (32768 ids into (32768, 512)); rows the
-   ids do not name never change.  Times beside the byte bound, the plain
-   version and ``F.embedding`` / ``index_add_``.
+   ids), at the DLRM step's own ids (8 stacked tables x 256 ids in {0,
+   1}: 16 rows named 128 times each), with zipf(1.2) ids, all ids equal,
+   4096 ids of one row (the single-launch cap), 8192 ids (K5's two-launch
+   route) uniform and all equal, int32 ids with
+   negative and >= R ones, n = 0 and 1, D = 16, 65 and 512, and the LM's
+   token table (32768 ids into (32768, 512)); rows the ids do not name
+   never change.  Times beside the byte bound, the plain version and
+   ``F.embedding`` / ``index_add_``.
 9. **DLRM train.**  ``bench.py``'s DLRM leg (8 x 10^6 x 64 tables, MLPs
    64-512-512-64 and 576-1024-1024-1024-1, batch 256, bf16) through
    ``flexflow_torch.apps.dlrm.main`` for 1 warmup and 10 timed steps:
@@ -78,19 +82,22 @@ Fifteen phases, in order; any failure raises and exits non-zero:
     tolerances, and untouched rows stay bit-identical on both sides.
 11. **DLRM profile.**  One warm plain-SGD DLRM step under
     ``torch.profiler``.
-12. **Stream kernels.**  K1s and K1sb (``csrc/flash_stream.cu``) against
+12. **Stream kernels.**  K1s and K1sb (``csrc/flash_stream.cu``; the bf16
+    K1sb is K1b's wgmma pair of ``csrc/flash_bwd.cu``) against
     their plain versions (K1f's and K1b's) element by element with
     ``TOL_ELEM``, non-zero ``o`` and ``lse`` cotangents, at the shapes of
     phases 1-2, at (1, 8, 8192, 64), ragged t (1, 80, 130), causal and
     not, f32 and bf16, hd 32/64/128; at the main-path shape (4, 8, 8192,
-    64) bf16 causal against the plain versions run one batch row at a
-    time and against K1f/K1b (twice ``TOL_ELEM``), at (1, 8, 32768, 64)
-    against K1f/K1b, and the chunked form (chunk 8192) against K1f.
+    64) bf16 causal against the plain versions and against K1f/K1b
+    (twice ``TOL_ELEM``), the bf16 K1sb bit-identical to K1b there; at
+    (1, 8, 32768, 64) K1s/K1sb and K1f/K1b against the plain versions
+    (run one head at a time, as at every shape), and the chunked form
+    (chunk 8192) against K1f.
     Registers, spills and shared memory of each streamed kernel.  Device
     times, bf16 causal, at the serve (t = 64, 128), 2k, 8k and 32k
     shapes: K1f beside K1s and K1b beside K1sb timed in turns in this
     warm process, each with its share of 989 TFLOP/s, SDPA and the
-    bound (the plain versions at 8k).
+    bound (the plain versions at 8k and 32k).
 13. **Long-context train.**  ``bench.py``'s 8k and 32k legs (vocab 32768,
     d_model 512, 8 heads, 6 layers, Adam lr 1e-4, bf16) through
     ``apps.transformer.main``: 8k streamed (1 + 5 steps; K1s = K1sb = 6
@@ -1052,10 +1059,16 @@ def phase_dlrm_kernels(torch, kernels, F):
     c = DLRM
     main_rows = c["tables"] * c["vocab"]
     main_n = c["batch"] * c["tables"]
+    binned = 2 * kernels._SCATTER_CAP  # K5's two-launch route
     cases = (
         ("main", main_rows, c["dim"], main_n, "uniform"),
+        ("step", main_rows, c["dim"], main_n, "step"),
         ("zipf", main_rows, c["dim"], main_n, "zipf"),
         ("equal", main_rows, c["dim"], main_n, "equal"),
+        ("cap equal", main_rows, c["dim"], kernels._SCATTER_CAP, "equal"),
+        ("binned", main_rows, c["dim"], binned, "uniform"),
+        ("binned equal", main_rows, c["dim"], binned, "equal"),
+        ("out of range", 100_000, c["dim"], main_n, "range"),
         ("n=0", 100_000, c["dim"], 0, "uniform"),
         ("n=1", 100_000, c["dim"], 1, "uniform"),
         ("D=16", 100_000, 16, main_n, "uniform"),
@@ -1068,12 +1081,20 @@ def phase_dlrm_kernels(torch, kernels, F):
         table = torch.randn((R, D), generator=g, device="cuda")
         if kind == "uniform":
             ids = torch.randint(0, R, (n,), generator=g, device="cuda")
+        elif kind == "step":  # the DLRM step's stacked ids: {0, 1} per table
+            ids = (torch.randint(0, 2, (c["batch"], c["tables"]), generator=g,
+                                 device="cuda")
+                   + torch.arange(c["tables"], device="cuda") * c["vocab"]
+                   ).reshape(-1)
         elif kind == "zipf":  # data/trace.py's skew
             z = np.minimum(np.random.default_rng(5).zipf(1.2, n), R) - 1
             ids = torch.as_tensor(z, device="cuda")
+        elif kind == "range":  # negative and >= R among valid ones
+            ids = torch.randint(-R // 8, R + R // 8, (n,), generator=g,
+                                device="cuda")
         else:
             ids = torch.full((n,), R // 2, device="cuda", dtype=torch.int64)
-        if name == "wte":
+        if name in ("wte", "out of range"):
             ids = ids.to(torch.int32)  # the LM's token ids
         upd = torch.randn((n, D), generator=g, device="cuda")
         rows = kernels.gather_rows(table, ids)
@@ -1083,8 +1104,9 @@ def phase_dlrm_kernels(torch, kernels, F):
         kernels.scatter_add_rows(t2, ids, upd)
         kernels.scatter_add_rows_plain(t3, ids, upd)
         torch.cuda.synchronize()
+        valid = ids[(ids >= 0) & (ids < R)].long()
         hit = torch.zeros((R,), dtype=torch.bool, device="cuda")
-        hit[ids.long()] = True
+        hit[valid] = True
         stray = bool(((t1 != table).any(1) & ~hit).any())
         _check(torch.equal(rows.view(torch.int32), want.view(torch.int32))
                and torch.equal(t1, t3) and torch.equal(t1, t2) and not stray,
@@ -1092,16 +1114,18 @@ def phase_dlrm_kernels(torch, kernels, F):
                f"{torch.equal(rows, want)}, scatter exact {torch.equal(t1, t3)}, "
                f"repeat exact {torch.equal(t1, t2)}, rows outside the ids "
                f"changed {stray}")
-        err_g = (rows - want).abs().max().item() if n else 0.0
+        err_g = (rows - want).nan_to_num().abs().max().item() if n else 0.0
         err_s = (t1 - t3).abs().max().item() if n else 0.0
         del t2, t3
-        uniq = int(torch.unique(ids).numel())
+        uniq = int(torch.unique(valid).numel())
         line = (f"[dlrm-kernels] {name}: table ({R}, {D}) f32, {n} "
-                f"{str(ids.dtype)[6:]} ids ({kind}, {uniq} distinct): gather "
-                f"and scatter bit-exact against the plain versions, scatter "
-                f"bit-identical across two launches")
+                f"{str(ids.dtype)[6:]} ids ({kind}, {valid.numel()} in range, "
+                f"{uniq} distinct; K5 in {kernels.scatter_plan(n)[0]} "
+                f"launches): gather and scatter bit-exact against the plain "
+                f"versions, scatter bit-identical across two launches")
         if n == 0:
             _check(torch.equal(t1, table), "scatter with n = 0 changed the table")
+        if n == 0 or kind == "range":  # the library calls refuse such ids
             print(line)
             continue
         isz = ids.element_size()
@@ -1115,17 +1139,19 @@ def phase_dlrm_kernels(torch, kernels, F):
         lib_s = _device_ms(lambda: t1.index_add_(0, ids, upd))
         bound_s, by_s = _bound_ms(n * isz + n * D * 4 + 2 * uniq * D * 4,
                                   n * D, "float32")
-        print(f"{line}; gather {ms_g:.5f} ms (plain {plain_g:.5f}, "
-              f"F.embedding {lib_g:.5f}, bound {bound_g:.6f} by {by_g}); "
-              f"scatter {ms_s:.5f} ms (plain {plain_s:.5f}, index_add_ "
-              f"{lib_s:.5f}, bound {bound_s:.6f} by {by_s})")
+        print(f"{line}; gather {ms_g:.6f} ms (plain {plain_g:.6f}, "
+              f"F.embedding {lib_g:.6f}, bound {bound_g:.6f} by {by_g}); "
+              f"scatter {ms_s:.6f} ms (plain {plain_s:.6f}, index_add_ "
+              f"{lib_s:.6f}, bound {bound_s:.6f} by {by_s})")
+        row_s = dict(max_abs_err=err_s, ms=ms_s, plain_ms=plain_s,
+                     bound_ms=bound_s, bound_by=by_s, library_ms=lib_s)
         if name == "main":
             out["gather_rows"] = dict(max_abs_err=err_g, ms=ms_g, plain_ms=plain_g,
                                       bound_ms=bound_g, bound_by=by_g,
                                       library_ms=lib_g)
-            out["scatter_add_rows"] = dict(
-                max_abs_err=err_s, ms=ms_s, plain_ms=plain_s, bound_ms=bound_s,
-                bound_by=by_s, library_ms=lib_s)
+            out["scatter_add_rows"] = row_s
+        elif name in ("step", "wte"):
+            out["scatter_add_rows"][f"{name}_shape"] = row_s
         del table, t1, rows, want, upd, hit
     return out
 
@@ -1332,15 +1358,24 @@ LONGCTX_8K = dict(TRAIN, batch=4, seq=8192, iters=5)
 LONGCTX_32K = dict(TRAIN, batch=1, seq=32768, iters=2)
 
 
-def _per_row(fn, *xs):
-    """``fn`` over the leading batch dim one row at a time, outputs
-    concatenated: the plain versions at long t, whose f32 t x t
-    temporaries for the whole batch would not fit the card."""
+def _per_row(fn, *xs, heads: bool = False):
+    """``fn`` over the leading batch dim one row at a time (``heads``:
+    one head of one row at a time), outputs concatenated: the plain
+    versions at long t, whose f32 t x t temporaries for the whole batch
+    would not fit the card (at 32k one is 4.3 GB per head)."""
     import torch
 
-    outs = [fn(*(x[i:i + 1] if x is not None else None for x in xs))
-            for i in range(xs[0].shape[0])]
-    return tuple(torch.cat(parts) for parts in zip(*outs))
+    def part(x, i, j):
+        if x is None:
+            return None
+        return x[i:i + 1] if j is None else x[i:i + 1, j:j + 1]
+
+    cols = range(xs[0].shape[1]) if heads else (None,)
+    rows = []
+    for i in range(xs[0].shape[0]):
+        outs = [fn(*(part(x, i, j) for x in xs)) for j in cols]
+        rows.append(tuple(torch.cat(parts, 1) for parts in zip(*outs)))
+    return tuple(torch.cat(parts) for parts in zip(*rows))
 
 
 def _flash_parts(torch, kernels, q, k, v, do, g_lse, causal, ref: str,
@@ -1348,7 +1383,7 @@ def _flash_parts(torch, kernels, q, k, v, do, g_lse, causal, ref: str,
     """The forward's ``o``/``lse`` and the backward's gradients of a kernel
     pair, ``stream`` (K1s/K1sb, through ``flash_attention_lse_streamed``)
     or ``k1`` (K1f/K1b), against ``ref``: ``plain`` (the plain versions,
-    one batch row at a time, within ``TOL_ELEM``'s ``fwd`` and
+    one head at a time, within ``TOL_ELEM``'s ``fwd`` and
     ``stream_bwd``) or, for ``stream``, ``k1`` (K1f and K1b, within twice
     those: each side is held within them of the same plain version).  The
     backward takes the reference forward's ``o`` and ``lse``.  Returns
@@ -1364,9 +1399,10 @@ def _flash_parts(torch, kernels, q, k, v, do, g_lse, causal, ref: str,
     if ref == "plain":
         fwd = lambda a, b, c: _per_row(
             lambda x, y, z: kernels.flash_attention_lse_plain(x, y, z, causal),
-            a, b, c)
+            a, b, c, heads=True)
         bwd = lambda *a: _per_row(
-            lambda *x: kernels.flash_attention_lse_bwd_plain(*x, causal), *a)
+            lambda *x: kernels.flash_attention_lse_bwd_plain(*x, causal), *a,
+            heads=True)
         factor = 1.0
     else:
         fwd = lambda a, b, c: kernels.flash_attention_lse(a, b, c, causal)
@@ -1464,19 +1500,39 @@ def phase_stream_kernels(torch, kernels, F):
     # by element against the plain versions
     r_k1_plain, err_k1 = _hold_stream(torch, kernels, q, k, v, do, g_lse,
                                       True, "plain", pair="k1")
+    # The bf16 K1sb launches K1b's wgmma pair (kernels.bwd_entry): the
+    # same bits, and each wrapper counts its own launch.
+    with torch.no_grad():
+        o, lse = kernels.flash_attention_lse(q, k, v, True)
+    before = (kernels.flash_attention_lse_bwd.launches,
+              kernels.flash_attention_lse_streamed_bwd.launches)
+    same = all(torch.equal(a, b) for a, b in zip(
+        kernels.flash_attention_lse_streamed_bwd(q, k, v, o, lse, do, g_lse,
+                                                 True),
+        kernels.flash_attention_lse_bwd(q, k, v, o, lse, do, g_lse, True)))
     torch.cuda.synchronize()
+    _check(same and (kernels.flash_attention_lse_bwd.launches - before[0],
+                     kernels.flash_attention_lse_streamed_bwd.launches
+                     - before[1]) == (1, 1),
+           f"{main}: the bf16 K1sb and K1b differ ({same}) or miscount")
+    del o, lse
     print(f"[stream-kernels] {main}: K1s/K1sb worst element {r_plain:.3g} "
           f"(plain), {r_k1:.3g} (K1f/K1b) of its tolerance; K1f/K1b worst "
           f"element {r_k1_plain:.3g} (plain), max abs err fwd "
-          f"{err_k1['fwd']:.3g}, bwd {err_k1['bwd']:.3g}")
+          f"{err_k1['fwd']:.3g}, bwd {err_k1['bwd']:.3g}; the bf16 K1sb "
+          f"bit-identical to K1b")
     del q, k, v, do, g_lse
 
-    # -- 32k: against K1f/K1b (no plain: its t x t temporaries do not
-    # fit), and the chunked form against K1f --
+    # -- 32k: K1s/K1sb and K1f/K1b against the plain versions, one head
+    # at a time, and the chunked form against K1f --
     big = (1, 8, 32768, 64)
     q, k, v, do = (randn(big, bf16) for _ in range(4))
     g_lse = randn(big[:3], f32)
-    r_big, _ = _hold_stream(torch, kernels, q, k, v, do, g_lse, True, "k1")
+    r_big, err_big = _hold_stream(torch, kernels, q, k, v, do, g_lse, True,
+                                  "plain")
+    r_big_k1, err_big_k1 = _hold_stream(torch, kernels, q, k, v, do, g_lse,
+                                        True, "plain", pair="k1")
+    torch.cuda.empty_cache()
     with torch.no_grad():
         o, lse = kernels.flash_attention_lse(q, k, v, True)
         co, clse = kernels.flash_attention_lse_chunked(q, k, v, True,
@@ -1491,16 +1547,21 @@ def phase_stream_kernels(torch, kernels, F):
     _check(r_big <= 1.0 and r_chunk <= 1.0 and e_clse <= TOL_LSE,
            f"32k: streamed {r_big}, chunked {r_chunk} of the element "
            f"tolerance, chunked lse err {e_clse}")
-    print(f"[stream-kernels] {big} bf16 causal: K1s/K1sb worst element "
-          f"{r_big:.3g} of twice TOL_ELEM against K1f/K1b; chunked (chunk "
-          f"8192) {r_chunk:.3g} of its tolerance, lse err {e_clse:.3g}")
+    print(f"[stream-kernels] {big} bf16 causal against the plain versions "
+          f"one head at a time: K1s/K1sb worst element {r_big:.3g} of its "
+          f"tolerance (max abs err fwd {err_big['fwd']:.3g}, bwd "
+          f"{err_big['bwd']:.3g}), K1f/K1b {r_big_k1:.3g} (fwd "
+          f"{err_big_k1['fwd']:.3g}, bwd {err_big_k1['bwd']:.3g}); chunked "
+          f"(chunk 8192) {r_chunk:.3g} of its tolerance against K1f, lse err "
+          f"{e_clse:.3g}")
     del q, k, v, do, g_lse, o, lse, co, clse, mass
     torch.cuda.empty_cache()
 
     # -- device times, bf16 causal: K1f beside K1s and K1b beside K1sb in
     # turns (_pair_ms), at the serve, 2k, 8k and 32k shapes, with SDPA and
-    # the bound (the plain versions at 8k, one batch row at a time; at 2k
-    # and the serve shape phases 1 and 2 time them; at 32k they do not fit)
+    # the bound (the plain versions at 8k one batch row at a time, at 32k
+    # one head at a time; at 2k and the serve shape phases 1 and 2 time
+    # them)
     for shape in ((1, 8, 64, 64), (1, 8, 128, 64), (16, 8, 2048, 64), main,
                   big):
         b, h, t, hd = shape
@@ -1527,14 +1588,15 @@ def phase_stream_kernels(torch, kernels, F):
             out, (qs, ks, vs), do, retain_graph=True), reps)
         del qs, ks, vs, out
         t_pf = t_pb = None
-        if shape == main:
+        if shape in (main, big):
+            heads, preps = shape == big, 3 if shape == big else 20
             with torch.no_grad():
                 t_pf = _device_ms(lambda: _per_row(
                     lambda *x: kernels.flash_attention_lse_plain(*x, True),
-                    q, k, v))
+                    q, k, v, heads=heads), preps)
             t_pb = _device_ms(lambda: _per_row(
                 lambda *x: kernels.flash_attention_lse_bwd_plain(*x, True),
-                q, k, v, o, lse, do, g_lse))
+                q, k, v, o, lse, do, g_lse, heads=heads), preps)
         pairs = t * (t + 1) // 2
         f_flops, b_flops = 4 * b * h * hd * pairs, 10 * b * h * hd * pairs
         fb, fby = _bound_ms(4 * b * h * t * hd * 2 + b * h * t * 4, f_flops,
@@ -1553,7 +1615,7 @@ def phase_stream_kernels(torch, kernels, F):
               f"({pct(b_flops, t_sb):.1f}%), sdpa backward {t_lb:.4f} "
               f"({pct(b_flops, t_lb):.1f}%), bound {bb:.5f} by {bby}"
               + ("" if t_pf is None else f"; plain {t_pf:.4f} / {t_pb:.4f} "
-                 f"(one batch row at a time)"))
+                 f"(one {'head' if heads else 'batch row'} at a time)"))
         rows[f"stream@{shape}"] = dict(K1f=t_f, K1s=t_s, K1b=t_b, K1sb=t_sb)
         fwd = dict(ms=t_f, plain_ms=t_pf, bound_ms=fb, bound_by=fby,
                    library_ms=t_lf)
@@ -1570,8 +1632,14 @@ def phase_stream_kernels(torch, kernels, F):
                 bwd, max_abs_err=err_k1["bwd"])
         elif shape == big:
             rows["stream@32k"] = dict(fwd_ms=t_s, bwd_ms=t_sb)
-            rows["flash_attention_lse@32k"] = fwd
-            rows["flash_attention_lse_bwd@32k"] = bwd
+            rows["flash_attention_lse@32k"] = dict(
+                fwd, max_abs_err=err_big_k1["fwd"])
+            rows["flash_attention_lse_bwd@32k"] = dict(
+                bwd, max_abs_err=err_big_k1["bwd"])
+            rows["flash_attention_lse_streamed@32k"] = dict(
+                fwd, ms=t_s, max_abs_err=err_big["fwd"])
+            rows["flash_attention_lse_streamed_bwd@32k"] = dict(
+                bwd, ms=t_sb, max_abs_err=err_big["bwd"])
         del q, k, v, do, g_lse, o, lse
         torch.cuda.empty_cache()
     return rows
@@ -1686,9 +1754,10 @@ def _probe_hold(torch, kernels, probe, q, k, v, do, g_lse, causal, block,
     if ref == "plain":
         fwd = lambda a, b, c: _per_row(
             lambda x, y, z: kernels.flash_attention_lse_plain(x, y, z, causal),
-            a, b, c)
+            a, b, c, heads=True)
         bwd = lambda *a: _per_row(
-            lambda *x: kernels.flash_attention_lse_bwd_plain(*x, causal), *a)
+            lambda *x: kernels.flash_attention_lse_bwd_plain(*x, causal), *a,
+            heads=True)
         factor = 1.0
     else:
         fwd = lambda a, b, c: kernels.flash_attention_lse(a, b, c, causal)
@@ -1960,7 +2029,7 @@ def main() -> int:
         "gather_rows": (src + "embedding_rows.cu", pk + ":1379"),
         "scatter_add_rows": (src + "embedding_rows.cu", pk + ":1412"),
         "flash_attention_lse_streamed": (src + "flash_stream.cu", pk + ":361"),
-        "flash_attention_lse_streamed_bwd": (src + "flash_stream.cu",
+        "flash_attention_lse_streamed_bwd": (src + "flash_bwd.cu",
                                              pk + ":664"),
         "flash_fwd_row_state": (src + "flash_probe.cu",
                                 "tools/probe_flash_variants.py:46"),
@@ -1990,6 +2059,12 @@ def main() -> int:
         if name == "flash_attention_lse_bwd":
             entry["longctx_shape"] = rows["flash_attention_lse_bwd@8k"]
             entry["longctx_32k_shape"] = rows["flash_attention_lse_bwd@32k"]
+        if name == "flash_attention_lse_streamed":
+            entry["longctx_32k_shape"] = rows["flash_attention_lse_streamed@32k"]
+        if name == "flash_attention_lse_streamed_bwd":
+            entry["f32_source"] = src + "flash_stream.cu"
+            entry["longctx_32k_shape"] = rows[
+                "flash_attention_lse_streamed_bwd@32k"]
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     smi = subprocess.run(

@@ -18,31 +18,66 @@
 // scatter drops their updates.  The plain versions in
 // flexflow_torch/ops/kernels.py do the same.
 //
-// Design.  A group of G threads (G a power of two, <= 32, chosen by the
+// Rows.  A group of G threads (G a power of two, <= 32, chosen by the
 // wrapper so that G 16-byte vectors cover a row where they can) owns one
 // row: 16-byte loads and stores when D % 4 == 0 and the pointers allow it,
 // 4-byte ones otherwise.
 //
-// The scatter has no float atomics.  The wrapper sorts the ids stably
-// (torch.sort(stable=True): batch order is kept within a row) and passes
-// the sorted ids with the permutation.  The group at the first sorted
-// position of each run of equal ids is that row's only writer: it sums the
-// run's update rows in f32 in sorted order, starting from 0, and adds the
-// sum to the table row once.  Rows have one writer each, so there is no
-// race, and the order of every sum is fixed: two launches on the same
-// inputs give bit-identical tables.
+// The scatter's arithmetic: each distinct row's updates are summed in f32
+// from +0.0 in batch order, and the sum is added to the row once.  Rows
+// have one writer each and every sum has a fixed order, so there is no
+// atomic and two launches on the same inputs give the same bits.
 //
-// Bound.  Bytes: the gather reads the distinct addressed rows and the ids
-// and writes n rows; the scatter reads the ids and n update rows and reads
-// and writes each distinct row once.  Both are far from any compute limit.
-// A long run of one id is summed by one group, so a heavily skewed batch
-// is latency-bound on that group's loop.
+// What bounds the scatter.  Its bytes are tiny (at the DLRM step, 2048 ids
+// and 2048 x 64 f32 updates: 4.7e-4 ms at 3.35 TB/s), so it is bound by
+// latency: the launches, the dependent loads, and for a row named k times
+// a chain of k adds that must run in batch order.  The TPU form groups
+// equal ids with a global sort (_collapse_runs); a library sort here is
+// several launches and allocations, most of the time of the old port.  But
+// the function needs no order between distinct rows, only that the
+// updates of one row meet in one writer in batch order.  So the scatter
+// bins instead of sorting, with no library call:
+//
+//   * CTA b of the G CTAs owns the rows whose hash (a fixed 64-bit integer
+//     mix, so the stacked tables' offsets spread) scales to b.  Each
+//     CTA streams the whole id vector in batch order with coalesced loads
+//     and compacts the positions of its own ids, in batch order, with a
+//     warp ballot and a popc prefix.
+//   * It enters each of its ids in an open-addressed hash table (2 slots
+//     per id) as it finds them, in rounds of reads, writes and checks
+//     between barriers, with no atomics (a compare-and-swap per id
+//     serialises on the slot of a row that repeats).
+//     One warp then walks the entries in batch order 32 at a time
+//     (__match_any_sync over slots): it numbers the distinct rows in order
+//     of first appearance and counts them, scans the counts, and on a
+//     second walk places each position in its row's segment, in batch
+//     order.
+//   * A group of G lanes per distinct row sums the segment's update rows
+//     and writes the row once.  A row named
+//     kLong times or more is summed by the whole CTA instead, through a
+//     staging tile in shared memory, so that its segment streams with the
+//     CTA's loads in flight and not one group's.
+//
+// Route, chosen on the host from n alone (the ids are never read back,
+// which would cost a device-to-host sync; kernels.scatter_plan): while one
+// CTA's shared memory holds the grouping arrays of all n ids
+// (kBytesPerEntry each; the wrapper's cap is 4096 ids), even a flood of
+// one row fits, and one launch does everything.  Above the cap the arrays
+// live in a scratch the wrapper allocates (ff_scatter_scratch_bytes): a
+// first launch counts each CTA's ids, and the same kernel, its CTA's
+// region placed by those counts, bins into the scratch.  Every CTA reads all n ids (from
+// L2), so this route costs G x n id reads; it serves batches above the
+// DLRM step's.  A row named k times is still a chain of k dependent adds:
+// a heavily skewed batch is bound by that chain.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 template <typename Id, bool kVec>
 __global__ void __launch_bounds__(kThreads)
@@ -70,50 +105,396 @@ gather_rows_kernel(const float* __restrict__ table, const Id* __restrict__ ids,
   }
 }
 
-template <typename Id, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-scatter_add_rows_kernel(float* __restrict__ table, const Id* __restrict__ sid,
-                        const long long* __restrict__ perm,
-                        const float* __restrict__ upd, long long R, int D,
-                        int n, int log_g) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long i = t >> log_g;
-  const int lane = (int)(t & ((1 << log_g) - 1));
-  if (i >= n) return;
-  const int G = 1 << log_g;
-  const Id row = sid[i];
-  if (i > 0 && sid[i - 1] == row) return;  // not the first of its run
-  if ((long long)row < 0 || (long long)row >= R) return;
-  long long end = i + 1;
-  while (end < n && sid[end] == row) ++end;
-  float* dst = table + (size_t)row * D;
+// ---------------------------------------------------------------------------
+// K5: binned scatter-add
+// ---------------------------------------------------------------------------
+
+typedef unsigned long long u64;
+
+// Ids a thread reads per chunk of the compaction (a warp's span of the
+// chunk is 32 x kPer consecutive ids): the DLRM step's 2048 are one chunk.
+constexpr int kPer = 8;
+// Staged update rows a thread reads ahead while it sums a long segment.
+constexpr int kStageBatch = 16;
+// A row named at least kLong times is summed by the whole CTA through a
+// staging tile in shared memory: one group has too few loads in flight to
+// stream a long segment (16 lanes x 16 rows of 16 bytes is 4 KiB in
+// flight, where the CTA's 256 threads keep 32 KiB).  Each thread stages up
+// to kStageLoads vectors per tile; the binned route stages through
+// kStageBytes of shared memory, the single-launch route through its hash
+// table, dead by then.
+constexpr int kLong = 64;
+constexpr int kStageLoads = 8;
+constexpr int kStageBytes = kStageLoads * kThreads * 16;
+// Bytes of grouping arrays per id (see Groups), and the dynamic shared
+// memory a CTA may take beside the compaction's few static words: the
+// single-launch route takes n ids while n x kBytesPerEntry fits it (4468).
+constexpr int kBytesPerEntry = 52;
+constexpr int kMaxDynamicShared = 232448 - 64;
+constexpr u64 kEmpty = ~0ull;
+
+// splitmix64's finaliser: spreads consecutive rows (the tables' offsets
+// plus small ids) over owners and hash slots.
+__device__ __forceinline__ u64 mix(u64 x) {
+  x ^= x >> 30;
+  x *= 0xbf58476d1ce4e5b9ull;
+  x ^= x >> 27;
+  x *= 0x94d049bb133111ebull;
+  return x ^ (x >> 31);
+}
+
+// Owner CTA and hash slot: the hash's low and high halves scaled to the
+// range by a multiply (no division).
+__device__ __forceinline__ int owner(u64 row, int ctas) {
+  return (int)(((mix(row) & 0xffffffffull) * (u64)ctas) >> 32);
+}
+
+__device__ __forceinline__ int home_slot(u64 row, int slots) {
+  return (int)(((mix(row) >> 32) * (u64)slots) >> 32);
+}
+
+// One CTA's grouping arrays: m entries (ids it owns), nd distinct rows.
+// Carved from memory laid out for `cap` entries (shared memory, or the
+// scratch), the CTA's region starting at entry e0.
+struct Groups {
+  u64* keys;    // [P] hash slots: kEmpty or a row (P = 2 cap, or 2 m)
+  u64* row;     // [nd] the row of distinct d
+  int* pos;     // [m] batch positions of the CTA's ids, in batch order
+  int* slot;    // [m] the hash slot of each entry
+  int* dist;    // [P] the distinct index of a slot (-1: none yet)
+  int* cnt;     // [nd] updates of distinct d
+  int* off;     // [nd] start, after placement end, of d's segment
+  int* sorted;  // [m] positions grouped by row, batch order within each
+};
+
+__device__ __forceinline__ Groups carve(unsigned char* base, long long cap,
+                                        long long e0) {
+  u64* w = reinterpret_cast<u64*>(base);
+  int* i = reinterpret_cast<int*>(w + 3 * cap);
+  Groups g;
+  g.keys = w + 2 * e0;
+  g.row = w + 2 * cap + e0;
+  g.pos = i + e0;
+  g.slot = i + cap + e0;
+  g.dist = i + 2 * cap + 2 * e0;
+  g.cnt = i + 4 * cap + e0;
+  g.off = i + 5 * cap + e0;
+  g.sorted = i + 6 * cap + e0;
+  return g;
+}
+
+__device__ __forceinline__ void add_to(float& acc, float u) { acc += u; }
+
+__device__ __forceinline__ void add_to(float4& acc, const float4& u) {
+  acc.x += u.x;
+  acc.y += u.y;
+  acc.z += u.z;
+  acc.w += u.w;
+}
+
+// Sums updates sorted[begin, end) of one row in batch order from +0.0 and
+// adds the sum to the row once; the group's lanes split the columns.
+template <bool kVec>
+__device__ __forceinline__ void add_segment(float* __restrict__ dst,
+                                            const float* __restrict__ upd,
+                                            const int* sorted, int begin,
+                                            int end, int D, int lane,
+                                            int width) {
   if (kVec) {
     float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int c = lane; c < D / 4; c += G) {
+    const float4* u4 = reinterpret_cast<const float4*>(upd);
+    const int D4 = D / 4;
+    for (int c = lane; c < D4; c += width) {
+      float4 v = d4[c];  // in flight while the updates are summed
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-      for (long long j = i; j < end; ++j) {
-        const float4 u =
-            __ldg(reinterpret_cast<const float4*>(upd + (size_t)perm[j] * D) + c);
-        acc.x += u.x;
-        acc.y += u.y;
-        acc.z += u.z;
-        acc.w += u.w;
-      }
-      float4 v = d4[c];
-      v.x += acc.x;
-      v.y += acc.y;
-      v.z += acc.z;
-      v.w += acc.w;
+      for (int j = begin; j < end; ++j)
+        add_to(acc, __ldg(u4 + (size_t)sorted[j] * D4 + c));
+      add_to(v, acc);
       d4[c] = v;
     }
   } else {
-    for (int c = lane; c < D; c += G) {
+    for (int c = lane; c < D; c += width) {
+      const float v = dst[c];
       float acc = 0.f;
-#pragma unroll 4
-      for (long long j = i; j < end; ++j) acc += __ldg(upd + (size_t)perm[j] * D + c);
-      dst[c] += acc;
+      for (int j = begin; j < end; ++j) acc += __ldg(upd + (size_t)sorted[j] * D + c);
+      dst[c] = v + acc;
     }
+  }
+}
+
+// The whole CTA sums segment sorted[begin, end) of one row, tile by tile
+// through `stage` (tile_rows update rows of `cols` vectors), thread t < cols
+// owning column t: the same adds, in the same order, as add_segment.
+template <typename V>
+__device__ __forceinline__ void add_segment_staged(
+    V* __restrict__ dst, const V* __restrict__ upd, const int* sorted,
+    int begin, int end, int cols, int tile_rows, V* stage) {
+  const int t = threadIdx.x;
+  V v{}, acc{};
+  if (t < cols) v = dst[t];
+  for (int t0 = begin; t0 < end; t0 += tile_rows) {
+    const int elems = min(tile_rows, end - t0) * cols;
+    V buf[kStageLoads];
+#pragma unroll
+    for (int k = 0; k < kStageLoads; ++k) {
+      const int i = min(t + k * kThreads, elems - 1);
+      const int r = i / cols;
+      buf[k] = __ldg(upd + (size_t)sorted[t0 + r] * cols + (i - r * cols));
+    }
+#pragma unroll
+    for (int k = 0; k < kStageLoads; ++k)
+      if (t + k * kThreads < elems) stage[t + k * kThreads] = buf[k];
+    __syncthreads();
+    if (t < cols) {
+      for (int i = t; i < elems; i += kStageBatch * cols) {
+        V u[kStageBatch];
+#pragma unroll
+        for (int k = 0; k < kStageBatch; ++k)
+          u[k] = stage[min(i + k * cols, elems - cols + t)];
+#pragma unroll
+        for (int k = 0; k < kStageBatch; ++k)
+          if (i + k * cols < elems) add_to(acc, u[k]);
+      }
+    }
+    __syncthreads();  // the stage is refilled next
+  }
+  if (t < cols) {
+    add_to(v, acc);
+    dst[t] = v;
+  }
+}
+
+// Grid: `ctas` CTAs, CTA b owning the rows with owner(row) == b.  With
+// kShared its arrays are in dynamic shared memory laid out for n entries
+// (the compiler then issues shared loads and stores, not generic
+// ones); otherwise in `scratch`, laid out for n entries, its region after
+// the ids that CTAs 0..b-1 own (counts[c], from count_owned_kernel).
+template <typename Id, bool kVec, bool kShared>
+__global__ void __launch_bounds__(kThreads)
+scatter_add_rows_kernel(float* __restrict__ table, const Id* __restrict__ ids,
+                        const float* __restrict__ upd, long long R, int D,
+                        int n, int log_g, const int* __restrict__ counts,
+                        unsigned char* scratch) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int wsum[kWarps];
+  __shared__ int nd_s, nl_s;
+  const int ctas = gridDim.x, b = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1;
+  Groups g;
+  if constexpr (kShared) {
+    g = carve(smem, n, 0);
+  } else {
+    long long e0 = 0;
+    for (int c = 0; c < b; ++c) e0 += counts[c];
+    g = carve(scratch, n, e0);
+  }
+
+  // 1. The positions of this CTA's ids in batch order, each id's row
+  // entered in the hash table (2 slots per id it can own) as it is found.
+  const int P = 2 * (kShared ? n : counts[b]);
+  if (P == 0) return;
+  for (int s = threadIdx.x; s < P; s += kThreads) {
+    g.keys[s] = kEmpty;
+    g.dist[s] = -1;
+  }
+  __syncthreads();
+  int m = 0;
+  for (int base = 0; base < n; base += kThreads * kPer) {
+    const int w0 = base + warp * 32 * kPer;
+    u64 rows[kPer];
+    unsigned own[kPer];
+    int mine = 0;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = w0 + j * 32 + lane;
+      rows[j] = i < n ? (u64)(long long)__ldg(ids + i) : kEmpty;
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const bool ok = (long long)rows[j] >= 0 && (long long)rows[j] < R &&
+                      owner(rows[j], ctas) == b;
+      own[j] = __ballot_sync(0xffffffffu, ok);
+      mine += __popc(own[j]);
+    }
+    if (lane == 0) wsum[warp] = mine;
+    __syncthreads();
+    int at = m, all = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      at += w < warp ? wsum[w] : 0;
+      all += wsum[w];
+    }
+    const int at0 = at;
+    int slot[kPer];
+    bool open = false;  // an id of this thread has no slot yet
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      slot[j] = -1;
+      if ((own[j] >> lane) & 1u) {
+        g.pos[at + __popc(own[j] & lt)] = w0 + j * 32 + lane;
+        slot[j] = home_slot(rows[j], P);
+        open = true;
+      }
+      at += __popc(own[j]);
+    }
+    // Rounds of linear probing without atomics.  Between barriers an id
+    // reads the table, walking past slots of other rows to its row's slot
+    // (done) or to the first empty one; every id of one row reaches the
+    // same one.  Then it writes its row there; after a barrier one row
+    // survives in the slot and owns it for good, and the ids of the rows
+    // that lost walk on in the next round.
+    while (__syncthreads_or(open)) {
+      bool write[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        write[j] = false;
+        if (slot[j] < 0) continue;
+        int s = slot[j];
+        while (g.keys[s] != kEmpty && g.keys[s] != rows[j]) s = s + 1 == P ? 0 : s + 1;
+        write[j] = g.keys[s] == kEmpty;
+        slot[j] = s;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        if (write[j]) g.keys[slot[j]] = rows[j];
+      __syncthreads();
+      open = false;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        open |= write[j] && g.keys[slot[j]] != rows[j];
+    }
+    at = at0;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if ((own[j] >> lane) & 1u) g.slot[at + __popc(own[j] & lt)] = slot[j];
+      at += __popc(own[j]);
+    }
+    m += all;
+  }
+  if (m == 0) return;
+
+  // 2. One warp, in batch order: number and count the distinct rows, scan
+  // the counts, place each position in its row's segment.
+  if (warp == 0) {
+    int nd = 0;
+    for (int e0 = 0; e0 < m; e0 += 32) {
+      const int e = e0 + lane;
+      const bool live = e < m;
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      int s = 0, d = 0;
+      unsigned peers = 0;
+      if (live) {
+        s = g.slot[e];
+        peers = __match_any_sync(mask, s);
+        d = g.dist[s];
+      }
+      const bool lead = live && (peers & lt) == 0;  // the earliest of its row
+      const unsigned fresh = __ballot_sync(0xffffffffu, lead && d < 0);
+      if (lead && d < 0) {
+        d = nd + __popc(fresh & lt);
+        g.dist[s] = d;
+        g.row[d] = g.keys[s];
+        g.cnt[d] = 0;
+      }
+      if (lead) g.cnt[d] += __popc(peers);
+      nd += __popc(fresh);
+      __syncwarp();
+    }
+    int run = 0;
+    for (int d0 = 0; d0 < nd; d0 += 32) {
+      const int d = d0 + lane;
+      const int c = d < nd ? g.cnt[d] : 0;
+      int x = c;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+      }
+      if (d < nd) g.off[d] = run + x - c;
+      run += __shfl_sync(0xffffffffu, x, 31);
+    }
+    __syncwarp();
+    for (int e0 = 0; e0 < m; e0 += 32) {
+      const int e = e0 + lane;
+      const bool live = e < m;
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      int d = 0;
+      unsigned peers = 0;
+      if (live) {
+        d = g.dist[g.slot[e]];
+        peers = __match_any_sync(mask, d);
+        g.sorted[g.off[d] + __popc(peers & lt)] = g.pos[e];
+      }
+      __syncwarp();
+      if (live && (peers & lt) == 0) g.off[d] += __popc(peers);
+      __syncwarp();
+    }
+    // The rows named kLong times or more, listed in pos (dead by now).
+    int nl = 0;
+    for (int d0 = 0; d0 < nd; d0 += 32) {
+      const int d = d0 + lane;
+      const bool named = d < nd && g.cnt[d] >= kLong;
+      const unsigned longs = __ballot_sync(0xffffffffu, named);
+      if (named) g.pos[nl + __popc(longs & lt)] = d;
+      nl += __popc(longs);
+    }
+    if (lane == 0) {
+      nd_s = nd;
+      nl_s = nl;
+    }
+  }
+  __syncthreads();
+
+  // 3. One group of 2^log_g lanes per distinct row; the whole CTA per
+  // long one, where a staging tile holds an update row and a thread owns a
+  // column.
+  typedef typename std::conditional<kVec, float4, float>::type V;
+  const int nd = nd_s;
+  const int width = 1 << log_g;
+  const int cols = kVec ? D / 4 : D;
+  V* stage = reinterpret_cast<V*>(kShared ? reinterpret_cast<unsigned char*>(g.keys)
+                                          : smem);
+  const int stage_bytes = kShared ? 16 * n : kStageBytes;
+  const int tile_rows =
+      min(kStageLoads * kThreads, stage_bytes / (int)sizeof(V)) / cols;
+  const bool staging = cols <= kThreads && tile_rows > 0;
+  for (int d = threadIdx.x >> log_g; d < nd; d += kThreads >> log_g) {
+    if (staging && g.cnt[d] >= kLong) continue;
+    const int end = g.off[d];
+    add_segment<kVec>(table + (size_t)g.row[d] * D, upd, g.sorted,
+                      end - g.cnt[d], end, D, threadIdx.x & (width - 1),
+                      width);
+  }
+  if (!staging) return;
+  for (int k = 0; k < nl_s; ++k) {
+    const int d = g.pos[k];
+    const int end = g.off[d];
+    add_segment_staged<V>(reinterpret_cast<V*>(table + (size_t)g.row[d] * D),
+                          reinterpret_cast<const V*>(upd), g.sorted,
+                          end - g.cnt[d], end, cols, tile_rows, stage);
+  }
+}
+
+// counts[b] = the number of ids CTA b of the scatter owns.
+template <typename Id>
+__global__ void __launch_bounds__(kThreads)
+count_owned_kernel(const Id* __restrict__ ids, long long R, int n,
+                   int* __restrict__ counts) {
+  __shared__ int wsum[kWarps];
+  int c = 0;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const long long r = (long long)__ldg(ids + i);
+    c += r >= 0 && r < R && owner((u64)r, gridDim.x) == (int)blockIdx.x;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int all = 0;
+    for (int w = 0; w < kWarps; ++w) all += wsum[w];
+    counts[blockIdx.x] = all;
   }
 }
 
@@ -137,21 +518,49 @@ cudaError_t launch_gather(const void* table, const void* ids, void* out,
   return cudaGetLastError();
 }
 
-template <typename Id>
-cudaError_t launch_scatter(void* table, const void* sid, const void* perm,
-                           const void* upd, long long R, int D, int n,
-                           int log_g, int vec, cudaStream_t stream) {
-  float* tb = static_cast<float*>(table);
-  const Id* s = static_cast<const Id*>(sid);
-  const long long* p = static_cast<const long long*>(perm);
-  const float* u = static_cast<const float*>(upd);
-  if (vec)
-    scatter_add_rows_kernel<Id, true>
-        <<<blocks_for(n, log_g), kThreads, 0, stream>>>(tb, s, p, u, R, D, n, log_g);
-  else
-    scatter_add_rows_kernel<Id, false>
-        <<<blocks_for(n, log_g), kThreads, 0, stream>>>(tb, s, p, u, R, D, n, log_g);
+template <typename Id, bool kVec>
+cudaError_t launch_scatter(float* table, const Id* ids, const float* upd,
+                           long long R, int D, int n, int log_g, int ctas,
+                           unsigned char* scratch, long long scratch_bytes,
+                           cudaStream_t stream) {
+  if (scratch == nullptr) {
+    auto* kernel = scatter_add_rows_kernel<Id, kVec, true>;
+    if ((long long)kBytesPerEntry * n > kMaxDynamicShared)
+      return cudaErrorInvalidValue;
+    const int smem = kBytesPerEntry * n;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<ctas, kThreads, smem, stream>>>(table, ids, upd, R, D, n, log_g,
+                                             nullptr, nullptr);
+    return cudaGetLastError();
+  }
+  const long long arrays = (long long)kBytesPerEntry * n;
+  if (scratch_bytes < arrays + 4LL * ctas) return cudaErrorInvalidValue;
+  int* counts = reinterpret_cast<int*>(scratch + arrays);
+  count_owned_kernel<Id><<<ctas, kThreads, 0, stream>>>(ids, R, n, counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  scatter_add_rows_kernel<Id, kVec, false>
+      <<<ctas, kThreads, kStageBytes, stream>>>(table, ids, upd, R, D, n,
+                                                log_g, counts, scratch);
   return cudaGetLastError();
+}
+
+template <typename Id>
+cudaError_t dispatch_scatter(void* table, const void* ids, const void* upd,
+                             long long R, int D, int n, int log_g, int vec,
+                             int ctas, void* scratch, long long scratch_bytes,
+                             cudaStream_t s) {
+  float* tb = static_cast<float*>(table);
+  const Id* id = static_cast<const Id*>(ids);
+  const float* u = static_cast<const float*>(upd);
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  if (vec)
+    return launch_scatter<Id, true>(tb, id, u, R, D, n, log_g, ctas, sc,
+                                    scratch_bytes, s);
+  return launch_scatter<Id, false>(tb, id, u, R, D, n, log_g, ctas, sc,
+                                   scratch_bytes, s);
 }
 
 bool bad_args(long long R, int D, int n, int log_g) {
@@ -174,20 +583,32 @@ extern "C" int ff_gather_rows(const void* table, const void* ids, void* out,
   return (int)launch_gather<int>(table, ids, out, R, D, n, log_g, vec, s);
 }
 
-// table: (R, D) f32, updated in place; sorted_ids: (n,) int32 or int64,
-// sorted ascending with equal ids in batch order; perm: (n,) int64, the
-// batch position of each sorted id; upd: (n, D) f32 in batch order.  All
-// contiguous on the device; vec = 1 only when D % 4 == 0 and table and upd
-// are 16-byte aligned.  Returns the launch's cudaError_t (0 = launched).
-extern "C" int ff_scatter_add_rows(void* table, const void* sorted_ids,
-                                   const void* perm, const void* upd,
-                                   long long R, int D, int n, int log_g,
-                                   int id64, int vec, void* stream) {
-  if (bad_args(R, D, n, log_g)) return (int)cudaErrorInvalidValue;
+// table: (R, D) f32, updated in place; ids: (n,) int32 or int64 in batch
+// order; upd: (n, D) f32.  All contiguous on the device; vec = 1 only when
+// D % 4 == 0 and table and upd are 16-byte aligned.  ctas: the grid (the
+// owners of the rows), in [1, 1024].  scratch null: one launch, binning
+// in shared memory (n x kBytesPerEntry must fit it); else a counting
+// launch and the binning launch over scratch, which holds
+// ff_scatter_scratch_bytes(n, ctas) bytes, 8-byte aligned.  Returns the
+// first launch's error (0 = launched).
+extern "C" int ff_scatter_add_rows(void* table, const void* ids,
+                                   const void* upd, long long R, int D, int n,
+                                   int log_g, int id64, int vec, int ctas,
+                                   void* scratch, long long scratch_bytes,
+                                   void* stream) {
+  if (bad_args(R, D, n, log_g) || n > (1 << 30) || ctas < 1 || ctas > 1024)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (id64)
-    return (int)launch_scatter<long long>(table, sorted_ids, perm, upd, R, D, n,
-                                          log_g, vec, s);
-  return (int)launch_scatter<int>(table, sorted_ids, perm, upd, R, D, n, log_g,
-                                  vec, s);
+    return (int)dispatch_scatter<long long>(table, ids, upd, R, D, n, log_g,
+                                            vec, ctas, scratch, scratch_bytes,
+                                            s);
+  return (int)dispatch_scatter<int>(table, ids, upd, R, D, n, log_g, vec, ctas,
+                                    scratch, scratch_bytes, s);
+}
+
+// Bytes of the scratch ff_scatter_add_rows's two-launch route takes for n
+// ids over ctas CTAs: the grouping arrays, then one count per CTA.
+extern "C" long long ff_scatter_scratch_bytes(long long n, int ctas) {
+  return (long long)kBytesPerEntry * n + 4LL * ctas;
 }

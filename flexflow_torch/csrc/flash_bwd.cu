@@ -2,8 +2,12 @@
 //
 // Replaces the TPU kernels flexflow_tpu/ops/pallas_kernels.py::_dq_kernel and
 // ::_dkv_kernel (launched by _bwd_call, the VJP of flash_attention_lse), and
-// the delta preprocess _cotangent_delta_lanes.  Given q, k, v, the forward's
-// o and lse, the output cotangent do and the optional lse cotangent g_lse:
+// the delta preprocess _cotangent_delta_lanes; in bf16 also
+// ::_dq_stream_kernel and ::_dkv_stream_kernel (launched by
+// _bwd_stream_call, the streamed backward K1sb), whose sequential third
+// grid axis is the tile loop inside each CTA of the wgmma pair below.
+// Given q, k, v, the forward's o and lse, the output cotangent do and the
+// optional lse cotangent g_lse:
 //
 //   delta = rowsum(o * do) - g_lse                      (f32)
 //   p     = exp(s * scale - lse),  s = q k^T            (recomputed, f32)

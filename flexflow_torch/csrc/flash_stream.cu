@@ -1,5 +1,5 @@
-// Streamed flash attention, forward (K1s) and backward (K1sb), for Hopper
-// (sm_90a).
+// Streamed flash attention, forward (K1s) and the f32 backward (K1sb), for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernels flexflow_tpu/ops/pallas_kernels.py::
 // _fwd_stream_kernel (launched by _fwd_stream_call) and _dq_stream_kernel /
@@ -12,6 +12,16 @@
 // rounded to the operand type before its products, dq/dk scaled after the
 // sum, every sum in f32 and written once in the input type.
 //
+// The bf16 K1sb is not here: it is flash_bwd.cu's wgmma pair (wg_dq_kernel,
+// wg_dkv_kernel), which the wrapper launches for a bf16 streamed backward.
+// The TPU form's sequential third grid axis, which streams K/V (dq pass) or
+// Q/dO/lse/delta (dk/dv pass) through VMEM, is exactly the loop inside each
+// of that pair's CTAs over tiles TMA feeds through an mbarrier ring.  No
+// key-range split: splitting a row's keys across CTAs needs a combine pass
+// or float atomics, and at 32k b h = 8 already gives each pass ~15 waves
+// on 132 SMs.  The f32 backward stays here, on the FMA pipes: wgmma takes
+// f32 only as TF32.
+//
 // What sets the streamed form apart, and its Hopper counterpart:
 //   * The TPU grid's sequential k axis (q axis for dk/dv) is a loop inside
 //     the CTA, and the streamed tiles go through a two-stage cp.async ring
@@ -20,18 +30,17 @@
 //     Pallas double-buffers its pipelined BlockSpecs.  Rows past t are
 //     zero-filled by the copy's source size, and masked.
 //   * The products run in the input type with f32 accumulation.  The bf16
-//     instantiation issues them to the tensor cores as mma.sync.m16n8k16
+//     forward issues them to the tensor cores as mma.sync.m16n8k16
 //     (bf16 x bf16 -> f32, inline PTX).  mma.sync has a documented fragment
 //     layout (PTX ISA, "Matrix Fragments for mma.m16n8k16"), so each thread
 //     knows which rows and columns of the score tile it holds: the running
 //     (m, l) and the rescale corr = exp(m - m_new) stay in registers, and
 //     the score accumulator becomes the A operand of the next product
-//     (P.V, dS.K, ...) in registers, rounded to bf16 pair by pair.  Q/K/dO
-//     fragments are read from shared memory with 32-bit loads; the
-//     transposed operands (V in P.V, K in dS.K, dO and Q in the dk/dv pass)
-//     with ldmatrix.x4.trans.  Rows are padded by 16 bytes, so both access
+//     (P.V) in registers, rounded to bf16 pair by pair.  Q/K fragments are
+//     read from shared memory with 32-bit loads; the transposed operand (V
+//     in P.V) with ldmatrix.x4.trans.  Rows are padded by 16 bytes, so both access
 //     patterns are free of bank conflicts.
-//   * The f32 instantiation runs the same products on the FMA pipes in f32,
+//   * The f32 kernels run the same products on the FMA pipes in f32,
 //     with the same fragment layout (the P operand goes through a
 //     warp-private shared tile).  TF32 tensor cores would round the operands
 //     to 10 mantissa bits and loosen the f32 checks the f32 parity step of
@@ -46,12 +55,12 @@
 // it, and the dk/dv pass, launched after it on the same stream, reads it.
 // No atomics: two launches on the same inputs give the same bits.
 //
-// Bound.  At long t both kernels are bound by the tensor-core operations
-// (4 b h hd t^2/2 FLOPs forward, 10 b h hd t^2/2 backward when causal).
-// This design reaches the tensor cores through mma.sync, which on Hopper
-// issues at a fraction of the wgmma rate, and it re-reads its fragments
-// from shared memory for every product; wgmma with TMA and warp
-// specialisation is the later redesign.
+// Bound.  At long t the kernels are bound by the operations (4 b h hd t^2/2
+// FLOPs forward, 10 b h hd t^2/2 backward when causal).  The bf16 forward
+// reaches the tensor cores through mma.sync, which on Hopper issues at a
+// fraction of the wgmma rate, and it re-reads its fragments from shared
+// memory for every product; K1f's wgmma body through the streamed entry is
+// its later redesign, as flash_bwd.cu's is for the bf16 backward.
 #include "mma_tile.cuh"
 
 namespace {
@@ -170,13 +179,15 @@ stream_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // K1sb, pass 1: delta and dq
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-stream_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ o,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
+stream_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ o,
+                 const float* __restrict__ dout,
+                 const float* __restrict__ lse,
                  const float* __restrict__ g_lse, float* __restrict__ delta,
-                 T* __restrict__ dq, int t, int causal, float scale) {
+                 float* __restrict__ dq, int t, int causal, float scale) {
+  using T = float;
   constexpr int kBN = 64;
   constexpr int kLd = pitch<T>(HD);
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -277,13 +288,14 @@ stream_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // K1sb, pass 2: dk and dv
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD, int BN>
+template <int HD, int BN>
 __global__ void __launch_bounds__(kThreads)
-stream_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
+stream_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dk,
-                  T* __restrict__ dv, int t, int causal, float scale) {
+                  const float* __restrict__ delta, float* __restrict__ dk,
+                  float* __restrict__ dv, int t, int causal, float scale) {
+  using T = float;
   constexpr int kLd = pitch<T>(HD);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);  // kBM x kLd
@@ -373,7 +385,7 @@ stream_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <int HD>
 __host__ __device__ constexpr int dkv_bn() { return HD >= 128 ? 32 : 64; }
 
 template <typename T, int HD>
@@ -382,17 +394,17 @@ size_t fwd_smem() {
          sizeof(float) * pbuf_floats<T>(64);
 }
 
-template <typename T, int HD>
+template <int HD>
 size_t dq_smem() {
-  return sizeof(T) * (size_t)(2 * kBM + 4 * 64) * pitch<T>(HD) +
-         sizeof(float) * (2 * kBM + pbuf_floats<T>(64));
+  return sizeof(float) * ((size_t)(2 * kBM + 4 * 64) * pitch<float>(HD) +
+                          2 * kBM + pbuf_floats<float>(64));
 }
 
-template <typename T, int HD>
+template <int HD>
 size_t dkv_smem() {
-  constexpr int bn = dkv_bn<T, HD>();
-  return sizeof(T) * (size_t)(2 * kBM + 4 * bn) * pitch<T>(HD) +
-         sizeof(float) * (4 * bn + pbuf_floats<T>(bn));
+  constexpr int bn = dkv_bn<HD>();
+  return sizeof(float) * ((size_t)(2 * kBM + 4 * bn) * pitch<float>(HD) +
+                          4 * bn + pbuf_floats<float>(bn));
 }
 
 // Above 48 KB dynamic shared memory needs an opt-in per kernel.
@@ -416,27 +428,28 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        const float* g_lse, float* delta, void* dq, void* dk,
                        void* dv, int bh, int t, int causal, float scale,
                        cudaStream_t stream) {
-  constexpr int bn = dkv_bn<T, HD>();
-  const size_t smem_dq = dq_smem<T, HD>(), smem_dkv = dkv_smem<T, HD>();
-  cudaError_t err = allow_smem(stream_dq_kernel<T, HD>, smem_dq);
+  using T = float;
+  constexpr int bn = dkv_bn<HD>();
+  const size_t smem_dq = dq_smem<HD>(), smem_dkv = dkv_smem<HD>();
+  cudaError_t err = allow_smem(stream_dq_kernel<HD>, smem_dq);
   if (err != cudaSuccess) return err;
-  err = allow_smem(stream_dkv_kernel<T, HD, bn>, smem_dkv);
+  err = allow_smem(stream_dkv_kernel<HD, bn>, smem_dkv);
   if (err != cudaSuccess) return err;
   const dim3 grid((t + kBM - 1) / kBM, bh);
-  stream_dq_kernel<T, HD><<<grid, kThreads, smem_dq, stream>>>(
+  stream_dq_kernel<HD><<<grid, kThreads, smem_dq, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(o),
       static_cast<const T*>(dout), lse, g_lse, delta, static_cast<T*>(dq), t,
       causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  stream_dkv_kernel<T, HD, bn><<<grid, kThreads, smem_dkv, stream>>>(
+  stream_dkv_kernel<HD, bn><<<grid, kThreads, smem_dkv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), t, causal, scale);
@@ -448,8 +461,8 @@ bool shape_ok(int bh, int t, int hd) {
          (hd == 32 || hd == 64 || hd == 128);
 }
 
-// Register, spill and shared-memory use of one kernel (which: 0 forward,
-// 1 dq pass, 2 dk/dv pass).
+// Register, spill and shared-memory use of one kernel (which: 0 forward
+// of type T, 1 the f32 dq pass, 2 the f32 dk/dv pass).
 template <typename T, int HD>
 cudaError_t attrs(int which, int* out) {
   cudaFuncAttributes a;
@@ -459,11 +472,11 @@ cudaError_t attrs(int which, int* out) {
     err = cudaFuncGetAttributes(&a, stream_fwd_kernel<T, HD>);
     dyn = fwd_smem<T, HD>();
   } else if (which == 1) {
-    err = cudaFuncGetAttributes(&a, stream_dq_kernel<T, HD>);
-    dyn = dq_smem<T, HD>();
+    err = cudaFuncGetAttributes(&a, stream_dq_kernel<HD>);
+    dyn = dq_smem<HD>();
   } else {
-    err = cudaFuncGetAttributes(&a, stream_dkv_kernel<T, HD, dkv_bn<T, HD>()>);
-    dyn = dkv_smem<T, HD>();
+    err = cudaFuncGetAttributes(&a, stream_dkv_kernel<HD, dkv_bn<HD>()>);
+    dyn = dkv_smem<HD>();
   }
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -473,18 +486,19 @@ cudaError_t attrs(int which, int* out) {
 
 }  // namespace
 
+#define FF_STREAM_HD(CALL)                                              \
+  if (hd == 32) { constexpr int HD = 32; return (int)CALL; }            \
+  if (hd == 64) { constexpr int HD = 64; return (int)CALL; }            \
+  if (hd == 128) { constexpr int HD = 128; return (int)CALL; }
+
 #define FF_STREAM_DISPATCH(CALL)                                        \
   do {                                                                  \
     if (dtype == ff::kFloat32) {                                        \
       using T = float;                                                  \
-      if (hd == 32) { constexpr int HD = 32; return (int)CALL; }        \
-      if (hd == 64) { constexpr int HD = 64; return (int)CALL; }        \
-      if (hd == 128) { constexpr int HD = 128; return (int)CALL; }      \
+      FF_STREAM_HD(CALL)                                                \
     } else if (dtype == ff::kBFloat16) {                                \
       using T = __nv_bfloat16;                                          \
-      if (hd == 32) { constexpr int HD = 32; return (int)CALL; }        \
-      if (hd == 64) { constexpr int HD = 64; return (int)CALL; }        \
-      if (hd == 128) { constexpr int HD = 128; return (int)CALL; }      \
+      FF_STREAM_HD(CALL)                                                \
     }                                                                   \
     return (int)cudaErrorInvalidValue;                                  \
   } while (0)
@@ -502,10 +516,12 @@ extern "C" int ff_flash_stream_fwd(const void* q, const void* k,
   FF_STREAM_DISPATCH((launch_fwd<T, HD>(q, k, v, o, lse_f, bh, t, causal, scale, s)));
 }
 
-// The forward's operands plus o and dout (bh, t, hd); lse, delta: (bh, t)
-// f32; g_lse: (bh, t) f32 or null (no lse cotangent).  delta is scratch
-// that the first pass writes and the second reads.  Launches both passes
-// on the stream; returns the first cudaError_t (0 = both launched).
+// The forward's operands plus o and dout (bh, t, hd), all f32 (dtype must
+// be ff::kFloat32: the bf16 K1sb is flash_bwd.cu's ff_flash_bwd); lse,
+// delta: (bh, t) f32; g_lse: (bh, t) f32 or null (no lse cotangent).
+// delta is scratch that the first pass writes and the second reads.
+// Launches both passes on the stream; returns the first cudaError_t (0 =
+// both launched).
 extern "C" int ff_flash_stream_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
@@ -518,14 +534,17 @@ extern "C" int ff_flash_stream_bwd(const void* q, const void* k,
   const float* lse_f = static_cast<const float*>(lse);
   const float* g_f = static_cast<const float*>(g_lse);
   float* delta_f = static_cast<float*>(delta);
-  FF_STREAM_DISPATCH((launch_bwd<T, HD>(q, k, v, o, dout, lse_f, g_f, delta_f,
-                                        dq, dk, dv, bh, t, causal, scale, s)));
+  if (dtype != ff::kFloat32) return (int)cudaErrorInvalidValue;
+  FF_STREAM_HD((launch_bwd<HD>(q, k, v, o, dout, lse_f, g_f, delta_f, dq, dk,
+                               dv, bh, t, causal, scale, s)));
+  return (int)cudaErrorInvalidValue;
 }
 
 // out[0..2] = registers per thread, local (spill) bytes per thread and the
-// dynamic shared memory of kernel `which` (0 forward, 1 dq, 2 dk/dv) at
-// head dim hd and dtype.
+// dynamic shared memory of kernel `which` (0 forward, 1 dq, 2 dk/dv; the
+// passes are f32 only) at head dim hd and dtype.
 extern "C" int ff_flash_stream_attrs(int which, int hd, int dtype, int* out) {
-  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
+  if (which < 0 || which > 2 || (which > 0 && dtype != ff::kFloat32))
+    return (int)cudaErrorInvalidValue;
   FF_STREAM_DISPATCH((attrs<T, HD>(which, out)));
 }

@@ -36,7 +36,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -160,8 +160,11 @@ def _load(name: str) -> ctypes.CDLL:
         ll = ctypes.c_longlong
         lib.ff_gather_rows.argtypes = [p, p, p, ll, i, i, i, i, i, p]
         lib.ff_gather_rows.restype = i
-        lib.ff_scatter_add_rows.argtypes = [p, p, p, p, ll, i, i, i, i, i, p]
+        lib.ff_scatter_add_rows.argtypes = [p, p, p, ll, i, i, i, i, i, i, p,
+                                            ll, p]
         lib.ff_scatter_add_rows.restype = i
+        lib.ff_scatter_scratch_bytes.argtypes = [ll, i]
+        lib.ff_scatter_scratch_bytes.restype = ll
     elif name == "flash_probe":
         lib.ff_flash_probe_fwd.argtypes = [i] + [p] * 4 + [i, i, i, i, f, i,
                                                               i, p]
@@ -370,15 +373,27 @@ def flash_attention_lse_bwd(q, k, v, o, lse, do, g_lse=None,
     return dq, dk, dv
 
 
+def bwd_entry(streamed: bool, dtype) -> Tuple[str, str]:
+    """The library and C entry a flash backward launches: K1b's
+    (``csrc/flash_bwd.cu``: the wgmma pair in bf16, the FMA kernels in
+    f32) for K1b, and for K1sb in bf16, where the streamed form's
+    sequential grid axis is exactly the loop inside each of the pair's
+    CTAs; ``csrc/flash_stream.cu``'s FMA passes for K1sb in f32 (wgmma
+    takes f32 only as TF32).  The two entries share one C signature."""
+    if streamed and dtype != torch.bfloat16:
+        return "flash_stream", "ff_flash_stream_bwd"
+    return "flash_bwd", "ff_flash_bwd"
+
+
 def _launch_bwd(what, streamed, q, k, v, o, lse, do, g_lse, causal):
     """Checks the backward's CUDA operands and launches the two-pass
-    backward, K1b's or (``streamed``) K1sb's: the two share one C
-    signature.  Returns ``(dq, dk, dv)``."""
+    backward, K1b's or (``streamed``) K1sb's, through :func:`bwd_entry`.
+    Returns ``(dq, dk, dv)``."""
     _flash_shapes(what, q, k, v)
     do = do.to(q.dtype)
     code = _check_cuda(what, q, k, v, o, do, head_dim=not streamed)
     if streamed:
-        _stream_check(what, q)
+        _stream_check(what, q, backward=True)
     b, h, t, hd = q.shape
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"{what}: o {tuple(o.shape)} and do "
@@ -394,8 +409,8 @@ def _launch_bwd(what, streamed, q, k, v, o, lse, do, g_lse, causal):
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    launch = (_load("flash_stream").ff_flash_stream_bwd if streamed
-              else _load("flash_bwd").ff_flash_bwd)
+    lib, entry = bwd_entry(streamed, q.dtype)
+    launch = getattr(_load(lib), entry)
     err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(),
@@ -440,7 +455,8 @@ def flash_stream_supported(shape, dtype=torch.float32) -> bool:
     ``t >= 1`` (ragged tiles are masked), ``b * h <= 65535`` (one grid
     row per head).  Hopper's gate in place of the TPU's
     ``_stream_blocks`` / ``_stream_default_block``, which fit blocks to
-    VMEM."""
+    VMEM.  The bf16 K1sb is K1b's wgmma pair (:func:`bwd_entry`), which
+    also refuses what :func:`_k1b_limit` names."""
     if len(shape) != 4:
         return False
     b, h, t, hd = shape
@@ -448,11 +464,19 @@ def flash_stream_supported(shape, dtype=torch.float32) -> bool:
             and 1 <= b * h <= 65535)
 
 
-def _stream_check(what, q):
+def _stream_check(what, q, backward: bool = False):
+    """Raises unless the streamed kernels take ``q``'s shape and dtype:
+    their gate, and for the bf16 backward K1b's launch limits."""
     if not flash_stream_supported(tuple(q.shape), q.dtype):
         raise ValueError(f"{what}: shape {tuple(q.shape)} {q.dtype} is "
                          f"outside the streamed kernels' gate (head dim in "
                          f"{_STREAM_HEAD_DIMS}, b * h <= 65535)")
+    if backward and bwd_entry(True, q.dtype)[0] == "flash_bwd":
+        limit = _k1b_limit(tuple(q.shape), q.dtype)
+        if limit is not None:
+            raise ValueError(f"{what}: shape {tuple(q.shape)} {q.dtype} is "
+                             f"outside K1b's wgmma pair, which the bf16 "
+                             f"streamed backward launches: {limit}")
 
 
 def _stream_fwd(q, k, v, causal: bool):
@@ -502,9 +526,12 @@ def flash_attention_lse_streamed_bwd(q, k, v, o, lse, do, g_lse=None,
     from the cotangents ``do`` and ``g_lse`` (None is zero).  The port of
     ``pallas_kernels._bwd_stream_call`` (kernels ``_dq_stream_kernel`` and
     ``_dkv_stream_kernel``, with the delta of ``_cotangent_delta_lanes``
-    computed in the dq pass); source ``csrc/flash_stream.cu``, no atomics.
-    Its plain version is :func:`flash_attention_lse_bwd_plain`, K1b's:
-    the function and the cast points are the same."""
+    computed in the dq pass), no atomics.  In bf16 it launches K1b's wgmma
+    pair of ``csrc/flash_bwd.cu``, whose per-CTA loop over TMA-fed tiles is
+    the TPU grid's sequential axis; in f32 the FMA passes of
+    ``csrc/flash_stream.cu`` (:func:`bwd_entry`).  Its plain version is
+    :func:`flash_attention_lse_bwd_plain`, K1b's: the function and the
+    cast points are the same."""
     if q.device.type == "cpu":
         return flash_attention_lse_bwd_plain(q, k, v, o, lse, do, g_lse,
                                              causal)
@@ -520,13 +547,17 @@ flash_attention_lse_streamed_bwd.launches = 0
 def flash_stream_attrs(hd: int, dtype) -> Dict[str, Tuple[int, int, int]]:
     """Registers per thread, spilled bytes per thread and dynamic shared
     bytes of the three streamed kernels (``fwd``, ``dq``, ``dkv``) at head
-    dim ``hd``, as the loaded library reports them (CUDA only)."""
-    lib = _load("flash_stream")
+    dim ``hd``, as the loaded libraries report them (CUDA only); the bf16
+    ``dq`` and ``dkv`` are K1b's wgmma pair (:func:`flash_attrs`)."""
     out = {}
     for which, name in enumerate(("fwd", "dq", "dkv")):
         vals = (ctypes.c_int * 3)()
-        _raise_on(lib.ff_flash_stream_attrs(which, hd, _KERNEL_DTYPES[dtype],
-                                            vals), "flash_stream_attrs")
+        if which and dtype == torch.bfloat16:
+            err = _load("flash_bwd").ff_flash_bwd_attrs(which - 1, hd, vals)
+        else:
+            err = _load("flash_stream").ff_flash_stream_attrs(
+                which, hd, _KERNEL_DTYPES[dtype], vals)
+        _raise_on(err, "flash_stream_attrs")
         out[name] = tuple(vals)
     return out
 
@@ -827,16 +858,34 @@ def gather_rows(table, ids):
 gather_rows.launches = 0
 
 
+#: K5's single-launch cap: up to this many ids, one CTA's shared memory
+#: holds the grouping arrays of every id (the kernel refuses more).
+_SCATTER_CAP = 4096
+#: K5's grid: the CTAs that own the rows (one per SM of an H100), at most
+#: one per 16 ids.
+_SCATTER_MAX_CTAS = 132
+
+
+def scatter_plan(n: int) -> Tuple[int, int]:
+    """K5's launch plan for ``n`` ids, from ``n`` alone (reading the ids
+    back would cost a device-to-host sync): ``(launches, ctas)``.  Up to
+    the cap one launch bins in shared memory; above it a counting launch
+    and the binning launch use a scratch whose size the kernel's library
+    gives (``ff_scatter_scratch_bytes``: the layout is the kernel's)."""
+    ctas = max(1, min(_SCATTER_MAX_CTAS, -(-n // 16)))
+    return (1 if n <= _SCATTER_CAP else 2), ctas
+
+
 def scatter_add_rows(table, ids, upd):
     """``table[ids] += upd`` IN PLACE, touching only the addressed rows,
     with no float atomics: duplicate ids are summed in f32 in batch order
     and added to their row once, so two calls on the same inputs give
     bit-identical tables; updates of ids outside ``[0, R)`` are dropped
     and ``n = 0`` is a no-op.  Returns ``table``.  The port of
-    ``pallas_kernels.scatter_add_rows`` (kernel ``_scatter_add_kernel``,
-    with ``_collapse_runs``' glue as a stable ``torch.sort``); source
-    ``csrc/embedding_rows.cu``.  Any ``D``; f32 tables and updates, int32
-    or int64 ids."""
+    ``pallas_kernels.scatter_add_rows`` (kernel ``_scatter_add_kernel``;
+    ``_collapse_runs``' sort becomes the kernel's own binning, see
+    :func:`scatter_plan`); source ``csrc/embedding_rows.cu``.  Any ``D``;
+    f32 tables and updates, int32 or int64 ids."""
     _row_check("scatter_add_rows", table, ids, upd)
     if table.device.type == "cpu":
         return scatter_add_rows_plain(table, ids, upd)
@@ -848,12 +897,19 @@ def scatter_add_rows(table, ids, upd):
     n = ids.shape[0]
     if n == 0:
         return table
-    sid, perm = torch.sort(ids.contiguous(), stable=True)
+    ids = ids.contiguous()
+    launches, ctas = scatter_plan(n)
+    lib = _load("embedding_rows")
+    scratch, nbytes = None, 0
+    if launches == 2:
+        nbytes = lib.ff_scatter_scratch_bytes(n, ctas)
+        scratch = torch.empty((nbytes,), dtype=torch.uint8,
+                              device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    err = _load("embedding_rows").ff_scatter_add_rows(
-        table.data_ptr(), sid.data_ptr(), perm.data_ptr(), upd.data_ptr(),
-        table.shape[0], table.shape[1], n, log_g,
-        int(ids.dtype == torch.int64), int(vec), stream,
+    err = lib.ff_scatter_add_rows(
+        table.data_ptr(), ids.data_ptr(), upd.data_ptr(), table.shape[0],
+        table.shape[1], n, log_g, int(ids.dtype == torch.int64), int(vec),
+        ctas, None if scratch is None else scratch.data_ptr(), nbytes, stream,
     )
     _raise_on(err, "scatter_add_rows")
     scatter_add_rows.launches += 1
@@ -892,7 +948,20 @@ def flash_supported(shape, dtype=torch.float32) -> bool:
         return False
     _, _, t, hd = shape
     return (dtype in _KERNEL_DTYPES and t >= 1 and hd % 8 == 0
-            and 8 <= hd <= 128 and -(-t // 64) <= 65535)
+            and 8 <= hd <= 128 and _k1b_limit(shape, dtype) is None)
+
+
+def _k1b_limit(shape, dtype) -> Optional[str]:
+    """The launch limit of K1f/K1b that ``(b, h, t, hd)`` attention of
+    ``dtype`` breaks, or None: at most 65535 64-row tiles per head (the
+    grid's second axis) and, for the bf16 wgmma pair's TMA row maps,
+    ``b h t < 2^31`` rows."""
+    b, h, t, _ = shape
+    if -(-t // 64) > 65535:
+        return f"t = {t} is more than 65535 64-row tiles"
+    if dtype == torch.bfloat16 and b * h * t > 0x7fffffff:
+        return f"b h t = {b * h * t} rows is 2^31 or more"
+    return None
 
 
 #: Sequences at least this long that no kernel takes stream through the

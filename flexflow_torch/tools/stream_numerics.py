@@ -4,31 +4,36 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 -m flexflow_torch.tools.stream_numerics [--mutants]
 
-It prints, for the bf16 instantiations of ``csrc/flash_stream.cu``:
+It prints, for the bf16 kernels (K1s of ``csrc/flash_stream.cu``; K1b of
+``csrc/flash_bwd.cu``, which is also the bf16 K1sb):
 
 1. ``scores``: the error of the tensor-core score against the f64 dot,
    read from K1s's lse at t = 1 (where lse is the scaled score itself),
-   beside K1f's FMA score, in units of 2^-24 of ``scale sum |q_i k_i|``.
-2. ``flips``: the share of p values that K1sb, K1b and the plain version
-   round to bf16 otherwise than p rounded from f64 scores.  Each is read
-   from the backward's dv with ``do`` the identity at t = hd, where
-   ``dv^T`` is exactly the rounded p.
-3. ``f64``: dq, dk and dv of K1sb, K1b and the plain version against an
-   f64 backward with the same cast points, and K1sb and K1b against the
-   plain version (phase 12 of ``chip_smoke.py``).  For each: the least
-   ``arel`` that ``|got - want| <= 2^-7 |want| + arel * mass`` needs
-   (``mass`` as ``chip_smoke._flash_bwd_mass``), and the reading of
+   beside K1f's score, in units of 2^-24 of ``scale sum |q_i k_i|``.
+2. ``flips``: the share of p values that K1b and the plain version round
+   to bf16 otherwise than p rounded from f64 scores.  Each is read from
+   the backward's dv with ``do`` the identity at t = hd, where ``dv^T`` is
+   exactly the rounded p.
+3. ``f64``: dq, dk and dv of K1b and the plain version against an f64
+   backward with the same cast points, and K1b against the plain version
+   (phase 12 of ``chip_smoke.py``).  For each: the least ``arel`` that
+   ``|got - want| <= 2^-7 |want| + arel * mass`` needs (``mass`` as
+   ``chip_smoke._flash_bwd_mass``), and the reading of
    ``chip_smoke.TOL_ELEM["stream_bwd"]`` (above 1 fails).
 4. With ``--mutants``: copies of a source with a planted fault, built
-   beside the real ones under ``flexflow_torch/_build/mutants/``: in
-   ``flash_stream.cu`` bf16 scores in K1sb, a key tile dropped from its
-   dq pass, a query tile dropped from its dk/dv pass, held as phase 12 of
-   ``chip_smoke.py`` holds K1s/K1sb at (4, 8, 8192, 64) and (1, 8, 32768,
-   64); in ``flash_bwd.cu`` and ``flash_fwd.cu`` the same three faults in
-   the bf16 K1b and a key tile dropped from K1f, held as phases 1 and 2
-   hold K1f/K1b (``TOL_ELEM["fwd"]`` and ``["stream_bwd"]`` against the
-   plain versions) at (16, 8, 2048, 64) and (4, 8, 8192, 64).  The
-   unmutated kernels pass and each mutant must fail.
+   beside the real ones under ``flexflow_torch/_build/mutants/``
+   (``MUTANTS``), each held through the entry points that reach it
+   (``MUTANT_CASES``), element by element against the plain versions
+   (``TOL_ELEM["fwd"]`` and ``["stream_bwd"]``, as phases 1, 2 and 12 of
+   ``chip_smoke.py`` hold them): in ``flash_stream.cu`` bf16 scores in the
+   f32 K1sb, a key tile dropped from its dq pass, a query tile dropped
+   from its dk/dv pass, through ``flash_attention_lse_streamed`` at f32
+   shapes; in ``flash_bwd.cu`` the same three faults in the wgmma pair,
+   through K1b's entry at (16, 8, 2048, 64) and (4, 8, 8192, 64) and
+   through K1sb's at (4, 8, 8192, 64) and (1, 8, 32768, 64) bf16 (the
+   plain versions one head at a time); in ``flash_fwd.cu`` a key tile
+   dropped from K1f.  The unmutated kernels must pass and each mutant
+   must fail at every case; the exit code is 1 otherwise.
 
 The card's name and power limit come first.
 """
@@ -82,8 +87,6 @@ def flips(kernels, hd: int, heads: int = 2048) -> None:
     s = torch.matmul(q.double(), k.double().transpose(-1, -2)) / math.sqrt(hd)
     ref = torch.exp(s - plse.double()[..., None]).float().to(bf16).float()
     got = {
-        "K1sb": kernels.flash_attention_lse_streamed_bwd(q, k, v, po, plse, do,
-                                                         None, False)[2],
         "K1b": kernels.flash_attention_lse_bwd(q, k, v, po, plse, do, None,
                                                False)[2],
         "plain": kernels.flash_attention_lse_bwd_plain(q, k, v, po, plse, do,
@@ -96,10 +99,8 @@ def flips(kernels, hd: int, heads: int = 2048) -> None:
         _line("flips", f"hd {hd} {name} vs f64: {diff.float().mean().item():.3e} "
               f"of {diff.numel()} p values round the other way ({int(up)} up, "
               f"{int(diff.sum().item() - up)} down)")
-    for name in ("K1sb", "K1b"):
-        diff = p[name] != p["plain"]
-        _line("flips", f"hd {hd} {name} vs plain: "
-              f"{diff.float().mean().item():.3e}")
+    diff = p["K1b"] != p["plain"]
+    _line("flips", f"hd {hd} K1b vs plain: {diff.float().mean().item():.3e}")
 
 
 def _reference(q, k, v, o, lse, do, g_lse, causal):
@@ -144,8 +145,6 @@ def f64_hold(kernels, shape) -> None:
     fwd = lambda *x: kernels.flash_attention_lse_plain(*x, True)
     po, plse = cs._per_row(fwd, q, k, v)
     got = {
-        "K1sb": kernels.flash_attention_lse_streamed_bwd(q, k, v, po, plse, do,
-                                                         g_lse, True),
         "K1b": kernels.flash_attention_lse_bwd(q, k, v, po, plse, do, g_lse,
                                                True),
         "plain": cs._per_row(
@@ -157,7 +156,7 @@ def f64_hold(kernels, shape) -> None:
     tops = cs._flash_bwd_top(q, k, v, po, plse, do, g_lse, True)
     rtol, arel, atop = cs.TOL_ELEM["stream_bwd"]["bfloat16"]
     pairs = [(name, "f64", got[name], ref) for name in got]
-    pairs += [(name, "plain", got[name], got["plain"]) for name in ("K1sb", "K1b")]
+    pairs.append(("K1b", "plain", got["K1b"], got["plain"]))
     for name, against, grads, want in pairs:
         parts = []
         for key, a, w, m, tp in zip(("dq", "dk", "dv"), grads, want, masses,
@@ -169,10 +168,10 @@ def f64_hold(kernels, shape) -> None:
     del got, ref, masses, tops
 
 
-#: Planted faults: name -> (the source in csrc/ it edits, the kernel pair
-#: it is held in, (old, new) replacements).
+#: Planted faults: name -> (the source in csrc/ it edits, the cases of
+#: ``MUTANT_CASES`` it is held at, (old, new) replacements).
 MUTANTS = {
-    # K1sb's two passes round the score to bf16 before the exp.
+    # The f32 K1sb's two passes round the score to bf16 before the exp.
     "bf16-scores": ("flash_stream.cu", "stream", [
         ("expf(s[nt][e] * scale - ls[h])",
          "expf(__bfloat162float(__float2bfloat16(s[nt][e])) * scale - ls[h])"),
@@ -195,7 +194,7 @@ MUTANTS = {
          "    if (i + 1 < ni || i == i0) warp_pv<BN, HD>(adk, p, qt, kLd, wbuf);"),
     ]),
     # K1b's two passes round the score to bf16 before the exp.
-    "k1b-bf16-scores": ("flash_bwd.cu", "k1", [
+    "k1b-bf16-scores": ("flash_bwd.cu", "k1b", [
         ("exp2_approx(fmaf(s[i], sl2, -ls2[h]))",
          "exp2_approx(fmaf(__bfloat162float(__float2bfloat16(s[i])), sl2, "
          "-ls2[h]))"),
@@ -205,33 +204,41 @@ MUTANTS = {
     ]),
     # K1b's dq pass skips the first key tile of every warpgroup that has
     # more than one.
-    "k1b-dq-drops-key-tile": ("flash_bwd.cu", "k1", [
+    "k1b-dq-drops-key-tile": ("flash_bwd.cu", "k1b", [
         ("if (j > 0) issue_dq<HDP>(acc, da, ks + Rg::stage(j - 1) * KT::kBytes);",
          "if (j > 1) issue_dq<HDP>(acc, da, ks + Rg::stage(j - 1) * KT::kBytes);"),
     ]),
     # K1b's dk/dv pass skips the last query tile of every key tile but the
     # last.
-    "k1b-dkv-drops-q-tile": ("flash_bwd.cu", "k1", [
+    "k1b-dkv-drops-q-tile": ("flash_bwd.cu", "k1b", [
         ("      if (live && !(causal && qi0 + kWgQN - 1 < kr0)) {",
          "      if (live && !(causal && qi0 + kWgQN - 1 < kr0) &&\n"
          "          (i + 1 < nq || i == i0)) {"),
     ]),
     # K1f drops the P V product of the first key tile of every warpgroup
     # that has more than one.
-    "k1f-drops-key-tile": ("flash_fwd.cu", "k1", [
+    "k1f-drops-key-tile": ("flash_fwd.cu", "k1f", [
         ("        issue_pv<HDP>(acc, pa, vs + R::stage(j - 1) * KT::kBytes);",
          "        if (j != 1)\n"
          "          issue_pv<HDP>(acc, pa, vs + R::stage(j - 1) * KT::kBytes);"),
     ]),
 }
-#: The libraries a pair's checks load.
-PAIR_LIBS = {"stream": ("flash_stream",), "k1": ("flash_fwd", "flash_bwd")}
-#: The shapes (bf16 causal) and references each pair's mutants are held at:
-#: K1s/K1sb as phase 12 holds them, K1f/K1b as phases 1 and 2 do at the
-#: 2k training and 8k long-context shapes.
+#: The cases (shape, dtype, the kernel pair's entry points for
+#: ``chip_smoke._flash_parts``: ``stream`` K1s/K1sb, ``k1`` K1f/K1b), all
+#: causal and against the plain versions, that each group of mutants is
+#: held at: the f32 K1s/K1sb as phase 12 holds them; K1f as phase 1 does at
+#: the 2k training and 8k long-context shapes; K1b's wgmma pair there
+#: through K1b's entry and at 8k through K1sb's, the bf16 streamed
+#: backward.
 MUTANT_CASES = {
-    "stream": (((4, 8, 8192, 64), ("plain", "k1")), ((1, 8, 32768, 64), ("k1",))),
-    "k1": (((16, 8, 2048, 64), ("plain",)), ((4, 8, 8192, 64), ("plain",))),
+    "stream": (((2, 8, 1024, 64), "float32", "stream"),
+               ((1, 4, 1024, 128), "float32", "stream")),
+    "k1f": (((16, 8, 2048, 64), "bfloat16", "k1"),
+            ((4, 8, 8192, 64), "bfloat16", "k1")),
+    "k1b": (((16, 8, 2048, 64), "bfloat16", "k1"),
+            ((4, 8, 8192, 64), "bfloat16", "k1"),
+            ((4, 8, 8192, 64), "bfloat16", "stream"),
+            ((1, 8, 32768, 64), "bfloat16", "stream")),
 }
 
 
@@ -255,49 +262,57 @@ def _variant_dir(kernels, name: str, source: str, edits) -> str:
     return root
 
 
-def mutants(kernels) -> None:
+def mutants(kernels) -> list:
+    """Holds the unmutated kernels and every mutant at its cases; returns
+    what went wrong (an unmutated case that fails, a mutant case that
+    passes)."""
     import chip_smoke as cs
 
     g = torch.Generator(device="cuda").manual_seed(40)
-    bf16, f32 = torch.bfloat16, torch.float32
     inputs = {}
     for cases in MUTANT_CASES.values():
-        for shape, _ in cases:
-            if shape not in inputs:
-                x = [torch.randn(shape, generator=g, device="cuda").to(bf16)
+        for shape, dt, _ in cases:
+            if (shape, dt) not in inputs:
+                dtype = getattr(torch, dt)
+                x = [torch.randn(shape, generator=g, device="cuda").to(dtype)
                      for _ in range(4)]
-                x.append(torch.randn(shape[:3], generator=g, device="cuda",
-                                     dtype=f32))
-                inputs[shape] = x
+                x.append(torch.randn(shape[:3], generator=g, device="cuda"))
+                inputs[shape, dt] = x
     real = (kernels._SRC_DIR, kernels._BUILD_DIR)
-    runs = [(None, pair) for pair in MUTANT_CASES]
+    runs = [(None, group) for group in MUTANT_CASES]
     runs += [(name, MUTANTS[name][1]) for name in MUTANTS]
-    for name, pair in runs:
-        for lib in PAIR_LIBS[pair]:
-            kernels._libs.pop(lib, None)
+    wrong = []
+    for name, group in runs:
+        lib = None
         try:
             if name is not None:
                 source, _, edits = MUTANTS[name]
+                lib = source[:-len(".cu")]
                 root = _variant_dir(kernels, name, source, edits)
+                kernels._libs.pop(lib, None)
                 kernels._SRC_DIR = os.path.join(root, "csrc")
                 kernels._BUILD_DIR = os.path.join(root, "build")
-            for shape, refs in MUTANT_CASES[pair]:
-                q, k, v, do, g_lse = inputs[shape]
-                for ref in refs:
-                    parts, _ = cs._flash_parts(torch, kernels, q, k, v, do,
-                                               g_lse, True, ref, pair)
-                    worst = max(parts.values())
-                    _line("mutants", f"{name or 'unmutated'} ({pair}) "
-                          f"{shape} against {ref}: " + ", ".join(
-                              f"{k} {v:.3g}" for k, v in parts.items())
-                          + f" of the element tolerance: "
-                          + ("FAILS" if worst > 1.0 else "passes"))
-                    torch.cuda.empty_cache()
+            for shape, dt, pair in MUTANT_CASES[group]:
+                q, k, v, do, g_lse = inputs[shape, dt]
+                parts, _ = cs._flash_parts(torch, kernels, q, k, v, do, g_lse,
+                                           True, "plain", pair)
+                fails = max(parts.values()) > 1.0
+                if fails != (name is not None):
+                    wrong.append(f"{name or 'unmutated'} {shape} {dt} {pair}")
+                _line("mutants", f"{name or 'unmutated'} ({group}) {shape} "
+                      f"{dt} through {pair}: " + ", ".join(
+                          f"{k} {v:.3g}" for k, v in parts.items())
+                      + " of the element tolerance: "
+                      + ("FAILS" if fails else "passes"))
+                torch.cuda.empty_cache()
         finally:
             kernels._SRC_DIR, kernels._BUILD_DIR = real
-            for lib in PAIR_LIBS[pair]:
+            if lib is not None:
                 kernels._libs.pop(lib, None)
     shutil.rmtree(os.path.join(real[1], "mutants"), ignore_errors=True)
+    _line("mutants", "every unmutated case passes and every mutant fails at "
+          "every case" if not wrong else f"WRONG: {wrong}")
+    return wrong
 
 
 def main(argv=None) -> int:
@@ -319,8 +334,8 @@ def main(argv=None) -> int:
     for shape in ((16, 8, 2048, 64), (4, 8, 8192, 64)):
         f64_hold(kernels, shape)
         torch.cuda.empty_cache()
-    if "--mutants" in argv:
-        mutants(kernels)
+    if "--mutants" in argv and mutants(kernels):
+        return 1
     return 0
 
 

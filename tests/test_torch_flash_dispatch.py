@@ -137,21 +137,74 @@ def test_stream_gate():
     assert not ok((1, 64, 64), torch.float32)
 
 
+@pytest.mark.parametrize("shape, dtype, limit", [
+    ((1, 1, 64 * 65535 + 1, 64), torch.bfloat16, "65535 64-row tiles"),
+    ((1, 1, 64 * 65535, 64), torch.bfloat16, None),
+    ((1, 1, 64 * 65535 + 1, 64), torch.float32, None),
+    ((512, 64, 65536, 32), torch.bfloat16, "2\\^31"),
+    ((512, 64, 65536, 32), torch.float32, None)])
+def test_streamed_backward_refuses_k1b_limits(shape, dtype, limit):
+    """The streamed forward's gate takes any t, but the bf16 streamed
+    backward launches K1b's wgmma pair: its check names the pair's limit
+    that refuses, the one K1f/K1b's own gate applies."""
+    q = torch.empty(shape, dtype=dtype, device="meta")
+    kernels._stream_check("fwd", q)
+    assert kernels.flash_stream_supported(shape, dtype)
+    if limit is None:
+        kernels._stream_check("bwd", q, backward=True)
+    else:
+        with pytest.raises(ValueError, match=limit):
+            kernels._stream_check("bwd", q, backward=True)
+    assert kernels.flash_supported(shape, dtype) == (
+        kernels._k1b_limit(shape, dtype) is None)
+
+
+@pytest.mark.parametrize("streamed, dtype, entry", [
+    (True, torch.bfloat16, ("flash_bwd", "ff_flash_bwd")),
+    (True, torch.float32, ("flash_stream", "ff_flash_stream_bwd")),
+    (False, torch.bfloat16, ("flash_bwd", "ff_flash_bwd")),
+    (False, torch.float32, ("flash_bwd", "ff_flash_bwd"))])
+def test_backward_entry(streamed, dtype, entry):
+    """The bf16 streamed backward (K1sb) launches K1b's wgmma pair; the f32
+    one keeps the FMA passes of ``csrc/flash_stream.cu``."""
+    assert kernels.bwd_entry(streamed, dtype) == entry
+
+
+def test_flash_stream_keeps_only_the_f32_backward():
+    """``csrc/flash_stream.cu``'s backward passes take f32 operands only
+    and its C entry refuses any other dtype: no bf16 mma.sync K1sb."""
+    with open(f"{kernels._SRC_DIR}/flash_stream.cu") as fh:
+        src = fh.read()
+    assert "stream_dq_kernel(const float* __restrict__ q," in src
+    assert "stream_dkv_kernel(const float* __restrict__ q," in src
+    entry = src.split('extern "C" int ff_flash_stream_bwd(', 1)[1]
+    assert "if (dtype != ff::kFloat32) return (int)cudaErrorInvalidValue;" \
+        in entry.split("}", 1)[0]
+
+
 def test_stream_mutants_each_match_the_source_once():
     """The planted faults of ``tools/stream_numerics.py`` still find the
-    lines they replace in ``csrc/flash_stream.cu``."""
-    from flexflow_torch.tools import stream_numerics
+    lines they replace in ``csrc/flash_stream.cu`` (the f32 K1sb's now),
+    held at f32 cases through the streamed entry; the faults in K1b's
+    wgmma pair are also held through the streamed entry in bf16, which
+    launches that pair."""
+    from flexflow_torch.tools import stream_numerics as sn
 
     with open(f"{kernels._SRC_DIR}/flash_stream.cu") as fh:
         src = fh.read()
-    stream = {name: reps for name, (source, pair, reps)
-              in stream_numerics.MUTANTS.items() if source == "flash_stream.cu"}
+    stream = {name: reps for name, (source, group, reps)
+              in sn.MUTANTS.items() if source == "flash_stream.cu"}
     assert len(stream) == 3
     for name, reps in stream.items():
-        assert stream_numerics.MUTANTS[name][1] == "stream"
+        assert sn.MUTANTS[name][1] == "stream"
         for old, new in reps:
             assert src.count(old) == 1, (name, old)
             assert old != new
+    assert {case[1:] for case in sn.MUTANT_CASES["stream"]} == {
+        ("float32", "stream")}
+    wgmma = [m[1] for m in sn.MUTANTS.values() if m[0] == "flash_bwd.cu"]
+    assert wgmma == ["k1b"] * 3
+    assert ((4, 8, 8192, 64), "bfloat16", "stream") in sn.MUTANT_CASES["k1b"]
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -234,8 +234,11 @@ def test_k1f_tiles_fit_shared_memory(hdp):
 def test_k1_mutants_cover_each_new_kernel():
     """A dropped key tile in K1f, in K1b's dq pass, a dropped query tile
     in its dk/dv pass and bf16 scores in both passes."""
-    k1 = {n: m for n, m in stream_numerics.MUTANTS.items() if m[1] == "k1"}
-    assert {m[0] for m in k1.values()} == {"flash_fwd.cu", "flash_bwd.cu"}
+    k1 = {n: m for n, m in stream_numerics.MUTANTS.items()
+          if m[0] in ("flash_fwd.cu", "flash_bwd.cu")}
+    assert {m[1] for m in k1.values()} == {"k1f", "k1b"}
     assert len(k1) == 4
-    shapes = [s for s, _ in stream_numerics.MUTANT_CASES["k1"]]
-    assert shapes == [(16, 8, 2048, 64), (4, 8, 8192, 64)]
+    for group in ("k1f", "k1b"):
+        shapes = [s for s, dt, entry in stream_numerics.MUTANT_CASES[group]
+                  if entry == "k1"]
+        assert shapes == [(16, 8, 2048, 64), (4, 8, 8192, 64)]

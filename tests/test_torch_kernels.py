@@ -8,7 +8,9 @@ the same numpy inputs, in f32 within 1e-5.  The CUDA kernels themselves
 are held against the same plain versions on the GPU by chip_smoke.py.
 """
 
+import inspect
 import os
+import re
 import shutil
 
 import jax.numpy as jnp
@@ -530,3 +532,58 @@ def test_row_kernels_refuse_bad_shapes():
     with pytest.raises(ValueError, match="updates must be"):
         kernels.scatter_add_rows(t, torch.zeros((3,), dtype=torch.int32),
                                  torch.zeros((3, 9)))
+
+
+@pytest.mark.parametrize("case", ["float ids", "2-d ids", "1-d table",
+                                  "update rows", "update dtype"])
+def test_scatter_add_rows_refuses_bad_operands(case):
+    """Off the CPU (``meta`` tensors: no kernel can run) the wrapper
+    refuses what K5 does not take before it plans a launch."""
+    meta = dict(device="meta")
+    table = torch.empty((10, 8), **meta)
+    ids = torch.zeros((4,), dtype=torch.int64, **meta)
+    upd = torch.empty((4, 8), **meta)
+    match = "updates must be"
+    if case == "float ids":
+        ids, match = torch.zeros((4,), **meta), "int32 or int64"
+    elif case == "2-d ids":
+        ids, match = torch.zeros((4, 1), dtype=torch.int64, **meta), "table must be"
+    elif case == "1-d table":
+        table, match = torch.empty((10,), **meta), "table must be"
+    elif case == "update rows":
+        upd = torch.empty((5, 8), **meta)
+    else:
+        upd = torch.empty((4, 8), dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match=match):
+        kernels.scatter_add_rows(table, ids, upd)
+
+
+@pytest.mark.parametrize("n, plan", [
+    (1, (1, 1)), (16, (1, 1)), (17, (1, 2)), (2048, (1, 128)),
+    (4096, (1, 132)), (4097, (2, 132)), (32768, (2, 132))])
+def test_scatter_plan_follows_n_alone(n, plan):
+    """K5's route and grid come from n alone (reading the ids back would
+    sync the device): one launch up to the cap, where one CTA's shared
+    memory holds the grouping arrays of every id, then a counting launch
+    and the binning launch over a scratch."""
+    assert kernels.scatter_plan(n) == plan
+
+
+def _row_code():
+    with open(os.path.join(kernels._SRC_DIR, "embedding_rows.cu")) as fh:
+        text = fh.read()
+    return re.sub(r"//[^\n]*", "", text)
+
+
+def test_scatter_add_rows_cuda_branch_has_no_library_sort():
+    """K5 bins its ids itself: past the CPU branch the wrapper names no
+    sort and passes the ids in batch order, and the kernel has no atomics
+    (none float, so two launches give the same bits)."""
+    src = inspect.getsource(kernels.scatter_add_rows)
+    cuda = src.split("return scatter_add_rows_plain(table, ids, upd)", 1)[1]
+    for name in ("sort", "perm", "unique"):
+        assert name not in cuda, name
+    assert "ids.data_ptr()" in cuda
+    code = _row_code()
+    assert re.findall(r"\batomic\w*|\bred\.|\batom\.", code) == []
+
