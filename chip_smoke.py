@@ -11,15 +11,18 @@ Fifteen phases, in order; any failure raises and exits non-zero:
    ``flexflow_torch/csrc`` and holds the serving kernels against their
    plain PyTorch versions on the card (f32: ``o`` within 1e-4; bf16:
    ``o`` within 2e-2, the bf16 rounding of ``p`` and of the output;
-   ``lse`` within 1e-3; K1f's ``o`` also element by element, see
-   ``TOL_ELEM``), with each kernel's median device time over 20 runs
-   beside its plain version's and ``F.scaled_dot_product_attention``'s
-   (a yardstick the port never calls).  K1f also at the head dims its
-   bf16 wgmma kernel pads (8, 24, 72, 128) at t = 1, 80, 130, causal and
-   not, f32 and bf16; the registers, spills and shared memory of the
-   bf16 K1f/K1b kernels at each tile width; the host side of one K1f
-   call at the serve shape (bf16, which encodes three tensor maps, and
-   f32).
+   ``lse`` within 1e-3; and ``o`` element by element, see ``TOL_ELEM``),
+   with each kernel's median device time over 20 runs beside its plain
+   version's and ``F.scaled_dot_product_attention``'s (a yardstick the
+   port never calls).  K1f also at the head dims its bf16 wgmma kernel
+   pads (8, 24, 72, 128) at t = 1, 80, 130, causal and not, f32 and
+   bf16; the registers, spills and shared memory of the bf16 K1f/K1b
+   kernels at each tile width; the host side of one K1f call at the
+   serve shape (bf16, which encodes three tensor maps, and f32).  K6
+   (split-K decode) at ``DECODE_CASES``, f32 and bf16: every element by
+   K1f's rule (``_decode_close``) and bit-identical across two launches,
+   at the serve and long-cache shapes timed with its split count beside
+   SDPA's masked call.
 2. **Training kernels.**  K1b (flash backward) against its plain
    backward with non-zero ``o`` and ``lse`` cotangents, at the training
    shape (16, 8, 2048, 64) bf16 causal, at non-causal, ragged (t = 80,
@@ -82,22 +85,22 @@ Fifteen phases, in order; any failure raises and exits non-zero:
     tolerances, and untouched rows stay bit-identical on both sides.
 11. **DLRM profile.**  One warm plain-SGD DLRM step under
     ``torch.profiler``.
-12. **Stream kernels.**  K1s and K1sb (``csrc/flash_stream.cu``; the bf16
-    K1sb is K1b's wgmma pair of ``csrc/flash_bwd.cu``) against
-    their plain versions (K1f's and K1b's) element by element with
+12. **Stream kernels.**  K1s and K1sb (in bf16 K1f's wgmma kernel of
+    ``csrc/flash_fwd.cu`` and K1b's wgmma pair of ``csrc/flash_bwd.cu``;
+    in f32 the FMA kernels of ``csrc/flash_stream.cu``) against their
+    plain versions (K1f's and K1b's) element by element with
     ``TOL_ELEM``, non-zero ``o`` and ``lse`` cotangents, at the shapes of
     phases 1-2, at (1, 8, 8192, 64), ragged t (1, 80, 130), causal and
-    not, f32 and bf16, hd 32/64/128; at the main-path shape (4, 8, 8192,
-    64) bf16 causal against the plain versions and against K1f/K1b
-    (twice ``TOL_ELEM``), the bf16 K1sb bit-identical to K1b there; at
-    (1, 8, 32768, 64) K1s/K1sb and K1f/K1b against the plain versions
-    (run one head at a time, as at every shape), and the chunked form
-    (chunk 8192) against K1f.
-    Registers, spills and shared memory of each streamed kernel.  Device
-    times, bf16 causal, at the serve (t = 64, 128), 2k, 8k and 32k
-    shapes: K1f beside K1s and K1b beside K1sb timed in turns in this
-    warm process, each with its share of 989 TFLOP/s, SDPA and the
-    bound (the plain versions at 8k and 32k).
+    not, f32 and bf16, hd 32/64/128, the plain versions run one head at a
+    time; at every bf16 case, at the main-path shape (4, 8, 8192, 64) and
+    at (1, 8, 32768, 64) the bf16 K1s and K1sb bit-identical to K1f and
+    K1b (``_stream_is_k1``); K1f/K1b themselves against the plain
+    versions at 8k and 32k, and the chunked form (chunk 8192) against
+    K1f at 32k.  Registers, spills and shared memory of each streamed
+    kernel.  Device times, bf16 causal, at the serve (t = 64, 128), 2k,
+    8k and 32k shapes: K1f beside K1s and K1b beside K1sb timed in turns
+    in this warm process, each with its share of 989 TFLOP/s, SDPA and
+    the bound (the plain versions at 8k and 32k).
 13. **Long-context train.**  ``bench.py``'s 8k and 32k legs (vocab 32768,
     d_model 512, 8 heads, 6 layers, Adam lr 1e-4, bf16) through
     ``apps.transformer.main``: 8k streamed (1 + 5 steps; K1s = K1sb = 6
@@ -154,6 +157,24 @@ SERVE = dict(vocab=32768, d_model=512, heads=8, layers=6, max_seq=128,
 
 TOL_O = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL_LSE = 1e-3
+#: Phase 1's K6 cases: cache shapes (B, S, h, hd) and each slot's length.
+#: The serve shape and a long cache (timed, ``DECODE_TIMED``), one slot of
+#: one key in 4096 (every split but the first empty), an S that is not a
+#: multiple of the chunk length (33 keys), the head dims 8, 24, 72 and 128,
+#: and B h of 264 and 528 (two splits, one).
+DECODE_CASES = (
+    ((8, 128, 8, 64), (5, 128, 1, 33, 47, 64, 99, 20)),
+    ((4, 4096, 8, 64), (1, 4096, 1023, 2049)),
+    ((1, 4096, 8, 64), (1,)),
+    ((2, 1000, 4, 64), (1000, 517)),
+    ((3, 300, 4, 8), (300, 1, 177)),
+    ((3, 300, 4, 24), (13, 300, 64)),
+    ((3, 300, 4, 72), (299, 2, 150)),
+    ((3, 300, 4, 128), (300, 100, 33)),
+    ((33, 256, 8, 64), tuple(256 - (37 * i) % 256 for i in range(33))),
+    ((66, 64, 8, 64), tuple(64 - (7 * i) % 64 for i in range(66))),
+)
+DECODE_TIMED = ((8, 128, 8, 64), (4, 4096, 8, 64))
 #: Flash attention (K1f's o, K1b's dq/dk/dv) against the plain versions,
 #: element by element: ``|got - want| <= rtol |want| + arel * mass``,
 #: where ``mass`` is the sum of the absolute terms the element adds up
@@ -378,21 +399,29 @@ def phase_kernels(torch, kernels, F):
           f"64, 64), mean of 200 unsynchronised calls: bf16 "
           f"{host['bfloat16']:.2f} us, f32 {host['float32']:.2f} us")
 
-    # -- K6: flash decode --
-    cases = (((8, 128, 8, 64), [5, 128, 1, 33, 47, 64, 99, 20]),
-             ((4, 4096, 8, 64), [1, 4096, 1023, 2049]))
-    for (B, S, h, hd), lens in cases:
+    # -- K6: flash decode (split-K), every element and two launches --
+    worst = 0.0
+    for (B, S, h, hd), lens in DECODE_CASES:
         for dt in (torch.float32, torch.bfloat16):
             q = randn((B, h, hd), dt)
             ck, cv = randn((B, S, h, hd), dt), randn((B, S, h, hd), dt)
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
             o = kernels.flash_decode(q, ck, cv, lengths)
+            again = kernels.flash_decode(q, ck, cv, lengths)
             po = kernels.flash_decode_plain(q, ck, cv, lengths)
             torch.cuda.synchronize()
             err_o = (o.float() - po.float()).abs().max().item()
+            elem = _decode_close(kernels, q, ck, cv, lengths, o, po)
+            splits = kernels.decode_splits(B, S, h)
             name = _dtype_name(dt)
-            _check(math.isfinite(err_o) and err_o <= TOL_O[name],
-                   f"flash_decode {(B, S, h, hd)} {name}: |o| err {err_o}")
+            _check(math.isfinite(err_o) and err_o <= TOL_O[name]
+                   and elem <= 1.0 and torch.equal(o, again),
+                   f"flash_decode {(B, S, h, hd)} ({splits} splits) {name}: "
+                   f"|o| err {err_o} ({elem:.3g} of the element tolerance), "
+                   f"two launches equal: {torch.equal(o, again)}")
+            worst = max(worst, elem)
+            if (B, S, h, hd) not in DECODE_TIMED:
+                continue
             ms = _device_ms(lambda: kernels.flash_decode(q, ck, cv, lengths))
             plain_ms = _device_ms(
                 lambda: kernels.flash_decode_plain(q, ck, cv, lengths))
@@ -407,14 +436,22 @@ def phase_kernels(torch, kernels, F):
             nbytes = (2 * keys * h * hd * itemsize + 2 * B * h * hd * itemsize
                       + 4 * B)
             bound, by = _bound_ms(nbytes, 4 * h * hd * keys, name)
-            print(f"[kernels] flash_decode {(B, S, h, hd)} lengths {lens} "
-                  f"{name}: err o {err_o:.3g}; {ms:.4f} ms (plain "
-                  f"{plain_ms:.4f}, sdpa {lib_ms:.4f}, bound {bound:.5f} by "
-                  f"{by})")
-            if S == 128 and dt == torch.bfloat16:
-                rows["flash_decode"] = dict(
+            print(f"[kernels] flash_decode {(B, S, h, hd)} lengths {list(lens)} "
+                  f"{name}: err o {err_o:.3g} ({elem:.3g} of the element "
+                  f"tolerance); {splits} splits, {ms:.4f} ms (plain "
+                  f"{plain_ms:.4f}, sdpa masked {lib_ms:.4f}, bound "
+                  f"{bound:.5f} by {by})")
+            if dt == torch.bfloat16:
+                key = ("flash_decode" if (B, S, h, hd) == DECODE_TIMED[0]
+                       else f"flash_decode@{(B, S, h, hd)}")
+                rows[key] = dict(
                     max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound, bound_by=by, library_ms=lib_ms)
+                    bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                    splits=splits)
+    print(f"[kernels] flash_decode at {len(DECODE_CASES)} shapes (splits "
+          f"{sorted({kernels.decode_splits(*c[0][:3]) for c in DECODE_CASES})}"
+          f", hd 8/24/64/72/128, f32 and bf16): worst element {worst:.3g} "
+          f"of its tolerance, every pair of launches bit-identical")
     return rows
 
 
@@ -512,6 +549,16 @@ def _flash_fwd_close(kernels, q, k, v, causal, o, po) -> float:
     """K1f's ``o`` against the plain ``po`` by ``_close``: the mass of
     ``o = sum_j p_j v_j / l`` is the plain forward over ``|v|``."""
     mass = kernels.flash_attention_lse_plain(q, k, v.abs(), causal)[0]
+    return _close(o, po, mass, *TOL_ELEM["fwd"][_dtype_name(q.dtype)])
+
+
+def _decode_close(kernels, q, ck, cv, lengths, o, po) -> float:
+    """K6's ``o`` against the plain ``po`` by ``_close`` with K1f's rule
+    (``TOL_ELEM["fwd"]``): the mass of ``o = sum_j p_j v_j / l`` is the
+    plain decode over ``|v|``.  K6 rounds ``p`` against the running
+    maximum of its key group, as the reference rounds it against the
+    running maximum of its key block, and merges the splits in f32."""
+    mass = kernels.flash_decode_plain(q, ck, cv.abs(), lengths)
     return _close(o, po, mass, *TOL_ELEM["fwd"][_dtype_name(q.dtype)])
 
 
@@ -1378,43 +1425,33 @@ def _per_row(fn, *xs, heads: bool = False):
     return tuple(torch.cat(parts) for parts in zip(*rows))
 
 
-def _flash_parts(torch, kernels, q, k, v, do, g_lse, causal, ref: str,
+def _flash_parts(torch, kernels, q, k, v, do, g_lse, causal,
                  pair: str = "stream"):
     """The forward's ``o``/``lse`` and the backward's gradients of a kernel
     pair, ``stream`` (K1s/K1sb, through ``flash_attention_lse_streamed``)
-    or ``k1`` (K1f/K1b), against ``ref``: ``plain`` (the plain versions,
-    one head at a time, within ``TOL_ELEM``'s ``fwd`` and
-    ``stream_bwd``) or, for ``stream``, ``k1`` (K1f and K1b, within twice
-    those: each side is held within them of the same plain version).  The
-    backward takes the reference forward's ``o`` and ``lse``.  Returns
-    ({"o", "lse", "dq", "dk", "dv": worst element ratio, above 1 fails},
-    {"fwd", "bwd": worst absolute error}); lse is held within
-    ``TOL_LSE``."""
+    or ``k1`` (K1f/K1b), against the plain versions, one head at a time,
+    within ``TOL_ELEM``'s ``fwd`` and ``stream_bwd``.  The backward takes
+    the plain forward's ``o`` and ``lse``.  Returns ({"o", "lse", "dq",
+    "dk", "dv": worst element ratio, above 1 fails}, {"fwd", "bwd": worst
+    absolute error}); lse is held within ``TOL_LSE``."""
     name = _dtype_name(q.dtype)
     if pair == "stream":
         fwd_t = kernels.flash_attention_lse_streamed
         bwd_t = kernels.flash_attention_lse_streamed_bwd
     else:
         fwd_t, bwd_t = kernels.flash_attention_lse, kernels.flash_attention_lse_bwd
-    if ref == "plain":
-        fwd = lambda a, b, c: _per_row(
-            lambda x, y, z: kernels.flash_attention_lse_plain(x, y, z, causal),
-            a, b, c, heads=True)
-        bwd = lambda *a: _per_row(
-            lambda *x: kernels.flash_attention_lse_bwd_plain(*x, causal), *a,
-            heads=True)
-        factor = 1.0
-    else:
-        fwd = lambda a, b, c: kernels.flash_attention_lse(a, b, c, causal)
-        bwd = lambda *a: kernels.flash_attention_lse_bwd(*a, causal)
-        factor = 2.0
+    fwd = lambda a, b, c: _per_row(
+        lambda x, y, z: kernels.flash_attention_lse_plain(x, y, z, causal),
+        a, b, c, heads=True)
+    bwd = lambda *a: _per_row(
+        lambda *x: kernels.flash_attention_lse_bwd_plain(*x, causal), *a,
+        heads=True)
     with torch.no_grad():
         o, lse = fwd_t(q, k, v, causal)
         po, plse = fwd(q, k, v)
         mass = fwd(q, k, v.abs())[0]
-    rtol, arel = TOL_ELEM["fwd"][name]
     e_lse = (lse - plse).abs().max().item()
-    parts = {"o": _close(o, po, mass, factor * rtol, factor * arel),
+    parts = {"o": _close(o, po, mass, *TOL_ELEM["fwd"][name]),
              "lse": e_lse / TOL_LSE if math.isfinite(e_lse) else math.inf}
     errs = {"fwd": max((o.float() - po.float()).abs().max().item(), e_lse)}
     del o, lse, mass
@@ -1426,25 +1463,47 @@ def _flash_parts(torch, kernels, q, k, v, do, g_lse, causal, ref: str,
             else (None,) * 3)
     errs["bwd"] = 0.0
     for key, a, w, m, tp in zip(("dq", "dk", "dv"), got, want, masses, tops):
-        parts[key] = _close(a, w, m, factor * rtol, factor * arel, tp,
-                            factor * atop)
+        parts[key] = _close(a, w, m, rtol, arel, tp, atop)
         errs["bwd"] = max(errs["bwd"], (a.float() - w.float()).abs().max().item())
     return parts, errs
 
 
-def _hold_stream(torch, kernels, q, k, v, do, g_lse, causal, ref: str,
+def _hold_stream(torch, kernels, q, k, v, do, g_lse, causal,
                  pair: str = "stream"):
     """:func:`_flash_parts` of K1s/K1sb (or, with ``pair="k1"``, of
     K1f/K1b), failing the run above the tolerance.  Returns (worst element
     ratio, {"fwd", "bwd": worst absolute error})."""
     parts, errs = _flash_parts(torch, kernels, q, k, v, do, g_lse, causal,
-                               ref, pair)
+                               pair)
     worst = max(parts.values())
     _check(worst <= 1.0, f"{pair} kernels {tuple(q.shape)} causal={causal} "
-           f"{_dtype_name(q.dtype)} against {ref}: " + ", ".join(
+           f"{_dtype_name(q.dtype)} against plain: " + ", ".join(
                f"{k} {v:.3g}" for k, v in parts.items())
            + " of the element tolerance")
     return worst, errs
+
+
+def _stream_is_k1(torch, kernels, q, k, v, do, g_lse, causal) -> None:
+    """The bf16 K1s and K1sb launch K1f's wgmma kernel and K1b's wgmma
+    pair (``kernels.fwd_entry``, ``bwd_entry``): the same bits as K1f and
+    K1b, and each wrapper counts its own launch."""
+    fns = (kernels.flash_attention_lse, kernels.flash_attention_lse_streamed,
+           kernels.flash_attention_lse_bwd,
+           kernels.flash_attention_lse_streamed_bwd)
+    before = [f.launches for f in fns]
+    with torch.no_grad():
+        o, lse = kernels.flash_attention_lse(q, k, v, causal)
+        fwd = all(torch.equal(a, b) for a, b in zip(
+            kernels.flash_attention_lse_streamed(q, k, v, causal), (o, lse)))
+    bwd = all(torch.equal(a, b) for a, b in zip(
+        kernels.flash_attention_lse_streamed_bwd(q, k, v, o, lse, do, g_lse,
+                                                 causal),
+        kernels.flash_attention_lse_bwd(q, k, v, o, lse, do, g_lse, causal)))
+    torch.cuda.synchronize()
+    counts = [f.launches - n for f, n in zip(fns, before)]
+    _check(fwd and bwd and counts == [1, 1, 1, 1],
+           f"{tuple(q.shape)} causal={causal}: K1s equals K1f {fwd}, K1sb "
+           f"equals K1b {bwd}, launches {counts}")
 
 
 def phase_stream_kernels(torch, kernels, F):
@@ -1477,8 +1536,9 @@ def phase_stream_kernels(torch, kernels, F):
     for shape, causal, dt in cases:
         q, k, v, do = (randn(shape, dt) for _ in range(4))
         g_lse = randn(shape[:3], f32)
-        ratio, _ = _hold_stream(torch, kernels, q, k, v, do, g_lse, causal,
-                                "plain")
+        ratio, _ = _hold_stream(torch, kernels, q, k, v, do, g_lse, causal)
+        if dt == bf16:
+            _stream_is_k1(torch, kernels, q, k, v, do, g_lse, causal)
         torch.cuda.synchronize()
         _check(ratio <= 1.0, f"streamed kernels {shape} causal={causal} "
                f"{_dtype_name(dt)}: {ratio} of the element tolerance")
@@ -1493,34 +1553,16 @@ def phase_stream_kernels(torch, kernels, F):
             LONGCTX_8K["d_model"] // LONGCTX_8K["heads"])
     q, k, v, do = (randn(main, bf16) for _ in range(4))
     g_lse = randn(main[:3], f32)
-    r_plain, err = _hold_stream(torch, kernels, q, k, v, do, g_lse, True,
-                                "plain")
-    r_k1, _ = _hold_stream(torch, kernels, q, k, v, do, g_lse, True, "k1")
+    r_plain, err = _hold_stream(torch, kernels, q, k, v, do, g_lse, True)
     # K1f/K1b themselves at the 8k default arm's shape (phase 13), element
     # by element against the plain versions
     r_k1_plain, err_k1 = _hold_stream(torch, kernels, q, k, v, do, g_lse,
-                                      True, "plain", pair="k1")
-    # The bf16 K1sb launches K1b's wgmma pair (kernels.bwd_entry): the
-    # same bits, and each wrapper counts its own launch.
-    with torch.no_grad():
-        o, lse = kernels.flash_attention_lse(q, k, v, True)
-    before = (kernels.flash_attention_lse_bwd.launches,
-              kernels.flash_attention_lse_streamed_bwd.launches)
-    same = all(torch.equal(a, b) for a, b in zip(
-        kernels.flash_attention_lse_streamed_bwd(q, k, v, o, lse, do, g_lse,
-                                                 True),
-        kernels.flash_attention_lse_bwd(q, k, v, o, lse, do, g_lse, True)))
-    torch.cuda.synchronize()
-    _check(same and (kernels.flash_attention_lse_bwd.launches - before[0],
-                     kernels.flash_attention_lse_streamed_bwd.launches
-                     - before[1]) == (1, 1),
-           f"{main}: the bf16 K1sb and K1b differ ({same}) or miscount")
-    del o, lse
+                                      True, pair="k1")
+    _stream_is_k1(torch, kernels, q, k, v, do, g_lse, True)
     print(f"[stream-kernels] {main}: K1s/K1sb worst element {r_plain:.3g} "
-          f"(plain), {r_k1:.3g} (K1f/K1b) of its tolerance; K1f/K1b worst "
-          f"element {r_k1_plain:.3g} (plain), max abs err fwd "
-          f"{err_k1['fwd']:.3g}, bwd {err_k1['bwd']:.3g}; the bf16 K1sb "
-          f"bit-identical to K1b")
+          f"(plain) of its tolerance; K1f/K1b worst element {r_k1_plain:.3g} "
+          f"(plain), max abs err fwd {err_k1['fwd']:.3g}, bwd "
+          f"{err_k1['bwd']:.3g}; the bf16 K1s/K1sb bit-identical to K1f/K1b")
     del q, k, v, do, g_lse
 
     # -- 32k: K1s/K1sb and K1f/K1b against the plain versions, one head
@@ -1528,10 +1570,10 @@ def phase_stream_kernels(torch, kernels, F):
     big = (1, 8, 32768, 64)
     q, k, v, do = (randn(big, bf16) for _ in range(4))
     g_lse = randn(big[:3], f32)
-    r_big, err_big = _hold_stream(torch, kernels, q, k, v, do, g_lse, True,
-                                  "plain")
+    r_big, err_big = _hold_stream(torch, kernels, q, k, v, do, g_lse, True)
     r_big_k1, err_big_k1 = _hold_stream(torch, kernels, q, k, v, do, g_lse,
-                                        True, "plain", pair="k1")
+                                        True, pair="k1")
+    _stream_is_k1(torch, kernels, q, k, v, do, g_lse, True)
     torch.cuda.empty_cache()
     with torch.no_grad():
         o, lse = kernels.flash_attention_lse(q, k, v, True)
@@ -1551,7 +1593,8 @@ def phase_stream_kernels(torch, kernels, F):
           f"one head at a time: K1s/K1sb worst element {r_big:.3g} of its "
           f"tolerance (max abs err fwd {err_big['fwd']:.3g}, bwd "
           f"{err_big['bwd']:.3g}), K1f/K1b {r_big_k1:.3g} (fwd "
-          f"{err_big_k1['fwd']:.3g}, bwd {err_big_k1['bwd']:.3g}); chunked "
+          f"{err_big_k1['fwd']:.3g}, bwd {err_big_k1['bwd']:.3g}), the bf16 "
+          f"K1s/K1sb bit-identical to K1f/K1b; chunked "
           f"(chunk 8192) {r_chunk:.3g} of its tolerance against K1f, lse err "
           f"{e_clse:.3g}")
     del q, k, v, do, g_lse, o, lse, co, clse, mass
@@ -2028,7 +2071,7 @@ def main() -> int:
         "softmax_xent_bwd": (src + "softmax_xent.cu", pk + ":1227"),
         "gather_rows": (src + "embedding_rows.cu", pk + ":1379"),
         "scatter_add_rows": (src + "embedding_rows.cu", pk + ":1412"),
-        "flash_attention_lse_streamed": (src + "flash_stream.cu", pk + ":361"),
+        "flash_attention_lse_streamed": (src + "flash_fwd.cu", pk + ":361"),
         "flash_attention_lse_streamed_bwd": (src + "flash_bwd.cu",
                                              pk + ":664"),
         "flash_fwd_row_state": (src + "flash_probe.cu",
@@ -2060,7 +2103,11 @@ def main() -> int:
             entry["longctx_shape"] = rows["flash_attention_lse_bwd@8k"]
             entry["longctx_32k_shape"] = rows["flash_attention_lse_bwd@32k"]
         if name == "flash_attention_lse_streamed":
+            entry["f32_source"] = src + "flash_stream.cu"
             entry["longctx_32k_shape"] = rows["flash_attention_lse_streamed@32k"]
+        if name == "flash_decode":
+            entry["long_cache_shape"] = rows[
+                f"flash_decode@{DECODE_TIMED[1]}"]
         if name == "flash_attention_lse_streamed_bwd":
             entry["f32_source"] = src + "flash_stream.cu"
             entry["longctx_32k_shape"] = rows[

@@ -1,8 +1,10 @@
 // Flash-attention forward (K1f) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel flexflow_tpu/ops/pallas_kernels.py::_fwd_kernel
-// (launched by _fwd_call, reached through flash_attention_lse).  Same
-// function: softmax(q k^T / sqrt(hd)) v over (bh, t, hd) slabs, causal or
+// (launched by _fwd_call, reached through flash_attention_lse); in bf16
+// also ::_fwd_stream_kernel (launched by _fwd_stream_call, the streamed
+// forward K1s), whose sequential third grid axis is the K/V tile loop
+// inside each CTA of wg_fwd_kernel below.  Same function: softmax(q k^T / sqrt(hd)) v over (bh, t, hd) slabs, causal or
 // not, returning o in the input type and lse = m + log(l) in f32.  The cast
 // points are the reference's: scores in f32, the scale applied after the
 // dot, p rounded to v's type before P.V, l summed from the f32 p.

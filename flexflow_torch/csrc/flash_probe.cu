@@ -18,7 +18,7 @@
 //     out of device memory as on the TPU, at twice the Q.K^T products
 //     (1.5x the forward's).  Staging s in a global workspace instead would
 //     write and read 4 b h t^2 / 2 bytes (2.1 GB at the 2k training shape,
-//     0.64 ms at 3.35 TB/s, more than K1s's whole time), while the
+//     0.64 ms at 3.35 TB/s, more than K1f's whole time), while the
 //     recomputed products are 0.035 ms of tensor-core time there.
 //     Each thread keeps a running max of its own scores and the quad
 //     reduces it once, after pass 1 ("one max per row"); l likewise after
@@ -33,8 +33,8 @@
 // finite -1e30 mask, p rounded to v's type before P.V, l summed from the
 // f32 p.
 //
-// Tile machinery (mma_tile.cuh, shared with K1s so that the race compares
-// formulations, not machinery).  One CTA of 4 warps per (bh, 64-row q
+// Tile machinery (mma_tile.cuh, the race's own: the three variants share it
+// so that the race compares formulations, not machinery).  One CTA of 4 warps per (bh, 64-row q
 // tile), 16 query rows per warp; key tiles of BN (the race's block, 64 or
 // 128) stream through a cp.async ring of two stages, or one where two do
 // not fit shared memory (f32 at hd 128 and BN 128).  bf16 products run on

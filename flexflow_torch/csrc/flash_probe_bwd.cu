@@ -36,9 +36,9 @@
 //
 // Bound.  The five t x t x hd products, 10 b h hd t^2 / 2 FLOPs when
 // causal, at the tensor cores' rate for bf16.  mma.sync from shared-memory
-// fragments issues at a fraction of the wgmma rate, as in K1sb, whose
-// machinery this kernel shares: the race isolates where delta comes from
-// and where the row state lives.
+// fragments issues at a fraction of the wgmma rate; on the race's own
+// machinery (mma_tile.cuh, shared with the forward variants) the race
+// isolates where delta comes from and where the row state lives.
 #include "mma_tile.cuh"
 
 namespace {

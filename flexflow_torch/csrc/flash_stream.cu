@@ -1,50 +1,46 @@
-// Streamed flash attention, forward (K1s) and the f32 backward (K1sb), for
+// Streamed flash attention in f32, forward (K1s) and backward (K1sb), for
 // Hopper (sm_90a).
 //
-// Replaces the TPU kernels flexflow_tpu/ops/pallas_kernels.py::
-// _fwd_stream_kernel (launched by _fwd_stream_call) and _dq_stream_kernel /
-// _dkv_stream_kernel (launched by _bwd_stream_call), the 3-D-grid forms that
-// flash_attention_lse_streamed runs under FF_FLASH_STREAMED=1.  The function
-// is the one flash_fwd.cu / flash_bwd.cu compute, with the same cast points:
-// scores in f32 with the scale after the dot, the finite -1e30 mask, p
-// rounded to the operand type before P.V (l summed from the f32 p),
-// delta = rowsum(o * do) - g_lse, p recomputed from lse, ds = p (dp - delta)
-// rounded to the operand type before its products, dq/dk scaled after the
-// sum, every sum in f32 and written once in the input type.
+// Replaces, for f32 operands, the TPU kernels
+// flexflow_tpu/ops/pallas_kernels.py::_fwd_stream_kernel (launched by
+// _fwd_stream_call) and ::_dq_stream_kernel / ::_dkv_stream_kernel
+// (launched by _bwd_stream_call), the 3-D-grid forms that
+// flash_attention_lse_streamed runs under FF_FLASH_STREAMED=1.  The function is the one flash_fwd.cu / flash_bwd.cu compute,
+// with the same cast points: scores in f32 with the scale after the dot,
+// the finite -1e30 mask, p rounded to the operand type before P.V (l
+// summed from the f32 p), delta = rowsum(o * do) - g_lse, p recomputed
+// from lse, ds = p (dp - delta) rounded to the operand type before its
+// products, dq/dk scaled after the sum, every sum in f32 and written once
+// in the input type.
 //
-// The bf16 K1sb is not here: it is flash_bwd.cu's wgmma pair (wg_dq_kernel,
-// wg_dkv_kernel), which the wrapper launches for a bf16 streamed backward.
-// The TPU form's sequential third grid axis, which streams K/V (dq pass) or
-// Q/dO/lse/delta (dk/dv pass) through VMEM, is exactly the loop inside each
-// of that pair's CTAs over tiles TMA feeds through an mbarrier ring.  No
-// key-range split: splitting a row's keys across CTAs needs a combine pass
-// or float atomics, and at 32k b h = 8 already gives each pass ~15 waves
-// on 132 SMs.  The f32 backward stays here, on the FMA pipes: wgmma takes
-// f32 only as TF32.
+// The bf16 streamed kernels are not here.  A bf16 K1s launches flash_fwd.cu's
+// wgmma kernel (wg_fwd_kernel) and a bf16 K1sb flash_bwd.cu's wgmma pair
+// (wg_dq_kernel, wg_dkv_kernel); kernels.fwd_entry / bwd_entry choose.  The
+// TPU form's sequential third grid axis, which streams K/V (forward, dq
+// pass) or Q/dO/lse/delta (dk/dv pass) through VMEM, is exactly the loop
+// inside each of those kernels' CTAs over tiles that TMA feeds through an
+// mbarrier ring, so the bf16 K1s gives K1f's bits and the bf16 K1sb K1b's.
+// No key-range split: splitting a row's keys across CTAs needs a combine
+// pass or float atomics, and at 32k b h = 8 already gives each kernel ~15
+// waves on 132 SMs.  The f32 kernels stay here, on the FMA pipes: wgmma
+// takes f32 only as TF32, which would round the operands to 10 mantissa
+// bits and loosen the f32 checks the f32 parity step of chip_smoke.py
+// relies on.
 //
-// What sets the streamed form apart, and its Hopper counterpart:
+// What sets the streamed form apart, and its counterpart here:
 //   * The TPU grid's sequential k axis (q axis for dk/dv) is a loop inside
 //     the CTA, and the streamed tiles go through a two-stage cp.async ring
 //     in shared memory (16-byte cp.async.cg copies, commit_group /
 //     wait_group 1): tile j+1 is in flight while tile j is computed, as
 //     Pallas double-buffers its pipelined BlockSpecs.  Rows past t are
 //     zero-filled by the copy's source size, and masked.
-//   * The products run in the input type with f32 accumulation.  The bf16
-//     forward issues them to the tensor cores as mma.sync.m16n8k16
-//     (bf16 x bf16 -> f32, inline PTX).  mma.sync has a documented fragment
-//     layout (PTX ISA, "Matrix Fragments for mma.m16n8k16"), so each thread
-//     knows which rows and columns of the score tile it holds: the running
-//     (m, l) and the rescale corr = exp(m - m_new) stay in registers, and
-//     the score accumulator becomes the A operand of the next product
-//     (P.V) in registers, rounded to bf16 pair by pair.  Q/K fragments are
-//     read from shared memory with 32-bit loads; the transposed operand (V
-//     in P.V) with ldmatrix.x4.trans.  Rows are padded by 16 bytes, so both access
-//     patterns are free of bank conflicts.
-//   * The f32 kernels run the same products on the FMA pipes in f32,
-//     with the same fragment layout (the P operand goes through a
-//     warp-private shared tile).  TF32 tensor cores would round the operands
-//     to 10 mantissa bits and loosen the f32 checks the f32 parity step of
-//     chip_smoke.py relies on.
+//   * The products run on the FMA pipes in f32 with the fragment layout of
+//     mma.m16n8k16 (mma_tile.cuh; PTX ISA, "Matrix Fragments for
+//     mma.m16n8k16"), so each thread knows which rows and columns of the
+//     score tile it holds: the running (m, l) and the rescale corr =
+//     exp(m - m_new) stay in registers, and the P operand of P.V goes
+//     through a warp-private shared tile.  Rows are padded by 16 bytes, so
+//     the fragment reads are free of bank conflicts.
 //
 // Work split.  CTAs of 4 warps.  Forward and dq pass: one CTA per (bh,
 // 64-row q tile), 16 query rows per warp, 64-key tiles streamed; the causal
@@ -56,11 +52,8 @@
 // No atomics: two launches on the same inputs give the same bits.
 //
 // Bound.  At long t the kernels are bound by the operations (4 b h hd t^2/2
-// FLOPs forward, 10 b h hd t^2/2 backward when causal).  The bf16 forward
-// reaches the tensor cores through mma.sync, which on Hopper issues at a
-// fraction of the wgmma rate, and it re-reads its fragments from shared
-// memory for every product; K1f's wgmma body through the streamed entry is
-// its later redesign, as flash_bwd.cu's is for the bf16 backward.
+// FLOPs forward, 10 b h hd t^2/2 backward when causal) on the FMA pipes,
+// 67 TFLOP/s in f32; f32 is the parity path, not the fast one.
 #include "mma_tile.cuh"
 
 namespace {
@@ -71,11 +64,12 @@ using namespace ff::tile;
 // K1s: forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-stream_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o,
+stream_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
                   float* __restrict__ lse, int t, int causal, float scale) {
+  using T = float;
   constexpr int kBN = 64;
   constexpr int kLd = pitch<T>(HD);
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -388,10 +382,10 @@ stream_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 __host__ __device__ constexpr int dkv_bn() { return HD >= 128 ? 32 : 64; }
 
-template <typename T, int HD>
+template <int HD>
 size_t fwd_smem() {
-  return sizeof(T) * (size_t)(kBM + 4 * 64) * pitch<T>(HD) +
-         sizeof(float) * pbuf_floats<T>(64);
+  return sizeof(float) * ((size_t)(kBM + 4 * 64) * pitch<float>(HD) +
+                          pbuf_floats<float>(64));
 }
 
 template <int HD>
@@ -414,15 +408,16 @@ cudaError_t allow_smem(F* kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        float* lse, int bh, int t, int causal, float scale,
                        cudaStream_t stream) {
-  const size_t smem = fwd_smem<T, HD>();
-  cudaError_t err = allow_smem(stream_fwd_kernel<T, HD>, smem);
+  using T = float;
+  const size_t smem = fwd_smem<HD>();
+  cudaError_t err = allow_smem(stream_fwd_kernel<HD>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((t + kBM - 1) / kBM, bh);
-  stream_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+  stream_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, t, causal, scale);
   return cudaGetLastError();
@@ -461,16 +456,16 @@ bool shape_ok(int bh, int t, int hd) {
          (hd == 32 || hd == 64 || hd == 128);
 }
 
-// Register, spill and shared-memory use of one kernel (which: 0 forward
-// of type T, 1 the f32 dq pass, 2 the f32 dk/dv pass).
-template <typename T, int HD>
+// Register, spill and shared-memory use of one kernel (which: 0 forward,
+// 1 dq pass, 2 dk/dv pass; all f32).
+template <int HD>
 cudaError_t attrs(int which, int* out) {
   cudaFuncAttributes a;
   cudaError_t err;
   size_t dyn;
   if (which == 0) {
-    err = cudaFuncGetAttributes(&a, stream_fwd_kernel<T, HD>);
-    dyn = fwd_smem<T, HD>();
+    err = cudaFuncGetAttributes(&a, stream_fwd_kernel<HD>);
+    dyn = fwd_smem<HD>();
   } else if (which == 1) {
     err = cudaFuncGetAttributes(&a, stream_dq_kernel<HD>);
     dyn = dq_smem<HD>();
@@ -491,21 +486,10 @@ cudaError_t attrs(int which, int* out) {
   if (hd == 64) { constexpr int HD = 64; return (int)CALL; }            \
   if (hd == 128) { constexpr int HD = 128; return (int)CALL; }
 
-#define FF_STREAM_DISPATCH(CALL)                                        \
-  do {                                                                  \
-    if (dtype == ff::kFloat32) {                                        \
-      using T = float;                                                  \
-      FF_STREAM_HD(CALL)                                                \
-    } else if (dtype == ff::kBFloat16) {                                \
-      using T = __nv_bfloat16;                                          \
-      FF_STREAM_HD(CALL)                                                \
-    }                                                                   \
-    return (int)cudaErrorInvalidValue;                                  \
-  } while (0)
-
-// q, k, v, o: (bh, t, hd) contiguous, 16-byte aligned, of one type (dtype:
-// ff::kFloat32 or ff::kBFloat16); lse: (bh, t) f32.  hd in {32, 64, 128},
-// every t >= 1.  Returns the launch's cudaError_t (0 = launched).
+// q, k, v, o: (bh, t, hd) contiguous, 16-byte aligned, f32 (dtype must be
+// ff::kFloat32: the bf16 K1s is flash_fwd.cu's ff_flash_fwd); lse: (bh, t)
+// f32.  hd in {32, 64, 128}, every t >= 1.  Returns the launch's
+// cudaError_t (0 = launched).
 extern "C" int ff_flash_stream_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int bh,
                                    int t, int hd, int causal, float scale,
@@ -513,7 +497,9 @@ extern "C" int ff_flash_stream_fwd(const void* q, const void* k,
   if (!shape_ok(bh, t, hd)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
-  FF_STREAM_DISPATCH((launch_fwd<T, HD>(q, k, v, o, lse_f, bh, t, causal, scale, s)));
+  if (dtype != ff::kFloat32) return (int)cudaErrorInvalidValue;
+  FF_STREAM_HD((launch_fwd<HD>(q, k, v, o, lse_f, bh, t, causal, scale, s)));
+  return (int)cudaErrorInvalidValue;
 }
 
 // The forward's operands plus o and dout (bh, t, hd), all f32 (dtype must
@@ -541,10 +527,11 @@ extern "C" int ff_flash_stream_bwd(const void* q, const void* k,
 }
 
 // out[0..2] = registers per thread, local (spill) bytes per thread and the
-// dynamic shared memory of kernel `which` (0 forward, 1 dq, 2 dk/dv; the
-// passes are f32 only) at head dim hd and dtype.
+// dynamic shared memory of kernel `which` (0 forward, 1 dq, 2 dk/dv) at head
+// dim hd; dtype must be ff::kFloat32 (the kernels are f32 only).
 extern "C" int ff_flash_stream_attrs(int which, int hd, int dtype, int* out) {
-  if (which < 0 || which > 2 || (which > 0 && dtype != ff::kFloat32))
+  if (which < 0 || which > 2 || dtype != ff::kFloat32)
     return (int)cudaErrorInvalidValue;
-  FF_STREAM_DISPATCH((attrs<T, HD>(which, out)));
+  FF_STREAM_HD((attrs<HD>(which, out)));
+  return (int)cudaErrorInvalidValue;
 }

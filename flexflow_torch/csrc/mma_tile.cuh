@@ -1,8 +1,9 @@
-// Warp-level tile machinery of the tensor-core flash kernels
-// (flash_stream.cu, flash_probe.cu, flash_probe_bwd.cu): cp.async tile
-// loads into padded shared rows, mma.sync.m16n8k16 products whose f32
-// accumulators keep the documented fragment layout, and the f32
-// instantiation of the same products on the FMA pipes.
+// Warp-level tile machinery of the race's flash kernels (flash_probe.cu,
+// flash_probe_bwd.cu) and of the f32 streamed kernels (flash_stream.cu):
+// cp.async tile loads into padded shared rows, mma.sync.m16n8k16 products
+// whose f32 accumulators keep the documented fragment layout (the race's
+// bf16 instantiations), and the f32 instantiation of the same products on
+// the FMA pipes.
 //
 // CTAs are 4 warps (kThreads); a warp owns 16 rows of a resident tile, so
 // kBM = 64 rows per CTA.  Fragment layout of a warp's 16 x N f32

@@ -149,7 +149,7 @@ def _load(name: str) -> ctypes.CDLL:
         lib.ff_flash_stream_attrs.argtypes = [i, i, i, p]
         lib.ff_flash_stream_attrs.restype = i
     elif name == "flash_decode":
-        lib.ff_flash_decode.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
+        lib.ff_flash_decode.argtypes = [p] * 7 + [i, i, i, i, i, f, i, p]
         lib.ff_flash_decode.restype = i
     elif name == "softmax_xent":
         lib.ff_xent_fwd.argtypes = [p, p, p, p, p, i, i, i, p]
@@ -250,22 +250,46 @@ def _flash_shapes(what, q, k, v):
                          f"{tuple(v.shape)}")
 
 
+def fwd_entry(streamed: bool, dtype) -> Tuple[str, str]:
+    """The library and C entry a flash forward launches: K1f's
+    (``csrc/flash_fwd.cu``: the wgmma kernel in bf16, the FMA kernel in
+    f32) for K1f, and for K1s in bf16, where the streamed form's
+    sequential grid axis is exactly the loop inside each of the wgmma
+    kernel's CTAs over TMA-fed K/V tiles; ``csrc/flash_stream.cu``'s FMA
+    kernel for K1s in f32 (wgmma takes f32 only as TF32).  The two
+    entries share one C signature."""
+    if streamed and dtype != torch.bfloat16:
+        return "flash_stream", "ff_flash_stream_fwd"
+    return "flash_fwd", "ff_flash_fwd"
+
+
+def _launch_fwd(what, streamed, q, k, v, causal):
+    """Checks the forward's dense CUDA operands and launches K1f's kernel
+    or (``streamed``) K1s's, through :func:`fwd_entry`.  Returns ``(o,
+    lse)``."""
+    code = _check_cuda(what, q, k, v, head_dim=not streamed)
+    if streamed:
+        _stream_check(what, q)
+    b, h, t, hd = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib, entry = fwd_entry(streamed, q.dtype)
+    err = getattr(_load(lib), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b * h, t, hd, int(bool(causal)),
+        1.0 / math.sqrt(hd), code, stream,
+    )
+    _raise_on(err, what)
+    return o, lse
+
+
 def _flash_fwd(q, k, v, causal: bool):
     """K1f on already dense operands: the plain version on the CPU, the
     kernel on CUDA (counted in ``flash_attention_lse.launches``)."""
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, causal)
-    code = _check_cuda("flash_attention_lse", q, k, v)
-    b, h, t, hd = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _load("flash_fwd").ff_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b * h, t, hd, int(bool(causal)),
-        1.0 / math.sqrt(hd), code, stream,
-    )
-    _raise_on(err, "flash_attention_lse")
+    o, lse = _launch_fwd("flash_attention_lse", False, q, k, v, causal)
     flash_attention_lse.launches += 1
     return o, lse
 
@@ -466,37 +490,32 @@ def flash_stream_supported(shape, dtype=torch.float32) -> bool:
 
 def _stream_check(what, q, backward: bool = False):
     """Raises unless the streamed kernels take ``q``'s shape and dtype:
-    their gate, and for the bf16 backward K1b's launch limits."""
+    their gate, and in bf16, where both launch K1f/K1b's wgmma kernels
+    (:func:`fwd_entry`, :func:`bwd_entry`), those kernels' launch
+    limits."""
     if not flash_stream_supported(tuple(q.shape), q.dtype):
         raise ValueError(f"{what}: shape {tuple(q.shape)} {q.dtype} is "
                          f"outside the streamed kernels' gate (head dim in "
                          f"{_STREAM_HEAD_DIMS}, b * h <= 65535)")
-    if backward and bwd_entry(True, q.dtype)[0] == "flash_bwd":
+    lib, _ = (bwd_entry if backward else fwd_entry)(True, q.dtype)
+    if lib != "flash_stream":
         limit = _k1b_limit(tuple(q.shape), q.dtype)
         if limit is not None:
+            which = "K1b's wgmma pair" if backward else "K1f's wgmma kernel"
             raise ValueError(f"{what}: shape {tuple(q.shape)} {q.dtype} is "
-                             f"outside K1b's wgmma pair, which the bf16 "
-                             f"streamed backward launches: {limit}")
+                             f"outside {which}, which the bf16 streamed "
+                             f"{'backward' if backward else 'forward'} "
+                             f"launches: {limit}")
 
 
 def _stream_fwd(q, k, v, causal: bool):
     """K1s on already dense operands: the plain version on the CPU, the
-    kernel on CUDA (counted in ``flash_attention_lse_streamed.launches``)."""
+    kernel of :func:`fwd_entry` on CUDA (counted in
+    ``flash_attention_lse_streamed.launches``, never in K1f's count)."""
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, causal)
-    code = _check_cuda("flash_attention_lse_streamed", q, k, v,
-                       head_dim=False)
-    _stream_check("flash_attention_lse_streamed", q)
-    b, h, t, hd = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _load("flash_stream").ff_flash_stream_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b * h, t, hd, int(bool(causal)),
-        1.0 / math.sqrt(hd), code, stream,
-    )
-    _raise_on(err, "flash_attention_lse_streamed")
+    o, lse = _launch_fwd("flash_attention_lse_streamed", True, q, k, v,
+                         causal)
     flash_attention_lse_streamed.launches += 1
     return o, lse
 
@@ -506,13 +525,16 @@ def flash_attention_lse_streamed(q, k, v, causal: bool = True):
     ``(o, lse)`` as :func:`flash_attention_lse`, both differentiable.
     The port of ``pallas_kernels.flash_attention_lse_streamed`` (forward
     kernel ``_fwd_stream_kernel``; backward
-    :func:`flash_attention_lse_streamed_bwd`), source
-    ``csrc/flash_stream.cu``: K/V tiles through a two-stage ``cp.async``
-    ring, bf16 products on the tensor cores.  The TPU signature's
+    :func:`flash_attention_lse_streamed_bwd`).  In bf16 the forward
+    launches K1f's wgmma kernel of ``csrc/flash_fwd.cu``, whose producer
+    warpgroup streams K/V tiles by TMA through an mbarrier ring, the loop
+    that replaces the TPU grid's sequential key axis: the same bits as
+    :func:`flash_attention_lse`.  In f32 it launches the FMA kernel of
+    ``csrc/flash_stream.cu`` (:func:`fwd_entry`).  The TPU signature's
     ``block_q``/``block_k`` (VMEM tiling) are dropped.  Its plain version
     is :func:`flash_attention_lse_plain`: the function and the cast
     points are K1f's.  Takes the shapes :func:`flash_stream_supported`
-    admits."""
+    admits, and in bf16 refuses what :func:`_k1b_limit` names."""
     _flash_shapes("flash_attention_lse_streamed", q, k, v)
     return _FlashAttention.apply(q, k, v, bool(causal), True)
 
@@ -547,17 +569,16 @@ flash_attention_lse_streamed_bwd.launches = 0
 def flash_stream_attrs(hd: int, dtype) -> Dict[str, Tuple[int, int, int]]:
     """Registers per thread, spilled bytes per thread and dynamic shared
     bytes of the three streamed kernels (``fwd``, ``dq``, ``dkv``) at head
-    dim ``hd``, as the loaded libraries report them (CUDA only); the bf16
-    ``dq`` and ``dkv`` are K1b's wgmma pair (:func:`flash_attrs`)."""
+    dim ``hd``, as the loaded libraries report them (CUDA only); in bf16
+    they are K1f's wgmma kernel and K1b's wgmma pair (:func:`flash_attrs`),
+    in f32 ``csrc/flash_stream.cu``'s FMA kernels."""
+    if dtype == torch.bfloat16:
+        return flash_attrs(hd)
     out = {}
     for which, name in enumerate(("fwd", "dq", "dkv")):
         vals = (ctypes.c_int * 3)()
-        if which and dtype == torch.bfloat16:
-            err = _load("flash_bwd").ff_flash_bwd_attrs(which - 1, hd, vals)
-        else:
-            err = _load("flash_stream").ff_flash_stream_attrs(
-                which, hd, _KERNEL_DTYPES[dtype], vals)
-        _raise_on(err, "flash_stream_attrs")
+        _raise_on(_load("flash_stream").ff_flash_stream_attrs(
+            which, hd, _KERNEL_DTYPES[dtype], vals), "flash_stream_attrs")
         out[name] = tuple(vals)
     return out
 
@@ -584,6 +605,74 @@ def flash_decode_plain(q, cache_k, cache_v, lengths):
     return (o / l).to(q.dtype)
 
 
+#: K6's split policy: enough CTAs for four per SM of an H100 (132 SMs),
+#: at least this many keys per split, at most this many splits (the last
+#: CTA of each (b, head) walks them in order).
+_DECODE_CTAS = 4 * 132
+_DECODE_MIN_KEYS = 32
+_DECODE_MAX_SPLITS = 128
+
+
+def decode_splits(B: int, S: int, h: int) -> int:
+    """How many key chunks K6 cuts a ``(B, S, h, hd)`` cache into: the
+    fewest that give ``B h`` x splits at least ``_DECODE_CTAS`` CTAs, but
+    chunks of at least ``_DECODE_MIN_KEYS`` keys and at most
+    ``_DECODE_MAX_SPLITS`` splits; then as few as keep the chunk length,
+    ``ceil(S / splits)``, so every chunk starts before ``S``.  From the
+    shape alone: ``lengths`` live on the device, and reading them would
+    cost every decode step a host sync."""
+    want = -(-_DECODE_CTAS // (B * h))
+    n = max(1, min(want, S // _DECODE_MIN_KEYS, _DECODE_MAX_SPLITS))
+    chunk = -(-S // n)
+    return -(-S // chunk)
+
+
+def flash_decode_split_plain(q, cache_k, cache_v, lengths, splits: int):
+    """K6's split-K formulation in plain torch, for the tests and
+    ``chip_smoke.py``: the keys cut into ``splits`` chunks of ``ceil(S /
+    splits)``; per chunk ``m`` (the finite ``-1e30`` when no key of it is
+    valid), ``p = exp(s - m)`` (0 at masked keys), ``l = sum p`` and
+    ``acc = sum round(p) v`` in f32; then the chunks merged in order with
+    the weights ``exp(m_i - max m)`` of :func:`merge_lse` (an empty
+    chunk's is 0), ``o = sum w acc / sum w l`` in ``q``'s dtype."""
+    B, S, h, hd = cache_k.shape
+    scale = 1.0 / math.sqrt(hd)
+    chunk = -(-S // splits)
+    s = torch.einsum("bhd,bshd->bhs", q.float(), cache_k.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    valid = (pos[None, :] < lengths.to(q.device)[:, None])[:, None, :]
+    ms, ls, accs = [], [], []
+    for i in range(splits):
+        sl = slice(min(S, i * chunk), min(S, (i + 1) * chunk))
+        vi = valid[..., sl]
+        si = torch.where(vi, s[..., sl], torch.full_like(s[..., sl], _NEG_INF))
+        m = torch.full((B, h, 1), _NEG_INF, device=q.device)
+        if si.shape[-1]:
+            m = torch.maximum(m, si.amax(dim=-1, keepdim=True))
+        p = torch.where(vi, torch.exp(si - m), torch.zeros_like(si))
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bhs,bshd->bhd", p.to(cache_v.dtype).float(),
+                                 cache_v[:, sl].float()))
+    m = torch.stack(ms)
+    w = torch.exp(m - m.amax(dim=0))
+    o = (w * torch.stack(accs)).sum(dim=0) / (w * torch.stack(ls)).sum(dim=0)
+    return o.to(q.dtype)
+
+
+#: One zeroed ticket buffer per device for K6's merge, which every launch
+#: leaves zeroed; it grows with the largest ``B h`` seen.
+_decode_tickets: Dict[torch.device, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    buf = _decode_tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+        _decode_tickets[device] = buf
+    return buf
+
+
 def flash_decode(q, cache_k, cache_v, lengths):
     """Single-token decode attention against a padded KV cache.
 
@@ -591,8 +680,13 @@ def flash_decode(q, cache_k, cache_v, lengths):
     ``lengths``: ``(B,)`` int32 in ``[1, S]``, the valid keys per slot.
     Returns ``(B, h, hd)`` in ``q``'s dtype.  The port of
     ``pallas_kernels.flash_decode`` (kernel ``_decode_kernel``); source
-    ``csrc/flash_decode.cu``.  The kernel reads only the first
-    ``lengths[b]`` cache rows of each slot.
+    ``csrc/flash_decode.cu``: split-K over :func:`decode_splits` chunks of
+    the keys in one launch, the chunks merged in order by the last CTA of
+    each (b, head), no float atomic (two calls give the same bits).  The
+    kernel reads only the first ``lengths[b]`` cache rows of each slot.
+    Capturable in a CUDA graph: no host sync; the partials come from
+    torch's caching allocator and the tickets from one zeroed buffer per
+    device (made at the first call).
     """
     if q.device.type == "cpu":
         return flash_decode_plain(q, cache_k, cache_v, lengths)
@@ -610,10 +704,18 @@ def flash_decode(q, cache_k, cache_v, lengths):
     q, cache_k, cache_v = _dense(q), _dense(cache_k), _dense(cache_v)
     lengths = lengths.contiguous()
     out = torch.empty_like(q)
+    splits = decode_splits(B, S, h)
+    part = tickets = None
+    if splits > 1:
+        part = torch.empty((B * h * splits * (hd + 2),), dtype=torch.float32,
+                           device=q.device)
+        tickets = _tickets(q.device, B * h)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _load("flash_decode").ff_flash_decode(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, S, h, hd,
+        lengths.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), B, S, h, hd, splits,
         1.0 / math.sqrt(hd), code, stream,
     )
     _raise_on(err, "flash_decode")

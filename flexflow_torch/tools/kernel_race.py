@@ -1,0 +1,150 @@
+"""This checkout's K6 and bf16 K1s beside another checkout's, in one
+process on the card.
+
+Run from the root of a checkout, on a machine with a CUDA card:
+
+    python3 -m flexflow_torch.tools.kernel_race --against DIR
+
+``DIR`` is the root of another checkout of this repository (an earlier
+commit unpacked with ``git archive``, say).  Its
+``flexflow_torch/ops/kernels.py`` is loaded under another module name and
+builds its own libraries from ``DIR``'s sources into ``DIR``'s build
+directory.  Each kernel is then timed against the other checkout's in
+turns (``chip_smoke._pair_ms``: theirs, ours, ours, theirs, the median
+device time of 20 runs each), beside one PyTorch call for the same
+function and the bound, at the main path's shapes:
+
+- K6 (``flash_decode``) at phase 1's two timed cases
+  (``chip_smoke.DECODE_TIMED``), f32 and bf16, with this checkout's split
+  count, beside SDPA's masked call;
+- K1s (``flash_attention_lse_streamed``) at the long-context shapes (4, 8,
+  8192, 64) and (1, 8, 32768, 64) bf16 causal, beside SDPA.
+
+Before the times, each pair is held together: K6's outputs by
+``chip_smoke._decode_close`` against the plain version on both sides;
+K1s's ``o`` and ``lse`` by K1f's element rule against each other.  The
+card's name and power limit come first.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+import sys
+
+import torch
+
+
+def _other_kernels(root: str):
+    """``root``'s ``flexflow_torch/ops/kernels.py`` as its own module."""
+    path = os.path.join(root, "flexflow_torch", "ops", "kernels.py")
+    spec = importlib.util.spec_from_file_location("other_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def decode(cs, ours, theirs, F) -> None:
+    g = torch.Generator(device="cuda").manual_seed(50)
+    lengths = dict(cs.DECODE_CASES)
+    for shape in cs.DECODE_TIMED:
+        B, S, h, hd = shape
+        lens = torch.tensor(lengths[shape], dtype=torch.int32, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, h, hd), generator=g, device="cuda").to(dt)
+            ck, cv = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                      for _ in range(2))
+            po = ours.flash_decode_plain(q, ck, cv, lens)
+            held = {name: cs._decode_close(ours, q, ck, cv, lens,
+                                           mod.flash_decode(q, ck, cv, lens),
+                                           po)
+                    for name, mod in (("ours", ours), ("theirs", theirs))}
+            cs._check(max(held.values()) <= 1.0,
+                      f"flash_decode {shape}: {held} of the tolerance")
+            t_theirs, t_ours = cs._pair_ms(
+                lambda: theirs.flash_decode(q, ck, cv, lens),
+                lambda: ours.flash_decode(q, ck, cv, lens))
+            mask = (torch.arange(S, device="cuda")[None, :]
+                    < lens[:, None])[:, None, None, :]
+            t_lib = cs._device_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2),
+                attn_mask=mask))
+            keys = sum(lengths[shape])
+            size = q.element_size()
+            bound, by = cs._bound_ms(
+                2 * keys * h * hd * size + 2 * B * h * hd * size + 4 * B,
+                4 * h * hd * keys, cs._dtype_name(dt))
+            print(f"[kernel-race] flash_decode {shape} {cs._dtype_name(dt)}: "
+                  f"ours ({ours.decode_splits(B, S, h)} splits) {t_ours:.6f} "
+                  f"ms, theirs {t_theirs:.6f} ms ({t_theirs / t_ours:.2f}x), "
+                  f"sdpa masked {t_lib:.6f}, bound {bound:.6f} by {by}; "
+                  f"elements {held['ours']:.3g} / {held['theirs']:.3g} of "
+                  f"the tolerance", flush=True)
+
+
+def streamed(cs, ours, theirs, F) -> None:
+    g = torch.Generator(device="cuda").manual_seed(51)
+    bf16 = torch.bfloat16
+    for shape in ((4, 8, 8192, 64), (1, 8, 32768, 64)):
+        b, h, t, hd = shape
+        reps = 5 if t >= 32768 else 20
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(bf16)
+                   for _ in range(3))
+        with torch.no_grad():
+            o, lse = ours.flash_attention_lse_streamed(q, k, v, True)
+            to, tlse = theirs.flash_attention_lse_streamed(q, k, v, True)
+            mass = ours.flash_attention_lse(q, k, v.abs(), True)[0]
+            held = cs._close(o, to, mass, *(2 * x for x in
+                                            cs.TOL_ELEM["fwd"]["bfloat16"]))
+            e_lse = (lse - tlse).abs().max().item()
+            cs._check(held <= 1.0 and e_lse <= cs.TOL_LSE,
+                      f"K1s {shape}: {held} of twice the element tolerance, "
+                      f"lse err {e_lse}")
+            del o, lse, to, tlse, mass
+            t_theirs, t_ours = cs._pair_ms(
+                lambda: theirs.flash_attention_lse_streamed(q, k, v, True),
+                lambda: ours.flash_attention_lse_streamed(q, k, v, True),
+                reps)
+            t_lib = cs._device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), reps)
+        flops = 4 * b * h * hd * t * (t + 1) // 2
+        bound, by = cs._bound_ms(4 * b * h * t * hd * 2 + b * h * t * 4,
+                                 flops, "bfloat16")
+        pct = 100 * flops / (t_ours * 1e-3) / cs.PEAK_FLOPS["bfloat16"]
+        print(f"[kernel-race] flash_attention_lse_streamed {shape} bf16 "
+              f"causal: ours {t_ours:.6f} ms ({pct:.1f}% of 989 TFLOP/s), "
+              f"theirs {t_theirs:.6f} ms ({t_theirs / t_ours:.2f}x), sdpa "
+              f"{t_lib:.6f}, bound {bound:.6f} by {by}; o {held:.3g} of "
+              f"twice the element tolerance, lse err {e_lse:.3g}",
+              flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) != 2 or argv[0] != "--against":
+        print("usage: python3 -m flexflow_torch.tools.kernel_race --against "
+              "DIR", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_race: no CUDA device", file=sys.stderr)
+        return 2
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from flexflow_torch.ops import kernels as ours
+    from flexflow_torch.tools.probe_common import card
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(card(), flush=True)
+    theirs = _other_kernels(os.path.abspath(argv[1]))
+    ours.build(("flash_fwd", "flash_bwd", "flash_stream", "flash_decode"))
+    theirs.build(("flash_fwd", "flash_bwd", "flash_stream", "flash_decode"))
+    decode(cs, ours, theirs, F)
+    streamed(cs, ours, theirs, F)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,15 +1,18 @@
-"""Numerics of the streamed flash kernels (K1s, K1sb) on the card.
+"""Numerics of the streamed flash kernels (K1s, K1sb) and of the split-K
+decode (K6) on the card.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 -m flexflow_torch.tools.stream_numerics [--mutants]
 
-It prints, for the bf16 kernels (K1s of ``csrc/flash_stream.cu``; K1b of
-``csrc/flash_bwd.cu``, which is also the bf16 K1sb):
+It prints, for the bf16 kernels (K1f of ``csrc/flash_fwd.cu``, which is
+also the bf16 K1s; K1b of ``csrc/flash_bwd.cu``, which is also the bf16
+K1sb):
 
 1. ``scores``: the error of the tensor-core score against the f64 dot,
-   read from K1s's lse at t = 1 (where lse is the scaled score itself),
-   beside K1f's score, in units of 2^-24 of ``scale sum |q_i k_i|``.
+   read from the lse at t = 1 (where lse is the scaled score itself),
+   through K1s's entry and K1f's (the same kernel in bf16), in units of
+   2^-24 of ``scale sum |q_i k_i|``.
 2. ``flips``: the share of p values that K1b and the plain version round
    to bf16 otherwise than p rounded from f64 scores.  Each is read from
    the backward's dv with ``do`` the identity at t = hd, where ``dv^T`` is
@@ -32,8 +35,12 @@ It prints, for the bf16 kernels (K1s of ``csrc/flash_stream.cu``; K1b of
    through K1b's entry at (16, 8, 2048, 64) and (4, 8, 8192, 64) and
    through K1sb's at (4, 8, 8192, 64) and (1, 8, 32768, 64) bf16 (the
    plain versions one head at a time); in ``flash_fwd.cu`` a key tile
-   dropped from K1f.  The unmutated kernels must pass and each mutant
-   must fail at every case; the exit code is 1 otherwise.
+   dropped from K1f, through K1f's entry at the same two shapes and
+   through K1s's at (4, 8, 8192, 64) and (1, 8, 32768, 64) bf16; in
+   ``flash_decode.cu`` a merge that skips the last non-empty split, at
+   phase 1's two timed decode cases in f32 and bf16 (``_decode_close``).
+   The unmutated kernels must pass and each mutant must fail at every
+   case; the exit code is 1 otherwise.
 
 The card's name and power limit come first.
 """
@@ -222,23 +229,39 @@ MUTANTS = {
          "        if (j != 1)\n"
          "          issue_pv<HDP>(acc, pa, vs + R::stage(j - 1) * KT::kBytes);"),
     ]),
+    # K6's merge gives the last non-empty split (the one that holds key
+    # lengths[b] - 1) weight 0.
+    "k6-merge-skips-last-split": ("flash_decode.cu", "k6", [
+        ("      const float c = expf(mm - mn), wt = expf(mi - mn);",
+         "      const float c = expf(mm - mn),\n"
+         "                  wt = i * chunk < len && (i + 1) * chunk >= len\n"
+         "                           ? 0.f : expf(mi - mn);"),
+    ]),
 }
-#: The cases (shape, dtype, the kernel pair's entry points for
-#: ``chip_smoke._flash_parts``: ``stream`` K1s/K1sb, ``k1`` K1f/K1b), all
-#: causal and against the plain versions, that each group of mutants is
-#: held at: the f32 K1s/K1sb as phase 12 holds them; K1f as phase 1 does at
-#: the 2k training and 8k long-context shapes; K1b's wgmma pair there
-#: through K1b's entry and at 8k through K1sb's, the bf16 streamed
-#: backward.
+#: The cases (shape, dtype, the entry points: for
+#: ``chip_smoke._flash_parts`` the kernel pair, ``stream`` K1s/K1sb or
+#: ``k1`` K1f/K1b, all causal and against the plain versions; ``decode``
+#: K6 at a cache shape of ``chip_smoke.DECODE_CASES``) that each group of
+#: mutants is held at: the f32 K1s/K1sb as phase 12 holds them; K1f as
+#: phase 1 does at the 2k training and 8k long-context shapes, and through
+#: K1s's entry at 8k and 32k, the bf16 streamed forward; K1b's wgmma pair
+#: there through K1b's entry and at 8k and 32k through K1sb's, the bf16
+#: streamed backward; K6 at phase 1's two timed cases.
 MUTANT_CASES = {
     "stream": (((2, 8, 1024, 64), "float32", "stream"),
                ((1, 4, 1024, 128), "float32", "stream")),
     "k1f": (((16, 8, 2048, 64), "bfloat16", "k1"),
-            ((4, 8, 8192, 64), "bfloat16", "k1")),
+            ((4, 8, 8192, 64), "bfloat16", "k1"),
+            ((4, 8, 8192, 64), "bfloat16", "stream"),
+            ((1, 8, 32768, 64), "bfloat16", "stream")),
     "k1b": (((16, 8, 2048, 64), "bfloat16", "k1"),
             ((4, 8, 8192, 64), "bfloat16", "k1"),
             ((4, 8, 8192, 64), "bfloat16", "stream"),
             ((1, 8, 32768, 64), "bfloat16", "stream")),
+    "k6": (((8, 128, 8, 64), "float32", "decode"),
+           ((8, 128, 8, 64), "bfloat16", "decode"),
+           ((4, 4096, 8, 64), "float32", "decode"),
+           ((4, 4096, 8, 64), "bfloat16", "decode")),
 }
 
 
@@ -269,15 +292,26 @@ def mutants(kernels) -> list:
     import chip_smoke as cs
 
     g = torch.Generator(device="cuda").manual_seed(40)
+    lengths = dict(cs.DECODE_CASES)
     inputs = {}
+
+    def randn(shape, dt="float32"):
+        x = torch.randn(shape, generator=g, device="cuda")
+        return x.to(getattr(torch, dt))
+
     for cases in MUTANT_CASES.values():
-        for shape, dt, _ in cases:
-            if (shape, dt) not in inputs:
-                dtype = getattr(torch, dt)
-                x = [torch.randn(shape, generator=g, device="cuda").to(dtype)
-                     for _ in range(4)]
-                x.append(torch.randn(shape[:3], generator=g, device="cuda"))
-                inputs[shape, dt] = x
+        for shape, dt, pair in cases:
+            if (shape, dt) in inputs:
+                continue
+            if pair == "decode":
+                B, S, h, hd = shape
+                inputs[shape, dt] = (
+                    randn((B, h, hd), dt), randn(shape, dt), randn(shape, dt),
+                    torch.tensor(lengths[shape], dtype=torch.int32,
+                                 device="cuda"))
+            else:
+                inputs[shape, dt] = [randn(shape, dt) for _ in range(4)] + [
+                    randn(shape[:3])]
     real = (kernels._SRC_DIR, kernels._BUILD_DIR)
     runs = [(None, group) for group in MUTANT_CASES]
     runs += [(name, MUTANTS[name][1]) for name in MUTANTS]
@@ -293,9 +327,16 @@ def mutants(kernels) -> list:
                 kernels._SRC_DIR = os.path.join(root, "csrc")
                 kernels._BUILD_DIR = os.path.join(root, "build")
             for shape, dt, pair in MUTANT_CASES[group]:
-                q, k, v, do, g_lse = inputs[shape, dt]
-                parts, _ = cs._flash_parts(torch, kernels, q, k, v, do, g_lse,
-                                           True, "plain", pair)
+                if pair == "decode":
+                    q, ck, cv, lens = inputs[shape, dt]
+                    o = kernels.flash_decode(q, ck, cv, lens)
+                    po = kernels.flash_decode_plain(q, ck, cv, lens)
+                    parts = {"o": cs._decode_close(kernels, q, ck, cv, lens,
+                                                   o, po)}
+                else:
+                    q, k, v, do, g_lse = inputs[shape, dt]
+                    parts, _ = cs._flash_parts(torch, kernels, q, k, v, do,
+                                               g_lse, True, pair)
                 fails = max(parts.values()) > 1.0
                 if fails != (name is not None):
                     wrong.append(f"{name or 'unmutated'} {shape} {dt} {pair}")

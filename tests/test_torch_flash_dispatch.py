@@ -16,6 +16,8 @@ bf16 forward element by element as its test states, bf16 lse within
 are held against the same plain versions on the card by chip_smoke.py.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -144,11 +146,13 @@ def test_stream_gate():
     ((512, 64, 65536, 32), torch.bfloat16, "2\\^31"),
     ((512, 64, 65536, 32), torch.float32, None)])
 def test_streamed_backward_refuses_k1b_limits(shape, dtype, limit):
-    """The streamed forward's gate takes any t, but the bf16 streamed
-    backward launches K1b's wgmma pair: its check names the pair's limit
-    that refuses, the one K1f/K1b's own gate applies."""
+    """The streamed gate takes any t, but the bf16 streamed backward
+    launches K1b's wgmma pair: its check names the pair's limit that
+    refuses, the one K1f/K1b's own gate applies.  (The f32 streamed
+    forward, on ``csrc/flash_stream.cu``, takes every such shape.)"""
     q = torch.empty(shape, dtype=dtype, device="meta")
-    kernels._stream_check("fwd", q)
+    if dtype == torch.float32:
+        kernels._stream_check("fwd", q)
     assert kernels.flash_stream_supported(shape, dtype)
     if limit is None:
         kernels._stream_check("bwd", q, backward=True)
@@ -157,6 +161,37 @@ def test_streamed_backward_refuses_k1b_limits(shape, dtype, limit):
             kernels._stream_check("bwd", q, backward=True)
     assert kernels.flash_supported(shape, dtype) == (
         kernels._k1b_limit(shape, dtype) is None)
+
+
+@pytest.mark.parametrize("shape, dtype, limit", [
+    ((1, 1, 64 * 65535 + 1, 64), torch.bfloat16, "65535 64-row tiles"),
+    ((1, 1, 64 * 65535, 64), torch.bfloat16, None),
+    ((1, 1, 64 * 65535 + 1, 64), torch.float32, None),
+    ((512, 64, 65536, 32), torch.bfloat16, "2\\^31"),
+    ((512, 64, 65536, 32), torch.float32, None)])
+def test_streamed_forward_refuses_k1f_limits(shape, dtype, limit):
+    """The bf16 streamed forward launches K1f's wgmma kernel: a shape the
+    streamed gate takes but that kernel cannot (more than 65535 64-row
+    tiles, or b h t rows past its tensor maps' 2^31) is refused before any
+    launch, naming the limit; the f32 forward keeps the streamed gate."""
+    q = torch.empty(shape, dtype=dtype, device="meta")
+    assert kernels.flash_stream_supported(shape, dtype)
+    if limit is None:
+        kernels._stream_check("fwd", q)
+    else:
+        with pytest.raises(ValueError, match="K1f's wgmma kernel.*" + limit):
+            kernels._stream_check("fwd", q)
+
+
+@pytest.mark.parametrize("streamed, dtype, entry", [
+    (True, torch.bfloat16, ("flash_fwd", "ff_flash_fwd")),
+    (True, torch.float32, ("flash_stream", "ff_flash_stream_fwd")),
+    (False, torch.bfloat16, ("flash_fwd", "ff_flash_fwd")),
+    (False, torch.float32, ("flash_fwd", "ff_flash_fwd"))])
+def test_forward_entry(streamed, dtype, entry):
+    """The bf16 streamed forward (K1s) launches K1f's wgmma kernel; the f32
+    one keeps the FMA kernel of ``csrc/flash_stream.cu``."""
+    assert kernels.fwd_entry(streamed, dtype) == entry
 
 
 @pytest.mark.parametrize("streamed, dtype, entry", [
@@ -180,6 +215,34 @@ def test_flash_stream_keeps_only_the_f32_backward():
     entry = src.split('extern "C" int ff_flash_stream_bwd(', 1)[1]
     assert "if (dtype != ff::kFloat32) return (int)cudaErrorInvalidValue;" \
         in entry.split("}", 1)[0]
+
+
+def test_flash_stream_keeps_only_the_f32_forward():
+    """``csrc/flash_stream.cu``'s forward takes f32 operands only and its
+    C entry refuses any other dtype: no bf16 mma.sync K1s, and nothing of
+    the file is instantiated for bf16."""
+    with open(f"{kernels._SRC_DIR}/flash_stream.cu") as fh:
+        src = fh.read()
+    assert "stream_fwd_kernel(const float* __restrict__ q," in src
+    entry = src.split('extern "C" int ff_flash_stream_fwd(', 1)[1]
+    assert "if (dtype != ff::kFloat32) return (int)cudaErrorInvalidValue;" \
+        in entry.split("}", 1)[0]
+    attrs = src.split('extern "C" int ff_flash_stream_attrs(', 1)[1]
+    assert "dtype != ff::kFloat32" in attrs.split("}", 1)[0]
+    code = re.sub(r"//[^\n]*", "", src)
+    assert "__nv_bfloat16" not in code and "mma_bf16" not in code
+
+
+def test_k1f_mutant_is_held_through_the_streamed_entry():
+    """A dropped key tile in K1f must fail through K1s too, which launches
+    it in bf16, at both long-context shapes."""
+    from flexflow_torch.tools import stream_numerics as sn
+
+    assert [n for n, m in sn.MUTANTS.items() if m[0] == "flash_fwd.cu"] == [
+        "k1f-drops-key-tile"]
+    streamed = [c for c in sn.MUTANT_CASES["k1f"] if c[2] == "stream"]
+    assert streamed == [((4, 8, 8192, 64), "bfloat16", "stream"),
+                        ((1, 8, 32768, 64), "bfloat16", "stream")]
 
 
 def test_stream_mutants_each_match_the_source_once():

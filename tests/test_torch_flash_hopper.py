@@ -189,7 +189,9 @@ def test_wgmma_tile_issues_the_hopper_instructions():
 
 @pytest.mark.parametrize("source, kernel", [
     ("flash_fwd.cu", "_fwd_kernel"), ("flash_bwd.cu", "_dq_kernel"),
-    ("flash_bwd.cu", "_dkv_kernel")])
+    ("flash_bwd.cu", "_dkv_kernel"), ("flash_fwd.cu", "_fwd_stream_kernel"),
+    ("flash_stream.cu", "_fwd_stream_kernel"),
+    ("flash_decode.cu", "_decode_kernel")])
 def test_sources_name_the_kernel_they_replace(source, kernel):
     head = _source(source).split("#include")[0]
     assert f"pallas_kernels.py::{kernel}" in head or f"::{kernel}" in head

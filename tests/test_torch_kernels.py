@@ -124,6 +124,113 @@ def test_flash_decode_plain_bf16_matches_pallas():
     _bf16_agree(got, want)
 
 
+def _decode_arrays(seed, B=4, S=64, h=2, hd=16):
+    r = np.random.default_rng(seed)
+    return [r.standard_normal(s).astype(np.float32)
+            for s in ((B, h, hd), (B, S, h, hd), (B, S, h, hd))]
+
+
+#: Slots of length 1 and S = 64, and two between.
+DECODE_LENS = np.array([1, 7, 64, 33], np.int32)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_flash_decode_split_plain_matches_pallas(splits):
+    """K6's split-K formulation (per-chunk partials, merged in chunk
+    order) computes the Pallas decode's function: f32 within ``TOL``, at
+    1, 2, 3 and S / 8 chunks (a slot of one key leaves every chunk but
+    the first empty)."""
+    q, ck, cv = _decode_arrays(5)
+    want = pallas_kernels.flash_decode(jnp.asarray(q), jnp.asarray(ck),
+                                       jnp.asarray(cv), jnp.asarray(DECODE_LENS))
+    got = kernels.flash_decode_split_plain(
+        torch.from_numpy(q), torch.from_numpy(ck), torch.from_numpy(cv),
+        torch.from_numpy(DECODE_LENS), splits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_flash_decode_split_plain_bf16_matches_pallas(splits):
+    """bf16: each chunk rounds p against its own maximum, the Pallas
+    kernel against its running maximum (here one 64-key block: the row's
+    maximum), so a term may move by 2^-8 of itself before the f32 sums:
+    each element within ``2^-7 |o| + 2^-8 mass``, mass the f32 decode over
+    ``|v|`` (``chip_smoke.py``'s rule for K6 on the card), and never more
+    than one bf16 ulp of 1 apart.  With one chunk the rounding points are
+    the same, and the two agree as the one-pass plain version does."""
+    arrays = _decode_arrays(6)
+    want = pallas_kernels.flash_decode(
+        *(jnp.asarray(a, jnp.bfloat16) for a in arrays),
+        jnp.asarray(DECODE_LENS))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    lens = torch.from_numpy(DECODE_LENS)
+    got = kernels.flash_decode_split_plain(tq, tk, tv, lens, splits)
+    if splits == 1:
+        _bf16_agree(got, want)
+    mass = kernels.flash_decode_plain(tq.float(), tk.float(),
+                                      tv.float().abs(), lens).numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    err = np.abs(got.float().numpy() - want)
+    assert got.dtype == torch.bfloat16 and err.max() <= 2.0 ** -7
+    assert np.all(err <= 2.0 ** -7 * np.abs(want) + 2.0 ** -8 * mass)
+
+
+@pytest.mark.parametrize("splits", [5, 7, 10, 64])
+def test_flash_decode_split_plain_takes_ragged_and_empty_chunks(splits):
+    """Chunk lengths that do not divide S (the last chunk short) and chunk
+    counts that leave trailing chunks with no key at all agree with the
+    one-pass plain version."""
+    q, ck, cv = (torch.from_numpy(a) for a in _decode_arrays(7, S=61))
+    lens = torch.tensor([61, 1, 30, 59], dtype=torch.int32)
+    want = kernels.flash_decode_plain(q, ck, cv, lens)
+    got = kernels.flash_decode_split_plain(q, ck, cv, lens, splits)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("shape, splits", [
+    ((8, 128, 8), 4),       # the serve shape: 32-key chunks, 256 CTAs
+    ((4, 4096, 8), 17),     # a long cache: 241-key chunks, 544 CTAs
+    ((1, 4096, 8), 66),
+    ((2, 1000, 4), 31),     # 33-key chunks, the last one 10
+    ((33, 256, 8), 2),      # B h = 264
+    ((66, 64, 8), 1),       # B h = 528: one CTA per (b, head)
+    ((1, 32768, 1), 128),   # the most splits
+    ((1, 31, 1), 1),        # under two 32-key chunks
+    ((2, 8, 2), 1)])
+def test_decode_splits(shape, splits):
+    """K6's split count comes from (B, S, h) alone: four CTAs per SM of an
+    H100 where chunks of 32 keys or more allow it, at most 128 splits,
+    and every chunk of ceil(S / splits) keys starting before S."""
+    B, S, h = shape
+    n = kernels.decode_splits(B, S, h)
+    assert n == splits
+    chunk = -(-S // n)
+    assert (n - 1) * chunk < S and (n == 1 or chunk >= 32)
+
+
+def _decode_code():
+    with open(os.path.join(kernels._SRC_DIR, "flash_decode.cu")) as fh:
+        return re.sub(r"//[^\n]*", "", fh.read())
+
+
+def test_flash_decode_only_atomic_is_the_integer_ticket():
+    """K6 merges its splits in a fixed order, so two launches give the
+    same bits: its one atomic is the integer ticket of each (b, head),
+    and the launch leaves the ticket at 0."""
+    code = _decode_code()
+    assert re.findall(r"\batomic\w*\([^;]*|\bred\.|\batom\.", code) == [
+        "atomicAdd(tickets + bh, 1u)"]
+    assert "unsigned int* __restrict__ tickets" in code
+    assert "tickets[bh] = 0u;" in code
+    assert "__threadfence();" in code
+
+
+def test_flash_decode_reaches_no_library():
+    code = _decode_code().lower()
+    for banned in ("cublas", "cudnn", "cutlass", "cute/", "torch/"):
+        assert banned not in code, banned
+
+
 @pytest.mark.parametrize("which", ["fwd", "decode"])
 def test_non_cpu_tensors_never_fall_back(which):
     """A tensor off the CPU goes to the kernel or raises: never to the
