@@ -113,14 +113,20 @@ Fifteen phases, in order; any failure raises and exits non-zero:
 14. **Long-context parity.**  Phase 6's f32 step under the streamed
     dispatch: K1s/K1sb on the card against the plain versions on the CPU.
 15. **Probe kernels.**  The kernels of the P1/P2 race (v2, v3, v4 of
-    ``csrc/flash_probe.cu``, b2 of ``csrc/flash_probe_bwd.cu``) against
-    their plain versions element by element with ``TOL_ELEM`` (the
-    forward variants by K1f's rule, b2 by ``stream_bwd``) at every block
-    they instantiate: (16, 8, 2048, 64) bf16 causal, non-causal, f32, hd
-    128 and ragged t (1, 80, 130, 200); at (4, 8, 8192, 64) against the
-    plain versions run one batch row at a time and against K1f/K1b (twice
-    ``TOL_ELEM``); exact launch counts.  Device times at the race's
-    shapes beside the bound, the plain version and SDPA.  Then the path
+    ``csrc/flash_probe.cu``, in bf16 v3 and v4 on ``wgmma``; b2 of
+    ``csrc/flash_probe_bwd.cu``) against their plain versions element by
+    element with ``TOL_ELEM`` (the forward variants by K1f's rule, b2 by
+    ``stream_bwd``) at every block they instantiate: (16, 8, 2048, 64)
+    bf16 causal, non-causal, f32, hd 128, ragged t (1, 80, 130, 200) and
+    two shapes whose key tiles wrap the two-pass kernels' ring across its
+    passes (``PROBE_WRAP``); v3 and v4 bit-identical across two launches;
+    at (4, 8, 8192, 64) against the plain versions run one batch row at a
+    time and against K1f/K1b (twice ``TOL_ELEM``); v4 issues every
+    product and v3 stops at the diagonal (``_probe_poison``); exact launch
+    counts.  Registers, spills and shared memory of the bf16 v3 and v4.
+    Device times at the race's shapes beside the bound of the causal
+    function and of the products each variant does, the plain version and
+    SDPA.  Then the path
     that runs them: ``flexflow_torch.tools.probe_flash_variants`` and
     ``probe_flash_bwd_variants`` in-process at (16, 8, 2048, 64) and (4,
     8, 8192, 64); every variant prints a finite positive time and an
@@ -1773,6 +1779,21 @@ PROBE_RACE = ((16, 8, 2048, 64), (4, 8, 8192, 64))
 #: bf16 ulps.  It checks that a race times the function it names; the race
 #: kernels are held element by element before it.
 TOL_RACE = 2.0 ** -5
+#: Shapes whose key tiles wrap the bf16 two-pass kernels' ring (depth 3)
+#: across their two passes, with (shape, causal): 2 to 10 key tiles per
+#: CTA at blocks 64 and 128, most not a multiple of the depth.
+PROBE_WRAP = (((1, 2, 640, 128), True), ((1, 2, 450, 64), False))
+def race_products(name: str, t: int) -> float:
+    """The products the race kernel ``name`` does at length ``t``, in units
+    of the causal function's (``t (t + 1) / 2`` score pairs, two products
+    each): v3 recomputes Q K^T in its second pass (1.5), v4 runs both
+    passes over every key (``3 t^2 / t (t + 1)``, about 3); 1 for the
+    others."""
+    pairs = t * (t + 1) / 2
+    return {"flash_fwd_two_pass": 1.5,
+            "flash_fwd_full_row": 1.5 * t * t / pairs}.get(name, 1.0)
+
+
 #: The kernel wrapper each race variant launches (None: the yardstick).
 RACE_WRAPPERS = {
     "v1_base": "flash_attention_lse", "v2_lanes": "flash_fwd_row_state",
@@ -1818,6 +1839,12 @@ def _probe_hold(torch, kernels, probe, q, k, v, do, g_lse, causal, block,
         parts[fn.__name__] = _close(o, po, mass, factor * rtol,
                                     factor * arel)
         errs[fn.__name__] = (o.float() - po.float()).abs().max().item()
+        if fn is not probe.flash_fwd_row_state:
+            again = fn(q, k, v, causal, block)
+            calls[fn.__name__] += 1
+            _check(torch.equal(o, again), f"{fn.__name__} {tuple(q.shape)} "
+                   f"block {block}: two launches differ")
+            del again
         del o
     del mass
     delta = (po.float() * do.float()).sum(dim=-1) - g_lse
@@ -1841,6 +1868,37 @@ def _probe_hold(torch, kernels, probe, q, k, v, do, g_lse, causal, block,
                f"{k} {v:.3g}" for k, v in parts.items())
            + " of the element tolerance")
     return worst, errs
+
+
+def _probe_poison(torch, kernels, probe, q, k, v, block, calls,
+                  plain: bool = False):
+    """The formulations' key ranges, causal, with a NaN at the last key of
+    ``v``: v4 multiplies every key tile's ``v`` by its ``p`` (an exact 0
+    above the diagonal), so every row of its ``o`` is NaN, as in
+    ``_v4_kernel``'s one product over the row and in the plain version's
+    (checked with ``plain``); v3 stops each 64-row warpgroup at its
+    diagonal, so its rows before the last key's tile stay finite and its
+    last row is NaN.  Returns {"v3", "v4"(, "plain"): 0.0 if the NaN rows
+    are as they must be, else inf}."""
+    t = q.shape[-2]
+    vp = v.clone()
+    vp[..., t - 1, :] = float("nan")
+    k0 = (t - 1) // block * block  # the first key of the last key tile
+    parts = {}
+    with torch.no_grad():
+        nan4 = probe.flash_fwd_full_row(q, k, vp, True, block).isnan().any(-1)
+        nan3 = probe.flash_fwd_two_pass(q, k, vp, True, block).isnan().any(-1)
+        calls["flash_fwd_full_row"] += 1
+        calls["flash_fwd_two_pass"] += 1
+        parts["v4"] = 0.0 if bool(nan4.all()) else math.inf
+        parts["v3"] = 0.0 if bool(nan3[..., t - 1].all()) and not bool(
+            nan3[..., :k0].any()) else math.inf
+        if plain:
+            po = _per_row(lambda x, y, z: kernels.flash_attention_lse_plain(
+                x, y, z, True), q, k, vp, heads=True)[0]
+            parts["plain"] = 0.0 if bool(po.isnan().any(-1).all()) else \
+                math.inf
+    return parts
 
 
 def phase_probe_kernels(torch, kernels, F, rows):
@@ -1872,6 +1930,7 @@ def phase_probe_kernels(torch, kernels, F, rows):
              ((1, 4, 256, 128), False, f32), ((1, 8, 80, 64), True, bf16),
              ((1, 8, 1, 64), True, f32), ((1, 2, 130, 128), False, bf16),
              ((1, 2, 200, 64), False, f32), ((1, 2, 200, 128), True, f32)]
+    cases += [(shape, causal, bf16) for shape, causal in PROBE_WRAP]
     worst, err_train = 0.0, {}
     for shape, causal, dt in cases:
         q, k, v, do = (randn(shape, dt) for _ in range(4))
@@ -1886,8 +1945,26 @@ def phase_probe_kernels(torch, kernels, F, rows):
     torch.cuda.synchronize()
     print(f"[probe-kernels] {len(cases)} shapes x blocks {blocks} against "
           f"the plain versions (v2, v3, v4: o; b2: dq, dk, dv; causal and "
-          f"not, f32 and bf16, hd 64/128, t = 1 to 2048): worst element "
-          f"{worst:.3g} of its tolerance")
+          f"not, f32 and bf16, hd 64/128, t = 1 to 2048, the ring-wrapping "
+          f"{[s for s, _ in PROBE_WRAP]}): worst element {worst:.3g} of its "
+          f"tolerance; v3 and v4 bit-identical across two launches")
+    for shape, plain in ((train, False), (PROBE_WRAP[0][0], True)):
+        q, k, v = (randn(shape, bf16) for _ in range(3))
+        for block in blocks:
+            parts = _probe_poison(torch, kernels, probe, q, k, v, block, calls,
+                                  plain)
+            _check(max(parts.values()) == 0.0, f"{shape} block {block}, a "
+                   f"NaN at the last key: {parts} (v4 must reach every "
+                   f"row, v3 stop at the diagonal)")
+        del q, k, v
+    print(f"[probe-kernels] a NaN at the last key of v, causal: every row of "
+          f"v4 NaN, v3's rows before the last key tile finite, at "
+          f"{train} and {PROBE_WRAP[0][0]}, blocks {blocks}")
+    for variant, fn in ((1, "flash_fwd_two_pass"), (2, "flash_fwd_full_row")):
+        attrs = {(hd, blk): probe.probe_attrs(variant, hd, blk)
+                 for hd in probe.PROBE_HEAD_DIMS for blk in blocks}
+        print(f"[probe-kernels] {fn} bf16 (wg_two_pass_kernel) registers, "
+              f"spill bytes, shared memory by (hd, block): {attrs}")
     q, k, v, do = (randn(long, bf16) for _ in range(4))
     g_lse = randn(long[:3], f32)
     for block in blocks:
@@ -1945,15 +2022,25 @@ def phase_probe_kernels(torch, kernels, F, rows):
                     for block in blocks}
             bound, by = (bb, bby) if bwd else (fb, fby)
             plain, lib = (pb, lb) if bwd else (pf, lf)
+            extra = {}
+            if fn.__name__ in ("flash_fwd_two_pass", "flash_fwd_full_row"):
+                extra["bound_done_ms"], _ = _bound_ms(
+                    4 * b * h * t * hd * 2,
+                    race_products(fn.__name__, t) * 4 * b * h * hd * pairs,
+                    "bfloat16")
             print(f"[probe-kernels] {fn.__name__} {shape} bf16 causal: "
-                  + ", ".join(f"block {blk} {m:.4f} ms" for blk, m in
+                  + ", ".join(f"block {blk} {m:.6f} ms" for blk, m in
                               ms.items())
-                  + f" ({min(ms.values()) / bound:.1f}x its bound {bound:.5f} "
-                  f"by {by}; plain {plain:.4f}"
+                  + f" ({min(ms.values()) / bound:.1f}x its bound {bound:.6f} "
+                  f"by {by}"
+                  + (f", {min(ms.values()) / extra['bound_done_ms']:.2f}x the "
+                     f"bound {extra['bound_done_ms']:.6f} of the products it "
+                     f"does" if extra else "")
+                  + f"; plain {plain:.6f}"
                   f"{'' if full else ', one batch row at a time'}; sdpa "
-                  f"{'backward' if bwd else 'forward'} {lib:.4f})")
+                  f"{'backward' if bwd else 'forward'} {lib:.6f})")
             row = dict(ms=ms[blocks[0]], ms_by_block=ms, plain_ms=plain,
-                       bound_ms=bound, bound_by=by, library_ms=lib)
+                       bound_ms=bound, bound_by=by, library_ms=lib, **extra)
             if leg == "train":
                 out[fn.__name__] = dict(max_abs_err=err_train[fn.__name__],
                                         **row)
@@ -2112,6 +2199,11 @@ def main() -> int:
             entry["f32_source"] = src + "flash_stream.cu"
             entry["longctx_32k_shape"] = rows[
                 "flash_attention_lse_streamed_bwd@32k"]
+        if name in ("flash_fwd_two_pass", "flash_fwd_full_row"):
+            entry["bf16_kernel"] = ("wg_two_pass_kernel: wgmma from TMA-fed "
+                                    "shared memory (csrc/wgmma_tile.cuh, "
+                                    "csrc/flash_wg.cuh)")
+            entry["f32_kernel"] = "two_pass_kernel: FMA (csrc/mma_tile.cuh)"
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     smi = subprocess.run(

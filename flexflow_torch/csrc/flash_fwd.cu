@@ -16,15 +16,16 @@
 // bound by launch latency.
 //
 // bf16: wgmma from TMA-fed shared memory (wg_fwd_kernel, the machinery of
-// wgmma_tile.cuh).  One CTA per (bh, 128-row q tile), heaviest causal tiles
-// first, of three warpgroups: a producer whose one thread keeps TMA loads
-// in flight (q once, then the 128-key K/V tiles through a three-stage
-// mbarrier ring) and gives its registers up (setmaxnreg), and two consumer
-// warpgroups of 64 query rows each.  A consumer computes S = Q K^T by wgmma
-// with both operands in shared memory, runs the online softmax on the f32
-// accumulator in registers (exp2 with log2(e) folded into the scale; the
-// row max and sum over the four threads of a quad), rounds P to bf16 in
-// registers as the A operand of O += P V (V read MN-major by the
+// wgmma_tile.cuh; its two products are flash_wg.cuh's, shared with the
+// race's two-pass kernels).  One CTA per (bh, 128-row q tile), heaviest
+// causal tiles first, of three warpgroups: a producer whose one thread keeps
+// TMA loads in flight (q once, then the 128-key K/V tiles through a
+// three-stage mbarrier ring) and gives its registers up (setmaxnreg), and
+// two consumer warpgroups of 64 query rows each.  A consumer computes S = Q
+// K^T by wgmma with both operands in shared memory, runs the online softmax
+// on the f32 accumulator in registers (exp2 with log2(e) folded into the
+// scale; the row max and sum over the four threads of a quad), rounds P to
+// bf16 in registers as the A operand of O += P V (V read MN-major by the
 // descriptor's transpose bit), and stops at its own causal diagonal: tiles
 // below it run unmasked, the straddling one masked.  The head dim is padded
 // to a tile width of 32, 64 or 128: the tensor maps zero-fill the columns
@@ -41,6 +42,7 @@
 // registers; 16 row groups x 8 lanes, a thread owning 4 query rows and 8
 // strided key columns of a score tile.
 #include "common.cuh"
+#include "flash_wg.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -220,39 +222,6 @@ constexpr int kStages = 3;     // K/V ring depth
 constexpr int kWgThreads = 384;  // warpgroups 0, 1 consume; 2 produces
 constexpr float kLog2e = 1.4426950408889634f;
 
-// S (64 x kWgBN per warpgroup, f32) = Q K^T, from the warpgroup's 64 rows
-// of the Q tile and the K tile kt: issued, not committed.
-template <int HDP>
-__device__ __forceinline__ void issue_scores(float* s, const uint8_t* qs,
-                                             const uint8_t* kt, int wgi) {
-  using QT = Tile<HDP, kWgBM>;
-  using KT = Tile<HDP, kWgBN>;
-#pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk) {
-#pragma unroll
-    for (int nb = 0; nb < kWgBN / 64; ++nb) {
-      mma_ss_n64(s + 32 * nb, QT::kmajor(qs, wgi * 64, kk),
-                 KT::kmajor(kt, 64 * nb, kk), kk > 0);
-    }
-  }
-}
-
-// O += P V, P in registers (bf16 A fragments), V the tile vt read
-// MN-major: issued, not committed.
-template <int HDP>
-__device__ __forceinline__ void issue_pv(float (*acc)[Tile<HDP, kWgBN>::kW / 2],
-                                         const uint32_t (*pa)[4],
-                                         const uint8_t* vt) {
-  using KT = Tile<HDP, kWgBN>;
-#pragma unroll
-  for (int kk = 0; kk < kWgBN / 16; ++kk) {
-#pragma unroll
-    for (int p = 0; p < KT::kPanels; ++p) {
-      mma_rs<KT::kW>(acc[p], pa[kk], KT::mnmajor(vt, kk, p), 1);
-    }
-  }
-}
-
 // The online softmax on one tile of raw scores s (kS per thread, keys
 // from k0): with `edge`, keys past t (and, causal, past the row) are
 // masked with the finite -1e30; the row max m stays in raw units, so the
@@ -294,16 +263,8 @@ __device__ __forceinline__ void softmax_tile(float* s, float* m, float* l,
 }
 
 template <int HDP>
-struct FwdSmem {
-  using QT = Tile<HDP, kWgBM>;
-  using KT = Tile<HDP, kWgBN>;
-  static constexpr int kK = QT::kBytes;
-  static constexpr int kV = kK + kStages * KT::kBytes;
-  static constexpr int kBars = kV + kStages * KT::kBytes;
-  // + the q barrier, + 1024 bytes to align the base.
-  static constexpr int kBytes = kBars + (int)sizeof(Ring<kStages>) + 8 + 1024;
-};
-static_assert(FwdSmem<128>::kBytes <= 227 * 1024, "K1f's ring at hd 128");
+using K1fSmem = FwdSmem<HDP, kWgBM, kWgBN, kStages>;
+static_assert(K1fSmem<128>::kBytes <= 227 * 1024, "K1f's ring at hd 128");
 
 template <int HDP>
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -314,7 +275,7 @@ wg_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
               int hd, int causal, float scale) {
   using QT = Tile<HDP, kWgBM>;
   using KT = Tile<HDP, kWgBN>;
-  using SM = FwdSmem<HDP>;
+  using SM = K1fSmem<HDP>;
   using R = Ring<kStages>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
@@ -385,7 +346,7 @@ wg_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       ring->wait(0);
       pin<kS>(s);
       mma_fence();
-      issue_scores<HDP>(s, qs, ks, wgi);
+      issue_scores<HDP, kWgBM, kWgBN>(s, qs, ks, wgi);
       mma_commit();
       mma_wait<0>();
       pin<kS>(s);
@@ -398,9 +359,10 @@ wg_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
         for (int p = 0; p < kP; ++p) pin<kAcc>(acc[p]);
         mma_fence();
-        issue_scores<HDP>(s, qs, ks + R::stage(j) * KT::kBytes, wgi);
+        issue_scores<HDP, kWgBM, kWgBN>(s, qs, ks + R::stage(j) * KT::kBytes,
+                                        wgi);
         mma_commit();
-        issue_pv<HDP>(acc, pa, vs + R::stage(j - 1) * KT::kBytes);
+        issue_pv<HDP, kWgBN>(acc, pa, vs + R::stage(j - 1) * KT::kBytes);
         mma_commit();
         mma_wait<1>();  // S has landed; P V may still run
         pin<kS>(s);
@@ -420,7 +382,7 @@ wg_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int p = 0; p < kP; ++p) pin<kAcc>(acc[p]);
       mma_fence();
-      issue_pv<HDP>(acc, pa, vs + R::stage(nk_wg - 1) * KT::kBytes);
+      issue_pv<HDP, kWgBN>(acc, pa, vs + R::stage(nk_wg - 1) * KT::kBytes);
       mma_commit();
       mma_wait<0>();
 #pragma unroll
@@ -470,7 +432,7 @@ cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o,
   if (err == cudaSuccess) err = tile_map<HDP, kWgBN>(&mk, k, hd, t, bh);
   if (err == cudaSuccess) err = tile_map<HDP, kWgBN>(&mv, v, hd, t, bh);
   if (err != cudaSuccess) return err;
-  constexpr int smem = FwdSmem<HDP>::kBytes;
+  constexpr int smem = K1fSmem<HDP>::kBytes;
   err = cudaFuncSetAttribute(wg_fwd_kernel<HDP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -493,7 +455,7 @@ cudaError_t attrs_wg(int* out) {
   const cudaError_t err = cudaFuncGetAttributes(&a, wg_fwd_kernel<HDP>);
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = FwdSmem<HDP>::kBytes;
+  out[2] = K1fSmem<HDP>::kBytes;
   return err;
 }
 

@@ -1,8 +1,9 @@
 // Hopper tile machinery of the bf16 flash kernels (flash_fwd.cu,
-// flash_bwd.cu): TMA tensor maps and loads that complete on an mbarrier,
-// the mbarrier ring, shared-memory matrix descriptors for the 128- and
-// 64-byte swizzles, wgmma (operands in shared memory, or A in registers)
-// and setmaxnreg.  Nothing here is specific to attention.
+// flash_bwd.cu, the race's two-pass kernels of flash_probe.cu): TMA tensor
+// maps and loads that complete on an mbarrier, the mbarrier ring,
+// shared-memory matrix descriptors for the 128- and 64-byte swizzles,
+// wgmma (operands in shared memory, or A in registers) and setmaxnreg.
+// Nothing here is specific to attention.
 //
 // Layout of a tile in shared memory.  A (rows x HDP) bf16 tile, HDP the
 // padded width (32, 64 or 128 columns), is stored as HDP / W panels of
@@ -148,20 +149,48 @@ __device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
-// Waits for the completion of the phase of parity `parity` (a fresh
-// barrier is in phase 0: parity 1 passes at once).
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
+// One test of the phase of parity `parity` (a fresh barrier is in phase 0:
+// parity 1 passes at once).
+__device__ __forceinline__ bool bar_try(uint64_t* bar, uint32_t parity) {
   uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// A bound on bar_wait: waits of a sound protocol last microseconds.
+constexpr uint32_t kWaitTrapNs = 2000000000u;
+
+// Waits for the completion of the phase of parity `parity`, and traps when
+// it has not completed within kWaitTrapNs of the device's nanosecond
+// clock: a protocol fault (a wait on a phase that never comes) then fails
+// the launch with an error instead of hanging the card.  After a first
+// test, the loop is one asm block that holds the clock's low 32 bits
+// (their difference is exact below 4.29 s) in one register: the waits sit
+// where every accumulator register is live, and the same loop in C, with
+// two more, spilled the race's two-pass kernel at hd 128 and 128-key tiles.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  if (bar_try(bar, parity)) return;
+  uint32_t t0;
+  asm volatile("mov.u32 %0, %%globaltimer_lo;\n" : "=r"(t0));
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 dt;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra LAB_DONE;\n"
+      "mov.u32 dt, %%globaltimer_lo;\n"
+      "sub.u32 dt, dt, %2;\n"
+      "setp.gt.u32 p, dt, %3;\n"
+      "@p trap;\n"
+      "bra LAB_WAIT;\n"
+      "LAB_DONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity), "r"(t0), "n"(kWaitTrapNs)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,

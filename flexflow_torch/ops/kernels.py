@@ -166,9 +166,11 @@ def _load(name: str) -> ctypes.CDLL:
         lib.ff_scatter_scratch_bytes.argtypes = [ll, i]
         lib.ff_scatter_scratch_bytes.restype = ll
     elif name == "flash_probe":
-        lib.ff_flash_probe_fwd.argtypes = [i] + [p] * 4 + [i, i, i, i, f, i,
-                                                              i, p]
-        lib.ff_flash_probe_fwd.restype = i
+        for fn in (lib.ff_flash_probe_fwd, lib.ff_flash_probe_fwd_wg):
+            fn.argtypes = [i] + [p] * 4 + [i, i, i, i, f, i, i, p]
+            fn.restype = i
+        lib.ff_flash_probe_wg_attrs.argtypes = [i, i, i, p]
+        lib.ff_flash_probe_wg_attrs.restype = i
     elif name == "flash_probe_bwd":
         lib.ff_flash_probe_bwd.argtypes = [p] * 9 + [i, i, i, i, f, i, i, p]
         lib.ff_flash_probe_bwd.restype = i

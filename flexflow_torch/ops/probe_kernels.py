@@ -19,8 +19,9 @@ hd)``: the probes' ``(bh, t, hd)`` or the port's ``(b, h, t, hd)``.
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,7 +29,8 @@ from flexflow_torch.ops import kernels
 from flexflow_torch.ops.kernels import _dense, _load, _raise_on
 
 #: Key-tile widths (the races' ``--blocks``) the kernels are instantiated
-#: for; the query tile is 64 rows (4 warps of 16).
+#: for; the query tile is 128 rows (two warpgroups of 64) in the bf16 v3
+#: and v4, 64 rows (4 warps of 16) in the other kernels.
 PROBE_BLOCKS = (64, 128)
 #: Head dims the kernels are instantiated for.
 PROBE_HEAD_DIMS = (64, 128)
@@ -88,6 +90,30 @@ flash_fwd_two_pass_plain = _fwd_plain
 flash_fwd_full_row_plain = _fwd_plain
 
 
+def probe_entry(variant: int, dtype) -> str:
+    """The C entry of ``flash_probe`` a forward variant (0 v2, 1 v3, 2 v4) of
+    ``dtype`` launches.  bf16 v3 and v4 take ``ff_flash_probe_fwd_wg``,
+    the two-pass kernel on K1f's machinery (``wgmma`` from TMA-fed shared
+    memory, ``csrc/wgmma_tile.cuh``); v2 and every f32 variant take
+    ``ff_flash_probe_fwd``, the race's ``csrc/mma_tile.cuh`` kernels
+    (``mma.sync`` in bf16, the FMA pipes in f32: ``wgmma`` takes f32 only
+    as TF32).  Both live in ``csrc/flash_probe.cu`` and share one C
+    signature."""
+    if dtype == torch.bfloat16 and variant in (1, 2):
+        return "ff_flash_probe_fwd_wg"
+    return "ff_flash_probe_fwd"
+
+
+def probe_attrs(variant: int, hd: int, block: int) -> Tuple[int, int, int]:
+    """(registers per thread, spill bytes per thread, dynamic shared
+    memory) of the bf16 two-pass kernel of v3 (``variant`` 1) or v4 (2) at
+    head dim ``hd`` and key tile ``block``; on the card only."""
+    out = (ctypes.c_int * 3)()
+    _raise_on(_load("flash_probe").ff_flash_probe_wg_attrs(
+        variant, hd, block, out), "probe_attrs")
+    return tuple(out)
+
+
 def _probe_fwd(wrapper, variant: int, q, k, v, causal, block):
     what = wrapper.__name__
     _gate(what, block, q, k, v)
@@ -97,7 +123,7 @@ def _probe_fwd(wrapper, variant: int, q, k, v, causal, block):
     t, hd = q.shape[-2:]
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _load("flash_probe").ff_flash_probe_fwd(
+    err = getattr(_load("flash_probe"), probe_entry(variant, q.dtype))(
         variant, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         q.numel() // (t * hd), t, hd, int(bool(causal)),
         1.0 / math.sqrt(hd), code, block, stream,
@@ -121,7 +147,7 @@ def flash_fwd_two_pass(q, k, v, causal: bool = True, block: int = 64):
     then ``exp(s - m)``, its sum and ``P.V`` with no corrections; the
     scores are recomputed in the second pass.  The causal loops stop at
     the diagonal.  The port of ``_v3_kernel``; source
-    ``csrc/flash_probe.cu``."""
+    ``csrc/flash_probe.cu`` (bf16 on ``wgmma``, :func:`probe_entry`)."""
     return _probe_fwd(flash_fwd_two_pass, 1, q, k, v, causal, block)
 
 
@@ -129,7 +155,7 @@ def flash_fwd_full_row(q, k, v, causal: bool = True, block: int = 64):
     """``o`` by one softmax over each whole masked row: the two passes of
     :func:`flash_fwd_two_pass` over every key tile, keys above the
     diagonal included.  The port of ``_v4_kernel``; source
-    ``csrc/flash_probe.cu``."""
+    ``csrc/flash_probe.cu`` (bf16 on ``wgmma``, :func:`probe_entry`)."""
     return _probe_fwd(flash_fwd_full_row, 2, q, k, v, causal, block)
 
 

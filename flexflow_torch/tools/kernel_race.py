@@ -1,5 +1,5 @@
-"""This checkout's K6 and bf16 K1s beside another checkout's, in one
-process on the card.
+"""This checkout's K6, bf16 K1s, K1f, K1b and the race's bf16 v3 and v4 beside
+another checkout's, in one process on the card.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -18,12 +18,23 @@ function and the bound, at the main path's shapes:
   (``chip_smoke.DECODE_TIMED``), f32 and bf16, with this checkout's split
   count, beside SDPA's masked call;
 - K1s (``flash_attention_lse_streamed``) at the long-context shapes (4, 8,
-  8192, 64) and (1, 8, 32768, 64) bf16 causal, beside SDPA.
+  8192, 64) and (1, 8, 32768, 64) bf16 causal, beside SDPA;
+- K1f (``flash_attention_lse``) and the race's v3 (``flash_fwd_two_pass``)
+  and v4 (``flash_fwd_full_row``) of ``flexflow_torch/ops/probe_kernels.py``
+  at the race's shapes (``chip_smoke.PROBE_RACE``: (16, 8, 2048, 64) and
+  (4, 8, 8192, 64) bf16 causal), v3 and v4 at both blocks, beside SDPA,
+  the bound of the causal function and the bound of the products each
+  variant does (``chip_smoke.race_products``).
+  The other checkout's ``probe_kernels.py`` is loaded bound to its own
+  ``kernels.py``.
 
 Before the times, each pair is held together: K6's outputs by
 ``chip_smoke._decode_close`` against the plain version on both sides;
-K1s's ``o`` and ``lse`` by K1f's element rule against each other.  The
-card's name and power limit come first.
+K1s's ``o`` and ``lse``, and v3's and v4's ``o``, by twice K1f's element
+rule against each other; K1f's ``o`` and ``lse`` and K1b's ``dq``, ``dk``
+and ``dv`` (``flash_attention_lse_bwd``, timed at the race's shapes too)
+must be bit-identical.
+The card's name and power limit come first.
 """
 
 from __future__ import annotations
@@ -41,6 +52,26 @@ def _other_kernels(root: str):
     spec = importlib.util.spec_from_file_location("other_kernels", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def _other_probe(root: str, theirs):
+    """``root``'s ``flexflow_torch/ops/probe_kernels.py`` as its own
+    module, bound to ``theirs`` (``root``'s ``kernels.py``, from
+    :func:`_other_kernels`) in place of this checkout's."""
+    import flexflow_torch.ops as ops
+    from flexflow_torch.ops import kernels as ours
+
+    name = "flexflow_torch.ops.kernels"
+    path = os.path.join(root, "flexflow_torch", "ops", "probe_kernels.py")
+    spec = importlib.util.spec_from_file_location("other_probe_kernels",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = ops.kernels = theirs
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.modules[name] = ops.kernels = ours
     return mod
 
 
@@ -121,6 +152,73 @@ def streamed(cs, ours, theirs, F) -> None:
         torch.cuda.empty_cache()
 
 
+def race(cs, ours, theirs, ours_probe, theirs_probe, F) -> None:
+    g = torch.Generator(device="cuda").manual_seed(52)
+    rtol, arel = cs.TOL_ELEM["fwd"]["bfloat16"]
+    for shape in cs.PROBE_RACE:
+        b, h, t, hd = shape
+        q, k, v = (torch.randn(shape, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        pairs = t * (t + 1) // 2
+        nbytes = 4 * b * h * t * hd * 2
+        flops = 4 * b * h * hd * pairs
+        bound, by = cs._bound_ms(nbytes, flops, "bfloat16")
+        with torch.no_grad():
+            t_lib = cs._device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True))
+            same = all(torch.equal(a, c) for a, c in zip(
+                ours.flash_attention_lse(q, k, v, True),
+                theirs.flash_attention_lse(q, k, v, True)))
+            cs._check(same, f"K1f {shape}: not bit-identical to the other "
+                      f"checkout's")
+            t_theirs, t_ours = cs._pair_ms(
+                lambda: theirs.flash_attention_lse(q, k, v, True),
+                lambda: ours.flash_attention_lse(q, k, v, True))
+            print(f"[kernel-race] flash_attention_lse {shape} bf16 causal: "
+                  f"ours {t_ours:.6f} ms, theirs {t_theirs:.6f} ms "
+                  f"({t_theirs / t_ours:.3f}x), bit-identical; sdpa "
+                  f"{t_lib:.6f}, bound {bound:.6f} by {by}", flush=True)
+            o, lse = ours.flash_attention_lse(q, k, v, True)
+            do = torch.randn(shape, generator=g, device="cuda").to(q.dtype)
+            g_lse = torch.randn(lse.shape, generator=g, device="cuda")
+            bwd = lambda m: m.flash_attention_lse_bwd(q, k, v, o, lse, do,
+                                                      g_lse, True)
+            same = all(torch.equal(a, c) for a, c in zip(bwd(ours),
+                                                         bwd(theirs)))
+            cs._check(same, f"K1b {shape}: not bit-identical to the other "
+                      f"checkout's")
+            t_theirs, t_ours = cs._pair_ms(lambda: bwd(theirs),
+                                           lambda: bwd(ours))
+            print(f"[kernel-race] flash_attention_lse_bwd {shape} bf16 "
+                  f"causal: ours {t_ours:.6f} ms, theirs {t_theirs:.6f} ms "
+                  f"({t_theirs / t_ours:.3f}x), bit-identical", flush=True)
+            del o, lse, do, g_lse
+            mass = ours.flash_attention_lse(q, k, v.abs(), True)[0]
+            for name in ("flash_fwd_two_pass", "flash_fwd_full_row"):
+                done, _ = cs._bound_ms(
+                    nbytes, cs.race_products(name, t) * flops, "bfloat16")
+                mine, other = (getattr(p, name)
+                               for p in (ours_probe, theirs_probe))
+                for block in ours_probe.PROBE_BLOCKS:
+                    held = cs._close(mine(q, k, v, True, block),
+                                     other(q, k, v, True, block), mass,
+                                     2 * rtol, 2 * arel)
+                    cs._check(held <= 1.0, f"{name} {shape} block {block}: "
+                              f"{held} of twice the element tolerance")
+                    t_theirs, t_ours = cs._pair_ms(
+                        lambda: other(q, k, v, True, block),
+                        lambda: mine(q, k, v, True, block))
+                    print(f"[kernel-race] {name} {shape} bf16 causal block "
+                          f"{block}: ours {t_ours:.6f} ms, theirs "
+                          f"{t_theirs:.6f} ms ({t_theirs / t_ours:.2f}x), "
+                          f"sdpa {t_lib:.6f}, bound {bound:.6f} by {by} (the "
+                          f"causal function), {done:.6f} (the products it "
+                          f"does); o {held:.3g} of twice the element "
+                          f"tolerance", flush=True)
+        del q, k, v, mass
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if len(argv) != 2 or argv[0] != "--against":
@@ -134,15 +232,21 @@ def main(argv=None) -> int:
 
     import chip_smoke as cs
     from flexflow_torch.ops import kernels as ours
+    from flexflow_torch.ops import probe_kernels as ours_probe
     from flexflow_torch.tools.probe_common import card
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(card(), flush=True)
-    theirs = _other_kernels(os.path.abspath(argv[1]))
-    ours.build(("flash_fwd", "flash_bwd", "flash_stream", "flash_decode"))
-    theirs.build(("flash_fwd", "flash_bwd", "flash_stream", "flash_decode"))
+    root = os.path.abspath(argv[1])
+    theirs = _other_kernels(root)
+    theirs_probe = _other_probe(root, theirs)
+    libs = ("flash_fwd", "flash_bwd", "flash_stream", "flash_decode",
+            "flash_probe")
+    ours.build(libs)
+    theirs.build(libs)
     decode(cs, ours, theirs, F)
     streamed(cs, ours, theirs, F)
+    race(cs, ours, theirs, ours_probe, theirs_probe, F)
     return 0
 
 

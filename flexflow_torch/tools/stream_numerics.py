@@ -38,7 +38,16 @@ K1sb):
    dropped from K1f, through K1f's entry at the same two shapes and
    through K1s's at (4, 8, 8192, 64) and (1, 8, 32768, 64) bf16; in
    ``flash_decode.cu`` a merge that skips the last non-empty split, at
-   phase 1's two timed decode cases in f32 and bf16 (``_decode_close``).
+   phase 1's two timed decode cases in f32 and bf16 (``_decode_close``);
+   in ``flash_probe.cu`` the bf16 two-pass kernel (v3, v4) restarting its
+   ring's tile counter for pass 2, held by K1f's rule at both blocks at
+   the shapes that wrap the ring (``chip_smoke.PROBE_WRAP``) and at the
+   2k race shape, and v4 skipping its key tiles above the diagonal (so
+   computing v3), held by ``chip_smoke._probe_poison`` (a NaN at the last
+   key must reach every row of v4) at (1, 2, 640, 128) and the 2k race
+   shape.  Each case of those two runs in a child process of its own
+   (``--case``): a ring fault may end in the trap of the ring's wait,
+   which poisons the process's CUDA context.
    The unmutated kernels must pass and each mutant must fail at every
    case; the exit code is 1 otherwise.
 
@@ -47,9 +56,11 @@ The card's name and power limit come first.
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import shutil
+import subprocess
 import sys
 
 import torch
@@ -225,9 +236,24 @@ MUTANTS = {
     # K1f drops the P V product of the first key tile of every warpgroup
     # that has more than one.
     "k1f-drops-key-tile": ("flash_fwd.cu", "k1f", [
-        ("        issue_pv<HDP>(acc, pa, vs + R::stage(j - 1) * KT::kBytes);",
+        ("        issue_pv<HDP, kWgBN>(acc, pa, vs + R::stage(j - 1) * "
+         "KT::kBytes);",
          "        if (j != 1)\n"
-         "          issue_pv<HDP>(acc, pa, vs + R::stage(j - 1) * KT::kBytes);"),
+         "          issue_pv<HDP, kWgBN>(acc, pa,\n"
+         "                               vs + R::stage(j - 1) * KT::kBytes);"),
+    ]),
+    # The bf16 two-pass kernel restarts the ring's tile counter for pass 2,
+    # in the producer and the consumers alike: pass 2 then waits on the
+    # phases of pass 1's tiles.
+    "race-ring-restarts": ("flash_probe.cu", "race", [
+        ("  const int p2 = nk;  // pass 2's first tile on the ring",
+         "  const int p2 = 0;  // pass 2's first tile on the ring"),
+    ]),
+    # v4's consumer warpgroups stop at their causal diagonal: v4 computes
+    # v3, the same o by another formulation.
+    "v4-skips-above-diagonal": ("flash_probe.cu", "poison", [
+        ("    const int kend_wg = skip ? min(t, r.r0 + 64) : t;",
+         "    const int kend_wg = causal ? min(t, r.r0 + 64) : t;"),
     ]),
     # K6's merge gives the last non-empty split (the one that holds key
     # lengths[b] - 1) weight 0.
@@ -246,7 +272,10 @@ MUTANTS = {
 #: phase 1 does at the 2k training and 8k long-context shapes, and through
 #: K1s's entry at 8k and 32k, the bf16 streamed forward; K1b's wgmma pair
 #: there through K1b's entry and at 8k and 32k through K1sb's, the bf16
-#: streamed backward; K6 at phase 1's two timed cases.
+#: streamed backward; K6 at phase 1's two timed cases; the bf16 two-pass
+#: kernel at ``chip_smoke.PROBE_WRAP`` and the 2k race shape (``race-*``:
+#: v3 and v4 at both blocks by K1f's rule, causal or not) and with a NaN
+#: at the last key (``poison``: ``chip_smoke._probe_poison``).
 MUTANT_CASES = {
     "stream": (((2, 8, 1024, 64), "float32", "stream"),
                ((1, 4, 1024, 128), "float32", "stream")),
@@ -262,7 +291,81 @@ MUTANT_CASES = {
            ((8, 128, 8, 64), "bfloat16", "decode"),
            ((4, 4096, 8, 64), "float32", "decode"),
            ((4, 4096, 8, 64), "bfloat16", "decode")),
+    "race": (((1, 2, 640, 128), "bfloat16", "race-causal"),
+             ((1, 2, 450, 64), "bfloat16", "race-full"),
+             ((16, 8, 2048, 64), "bfloat16", "race-causal")),
+    "poison": (((1, 2, 640, 128), "bfloat16", "poison"),
+               ((16, 8, 2048, 64), "bfloat16", "poison")),
 }
+#: Groups whose cases each run in a child process (``--case``).
+CHILD_GROUPS = ("race", "poison")
+
+
+def _two_pass_parts(cs, kernels, probe, q, k, v, causal) -> dict:
+    """v3 and v4 at every block against the plain version (one head at a
+    time) by K1f's rule (``chip_smoke.TOL_ELEM["fwd"]``): {"v3 b64", ...:
+    worst element ratio, above 1 fails}."""
+    with torch.no_grad():
+        fwd = lambda c: cs._per_row(
+            lambda x, y, z: kernels.flash_attention_lse_plain(x, y, z,
+                                                              causal),
+            q, k, c, heads=True)[0]
+        po, mass = fwd(v), fwd(v.abs())
+        rule = cs.TOL_ELEM["fwd"][cs._dtype_name(q.dtype)]
+        return {f"{name} b{block}": cs._close(fn(q, k, v, causal, block), po,
+                                              mass, *rule)
+                for name, fn in (("v3", probe.flash_fwd_two_pass),
+                                 ("v4", probe.flash_fwd_full_row))
+                for block in probe.PROBE_BLOCKS}
+
+
+def case(root: str, group: str, index: int) -> int:
+    """Case ``index`` of a child group in this process, on the kernels
+    built from ``root``'s ``csrc`` (``-``: this checkout's): prints ``CASE
+    {part: worst element ratio}`` (or ``{"error": ...}`` when a launch
+    fails) and returns 0 (1 on an error)."""
+    import chip_smoke as cs
+    from flexflow_torch.ops import kernels
+    from flexflow_torch.ops import probe_kernels as probe
+
+    if root != "-":
+        kernels._SRC_DIR = os.path.join(root, "csrc")
+        kernels._BUILD_DIR = os.path.join(root, "build")
+    shape, dt, pair = MUTANT_CASES[group][index]
+    g = torch.Generator(device="cuda").manual_seed(40 + index)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda")
+               .to(getattr(torch, dt)) for _ in range(3))
+    try:
+        if pair == "poison":
+            calls = {fn.__name__: 0 for fn in probe.PROBE_KERNELS}
+            parts = {f"{key} b{block}": val for block in probe.PROBE_BLOCKS
+                     for key, val in cs._probe_poison(
+                         torch, kernels, probe, q, k, v, block,
+                         calls).items()}
+        else:
+            parts = _two_pass_parts(cs, kernels, probe, q, k, v,
+                                    pair == "race-causal")
+        torch.cuda.synchronize()
+    except RuntimeError as err:  # a trap of the ring's wait, a bad launch
+        print("CASE " + json.dumps({"error": str(err)[:300]}), flush=True)
+        return 1
+    print("CASE " + json.dumps(parts), flush=True)
+    return 0
+
+
+def _child_case(root: str, group: str, index: int) -> dict:
+    """:func:`case` in a child process; a child that prints no result
+    gives ``{"error": ...}``."""
+    cmd = [sys.executable, "-m", "flexflow_torch.tools.stream_numerics",
+           "--case", root, group, str(index)]
+    try:
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    except subprocess.TimeoutExpired:
+        return {"error": "no result within 900 s"}
+    for line in p.stdout.splitlines():
+        if line.startswith("CASE "):
+            return json.loads(line[len("CASE "):])
+    return {"error": f"exit {p.returncode}: {p.stderr[-300:]}"}
 
 
 def _variant_dir(kernels, name: str, source: str, edits) -> str:
@@ -299,9 +402,9 @@ def mutants(kernels) -> list:
         x = torch.randn(shape, generator=g, device="cuda")
         return x.to(getattr(torch, dt))
 
-    for cases in MUTANT_CASES.values():
+    for group, cases in MUTANT_CASES.items():
         for shape, dt, pair in cases:
-            if (shape, dt) in inputs:
+            if group in CHILD_GROUPS or (shape, dt) in inputs:
                 continue
             if pair == "decode":
                 B, S, h, hd = shape
@@ -326,8 +429,10 @@ def mutants(kernels) -> list:
                 kernels._libs.pop(lib, None)
                 kernels._SRC_DIR = os.path.join(root, "csrc")
                 kernels._BUILD_DIR = os.path.join(root, "build")
-            for shape, dt, pair in MUTANT_CASES[group]:
-                if pair == "decode":
+            for index, (shape, dt, pair) in enumerate(MUTANT_CASES[group]):
+                if group in CHILD_GROUPS:
+                    parts = _child_case(root if name else "-", group, index)
+                elif pair == "decode":
                     q, ck, cv, lens = inputs[shape, dt]
                     o = kernels.flash_decode(q, ck, cv, lens)
                     po = kernels.flash_decode_plain(q, ck, cv, lens)
@@ -337,12 +442,13 @@ def mutants(kernels) -> list:
                     q, k, v, do, g_lse = inputs[shape, dt]
                     parts, _ = cs._flash_parts(torch, kernels, q, k, v, do,
                                                g_lse, True, pair)
-                fails = max(parts.values()) > 1.0
+                fails = "error" in parts or max(parts.values()) > 1.0
                 if fails != (name is not None):
                     wrong.append(f"{name or 'unmutated'} {shape} {dt} {pair}")
                 _line("mutants", f"{name or 'unmutated'} ({group}) {shape} "
                       f"{dt} through {pair}: " + ", ".join(
-                          f"{k} {v:.3g}" for k, v in parts.items())
+                          f"{k} {v:.3g}" if isinstance(v, float) else
+                          f"{k} {v}" for k, v in parts.items())
                       + " of the element tolerance: "
                       + ("FAILS" if fails else "passes"))
                 torch.cuda.empty_cache()
@@ -361,6 +467,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("stream_numerics: no CUDA device", file=sys.stderr)
         return 2
+    if argv[:1] == ["--case"]:
+        return case(argv[1], argv[2], int(argv[3]))
     from flexflow_torch.ops import kernels
 
     from flexflow_torch.tools.probe_common import card

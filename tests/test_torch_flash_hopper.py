@@ -14,7 +14,11 @@ on the machinery of ``csrc/wgmma_tile.cuh``) run only on the card, where
   wgmma on TMA-fed shared memory behind mbarriers;
 - every planted fault of ``stream_numerics --mutants`` still names a line
   that exists exactly once in its source, and K1f's tiles fit shared
-  memory at every tile width.
+  memory at every tile width;
+- the race's bf16 v3 and v4 (``csrc/flash_probe.cu``) run on the same
+  machinery, share K1f's two products (``csrc/flash_wg.cuh``) rather
+  than copy them, fit shared memory at every (hd, block), and are held by
+  the card at shapes whose key tiles wrap their ring across its passes.
 
 The tile width is chosen in the C dispatch by head dim (hd <= 32: 32, <=
 64: 64, else 128), not in Python; the card holds each width (phases 1
@@ -22,6 +26,7 @@ and 2 run hd 8, 24, 72 and 128 at ragged lengths).
 """
 
 import os
+import random
 import re
 
 import jax.numpy as jnp
@@ -151,7 +156,8 @@ def test_flash_backward_plain_bf16_padded_head_dims(hd, causal):
 
 
 @pytest.mark.parametrize("source", ["flash_bwd.cu", "flash_fwd.cu",
-                                    "wgmma_tile.cuh"])
+                                    "wgmma_tile.cuh", "flash_wg.cuh",
+                                    "flash_probe.cu"])
 @pytest.mark.parametrize("atomic", ["atomicAdd", "atomicCAS", "red.global",
                                     "red.shared", "red.async", "atom.",
                                     "cp.reduce.async"])
@@ -162,17 +168,33 @@ def test_no_float_atomics(source, atomic):
     assert atomic not in _code(source)
 
 
-@pytest.mark.parametrize("source", ["flash_fwd.cu", "flash_bwd.cu"])
+#: The calls through which each bf16 kernel issues its wgmma products: its
+#: own, or the forward products of flash_wg.cuh, which it must then call.
+_PRODUCTS = {
+    "flash_bwd.cu": ("mma_ss_n64(", "mma_rs"),
+    "flash_fwd.cu": ("issue_scores<", "issue_pv<"),
+    "flash_probe.cu": ("issue_scores<", "issue_pv<"),
+}
+
+
+@pytest.mark.parametrize("source", sorted(_PRODUCTS))
 def test_bf16_kernels_run_on_the_hopper_machinery(source):
     """The bf16 kernels take their operands from TMA loads behind mbarriers
     and multiply by wgmma, through wgmma_tile.cuh; the library kernels and
-    torch are not reached from CUDA."""
+    torch are not reached from CUDA.  Every call is looked for in the
+    source's own text; the forward kernels' products are their calls of
+    flash_wg.cuh, which issues them by wgmma.  wgmma_tile.cuh, which
+    defines the calls, is not searched."""
     code = _code(source)
     assert '#include "wgmma_tile.cuh"' in code
-    for call in ("Tile<", "mma_ss_n64(", "mma_rs", "ring->wait(",
-                 "ring->release(", "ring->acquire(", "reg_alloc<",
-                 "reg_dealloc<", "__grid_constant__ CUtensorMap"):
+    for call in _PRODUCTS[source] + (
+            "Tile<", "ring->wait(", "ring->release(", "ring->acquire(",
+            "reg_alloc<", "reg_dealloc<", "__grid_constant__ CUtensorMap"):
         assert call in code, call
+    if "issue_pv<" in _PRODUCTS[source]:
+        assert '#include "flash_wg.cuh"' in code
+        shared = _code("flash_wg.cuh")
+        assert "mma_ss_n64(" in shared and "mma_rs<" in shared
     for banned in ("cublas", "cudnn", "torch/", "cutlass", "cute/"):
         assert banned not in code.lower(), banned
 
@@ -244,3 +266,223 @@ def test_k1_mutants_cover_each_new_kernel():
         shapes = [s for s, dt, entry in stream_numerics.MUTANT_CASES[group]
                   if entry == "k1"]
         assert shapes == [(16, 8, 2048, 64), (4, 8, 8192, 64)]
+
+
+# ---------------------------------------------------------------------------
+# the race's bf16 v3 and v4 on K1f's machinery
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fn", ["issue_scores", "issue_pv"])
+def test_forward_products_are_shared_not_copied(fn):
+    """K1f and the two-pass kernel issue their S = Q K^T and O += P V
+    through flash_wg.cuh, templated on the key tile; neither defines its
+    own."""
+    define = re.compile(rf"__device__ __forceinline__ void {fn}\(")
+    homes = [f for f in sorted(os.listdir(CSRC))
+             if define.search(_code(f))]
+    assert homes == ["flash_wg.cuh"]
+    for source in ("flash_fwd.cu", "flash_probe.cu"):
+        assert '#include "flash_wg.cuh"' in _code(source)
+        assert f"{fn}<HD" in _code(source)
+
+
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_two_pass_tiles_fit_shared_memory(hd, block):
+    """The two-pass kernel's 128-row q tile and its K/V ring (K1f's depth
+    of three stages, key tiles of the race's block), plus the ring's
+    barriers, the q barrier and the 1024-byte alignment, fit the 227 KiB
+    a Hopper block may take: 224 KiB at hd 128 and block 128, as K1f."""
+    bm, stages = (_constant("flash_probe.cu", n) for n in ("kWgBM",
+                                                           "kStages"))
+    assert (bm, stages) == (128, 3)
+    tile = lambda rows: rows * hd * 2  # bf16, every panel
+    smem = tile(bm) + 2 * stages * tile(block) + 2 * stages * 8 + 8 + 1024
+    assert smem <= 227 * 1024
+    assert f"TwoPassSmem<{hd}, {block}>::kBytes <=" in _code("flash_probe.cu")
+
+
+def _tiles_per_cta(t, block, causal):
+    """Key tiles each 128-row CTA of v3 and v4 streams per pass."""
+    ctas = range(0, t, 128)
+    v3 = [-(-(min(t, q0 + 128) if causal else t) // block) for q0 in ctas]
+    return v3, [-(-t // block)] * len(v3)
+
+
+def test_ring_wrap_cases_wrap_the_ring():
+    """Each shape that holds the ring across its two passes (phase 15's
+    ``PROBE_WRAP``, the ring mutant's cases) has, at both blocks and for
+    v3 and v4, a CTA whose key tiles per pass are not a multiple of twice
+    the ring's depth: a tile counter restarted for pass 2 then waits on
+    the wrong phase (``test_ring_model_restart_faults``)."""
+    import chip_smoke
+
+    depth = _constant("flash_probe.cu", "kStages")
+    cases = [(s, c) for s, c in chip_smoke.PROBE_WRAP]
+    cases += [(s, pair == "race-causal") for s, _, pair in
+              stream_numerics.MUTANT_CASES["race"]]
+    assert ((1, 2, 640, 128), True) in cases
+    assert ((1, 2, 450, 64), False) in cases
+    for shape, causal in cases:
+        for block in (64, 128):
+            for tiles in _tiles_per_cta(shape[-2], block, causal):
+                assert any(n % (2 * depth) for n in tiles), (shape, block,
+                                                             tiles)
+
+
+def test_race_mutants_cover_the_two_pass_kernel():
+    """A ring whose pass 2 restarts the tile counter, held by K1f's rule
+    at the wrapping shapes (causal and not) and the 2k race shape; v4
+    skipping its tiles above the diagonal, held by the NaN at the last
+    key (causal).  Both run each case in a child process."""
+    race = {n: m for n, m in stream_numerics.MUTANTS.items()
+            if m[0] == "flash_probe.cu"}
+    assert {n: m[1] for n, m in race.items()} == {
+        "race-ring-restarts": "race", "v4-skips-above-diagonal": "poison"}
+    assert set(stream_numerics.CHILD_GROUPS) == {"race", "poison"}
+    assert {pair for _, _, pair in stream_numerics.MUTANT_CASES["race"]} \
+        == {"race-causal", "race-full"}
+    for group in ("race", "poison"):
+        shapes = [s for s, dt, _ in stream_numerics.MUTANT_CASES[group]]
+        assert (16, 8, 2048, 64) in shapes and (1, 2, 640, 128) in shapes
+        assert all(dt == "bfloat16" for _, dt, _ in
+                   stream_numerics.MUTANT_CASES[group])
+
+
+def test_every_mbarrier_wait_traps():
+    """One wait serves every ring and barrier of the bf16 kernels (K1f,
+    K1b and the race's two-pass kernel run on the same machinery): it
+    traps once a phase has not come within its bound, so a fault of a
+    ring's phases fails the launch instead of hanging the card.  No source
+    spins on an mbarrier of its own."""
+    tile = _code("wgmma_tile.cuh")
+    assert "@p trap;" in tile and "%%globaltimer_lo" in tile
+    assert tile.count("mbarrier.try_wait.parity") == 2  # bar_try, bar_wait
+    assert "template <int S>\nstruct Ring" in tile
+    for source in _PRODUCTS:
+        code = _code(source)
+        assert "mbarrier.try_wait" not in code and "Ring<kStages>;" in code
+
+
+# ---------------------------------------------------------------------------
+# a model of the two-pass kernel's mbarrier ring
+# ---------------------------------------------------------------------------
+
+
+class _Bar:
+    """An mbarrier: a phase completes when all its arrivals are in and
+    every byte announced with them has landed."""
+
+    def __init__(self, count):
+        self.count = self.pending = count
+        self.tx = self.phase = 0
+
+    def arrive(self, tx=0):
+        self.pending -= 1
+        self.tx += tx
+        self._step()
+
+    def land(self, tx):
+        self.tx -= tx
+        self._step()
+
+    def _step(self):
+        if self.pending == 0 and self.tx == 0:
+            self.phase += 1
+            self.pending = self.count
+
+    def done(self, parity):
+        """``mbarrier.try_wait.parity``: the phase of that parity is over."""
+        return self.phase % 2 != parity
+
+
+def _ring_faults(nk, nk_wg, p2, seed, depth=3, warps=8):
+    """The ring protocol of ``wg_two_pass_kernel`` (``flash_probe.cu``)
+    under one random schedule: the producer acquires tile ``J`` (stage ``J
+    % depth``, parity ``(J / depth) & 1``) and loads K (pass 1) or K and V
+    (pass 2) into it; each consumer warp waits for every tile, reads those
+    of its warpgroup's ``nk_wg`` and releases each.  Pass 1 takes tiles 0
+    .. nk - 1, pass 2 ``p2`` .. ``p2 + nk - 1`` (the kernel: ``p2 = nk``).
+    Returns the faults seen: a stale read, a load into a stage being read,
+    a deadlock, loads still in flight when the consumers are done."""
+    rnd = random.Random(seed)
+    full = [_Bar(1) for _ in range(depth)]
+    empty = [_Bar(warps) for _ in range(depth)]
+    held = [None] * depth
+    flight, reading, faults = [], {}, set()
+
+    def tiles():
+        for p, base in ((0, 0), (1, p2)):
+            for j in range(nk):
+                yield p, j, (base + j) % depth, (base + j) // depth % 2
+
+    def producer():
+        for p, j, st, par in tiles():
+            while not empty[st].done(par ^ 1):
+                yield False
+            if st in reading.values():
+                faults.add("overwrite")
+            full[st].arrive(tx=1 + p)
+            flight.append((st, (p, j), 1 + p))
+            yield True
+
+    def consumer(w):
+        for p, j, st, par in tiles():
+            while not full[st].done(par):
+                yield False
+            if j < nk_wg[w // 4]:
+                if held[st] != (p, j):
+                    faults.add("stale")
+                reading[w] = st
+                yield True
+                del reading[w]
+            empty[st].arrive()
+            yield True
+
+    threads = {-1: producer(), **{w: consumer(w) for w in range(warps)}}
+    while any(w >= 0 for w in threads):
+        moves = [("load", i) for i in range(len(flight))] + \
+            [("run", w) for w in threads]
+        rnd.shuffle(moves)
+        for kind, x in moves:
+            if kind == "load":
+                st, tag, tx = flight.pop(x)
+                held[st] = tag
+                full[st].land(tx)
+                break
+            try:
+                if next(threads[x]):
+                    break
+            except StopIteration:
+                del threads[x]
+                break
+        else:
+            faults.add("deadlock")
+            break
+    if flight and "deadlock" not in faults:
+        faults.add("in flight")
+    return faults
+
+
+def test_ring_model_one_counter_is_sound():
+    """With one tile counter through both passes no schedule reads a
+    stale tile, overwrites a stage in use, deadlocks or leaves a load in
+    flight, whatever the key tiles per pass and the warpgroups' shares."""
+    for nk in range(1, 8):
+        for a in range(nk + 1):
+            for b in range(a, nk + 1):
+                for seed in range(4):
+                    assert not _ring_faults(nk, (a, b), nk, seed), (nk, a, b)
+
+
+@pytest.mark.parametrize("nk", range(1, 13))
+def test_ring_model_restart_faults(nk):
+    """A counter restarted for pass 2 (``stream_numerics``'s
+    ``race-ring-restarts``) finds its phases only when the tiles per pass
+    are a multiple of twice the depth; otherwise some schedule reads stale
+    tiles or deadlocks (which the kernel's waits turn into a trap)."""
+    faults = set()
+    for seed in range(20):
+        faults |= _ring_faults(nk, (nk, nk), 0, seed)
+    assert bool(faults) == (nk % 6 != 0), (nk, faults)

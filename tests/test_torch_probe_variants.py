@@ -269,3 +269,160 @@ def test_sdpa_stays_out_of_the_port_path():
                     with open(os.path.join(dirpath, f)) as fh:
                         assert "scaled_dot_product_attention" not in \
                             fh.read(), f
+
+
+# ---------------------------------------------------------------------------
+# v3 and v4 on the wgmma machinery: the route, the gate, the formulations
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", [0, 1, 2])
+def test_probe_entry_routes_by_variant_and_dtype(variant, dtype):
+    """bf16 v3 and v4 launch the two-pass kernel on K1f's wgmma/TMA
+    machinery; v2 (its redesign is a later slice) and every f32 variant
+    launch the race's mma_tile.cuh kernels (wgmma takes f32 only as
+    TF32).  Both entries are in csrc/flash_probe.cu."""
+    entry = probe.probe_entry(variant, dtype)
+    wg = dtype == torch.bfloat16 and variant > 0
+    assert entry == ("ff_flash_probe_fwd_wg" if wg else "ff_flash_probe_fwd")
+
+
+def _gate_rule(shape, dtype, block):
+    """``probe_unsupported`` as it stood before the wgmma route, copied:
+    the new route takes every shape the old one took."""
+    if len(shape) < 3:
+        return False
+    t, hd = shape[-2], shape[-1]
+    return (dtype in (torch.float32, torch.bfloat16) and hd in (64, 128)
+            and block in (64, 128) and t >= 1
+            and 1 <= math.prod(shape[:-2]) <= 65535)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("block", [32, 64, 128, 256])
+def test_probe_gate_is_unchanged(dtype, block):
+    for shape in [(1, 1, 64), (64, 1, 128), (2, 3, 640, 128), (65535, 5, 64),
+                  (65536, 5, 64), (256, 256, 2, 64), (2, 0, 64),
+                  (0, 4, 64), (3, 7, 96), (1, 1 << 20, 128), (16, 8, 2048)]:
+        assert (probe.probe_unsupported(shape, dtype, block) is None) == \
+            _gate_rule(shape, dtype, block), (shape, dtype, block)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name", ["v3", "v4"])
+def test_forward_variant_bf16_matches_jax_probe(name, causal):
+    """bf16 at hd 128 and block 128, the widest tiles of the wgmma route:
+    the plain version the card holds v3 and v4 against agrees with
+    ``_v3_kernel`` / ``_v4_kernel`` (interpret mode), both with K1f's
+    cast points, within one bf16 ulp of each element plus 2^-8 of the
+    terms behind it (K1f's rule: p may round the other way)."""
+    hd = 128
+    q, k, v = _arrays(30 + int(causal), 3, (BH, T, hd))
+    kernel, scratch = _jax_variant(name, hd, causal)
+    o_j = jfwd._call(kernel, *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                     BLOCK, scratch)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    o_t = WRAPPERS[name](tq, tk, tv, causal, BLOCK)
+    mass = kernels.flash_attention_lse_plain(tq, tk, tv.abs(), causal)[0]
+    want = np.asarray(o_j.astype(jnp.float32))
+    got = o_t.float().numpy()
+    tol = 2.0 ** -7 * np.abs(want) + 2.0 ** -8 * mass.float().numpy()
+    assert o_t.dtype == torch.bfloat16
+    assert np.all(np.abs(got - want) <= tol)
+
+
+def test_nan_at_the_last_key_reaches_every_row_of_v4_only():
+    """What ``chip_smoke._probe_poison`` holds the card's v3 and v4 to,
+    on the Pallas formulations: with a NaN in ``v`` at the last key,
+    causal, ``_v4_kernel``'s one product over the whole row multiplies it
+    by every row's ``p`` (an exact 0 above the diagonal), so every row of
+    ``o`` is NaN, as in the plain version; ``_v3_kernel`` stops each q
+    block at its diagonal, so only the last block's rows are NaN."""
+    hd = 64
+    q, k, v = _arrays(40, 3, (BH, T, hd))
+    v[:, T - 1, :] = np.nan
+    rows = {}
+    for name in ("v3", "v4"):
+        kernel, scratch = _jax_variant(name, hd, True)
+        o = np.asarray(jfwd._call(kernel, *(jnp.asarray(a) for a in (q, k, v)),
+                                  BLOCK, scratch))
+        rows[name] = np.isnan(o).any(-1)
+    plain = probe.flash_fwd_full_row_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), True)
+    assert rows["v4"].all() and bool(plain.isnan().any(-1).all())
+    assert rows["v3"][:, T - BLOCK:].all()
+    assert not rows["v3"][:, :T - BLOCK].any()
+
+
+# ---------------------------------------------------------------------------
+# kernel_race: the other checkout's race kernels
+# ---------------------------------------------------------------------------
+
+
+def test_kernel_race_refuses_without_a_checkout_or_a_card(monkeypatch,
+                                                          capsys):
+    from flexflow_torch.tools import kernel_race
+
+    assert kernel_race.main([]) == 2
+    assert "usage" in capsys.readouterr().err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kernel_race.main(["--against", ROOT]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_kernel_race_binds_the_other_probe_kernels_to_their_kernels():
+    """``kernel_race`` times another checkout's v3 and v4: its
+    ``probe_kernels.py`` must launch through its own ``kernels.py`` (its
+    libraries, built from its sources), and loading it must leave this
+    checkout's modules in place."""
+    import flexflow_torch.ops as ops
+    from flexflow_torch.tools import kernel_race
+
+    theirs = kernel_race._other_kernels(ROOT)
+    other = kernel_race._other_probe(ROOT, theirs)
+    assert other.kernels is theirs and other._load is theirs._load
+    assert theirs is not kernels and theirs._libs is not kernels._libs
+    assert ops.kernels is kernels
+    assert sys.modules["flexflow_torch.ops.kernels"] is kernels
+    assert probe.kernels is kernels
+    q, k, v = (torch.from_numpy(a) for a in _arrays(5, 3, (2, 80, 64)))
+    for name in ("flash_fwd_two_pass", "flash_fwd_full_row"):
+        assert torch.equal(getattr(other, name)(q, k, v, True, 64),
+                           getattr(probe, name)(q, k, v, True, 64))
+
+
+def test_kernel_race_calls_k1b_alike_in_both_checkouts():
+    """``kernel_race`` holds K1b's ``dq``, ``dk``, ``dv`` to the other
+    checkout's bit for bit through one call of ``flash_attention_lse_bwd``
+    on both modules; on the CPU both give the plain version's bits."""
+    from flexflow_torch.tools import kernel_race
+
+    theirs = kernel_race._other_kernels(ROOT)
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _arrays(6, 4, (1, 2, 80, 64)))
+    o, lse = kernels.flash_attention_lse(q, k, v, True)
+    g_lse = torch.ones_like(lse)
+    mine, other = (m.flash_attention_lse_bwd(q, k, v, o, lse, do, g_lse,
+                                             True)
+                   for m in (kernels, theirs))
+    assert all(torch.equal(a, c) for a, c in zip(mine, other))
+
+
+@pytest.mark.parametrize("t", [1, 80, 2048, 8192])
+def test_race_products_count_the_score_pairs_each_variant_multiplies(t):
+    """The bound of the products a variant does (``chip_smoke.py`` phase
+    15, ``kernel_race``): v3 multiplies each causal pair three times (two
+    Q K^T, one P V), v4 each of the t^2 pairs three times, the others each
+    causal pair twice."""
+    import chip_smoke
+
+    pairs = t * (t + 1) // 2
+    unit = 2 * pairs  # the causal function's products, in score pairs
+    got = {name: chip_smoke.race_products(name, t) * unit
+           for name in ("flash_fwd_two_pass", "flash_fwd_full_row",
+                        "flash_fwd_row_state")}
+    assert got["flash_fwd_two_pass"] == pytest.approx(3 * pairs)
+    assert got["flash_fwd_full_row"] == pytest.approx(3 * t * t)
+    assert got["flash_fwd_row_state"] == pytest.approx(unit)
