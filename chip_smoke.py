@@ -112,9 +112,12 @@ Fifteen phases, in order; any failure raises and exits non-zero:
     ``kernels._STREAMED`` in this process.
 14. **Long-context parity.**  Phase 6's f32 step under the streamed
     dispatch: K1s/K1sb on the card against the plain versions on the CPU.
-15. **Probe kernels.**  The kernels of the P1/P2 race (v2, v3, v4 of
-    ``csrc/flash_probe.cu``, in bf16 v3 and v4 on ``wgmma``; b2 of
-    ``csrc/flash_probe_bwd.cu``) against their plain versions element by
+15. **Probe kernels.**  The kernels of the P1/P2 race (v2, v3, v4, b2: in
+    bf16 all on ``wgmma``, v2 on K1f's kernel of ``csrc/flash_fwd.cu``, v3
+    and v4 on the two-pass kernel of ``csrc/flash_probe.cu``, b2 on K1b's
+    pair of ``csrc/flash_bwd.cu``; in f32 the FMA kernels of
+    ``csrc/flash_probe.cu`` and ``csrc/flash_probe_bwd.cu``) against their
+    plain versions element by
     element with ``TOL_ELEM`` (the forward variants by K1f's rule, b2 by
     ``stream_bwd``) at every block they instantiate: (16, 8, 2048, 64)
     bf16 causal, non-causal, f32, hd 128, ragged t (1, 80, 130, 200) and
@@ -122,8 +125,12 @@ Fifteen phases, in order; any failure raises and exits non-zero:
     passes (``PROBE_WRAP``); v3 and v4 bit-identical across two launches;
     at (4, 8, 8192, 64) against the plain versions run one batch row at a
     time and against K1f/K1b (twice ``TOL_ELEM``); v4 issues every
-    product and v3 stops at the diagonal (``_probe_poison``); exact launch
-    counts.  Registers, spills and shared memory of the bf16 v3 and v4.
+    product and v3 stops at the diagonal (``_probe_poison``); at every
+    bf16 shape v2 at block 128 gives K1f's ``o`` and b2 at block 64, from
+    the delta K1b's dq pass wrote, K1b's gradients bit for bit
+    (``_row_state_bits``); exact launch counts.  Registers, spills (none
+    allowed at the race's hd 64) and shared memory of the bf16 v2, v3, v4
+    and b2.
     Device times at the race's shapes beside the bound of the causal
     function and of the products each variant does, the plain version and
     SDPA.  Then the path
@@ -1870,6 +1877,30 @@ def _probe_hold(torch, kernels, probe, q, k, v, do, g_lse, causal, block,
     return worst, errs
 
 
+def _row_state_bits(torch, kernels, probe, q, k, v, do, g_lse, causal,
+                    calls) -> None:
+    """The bf16 v2 and b2 on K1f's kernel and K1b's pair, bit for bit: v2
+    at block 128 is K1f's instantiation less the lse store, so its ``o``
+    must be K1f's; b2 at block 64 is K1b's tiling, so given the delta that
+    K1b's dq pass wrote it must give K1b's ``dq``, ``dk``, ``dv``.  Adds
+    the race wrappers' calls to ``calls``; fails the run otherwise."""
+    shape = tuple(q.shape)
+    with torch.no_grad():
+        o, lse = kernels.flash_attention_lse(q, k, v, causal)
+        o2 = probe.flash_fwd_row_state(q, k, v, causal, 128)
+        calls["flash_fwd_row_state"] += 1
+        _check(torch.equal(o2, o), f"v2 {shape} causal={causal} block 128: "
+               f"o is not K1f's bit for bit")
+        delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+        want = kernels._launch_bwd("K1b", False, q, k, v, o, lse, do, g_lse,
+                                   causal, delta=delta)
+        got = probe.flash_bwd_row_state(q, k, v, do, lse, delta, causal, 64)
+        calls["flash_bwd_row_state"] += 1
+        _check(all(torch.equal(a, w) for a, w in zip(got, want)),
+               f"b2 {shape} causal={causal} block 64 from K1b's delta: "
+               f"dq, dk, dv not K1b's bit for bit")
+
+
 def _probe_poison(torch, kernels, probe, q, k, v, block, calls,
                   plain: bool = False):
     """The formulations' key ranges, causal, with a NaN at the last key of
@@ -1902,10 +1933,13 @@ def _probe_poison(torch, kernels, probe, q, k, v, block, calls,
 
 
 def phase_probe_kernels(torch, kernels, F, rows):
-    """The kernels of the P1/P2 race (v2, v3, v4 of ``csrc/flash_probe.cu``,
-    b2 of ``csrc/flash_probe_bwd.cu``) against their plain versions element
-    by element, then timed at the race's shapes; then the path that runs
-    them: both races (``flexflow_torch.tools.probe_flash_variants`` and
+    """The kernels of the P1/P2 race (v2, v3, v4 and b2: in bf16 K1f's
+    kernel, the two-pass kernel of ``csrc/flash_probe.cu`` and K1b's pair;
+    in f32 the FMA kernels of ``csrc/flash_probe.cu`` and
+    ``csrc/flash_probe_bwd.cu``) against their plain versions element by
+    element, the bf16 v2 and b2 also against K1f and K1b bit for bit, then
+    timed at the race's shapes; then the path that runs them: both races
+    (``flexflow_torch.tools.probe_flash_variants`` and
     ``probe_flash_bwd_variants``) at the 2k and 8k shapes, in-process, with
     exact launch counts.  Returns (per-kernel rows, the races' launch
     counts)."""
@@ -1941,13 +1975,18 @@ def phase_probe_kernels(torch, kernels, F, rows):
             worst = max(worst, ratio)
             if shape == train and block == blocks[0]:
                 err_train = errs
+        if dt == bf16:
+            _row_state_bits(torch, kernels, probe, q, k, v, do, g_lse,
+                            causal, calls)
         del q, k, v, do, g_lse
     torch.cuda.synchronize()
     print(f"[probe-kernels] {len(cases)} shapes x blocks {blocks} against "
           f"the plain versions (v2, v3, v4: o; b2: dq, dk, dv; causal and "
           f"not, f32 and bf16, hd 64/128, t = 1 to 2048, the ring-wrapping "
           f"{[s for s, _ in PROBE_WRAP]}): worst element {worst:.3g} of its "
-          f"tolerance; v3 and v4 bit-identical across two launches")
+          f"tolerance; v3 and v4 bit-identical across two launches; bf16 v2 "
+          f"at block 128 K1f's o and b2 at block 64 from K1b's delta K1b's "
+          f"dq, dk, dv, bit for bit, at every bf16 shape")
     for shape, plain in ((train, False), (PROBE_WRAP[0][0], True)):
         q, k, v = (randn(shape, bf16) for _ in range(3))
         for block in blocks:
@@ -1960,13 +1999,16 @@ def phase_probe_kernels(torch, kernels, F, rows):
     print(f"[probe-kernels] a NaN at the last key of v, causal: every row of "
           f"v4 NaN, v3's rows before the last key tile finite, at "
           f"{train} and {PROBE_WRAP[0][0]}, blocks {blocks}")
-    for variant, fn in ((1, "flash_fwd_two_pass"), (2, "flash_fwd_full_row")):
-        attrs = {(hd, blk): probe.probe_attrs(variant, hd, blk)
+    for name in ("v2", "v3", "v4", "b2 dq", "b2 dkv"):
+        attrs = {(hd, blk): probe.probe_attrs(name, hd, blk)
                  for hd in probe.PROBE_HEAD_DIMS for blk in blocks}
-        print(f"[probe-kernels] {fn} bf16 (wg_two_pass_kernel) registers, "
-              f"spill bytes, shared memory by (hd, block): {attrs}")
+        print(f"[probe-kernels] {name} bf16 registers, spill bytes, shared "
+              f"memory by (hd, block): {attrs}")
+        _check(all(a[1] == 0 for (hd, _), a in attrs.items() if hd == 64),
+               f"{name} bf16 spills at the race's head dim 64: {attrs}")
     q, k, v, do = (randn(long, bf16) for _ in range(4))
     g_lse = randn(long[:3], f32)
+    _row_state_bits(torch, kernels, probe, q, k, v, do, g_lse, True, calls)
     for block in blocks:
         r_plain, _ = _probe_hold(torch, kernels, probe, q, k, v, do, g_lse,
                                  True, block, "plain", calls)
@@ -2161,13 +2203,13 @@ def main() -> int:
         "flash_attention_lse_streamed": (src + "flash_fwd.cu", pk + ":361"),
         "flash_attention_lse_streamed_bwd": (src + "flash_bwd.cu",
                                              pk + ":664"),
-        "flash_fwd_row_state": (src + "flash_probe.cu",
+        "flash_fwd_row_state": (src + "flash_fwd.cu",
                                 "tools/probe_flash_variants.py:46"),
         "flash_fwd_two_pass": (src + "flash_probe.cu",
                                "tools/probe_flash_variants.py:103"),
         "flash_fwd_full_row": (src + "flash_probe.cu",
                                "tools/probe_flash_variants.py:174"),
-        "flash_bwd_row_state": (src + "flash_probe_bwd.cu",
+        "flash_bwd_row_state": (src + "flash_bwd.cu",
                                 "tools/probe_flash_bwd_variants.py:155"),
     }
     entries = []
@@ -2204,6 +2246,21 @@ def main() -> int:
                                     "shared memory (csrc/wgmma_tile.cuh, "
                                     "csrc/flash_wg.cuh)")
             entry["f32_kernel"] = "two_pass_kernel: FMA (csrc/mma_tile.cuh)"
+        if name == "flash_fwd_row_state":
+            entry["f32_source"] = src + "flash_probe.cu"
+            entry["bf16_kernel"] = ("wg_fwd_kernel, K1f's, at the race's key "
+                                    "tile without the lse: wgmma from "
+                                    "TMA-fed shared memory "
+                                    "(csrc/wgmma_tile.cuh, csrc/flash_wg.cuh)")
+            entry["f32_kernel"] = "row_state_kernel: FMA (csrc/mma_tile.cuh)"
+        if name == "flash_bwd_row_state":
+            entry["f32_source"] = src + "flash_probe_bwd.cu"
+            entry["bf16_kernel"] = ("wg_dq_kernel (the caller's delta) and "
+                                    "wg_dkv_kernel, K1b's pair: wgmma from "
+                                    "TMA-fed shared memory "
+                                    "(csrc/wgmma_tile.cuh)")
+            entry["f32_kernel"] = ("row_state_dq_kernel, row_state_dkv_kernel:"
+                                   " FMA (csrc/mma_tile.cuh)")
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     smi = subprocess.run(

@@ -39,9 +39,10 @@
 //
 // bf16: wgmma from TMA-fed shared memory (wg_dq_kernel, wg_dkv_kernel; the
 // machinery of wgmma_tile.cuh).  CTAs of three warpgroups: a producer whose
-// one thread keeps TMA loads in flight through a three-stage mbarrier ring
-// and gives its registers up (setmaxnreg), and two consumer warpgroups of
-// 64 rows each, every product a wgmma on the f32 accumulators' registers:
+// one thread keeps TMA loads in flight through an mbarrier ring (three
+// stages, two where three do not fit) and gives its registers up
+// (setmaxnreg), and two consumer warpgroups of 64 rows each, every product
+// a wgmma on the f32 accumulators' registers:
 //   dq pass, 128 query rows per CTA, 64-key K/V tiles streamed: S = Q K^T
 //     and dP = dO V^T from shared memory; P = exp(S scale - lse) and dS =
 //     P (dP - delta) on the accumulators; dS rounded to bf16 in registers
@@ -55,6 +56,16 @@
 // rows cannot see; the head dim is padded to a tile width of 32, 64 or 128
 // (zero-filled by the tensor maps, masked at the stores, the scale from
 // the true hd).
+//
+// The same pair is the kernel race's bf16 b2, replacing
+// tools/probe_flash_bwd_variants.py::_bwd_call_lanes (:155; _dq_kernel_lanes
+// :37, _dkv_kernel_lanes :91): its dq pass takes the caller's delta (the
+// DIN instantiation) and reads neither o nor g_lse, and the race's block
+// sets the rows of both passes' streamed tiles (ff_flash_bwd_row_state).
+// Block 64 is K1b's tiling; block 128 streams 128-key K/V tiles in the dq
+// pass (S and dP of 64 x 128 per warpgroup) and 128-row Q/dO tiles in the
+// dk/dv pass, multiplied in two sub-tiles of 64 query columns (64 x 128
+// S^T and dP^T would take 128 registers a thread beside dK and dV's).
 //
 // f32: the FMA kernels (flash_dq_kernel, flash_dkv_kernel): wgmma takes f32
 // only as TF32.  128-thread CTAs over 64-row tiles staged through shared
@@ -396,43 +407,75 @@ using namespace ff::wg;
 using bf16 = __nv_bfloat16;
 
 constexpr int kWgBM = 128;       // dq pass: query rows per CTA
-constexpr int kWgBN = 64;        // dq pass: keys per streamed K/V tile
+constexpr int kWgBN = 64;        // K1b's streamed tile: K/V keys, Q/dO rows
 constexpr int kWgKM = 128;       // dk/dv pass: key rows per CTA
-constexpr int kWgQN = 64;        // dk/dv pass: query rows per streamed tile
-constexpr int kStages = 3;       // ring depth
+constexpr int kSubQ = 64;        // dk/dv pass: query columns per product
 constexpr int kWgThreads = 384;  // warpgroups 0, 1 consume; 2 produces
 constexpr float kLog2e = 1.4426950408889634f;
-// The dk/dv pass loads a tile's lse and delta as one TMA box each from the
-// flat (bh t) f32 arrays.  A box must start on 16 bytes, and row bh t + qi0
-// need not, so the box starts at that row rounded down to a multiple of 4
-// and holds 4 values more than the tile; each lands in a slot of kRowSlot.
-constexpr int kRowBox = kWgQN + 4;
-constexpr int kRowSlot = 128;
-using Rg = Ring<kStages>;
+constexpr int kSmemMax = 227 * 1024;
 
-template <int HDP>
+// Shared memory of the dq pass at BN keys per streamed tile and a ring of
+// S stages: the Q and dO tiles, S stages of K and V tiles, the barriers.
+template <int HDP, int BN, int S>
 struct DqSmem {
   using QT = Tile<HDP, kWgBM>;
-  using KT = Tile<HDP, kWgBN>;
+  using KT = Tile<HDP, BN>;
   static constexpr int kDo = QT::kBytes;
   static constexpr int kK = 2 * QT::kBytes;
-  static constexpr int kV = kK + kStages * KT::kBytes;
-  static constexpr int kBars = kV + kStages * KT::kBytes;
-  static constexpr int kBytes = kBars + (int)sizeof(Rg) + 8 + 1024;
+  static constexpr int kV = kK + S * KT::kBytes;
+  static constexpr int kBars = kV + S * KT::kBytes;
+  static constexpr int kBytes = kBars + (int)sizeof(Ring<S>) + 8 + 1024;
 };
 
-template <int HDP>
+// Shared memory of the dk/dv pass at QN query rows per streamed tile: the
+// K and V tiles, S stages of Q and dO tiles and of their lse and delta.
+// Each of those is one TMA box from the flat (bh t) f32 arrays.  A box
+// must start on 16 bytes, and row bh t + qi0 need not, so the box starts
+// at that row rounded down to a multiple of 4 and holds QN + 4 values; each
+// lands in a slot of kRowSlot floats, so every box starts on 512 bytes.
+template <int HDP, int QN, int S>
 struct DkvSmem {
   using KT = Tile<HDP, kWgKM>;
-  using QT = Tile<HDP, kWgQN>;
+  using QT = Tile<HDP, QN>;
+  static constexpr int kRowBox = QN + 4;
+  static constexpr int kRowSlot = 2 * QN;
   static constexpr int kV = KT::kBytes;
   static constexpr int kQ = 2 * KT::kBytes;
-  static constexpr int kDo = kQ + kStages * QT::kBytes;
-  static constexpr int kRowVals = kDo + kStages * QT::kBytes;  // lse, delta
-  static constexpr int kRowBytes = 2 * kRowSlot * 4;            // per stage
-  static constexpr int kBars = kRowVals + kStages * kRowBytes;
-  static constexpr int kBytes = kBars + (int)sizeof(Rg) + 8 + 1024;
+  static constexpr int kDo = kQ + S * QT::kBytes;
+  static constexpr int kRowVals = kDo + S * QT::kBytes;  // lse, delta
+  static constexpr int kRowBytes = 2 * kRowSlot * 4;      // per stage
+  static constexpr int kBars = kRowVals + S * kRowBytes;
+  static constexpr int kBytes = kBars + (int)sizeof(Ring<S>) + 8 + 1024;
 };
+
+// Ring depths: three stages where they fit 227 KiB, else two (hd 128 with
+// tiles of 128 rows: three stages of K and V, or of Q and dO, take 192 KiB
+// beside the 64 KiB of resident tiles).
+template <int HDP, int BN>
+__host__ __device__ constexpr int dq_stages() {
+  return DqSmem<HDP, BN, 3>::kBytes <= kSmemMax ? 3 : 2;
+}
+template <int HDP, int QN>
+__host__ __device__ constexpr int dkv_stages() {
+  return DkvSmem<HDP, QN, 3>::kBytes <= kSmemMax ? 3 : 2;
+}
+template <int HDP, int BN>
+using DqS = DqSmem<HDP, BN, dq_stages<HDP, BN>()>;
+template <int HDP, int QN>
+using DkvS = DkvSmem<HDP, QN, dkv_stages<HDP, QN>()>;
+
+// K1b (every tile width at 64-row tiles) and b2 (hd 64 and 128, tiles of
+// 64 or 128 rows) fit at their depths; at hd 128 and 128 rows both passes
+// take two stages.
+static_assert(dq_stages<32, 64>() == 3 && dkv_stages<32, 64>() == 3, "hd 32");
+static_assert(dq_stages<64, 64>() == 3 && dkv_stages<64, 64>() == 3, "hd 64");
+static_assert(dq_stages<128, 64>() == 3 && dkv_stages<128, 64>() == 3,
+              "hd 128");
+static_assert(dq_stages<64, 128>() == 3 && dkv_stages<64, 128>() == 3,
+              "hd 64, tiles of 128");
+static_assert(DqS<128, 128>::kBytes <= kSmemMax &&
+                  DkvS<128, 128>::kBytes <= kSmemMax,
+              "hd 128, tiles of 128: two stages");
 
 // Stores a warpgroup's 64 x HDP accumulator (in panels), times mul, as
 // bf16 rows of a (t, hd) slab: rows[h] < t, columns < hd.
@@ -460,15 +503,15 @@ __device__ __forceinline__ void store_acc(bf16* slab, const float (*acc)[W / 2],
   }
 }
 
-// dQ += dS K, dS in registers (bf16 A fragments), the K tile kt read
+// dQ += dS K, dS in registers (bf16 A fragments), the BN-key tile kt read
 // MN-major: issued, not committed.
-template <int HDP>
-__device__ __forceinline__ void issue_dq(float (*acc)[Tile<HDP, kWgBN>::kW / 2],
+template <int HDP, int BN>
+__device__ __forceinline__ void issue_dq(float (*acc)[Tile<HDP, BN>::kW / 2],
                                          const uint32_t (*da)[4],
                                          const uint8_t* kt) {
-  using KT = Tile<HDP, kWgBN>;
+  using KT = Tile<HDP, BN>;
 #pragma unroll
-  for (int kk = 0; kk < kWgBN / 16; ++kk) {
+  for (int kk = 0; kk < BN / 16; ++kk) {
 #pragma unroll
     for (int pp = 0; pp < KT::kPanels; ++pp) {
       mma_rs<KT::kW>(acc[pp], da[kk], KT::mnmajor(kt, kk, pp), 1);
@@ -476,8 +519,10 @@ __device__ __forceinline__ void issue_dq(float (*acc)[Tile<HDP, kWgBN>::kW / 2],
   }
 }
 
-// Pass 1: delta and dq.
-template <int HDP>
+// Pass 1: dq, from delta = rowsum(o do) - g_lse that it reduces for its
+// rows and writes (K1b), or with DIN from the caller's delta (b2).  BN
+// keys per streamed K/V tile.
+template <int HDP, int BN, bool DIN>
 __global__ void __launch_bounds__(kWgThreads, 1)
 wg_dq_kernel(const __grid_constant__ CUtensorMap map_q,
              const __grid_constant__ CUtensorMap map_do,
@@ -488,21 +533,23 @@ wg_dq_kernel(const __grid_constant__ CUtensorMap map_q,
              float* __restrict__ delta, bf16* __restrict__ dq, int t, int hd,
              int causal, float scale) {
   using QT = Tile<HDP, kWgBM>;
-  using KT = Tile<HDP, kWgBN>;
-  using SM = DqSmem<HDP>;
+  using KT = Tile<HDP, BN>;
+  constexpr int kStages = dq_stages<HDP, BN>();
+  using SM = DqSmem<HDP, BN, kStages>;
+  using R = Ring<kStages>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   uint8_t* qs = sm;
   uint8_t* dos = sm + SM::kDo;
   uint8_t* ks = sm + SM::kK;
   uint8_t* vs = sm + SM::kV;
-  Rg* ring = reinterpret_cast<Rg*>(sm + SM::kBars);
+  R* ring = reinterpret_cast<R*>(sm + SM::kBars);
   uint64_t* q_bar = reinterpret_cast<uint64_t*>(ring + 1);
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBM;  // longest rows first
   const int kend = causal ? min(t, q0 + kWgBM) : t;
-  const int nk = (kend + kWgBN - 1) / kWgBN;
+  const int nk = (kend + BN - 1) / BN;
   const int wgi = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -520,51 +567,59 @@ wg_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       QT::load(dos, &map_do, q_bar, q0, bh);
       for (int j = 0; j < nk; ++j) {
         ring->acquire(j, 2 * KT::kBytes);
-        const int st = Rg::stage(j);
-        KT::load(ks + st * KT::kBytes, &map_k, &ring->full[st], j * kWgBN, bh);
-        KT::load(vs + st * KT::kBytes, &map_v, &ring->full[st], j * kWgBN, bh);
+        const int st = R::stage(j);
+        KT::load(ks + st * KT::kBytes, &map_k, &ring->full[st], j * BN, bh);
+        KT::load(vs + st * KT::kBytes, &map_v, &ring->full[st], j * BN, bh);
       }
     }
   } else {
     reg_alloc<240>();
     constexpr int kW = KT::kW, kP = KT::kPanels, kAcc = kW / 2;
-    constexpr int kS = kWgBN / 2;
+    constexpr int kS = BN / 2;
     const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
     const int g = lane >> 2, tq = lane & 3;
     const int r0 = q0 + wgi * 64;
     const int rows[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
     const int kend_wg = causal ? min(t, r0 + 64) : t;
-    const int nk_wg = r0 < t ? (kend_wg + kWgBN - 1) / kWgBN : 0;
+    const int nk_wg = r0 < t ? (kend_wg + BN - 1) / BN : 0;
     const float sl2 = scale * kLog2e;
     const size_t base = (size_t)bh * t;
 
-    // delta = rowsum(o do) - g_lse for the warp's 16 rows, written for
-    // the dk/dv pass and kept for the two rows this thread holds.
     float dl[2] = {0.f, 0.f};
-    for (int rr = 0; rr < 16; ++rr) {
-      const int row = r0 + warp * 16 + rr;
-      float a = 0.f;
-      if (row < t) {
-        const bf16* orow = o + (base + row) * hd;
-        const bf16* drow = dout + (base + row) * hd;
-        for (int d = 2 * lane; d < hd; d += 64) {
-          const float2 x = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(orow + d));
-          const float2 y = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(drow + d));
-          a = fmaf(x.x, y.x, a);
-          a = fmaf(x.y, y.y, a);
-        }
-      }
+    if constexpr (DIN) {
+      // The caller's delta, for the two rows this thread holds.
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        a += __shfl_xor_sync(0xffffffffu, a, off);
-      if (row < t) {
-        a -= g_lse != nullptr ? g_lse[base + row] : 0.f;
-        if (lane == 0) delta[base + row] = a;
+      for (int h = 0; h < 2; ++h) {
+        dl[h] = rows[h] < t ? delta[base + rows[h]] : 0.f;
       }
-      if (rr == g) dl[0] = a;
-      if (rr == g + 8) dl[1] = a;
+    } else {
+      // delta = rowsum(o do) - g_lse for the warp's 16 rows, written for
+      // the dk/dv pass and kept for the two rows this thread holds.
+      for (int rr = 0; rr < 16; ++rr) {
+        const int row = r0 + warp * 16 + rr;
+        float a = 0.f;
+        if (row < t) {
+          const bf16* orow = o + (base + row) * hd;
+          const bf16* drow = dout + (base + row) * hd;
+          for (int d = 2 * lane; d < hd; d += 64) {
+            const float2 x = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(orow + d));
+            const float2 y = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(drow + d));
+            a = fmaf(x.x, y.x, a);
+            a = fmaf(x.y, y.y, a);
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          a += __shfl_xor_sync(0xffffffffu, a, off);
+        if (row < t) {
+          a -= g_lse != nullptr ? g_lse[base + row] : 0.f;
+          if (lane == 0) delta[base + row] = a;
+        }
+        if (rr == g) dl[0] = a;
+        if (rr == g + 8) dl[1] = a;
+      }
     }
     float ls2[2];
 #pragma unroll
@@ -582,38 +637,45 @@ wg_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       // Tile j's S and dP are issued before tile j-1's dQ += dS K, and
       // tile j's dS is computed while that product runs.
       float s[kS], dp[kS];
-      uint32_t da[kWgBN / 16][4];
+      uint32_t da[BN / 16][4];
       bar_wait(q_bar, 0);
       for (int j = 0; j < nk_wg; ++j) {
         ring->wait(j);
-        const uint8_t* kt = ks + Rg::stage(j) * KT::kBytes;
-        const uint8_t* vt = vs + Rg::stage(j) * KT::kBytes;
+        const uint8_t* kt = ks + R::stage(j) * KT::kBytes;
+        const uint8_t* vt = vs + R::stage(j) * KT::kBytes;
         pin<kS>(s);
         pin<kS>(dp);
 #pragma unroll
         for (int pp = 0; pp < kP; ++pp) pin<kAcc>(acc[pp]);
         mma_fence();
-        // S = Q K^T and dP = dO V^T (64 x kWgBN per warpgroup), f32.
+        // S = Q K^T and dP = dO V^T (64 x BN per warpgroup, in 64-key
+        // blocks), f32.
 #pragma unroll
         for (int kk = 0; kk < HDP / 16; ++kk) {
-          mma_ss_n64(s, QT::kmajor(qs, wgi * 64, kk), KT::kmajor(kt, 0, kk),
-                     kk > 0);
+#pragma unroll
+          for (int nb = 0; nb < BN / 64; ++nb) {
+            mma_ss_n64(s + 32 * nb, QT::kmajor(qs, wgi * 64, kk),
+                       KT::kmajor(kt, 64 * nb, kk), kk > 0);
+          }
         }
 #pragma unroll
         for (int kk = 0; kk < HDP / 16; ++kk) {
-          mma_ss_n64(dp, QT::kmajor(dos, wgi * 64, kk), KT::kmajor(vt, 0, kk),
-                     kk > 0);
+#pragma unroll
+          for (int nb = 0; nb < BN / 64; ++nb) {
+            mma_ss_n64(dp + 32 * nb, QT::kmajor(dos, wgi * 64, kk),
+                       KT::kmajor(vt, 64 * nb, kk), kk > 0);
+          }
         }
         mma_commit();
-        if (j > 0) issue_dq<HDP>(acc, da, ks + Rg::stage(j - 1) * KT::kBytes);
+        if (j > 0) issue_dq<HDP, BN>(acc, da, ks + R::stage(j - 1) * KT::kBytes);
         mma_commit();
         mma_wait<1>();  // S and dP have landed; dQ may still run
         pin<kS>(s);
         pin<kS>(dp);
 
         // P = exp(S scale - lse), dS = P (dP - delta), in place of S.
-        const int k0 = j * kWgBN;
-        const bool edge = k0 + kWgBN > t || (causal && k0 + kWgBN - 1 > r0);
+        const int k0 = j * BN;
+        const bool edge = k0 + BN > t || (causal && k0 + BN - 1 > r0);
 #pragma unroll
         for (int i = 0; i < kS; ++i) {
           const int h = frag_half(i);
@@ -630,12 +692,12 @@ wg_dq_kernel(const __grid_constant__ CUtensorMap map_q,
         if (j > 0) ring->release(j - 1);
         // dS rounded to bf16 in registers: the A operand of dQ += dS K.
 #pragma unroll
-        for (int kk = 0; kk < kWgBN / 16; ++kk) frag_a(da[kk], s, kk);
+        for (int kk = 0; kk < BN / 16; ++kk) frag_a(da[kk], s, kk);
       }
 #pragma unroll
       for (int pp = 0; pp < kP; ++pp) pin<kAcc>(acc[pp]);
       mma_fence();
-      issue_dq<HDP>(acc, da, ks + Rg::stage(nk_wg - 1) * KT::kBytes);
+      issue_dq<HDP, BN>(acc, da, ks + R::stage(nk_wg - 1) * KT::kBytes);
       mma_commit();
       mma_wait<0>();
 #pragma unroll
@@ -652,8 +714,9 @@ wg_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// Pass 2: dk and dv.
-template <int HDP>
+// Pass 2: dk and dv, QN query rows (and their lse and delta) per streamed
+// tile, each multiplied in sub-tiles of kSubQ columns.
+template <int HDP, int QN>
 __global__ void __launch_bounds__(kWgThreads, 1)
 wg_dkv_kernel(const __grid_constant__ CUtensorMap map_k,
               const __grid_constant__ CUtensorMap map_v,
@@ -664,8 +727,10 @@ wg_dkv_kernel(const __grid_constant__ CUtensorMap map_k,
               bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int hd,
               int causal, float scale) {
   using KT = Tile<HDP, kWgKM>;
-  using QT = Tile<HDP, kWgQN>;
-  using SM = DkvSmem<HDP>;
+  using QT = Tile<HDP, QN>;
+  constexpr int kStages = dkv_stages<HDP, QN>();
+  using SM = DkvSmem<HDP, QN, kStages>;
+  using R = Ring<kStages>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   uint8_t* ks = sm;
@@ -673,13 +738,13 @@ wg_dkv_kernel(const __grid_constant__ CUtensorMap map_k,
   uint8_t* qs = sm + SM::kQ;
   uint8_t* dos = sm + SM::kDo;
   uint8_t* rv = sm + SM::kRowVals;
-  Rg* ring = reinterpret_cast<Rg*>(sm + SM::kBars);
+  R* ring = reinterpret_cast<R*>(sm + SM::kBars);
   uint64_t* k_bar = reinterpret_cast<uint64_t*>(ring + 1);
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kWgKM;  // the first key tiles see the most rows
-  const int i0 = causal ? k0 / kWgQN : 0;
-  const int nq = (t + kWgQN - 1) / kWgQN;
+  const int i0 = causal ? k0 / QN : 0;
+  const int nq = (t + QN - 1) / QN;
   const int wgi = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -697,21 +762,21 @@ wg_dkv_kernel(const __grid_constant__ CUtensorMap map_k,
       KT::load(vs, &map_v, k_bar, k0, bh);
       for (int i = i0; i < nq; ++i) {
         const int j = i - i0;
-        ring->acquire(j, 2 * QT::kBytes + 2 * kRowBox * 4);
-        const int st = Rg::stage(j);
+        ring->acquire(j, 2 * QT::kBytes + 2 * SM::kRowBox * 4);
+        const int st = R::stage(j);
         uint64_t* bar = &ring->full[st];
-        QT::load(qs + st * QT::kBytes, &map_q, bar, i * kWgQN, bh);
-        QT::load(dos + st * QT::kBytes, &map_do, bar, i * kWgQN, bh);
+        QT::load(qs + st * QT::kBytes, &map_q, bar, i * QN, bh);
+        QT::load(dos + st * QT::kBytes, &map_do, bar, i * QN, bh);
         float* r = reinterpret_cast<float*>(rv + st * SM::kRowBytes);
-        const int r0 = (bh * t + i * kWgQN) & ~3;
+        const int r0 = (bh * t + i * QN) & ~3;
         tma_row(r, &map_lse, bar, r0);
-        tma_row(r + kRowSlot, &map_delta, bar, r0);
+        tma_row(r + SM::kRowSlot, &map_delta, bar, r0);
       }
     }
   } else {
     reg_alloc<240>();
     constexpr int kW = QT::kW, kP = QT::kPanels, kAcc = kW / 2;
-    constexpr int kS = kWgQN / 2;
+    constexpr int kS = kSubQ / 2;
     const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
     const int g = lane >> 2, tq = lane & 3;
     const int kr0 = k0 + wgi * 64;  // this warpgroup's first key
@@ -728,105 +793,116 @@ wg_dkv_kernel(const __grid_constant__ CUtensorMap map_k,
 
     for (int i = i0; i < nq; ++i) {
       const int j = i - i0;
-      const int qi0 = i * kWgQN;
       ring->wait(j);  // also for a skipped tile: see Ring
-      // Skip a tile no key of this warpgroup sees (all its rows above the
-      // diagonal), and every tile when all its keys lie past t.
-      if (live && !(causal && qi0 + kWgQN - 1 < kr0)) {
-        const int st = Rg::stage(j);
-        const uint8_t* qt = qs + st * QT::kBytes;
-        const uint8_t* dot = dos + st * QT::kBytes;
-        const float* lse_t =
-            reinterpret_cast<const float*>(rv + st * SM::kRowBytes) +
-            ((bh * t + qi0) & 3);
-        const float* dl_t = lse_t + kRowSlot;
+      const int st = R::stage(j);
+      const uint8_t* qt = qs + st * QT::kBytes;
+      const uint8_t* dot = dos + st * QT::kBytes;
+      const float* rows_t =
+          reinterpret_cast<const float*>(rv + st * SM::kRowBytes) +
+          ((bh * t + i * QN) & 3);
+#pragma unroll
+      for (int c = 0; c < QN / kSubQ; ++c) {
+        const int qi0 = i * QN + c * kSubQ;
+        // Skip a sub-tile no key of this warpgroup sees (all its rows
+        // above the diagonal), one past t, and every sub-tile when all
+        // the warpgroup's keys lie past t.
+        if (live && (QN == kSubQ || qi0 < t) &&
+            !(causal && qi0 + kSubQ - 1 < kr0)) {
+          const float* lse_t = rows_t + c * kSubQ;
+          const float* dl_t = lse_t + SM::kRowSlot;
 
-        // S^T = K Q^T (64 keys x kWgQN queries per warpgroup), f32.
-        float s[kS];
-        pin<kS>(s);
-        mma_fence();
+          // S^T = K Q^T (64 keys x kSubQ queries per warpgroup), f32.
+          float s[kS];
+          pin<kS>(s);
+          mma_fence();
 #pragma unroll
-        for (int kk = 0; kk < HDP / 16; ++kk) {
-          mma_ss_n64(s, KT::kmajor(ks, wgi * 64, kk), QT::kmajor(qt, 0, kk),
-                     kk > 0);
-        }
-        mma_commit();
-        mma_wait<0>();
-        pin<kS>(s);
+          for (int kk = 0; kk < HDP / 16; ++kk) {
+            mma_ss_n64(s, KT::kmajor(ks, wgi * 64, kk),
+                       QT::kmajor(qt, c * kSubQ, kk), kk > 0);
+          }
+          mma_commit();
+          mma_wait<0>();
+          pin<kS>(s);
 
-        // P^T = exp(S^T scale - lse[query]), masked above the diagonal and
-        // past t; rounded to bf16 as the A operand of dV += P^T dO.
-        const bool edge = qi0 + kWgQN > t || (causal && kr0 + 63 > qi0);
+          // P^T = exp(S^T scale - lse[query]), masked above the diagonal
+          // and past t; rounded to bf16 as the A operand of dV += P^T dO.
+          const bool edge =
+              qi0 + kSubQ > t || (causal && kr0 + 63 > qi0);
 #pragma unroll
-        for (int b = 0; b < kS / 4; ++b) {
-          const float L[2] = {lse_t[8 * b + 2 * tq], lse_t[8 * b + 2 * tq + 1]};
+          for (int b = 0; b < kS / 4; ++b) {
+            const float L[2] = {lse_t[8 * b + 2 * tq],
+                                lse_t[8 * b + 2 * tq + 1]};
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i2 = 4 * b + e;
-            const int col = qi0 + frag_col(i2, tq);
-            const float ls2 = L[e & 1] * kLog2e;
-            float p = exp2_approx(fmaf(s[i2], sl2, -ls2));
-            if (edge && (col >= t || (causal && keys[frag_half(i2)] > col))) {
-              p = 0.f;
+            for (int e = 0; e < 4; ++e) {
+              const int i2 = 4 * b + e;
+              const int col = qi0 + frag_col(i2, tq);
+              const float ls2 = L[e & 1] * kLog2e;
+              float p = exp2_approx(fmaf(s[i2], sl2, -ls2));
+              if (edge && (col >= t || (causal && keys[frag_half(i2)] > col))) {
+                p = 0.f;
+              }
+              s[i2] = p;
             }
-            s[i2] = p;
           }
-        }
-        uint32_t pa[kWgQN / 16][4];
+          uint32_t pa[kSubQ / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < kWgQN / 16; ++kk) frag_a(pa[kk], s, kk);
+          for (int kk = 0; kk < kSubQ / 16; ++kk) frag_a(pa[kk], s, kk);
 
-        // dV += P^T dO and dP^T = V dO^T.
-        float dp[kS];
-        pin<kS>(dp);
+          // dV += P^T dO and dP^T = V dO^T.
+          float dp[kS];
+          pin<kS>(dp);
 #pragma unroll
-        for (int pp = 0; pp < kP; ++pp) pin<kAcc>(adv[pp]);
-        mma_fence();
+          for (int pp = 0; pp < kP; ++pp) pin<kAcc>(adv[pp]);
+          mma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kWgQN / 16; ++kk) {
+          for (int kk = 0; kk < kSubQ / 16; ++kk) {
 #pragma unroll
-          for (int pp = 0; pp < kP; ++pp) {
-            mma_rs<kW>(adv[pp], pa[kk], QT::mnmajor(dot, kk, pp), 1);
+            for (int pp = 0; pp < kP; ++pp) {
+              mma_rs<kW>(adv[pp], pa[kk],
+                         QT::mnmajor(dot, c * kSubQ / 16 + kk, pp), 1);
+            }
           }
-        }
 #pragma unroll
-        for (int kk = 0; kk < HDP / 16; ++kk) {
-          mma_ss_n64(dp, KT::kmajor(vs, wgi * 64, kk), QT::kmajor(dot, 0, kk),
-                     kk > 0);
-        }
-        mma_commit();
-        mma_wait<0>();
-        pin<kS>(dp);
+          for (int kk = 0; kk < HDP / 16; ++kk) {
+            mma_ss_n64(dp, KT::kmajor(vs, wgi * 64, kk),
+                       QT::kmajor(dot, c * kSubQ, kk), kk > 0);
+          }
+          mma_commit();
+          mma_wait<0>();
+          pin<kS>(dp);
 #pragma unroll
-        for (int pp = 0; pp < kP; ++pp) pin<kAcc>(adv[pp]);
+          for (int pp = 0; pp < kP; ++pp) pin<kAcc>(adv[pp]);
 
-        // dS^T = P^T (dP^T - delta[query]), rounded to bf16: dK += dS^T Q.
+          // dS^T = P^T (dP^T - delta[query]), rounded to bf16: dK += dS^T
+          // Q.
 #pragma unroll
-        for (int b = 0; b < kS / 4; ++b) {
-          const float D[2] = {dl_t[8 * b + 2 * tq], dl_t[8 * b + 2 * tq + 1]};
+          for (int b = 0; b < kS / 4; ++b) {
+            const float D[2] = {dl_t[8 * b + 2 * tq], dl_t[8 * b + 2 * tq + 1]};
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i2 = 4 * b + e;
-            s[i2] = s[i2] * (dp[i2] - D[e & 1]);
+            for (int e = 0; e < 4; ++e) {
+              const int i2 = 4 * b + e;
+              s[i2] = s[i2] * (dp[i2] - D[e & 1]);
+            }
           }
-        }
-        uint32_t da[kWgQN / 16][4];
+          uint32_t da[kSubQ / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < kWgQN / 16; ++kk) frag_a(da[kk], s, kk);
+          for (int kk = 0; kk < kSubQ / 16; ++kk) frag_a(da[kk], s, kk);
 #pragma unroll
-        for (int pp = 0; pp < kP; ++pp) pin<kAcc>(adk[pp]);
-        mma_fence();
+          for (int pp = 0; pp < kP; ++pp) pin<kAcc>(adk[pp]);
+          mma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kWgQN / 16; ++kk) {
+          for (int kk = 0; kk < kSubQ / 16; ++kk) {
 #pragma unroll
-          for (int pp = 0; pp < kP; ++pp) {
-            mma_rs<kW>(adk[pp], da[kk], QT::mnmajor(qt, kk, pp), 1);
+            for (int pp = 0; pp < kP; ++pp) {
+              mma_rs<kW>(adk[pp], da[kk],
+                         QT::mnmajor(qt, c * kSubQ / 16 + kk, pp), 1);
+            }
           }
-        }
-        mma_commit();
-        mma_wait<0>();
+          mma_commit();
+          mma_wait<0>();
 #pragma unroll
-        for (int pp = 0; pp < kP; ++pp) pin<kAcc>(adk[pp]);
+          for (int pp = 0; pp < kP; ++pp) pin<kAcc>(adk[pp]);
+        }
       }
       ring->release(j);
     }
@@ -836,47 +912,53 @@ wg_dkv_kernel(const __grid_constant__ CUtensorMap map_k,
   }
 }
 
-template <int HDP>
+// Both passes at BN rows per streamed tile (the dq pass's keys, the dk/dv
+// pass's queries); DIN: the dq pass reads the caller's delta (o, g_lse
+// unused) instead of writing it.
+template <int HDP, int BN, bool DIN>
 cudaError_t launch_wg(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       const float* g_lse, float* delta, void* dq, void* dk,
                       void* dv, int bh, int t, int hd, int causal,
                       float scale, cudaStream_t stream) {
   if ((long long)bh * t > 0x7fffffffLL) return cudaErrorInvalidValue;
-  // Pass 1 streams 64-key K/V tiles past 128-row Q/dO tiles; pass 2
-  // streams 64-row Q/dO tiles (and their lse/delta) past 128-key K/V
+  // Pass 1 streams BN-key K/V tiles past 128-row Q/dO tiles; pass 2
+  // streams BN-row Q/dO tiles (and their lse/delta) past 128-key K/V
   // tiles.
+  using Dkv = DkvS<HDP, BN>;
   CUtensorMap q_bm, do_bm, k_bn, v_bn, k_km, v_km, q_qn, do_qn, m_lse, m_delta;
   cudaError_t err = tile_map<HDP, kWgBM>(&q_bm, q, hd, t, bh);
   if (err == cudaSuccess) err = tile_map<HDP, kWgBM>(&do_bm, dout, hd, t, bh);
-  if (err == cudaSuccess) err = tile_map<HDP, kWgBN>(&k_bn, k, hd, t, bh);
-  if (err == cudaSuccess) err = tile_map<HDP, kWgBN>(&v_bn, v, hd, t, bh);
+  if (err == cudaSuccess) err = tile_map<HDP, BN>(&k_bn, k, hd, t, bh);
+  if (err == cudaSuccess) err = tile_map<HDP, BN>(&v_bn, v, hd, t, bh);
   if (err == cudaSuccess) err = tile_map<HDP, kWgKM>(&k_km, k, hd, t, bh);
   if (err == cudaSuccess) err = tile_map<HDP, kWgKM>(&v_km, v, hd, t, bh);
-  if (err == cudaSuccess) err = tile_map<HDP, kWgQN>(&q_qn, q, hd, t, bh);
-  if (err == cudaSuccess) err = tile_map<HDP, kWgQN>(&do_qn, dout, hd, t, bh);
-  if (err == cudaSuccess) err = map_row_f32(&m_lse, lse, (uint64_t)bh * t, kRowBox);
-  if (err == cudaSuccess) err = map_row_f32(&m_delta, delta, (uint64_t)bh * t, kRowBox);
+  if (err == cudaSuccess) err = tile_map<HDP, BN>(&q_qn, q, hd, t, bh);
+  if (err == cudaSuccess) err = tile_map<HDP, BN>(&do_qn, dout, hd, t, bh);
+  if (err == cudaSuccess)
+    err = map_row_f32(&m_lse, lse, (uint64_t)bh * t, Dkv::kRowBox);
+  if (err == cudaSuccess)
+    err = map_row_f32(&m_delta, delta, (uint64_t)bh * t, Dkv::kRowBox);
   if (err != cudaSuccess) return err;
-  constexpr int smem_dq = DqSmem<HDP>::kBytes;
-  constexpr int smem_dkv = DkvSmem<HDP>::kBytes;
-  err = cudaFuncSetAttribute(wg_dq_kernel<HDP>,
+  constexpr int smem_dq = DqS<HDP, BN>::kBytes;
+  constexpr int smem_dkv = Dkv::kBytes;
+  err = cudaFuncSetAttribute(wg_dq_kernel<HDP, BN, DIN>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_dq);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(wg_dkv_kernel<HDP>,
+  err = cudaFuncSetAttribute(wg_dkv_kernel<HDP, BN>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_dkv);
   if (err != cudaSuccess) return err;
-  wg_dq_kernel<HDP><<<dim3(bh, (t + kWgBM - 1) / kWgBM), kWgThreads, smem_dq,
-                      stream>>>(
+  wg_dq_kernel<HDP, BN, DIN><<<dim3(bh, (t + kWgBM - 1) / kWgBM), kWgThreads,
+                               smem_dq, stream>>>(
       q_bm, do_bm, k_bn, v_bn, static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), lse, g_lse, delta,
       static_cast<bf16*>(dq), t, hd, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  wg_dkv_kernel<HDP><<<dim3(bh, (t + kWgKM - 1) / kWgKM), kWgThreads,
-                       smem_dkv, stream>>>(
+  wg_dkv_kernel<HDP, BN><<<dim3(bh, (t + kWgKM - 1) / kWgKM), kWgThreads,
+                           smem_dkv, stream>>>(
       k_km, v_km, q_qn, do_qn, m_lse, m_delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), t, hd, causal, scale);
   return cudaGetLastError();
@@ -887,18 +969,18 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
                           const float* g_lse, float* delta, void* dq, void* dk,
                           void* dv, int bh, int t, int hd, int causal,
                           float scale, cudaStream_t s) {
-  FF_WG_WIDTH_DISPATCH((launch_wg<HDP>(FF_BWD_ARGS)));
+  FF_WG_WIDTH_DISPATCH((launch_wg<HDP, kWgBN, false>(FF_BWD_ARGS)));
 }
 
-template <int HDP>
+template <int HDP, int BN, bool DIN>
 cudaError_t attrs_wg(int which, int* out) {
   cudaFuncAttributes a;
   const cudaError_t err =
-      which == 0 ? cudaFuncGetAttributes(&a, wg_dq_kernel<HDP>)
-                 : cudaFuncGetAttributes(&a, wg_dkv_kernel<HDP>);
+      which == 0 ? cudaFuncGetAttributes(&a, wg_dq_kernel<HDP, BN, DIN>)
+                 : cudaFuncGetAttributes(&a, wg_dkv_kernel<HDP, BN>);
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = which == 0 ? DqSmem<HDP>::kBytes : DkvSmem<HDP>::kBytes;
+  out[2] = which == 0 ? DqS<HDP, BN>::kBytes : DkvS<HDP, BN>::kBytes;
   return err;
 }
 
@@ -938,5 +1020,52 @@ extern "C" int ff_flash_bwd(const void* q, const void* k, const void* v,
 extern "C" int ff_flash_bwd_attrs(int which, int hd, int* out) {
   if (which < 0 || which > 1 || hd < 8 || hd > 128)
     return (int)cudaErrorInvalidValue;
-  FF_WG_WIDTH_DISPATCH((int)attrs_wg<HDP>(which, out));
+  FF_WG_WIDTH_DISPATCH(((int)attrs_wg<HDP, kWgBN, false>(which, out)));
+}
+
+// The race's bf16 b2 (tools/probe_flash_bwd_variants.py::_bwd_call_lanes)
+// on K1b's pair: dq, dk, dv from the caller's lse and delta (neither o nor
+// g_lse is read), with ff_flash_probe_bwd's arguments (flash_probe_bwd.cu):
+// dtype ff::kBFloat16, hd 64 or 128, block (the rows of either pass's
+// streamed tile) 64 or 128.  At block 64 it is K1b's tiling: given K1b's
+// delta, K1b's bits.  lse and delta are read by TMA boxes: their bases must
+// be 16-byte aligned.
+extern "C" int ff_flash_bwd_row_state(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dq, void* dk, void* dv, int bh,
+                                      int t, int hd, int causal, float scale,
+                                      int dtype, int block, void* stream) {
+  if (dtype != ff::kBFloat16 || bh < 1 || bh > 65535 || t < 1 ||
+      (t + kWgBM - 1) / kWgBM > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* lse_f = static_cast<const float*>(lse);
+  float* delta_f = const_cast<float*>(static_cast<const float*>(delta));
+#define FF_ROW_STATE_CALL(HD, BN)                                          \
+  if (hd == HD && block == BN)                                             \
+    return (int)launch_wg<HD, BN, true>(q, k, v, nullptr, dout, lse_f,     \
+                                        nullptr, delta_f, dq, dk, dv, bh,  \
+                                        t, hd, causal, scale, s);
+  FF_ROW_STATE_CALL(64, 64)
+  FF_ROW_STATE_CALL(64, 128)
+  FF_ROW_STATE_CALL(128, 64)
+  FF_ROW_STATE_CALL(128, 128)
+#undef FF_ROW_STATE_CALL
+  return (int)cudaErrorInvalidValue;
+}
+
+// out[0..2] as ff_flash_bwd_attrs, for b2's pass `which` at head dim hd
+// (64 or 128) and block (64 or 128).
+extern "C" int ff_flash_bwd_row_state_attrs(int which, int hd, int block,
+                                            int* out) {
+  if (which < 0 || which > 1) return (int)cudaErrorInvalidValue;
+#define FF_ROW_STATE_ATTRS(HD, BN) \
+  if (hd == HD && block == BN) return (int)attrs_wg<HD, BN, true>(which, out);
+  FF_ROW_STATE_ATTRS(64, 64)
+  FF_ROW_STATE_ATTRS(64, 128)
+  FF_ROW_STATE_ATTRS(128, 64)
+  FF_ROW_STATE_ATTRS(128, 128)
+#undef FF_ROW_STATE_ATTRS
+  return (int)cudaErrorInvalidValue;
 }

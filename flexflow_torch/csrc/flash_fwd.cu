@@ -4,7 +4,10 @@
 // (launched by _fwd_call, reached through flash_attention_lse); in bf16
 // also ::_fwd_stream_kernel (launched by _fwd_stream_call, the streamed
 // forward K1s), whose sequential third grid axis is the K/V tile loop
-// inside each CTA of wg_fwd_kernel below.  Same function: softmax(q k^T / sqrt(hd)) v over (bh, t, hd) slabs, causal or
+// inside each CTA of wg_fwd_kernel below, and the kernel race's
+// tools/probe_flash_variants.py::_v2_kernel (launched by _call, :204), the
+// row state of K1f itself less the lse: wg_fwd_kernel with key tiles of
+// the race's block (64 or 128) and no lse store (ff_flash_fwd_row_state).  Same function: softmax(q k^T / sqrt(hd)) v over (bh, t, hd) slabs, causal or
 // not, returning o in the input type and lse = m + log(l) in f32.  The cast
 // points are the reference's: scores in f32, the scale applied after the
 // dot, p rounded to v's type before P.V, l summed from the f32 p.
@@ -262,11 +265,18 @@ __device__ __forceinline__ void softmax_tile(float* s, float* m, float* l,
   }
 }
 
-template <int HDP>
-using K1fSmem = FwdSmem<HDP, kWgBM, kWgBN, kStages>;
-static_assert(K1fSmem<128>::kBytes <= 227 * 1024, "K1f's ring at hd 128");
+template <int HDP, int BN>
+using K1fSmem = FwdSmem<HDP, kWgBM, BN, kStages>;
+// q and the ring at every (width, key tile) instantiated: at hd 128 and
+// 128 keys they take 224 KiB of the 227.
+static_assert(K1fSmem<128, 128>::kBytes <= 227 * 1024, "hd 128, 128 keys");
+static_assert(K1fSmem<128, 64>::kBytes <= 227 * 1024, "hd 128, 64 keys");
+static_assert(K1fSmem<64, 128>::kBytes <= 227 * 1024, "hd 64, 128 keys");
+static_assert(K1fSmem<64, 64>::kBytes <= 227 * 1024, "hd 64, 64 keys");
 
-template <int HDP>
+// BN keys per streamed K/V tile (K1f: kWgBN, the race's v2: its block);
+// LSE: write the lse (K1f), or o alone (v2).
+template <int HDP, int BN, bool LSE>
 __global__ void __launch_bounds__(kWgThreads, 1)
 wg_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
               const __grid_constant__ CUtensorMap map_k,
@@ -274,8 +284,8 @@ wg_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int t,
               int hd, int causal, float scale) {
   using QT = Tile<HDP, kWgBM>;
-  using KT = Tile<HDP, kWgBN>;
-  using SM = K1fSmem<HDP>;
+  using KT = Tile<HDP, BN>;
+  using SM = K1fSmem<HDP, BN>;
   using R = Ring<kStages>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
@@ -288,7 +298,7 @@ wg_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBM;  // longest rows first
   const int kend = causal ? min(t, q0 + kWgBM) : t;
-  const int nk = (kend + kWgBN - 1) / kWgBN;
+  const int nk = (kend + BN - 1) / BN;
   const int wgi = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -307,14 +317,14 @@ wg_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int j = 0; j < nk; ++j) {
         ring->acquire(j, 2 * KT::kBytes);
         const int st = R::stage(j);
-        KT::load(ks + st * KT::kBytes, &map_k, &ring->full[st], j * kWgBN, bh);
-        KT::load(vs + st * KT::kBytes, &map_v, &ring->full[st], j * kWgBN, bh);
+        KT::load(ks + st * KT::kBytes, &map_k, &ring->full[st], j * BN, bh);
+        KT::load(vs + st * KT::kBytes, &map_v, &ring->full[st], j * BN, bh);
       }
     }
   } else {
     reg_alloc<240>();
     constexpr int kW = KT::kW, kP = KT::kPanels, kAcc = kW / 2;
-    constexpr int kS = kWgBN / 2;  // score accumulator floats per thread
+    constexpr int kS = BN / 2;  // score accumulator floats per thread
     const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
     const int g = lane >> 2, tq = lane & 3;
     const int r0 = q0 + wgi * 64;  // this warpgroup's first row
@@ -322,11 +332,11 @@ wg_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     // Key tiles this warpgroup needs: up to its own diagonal when causal,
     // none when all its rows lie past t.
     const int kend_wg = causal ? min(t, r0 + 64) : t;
-    const int nk_wg = r0 < t ? (kend_wg + kWgBN - 1) / kWgBN : 0;
+    const int nk_wg = r0 < t ? (kend_wg + BN - 1) / BN : 0;
     const float sl2 = scale * kLog2e;
     // A tile needs the mask when it reaches past t or past the diagonal.
     auto edge = [&](int j) {
-      return (j + 1) * kWgBN > t || (causal && (j + 1) * kWgBN - 1 > r0);
+      return (j + 1) * BN > t || (causal && (j + 1) * BN - 1 > r0);
     };
 
     float acc[kP][kAcc];
@@ -341,32 +351,32 @@ wg_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       // softmax runs while that product does (FA3's intra-warpgroup
       // overlap); O is rescaled once the product has landed.
       float s[kS], corr[2];
-      uint32_t pa[kWgBN / 16][4];
+      uint32_t pa[BN / 16][4];
       bar_wait(q_bar, 0);
       ring->wait(0);
       pin<kS>(s);
       mma_fence();
-      issue_scores<HDP, kWgBM, kWgBN>(s, qs, ks, wgi);
+      issue_scores<HDP, kWgBM, BN>(s, qs, ks, wgi);
       mma_commit();
       mma_wait<0>();
       pin<kS>(s);
       softmax_tile<kS>(s, m, l, corr, 0, t, causal, edge(0), rows, tq, sl2);
 #pragma unroll
-      for (int kk = 0; kk < kWgBN / 16; ++kk) frag_a(pa[kk], s, kk);
+      for (int kk = 0; kk < BN / 16; ++kk) frag_a(pa[kk], s, kk);
       for (int j = 1; j < nk_wg; ++j) {
         ring->wait(j);
         pin<kS>(s);
 #pragma unroll
         for (int p = 0; p < kP; ++p) pin<kAcc>(acc[p]);
         mma_fence();
-        issue_scores<HDP, kWgBM, kWgBN>(s, qs, ks + R::stage(j) * KT::kBytes,
-                                        wgi);
+        issue_scores<HDP, kWgBM, BN>(s, qs, ks + R::stage(j) * KT::kBytes,
+                                     wgi);
         mma_commit();
-        issue_pv<HDP, kWgBN>(acc, pa, vs + R::stage(j - 1) * KT::kBytes);
+        issue_pv<HDP, BN>(acc, pa, vs + R::stage(j - 1) * KT::kBytes);
         mma_commit();
         mma_wait<1>();  // S has landed; P V may still run
         pin<kS>(s);
-        softmax_tile<kS>(s, m, l, corr, j * kWgBN, t, causal, edge(j), rows,
+        softmax_tile<kS>(s, m, l, corr, j * BN, t, causal, edge(j), rows,
                          tq, sl2);
         mma_wait<0>();
 #pragma unroll
@@ -377,12 +387,12 @@ wg_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
           for (int i = 0; i < kAcc; ++i) acc[p][i] *= corr[frag_half(i)];
 #pragma unroll
-        for (int kk = 0; kk < kWgBN / 16; ++kk) frag_a(pa[kk], s, kk);
+        for (int kk = 0; kk < BN / 16; ++kk) frag_a(pa[kk], s, kk);
       }
 #pragma unroll
       for (int p = 0; p < kP; ++p) pin<kAcc>(acc[p]);
       mma_fence();
-      issue_pv<HDP, kWgBN>(acc, pa, vs + R::stage(nk_wg - 1) * KT::kBytes);
+      issue_pv<HDP, BN>(acc, pa, vs + R::stage(nk_wg - 1) * KT::kBytes);
       mma_commit();
       mma_wait<0>();
 #pragma unroll
@@ -397,8 +407,8 @@ wg_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       ring->release(j);
     }
 
-    // o = acc / l in bf16, lse = m scale + log l; rows past t and columns
-    // past hd are not stored.
+    // o = acc / l in bf16, lse = m scale + log l (with LSE); rows past t
+    // and columns past hd are not stored.
     const size_t base = (size_t)bh * t;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -418,26 +428,26 @@ wg_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
           }
         }
       }
-      if (tq == 0) lse[base + rows[h]] = m[h] * scale + logf(l[h]);
+      if (LSE && tq == 0) lse[base + rows[h]] = m[h] * scale + logf(l[h]);
     }
   }
 }
 
-template <int HDP>
+template <int HDP, int BN, bool LSE>
 cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o,
                       float* lse, int bh, int t, int hd, int causal,
                       float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   cudaError_t err = tile_map<HDP, kWgBM>(&mq, q, hd, t, bh);
-  if (err == cudaSuccess) err = tile_map<HDP, kWgBN>(&mk, k, hd, t, bh);
-  if (err == cudaSuccess) err = tile_map<HDP, kWgBN>(&mv, v, hd, t, bh);
+  if (err == cudaSuccess) err = tile_map<HDP, BN>(&mk, k, hd, t, bh);
+  if (err == cudaSuccess) err = tile_map<HDP, BN>(&mv, v, hd, t, bh);
   if (err != cudaSuccess) return err;
-  constexpr int smem = K1fSmem<HDP>::kBytes;
-  err = cudaFuncSetAttribute(wg_fwd_kernel<HDP>,
+  constexpr int smem = K1fSmem<HDP, BN>::kBytes;
+  err = cudaFuncSetAttribute(wg_fwd_kernel<HDP, BN, LSE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (t + kWgBM - 1) / kWgBM);
-  wg_fwd_kernel<HDP><<<grid, kWgThreads, smem, stream>>>(
+  wg_fwd_kernel<HDP, BN, LSE><<<grid, kWgThreads, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, t, hd, causal, scale);
   return cudaGetLastError();
 }
@@ -445,17 +455,17 @@ cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o,
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
                           float* lse, int bh, int t, int hd, int causal,
                           float scale, cudaStream_t stream) {
-  FF_WG_WIDTH_DISPATCH(
-      (launch_wg<HDP>(q, k, v, o, lse, bh, t, hd, causal, scale, stream)));
+  FF_WG_WIDTH_DISPATCH((launch_wg<HDP, kWgBN, true>(q, k, v, o, lse, bh, t, hd,
+                                                    causal, scale, stream)));
 }
 
-template <int HDP>
+template <int HDP, int BN, bool LSE>
 cudaError_t attrs_wg(int* out) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, wg_fwd_kernel<HDP>);
+  const cudaError_t err = cudaFuncGetAttributes(&a, wg_fwd_kernel<HDP, BN, LSE>);
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = K1fSmem<HDP>::kBytes;
+  out[2] = K1fSmem<HDP, BN>::kBytes;
   return err;
 }
 
@@ -485,5 +495,44 @@ extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v,
 // dynamic shared memory of the bf16 kernel at head dim hd's tile width.
 extern "C" int ff_flash_fwd_attrs(int hd, int* out) {
   if (hd < 8 || hd > 128) return (int)cudaErrorInvalidValue;
-  FF_WG_WIDTH_DISPATCH((int)attrs_wg<HDP>(out));
+  FF_WG_WIDTH_DISPATCH(((int)attrs_wg<HDP, kWgBN, true>(out)));
+}
+
+// The race's bf16 v2 (the row state; tools/probe_flash_variants.py::
+// _v2_kernel) on K1f's kernel: o alone, key tiles of `block` (64 or 128),
+// with ff_flash_probe_fwd's arguments (flash_probe.cu): variant must be 0,
+// dtype ff::kBFloat16, hd 64 or 128.  At block 128 it is K1f's instantiation
+// less the lse store, so its o is K1f's bit for bit.
+extern "C" int ff_flash_fwd_row_state(int variant, const void* q,
+                                      const void* k, const void* v, void* o,
+                                      int bh, int t, int hd, int causal,
+                                      float scale, int dtype, int block,
+                                      void* stream) {
+  if (variant != 0 || dtype != ff::kBFloat16 || bh < 1 || t < 1 ||
+      (t + kWgBM - 1) / kWgBM > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FF_ROW_STATE_CALL(HD, BN)                                          \
+  if (hd == HD && block == BN)                                             \
+    return (int)launch_wg<HD, BN, false>(q, k, v, o, nullptr, bh, t, hd,   \
+                                         causal, scale, s);
+  FF_ROW_STATE_CALL(64, 64)
+  FF_ROW_STATE_CALL(64, 128)
+  FF_ROW_STATE_CALL(128, 64)
+  FF_ROW_STATE_CALL(128, 128)
+#undef FF_ROW_STATE_CALL
+  return (int)cudaErrorInvalidValue;
+}
+
+// out[0..2] as ff_flash_fwd_attrs, for v2's instantiation at head dim hd
+// (64 or 128) and key tile block (64 or 128).
+extern "C" int ff_flash_fwd_row_state_attrs(int hd, int block, int* out) {
+#define FF_ROW_STATE_ATTRS(HD, BN) \
+  if (hd == HD && block == BN) return (int)attrs_wg<HD, BN, false>(out);
+  FF_ROW_STATE_ATTRS(64, 64)
+  FF_ROW_STATE_ATTRS(64, 128)
+  FF_ROW_STATE_ATTRS(128, 64)
+  FF_ROW_STATE_ATTRS(128, 128)
+#undef FF_ROW_STATE_ATTRS
+  return (int)cudaErrorInvalidValue;
 }

@@ -7,9 +7,11 @@
 //   * _v2_kernel (:46), the row state: online softmax, acc = acc corr + p v,
 //     l = l corr + sum p.  The TPU remedy was a layout of m and l that needs
 //     no cross-lane broadcast per tile.  Here m and l live in every thread
-//     that holds a part of the row (the quad of the m16n8k16 accumulator),
+//     that holds a part of the row (the quad of the accumulator fragment),
 //     both reduced over the quad once per key tile, and the correction
-//     multiplies the register accumulator once per key tile.
+//     multiplies the register accumulator once per key tile.  That is
+//     K1f's formulation: the bf16 v2 is K1f's wg_fwd_kernel (flash_fwd.cu,
+//     ff_flash_fwd_row_state) at the race's key tile, without the lse.
 //   * _v3_kernel (:103), two passes: pass 1 the masked scores and the row
 //     max, pass 2 p = exp(s - m), l = sum p and acc += p v with no
 //     corrections at all.  The TPU staged s in a (block_q, t) f32 VMEM
@@ -33,8 +35,7 @@
 // finite -1e30 mask, p rounded to v's type before P.V, l summed from the
 // f32 p.
 //
-// Two machineries.  The variants no longer share one: v3 and v4 in bf16
-// run on K1f's, v2 and every f32 instantiation on the race's own.
+// Two machineries, one per type.
 //   * bf16 v3 and v4: wg_two_pass_kernel, K1f's wg_fwd_kernel shape on
 //     wgmma_tile.cuh and flash_wg.cuh (ff_flash_probe_fwd_wg).  One CTA per
 //     (bh, 128-row q tile), heaviest causal tiles first, of three
@@ -52,23 +53,19 @@
 //     of every key tile, those wholly above the diagonal too, where the
 //     mask makes p an exact 0.  Every wait traps after 2 s, as K1f's do
 //     (wgmma_tile.cuh, bar_wait): a fault of the ring's phases fails the
-//     launch instead of hanging the card.
-//   * v2, and f32 v3 and v4: mma_tile.cuh (ff_flash_probe_fwd).  One CTA
-//     of 4 warps per (bh, 64-row q tile), 16 query rows per warp; key tiles
-//     of BN (the race's block, 64 or 128) stream through a cp.async ring of
-//     two stages, or one where two do not fit shared memory (f32 at hd 128
-//     and BN 128).  bf16 products run on the tensor cores
-//     (mma.sync.m16n8k16, f32 accumulation); the f32 instantiation runs the
-//     same products on the FMA pipes, with no TF32 (wgmma takes f32 only
-//     as TF32).
+//     launch instead of hanging the card.  (bf16 v2: flash_fwd.cu.)
+//   * f32 v2, v3 and v4: mma_tile.cuh (ff_flash_probe_fwd).  One CTA of 4
+//     warps per (bh, 64-row q tile), 16 query rows per warp; key tiles of
+//     BN (the race's block, 64 or 128) stream through a cp.async ring of
+//     two stages, or one where two do not fit shared memory (hd 128 and BN
+//     128).  The products run on the FMA pipes in f32, with no TF32
+//     (wgmma takes f32 only as TF32).
 //
 // Bound.  At the race's shapes each variant is bound by its products:
 // 4 b h hd t^2 / 2 FLOPs for the causal function (v3 spends 1.5x that, v4
 // 3x).  On one machinery the race measures what the bookkeeping costs
 // beside the products: v3 drops every correction of v2 and K1f for 0.5x
 // more products, v4 also drops the causal skip.
-#include <type_traits>
-
 #include "flash_wg.cuh"
 #include "mma_tile.cuh"
 #include "wgmma_tile.cuh"
@@ -77,24 +74,25 @@ namespace {
 
 using namespace ff::tile;
 
-template <typename T, int HD, int BN>
+template <int HD, int BN>
 __host__ __device__ constexpr size_t fwd_smem(int stages) {
-  return sizeof(T) * (size_t)(kBM + 2 * stages * BN) * pitch<T>(HD) +
-         sizeof(float) * pbuf_floats<T>(BN);
+  return sizeof(float) * ((size_t)(kBM + 2 * stages * BN) * pitch<float>(HD) +
+                          pbuf_floats(BN));
 }
 
 // Two cp.async stages when they fit, else one.
-template <typename T, int HD, int BN>
+template <int HD, int BN>
 __host__ __device__ constexpr int fwd_stages() {
-  return fwd_smem<T, HD, BN>(2) <= kSmemMax ? 2 : 1;
+  return fwd_smem<HD, BN>(2) <= kSmemMax ? 2 : 1;
 }
 
 // The scaled, masked scores of a warp's 16 rows against key tile k0..k0+BN.
-template <typename T, int HD, int BN>
-__device__ __forceinline__ void scores(float (*s)[4], const T* qw,
-                                       const T* kt, int k0, const int* rows,
-                                       int t, int causal, float scale) {
-  constexpr int kLd = pitch<T>(HD);
+template <int HD, int BN>
+__device__ __forceinline__ void scores(float (*s)[4], const float* qw,
+                                       const float* kt, int k0,
+                                       const int* rows, int t, int causal,
+                                       float scale) {
+  constexpr int kLd = pitch<float>(HD);
   const int tq = (threadIdx.x & 31) & 3;
   zero<BN / 8>(s);
   warp_abt<HD, BN>(s, qw, kLd, kt, kLd);
@@ -123,12 +121,13 @@ __device__ __forceinline__ float quad_sum(float x) {
 // v2: the row state
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD, int BN>
+template <int HD, int BN>
 __global__ void __launch_bounds__(kThreads)
-row_state_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int t,
+row_state_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int t,
                  int causal, float scale) {
-  constexpr int S = fwd_stages<T, HD, BN>();
+  using T = float;
+  constexpr int S = fwd_stages<HD, BN>();
   constexpr int kLd = pitch<T>(HD);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // kBM x kLd
@@ -158,8 +157,8 @@ row_state_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < nk; ++j) {
     const int st = ring_wait<S>(j, nk, issue);
     float s[BN / 8][4];
-    scores<T, HD, BN>(s, qw, ks + st * BN * kLd, j * BN, rows, t, causal,
-                      scale);
+    scores<HD, BN>(s, qw, ks + st * BN * kLd, j * BN, rows, t, causal,
+                   scale);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int nt = 0; nt < BN / 8; ++nt) {
@@ -201,12 +200,13 @@ row_state_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // tile)
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD, int BN, bool SKIP>
+template <int HD, int BN, bool SKIP>
 __global__ void __launch_bounds__(kThreads)
-two_pass_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o, int t, int causal,
-                float scale) {
-  constexpr int S = fwd_stages<T, HD, BN>();
+two_pass_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o, int t,
+                int causal, float scale) {
+  using T = float;
+  constexpr int S = fwd_stages<HD, BN>();
   constexpr int kLd = pitch<T>(HD);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // kBM x kLd
@@ -237,8 +237,8 @@ two_pass_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < nk; ++j) {
     const int st = ring_wait<S>(j, nk, issue_k);
     float s[BN / 8][4];
-    scores<T, HD, BN>(s, qw, ks + st * BN * kLd, j * BN, rows, t, causal,
-                      scale);
+    scores<HD, BN>(s, qw, ks + st * BN * kLd, j * BN, rows, t, causal,
+                   scale);
 #pragma unroll
     for (int nt = 0; nt < BN / 8; ++nt) {
 #pragma unroll
@@ -258,8 +258,8 @@ two_pass_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < nk; ++j) {
     const int st = ring_wait<S>(j, nk, issue_kv);
     float s[BN / 8][4];
-    scores<T, HD, BN>(s, qw, ks + st * BN * kLd, j * BN, rows, t, causal,
-                      scale);
+    scores<HD, BN>(s, qw, ks + st * BN * kLd, j * BN, rows, t, causal,
+                   scale);
 #pragma unroll
     for (int nt = 0; nt < BN / 8; ++nt) {
 #pragma unroll
@@ -280,21 +280,18 @@ two_pass_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD, int BN>
+// f32 only: the bf16 v2 is K1f's kernel (flash_fwd.cu), the bf16 v3 and v4
+// wg_two_pass_kernel below.
+template <int HD, int BN>
 cudaError_t launch_variant(int variant, const void* q, const void* k,
                            const void* v, void* o, int bh, int t, int causal,
                            float scale, cudaStream_t stream) {
+  using T = float;
   using Kernel = void (*)(const T*, const T*, const T*, T*, int, int, float);
-  Kernel kernel = &row_state_kernel<T, HD, BN>;
-  if constexpr (std::is_same<T, float>::value) {
-    if (variant > 0) {
-      kernel = variant == 1 ? &two_pass_kernel<T, HD, BN, true>
-                            : &two_pass_kernel<T, HD, BN, false>;
-    }
-  } else if (variant > 0) {
-    return cudaErrorInvalidValue;  // bf16 v3 and v4: ff_flash_probe_fwd_wg
-  }
-  const size_t smem = fwd_smem<T, HD, BN>(fwd_stages<T, HD, BN>());
+  const Kernel kernel = variant == 0   ? &row_state_kernel<HD, BN>
+                        : variant == 1 ? &two_pass_kernel<HD, BN, true>
+                                       : &two_pass_kernel<HD, BN, false>;
+  const size_t smem = fwd_smem<HD, BN>(fwd_stages<HD, BN>());
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -615,34 +612,27 @@ cudaError_t attrs_two_pass(int variant, int* out) {
 
 }  // namespace
 
-// The race's mma_tile.cuh kernels.  q, k, v, o: (bh, t, hd) contiguous,
-// 16-byte aligned, of one type (dtype: ff::kFloat32 or ff::kBFloat16).
-// variant: 0 row state (v2), 1 two passes (v3), 2 full row (v4); bf16
-// takes variant 0 only (its v3 and v4 are ff_flash_probe_fwd_wg's).  hd in
-// {64, 128}, block (the key tile) in {64, 128}, every t >= 1, 1 <= bh <=
-// 65535.  Returns the launch's cudaError_t (0 = launched).
+// The race's f32 kernels on mma_tile.cuh.  q, k, v, o: (bh, t, hd) f32
+// contiguous, 16-byte aligned (dtype must be ff::kFloat32).  variant: 0 row
+// state (v2), 1 two passes (v3), 2 full row (v4).  hd in {64, 128}, block
+// (the key tile) in {64, 128}, every t >= 1, 1 <= bh <= 65535.  Returns the
+// launch's cudaError_t (0 = launched).
 extern "C" int ff_flash_probe_fwd(int variant, const void* q, const void* k,
                                   const void* v, void* o, int bh, int t,
                                   int hd, int causal, float scale, int dtype,
                                   int block, void* stream) {
-  if (variant < 0 || variant > 2 || bh < 1 || bh > 65535 || t < 1)
+  if (variant < 0 || variant > 2 || dtype != ff::kFloat32 || bh < 1 ||
+      bh > 65535 || t < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FF_PROBE_CALL(T, HD, BN)                                          \
-  if (hd == HD && block == BN)                                            \
-    return (int)launch_variant<T, HD, BN>(variant, q, k, v, o, bh, t,     \
-                                          causal, scale, s);
-#define FF_PROBE_TYPE(T)                                                  \
-  FF_PROBE_CALL(T, 64, 64)                                                \
-  FF_PROBE_CALL(T, 64, 128)                                               \
-  FF_PROBE_CALL(T, 128, 64)                                               \
-  FF_PROBE_CALL(T, 128, 128)
-  if (dtype == ff::kFloat32) {
-    FF_PROBE_TYPE(float)
-  } else if (dtype == ff::kBFloat16) {
-    FF_PROBE_TYPE(__nv_bfloat16)
-  }
-#undef FF_PROBE_TYPE
+#define FF_PROBE_CALL(HD, BN)                                              \
+  if (hd == HD && block == BN)                                             \
+    return (int)launch_variant<HD, BN>(variant, q, k, v, o, bh, t, causal, \
+                                       scale, s);
+  FF_PROBE_CALL(64, 64)
+  FF_PROBE_CALL(64, 128)
+  FF_PROBE_CALL(128, 64)
+  FF_PROBE_CALL(128, 128)
 #undef FF_PROBE_CALL
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,8 @@
 // Flash-backward variant of the kernel race (P2) for Hopper (sm_90a): the
 // row-state backward, dq, dk and dv of causal or non-causal attention over
-// (bh, t, hd) slabs from q, k, v, do and the caller's lse and delta.
+// (bh, t, hd) slabs from q, k, v, do and the caller's lse and delta; the
+// f32 instantiation.  The bf16 b2 is K1b's wgmma pair (flash_bwd.cu,
+// ff_flash_bwd_row_state), whose dq pass then reads the caller's delta.
 //
 // Replaces the TPU kernels of tools/probe_flash_bwd_variants.py (launched
 // by _bwd_call_lanes, :155): _dq_kernel_lanes (:37) and _dkv_kernel_lanes
@@ -17,9 +19,8 @@
 //
 // Function and cast points, as K1b: p = exp(s - lse) from f32 scores with
 // the scale after the dot and the finite -1e30 mask, ds = p (do v^T -
-// delta), p rounded to do's type before dv = p^T do and ds to k's type
-// before dq = scale ds k and dk = scale ds^T q; f32 sums written once in the
-// input type.
+// delta), dv = p^T do, dq = scale ds k and dk = scale ds^T q; f32 sums
+// written once.
 //
 // Work split.  Two passes on the stream, as on the TPU, with no atomics, so
 // two launches give the same bits.  dq pass: one CTA of 4 warps per (bh,
@@ -30,15 +31,11 @@
 // sub-tiles (64 columns; 32 in the dk/dv pass at hd 128, where two f32
 // accumulators already hold 128 registers), so BN sets the staging and not
 // the register footprint.  The ring has two stages where they fit in 227 KB
-// of shared memory, one otherwise (f32 at hd 128 and BN 128).  bf16
-// products run on the tensor cores (mma.sync); f32 on the FMA pipes, no
-// TF32.
+// of shared memory, one otherwise (hd 128 and BN 128).  The products run on
+// the FMA pipes, no TF32 (wgmma takes f32 only as TF32).
 //
 // Bound.  The five t x t x hd products, 10 b h hd t^2 / 2 FLOPs when
-// causal, at the tensor cores' rate for bf16.  mma.sync from shared-memory
-// fragments issues at a fraction of the wgmma rate; on the race's own
-// machinery (mma_tile.cuh, shared with the forward variants) the race
-// isolates where delta comes from and where the row state lives.
+// causal, at the FMA pipes' 67 TFLOP/s in f32.
 #include "mma_tile.cuh"
 
 namespace {
@@ -51,30 +48,33 @@ template <int HD>
 __host__ __device__ constexpr int sub_dkv() { return HD >= 128 ? 32 : 64; }
 
 // Shared bytes of either pass: two resident 64-row tiles, two streamed
-// tiles per stage, and the f32 instantiation's P tile per warp.
-template <typename T, int HD, int BN>
+// tiles per stage, and the P tile per warp.
+template <int HD, int BN>
 __host__ __device__ constexpr size_t bwd_smem(int stages, int sub) {
-  return sizeof(T) * (size_t)(2 * kBM + 2 * stages * BN) * pitch<T>(HD) +
-         sizeof(float) * pbuf_floats<T>(sub);
+  return sizeof(float) *
+         ((size_t)(2 * kBM + 2 * stages * BN) * pitch<float>(HD) +
+          pbuf_floats(sub));
 }
 
-template <typename T, int HD, int BN>
+template <int HD, int BN>
 __host__ __device__ constexpr int bwd_stages(int sub) {
-  return bwd_smem<T, HD, BN>(2, sub) <= kSmemMax ? 2 : 1;
+  return bwd_smem<HD, BN>(2, sub) <= kSmemMax ? 2 : 1;
 }
 
 // ---------------------------------------------------------------------------
 // pass 1: dq
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD, int BN>
+template <int HD, int BN>
 __global__ void __launch_bounds__(kThreads)
-row_state_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+row_state_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int t, int causal, float scale) {
-  constexpr int S = bwd_stages<T, HD, BN>(kSubDq);
+  using T = float;
+  constexpr int S = bwd_stages<HD, BN>(kSubDq);
   constexpr int kLd = pitch<T>(HD);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // kBM x kLd
@@ -131,7 +131,7 @@ row_state_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int h = e >> 1;
           const bool masked = col >= t || (causal && col > rows[h]);
           const float p = masked ? 0.f : expf(s[nt][e] * scale - ls[h]);
-          s[nt][e] = p * (dp[nt][e] - dl[h]);  // ds, rounded in warp_pv
+          s[nt][e] = p * (dp[nt][e] - dl[h]);  // ds
         }
       }
       warp_pv<kSubDq, HD>(acc, s, kt + c0 * kLd, kLd, wbuf);
@@ -145,15 +145,17 @@ row_state_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // pass 2: dk and dv
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD, int BN>
+template <int HD, int BN>
 __global__ void __launch_bounds__(kThreads)
-row_state_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+row_state_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int t, int causal, float scale) {
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int t, int causal, float scale) {
+  using T = float;
   constexpr int kSub = sub_dkv<HD>();
-  constexpr int S = bwd_stages<T, HD, BN>(kSub);
+  constexpr int S = bwd_stages<HD, BN>(kSub);
   constexpr int kLd = pitch<T>(HD);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);  // kBM x kLd
@@ -219,7 +221,7 @@ row_state_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           p[nt][e] = masked ? 0.f : expf(p[nt][e] * scale - lc[nt][e & 1]);
         }
       }
-      warp_pv<kSub, HD>(adv, p, dot + c0 * kLd, kLd, wbuf);  // p rounded
+      warp_pv<kSub, HD>(adv, p, dot + c0 * kLd, kLd, wbuf);
       float dpt[kSub / 8][4];
       zero<kSub / 8>(dpt);
       warp_abt<HD, kSub>(dpt, vs + warp * 16 * kLd, kLd, dot + c0 * kLd, kLd);
@@ -229,7 +231,7 @@ row_state_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e)
           p[nt][e] = p[nt][e] * (dpt[nt][e] - dc[nt][e & 1]);  // ds^T
       }
-      warp_pv<kSub, HD>(adk, p, qt + c0 * kLd, kLd, wbuf);  // ds rounded
+      warp_pv<kSub, HD>(adk, p, qt + c0 * kLd, kLd, wbuf);
     }
     ring_done<S>(j, n, issue);
   }
@@ -241,32 +243,32 @@ row_state_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD, int BN>
+template <int HD, int BN>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dq, void* dk, void* dv, int bh, int t,
                        int causal, float scale, cudaStream_t stream) {
+  using T = float;
   constexpr int kSub = sub_dkv<HD>();
-  const size_t smem_dq = bwd_smem<T, HD, BN>(bwd_stages<T, HD, BN>(kSubDq),
-                                             kSubDq);
-  const size_t smem_dkv = bwd_smem<T, HD, BN>(bwd_stages<T, HD, BN>(kSub),
-                                              kSub);
+  const size_t smem_dq = bwd_smem<HD, BN>(bwd_stages<HD, BN>(kSubDq),
+                                          kSubDq);
+  const size_t smem_dkv = bwd_smem<HD, BN>(bwd_stages<HD, BN>(kSub), kSub);
   cudaError_t err = cudaFuncSetAttribute(
-      row_state_dq_kernel<T, HD, BN>,
+      row_state_dq_kernel<HD, BN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(row_state_dkv_kernel<T, HD, BN>,
+  err = cudaFuncSetAttribute(row_state_dkv_kernel<HD, BN>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_dkv);
   if (err != cudaSuccess) return err;
   const dim3 grid((t + kBM - 1) / kBM, bh);
-  row_state_dq_kernel<T, HD, BN><<<grid, kThreads, smem_dq, stream>>>(
+  row_state_dq_kernel<HD, BN><<<grid, kThreads, smem_dq, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), t, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  row_state_dkv_kernel<T, HD, BN><<<grid, kThreads, smem_dkv, stream>>>(
+  row_state_dkv_kernel<HD, BN><<<grid, kThreads, smem_dkv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), t, causal, scale);
@@ -275,36 +277,30 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, k, v, dout, dq, dk, dv: (bh, t, hd) contiguous, 16-byte aligned, of
-// one type (dtype: ff::kFloat32 or ff::kBFloat16); lse, delta: (bh, t) f32.
-// hd in {64, 128}, block (the streamed tile) in {64, 128}, every t >= 1,
-// 1 <= bh <= 65535.  Launches both passes on the stream; returns the first
-// cudaError_t (0 = both launched).
+// q, k, v, dout, dq, dk, dv: (bh, t, hd) f32 contiguous, 16-byte aligned
+// (dtype must be ff::kFloat32); lse, delta: (bh, t) f32.  hd in {64, 128},
+// block (the streamed tile) in {64, 128}, every t >= 1, 1 <= bh <= 65535.
+// Launches both passes on the stream; returns the first cudaError_t (0 =
+// both launched).
 extern "C" int ff_flash_probe_bwd(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dq, void* dk,
                                   void* dv, int bh, int t, int hd, int causal,
                                   float scale, int dtype, int block,
                                   void* stream) {
-  if (bh < 1 || bh > 65535 || t < 1) return (int)cudaErrorInvalidValue;
+  if (dtype != ff::kFloat32 || bh < 1 || bh > 65535 || t < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
-#define FF_PROBE_CALL(T, HD, BN)                                           \
-  if (hd == HD && block == BN)                                             \
-    return (int)launch_bwd<T, HD, BN>(q, k, v, dout, lse_f, delta_f, dq,   \
-                                      dk, dv, bh, t, causal, scale, s);
-#define FF_PROBE_TYPE(T)                                                   \
-  FF_PROBE_CALL(T, 64, 64)                                                 \
-  FF_PROBE_CALL(T, 64, 128)                                                \
-  FF_PROBE_CALL(T, 128, 64)                                                \
-  FF_PROBE_CALL(T, 128, 128)
-  if (dtype == ff::kFloat32) {
-    FF_PROBE_TYPE(float)
-  } else if (dtype == ff::kBFloat16) {
-    FF_PROBE_TYPE(__nv_bfloat16)
-  }
-#undef FF_PROBE_TYPE
+#define FF_PROBE_CALL(HD, BN)                                               \
+  if (hd == HD && block == BN)                                              \
+    return (int)launch_bwd<HD, BN>(q, k, v, dout, lse_f, delta_f, dq, dk,   \
+                                   dv, bh, t, causal, scale, s);
+  FF_PROBE_CALL(64, 64)
+  FF_PROBE_CALL(64, 128)
+  FF_PROBE_CALL(128, 64)
+  FF_PROBE_CALL(128, 128)
 #undef FF_PROBE_CALL
   return (int)cudaErrorInvalidValue;
 }

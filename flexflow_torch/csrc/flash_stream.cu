@@ -385,20 +385,20 @@ __host__ __device__ constexpr int dkv_bn() { return HD >= 128 ? 32 : 64; }
 template <int HD>
 size_t fwd_smem() {
   return sizeof(float) * ((size_t)(kBM + 4 * 64) * pitch<float>(HD) +
-                          pbuf_floats<float>(64));
+                          pbuf_floats(64));
 }
 
 template <int HD>
 size_t dq_smem() {
   return sizeof(float) * ((size_t)(2 * kBM + 4 * 64) * pitch<float>(HD) +
-                          2 * kBM + pbuf_floats<float>(64));
+                          2 * kBM + pbuf_floats(64));
 }
 
 template <int HD>
 size_t dkv_smem() {
   constexpr int bn = dkv_bn<HD>();
   return sizeof(float) * ((size_t)(2 * kBM + 4 * bn) * pitch<float>(HD) +
-                          4 * bn + pbuf_floats<float>(bn));
+                          4 * bn + pbuf_floats(bn));
 }
 
 // Above 48 KB dynamic shared memory needs an opt-in per kernel.

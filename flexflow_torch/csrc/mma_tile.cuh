@@ -1,15 +1,14 @@
-// Warp-level tile machinery of the race's flash kernels (flash_probe.cu,
-// flash_probe_bwd.cu) and of the f32 streamed kernels (flash_stream.cu):
-// cp.async tile loads into padded shared rows, mma.sync.m16n8k16 products
-// whose f32 accumulators keep the documented fragment layout (the race's
-// bf16 instantiations), and the f32 instantiation of the same products on
-// the FMA pipes.
+// Warp-level tile machinery of the f32 flash kernels: the race's f32
+// variants (flash_probe.cu, flash_probe_bwd.cu) and the f32 streamed
+// kernels (flash_stream.cu).  cp.async tile loads into padded shared rows
+// and products on the FMA pipes in f32 (wgmma takes f32 only as TF32).
+// Every bf16 flash kernel runs on wgmma_tile.cuh instead.
 //
 // CTAs are 4 warps (kThreads); a warp owns 16 rows of a resident tile, so
-// kBM = 64 rows per CTA.  Fragment layout of a warp's 16 x N f32
-// accumulator (mma.m16n8k16's C): acc[nt][e] is row g + 8 (e >> 1), column
-// nt * 8 + 2 tq + (e & 1), with g = lane / 4 and tq = lane % 4, so the four
-// threads of a quad (same g) hold one row pair between them.
+// kBM = 64 rows per CTA.  The f32 accumulators keep the fragment layout of
+// mma.m16n8k16's C, a warp's 16 x N: acc[nt][e] is row g + 8 (e >> 1),
+// column nt * 8 + 2 tq + (e & 1), with g = lane / 4 and tq = lane % 4, so
+// the four threads of a quad (same g) hold one row pair between them.
 #pragma once
 
 #include "common.cuh"
@@ -74,54 +73,8 @@ __device__ __forceinline__ void async_rows(float* dst, const float* src,
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
 // acc (16 x N) += A (16 x K, row-major, pitch lda) . B^T, B (N x K,
 // row-major, pitch ldb): both operands in shared memory.
-template <int K, int N>
-__device__ __forceinline__ void warp_abt(float (*acc)[4],
-                                         const __nv_bfloat16* a, int lda,
-                                         const __nv_bfloat16* b, int ldb) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < K; kk += 16) {
-    uint32_t af[4];
-    af[0] = ld32(a + g * lda + kk + 2 * tq);
-    af[1] = ld32(a + (g + 8) * lda + kk + 2 * tq);
-    af[2] = ld32(a + g * lda + kk + 8 + 2 * tq);
-    af[3] = ld32(a + (g + 8) * lda + kk + 8 + 2 * tq);
-#pragma unroll
-    for (int nt = 0; nt < N / 8; ++nt) {
-      const __nv_bfloat16* br = b + (nt * 8 + g) * ldb + kk + 2 * tq;
-      mma_bf16(acc[nt], af, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
 template <int K, int N>
 __device__ __forceinline__ void warp_abt(float (*acc)[4], const float* a,
                                          int lda, const float* b, int ldb) {
@@ -141,35 +94,9 @@ __device__ __forceinline__ void warp_abt(float (*acc)[4], const float* a,
   }
 }
 
-// acc (16 x HD) += P (16 x N, an f32 accumulator in fragment layout,
-// rounded to the operand type here) . V (N x HD, row-major in shared
-// memory, pitch ldv).  bf16: P stays in registers as the A operand and V
-// is read transposed by ldmatrix.  f32: P goes through the warp's shared
-// tile pbuf (16 x (N + 4)).
-template <int N, int HD>
-__device__ __forceinline__ void warp_pv(float (*acc)[4], const float (*p)[4],
-                                        const __nv_bfloat16* v, int ldv,
-                                        float* /*pbuf*/) {
-  const int lane = threadIdx.x & 31;
-  const int mi = lane >> 3, r8 = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    uint32_t af[4];
-    af[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    af[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    af[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    af[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-    const __nv_bfloat16* vrow = v + (kk * 16 + r8 + (mi & 1) * 8) * ldv + (mi >> 1) * 8;
-#pragma unroll
-    for (int np = 0; np < HD / 16; ++np) {
-      uint32_t bf[4];
-      ldsm_x4_trans(bf, vrow + np * 16);
-      mma_bf16(acc[2 * np], af, bf[0], bf[1]);
-      mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
+// acc (16 x HD) += P (16 x N, an f32 accumulator in fragment layout) . V
+// (N x HD, row-major in shared memory, pitch ldv).  P goes through the
+// warp's shared tile pbuf (16 x (N + 4)).
 template <int N, int HD>
 __device__ __forceinline__ void warp_pv(float (*acc)[4], const float (*p)[4],
                                         const float* v, int ldv, float* pbuf) {
@@ -199,9 +126,9 @@ __device__ __forceinline__ void warp_pv(float (*acc)[4], const float (*p)[4],
   __syncwarp();  // pbuf is rewritten by the warp's next product
 }
 
-template <typename T>
+// Floats of the P tiles of warp_pv (one 16 x (n + 4) tile per warp).
 __host__ __device__ constexpr int pbuf_floats(int n) {
-  return sizeof(T) == 4 ? kWarps * 16 * (n + 4) : 0;
+  return kWarps * 16 * (n + 4);
 }
 
 template <int NT>

@@ -136,11 +136,21 @@ def _load(name: str) -> ctypes.CDLL:
         lib.ff_flash_fwd.restype = i
         lib.ff_flash_fwd_attrs.argtypes = [i, p]
         lib.ff_flash_fwd_attrs.restype = i
+        lib.ff_flash_fwd_row_state.argtypes = [i] + [p] * 4 + [i, i, i, i, f,
+                                                               i, i, p]
+        lib.ff_flash_fwd_row_state.restype = i
+        lib.ff_flash_fwd_row_state_attrs.argtypes = [i, i, p]
+        lib.ff_flash_fwd_row_state_attrs.restype = i
     elif name == "flash_bwd":
         lib.ff_flash_bwd.argtypes = [p] * 11 + [i, i, i, i, f, i, p]
         lib.ff_flash_bwd.restype = i
         lib.ff_flash_bwd_attrs.argtypes = [i, i, p]
         lib.ff_flash_bwd_attrs.restype = i
+        lib.ff_flash_bwd_row_state.argtypes = [p] * 9 + [i, i, i, i, f, i, i,
+                                                         p]
+        lib.ff_flash_bwd_row_state.restype = i
+        lib.ff_flash_bwd_row_state_attrs.argtypes = [i, i, i, p]
+        lib.ff_flash_bwd_row_state_attrs.restype = i
     elif name == "flash_stream":
         lib.ff_flash_stream_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
         lib.ff_flash_stream_fwd.restype = i
@@ -411,10 +421,13 @@ def bwd_entry(streamed: bool, dtype) -> Tuple[str, str]:
     return "flash_bwd", "ff_flash_bwd"
 
 
-def _launch_bwd(what, streamed, q, k, v, o, lse, do, g_lse, causal):
+def _launch_bwd(what, streamed, q, k, v, o, lse, do, g_lse, causal,
+                delta=None):
     """Checks the backward's CUDA operands and launches the two-pass
     backward, K1b's or (``streamed``) K1sb's, through :func:`bwd_entry`.
-    Returns ``(dq, dk, dv)``."""
+    ``delta``: the ``(b, h, t)`` f32 buffer the dq pass writes ``rowsum(o
+    do) - g_lse`` into for the dk/dv pass (a new one when None).  Returns
+    ``(dq, dk, dv)``."""
     _flash_shapes(what, q, k, v)
     do = do.to(q.dtype)
     code = _check_cuda(what, q, k, v, o, do, head_dim=not streamed)
@@ -432,7 +445,14 @@ def _launch_bwd(what, streamed, q, k, v, o, lse, do, g_lse, causal):
     q, k, v, o, do = (_dense(x) for x in (q, k, v, o, do))
     lse = lse.float().contiguous()
     g_lse = None if g_lse is None else g_lse.float().contiguous()
-    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    if delta is None:
+        delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    elif (delta.shape != (b, h, t) or delta.dtype != torch.float32
+          or delta.device != q.device or not delta.is_contiguous()
+          or delta.data_ptr() % 16):
+        raise ValueError(f"{what}: delta must be a 16-byte aligned, "
+                         f"contiguous ({b}, {h}, {t}) f32 buffer on "
+                         f"{q.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib, entry = bwd_entry(streamed, q.dtype)

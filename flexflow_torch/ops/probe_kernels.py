@@ -6,8 +6,14 @@ and ``tools/probe_flash_bwd_variants.py`` (P2: ``_dq_kernel_lanes`` and
 ``_dkv_kernel_lanes``, launched by ``_bwd_call_lanes``).  The races
 ``flexflow_torch.tools.probe_flash_variants`` and
 ``probe_flash_bwd_variants`` time them beside K1f, K1s, K1b, K1sb and
-PyTorch's fused attention; no other module of the port calls them.  Sources ``csrc/flash_probe.cu`` and ``csrc/flash_probe_bwd.cu``,
-built and loaded as every kernel of :mod:`flexflow_torch.ops.kernels`.
+PyTorch's fused attention; no other module of the port calls them.  In
+bf16 every variant runs on the Hopper ``wgmma``/TMA machinery: v2 on K1f's
+kernel (``csrc/flash_fwd.cu``), v3 and v4 on the two-pass kernel of
+``csrc/flash_probe.cu``, b2 on K1b's pair (``csrc/flash_bwd.cu``); in f32
+on the FMA kernels of ``csrc/flash_probe.cu`` and
+``csrc/flash_probe_bwd.cu`` (:func:`probe_entry`, :func:`bwd_probe_entry`).
+All are built and loaded as every kernel of
+:mod:`flexflow_torch.ops.kernels`.
 
 The wrappers follow that module's rule: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises, and each counts its
@@ -29,8 +35,8 @@ from flexflow_torch.ops import kernels
 from flexflow_torch.ops.kernels import _dense, _load, _raise_on
 
 #: Key-tile widths (the races' ``--blocks``) the kernels are instantiated
-#: for; the query tile is 128 rows (two warpgroups of 64) in the bf16 v3
-#: and v4, 64 rows (4 warps of 16) in the other kernels.
+#: for; the query tile is 128 rows (two warpgroups of 64) in bf16, 64 rows
+#: (4 warps of 16) in f32.
 PROBE_BLOCKS = (64, 128)
 #: Head dims the kernels are instantiated for.
 PROBE_HEAD_DIMS = (64, 128)
@@ -90,27 +96,51 @@ flash_fwd_two_pass_plain = _fwd_plain
 flash_fwd_full_row_plain = _fwd_plain
 
 
-def probe_entry(variant: int, dtype) -> str:
-    """The C entry of ``flash_probe`` a forward variant (0 v2, 1 v3, 2 v4) of
-    ``dtype`` launches.  bf16 v3 and v4 take ``ff_flash_probe_fwd_wg``,
-    the two-pass kernel on K1f's machinery (``wgmma`` from TMA-fed shared
-    memory, ``csrc/wgmma_tile.cuh``); v2 and every f32 variant take
-    ``ff_flash_probe_fwd``, the race's ``csrc/mma_tile.cuh`` kernels
-    (``mma.sync`` in bf16, the FMA pipes in f32: ``wgmma`` takes f32 only
-    as TF32).  Both live in ``csrc/flash_probe.cu`` and share one C
-    signature."""
-    if dtype == torch.bfloat16 and variant in (1, 2):
-        return "ff_flash_probe_fwd_wg"
-    return "ff_flash_probe_fwd"
+def probe_entry(variant: int, dtype) -> Tuple[str, str]:
+    """The library and C entry a forward variant (0 v2, 1 v3, 2 v4) of
+    ``dtype`` launches.  In bf16 all three run on the ``wgmma`` machinery
+    fed by TMA (``csrc/wgmma_tile.cuh``): v2 on K1f's kernel
+    (``flash_fwd``'s ``ff_flash_fwd_row_state``: K1f's formulation at the
+    race's key tile, without the lse), v3 and v4 on the two-pass kernel
+    (``flash_probe``'s ``ff_flash_probe_fwd_wg``).  In f32 each takes
+    ``flash_probe``'s ``ff_flash_probe_fwd``, the FMA kernels of
+    ``csrc/mma_tile.cuh`` (``wgmma`` takes f32 only as TF32).  The three
+    entries share one C signature."""
+    if dtype != torch.bfloat16:
+        return "flash_probe", "ff_flash_probe_fwd"
+    if variant == 0:
+        return "flash_fwd", "ff_flash_fwd_row_state"
+    return "flash_probe", "ff_flash_probe_fwd_wg"
 
 
-def probe_attrs(variant: int, hd: int, block: int) -> Tuple[int, int, int]:
+def bwd_probe_entry(dtype) -> Tuple[str, str]:
+    """The library and C entry b2 of ``dtype`` launches: in bf16 K1b's
+    ``wgmma`` pair with the dq pass reading the caller's ``delta``
+    (``flash_bwd``'s ``ff_flash_bwd_row_state``), in f32 the FMA kernels of
+    ``csrc/mma_tile.cuh`` (``flash_probe_bwd``'s ``ff_flash_probe_bwd``).
+    The two entries share one C signature."""
+    if dtype == torch.bfloat16:
+        return "flash_bwd", "ff_flash_bwd_row_state"
+    return "flash_probe_bwd", "ff_flash_probe_bwd"
+
+
+def probe_attrs(kernel: str, hd: int, block: int) -> Tuple[int, int, int]:
     """(registers per thread, spill bytes per thread, dynamic shared
-    memory) of the bf16 two-pass kernel of v3 (``variant`` 1) or v4 (2) at
-    head dim ``hd`` and key tile ``block``; on the card only."""
+    memory) of a bf16 race kernel at head dim ``hd`` and block ``block``:
+    ``kernel`` is ``"v2"``, ``"v3"``, ``"v4"`` or one of b2's passes,
+    ``"b2 dq"`` and ``"b2 dkv"``.  On the card only."""
     out = (ctypes.c_int * 3)()
-    _raise_on(_load("flash_probe").ff_flash_probe_wg_attrs(
-        variant, hd, block, out), "probe_attrs")
+    if kernel == "v2":
+        err = _load("flash_fwd").ff_flash_fwd_row_state_attrs(hd, block, out)
+    elif kernel in ("v3", "v4"):
+        err = _load("flash_probe").ff_flash_probe_wg_attrs(
+            {"v3": 1, "v4": 2}[kernel], hd, block, out)
+    elif kernel in ("b2 dq", "b2 dkv"):
+        err = _load("flash_bwd").ff_flash_bwd_row_state_attrs(
+            int(kernel == "b2 dkv"), hd, block, out)
+    else:
+        raise ValueError(f"probe_attrs: no race kernel {kernel!r}")
+    _raise_on(err, "probe_attrs")
     return tuple(out)
 
 
@@ -123,7 +153,8 @@ def _probe_fwd(wrapper, variant: int, q, k, v, causal, block):
     t, hd = q.shape[-2:]
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = getattr(_load("flash_probe"), probe_entry(variant, q.dtype))(
+    lib, entry = probe_entry(variant, q.dtype)
+    err = getattr(_load(lib), entry)(
         variant, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         q.numel() // (t * hd), t, hd, int(bool(causal)),
         1.0 / math.sqrt(hd), code, block, stream,
@@ -138,7 +169,8 @@ def flash_fwd_row_state(q, k, v, causal: bool = True, block: int = 64):
     state ``(m, l)`` whole in every thread that holds part of a row and
     the correction applied once per key tile of ``block`` keys.  The port
     of ``tools/probe_flash_variants.py::_v2_kernel``; source
-    ``csrc/flash_probe.cu``."""
+    ``csrc/flash_fwd.cu`` in bf16 (K1f's kernel, :func:`probe_entry`),
+    ``csrc/flash_probe.cu`` in f32."""
     return _probe_fwd(flash_fwd_row_state, 0, q, k, v, causal, block)
 
 
@@ -183,7 +215,10 @@ def flash_bwd_row_state(q, k, v, do, lse, delta, causal: bool = True,
     its rows in registers; no atomics.  The port of
     ``tools/probe_flash_bwd_variants.py::_bwd_call_lanes``
     (``_dq_kernel_lanes``, ``_dkv_kernel_lanes``); source
-    ``csrc/flash_probe_bwd.cu``."""
+    ``csrc/flash_bwd.cu`` in bf16 (K1b's pair, :func:`bwd_probe_entry`),
+    ``csrc/flash_probe_bwd.cu`` in f32.  The kernels read ``lse`` and
+    ``delta`` by TMA boxes, so they are handed over as f32 buffers whose
+    base is 16-byte aligned (copied when it is not)."""
     what = "flash_bwd_row_state"
     _gate(what, block, q, k, v, do)
     for name, r in (("lse", lse), ("delta", delta)):
@@ -196,11 +231,12 @@ def flash_bwd_row_state(q, k, v, do, lse, delta, causal: bool = True,
     for r in (lse, delta):
         if r.device != q.device:
             raise ValueError(f"{what}: lse and delta must be on {q.device}")
-    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    lse, delta = _dense(lse.float()), _dense(delta.float())
     t, hd = q.shape[-2:]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _load("flash_probe_bwd").ff_flash_probe_bwd(
+    lib, entry = bwd_probe_entry(q.dtype)
+    err = getattr(_load(lib), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), q.numel() // (t * hd), t, hd, int(bool(causal)),

@@ -1,5 +1,5 @@
-"""This checkout's K6, bf16 K1s, K1f, K1b and the race's bf16 v3 and v4 beside
-another checkout's, in one process on the card.
+"""This checkout's K6, bf16 K1s, K1f, K1b and the race's bf16 v2, v3, v4
+and b2 beside another checkout's, in one process on the card.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -19,21 +19,27 @@ function and the bound, at the main path's shapes:
   count, beside SDPA's masked call;
 - K1s (``flash_attention_lse_streamed``) at the long-context shapes (4, 8,
   8192, 64) and (1, 8, 32768, 64) bf16 causal, beside SDPA;
-- K1f (``flash_attention_lse``) and the race's v3 (``flash_fwd_two_pass``)
-  and v4 (``flash_fwd_full_row``) of ``flexflow_torch/ops/probe_kernels.py``
-  at the race's shapes (``chip_smoke.PROBE_RACE``: (16, 8, 2048, 64) and
-  (4, 8, 8192, 64) bf16 causal), v3 and v4 at both blocks, beside SDPA,
+- K1f (``flash_attention_lse``) and the race's v2
+  (``flash_fwd_row_state``), v3 (``flash_fwd_two_pass``) and v4
+  (``flash_fwd_full_row``) of ``flexflow_torch/ops/probe_kernels.py`` at
+  the race's shapes (``chip_smoke.PROBE_RACE``: (16, 8, 2048, 64) and (4,
+  8, 8192, 64) bf16 causal), the variants at both blocks, beside SDPA,
   the bound of the causal function and the bound of the products each
-  variant does (``chip_smoke.race_products``).
+  variant does (``chip_smoke.race_products``);
+- K1b (``flash_attention_lse_bwd``) and the race's b2
+  (``flash_bwd_row_state``, from the race's ``delta = rowsum(o do) -
+  g_lse``) at the same shapes, b2 at both blocks, beside SDPA's backward
+  and the backward's bound.
   The other checkout's ``probe_kernels.py`` is loaded bound to its own
   ``kernels.py``.
 
 Before the times, each pair is held together: K6's outputs by
 ``chip_smoke._decode_close`` against the plain version on both sides;
-K1s's ``o`` and ``lse``, and v3's and v4's ``o``, by twice K1f's element
-rule against each other; K1f's ``o`` and ``lse`` and K1b's ``dq``, ``dk``
-and ``dv`` (``flash_attention_lse_bwd``, timed at the race's shapes too)
-must be bit-identical.
+K1s's ``o`` and ``lse``, and v2's, v3's and v4's ``o``, by twice K1f's
+element rule against each other; b2's ``dq``, ``dk`` and ``dv`` by twice
+K1b's (``chip_smoke.TOL_ELEM["stream_bwd"]``); K1f's ``o`` and ``lse`` and
+K1b's ``dq``, ``dk`` and ``dv`` must be bit-identical.  Whether this
+checkout's v2 at block 128 gives K1f's ``o`` bit for bit is printed too.
 The card's name and power limit come first.
 """
 
@@ -166,9 +172,9 @@ def race(cs, ours, theirs, ours_probe, theirs_probe, F) -> None:
         with torch.no_grad():
             t_lib = cs._device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True))
+            o, lse = ours.flash_attention_lse(q, k, v, True)
             same = all(torch.equal(a, c) for a, c in zip(
-                ours.flash_attention_lse(q, k, v, True),
-                theirs.flash_attention_lse(q, k, v, True)))
+                (o, lse), theirs.flash_attention_lse(q, k, v, True)))
             cs._check(same, f"K1f {shape}: not bit-identical to the other "
                       f"checkout's")
             t_theirs, t_ours = cs._pair_ms(
@@ -178,23 +184,11 @@ def race(cs, ours, theirs, ours_probe, theirs_probe, F) -> None:
                   f"ours {t_ours:.6f} ms, theirs {t_theirs:.6f} ms "
                   f"({t_theirs / t_ours:.3f}x), bit-identical; sdpa "
                   f"{t_lib:.6f}, bound {bound:.6f} by {by}", flush=True)
-            o, lse = ours.flash_attention_lse(q, k, v, True)
-            do = torch.randn(shape, generator=g, device="cuda").to(q.dtype)
-            g_lse = torch.randn(lse.shape, generator=g, device="cuda")
-            bwd = lambda m: m.flash_attention_lse_bwd(q, k, v, o, lse, do,
-                                                      g_lse, True)
-            same = all(torch.equal(a, c) for a, c in zip(bwd(ours),
-                                                         bwd(theirs)))
-            cs._check(same, f"K1b {shape}: not bit-identical to the other "
-                      f"checkout's")
-            t_theirs, t_ours = cs._pair_ms(lambda: bwd(theirs),
-                                           lambda: bwd(ours))
-            print(f"[kernel-race] flash_attention_lse_bwd {shape} bf16 "
-                  f"causal: ours {t_ours:.6f} ms, theirs {t_theirs:.6f} ms "
-                  f"({t_theirs / t_ours:.3f}x), bit-identical", flush=True)
-            del o, lse, do, g_lse
+            v2_is_k1f = torch.equal(
+                ours_probe.flash_fwd_row_state(q, k, v, True, 128), o)
             mass = ours.flash_attention_lse(q, k, v.abs(), True)[0]
-            for name in ("flash_fwd_two_pass", "flash_fwd_full_row"):
+            for name in ("flash_fwd_row_state", "flash_fwd_two_pass",
+                         "flash_fwd_full_row"):
                 done, _ = cs._bound_ms(
                     nbytes, cs.race_products(name, t) * flops, "bfloat16")
                 mine, other = (getattr(p, name)
@@ -215,7 +209,56 @@ def race(cs, ours, theirs, ours_probe, theirs_probe, F) -> None:
                           f"causal function), {done:.6f} (the products it "
                           f"does); o {held:.3g} of twice the element "
                           f"tolerance", flush=True)
-        del q, k, v, mass
+            print(f"[kernel-race] flash_fwd_row_state {shape} block 128: o "
+                  f"{'is' if v2_is_k1f else 'is NOT'} K1f's bit for bit",
+                  flush=True)
+            del mass
+            do = torch.randn(shape, generator=g, device="cuda").to(q.dtype)
+            g_lse = torch.randn(lse.shape, generator=g, device="cuda")
+            bwd = lambda m: m.flash_attention_lse_bwd(q, k, v, o, lse, do,
+                                                      g_lse, True)
+            same = all(torch.equal(a, c) for a, c in zip(bwd(ours),
+                                                         bwd(theirs)))
+            cs._check(same, f"K1b {shape}: not bit-identical to the other "
+                      f"checkout's")
+            t_theirs, t_ours = cs._pair_ms(lambda: bwd(theirs),
+                                           lambda: bwd(ours))
+        qs, ks, vs = (x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v))
+        sd = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        t_lib = cs._device_ms(lambda: torch.autograd.grad(
+            sd, (qs, ks, vs), do, retain_graph=True))
+        del qs, ks, vs, sd
+        bound, by = cs._bound_ms(7 * b * h * t * hd * 2 + 2 * b * h * t * 4,
+                                 10 * b * h * hd * pairs, "bfloat16")
+        print(f"[kernel-race] flash_attention_lse_bwd {shape} bf16 "
+              f"causal: ours {t_ours:.6f} ms, theirs {t_theirs:.6f} ms "
+              f"({t_theirs / t_ours:.3f}x), bit-identical; sdpa backward "
+              f"{t_lib:.6f}, bound {bound:.6f} by {by}", flush=True)
+        with torch.no_grad():
+            delta = (o.float() * do.float()).sum(dim=-1) - g_lse
+            masses = cs._flash_bwd_mass(q, k, v, o, lse, do, g_lse, True)
+            tops = cs._flash_bwd_top(q, k, v, o, lse, do, g_lse, True)
+            brtol, barel, batop = cs.TOL_ELEM["stream_bwd"]["bfloat16"]
+            mine, other = (p.flash_bwd_row_state
+                           for p in (ours_probe, theirs_probe))
+            for block in ours_probe.PROBE_BLOCKS:
+                call = lambda fn: fn(q, k, v, do, lse, delta, True, block)
+                held = max(cs._close(a, c, m, 2 * brtol, 2 * barel, tp,
+                                     2 * batop)
+                           for a, c, m, tp in zip(call(mine), call(other),
+                                                  masses, tops))
+                cs._check(held <= 1.0, f"flash_bwd_row_state {shape} block "
+                          f"{block}: {held} of twice the element tolerance")
+                t_theirs, t_ours = cs._pair_ms(lambda: call(other),
+                                               lambda: call(mine))
+                print(f"[kernel-race] flash_bwd_row_state {shape} bf16 "
+                      f"causal block {block}: ours {t_ours:.6f} ms, theirs "
+                      f"{t_theirs:.6f} ms ({t_theirs / t_ours:.2f}x), sdpa "
+                      f"backward {t_lib:.6f}, bound {bound:.6f} by {by}; "
+                      f"dq, dk, dv {held:.3g} of twice the element "
+                      f"tolerance", flush=True)
+        del q, k, v, o, lse, do, g_lse, delta, masses, tops
         torch.cuda.empty_cache()
 
 
@@ -241,7 +284,7 @@ def main(argv=None) -> int:
     theirs = _other_kernels(root)
     theirs_probe = _other_probe(root, theirs)
     libs = ("flash_fwd", "flash_bwd", "flash_stream", "flash_decode",
-            "flash_probe")
+            "flash_probe", "flash_probe_bwd")
     ours.build(libs)
     theirs.build(libs)
     decode(cs, ours, theirs, F)

@@ -47,7 +47,12 @@ K1sb):
    key must reach every row of v4) at (1, 2, 640, 128) and the 2k race
    shape.  Each case of those two runs in a child process of its own
    (``--case``): a ring fault may end in the trap of the ring's wait,
-   which poisons the process's CUDA context.
+   which poisons the process's CUDA context.  In ``flash_fwd.cu`` the
+   race's bf16 v2 (K1f's kernel at the race's key tile) masking its edge
+   tiles at the columns of 128-key tiles, held at block 64; in
+   ``flash_bwd.cu`` b2's dq pass (K1b's, reading the caller's delta)
+   reading the delta of the next row, held at both blocks: each against
+   the plain version at (16, 8, 2048, 64) and (1, 2, 640, 128), causal.
    The unmutated kernels must pass and each mutant must fail at every
    case; the exit code is 1 otherwise.
 
@@ -223,24 +228,24 @@ MUTANTS = {
     # K1b's dq pass skips the first key tile of every warpgroup that has
     # more than one.
     "k1b-dq-drops-key-tile": ("flash_bwd.cu", "k1b", [
-        ("if (j > 0) issue_dq<HDP>(acc, da, ks + Rg::stage(j - 1) * KT::kBytes);",
-         "if (j > 1) issue_dq<HDP>(acc, da, ks + Rg::stage(j - 1) * KT::kBytes);"),
+        ("if (j > 0) issue_dq<HDP, BN>(acc, da, ks + R::stage(j - 1) * KT::kBytes);",
+         "if (j > 1) issue_dq<HDP, BN>(acc, da, ks + R::stage(j - 1) * KT::kBytes);"),
     ]),
     # K1b's dk/dv pass skips the last query tile of every key tile but the
     # last.
     "k1b-dkv-drops-q-tile": ("flash_bwd.cu", "k1b", [
-        ("      if (live && !(causal && qi0 + kWgQN - 1 < kr0)) {",
-         "      if (live && !(causal && qi0 + kWgQN - 1 < kr0) &&\n"
-         "          (i + 1 < nq || i == i0)) {"),
+        ("            !(causal && qi0 + kSubQ - 1 < kr0)) {",
+         "            !(causal && qi0 + kSubQ - 1 < kr0) &&\n"
+         "            (i + 1 < nq || i == i0)) {"),
     ]),
     # K1f drops the P V product of the first key tile of every warpgroup
     # that has more than one.
     "k1f-drops-key-tile": ("flash_fwd.cu", "k1f", [
-        ("        issue_pv<HDP, kWgBN>(acc, pa, vs + R::stage(j - 1) * "
+        ("        issue_pv<HDP, BN>(acc, pa, vs + R::stage(j - 1) * "
          "KT::kBytes);",
          "        if (j != 1)\n"
-         "          issue_pv<HDP, kWgBN>(acc, pa,\n"
-         "                               vs + R::stage(j - 1) * KT::kBytes);"),
+         "          issue_pv<HDP, BN>(acc, pa,\n"
+         "                            vs + R::stage(j - 1) * KT::kBytes);"),
     ]),
     # The bf16 two-pass kernel restarts the ring's tile counter for pass 2,
     # in the producer and the consumers alike: pass 2 then waits on the
@@ -254,6 +259,21 @@ MUTANTS = {
     "v4-skips-above-diagonal": ("flash_probe.cu", "poison", [
         ("    const int kend_wg = skip ? min(t, r.r0 + 64) : t;",
          "    const int kend_wg = causal ? min(t, r.r0 + 64) : t;"),
+    ]),
+    # b2's dq pass (K1b's with the caller's delta) reads the delta of the
+    # row after each of its rows (the last row's own).
+    "b2-dq-delta-row-off": ("flash_bwd.cu", "b2", [
+        ("        dl[h] = rows[h] < t ? delta[base + rows[h]] : 0.f;",
+         "        dl[h] = rows[h] < t ? delta[base + min(rows[h] + 1, t - 1)]"
+         " : 0.f;"),
+    ]),
+    # v2 on K1f's kernel masks its edge tiles past the first at the columns
+    # of K1f's 128-key tiles: wrong at block 64 only.
+    "v2-edge-128-key-columns": ("flash_fwd.cu", "v2", [
+        ("        softmax_tile<kS>(s, m, l, corr, j * BN, t, causal, edge(j), "
+         "rows,",
+         "        softmax_tile<kS>(s, m, l, corr, j * kWgBN, t, causal, "
+         "edge(j), rows,"),
     ]),
     # K6's merge gives the last non-empty split (the one that holds key
     # lengths[b] - 1) weight 0.
@@ -275,7 +295,9 @@ MUTANTS = {
 #: streamed backward; K6 at phase 1's two timed cases; the bf16 two-pass
 #: kernel at ``chip_smoke.PROBE_WRAP`` and the 2k race shape (``race-*``:
 #: v3 and v4 at both blocks by K1f's rule, causal or not) and with a NaN
-#: at the last key (``poison``: ``chip_smoke._probe_poison``).
+#: at the last key (``poison``: ``chip_smoke._probe_poison``); the bf16 v2
+#: and b2 (``v2``, ``b2``: :func:`_row_state_parts`) at the 2k race shape
+#: and at hd 128 over 640 rows, causal.
 MUTANT_CASES = {
     "stream": (((2, 8, 1024, 64), "float32", "stream"),
                ((1, 4, 1024, 128), "float32", "stream")),
@@ -296,6 +318,10 @@ MUTANT_CASES = {
              ((16, 8, 2048, 64), "bfloat16", "race-causal")),
     "poison": (((1, 2, 640, 128), "bfloat16", "poison"),
                ((16, 8, 2048, 64), "bfloat16", "poison")),
+    "v2": (((16, 8, 2048, 64), "bfloat16", "v2"),
+           ((1, 2, 640, 128), "bfloat16", "v2")),
+    "b2": (((16, 8, 2048, 64), "bfloat16", "b2"),
+           ((1, 2, 640, 128), "bfloat16", "b2")),
 }
 #: Groups whose cases each run in a child process (``--case``).
 CHILD_GROUPS = ("race", "poison")
@@ -317,6 +343,39 @@ def _two_pass_parts(cs, kernels, probe, q, k, v, causal) -> dict:
                 for name, fn in (("v3", probe.flash_fwd_two_pass),
                                  ("v4", probe.flash_fwd_full_row))
                 for block in probe.PROBE_BLOCKS}
+
+
+def _row_state_parts(cs, kernels, probe, pair, q, k, v, do, g_lse) -> dict:
+    """The race's bf16 v2 (``pair`` "v2": at block 64, by K1f's rule
+    ``chip_smoke.TOL_ELEM["fwd"]``) or b2 ("b2": at both blocks, from the
+    plain forward's lse and ``delta = rowsum(o do) - g_lse``, by
+    ``TOL_ELEM["stream_bwd"]``) against the plain versions one head at a
+    time, causal: {part: worst element ratio, above 1 fails}."""
+    with torch.no_grad():
+        fwd = lambda c: cs._per_row(
+            lambda x, y, z: kernels.flash_attention_lse_plain(x, y, z, True),
+            q, k, c, heads=True)
+        po, plse = fwd(v)
+        if pair == "v2":
+            o = probe.flash_fwd_row_state(q, k, v, True, 64)
+            return {"v2 b64 o": cs._close(o, po, fwd(v.abs())[0],
+                                          *cs.TOL_ELEM["fwd"]["bfloat16"])}
+        delta = (po.float() * do.float()).sum(dim=-1) - g_lse
+        want = cs._per_row(
+            lambda *x: kernels.flash_attention_lse_bwd_plain(*x, True),
+            q, k, v, po, plse, do, g_lse, heads=True)
+        masses = cs._flash_bwd_mass(q, k, v, po, plse, do, g_lse, True)
+        tops = cs._flash_bwd_top(q, k, v, po, plse, do, g_lse, True)
+        rule = cs.TOL_ELEM["stream_bwd"]["bfloat16"]
+        parts = {}
+        for block in probe.PROBE_BLOCKS:
+            got = probe.flash_bwd_row_state(q, k, v, do, plse, delta, True,
+                                            block)
+            for key, a, w, m, tp in zip(("dq", "dk", "dv"), got, want,
+                                        masses, tops):
+                parts[f"b2 b{block} {key}"] = cs._close(a, w, m, rule[0],
+                                                        rule[1], tp, rule[2])
+        return parts
 
 
 def case(root: str, group: str, index: int) -> int:
@@ -393,6 +452,7 @@ def mutants(kernels) -> list:
     what went wrong (an unmutated case that fails, a mutant case that
     passes)."""
     import chip_smoke as cs
+    from flexflow_torch.ops import probe_kernels as probe
 
     g = torch.Generator(device="cuda").manual_seed(40)
     lengths = dict(cs.DECODE_CASES)
@@ -438,6 +498,10 @@ def mutants(kernels) -> list:
                     po = kernels.flash_decode_plain(q, ck, cv, lens)
                     parts = {"o": cs._decode_close(kernels, q, ck, cv, lens,
                                                    o, po)}
+                elif pair in ("v2", "b2"):
+                    q, k, v, do, g_lse = inputs[shape, dt]
+                    parts = _row_state_parts(cs, kernels, probe, pair, q, k,
+                                             v, do, g_lse)
                 else:
                     q, k, v, do, g_lse = inputs[shape, dt]
                     parts, _ = cs._flash_parts(torch, kernels, q, k, v, do,

@@ -238,8 +238,9 @@ def test_k1f_mutant_is_held_through_the_streamed_entry():
     it in bf16, at both long-context shapes."""
     from flexflow_torch.tools import stream_numerics as sn
 
-    assert [n for n, m in sn.MUTANTS.items() if m[0] == "flash_fwd.cu"] == [
-        "k1f-drops-key-tile"]
+    assert [(n, m[1]) for n, m in sn.MUTANTS.items()
+            if m[0] == "flash_fwd.cu"] == [
+        ("k1f-drops-key-tile", "k1f"), ("v2-edge-128-key-columns", "v2")]
     streamed = [c for c in sn.MUTANT_CASES["k1f"] if c[2] == "stream"]
     assert streamed == [((4, 8, 8192, 64), "bfloat16", "stream"),
                         ((1, 8, 32768, 64), "bfloat16", "stream")]
@@ -266,7 +267,7 @@ def test_stream_mutants_each_match_the_source_once():
     assert {case[1:] for case in sn.MUTANT_CASES["stream"]} == {
         ("float32", "stream")}
     wgmma = [m[1] for m in sn.MUTANTS.values() if m[0] == "flash_bwd.cu"]
-    assert wgmma == ["k1b"] * 3
+    assert wgmma == ["k1b"] * 3 + ["b2"]  # b2: the race's, on K1b's pair
     assert ((4, 8, 8192, 64), "bfloat16", "stream") in sn.MUTANT_CASES["k1b"]
 
 

@@ -18,7 +18,13 @@ on the machinery of ``csrc/wgmma_tile.cuh``) run only on the card, where
 - the race's bf16 v3 and v4 (``csrc/flash_probe.cu``) run on the same
   machinery, share K1f's two products (``csrc/flash_wg.cuh``) rather
   than copy them, fit shared memory at every (hd, block), and are held by
-  the card at shapes whose key tiles wrap their ring across its passes.
+  the card at shapes whose key tiles wrap their ring across its passes;
+- the race's bf16 v2 and b2 are K1f's kernel and K1b's pair themselves
+  (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``): templated on the key
+  tile (and, for b2's dq pass, on reading the caller's delta), they fit
+  shared memory at every (hd, block) with their ring's depth, the ring
+  protocol is sound at every depth they use, and no bf16 code is left on
+  the race's ``mma.sync`` machinery (``csrc/mma_tile.cuh``).
 
 The tile width is chosen in the C dispatch by head dim (hd <= 32: 32, <=
 64: 64, else 128), not in Python; the card holds each width (phases 1
@@ -157,7 +163,7 @@ def test_flash_backward_plain_bf16_padded_head_dims(hd, causal):
 
 @pytest.mark.parametrize("source", ["flash_bwd.cu", "flash_fwd.cu",
                                     "wgmma_tile.cuh", "flash_wg.cuh",
-                                    "flash_probe.cu"])
+                                    "flash_probe.cu", "flash_probe_bwd.cu"])
 @pytest.mark.parametrize("atomic", ["atomicAdd", "atomicCAS", "red.global",
                                     "red.shared", "red.async", "atom.",
                                     "cp.reduce.async"])
@@ -259,8 +265,8 @@ def test_k1_mutants_cover_each_new_kernel():
     """A dropped key tile in K1f, in K1b's dq pass, a dropped query tile
     in its dk/dv pass and bf16 scores in both passes."""
     k1 = {n: m for n, m in stream_numerics.MUTANTS.items()
-          if m[0] in ("flash_fwd.cu", "flash_bwd.cu")}
-    assert {m[1] for m in k1.values()} == {"k1f", "k1b"}
+          if m[1] in ("k1f", "k1b")}
+    assert {m[0] for m in k1.values()} == {"flash_fwd.cu", "flash_bwd.cu"}
     assert len(k1) == 4
     for group in ("k1f", "k1b"):
         shapes = [s for s, dt, entry in stream_numerics.MUTANT_CASES[group]
@@ -397,15 +403,17 @@ class _Bar:
         return self.phase % 2 != parity
 
 
-def _ring_faults(nk, nk_wg, p2, seed, depth=3, warps=8):
+def _ring_faults(nk, nk_wg, p2, seed, depth=3, warps=8, passes=2):
     """The ring protocol of ``wg_two_pass_kernel`` (``flash_probe.cu``)
     under one random schedule: the producer acquires tile ``J`` (stage ``J
     % depth``, parity ``(J / depth) & 1``) and loads K (pass 1) or K and V
     (pass 2) into it; each consumer warp waits for every tile, reads those
     of its warpgroup's ``nk_wg`` and releases each.  Pass 1 takes tiles 0
     .. nk - 1, pass 2 ``p2`` .. ``p2 + nk - 1`` (the kernel: ``p2 = nk``).
-    Returns the faults seen: a stale read, a load into a stage being read,
-    a deadlock, loads still in flight when the consumers are done."""
+    With ``passes=1`` it is the one pass of K1f's kernel (v2) and of each
+    kernel of K1b's pair (b2).  Returns the faults seen: a stale read, a
+    load into a stage being read, a deadlock, loads still in flight when
+    the consumers are done."""
     rnd = random.Random(seed)
     full = [_Bar(1) for _ in range(depth)]
     empty = [_Bar(warps) for _ in range(depth)]
@@ -413,7 +421,7 @@ def _ring_faults(nk, nk_wg, p2, seed, depth=3, warps=8):
     flight, reading, faults = [], {}, set()
 
     def tiles():
-        for p, base in ((0, 0), (1, p2)):
+        for p, base in ((0, 0), (1, p2))[:passes]:
             for j in range(nk):
                 yield p, j, (base + j) % depth, (base + j) // depth % 2
 
@@ -486,3 +494,169 @@ def test_ring_model_restart_faults(nk):
     for seed in range(20):
         faults |= _ring_faults(nk, (nk, nk), 0, seed)
     assert bool(faults) == (nk % 6 != 0), (nk, faults)
+
+
+@pytest.mark.parametrize("passes", [1, 2])
+@pytest.mark.parametrize("depth", [2, 3])
+def test_ring_model_is_sound_at_every_depth_used(depth, passes):
+    """The rings of the wgmma kernels have three stages, or two where
+    three do not fit (b2 at hd 128 and block 128, both passes): one tile
+    counter through every pass of a kernel is sound at both depths."""
+    for nk in range(1, 8):
+        for a in range(nk + 1):
+            for b in range(a, nk + 1):
+                for seed in range(3):
+                    assert not _ring_faults(nk, (a, b), nk, seed, depth=depth,
+                                            passes=passes), (nk, a, b)
+
+
+@pytest.mark.parametrize("nk", range(1, 9))
+def test_ring_model_restart_faults_at_depth_two(nk):
+    """At depth two a counter restarted for a second pass finds its phases
+    only when the tiles per pass are a multiple of four: no kernel may
+    restart it, at either depth."""
+    faults = set()
+    for seed in range(20):
+        faults |= _ring_faults(nk, (nk, nk), 0, seed, depth=2)
+    assert bool(faults) == (nk % 4 != 0), (nk, faults)
+
+
+# ---------------------------------------------------------------------------
+# the race's bf16 v2 and b2 on K1f's kernel and K1b's pair
+# ---------------------------------------------------------------------------
+
+
+_SMEM_MAX = 227 * 1024
+
+
+def _ring_bytes(depth):
+    return 2 * 8 * depth  # the full and empty mbarriers of each stage
+
+
+def _v2_smem(hd, block):
+    """``K1fSmem<hd, block>``: the 128-row q tile, three stages of K and V
+    tiles of ``block`` rows, the ring, the q barrier, 1024 to align."""
+    tile = lambda rows: rows * hd * 2
+    return tile(128) + 2 * 3 * tile(block) + _ring_bytes(3) + 8 + 1024
+
+
+def _b2_smem(hd, block, depth):
+    """(``DqSmem``, ``DkvSmem``) of ``csrc/flash_bwd.cu`` at a ring of
+    ``depth`` stages: the dq pass's Q and dO tiles and its streamed K and V
+    tiles of ``block`` keys; the dk/dv pass's 128-key K and V tiles, its
+    streamed Q and dO tiles of ``block`` rows and their lse and delta slots
+    (``2 block`` floats each)."""
+    tile = lambda rows: rows * hd * 2
+    dq = 2 * tile(128) + 2 * depth * tile(block)
+    dkv = 2 * tile(128) + 2 * depth * tile(block) + depth * 2 * 2 * block * 4
+    extra = _ring_bytes(depth) + 8 + 1024
+    return dq + extra, dkv + extra
+
+
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_row_state_tiles_fit_shared_memory(hd, block):
+    """v2 (K1f's kernel at key tiles of ``block``) keeps K1f's three
+    stages at every (hd, block); b2's passes take three stages where they
+    fit and two where they do not, which is hd 128 at block 128 only (three
+    stages of 128-row K/V, or Q/dO, tiles take 192 KiB beside 64 KiB of
+    resident tiles).  Each instantiation fits the 227 KiB a Hopper block
+    may take, and the sources assert it."""
+    assert _v2_smem(hd, block) <= _SMEM_MAX
+    assert f"K1fSmem<{hd}, {block}>::kBytes <= 227 * 1024" in _code(
+        "flash_fwd.cu")
+    depth = 3 if max(_b2_smem(hd, block, 3)) <= _SMEM_MAX else 2
+    assert depth == (2 if (hd, block) == (128, 128) else 3)
+    assert max(_b2_smem(hd, block, depth)) <= _SMEM_MAX
+    code = " ".join(_code("flash_bwd.cu").split())
+    if depth == 3:
+        assert (f"dq_stages<{hd}, {block}>() == 3 && "
+                f"dkv_stages<{hd}, {block}>() == 3") in code
+    else:
+        assert (f"DqS<{hd}, {block}>::kBytes <= kSmemMax && "
+                f"DkvS<{hd}, {block}>::kBytes <= kSmemMax") in code
+    assert "? 3 : 2" in code and "kSmemMax = 227 * 1024;" in code
+
+
+def test_v2_is_k1fs_kernel_without_the_lse():
+    """One forward kernel serves K1f, the bf16 K1s and the race's v2: K1f
+    instantiates it at 128-key tiles with the lse store, v2 at the race's
+    block without it; the lse is stored only under the flag."""
+    code = _code("flash_fwd.cu")
+    assert code.count("__global__") == 2  # the f32 FMA kernel and this one
+    assert "template <int HDP, int BN, bool LSE>\n__global__" in code
+    assert "launch_wg<HDP, kWgBN, true>" in code
+    assert "launch_wg<HD, BN, false>" in code
+    assert "if (LSE && tq == 0) lse[" in code
+    entry = code[code.index('extern "C" int ff_flash_fwd_row_state('):]
+    assert "nullptr" in entry[:entry.index("#undef")]
+
+
+def test_b2_dq_pass_reads_the_callers_delta():
+    """b2 is K1b's pair with a delta-in flag on the dq pass: with it the
+    pass reads ``delta`` for its own rows and writes none, and reads
+    neither ``o`` nor ``g_lse`` (the entry hands it null pointers); without
+    it (K1b) the pass reduces ``rowsum(o do) - g_lse`` and writes it.  The
+    dk/dv pass is one kernel for both."""
+    code = _code("flash_bwd.cu")
+    assert "template <int HDP, int BN, bool DIN>\n__global__" in code
+    assert "template <int HDP, int QN>\n__global__" in code
+    din = code[code.index("if constexpr (DIN) {"):code.index("} else {",
+                                                             code.index("if constexpr (DIN) {"))]
+    assert "delta[base + rows[h]]" in din
+    assert "] =" not in din.replace("dl[h] =", "")
+    k1b = code[code.index("} else {", code.index("if constexpr (DIN) {")):]
+    k1b = k1b[:k1b.index("float ls2[2];")]
+    assert "if (lane == 0) delta[base + row] = a;" in k1b
+    assert "launch_wg<HDP, kWgBN, false>(FF_BWD_ARGS)" in code
+    entry = code[code.index('extern "C" int ff_flash_bwd_row_state('):]
+    entry = " ".join(entry[:entry.index("#undef")].replace("\\", " ").split())
+    assert ("launch_wg<HD, BN, true>(q, k, v, nullptr, dout, lse_f, "
+            "nullptr, delta_f,") in entry
+    assert code.count("__global__") == 4  # f32 dq, dkv; the wgmma pair
+
+
+def test_no_bf16_is_left_on_the_mma_sync_machinery():
+    """After v2 and b2 moved to the wgmma kernels no bf16 launch reaches
+    ``mma_tile.cuh``: it keeps no bf16 product (``mma.sync``, ``ldmatrix``
+    and the bf16 packing are gone), and its users instantiate f32 only
+    (their entries refuse any other dtype)."""
+    tile = _code("mma_tile.cuh")
+    for gone in ("mma.sync", "ldmatrix", "bfloat16", "pack_bf16", "ld32",
+                 "mma_bf16", "ldsm_x4_trans"):
+        assert gone not in tile, gone
+    for source in ("flash_probe.cu", "flash_probe_bwd.cu", "flash_stream.cu"):
+        code = _code(source)
+        assert '#include "mma_tile.cuh"' in code
+        assert "FF_PROBE_TYPE" not in code
+    probe_f32 = _code("flash_probe.cu")
+    probe_f32 = probe_f32[probe_f32.index('extern "C" int ff_flash_probe_fwd('):]
+    assert "dtype != ff::kFloat32" in probe_f32[:probe_f32.index("#define")]
+    assert "dtype != ff::kFloat32" in _code("flash_probe_bwd.cu")
+    assert "__nv_bfloat16" not in _code("flash_probe_bwd.cu")
+    assert "launch_variant<HD, BN>(" in _code("flash_probe.cu")
+    assert "launch_bwd<HD, BN>(" in _code("flash_probe_bwd.cu")
+
+
+def test_row_state_mutants_cover_v2_and_b2():
+    """v2 masking its edge tiles at 128-key columns (wrong at block 64
+    only, so K1f is untouched) and b2's dq pass reading the next row's
+    delta (the delta-in branch only, so K1b is untouched), each held at
+    the 2k race shape and at hd 128, causal, in-process (neither can
+    trap)."""
+    row = {n: m for n, m in stream_numerics.MUTANTS.items()
+           if m[1] in ("v2", "b2")}
+    assert {n: (m[0], m[1]) for n, m in row.items()} == {
+        "v2-edge-128-key-columns": ("flash_fwd.cu", "v2"),
+        "b2-dq-delta-row-off": ("flash_bwd.cu", "b2")}
+    for group in ("v2", "b2"):
+        cases = stream_numerics.MUTANT_CASES[group]
+        assert [s for s, _, _ in cases] == [(16, 8, 2048, 64), (1, 2, 640, 128)]
+        assert all(dt == "bfloat16" and pair == group for _, dt, pair in cases)
+        assert group not in stream_numerics.CHILD_GROUPS
+    (old, new), = row["v2-edge-128-key-columns"][2]
+    assert "j * BN" in old and "j * kWgBN" in new
+    (old, new), = row["b2-dq-delta-row-off"][2]
+    din = _code("flash_bwd.cu")
+    din = din[din.index("if constexpr (DIN) {"):]
+    assert old.strip() in din[:din.index("} else {")]

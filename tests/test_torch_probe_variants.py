@@ -279,13 +279,55 @@ def test_sdpa_stays_out_of_the_port_path():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("variant", [0, 1, 2])
 def test_probe_entry_routes_by_variant_and_dtype(variant, dtype):
-    """bf16 v3 and v4 launch the two-pass kernel on K1f's wgmma/TMA
-    machinery; v2 (its redesign is a later slice) and every f32 variant
-    launch the race's mma_tile.cuh kernels (wgmma takes f32 only as
-    TF32).  Both entries are in csrc/flash_probe.cu."""
-    entry = probe.probe_entry(variant, dtype)
-    wg = dtype == torch.bfloat16 and variant > 0
-    assert entry == ("ff_flash_probe_fwd_wg" if wg else "ff_flash_probe_fwd")
+    """Every bf16 variant runs on the wgmma/TMA machinery: v2 on K1f's
+    kernel (csrc/flash_fwd.cu), v3 and v4 on the two-pass kernel
+    (csrc/flash_probe.cu); every f32 variant launches the race's
+    mma_tile.cuh kernels in csrc/flash_probe.cu (wgmma takes f32 only as
+    TF32).  Each entry is in the library the route names and loads with
+    the forward variants' one C signature."""
+    lib, entry = probe.probe_entry(variant, dtype)
+    if dtype == torch.float32:
+        assert (lib, entry) == ("flash_probe", "ff_flash_probe_fwd")
+    elif variant == 0:
+        assert (lib, entry) == ("flash_fwd", "ff_flash_fwd_row_state")
+    else:
+        assert (lib, entry) == ("flash_probe", "ff_flash_probe_fwd_wg")
+    assert lib in kernels._SOURCES
+    with open(os.path.join(ROOT, "flexflow_torch", "csrc", f"{lib}.cu")) as fh:
+        assert f'extern "C" int {entry}(int variant,' in fh.read()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_probe_entry_routes_by_dtype(dtype):
+    """bf16 b2 launches K1b's wgmma pair with the dq pass reading the
+    caller's delta (csrc/flash_bwd.cu); f32 b2 the FMA kernels of
+    csrc/flash_probe_bwd.cu.  Both entries take b2's one C signature."""
+    lib, entry = probe.bwd_probe_entry(dtype)
+    want = (("flash_bwd", "ff_flash_bwd_row_state")
+            if dtype == torch.bfloat16
+            else ("flash_probe_bwd", "ff_flash_probe_bwd"))
+    assert (lib, entry) == want and lib in kernels._SOURCES
+    with open(os.path.join(ROOT, "flexflow_torch", "csrc", f"{lib}.cu")) as fh:
+        text = fh.read()
+    sig = text[text.index(f'extern "C" int {entry}('):]
+    sig = " ".join(sig[:sig.index("{")].split())
+    assert sig.endswith("void* dq, void* dk, void* dv, int bh, int t, int "
+                        "hd, int causal, float scale, int dtype, int block, "
+                        "void* stream)"), sig
+
+
+def test_b2_hands_over_aligned_row_buffers():
+    """b2's kernels read lse and delta by TMA boxes, which need a 16-byte
+    aligned base: the wrapper's ``_dense`` copies a buffer whose base is
+    not (a contiguous view at an odd storage offset) and keeps one that
+    is."""
+    flat = torch.arange(1 + 2 * 3 * 80, dtype=torch.float32)
+    view = flat[1:].view(2, 3, 80)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    got = kernels._dense(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+    aligned = flat[:-1].view(2, 3, 80)
+    assert kernels._dense(aligned).data_ptr() == aligned.data_ptr()
 
 
 def _gate_rule(shape, dtype, block):
