@@ -59,7 +59,9 @@ Fifteen phases, in order; any failure raises and exits non-zero:
    and every updated parameter agree within the stated tolerances.
 7. **Profile.**  One warm train step of the phase 5 model under
    ``torch.profiler``: the device busy share and device time by kernel.
-8. **DLRM kernels.**  K4 (row gather) and K5 (row scatter-add) against
+8. **DLRM kernels.**  K4 (row gather, in both its forms, bulk copies and
+   registers, with one table and with three through
+   ``gather_rows_multi``) and K5 (row scatter-add) against
    their plain versions bit for bit, and K5 against itself across two
    launches, at the main-path shape ((8 x 10^6, 64) f32, 2048 uniform
    ids), at the DLRM step's own ids (8 stacked tables x 256 ids in {0,
@@ -69,12 +71,16 @@ Fifteen phases, in order; any failure raises and exits non-zero:
    negative and >= R ones, n = 0 and 1, D = 16, 65 and 512, and the LM's
    token table (32768 ids into (32768, 512)); rows the ids do not name
    never change.  Times beside the byte bound, the plain version and
-   ``F.embedding`` / ``index_add_``.
+   ``F.embedding`` / ``index_add_``; at the main-path shape K4's forms, its
+   three-table launch and ``F.embedding`` each timed three ways (one
+   launch, the chain slope, the chain slope over cold rows:
+   ``_gather_times``) beside the launch floor.
 9. **DLRM train.**  ``bench.py``'s DLRM leg (8 x 10^6 x 64 tables, MLPs
    64-512-512-64 and 576-1024-1024-1024-1, batch 256, bf16) through
    ``flexflow_torch.apps.dlrm.main`` for 1 warmup and 10 timed steps:
    plain SGD and lazy Adam on the row-sparse path (K4 = K5 = steps;
-   K4 = 4 x steps and K5 = 3 x steps), momentum SGD on the dense path
+   K4 = 2 x steps, one of them the three-table launch, and K5 = 3 x
+   steps), momentum SGD on the dense path
    (no K4/K5): finite losses, exact launch counts, no attention or
    cross-entropy launch, only the batch's rows changed.  Prints
    samples/s, ms/step, MFU and peak memory.
@@ -1108,11 +1114,103 @@ def _touched(torch, ids, shape):
     return mask
 
 
+def _chain_ms(fn, n1: int = 16, n2: int = 80, reps: int = 5) -> float:
+    """Device ms per call of ``fn(i)`` from the slope of chains of ``n1``
+    and ``n2`` calls in a row, the best of ``reps`` runs each.  Each run
+    first parks the card in a spin longer than the host takes to enqueue
+    the chain, so the events bracket back-to-back device work only; the
+    slope cancels what a chain pays once (the events, the first launch's
+    ramp).  Unlike ``_device_ms``, which brackets one launch, it reads a
+    kernel of a few microseconds."""
+    import torch
+
+    for i in range(n2):
+        fn(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n2):
+        fn(i)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = int(4e9 * host_s) + 2_000_000  # _sleep's cycles: 2x at ~2 GHz
+
+    def best(n):
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(spin)
+            start.record()
+            for i in range(n):
+                fn(i)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return min(times)
+
+    return (best(n2) - best(n1)) / (n2 - n1)
+
+
+#: K4's cold-row chain: distinct id vectors a chain cycles through, so that
+#: the rows it reads (GATHER_COLD x 2048 x 256 bytes = 128 MB at the DLRM
+#: shape) are more than the 50 MB L2 holds, as a real DLRM batch finds them.
+GATHER_COLD = 256
+
+
+def _gather_times(torch, fn, table, ids, cold_ids):
+    """``fn(table, ids)`` timed three ways (ms): one launch between events
+    (``_device_ms``), the chain slope on the same ids (warm L2), and the
+    chain slope through ``cold_ids`` (a new id vector at every call,
+    cycling: rows from HBM)."""
+    turn = [0]
+
+    def cold(_):
+        turn[0] += 1
+        return fn(table, cold_ids[turn[0] % len(cold_ids)])
+
+    return (_device_ms(lambda: fn(table, ids)),
+            _chain_ms(lambda _: fn(table, ids)), _chain_ms(cold))
+
+
+def _gather_forms(kernels):
+    """K4's two forms for 16-byte rows, the wrapper's own first."""
+    own = kernels._GATHER_FORM
+    return (own,) + tuple(f for f in ("bulk", "register") if f != own)
+
+
+def _gather_exact(torch, kernels, name, table, ids):
+    """K4 and its three-table entry, in both forms, against the plain
+    versions bit for bit (NaN rows included); the third table differs from
+    the first so that a row of the wrong table shows."""
+    want = kernels.gather_rows_plain(table, ids)
+    tables = (table, table.neg(), table * 0.5)
+    wants = kernels.gather_rows_multi_plain(tables, ids)
+    own = kernels._GATHER_FORM
+    try:
+        for form in _gather_forms(kernels):
+            kernels._GATHER_FORM = form
+            got = kernels.gather_rows(table, ids)
+            multi = kernels.gather_rows_multi(tables, ids)
+            torch.cuda.synchronize()
+            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            same_multi = all(torch.equal(a.view(torch.int32),
+                                         b.view(torch.int32))
+                             for a, b in zip(multi, wants))
+            _check(same and same_multi and len(multi) == 3,
+                   f"gather_rows {name} ({form} form): one table exact "
+                   f"{same}, three tables exact {same_multi}")
+    finally:
+        kernels._GATHER_FORM = own
+    return want
+
+
 def phase_dlrm_kernels(torch, kernels, F):
-    """K4 and K5 against their plain versions on the card, bit for bit,
-    and K5 against itself across two launches; device times beside the
-    byte bound, the plain version and ``F.embedding`` / ``index_add_``.
-    Returns the rows of the main-path shape."""
+    """K4 (in both forms, one and three tables) and K5 against their plain
+    versions on the card, bit for bit, and K5 against itself across two
+    launches; device times beside the byte bound, the plain version and
+    ``F.embedding`` / ``index_add_``, and K4 at the main-path shape three
+    ways (``_gather_times``) beside the launch floor.  Returns the rows of
+    the main-path shape."""
     import numpy as np
 
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -1157,8 +1255,8 @@ def phase_dlrm_kernels(torch, kernels, F):
         if name in ("wte", "out of range"):
             ids = ids.to(torch.int32)  # the LM's token ids
         upd = torch.randn((n, D), generator=g, device="cuda")
+        want = _gather_exact(torch, kernels, name, table, ids)
         rows = kernels.gather_rows(table, ids)
-        want = kernels.gather_rows_plain(table, ids)
         t1, t2, t3 = table.clone(), table.clone(), table.clone()
         kernels.scatter_add_rows(t1, ids, upd)
         kernels.scatter_add_rows(t2, ids, upd)
@@ -1168,12 +1266,13 @@ def phase_dlrm_kernels(torch, kernels, F):
         hit = torch.zeros((R,), dtype=torch.bool, device="cuda")
         hit[valid] = True
         stray = bool(((t1 != table).any(1) & ~hit).any())
-        _check(torch.equal(rows.view(torch.int32), want.view(torch.int32))
-               and torch.equal(t1, t3) and torch.equal(t1, t2) and not stray,
-               f"row kernels {name} ({R}, {D}) n={n}: gather exact "
-               f"{torch.equal(rows, want)}, scatter exact {torch.equal(t1, t3)}, "
-               f"repeat exact {torch.equal(t1, t2)}, rows outside the ids "
-               f"changed {stray}")
+        _check(torch.equal(t1, t3) and torch.equal(t1, t2) and not stray,
+               f"row kernels {name} ({R}, {D}) n={n}: scatter exact "
+               f"{torch.equal(t1, t3)}, repeat exact {torch.equal(t1, t2)}, "
+               f"rows outside the ids changed {stray}")
+        if kind == "range":
+            _check(bool(rows[(ids < 0) | (ids >= R)].isnan().all()),
+                   "gather_rows: an out-of-range id did not give a NaN row")
         err_g = (rows - want).nan_to_num().abs().max().item() if n else 0.0
         err_s = (t1 - t3).abs().max().item() if n else 0.0
         del t2, t3
@@ -1181,8 +1280,9 @@ def phase_dlrm_kernels(torch, kernels, F):
         line = (f"[dlrm-kernels] {name}: table ({R}, {D}) f32, {n} "
                 f"{str(ids.dtype)[6:]} ids ({kind}, {valid.numel()} in range, "
                 f"{uniq} distinct; K5 in {kernels.scatter_plan(n)[0]} "
-                f"launches): gather and scatter bit-exact against the plain "
-                f"versions, scatter bit-identical across two launches")
+                f"launches): gather (both forms, one and three tables) and "
+                f"scatter bit-exact against the plain versions, scatter "
+                f"bit-identical across two launches")
         if n == 0:
             _check(torch.equal(t1, table), "scatter with n = 0 changed the table")
         if n == 0 or kind == "range":  # the library calls refuse such ids
@@ -1206,14 +1306,77 @@ def phase_dlrm_kernels(torch, kernels, F):
         row_s = dict(max_abs_err=err_s, ms=ms_s, plain_ms=plain_s,
                      bound_ms=bound_s, bound_by=by_s, library_ms=lib_s)
         if name == "main":
+            ways, out["gather_rows_multi"] = _gather_main(torch, kernels, F,
+                                                          table, ids, g)
             out["gather_rows"] = dict(max_abs_err=err_g, ms=ms_g, plain_ms=plain_g,
                                       bound_ms=bound_g, bound_by=by_g,
-                                      library_ms=lib_g)
+                                      library_ms=lib_g, **ways)
             out["scatter_add_rows"] = row_s
         elif name in ("step", "wte"):
             out["scatter_add_rows"][f"{name}_shape"] = row_s
         del table, t1, rows, want, upd, hit
     return out
+
+
+def _gather_main(torch, kernels, F, table, ids, g):
+    """K4 at the main-path shape: both forms and ``F.embedding`` three ways
+    (``_gather_times``) beside the launch floor (the chain slope of
+    ``torch.cuda._sleep(0)``), and the three-table launch against three
+    one-table launches and its plain version.  Returns the keys it adds to
+    the ``gather_rows`` row and ``gather_rows_multi``'s row."""
+    R, D = table.shape
+    n = ids.shape[0]
+    cold = [torch.randint(0, R, (n,), generator=g, device="cuda")
+            for _ in range(GATHER_COLD)]
+    floor = _chain_ms(lambda _: torch.cuda._sleep(0))
+    lib = _gather_times(torch, lambda t, i: F.embedding(i, t), table, ids,
+                        cold)
+    own = kernels._GATHER_FORM
+    times = {}
+    try:
+        for form in _gather_forms(kernels):
+            kernels._GATHER_FORM = form
+            times[form] = _gather_times(torch, kernels.gather_rows, table,
+                                        ids, cold)
+    finally:
+        kernels._GATHER_FORM = own
+    tables = (table, table.neg(), table * 0.5)
+    multi = _gather_times(
+        torch, lambda t, i: kernels.gather_rows_multi(tables, i), table, ids,
+        cold)
+    three = _gather_times(
+        torch, lambda t, i: [kernels.gather_rows(x, i) for x in tables],
+        table, ids, cold)
+    plain_m = _device_ms(lambda: kernels.gather_rows_multi_plain(tables, ids))
+    err_m = max((a - b).abs().max().item() for a, b in zip(
+        kernels.gather_rows_multi(tables, ids),
+        kernels.gather_rows_multi_plain(tables, ids)))
+    uniq = int(torch.unique(ids).numel())
+    bound_m, by_m = _bound_ms(n * ids.element_size() + 3 * (uniq + n) * D * 4,
+                              0.0, "float32")
+    ways = "single launch / chain slope / cold-row chain slope"
+    fmt = lambda t: " / ".join(f"{x:.6f}" for x in t)
+    for form, t in times.items():
+        print(f"[dlrm-kernels] gather_rows main, {form} form"
+              f"{' (the wrapper' + chr(39) + 's)' if form == own else ''}: "
+              f"{fmt(t)} ms ({ways})")
+    print(f"[dlrm-kernels] F.embedding main: {fmt(lib)} ms; launch floor "
+          f"(chain slope of torch.cuda._sleep(0)) {floor:.6f} ms")
+    print(f"[dlrm-kernels] gather_rows_multi main, 3 tables: {fmt(multi)} "
+          f"ms; three gather_rows launches {fmt(three)} ms; plain "
+          f"{plain_m:.6f} ms; bound {bound_m:.6f} by {by_m}; err {err_m}")
+    other = _gather_forms(kernels)[1]
+    ways = dict(chain_ms=times[own][1], cold_ms=times[own][2],
+                floor_ms=floor, library_chain_ms=lib[1],
+                library_cold_ms=lib[2], form=own,
+                other_form=dict(form=other, ms=times[other][0],
+                                chain_ms=times[other][1],
+                                cold_ms=times[other][2]))
+    return ways, dict(max_abs_err=err_m, ms=multi[0], plain_ms=plain_m,
+                      bound_ms=bound_m, bound_by=by_m, library_ms=None,
+                      chain_ms=multi[1], cold_ms=multi[2],
+                      three_launches=dict(ms=three[0], chain_ms=three[1],
+                                          cold_ms=three[2]))
 
 
 def phase_dlrm_train(torch, kernels):
@@ -1238,8 +1401,9 @@ def phase_dlrm_train(torch, kernels):
     steps = c["warmup"] + c["iters"]
     runs = (("sgd", _dlrm_argv("sgd"), 1, 1),
             # Lazy Adam gathers the batch's rows, then the unique rows of
-            # the table, m and v; it scatters into the table, m and v.
-            ("lazy_adam", _dlrm_argv("adam", ["--lazy-sparse-opt"]), 4, 3),
+            # the table, m and v in one launch (gather_rows_multi); it
+            # scatters into the table, m and v.
+            ("lazy_adam", _dlrm_argv("adam", ["--lazy-sparse-opt"]), 2, 3),
             ("dense", _dlrm_argv("sgd", ["--momentum", "0.9"]), 0, 0))
     by_run, sgd_params = {}, None
     for name, argv, k4, k5 in runs:
@@ -1257,7 +1421,9 @@ def phase_dlrm_train(torch, kernels):
         _check(len(losses) == steps and all(math.isfinite(x) for x in losses),
                f"dlrm {name} step losses {losses}")
         want = {n: 0 for n in launches}
-        want.update(gather_rows=k4 * steps, scatter_add_rows=k5 * steps)
+        # Every K4 launch past the batch's gathers the state's rows too.
+        want.update(gather_rows=k4 * steps, scatter_add_rows=k5 * steps,
+                    gather_rows_multi=max(k4 - 1, 0) * steps)
         _check(launches == want, f"dlrm {name} launch counts {launches}, "
                f"expected {want}")
         params, opt_state, _ = stats.pop("final")
@@ -1311,9 +1477,9 @@ def phase_dlrm_parity(torch, kernels):
         "sgd": (lambda: SGDOptimizer(lr=0.1), 1, 1),
         "lazy_momentum": (lambda: SGDOptimizer(lr=0.1, momentum=0.9,
                                                weight_decay=1e-4,
-                                               lazy_sparse=True), 3, 2),
+                                               lazy_sparse=True), 2, 2),
         "lazy_adam": (lambda: AdamOptimizer(lr=1e-3, b1=b1,
-                                            lazy_sparse=True), 4, 3),
+                                            lazy_sparse=True), 2, 3),
     }
     rtol, atol = TOL_DLRM_STEP
     for name, (make, k4, k5) in opts.items():
@@ -1326,14 +1492,18 @@ def phase_dlrm_parity(torch, kernels):
             params = {op: {k: p.clone().to(ex.device) for k, p in g.items()}
                       for op, g in params0.items()}
             before = (kernels.gather_rows.launches,
-                      kernels.scatter_add_rows.launches)
+                      kernels.scatter_add_rows.launches,
+                      kernels.gather_rows_multi.launches)
             params, state, _, m = ex.train_step(params, opt.init(params), {},
                                                 ex.shard_batch(batch))
             if dev == "cuda":
                 torch.cuda.synchronize()
                 _check((kernels.gather_rows.launches - before[0],
-                        kernels.scatter_add_rows.launches - before[1]) == (k4, k5),
-                       f"dlrm parity {name}: not one launch set of K4/K5")
+                        kernels.scatter_add_rows.launches - before[1],
+                        kernels.gather_rows_multi.launches - before[2])
+                       == (k4, k5, k4 - 1),
+                       f"dlrm parity {name}: not one launch set of K4/K5 "
+                       f"(the state's rows in one K4 launch)")
             cpu = {op: {k: v.detach().cpu() for k, v in g.items()}
                    for op, g in params.items()}
             if isinstance(state, dict) and "t" in state:
@@ -2199,6 +2369,7 @@ def main() -> int:
         "softmax_xent": (src + "softmax_xent.cu", pk + ":1187"),
         "softmax_xent_bwd": (src + "softmax_xent.cu", pk + ":1227"),
         "gather_rows": (src + "embedding_rows.cu", pk + ":1379"),
+        "gather_rows_multi": (src + "embedding_rows.cu", pk + ":1379"),
         "scatter_add_rows": (src + "embedding_rows.cu", pk + ":1412"),
         "flash_attention_lse_streamed": (src + "flash_fwd.cu", pk + ":361"),
         "flash_attention_lse_streamed_bwd": (src + "flash_bwd.cu",

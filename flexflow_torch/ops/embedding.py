@@ -10,7 +10,9 @@ gathers with ``torch.nn.functional.embedding`` (the JAX forward is
 implements the row-sparse protocol of ``ops/base.py``: the executor
 gathers the rows with K4 (``kernels.gather_rows``), differentiates with
 respect to them, and scatter-adds ``-lr * g`` into the table in place
-with K5 (``kernels.scatter_add_rows``).  The tables keep their own
+with K5 (``kernels.scatter_add_rows``); the lazy optimizers gather the
+unique rows of the table and of its state in one K4 launch
+(``kernels.gather_rows_multi``).  The tables keep their own
 dtype (f32 under the graph's rule) and the rows are cast to the output
 dtype, as in the reference.
 
@@ -47,6 +49,15 @@ def _gather_dispatch(table, flat_ids):
     no autograd history."""
     rows = kernels.gather_rows(table, flat_ids.reshape(-1))
     return rows.reshape(flat_ids.shape + (table.shape[1],))
+
+
+def _gather_multi_dispatch(tables, flat_ids):
+    """``[t[flat_ids] for t in tables]`` for 1 to 3 tables of one
+    ``(R, D)``, dtype and device in one K4 launch
+    (``kernels.gather_rows_multi``; the plain version on CPU tables): the
+    lazy optimizers' param and state rows.  No autograd history."""
+    rows = kernels.gather_rows_multi(tables, flat_ids.reshape(-1))
+    return [r.reshape(flat_ids.shape + (r.shape[1],)) for r in rows]
 
 
 def _scatter_add_dispatch(table, flat_ids, upd):

@@ -168,7 +168,7 @@ def _load(name: str) -> ctypes.CDLL:
         lib.ff_xent_bwd.restype = i
     elif name == "embedding_rows":
         ll = ctypes.c_longlong
-        lib.ff_gather_rows.argtypes = [p, p, p, ll, i, i, i, i, i, p]
+        lib.ff_gather_rows.argtypes = [i] + [p] * 7 + [ll] + [i] * 7 + [p]
         lib.ff_gather_rows.restype = i
         lib.ff_scatter_add_rows.argtypes = [p, p, p, ll, i, i, i, i, i, i, p,
                                             ll, p]
@@ -954,32 +954,150 @@ def _row_cuda(what, table, *others):
     return g.bit_length() - 1, vec
 
 
+#: K4's bulk form (``gather_plan``): warps per CTA (the kernel's
+#: ``kGatherWarps``), the most ids a warp owns at a time (one a lane), and
+#: CTAs per SM at most, so that the grid is one wave.
+_GATHER_WARPS = 4
+_GATHER_MAX_RUN = 32
+_GATHER_CTAS_PER_SM = 2
+#: Bytes of one warp's shared-memory slab in K4's bulk form (the kernel's
+#: ``kSlabBytes``; it refuses a plan that does not fit).
+_GATHER_SLAB_BYTES = 24576
+#: K4's register form: threads a CTA (the kernel's ``kThreads``), and CTAs
+#: per SM at most (one wave).
+_GATHER_REG_THREADS = 256
+_GATHER_REG_CTAS_PER_SM = 4
+#: The most tables one K4 launch gathers by the same ids.
+_GATHER_MAX_TABLES = 3
+#: K4's form for 16-byte rows whose run fits the slab: "register" (each
+#: thread's loads in registers) or "bulk" (Hopper's cp.async.bulk through
+#: shared memory); other rows always take the register form.
+_GATHER_FORM = "register"
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def gather_plan(n: int, sms: int, row_bytes: int = 0,
+                tables: int = 1) -> Tuple[int, int]:
+    """K4's bulk-form plan for ``n`` ids on a card of ``sms`` SMs: ``(run,
+    ctas)``.  A warp owns runs of ``run`` consecutive ids: the fewest that
+    cover ``n`` with one CTA of ``_GATHER_WARPS`` warps per SM (at most
+    32), so that small batches spread over every SM; with ``row_bytes``
+    no more than a warp's slab holds for ``tables`` tables.  The grid
+    covers the runs, at most ``_GATHER_CTAS_PER_SM`` CTAs per SM (one
+    wave); warps loop over the runs beyond it."""
+    run = min(_GATHER_MAX_RUN, max(1, -(-n // (sms * _GATHER_WARPS))))
+    if row_bytes:
+        run = min(run, _GATHER_SLAB_BYTES // (tables * row_bytes))
+    runs = -(-n // run)
+    return run, max(1, min(-(-runs // _GATHER_WARPS),
+                           sms * _GATHER_CTAS_PER_SM))
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    sms = _SM_COUNT.get(index)
+    if sms is None:
+        sms = _SM_COUNT[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return sms
+
+
+def _tables_check(what, tables):
+    """The gate of a launch over several tables: 1 to 3 of them, one
+    shape, dtype and device (on every device)."""
+    if not 1 <= len(tables) <= _GATHER_MAX_TABLES:
+        raise ValueError(f"{what}: takes 1 to {_GATHER_MAX_TABLES} tables, "
+                         f"got {len(tables)}")
+    t0 = tables[0]
+    for t in tables[1:]:
+        if t.shape != t0.shape:
+            raise ValueError(f"{what}: the tables must share one (R, D), got "
+                             f"{tuple(t0.shape)} and {tuple(t.shape)}")
+        if t.dtype != t0.dtype:
+            raise ValueError(f"{what}: the tables must share one dtype, got "
+                             f"{t0.dtype} and {t.dtype}")
+        if t.device != t0.device:
+            raise ValueError(f"{what}: the tables must share one device, got "
+                             f"{t0.device} and {t.device}")
+
+
+def _gather(what, tables, ids, counters):
+    """K4 over ``tables`` (already gated) by ``ids``: one launch on CUDA,
+    counted once in each wrapper of ``counters``; returns one output per
+    table."""
+    table = tables[0]
+    _row_check(what, table, ids)
+    if table.device.type == "cpu":
+        return [gather_rows_plain(t, ids) for t in tables]
+    ids = ids.contiguous()
+    n, d = ids.shape[0], table.shape[1]
+    outs = [torch.empty((n, d), dtype=table.dtype, device=table.device)
+            for _ in tables]
+    log_g, vec = _row_cuda(what, table, ids, *tables[1:], *outs)
+    for t in tables[1:]:
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: the tables must be contiguous")
+    if n == 0:
+        return outs
+    k = len(tables)
+    sms = _sm_count(table.device)
+    bulk = (vec and _GATHER_FORM == "bulk"
+            and k * d * 4 <= _GATHER_SLAB_BYTES)
+    if bulk:
+        grain, ctas = gather_plan(n, sms, d * 4, k)
+    else:
+        grain = log_g
+        ctas = min(-(-(n << log_g) // _GATHER_REG_THREADS),
+                   sms * _GATHER_REG_CTAS_PER_SM)
+    ptrs = [t.data_ptr() for t in tables] + [None] * (3 - k)
+    optrs = [o.data_ptr() for o in outs] + [None] * (3 - k)
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    err = _load("embedding_rows").ff_gather_rows(
+        k, *ptrs, *optrs, ids.data_ptr(), table.shape[0], d, n,
+        int(ids.dtype == torch.int64), int(vec), int(bulk), grain, ctas,
+        stream,
+    )
+    _raise_on(err, what)
+    for fn in counters:
+        fn.launches += 1
+    return outs
+
+
 def gather_rows(table, ids):
     """``table (R, D) [ids (n,)] -> (n, D)``, reading only the addressed
     rows; an id outside ``[0, R)`` gives a NaN row.  The port of
     ``pallas_kernels.gather_rows`` (kernel ``_gather_kernel``); source
     ``csrc/embedding_rows.cu``.  Any ``D``; f32 tables, int32 or int64
     ids."""
-    _row_check("gather_rows", table, ids)
-    if table.device.type == "cpu":
-        return gather_rows_plain(table, ids)
-    ids = ids.contiguous()
-    log_g, vec = _row_cuda("gather_rows", table, ids)
-    n, d = ids.shape[0], table.shape[1]
-    out = torch.empty((n, d), dtype=table.dtype, device=table.device)
-    if n == 0:
-        return out
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    err = _load("embedding_rows").ff_gather_rows(
-        table.data_ptr(), ids.data_ptr(), out.data_ptr(), table.shape[0], d,
-        n, log_g, int(ids.dtype == torch.int64), int(vec), stream,
-    )
-    _raise_on(err, "gather_rows")
-    gather_rows.launches += 1
-    return out
+    return _gather("gather_rows", (table,), ids, (gather_rows,))[0]
 
 
 gather_rows.launches = 0
+
+
+def gather_rows_multi_plain(tables, ids):
+    """Plain version of :func:`gather_rows_multi`: one
+    :func:`gather_rows_plain` per table."""
+    return [gather_rows_plain(t, ids) for t in tables]
+
+
+def gather_rows_multi(tables, ids):
+    """``[t[ids] for t in tables]`` in ONE K4 launch: 1 to 3 tables of one
+    ``(R, D)``, dtype and device, gathered by the same ids (the lazy
+    optimizers' param and state rows), each output the bits
+    :func:`gather_rows` gives for its table.  Counted in
+    ``gather_rows.launches`` (one launch, one count) and in its own
+    ``launches``.  A mismatch of the tables raises ``ValueError`` on every
+    device."""
+    tables = tuple(tables)
+    _tables_check("gather_rows_multi", tables)
+    return _gather("gather_rows_multi", tables, ids,
+                   (gather_rows, gather_rows_multi))
+
+
+gather_rows_multi.launches = 0
 
 
 #: K5's single-launch cap: up to this many ids, one CTA's shared memory
@@ -1234,5 +1352,6 @@ def flash_attention_lse_auto(q, k, v, causal: bool = True):
 
 #: The port's kernel wrappers, for callers that reset and read the counters.
 KERNELS = (flash_attention_lse, flash_attention_lse_bwd, flash_decode,
-           softmax_xent, softmax_xent_bwd, gather_rows, scatter_add_rows,
+           softmax_xent, softmax_xent_bwd, gather_rows, gather_rows_multi,
+           scatter_add_rows,
            flash_attention_lse_streamed, flash_attention_lse_streamed_bwd)

@@ -38,7 +38,8 @@ import torch
 from flexflow_torch.config import FFConfig
 from flexflow_torch.graph import FFModel
 from flexflow_torch.ops.base import Op
-from flexflow_torch.ops.embedding import _gather_dispatch, _scatter_add_dispatch
+from flexflow_torch.ops.embedding import (_gather_multi_dispatch,
+                                         _scatter_add_dispatch)
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -367,7 +368,8 @@ class Executor:
 
     def _sparse_stateful_apply(self, op, op_params, opt_state, uniq, scale):
         """Lazy momentum/Adam row update of one sparse op, in place:
-        gather the unique rows of the param and of its optimizer state,
+        gather the unique rows of the param and of its optimizer state
+        (one K4 launch for all of them),
         run the optimizer's row step, scatter-add the deltas back (so the
         state becomes ``v + (v_new - v)``, as in JAX).  Masked slots
         carry exact-zero deltas into row 0.  Returns the optimizer
@@ -380,10 +382,10 @@ class Executor:
         table = op_params[key]
         flat = table.reshape(-1, table.shape[-1])
         safe = torch.where(mask, uids, 0)
-        p_rows = _gather_dispatch(flat, safe)
         bufs = {k: b.reshape(-1, b.shape[-1]) for k, b in
                 opt.sparse_state_buffers(opt_state, op.name, key).items()}
-        buf_rows = {k: _gather_dispatch(b, safe) for k, b in bufs.items()}
+        p_rows, *rows = _gather_multi_dispatch([flat, *bufs.values()], safe)
+        buf_rows = dict(zip(bufs, rows))
         d_p, d_bufs = opt.sparse_row_step(p_rows, gsum, buf_rows,
                                           t=opt.sparse_step_count(opt_state))
         m = mask[:, None]

@@ -1,5 +1,5 @@
-"""This checkout's K6, bf16 K1s, K1f, K1b and the race's bf16 v2, v3, v4
-and b2 beside another checkout's, in one process on the card.
+"""This checkout's K4, K6, bf16 K1s, K1f, K1b and the race's bf16 v2, v3,
+v4 and b2 beside another checkout's, in one process on the card.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -14,6 +14,16 @@ turns (``chip_smoke._pair_ms``: theirs, ours, ours, theirs, the median
 device time of 20 runs each), beside one PyTorch call for the same
 function and the bound, at the main path's shapes:
 
+- K4 (``gather_rows``, and ``gather_rows_multi`` over three tables
+  against three of the other checkout's launches) at the DLRM shape
+  ((8 x 10^6, 64) f32, 2048 uniform ids), in both of this checkout's forms
+  (registers, bulk copies), three ways in turns: one launch between
+  events (``chip_smoke._pair_ms``), and the chain slope
+  (``chip_smoke._chain_ms``) warm (the same ids at every call) and cold (a
+  new id vector at every call, ``chip_smoke.GATHER_COLD`` of them: rows
+  from HBM); beside ``F.embedding`` and the launch floor (the chain slope
+  of ``torch.cuda._sleep(0)``); every output bit-identical to the other
+  checkout's first;
 - K6 (``flash_decode``) at phase 1's two timed cases
   (``chip_smoke.DECODE_TIMED``), f32 and bf16, with this checkout's split
   count, beside SDPA's masked call;
@@ -262,6 +272,80 @@ def race(cs, ours, theirs, ours_probe, theirs_probe, F) -> None:
         torch.cuda.empty_cache()
 
 
+def _pair_chain(cs, a, b):
+    """Chain-slope ms (``chip_smoke._chain_ms``) of ``a(i)`` and ``b(i)``
+    timed in turns (a, b, b, a), each the mean of its two."""
+    ta = cs._chain_ms(a)
+    tb = (cs._chain_ms(b) + cs._chain_ms(b)) / 2
+    return (ta + cs._chain_ms(a)) / 2, tb
+
+
+def gather(cs, ours, theirs, F) -> None:
+    """K4 at the DLRM shape, one table and three, warm and cold, in both
+    of this checkout's forms against the other checkout's K4 (three of its
+    launches for three tables), beside ``F.embedding`` and the launch
+    floor; every output bit-identical to the other checkout's first."""
+    g = torch.Generator(device="cuda").manual_seed(53)
+    c = cs.DLRM
+    R, D, n = c["tables"] * c["vocab"], c["dim"], c["batch"] * c["tables"]
+    table = torch.randn((R, D), generator=g, device="cuda")
+    tables = (table, table.neg(), table * 0.5)
+    ids = torch.randint(0, R, (n,), generator=g, device="cuda")
+    cold = [torch.randint(0, R, (n,), generator=g, device="cuda")
+            for _ in range(cs.GATHER_COLD)]
+    turn = [0]
+
+    def feed(kind):
+        if kind == "warm":
+            return ids
+        turn[0] += 1
+        return cold[turn[0] % len(cold)]
+
+    mine = {1: lambda i: [ours.gather_rows(table, i)],
+            3: lambda i: ours.gather_rows_multi(tables, i)}
+    other = {k: (lambda i, k=k: [theirs.gather_rows(t, i)
+                                 for t in tables[:k]]) for k in (1, 3)}
+    floor = cs._chain_ms(lambda _: torch.cuda._sleep(0))
+    lib = {kind: cs._chain_ms(lambda _, kind=kind: F.embedding(feed(kind),
+                                                              table))
+           for kind in ("warm", "cold")}
+    lib1 = cs._device_ms(lambda: F.embedding(ids, table))
+    print(f"[kernel-race] gather_rows: launch floor (chain slope of "
+          f"torch.cuda._sleep(0)) {floor:.6f} ms; F.embedding "
+          f"{lib1:.6f} single launch, {lib['warm']:.6f} warm, "
+          f"{lib['cold']:.6f} cold", flush=True)
+    own = ours._GATHER_FORM
+    try:
+        for form in ("register", "bulk"):
+            ours._GATHER_FORM = form
+            for k in (1, 3):
+                for i in (ids, cold[0]):
+                    same = all(torch.equal(a.view(torch.int32),
+                                           b.view(torch.int32))
+                               for a, b in zip(mine[k](i), other[k](i)))
+                    cs._check(same, f"gather_rows {form} form, {k} tables: "
+                              f"not bit-identical to the other checkout's")
+                for kind in ("single launch", "warm", "cold"):
+                    if kind == "single launch":
+                        t_theirs, t_ours = cs._pair_ms(
+                            lambda: other[k](ids), lambda: mine[k](ids))
+                    else:
+                        t_theirs, t_ours = _pair_chain(
+                            cs, lambda _: other[k](feed(kind)),
+                            lambda _: mine[k](feed(kind)))
+                    what = ("one table" if k == 1 else
+                            "three tables (theirs: three launches)")
+                    print(f"[kernel-race] gather_rows (8000000, 64) 2048 ids, "
+                          f"{what}, {kind}: ours ({form} form) {t_ours:.6f} "
+                          f"ms, theirs {t_theirs:.6f} ms "
+                          f"({t_theirs / t_ours:.2f}x), bit-identical",
+                          flush=True)
+    finally:
+        ours._GATHER_FORM = own
+    del table, tables, cold
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if len(argv) != 2 or argv[0] != "--against":
@@ -284,9 +368,10 @@ def main(argv=None) -> int:
     theirs = _other_kernels(root)
     theirs_probe = _other_probe(root, theirs)
     libs = ("flash_fwd", "flash_bwd", "flash_stream", "flash_decode",
-            "flash_probe", "flash_probe_bwd")
+            "flash_probe", "flash_probe_bwd", "embedding_rows")
     ours.build(libs)
     theirs.build(libs)
+    gather(cs, ours, theirs, F)
     decode(cs, ours, theirs, F)
     streamed(cs, ours, theirs, F)
     race(cs, ours, theirs, ours_probe, theirs_probe, F)

@@ -53,6 +53,9 @@ K1sb):
    ``flash_bwd.cu`` b2's dq pass (K1b's, reading the caller's delta)
    reading the delta of the next row, held at both blocks: each against
    the plain version at (16, 8, 2048, 64) and (1, 2, 640, 128), causal.
+   In ``embedding_rows.cu`` K4 reading the third table's rows from the
+   first, held bit for bit through ``gather_rows`` and the three-table
+   ``gather_rows_multi`` at a table of the DLRM shape and one of D = 65.
    The unmutated kernels must pass and each mutant must fail at every
    case; the exit code is 1 otherwise.
 
@@ -275,6 +278,13 @@ MUTANTS = {
          "        softmax_tile<kS>(s, m, l, corr, j * kWgBN, t, causal, "
          "edge(j), rows,"),
     ]),
+    # K4 reads the third table's rows from the first table: every form,
+    # since both take their source rows from src_row.
+    "k4-table-2-reads-table-0": ("embedding_rows.cu", "k4", [
+        ("  return reinterpret_cast<const V*>(p.table[t]) + (size_t)row * cols;",
+         "  return reinterpret_cast<const V*>(p.table[t == 2 ? 0 : t]) +\n"
+         "         (size_t)row * cols;"),
+    ]),
     # K6's merge gives the last non-empty split (the one that holds key
     # lengths[b] - 1) weight 0.
     "k6-merge-skips-last-split": ("flash_decode.cu", "k6", [
@@ -297,7 +307,8 @@ MUTANTS = {
 #: v3 and v4 at both blocks by K1f's rule, causal or not) and with a NaN
 #: at the last key (``poison``: ``chip_smoke._probe_poison``); the bf16 v2
 #: and b2 (``v2``, ``b2``: :func:`_row_state_parts`) at the 2k race shape
-#: and at hd 128 over 640 rows, causal.
+#: and at hd 128 over 640 rows, causal; K4 (``gather``:
+#: :func:`_gather_parts`) at tables of (R, D) = the DLRM shape and D = 65.
 MUTANT_CASES = {
     "stream": (((2, 8, 1024, 64), "float32", "stream"),
                ((1, 4, 1024, 128), "float32", "stream")),
@@ -322,6 +333,8 @@ MUTANT_CASES = {
            ((1, 2, 640, 128), "bfloat16", "v2")),
     "b2": (((16, 8, 2048, 64), "bfloat16", "b2"),
            ((1, 2, 640, 128), "bfloat16", "b2")),
+    "k4": (((8_000_000, 64), "float32", "gather"),
+           ((100_000, 65), "float32", "gather")),
 }
 #: Groups whose cases each run in a child process (``--case``).
 CHILD_GROUPS = ("race", "poison")
@@ -376,6 +389,22 @@ def _row_state_parts(cs, kernels, probe, pair, q, k, v, do, g_lse) -> dict:
                 parts[f"b2 b{block} {key}"] = cs._close(a, w, m, rule[0],
                                                         rule[1], tp, rule[2])
         return parts
+
+
+def _gather_parts(kernels, table, ids) -> dict:
+    """K4 through ``gather_rows`` (one table) and ``gather_rows_multi``
+    (three different tables) in the wrapper's form, against the plain
+    versions bit for bit: {part: 0 when every bit agrees, else inf}."""
+    tables = (table, table.neg(), table * 0.5)
+    pairs = [("one table", kernels.gather_rows(table, ids),
+              kernels.gather_rows_plain(table, ids))]
+    pairs += [(f"table {k} of 3", got, want) for k, (got, want) in enumerate(
+        zip(kernels.gather_rows_multi(tables, ids),
+            kernels.gather_rows_multi_plain(tables, ids)))]
+    torch.cuda.synchronize()
+    return {name: 0.0 if torch.equal(got.view(torch.int32),
+                                     want.view(torch.int32)) else math.inf
+            for name, got, want in pairs}
 
 
 def case(root: str, group: str, index: int) -> int:
@@ -466,7 +495,12 @@ def mutants(kernels) -> list:
         for shape, dt, pair in cases:
             if group in CHILD_GROUPS or (shape, dt) in inputs:
                 continue
-            if pair == "decode":
+            if pair == "gather":  # 2048 ids, a few out of range
+                ids = torch.randint(0, shape[0], (2048,), generator=g,
+                                    device="cuda")
+                ids[::97] = -1
+                inputs[shape, dt] = (randn(shape), ids)
+            elif pair == "decode":
                 B, S, h, hd = shape
                 inputs[shape, dt] = (
                     randn((B, h, hd), dt), randn(shape, dt), randn(shape, dt),
@@ -498,6 +532,8 @@ def mutants(kernels) -> list:
                     po = kernels.flash_decode_plain(q, ck, cv, lens)
                     parts = {"o": cs._decode_close(kernels, q, ck, cv, lens,
                                                    o, po)}
+                elif pair == "gather":
+                    parts = _gather_parts(kernels, *inputs[shape, dt])
                 elif pair in ("v2", "b2"):
                     q, k, v, do, g_lse = inputs[shape, dt]
                     parts = _row_state_parts(cs, kernels, probe, pair, q, k,

@@ -694,3 +694,146 @@ def test_scatter_add_rows_cuda_branch_has_no_library_sort():
     code = _row_code()
     assert re.findall(r"\batomic\w*|\bred\.|\batom\.", code) == []
 
+
+
+# ---------------------------------------------------------------------------
+# K4 over several tables: the lazy optimizers' param and state rows
+# ---------------------------------------------------------------------------
+
+
+def _three_tables(seed, r, d):
+    g = np.random.default_rng(seed)
+    return [g.standard_normal((r, d)).astype(np.float32) for _ in range(3)]
+
+
+def _bits(x):
+    return torch.as_tensor(x).contiguous().view(torch.int32).numpy()
+
+
+@pytest.mark.parametrize("id_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("d", [32, 64])
+def test_gather_rows_multi_plain_matches_pallas(d, id_dtype):
+    """Each output of the three-table entry is JAX's gather of its table
+    (the Pallas kernel in interpret mode), bit for bit, and a CPU call
+    launches nothing."""
+    tables = _three_tables(80 + d, 40, d)
+    idx = np.asarray(_DUP_IDS, id_dtype)
+    before = (kernels.gather_rows.launches, kernels.gather_rows_multi.launches)
+    got = kernels.gather_rows_multi([torch.from_numpy(t) for t in tables],
+                                    torch.from_numpy(idx))
+    assert (kernels.gather_rows.launches,
+            kernels.gather_rows_multi.launches) == before
+    assert len(got) == 3
+    for t, out in zip(tables, got):
+        want = pallas_kernels.gather_rows(jnp.asarray(t), jnp.asarray(idx),
+                                          interpret=True)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", ["out of range", "D=16", "D=65",
+                                  "one table", "two tables"])
+def test_gather_rows_multi_equals_separate_gathers(case):
+    """The same bits as one ``gather_rows_plain`` call per table, NaN rows
+    of out-of-range ids included, at widths the CUDA kernel takes in its
+    16-byte and 4-byte forms; and ``gather_rows`` is the one-table case."""
+    d = {"D=16": 16, "D=65": 65}.get(case, 8)
+    k = {"one table": 1, "two tables": 2}.get(case, 3)
+    tables = [torch.from_numpy(t) for t in _three_tables(90, 10, d)][:k]
+    idx = [3, 10, 12, -1, 0, 9, 3] if case == "out of range" else [4, 0, 4, 9]
+    ids = torch.tensor(idx, dtype=torch.int64)
+    got = kernels.gather_rows_multi(tables, ids)
+    assert len(got) == k
+    for t, out in zip(tables, got):
+        np.testing.assert_array_equal(_bits(out),
+                                      _bits(kernels.gather_rows_plain(t, ids)))
+        np.testing.assert_array_equal(_bits(out),
+                                      _bits(kernels.gather_rows(t, ids)))
+    if case == "out of range":
+        assert all(bool(out[1:4].isnan().all()) for out in got)
+    assert [o.shape for o in kernels.gather_rows_multi_plain(tables, ids)] \
+        == [o.shape for o in got]
+
+
+@pytest.mark.parametrize("case, match", [
+    ("shape", "one \\(R, D\\)"), ("width", "one \\(R, D\\)"),
+    ("dtype", "one dtype"), ("device", "one device"),
+    ("none", "1 to 3 tables"), ("four", "1 to 3 tables")])
+def test_gather_rows_multi_refuses_mismatched_tables(case, match):
+    """Tables that differ in shape, dtype or device, or too few or too
+    many of them, raise naming the gate, on every device."""
+    t = torch.zeros((10, 8))
+    other = {"shape": torch.zeros((11, 8)), "width": torch.zeros((10, 4)),
+             "dtype": torch.zeros((10, 8), dtype=torch.float64),
+             "device": torch.zeros((10, 8), device="meta")}.get(case)
+    tables = {"none": [], "four": [t] * 4}.get(case, [t, t, other])
+    with pytest.raises(ValueError, match=match):
+        kernels.gather_rows_multi(tables, torch.zeros((3,), dtype=torch.int64))
+
+
+def test_gather_rows_multi_never_falls_back():
+    """Off the CPU (``meta``: no kernel can run) the entry launches or
+    raises, as ``gather_rows`` does."""
+    tables = [torch.empty((10, 8), device="meta") for _ in range(3)]
+    with pytest.raises(ValueError, match="needs CUDA"):
+        kernels.gather_rows_multi(tables,
+                                  torch.zeros((4,), dtype=torch.int32,
+                                              device="meta"))
+
+
+@pytest.mark.parametrize("n, sms, row_bytes, tables, plan", [
+    (2048, 132, 0, 1, (4, 128)),      # the DLRM step: every SM, 4 ids a warp
+    (2048, 132, 256, 3, (4, 128)),    # the lazy step's three tables
+    (1, 132, 256, 1, (1, 1)),
+    (528, 132, 0, 1, (1, 132)),
+    (529, 132, 0, 1, (2, 67)),
+    (32768, 132, 2048, 1, (12, 264)),  # the slab caps the run: 12 rows of 2 KB
+    (32768, 132, 0, 1, (32, 256)),
+    (10 ** 6, 132, 256, 3, (32, 264)),  # beyond one wave: warps loop
+    (100, 132, 8192, 3, (1, 25))])
+def test_gather_plan_spreads_runs_over_every_sm(n, sms, row_bytes, tables,
+                                                 plan):
+    """K4's bulk-form grid from n and the SM count alone: the fewest ids a
+    warp that cover n with one CTA per SM (at most 32), no more than a
+    warp's slab holds, at most two CTAs per SM."""
+    run, ctas = kernels.gather_plan(n, sms, row_bytes, tables)
+    assert (run, ctas) == plan
+    assert 1 <= run <= kernels._GATHER_MAX_RUN
+    assert ctas <= sms * kernels._GATHER_CTAS_PER_SM
+    assert tables * run * row_bytes <= kernels._GATHER_SLAB_BYTES
+
+
+def test_gather_kernel_moves_rows_by_bulk_copy_or_registers():
+    """K4's two forms: Hopper's bulk copies through a shared slab on an
+    mbarrier whose wait traps (``bar_wait``), lane j of a warp issuing row
+    j of a run of ids loaded in one coalesced load; and the register form,
+    each thread's loads from every table before its first store.  Up to
+    three tables a launch; the wrapper's constants are the kernel's."""
+    code = _row_code()
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" \
+        in code
+    assert "cp.async.bulk.global.shared::cta.bulk_group" in code
+    assert "ff::wg::bar_wait(bar, parity)" in code
+    assert "mbarrier.try_wait" not in code  # no wait of its own
+    assert "gather_regs_kernel" in code and "gather_bulk_kernel" in code
+    assert "kMaxTables = 3" in code and kernels._GATHER_MAX_TABLES == 3
+    assert f"kSlabBytes = {kernels._GATHER_SLAB_BYTES}" in code
+    assert f"kGatherThreads = {32 * kernels._GATHER_WARPS}" in code
+    assert f"kThreads = {kernels._GATHER_REG_THREADS}" in code
+    assert f"kMaxRun = {kernels._GATHER_MAX_RUN}" in code
+    assert kernels._GATHER_FORM in ("register", "bulk")
+
+
+def test_k4_mutant_is_held_at_the_dlrm_shape_and_d65():
+    """The planted K4 fault (the third table's rows read from the first)
+    edits the one line both forms take their source rows from, and is
+    held through the one- and three-table entries at the DLRM table and
+    at D = 65 (the register form's 4-byte body)."""
+    from flexflow_torch.tools import stream_numerics as sn
+
+    source, group, edits = sn.MUTANTS["k4-table-2-reads-table-0"]
+    assert source == "embedding_rows.cu" and group == "k4"
+    with open(os.path.join(kernels._SRC_DIR, source)) as fh:
+        text = fh.read()
+    assert all(text.count(old) == 1 and old != new for old, new in edits)
+    assert sn.MUTANT_CASES["k4"] == (((8_000_000, 64), "float32", "gather"),
+                                     ((100_000, 65), "float32", "gather"))
