@@ -59,8 +59,7 @@ Fifteen phases, in order; any failure raises and exits non-zero:
    and every updated parameter agree within the stated tolerances.
 7. **Profile.**  One warm train step of the phase 5 model under
    ``torch.profiler``: the device busy share and device time by kernel.
-8. **DLRM kernels.**  K4 (row gather, in both its forms, bulk copies and
-   registers, with one table and with three through
+8. **DLRM kernels.**  K4 (row gather, one table and three through
    ``gather_rows_multi``) and K5 (row scatter-add) against
    their plain versions bit for bit, and K5 against itself across two
    launches, at the main-path shape ((8 x 10^6, 64) f32, 2048 uniform
@@ -71,7 +70,7 @@ Fifteen phases, in order; any failure raises and exits non-zero:
    negative and >= R ones, n = 0 and 1, D = 16, 65 and 512, and the LM's
    token table (32768 ids into (32768, 512)); rows the ids do not name
    never change.  Times beside the byte bound, the plain version and
-   ``F.embedding`` / ``index_add_``; at the main-path shape K4's forms, its
+   ``F.embedding`` / ``index_add_``; at the main-path shape K4, its
    three-table launch and ``F.embedding`` each timed three ways (one
    launch, the chain slope, the chain slope over cold rows:
    ``_gather_times``) beside the launch floor.
@@ -1172,45 +1171,33 @@ def _gather_times(torch, fn, table, ids, cold_ids):
             _chain_ms(lambda _: fn(table, ids)), _chain_ms(cold))
 
 
-def _gather_forms(kernels):
-    """K4's two forms for 16-byte rows, the wrapper's own first."""
-    own = kernels._GATHER_FORM
-    return (own,) + tuple(f for f in ("bulk", "register") if f != own)
-
-
 def _gather_exact(torch, kernels, name, table, ids):
-    """K4 and its three-table entry, in both forms, against the plain
-    versions bit for bit (NaN rows included); the third table differs from
-    the first so that a row of the wrong table shows."""
+    """K4 and its three-table entry against the plain versions bit for bit
+    (NaN rows included); the third table differs from the first so that a
+    row of the wrong table shows.  Returns K4's one-table rows and the
+    plain ones."""
     want = kernels.gather_rows_plain(table, ids)
     tables = (table, table.neg(), table * 0.5)
     wants = kernels.gather_rows_multi_plain(tables, ids)
-    own = kernels._GATHER_FORM
-    try:
-        for form in _gather_forms(kernels):
-            kernels._GATHER_FORM = form
-            got = kernels.gather_rows(table, ids)
-            multi = kernels.gather_rows_multi(tables, ids)
-            torch.cuda.synchronize()
-            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
-            same_multi = all(torch.equal(a.view(torch.int32),
-                                         b.view(torch.int32))
-                             for a, b in zip(multi, wants))
-            _check(same and same_multi and len(multi) == 3,
-                   f"gather_rows {name} ({form} form): one table exact "
-                   f"{same}, three tables exact {same_multi}")
-    finally:
-        kernels._GATHER_FORM = own
-    return want
+    got = kernels.gather_rows(table, ids)
+    multi = kernels.gather_rows_multi(tables, ids)
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    same_multi = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                     for a, b in zip(multi, wants))
+    _check(same and same_multi and len(multi) == 3,
+           f"gather_rows {name}: one table exact {same}, three tables "
+           f"exact {same_multi}")
+    return got, want
 
 
 def phase_dlrm_kernels(torch, kernels, F):
-    """K4 (in both forms, one and three tables) and K5 against their plain
-    versions on the card, bit for bit, and K5 against itself across two
-    launches; device times beside the byte bound, the plain version and
-    ``F.embedding`` / ``index_add_``, and K4 at the main-path shape three
-    ways (``_gather_times``) beside the launch floor.  Returns the rows of
-    the main-path shape."""
+    """K4 (one and three tables) and K5 against their plain versions on the
+    card, bit for bit, and K5 against itself across two launches; device
+    times beside the byte bound, the plain version and ``F.embedding`` /
+    ``index_add_``, and K4 at the main-path shape three ways
+    (``_gather_times``) beside the launch floor.  Returns the rows of the
+    main-path shape."""
     import numpy as np
 
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -1255,8 +1242,7 @@ def phase_dlrm_kernels(torch, kernels, F):
         if name in ("wte", "out of range"):
             ids = ids.to(torch.int32)  # the LM's token ids
         upd = torch.randn((n, D), generator=g, device="cuda")
-        want = _gather_exact(torch, kernels, name, table, ids)
-        rows = kernels.gather_rows(table, ids)
+        rows, want = _gather_exact(torch, kernels, name, table, ids)
         t1, t2, t3 = table.clone(), table.clone(), table.clone()
         kernels.scatter_add_rows(t1, ids, upd)
         kernels.scatter_add_rows(t2, ids, upd)
@@ -1280,7 +1266,7 @@ def phase_dlrm_kernels(torch, kernels, F):
         line = (f"[dlrm-kernels] {name}: table ({R}, {D}) f32, {n} "
                 f"{str(ids.dtype)[6:]} ids ({kind}, {valid.numel()} in range, "
                 f"{uniq} distinct; K5 in {kernels.scatter_plan(n)[0]} "
-                f"launches): gather (both forms, one and three tables) and "
+                f"launches): gather (one and three tables) and "
                 f"scatter bit-exact against the plain versions, scatter "
                 f"bit-identical across two launches")
         if n == 0:
@@ -1319,7 +1305,7 @@ def phase_dlrm_kernels(torch, kernels, F):
 
 
 def _gather_main(torch, kernels, F, table, ids, g):
-    """K4 at the main-path shape: both forms and ``F.embedding`` three ways
+    """K4 at the main-path shape: K4 and ``F.embedding`` three ways
     (``_gather_times``) beside the launch floor (the chain slope of
     ``torch.cuda._sleep(0)``), and the three-table launch against three
     one-table launches and its plain version.  Returns the keys it adds to
@@ -1331,15 +1317,7 @@ def _gather_main(torch, kernels, F, table, ids, g):
     floor = _chain_ms(lambda _: torch.cuda._sleep(0))
     lib = _gather_times(torch, lambda t, i: F.embedding(i, t), table, ids,
                         cold)
-    own = kernels._GATHER_FORM
-    times = {}
-    try:
-        for form in _gather_forms(kernels):
-            kernels._GATHER_FORM = form
-            times[form] = _gather_times(torch, kernels.gather_rows, table,
-                                        ids, cold)
-    finally:
-        kernels._GATHER_FORM = own
+    one = _gather_times(torch, kernels.gather_rows, table, ids, cold)
     tables = (table, table.neg(), table * 0.5)
     multi = _gather_times(
         torch, lambda t, i: kernels.gather_rows_multi(tables, i), table, ids,
@@ -1354,24 +1332,16 @@ def _gather_main(torch, kernels, F, table, ids, g):
     uniq = int(torch.unique(ids).numel())
     bound_m, by_m = _bound_ms(n * ids.element_size() + 3 * (uniq + n) * D * 4,
                               0.0, "float32")
-    ways = "single launch / chain slope / cold-row chain slope"
     fmt = lambda t: " / ".join(f"{x:.6f}" for x in t)
-    for form, t in times.items():
-        print(f"[dlrm-kernels] gather_rows main, {form} form"
-              f"{' (the wrapper' + chr(39) + 's)' if form == own else ''}: "
-              f"{fmt(t)} ms ({ways})")
-    print(f"[dlrm-kernels] F.embedding main: {fmt(lib)} ms; launch floor "
-          f"(chain slope of torch.cuda._sleep(0)) {floor:.6f} ms")
+    print(f"[dlrm-kernels] gather_rows main: {fmt(one)} ms (single launch / "
+          f"chain slope / cold-row chain slope); F.embedding {fmt(lib)} ms; "
+          f"launch floor (chain slope of torch.cuda._sleep(0)) {floor:.6f} "
+          f"ms")
     print(f"[dlrm-kernels] gather_rows_multi main, 3 tables: {fmt(multi)} "
           f"ms; three gather_rows launches {fmt(three)} ms; plain "
           f"{plain_m:.6f} ms; bound {bound_m:.6f} by {by_m}; err {err_m}")
-    other = _gather_forms(kernels)[1]
-    ways = dict(chain_ms=times[own][1], cold_ms=times[own][2],
-                floor_ms=floor, library_chain_ms=lib[1],
-                library_cold_ms=lib[2], form=own,
-                other_form=dict(form=other, ms=times[other][0],
-                                chain_ms=times[other][1],
-                                cold_ms=times[other][2]))
+    ways = dict(chain_ms=one[1], cold_ms=one[2], floor_ms=floor,
+                library_chain_ms=lib[1], library_cold_ms=lib[2])
     return ways, dict(max_abs_err=err_m, ms=multi[0], plain_ms=plain_m,
                       bound_ms=bound_m, bound_by=by_m, library_ms=None,
                       chain_ms=multi[1], cold_ms=multi[2],

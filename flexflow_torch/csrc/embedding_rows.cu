@@ -21,15 +21,13 @@
 // What bounds the gather.  At the DLRM step (2048 ids, 256-byte rows) it
 // moves 0.5 MB each way, 3.2e-4 ms at 3.35 TB/s; the launch and its chain
 // of round trips (the ids, then the rows, then the stores draining) take
-// ten times that.  So every row is in flight at once, and one launch
-// serves up to three tables of one (R, D) gathered by the same ids (the
-// lazy optimizers' param, m and v): one id load and one launch for all
-// three.  Two forms: registers (each thread issues its loads from every
-// table before its first store), or Hopper's bulk copies (cp.async.bulk
-// into a per-warp slab of shared memory on an mbarrier, one bulk store per
-// table and run of ids; 16-byte rows only).  The wrapper takes the
-// register form, the faster on the card (PERF.md §6); the grid is at most
-// one wave.
+// ten times that.  So every row is in flight at once: a group of threads
+// per id, each thread issuing its loads before its first store; and one
+// launch serves up to three tables of one (R, D) gathered by the same ids
+// (the lazy optimizers' param, m and v), one id load for all three.  A
+// form that moved rows by cp.async.bulk through shared memory on an
+// mbarrier, and one that handed a warp's ids out by __shfl_sync, were
+// slower on the card (PERF.md §6).
 //
 // Scatter rows.  A group of G threads (G a power of two, <= 32, chosen by
 // the wrapper so that G 16-byte vectors cover a row where they can) owns
@@ -87,8 +85,6 @@
 
 #include <type_traits>
 
-#include "wgmma_tile.cuh"
-
 namespace {
 
 constexpr int kThreads = 256;
@@ -99,15 +95,8 @@ constexpr int kWarps = kThreads / 32;
 // ---------------------------------------------------------------------------
 
 // Tables one launch gathers by the same ids (the lazy optimizers' param and
-// state tables) and their outputs; the bulk form's grid: kGatherWarps warps
-// a CTA, each owning runs of at most kMaxRun consecutive ids (one a lane).
+// state tables) and their outputs.
 constexpr int kMaxTables = 3;
-constexpr int kGatherThreads = 128;
-constexpr int kGatherWarps = kGatherThreads / 32;
-constexpr int kMaxRun = 32;
-// Bytes of one warp's slab in the bulk form: its run's rows, table after
-// table (the wrapper's gather_plan keeps T x run x 4 D within it).
-constexpr int kSlabBytes = 24576;
 
 struct Tables {
   const float* table[kMaxTables];
@@ -123,14 +112,6 @@ __device__ __forceinline__ float4 nan_row(float4) {
   return make_float4(x, x, x, x);
 }
 
-// Lane j < m of a warp holds id base + j of a run: one coalesced load
-// serves the run's rows in every table.
-template <typename Id>
-__device__ __forceinline__ long long run_id(const Id* __restrict__ ids,
-                                            int base, int m, int lane) {
-  return lane < m ? (long long)__ldg(ids + base + lane) : -1;
-}
-
 // Row `row` of table t, as `cols` values of type V.
 template <typename V>
 __device__ __forceinline__ const V* src_row(const Tables& p, int t,
@@ -138,13 +119,12 @@ __device__ __forceinline__ const V* src_row(const Tables& p, int t,
   return reinterpret_cast<const V*>(p.table[t]) + (size_t)row * cols;
 }
 
-// Register form: a group of 2^log_g threads per id (the wrapper's
-// choice: enough 16-byte vectors, or floats, to cover a row where 32
-// threads can), V = float4 for 16-byte rows and pointers, else float.
-// Each thread loads its id (the group's loads of one id coalesce into one
-// request) and issues its loads from every table, kBatch columns apart,
-// before its first store.  The grid is at most one wave; threads past it
-// loop.
+// A group of 2^log_g threads per id (the wrapper's choice: enough 16-byte
+// vectors, or floats, to cover a row where 32 threads can), V = float4 for
+// 16-byte rows and pointers, else float.  Each thread loads its id (the
+// group's loads of one id coalesce into one request) and issues its loads
+// from every table, kBatch columns apart, before its first store.  The
+// grid is at most one wave; threads past it loop.
 template <typename Id, typename V, int T>
 __global__ void __launch_bounds__(kThreads)
 gather_regs_kernel(Tables p, const Id* __restrict__ ids, long long R,
@@ -179,101 +159,6 @@ gather_regs_kernel(Tables p, const Id* __restrict__ ids, long long R,
       }
     }
   }
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(ff::wg::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
-      "r"(ff::wg::smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               ::"l"(reinterpret_cast<uint64_t>(dst)),
-               "r"(ff::wg::smem_u32(src)), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Shared memory written by threads, then read by a bulk copy.
-__device__ __forceinline__ void fence_to_bulk() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Bulk form (16-byte rows and pointers).  Each warp owns runs of `run`
-// consecutive ids (the wrapper's gather_plan), a slab of shared memory and
-// one mbarrier.  Lane j loads id j of the run (one coalesced load, the
-// next run's under this one's rows) and issues row j's copy from every
-// table into the slab (cp.async.bulk, completing on the barrier); a NaN
-// row is written by the lanes instead.  Lane 0 waits for the barrier's
-// phase and writes each table's run of rows, contiguous in the output,
-// with one bulk store.  No register holds a row; before the next run
-// refills the slab, and before the warp exits, lane 0 waits until its
-// stores have read it.
-template <typename Id, int T>
-__global__ void __launch_bounds__(kGatherThreads)
-gather_bulk_kernel(Tables p, const Id* __restrict__ ids, long long R, int D,
-                   int n, int run, int runs) {
-  extern __shared__ __align__(128) unsigned char slabs[];
-  __shared__ __align__(8) uint64_t bars[kGatherWarps];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int stride = gridDim.x * kGatherWarps;
-  int r = blockIdx.x * kGatherWarps + warp;
-  long long next = r < runs ? run_id(ids, r * run, min(run, n - r * run),
-                                     lane)
-                            : -1;
-  const uint32_t row_bytes = (uint32_t)D * 4u;
-  float* slab = reinterpret_cast<float*>(slabs) + (size_t)warp * T * run * D;
-  uint64_t* bar = &bars[warp];
-  if (lane == 0) {
-    ff::wg::bar_init(bar, 1);
-    ff::wg::bar_init_fence();
-  }
-  __syncwarp();
-  uint32_t parity = 0;
-  for (; r < runs; r += stride, parity ^= 1u) {
-    const int base = r * run, m = min(run, n - base);
-    const long long id = next;
-    const int after = (r + stride) * run;
-    if (r + stride < runs) next = run_id(ids, after, min(run, n - after), lane);
-    const bool live = lane < m && id >= 0 && id < R;
-    const unsigned good = __ballot_sync(0xffffffffu, live);
-    const unsigned bad = __ballot_sync(0xffffffffu, lane < m && !live);
-    if (lane == 0)
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-    __syncwarp();
-    for (unsigned b = bad; b != 0; b &= b - 1) {
-      const int j = __ffs(b) - 1;
-      for (int u = 0; u < T; ++u)
-        for (int c = lane; c < D; c += 32)
-          slab[((size_t)u * run + j) * D + c] = nan_row(0.f);
-    }
-    if (bad != 0) fence_to_bulk();
-    if (lane == 0)
-      ff::wg::bar_expect(bar, (uint32_t)__popc(good) * row_bytes * T);
-    __syncwarp();
-    if (live) {
-#pragma unroll
-      for (int u = 0; u < T; ++u)
-        bulk_load(slab + ((size_t)u * run + lane) * D,
-                  src_row<float>(p, u, id, D), row_bytes, bar);
-    }
-    if (lane == 0) {
-      ff::wg::bar_wait(bar, parity);
-      fence_to_bulk();
-#pragma unroll
-      for (int u = 0; u < T; ++u)
-        bulk_store(p.out[u] + (size_t)base * D, slab + (size_t)u * run * D,
-                   (uint32_t)m * row_bytes);
-    }
-  }
-  if (lane == 0)
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -685,33 +570,14 @@ cudaError_t launch_regs(const Tables& p, int T, const Id* ids, long long R,
   return cudaGetLastError();
 }
 
-template <typename Id, int T>
-cudaError_t launch_bulk(const Tables& p, const Id* ids, long long R, int D,
-                        int n, int run, int ctas, cudaStream_t s) {
-  const int smem = kGatherWarps * T * run * D * 4;
-  if (smem + 1024 > 48 * 1024) {  // beside the barriers' static bytes
-    const cudaError_t err = cudaFuncSetAttribute(
-        gather_bulk_kernel<Id, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-  }
-  gather_bulk_kernel<Id, T><<<ctas, kGatherThreads, smem, s>>>(
-      p, ids, R, D, n, run, (n + run - 1) / run);
-  return cudaGetLastError();
-}
-
 template <typename Id>
 cudaError_t launch_gather(const Tables& p, int T, const void* ids,
-                          long long R, int D, int n, int vec, int form,
-                          int grain, int ctas, cudaStream_t s) {
+                          long long R, int D, int n, int vec, int log_g,
+                          int ctas, cudaStream_t s) {
   const Id* id = static_cast<const Id*>(ids);
-  if (form == 1) {
-    if (T == 1) return launch_bulk<Id, 1>(p, id, R, D, n, grain, ctas, s);
-    if (T == 2) return launch_bulk<Id, 2>(p, id, R, D, n, grain, ctas, s);
-    return launch_bulk<Id, 3>(p, id, R, D, n, grain, ctas, s);
-  }
-  if (vec) return launch_regs<Id, float4>(p, T, id, R, D / 4, n, grain, ctas, s);
-  return launch_regs<Id, float>(p, T, id, R, D, n, grain, ctas, s);
+  if (vec)
+    return launch_regs<Id, float4>(p, T, id, R, D / 4, n, log_g, ctas, s);
+  return launch_regs<Id, float>(p, T, id, R, D, n, log_g, ctas, s);
 }
 
 template <typename Id, bool kVec>
@@ -769,21 +635,14 @@ bool bad_args(long long R, int D, int n, int log_g) {
 // T in [1, 3] tables t0..t2, each (R, D) f32, gathered into o0..o2, each
 // (n, D) f32, by the same ids: (n,) int32 (id64 = 0) or int64 (id64 = 1).
 // All contiguous on the device; vec = 1 only when D % 4 == 0 and every
-// table and output is 16-byte aligned.  form 0, the register form: grain
-// is log2 of the threads per id, in [0, 5].  form 1, the bulk form (vec =
-// 1): grain is the run of ids a warp owns, in [1, 32], with T x grain x 4 D
-// <= kSlabBytes.  ctas: the grid.  Returns the launch's cudaError_t (0 =
-// launched).
+// table and output is 16-byte aligned.  2^log_g threads per id, ctas the
+// grid.  Returns the launch's cudaError_t (0 = launched).
 extern "C" int ff_gather_rows(int T, const void* t0, const void* t1,
                               const void* t2, void* o0, void* o1, void* o2,
                               const void* ids, long long R, int D, int n,
-                              int id64, int vec, int form, int grain,
-                              int ctas, void* stream) {
-  const bool bulk = form == 1;
-  if (T < 1 || T > kMaxTables || R < 1 || D < 1 || n < 1 || ctas < 1 ||
-      form < 0 || form > 1 || grain < (bulk ? 1 : 0) ||
-      grain > (bulk ? kMaxRun : 5) ||
-      (bulk && (!vec || (long long)T * grain * D * 4 > kSlabBytes)))
+                              int id64, int vec, int log_g, int ctas,
+                              void* stream) {
+  if (T < 1 || T > kMaxTables || bad_args(R, D, n, log_g) || ctas < 1)
     return (int)cudaErrorInvalidValue;
   const Tables p = {{static_cast<const float*>(t0),
                      static_cast<const float*>(t1),
@@ -792,10 +651,9 @@ extern "C" int ff_gather_rows(int T, const void* t0, const void* t1,
                      static_cast<float*>(o2)}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (id64)
-    return (int)launch_gather<long long>(p, T, ids, R, D, n, vec, form, grain,
-                                         ctas, s);
-  return (int)launch_gather<int>(p, T, ids, R, D, n, vec, form, grain, ctas,
-                                 s);
+    return (int)launch_gather<long long>(p, T, ids, R, D, n, vec, log_g, ctas,
+                                         s);
+  return (int)launch_gather<int>(p, T, ids, R, D, n, vec, log_g, ctas, s);
 }
 
 // table: (R, D) f32, updated in place; ids: (n,) int32 or int64 in batch

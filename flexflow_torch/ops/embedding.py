@@ -51,15 +51,6 @@ def _gather_dispatch(table, flat_ids):
     return rows.reshape(flat_ids.shape + (table.shape[1],))
 
 
-def _gather_multi_dispatch(tables, flat_ids):
-    """``[t[flat_ids] for t in tables]`` for 1 to 3 tables of one
-    ``(R, D)``, dtype and device in one K4 launch
-    (``kernels.gather_rows_multi``; the plain version on CPU tables): the
-    lazy optimizers' param and state rows.  No autograd history."""
-    rows = kernels.gather_rows_multi(tables, flat_ids.reshape(-1))
-    return [r.reshape(flat_ids.shape + (r.shape[1],)) for r in rows]
-
-
 def _scatter_add_dispatch(table, flat_ids, upd):
     """``table[flat_ids] += upd`` in place by K5 (kernel on CUDA, plain
     version on the CPU); returns ``table``."""

@@ -168,7 +168,7 @@ def _load(name: str) -> ctypes.CDLL:
         lib.ff_xent_bwd.restype = i
     elif name == "embedding_rows":
         ll = ctypes.c_longlong
-        lib.ff_gather_rows.argtypes = [i] + [p] * 7 + [ll] + [i] * 7 + [p]
+        lib.ff_gather_rows.argtypes = [i] + [p] * 7 + [ll] + [i] * 6 + [p]
         lib.ff_gather_rows.restype = i
         lib.ff_scatter_add_rows.argtypes = [p, p, p, ll, i, i, i, i, i, i, p,
                                             ll, p]
@@ -954,44 +954,22 @@ def _row_cuda(what, table, *others):
     return g.bit_length() - 1, vec
 
 
-#: K4's bulk form (``gather_plan``): warps per CTA (the kernel's
-#: ``kGatherWarps``), the most ids a warp owns at a time (one a lane), and
-#: CTAs per SM at most, so that the grid is one wave.
-_GATHER_WARPS = 4
-_GATHER_MAX_RUN = 32
-_GATHER_CTAS_PER_SM = 2
-#: Bytes of one warp's shared-memory slab in K4's bulk form (the kernel's
-#: ``kSlabBytes``; it refuses a plan that does not fit).
-_GATHER_SLAB_BYTES = 24576
-#: K4's register form: threads a CTA (the kernel's ``kThreads``), and CTAs
-#: per SM at most (one wave).
-_GATHER_REG_THREADS = 256
-_GATHER_REG_CTAS_PER_SM = 4
+#: K4's grid: threads a CTA (the kernel's ``kThreads``), and CTAs per SM
+#: at most, so that the grid is one wave.
+_GATHER_THREADS = 256
+_GATHER_CTAS_PER_SM = 4
 #: The most tables one K4 launch gathers by the same ids.
 _GATHER_MAX_TABLES = 3
-#: K4's form for 16-byte rows whose run fits the slab: "register" (each
-#: thread's loads in registers) or "bulk" (Hopper's cp.async.bulk through
-#: shared memory); other rows always take the register form.
-_GATHER_FORM = "register"
 
 _SM_COUNT: Dict[int, int] = {}
 
 
-def gather_plan(n: int, sms: int, row_bytes: int = 0,
-                tables: int = 1) -> Tuple[int, int]:
-    """K4's bulk-form plan for ``n`` ids on a card of ``sms`` SMs: ``(run,
-    ctas)``.  A warp owns runs of ``run`` consecutive ids: the fewest that
-    cover ``n`` with one CTA of ``_GATHER_WARPS`` warps per SM (at most
-    32), so that small batches spread over every SM; with ``row_bytes``
-    no more than a warp's slab holds for ``tables`` tables.  The grid
-    covers the runs, at most ``_GATHER_CTAS_PER_SM`` CTAs per SM (one
-    wave); warps loop over the runs beyond it."""
-    run = min(_GATHER_MAX_RUN, max(1, -(-n // (sms * _GATHER_WARPS))))
-    if row_bytes:
-        run = min(run, _GATHER_SLAB_BYTES // (tables * row_bytes))
-    runs = -(-n // run)
-    return run, max(1, min(-(-runs // _GATHER_WARPS),
-                           sms * _GATHER_CTAS_PER_SM))
+def gather_ctas(n: int, log_g: int, sms: int) -> int:
+    """K4's grid for ``n`` ids, ``2**log_g`` threads each, on a card of
+    ``sms`` SMs: a thread per (id, vector) up to one wave of
+    ``_GATHER_CTAS_PER_SM`` CTAs per SM; threads beyond it loop."""
+    return max(1, min(-(-(n << log_g) // _GATHER_THREADS),
+                      sms * _GATHER_CTAS_PER_SM))
 
 
 def _sm_count(device: torch.device) -> int:
@@ -1042,22 +1020,13 @@ def _gather(what, tables, ids, counters):
     if n == 0:
         return outs
     k = len(tables)
-    sms = _sm_count(table.device)
-    bulk = (vec and _GATHER_FORM == "bulk"
-            and k * d * 4 <= _GATHER_SLAB_BYTES)
-    if bulk:
-        grain, ctas = gather_plan(n, sms, d * 4, k)
-    else:
-        grain = log_g
-        ctas = min(-(-(n << log_g) // _GATHER_REG_THREADS),
-                   sms * _GATHER_REG_CTAS_PER_SM)
     ptrs = [t.data_ptr() for t in tables] + [None] * (3 - k)
     optrs = [o.data_ptr() for o in outs] + [None] * (3 - k)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = _load("embedding_rows").ff_gather_rows(
         k, *ptrs, *optrs, ids.data_ptr(), table.shape[0], d, n,
-        int(ids.dtype == torch.int64), int(vec), int(bulk), grain, ctas,
-        stream,
+        int(ids.dtype == torch.int64), int(vec), log_g,
+        gather_ctas(n, log_g, _sm_count(table.device)), stream,
     )
     _raise_on(err, what)
     for fn in counters:

@@ -37,9 +37,9 @@ import torch
 
 from flexflow_torch.config import FFConfig
 from flexflow_torch.graph import FFModel
+from flexflow_torch.ops import kernels
 from flexflow_torch.ops.base import Op
-from flexflow_torch.ops.embedding import (_gather_multi_dispatch,
-                                         _scatter_add_dispatch)
+from flexflow_torch.ops.embedding import _scatter_add_dispatch
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -384,7 +384,8 @@ class Executor:
         safe = torch.where(mask, uids, 0)
         bufs = {k: b.reshape(-1, b.shape[-1]) for k, b in
                 opt.sparse_state_buffers(opt_state, op.name, key).items()}
-        p_rows, *rows = _gather_multi_dispatch([flat, *bufs.values()], safe)
+        p_rows, *rows = kernels.gather_rows_multi([flat, *bufs.values()],
+                                                  safe)
         buf_rows = dict(zip(bufs, rows))
         d_p, d_bufs = opt.sparse_row_step(p_rows, gsum, buf_rows,
                                           t=opt.sparse_step_count(opt_state))

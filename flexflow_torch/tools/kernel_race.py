@@ -16,9 +16,8 @@ function and the bound, at the main path's shapes:
 
 - K4 (``gather_rows``, and ``gather_rows_multi`` over three tables
   against three of the other checkout's launches) at the DLRM shape
-  ((8 x 10^6, 64) f32, 2048 uniform ids), in both of this checkout's forms
-  (registers, bulk copies), three ways in turns: one launch between
-  events (``chip_smoke._pair_ms``), and the chain slope
+  ((8 x 10^6, 64) f32, 2048 uniform ids), three ways in turns: one launch
+  between events (``chip_smoke._pair_ms``), and the chain slope
   (``chip_smoke._chain_ms``) warm (the same ids at every call) and cold (a
   new id vector at every call, ``chip_smoke.GATHER_COLD`` of them: rows
   from HBM); beside ``F.embedding`` and the launch floor (the chain slope
@@ -281,10 +280,11 @@ def _pair_chain(cs, a, b):
 
 
 def gather(cs, ours, theirs, F) -> None:
-    """K4 at the DLRM shape, one table and three, warm and cold, in both
-    of this checkout's forms against the other checkout's K4 (three of its
-    launches for three tables), beside ``F.embedding`` and the launch
-    floor; every output bit-identical to the other checkout's first."""
+    """K4 at the DLRM shape, one table and three, against the other
+    checkout's K4 (three of its launches for three tables) by one launch
+    and by the chain slope warm and cold, beside ``F.embedding`` and the
+    launch floor; every output bit-identical to the other checkout's
+    first."""
     g = torch.Generator(device="cuda").manual_seed(53)
     c = cs.DLRM
     R, D, n = c["tables"] * c["vocab"], c["dim"], c["batch"] * c["tables"]
@@ -314,34 +314,25 @@ def gather(cs, ours, theirs, F) -> None:
           f"torch.cuda._sleep(0)) {floor:.6f} ms; F.embedding "
           f"{lib1:.6f} single launch, {lib['warm']:.6f} warm, "
           f"{lib['cold']:.6f} cold", flush=True)
-    own = ours._GATHER_FORM
-    try:
-        for form in ("register", "bulk"):
-            ours._GATHER_FORM = form
-            for k in (1, 3):
-                for i in (ids, cold[0]):
-                    same = all(torch.equal(a.view(torch.int32),
-                                           b.view(torch.int32))
-                               for a, b in zip(mine[k](i), other[k](i)))
-                    cs._check(same, f"gather_rows {form} form, {k} tables: "
-                              f"not bit-identical to the other checkout's")
-                for kind in ("single launch", "warm", "cold"):
-                    if kind == "single launch":
-                        t_theirs, t_ours = cs._pair_ms(
-                            lambda: other[k](ids), lambda: mine[k](ids))
-                    else:
-                        t_theirs, t_ours = _pair_chain(
-                            cs, lambda _: other[k](feed(kind)),
-                            lambda _: mine[k](feed(kind)))
-                    what = ("one table" if k == 1 else
-                            "three tables (theirs: three launches)")
-                    print(f"[kernel-race] gather_rows (8000000, 64) 2048 ids, "
-                          f"{what}, {kind}: ours ({form} form) {t_ours:.6f} "
-                          f"ms, theirs {t_theirs:.6f} ms "
-                          f"({t_theirs / t_ours:.2f}x), bit-identical",
-                          flush=True)
-    finally:
-        ours._GATHER_FORM = own
+    for k in (1, 3):
+        for i in (ids, cold[0]):
+            same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(mine[k](i), other[k](i)))
+            cs._check(same, f"gather_rows, {k} tables: not bit-identical to "
+                      f"the other checkout's")
+        for kind in ("single launch", "warm", "cold"):
+            if kind == "single launch":
+                t_theirs, t_ours = cs._pair_ms(lambda: other[k](ids),
+                                               lambda: mine[k](ids))
+            else:
+                t_theirs, t_ours = _pair_chain(
+                    cs, lambda _: other[k](feed(kind)),
+                    lambda _: mine[k](feed(kind)))
+            what = ("one table" if k == 1 else
+                    "three tables (theirs: three launches)")
+            print(f"[kernel-race] gather_rows (8000000, 64) 2048 ids, {what}, "
+                  f"{kind}: ours {t_ours:.6f} ms, theirs {t_theirs:.6f} ms "
+                  f"({t_theirs / t_ours:.2f}x), bit-identical", flush=True)
     del table, tables, cold
     torch.cuda.empty_cache()
 

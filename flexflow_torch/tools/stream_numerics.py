@@ -278,8 +278,7 @@ MUTANTS = {
          "        softmax_tile<kS>(s, m, l, corr, j * kWgBN, t, causal, "
          "edge(j), rows,"),
     ]),
-    # K4 reads the third table's rows from the first table: every form,
-    # since both take their source rows from src_row.
+    # K4 reads the third table's rows from the first table.
     "k4-table-2-reads-table-0": ("embedding_rows.cu", "k4", [
         ("  return reinterpret_cast<const V*>(p.table[t]) + (size_t)row * cols;",
          "  return reinterpret_cast<const V*>(p.table[t == 2 ? 0 : t]) +\n"
@@ -393,7 +392,7 @@ def _row_state_parts(cs, kernels, probe, pair, q, k, v, do, g_lse) -> dict:
 
 def _gather_parts(kernels, table, ids) -> dict:
     """K4 through ``gather_rows`` (one table) and ``gather_rows_multi``
-    (three different tables) in the wrapper's form, against the plain
+    (three different tables) against the plain
     versions bit for bit: {part: 0 when every bit agrees, else inf}."""
     tables = (table, table.neg(), table * 0.5)
     pairs = [("one table", kernels.gather_rows(table, ids),

@@ -780,54 +780,39 @@ def test_gather_rows_multi_never_falls_back():
                                               device="meta"))
 
 
-@pytest.mark.parametrize("n, sms, row_bytes, tables, plan", [
-    (2048, 132, 0, 1, (4, 128)),      # the DLRM step: every SM, 4 ids a warp
-    (2048, 132, 256, 3, (4, 128)),    # the lazy step's three tables
-    (1, 132, 256, 1, (1, 1)),
-    (528, 132, 0, 1, (1, 132)),
-    (529, 132, 0, 1, (2, 67)),
-    (32768, 132, 2048, 1, (12, 264)),  # the slab caps the run: 12 rows of 2 KB
-    (32768, 132, 0, 1, (32, 256)),
-    (10 ** 6, 132, 256, 3, (32, 264)),  # beyond one wave: warps loop
-    (100, 132, 8192, 3, (1, 25))])
-def test_gather_plan_spreads_runs_over_every_sm(n, sms, row_bytes, tables,
-                                                 plan):
-    """K4's bulk-form grid from n and the SM count alone: the fewest ids a
-    warp that cover n with one CTA per SM (at most 32), no more than a
-    warp's slab holds, at most two CTAs per SM."""
-    run, ctas = kernels.gather_plan(n, sms, row_bytes, tables)
-    assert (run, ctas) == plan
-    assert 1 <= run <= kernels._GATHER_MAX_RUN
-    assert ctas <= sms * kernels._GATHER_CTAS_PER_SM
-    assert tables * run * row_bytes <= kernels._GATHER_SLAB_BYTES
+@pytest.mark.parametrize("n, log_g, ctas", [
+    (2048, 4, 128),     # the DLRM step: 16 threads an id, 128 CTAs
+    (1, 4, 1), (1, 0, 1), (16, 4, 1), (17, 4, 2),
+    (2048, 2, 32),      # D = 16
+    (32768, 5, 528),    # the LM's token table: one wave, threads loop
+    (10 ** 6, 4, 528)])
+def test_gather_grid_is_at_most_one_wave(n, log_g, ctas):
+    """K4's grid from n, the threads per id and the SM count alone: a
+    thread per (id, vector) up to four CTAs of 256 threads per SM."""
+    assert kernels.gather_ctas(n, log_g, 132) == ctas
+    assert ctas <= 132 * kernels._GATHER_CTAS_PER_SM
+    assert ctas * kernels._GATHER_THREADS >= min(
+        n << log_g, 132 * kernels._GATHER_CTAS_PER_SM * 256)
 
 
-def test_gather_kernel_moves_rows_by_bulk_copy_or_registers():
-    """K4's two forms: Hopper's bulk copies through a shared slab on an
-    mbarrier whose wait traps (``bar_wait``), lane j of a warp issuing row
-    j of a run of ids loaded in one coalesced load; and the register form,
-    each thread's loads from every table before its first store.  Up to
-    three tables a launch; the wrapper's constants are the kernel's."""
+def test_gather_kernel_issues_every_table_load_before_its_stores():
+    """K4 takes up to three tables a launch, and each thread issues its
+    loads from every table before its first store; the wrapper's grid
+    constants are the kernel's."""
     code = _row_code()
-    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" \
-        in code
-    assert "cp.async.bulk.global.shared::cta.bulk_group" in code
-    assert "ff::wg::bar_wait(bar, parity)" in code
-    assert "mbarrier.try_wait" not in code  # no wait of its own
-    assert "gather_regs_kernel" in code and "gather_bulk_kernel" in code
+    body = code.split("gather_regs_kernel(", 1)[1].split("\n}\n", 1)[0]
+    loads, stores = body.index("__ldg(src_row<V>"), body.index("p.out[u]")
+    assert loads < stores
     assert "kMaxTables = 3" in code and kernels._GATHER_MAX_TABLES == 3
-    assert f"kSlabBytes = {kernels._GATHER_SLAB_BYTES}" in code
-    assert f"kGatherThreads = {32 * kernels._GATHER_WARPS}" in code
-    assert f"kThreads = {kernels._GATHER_REG_THREADS}" in code
-    assert f"kMaxRun = {kernels._GATHER_MAX_RUN}" in code
-    assert kernels._GATHER_FORM in ("register", "bulk")
+    assert f"kThreads = {kernels._GATHER_THREADS}" in code
+    assert "cp.async.bulk" not in code and "__shfl" not in body
 
 
 def test_k4_mutant_is_held_at_the_dlrm_shape_and_d65():
     """The planted K4 fault (the third table's rows read from the first)
-    edits the one line both forms take their source rows from, and is
-    held through the one- and three-table entries at the DLRM table and
-    at D = 65 (the register form's 4-byte body)."""
+    edits the line the kernel takes its source rows from, and is held
+    through the one- and three-table entries at the DLRM table and at
+    D = 65 (the 4-byte body)."""
     from flexflow_torch.tools import stream_numerics as sn
 
     source, group, edits = sn.MUTANTS["k4-table-2-reads-table-0"]
