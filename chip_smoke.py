@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Fifteen phases, in order; any failure raises and exits non-zero:
+Eighteen phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -145,9 +145,33 @@ Fifteen phases, in order; any failure raises and exits non-zero:
     error within ``TOL_RACE``, the launch counts equal the races' calls,
     and the races' chain slopes for K1f, K1s, K1b and K1sb are printed
     beside phase 12's device times.
+16. **AlexNet kernels.**  K3 forward and backward at AlexNet's loss
+    shape, (2048, 1000) bf16 (V a multiple of 8: the 16-byte-load path),
+    labels over every class and planted argmax ties, against the plain
+    version (``nll``/``lse`` within 1e-4, every ``dlogits`` element within
+    ``TOL_XENT_BWD``, ``pred`` exactly); one launch (``_device_ms``, in
+    turns with ``F.cross_entropy``) and the chain slope (``_chain_ms``)
+    beside the bound, the plain version, ``F.cross_entropy`` and the
+    launch floor.
+17. **AlexNet train.**  ``bench.py``'s AlexNet leg (batch 2048, 229 x 229
+    x 3, 1000 classes, bf16, SGD lr 0.01 momentum 0.9 wd 1e-4, 3 warmup +
+    20 timed steps) through the bench entry's
+    ``flexflow_torch.bench.bench_alexnet``: a finite loss at every step,
+    exact launch counts (K3 forward = backward = steps, no other kernel);
+    images/s, ms/step, MFU and peak memory.  Then one warm step under
+    ``torch.profiler`` (busy share, time by kernel and by kernel group),
+    the SGD update's device time by CUDA events.
+18. **AlexNet parity.**  One f32 SGD step of AlexNet at its full widths
+    at image 67 (batch 8, 1000 classes, TF32 off) on the card (cuDNN,
+    cuBLAS, K3) and on the CPU (plain versions) from the same params and
+    batch, the CPU taking the card's branch at each ReLU and max-pool
+    window where its own differs only within rounding of the kink
+    (``_CardBranches``): loss, every gradient and every updated parameter
+    within the stated tolerances.
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
-DLRM, long-context and race runs together, split in ``launches_by_path``), the card's name
+DLRM, long-context, race and AlexNet runs together, split in
+``launches_by_path``), the card's name
 and power limit from ``nvidia-smi``, and as its last line the JSON
 object ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits 2 and prints no result.
@@ -934,23 +958,32 @@ def phase_train(torch, kernels, rows):
     return launches
 
 
-def _profile_step(torch, tag: str, step) -> None:
+def _profile_step(torch, tag: str, step):
     """``step()`` once under torch.profiler: the device busy share of its
-    wall time and device time by kernel name."""
+    wall time and device time by kernel name.  Returns the device events
+    as ``(us, name, count)``, longest first.  One step runs first in the
+    profiler's warmup, unrecorded: a window's first kernels were lost
+    from a trace that had no warmup (AlexNet's conv1, ~9 ms)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        step()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side events only (kernels, copies): host ops would count
-    # their kernels' time a second time.
+    # their kernels' time a second time, and so would the schedule's
+    # device-side step annotation.
     dev = sorted(((e.self_device_time_total, e.key, e.count)
                   for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA), reverse=True)
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")), reverse=True)
     busy_ms = sum(us for us, _, _ in dev) / 1e3
     print(f"[{tag}] one train step: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%, idle "
@@ -959,6 +992,7 @@ def _profile_step(torch, tag: str, step) -> None:
     for us, key, count in dev[:20]:
         print(f"[{tag}] {us / 1e3:10.3f} ms ({100 * us / 1e3 / wall_ms:5.1f}%)"
               f" x{count:<4d} {key[:80]}")
+    return dev
 
 
 def phase_profile(torch, c=None, tag: str = "profile"):
@@ -2277,6 +2311,370 @@ def phase_probe_kernels(torch, kernels, F, rows):
     return out, launches
 
 
+#: The AlexNet configuration of phases 16-18: bench.py's AlexNet leg
+#: (``bench.py:180-202``: batch 2048, 229 x 229 x 3 NHWC, 1000 classes,
+#: bf16, SGD lr 0.01 momentum 0.9 wd 1e-4, 3 warmup + 20 timed steps)
+#: through the port's bench entry, ``flexflow_torch.bench.bench_alexnet``.
+ALEXNET = dict(batch=2048, image=229, classes=1000, iters=20, warmup=3)
+#: Phase 18's f32 step: the full widths at image 67 (flat 256), batch 8,
+#: 1000 classes, held as phase 6's step is (``TOL_TRAIN_LOSS``,
+#: ``TOL_TRAIN_GRAD``); the updated params within ``lr`` times the
+#: gradient bound plus two f32 ulps of the tensor's largest value.
+ALEXNET_PARITY = dict(batch=8, image=67, classes=1000, seed=0)
+SGD_ALEXNET = dict(lr=0.01, momentum=0.9, weight_decay=1e-4)
+
+
+def phase_alexnet_kernels(torch, kernels, F):
+    """K3 at AlexNet's loss shape, (2048, 1000) bf16, against its plain
+    version (labels over every class, planted argmax ties), timed by
+    ``_device_ms`` and by chain slope beside the bound and
+    ``F.cross_entropy``.  Returns the rows of both K3 kernels at this
+    shape."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    n, v = ALEXNET["batch"], ALEXNET["classes"]
+    x = 3.0 * torch.randn((n, v), generator=g, device="cuda")
+    labels = torch.randint(0, v, (n,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    labels[:3] = torch.tensor([0, v - 1, 8], device="cuda", dtype=torch.int32)
+    # Equal maxima inside one 8-element chunk, across chunks, at the
+    # row's two ends and three in a row.
+    top = x.max() + 1.0
+    for r, cols in enumerate(((3, 5), (7, 8), (v - 1, 0), (100, 7, v - 2))):
+        x[r, list(cols)] = top
+    x = x.to(torch.bfloat16)
+    nll, lse, pred = kernels.softmax_xent(x, labels)
+    gn = torch.full((n,), 1.0 / n, device="cuda")
+    gl = torch.randn((n,), generator=g, device="cuda")
+    d = kernels.softmax_xent_bwd(x, labels, lse, gn, gl)
+    pn, pl, pp = kernels.softmax_xent_plain(x, labels)
+    pd = kernels.softmax_xent_bwd_plain(x, labels, lse, gn, gl)
+    torch.cuda.synchronize()
+    e_nll = (nll - pn).abs().max().item()
+    e_lse = (lse - pl).abs().max().item()
+    e_d = _xent_bwd_close(d, pd, labels, gn, TOL_XENT_BWD["bfloat16"])
+    miss = int((pred != pp).sum().item())
+    _check(e_nll <= TOL_XENT and e_lse <= TOL_XENT and e_d <= 1.0
+           and miss == 0,
+           f"softmax_xent ({n}, {v}) bf16: nll err {e_nll}, lse err {e_lse}, "
+           f"dlogits error {e_d} of the element tolerance, {miss} pred "
+           f"mismatches")
+    _check([int(pred[r]) for r in range(4)] == [3, 7, 0, 7],
+           f"softmax_xent ties: pred {pred[:4].tolist()}")
+    print(f"[alexnet-kernels] softmax_xent ({n}, {v}) bf16 with planted "
+          f"ties: nll err {e_nll:.3g} lse err {e_lse:.3g}, dlogits worst "
+          f"element {e_d:.3g} of its tolerance, pred exact")
+    lab64 = labels.long()
+    xr = x.detach().clone().requires_grad_(True)
+    ce = F.cross_entropy(xr, lab64, reduction="none")
+    gce = gn.to(ce.dtype)
+    fns = {
+        "fwd": (lambda: kernels.softmax_xent(x, labels),
+                lambda: kernels.softmax_xent_plain(x, labels),
+                lambda: F.cross_entropy(x, lab64, reduction="none")),
+        "bwd": (lambda: kernels.softmax_xent_bwd(x, labels, lse, gn, gl),
+                lambda: kernels.softmax_xent_bwd_plain(x, labels, lse, gn, gl),
+                lambda: torch.autograd.grad(ce, xr, gce, retain_graph=True)),
+    }
+    # Logits read (and, backward, dlogits written) once, the rows'
+    # scalars moved; about four f32 operations per logit.
+    bounds = {"fwd": _bound_ms(n * v * 2 + 16 * n, 4 * n * v, "float32"),
+              "bwd": _bound_ms(2 * n * v * 2 + 16 * n, 4 * n * v, "float32")}
+    errs = {"fwd": max(e_nll, e_lse),
+            "bwd": (d.float() - pd.float()).abs().max().item()}
+    floor = _chain_ms(lambda i: torch.cuda._sleep(0))
+    rows = {}
+    for part, (kern, plain, lib) in fns.items():
+        ms, lib_ms = _pair_ms(kern, lib)
+        chain = _chain_ms(lambda i: kern())
+        lib_chain = _chain_ms(lambda i: lib())
+        plain_ms = _device_ms(plain)
+        bound, by = bounds[part]
+        name = "softmax_xent" if part == "fwd" else "softmax_xent_bwd"
+        print(f"[alexnet-kernels] {name} ({n}, {v}) bf16: one launch "
+              f"{ms:.6f} ms, chain slope {chain:.6f} (plain {plain_ms:.6f}; "
+              f"F.cross_entropy{' backward' if part == 'bwd' else ''} "
+              f"{lib_ms:.6f}, slope {lib_chain:.6f}; bound {bound:.6f} by "
+              f"{by}; launch floor {floor:.6f})")
+        rows[f"{name}@alexnet"] = dict(
+            max_abs_err=errs[part], ms=ms, chain_ms=chain, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=lib_ms,
+            library_chain_ms=lib_chain, launch_floor_ms=floor)
+    return rows
+
+
+def phase_alexnet_train(torch, kernels):
+    """bench.py's AlexNet leg through the port's bench entry at its full
+    shape; returns the launch counts of this run."""
+    from flexflow_torch import bench
+    from flexflow_torch.models.alexnet import build_alexnet
+    from flexflow_torch.search.cost_model import train_flops
+
+    c = ALEXNET
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _zero_counts()
+    sps, mfu, batch = bench.bench_alexnet(
+        device="cuda", batch_size=c["batch"], image_size=c["image"],
+        num_classes=c["classes"], iters=c["iters"], warmup=c["warmup"],
+        stats_out=stats)
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    losses = stats["step_losses"]
+    steps = c["warmup"] + c["iters"]
+    _check(batch == c["batch"] and len(losses) == steps
+           and all(math.isfinite(x) for x in losses),
+           f"alexnet step losses {losses}")
+    want = {n: 0 for n in launches}
+    want.update(softmax_xent=steps, softmax_xent_bwd=steps)
+    _check(launches == want, f"alexnet launch counts {launches}, expected "
+           f"{want}")
+    ms_step = stats["elapsed_s"] * 1e3 / stats["iterations"]
+    flops = train_flops(build_alexnet(batch_size=c["batch"],
+                                      image_size=c["image"],
+                                      num_classes=c["classes"]))
+    print(f"[alexnet-train] losses {[round(x, 5) for x in losses]}; "
+          f"{ms_step:.3f} ms/step, images/s {sps:.1f}, MFU "
+          f"{100 * mfu:.2f}% of 989 TFLOP/s ({flops:.5g} FLOP/step); peak "
+          f"memory {peak_gb:.2f} GB; launches {launches}")
+    return launches
+
+
+#: Kernel-name groups of phase 17's profile, first match wins (the pools'
+#: kernels name their layout, ``nhwc``, as cuDNN's do).
+ALEXNET_GROUPS = (
+    ("K3", ("xent",)),
+    ("pool", ("pool",)),
+    ("conv (cuDNN)", ("conv", "cudnn", "implicit", "fprop", "dgrad", "wgrad",
+                      "winograd", "fft", "nhwc", "nchw")),
+    ("GEMM (cuBLAS)", ("gemm", "cublas", "cutlass", "nvjet", "splitk")),
+    ("copy", ("memcpy", "memset", "copy")),
+    ("elementwise, reductions", ("",)),
+)
+
+
+def phase_alexnet_profile(torch):
+    """One warm step of phase 17's model under torch.profiler: the busy
+    share, time by kernel and by kernel group; the optimizer's share by
+    CUDA events around ``optimizer.update``.  (conv1's layouts and the
+    step with cuDNN's plans timed or not are
+    ``flexflow_torch/tools/alexnet_conv.py``'s.)"""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.alexnet import build_alexnet
+    from flexflow_torch.optim import SGDOptimizer
+    from flexflow_torch.runtime.executor import Executor
+    from flexflow_torch.runtime.trainer import Trainer
+
+    c = ALEXNET
+    cfg = FFConfig(batch_size=c["batch"], compute_dtype="bfloat16")
+    ff = build_alexnet(batch_size=c["batch"], image_size=c["image"],
+                       num_classes=c["classes"], config=cfg)
+    ex = Executor(ff, cfg, optimizer=SGDOptimizer(**SGD_ALEXNET),
+                  device="cuda")
+    state = list(ex.init())
+    batch = Trainer(ex).synthetic_batch()
+
+    def step():
+        state[:3] = ex.train_step(*state, batch)[:3]
+
+    for _ in range(3):
+        step()
+    groups = {name: 0.0 for name, _ in ALEXNET_GROUPS}
+    for us, key, _ in _profile_step(torch, "alexnet-profile", step):
+        name = next(n for n, subs in ALEXNET_GROUPS
+                    if any(s in key.lower() for s in subs))
+        groups[name] += us / 1e3
+    busy = sum(groups.values())
+    print("[alexnet-profile] device ms by kernel group: " + ", ".join(
+        f"{n} {ms:.3f} ({100 * ms / busy:.1f}%)" for n, ms in groups.items()))
+
+    # The optimizer's device time: events around optimizer.update on one
+    # warm step, with the host enqueueing ahead behind a spin.
+    params, opt_state, st = state
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    ev[0].record()
+    _, _, _, grads = ex.loss_and_grads(params, st, batch)
+    ev[1].record()
+    params, opt_state = ex.optimizer.update(params, opt_state, grads)
+    ev[2].record()
+    ev[2].synchronize()
+    state[:2] = params, opt_state
+    fb, upd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    print(f"[alexnet-profile] forward+backward {fb:.3f} ms, SGD update "
+          f"{upd:.3f} ms (CUDA events); the profile's busy {busy:.3f} ms is "
+          f"{100 * busy / (fb + upd):.1f}% of their sum")
+
+
+class _CardBranches:
+    """AlexNet's kinks taken the card's way on the CPU: each ReLU's mask
+    and each max pool's choice of window element, recorded in call order
+    on the card's step (``replay`` False) and taken by the CPU's step
+    (``replay`` True).  An input within rounding of a kink (a ReLU input
+    at zero, two maxima of a pool window) may take the other branch on
+    the card, and the two gradients then differ by that branch's whole
+    term, not by rounding: one ReLU input of linear2 did so at phase 18's
+    step with cuDNN's plans timed and untimed alike, while every
+    convolution kept within a few f32 epsilons of its absolute terms
+    (``python3 -m flexflow_torch.tools.alexnet_conv plans``).  Each place
+    where the CPU's own branch differs must be a kink to within ``rtol``
+    of its tensor's largest magnitude; ``moved`` counts them."""
+
+    def __init__(self, torch, rtol: float):
+        import flexflow_torch.ops.conv as conv
+        import flexflow_torch.ops.linear as linear
+
+        self.torch, self.rtol, self.replay = torch, rtol, False
+        self.conv, self.linear = conv, linear
+        self.act, self.F = conv.apply_activation, conv.F
+        self.log, self.at, self.moved = [], 0, {"relu": 0, "pool": 0}
+
+    def __enter__(self):
+        owner = self
+
+        class _F:
+            """``torch.nn.functional`` with ``max_pool2d`` through the
+            log."""
+
+            def __getattr__(self, name):
+                return getattr(owner.F, name)
+
+            def max_pool2d(self, x, kernel, stride):
+                return owner._pool(x, kernel, stride)
+
+        self.at = 0
+        self.conv.apply_activation = self.linear.apply_activation = self._act
+        self.conv.F = _F()
+        return self
+
+    def __exit__(self, *exc):
+        self.conv.apply_activation = self.linear.apply_activation = self.act
+        self.conv.F = self.F
+        _check(exc[0] is not None or not self.replay
+               or self.at == len(self.log),
+               f"the CPU's step took {self.at} of the card's {len(self.log)} "
+               f"branch records")
+
+    def _next(self, own, what: str):
+        if not self.replay:
+            self.log.append((what, own.cpu()))
+            return None
+        kind, card = self.log[self.at]
+        self.at += 1
+        _check(kind == what and card.shape == own.shape,
+               f"branch record {self.at}: the card's {kind} {card.shape}, "
+               f"the CPU's {what} {own.shape}")
+        return card
+
+    def _act(self, y, activation):
+        if activation != "relu":
+            return self.act(y, activation)
+        own = y.detach() > 0
+        card = self._next(own, "relu")
+        if card is None:
+            return self.act(y, activation)
+        diff = own != card
+        if diff.any():
+            a = y.detach().abs()
+            _check(a[diff].max() <= self.rtol * a.max(),
+                   f"a ReLU input {a[diff].max().item()} away from zero "
+                   f"took the other branch on the card")
+            self.moved["relu"] += int(diff.sum())
+        return self.torch.where(card, y, self.torch.zeros((), dtype=y.dtype))
+
+    def _pool(self, x, kernel, stride):
+        y, idx = self.F.max_pool2d(x, kernel, stride, return_indices=True)
+        card = self._next(idx, "pool")
+        if card is None:
+            return y
+        picked = x.flatten(2).gather(2, card.flatten(2)).view_as(y)
+        gap = (y - picked).detach()
+        if (idx != card).any():
+            _check(gap.max() <= self.rtol * x.detach().abs().max(),
+                   f"a max-pool window whose maxima are {gap.max().item()} "
+                   f"apart took the other element on the card")
+            self.moved["pool"] += int((gap > 0).sum())
+        return picked
+
+
+def phase_alexnet_parity(torch, kernels):
+    """One f32 SGD step of AlexNet at image 67 on the card (cuDNN, cuBLAS,
+    K3; TF32 off) and on the CPU (plain versions) from the same params
+    and batch, the CPU taking the card's branch at every kink
+    (``_CardBranches``)."""
+    import numpy as np
+
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.data.loader import synthetic_host_batch
+    from flexflow_torch.models.alexnet import build_alexnet
+    from flexflow_torch.optim import SGDOptimizer
+    from flexflow_torch.runtime.executor import Executor
+
+    c = ALEXNET_PARITY
+    cfg = FFConfig(batch_size=c["batch"], compute_dtype="float32",
+                   seed=c["seed"])
+    ff = build_alexnet(batch_size=c["batch"], image_size=c["image"],
+                       num_classes=c["classes"], config=cfg)
+    params0 = Executor(ff, cfg, device="cpu").init_params()
+    batch = synthetic_host_batch(ff, np.random.default_rng(c["seed"]),
+                                 {"label": c["classes"]})
+    out = {}
+    branches = _CardBranches(torch, TOL_TRAIN_GRAD[0])
+    for dev in ("cuda", "cpu"):
+        ex = Executor(ff, cfg, optimizer=SGDOptimizer(**SGD_ALEXNET),
+                      device=dev)
+        params = {op: {k: p.detach().clone().to(ex.device)
+                       for k, p in g.items()}
+                  for op, g in params0.items()}
+        _zero_counts()
+        branches.replay = dev == "cpu"
+        with branches:
+            loss, _, _, grads = ex.loss_and_grads(params, {}, batch)
+        grads_cpu = {op: {k: v.detach().cpu() for k, v in g.items()}
+                     for op, g in grads.items()}
+        ex.optimizer.update(params, ex.optimizer.init(params), grads)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = _counts()
+            _check(n["softmax_xent"] == n["softmax_xent_bwd"] == 1,
+                   f"the f32 AlexNet step launched K3 {n['softmax_xent']} / "
+                   f"{n['softmax_xent_bwd']} times")
+        out[dev] = (float(loss), grads_cpu,
+                    {op: {k: v.detach().cpu() for k, v in g.items()}
+                     for op, g in params.items()})
+    (lc, gc, pc), (lp, gp, pp) = out["cuda"], out["cpu"]
+    _check(abs(lc - lp) <= TOL_TRAIN_LOSS,
+           f"f32 AlexNet step loss: card {lc}, CPU {lp}")
+    rtol, atol = TOL_TRAIN_GRAD
+    lr = SGD_ALEXNET["lr"]
+    worst_g = worst_p = 0.0
+    for op in gp:
+        for k in gp[op]:
+            want, got = gp[op][k], gc[op][k]
+            scale = want.abs().max().item()
+            tol = rtol * scale + atol
+            err = (got - want).abs().max().item()
+            _check(err <= tol, f"f32 AlexNet grad {op}.{k}: err {err} at "
+                   f"scale {scale}")
+            worst_g = max(worst_g, err / tol)
+            ulp = 2 * float(np.spacing(np.float32(pp[op][k].abs().max())))
+            d = (pc[op][k] - pp[op][k]).abs().max().item()
+            _check(d <= lr * tol + ulp, f"f32 AlexNet updated {op}.{k}: err "
+                   f"{d}, bound {lr * tol + ulp}")
+            worst_p = max(worst_p, d / (lr * tol + ulp))
+    print(f"[alexnet-parity] f32 SGD step card vs CPU: loss {lc:.7f} vs "
+          f"{lp:.7f}; worst grad err {worst_g:.3g} of its tolerance, worst "
+          f"updated-param err {worst_p:.3g} of its tolerance; cuDNN's plans "
+          f"{'timed' if torch.backends.cudnn.benchmark else 'untimed'}; "
+          f"the CPU took the card's branch where its own differed at "
+          f"{branches.moved['relu']} ReLU inputs and "
+          f"{branches.moved['pool']} pool windows, each within "
+          f"{TOL_TRAIN_GRAD[0]:g} of its tensor's largest magnitude of a "
+          f"kink")
+
+
 def main() -> int:
     import torch
 
@@ -2324,10 +2722,18 @@ def main() -> int:
     probe_rows, probe_launches = phase_probe_kernels(torch, kernels, F, rows)
     rows.update(probe_rows)
     t.append(time.perf_counter())
+    rows.update(phase_alexnet_kernels(torch, kernels, F))
+    t.append(time.perf_counter())
+    alexnet_launches = phase_alexnet_train(torch, kernels)
+    phase_alexnet_profile(torch)
+    t.append(time.perf_counter())
+    phase_alexnet_parity(torch, kernels)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
              "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
-             "longctx-parity", "probe-kernels")
+             "longctx-parity", "probe-kernels", "alexnet-kernels",
+             "alexnet-train", "alexnet-parity")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -2361,7 +2767,8 @@ def main() -> int:
                       for run, counts in dlrm_launches.items()},
                    **{leg: counts[name]
                       for leg, counts in longctx_launches.items()},
-                   "probe": probe_launches[name]}
+                   "probe": probe_launches[name],
+                   "alexnet": alexnet_launches[name]}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])
@@ -2375,6 +2782,8 @@ def main() -> int:
         if name == "flash_attention_lse_streamed":
             entry["f32_source"] = src + "flash_stream.cu"
             entry["longctx_32k_shape"] = rows["flash_attention_lse_streamed@32k"]
+        if name in ("softmax_xent", "softmax_xent_bwd"):
+            entry["alexnet_shape"] = rows[f"{name}@alexnet"]
         if name == "flash_decode":
             entry["long_cache_shape"] = rows[
                 f"flash_decode@{DECODE_TIMED[1]}"]

@@ -1,5 +1,6 @@
-"""Shared app harness: the flag helpers, ``make_optimizer`` and the
-plain single-device ``run_training`` of ``flexflow_tpu/apps/common.py``."""
+"""Shared app harness: the flag helpers, ``make_optimizer``,
+``load_strategy`` and the plain single-device ``run_training`` (with
+``--eval-iters``) of ``flexflow_tpu/apps/common.py``."""
 
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ Training apps also read:
   -b/--batch-size N   -i/--iterations N   -e/--epochs N   -p/--print-freq N
   --lr F   --wd F   --optimizer sgd|adam   --momentum F   --clip-norm F
   --lr-schedule constant|cosine|step   --warmup N   --decay-steps N
-  --min-lr F   --lr-gamma F (adam only)   -ll:gpu 1
+  --min-lr F   --lr-gamma F (adam only)   -ll:gpu 1   --eval-iters N
+  -s/--strategy FILE.json (every op on the one GPU)
 Every other flag of the JAX package's apps is refused until its slice
 of the port lands (ROADMAP.md queue 1)."""
 
@@ -26,8 +28,20 @@ TRAINING_FLAGS = (
     "--print-freq", "--lr", "--learning-rate", "--wd", "--weight-decay",
     "--dtype", "--seed", "--optimizer", "--momentum", "--lr-schedule",
     "--warmup", "--decay-steps", "--min-lr", "--lr-gamma", "--clip-norm",
-    "-ll:gpu", "-ll:tpu",
+    "-ll:gpu", "-ll:tpu", "--eval-iters", "-s", "--strategy",
 )
+
+#: Flags of the JAX package's apps that name a feature still to be
+#: ported, with the ROADMAP.md item that brings it.
+_NOT_PORTED = {
+    "-d": "datasets (ROADMAP.md queue 1, item 12)",
+    "--dataset": "datasets (ROADMAP.md queue 1, item 12)",
+    "--search": "the inline strategy search (ROADMAP.md queue 1, item 11)",
+    "--search-iters": "the inline strategy search (ROADMAP.md queue 1, "
+                      "item 11)",
+    "--calibration": "the execution-config search (ROADMAP.md queue 1, "
+                     "item 11)",
+}
 
 _DTYPES = ("float32", "bfloat16")
 
@@ -74,6 +88,9 @@ def parse_training_args(argv) -> FFConfig:
     through; here they would name features this slice lacks), and so
     are more than one device and a dtype other than f32 or bf16."""
     for flag in argv[::2]:
+        if flag in _NOT_PORTED:
+            raise SystemExit(f"flexflow_torch does not support {flag!r} yet: "
+                             f"{_NOT_PORTED[flag]} is not ported")
         if flag not in TRAINING_FLAGS:
             raise SystemExit(
                 f"flexflow_torch does not support {flag!r} yet: this slice "
@@ -120,6 +137,35 @@ def make_optimizer(cfg: FFConfig):
     raise SystemExit(f"unknown --optimizer {cfg.optimizer!r} (sgd|adam)")
 
 
+def load_strategy(cfg: FFConfig):
+    """``-s FILE``: the strategy table of the JAX package's JSON file,
+    accepted when every op it names sits on the one GPU (all degrees 1,
+    no device but 0).  The port has no other placement, so such a table
+    changes nothing; any other table, ``-s auto`` and the reference's
+    ``.pb`` files are refused by name.  Returns the store, or None
+    without ``-s``."""
+    from flexflow_torch.parallel.strategy import StrategyStore
+
+    path = cfg.strategy_file
+    if path is None:
+        return None
+    flag = f"-s/--strategy {path}"
+    if path.lower() == "auto":
+        raise SystemExit(f"{flag}: the execution-config search is not ported "
+                         f"(ROADMAP.md queue 1, item 11)")
+    try:
+        store = StrategyStore.load(path, num_devices=cfg.num_devices)
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        raise SystemExit(f"{flag}: {e}")
+    for name, pc in sorted(store.table.items()):
+        if pc.num_parts != 1 or set(pc.device_ids or ()) - {0}:
+            raise SystemExit(
+                f"{flag}: op {name!r} is placed as {pc.to_json()}; the port "
+                f"runs every op on one GPU (multi-device strategies are "
+                f"ROADMAP.md queue 1, item 9)")
+    return store
+
+
 def run_training(ff, cfg: FFConfig, label: str = "samples",
                  device="cuda") -> Dict[str, Any]:
     """Build the executor, run ``cfg.epochs x cfg.iterations`` timed
@@ -127,17 +173,31 @@ def run_training(ff, cfg: FFConfig, label: str = "samples",
     batch (the reference's syntheticInput), and print the reference
     throughput lines (``cnn.cc:128-129``, ``dlrm.cc:159-166``).  The
     batch is ``Trainer.synthetic_batch``'s: as in the JAX package, its
-    integer inputs are drawn in ``{0, 1}``.  Returns the fit stats, with
-    the trained ``(params, opt_state, state)`` under ``"final"``."""
+    integer inputs are drawn in ``{0, 1}``.  With ``--eval-iters N``,
+    ``N`` read-only eval steps follow on the trained params, on fresh
+    synthetic batches (seeds ``cfg.seed + 1 + i``, as in the JAX
+    package), and print the ``EVAL`` line.  Returns the fit stats, with
+    the trained ``(params, opt_state, state)`` under ``"final"`` and
+    the eval results under ``"eval"``."""
     from flexflow_torch.runtime.executor import Executor
     from flexflow_torch.runtime.trainer import Trainer
 
+    load_strategy(cfg)
     ex = Executor(ff, cfg, optimizer=make_optimizer(cfg), device=device)
     trainer = Trainer(ex)
     stats = trainer.fit(iterations=cfg.iterations * max(cfg.epochs, 1),
                         warmup=1, log_every=cfg.print_freq)
     print(f"ELAPSED TIME = {stats['elapsed_s']:.4f}s")
     print(f"THROUGHPUT = {stats['samples_per_s']:.2f} {label}/s")
+    if cfg.eval_iters > 0:
+        params, _, state = trainer.final
+        batches = (trainer.synthetic_batch(seed=cfg.seed + 1 + i)
+                   for i in range(cfg.eval_iters))
+        ev = trainer.evaluate(params, state, batches,
+                              iterations=cfg.eval_iters)
+        print(f"EVAL loss = {ev['loss']:.6f} "
+              f"accuracy = {100.0 * ev['accuracy']:.2f}%")
+        stats["eval"] = ev
     #: The trained (params, opt_state, state), for a caller that checks
     #: or evaluates them.
     stats["final"] = trainer.final

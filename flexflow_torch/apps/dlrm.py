@@ -24,7 +24,9 @@ DLRM flags: ``--arch-sparse-feature-size --arch-embedding-size
 the model is 4 tables x 1000 rows x 16.  Refused until their slices land
 (ROADMAP.md queue 1): datasets and streamed traces (``-d``,
 ``--stream-dataset``, ``--zc-dataset``, ``--prod-trace``, ``--trace-*``),
-``--shard-embeddings`` and strategy files (``-s``).
+and ``--shard-embeddings``.  A strategy file (``-s FILE.json``) is
+accepted when it puts every op on the one GPU
+(``apps.common.load_strategy``).
 """
 
 from __future__ import annotations
@@ -43,14 +45,10 @@ DLRM_FLAGS = (
 )
 
 _REFUSED = {
-    "-d": "datasets (the data-plane slice, ROADMAP.md queue 1, item 12)",
-    "--dataset": "datasets (the data-plane slice, ROADMAP.md queue 1, item 12)",
     "--stream-dataset": "the streaming data plane (ROADMAP.md queue 1, item 12)",
     "--zc-dataset": "device-resident datasets (ROADMAP.md queue 1, item 12)",
     "--prod-trace": "production traces (ROADMAP.md queue 1, item 12)",
     "--shard-embeddings": "row-sharded tables (ROADMAP.md queue 1, item 9)",
-    "-s": "strategy files (ROADMAP.md queue 1, item 2)",
-    "--strategy": "strategy files (ROADMAP.md queue 1, item 2)",
 }
 
 

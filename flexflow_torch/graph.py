@@ -4,7 +4,8 @@ Apps call its methods to append ops to ``self.layers``; each method
 infers shapes and does no compute.  Op naming (``_unique``) and the
 dtype rules match the JAX package, so the two packages make graphs with
 the same op names, parameter keys and shapes.  The port has the methods
-that ``build_transformer_lm`` and ``build_dlrm`` call.
+that ``build_transformer_lm``, ``build_dlrm`` and ``build_alexnet``
+call.
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ from flexflow_torch.config import FFConfig
 from flexflow_torch.ops import (
     Add,
     Concat,
+    Conv2D,
     DotInteraction,
     Embedding,
+    Flat,
     HeteroEmbedding,
     LayerNorm,
     Linear,
@@ -26,6 +29,7 @@ from flexflow_torch.ops import (
     MultiEmbedding,
     MultiHeadAttention,
     Op,
+    Pool2D,
     PositionEmbedding,
     Reshape,
     SoftmaxCrossEntropy,
@@ -99,6 +103,28 @@ class FFModel:
         return t
 
     # -- ops --------------------------------------------------------------
+
+    def conv2d(self, x: TensorSpec, out_channels: int, kernel_h: int,
+               kernel_w: int, stride_h: int, stride_w: int, padding_h: int,
+               padding_w: int, activation: Optional[str] = None,
+               use_bias: bool = True, name: Optional[str] = None,
+               **kw) -> TensorSpec:
+        return self._add(Conv2D(
+            self._unique("conv2d", name), x, out_channels, kernel_h, kernel_w,
+            stride_h, stride_w, padding_h, padding_w, activation=activation,
+            use_bias=use_bias, **kw))
+
+    def pool2d(self, x: TensorSpec, kernel_h: int, kernel_w: int,
+               stride_h: int, stride_w: int, padding_h: int, padding_w: int,
+               pool_type: str = "max", activation: Optional[str] = None,
+               name: Optional[str] = None) -> TensorSpec:
+        return self._add(Pool2D(
+            self._unique("pool2d", name), x, kernel_h, kernel_w, stride_h,
+            stride_w, padding_h, padding_w, pool_type=pool_type,
+            activation=activation))
+
+    def flat(self, x: TensorSpec, name: Optional[str] = None) -> TensorSpec:
+        return self._add(Flat(self._unique("flat", name), x))
 
     def dense(self, x: TensorSpec, out_dim: int,
               activation: Optional[str] = None, use_bias: bool = True,

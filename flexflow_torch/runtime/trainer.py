@@ -10,7 +10,8 @@ only for the loss, which the device computes before that step's backward
 and update.
 
 This slice ports the plain per-step (k=1) loop on one fixed synthetic
-batch.  Supersteps (``steps_per_call > 1``), gradient accumulation,
+batch, and ``evaluate``, the read-only pass of ``--eval-iters``.
+Supersteps (``steps_per_call > 1``), gradient accumulation,
 checkpoints, telemetry, traces and ``--profiling`` come with later
 slices (ROADMAP.md queue 1) and are refused by name; so do user batch
 iterators and prefetching loaders (the data-plane slice).
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -151,3 +152,18 @@ class Trainer:
             "loss": float(self.metrics.avg_loss),
             "step_losses": [float(x) for x in losses],
         }
+
+    def evaluate(self, params, state, batches: Iterable[Dict[str, Any]],
+                 iterations: Optional[int] = None) -> Dict[str, float]:
+        """Held-out evaluation over ``batches`` (host or device dicts):
+        the mean loss and the accuracy.  Each step's metrics are read back
+        as they come, so this loop waits on the device every step."""
+        ex = self.ex
+        pm = PerfMetrics()
+        for it, batch in enumerate(batches):
+            if iterations is not None and it >= iterations:
+                break
+            _, m = ex.eval_step(params, state, batch)
+            pm.update(self._fence(m))
+        return {"loss": pm.avg_loss, "accuracy": pm.accuracy,
+                "batches": pm.steps}

@@ -234,7 +234,7 @@ def test_transformer_app_on_cpu(capsys, dtype):
     ["--dp", "2"], ["--sp", "2"], ["--tp", "2"], ["--experts", "4"],
     ["--steps-per-call", "2"], ["--accum-steps", "2"], ["--resilient"],
     ["--telemetry", "d"], ["--lazy-sparse-opt"], ["-ll:gpu", "2"],
-    ["--dtype", "float16"], ["--remat"], ["--eval-iters", "2"], ["--bogus"]])
+    ["--dtype", "float16"], ["--remat"], ["--ckpt-dir", "d"], ["--bogus"]])
 def test_transformer_app_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as e:
         tapp.main(_APP + flag, device="cpu")
