@@ -30,9 +30,14 @@ Eighteen phases, in order; any failure raises and exits non-zero:
    causal and not, f32 and bf16: every element of every gradient within
    ``TOL_ELEM`` of the plain one (bf16 ``stream_bwd``, f32 ``bwd``), and
    bit-identical across two launches.  K3 (fused cross-entropy) forward and
-   backward against its plain version at (32768, 32768) bf16, at a
+   backward, in each of its two forms (row groups, a CTA per row;
+   ``XENT_FORMS``), against its plain version at (32768, 32768) bf16, at a
    ragged V (32771) and on an f32 case with planted argmax ties, labels
-   over the whole vocabulary (0, V-1 and chunk edges included):
+   over the whole vocabulary (0, V-1 and chunk edges included); then at
+   ``xent_cases`` (V of 2, 10, 1000, 1001, the forms' crossover plus and
+   minus 8, 32768 and 32771, f32 and bf16) with ties planted at every
+   place a form splits a row (``_xent_tie_cols``), labels at 0, V-1 and
+   the last vector and one out of range, which must give a NaN nll:
    ``nll``/``lse`` within 1e-4, every element of ``dlogits`` within
    ``TOL_XENT_BWD`` of the plain one, ``pred`` exactly.  Times: median
    device time beside the plain version, the bound and SDPA's backward /
@@ -147,12 +152,12 @@ Eighteen phases, in order; any failure raises and exits non-zero:
     beside phase 12's device times.
 16. **AlexNet kernels.**  K3 forward and backward at AlexNet's loss
     shape, (2048, 1000) bf16 (V a multiple of 8: the 16-byte-load path),
-    labels over every class and planted argmax ties, against the plain
-    version (``nll``/``lse`` within 1e-4, every ``dlogits`` element within
-    ``TOL_XENT_BWD``, ``pred`` exactly); one launch (``_device_ms``, in
-    turns with ``F.cross_entropy``) and the chain slope (``_chain_ms``)
-    beside the bound, the plain version, ``F.cross_entropy`` and the
-    launch floor.
+    in each form, labels over every class and one out of range, planted
+    argmax ties, against the plain version (``nll``/``lse`` within 1e-4,
+    every ``dlogits`` element within ``TOL_XENT_BWD``, ``pred`` exactly);
+    each form's one launch (``_device_ms``, in turns with
+    ``F.cross_entropy``) and chain slope (``_chain_ms``) beside the bound,
+    the plain version, ``F.cross_entropy`` and the launch floor.
 17. **AlexNet train.**  ``bench.py``'s AlexNet leg (batch 2048, 229 x 229
     x 3, 1000 classes, bf16, SGD lr 0.01 momentum 0.9 wd 1e-4, 3 warmup +
     20 timed steps) through the bench entry's
@@ -171,7 +176,8 @@ Eighteen phases, in order; any failure raises and exits non-zero:
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
 DLRM, long-context, race and AlexNet runs together, split in
-``launches_by_path``), the card's name
+``launches_by_path``; K3's entries name the form each main-path shape
+takes), the card's name
 and power limit from ``nvidia-smi``, and as its last line the JSON
 object ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits 2 and prints no result.
@@ -619,6 +625,117 @@ def _xent_bwd_close(d, pd, labels, g_nll, rtol, rows=4096) -> float:
     return worst
 
 
+#: K3's two forms (``kernels._xent_form``): row groups, a CTA per row.
+XENT_FORMS = ("rows", "cta")
+
+
+def xent_cases(kernels):
+    """K3's (N, V, dtype) cases of phase 2 beyond the timed shapes, each
+    held in both forms: 2 and 10 classes (8 lanes a row, scalar loads),
+    1000 and 1001 (a warp a row, 16-byte and scalar loads), the forms'
+    crossover plus and minus 8, the LM's 32768 and a ragged 32771; 300
+    rows, which fill no whole CTA of row groups."""
+    cross = kernels._XENT_ROWS_MAX_V
+    return [(300, v, name)
+            for v in (2, 10, 1000, 1001, cross - 8, cross + 8, 32768, 32771)
+            for name in ("float32", "bfloat16")]
+
+
+def _xent_tie_cols(v: int):
+    """Column sets of planted equal maxima, a row each, where K3's forms
+    split a row into vectors of 8 (bf16 16-byte loads, the CTA per row's
+    f32 pairs), 4 (f32 16-byte loads) or 1 element (scalar loads): inside
+    one vector (3, 5; 1, 2); across two lanes of one warp (vectors 1 and
+    2); across a lane's two vectors at each stride of the forms (groups of
+    8, 16 and 32 lanes, a CTA of 256 threads); at the row's two ends; and
+    three at once.  Sets with fewer than two columns in the row drop out;
+    the first index of each set is the expected ``pred``."""
+    sets = [(3, 5), (1, 2)]
+    for width in (8, 4, 1):
+        sets.append((width, 2 * width))
+        sets += [(width, width + width * lanes) for lanes in (8, 16, 32, 256)]
+    sets += [(v - 1, 0), (100, 7, v - 2)]
+    out = []
+    for cols in sets:
+        cols = tuple(dict.fromkeys(c for c in cols if 0 <= c < v))
+        if len(cols) >= 2 and cols not in out:
+            out.append(cols)
+    return out
+
+
+def _xent_inputs(torch, g, n: int, v: int, name: str):
+    """Logits (3 randn, in dtype ``name``) with the planted ties of
+    :func:`_xent_tie_cols` in the first rows, and int32 labels over every
+    class with some at 0, V - 1, the first and last element of the last
+    8-element vector, a warp lane's second vector (bf16 16-byte: 8 x 32 +
+    3; f32 16-byte: 4 x 32 + 3; scalar: 32 + 3), and the last row's out of
+    range (V).  Returns (x, labels, the tie column sets)."""
+    x = 3.0 * torch.randn((n, v), generator=g, device="cuda")
+    tie_cols = _xent_tie_cols(v)
+    top = x.max() + 1.0
+    for r, cols in enumerate(tie_cols):
+        x[r, list(cols)] = top
+    labels = torch.randint(0, v, (n,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    planted = [0, v - 1, (v - 1) // 8 * 8, max(v - 2, 0), 259 % v, 131 % v,
+               35 % v]
+    labels[n - 1 - len(planted):n - 1] = torch.tensor(
+        planted, device="cuda", dtype=torch.int32)
+    labels[n - 1] = v
+    return x.to(getattr(torch, name)), labels, tie_cols
+
+
+def _xent_hold(torch, kernels, x, labels, g_nll, g_lse, form=None):
+    """K3's forward and backward in ``form`` ("rows", "cta"; None: the
+    chooser's) against the plain versions on the same inputs.  A label
+    outside [0, V) must give a NaN nll; its row is held on lse, pred and
+    dlogits, with g_nll 0 on both sides and label 0 on the plain side.
+    Returns ({"nll", "lse": absolute errors of the other rows (inf if a
+    NaN is missing), "dlogits": the worst element's share of
+    ``TOL_XENT_BWD``, "dlogits_abs": its largest absolute error, "pred":
+    mismatches}, (nll, lse, pred, dlogits, plain dlogits))."""
+    v = x.shape[1]
+    bad = (labels < 0) | (labels >= v)
+    g_nll = g_nll.masked_fill(bad, 0.0)
+    safe = labels.masked_fill(bad, 0)
+    nll, lse, pred = kernels._xent_fwd(x, labels, form)
+    d = kernels._xent_bwd(x, labels, lse, g_nll, g_lse, form)
+    pn, pl, pp = kernels.softmax_xent_plain(x, safe)
+    # The kernel's lse on both sides: the backward alone is compared.
+    pd = kernels.softmax_xent_bwd_plain(x, safe, lse, g_nll, g_lse)
+    torch.cuda.synchronize()
+    good = ~bad
+    e_nll = ((nll[good] - pn[good]).abs().max().item() if bool(good.any())
+             else 0.0)
+    if not bool(nll[bad].isnan().all()):
+        e_nll = math.inf
+    errs = dict(nll=e_nll, lse=(lse - pl).abs().max().item(),
+                dlogits=_xent_bwd_close(d, pd, safe, g_nll,
+                                        TOL_XENT_BWD[_dtype_name(x.dtype)]),
+                pred=int((pred != pp).sum().item()),
+                dlogits_abs=max((d[r:r + 4096].float() - pd[r:r + 4096].float())
+                                .abs().max().item()
+                                for r in range(0, d.shape[0], 4096)))
+    return errs, (nll, lse, pred, d, pd)
+
+
+def _xent_held(errs: dict, what: str) -> None:
+    """Fails unless :func:`_xent_hold`'s errors are within ``TOL_XENT``
+    (nll, lse), ``TOL_XENT_BWD``'s element rule and exact (pred)."""
+    _check(errs["nll"] <= TOL_XENT and errs["lse"] <= TOL_XENT
+           and errs["dlogits"] <= 1.0 and errs["pred"] == 0,
+           f"{what}: nll err {errs['nll']}, lse err {errs['lse']}, dlogits "
+           f"error {errs['dlogits']} of the element tolerance, "
+           f"{errs['pred']} pred mismatches")
+
+
+def _form_name(f) -> str:
+    """A line's words for a ``kernels.XentForm``."""
+    rows = "a row" if f.rows_per_cta == 1 else f"{f.rows_per_cta} rows"
+    return (f"{f.form}: {f.lanes_per_row} threads a row, {rows} a CTA, "
+            f"{f.loads} loads")
+
+
 def phase_train_kernels(torch, kernels, F):
     """Check and time K1b and K3 (and K1f at the training shape);
     returns per-kernel rows for the training path's shapes."""
@@ -752,32 +869,27 @@ def phase_train_kernels(torch, kernels, F):
                                       (v - 1, 0), (100, 7, 30000))):
                 x[r, list(cols)] = top
         x = x.to(dt)
-        nll, lse, pred = kernels.softmax_xent(x, labels)
         gn = torch.full((n,), 1.0 / n, device="cuda")
         gl = randn((n,), torch.float32)
-        d = kernels.softmax_xent_bwd(x, labels, lse, gn, gl)
-        pn, pl, pp = kernels.softmax_xent_plain(x, labels)
-        # The kernel's lse on both sides: the backward alone is compared.
-        pd = kernels.softmax_xent_bwd_plain(x, labels, lse, gn, gl)
-        torch.cuda.synchronize()
-        e_nll = (nll - pn).abs().max().item()
-        e_lse = (lse - pl).abs().max().item()
-        e_d = _xent_bwd_close(d, pd, labels, gn, TOL_XENT_BWD[name])
-        miss = int((pred != pp).sum().item())
-        _check(e_nll <= TOL_XENT and e_lse <= TOL_XENT and e_d <= 1.0
-               and miss == 0,
-               f"softmax_xent ({n}, {v}) {name}: nll err {e_nll}, lse err "
-               f"{e_lse}, dlogits error {e_d} of the element tolerance, "
-               f"{miss} pred mismatches")
-        if ties:
-            _check([int(pred[r]) for r in range(5)] == [3, 9, 2047, 0, 7],
-                   f"softmax_xent ties: pred {pred[:5].tolist()}")
-        print(f"[train-kernels] softmax_xent ({n}, {v}) {name}"
-              f"{' ties' if ties else ''}: nll err {e_nll:.3g} lse err "
-              f"{e_lse:.3g}, dlogits worst element {e_d:.3g} of its "
-              f"tolerance, pred exact")
+        held = {}
+        for form in XENT_FORMS:
+            held[form] = _xent_hold(torch, kernels, x, labels, gn, gl, form)
+            errs, (nll, lse, pred, d, pd) = held[form]
+            _xent_held(errs, f"softmax_xent ({n}, {v}) {name} {form}")
+            if ties:
+                _check([int(pred[r]) for r in range(5)] == [3, 9, 2047, 0, 7],
+                       f"softmax_xent {form} ties: pred {pred[:5].tolist()}")
+            print(f"[train-kernels] softmax_xent ({n}, {v}) {name}"
+                  f"{' ties' if ties else ''}, {form} form: nll err "
+                  f"{errs['nll']:.3g} lse err {errs['lse']:.3g}, dlogits worst "
+                  f"element {errs['dlogits']:.3g} of its tolerance, pred exact")
         if n != n_main:
+            del held
             continue
+        # The timed shape in the form the chooser gives it.
+        form = kernels._xent_form(v).form
+        errs, (nll, lse, pred, d, pd) = held.pop(form)
+        del held
         isz = x.element_size()
         ms = _device_ms(lambda: kernels.softmax_xent(x, labels))
         plain_ms = _device_ms(lambda: kernels.softmax_xent_plain(x, labels))
@@ -787,12 +899,13 @@ def phase_train_kernels(torch, kernels, F):
         # Logits read once, labels read, nll/lse/pred written; about four
         # f32 operations per logit (max, subtract, exp, sum).
         bound, by = _bound_ms(n * v * isz + 16 * n, 4 * n * v, "float32")
-        print(f"[train-kernels] softmax_xent ({n}, {v}) {name}: {ms:.4f} ms "
-              f"(plain {plain_ms:.4f}, F.cross_entropy {lib_ms:.4f}, bound "
-              f"{bound:.5f} by {by})")
+        print(f"[train-kernels] softmax_xent ({n}, {v}) {name}, {form} form: "
+              f"{ms:.4f} ms (plain {plain_ms:.4f}, F.cross_entropy "
+              f"{lib_ms:.4f}, bound {bound:.5f} by {by})")
         rows["softmax_xent"] = dict(
-            max_abs_err=max(e_nll, e_lse), ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=lib_ms)
+            max_abs_err=max(errs["nll"], errs["lse"]), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=lib_ms, form=_form_name(kernels._xent_form(v)))
         b_ms = _device_ms(lambda: kernels.softmax_xent_bwd(x, labels, lse,
                                                            gn, gl))
         b_plain = _device_ms(lambda: kernels.softmax_xent_bwd_plain(
@@ -806,14 +919,34 @@ def phase_train_kernels(torch, kernels, F):
         # four f32 operations per logit (subtract, exp, multiply, select).
         b_bound, b_by = _bound_ms(2 * n * v * isz + 16 * n, 4 * n * v,
                                   "float32")
-        print(f"[train-kernels] softmax_xent_bwd ({n}, {v}) {name}: "
-              f"{b_ms:.4f} ms (plain {b_plain:.4f}, F.cross_entropy backward "
-              f"{b_lib:.4f}, bound {b_bound:.5f} by {b_by})")
+        print(f"[train-kernels] softmax_xent_bwd ({n}, {v}) {name}, {form} "
+              f"form: {b_ms:.4f} ms (plain {b_plain:.4f}, F.cross_entropy "
+              f"backward {b_lib:.4f}, bound {b_bound:.5f} by {b_by})")
         rows["softmax_xent_bwd"] = dict(
             max_abs_err=(d.float() - pd.float()).abs().max().item(),
             ms=b_ms, plain_ms=b_plain, bound_ms=b_bound, bound_by=b_by,
-            library_ms=b_lib)
-        del xr, ce, gce, pd, d, pn, pl, pp
+            library_ms=b_lib, form=rows["softmax_xent"]["form"])
+        del xr, ce, gce, pd, d, nll, lse, pred
+    worst = dict(nll=0.0, lse=0.0, dlogits=0.0)
+    for n, v, name in xent_cases(kernels):
+        x, labels, tie_cols = _xent_inputs(torch, g, n, v, name)
+        gn = torch.full((n,), 1.0 / n, device="cuda")
+        gl = randn((n,), torch.float32)
+        for form in XENT_FORMS:
+            errs, (nll, lse, pred, d, pd) = _xent_hold(torch, kernels, x,
+                                                       labels, gn, gl, form)
+            what = f"softmax_xent ({n}, {v}) {name} {form}"
+            _xent_held(errs, what)
+            got = [int(pred[r]) for r in range(len(tie_cols))]
+            _check(got == [min(c) for c in tie_cols],
+                   f"{what}: planted ties {tie_cols} gave pred {got}")
+            worst = {k: max(worst[k], errs[k]) for k in worst}
+    print(f"[train-kernels] softmax_xent at V "
+          f"{sorted({v for _, v, _ in xent_cases(kernels)})}, f32 and bf16, "
+          f"both forms, planted ties, labels at 0, V - 1 and the last vector, "
+          f"an out-of-range label giving a NaN nll: worst nll err "
+          f"{worst['nll']:.3g}, lse err {worst['lse']:.3g}, dlogits "
+          f"{worst['dlogits']:.3g} of its tolerance, pred exact")
     return rows
 
 
@@ -2325,11 +2458,12 @@ SGD_ALEXNET = dict(lr=0.01, momentum=0.9, weight_decay=1e-4)
 
 
 def phase_alexnet_kernels(torch, kernels, F):
-    """K3 at AlexNet's loss shape, (2048, 1000) bf16, against its plain
-    version (labels over every class, planted argmax ties), timed by
-    ``_device_ms`` and by chain slope beside the bound and
-    ``F.cross_entropy``.  Returns the rows of both K3 kernels at this
-    shape."""
+    """K3 at AlexNet's loss shape, (2048, 1000) bf16, in each form against
+    its plain version (labels over every class and an out-of-range one,
+    planted argmax ties), timed by ``_device_ms`` and by chain slope
+    beside the bound and ``F.cross_entropy``.  Returns the rows of both K3
+    kernels at this shape, in the form the chooser takes, with each
+    form's times."""
     g = torch.Generator(device="cuda").manual_seed(16)
     n, v = ALEXNET["batch"], ALEXNET["classes"]
     x = 3.0 * torch.randn((n, v), generator=g, device="cuda")
@@ -2337,41 +2471,44 @@ def phase_alexnet_kernels(torch, kernels, F):
                            dtype=torch.int32)
     labels[:3] = torch.tensor([0, v - 1, 8], device="cuda", dtype=torch.int32)
     # Equal maxima inside one 8-element chunk, across chunks, at the
-    # row's two ends and three in a row.
+    # row's two ends and three in a row; then every place where a form
+    # splits a row (``_xent_tie_cols``).
+    tie_cols = [(3, 5), (7, 8), (v - 1, 0), (100, 7, v - 2)]
+    tie_cols += _xent_tie_cols(v)
     top = x.max() + 1.0
-    for r, cols in enumerate(((3, 5), (7, 8), (v - 1, 0), (100, 7, v - 2))):
+    for r, cols in enumerate(tie_cols):
         x[r, list(cols)] = top
     x = x.to(torch.bfloat16)
-    nll, lse, pred = kernels.softmax_xent(x, labels)
     gn = torch.full((n,), 1.0 / n, device="cuda")
     gl = torch.randn((n,), generator=g, device="cuda")
-    d = kernels.softmax_xent_bwd(x, labels, lse, gn, gl)
-    pn, pl, pp = kernels.softmax_xent_plain(x, labels)
-    pd = kernels.softmax_xent_bwd_plain(x, labels, lse, gn, gl)
-    torch.cuda.synchronize()
-    e_nll = (nll - pn).abs().max().item()
-    e_lse = (lse - pl).abs().max().item()
-    e_d = _xent_bwd_close(d, pd, labels, gn, TOL_XENT_BWD["bfloat16"])
-    miss = int((pred != pp).sum().item())
-    _check(e_nll <= TOL_XENT and e_lse <= TOL_XENT and e_d <= 1.0
-           and miss == 0,
-           f"softmax_xent ({n}, {v}) bf16: nll err {e_nll}, lse err {e_lse}, "
-           f"dlogits error {e_d} of the element tolerance, {miss} pred "
-           f"mismatches")
-    _check([int(pred[r]) for r in range(4)] == [3, 7, 0, 7],
-           f"softmax_xent ties: pred {pred[:4].tolist()}")
-    print(f"[alexnet-kernels] softmax_xent ({n}, {v}) bf16 with planted "
-          f"ties: nll err {e_nll:.3g} lse err {e_lse:.3g}, dlogits worst "
-          f"element {e_d:.3g} of its tolerance, pred exact")
+    # The held labels: the last row's out of range, which must give a NaN
+    # nll (the timed calls take ``labels``, which F.cross_entropy takes).
+    held_labels = labels.clone()
+    held_labels[-1] = v
+    errs = {}
+    for form in XENT_FORMS:
+        errs[form], (nll, lse, pred, d, pd) = _xent_hold(
+            torch, kernels, x, held_labels, gn, gl, form)
+        _xent_held(errs[form], f"softmax_xent ({n}, {v}) bf16 {form}")
+        got = [int(pred[r]) for r in range(len(tie_cols))]
+        _check(got == [min(c) for c in tie_cols],
+               f"softmax_xent {form} ties: pred {got}")
+        print(f"[alexnet-kernels] softmax_xent ({n}, {v}) bf16, {form} form, "
+              f"with {len(tie_cols)} rows of planted ties and an "
+              f"out-of-range label: nll err {errs[form]['nll']:.3g} lse err "
+              f"{errs[form]['lse']:.3g}, dlogits worst element "
+              f"{errs[form]['dlogits']:.3g} of its tolerance, pred exact")
+    chosen = kernels._xent_form(v)
+    lse = kernels._xent_fwd(x, labels, chosen.form)[1]
     lab64 = labels.long()
     xr = x.detach().clone().requires_grad_(True)
     ce = F.cross_entropy(xr, lab64, reduction="none")
     gce = gn.to(ce.dtype)
     fns = {
-        "fwd": (lambda: kernels.softmax_xent(x, labels),
+        "fwd": (lambda form: kernels._xent_fwd(x, labels, form),
                 lambda: kernels.softmax_xent_plain(x, labels),
                 lambda: F.cross_entropy(x, lab64, reduction="none")),
-        "bwd": (lambda: kernels.softmax_xent_bwd(x, labels, lse, gn, gl),
+        "bwd": (lambda form: kernels._xent_bwd(x, labels, lse, gn, gl, form),
                 lambda: kernels.softmax_xent_bwd_plain(x, labels, lse, gn, gl),
                 lambda: torch.autograd.grad(ce, xr, gce, retain_graph=True)),
     }
@@ -2379,26 +2516,31 @@ def phase_alexnet_kernels(torch, kernels, F):
     # scalars moved; about four f32 operations per logit.
     bounds = {"fwd": _bound_ms(n * v * 2 + 16 * n, 4 * n * v, "float32"),
               "bwd": _bound_ms(2 * n * v * 2 + 16 * n, 4 * n * v, "float32")}
-    errs = {"fwd": max(e_nll, e_lse),
-            "bwd": (d.float() - pd.float()).abs().max().item()}
     floor = _chain_ms(lambda i: torch.cuda._sleep(0))
     rows = {}
     for part, (kern, plain, lib) in fns.items():
-        ms, lib_ms = _pair_ms(kern, lib)
-        chain = _chain_ms(lambda i: kern())
         lib_chain = _chain_ms(lambda i: lib())
         plain_ms = _device_ms(plain)
         bound, by = bounds[part]
         name = "softmax_xent" if part == "fwd" else "softmax_xent_bwd"
-        print(f"[alexnet-kernels] {name} ({n}, {v}) bf16: one launch "
-              f"{ms:.6f} ms, chain slope {chain:.6f} (plain {plain_ms:.6f}; "
-              f"F.cross_entropy{' backward' if part == 'bwd' else ''} "
-              f"{lib_ms:.6f}, slope {lib_chain:.6f}; bound {bound:.6f} by "
-              f"{by}; launch floor {floor:.6f})")
+        forms = {}
+        for form in XENT_FORMS:
+            ms, lib_ms = _pair_ms(lambda: kern(form), lib)
+            chain = _chain_ms(lambda i: kern(form))
+            forms[form] = dict(ms=ms, chain_ms=chain)
+            print(f"[alexnet-kernels] {name} ({n}, {v}) bf16, {form} form: "
+                  f"one launch {ms:.6f} ms, chain slope {chain:.6f} (plain "
+                  f"{plain_ms:.6f}; F.cross_entropy"
+                  f"{' backward' if part == 'bwd' else ''} {lib_ms:.6f}, "
+                  f"slope {lib_chain:.6f}; bound {bound:.6f} by {by}; launch "
+                  f"floor {floor:.6f})")
+        err = max(errs[f][k] for f in XENT_FORMS for k in (
+            ("nll", "lse") if part == "fwd" else ("dlogits_abs",)))
         rows[f"{name}@alexnet"] = dict(
-            max_abs_err=errs[part], ms=ms, chain_ms=chain, plain_ms=plain_ms,
+            max_abs_err=err, **forms[chosen.form], plain_ms=plain_ms,
             bound_ms=bound, bound_by=by, library_ms=lib_ms,
-            library_chain_ms=lib_chain, launch_floor_ms=floor)
+            library_chain_ms=lib_chain, launch_floor_ms=floor,
+            form=_form_name(chosen), forms=forms)
     return rows
 
 

@@ -36,7 +36,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -162,9 +162,9 @@ def _load(name: str) -> ctypes.CDLL:
         lib.ff_flash_decode.argtypes = [p] * 7 + [i, i, i, i, i, f, i, p]
         lib.ff_flash_decode.restype = i
     elif name == "softmax_xent":
-        lib.ff_xent_fwd.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.ff_xent_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.ff_xent_fwd.restype = i
-        lib.ff_xent_bwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
+        lib.ff_xent_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         lib.ff_xent_bwd.restype = i
     elif name == "embedding_rows":
         ll = ctypes.c_longlong
@@ -786,20 +786,60 @@ def _xent_check(what, logits, labels):
     return _check_cuda(what, logits, head_dim=False)
 
 
-def _xent_fwd(logits, labels):
+#: K3's threads per CTA, in both forms.
+_XENT_THREADS = 256
+#: K3 takes the row-group form up to this many classes and a CTA per row
+#: above: where the two forms' forward and backward chain slopes, summed,
+#: cross at N = 2048 bf16 (``tools/kernel_race.py``'s sweep, PERF.md §6).
+_XENT_ROWS_MAX_V = 8192
+
+
+class XentForm(NamedTuple):
+    """How K3 covers a row of V classes (``csrc/softmax_xent.cu``)."""
+
+    form: str            # "rows": row groups; "cta": a CTA per row
+    rows_per_cta: int
+    lanes_per_row: int   # threads that share a row
+    loads: str           # "16-byte" (V % 8 == 0) or "scalar"
+
+
+def _xent_form(v: int, force: Optional[str] = None) -> XentForm:
+    """K3's form for rows of ``v`` classes: row groups (8 lanes a row up
+    to 64 classes, 16 up to 128, else a warp) up to
+    ``_XENT_ROWS_MAX_V`` classes, a 256-thread CTA per row above; or the
+    form ``force`` names ("rows", "cta"), which takes every shape."""
+    form = force or ("rows" if v <= _XENT_ROWS_MAX_V else "cta")
+    loads = "16-byte" if v % 8 == 0 else "scalar"
+    if form == "cta":
+        return XentForm("cta", 1, _XENT_THREADS, loads)
+    if form != "rows":
+        raise ValueError(f"softmax_xent: form {form!r} is not 'rows' or "
+                         f"'cta'")
+    lanes = 8 if v <= 64 else 16 if v <= 128 else 32
+    return XentForm("rows", _XENT_THREADS // lanes, lanes, loads)
+
+
+def _xent_lanes(form: XentForm) -> int:
+    """The C entries' ``lanes``: 0 for a CTA per row."""
+    return 0 if form.form == "cta" else form.lanes_per_row
+
+
+def _xent_fwd(logits, labels, form: Optional[str] = None):
     """K3 forward on already dense operands: the plain version on the
-    CPU, the kernel on CUDA (counted in ``softmax_xent.launches``)."""
+    CPU, the kernel on CUDA (counted in ``softmax_xent.launches``) in the
+    form :func:`_xent_form` picks, or in ``form`` ("rows", "cta")."""
     if logits.device.type == "cpu":
         return softmax_xent_plain(logits, labels)
     code = _xent_check("softmax_xent", logits, labels)
     n, v = logits.shape
+    lanes = _xent_lanes(_xent_form(v, form))
     nll = torch.empty((n,), dtype=torch.float32, device=logits.device)
     lse = torch.empty_like(nll)
     pred = torch.empty((n,), dtype=torch.int32, device=logits.device)
     stream = torch.cuda.current_stream(logits.device).cuda_stream
     err = _load("softmax_xent").ff_xent_fwd(
         logits.data_ptr(), labels.data_ptr(), nll.data_ptr(), lse.data_ptr(),
-        pred.data_ptr(), n, v, code, stream,
+        pred.data_ptr(), n, v, code, lanes, stream,
     )
     _raise_on(err, "softmax_xent")
     softmax_xent.launches += 1
@@ -811,10 +851,19 @@ def softmax_xent_bwd(logits, labels, lse, g_nll=None, g_lse=None):
     ``nll`` and ``lse`` (None is zero; ``pred`` has none), in the
     logits' dtype.  The port of ``pallas_kernels._xent_bwd_kernel``;
     source ``csrc/softmax_xent.cu``."""
+    return _xent_bwd(logits, labels, lse, g_nll, g_lse)
+
+
+def _xent_bwd(logits, labels, lse, g_nll=None, g_lse=None,
+              form: Optional[str] = None):
+    """:func:`softmax_xent_bwd` in the form :func:`_xent_form` picks, or
+    in ``form`` ("rows", "cta"); counted in
+    ``softmax_xent_bwd.launches``."""
     if logits.device.type == "cpu":
         return softmax_xent_bwd_plain(logits, labels, lse, g_nll, g_lse)
     code = _xent_check("softmax_xent_bwd", logits, labels)
     n, v = logits.shape
+    lanes = _xent_lanes(_xent_form(v, form))
     logits, labels = _dense(logits), labels.contiguous()
     lse = lse.float().contiguous()
     g_nll = None if g_nll is None else g_nll.float().contiguous()
@@ -825,7 +874,7 @@ def softmax_xent_bwd(logits, labels, lse, g_nll=None, g_lse=None):
         logits.data_ptr(), labels.data_ptr(), lse.data_ptr(),
         None if g_nll is None else g_nll.data_ptr(),
         None if g_lse is None else g_lse.data_ptr(), dlogits.data_ptr(), n, v,
-        code, stream,
+        code, lanes, stream,
     )
     _raise_on(err, "softmax_xent_bwd")
     softmax_xent_bwd.launches += 1

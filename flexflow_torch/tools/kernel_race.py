@@ -1,9 +1,12 @@
-"""This checkout's K4, K6, bf16 K1s, K1f, K1b and the race's bf16 v2, v3,
-v4 and b2 beside another checkout's, in one process on the card.
+"""This checkout's K4, K6, bf16 K1s, K1f, K1b, the race's bf16 v2, v3, v4
+and b2, and K3 beside another checkout's, in one process on the card.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 -m flexflow_torch.tools.kernel_race --against DIR
+    python3 -m flexflow_torch.tools.kernel_race --against DIR [--only PARTS]
+
+``PARTS`` is a comma-separated subset of ``PARTS`` (gather, decode,
+streamed, race, xent, xent-sweep); all run by default.
 
 ``DIR`` is the root of another checkout of this repository (an earlier
 commit unpacked with ``git archive``, say).  Its
@@ -40,14 +43,23 @@ function and the bound, at the main path's shapes:
   g_lse``) at the same shapes, b2 at both blocks, beside SDPA's backward
   and the backward's bound.
   The other checkout's ``probe_kernels.py`` is loaded bound to its own
-  ``kernels.py``.
+  ``kernels.py``;
+- K3 (``softmax_xent``, ``softmax_xent_bwd``) at AlexNet's (2048, 1000)
+  and the LM's (32768, 32768) bf16, by one launch and by chain slope,
+  beside ``F.cross_entropy`` (and its backward), the bound and the launch
+  floor; then the sweep: chain slopes of this checkout's two forms and
+  the other checkout's kernel at N = 2048 over ``XENT_SWEEP`` classes in
+  bf16 (where the forms cross: ``kernels._XENT_ROWS_MAX_V``) and f32.
 
 Before the times, each pair is held together: K6's outputs by
 ``chip_smoke._decode_close`` against the plain version on both sides;
 K1s's ``o`` and ``lse``, and v2's, v3's and v4's ``o``, by twice K1f's
 element rule against each other; b2's ``dq``, ``dk`` and ``dv`` by twice
 K1b's (``chip_smoke.TOL_ELEM["stream_bwd"]``); K1f's ``o`` and ``lse`` and
-K1b's ``dq``, ``dk`` and ``dv`` must be bit-identical.  Whether this
+K1b's ``dq``, ``dk`` and ``dv`` must be bit-identical; K3's nll and lse
+within ``chip_smoke.TOL_XENT``, its dlogits (from one lse) by
+``TOL_XENT_BWD``'s element rule and pred exactly (the sums run in another
+order, so the bits may differ).  Whether this
 checkout's v2 at block 128 gives K1f's ``o`` bit for bit is printed too.
 The card's name and power limit come first.
 """
@@ -337,11 +349,143 @@ def gather(cs, ours, theirs, F) -> None:
     torch.cuda.empty_cache()
 
 
+def _xent_inputs(g, n: int, v: int, dtype=torch.bfloat16):
+    """Logits (3 randn, in ``dtype``), int32 labels over every class, the
+    nll cotangent 1 / n and a random lse cotangent."""
+    x = (3.0 * torch.randn((n, v), generator=g, device="cuda")).to(dtype)
+    labels = torch.randint(0, v, (n,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    gn = torch.full((n,), 1.0 / n, device="cuda")
+    gl = torch.randn((n,), generator=g, device="cuda")
+    return x, labels, gn, gl
+
+
+def _xent_agree(cs, x, labels, gn, a, b, what: str) -> str:
+    """Holds two K3 results ``(nll, lse, pred, dlogits)`` to each other:
+    nll and lse within ``TOL_XENT``, dlogits by ``TOL_XENT_BWD``'s
+    element rule, pred exact; returns the readings."""
+    e_nll = (a[0] - b[0]).abs().max().item()
+    e_lse = (a[1] - b[1]).abs().max().item()
+    e_d = cs._xent_bwd_close(a[3], b[3], labels, gn,
+                             cs.TOL_XENT_BWD[cs._dtype_name(x.dtype)])
+    same = torch.equal(a[2], b[2])
+    cs._check(e_nll <= cs.TOL_XENT and e_lse <= cs.TOL_XENT and e_d <= 1.0
+              and same, f"{what}: nll err {e_nll}, lse err {e_lse}, dlogits "
+              f"{e_d} of the element tolerance, pred equal: {same}")
+    return (f"nll err {e_nll:.3g}, lse err {e_lse:.3g}, dlogits {e_d:.3g} of "
+            f"the element tolerance, pred equal")
+
+
+def xent(cs, ours, theirs, F) -> None:
+    """K3 forward and backward at AlexNet's (2048, 1000) and the LM's
+    (32768, 32768) bf16 against the other checkout's, by one launch and
+    by chain slope, in turns, beside ``F.cross_entropy`` and the launch
+    floor; both sides' outputs held to each other first (the backward
+    from the same lse)."""
+    g = torch.Generator(device="cuda").manual_seed(54)
+    floor = cs._chain_ms(lambda _: torch.cuda._sleep(0))
+    print(f"[kernel-race] softmax_xent: launch floor (chain slope of "
+          f"torch.cuda._sleep(0)) {floor:.6f} ms", flush=True)
+    for n, v in ((2048, 1000), (32768, 32768)):
+        x, labels, gn, gl = _xent_inputs(g, n, v)
+        lse = ours.softmax_xent(x, labels)[1]
+        out = {}
+        for side, mod in (("ours", ours), ("theirs", theirs)):
+            nll, lse_s, pred = mod.softmax_xent(x, labels)
+            out[side] = (nll, lse_s, pred,
+                         mod.softmax_xent_bwd(x, labels, lse, gn, gl))
+        held = _xent_agree(cs, x, labels, gn, out["ours"], out["theirs"],
+                           f"softmax_xent ({n}, {v})")
+        del out
+        form = cs._form_name(ours._xent_form(v))
+        lab64 = labels.long()
+        xr = x.detach().clone().requires_grad_(True)
+        ce = F.cross_entropy(xr, lab64, reduction="none")
+        gce = gn.to(ce.dtype)
+        parts = {
+            "softmax_xent": (
+                lambda m: m.softmax_xent(x, labels),
+                lambda: F.cross_entropy(x, lab64, reduction="none"),
+                cs._bound_ms(n * v * 2 + 16 * n, 4 * n * v, "float32")),
+            "softmax_xent_bwd": (
+                lambda m: m.softmax_xent_bwd(x, labels, lse, gn, gl),
+                lambda: torch.autograd.grad(ce, xr, gce, retain_graph=True),
+                cs._bound_ms(2 * n * v * 2 + 16 * n, 4 * n * v, "float32")),
+        }
+        for name, (call, lib, (bound, by)) in parts.items():
+            t_theirs, t_ours = cs._pair_ms(lambda: call(theirs),
+                                           lambda: call(ours))
+            c_theirs, c_ours = _pair_chain(cs, lambda _: call(theirs),
+                                           lambda _: call(ours))
+            t_lib, c_lib = cs._device_ms(lib), cs._chain_ms(lambda _: lib())
+            print(f"[kernel-race] {name} ({n}, {v}) bf16, ours {form}: one "
+                  f"launch ours {t_ours:.6f} ms, theirs {t_theirs:.6f} "
+                  f"({t_theirs / t_ours:.3f}x); chain slope ours "
+                  f"{c_ours:.6f}, theirs {c_theirs:.6f} "
+                  f"({c_theirs / c_ours:.3f}x); F.cross_entropy"
+                  f"{' backward' if 'bwd' in name else ''} {t_lib:.6f} / "
+                  f"{c_lib:.6f}; bound {bound:.6f} by {by}; floor "
+                  f"{floor:.6f}; {held}", flush=True)
+        del x, labels, gn, gl, lse, xr, ce, gce
+        torch.cuda.empty_cache()
+
+
+#: The sweep's class counts: where K3's two forms cross.
+XENT_SWEEP = (10, 100, 1000, 2048, 4096, 8192, 16384, 32768)
+
+
+def xent_sweep(cs, ours, theirs) -> None:
+    """K3's chain slopes at N = 2048 over ``XENT_SWEEP`` in each of this
+    checkout's forms (row groups, a CTA per row) and the other
+    checkout's, in bf16 (the crossover's) and f32, each form held to the
+    other checkout's outputs first; the chooser's form beside them."""
+    g = torch.Generator(device="cuda").manual_seed(55)
+    n = 2048
+    for dt, v in ((dt, v) for dt in (torch.bfloat16, torch.float32)
+                  for v in XENT_SWEEP):
+        x, labels, gn, gl = _xent_inputs(g, n, v, dt)
+        lse = theirs.softmax_xent(x, labels)[1]
+        ref = theirs.softmax_xent(x, labels) + (
+            theirs.softmax_xent_bwd(x, labels, lse, gn, gl),)
+        calls = {"theirs": (lambda: theirs.softmax_xent(x, labels),
+                            lambda: theirs.softmax_xent_bwd(x, labels, lse,
+                                                            gn, gl))}
+        for form in cs.XENT_FORMS:
+            calls[form] = (
+                lambda form=form: ours._xent_fwd(x, labels, form),
+                lambda form=form: ours._xent_bwd(x, labels, lse, gn, gl,
+                                                 form))
+            _xent_agree(cs, x, labels, gn,
+                        calls[form][0]() + (calls[form][1](),), ref,
+                        f"softmax_xent ({n}, {v}) {dt} {form}")
+        slopes = {side: [cs._chain_ms(lambda _: fn()) for fn in fns]
+                  for side, fns in calls.items()}
+        chosen = ours._xent_form(v).form
+        print(f"[kernel-race] softmax_xent sweep ({n}, {v}) "
+              f"{cs._dtype_name(dt)}, chain "
+              f"slope fwd / bwd ms: " + ", ".join(
+                  f"{side} {f:.6f} / {b:.6f}" for side, (f, b) in
+                  slopes.items()) + f"; the chooser takes {chosen}",
+              flush=True)
+        del x, labels, gn, gl, lse, ref
+    torch.cuda.empty_cache()
+
+
+#: The parts of the race, in the order they run (``--only`` picks some).
+PARTS = ("gather", "decode", "streamed", "race", "xent", "xent-sweep")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 2 or argv[0] != "--against":
-        print("usage: python3 -m flexflow_torch.tools.kernel_race --against "
-              "DIR", file=sys.stderr)
+    only = PARTS
+    if len(argv) == 4 and argv[2] == "--only":
+        only = tuple(argv[3].split(","))
+        argv = argv[:2]
+    if (len(argv) != 2 or argv[0] != "--against"
+            or not set(only) <= set(PARTS)):
+        print(f"usage: python3 -m flexflow_torch.tools.kernel_race --against "
+              f"DIR [--only PART[,PART]] (parts: {', '.join(PARTS)})",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("kernel_race: no CUDA device", file=sys.stderr)
@@ -358,14 +502,23 @@ def main(argv=None) -> int:
     root = os.path.abspath(argv[1])
     theirs = _other_kernels(root)
     theirs_probe = _other_probe(root, theirs)
-    libs = ("flash_fwd", "flash_bwd", "flash_stream", "flash_decode",
-            "flash_probe", "flash_probe_bwd", "embedding_rows")
+    libs = ("softmax_xent",)
+    if not set(only) <= {"xent", "xent-sweep"}:
+        libs += ("flash_fwd", "flash_bwd", "flash_stream", "flash_decode",
+                 "flash_probe", "flash_probe_bwd", "embedding_rows")
     ours.build(libs)
     theirs.build(libs)
-    gather(cs, ours, theirs, F)
-    decode(cs, ours, theirs, F)
-    streamed(cs, ours, theirs, F)
-    race(cs, ours, theirs, ours_probe, theirs_probe, F)
+    runs = {
+        "gather": lambda: gather(cs, ours, theirs, F),
+        "decode": lambda: decode(cs, ours, theirs, F),
+        "streamed": lambda: streamed(cs, ours, theirs, F),
+        "race": lambda: race(cs, ours, theirs, ours_probe, theirs_probe, F),
+        "xent": lambda: xent(cs, ours, theirs, F),
+        "xent-sweep": lambda: xent_sweep(cs, ours, theirs),
+    }
+    for part in PARTS:
+        if part in only:
+            runs[part]()
     return 0
 
 

@@ -3,7 +3,7 @@ decode (K6) on the card.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 -m flexflow_torch.tools.stream_numerics [--mutants]
+    python3 -m flexflow_torch.tools.stream_numerics [--mutants [--groups G,...]]
 
 It prints, for the bf16 kernels (K1f of ``csrc/flash_fwd.cu``, which is
 also the bf16 K1s; K1b of ``csrc/flash_bwd.cu``, which is also the bf16
@@ -56,8 +56,17 @@ K1sb):
    In ``embedding_rows.cu`` K4 reading the third table's rows from the
    first, held bit for bit through ``gather_rows`` and the three-table
    ``gather_rows_multi`` at a table of the DLRM shape and one of D = 65.
+   In ``softmax_xent.cu`` K3's row groups merging equal maxima to the
+   larger index, a lane dropping its last vector when V is not a multiple
+   of the group's stride, and the backward dropping the one-hot term
+   where the label lies in a lane's second vector, each held in the
+   row-group form of K3's forward and backward against the plain
+   versions (``chip_smoke._xent_hold``) at (2048, 1000) bf16 and (2048,
+   1001) f32, with planted ties and labels.
    The unmutated kernels must pass and each mutant must fail at every
-   case; the exit code is 1 otherwise.
+   case; the exit code is 1 otherwise.  ``--mutants --groups k3,k4`` runs
+   only the planted faults of those groups of ``MUTANT_CASES`` (and not
+   parts 1-3).
 
 The card's name and power limit come first.
 """
@@ -284,6 +293,23 @@ MUTANTS = {
          "  return reinterpret_cast<const V*>(p.table[t == 2 ? 0 : t]) +\n"
          "         (size_t)row * cols;"),
     ]),
+    # K3's row groups merge equal maxima to the larger index.
+    "k3-merge-prefers-larger-index": ("softmax_xent.cu", "k3", [
+        ("const bool take = om > mx || (om == mx && oi < ix);",
+         "const bool take = om > mx || (om == mx && oi > ix);"),
+    ]),
+    # K3's row groups: a lane drops its last vector of the row when V is
+    # not a multiple of the group's stride (lanes x vector width).
+    "k3-lane-drops-last-vector": ("softmax_xent.cu", "k3", [
+        ("    const bool in = c < v;  // the lane's vector k lies in the row",
+         "    const bool in = c < v && (v % (L * W) == 0 || c + L * W < v);"),
+    ]),
+    # K3's row-group backward drops the one-hot term where the label lies
+    # in a lane's second vector.
+    "k3-bwd-drops-second-vector-onehot": ("softmax_xent.cu", "k3", [
+        ("r[i] = expf(r[i] - ls) * g - (c + e == lab ? gn : 0.f);",
+         "r[i] = expf(r[i] - ls) * g - (c + e == lab && k != 1 ? gn : 0.f);"),
+    ]),
     # K6's merge gives the last non-empty split (the one that holds key
     # lengths[b] - 1) weight 0.
     "k6-merge-skips-last-split": ("flash_decode.cu", "k6", [
@@ -334,6 +360,8 @@ MUTANT_CASES = {
            ((1, 2, 640, 128), "bfloat16", "b2")),
     "k4": (((8_000_000, 64), "float32", "gather"),
            ((100_000, 65), "float32", "gather")),
+    "k3": (((2048, 1000), "bfloat16", "xent"),
+           ((2048, 1001), "float32", "xent")),
 }
 #: Groups whose cases each run in a child process (``--case``).
 CHILD_GROUPS = ("race", "poison")
@@ -406,6 +434,30 @@ def _gather_parts(kernels, table, ids) -> dict:
             for name, got, want in pairs}
 
 
+def _xent_inputs(cs, g, shape, dt):
+    """K3's mutant inputs: ``chip_smoke._xent_inputs`` (planted ties where
+    the forms split a row, labels at the row's edges, in a warp lane's
+    second vector and one out of range), the nll cotangent 1 / N and a
+    random lse cotangent."""
+    n, v = shape
+    x, labels, _ = cs._xent_inputs(torch, g, n, v, dt)
+    return (x, labels, torch.full((n,), 1.0 / n, device="cuda"),
+            torch.randn((n,), generator=g, device="cuda"))
+
+
+def _xent_parts(cs, kernels, x, labels, g_nll, g_lse) -> dict:
+    """K3's row groups, where the planted faults lie, against the plain
+    versions (``chip_smoke._xent_hold``): nll and lse as shares of
+    ``TOL_XENT``, dlogits of ``TOL_XENT_BWD``'s element rule, pred 0 when
+    exact, else inf; above 1 fails."""
+    errs, _ = cs._xent_hold(torch, kernels, x, labels, g_nll, g_lse, "rows")
+    ratio = lambda e: e if math.isfinite(e) else math.inf
+    return {"nll": ratio(errs["nll"] / cs.TOL_XENT),
+            "lse": ratio(errs["lse"] / cs.TOL_XENT),
+            "dlogits": ratio(errs["dlogits"]),
+            "pred": 0.0 if errs["pred"] == 0 else math.inf}
+
+
 def case(root: str, group: str, index: int) -> int:
     """Case ``index`` of a child group in this process, on the kernels
     built from ``root``'s ``csrc`` (``-``: this checkout's): prints ``CASE
@@ -475,10 +527,10 @@ def _variant_dir(kernels, name: str, source: str, edits) -> str:
     return root
 
 
-def mutants(kernels) -> list:
-    """Holds the unmutated kernels and every mutant at its cases; returns
-    what went wrong (an unmutated case that fails, a mutant case that
-    passes)."""
+def mutants(kernels, groups=tuple(MUTANT_CASES)) -> list:
+    """Holds the unmutated kernels and every mutant of ``groups`` (of
+    ``MUTANT_CASES``) at its cases; returns what went wrong (an unmutated
+    case that fails, a mutant case that passes)."""
     import chip_smoke as cs
     from flexflow_torch.ops import probe_kernels as probe
 
@@ -490,11 +542,13 @@ def mutants(kernels) -> list:
         x = torch.randn(shape, generator=g, device="cuda")
         return x.to(getattr(torch, dt))
 
-    for group, cases in MUTANT_CASES.items():
-        for shape, dt, pair in cases:
+    for group in groups:
+        for shape, dt, pair in MUTANT_CASES[group]:
             if group in CHILD_GROUPS or (shape, dt) in inputs:
                 continue
-            if pair == "gather":  # 2048 ids, a few out of range
+            if pair == "xent":
+                inputs[shape, dt] = _xent_inputs(cs, g, shape, dt)
+            elif pair == "gather":  # 2048 ids, a few out of range
                 ids = torch.randint(0, shape[0], (2048,), generator=g,
                                     device="cuda")
                 ids[::97] = -1
@@ -509,8 +563,9 @@ def mutants(kernels) -> list:
                 inputs[shape, dt] = [randn(shape, dt) for _ in range(4)] + [
                     randn(shape[:3])]
     real = (kernels._SRC_DIR, kernels._BUILD_DIR)
-    runs = [(None, group) for group in MUTANT_CASES]
-    runs += [(name, MUTANTS[name][1]) for name in MUTANTS]
+    runs = [(None, group) for group in groups]
+    runs += [(name, MUTANTS[name][1]) for name in MUTANTS
+             if MUTANTS[name][1] in groups]
     wrong = []
     for name, group in runs:
         lib = None
@@ -533,6 +588,8 @@ def mutants(kernels) -> list:
                                                    o, po)}
                 elif pair == "gather":
                     parts = _gather_parts(kernels, *inputs[shape, dt])
+                elif pair == "xent":
+                    parts = _xent_parts(cs, kernels, *inputs[shape, dt])
                 elif pair in ("v2", "b2"):
                     q, k, v, do, g_lse = inputs[shape, dt]
                     parts = _row_state_parts(cs, kernels, probe, pair, q, k,
@@ -575,6 +632,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(card(), flush=True)
     kernels.build()
+    if argv[:2] == ["--mutants", "--groups"]:
+        return 1 if mutants(kernels, tuple(argv[2].split(","))) else 0
     for hd in kernels._STREAM_HEAD_DIMS:
         scores(kernels, hd)
     for hd in kernels._STREAM_HEAD_DIMS:

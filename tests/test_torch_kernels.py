@@ -519,6 +519,186 @@ def test_training_kernels_never_fall_back(which):
                                                               device="meta"))
 
 
+# K3's two forms on the card: the chooser, the layouts the checks plant
+# ties at, the row-group body and its planted faults
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("v, want", [
+    (1000, ("rows", 8, 32, "16-byte")),      # AlexNet's (2048, 1000)
+    (10, ("rows", 32, 8, "scalar")),         # (64, 10)
+    (32768, ("cta", 1, 256, "16-byte")),     # the LM's (32768, 32768)
+    (1001, ("rows", 8, 32, "scalar")),
+    (64, ("rows", 32, 8, "16-byte")),
+    (100, ("rows", 16, 16, "scalar")),
+    (128, ("rows", 16, 16, "16-byte")),
+    (8192, ("rows", 8, 32, "16-byte")),
+    (8193, ("cta", 1, 256, "scalar")),
+    (32771, ("cta", 1, 256, "scalar"))])
+def test_xent_form_picks_row_groups_for_short_rows(v, want):
+    """The row-group form (8, 16 or 32 lanes a row, 256 / lanes rows a
+    CTA) up to the crossover, a CTA per row above it; the same at any
+    number of rows."""
+    assert tuple(kernels._xent_form(v)) == want
+    assert kernels._xent_form(v) == kernels.XentForm(*want)
+
+
+@pytest.mark.parametrize("force", ["rows", "cta"])
+def test_xent_scalar_loads_only_when_v_is_not_a_multiple_of_8(force):
+    """Either form takes 16-byte vectors when V % 8 == 0 and single
+    elements otherwise, at every V; ``force`` takes every V."""
+    for v in list(range(1, 300)) + [999, 1000, 1001, 32768, 32771]:
+        f = kernels._xent_form(v, force)
+        assert f.form == force
+        assert (f.loads == "scalar") == (v % 8 != 0), v
+        assert f.rows_per_cta * (f.lanes_per_row if force == "rows" else 1) \
+            == (kernels._XENT_THREADS if force == "rows" else 1)
+
+
+def test_xent_crossover_is_the_one_perf_records():
+    """The chooser's crossover is the one PERF.md reports from the sweep,
+    and the forms' C entries take 0 (a CTA per row) or the lanes a row."""
+    with open(os.path.join(os.path.dirname(kernels._PKG_DIR),
+                           "PERF.md")) as fh:
+        perf = fh.read()
+    assert (f"`_XENT_ROWS_MAX_V` = {kernels._XENT_ROWS_MAX_V}" in perf)
+    cross = kernels._XENT_ROWS_MAX_V
+    assert kernels._xent_form(cross).form == "rows"
+    assert kernels._xent_form(cross + 1).form == "cta"
+    assert kernels._xent_lanes(kernels._xent_form(cross + 8)) == 0
+    assert kernels._xent_lanes(kernels._xent_form(cross - 8)) == 32
+    with pytest.raises(ValueError, match="form 'warp'"):
+        kernels._xent_form(1000, "warp")
+
+
+@pytest.mark.parametrize("form", ["rows", "cta", None])
+def test_xent_entries_in_either_form_run_the_plain_version_on_the_cpu(form):
+    """On the CPU the forward and backward in either form are the plain
+    versions, and launch nothing."""
+    logits, labels = _xent_inputs(18, 16, 1000)
+    x, lab = torch.from_numpy(logits), torch.from_numpy(labels)
+    g = torch.full((16,), 1 / 16)
+    before = (kernels.softmax_xent.launches, kernels.softmax_xent_bwd.launches)
+    got = kernels._xent_fwd(x, lab, form)
+    d = kernels._xent_bwd(x, lab, got[1], g, g, form)
+    assert (kernels.softmax_xent.launches,
+            kernels.softmax_xent_bwd.launches) == before
+    for a, b in zip(got, kernels.softmax_xent_plain(x, lab)):
+        assert torch.equal(a, b)
+    assert torch.equal(d, kernels.softmax_xent_bwd_plain(x, lab, got[1], g, g))
+
+
+@pytest.mark.parametrize("v", [1000, 10])
+def test_softmax_xent_plain_matches_the_jax_unfused_loss(v):
+    """At a classifier's class counts the JAX loss op takes its unfused
+    path (its kernel's gate refuses them): per row, ``nll`` is that path's
+    loss within 1e-5 and ``pred`` its argmax exactly (the op counts a row
+    correct against the port's pred), with equal maxima planted where the
+    CUDA forms split a row."""
+    import chip_smoke
+    import flexflow_tpu.ops as jops
+    from flexflow_tpu.ops.base import TensorSpec as JSpec
+
+    n = 24
+    assert not pallas_kernels.xent_supported(1, v)
+    logits, labels = _xent_inputs(19 + v, n, v)
+    ties = chip_smoke._xent_tie_cols(v)
+    top = logits.max() + 1.0
+    for r, cols in enumerate(ties):
+        logits[r, list(cols)] = top
+    nll, _, pred = kernels.softmax_xent(torch.from_numpy(logits),
+                                        torch.from_numpy(labels))
+    assert [int(pred[r]) for r in range(len(ties))] == [min(c) for c in ties]
+    jop = jops.SoftmaxCrossEntropy(
+        "softmax", JSpec("lg", (1, v), jnp.float32, ("n", None)),
+        JSpec("lb", (1,), jnp.int32, ("n",)))
+    for r in range(n):
+        row = jnp.asarray(logits[r:r + 1])
+        for lab, check in ((labels[r], "nll"), (int(pred[r]), "pred")):
+            (loss, m, _), _ = jop.forward(
+                {}, [row, jnp.asarray([lab], jnp.int32)], {}, False)
+            if check == "nll":
+                np.testing.assert_allclose(float(nll[r]), float(loss),
+                                           atol=TOL, rtol=0)
+            else:
+                assert int(m["train_correct"]) == 1, (r, int(pred[r]))
+
+
+def _xent_layouts():
+    """(form, vector width, threads a row) of every way the CUDA forms
+    split a row: row groups of 8, 16 or 32 lanes over bf16 and f32
+    16-byte vectors or single elements; a CTA of 256 threads over
+    8-element vectors or single elements."""
+    rows = [("rows", w, lanes) for w in (8, 4, 1) for lanes in (8, 16, 32)]
+    return rows + [("cta", w, 256) for w in (8, 1)]
+
+
+@pytest.mark.parametrize("v", [1000, 1001, 8184, 32768, 32771])
+def test_planted_ties_cover_every_split_of_a_row(v):
+    """chip_smoke's planted equal maxima lie, for every layout of both
+    forms, inside one vector, across two threads of a row and across two
+    vectors of one thread (where a thread has two), and at the row's two
+    ends."""
+    import chip_smoke
+
+    sets = chip_smoke._xent_tie_cols(v)
+    assert (v - 1, 0) in sets
+    for form, w, lanes in _xent_layouts():
+        where = [[(c // w % lanes, c // w) for c in cols] for cols in sets]
+        same_vec = any(len({vec for _, vec in s}) < len(s) for s in where)
+        two_lanes = any(len({ln for ln, _ in s}) > 1 for s in where)
+        one_lane = any(len({ln for ln, _ in s}) < len({vec for _, vec in s})
+                       for s in where)
+        assert two_lanes, (form, w, lanes)
+        # A thread holds two vectors of the row only past one stride.
+        assert one_lane or v <= w * lanes, (form, w, lanes)
+        assert same_vec or w == 1, (form, w, lanes)
+
+
+def _xent_code():
+    with open(os.path.join(kernels._SRC_DIR, "softmax_xent.cu")) as fh:
+        return re.sub(r"//[^\n]*", "", fh.read())
+
+
+def test_xent_row_groups_load_first_and_merge_by_shuffles_alone():
+    """The row-group forward loads the label and the lane's whole tile
+    before its first reduction and merges with warp shuffles only (no
+    shared memory, no barrier); the backward loads the row's scalars and
+    the tile before its first store; the CTA per row loads the label
+    before its walk."""
+    code = _xent_code()
+    fwd = code.split("xent_rows_fwd_kernel(", 1)[1].split("\n}\n", 1)[0]
+    assert fwd.index("labels[row]") < fwd.index("load_tile<") \
+        < fwd.index("> cm")
+    assert "__shfl_xor_sync" in fwd and "__shfl_sync" in fwd
+    assert "__shared__" not in fwd and "__syncthreads" not in fwd
+    bwd = code.split("xent_rows_bwd_kernel(", 1)[1].split("\n}\n", 1)[0]
+    assert max(bwd.index(s) for s in ("labels[row]", "lse[row]", "g_nll[row]",
+                                      "g_lse[row]")) \
+        < bwd.index("load_tile<") < bwd.index("store_vec(")
+    cta = code.split("xent_fwd_kernel(", 1)[1].split("\n}\n", 1)[0]
+    assert cta.index("labels[row]") < cta.index("absorb(")
+    assert "x[lab]" not in cta
+
+
+def test_k3_mutants_are_held_at_alexnet_and_v1001():
+    """The three planted row-group faults (ties to the larger index, a
+    lane's last vector dropped, the backward's one-hot dropped in a lane's
+    second vector) each edit a line of ``softmax_xent.cu`` once and are
+    held at (2048, 1000) bf16 and (2048, 1001) f32."""
+    from flexflow_torch.tools import stream_numerics as sn
+
+    k3 = {n: m for n, m in sn.MUTANTS.items() if m[1] == "k3"}
+    assert len(k3) == 3
+    with open(os.path.join(kernels._SRC_DIR, "softmax_xent.cu")) as fh:
+        text = fh.read()
+    for source, _, edits in k3.values():
+        assert source == "softmax_xent.cu"
+        assert all(text.count(old) == 1 and old != new for old, new in edits)
+    assert sn.MUTANT_CASES["k3"] == (((2048, 1000), "bfloat16", "xent"),
+                                     ((2048, 1001), "float32", "xent"))
+
+
 # ---------------------------------------------------------------------------
 # K4 / K5: the embedding row gather and scatter-add
 # ---------------------------------------------------------------------------
