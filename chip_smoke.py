@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Eighteen phases, in order; any failure raises and exits non-zero:
+Nineteen phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -173,11 +173,30 @@ Eighteen phases, in order; any failure raises and exits non-zero:
     window where its own differs only within rounding of the kink
     (``_CardBranches``): loss, every gradient and every updated parameter
     within the stated tolerances.
+19. **Superstep.**  K train steps as one CUDA graph
+    (``Executor.build_superstep``) at bench.py's widths, each run held
+    bit for bit (every step's loss, every parameter, Adam's moments and
+    ``t``) against the same number of eager steps, after two eager runs
+    are held against each other: (a) phase 5's LM through
+    ``Trainer.fit(steps_per_call=4)``, 4 + 4 steps (K1f, K1b, K3 in the
+    graph); (b) phase 9's DLRM, plain SGD on the row-sparse path, at
+    ``steps_per_call=8``, 8 + 16 steps (K4, K5 in the graph); (c) the LM
+    through ``apps.transformer`` with ``--accum-steps 2 --remat
+    --steps-per-call 2``, 2 + 3 steps, the last a tail superstep captured
+    before the timed calls, finite falling losses.  The launch counters
+    advance at capture and not at replay: each run's rise is exact, a new
+    capture of (a) and (b) rises by k x the per-step count, and one
+    profiled replay runs each kernel k x per step by kernel name; a call
+    with a clone of one captured tensor raises.  Prints ms/step eager (k
+    = 1) and as a graph, each replay's device busy share, and the LM
+    step's peak memory with and without ``--remat``, beside the card's
+    name and power limit.
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
-DLRM, long-context, race and AlexNet runs together, split in
-``launches_by_path``; K3's entries name the form each main-path shape
-takes), the card's name
+DLRM, long-context, race, AlexNet and superstep runs together, split in
+``launches_by_path``; the superstep path counts what its graph runs
+launched eagerly or captured; K3's entries name the form each main-path
+shape takes), the card's name
 and power limit from ``nvidia-smi``, and as its last line the JSON
 object ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits 2 and prints no result.
@@ -1091,7 +1110,7 @@ def phase_train(torch, kernels, rows):
     return launches
 
 
-def _profile_step(torch, tag: str, step):
+def _profile_step(torch, tag: str, step, what: str = "one train step"):
     """``step()`` once under torch.profiler: the device busy share of its
     wall time and device time by kernel name.  Returns the device events
     as ``(us, name, count)``, longest first.  One step runs first in the
@@ -1118,7 +1137,7 @@ def _profile_step(torch, tag: str, step):
                   if e.device_type == DeviceType.CUDA
                   and not e.key.startswith("ProfilerStep")), reverse=True)
     busy_ms = sum(us for us, _, _ in dev) / 1e3
-    print(f"[{tag}] one train step: wall {wall_ms:.3f} ms, device busy "
+    print(f"[{tag}] {what}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%, idle "
           f"{100 - 100 * busy_ms / wall_ms:.1f}%), {sum(n for _, _, n in dev)} "
           f"device events")
@@ -2817,6 +2836,313 @@ def phase_alexnet_parity(torch, kernels):
           f"kink")
 
 
+#: Phase 19 (``superstep``): the LM of phase 5 and the DLRM of phase 9
+#: at their full widths, each as a superstep of ``k`` steps (one CUDA
+#: graph a call) against the same steps run eagerly; the LM again through
+#: ``apps.transformer`` with accumulation and remat.  Steps: ``k`` warmup
+#: (the first call: eager, then captured) plus ``iters`` replayed (the
+#: app's ``iters % k`` as a tail superstep, captured before its timed
+#: calls); the eager runs take ``warmup`` + the rest, the same number.
+SUPERSTEP_LM = dict(k=4, iters=4, eager_warmup=2)
+SUPERSTEP_DLRM = dict(k=8, iters=16, eager_warmup=2)
+SUPERSTEP_APP = dict(k=2, iters=3, accum=2)
+#: A kernel wrapper's kernels by name in a profile: each launch of the
+#: wrapper runs one kernel whose name holds each substring.
+KERNEL_NAMES = {
+    "flash_attention_lse": ("wg_fwd_kernel",),
+    "flash_attention_lse_bwd": ("wg_dkv_kernel",),
+    "softmax_xent": ("xent", "fwd_kernel"),
+    "softmax_xent_bwd": ("xent", "bwd_kernel"),
+    "gather_rows": ("gather_regs_kernel",),
+    "scatter_add_rows": ("scatter_add_rows_kernel",),
+}
+
+
+def _bits(t):
+    """``t`` as integers of its width: equal bits, equal integers."""
+    ints = {1: "uint8", 2: "int16", 4: "int32", 8: "int64"}
+    import torch
+
+    t = t.detach().contiguous()
+    return t.view(getattr(torch, ints[t.element_size()]))
+
+
+def _named_leaves(tree, prefix=""):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{prefix}.{k}" if prefix else k)
+
+
+def _bit_diff(torch, a, b) -> list:
+    """The leaves where two trees of tensors differ in any bit."""
+    la, lb = dict(_named_leaves(a)), dict(_named_leaves(b))
+    _check(sorted(la) == sorted(lb), f"trees differ in keys: {sorted(la)} "
+           f"vs {sorted(lb)}")
+    return [n for n in la if not torch.equal(_bits(la[n]), _bits(lb[n]))]
+
+
+def _fit_quiet(trainer, **kw):
+    """``trainer.fit(**kw)`` with its report lines swallowed; returns the
+    stats and the trained ``(params, opt_state, state)``."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = trainer.fit(**kw)
+    return stats, trainer.final
+
+
+def _same_run(torch, what, a, b) -> None:
+    """Two runs' ``(stats, (params, opt_state, state))``, bit for bit:
+    every step's loss, every parameter and every optimizer state
+    tensor (Adam's moments and ``t``)."""
+    (sa, (pa, oa, _)), (sb, (pb, ob, _)) = a, b
+    _check(sa["step_losses"] == sb["step_losses"],
+           f"{what}: step losses {sa['step_losses']} vs {sb['step_losses']}")
+    diff = _bit_diff(torch, pa, pb) + _bit_diff(torch, oa or {}, ob or {})
+    _check(not diff, f"{what}: tensors differ in bits: {diff}")
+
+
+def _replay_counts(torch, tag, fn, carry, stacked, per_step) -> float:
+    """Capture ``fn`` (a superstep of ``fn.k`` steps, already warmed in
+    this process) on ``carry``: the launch counters must rise by exactly
+    ``k`` x ``per_step`` while capturing.  Then profile one replay: each
+    kernel of ``per_step`` must run ``k`` x its count, by kernel name.
+    A call with another tensor than a captured one must raise.  Returns
+    the replay's device busy time in microseconds."""
+    k = fn.k
+    _zero_counts()
+    fn.capture(*carry, stacked)
+    counts = _counts()
+    want = {n: k * per_step.get(n, 0) for n in counts}
+    _check(counts == want, f"{tag}: launches at capture {counts}, expected "
+           f"{want}")
+    params = carry[0]
+    op, key = min(((op, key) for op, g in params.items() for key in g),
+                  key=lambda ok: params[ok[0]][ok[1]].numel())
+    other = {**params, op: {**params[op], key: params[op][key].clone()}}
+    try:
+        fn(other, *carry[1:], stacked)
+    except ValueError as e:
+        _check("captured on other tensors" in str(e), f"{tag}: {e}")
+    else:
+        raise RuntimeError(f"chip_smoke: {tag}: a call with a clone of "
+                           f"{op}.{key} replayed the graph")
+    replays = []
+
+    def replay():
+        replays.append(fn(*carry, stacked)[-1])
+
+    dev = _profile_step(torch, tag, replay, f"one replay of {k} steps")
+    _check(_counts() == want, f"{tag}: a replay moved the launch counters")
+    busy = sum(us for us, _, _ in dev)
+    for name, n in per_step.items():
+        subs = KERNEL_NAMES[name]
+        seen = sum(c for _, key, c in dev if all(s in key for s in subs))
+        _check(seen == k * n, f"{tag}: {name} ran {seen} times in one "
+               f"replay by the profile, expected {k * n}")
+    return busy
+
+
+def phase_superstep(torch, kernels):
+    """The port's supersteps on the card at bench.py's widths: (a) the
+    LM of phase 5 through ``Trainer.fit(steps_per_call=4)``, (b) the
+    plain-SGD DLRM of phase 9 at ``steps_per_call=8``, (c) the LM through
+    ``apps.transformer`` with ``--accum-steps 2 --remat
+    --steps-per-call 2``.  Each is held bit for bit against the same
+    steps run eagerly, after two eager runs are held against each other.
+    Launches inside a graph: the counters at capture and the profile of
+    one replay.  Returns the launch counts of the three graph runs."""
+    import numpy as np
+
+    from flexflow_torch.apps import transformer
+    from flexflow_torch.apps.common import make_optimizer
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.data.loader import synthetic_host_batch
+    from flexflow_torch.models.transformer import build_transformer_lm
+    from flexflow_torch.runtime.executor import Executor
+    from flexflow_torch.runtime.trainer import MAX_STEPS_PER_CALL, Trainer
+
+    card = _card()
+    total = {}
+
+    def add(counts):
+        for n, v in counts.items():
+            total[n] = total.get(n, 0) + v
+
+    # -- (a) the LM, bench.py's 2k leg --
+    c, s = TRAIN, SUPERSTEP_LM
+    k = min(s["k"], MAX_STEPS_PER_CALL)
+
+    def lm_executor(remat=False):
+        cfg = FFConfig(batch_size=c["batch"], compute_dtype="bfloat16",
+                       optimizer="adam", learning_rate=c["lr"],
+                       seed=c["seed"], remat=remat)
+        ff = build_transformer_lm(
+            batch_size=c["batch"], seq_len=c["seq"], vocab_size=c["vocab"],
+            d_model=c["d_model"], num_heads=c["heads"],
+            num_layers=c["layers"], config=cfg)
+        return Executor(ff, cfg, optimizer=make_optimizer(cfg), device="cuda")
+
+    steps = k + s["iters"]
+    eager = [_fit_quiet(Trainer(lm_executor()), iterations=steps
+                        - s["eager_warmup"], warmup=s["eager_warmup"])
+             for _ in range(2)]
+    _same_run(torch, "LM, two eager runs", *eager)
+    ex = lm_executor()
+    _zero_counts()
+    graph = _fit_quiet(Trainer(ex), iterations=s["iters"], warmup=k,
+                       steps_per_call=k)
+    counts = _counts()
+    add(counts)
+    _same_run(torch, f"LM, superstep k={k} vs eager", graph, eager[0])
+    L = c["layers"]
+    per_step = {"flash_attention_lse": L, "flash_attention_lse_bwd": L,
+                "softmax_xent": 1, "softmax_xent_bwd": 1}
+    # The first call ran k steps eagerly and captured k more; the
+    # replays counted nothing.
+    want = {n: 2 * k * per_step.get(n, 0) for n in counts}
+    _check(counts == want, f"LM superstep launches {counts}, expected {want}")
+    lm_ms = {1: eager[0][0]["elapsed_s"] * 1e3 / eager[0][0]["iterations"],
+             k: graph[0]["elapsed_s"] * 1e3 / graph[0]["iterations"]}
+    host = synthetic_host_batch(ex.model, np.random.default_rng(0))
+    fn = ex.build_superstep(k)
+    lm_busy = _replay_counts(torch, "superstep-lm", fn, graph[1],
+                             ex.stack_steps([host] * k), per_step)
+    del eager, graph, fn, ex
+
+    # Peak memory of one step, without and with --remat.
+    peaks = {}
+    for remat in (False, True):
+        ex = lm_executor(remat)
+        p, o, st = ex.init()
+        batch = Trainer(ex).synthetic_batch()
+        ex.train_step(p, o, st, batch)  # warm: plans and workspaces
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ex.train_step(p, o, st, batch)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() - held) / 1e9
+        del ex, p, o, st, batch
+    print(f"[superstep] LM (batch {c['batch']} x seq {c['seq']}, {L} layers, "
+          f"bf16, Adam): {steps} steps, superstep k={k} bit-identical to the "
+          f"eager steps (losses, params, Adam m, v and t; two eager runs "
+          f"bit-identical first); {lm_ms[1]:.3f} ms/step eager (k=1), "
+          f"{lm_ms[k]:.3f} ms/step as a graph (k={k}); one replay's device "
+          f"busy {lm_busy / 1e3:.3f} ms; peak memory of a step above the "
+          f"params and state: {peaks[False]:.2f} GB, {peaks[True]:.2f} GB "
+          f"with --remat; {card}")
+
+    # -- (b) the DLRM, bench.py's leg, plain SGD, row-sparse --
+    d, s = DLRM, SUPERSTEP_DLRM
+    k = min(s["k"], MAX_STEPS_PER_CALL)
+    ff, cfg = _dlrm_model(d["batch"], d["vocab"], "bfloat16", d["seed"],
+                          optimizer="sgd", learning_rate=d["lr"],
+                          momentum=0.0, weight_decay=0.0)
+    ex = Executor(ff, cfg, optimizer=make_optimizer(cfg), device="cuda")
+    _check(bool(ex._sparse_ops), "the superstep DLRM is not sparse")
+    params0 = ex.init_params()
+
+    def init(seed=None):
+        p = {op: {n: v.clone() for n, v in g.items()}
+             for op, g in params0.items()}
+        return p, ex.optimizer.init(p), {}
+
+    ex.init = init  # one draw of the 2 GB of tables, copied per run
+    steps = k + s["iters"]
+    eager = [_fit_quiet(Trainer(ex), iterations=steps - s["eager_warmup"],
+                        warmup=s["eager_warmup"]) for _ in range(2)]
+    _same_run(torch, "DLRM, two eager runs", *eager)
+    _zero_counts()
+    graph = _fit_quiet(Trainer(ex), iterations=s["iters"], warmup=k,
+                       steps_per_call=k)
+    counts = _counts()
+    add(counts)
+    _same_run(torch, f"DLRM, superstep k={k} vs eager", graph, eager[0])
+    per_step = {"gather_rows": 1, "scatter_add_rows": 1}
+    want = {n: 2 * k * per_step.get(n, 0) for n in counts}
+    _check(counts == want, f"DLRM superstep launches {counts}, expected "
+           f"{want}")
+    dlrm_ms = {1: eager[0][0]["elapsed_s"] * 1e3 / eager[0][0]["iterations"],
+               k: graph[0]["elapsed_s"] * 1e3 / graph[0]["iterations"]}
+    host = synthetic_host_batch(ff, np.random.default_rng(0))
+    fn = ex.build_superstep(k)
+    dlrm_busy = _replay_counts(torch, "superstep-dlrm", fn, graph[1],
+                               ex.stack_steps([host] * k), per_step)
+    del eager, graph, fn, params0, ex
+    print(f"[superstep] DLRM (8 x 10^6 x 64 f32 tables, batch {d['batch']}, "
+          f"bf16, plain SGD, row-sparse): {steps} steps, superstep k={k} "
+          f"bit-identical to the eager steps (every table and dense "
+          f"parameter; two eager runs bit-identical first); "
+          f"{dlrm_ms[1]:.4f} ms/step eager (k=1), {dlrm_ms[k]:.4f} ms/step "
+          f"as a graph (k={k}, {dlrm_ms[1] / dlrm_ms[k]:.2f}x); one replay's "
+          f"device busy {dlrm_busy / 1e3:.3f} ms for {k} steps; {card}")
+
+    # -- (c) the LM app with accumulation, remat and supersteps --
+    s = SUPERSTEP_APP
+    k = min(s["k"], MAX_STEPS_PER_CALL)
+    flags = ["--accum-steps", str(s["accum"]), "--remat"]
+    steps = k + s["iters"]  # one warmup step rounds up to one superstep
+    tail = s["iters"] % k
+
+    def app(argv):
+        stats = {}
+        import contextlib
+        import io
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = transformer.main(argv, device="cuda", stats_out=stats)
+        _check(rc == 0, f"transformer {argv} exited {rc}")
+        return stats, stats.pop("final")
+
+    eager_argv = _train_argv(dict(TRAIN, iters=steps - 1)) + flags
+    eager = [app(eager_argv) for _ in range(2)]
+    _same_run(torch, "LM app with accumulation and remat, two eager runs",
+              *eager)
+    _zero_counts()
+    graph = app(_train_argv(dict(TRAIN, iters=s["iters"])) + flags
+                + ["--steps-per-call", str(k)])
+    counts = _counts()
+    add(counts)
+    losses = graph[0]["step_losses"]
+    _check(len(losses) == steps and all(math.isfinite(x) for x in losses)
+           and losses[-1] < losses[0], f"app superstep losses {losses}")
+    _same_run(torch, "LM app superstep vs eager", graph, eager[0])
+    a = s["accum"]
+    # Per step: each microbatch runs K1f twice a layer (forward, then the
+    # recompute in the backward), K1b once, K3 once each way.
+    per_step = {"flash_attention_lse": 2 * a * L,
+                "flash_attention_lse_bwd": a * L, "softmax_xent": a,
+                "softmax_xent_bwd": a}
+    # The first call's k eager steps, then the k-step graph and the tail's
+    # graph captured.
+    want = {n: (2 * k + tail) * per_step.get(n, 0) for n in counts}
+    _check(counts == want, f"app superstep launches {counts}, expected "
+           f"{want}")
+    print(f"[superstep] LM app --accum-steps {a} --remat --steps-per-call "
+          f"{k}: {steps} steps ({graph[0]['supersteps']} timed supersteps, "
+          f"the last a tail of {tail}), losses "
+          f"{[round(x, 5) for x in losses]}, bit-identical to the eager app "
+          f"run (two eager runs bit-identical first); launches {counts}")
+    print(f"[superstep] launches of the three graph runs {total}")
+    return total
+
+
+def _card() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return smi.stdout.strip()
+
+
 def main() -> int:
     import torch
 
@@ -2871,11 +3197,13 @@ def main() -> int:
     t.append(time.perf_counter())
     phase_alexnet_parity(torch, kernels)
     t.append(time.perf_counter())
+    superstep_launches = phase_superstep(torch, kernels)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
              "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
              "longctx-parity", "probe-kernels", "alexnet-kernels",
-             "alexnet-train", "alexnet-parity")
+             "alexnet-train", "alexnet-parity", "superstep")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -2910,7 +3238,8 @@ def main() -> int:
                    **{leg: counts[name]
                       for leg, counts in longctx_launches.items()},
                    "probe": probe_launches[name],
-                   "alexnet": alexnet_launches[name]}
+                   "alexnet": alexnet_launches[name],
+                   "superstep": superstep_launches[name]}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])
@@ -2955,12 +3284,7 @@ def main() -> int:
                                    " FMA (csrc/mma_tile.cuh)")
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    print(smi.stdout.strip())
+    print(_card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,7 +15,8 @@ Example (``bench.py``'s AlexNet leg)::
     python -m flexflow_torch.apps.alexnet -b 2048 -i 20 --dtype bfloat16
 
 Flags beyond the common set: ``--image-size N`` (default 229, the
-reference's).  Refused until their slices land (ROADMAP.md queue 1):
+reference's); the common ``--steps-per-call``, ``--accum-steps`` and
+``--remat`` apply.  Refused until their slices land (ROADMAP.md queue 1):
 image folders (``-d``, item 12), the strategy searches (``-s auto``,
 ``--search``, item 11) and strategy files that place an op on more than
 the one GPU (item 9).

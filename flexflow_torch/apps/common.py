@@ -1,6 +1,7 @@
 """Shared app harness: the flag helpers, ``make_optimizer``,
-``load_strategy`` and the plain single-device ``run_training`` (with
-``--eval-iters``) of ``flexflow_tpu/apps/common.py``."""
+``load_strategy`` and the single-device ``run_training`` (with
+``--eval-iters``, ``--steps-per-call``, ``--accum-steps`` and
+``--remat``) of ``flexflow_tpu/apps/common.py``."""
 
 from __future__ import annotations
 
@@ -18,18 +19,24 @@ Training apps also read:
   --lr-schedule constant|cosine|step   --warmup N   --decay-steps N
   --min-lr F   --lr-gamma F (adam only)   -ll:gpu 1   --eval-iters N
   -s/--strategy FILE.json (every op on the one GPU)
+  --steps-per-call K (K steps as one CUDA graph, one readback per K;
+                      clamped at 20)
+  --accum-steps N (one update from N microbatches of the batch)
+  --remat (recompute each layer's activations in the backward)
 Every other flag of the JAX package's apps is refused until its slice
 of the port lands (ROADMAP.md queue 1)."""
 
-#: The FFConfig flags a training app of this slice reads (each takes a
-#: value).
+#: The FFConfig flags a training app reads that take a value.
 TRAINING_FLAGS = (
     "-b", "--batch-size", "-i", "--iterations", "-e", "--epochs", "-p",
     "--print-freq", "--lr", "--learning-rate", "--wd", "--weight-decay",
     "--dtype", "--seed", "--optimizer", "--momentum", "--lr-schedule",
     "--warmup", "--decay-steps", "--min-lr", "--lr-gamma", "--clip-norm",
     "-ll:gpu", "-ll:tpu", "--eval-iters", "-s", "--strategy",
+    "--steps-per-call", "--accum-steps",
 )
+#: The FFConfig flags a training app reads that take no value.
+TRAINING_SWITCHES = ("--remat",)
 
 #: Flags of the JAX package's apps that name a feature still to be
 #: ported, with the ROADMAP.md item that brings it.
@@ -84,19 +91,23 @@ def pop_str(argv, flag, default):
 
 def parse_training_args(argv) -> FFConfig:
     """The FFConfig of a training app.  Every flag outside
-    ``TRAINING_FLAGS`` is refused (the JAX parser passes unknown flags
-    through; here they would name features this slice lacks), and so
-    are more than one device and a dtype other than f32 or bf16."""
-    for flag in argv[::2]:
+    ``TRAINING_FLAGS`` and ``TRAINING_SWITCHES`` is refused (the JAX
+    parser passes unknown flags through; here they would name features
+    the port lacks), and so are more than one device and a dtype other
+    than f32 or bf16."""
+    i = 0
+    while i < len(argv):
+        flag = argv[i]
+        i += 2 if flag in TRAINING_FLAGS else 1
+        if flag in TRAINING_FLAGS or flag in TRAINING_SWITCHES:
+            continue
         if flag in _NOT_PORTED:
             raise SystemExit(f"flexflow_torch does not support {flag!r} yet: "
                              f"{_NOT_PORTED[flag]} is not ported")
-        if flag not in TRAINING_FLAGS:
-            raise SystemExit(
-                f"flexflow_torch does not support {flag!r} yet: this slice "
-                f"of the port trains on one GPU with the plain per-step "
-                f"loop; the other training features are queued in "
-                f"ROADMAP.md queue 1")
+        raise SystemExit(
+            f"flexflow_torch does not support {flag!r} yet: the port "
+            f"trains on one GPU on a synthetic batch; the other training "
+            f"features are queued in ROADMAP.md queue 1")
     try:
         cfg = FFConfig.parse_args(argv)
     except ValueError as e:
@@ -108,6 +119,10 @@ def parse_training_args(argv) -> FFConfig:
     if cfg.compute_dtype not in _DTYPES:
         raise SystemExit(f"--dtype expects one of {_DTYPES}, got "
                          f"{cfg.compute_dtype!r}")
+    if cfg.accum_steps < 1 or cfg.batch_size % cfg.accum_steps:
+        raise SystemExit(f"--accum-steps {cfg.accum_steps}: the batch "
+                         f"({cfg.batch_size}) must split into that many "
+                         f"equal microbatches")
     return cfg
 
 
@@ -169,8 +184,9 @@ def load_strategy(cfg: FFConfig):
 def run_training(ff, cfg: FFConfig, label: str = "samples",
                  device="cuda") -> Dict[str, Any]:
     """Build the executor, run ``cfg.epochs x cfg.iterations`` timed
-    steps (after one warmup step) on one fixed device-resident synthetic
-    batch (the reference's syntheticInput), and print the reference
+    steps (after one warmup step; a whole superstep of warmup with
+    ``--steps-per-call``) on one fixed device-resident synthetic batch
+    (the reference's syntheticInput), and print the reference
     throughput lines (``cnn.cc:128-129``, ``dlrm.cc:159-166``).  The
     batch is ``Trainer.synthetic_batch``'s: as in the JAX package, its
     integer inputs are drawn in ``{0, 1}``.  With ``--eval-iters N``,
@@ -186,7 +202,9 @@ def run_training(ff, cfg: FFConfig, label: str = "samples",
     ex = Executor(ff, cfg, optimizer=make_optimizer(cfg), device=device)
     trainer = Trainer(ex)
     stats = trainer.fit(iterations=cfg.iterations * max(cfg.epochs, 1),
-                        warmup=1, log_every=cfg.print_freq)
+                        warmup=1, log_every=cfg.print_freq,
+                        accum_steps=cfg.accum_steps,
+                        steps_per_call=cfg.steps_per_call)
     print(f"ELAPSED TIME = {stats['elapsed_s']:.4f}s")
     print(f"THROUGHPUT = {stats['samples_per_s']:.2f} {label}/s")
     if cfg.eval_iters > 0:

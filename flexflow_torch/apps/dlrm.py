@@ -18,6 +18,10 @@ GPU)::
         --arch-embedding-size 1000000-1000000-1000000-1000000-1000000-1000000-1000000-1000000 \\
         --arch-mlp-bot 64-512-512-64 --arch-mlp-top 576-1024-1024-1024-1
 
+With ``--steps-per-call K`` the K steps of a call are one CUDA graph;
+``--accum-steps N`` accumulates dense gradients (the tables' too: the
+row-sparse path is ``train_step``'s alone, as in the JAX package).
+
 DLRM flags: ``--arch-sparse-feature-size --arch-embedding-size
 --arch-mlp-bot --arch-mlp-top --arch-interaction-op cat|dot --sigmoid-bot
 --sigmoid-top --loss-threshold --lazy-sparse-opt``.  Without ``--arch-*``

@@ -11,7 +11,8 @@ the environment, the streamed K1s and K1sb) and the fused cross-entropy
 ``tokens/s``.
 
 Flags beyond the common set: ``--seq --vocab --d-model --heads
---layers``.  ``--dp``, ``--sp`` and ``--tp`` above 1 (hybrid and ring
+--layers``.  The common set includes ``--steps-per-call K`` (K steps as
+one CUDA graph), ``--accum-steps N`` and ``--remat``.  ``--dp``, ``--sp`` and ``--tp`` above 1 (hybrid and ring
 parallelism) and ``--experts`` (MoE FFNs) are refused: those slices are
 still to be ported (ROADMAP.md queue 1).
 

@@ -10,8 +10,10 @@ Prints ONE JSON line on stdout (everything else goes to stderr), with
 is AlexNet images/s/chip (batch 2048, 229 x 229 x 3, 1000 classes,
 bf16, SGD lr 0.01 momentum 0.9 wd 1e-4, 3 warmup + 20 timed steps);
 ``extra`` carries the DLRM leg (the ``run_random.sh`` shape on the
-row-sparse path, 2 + 10 steps) and the LM legs at 2k (2 + 10), 8k (2 + 5) and 32k (2 +
-3), each with its MFU against the H100's dense bf16 peak, and the card's
+row-sparse path, 2 + 10 steps), the LM legs at 2k (2 + 10), 8k (2 + 5)
+and 32k (2 + 3), each with its MFU against the H100's dense bf16 peak,
+the superstep sweep (``superstep``: ms/step of a small MLP at k = 1, 4,
+8 and 16 steps per call, the k > 1 ones as CUDA graphs) and the card's
 name and power limit.  Throughput is ``iterations x batch / elapsed``
 with one fence at the end (``Trainer.fit``); the flops come from
 ``search/cost_model.py::train_flops``.  A leg that fails becomes
@@ -19,7 +21,7 @@ with one fence at the end (``Trainer.fit``); the flops come from
 the line carries ``"value": null`` and the error; nothing is measured
 on the CPU.
 
-``bench.py``'s other legs (NMT, Candle-Uno, superstep, pipeline,
+``bench.py``'s other legs (NMT, Candle-Uno, pipeline,
 telemetry, data plane, serving, search, op-parallel) wait for their
 slices of the port (ROADMAP.md queue 1).  The leg functions take the
 device and their sizes as arguments, so a test can run them small on
@@ -126,6 +128,40 @@ def _bench_lm(batch: int, seq: int, iters: int, device="cuda",
     return stats["samples_per_s"] * seq, _mfu(ff, stats["samples_per_s"], batch)
 
 
+def bench_superstep(device="cuda", batch: int = 64, width: int = 256,
+                    iters: int = 32) -> dict:
+    """``bench.py``'s dispatch-amortization sweep (``bench_superstep``)
+    at its one-chip TPU sizes: an MLP (``width`` -> ``width`` ReLU -> 8
+    classes, SGD lr 0.01 momentum 0.9) whose step is far cheaper than
+    its launches, trained ``iters`` steps at k = 1, 4, 8 and 16 steps
+    per call (``Trainer.fit(steps_per_call=k)``: at k > 1 one CUDA graph
+    per call and one host readback).  Returns ms/step per k and the k =
+    8 amortization factor."""
+    import torch
+
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.graph import FFModel
+    from flexflow_torch.optim import SGDOptimizer
+    from flexflow_torch.runtime.executor import Executor
+    from flexflow_torch.runtime.trainer import Trainer
+
+    ff = FFModel(FFConfig(batch_size=batch, seed=3))
+    x = ff.create_tensor((batch, width), name="x")
+    lbl = ff.create_tensor((batch,), dtype=torch.int32, name="label")
+    t = ff.dense(x, width, activation="relu", name="fc1")
+    t = ff.dense(t, 8, name="fc2")
+    ff.softmax(t, lbl, name="softmax")
+    ex = Executor(ff, optimizer=SGDOptimizer(lr=0.01, momentum=0.9),
+                  device=device)
+    out = {"batch_size": batch, "iterations": iters}
+    for k in (1, 4, 8, 16):
+        stats = Trainer(ex).fit(iterations=iters, warmup=1, steps_per_call=k)
+        out[f"k{k}_ms_per_step"] = round(stats["elapsed_s"] / iters * 1e3, 3)
+    out["amortization_k8_vs_k1"] = round(
+        out["k1_ms_per_step"] / out["k8_ms_per_step"], 3)
+    return out
+
+
 def _card() -> dict:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     out = subprocess.run(
@@ -167,6 +203,11 @@ def _run() -> dict:
             extra[f"{leg}_mfu"] = round(lm_mfu, 4)
         except Exception as e:
             extra[f"{leg}_error"] = f"{type(e).__name__}: {e}"
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            extra["superstep"] = bench_superstep()
+    except Exception as e:
+        extra["superstep_error"] = f"{type(e).__name__}: {e}"
     return {
         "metric": "alexnet_imgs_per_sec_per_chip",
         "value": round(per_chip, 2),

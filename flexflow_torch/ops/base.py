@@ -57,6 +57,10 @@ class Op:
 
     #: Set True for ops producing a scalar loss contribution + metrics.
     is_loss = False
+    #: Loss ops are exempt from per-layer remat (``--remat``): a
+    #: terminal loss is cheap to keep.  A loss op heavy enough to be
+    #: worth recomputing opts back in with True.
+    allow_remat = False
 
     def __init__(self, name: str, inputs: Sequence[TensorSpec]):
         self.name = name

@@ -8,9 +8,11 @@ decoupled weight decay).  Both update parameters and state IN PLACE, the
 torch form of the JAX step's buffer donation; the arithmetic follows the
 JAX update operation for operation, in f32, and each parameter is
 rounded once to its own dtype (bf16 parameters keep no f32 master copy,
-as in the JAX package).  Scalar factors (scheduled lr, bias corrections)
-are computed on the host in float32 with the JAX expressions, so no
-device value is read.
+as in the JAX package).  Adam's step count is a 0-d int32 tensor on the
+params' device, advanced in place, and its scheduled lr and bias
+corrections are computed from it on that device in float32 with the JAX
+expressions: no device value is read, and a CUDA graph that captured
+the update advances them on every replay.  SGD's factors are constants.
 
 Both also carry the row-sparse protocol the executor's sparse train step
 drives (``flexflow_tpu/optim.py``): ``supports_sparse_rows`` (plain SGD,
@@ -25,9 +27,9 @@ touches; Adam's bias correction uses the global step count.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict
 
-import numpy as np
 import torch
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
@@ -144,8 +146,9 @@ class SGDOptimizer:
 @dataclasses.dataclass
 class AdamOptimizer:
     """Adam with f32 moments and a step count ``t`` carried in the state
-    (a host int).  ``schedule``: ``"constant"``, ``"cosine"`` (linear
-    warmup over ``warmup_steps``, then cosine decay to ``min_lr`` over
+    (a 0-d int32 tensor on the params' device, advanced in place).
+    ``schedule``: ``"constant"``, ``"cosine"`` (linear warmup over
+    ``warmup_steps``, then cosine decay to ``min_lr`` over
     ``decay_steps``) or ``"step"`` (times ``gamma`` every
     ``decay_steps``)."""
 
@@ -166,22 +169,21 @@ class AdamOptimizer:
             raise ValueError(f"unknown schedule {self.schedule!r} "
                              f"(constant|cosine|step)")
 
-    def _lr_at(self, t: int) -> np.float32:
-        """Scheduled lr for the 1-based step ``t``, in float32 as the
-        JAX package computes it."""
-        f = np.float32
-        tf = f(t)
+    def _lr_at(self, t):
+        """Scheduled lr for the 1-based step ``t`` (a 0-d int32 tensor,
+        or an int), in float32 on ``t``'s device as the JAX package
+        computes it; the constant schedule's lr is a Python float."""
         if self.schedule == "constant":
-            return f(self.lr)
+            return self.lr
+        tf = torch.as_tensor(t, dtype=torch.int32).float()
         if self.schedule == "cosine":
-            warm = f(max(self.warmup_steps, 1))
-            ramp = np.minimum(tf / warm, f(1.0))
-            prog = np.clip((tf - f(self.warmup_steps))
-                           / f(max(self.decay_steps, 1)), f(0.0), f(1.0))
-            cos = f(0.5) * (f(1.0) + np.cos(f(np.pi) * prog))
-            return f(ramp * (f(self.min_lr) + f(self.lr - self.min_lr) * cos))
-        k = np.floor((tf - f(1.0)) / f(max(self.decay_steps, 1)))
-        return f(f(self.lr) * np.power(f(self.gamma), k))
+            ramp = torch.clamp(tf / float(max(self.warmup_steps, 1)), max=1.0)
+            prog = torch.clamp((tf - self.warmup_steps)
+                               / max(self.decay_steps, 1), 0.0, 1.0)
+            cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
+            return ramp * (self.min_lr + (self.lr - self.min_lr) * cos)
+        k = torch.floor((tf - 1.0) / max(self.decay_steps, 1))
+        return self.lr * torch.pow(self.gamma, k)
 
     @property
     def supports_sparse_rows(self) -> bool:
@@ -206,20 +208,19 @@ class AdamOptimizer:
     def sparse_step_count(self, opt_state):
         return opt_state["t"]
 
-    def _factors(self, t: int):
-        """Scheduled lr and the bias corrections of step ``t``, as host
-        floats computed in float32."""
-        f = np.float32
-        return (float(self._lr_at(t)),
-                float(f(1.0) - np.power(f(self.b1), f(t))),
-                float(f(1.0) - np.power(f(self.b2), f(t))))
+    def _factors(self, t):
+        """Scheduled lr and the bias corrections ``1 - b**t`` of step
+        ``t``, in float32 on ``t``'s device."""
+        tf = torch.as_tensor(t, dtype=torch.int32).float()
+        return (self._lr_at(t), 1.0 - torch.pow(self.b1, tf),
+                1.0 - torch.pow(self.b2, tf))
 
     @torch.no_grad()
     def sparse_row_step(self, p_rows, g_rows, state_rows, t=None):
         """SparseAdam row step with the dense update's arithmetic; ``t``
         is the global step count after the dense update's increment.
         Returns scatter-addable deltas."""
-        lr, c1, c2 = self._factors(int(t))
+        lr, c1, c2 = self._factors(t)
         g = g_rows.float()
         m, v = state_rows["m"], state_rows["v"]
         m_new = m.mul(self.b1).add_(g, alpha=1.0 - self.b1)
@@ -248,14 +249,18 @@ class AdamOptimizer:
             return {k: torch.zeros(p.shape, dtype=torch.float32,
                                    device=p.device) for k, p in g.items()}
 
+        device = next((p.device for g in params.values() for p in g.values()),
+                      torch.device("cpu"))
         return {"m": {op: zeros(g) for op, g in params.items()},
                 "v": {op: zeros(g) for op, g in params.items()},
-                "t": 0}
+                "t": torch.zeros((), dtype=torch.int32, device=device)}
 
     @torch.no_grad()
     def update(self, params: Tree, opt_state, grads: Tree):
-        """One step in place; returns ``(params, opt_state)``."""
-        t = int(opt_state["t"]) + 1
+        """One step in place, ``t`` included; returns ``(params,
+        opt_state)``."""
+        t = opt_state["t"]
+        t.add_(1)
         lr, c1, c2 = self._factors(t)
         for p, g, m, v in _leaves(params, grads, opt_state["m"],
                                   opt_state["v"]):
@@ -267,5 +272,4 @@ class AdamOptimizer:
             if self.weight_decay > 0.0:
                 upd = upd + self.weight_decay * pf  # AdamW-style decoupled
             p.copy_(pf - lr * upd)
-        opt_state["t"] = t
         return params, opt_state

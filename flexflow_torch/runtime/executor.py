@@ -13,7 +13,15 @@ The single-device path of ``flexflow_tpu/runtime/executor.py``:
   Parameters and optimizer state are updated IN PLACE, the torch form of
   the JAX step's buffer donation; the metrics stay device tensors, so a
   step never waits on the device;
-- ``eval_step`` and the eval ``forward_step`` (every non-loss output).
+- ``eval_step`` and the eval ``forward_step`` (every non-loss output);
+- ``--remat``: each non-loss op runs under
+  ``torch.utils.checkpoint`` in a training forward, its activations
+  dropped and recomputed in the backward;
+- gradient accumulation (``accum_train_step``): one optimizer update
+  from the mean gradient of ``accum_steps`` stacked microbatches;
+- the superstep (``build_superstep``): k train steps (or accumulated
+  steps) as one CUDA graph replayed from the host in one launch, their
+  metrics stacked ``(k, ...)`` (``runtime/graphs.py``).
 
 The row-sparse embedding path (``_sparse_ops``): when the config enables
 it and the optimizer's rule allows it, an embedding op's rows are
@@ -23,23 +31,24 @@ no table-sized gradient exists.  Plain SGD scatters ``-lr * g`` per
 occurrence; lazy momentum/Adam (``--lazy-sparse-opt``) sum the gradients
 per unique row and scatter-add deltas of the parameter and state rows.
 
-Strategies and meshes, supersteps and gradient accumulation come with
-later slices (ROADMAP.md queue 1).
+Strategies and meshes come with a later slice (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from flexflow_torch.config import FFConfig
 from flexflow_torch.graph import FFModel
 from flexflow_torch.ops import kernels
 from flexflow_torch.ops.base import Op
 from flexflow_torch.ops.embedding import _scatter_add_dispatch
+from flexflow_torch.runtime.graphs import StepGraph
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -198,6 +207,16 @@ class Executor:
             if op.name in rows_override:
                 result, s_new = op.sparse_forward(rows_override[op.name], xs,
                                                   s, training)
+            elif self.config.remat and training and (
+                    not op.is_loss or op.allow_remat):
+                # Per-layer rematerialization (jax.checkpoint in the JAX
+                # package): the op's activations are dropped after the
+                # forward and recomputed in the backward.  No op draws
+                # random numbers yet, so no RNG state is kept (reading
+                # it would also break a CUDA graph capture).
+                result, s_new = torch.utils.checkpoint.checkpoint(
+                    op.forward, params.get(op.name, {}), xs, s, training,
+                    use_reentrant=False, preserve_rng_state=False)
             else:
                 result, s_new = op.forward(params.get(op.name, {}), xs, s,
                                            training)
@@ -398,6 +417,129 @@ class Executor:
                 opt_state, op.name, key,
                 {k: b.reshape(table.shape) for k, b in bufs.items()})
         return opt_state
+
+    # -- gradient accumulation -------------------------------------------
+
+    def accum_train_step(self, accum_steps: int):
+        """A train step over ``accum_steps`` stacked microbatches: one
+        optimizer update from the mean of the per-microbatch gradients.
+
+        Each input arrives shaped ``(accum_steps,) + t.shape`` (see
+        :meth:`stack_microbatches`).  Losses are batch means, so the mean
+        of the microbatch gradients is the full-batch gradient; one
+        microbatch's activations are alive at a time.  Integer metrics
+        (counts) sum over the microbatches, float ones average.  The
+        gradients are always dense: the row-sparse embedding path
+        (``_sparse_ops``) applies to ``train_step`` only, as in the JAX
+        package.  With nothing to compile, this is also the JAX
+        package's ``_build_accum_step``: the per-step body of
+        :meth:`build_superstep` with ``accum_steps > 1``."""
+        for op in self.model.layers:
+            if op.is_loss and getattr(op, "reduction", "mean") != "mean":
+                # A sum-reduced loss would need the gradients' sum; the
+                # mean below would shrink its step by accum_steps.
+                raise ValueError(
+                    f"gradient accumulation requires mean-reduction "
+                    f"losses; {op.name!r} uses {op.reduction!r}")
+        opt = self._require_optimizer("accum_train_step")
+
+        def step(params, opt_state, state, stacked):
+            acc, ms = None, []
+            for i in range(accum_steps):
+                _, m, state, grads = self.loss_and_grads(
+                    params, state, {k: v[i] for k, v in stacked.items()})
+                ms.append(m)
+                if acc is None:  # f32 sums, in microbatch order
+                    acc = {op: {k: g.float() for k, g in group.items()}
+                           for op, group in grads.items()}
+                else:
+                    for op, group in grads.items():
+                        for k, g in group.items():
+                            acc[op][k].add_(g)
+            grads = {op: {k: (a / accum_steps).to(params[op][k].dtype)
+                          for k, a in group.items()}
+                     for op, group in acc.items()}
+            grads = self._clip_grads(grads)
+            metrics = mean_metrics({k: torch.stack([m[k] for m in ms])
+                                    for k in ms[0]}, stacked=True)
+            params, opt_state = opt.update(params, opt_state, grads)
+            return params, opt_state, state, metrics
+
+        return step
+
+    @staticmethod
+    def stack_microbatches(batch: Mapping[str, Any], accum_steps: int):
+        """Reshape a ``(accum * b, ...)`` batch (tensors or numpy arrays)
+        into the ``(accum, b, ...)`` layout :meth:`accum_train_step`
+        takes."""
+        out = {}
+        for k, v in batch.items():
+            if v.shape[0] % accum_steps:
+                raise ValueError(f"input {k}: batch {v.shape[0]} is not a "
+                                 f"multiple of accum_steps={accum_steps}")
+            out[k] = v.reshape((accum_steps, v.shape[0] // accum_steps)
+                               + tuple(v.shape[1:]))
+        return out
+
+    # -- superstep execution ---------------------------------------------
+
+    @property
+    def superstep_fused(self) -> bool:
+        """Whether ``steps_per_call > 1`` fuses into one dispatch here:
+        always, on the one device of the port (the trainer routes on
+        it, as the JAX package's does)."""
+        return True
+
+    def build_superstep(self, k: int, accum_steps: int = 1):
+        """K full train steps (accumulated steps with ``accum_steps >
+        1``) as one callable ``(params, opt_state, state, stacked) ->
+        (params, opt_state, state, ms)``: ``stacked`` holds every input
+        shaped ``(k, ...)`` (:meth:`stack_steps`), ``ms`` every metric
+        stacked ``(k, ...)``, so one host readback gives every step's
+        loss.  On CUDA the k steps are one CUDA graph, run eagerly and
+        captured at the first call and replayed at every later one
+        (``runtime/graphs.py``: the params and optimizer state are
+        updated in place, a call on other tensors than the captured ones
+        raises, a failed capture raises, and ``ms`` holds until the next
+        call; ``capture`` records the graph without running it);
+        elsewhere they run as a loop.  Each call of this method builds a
+        new graph; the caller clamps ``k`` with
+        ``trainer.relay_safe_steps``."""
+        if k < 1:
+            raise ValueError(f"steps_per_call must be >= 1, got {k}")
+        step = (self.accum_train_step(accum_steps) if accum_steps > 1
+                else self.train_step)
+        return StepGraph(step, k, self.device)
+
+    @staticmethod
+    def metrics_row(ms: Dict[str, Any], j: int) -> Dict[str, Any]:
+        """Step ``j``'s metrics from a superstep's stacked ``(k, ...)``
+        metrics (host or device)."""
+        return {key: v[j] for key, v in ms.items()}
+
+    def stack_steps(self, batches: Sequence[Mapping[str, Any]],
+                    accum_steps: int = 1) -> Dict[str, torch.Tensor]:
+        """Stack k per-step batches (numpy arrays or tensors) into the
+        ``(k, ...)`` device tensors :meth:`build_superstep` takes, each in
+        its input's dtype; with ``accum_steps > 1`` each step first takes
+        the ``(accum, b, ...)`` microbatch layout.  Integer inputs (ids,
+        labels) are staged first, as the JAX package stages them."""
+        if accum_steps > 1:
+            batches = [self.stack_microbatches(b, accum_steps)
+                       for b in batches]
+        dtypes = {t.name: t.dtype for t in self.model.input_tensors}
+        names = sorted(batches[0],
+                       key=lambda n: dtypes[n].is_floating_point)
+        out = {}
+        for name in names:
+            vals = [b[name] for b in batches]
+            if all(isinstance(v, np.ndarray) for v in vals):
+                stacked = torch.from_numpy(np.stack(vals))
+            else:
+                stacked = torch.stack([torch.as_tensor(v).to(self.device)
+                                       for v in vals])
+            out[name] = stacked.to(self.device, dtypes[name])
+        return out
 
     @torch.no_grad()
     def eval_step(self, params, state, batch):

@@ -45,7 +45,7 @@ def params_from_numpy(
 def opt_state_from_numpy(np_state, device="cuda"):
     """A JAX optimizer state, after ``jax.device_get``, as the port's:
     Adam's ``{"m": tree, "v": tree, "t": array}`` becomes f32 moment
-    trees and a host int step count; SGD's momentum tree (or None)
+    trees and a 0-d int32 step count on ``device``; SGD's momentum tree (or None)
     becomes a tree of tensors in its own dtype (or None).  Both packages
     can then continue from one state."""
     if np_state is None:
@@ -53,5 +53,6 @@ def opt_state_from_numpy(np_state, device="cuda"):
     if set(np_state) == {"m", "v", "t"}:
         return {"m": params_from_numpy(np_state["m"], device),
                 "v": params_from_numpy(np_state["v"], device),
-                "t": int(np.asarray(np_state["t"]))}
+                "t": torch.tensor(int(np.asarray(np_state["t"])),
+                                  dtype=torch.int32, device=device)}
     return params_from_numpy(np_state, device)

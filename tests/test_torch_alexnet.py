@@ -253,7 +253,7 @@ def test_alexnet_app_on_cpu(capsys, dtype):
     (["-d", "images/"], "item 12"), (["--dataset", "images/"], "item 12"),
     (["-s", "auto"], "item 11"), (["--search"], "item 11"),
     (["--search-iters", "10"], "item 11"), (["-s", "s.pb"], "protobuf"),
-    (["-ll:gpu", "2"], "item 9"), (["--steps-per-call", "2"], "queue 1")])
+    (["-ll:gpu", "2"], "item 9")])
 def test_alexnet_app_refuses_by_name(flag, why):
     with pytest.raises(SystemExit) as e:
         tapp.main(_APP + flag, device="cpu")

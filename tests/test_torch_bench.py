@@ -152,7 +152,7 @@ def test_dlrm_leg_falls_back_to_dense(monkeypatch):
     assert not dense
 
 
-def _stand_in_card(monkeypatch, dlrm=None):
+def _stand_in_card(monkeypatch, dlrm=None, superstep=None):
     """``main`` on the CPU: a card that is said to exist, and every leg
     at a small size on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -167,6 +167,8 @@ def _stand_in_card(monkeypatch, dlrm=None):
     monkeypatch.setattr(bench, "_bench_lm", lambda b, s, i: lm(
         1, 32, 1, device="cpu", layers=1, vocab=64, d_model=32, heads=2,
         warmup=1))
+    monkeypatch.setattr(bench, "bench_superstep", superstep or functools.partial(
+        bench.bench_superstep, device="cpu", batch=8, width=16, iters=16))
 
 
 def _one_line(capsys):
@@ -186,8 +188,48 @@ def test_main_prints_one_line_with_bench_py_keys(monkeypatch, capsys):
             "batch_size", "alexnet_mfu", "dlrm_samples_per_s", "dlrm_mfu"}
     for leg in ("transformer", "transformer_8k", "transformer_32k"):
         keys |= {f"{leg}_tokens_per_s", f"{leg}_mfu"}
+    keys.add("superstep")
     assert set(line["extra"]) == keys
     assert line["extra"]["platform"] == "gpu" and line["extra"]["n_chips"] == 1
+    sweep = line["extra"]["superstep"]
+    assert set(sweep) == {"batch_size", "iterations", "k1_ms_per_step",
+                          "k4_ms_per_step", "k8_ms_per_step",
+                          "k16_ms_per_step", "amortization_k8_vs_k1"}
+    assert sweep["batch_size"] == 8 and sweep["iterations"] == 16
+
+
+def test_superstep_leg_runs_small_on_cpu(monkeypatch):
+    """``bench.py``'s sweep: k = 1 on the per-step loop, k = 4, 8, 16 as
+    supersteps (a loop on the CPU), 16 steps each with no tail."""
+    from flexflow_torch.runtime.trainer import Trainer
+
+    seen = []
+    fit = Trainer.fit
+
+    def spy(self, **kw):
+        stats = fit(self, **kw)
+        seen.append((kw["steps_per_call"], stats["iterations"],
+                     stats.get("supersteps")))
+        return stats
+
+    monkeypatch.setattr(Trainer, "fit", spy)
+    out = bench.bench_superstep(device="cpu", batch=8, width=16, iters=16)
+    assert seen == [(1, 16, None), (4, 16, 4), (8, 16, 2), (16, 16, 1)]
+    assert all(out[f"k{k}_ms_per_step"] > 0 for k in (1, 4, 8, 16))
+    assert out["amortization_k8_vs_k1"] == round(
+        out["k1_ms_per_step"] / out["k8_ms_per_step"], 3)
+
+
+def test_a_failing_superstep_leg_becomes_its_error(monkeypatch, capsys):
+    def broken(**kw):
+        raise RuntimeError("planted")
+
+    _stand_in_card(monkeypatch, superstep=broken)
+    bench.main()
+    line = _one_line(capsys)
+    assert line["value"] > 0
+    assert line["extra"]["superstep_error"] == "RuntimeError: planted"
+    assert "superstep" not in line["extra"]
 
 
 def test_a_failing_leg_does_not_sink_the_headline(monkeypatch, capsys):

@@ -113,6 +113,28 @@ def test_adam_schedule_matches_jax(schedule, kw):
                                    rtol=OPT_TOL, atol=0)
 
 
+def test_adam_step_count_lives_on_the_device_and_advances_in_place():
+    """``t`` is a 0-d int32 tensor on the params' device that ``update``
+    advances in place (a captured CUDA graph replays onto it), and the
+    scheduled lr and bias corrections are tensors computed from it."""
+    opt = toptim.AdamOptimizer(lr=1e-2, schedule="cosine", warmup_steps=2,
+                               decay_steps=5)
+    tp = params_from_numpy(_tree(0), device="cpu")
+    ts = opt.init(tp)
+    t = ts["t"]
+    assert t.dtype == torch.int32 and t.dim() == 0 and int(t) == 0
+    for step in (1, 2, 3):
+        tp, ts = opt.update(tp, ts, params_from_numpy(_tree(step, 0.1), "cpu"))
+        assert ts["t"] is t and int(t) == step
+    lr, c1, c2 = opt._factors(t)
+    assert all(isinstance(x, torch.Tensor) and x.dtype == torch.float32
+               for x in (lr, c1, c2))
+    j = joptim.AdamOptimizer(lr=1e-2, schedule="cosine", warmup_steps=2,
+                             decay_steps=5)
+    np.testing.assert_allclose(float(lr), float(j._lr_at(jnp.int32(3))),
+                               rtol=OPT_TOL)
+
+
 def test_adam_bf16_params_keep_no_master_copy():
     """bf16 params: f32 moments, each update rounded once to bf16."""
     params = _tree(1)

@@ -203,7 +203,7 @@ def test_fit_loss_trajectory_matches_jax(start):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(steps_per_call=2), "superstep"), (dict(accum_steps=2), "accum"),
+    (dict(batches=iter([{}])), "batch iterator"),
     (dict(checkpoint=object()), "checkpoint"), ({}, "telemetry")])
 def test_trainer_refuses_what_is_not_ported(kw, what):
     ex = _torch_executor()
@@ -232,9 +232,9 @@ def test_transformer_app_on_cpu(capsys, dtype):
 
 @pytest.mark.parametrize("flag", [
     ["--dp", "2"], ["--sp", "2"], ["--tp", "2"], ["--experts", "4"],
-    ["--steps-per-call", "2"], ["--accum-steps", "2"], ["--resilient"],
-    ["--telemetry", "d"], ["--lazy-sparse-opt"], ["-ll:gpu", "2"],
-    ["--dtype", "float16"], ["--remat"], ["--ckpt-dir", "d"], ["--bogus"]])
+    ["--resilient"], ["--telemetry", "d"], ["--lazy-sparse-opt"],
+    ["-ll:gpu", "2"], ["--dtype", "float16"], ["--ckpt-dir", "d"],
+    ["--bogus"]])
 def test_transformer_app_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as e:
         tapp.main(_APP + flag, device="cpu")
