@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Nineteen phases, in order; any failure raises and exits non-zero:
+Twenty phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -47,8 +47,10 @@ Nineteen phases, in order; any failure raises and exits non-zero:
    of 4-32 prompt tokens and 32 new tokens, decode K=8) through
    ``flexflow_torch.apps.serve.main`` and checks that every request
    completes and that the kernels' launch counters equal ``layers x
-   prefills`` (flash prefill) and ``layers x K x supersteps`` (flash
-   decode), and that no training kernel ran.
+   prefills`` (flash prefill) and ``2 x layers x K`` (flash decode: the
+   decode supersteps are one CUDA graph, counted at the first call's
+   eager steps and at its capture, never at a replay), and that no
+   training kernel ran.
 4. **Parity.**  Serves the same requests in f32 with the decode kernel
    and with the plain einsum decode: the greedy tokens must be identical.
 5. **Train.**  Trains the full-width bf16 LM (batch 16, seq 2048, 6
@@ -191,11 +193,37 @@ Nineteen phases, in order; any failure raises and exits non-zero:
     = 1) and as a graph, each replay's device busy share, and the LM
     step's peak memory with and without ``--remat``, beside the card's
     name and power limit.
+20. **Serve features.**  ROADMAP item 4 at phase 3's widths
+    (``SERVE_FEATURES``), each arm through ``apps.serve.main`` or
+    ``Server``: (a) paged KV, 16-token blocks in a pool of 40 (64 for
+    the worst case) with 96 new tokens so that admission waits, bf16
+    tokens bit-equal to the padded run with both on the einsum decode
+    (``--no-decode-kernel``) and f32 tokens equal to the padded run on
+    K6, with the capacity columns; (b) the prefix cache in f32, 16
+    requests of which 12 share one 64-token prefix with 1-30 tokens of
+    their own and 4 are that prefix: tokens equal to an unshared paged
+    run, hits, full hits (no prefill) and saved tokens above 0; (c)
+    speculation at d = 4, a full self-draft (acceptance exactly 1.0) and
+    a 2-layer draft (below 1.0), padded on K6 and paged on the einsum:
+    bf16 tokens bit-equal to plain decode's; (d) keyed sampling (T 0.8,
+    top-k 50, seed 3): two runs, K = 4 and 8, one request alone and the
+    speculative run give the same tokens; (e) padded, paged, sampled and
+    speculative Servers as CUDA graphs against their eager form (two
+    runs each): tokens and caches bit for bit (scratch block 0 left
+    out), a call with a clone of ``pos`` raises, a fresh capture rises
+    by L x K K6 launches and one profiled replay runs K6 L x K times by
+    kernel name; (f) every run's K1f and K6 launches exact
+    (``_serve_launches``: none on the paged main-model decode, none from
+    the offset prefill or a full hit) and no training kernel.  Prints
+    decode ms/step eager and as a graph, tokens/s, acceptance and tokens
+    per round, the prefix hit rate and saved tokens, beside the card's
+    name and power limit.
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
-DLRM, long-context, race, AlexNet and superstep runs together, split in
-``launches_by_path``; the superstep path counts what its graph runs
-launched eagerly or captured; K3's entries name the form each main-path
+DLRM, long-context, race, AlexNet, superstep and serve-features runs
+together, split in ``launches_by_path``; the superstep and
+serve-features paths count what their graph runs launched eagerly or
+captured; K3's entries name the form each main-path
 shape takes), the card's name
 and power limit from ``nvidia-smi``, and as its last line the JSON
 object ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -969,8 +997,7 @@ def phase_train_kernels(torch, kernels, F):
     return rows
 
 
-def _serve_argv(dtype: str):
-    c = SERVE
+def _serve_argv(dtype: str, c=SERVE):
     return ["--vocab", str(c["vocab"]), "--d-model", str(c["d_model"]),
             "--heads", str(c["heads"]), "--layers", str(c["layers"]),
             "--max-seq", str(c["max_seq"]), "--max-batch", str(c["max_batch"]),
@@ -983,6 +1010,10 @@ def _serve_argv(dtype: str):
 
 
 def phase_serve(torch, kernels):
+    """The app at SERVE widths in bf16.  The decode supersteps are one
+    CUDA graph: the counters rise at the first call's eager steps and at
+    its capture (2 x L x K for K6), never at a replay; phase 20 counts
+    K6 by kernel name in a profiled replay.  Returns the launches."""
     from flexflow_torch.apps import serve
 
     stats = {}
@@ -996,8 +1027,9 @@ def phase_serve(torch, kernels):
            f"failed {stats['failed']}")
     L, K = SERVE["layers"], SERVE["decode_steps"]
     want = {"flash_attention_lse": L * stats["prefills"],
-            "flash_decode": L * K * stats["decode_supersteps"]}
-    _check(all(launches[n] == want[n] > 0 for n in want),
+            "flash_decode": 2 * L * K}
+    _check(stats["decode_supersteps"] > 1 and
+           all(launches[n] == want[n] > 0 for n in want),
            f"launch counts {launches}, expected {want}")
     _check(all(c == 0 for n, c in launches.items() if n not in want),
            f"serving launched a training kernel: {launches}")
@@ -1005,11 +1037,12 @@ def phase_serve(torch, kernels):
     print(f"[serve] tokens/s {stats['tokens_per_s']:.1f}; decode "
           f"{stats['decode_s'] * 1e3 / steps:.3f} ms/step "
           f"({stats['decode_s'] * 1e3 / stats['decode_tokens']:.3f} ms/token "
-          f"over {stats['decode_tokens']} tokens); latency p50 "
+          f"over {stats['decode_tokens']} tokens, the first superstep's "
+          f"eager steps and capture included); latency p50 "
           f"{stats['request_latency_ms_p50']:.1f} ms p95 "
           f"{stats['request_latency_ms_p95']:.1f} ms; prefills "
-          f"{stats['prefills']}, supersteps {stats['decode_supersteps']}; "
-          f"launches {launches}")
+          f"{stats['prefills']}, supersteps {stats['decode_supersteps']} (one "
+          f"graph replay each after the first); launches {launches}")
     return launches
 
 
@@ -2855,6 +2888,7 @@ KERNEL_NAMES = {
     "softmax_xent_bwd": ("xent", "bwd_kernel"),
     "gather_rows": ("gather_regs_kernel",),
     "scatter_add_rows": ("scatter_add_rows_kernel",),
+    "flash_decode": ("decode_split_kernel",),
 }
 
 
@@ -3133,6 +3167,322 @@ def phase_superstep(torch, kernels):
     return total
 
 
+#: Phase 20's arms at SERVE widths: (a) paged with a pool of 40 blocks
+#: (64 for the worst case) and 96 new tokens, so the first eight
+#: reservations exceed the pool and admission waits; (b) the prefix cache
+#: over 16 requests, 12 sharing one 64-token prefix (4 blocks) with 1-30
+#: tail tokens of their own, 4 that prefix alone; (c) speculation at d = 4,
+#: a full self-draft and a 2-layer one; (d) keyed sampling.
+SERVE_FEATURES = dict(kv_block=16, kv_blocks=41, paged_max_new=96,
+                      prefix_len=64, tails=(1, 30), speculate=4,
+                      draft_layers=2, temperature=0.8, top_k=50,
+                      sample_seed=3)
+
+
+def _serve_runs(torch, ex, params, reqs, runs=1, **kw):
+    """``runs`` runs of one Server (on the card its graph is captured in
+    the first); returns the Server, each run's (tokens by request, stats)
+    and the launches of all of them."""
+    from flexflow_torch.runtime.serving import Server
+
+    srv = Server(ex, params, {}, **kw)
+    _zero_counts()
+    outs = []
+    for _ in range(runs):
+        res, stats = srv.run(reqs)
+        _check(stats["failed"] == 0, f"serve {kw} failed: "
+               f"{[r.error for r in res.values() if r.error]}")
+        outs.append(({rid: r.tokens for rid, r in res.items()}, stats))
+    torch.cuda.synchronize()
+    return srv, outs, _counts()
+
+
+def _serve_launches(ex, srv, outs, fresh=None) -> dict:
+    """The K1f and K6 launches a Server's runs must count: K1f L per
+    prefill that shares no block (``fresh``, default every prefill) and
+    the draft's kept layers per draft prefill; K6 L per padded decode step
+    (none on the paged main-model decode or with ``decode_kernel=False``)
+    and the kept layers per draft step, counted at each step of an eager
+    call and, for a graph, at its first call's eager steps and capture."""
+    L = SERVE["layers"]
+    Ld = len(ex._draft_cache_specs)
+    d, K = srv.speculate, srv.decode_steps
+    prefills = sum(st["prefills"] for _, st in outs)
+    calls = sum(st["decode_supersteps"] for _, st in outs)
+    kernel = ex.decode_kernel is not False
+    main = L if kernel and not ex.paged else 0
+    per_call = (d + 1) * (main + (Ld if kernel else 0)) if d else K * main
+    graph = srv.engine[0].graph is not None
+    fresh = prefills if fresh is None else fresh
+    return {"flash_attention_lse": L * fresh + (Ld * prefills if d else 0),
+            "flash_decode": 2 * per_call if graph else per_call * calls}
+
+
+def _held_launches(tag, counts, want) -> None:
+    _check(all(counts[n] == v for n, v in want.items()) and
+           all(c == 0 for n, c in counts.items() if n not in want),
+           f"{tag}: launches {counts}, expected {want} and nothing else")
+
+
+def _ms_per_step(srv, stats) -> float:
+    steps = stats["decode_supersteps"] * (1 if srv.speculate else
+                                          srv.decode_steps)
+    return stats["decode_s"] * 1e3 / steps
+
+
+def _pool_diff(torch, a, b, paged: bool) -> list:
+    """The cache tensors where two Servers' caches differ in any bit,
+    scratch block 0 of a pool left out."""
+    rows = slice(1, None) if paged else slice(None)
+    return [f"{n}.{kv}" for n in a for kv in ("k", "v")
+            if not torch.equal(_bits(a[n][kv][rows]), _bits(b[n][kv][rows]))]
+
+
+def phase_serve_features(torch, kernels):
+    """ROADMAP item 4's serving features at SERVE widths: (a) paged KV,
+    (b) the prefix cache, (c) speculation, (d) keyed sampling, (e) the
+    decode superstep and the speculative round as CUDA graphs against
+    their eager form, (f) exact K1f and K6 launches in every arm.
+    Returns the launches of every run together."""
+    import numpy as np
+
+    from flexflow_torch.apps import serve
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.transformer import build_transformer_lm
+    from flexflow_torch.runtime.serving import (
+        KVBlockLedger, Request, ServingExecutor, synthetic_requests)
+
+    c, f = SERVE, SERVE_FEATURES
+    L, K, B = c["layers"], c["decode_steps"], c["max_batch"]
+    card = _card()
+    total = {}
+
+    def add(counts):
+        for n, v in counts.items():
+            total[n] = total.get(n, 0) + v
+
+    def app(dtype, extra, cfg=c):
+        stats = {}
+        _zero_counts()
+        import contextlib
+        import io
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = serve.main(_serve_argv(dtype, cfg) + extra, device="cuda",
+                            stats_out=stats)
+        torch.cuda.synchronize()
+        counts = _counts()
+        add(counts)
+        _check(rc == 0 and stats["failed"] == 0, f"serve {extra} failed")
+        return {rid: r.tokens for rid, r in stats.pop("results").items()}, \
+            stats, counts
+
+    # -- (a) paged: bit for bit against padded on the same decode ---------
+    ca = dict(c, max_new=f["paged_max_new"])
+    reqs = synthetic_requests(c["requests"], c["vocab"], prompt_len=c["prompt"],
+                              max_new_tokens=ca["max_new"], seed=c["seed"])
+    led = KVBlockLedger(f["kv_blocks"], f["kv_block"], c["max_seq"])
+    first = sum(led.blocks_for(len(r.prompt), r.max_new_tokens)
+                for r in reqs[:B])
+    _check(first > led.capacity_blocks, f"the first {B} requests reserve "
+           f"{first} blocks, the pool holds {led.capacity_blocks}: no wait")
+    paged = ["--kv-block", str(f["kv_block"]), "--kv-blocks",
+             str(f["kv_blocks"])]
+    runs = {}
+    for dtype, extra in (("bfloat16", ["--no-decode-kernel"]),
+                         ("float32", [])):
+        for layout, flags in (("padded", []), ("paged", paged)):
+            toks, st, counts = app(dtype, flags + extra, ca)
+            want = {"flash_attention_lse": L * st["prefills"],
+                    "flash_decode": 2 * L * K if layout == "padded" and
+                    not extra else 0}
+            _held_launches(f"paged arm {dtype} {layout}", counts, want)
+            runs[dtype, layout] = (toks, st)
+    for dtype, how in (("bfloat16", "bit for bit, both on the einsum"),
+                       ("float32", "padded on K6, paged on the einsum")):
+        a, b = runs[dtype, "padded"][0], runs[dtype, "paged"][0]
+        diff = [r for r in a if a[r] != b[r]]
+        _check(not diff, f"paged tokens differ from padded ({dtype}, {how}) "
+               f"for requests {diff}")
+    st = runs["bfloat16", "paged"][1]
+    cfg = FFConfig(compute_dtype="bfloat16", seed=c["seed"])
+    ff = build_transformer_lm(
+        batch_size=B, seq_len=c["max_seq"], vocab_size=c["vocab"],
+        d_model=c["d_model"], num_heads=c["heads"], num_layers=L, config=cfg)
+    pad_ex = ServingExecutor(ff, cfg, max_batch=B, max_seq=c["max_seq"],
+                             buckets=c["buckets"], device="cuda")
+    pg_ex = ServingExecutor(ff, cfg, max_batch=B, max_seq=c["max_seq"],
+                            buckets=c["buckets"], device="cuda",
+                            kv_block=f["kv_block"], kv_blocks=f["kv_blocks"])
+    budget = pad_ex.cache_total_bytes()
+    print(f"[serve-features] (a) paged {st['kv_blocks']} x {st['kv_block']}-"
+          f"token blocks (the first {B} requests reserve {first} of "
+          f"{led.capacity_blocks}: admission waited), {c['requests']} "
+          f"requests of {ca['max_new']} new tokens: bf16 tokens bit-equal to "
+          f"padded (both --no-decode-kernel), f32 tokens equal to padded on "
+          f"K6; supersteps padded {runs['bfloat16', 'padded'][1]['decode_supersteps']}"
+          f", paged {st['decode_supersteps']}; HBM per slot padded "
+          f"{pad_ex.hbm_per_slot_bytes()} B, paged (4-token prompt, "
+          f"{c['max_new']} new) {pg_ex.hbm_per_slot_bytes(4, c['max_new'])} B;"
+          f" the padded cache's {budget} B admit {pad_ex.max_admissible_batch(budget, 4, c['max_new'])}"
+          f" padded / {pg_ex.max_admissible_batch(budget, 4, c['max_new'])} "
+          f"paged slots; pool {pg_ex.cache_total_bytes()} B")
+
+    # -- (b) the prefix cache, f32: tokens equal to an unshared run ------
+    cfg32 = FFConfig(compute_dtype="float32", seed=c["seed"])
+    ff32 = build_transformer_lm(
+        batch_size=B, seq_len=c["max_seq"], vocab_size=c["vocab"],
+        d_model=c["d_model"], num_heads=c["heads"], num_layers=L,
+        config=cfg32)
+    rng = np.random.default_rng(c["seed"])
+    prefix = rng.integers(0, c["vocab"], size=f["prefix_len"])
+    order = "BSSSSSSBSSSSSSBB"
+    preqs = []
+    for i, kind in enumerate(order):
+        tail = rng.integers(0, c["vocab"], size=int(rng.integers(
+            f["tails"][0], f["tails"][1] + 1)) if kind == "S" else 0)
+        preqs.append(Request(i, np.concatenate([prefix, tail]).astype(
+            np.int32), c["max_new"]))
+    outs = {}
+    for cache in (False, True):
+        ex = ServingExecutor(ff32, cfg32, max_batch=B, max_seq=c["max_seq"],
+                             buckets=c["buckets"], device="cuda",
+                             kv_block=f["kv_block"], prefix_cache=cache)
+        params32 = ex.init(c["seed"])[0]
+        srv, o, counts = _serve_runs(torch, ex, params32, preqs)
+        add(counts)
+        st = o[0][1]
+        full = st["requests"] - st["prefills"]
+        fresh = st["prefills"] - (st.get("prefix_hits", 0) - full)
+        _held_launches(f"prefix arm (cache {cache})", counts,
+                       _serve_launches(ex, srv, o, fresh))
+        outs[cache] = (o[0][0], st, full, fresh)
+        del params32
+    diff = [r for r in outs[False][0] if outs[False][0][r] != outs[True][0][r]]
+    _check(not diff, f"shared-prefix f32 tokens differ from unshared for "
+           f"requests {diff}")
+    _, st, full, fresh = outs[True]
+    _check(st["prefix_hits"] > 0 and full > 0 and
+           st["prefill_tokens_saved"] > 0, f"prefix arm: hits "
+           f"{st['prefix_hits']}, full hits {full}, saved "
+           f"{st['prefill_tokens_saved']}")
+    print(f"[serve-features] (b) prefix cache, f32, {len(preqs)} requests: "
+          f"tokens equal to the unshared paged run; prefix hits "
+          f"{st['prefix_hits']} ({full} full, no prefill), hit rate "
+          f"{st['prefix_hit_rate']}, prefill tokens saved "
+          f"{st['prefill_tokens_saved']}, CoW blocks {st['kv_cows']}; "
+          f"prefills {st['prefills']}, K1f = {L} x {fresh} that shared no "
+          f"block")
+    del ff32
+
+    # -- (c), (d), (e): speculation, sampling, graph against eager -------
+    params = pad_ex.init(c["seed"])[0]
+    reqs = synthetic_requests(c["requests"], c["vocab"], prompt_len=c["prompt"],
+                              max_new_tokens=c["max_new"], seed=c["seed"])
+    pgnk_ex = ServingExecutor(ff, cfg, max_batch=B, max_seq=c["max_seq"],
+                              buckets=c["buckets"], device="cuda",
+                              kv_block=f["kv_block"], decode_kernel=False)
+    sample = dict(temperature=f["temperature"], top_k=f["top_k"],
+                  sample_seed=f["sample_seed"])
+    times, toks = {}, {}
+    for name, ex, kw in (("padded on K6", pad_ex, {}),
+                         ("paged", pgnk_ex, {}),
+                         ("sampled", pad_ex, sample),
+                         ("speculative", pad_ex, dict(speculate=f["speculate"]))):
+        got = {}
+        for graph in (False, True):
+            srv, o, counts = _serve_runs(torch, ex, params, reqs, runs=2,
+                                         decode_steps=K, graph=graph, **kw)
+            add(counts)
+            _held_launches(f"{name} graph={graph}", counts,
+                           _serve_launches(ex, srv, o))
+            _check(o[0][0] == o[1][0], f"{name} graph={graph}: two runs "
+                   f"gave other tokens")
+            got[graph] = (srv, o[1])
+        (se, (te, ste)), (sg, (tg, stg)) = got[False], got[True]
+        _check(te == tg, f"{name}: graph tokens differ from eager")
+        diff = _pool_diff(torch, se.engine[1], sg.engine[1], ex.paged)
+        if se.engine[2] is not None:
+            diff += _pool_diff(torch, se.engine[2], sg.engine[2], False)
+        _check(not diff, f"{name}: graph caches differ from eager in {diff}")
+        times[name] = (_ms_per_step(se, ste), _ms_per_step(sg, stg),
+                       ste["tokens_per_s"], stg["tokens_per_s"])
+        toks[name] = tg
+        if name == "padded on K6":
+            fn, caches, _dc, dev = sg.engine
+            try:
+                fn(params, {}, caches, dev["pos"].clone(), dev["tok"])
+            except ValueError as e:
+                _check("captured on other tensors" in str(e), f"{e}")
+            else:
+                raise RuntimeError("chip_smoke: a decode call with a clone of "
+                                   "pos replayed the graph")
+    _check(toks["speculative"] == toks["padded on K6"], "speculative tokens "
+           "differ from plain decode's")
+    print("[serve-features] (e) graph against eager, tokens and caches bit "
+          "for bit (block 0 left out), two runs each equal: " + "; ".join(
+              f"{n} {e:.4f} ms/step eager, {g:.4f} as a graph "
+              f"({e / g:.2f}x), {te:.1f} / {tg:.1f} tokens/s"
+              for n, (e, g, te, tg) in times.items()) +
+          f" (speculative: ms per round of {f['speculate'] + 1} verify "
+          f"steps); a call with a clone of pos raises; {card}")
+
+    # K6 by kernel name in one profiled replay of a fresh capture.
+    fn = pad_ex.build_decode_superstep(K)
+    with torch.inference_mode():
+        caches = pad_ex.init_cache()
+        pos = torch.full((B,), 40, dtype=torch.int32, device=pad_ex.device)
+        tok = torch.zeros((B,), dtype=torch.int32, device=pad_ex.device)
+        busy = _replay_counts(torch, "serve-graph", fn.graph,
+                              (params, {}, caches, None, pos, tok, None), {},
+                              {"flash_decode": L})
+    print(f"[serve-features] a replay of the K={K} decode graph runs K6 "
+          f"{K * L} times by name; device busy {busy / 1e3:.3f} ms")
+
+    # (c) speculation, padded on K6 and paged on the einsum
+    plain = {"padded": toks["padded on K6"], "paged": toks["paged"]}
+    for layout, ex0 in (("padded", pad_ex), ("paged", pgnk_ex)):
+        for dl in (0, f["draft_layers"]):
+            ex = ex0 if not dl else ServingExecutor(
+                ff, cfg, max_batch=B, max_seq=c["max_seq"], buckets=c["buckets"],
+                device="cuda", kv_block=ex0.kv_block,
+                decode_kernel=ex0.decode_kernel, draft_layers=dl)
+            srv, o, counts = _serve_runs(torch, ex, params, reqs,
+                                         decode_steps=K, speculate=f["speculate"])
+            add(counts)
+            _held_launches(f"spec {layout} draft_layers={dl}", counts,
+                           _serve_launches(ex, srv, o))
+            t, st = o[0]
+            _check(t == plain[layout], f"spec {layout} draft_layers={dl}: "
+                   f"tokens differ from plain decode's")
+            acc = st["spec_acceptance_rate"]
+            _check(acc == 1.0 if not dl else acc < 1.0,
+                   f"spec {layout} draft_layers={dl}: acceptance {acc}")
+            print(f"[serve-features] (c) speculate {f['speculate']} {layout}"
+                  f" draft_layers={dl}: bf16 tokens bit-equal to plain decode"
+                  f", acceptance {acc}, {st['spec_tokens_per_dispatch']} "
+                  f"tokens per round ({st['decode_supersteps']} rounds), "
+                  f"{st['tokens_per_s']:.1f} tokens/s; launches {counts}")
+
+    # (d) sampling: K, batch composition, speculation
+    for what, rq, kw in (("K=4", reqs, dict(decode_steps=4)),
+                         ("alone", [reqs[5]], dict(decode_steps=K)),
+                         ("speculative", reqs, dict(decode_steps=K,
+                                                    speculate=f["speculate"]))):
+        srv, o, counts = _serve_runs(torch, pad_ex, params, rq, **kw, **sample)
+        add(counts)
+        _held_launches(f"sampled {what}", counts,
+                       _serve_launches(pad_ex, srv, o))
+        diff = [r for r in o[0][0] if o[0][0][r] != toks["sampled"][r]]
+        _check(not diff, f"sampled {what}: tokens differ for {diff}")
+    _check(toks["sampled"] != toks["padded on K6"], "sampled = greedy")
+    print(f"[serve-features] (d) sampled (T {f['temperature']}, top-k "
+          f"{f['top_k']}, seed {f['sample_seed']}): two runs, K=4 and K={K}, "
+          f"request 5 alone, and the speculative run give the same tokens")
+    print(f"[serve-features] launches of every run {total}")
+    return total
+
+
 def _card() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
@@ -3199,11 +3549,13 @@ def main() -> int:
     t.append(time.perf_counter())
     superstep_launches = phase_superstep(torch, kernels)
     t.append(time.perf_counter())
+    features_launches = phase_serve_features(torch, kernels)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
              "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
              "longctx-parity", "probe-kernels", "alexnet-kernels",
-             "alexnet-train", "alexnet-parity", "superstep")
+             "alexnet-train", "alexnet-parity", "superstep", "serve-features")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -3239,7 +3591,8 @@ def main() -> int:
                       for leg, counts in longctx_launches.items()},
                    "probe": probe_launches[name],
                    "alexnet": alexnet_launches[name],
-                   "superstep": superstep_launches[name]}
+                   "superstep": superstep_launches[name],
+                   "serve_features": features_launches[name]}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])

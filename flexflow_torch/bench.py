@@ -13,8 +13,9 @@ bf16, SGD lr 0.01 momentum 0.9 wd 1e-4, 3 warmup + 20 timed steps);
 row-sparse path, 2 + 10 steps), the LM legs at 2k (2 + 10), 8k (2 + 5)
 and 32k (2 + 3), each with its MFU against the H100's dense bf16 peak,
 the superstep sweep (``superstep``: ms/step of a small MLP at k = 1, 4,
-8 and 16 steps per call, the k > 1 ones as CUDA graphs) and the card's
-name and power limit.  Throughput is ``iterations x batch / elapsed``
+8 and 16 steps per call, the k > 1 ones as CUDA graphs), the serving leg
+(``serving``: bench.py's columns that the port computes, decode
+supersteps as CUDA graphs) and the card's name and power limit.  Throughput is ``iterations x batch / elapsed``
 with one fence at the end (``Trainer.fit``); the flops come from
 ``search/cost_model.py::train_flops``.  A leg that fails becomes
 ``<leg>_error`` and does not sink the headline.  Without a CUDA device
@@ -22,8 +23,9 @@ the line carries ``"value": null`` and the error; nothing is measured
 on the CPU.
 
 ``bench.py``'s other legs (NMT, Candle-Uno, pipeline,
-telemetry, data plane, serving, search, op-parallel) wait for their
-slices of the port (ROADMAP.md queue 1).  The leg functions take the
+telemetry, data plane, search, op-parallel) and the serving leg's
+scheduler, failure-model, fleet, sharded and prefix-workload columns
+wait for their slices of the port (ROADMAP.md queue 1).  The leg functions take the
 device and their sizes as arguments, so a test can run them small on
 the CPU.
 """
@@ -162,6 +164,90 @@ def bench_superstep(device="cuda", batch: int = 64, width: int = 256,
     return out
 
 
+def bench_serving(device="cuda", vocab: int = 32768, d_model: int = 512,
+                  heads: int = 8, layers: int = 6, max_seq: int = 128,
+                  max_batch: int = 8, n_req: int = 16, max_new: int = 32,
+                  kv_block: int = 16, dtype: str = "bfloat16",
+                  speculate: int = 12) -> dict:
+    """``bench.py``'s serving leg (``bench_serving``) at its TPU sizes:
+    the LM's continuous-batching loop over 16 synthetic requests (seed
+    13, prompts of 4 to max_seq / 4 tokens), each Server run once to warm
+    (on CUDA: build and capture its graphs) and once measured.  Columns:
+    the K = 1 and K = 8 decode supersteps (tokens/s, decode ms/token,
+    their ratio, the K = 8 latencies); the paged layout's capacity (HBM
+    per slot, the batch the padded cache's budget admits in each layout)
+    and tokens/s at K = 8; a d = ``speculate`` full self-draft against
+    plain K = 8 (tokens per decode dispatch, acceptance, and whether the
+    tokens match)."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.transformer import build_transformer_lm
+    from flexflow_torch.runtime.serving import (
+        Server, ServingExecutor, synthetic_requests)
+
+    ff = build_transformer_lm(
+        batch_size=max_batch, seq_len=max_seq, vocab_size=vocab,
+        d_model=d_model, num_heads=heads, num_layers=layers,
+        config=FFConfig(batch_size=max_batch, compute_dtype=dtype))
+    buckets = (max_seq // 2, max_seq)
+    sex = ServingExecutor(ff, max_batch=max_batch, max_seq=max_seq,
+                          buckets=buckets, device=device)
+    params, state = sex.init(0)
+    out = {"max_batch": max_batch, "max_seq": max_seq, "requests": n_req}
+
+    def reqs():
+        return synthetic_requests(n_req, vocab, prompt_len=(4, max_seq // 4),
+                                  max_new_tokens=max_new, seed=13)
+
+    def measured(engine, **kw):
+        srv = Server(engine, params, state, **kw)
+        srv.run(reqs())  # warm: builds and captures outside the measure
+        return srv.run(reqs())
+
+    k8_stats = None
+    for k in (1, 8):
+        _res, stats = measured(sex, decode_steps=k)
+        decode_tokens = max(stats["tokens"] - stats["prefills"], 1)
+        out[f"k{k}_tokens_per_s"] = round(stats["tokens_per_s"], 1)
+        out[f"k{k}_decode_ms_per_token"] = round(
+            stats["decode_s"] / decode_tokens * 1e3, 3)
+        if k == 8:
+            k8_stats = stats
+    out["fused_speedup_k8_vs_k1"] = round(
+        out["k1_decode_ms_per_token"] / out["k8_decode_ms_per_token"], 3)
+    out["request_latency_ms_p50"] = k8_stats["request_latency_ms_p50"]
+    out["request_latency_ms_p95"] = k8_stats["request_latency_ms_p95"]
+    out["programs_per_decode_superstep"] = k8_stats[
+        "programs_per_decode_superstep"]
+
+    sexp = ServingExecutor(ff, max_batch=max_batch, max_seq=max_seq,
+                           buckets=buckets, device=device, kv_block=kv_block)
+    plen = 4
+    out["hbm_per_slot_bytes"] = sex.hbm_per_slot_bytes()
+    out["paged_hbm_per_slot_bytes"] = sexp.hbm_per_slot_bytes(plen, max_new)
+    budget = sex.cache_total_bytes()
+    out["padded_max_admitted_batch"] = sex.max_admissible_batch(
+        budget, plen, max_new)
+    out["paged_max_admitted_batch"] = sexp.max_admissible_batch(
+        budget, plen, max_new)
+    out["paged_tokens_per_s"] = round(
+        measured(sexp, decode_steps=8)[1]["tokens_per_s"], 1)
+
+    plain_res, _ = measured(sex, decode_steps=8)
+    spec_res, spec_stats = measured(sex, decode_steps=8, speculate=speculate)
+    out["speculate"] = spec_stats["speculate"]
+    out["spec_tokens_per_s"] = round(spec_stats["tokens_per_s"], 1)
+    out["spec_acceptance_rate"] = spec_stats["spec_acceptance_rate"]
+    out["spec_tokens_per_dispatch"] = spec_stats["spec_tokens_per_dispatch"]
+    plain_tpd = (k8_stats["tokens"] - k8_stats["prefills"]) / max(
+        k8_stats["decode_supersteps"], 1)
+    out["plain_tokens_per_dispatch"] = round(plain_tpd, 3)
+    out["spec_vs_plain_tokens_per_dispatch"] = round(
+        spec_stats["spec_tokens_per_dispatch"] / max(plain_tpd, 1e-9), 3)
+    out["spec_match"] = all(
+        spec_res[r].tokens == plain_res[r].tokens for r in plain_res)
+    return out
+
+
 def _card() -> dict:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     out = subprocess.run(
@@ -208,6 +294,11 @@ def _run() -> dict:
             extra["superstep"] = bench_superstep()
     except Exception as e:
         extra["superstep_error"] = f"{type(e).__name__}: {e}"
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            extra["serving"] = bench_serving()
+    except Exception as e:
+        extra["serving_error"] = f"{type(e).__name__}: {e}"
     return {
         "metric": "alexnet_imgs_per_sec_per_chip",
         "value": round(per_chip, 2),

@@ -9,10 +9,13 @@ forward and K1b backward for every head dim they take, the streamed K1s
 and K1sb under ``FF_FLASH_STREAMED=1``, the plain blocked form at
 ``t >= 4096`` for other head dims, and the einsum when it returns None.
 Cached decode runs the flash-decode
-kernel (``kernels.flash_decode``) unless ``decode_kernel`` is False,
-which selects the plain ``_einsum_decode``.  On CPU tensors both kernel
-wrappers run their plain versions.  The ring (sequence-parallel), paged
-and prefix-offset paths come with later slices (ROADMAP.md queue 1).
+kernel (``kernels.flash_decode``) on the padded cache unless
+``decode_kernel`` is False, which selects the plain ``_einsum_decode``.
+The paged decode (a block pool and a per-slot block table) and the
+offset prefill of a shared prefix run plain torch, as the JAX package
+runs jnp there: neither reaches a Pallas kernel.  On CPU tensors both
+kernel wrappers run their plain versions.  The ring (sequence-parallel)
+path comes with a later slice (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -115,10 +118,12 @@ class PositionEmbedding(Op):
             # Serving: ``pos`` is each slot's position of this call's
             # first token.  Decode (t == 1) gathers one row per slot;
             # prefill starts every slot at 0 and may be shorter than the
-            # declared sequence (pad-to-bucket), so it slices.
+            # declared sequence (pad-to-bucket), so it slices.  The
+            # offset prefill of a shared prefix starts at row ``chunk``.
             if x.shape[1] == 1:
                 return [x + table[state["pos"].long()][:, None]], state
-            return [x + table[None, : x.shape[1]]], state
+            start = int(state.get("chunk", 0))
+            return [x + table[None, start:start + x.shape[1]]], state
         return [x + table[None]], state
 
 
@@ -216,29 +221,59 @@ class MultiHeadAttention(Op):
         y = self._attend_dense(q, k, v, x.dtype)
         return [self._out_proj(params, y)], state
 
-    # -- padded KV-cache protocol (runtime/serving.py) ----------------------
+    # -- KV-cache protocol (runtime/serving.py) ------------------------------
     #
-    # ``state`` carries ``cache_k``/``cache_v`` (B, max_seq, heads, d_head)
-    # and the per-slot position vector ``pos`` (B,) int32.  Prefill
-    # (t > 1) runs the dense causal forward and writes this call's K/V
-    # into cache rows 0..t-1; decode (t == 1) writes the token's K/V at
-    # ``cache[b, pos[b]]`` and then attends key positions ``<= pos``
-    # (``lengths = pos + 1``).  The caches are updated IN PLACE (the JAX
-    # package returns new arrays): serving owns them, and a copy of every
-    # layer's cache per token would double the decode step's HBM traffic.
+    # ``state`` carries ``cache_k``/``cache_v`` and the per-slot position
+    # vector ``pos`` (B,) int32.  Padded caches are (B, max_seq, heads,
+    # d_head).  Prefill (t > 1) runs the dense causal forward and writes
+    # this call's K/V into cache rows 0..t-1; decode (t == 1) writes the
+    # token's K/V at ``cache[b, pos[b]]`` and then attends key positions
+    # ``<= pos`` (``lengths = pos + 1``).  With ``block_table`` (B, nblk)
+    # the caches are a paged pool (kv_blocks, kv_block, heads, d_head):
+    # decode scatters into the slot's block at (pos // bs, pos % bs) and
+    # attends a transient (B, nblk * bs, ...) gather of the slot's blocks
+    # with the plain ``_einsum_decode``, as JAX's jnp does (no kernel).
+    # With ``chunk`` (an int) a prefill's t tokens sit at absolute rows
+    # [chunk, chunk + t) of a cache whose rows [0, chunk) hold a shared
+    # prefix; queries attend [0, chunk + t) under the offset-causal mask.
+    #
+    # The caches are updated IN PLACE (the JAX package returns new
+    # arrays): serving owns them, a copy of every layer's cache per token
+    # would double the decode step's HBM traffic, and a CUDA graph of the
+    # decode superstep replays onto the same tensors.  Rows past a slot's
+    # position (a rejected draft, scratch block 0 of the pool) are never
+    # attended: the ``<= pos`` mask hides them until the position walk
+    # overwrites them.
 
     def _forward_cached(self, params, x, state):
         ck, cv = state["cache_k"], state["cache_v"]
         q, k, v = self._project(params, x)
         qh, kh, vh = map(self._split_heads, (q, k, v))   # (B, h, t, hd)
         b, h, t, hd = qh.shape
-        if t == 1:
+        if t == 1 and "block_table" in state:
+            pos = state["pos"].long()
+            bt = state["block_table"].long()
+            bs = ck.shape[1]
+            rows = torch.arange(b, device=x.device)
+            dest = bt[rows, pos // bs]
+            ck[dest, pos % bs] = kh[:, :, 0].to(ck.dtype)
+            cv[dest, pos % bs] = vh[:, :, 0].to(cv.dtype)
+            view_k = ck[bt].reshape(b, -1, h, hd)
+            view_v = cv[bt].reshape(b, -1, h, hd)
+            out = _einsum_decode(qh[:, :, 0], view_k, view_v, state["pos"])
+            y = self._merge_heads(out[:, :, None], x.dtype)
+        elif t == 1:
             pos = state["pos"]
             rows = torch.arange(b, device=x.device)
             ck[rows, pos.long()] = kh[:, :, 0].to(ck.dtype)
             cv[rows, pos.long()] = vh[:, :, 0].to(cv.dtype)
             out = self._decode_attend(qh[:, :, 0], ck, cv, pos)
             y = self._merge_heads(out[:, :, None], x.dtype)
+        elif "chunk" in state:
+            o = int(state["chunk"])
+            ck[:, o:o + t] = kh.transpose(1, 2).to(ck.dtype)
+            cv[:, o:o + t] = vh.transpose(1, 2).to(cv.dtype)
+            y = self._attend_chunk(qh, ck, cv, o, t, x.dtype)
         else:
             ck[:, :t] = kh.transpose(1, 2).to(ck.dtype)
             cv[:, :t] = vh.transpose(1, 2).to(cv.dtype)
@@ -247,6 +282,27 @@ class MultiHeadAttention(Op):
         new_state["cache_k"] = ck
         new_state["cache_v"] = cv
         return [self._out_proj(params, y)], new_state
+
+    def _attend_chunk(self, qh, ck, cv, offset: int, t: int, dtype):
+        """Offset-prefill attention: ``t`` queries at absolute positions
+        ``offset .. offset + t - 1`` against cache rows ``[0, offset +
+        t)``, the shared prefix and this call's own writes; f32 einsum
+        under the offset-causal mask (key j visible to query i iff j <=
+        offset + i), as JAX's ``_attend_chunk``."""
+        span = offset + t
+        kh = ck[:, :span].transpose(1, 2)             # (B, h, span, hd)
+        vh = cv[:, :span].transpose(1, 2)
+        q, k, v = qh.float(), kh.float(), vh.float()
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+        if self.attrs["causal"]:
+            keys = torch.arange(span, device=q.device)
+            rows = offset + torch.arange(t, device=q.device)
+            mask = keys[None, :] <= rows[:, None]
+            scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+        attn = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
+        return self._merge_heads(out, dtype)
 
     def _decode_attend(self, q1, ck, cv, pos):
         """``q1``: (B, h, hd).  The flash-decode kernel, or the plain

@@ -1,32 +1,50 @@
 """Inference serving: ServingExecutor and the closed-loop Server.
 
-The padded, greedy, single-device core of
-``flexflow_tpu/runtime/serving.py``:
+The single-device core of ``flexflow_tpu/runtime/serving.py``:
 
 - **Prefill** (:meth:`ServingExecutor.build_prefill`, one per pad
   bucket): the full-sequence causal forward over a zero-padded prompt,
   filling per-layer ``(1, max_seq, heads, d_head)`` cache rows and
-  returning the greedy first token and a finiteness flag.
-- **Decode superstep** (:meth:`ServingExecutor.build_decode_superstep`):
-  K single-token steps over the whole slot batch as a Python loop under
-  ``torch.inference_mode()``, token selection on the device, and ONE
-  host readback of the ``(K, B)`` tokens and finiteness flags per
-  superstep (the Server's :func:`_readback`).
+  returning the first token (greedy) and a finiteness flag.  With the
+  prefix cache a prompt whose leading full blocks are resident runs the
+  offset prefill (:meth:`build_prefill_from`) over its tail only, or no
+  prefill at all when the whole prompt and its first token are known.
+- **Decode superstep** (:meth:`build_decode_superstep`): K single-token
+  steps over the whole slot batch, token selection on the device
+  (greedy, or the keyed temperature / top-k draw of
+  ``runtime/keyed_random.py``), and ONE host readback of the ``(K, B)``
+  tokens and finiteness flags per superstep (:func:`_readback`).  On
+  CUDA the K steps are one CUDA graph (``runtime/graphs.py::StepGraph``,
+  the port's counterpart of JAX's one ``lax.scan`` dispatch): its carry
+  ``(caches, pos, tok, block_table, req_ids)`` is updated in place.
+- **Speculative round** (:meth:`build_spec_step`): d + 1 draft steps on
+  the draft's own padded caches, d + 1 verify steps through the decode
+  step's body, the longest matching prefix accepted on the device; one
+  CUDA graph on CUDA.  The emitted tokens equal plain decode's whatever
+  the draft proposes.
+- **Cache layouts**: padded ``(max_batch, max_seq, h, hd)`` per layer, or
+  paged (``kv_block > 0``): a pool of ``(kv_blocks, kv_block, h, hd)``
+  per layer with block 0 as scratch, per-slot block tables, and
+  admission gated by the host-side :class:`KVBlockLedger`, which also
+  holds the prefix cache's refcounts and content-hash index.
 - **Server.run**: FIFO admission into ``max_batch`` slots between
-  supersteps (prefill + install), one fused decode superstep over the
-  batch, per-slot consumption with the EOS, budget and context limits,
+  supersteps (prefill + install, the head-of-line wait when the pool is
+  short), one decode superstep or speculative round over the batch,
+  per-slot consumption with the EOS, budget and context limits,
   eviction, and the stats block.
 
-Left for later slices (ROADMAP.md queue 1): paged KV and the prefix
-cache, speculation, sampling, sharded decode, the scheduler and fleet,
-the journal, fault injection, telemetry and checkpoint restore.
+Left for later slices (ROADMAP.md queue 1): sharded decode, the
+scheduler and fleet, the journal, fault injection, drain, telemetry and
+checkpoint restore.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import logging
+import re
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -34,12 +52,18 @@ import numpy as np
 import torch
 
 from flexflow_torch.config import FFConfig
+from flexflow_torch.data.loader import DeviceMemoryError, _device_bytes_limit
 from flexflow_torch.graph import FFModel
 from flexflow_torch.ops.attention import MultiHeadAttention, PositionEmbedding
+from flexflow_torch.runtime import keyed_random
 from flexflow_torch.runtime.executor import Executor, resolve_device
+from flexflow_torch.runtime.graphs import StepGraph
 from flexflow_torch.runtime.trainer import relay_safe_steps
 
 _log = logging.getLogger("ff.serving")
+
+#: ``(temperature, top_k, seed)`` of the keyed draw; None is greedy.
+Sample = Optional[Tuple[float, int, int]]
 
 
 @dataclasses.dataclass
@@ -49,6 +73,214 @@ class Request:
     id: int
     prompt: np.ndarray  # 1-D int32 token ids
     max_new_tokens: int = 16
+
+
+def prefix_digests(tokens, block: int) -> List[bytes]:
+    """Chained per-block content hashes of a prompt's FULL blocks, the
+    prefix-cache index key: ``h_0 = sha1(block_0)``, ``h_j =
+    sha1(h_{j-1} || block_j)``, token ids as int64 bytes.  K/V at row r
+    depends only on tokens ``[0, r]``, so two prompts that agree on the
+    first ``(j+1) * block`` tokens have equal K/V in block j."""
+    toks = np.asarray(tokens, np.int64)
+    out: List[bytes] = []
+    prev = b""
+    for j in range(len(toks) // int(block)):
+        blk = toks[j * block:(j + 1) * block].tobytes()
+        out.append(hashlib.sha1(prev + blk).digest())
+        prev = out[-1]
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefixPlan:
+    """Admission plan from :meth:`KVBlockLedger.plan_prefix`.
+
+    ``use`` resident prefix blocks are SHARED (refcount++); ``cow``
+    matched blocks are recomputed privately instead (the copy-on-write
+    clamp: the prefill must compute the last prompt token's logits, so a
+    fully covered prompt without a memoized first token re-runs its
+    final block); ``offset = use * block`` is the first row the offset
+    prefill computes.  ``full_hit``: the whole prompt is covered AND its
+    first token memoized (``tok0``), so no prefill runs.  ``shared`` are
+    the pool block ids to reference, in order."""
+
+    use: int
+    cow: int
+    offset: int
+    full_hit: bool
+    tok0: Optional[int] = None
+    shared: Tuple[int, ...] = ()
+
+
+class KVBlockLedger:
+    """Host-side free-list accounting for the paged KV pool, in pure
+    integer arithmetic (the JAX package's scheduler simulates admission
+    with the same ledger).
+
+    Block 0 is the SCRATCH block, never allocated: inactive slots' table
+    rows point at it, and decode writes past a slot's reservation land
+    there; no active slot's masked attention reads it.  Freed blocks are
+    reused lowest first (the free list stays sorted), so allocation is
+    the same in every replay.
+
+    ``prefix_cache=True`` arms prefix sharing: every block carries a
+    refcount, and an index maps a prompt's chained full-block digests
+    (:func:`prefix_digests`) to resident blocks.  :meth:`plan_prefix`
+    finds the longest resident prefix; :meth:`alloc` takes the shared
+    blocks (refcount++) and allocates only the tail; :meth:`free` returns
+    a block at refcount 0 and drops its index entry."""
+
+    def __init__(self, num_blocks: int, block: int, max_seq: int,
+                 prefix_cache: bool = False):
+        if block < 1 or max_seq % block:
+            raise ValueError(
+                f"kv_block must divide max_seq: block={block}, "
+                f"max_seq={max_seq}"
+            )
+        if num_blocks < 2:
+            raise ValueError(
+                f"paged pool needs >= 2 blocks (scratch + 1), got "
+                f"{num_blocks}"
+            )
+        self.num_blocks = int(num_blocks)
+        self.block = int(block)
+        self.max_seq = int(max_seq)
+        #: Table-row width: worst-case blocks a slot could reference.
+        self.blocks_per_slot = self.max_seq // self.block
+        self.prefix_cache = bool(prefix_cache)
+        self._free: List[int] = list(range(1, self.num_blocks))
+        self._held: Dict[int, List[int]] = {}
+        #: Per-block reference counts (1 for private blocks, > 1 shared).
+        self._ref: Dict[int, int] = {}
+        #: Chained digest -> resident block (live blocks only).
+        self._index: Dict[bytes, int] = {}
+        #: Reverse map for index cleanup at free time.
+        self._digest_of: Dict[int, bytes] = {}
+        #: Full-prompt digest -> memoized first token (the full hit).
+        #: Outlives eviction: a full hit also needs every block resident.
+        self._next_tok: Dict[bytes, int] = {}
+
+    @property
+    def capacity_blocks(self) -> int:
+        """Allocatable blocks (scratch excluded)."""
+        return self.num_blocks - 1
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    def blocks_for(self, prompt_len: int, max_new_tokens: int) -> int:
+        """Blocks to RESERVE at admission: every position the request can
+        write (prompt + generated + the first-token feedback row), capped
+        at the context limit, so a slot never exhausts the pool while it
+        decodes."""
+        toks = min(int(prompt_len) + int(max_new_tokens) + 1, self.max_seq)
+        return -(-toks // self.block)
+
+    def can_admit(self, n_blocks: int) -> bool:
+        return n_blocks <= len(self._free)
+
+    def plan_prefix(self, prompt,
+                    total_len: Optional[int] = None) -> PrefixPlan:
+        """Longest resident prefix of ``prompt``; ``total_len`` is the
+        prefill length when it exceeds the prompt (a resume).  The
+        no-share plan when the cache is off or nothing matches."""
+        plen = len(prompt)
+        flen = int(total_len) if total_len is not None else plen
+        if not self.prefix_cache or plen < self.block:
+            return PrefixPlan(0, 0, 0, False)
+        digests = prefix_digests(prompt, self.block)
+        matched: List[int] = []
+        for dgst in digests:
+            blk = self._index.get(dgst)
+            if blk is None:
+                break
+            matched.append(blk)
+        m = len(matched)
+        if m == 0:
+            return PrefixPlan(0, 0, 0, False)
+        if flen == plen == m * self.block:
+            tok0 = self._next_tok.get(digests[m - 1])
+            if tok0 is not None:
+                return PrefixPlan(m, 0, m * self.block, True,
+                                  int(tok0), tuple(matched))
+        # The offset prefill computes the last real token's row, so the
+        # shared span stops at flen - 1: a fully covered prompt without a
+        # first-token memo recomputes its final block (copy-on-write).
+        use = min(m, (flen - 1) // self.block)
+        return PrefixPlan(use, m - use, use * self.block, False,
+                          None, tuple(matched[:use]))
+
+    def alloc(self, slot: int, n_blocks: int,
+              shared: Sequence[int] = ()) -> np.ndarray:
+        """Reserve ``n_blocks`` in all for ``slot``: the ``shared``
+        resident blocks first (refcount++), then fresh ones from the free
+        list.  Returns the slot's ``(blocks_per_slot,)`` int32 table row,
+        unreserved entries pointing at scratch block 0."""
+        shared = list(shared)
+        if slot in self._held:
+            raise RuntimeError(f"slot {slot} already holds KV blocks")
+        fresh_n = int(n_blocks) - len(shared)
+        if fresh_n < 0:
+            raise ValueError(
+                f"alloc: {len(shared)} shared blocks exceed the "
+                f"{n_blocks}-block reservation"
+            )
+        if fresh_n > len(self._free):
+            raise RuntimeError(
+                f"paged KV pool exhausted: need {fresh_n} blocks, "
+                f"{len(self._free)} free of {self.capacity_blocks}"
+            )
+        got, self._free = self._free[:fresh_n], self._free[fresh_n:]
+        for b in shared:
+            self._ref[b] += 1
+        for b in got:
+            self._ref[b] = 1
+        held = shared + got
+        self._held[slot] = held
+        row = np.zeros((self.blocks_per_slot,), np.int32)
+        row[: len(held)] = held
+        return row
+
+    def free(self, slot: int) -> None:
+        got = self._held.pop(slot, None)
+        if not got:
+            return
+        released: List[int] = []
+        for b in got:
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                del self._ref[b]
+                released.append(b)
+                dgst = self._digest_of.pop(b, None)
+                if dgst is not None and self._index.get(dgst) == b:
+                    del self._index[dgst]
+        if released:
+            self._free = sorted(self._free + released)
+
+    def register_prefix(self, slot: int, digests: Sequence[bytes],
+                        start: int = 0) -> None:
+        """Index ``slot``'s installed full-prompt blocks (``digests[start:]``
+        onto held blocks ``start..``) for later admissions to share; only
+        after the prefill's readback validated them.  The first writer of
+        a digest wins."""
+        if not self.prefix_cache:
+            return
+        held = self._held.get(slot, [])
+        for j in range(int(start), len(digests)):
+            if j >= len(held):
+                break
+            dgst = digests[j]
+            if dgst in self._index:
+                continue
+            self._index[dgst] = held[j]
+            self._digest_of[held[j]] = dgst
+
+    def record_next(self, digest: bytes, tok: int) -> None:
+        """Memoize the first token after a block-aligned fresh prefill:
+        a later identical admission becomes a full hit."""
+        if self.prefix_cache:
+            self._next_tok[bytes(digest)] = int(tok)
 
 
 @dataclasses.dataclass
@@ -71,15 +303,54 @@ class _Slot:
     prefill_s: float
 
 
-def _readback(*tensors: torch.Tensor) -> np.ndarray:
-    """One device-to-host copy of same-shaped int/bool tensors, stacked
-    as int32 — the fence that ends a prefill or a decode superstep."""
-    return torch.stack([t.to(torch.int32) for t in tensors]).cpu().numpy()
+def _readback(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """ONE device-to-host copy of int/bool tensors (as int32), split back
+    into their shapes: the fence that ends a prefill, a decode superstep
+    or a speculative round."""
+    flat = torch.cat([t.reshape(-1).to(torch.int32) for t in tensors])
+    flat = flat.cpu().numpy()
+    out, i = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(flat[i:i + n].reshape(tuple(t.shape)))
+        i += n
+    return out
+
+
+def _f32(like: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` as a one-element f32 tensor on ``like``'s device: a
+    tensor divisor keeps true division, as ``jnp`` divides (CUDA turns a
+    division by a host scalar into a product with its reciprocal)."""
+    return torch.full((1,), value, dtype=torch.float32, device=like.device)
+
+
+def _check_sample(sample: Sample) -> Sample:
+    if sample is None:
+        return None
+    temperature, top_k, seed = sample
+    if float(temperature) <= 0.0:
+        raise ValueError(f"sampling needs temperature > 0, got "
+                         f"{temperature} (greedy is sample=None)")
+    return float(temperature), int(top_k), int(seed)
 
 
 class ServingExecutor:
-    """Forward-only serving programs for an FFModel transformer LM
-    (padded cache layout, greedy decoding, one device)."""
+    """Forward-only serving programs for an FFModel transformer LM on one
+    device.
+
+    Capacity and drafting knobs, as the JAX executor's:
+
+    - ``kv_block`` / ``kv_blocks``: paged KV caches, a pool of
+      ``kv_blocks`` blocks of ``kv_block`` positions per layer (block 0
+      scratch), per-slot block tables, admission through
+      :class:`KVBlockLedger`.  ``kv_block=0`` keeps the padded layout;
+      ``kv_blocks=None`` is the worst case (every slot at ``max_seq``)
+      plus scratch.
+    - ``prefix_cache``: prefix sharing on the paged pool.
+    - ``draft_layers``: the speculative draft runs only the first L
+      ``blk{i}_`` transformer blocks (the skipped ones pass the residual
+      stream through); 0 runs the whole graph as the draft.
+    """
 
     def __init__(
         self,
@@ -90,6 +361,10 @@ class ServingExecutor:
         buckets: Optional[Sequence[int]] = None,
         decode_kernel: Optional[bool] = None,
         device=None,
+        kv_block: int = 0,
+        kv_blocks: Optional[int] = None,
+        draft_layers: int = 0,
+        prefix_cache: bool = False,
     ):
         self.model = model
         self.config = config or model.config
@@ -126,8 +401,67 @@ class ServingExecutor:
             d = op.inputs[0].shape[-1]
             h = op.attrs["num_heads"]
             self._cache_specs[op.name] = (h, d // h, op.outputs[0].dtype)
-        self._prefill_fns: Dict[int, Any] = {}
-        self._decode_fns: Dict[Tuple, Any] = {}
+        # -- paged KV layout --
+        self.kv_block = int(kv_block or 0)
+        self.paged = self.kv_block > 0
+        if self.paged:
+            if self.max_seq % self.kv_block:
+                raise ValueError(
+                    f"kv_block must divide max_seq: kv_block="
+                    f"{self.kv_block}, max_seq={self.max_seq}"
+                )
+            self.blocks_per_slot = self.max_seq // self.kv_block
+            worst = self.max_batch * self.blocks_per_slot + 1
+            self.kv_blocks = int(kv_blocks) if kv_blocks else worst
+            if self.kv_blocks < 2:
+                raise ValueError(
+                    f"kv_blocks must be >= 2 (scratch + 1), got "
+                    f"{self.kv_blocks}"
+                )
+        else:
+            if kv_blocks:
+                raise ValueError("kv_blocks needs kv_block > 0 (paged mode)")
+            self.blocks_per_slot = 0
+            self.kv_blocks = 0
+        # -- prefix sharing --
+        self.prefix_cache = bool(prefix_cache)
+        if self.prefix_cache and not self.paged:
+            raise ValueError(
+                "prefix_cache needs the paged KV layout (kv_block > 0): "
+                "sharing is block-table indirection, and the padded layout "
+                "has no blocks to share"
+            )
+        # -- speculative drafting: the first ``draft_layers`` blk{i}_
+        # blocks; the skipped ones pass the residual stream through --
+        self.draft_layers = int(draft_layers or 0)
+        blk_of: Dict[str, int] = {}
+        for op in self._layers:
+            m = re.match(r"blk(\d+)_", op.name)
+            if m:
+                blk_of[op.name] = int(m.group(1))
+        n_blocks = max(blk_of.values()) + 1 if blk_of else 0
+        if self.draft_layers:
+            if not blk_of:
+                raise ValueError(
+                    "draft_layers needs blk{i}_-named transformer blocks "
+                    "(models/transformer.py naming); this graph has none"
+                )
+            if not 1 <= self.draft_layers <= n_blocks:
+                raise ValueError(
+                    f"draft_layers must be in [1, {n_blocks}], got "
+                    f"{self.draft_layers}"
+                )
+        self._draft_skip = frozenset(
+            name for name, i in blk_of.items()
+            if self.draft_layers and i >= self.draft_layers
+        )
+        #: The draft's own (always padded) cache specs: the attention ops
+        #: the truncation keeps.
+        self._draft_cache_specs = {
+            name: spec for name, spec in self._cache_specs.items()
+            if name not in self._draft_skip
+        }
+        self._prefill_fns: Dict[Any, Any] = {}
 
     def init(self, seed: Optional[int] = None):
         """Fresh ``(params, op_state)`` on the serving device."""
@@ -135,23 +469,111 @@ class ServingExecutor:
                           device=self.device).init_params(seed)
         return params, {}
 
+    # -- capacity ------------------------------------------------------------
+
+    @property
+    def _bytes_per_token(self) -> int:
+        """Bytes one cached position costs across all layers (K and V)."""
+        return sum(2 * h * hd * torch.empty((), dtype=dt).element_size()
+                   for (h, hd, dt) in self._cache_specs.values())
+
+    def cache_total_bytes(self) -> int:
+        """Bytes :meth:`init_cache` allocates (the budget estimate)."""
+        if self.paged:
+            return self.kv_blocks * self.kv_block * self._bytes_per_token
+        return self.max_batch * self.max_seq * self._bytes_per_token
+
+    def hbm_per_slot_bytes(self, prompt_len: Optional[int] = None,
+                           max_new_tokens: Optional[int] = None) -> int:
+        """KV-cache bytes one slot costs.  Padded: the worst-case
+        ``max_seq`` row whatever the request.  Paged: the blocks the
+        ledger reserves for a ``(prompt_len, max_new_tokens)`` request
+        (default: the worst case)."""
+        if not self.paged:
+            return self.max_seq * self._bytes_per_token
+        if prompt_len is None:
+            blocks = self.blocks_per_slot
+        else:
+            led = KVBlockLedger(self.kv_blocks, self.kv_block, self.max_seq)
+            blocks = led.blocks_for(
+                prompt_len,
+                self.max_seq if max_new_tokens is None else max_new_tokens)
+        return blocks * self.kv_block * self._bytes_per_token
+
+    def max_admissible_batch(self, budget_bytes: int, prompt_len: int,
+                             max_new_tokens: int) -> int:
+        """Concurrent slots a cache budget admits for uniform
+        ``(prompt_len, max_new_tokens)`` requests: padded by worst-case
+        rows, paged by the block pool the budget holds."""
+        if not self.paged:
+            return budget_bytes // (self.max_seq * self._bytes_per_token)
+        block_bytes = self.kv_block * self._bytes_per_token
+        pool_blocks = budget_bytes // block_bytes - 1  # scratch
+        led = KVBlockLedger(self.kv_blocks, self.kv_block, self.max_seq)
+        need = led.blocks_for(prompt_len, max_new_tokens)
+        return max(pool_blocks, 0) // need
+
+    def make_ledger(self) -> KVBlockLedger:
+        """The paged pool's host-side accounting (raises unless paged)."""
+        if not self.paged:
+            raise ValueError("make_ledger() needs kv_block > 0 (paged mode)")
+        return KVBlockLedger(self.kv_blocks, self.kv_block, self.max_seq,
+                             prefix_cache=self.prefix_cache)
+
+    def _budget_check(self):
+        """Refuse before allocating when the KV cache cannot fit the
+        device budget (``FF_DEVICE_MEM_BYTES``, else the card's memory)."""
+        limit = _device_bytes_limit(self.device)
+        if limit is None:
+            return
+        total = self.cache_total_bytes()
+        if total > limit:
+            layout = (
+                f"paged pool ({self.kv_blocks} x {self.kv_block}-token "
+                f"blocks)" if self.paged else
+                f"padded ({self.max_batch} slots x {self.max_seq} rows)"
+            )
+            hint = (
+                "shrink kv_blocks or kv_block" if self.paged else
+                "switch to the paged layout (kv_block > 0) so the cache "
+                "scales with the generated length instead of worst-case "
+                "max_seq"
+            )
+            raise DeviceMemoryError(
+                f"KV cache needs {total} bytes/device ({layout}) but the "
+                f"device budget is {limit} bytes (FF_DEVICE_MEM_BYTES / "
+                f"the device's memory): {hint}"
+            )
+
     # -- caches -------------------------------------------------------------
 
-    def _zeros_cache(self, batch: int):
-        S = self.max_seq
+    def _zeros(self, specs, lead: Tuple[int, int]):
         return {
             name: {
-                "k": torch.zeros((batch, S, h, hd), dtype=dt, device=self.device),
-                "v": torch.zeros((batch, S, h, hd), dtype=dt, device=self.device),
+                "k": torch.zeros(lead + (h, hd), dtype=dt, device=self.device),
+                "v": torch.zeros(lead + (h, hd), dtype=dt, device=self.device),
             }
-            for name, (h, hd, dt) in self._cache_specs.items()
+            for name, (h, hd, dt) in specs.items()
         }
 
     @torch.inference_mode()
     def init_cache(self):
-        """Per-layer ``{op: {"k"/"v": (max_batch, max_seq, heads,
-        d_head)}}`` caches, zeroed."""
-        return self._zeros_cache(self.max_batch)
+        """Zeroed per-layer caches: padded ``{op: {"k"/"v": (max_batch,
+        max_seq, heads, d_head)}}``, or paged the block pool
+        ``(kv_blocks, kv_block, heads, d_head)``."""
+        self._budget_check()
+        if self.paged:
+            return self._zeros(self._cache_specs,
+                               (self.kv_blocks, self.kv_block))
+        return self._zeros(self._cache_specs, (self.max_batch, self.max_seq))
+
+    @torch.inference_mode()
+    def init_draft_cache(self):
+        """The draft's own caches, always padded ``(max_batch, max_seq,
+        h, hd)`` over the layers the truncation keeps: an acceleration
+        structure that costs acceptance, never correctness."""
+        return self._zeros(self._draft_cache_specs,
+                           (self.max_batch, self.max_seq))
 
     def bucket_for(self, prompt_len: int) -> int:
         for b in self.buckets:
@@ -164,15 +586,24 @@ class ServingExecutor:
 
     # -- the forward walk ---------------------------------------------------
 
-    def _forward(self, params, op_state, tokens, caches, pos):
+    def _forward(self, params, op_state, tokens, caches, pos,
+                 block_table=None, skip=None, chunk: int = 0):
         """Forward over the non-loss graph in inference mode: attention
-        ops get their caches and ``pos`` through ``state`` (the
-        ``ops/attention.py`` KV-cache protocol), position embeddings get
-        ``pos``; every other op runs its eval forward.  Returns
-        ``(logits, caches)``."""
+        ops get their caches, ``pos`` and (paged) ``block_table`` through
+        ``state`` (the ``ops/attention.py`` KV-cache protocol), position
+        embeddings get ``pos``; every other op runs its eval forward.
+        ``skip`` (the truncated draft) names ops whose outputs are their
+        first input; ``chunk`` starts a multi-token call at absolute row
+        ``chunk`` of an already populated cache (the offset prefill).
+        Returns ``(logits, caches)``."""
         env: Dict[str, Any] = {self._tokens_name: tokens}
         new_caches: Dict[str, Any] = {}
         for op in self._layers:
+            if skip and op.name in skip:
+                passed = env[op.inputs[0].name]
+                for t in op.outputs:
+                    env[t.name] = passed
+                continue
             if isinstance(op, MultiHeadAttention):
                 op.decode_kernel = self.decode_kernel
             xs = [env[t.name] for t in op.inputs]
@@ -181,8 +612,14 @@ class ServingExecutor:
                 s["cache_k"] = caches[op.name]["k"]
                 s["cache_v"] = caches[op.name]["v"]
                 s["pos"] = pos
+                if block_table is not None:
+                    s["block_table"] = block_table
+                if chunk:
+                    s["chunk"] = int(chunk)
             elif isinstance(op, PositionEmbedding):
                 s["pos"] = pos
+                if chunk:
+                    s["chunk"] = int(chunk)
             ys, s_new = op.forward(params.get(op.name, {}), xs, s,
                                    training=False)
             if op.name in caches:
@@ -192,119 +629,452 @@ class ServingExecutor:
                 env[t.name] = y
         return env[self._logits_name], new_caches
 
+    # -- token selection ----------------------------------------------------
+
+    def _picker(self, sample: Sample):
+        """THE token selection of the decode superstep and of the
+        speculative draft and verify steps: greedy argmax, or the keyed
+        temperature / top-k draw whose key is ``fold_in(fold_in(key(seed),
+        req_id), pos)``, a pure function of (seed, request, position).
+        ``(logits (B, V), req_ids (B,), pos (B,)) -> (B,) int32``."""
+        if sample is None:
+            def pick_greedy(logits, req_ids, pos):
+                return torch.argmax(logits, dim=-1).to(torch.int32)
+
+            return pick_greedy
+        temperature, top_k, seed = sample
+        base = keyed_random.key(seed, self.device)  # made outside any graph
+
+        def pick_sampled(logits, req_ids, pos):
+            kk = keyed_random.fold_in(keyed_random.fold_in(base, req_ids), pos)
+            lg = logits.float() / _f32(logits, temperature)
+            if 0 < top_k < lg.shape[-1]:
+                kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
+                lg = torch.where(lg >= kth, lg, torch.full_like(lg, -np.inf))
+            return keyed_random.categorical(kk, lg).to(torch.int32)
+
+        return pick_sampled
+
+    def _pick_first(self, sample: Sample):
+        """THE prefill first-token selection of :meth:`build_prefill` and
+        :meth:`build_prefill_from`: greedy, or (sampled) the keyed draw at
+        ``length - 1`` for a resumed position (``length > prompt_len``);
+        a fresh admission stays greedy, since decode samples only the
+        positions past the prompt."""
+        pick = self._picker(sample)
+
+        def pick_first(last, length: int, plen, rid):
+            if sample is None or length <= plen:
+                return torch.argmax(last, dim=-1).to(torch.int32)
+            ids = torch.full((1,), int(rid), dtype=torch.int32,
+                             device=last.device)
+            pos = torch.full((1,), int(length) - 1, dtype=torch.int32,
+                             device=last.device)
+            return pick(last[None], ids, pos)[0]
+
+        return pick_first
+
     # -- programs -----------------------------------------------------------
 
-    def build_prefill(self, bucket: int):
-        """The prefill program for one pad bucket: ``(params, op_state,
-        tokens (1, bucket), length) -> (cache_rows, first_token,
-        finite)``.  ``cache_rows`` are ``(max_seq, h, hd)`` per layer
-        (rows past ``bucket`` zero), ready for :meth:`install`;
-        ``first_token`` is the greedy argmax of the logits at
-        ``length - 1``; both it and ``finite`` stay on the device."""
-        fn = self._prefill_fns.get(bucket)
+    def _tokens(self, tokens, shape: Tuple[int, int]) -> torch.Tensor:
+        tokens = torch.as_tensor(np.asarray(tokens), device=self.device)
+        if tuple(tokens.shape) != shape:
+            raise ValueError(f"prefill takes {shape} tokens, got "
+                             f"{tuple(tokens.shape)}")
+        return tokens.to(torch.int32)
+
+    def build_prefill(self, bucket: int, sample: Sample = None):
+        """The prefill for one pad bucket: ``(params, op_state, tokens (1,
+        bucket), length[, prompt_len, req_id]) -> (cache_rows,
+        first_token, finite)``.  ``cache_rows`` are ``(max_seq, h, hd)``
+        per layer (rows past ``bucket`` zero), ready for :meth:`install`
+        or :meth:`install_paged`; ``first_token`` and ``finite`` stay on
+        the device.  ``sample`` selects the sampled first token of
+        :meth:`_pick_first` (it needs ``prompt_len`` and ``req_id``)."""
+        sample = _check_sample(sample)
+        key = (bucket, sample)
+        fn = self._prefill_fns.get(key)
         if fn is not None:
             return fn
+        pick_first = self._pick_first(sample)
 
         @torch.inference_mode()
-        def prefill(params, op_state, tokens, length):
-            tokens = torch.as_tensor(np.asarray(tokens), device=self.device)
-            if tuple(tokens.shape) != (1, bucket):
-                raise ValueError(f"prefill bucket {bucket} takes (1, "
-                                 f"{bucket}) tokens, got {tuple(tokens.shape)}")
-            caches = self._zeros_cache(1)
+        def prefill(params, op_state, tokens, length, plen=None, rid=None):
+            tokens = self._tokens(tokens, (1, bucket))
+            caches = self._zeros(self._cache_specs, (1, self.max_seq))
             pos = torch.zeros((1,), dtype=torch.int32, device=self.device)
-            logits, caches = self._forward(params, op_state,
-                                           tokens.to(torch.int32), caches, pos)
+            logits, caches = self._forward(params, op_state, tokens, caches,
+                                           pos)
             last = logits[0, int(length) - 1]
-            tok = torch.argmax(last, dim=-1).to(torch.int32)
+            tok = pick_first(last, int(length), plen, rid)
             ok = torch.isfinite(last.float()).all()
             rows = {name: {"k": c["k"][0], "v": c["v"][0]}
                     for name, c in caches.items()}
             return rows, tok, ok
 
-        self._prefill_fns[bucket] = prefill
+        self._prefill_fns[key] = prefill
+        return prefill
+
+    def build_prefill_from(self, bucket: int, offset: int,
+                           sample: Sample = None):
+        """The offset prefill of prefix sharing (paged + ``prefix_cache``):
+        :meth:`build_prefill` started at row ``offset``, the shared span's
+        K/V gathered from resident pool blocks instead of recomputed.
+        ``(params, op_state, pool, shared_ids (offset / kv_block,), tokens
+        (1, bucket), length[, prompt_len, req_id]) -> (cache_rows,
+        first_token, finite)``; ``pool`` is only read, and ``cache_rows``
+        are zero over ``[0, offset)`` (the masked install writes those
+        chunks into scratch block 0).  K/V at row r depends only on tokens
+        ``[0, r]``, so the gathered rows equal what this prompt's own
+        prefill would write; the tail runs ``_attend_chunk`` (einsum)
+        where the full prefill runs the flash kernel, so tokens agree
+        with the unshared run and logits within rounding."""
+        if not self.paged or not self.prefix_cache:
+            raise ValueError("build_prefill_from needs paged + prefix_cache")
+        o = int(offset)
+        if o < self.kv_block or o % self.kv_block or o >= bucket:
+            raise ValueError(
+                f"offset must be a multiple of kv_block={self.kv_block} in "
+                f"[kv_block, bucket): offset={o}, bucket={bucket}"
+            )
+        sample = _check_sample(sample)
+        key = ("from", bucket, o, sample)
+        fn = self._prefill_fns.get(key)
+        if fn is not None:
+            return fn
+        pick_first = self._pick_first(sample)
+
+        @torch.inference_mode()
+        def prefill(params, op_state, pool, shared_ids, tokens, length,
+                    plen=None, rid=None):
+            tokens = self._tokens(tokens, (1, bucket))
+            ids = torch.as_tensor(np.asarray(shared_ids), dtype=torch.long,
+                                  device=self.device)
+            caches = self._zeros(self._cache_specs, (1, self.max_seq))
+            for name, (h, hd, _dt) in self._cache_specs.items():
+                for kv in ("k", "v"):
+                    caches[name][kv][0, :o] = pool[name][kv][ids].reshape(
+                        o, h, hd)
+            pos = torch.full((1,), o, dtype=torch.int32, device=self.device)
+            logits, caches = self._forward(params, op_state, tokens[:, o:],
+                                           caches, pos, chunk=o)
+            last = logits[0, int(length) - 1 - o]
+            tok = pick_first(last, int(length), plen, rid)
+            ok = torch.isfinite(last.float()).all()
+            rows = {name: {"k": c["k"][0], "v": c["v"][0]}
+                    for name, c in caches.items()}
+            return rows, tok, ok
+
+        self._prefill_fns[key] = prefill
+        return prefill
+
+    def build_draft_prefill(self, bucket: int):
+        """The draft's prefill: ``(draft_params, op_state, tokens (1,
+        bucket)) -> draft cache rows``, the truncated forward over the
+        padded prompt, for :meth:`install` into :meth:`init_draft_cache`.
+        Nothing is read back: a wrong draft row only costs acceptance."""
+        key = ("draft", bucket)
+        fn = self._prefill_fns.get(key)
+        if fn is not None:
+            return fn
+
+        @torch.inference_mode()
+        def prefill(params, op_state, tokens):
+            tokens = self._tokens(tokens, (1, bucket))
+            caches = self._zeros(self._draft_cache_specs, (1, self.max_seq))
+            pos = torch.zeros((1,), dtype=torch.int32, device=self.device)
+            _logits, caches = self._forward(params, op_state, tokens, caches,
+                                            pos, skip=self._draft_skip)
+            return {name: {"k": c["k"][0], "v": c["v"][0]}
+                    for name, c in caches.items()}
+
+        self._prefill_fns[key] = prefill
         return prefill
 
     @torch.inference_mode()
     def install(self, caches, rows, slot: int):
         """Copy a prefilled cache row into ``slot`` of every layer's K
-        and V, in place; returns ``caches``."""
+        and V (a padded cache or the draft's), in place; returns
+        ``caches``."""
         for name, r in rows.items():
             caches[name]["k"][slot].copy_(r["k"])
             caches[name]["v"][slot].copy_(r["v"])
         return caches
 
-    def build_decode_superstep(self, k: int, return_logits: bool = False):
+    @torch.inference_mode()
+    def install_paged(self, caches, rows, table_row):
+        """The paged :meth:`install`: the prefilled ``(max_seq, h, hd)``
+        rows cut into ``kv_block`` chunks and scattered into the pool
+        blocks of ``table_row``, in place (entries 0 write their chunks
+        into scratch block 0); returns ``caches``."""
+        row = torch.as_tensor(np.asarray(table_row), dtype=torch.long,
+                              device=self.device)
+        for name, r in rows.items():
+            for kv in ("k", "v"):
+                c = caches[name][kv]
+                c[row] = r[kv].to(c.dtype).reshape((-1,) + tuple(c.shape[1:]))
+        return caches
+
+    def _carry(self, x) -> torch.Tensor:
+        """A ``(B,)`` or ``(B, nblk)`` int32 argument on the serving
+        device: a tensor as it is (updated in place), host values copied
+        into a new one."""
+        if isinstance(x, torch.Tensor):
+            if x.dtype != torch.int32 or x.device.type != self.device.type:
+                raise ValueError(f"decode carry tensors are int32 on "
+                                 f"{self.device}, got {x.dtype} on {x.device}")
+            return x
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32,
+                               device=self.device)
+
+    def _split_args(self, args, sample, what: str):
+        want = 2 + int(self.paged) + int(sample is not None)
+        if len(args) != want:
+            raise ValueError(
+                f"{what} takes {'block_table, ' if self.paged else ''}pos, "
+                f"tok{', req_ids' if sample is not None else ''} after the "
+                f"caches: {want} arguments, got {len(args)}")
+        args = [self._carry(a) for a in args]
+        bt = args.pop(0) if self.paged else None
+        rids = args.pop() if sample is not None else None
+        return bt, args[0], args[1], rids
+
+    def build_decode_superstep(self, k: int, return_logits: bool = False,
+                               sample: Sample = None,
+                               graph: Optional[bool] = None):
         """K single-token decode steps over the whole slot batch:
-        ``(params, op_state, caches, pos (B,), tok (B,)) -> (caches, pos,
-        tok, (tokens (K, B), finite (K, B)))``, with greedy selection on
-        the device and nothing read back inside.  Each step writes its
-        K/V at ``pos`` and advances ``pos = min(pos + 1, max_seq - 1)``.
-        ``return_logits`` also stacks the ``(K, B, V)`` logits (tests)."""
+        ``(params, op_state, caches, [block_table (B, nblk),] pos (B,),
+        tok (B,)[, req_ids (B,)]) -> (caches, pos, tok, (tokens (K, B),
+        finite (K, B)[, logits (K, B, V)]))``, the token chosen on the
+        device by :meth:`_picker` and nothing read back inside.  Each step
+        writes its K/V at ``pos`` and advances ``pos = min(pos + 1,
+        max_seq - 1)``; the caches, ``pos`` and ``tok`` are updated in
+        place (host values in become new tensors).
+
+        ``graph`` (default: on CUDA) runs the K steps through a
+        :class:`StepGraph`: the first call runs them eagerly and captures
+        them, every later call replays the graph and must pass the same
+        tensors (a call with others raises).  The stacked outputs of a
+        replay are the graph's own tensors, valid until the next call.
+        ``graph=False`` is the eager loop, the oracle the graph is held
+        against.  A graph form is built anew on every call of this
+        method (it binds to the tensors of its first call); the eager
+        form has nothing to bind."""
         if k < 1:
             raise ValueError(f"decode steps per call must be >= 1, got {k}")
-        key = (k, return_logits)
-        fn = self._decode_fns.get(key)
-        if fn is not None:
-            return fn
+        sample = _check_sample(sample)
+        graph = self.device.type == "cuda" if graph is None else bool(graph)
         S = self.max_seq
+        pick = self._picker(sample)
+
+        def step(params, op_state, caches, block_table, pos, tok, req_ids,
+                 _inputs):
+            logits, _ = self._forward(params, op_state, tok[:, None], caches,
+                                      pos, block_table=block_table)
+            logits = logits[:, 0]                                # (B, V)
+            nxt = pick(logits, req_ids, pos)
+            out = {"tokens": nxt,
+                   "finite": torch.isfinite(logits.float()).all(dim=-1)}
+            if return_logits:
+                out["logits"] = logits
+            tok.copy_(nxt)
+            pos.copy_(torch.clamp(pos + 1, max=S - 1))
+            return params, op_state, caches, block_table, pos, tok, req_ids, out
+
+        runner = StepGraph(step, k, self.device) if graph else None
 
         @torch.inference_mode()
-        def superstep(params, op_state, caches, pos, tok):
-            pos = torch.as_tensor(np.asarray(pos), dtype=torch.int32,
-                                  device=self.device)
-            tok = torch.as_tensor(np.asarray(tok), dtype=torch.int32,
-                                  device=self.device)
-            toks, oks, lgs = [], [], []
-            for _ in range(k):
-                logits, caches = self._forward(params, op_state, tok[:, None],
-                                               caches, pos)
-                logits = logits[:, 0]                            # (B, V)
-                tok = torch.argmax(logits, dim=-1).to(torch.int32)
-                toks.append(tok)
-                oks.append(torch.isfinite(logits.float()).all(dim=-1))
-                if return_logits:
-                    lgs.append(logits)
-                pos = torch.clamp(pos + 1, max=S - 1)
-            outs = (torch.stack(toks), torch.stack(oks))
+        def superstep(params, op_state, caches, *args):
+            bt, pos, tok, rids = self._split_args(args, sample, "decode")
+            carry = (params, op_state, caches, bt, pos, tok, rids)
+            if runner is not None:
+                *_carry, outs = runner(*carry, {})
+            else:
+                steps = []
+                for _ in range(k):
+                    *carry, out = step(*carry, {})
+                    steps.append(out)
+                outs = {n: torch.stack([o[n] for o in steps]) for n in steps[0]}
+            res = (outs["tokens"], outs["finite"])
             if return_logits:
-                outs += (torch.stack(lgs),)
-            return caches, pos, tok, outs
+                res += (outs["logits"],)
+            return caches, pos, tok, res
 
-        self._decode_fns[key] = superstep
+        superstep.graph = runner
         return superstep
+
+    def build_spec_step(self, d: int, sample: Sample = None,
+                        graph: Optional[bool] = None):
+        """One speculative round: d draft steps on the draft's own padded
+        caches propose ``t_1..t_d``, then d + 1 verify steps score ``[tok,
+        t_1..t_d]`` through the decode step's body, and the longest
+        matching prefix is accepted on the device.
+
+        ``(params, draft_params, op_state, caches, dcaches, [block_table,]
+        pos, tok[, req_ids]) -> (caches, dcaches, pos, tok, (tokens (d+1,
+        B), finite (d+1, B), accepted (B,)))``; ``pos`` and ``tok`` come
+        back advanced past the accepted tokens and the correction token,
+        in place.  The verify step at each position is the decode step at
+        that position (same forward, same clamped position walk, same
+        :meth:`_picker`), so the emitted tokens equal sequential decode's
+        whatever the draft proposes; acceptance decides only how many a
+        round emits.  Rejected rows need no rollback: the ``<= pos`` mask
+        hides them until the position walk overwrites them.  The draft
+        runs d + 1 steps: the last one writes the draft cache's row of the
+        last proposal (a fully accepted round would otherwise leave it
+        empty), and its own proposal is dropped.  ``d`` goes through
+        ``relay_safe_steps``; ``graph`` as in
+        :meth:`build_decode_superstep` (one graph per round)."""
+        if d < 1:
+            raise ValueError(
+                f"speculate depth must be >= 1, got {d} (plain decode is "
+                f"build_decode_superstep)")
+        d = relay_safe_steps(d, what="speculate", log=_log)
+        sample = _check_sample(sample)
+        graph = self.device.type == "cuda" if graph is None else bool(graph)
+        S = self.max_seq
+        pick = self._picker(sample)
+
+        def spec_round(params, draft_params, op_state, caches, dcaches,
+                       block_table, pos, tok, req_ids, _inputs):
+            p, t = pos, tok
+            proposals = []
+            for _ in range(d + 1):
+                logits, _ = self._forward(draft_params, op_state, t[:, None],
+                                          dcaches, p, skip=self._draft_skip)
+                t = pick(logits[:, 0], req_ids, p)
+                proposals.append(t)
+                p = torch.clamp(p + 1, max=S - 1)
+            draft_toks = torch.stack(proposals[:d])             # (d, B)
+            tok_seq = torch.cat([tok[None], draft_toks])        # (d+1, B)
+            p = pos
+            ys, oks = [], []
+            for i in range(d + 1):
+                logits, _ = self._forward(params, op_state, tok_seq[i][:, None],
+                                          caches, p, block_table=block_table)
+                logits = logits[:, 0]
+                ys.append(pick(logits, req_ids, p))
+                oks.append(torch.isfinite(logits.float()).all(dim=-1))
+                p = torch.clamp(p + 1, max=S - 1)
+            ys, oks = torch.stack(ys), torch.stack(oks)
+            matches = (draft_toks == ys[:d]).to(torch.int32)
+            accepted = torch.cumprod(matches, dim=0).sum(dim=0).to(torch.int32)
+            nxt = ys.gather(0, accepted[None].long())[0]
+            pos.copy_(torch.clamp(pos + accepted + 1, max=S - 1))
+            tok.copy_(nxt)
+            return (params, draft_params, op_state, caches, dcaches,
+                    block_table, pos, tok, req_ids,
+                    {"tokens": ys, "finite": oks, "accepted": accepted})
+
+        runner = StepGraph(spec_round, 1, self.device) if graph else None
+
+        @torch.inference_mode()
+        def spec(params, draft_params, op_state, caches, dcaches, *args):
+            bt, pos, tok, rids = self._split_args(args, sample, "spec")
+            carry = (params, draft_params, op_state, caches, dcaches, bt, pos,
+                     tok, rids)
+            if runner is not None:
+                *_carry, outs = runner(*carry, {})
+                outs = {n: v[0] for n, v in outs.items()}
+            else:
+                *_carry, outs = spec_round(*carry, {})
+            return (caches, dcaches, pos, tok,
+                    (outs["tokens"], outs["finite"], outs["accepted"]))
+
+        spec.graph = runner
+        return spec
 
 
 class Server:
     """Closed-loop FIFO serving over a :class:`ServingExecutor`.
 
-    ``run(requests)`` admits requests into free slots (prefill + cache
-    install), runs one fused K-token decode superstep over the batch,
-    consumes the read-back tokens per slot (EOS / budget / context
+    ``run(requests)`` admits requests into free slots (prefill, or a
+    prefix-cache hit, and the cache install), runs one decode superstep
+    of K steps (or, with ``speculate=d``, one speculative round) over the
+    batch, consumes the read-back tokens per slot (EOS / budget / context
     limits), evicts finished slots, and repeats.  Returns ``(results,
-    stats)``."""
+    stats)``.
+
+    ``temperature > 0`` samples with the keyed draw of ``(sample_seed,
+    request id, position)``; greedy is the default.  ``draft_params``
+    (default: the serving params) drive the speculative draft.  The
+    Server keeps its caches, its persistent ``pos`` / ``tok`` / block
+    table / request-id tensors and its decode program across runs (each
+    run zeroes the caches), so on CUDA the graph captured in the first
+    run replays in the next.  ``graph`` as in
+    :meth:`ServingExecutor.build_decode_superstep`."""
 
     def __init__(self, executor: ServingExecutor, params, op_state,
-                 decode_steps: int = 8, eos_id: Optional[int] = None):
+                 decode_steps: int = 8, eos_id: Optional[int] = None,
+                 temperature: float = 0.0, top_k: int = 0,
+                 sample_seed: int = 0, speculate: int = 0,
+                 draft_params=None, graph: Optional[bool] = None):
         self.ex = executor
         self.params = params
         self.op_state = op_state
         self.decode_steps = relay_safe_steps(decode_steps,
                                              what="decode_steps", log=_log)
+        #: Speculative draft depth d (0 = the plain decode superstep).
+        self.speculate = (relay_safe_steps(speculate, what="speculate",
+                                           log=_log) if speculate else 0)
+        self.draft_params = draft_params if draft_params is not None \
+            else params
         self.eos_id = eos_id
+        self.sample: Sample = (
+            (float(temperature), int(top_k), int(sample_seed))
+            if temperature > 0.0 else None
+        )
+        self.graph = graph
+        #: ``(program, caches, dcaches, carry)`` of this Server: the decode
+        #: superstep or speculative round, the KV caches (paged: the
+        #: pool), the draft's caches (None unless speculating) and the
+        #: persistent ``{"pos", "tok", "req", "bt"}`` int32 tensors the
+        #: host's values are copied into before each call.  Made at the
+        #: first run; each later run zeroes the caches in place.
+        self.engine = None
+
+    @torch.inference_mode()
+    def _engine_state(self):
+        ex = self.ex
+        if self.engine is None:
+            if self.speculate:
+                fn = ex.build_spec_step(self.speculate, sample=self.sample,
+                                        graph=self.graph)
+                dcaches = ex.init_draft_cache()
+            else:
+                fn = ex.build_decode_superstep(self.decode_steps,
+                                               sample=self.sample,
+                                               graph=self.graph)
+                dcaches = None
+            B = ex.max_batch
+            carry = {n: torch.zeros(shape, dtype=torch.int32,
+                                    device=ex.device)
+                     for n, shape in (("pos", (B,)), ("tok", (B,)),
+                                      ("req", (B,)),
+                                      ("bt", (B, ex.blocks_per_slot)))}
+            self.engine = (fn, ex.init_cache(), dcaches, carry)
+        else:
+            _fn, caches, dcaches, _carry = self.engine
+            for c in (caches, dcaches or {}):
+                for kv in c.values():
+                    kv["k"].zero_()
+                    kv["v"].zero_()
+        return self.engine
 
     def run(self, requests: Sequence[Request]):
         ex = self.ex
         B, k = ex.max_batch, self.decode_steps
-        decode_fn = ex.build_decode_superstep(k)
-        caches = ex.init_cache()
+        spec_d = self.speculate
+        step_fn, caches, dcaches, dev = self._engine_state()
+        ledger = ex.make_ledger() if ex.paged else None
+        block_table = (np.zeros((B, ledger.blocks_per_slot), np.int32)
+                       if ledger is not None else None)
         slots: List[Optional[_Slot]] = [None] * B
         queue = collections.deque(requests)
         results: Dict[int, RequestResult] = {}
-        total_tokens = 0
-        decode_tokens = 0
-        supersteps = 0
-        prefills = 0
+        total_tokens = decode_tokens = supersteps = prefills = 0
+        prefix_hits = full_hits = prefill_tokens_saved = kv_cows = 0
+        draft_prefills = spec_accept_total = spec_draft_total = 0
         decode_s = 0.0
         t_run0 = time.perf_counter()
 
@@ -316,6 +1086,9 @@ class Server:
                 latency_s=time.perf_counter() - sl.t_eligible,
                 prefill_s=sl.prefill_s,
             )
+            if ledger is not None:
+                ledger.free(slot_i)
+                block_table[slot_i] = 0
             slots[slot_i] = None
 
         def slot_done(sl: _Slot) -> bool:
@@ -326,35 +1099,109 @@ class Server:
                 return True
             return sl.pos >= ex.max_seq  # context limit
 
+        def reject(r: Request, err: str):
+            results[r.id] = RequestResult(
+                id=r.id, prompt_len=len(r.prompt), tokens=[], error=err,
+                latency_s=time.perf_counter() - t_run0)
+
         while queue or any(slots):
             # -- admissions (between decode supersteps) --
             while queue and None in slots:
-                r = queue.popleft()
+                r = queue[0]
                 plen = len(r.prompt)
                 try:
                     bucket = ex.bucket_for(plen)
                 except ValueError as e:
-                    results[r.id] = RequestResult(
-                        id=r.id, prompt_len=plen, tokens=[], error=str(e),
-                        latency_s=time.perf_counter() - t_run0,
-                    )
+                    queue.popleft()
+                    reject(r, str(e))
                     continue
+                plan = None
+                if ledger is not None:
+                    need = ledger.blocks_for(plen, r.max_new_tokens)
+                    if need > ledger.capacity_blocks:
+                        queue.popleft()
+                        reject(r, f"request needs {need} KV blocks but the "
+                                  f"paged pool holds "
+                                  f"{ledger.capacity_blocks}")
+                        continue
+                    # Shared blocks stay off the free list: admission
+                    # needs only the tail's.
+                    plan = ledger.plan_prefix(r.prompt)
+                    if not ledger.can_admit(need - plan.use):
+                        # Head-of-line wait until a slot frees blocks
+                        # (FIFO; the whole pool covers any admissible
+                        # request, so this cannot livelock).
+                        break
+                queue.popleft()
                 slot_i = slots.index(None)
                 padded = np.zeros((1, bucket), np.int32)
                 padded[0, :plen] = np.asarray(r.prompt, np.int32)
+                digests = (prefix_digests(r.prompt, ledger.block)
+                           if ledger is not None and ledger.prefix_cache
+                           else [])
+                sargs = ((np.int32(plen), np.int32(r.id))
+                         if self.sample is not None else ())
                 t0 = time.perf_counter()
-                rows, tok0, okf = ex.build_prefill(bucket)(
-                    self.params, self.op_state, padded, np.int32(plen))
-                tok0, ok = (int(x) for x in _readback(tok0, okf))
-                pf_s = time.perf_counter() - t0
-                prefills += 1
+                if plan is not None and plan.full_hit:
+                    # No prefill at all: every block resident and the
+                    # first token memoized.
+                    tok0, ok, rows, pf_s = plan.tok0, True, None, 0.0
+                    prefix_hits += 1
+                    full_hits += 1
+                    prefill_tokens_saved += plan.offset
+                elif plan is not None and plan.use > 0:
+                    # Partial hit: gather the shared span, compute the tail.
+                    pf = ex.build_prefill_from(bucket, plan.offset,
+                                               sample=self.sample)
+                    rows, tok0, okf = pf(
+                        self.params, self.op_state, caches,
+                        np.asarray(plan.shared, np.int32), padded,
+                        np.int32(plen), *sargs)
+                    tok0, ok = (int(x) for x in _readback(tok0, okf))
+                    pf_s = time.perf_counter() - t0
+                    prefills += 1
+                    prefix_hits += 1
+                    prefill_tokens_saved += plan.offset
+                    kv_cows += plan.cow
+                else:
+                    pf = ex.build_prefill(bucket, sample=self.sample)
+                    rows, tok0, okf = pf(self.params, self.op_state, padded,
+                                         np.int32(plen), *sargs)
+                    tok0, ok = (int(x) for x in _readback(tok0, okf))
+                    pf_s = time.perf_counter() - t0
+                    prefills += 1
                 if not ok:
                     slots[slot_i] = _Slot(r, plen, 0, [], t_run0, pf_s)
                     finish(slot_i, error="non-finite logits in prefill")
                     continue
-                caches = ex.install(caches, rows, slot_i)
-                sl = _Slot(request=r, pos=plen, last_tok=tok0, tokens=[tok0],
-                           t_eligible=t_run0, prefill_s=pf_s)
+                if ledger is not None:
+                    row = ledger.alloc(slot_i, need, shared=plan.shared)
+                    block_table[slot_i] = row
+                    if rows is not None:
+                        # Masked install: the shared entries write their
+                        # zero chunks into scratch block 0, never into the
+                        # donor's blocks; the table keeps the shared ids.
+                        masked = row.copy()
+                        masked[: plan.use] = 0
+                        ex.install_paged(caches, rows, masked)
+                    if digests:
+                        # Index only after the readback validated the
+                        # install; memoize the first token of a fresh,
+                        # block-aligned prompt (a later full hit).
+                        ledger.register_prefix(slot_i, digests,
+                                               start=plan.use)
+                        if plen % ledger.block == 0 and not plan.full_hit:
+                            ledger.record_next(digests[-1], int(tok0))
+                else:
+                    ex.install(caches, rows, slot_i)
+                if spec_d:
+                    drows = ex.build_draft_prefill(bucket)(
+                        self.draft_params, self.op_state, padded)
+                    ex.install(dcaches, drows, slot_i)
+                    draft_prefills += 1
+                sl = _Slot(request=r, pos=plen, last_tok=int(tok0),
+                           tokens=[int(tok0)], t_eligible=t_run0,
+                           prefill_s=pf_s)
                 total_tokens += 1
                 slots[slot_i] = sl
                 if slot_done(sl):
@@ -364,20 +1211,43 @@ class Server:
             if not active:
                 break
 
-            # -- one fused decode superstep over the whole batch --
-            pos_vec = np.array([sl.pos if sl else 0 for sl in slots], np.int32)
-            tok_vec = np.array([sl.last_tok if sl else 0 for sl in slots],
-                               np.int32)
+            # -- one decode superstep (or speculative round) --
+            with torch.inference_mode():
+                dev["pos"].copy_(torch.from_numpy(np.array(
+                    [sl.pos if sl else 0 for sl in slots], np.int32)))
+                dev["tok"].copy_(torch.from_numpy(np.array(
+                    [sl.last_tok if sl else 0 for sl in slots], np.int32)))
+                args = ()
+                if block_table is not None:
+                    dev["bt"].copy_(torch.from_numpy(block_table))
+                    args += (dev["bt"],)
+                args += (dev["pos"], dev["tok"])
+                if self.sample is not None:
+                    dev["req"].copy_(torch.from_numpy(np.array(
+                        [sl.request.id if sl else 0 for sl in slots],
+                        np.int32)))
+                    args += (dev["req"],)
             t_call = time.perf_counter()
-            caches, _pos, _tok, (toks, oks) = decode_fn(
-                self.params, self.op_state, caches, pos_vec, tok_vec)
-            host_toks, host_oks = _readback(toks, oks)
+            if spec_d:
+                *_s, (toks, oks, acc) = step_fn(
+                    self.params, self.draft_params, self.op_state, caches,
+                    dcaches, *args)
+                host_toks, host_oks, host_acc = _readback(toks, oks, acc)
+            else:
+                *_s, (toks, oks) = step_fn(self.params, self.op_state, caches,
+                                           *args)
+                host_toks, host_oks = _readback(toks, oks)
             decode_s += time.perf_counter() - t_call
             supersteps += 1
             for i in active:
                 sl = slots[i]
                 err = None
-                for j in range(k):
+                if spec_d:
+                    n_take = int(host_acc[i]) + 1
+                    spec_accept_total += int(host_acc[i])
+                else:
+                    n_take = k
+                for j in range(n_take):
                     if not host_oks[j, i]:
                         err = "non-finite logits in decode"
                         break
@@ -392,6 +1262,8 @@ class Server:
                     finish(i, error=err)
                 elif slot_done(sl):
                     finish(i)
+            if spec_d:
+                spec_draft_total += spec_d * len(active)
 
         elapsed = time.perf_counter() - t_run0
         lats = sorted(r.latency_s for r in results.values() if r.error is None)
@@ -415,11 +1287,30 @@ class Server:
             "prefills": prefills,
             "request_latency_ms_p50": round(pct(0.50) * 1e3, 3),
             "request_latency_ms_p95": round(pct(0.95) * 1e3, 3),
+            # One host program per superstep: a graph replay on CUDA.
             "programs_per_decode_superstep": 1,
-            "kv_layout": "padded",
+            "kv_layout": "paged" if ex.paged else "padded",
             "shard": None,
-            "sampled": False,
+            "sampled": self.sample is not None,
         }
+        if ex.paged:
+            stats["kv_block"] = ex.kv_block
+            stats["kv_blocks"] = ex.kv_blocks
+        if ex.prefix_cache:
+            stats["prefix_cache"] = True
+            stats["prefix_hits"] = prefix_hits
+            stats["prefix_hit_rate"] = round(
+                prefix_hits / max(prefills + full_hits, 1), 4)
+            stats["prefill_tokens_saved"] = prefill_tokens_saved
+            stats["kv_cows"] = kv_cows
+        if spec_d:
+            stats["speculate"] = spec_d
+            stats["draft_layers"] = ex.draft_layers
+            stats["draft_prefills"] = draft_prefills
+            stats["spec_acceptance_rate"] = round(
+                spec_accept_total / max(spec_draft_total, 1), 4)
+            stats["spec_tokens_per_dispatch"] = round(
+                decode_tokens / max(supersteps, 1), 3)
         return results, stats
 
 

@@ -152,7 +152,26 @@ def test_dlrm_leg_falls_back_to_dense(monkeypatch):
     assert not dense
 
 
-def _stand_in_card(monkeypatch, dlrm=None, superstep=None):
+_SMALL_SERVING = dict(device="cpu", vocab=64, d_model=32, heads=2, layers=2,
+                      max_seq=32, max_batch=4, n_req=6, max_new=12,
+                      kv_block=8, dtype="float32")
+#: The serving leg's columns: bench.py's (``bench_serving``) that the port
+#: computes; the scheduler, failure-model, fleet, sharded and
+#: prefix-workload columns wait for their slices.
+SERVING_KEYS = {
+    "max_batch", "max_seq", "requests", "k1_tokens_per_s",
+    "k1_decode_ms_per_token", "k8_tokens_per_s", "k8_decode_ms_per_token",
+    "fused_speedup_k8_vs_k1", "request_latency_ms_p50",
+    "request_latency_ms_p95", "programs_per_decode_superstep",
+    "hbm_per_slot_bytes", "paged_hbm_per_slot_bytes",
+    "padded_max_admitted_batch", "paged_max_admitted_batch",
+    "paged_tokens_per_s", "speculate", "spec_tokens_per_s",
+    "spec_acceptance_rate", "spec_tokens_per_dispatch",
+    "plain_tokens_per_dispatch", "spec_vs_plain_tokens_per_dispatch",
+    "spec_match"}
+
+
+def _stand_in_card(monkeypatch, dlrm=None, superstep=None, serving=None):
     """``main`` on the CPU: a card that is said to exist, and every leg
     at a small size on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -169,6 +188,8 @@ def _stand_in_card(monkeypatch, dlrm=None, superstep=None):
         warmup=1))
     monkeypatch.setattr(bench, "bench_superstep", superstep or functools.partial(
         bench.bench_superstep, device="cpu", batch=8, width=16, iters=16))
+    monkeypatch.setattr(bench, "bench_serving", serving or functools.partial(
+        bench.bench_serving, **_SMALL_SERVING))
 
 
 def _one_line(capsys):
@@ -188,8 +209,9 @@ def test_main_prints_one_line_with_bench_py_keys(monkeypatch, capsys):
             "batch_size", "alexnet_mfu", "dlrm_samples_per_s", "dlrm_mfu"}
     for leg in ("transformer", "transformer_8k", "transformer_32k"):
         keys |= {f"{leg}_tokens_per_s", f"{leg}_mfu"}
-    keys.add("superstep")
+    keys |= {"superstep", "serving"}
     assert set(line["extra"]) == keys
+    assert set(line["extra"]["serving"]) == SERVING_KEYS
     assert line["extra"]["platform"] == "gpu" and line["extra"]["n_chips"] == 1
     sweep = line["extra"]["superstep"]
     assert set(sweep) == {"batch_size", "iterations", "k1_ms_per_step",
@@ -230,6 +252,42 @@ def test_a_failing_superstep_leg_becomes_its_error(monkeypatch, capsys):
     assert line["value"] > 0
     assert line["extra"]["superstep_error"] == "RuntimeError: planted"
     assert "superstep" not in line["extra"]
+
+
+def test_a_failing_serving_leg_becomes_its_error(monkeypatch, capsys):
+    def broken(**kw):
+        raise RuntimeError("planted")
+
+    _stand_in_card(monkeypatch, serving=broken)
+    bench.main()
+    line = _one_line(capsys)
+    assert line["value"] > 0
+    assert line["extra"]["serving_error"] == "RuntimeError: planted"
+    assert "serving" not in line["extra"]
+
+
+def test_serving_leg_runs_small_on_cpu():
+    """bench.py's serving columns on the CPU at a small size: every key
+    is one that ``bench.py::bench_serving`` writes, the speculative run
+    matches plain decode, and the full self-draft accepts every token."""
+    import re
+
+    out = bench.bench_serving(**_SMALL_SERVING)
+    assert set(out) == SERVING_KEYS
+    with open(os.path.join(REPO, "bench.py")) as f:
+        src = f.read()
+    leg = src[src.index("def bench_serving"):]
+    leg = leg[:leg.index("\ndef ")]
+    jax_keys = set(re.findall(r'out\["(\w+)"\]', leg)) | {
+        f"k{k}_{c}" for k in (1, 8)
+        for c in ("tokens_per_s", "decode_ms_per_token")}
+    assert SERVING_KEYS <= jax_keys | {"max_batch", "max_seq", "requests"}
+    assert out["spec_match"] is True and out["spec_acceptance_rate"] == 1.0
+    assert out["speculate"] == 12 and out["programs_per_decode_superstep"] == 1
+    assert out["fused_speedup_k8_vs_k1"] == round(
+        out["k1_decode_ms_per_token"] / out["k8_decode_ms_per_token"], 3)
+    assert out["paged_max_admitted_batch"] > out["padded_max_admitted_batch"]
+    assert out["paged_hbm_per_slot_bytes"] < out["hbm_per_slot_bytes"]
 
 
 def test_a_failing_leg_does_not_sink_the_headline(monkeypatch, capsys):

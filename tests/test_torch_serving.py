@@ -219,12 +219,44 @@ def test_serve_app_on_cpu(capsys):
     assert stats["tokens"] == 15 and stats["prefills"] == 3
 
 
-@pytest.mark.parametrize("flag", [["--kv-block", "4"], ["--speculate", "2"],
-                                  ["--temperature", "0.7"], ["--telemetry", "d"],
+@pytest.mark.parametrize("flag", [["--shard", "2,2"], ["--journal", "PATH"],
+                                  ["--sched", "fifo"], ["--telemetry", "d"],
                                   ["--dry-run"], ["--dtype", "float16"]])
 def test_serve_app_refuses_unported_flags(flag):
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit) as e:
         tserve.main(_APP_ARGV + flag, device="cpu")
+    assert flag[0] in str(e.value)
+
+
+def test_serve_app_features_on_cpu(capsys):
+    """The capacity, sampling and speculation flags together: every
+    request completes and the stats carry each feature's keys."""
+    stats = {}
+    argv = _APP_ARGV + ["--kv-block", "4", "--prefix-cache", "--speculate", "2",
+                        "--temperature", "0.7", "--top-k", "8"]
+    assert tserve.main(argv, device="cpu", stats_out=stats) == 0
+    out = capsys.readouterr().out
+    assert "kv layout = paged" in out and "speculation = d=2" in out
+    assert stats["completed"] == 3 and stats["failed"] == 0
+    assert stats["kv_layout"] == "paged" and stats["kv_block"] == 4
+    assert stats["kv_blocks"] == 2 * S // 4 + 1 and stats["sampled"] is True
+    for key in ("prefix_cache", "prefix_hits", "prefix_hit_rate",
+                "prefill_tokens_saved", "kv_cows", "speculate", "draft_layers",
+                "draft_prefills", "spec_acceptance_rate",
+                "spec_tokens_per_dispatch", "programs_per_decode_superstep"):
+        assert key in stats, key
+    assert stats["spec_acceptance_rate"] == 1.0
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--prefix-cache"], "--kv-block"),
+    (["--draft-layers", "1"], "--speculate"),
+    (["--speculate", "-1"], "d >= 0"),
+    (["--kv-block", "5"], "divide"),
+])
+def test_serve_app_checks_feature_flags(argv, msg):
+    with pytest.raises(SystemExit, match=msg):
+        tserve.main(_APP_ARGV + argv, device="cpu")
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu():
