@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Twenty phases, in order; any failure raises and exits non-zero:
+Twenty-two phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -218,13 +218,48 @@ Twenty phases, in order; any failure raises and exits non-zero:
     decode ms/step eager and as a graph, tokens/s, acceptance and tokens
     per round, the prefix hit rate and saved tokens, beside the card's
     name and power limit.
+21. **Serve resilience.**  ROADMAP item 4's failure model at phase 3's
+    widths (``RESILIENCE``), each Server run with exact K1f/K6 launches
+    (``_serve_launches``): (a) bf16, padded and paged (16-token blocks),
+    eager and as graphs, two runs of a Server each: unfaulted, and with
+    a NaN'd cache row or first block before superstep 1 and a raise
+    before superstep 3 (both slot 0): request 0 and one other error out,
+    the same ones on both layouts, every survivor keeps the unfaulted
+    tokens, graph = eager bit for bit; (b) f32, padded and paged, eager
+    and as graphs: SIGTERM before superstep 1 on a journaled Server
+    drains it with no error and work left, a fresh Server on the journal
+    serves the rest, and the merged output equals the undrained run (in
+    bf16 the count of differing requests is printed, not held: the
+    re-prefill and the decode round the carried tokens' K/V apart); (c)
+    the fault matrix of (a) under speculation (d = 4, full self-draft):
+    clean tokens equal plain decode's, survivors too, graph = eager; (d)
+    ``apps.serve`` at hd 4, 12 and 256 (d_model 64 / 16 heads, 96 / 8,
+    2048 / 8; 2 layers), also speculating (d = 2): every request
+    completes with no K6 or K1f launch; at hd 64 K6 counts 2 x L x K.
+    Prints decode ms/step of each run.
+22. **NMT.**  ROADMAP item 5's NMT at ``bench.py``'s shape (``NMT``):
+    K3 at (1280, 20480) bf16 in both forms (planted ties, an
+    out-of-range label) by phase 2's rules and K4/K5 at the embeddings'
+    (20480, 2048) f32 with the step's ids and uniform ones, bit for bit,
+    each timed beside its plain version, ``F.cross_entropy`` /
+    ``F.embedding`` / ``index_add_`` and the bound; Dropout's masks
+    (64, 20, 2048) card against CPU bit for bit; an f32 SGD step at batch
+    4, hidden 64, vocab 512 card against CPU (loss within 1e-5, each
+    parameter's step within ``TOL_NMT_STEP``, the advanced keys equal);
+    the bench leg (2 + 10 steps), ``apps.nmt`` per step (1 + 10) and at
+    ``--steps-per-call 5``: finite losses, K3 forward = backward = steps
+    and K4 = K5 = 2 x steps (the embeddings' row-sparse path), nothing
+    else; pairs/s, ms/step, ``time = %.4fs``, peak memory; one warm step
+    under ``torch.profiler`` by kernel group, one LSTM's 20 recurrence
+    products and the dense SGD update by CUDA events.
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
-DLRM, long-context, race, AlexNet, superstep and serve-features runs
-together, split in ``launches_by_path``; the superstep and
-serve-features paths count what their graph runs launched eagerly or
-captured; K3's entries name the form each main-path
-shape takes), the card's name
+DLRM, long-context, race, AlexNet, superstep, serve-features,
+serve-resilience and NMT runs together, split in ``launches_by_path``;
+the superstep, serve-features and serve-resilience paths count what
+their graph runs launched eagerly or captured; K3's entries name the
+form each main-path shape takes, and K3's, K4's and K5's carry the NMT
+shape), the card's name
 and power limit from ``nvidia-smi``, and as its last line the JSON
 object ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits 2 and prints no result.
@@ -3483,6 +3518,629 @@ def phase_serve_features(torch, kernels):
     return total
 
 
+#: Phase 21: the fault matrix of JAX's ``scenario_serving_decode_fault``
+#: (a NaN'd cache row before superstep 1, a raise before superstep 3, both
+#: in slot 0), the drain of ``scenario_serving_sigterm_drain`` (SIGTERM
+#: before superstep 1), speculation at d = 4, and the decode route's head
+#: dims: (d_model, heads) of hd 4, 12 and 256, which K6 does not take, and
+#: hd 64, which it does, at 2 layers.
+RESILIENCE = dict(nan_cache_at={1: 0}, raise_at={3: 0}, preempt_at=(1,),
+                  speculate=4, kv_block=16,
+                  route=((64, 16), (96, 8), (2048, 8), (512, 8)),
+                  route_layers=2, route_speculate=2)
+
+
+def _runs_of(torch, ex, params, reqs, runs=2, inject=None, **kw):
+    """``runs`` runs of one Server (on the card its graph is captured in
+    the first and replayed after), a fresh injector from ``inject()``
+    before each; returns (each run's results, each run's stats, the
+    launches of all of them, the Server)."""
+    from flexflow_torch.runtime.serving import Server
+
+    srv = Server(ex, params, {}, decode_steps=SERVE["decode_steps"], **kw)
+    _zero_counts()
+    res, stats = [], []
+    for _ in range(runs):
+        srv.injector = inject() if inject is not None else None
+        r, st = srv.run(reqs)
+        res.append(r)
+        stats.append(st)
+    torch.cuda.synchronize()
+    return res, stats, _counts(), srv
+
+
+def _toks(results) -> dict:
+    return {rid: list(r.tokens) for rid, r in results.items()}
+
+
+def _errors(results) -> dict:
+    return {rid: r.error for rid, r in results.items() if r.error}
+
+
+def _faulted(tag, res, base, inj) -> list:
+    """The faulted run of phase 21's matrix: the NaN errors request 0 out
+    (it sits in slot 0 at superstep 1), the raise one other request, and
+    every other request keeps ``base``'s tokens.  Returns the failed
+    ids."""
+    errs = _errors(res)
+    _check({m for m, _, _ in inj.fired} == {"nan_cache", "raise"},
+           f"{tag}: the injector fired {inj.fired}")
+    _check(len(errs) == 2 and errs.get(0) == "non-finite logits in decode"
+           and sum(e.startswith("raised fault") for e in errs.values()) == 1,
+           f"{tag}: errors {errs}")
+    diff = [r for r in base if r not in errs and res[r].tokens != base[r]]
+    _check(not diff, f"{tag}: survivors {diff} differ from the unfaulted run")
+    return sorted(errs)
+
+
+def phase_serve_resilience(torch, kernels):
+    """ROADMAP item 4's failure model at SERVE widths: (a) the fault
+    matrix on the padded and paged layouts, eager and as graphs; (b) the
+    drain on SIGTERM and the journal's resume (f32); (c) the fault matrix
+    under speculation; (d) the decode route at head dims K6 does not take.
+    Returns the launches of every run together."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from flexflow_torch.apps import serve
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.transformer import build_transformer_lm
+    from flexflow_torch.runtime.serving import (
+        ServingExecutor, ServingFaultInjector, synthetic_requests)
+    from flexflow_torch.serving.journal import RequestJournal
+
+    c, f = SERVE, RESILIENCE
+    L, K, B = c["layers"], c["decode_steps"], c["max_batch"]
+    card = _card()
+    total = {}
+
+    def add(counts):
+        for n, v in counts.items():
+            total[n] = total.get(n, 0) + v
+
+    def inject():
+        return ServingFaultInjector(nan_cache_at=f["nan_cache_at"],
+                                    raise_at=f["raise_at"])
+
+    def stack(dtype, layouts=("padded", "paged")):
+        cfg = FFConfig(compute_dtype=dtype, seed=c["seed"])
+        ff = build_transformer_lm(
+            batch_size=B, seq_len=c["max_seq"], vocab_size=c["vocab"],
+            d_model=c["d_model"], num_heads=c["heads"], num_layers=L,
+            config=cfg)
+        exs = {lay: ServingExecutor(
+            ff, cfg, max_batch=B, max_seq=c["max_seq"], buckets=c["buckets"],
+            device="cuda", kv_block=f["kv_block"] if lay == "paged" else 0)
+            for lay in layouts}
+        return exs, exs[layouts[0]].init(c["seed"])[0]
+
+    reqs = synthetic_requests(c["requests"], c["vocab"], prompt_len=c["prompt"],
+                              max_new_tokens=c["max_new"], seed=c["seed"])
+    exs, params = stack("bfloat16")
+
+    # -- (a) the fault matrix, padded and paged, eager and as a graph --
+    base, times, failed = {}, {}, {}
+    for lay, ex in exs.items():
+        got = {}
+        for graph in (False, True):
+            for faulted in (False, True):
+                res, sts, counts, srv = _runs_of(
+                    torch, ex, params, reqs, graph=graph,
+                    inject=inject if faulted else None)
+                add(counts)
+                outs = [(None, st) for st in sts]
+                _held_launches(f"(a) {lay} graph={graph} faulted={faulted}",
+                               counts, _serve_launches(ex, srv, outs))
+                _check(_toks(res[0]) == _toks(res[1]) and
+                       _errors(res[0]) == _errors(res[1]),
+                       f"(a) {lay} graph={graph} faulted={faulted}: two runs "
+                       f"differ")
+                if not faulted:
+                    _check(not _errors(res[1]), f"(a) {lay} graph={graph}: "
+                           f"unfaulted errors {_errors(res[1])}")
+                    base[lay, graph] = _toks(res[1])
+                else:
+                    _faulted(f"(a) {lay} graph={graph}", res[1],
+                             base[lay, graph], srv.injector)
+                got[graph, faulted] = (_toks(res[1]), _errors(res[1]))
+                times[lay, graph, faulted] = _ms_per_step(srv, sts[1])
+        for faulted in (False, True):
+            _check(got[False, faulted] == got[True, faulted],
+                   f"(a) {lay} faulted={faulted}: the graph run differs from "
+                   f"the eager run")
+        failed[lay] = sorted(got[True, True][1])
+        print(f"[serve-resilience] (a) {lay}, bf16: faults at supersteps 1 "
+              f"(NaN, slot 0) and 3 (raise, slot 0) failed requests "
+              f"{failed[lay]}; every survivor's tokens equal "
+              f"the unfaulted run's, the graph run equals the eager run bit "
+              f"for bit; decode ms/step (second run of a Server) eager "
+              f"{times[lay, False, False]:.4f} plain / "
+              f"{times[lay, False, True]:.4f} faulted, graph "
+              f"{times[lay, True, False]:.4f} plain / "
+              f"{times[lay, True, True]:.4f} faulted; {card}")
+    _check(failed["padded"] == failed["paged"],
+           f"(a) the padded and paged runs failed other requests: {failed}")
+
+    # -- (b) the drain on SIGTERM and the journal's resume, f32 --
+    exs32, params32 = stack("float32")
+    # Journals inside the checkout's build directory, removed at the end.
+    tmp = tempfile.mkdtemp(prefix="journals-", dir=kernels._BUILD_DIR)
+    for lay, ex in exs32.items():
+        res, sts, counts, _srv = _runs_of(torch, ex, params32, reqs, runs=1,
+                                          graph=True)
+        add(counts)
+        want = _toks(res[0])
+        for graph in (False, True):
+            path = os.path.join(tmp, f"{lay}-{graph}.jsonl")
+
+            def preempt():
+                return ServingFaultInjector(preempt_at=f["preempt_at"])
+
+            res_d, st_d, cd, sd = _runs_of(
+                torch, ex, params32, reqs, runs=1, graph=graph,
+                inject=preempt, journal=RequestJournal(path))
+            add(cd)
+            _held_launches(f"(b) {lay} graph={graph} drained", cd,
+                           _serve_launches(ex, sd, [(None, st_d[0])]))
+            _check(st_d[0]["drained"] is True and not _errors(res_d[0])
+                   and len(res_d[0]) < len(reqs),
+                   f"(b) {lay} graph={graph}: drained {st_d[0]['drained']}, "
+                   f"{len(res_d[0])} results, errors {_errors(res_d[0])}")
+            res_r, st_r, cr, sr = _runs_of(
+                torch, ex, params32, reqs, runs=1, graph=graph,
+                journal=RequestJournal(path))
+            add(cr)
+            _held_launches(f"(b) {lay} graph={graph} resumed", cr,
+                           _serve_launches(ex, sr, [(None, st_r[0])]))
+            _check(st_r[0]["drained"] is False and _toks(res_r[0]) == want,
+                   f"(b) {lay} graph={graph}: the resumed output differs "
+                   f"from the undrained run for requests "
+                   f"{[r for r in want if res_r[0][r].tokens != want[r]]}")
+            print(f"[serve-resilience] (b) {lay}, f32, graph={graph}: SIGTERM "
+                  f"before superstep 1 drained the run after "
+                  f"{st_d[0]['decode_supersteps']} supersteps with "
+                  f"{len(res_d[0])} requests done and "
+                  f"{len(reqs) - len(res_d[0])} left in the journal; a fresh "
+                  f"Server served them "
+                  f"({st_r[0]['prefills']} prefills over prompt and carried "
+                  f"tokens, {st_r[0]['decode_supersteps']} supersteps): "
+                  f"merged output equals the undrained run; decode ms/step "
+                  f"drained {_ms_per_step(sd, st_d[0]):.4f}, resumed "
+                  f"{_ms_per_step(sr, st_r[0]):.4f} (each a first run: its "
+                  f"graph warmed and captured)")
+    # bf16 for the record, not held: the resume's re-prefill computes the
+    # carried tokens' K/V with the flash prefill, the undrained run with
+    # decode steps, and bf16 rounds the two paths apart.
+    path = os.path.join(tmp, "bf16.jsonl")
+    for inj in (lambda: ServingFaultInjector(preempt_at=f["preempt_at"]),
+                None):
+        res, _sts, counts, _srv = _runs_of(
+            torch, exs["padded"], params, reqs, runs=1, graph=True,
+            inject=inj, journal=RequestJournal(path))
+        add(counts)
+    res_r = res[0]
+    want = base["padded", True]
+    diff = [r for r in want if res_r[r].tokens != want[r]]
+    print(f"[serve-resilience] (b) bf16 padded drain and resume, not held: "
+          f"{len(diff)} of {len(want)} requests differ from the undrained "
+          f"run {diff}")
+
+    # -- (c) the fault matrix under speculation, d = 4 --
+    for lay, ex in exs.items():
+        got = {}
+        for graph in (False, True):
+            for faulted in (False, True):
+                res, sts, counts, srv = _runs_of(
+                    torch, ex, params, reqs, runs=1, graph=graph,
+                    speculate=f["speculate"],
+                    inject=inject if faulted else None)
+                add(counts)
+                _held_launches(f"(c) {lay} graph={graph} faulted={faulted}",
+                               counts, _serve_launches(
+                                   ex, srv, [(None, sts[0])]))
+                if not faulted:
+                    _check(_toks(res[0]) == base[lay, True],
+                           f"(c) {lay} graph={graph}: clean speculation "
+                           f"differs from plain decode")
+                else:
+                    _faulted(f"(c) {lay} graph={graph}", res[0],
+                             base[lay, True], srv.injector)
+                got[graph, faulted] = (_toks(res[0]), _errors(res[0]),
+                                       _ms_per_step(srv, sts[0]))
+        for faulted in (False, True):
+            _check(got[False, faulted][:2] == got[True, faulted][:2],
+                   f"(c) {lay} faulted={faulted}: graph differs from eager")
+        print(f"[serve-resilience] (c) {lay}, speculate {f['speculate']}: "
+              f"clean tokens equal plain decode's; faulted failed "
+              f"{sorted(got[True, True][1])} at the verify fence, survivors "
+              f"equal plain decode's, graph = eager; ms per round eager "
+              f"{got[False, False][2]:.4f} / {got[False, True][2]:.4f} "
+              f"faulted, graph {got[True, False][2]:.4f} / "
+              f"{got[True, True][2]:.4f} (first runs)")
+    del exs32, params32
+
+    # -- (d) the decode route: head dims K6 does not take --
+    for dm, heads in f["route"]:
+        hd = dm // heads
+        cfg_d = dict(c, d_model=dm, heads=heads, layers=f["route_layers"])
+        for spec in (0, f["route_speculate"]):
+            if spec and hd == 64:
+                continue
+            stats = {}
+            _zero_counts()
+            extra = ["--speculate", str(spec)] if spec else []
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = serve.main(_serve_argv("bfloat16", cfg_d) + extra,
+                                device="cuda", stats_out=stats)
+            torch.cuda.synchronize()
+            counts = _counts()
+            add(counts)
+            _check(rc == 0 and stats["completed"] == c["requests"],
+                   f"(d) hd {hd} speculate {spec}: rc {rc}, completed "
+                   f"{stats['completed']}")
+            Ld = f["route_layers"]
+            kerneled = kernels.flash_decode_supported(
+                (B, c["max_seq"], heads, hd), torch.bfloat16)
+            _check(kerneled == (hd == 64), f"(d) K6's gate at hd {hd}")
+            want = {"flash_attention_lse": Ld * stats["prefills"]
+                    if kerneled else 0,
+                    "flash_decode": 2 * Ld * K if kerneled else 0}
+            _held_launches(f"(d) hd {hd} speculate {spec}", counts, want)
+            steps = stats["decode_supersteps"] * (1 if spec else K)
+            print(f"[serve-resilience] (d) d_model {dm}, {heads} heads (hd "
+                  f"{hd}){f', speculate {spec}' if spec else ''}: "
+                  f"{stats['completed']} requests complete, "
+                  f"{stats['decode_s'] * 1e3 / steps:.4f} ms per "
+                  f"{'round' if spec else 'decode step'} (first run), "
+                  f"launches {counts}")
+    shutil.rmtree(tmp)
+    print(f"[serve-resilience] launches of every run {total}")
+    return total
+
+
+#: Phase 22: bench.py's NMT leg (``bench.py:311-336``): batch 64, 2
+#: layers, hidden = embed = 2048, vocab 20480, seq 20, bf16, dropout 0.2,
+#: SGD lr 0.01 (momentum 0, wd 0: the embeddings train row-sparse), 2 + 10
+#: steps; the app at ``--steps-per-call`` 5 and per step; the f32 parity
+#: step at batch 4, hidden 64, vocab 512.
+NMT = dict(batch=64, seq=20, hidden=2048, vocab=20480, layers=2, lr=0.01,
+           warmup=2, iters=10, steps_per_call=5, dropout=0.2)
+NMT_PARITY = dict(batch=4, seq=20, hidden=64, vocab=512, layers=2, lr=0.01,
+                  seed=0)
+TOL_NMT_LOSS = 1e-5
+#: The parity step's bar, as DLRM's: each parameter's step within rtol of
+#: the CPU step's largest element plus 2^-22 of the parameter's largest.
+TOL_NMT_STEP = 1e-4
+#: Kernel-name groups of phase 22's profile, first match wins.
+NMT_GROUPS = (
+    ("K3", ("xent",)),
+    ("K4/K5", ("gather_regs", "scatter_add_rows", "count_owned")),
+    ("GEMM (cuBLAS)", ("gemm", "cublas", "cutlass", "nvjet", "splitk",
+                       "xmma")),
+    ("copy", ("memcpy", "memset", "copy")),
+    ("elementwise, reductions", ("",)),
+)
+
+
+def _nmt_argv(c, extra=()):
+    return ["-b", str(c["batch"]), "--src-len", str(c["seq"]), "--tgt-len",
+            str(c["seq"]), "--hidden", str(c["hidden"]), "--vocab",
+            str(c["vocab"]), "--layers", str(c["layers"]), "--dropout",
+            str(c["dropout"]), "--dtype", "bfloat16", "--optimizer", "sgd",
+            "--lr", str(c["lr"]), "--momentum", "0", "--wd", "0", *extra]
+
+
+def _nmt_per_step() -> dict:
+    """The kernels one NMT train step launches: K3 once each way, and K4
+    and K5 once per word embedding (the row-sparse path)."""
+    return dict(softmax_xent=1, softmax_xent_bwd=1, gather_rows=2,
+                scatter_add_rows=2)
+
+
+def _nmt_model(c, dtype: str, seed: int = 0):
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.nmt import build_nmt
+
+    cfg = FFConfig(batch_size=c["batch"], compute_dtype=dtype, seed=seed)
+    return build_nmt(batch_size=c["batch"], src_len=c["seq"],
+                     tgt_len=c["seq"], vocab_size=c["vocab"],
+                     embed_dim=c["hidden"], hidden_size=c["hidden"],
+                     num_layers=c["layers"], dropout=NMT["dropout"],
+                     config=cfg), cfg
+
+
+def phase_nmt(torch, kernels, F):
+    """ROADMAP item 5's NMT at bench.py's shape: K3 at (1280, 20480) bf16
+    in both forms and K4/K5 at the embeddings' shape against their plain
+    versions; Dropout's masks card against CPU; an f32 SGD step card
+    against CPU; the bench leg (2 + 10), the app per step and at
+    ``--steps-per-call``; one profiled step.  Returns (rows, launches)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from flexflow_torch import bench
+    from flexflow_torch.apps import nmt as nmt_app
+    from flexflow_torch.data.loader import synthetic_host_batch
+    from flexflow_torch.optim import SGDOptimizer
+    from flexflow_torch.runtime import keyed_random
+    from flexflow_torch.runtime.executor import Executor
+    from flexflow_torch.runtime.trainer import Trainer
+
+    c = NMT
+    card = _card()
+    g = torch.Generator(device="cuda").manual_seed(22)
+    rows = {}
+
+    # -- K3 at the loss's shape, (batch x seq, vocab) bf16, both forms --
+    n, v = c["batch"] * c["seq"], c["vocab"]
+    x, labels, tie_cols = _xent_inputs(torch, g, n, v, "bfloat16")
+    gn = torch.full((n,), 1.0 / n, device="cuda")
+    gl = torch.randn((n,), generator=g, device="cuda")
+    errs = {}
+    for form in XENT_FORMS:
+        errs[form], (_nll, _lse, pred, _d, _pd) = _xent_hold(
+            torch, kernels, x, labels, gn, gl, form)
+        _xent_held(errs[form], f"softmax_xent ({n}, {v}) bf16 {form}")
+        got = [int(pred[r]) for r in range(len(tie_cols))]
+        _check(got == [min(t) for t in tie_cols],
+               f"softmax_xent ({n}, {v}) {form} ties: pred {got}")
+    chosen = kernels._xent_form(v)
+    _check(chosen.form == "cta", f"K3 at V = {v} takes {chosen.form}")
+    lab = labels.clone()
+    lab[-1] = 0
+    lab64 = lab.long()
+    lse = kernels._xent_fwd(x, lab)[1]
+    xr = x.detach().clone().requires_grad_(True)
+    ce = F.cross_entropy(xr, lab64, reduction="none")
+    gce = gn.to(ce.dtype)
+    fns = {
+        "softmax_xent": (lambda: kernels._xent_fwd(x, lab),
+                         lambda: kernels.softmax_xent_plain(x, lab),
+                         lambda: F.cross_entropy(x, lab64, reduction="none"),
+                         _bound_ms(n * v * 2 + 16 * n, 4 * n * v, "float32"),
+                         ("nll", "lse")),
+        "softmax_xent_bwd": (
+            lambda: kernels._xent_bwd(x, lab, lse, gn, gl),
+            lambda: kernels.softmax_xent_bwd_plain(x, lab, lse, gn, gl),
+            lambda: torch.autograd.grad(ce, xr, gce, retain_graph=True),
+            _bound_ms(2 * n * v * 2 + 16 * n, 4 * n * v, "float32"),
+            ("dlogits_abs",)),
+    }
+    for name, (kern, plain, lib, (bound, by), keys) in fns.items():
+        ms, lib_ms = _pair_ms(kern, lib)
+        plain_ms = _device_ms(plain)
+        err = max(errs[f][k] for f in XENT_FORMS for k in keys)
+        rows[f"{name}@nmt"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=lib_ms, form=_form_name(chosen))
+        print(f"[nmt] {name} ({n}, {v}) bf16, {_form_name(chosen)}: held in "
+              f"both forms (ties, an out-of-range label), max abs err "
+              f"{err:.3g}; {ms:.6f} ms (plain {plain_ms:.6f}, F.cross_entropy"
+              f"{' backward' if name.endswith('bwd') else ''} {lib_ms:.6f}, "
+              f"bound {bound:.6f} by {by}: {100 * bound / ms:.1f}% of it); "
+              f"{card}")
+    del x, xr, ce
+
+    # -- K4 / K5 at the embeddings' shape: the step's ids and uniform --
+    ff, cfg = _nmt_model(c, "bfloat16")
+    host = synthetic_host_batch(ff, np.random.default_rng(0))
+    table = torch.randn((v, c["hidden"]), generator=g, device="cuda")
+    main_ids = torch.from_numpy(host["src"].reshape(-1)).cuda()
+    uni_ids = torch.randint(0, v, (n,), generator=g, device="cuda",
+                            dtype=torch.int32)
+    upd = torch.randn((n, c["hidden"]), generator=g, device="cuda")
+    for what, ids in (("the step's ids", main_ids), ("uniform ids", uni_ids)):
+        _gather_exact(torch, kernels, f"nmt {what}", table, ids)
+        a, b = table.clone(), table.clone()
+        kernels.scatter_add_rows(a, ids, upd)
+        kernels.scatter_add_rows_plain(b, ids, upd)
+        torch.cuda.synchronize()
+        _check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+               f"scatter_add_rows nmt {what}: not bit-identical to plain")
+        del a, b
+    uniq = int(torch.unique(main_ids).numel())
+    d = c["hidden"]
+    work = table.clone()
+    lib_idx = main_ids.long()
+    k45 = {
+        "gather_rows": (lambda: kernels.gather_rows(table, main_ids),
+                        lambda: kernels.gather_rows_plain(table, main_ids),
+                        lambda: F.embedding(lib_idx, table),
+                        _bound_ms(uniq * d * 4 + n * d * 4 + 4 * n, 0,
+                                  "float32")),
+        "scatter_add_rows": (
+            lambda: kernels.scatter_add_rows(work, main_ids, upd),
+            lambda: kernels.scatter_add_rows_plain(work, main_ids, upd),
+            lambda: work.index_add_(0, lib_idx, upd),
+            _bound_ms(n * d * 4 + 2 * uniq * d * 4 + 4 * n, n * d,
+                      "float32")),
+    }
+    uni_idx = uni_ids.long()
+    uniform = {
+        "gather_rows": (lambda: kernels.gather_rows(table, uni_ids),
+                        lambda: F.embedding(uni_idx, table)),
+        "scatter_add_rows": (
+            lambda: kernels.scatter_add_rows(work, uni_ids, upd),
+            lambda: work.index_add_(0, uni_idx, upd)),
+    }
+    for name, (kern, plain, lib, (bound, by)) in k45.items():
+        ms, lib_ms = _pair_ms(kern, lib)
+        plain_ms = _device_ms(plain)
+        uni_ms, uni_lib = _pair_ms(*uniform[name])
+        rows[f"{name}@nmt"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound, bound_by=by,
+                                   library_ms=lib_ms, uniform_ids_ms=uni_ms,
+                                   uniform_ids_library_ms=uni_lib)
+        print(f"[nmt] {name} ({v}, {d}) f32, {n} ids of the step "
+              f"({uniq} rows): bit for bit against plain (and at {n} "
+              f"uniform ids); {ms:.6f} ms (plain {plain_ms:.6f}, "
+              f"{'F.embedding' if name == 'gather_rows' else 'index_add_'} "
+              f"{lib_ms:.6f}, bound {bound:.6f} by {by}); at the uniform "
+              f"ids {uni_ms:.6f} ms, the library {uni_lib:.6f}")
+    del table, work, upd
+
+    # -- Dropout's masks: the card's bits are the CPU's --
+    shape = (c["batch"], c["seq"], c["hidden"])
+    key = torch.tensor([7, 123456789], dtype=torch.int64)
+    m_card = keyed_random.bernoulli(key.cuda(), 1.0 - c["dropout"], shape)
+    m_cpu = keyed_random.bernoulli(key, 1.0 - c["dropout"], shape)
+    _check(torch.equal(m_card.cpu(), m_cpu), "dropout masks differ card/CPU")
+    drop = next(op for op in ff.layers if op.name == "enc_drop0")
+    xd = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    (yc,), sc = drop.forward({}, [xd], {"rng": key.cuda()}, True)
+    (yp,), sp = drop.forward({}, [xd.cpu()], {"rng": key}, True)
+    _check(torch.equal((yc != 0).cpu(), yp != 0) and
+           torch.equal(sc["rng"].cpu(), sp["rng"]),
+           "Dropout's mask or advanced key differs card/CPU")
+    ulp = ((yc.cpu().float() - yp.float()).abs()
+           <= yp.float().abs() * 2.0 ** -8).all()
+    _check(bool(ulp), "Dropout's values differ card/CPU by more than 1 ulp")
+    print(f"[nmt] Dropout masks at {shape} (rate {c['dropout']}): the card's "
+          f"bits equal the CPU's, keep share "
+          f"{m_card.float().mean().item():.5f}; the op's output bit-equal "
+          f"card/CPU: {torch.equal(yc.cpu(), yp)}")
+    del xd, yc, m_card
+
+    # -- an f32 SGD step, card against CPU --
+    pc = NMT_PARITY
+    pff, pcfg = _nmt_model(pc, "float32", pc["seed"])
+    params0, state0 = Executor(pff, pcfg,
+                               device="cpu").init_params_and_state()
+    pbatch = synthetic_host_batch(pff, np.random.default_rng(pc["seed"]), {
+        "src": pc["vocab"], "tgt": pc["vocab"], "label": pc["vocab"]})
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ex = Executor(pff, pcfg, optimizer=SGDOptimizer(lr=pc["lr"]),
+                      device=dev)
+        _check({op.name for op in ex._sparse_ops} == {"src_embed",
+                                                      "tgt_embed"},
+               "nmt parity: the embeddings are not on the row-sparse path")
+        params = {op: {k: p.clone().to(dev) for k, p in grp.items()}
+                  for op, grp in params0.items()}
+        state = {op: {k: t.clone().to(dev) for k, t in grp.items()}
+                 for op, grp in state0.items()}
+        params, _o, state, m = ex.train_step(params, ex.optimizer.init(params),
+                                             state, ex.shard_batch(pbatch))
+        out[dev] = (float(m["train_loss"]),
+                    {op: {k: t.detach().cpu() for k, t in grp.items()}
+                     for op, grp in params.items()},
+                    {op: grp["rng"].cpu() for op, grp in state.items()})
+    (lc, pcard, kc), (lp, pcpu, kp) = out["cuda"], out["cpu"]
+    _check(abs(lc - lp) <= TOL_NMT_LOSS, f"nmt parity: loss card {lc}, CPU "
+           f"{lp}")
+    _check(all(torch.equal(kc[op], kp[op]) for op in kp),
+           "nmt parity: the advanced Dropout keys differ")
+    worst = 0.0
+    for op in pcpu:
+        for k in pcpu[op]:
+            p0 = params0[op][k]
+            dc, dp = pcard[op][k] - p0, pcpu[op][k] - p0
+            tol = (TOL_NMT_STEP * dp.abs().max().item()
+                   + 2.0 ** -22 * p0.abs().max().item())
+            err = (dc - dp).abs().max().item()
+            _check(err <= tol, f"nmt parity {op}.{k}: step err {err} against "
+                   f"{tol}")
+            worst = max(worst, err / tol)
+    print(f"[nmt] f32 SGD step at batch {pc['batch']}, hidden {pc['hidden']}, "
+          f"vocab {pc['vocab']}, seq {pc['seq']}: loss card {lc:.8f} CPU "
+          f"{lp:.8f}; worst parameter step error {worst:.3g} of its "
+          f"tolerance; the advanced Dropout keys equal")
+
+    # -- the main path: the bench leg, the app per step and as graphs --
+    per = _nmt_per_step()
+    total = {}
+
+    def held(tag, counts, steps):
+        want = {name: k * steps for name, k in per.items()}
+        _held_launches(tag, counts, want)
+        for name, k in counts.items():
+            total[name] = total.get(name, 0) + k
+
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    held_mem = torch.cuda.memory_allocated()
+    _zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        elapsed, pairs, iters = bench.bench_nmt(
+            device="cuda", batch=c["batch"], hidden=c["hidden"],
+            vocab=c["vocab"], seq=c["seq"], iters=c["iters"],
+            warmup=c["warmup"], stats_out=stats)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - held_mem) / 1e9
+    losses = stats["step_losses"]
+    _check(len(losses) == c["warmup"] + c["iters"] and
+           all(math.isfinite(x) for x in losses), f"nmt losses {losses}")
+    held("nmt bench leg", _counts(), c["warmup"] + c["iters"])
+    ms_step = elapsed * 1e3 / iters
+    print(f"[nmt] bench leg (2 + 10 steps): time = {elapsed:.4f}s, "
+          f"{pairs:.2f} pairs/s, {ms_step:.3f} ms/step, peak {peak:.2f} GB; "
+          f"losses {[round(x, 5) for x in losses]}; {card}")
+    app_ms = {}
+    for spc in (1, c["steps_per_call"]):
+        st = {}
+        _zero_counts()
+        extra = ["-i", str(c["iters"])]
+        if spc > 1:
+            extra += ["--steps-per-call", str(spc)]
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = nmt_app.main(_nmt_argv(c, extra), device="cuda",
+                              stats_out=st)
+        torch.cuda.synchronize()
+        _check(rc == 0 and all(math.isfinite(x) for x in st["step_losses"]),
+               f"nmt app steps_per_call={spc}: rc {rc}, losses "
+               f"{st['step_losses']}")
+        # A graph counts its first call's eager steps and its capture.
+        held(f"nmt app steps_per_call={spc}", _counts(),
+             2 * spc if spc > 1 else 1 + c["iters"])
+        app_ms[spc] = st["elapsed_s"] * 1e3 / st["iterations"]
+    print(f"[nmt] apps.nmt: {app_ms[1]:.3f} ms/step per step, "
+          f"{app_ms[c['steps_per_call']]:.3f} as graphs of "
+          f"{c['steps_per_call']} ({app_ms[1] / app_ms[c['steps_per_call']]:.2f}"
+          f"x); launches {total}")
+
+    # -- one warm step under the profiler; the recurrence and SGD alone --
+    ex = Executor(ff, cfg, optimizer=SGDOptimizer(lr=c["lr"]), device="cuda")
+    stt = list(ex.init())
+    batch = Trainer(ex).synthetic_batch()
+
+    def step():
+        stt[:3] = ex.train_step(*stt, batch)[:3]
+
+    for _ in range(2):
+        step()
+    groups = {name: [0.0, 0] for name, _ in NMT_GROUPS}
+    for us, key_, cnt in _profile_step(torch, "nmt-profile", step):
+        name = next(nm for nm, subs in NMT_GROUPS
+                    if any(sub in key_.lower() for sub in subs))
+        groups[name][0] += us / 1e3
+        groups[name][1] += cnt
+    busy = sum(ms for ms, _ in groups.values())
+    print("[nmt-profile] device ms by kernel group: " + ", ".join(
+        f"{nm} {ms:.3f} ({100 * ms / busy:.1f}%, {k} kernels)"
+        for nm, (ms, k) in groups.items()))
+    wh = stt[0]["enc_lstm0"]["wh"]
+    h = torch.randn((c["batch"], c["hidden"]), generator=g,
+                    device="cuda").to(wh.dtype)
+    rec_ms = _device_ms(lambda: [h @ wh for _ in range(c["seq"])])
+    params, _o, state = stt
+    dense = {op: grp for op, grp in params.items()
+             if op not in ("src_embed", "tgt_embed")}
+    _l, _m, _s, grads = ex.loss_and_grads(params, state, batch)
+    grads = {op: grads[op] for op in dense}
+    sgd_ms = _device_ms(lambda: ex.optimizer.update(dense, None, grads))
+    print(f"[nmt-profile] one LSTM's recurrence, {c['seq']} products h @ wh "
+          f"({c['batch']} x {c['hidden']} @ {c['hidden']} x "
+          f"{4 * c['hidden']}): {rec_ms:.3f} ms of device time (x4 LSTMs "
+          f"forward, twice that backward); the SGD update of the dense "
+          f"parameters {sgd_ms:.3f} ms; {card}")
+    return rows, total
+
+
 def _card() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
@@ -3551,11 +4209,17 @@ def main() -> int:
     t.append(time.perf_counter())
     features_launches = phase_serve_features(torch, kernels)
     t.append(time.perf_counter())
+    resilience_launches = phase_serve_resilience(torch, kernels)
+    t.append(time.perf_counter())
+    nmt_rows, nmt_launches = phase_nmt(torch, kernels, F)
+    rows.update(nmt_rows)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
              "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
              "longctx-parity", "probe-kernels", "alexnet-kernels",
-             "alexnet-train", "alexnet-parity", "superstep", "serve-features")
+             "alexnet-train", "alexnet-parity", "superstep", "serve-features",
+             "serve-resilience", "nmt")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -3592,7 +4256,9 @@ def main() -> int:
                    "probe": probe_launches[name],
                    "alexnet": alexnet_launches[name],
                    "superstep": superstep_launches[name],
-                   "serve_features": features_launches[name]}
+                   "serve_features": features_launches[name],
+                   "serve_resilience": resilience_launches.get(name, 0),
+                   "nmt": nmt_launches.get(name, 0)}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])
@@ -3608,6 +4274,9 @@ def main() -> int:
             entry["longctx_32k_shape"] = rows["flash_attention_lse_streamed@32k"]
         if name in ("softmax_xent", "softmax_xent_bwd"):
             entry["alexnet_shape"] = rows[f"{name}@alexnet"]
+        if name in ("softmax_xent", "softmax_xent_bwd", "gather_rows",
+                    "scatter_add_rows"):
+            entry["nmt_shape"] = rows[f"{name}@nmt"]
         if name == "flash_decode":
             entry["long_cache_shape"] = rows[
                 f"flash_decode@{DECODE_TIMED[1]}"]

@@ -42,8 +42,18 @@ Sampling flags (greedy stays the default):
   --sample-seed S    draws keyed by (S, request id, position): the same
                      tokens whatever the batch or the superstep length
 
+Failure-model flags of the plain loop:
+  --journal PATH     append-only request journal: a run on a journal
+                     with records restores its completed requests and
+                     resumes its in-flight ones; SIGTERM drains at the
+                     next superstep boundary (re-run with the same
+                     --journal to serve the rest)
+  --dry-run          print the program table (cache, prefill per bucket,
+                     decode, spec), traced on meta tensors: no device
+                     compute, no kernel launch
+
 Refused by name, with the ROADMAP.md queue 1 item that brings each:
-sharding, checkpoints, the journal and failure model, the scheduler and
+sharding, checkpoints, the scheduler's failure model, the scheduler and
 fleet, and telemetry.  Any other unknown flag is refused too.
 
 Example::
@@ -67,6 +77,7 @@ from flexflow_torch.runtime.serving import (
     ServingExecutor,
     synthetic_requests,
 )
+from flexflow_torch.serving.journal import RequestJournal
 
 _DTYPES = ("float32", "bfloat16")
 
@@ -76,13 +87,9 @@ UNPORTED = {
     "--shard": "item 9 (multi-device strategies)",
     "--draft-ckpt": "item 7 (checkpoints)",
     "--ckpt-dir": "item 7 (checkpoints)",
-    "--journal": "item 4's next slice (the journal) and item 7",
-    "--serve-retries": "item 4's next slice (the failure model) and item 7",
-    "--serve-max-restarts": "item 4's next slice (the failure model) and "
-                            "item 7",
-    "--expire-waiting": "item 4's next slice (the failure model) and item 7",
-    "--retry-backoff-ms": "item 4's next slice (the failure model) and "
-                          "item 7",
+    **{f: "item 8 (the scheduler's failure model)" for f in (
+        "--serve-retries", "--serve-max-restarts", "--expire-waiting",
+        "--retry-backoff-ms")},
     "--telemetry": "item 7 (telemetry)",
     **{f: "item 8 (the scheduler and fleet)" for f in (
         "--sched", "--workload-trace", "--trace-alpha", "--mean-gap-ms",
@@ -121,8 +128,9 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     sample_seed = pop_int(argv, "--sample-seed", 0)
     speculate = pop_int(argv, "--speculate", 0)
     draft_layers = pop_int(argv, "--draft-layers", 0)
+    journal_path = pop_str(argv, "--journal", "")
     switches = {}
-    for flag in ("--no-decode-kernel", "--prefix-cache"):
+    for flag in ("--no-decode-kernel", "--prefix-cache", "--dry-run"):
         switches[flag] = flag in argv
         if switches[flag]:
             argv.remove(flag)
@@ -175,12 +183,16 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
         sex = ServingExecutor(
             ff, cfg, max_batch=max_batch, max_seq=max_seq, buckets=buckets,
             decode_kernel=False if switches["--no-decode-kernel"] else None,
-            device=device, kv_block=kv_block, kv_blocks=kv_blocks or None,
+            # The dry run traces on meta tensors and needs no device.
+            device="meta" if switches["--dry-run"] else device,
+            kv_block=kv_block, kv_blocks=kv_blocks or None,
             prefix_cache=switches["--prefix-cache"],
             draft_layers=draft_layers,
         )
     except ValueError as e:
         raise SystemExit(str(e))
+    if switches["--dry-run"]:
+        return _dry_run(sex, decode_steps, speculate)
     params, state = sex.init(cfg.seed)
     requests = synthetic_requests(
         n_requests, vocab, prompt_len=(lo, hi), max_new_tokens=max_new,
@@ -188,7 +200,9 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     )
     srv = Server(sex, params, state, decode_steps=decode_steps,
                  eos_id=None if eos < 0 else eos, temperature=temperature,
-                 top_k=top_k, sample_seed=sample_seed, speculate=speculate)
+                 top_k=top_k, sample_seed=sample_seed, speculate=speculate,
+                 journal=RequestJournal(journal_path) if journal_path
+                 else None)
     t0 = time.perf_counter()
     results, stats = srv.run(requests)
     elapsed = time.perf_counter() - t0
@@ -198,6 +212,9 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     print(f"requests = {stats['requests']} "
           f"completed = {stats['completed']} failed = {stats['failed']}")
     _print_layout(stats)
+    if stats.get("drained"):
+        print(f"drained: remainder journaled in {journal_path or '?'} "
+              f"(re-run with the same --journal to resume)")
     print(f"time = {elapsed:.4f}s")
     print(f"tokens/s = {stats['tokens_per_s']:.1f}")
     print(f"request latency p50 = {stats['request_latency_ms_p50']:.1f} ms "
@@ -209,6 +226,38 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
             if results[rid].error:
                 print(f"request {rid} FAILED: {results[rid].error}")
         return 1
+    return 0
+
+
+def _dry_run(sex, decode_steps: int, speculate: int = 0) -> int:
+    """The serving dry run: the program table of
+    ``ServingExecutor.abstract_programs`` (traced on meta tensors), in
+    the JAX app's layout.  JAX's dry run then runs its program audit,
+    which comes with ROADMAP.md queue 1 item 14."""
+    table = sex.abstract_programs(decode_steps=decode_steps,
+                                  speculate=speculate)
+    print(f"{'program':<18} {'shape':<28} notes")
+    for name, t in sorted(table["cache"].items()):
+        print(f"{'cache ' + name:<18} {str(tuple(t.shape)):<28} "
+              f"{str(t.dtype).replace('torch.', '')}")
+    for bucket in sorted(table["prefill"]):
+        print(f"{'prefill L=' + str(bucket):<18} "
+              f"{'(1, ' + str(bucket) + ') -> token':<28} "
+              f"1 dispatch + 1 fence per admission")
+    for bucket in sorted(table.get("prefill_from", {})):
+        o = sex.kv_block
+        print(f"{'prefill L=' + str(bucket) + ' o=' + str(o):<18} "
+              f"{'(1, ' + str(bucket) + ') from row ' + str(o):<28} "
+              f"offset prefill (shared prefix skipped)")
+    shape = tuple(table["decode"].shape)
+    print(f"{'decode k=' + str(shape[0]):<18} {str(shape) + ' tokens':<28} "
+          f"1 dispatch + 1 fence per {shape[0]} tokens")
+    if speculate:
+        shape = tuple(table["spec"].shape)
+        print(f"{'spec d=' + str(speculate):<18} "
+              f"{str(shape) + ' tokens':<28} 1 dispatch + 1 fence per round "
+              f"(<= {speculate + 1} accepted)")
+    print("DRY RUN OK (no device compute)")
     return 0
 
 

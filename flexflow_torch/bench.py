@@ -15,14 +15,17 @@ and 32k (2 + 3), each with its MFU against the H100's dense bf16 peak,
 the superstep sweep (``superstep``: ms/step of a small MLP at k = 1, 4,
 8 and 16 steps per call, the k > 1 ones as CUDA graphs), the serving leg
 (``serving``: bench.py's columns that the port computes, decode
-supersteps as CUDA graphs) and the card's name and power limit.  Throughput is ``iterations x batch / elapsed``
+supersteps as CUDA graphs), the NMT leg (``nmt_pairs_per_s`` and
+``nmt_10iter_time_s``: batch 64, 2 layers, hidden = embed = 2048, vocab
+20480, seq 20, bf16, SGD lr 0.01, 2 + 10 steps) and the card's name and
+power limit.  Throughput is ``iterations x batch / elapsed``
 with one fence at the end (``Trainer.fit``); the flops come from
 ``search/cost_model.py::train_flops``.  A leg that fails becomes
 ``<leg>_error`` and does not sink the headline.  Without a CUDA device
 the line carries ``"value": null`` and the error; nothing is measured
 on the CPU.
 
-``bench.py``'s other legs (NMT, Candle-Uno, pipeline,
+``bench.py``'s other legs (Candle-Uno, pipeline,
 telemetry, data plane, search, op-parallel) and the serving leg's
 scheduler, failure-model, fleet, sharded and prefix-workload columns
 wait for their slices of the port (ROADMAP.md queue 1).  The leg functions take the
@@ -248,6 +251,31 @@ def bench_serving(device="cuda", vocab: int = 32768, d_model: int = 512,
     return out
 
 
+def bench_nmt(device="cuda", batch: int = 64, hidden: int = 2048,
+              vocab: int = 20480, seq: int = 20, iters: int = 10,
+              warmup: int = 2, stats_out: dict | None = None):
+    """``bench.py:311-336``: the NMT seq2seq LSTM step (``nmt.cc:34-44``
+    defaults: batch 64, 2 layers, hidden = embed = 2048, vocab 20480,
+    seq 20, bf16, dropout 0.2), SGD lr 0.01 built directly (momentum 0,
+    wd 0: the embeddings take the row-sparse path), ``warmup`` + ``iters``
+    steps.  Returns (elapsed s, pairs/s, iterations)."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.nmt import build_nmt
+    from flexflow_torch.optim import SGDOptimizer
+    from flexflow_torch.runtime.executor import Executor
+    from flexflow_torch.runtime.trainer import Trainer
+
+    cfg = FFConfig(batch_size=batch, compute_dtype="bfloat16")
+    ff = build_nmt(batch_size=batch, src_len=seq, tgt_len=seq,
+                   vocab_size=vocab, embed_dim=hidden, hidden_size=hidden,
+                   num_layers=2, config=cfg)
+    ex = Executor(ff, cfg, optimizer=SGDOptimizer(lr=0.01), device=device)
+    stats = Trainer(ex).fit(iterations=iters, warmup=warmup)
+    if stats_out is not None:
+        stats_out.update(stats)
+    return stats["elapsed_s"], stats["samples_per_s"], iters
+
+
 def _card() -> dict:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     out = subprocess.run(
@@ -299,6 +327,13 @@ def _run() -> dict:
             extra["serving"] = bench_serving()
     except Exception as e:
         extra["serving_error"] = f"{type(e).__name__}: {e}"
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            nmt_s, nmt_sps, _iters = bench_nmt()
+        extra["nmt_pairs_per_s"] = round(nmt_sps, 2)
+        extra["nmt_10iter_time_s"] = round(nmt_s, 4)
+    except Exception as e:  # an NMT failure must not sink the headline
+        extra["nmt_error"] = f"{type(e).__name__}: {e}"
     return {
         "metric": "alexnet_imgs_per_sec_per_chip",
         "value": round(per_chip, 2),

@@ -4,8 +4,8 @@ Apps call its methods to append ops to ``self.layers``; each method
 infers shapes and does no compute.  Op naming (``_unique``) and the
 dtype rules match the JAX package, so the two packages make graphs with
 the same op names, parameter keys and shapes.  The port has the methods
-that ``build_transformer_lm``, ``build_dlrm`` and ``build_alexnet``
-call.
+that ``build_transformer_lm``, ``build_dlrm``, ``build_alexnet`` and
+``build_nmt`` call.
 """
 
 from __future__ import annotations
@@ -20,9 +20,11 @@ from flexflow_torch.ops import (
     Concat,
     Conv2D,
     DotInteraction,
+    Dropout,
     Embedding,
     Flat,
     HeteroEmbedding,
+    LSTM,
     LayerNorm,
     Linear,
     MSELoss,
@@ -175,6 +177,19 @@ class FFModel:
         kw.setdefault("shard_rows", self.config.shard_embeddings)
         return self._add(WordEmbedding(self._unique("word_embedding", name),
                                        x, num_entries, out_dim, **kw))
+
+    def lstm(self, x: TensorSpec, hidden_size: int, initial_state=None,
+             name: Optional[str] = None, **kw):
+        """LSTM over (batch, seq, features); returns ``(y, hT, cT)``."""
+        op = LSTM(self._unique("lstm", name), x, hidden_size,
+                  initial_state=initial_state, **kw)
+        self.layers.append(op)
+        return op.outputs[0], op.outputs[1], op.outputs[2]
+
+    def dropout(self, x: TensorSpec, rate: float,
+                name: Optional[str] = None) -> TensorSpec:
+        """Inverted dropout; the identity at eval and at rate 0."""
+        return self._add(Dropout(self._unique("dropout", name), x, rate))
 
     def multihead_attention(self, x: TensorSpec, num_heads: int,
                             causal: bool = True, name: Optional[str] = None,

@@ -81,3 +81,16 @@ class NormInitializer(Initializer):
 class OnesInitializer(Initializer):
     def __call__(self, gen, shape, dtype):
         return torch.ones(tuple(shape), dtype=dtype)
+
+
+@dataclasses.dataclass
+class RngKeyInitializer(Initializer):
+    """A fresh threefry key for an op that threads an RNG through its
+    state (Dropout): two uint32 words held in an int64 tensor, the form
+    ``runtime/keyed_random.py`` takes.  JAX stores its slice of the init
+    key stream; the two never agree, so parity tests carry JAX's key
+    across (``weights.state_from_numpy``)."""
+
+    def __call__(self, gen, shape, dtype):
+        return torch.randint(0, 2 ** 32, tuple(shape), generator=gen,
+                             dtype=torch.int64).to(dtype)

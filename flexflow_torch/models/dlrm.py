@@ -11,8 +11,8 @@ vocabulary (``run_random.sh``: 8 x 1M x 64) the tables are stacked into
 one ``MultiEmbedding``; otherwise each is an ``Embedding`` of its own.
 
 ``dlrm_strategy`` (the reference's table-parallel placement) is not
-ported: it needs ``StrategyStore`` (ROADMAP.md queue 1, item 2) and only
-does anything on more than one device.
+ported: it does something only on more than one device, and waits for
+the multi-device strategies (ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations

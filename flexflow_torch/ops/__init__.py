@@ -12,11 +12,19 @@ from flexflow_torch.ops.embedding import (
 )
 from flexflow_torch.ops.linear import Linear
 from flexflow_torch.ops.losses import MSELoss, SoftmaxCrossEntropy
-from flexflow_torch.ops.tensor_ops import Add, Concat, DotInteraction, Reshape
+from flexflow_torch.ops.rnn import LSTM
+from flexflow_torch.ops.tensor_ops import (
+    Add,
+    Concat,
+    DotInteraction,
+    Dropout,
+    Reshape,
+)
 
 __all__ = [
-    "Add", "Concat", "Conv2D", "DotInteraction", "Embedding", "Flat",
-    "HeteroEmbedding", "LayerNorm", "Linear", "MSELoss", "MultiEmbedding",
+    "Add", "Concat", "Conv2D", "DotInteraction", "Dropout", "Embedding",
+    "Flat", "HeteroEmbedding", "LSTM", "LayerNorm", "Linear", "MSELoss",
+    "MultiEmbedding",
     "MultiHeadAttention", "Op", "ParamSpec", "Pool2D", "PositionEmbedding",
     "Reshape", "SoftmaxCrossEntropy",
     "TensorSpec", "WordEmbedding", "apply_activation", "check_activation",

@@ -8,9 +8,10 @@ Dense attention (training, and the serving prefill) goes through
 forward and K1b backward for every head dim they take, the streamed K1s
 and K1sb under ``FF_FLASH_STREAMED=1``, the plain blocked form at
 ``t >= 4096`` for other head dims, and the einsum when it returns None.
-Cached decode runs the flash-decode
-kernel (``kernels.flash_decode``) on the padded cache unless
-``decode_kernel`` is False, which selects the plain ``_einsum_decode``.
+Cached decode on the padded cache takes JAX's route: the flash-decode
+kernel (``kernels.flash_decode``) where its gate
+(``kernels.flash_decode_supported``) holds, the plain ``_einsum_decode``
+where it does not or when ``decode_kernel`` is False.
 The paged decode (a block pool and a per-slot block table) and the
 offset prefill of a shared prefix run plain torch, as the JAX package
 runs jnp there: neither reaches a Pallas kernel.  On CPU tensors both
@@ -305,8 +306,15 @@ class MultiHeadAttention(Op):
         return self._merge_heads(out, dtype)
 
     def _decode_attend(self, q1, ck, cv, pos):
-        """``q1``: (B, h, hd).  The flash-decode kernel, or the plain
-        ``_einsum_decode`` when ``decode_kernel`` is False."""
-        if self.decode_kernel is False:
+        """``q1``: (B, h, hd).  JAX's route: ``decode_kernel`` None takes
+        the flash-decode kernel where its gate
+        (``kernels.flash_decode_supported``) holds and the plain
+        ``_einsum_decode`` where it does not; True always launches the
+        kernel (and raises outside the gate on the card); False is the
+        einsum."""
+        use = self.decode_kernel
+        if use is None:
+            use = kernels.flash_decode_supported(ck.shape, q1.dtype)
+        if not use:
             return _einsum_decode(q1, ck, cv, pos)
         return kernels.flash_decode(q1, ck, cv, (pos + 1).to(torch.int32))

@@ -70,6 +70,12 @@ class Op:
     def param_specs(self) -> Dict[str, ParamSpec]:
         return {}
 
+    def state_specs(self) -> Dict[str, ParamSpec]:
+        """Mutable state that is not trained (Dropout's RNG key).  A
+        training forward returns the new values and the executor writes
+        them into the state's tensors in place."""
+        return {}
+
     # -- sparse-gradient protocol -----------------------------------------
     #
     # Embedding-style ops (output == gathered rows, up to a linear

@@ -10,7 +10,9 @@ sources and flags, so an edited source rebuilds.
 Every wrapper follows one rule: a tensor on the CPU goes to the plain
 PyTorch version beside the kernel (the CPU tests run it); a tensor on
 CUDA launches the kernel or raises for what the kernel does not take.
-There is no fallback from the kernel to the plain version.  Each
+There is no fallback from the kernel to the plain version.  (The
+serving dry run traces on ``meta`` tensors under :func:`shapes_only`,
+where K1f and K6 check their gates and return empty outputs.)  Each
 wrapper counts its launches in a plain integer attribute
 (``flash_attention_lse.launches``), so a run can show that its main
 path went through the kernel.
@@ -29,6 +31,7 @@ not torch's autograd through the plain forward.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import math
@@ -201,12 +204,35 @@ def _dense(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _check_cuda(what: str, *tensors: torch.Tensor, head_dim: bool = True) -> int:
+#: Set by :func:`shapes_only`: the serving kernels' wrappers then take
+#: ``meta`` tensors too.
+_SHAPES_ONLY = False
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """The dry run's mode (``ServingExecutor.abstract_programs``): inside
+    it K1f's and K6's wrappers take ``meta`` tensors, the card's stand-in,
+    check them against the kernel's gate as they would CUDA ones, and
+    return empty ``meta`` outputs with no launch.  Outside it a ``meta``
+    tensor raises like any tensor that is not on CUDA."""
+    global _SHAPES_ONLY
+    before, _SHAPES_ONLY = _SHAPES_ONLY, True
+    try:
+        yield
+    finally:
+        _SHAPES_ONLY = before
+
+
+def _check_cuda(what: str, *tensors: torch.Tensor, head_dim: bool = True,
+                meta: bool = False) -> int:
     """The kernel's dtype code for CUDA operands of one device and
     dtype; raises for anything else (and, with ``head_dim``, for a last
-    dim the attention kernels do not take)."""
+    dim the attention kernels do not take).  ``meta``: the wrapper also
+    takes ``meta`` tensors under :func:`shapes_only`."""
     dev = tensors[0].device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not (meta and _SHAPES_ONLY
+                                   and dev.type == "meta"):
         raise ValueError(f"{what}: tensors on {dev} (the kernel needs CUDA; "
                          f"CPU tensors take the plain version)")
     dt = tensors[0].dtype
@@ -279,12 +305,15 @@ def _launch_fwd(what, streamed, q, k, v, causal):
     """Checks the forward's dense CUDA operands and launches K1f's kernel
     or (``streamed``) K1s's, through :func:`fwd_entry`.  Returns ``(o,
     lse)``."""
-    code = _check_cuda(what, q, k, v, head_dim=not streamed)
+    code = _check_cuda(what, q, k, v, head_dim=not streamed,
+                       meta=not streamed)
     if streamed:
         _stream_check(what, q)
     b, h, t, hd = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        return o, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib, entry = fwd_entry(streamed, q.dtype)
     err = getattr(_load(lib), entry)(
@@ -302,7 +331,8 @@ def _flash_fwd(q, k, v, causal: bool):
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, causal)
     o, lse = _launch_fwd("flash_attention_lse", False, q, k, v, causal)
-    flash_attention_lse.launches += 1
+    if q.device.type != "meta":
+        flash_attention_lse.launches += 1
     return o, lse
 
 
@@ -695,6 +725,22 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
+def flash_decode_supported(cache_shape, dtype=torch.float32) -> bool:
+    """K6's gate, the counterpart of ``pallas_kernels.
+    flash_decode_supported``: a 4-d ``(B, S, h, hd)`` cache in f32 or
+    bf16 whose head dim is a multiple of 8 in [8, 128] (the kernel's
+    16-byte vectors and its head-dim instantiations).  Callers route
+    around it as JAX routes around its own: ``MultiHeadAttention.
+    _decode_attend`` takes the einsum where it does not hold.  JAX's
+    gate differs by design: it takes any ``hd >= 8`` (hd 12 or 256 run
+    its kernel and the port's einsum) and asks for ``S >= 8``, which
+    the port's kernel does not need."""
+    if len(cache_shape) != 4:
+        return False
+    hd = cache_shape[-1]
+    return dtype in _KERNEL_DTYPES and hd % 8 == 0 and 8 <= hd <= 128
+
+
 def flash_decode(q, cache_k, cache_v, lengths):
     """Single-token decode attention against a padded KV cache.
 
@@ -712,7 +758,7 @@ def flash_decode(q, cache_k, cache_v, lengths):
     """
     if q.device.type == "cpu":
         return flash_decode_plain(q, cache_k, cache_v, lengths)
-    code = _check_cuda("flash_decode", q, cache_k, cache_v)
+    code = _check_cuda("flash_decode", q, cache_k, cache_v, meta=True)
     B, S, h, hd = cache_k.shape
     if q.shape != (B, h, hd) or cache_v.shape != cache_k.shape:
         raise ValueError(f"flash_decode: q {tuple(q.shape)} and caches "
@@ -723,6 +769,8 @@ def flash_decode(q, cache_k, cache_v, lengths):
         raise ValueError(f"flash_decode: lengths must be ({B},) int32 on "
                          f"{q.device}, got {lengths.dtype} "
                          f"{tuple(lengths.shape)} on {lengths.device}")
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     q, cache_k, cache_v = _dense(q), _dense(cache_k), _dense(cache_v)
     lengths = lengths.contiguous()
     out = torch.empty_like(q)

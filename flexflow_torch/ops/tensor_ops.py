@@ -1,6 +1,6 @@
-"""Structural tensor operators: ``Concat``, ``Add``, ``Reshape`` and
-``DotInteraction`` of ``flexflow_tpu/ops/tensor_ops.py`` (the others come
-with later slices)."""
+"""Structural tensor operators: ``Concat``, ``Add``, ``Reshape``,
+``DotInteraction`` and ``Dropout`` of ``flexflow_tpu/ops/tensor_ops.py``
+(the others come with later slices)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,9 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from flexflow_torch.ops.base import Op, TensorSpec
+from flexflow_torch.initializers import RngKeyInitializer
+from flexflow_torch.ops.base import Op, ParamSpec, TensorSpec
+from flexflow_torch.runtime import keyed_random
 
 
 class Concat(Op):
@@ -105,3 +107,36 @@ class DotInteraction(Op):
         f = feats.shape[1]
         pairs = dots.reshape(dots.shape[0], f * f)[:, self._tril(f, dots.device)]
         return [torch.cat([dense, pairs.to(dense.dtype)], dim=1)], state
+
+
+class Dropout(Op):
+    """Inverted dropout with JAX's masks: the op keeps a threefry key as
+    state ``rng``; each training step splits it (``keyed_random.split``)
+    and keeps ``bernoulli(sub, 1 - rate, x.shape)``, the bits
+    ``jax.random`` draws from the same key, then ``y = where(keep, x / (1
+    - rate), 0)`` in x's dtype (the divisor a tensor of x's dtype, as JAX
+    divides by the weakly typed constant).  The new key comes back as
+    state, and the executor writes it into the state's tensor in place,
+    so a captured superstep advances it on the device.  Eval and rate 0
+    are the identity."""
+
+    def __init__(self, name: str, x: TensorSpec, rate: float):
+        super().__init__(name, [x])
+        if not 0.0 <= rate < 1.0:  # also rejects nan
+            raise ValueError(
+                f"dropout {name}: rate must be in [0, 1), got {rate}")
+        self.attrs = dict(rate=rate)
+        self._make_output(x.shape, x.dtype, x.dim_axes)
+
+    def state_specs(self) -> Dict[str, ParamSpec]:
+        return {"rng": ParamSpec((2,), torch.int64, RngKeyInitializer())}
+
+    def forward(self, params, xs, state, training):
+        (x,) = xs
+        rate = self.attrs["rate"]
+        if not training or rate == 0.0:
+            return [x], state
+        new_key, sub = keyed_random.split(state["rng"])
+        keep = keyed_random.bernoulli(sub, 1.0 - rate, x.shape)
+        scale = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
+        return [torch.where(keep, x / scale, 0)], {"rng": new_key}

@@ -16,7 +16,11 @@ The single-device path of ``flexflow_tpu/runtime/executor.py``:
 - ``eval_step`` and the eval ``forward_step`` (every non-loss output);
 - ``--remat``: each non-loss op runs under
   ``torch.utils.checkpoint`` in a training forward, its activations
-  dropped and recomputed in the backward;
+  dropped and recomputed in the backward (from a copy of the op's state
+  as the step found it, so Dropout recomputes the step's mask);
+- op state (Dropout's RNG key): made by ``init`` from each op's
+  ``state_specs``; a training forward writes an op's new state into
+  the state's tensors IN PLACE, so a captured superstep advances it;
 - gradient accumulation (``accum_train_step``): one optimizer update
   from the mean gradient of ``accum_steps`` stacked microbatches;
 - the superstep (``build_superstep``): k train steps (or accumulated
@@ -137,30 +141,37 @@ class Executor:
 
     # -- initialization ------------------------------------------------------
 
-    def init_params(self, seed: Optional[int] = None) -> Tree:
-        """Fresh params ``{op_name: {param: tensor}}`` on the device,
-        drawn from a ``torch.Generator`` seeded with ``seed`` (default
-        ``config.seed``), op by op and key by key in sorted order: the JAX
-        package's order, not its values."""
+    def init_params_and_state(self, seed: Optional[int] = None):
+        """Fresh ``(params, state)``, each ``{op_name: {key: tensor}}`` on
+        the device, drawn from a ``torch.Generator`` seeded with ``seed``
+        (default ``config.seed``): op by op, its params and then its
+        state, key by key in sorted order: the JAX package's order, not
+        its values."""
         seed = self.config.seed if seed is None else seed
         gen = torch.Generator().manual_seed(int(seed))
         params: Tree = {}
+        state: Tree = {}
         for op in self.model.layers:
-            specs = op.param_specs()
-            if specs:
-                params[op.name] = {
-                    k: specs[k].initializer(gen, specs[k].shape,
-                                            specs[k].dtype).to(self.device)
-                    for k in sorted(specs)
-                }
-        return params
+            for tree, specs in ((params, op.param_specs()),
+                                (state, op.state_specs())):
+                if specs:
+                    tree[op.name] = {
+                        k: specs[k].initializer(gen, specs[k].shape,
+                                                specs[k].dtype).to(self.device)
+                        for k in sorted(specs)
+                    }
+        return params, state
+
+    def init_params(self, seed: Optional[int] = None) -> Tree:
+        """The params of :meth:`init_params_and_state`."""
+        return self.init_params_and_state(seed)[0]
 
     def init(self, seed: Optional[int] = None):
-        """Fresh ``(params, opt_state, state)`` for training.  No op of
-        the port keeps state yet, so ``state`` is ``{}``."""
+        """Fresh ``(params, opt_state, state)`` for training; ``state``
+        holds the op state (``{}`` when no op keeps any)."""
         opt = self._require_optimizer("init")
-        params = self.init_params(seed)
-        return params, opt.init(params), {}
+        params, state = self.init_params_and_state(seed)
+        return params, opt.init(params), state
 
     def shard_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """A host batch as tensors on the device, each in its input's
@@ -211,12 +222,18 @@ class Executor:
                     not op.is_loss or op.allow_remat):
                 # Per-layer rematerialization (jax.checkpoint in the JAX
                 # package): the op's activations are dropped after the
-                # forward and recomputed in the backward.  No op draws
-                # random numbers yet, so no RNG state is kept (reading
-                # it would also break a CUDA graph capture).
+                # forward and recomputed in the backward.  The recompute
+                # reads a copy of the op's state as this step found it
+                # (the state itself advances in place below), so a
+                # Dropout draws the step's mask again; torch's RNG state
+                # is not kept (no op uses it, and reading it would break
+                # a CUDA graph capture).
+                s_step = {k: v.clone() for k, v in s.items()}
                 result, s_new = torch.utils.checkpoint.checkpoint(
-                    op.forward, params.get(op.name, {}), xs, s, training,
-                    use_reentrant=False, preserve_rng_state=False)
+                    op.forward, params.get(op.name, {}), xs, s_step,
+                    training, use_reentrant=False, preserve_rng_state=False)
+                if s_new is s_step:
+                    s_new = s
             else:
                 result, s_new = op.forward(params.get(op.name, {}), xs, s,
                                            training)
@@ -228,10 +245,16 @@ class Executor:
                 ys = result
             for t, y in zip(op.outputs, ys):
                 env[t.name] = y
-            if s_new is not s and s_new:
-                new_state[op.name] = s_new
-            elif s:
+            if s and s_new is not s:
+                # The op's new state goes into its state's tensors in
+                # place: a captured step must hand back the tensors it
+                # was given.
+                with torch.no_grad():
+                    for k, v in s_new.items():
+                        s[k].copy_(v)
                 new_state[op.name] = s
+            elif s_new:
+                new_state[op.name] = s_new
         if total_loss is None:
             total_loss = torch.zeros((), dtype=torch.float32,
                                      device=self.device)

@@ -20,6 +20,9 @@ host, so a CUDA graph captures the draw with the step that makes it.
   one row of ``n`` per key of ``k``.
 - ``uniform``, ``gumbel``, ``categorical``: JAX's float32 transforms of
   those bits (``gumbel`` in its default "low" mode).
+- ``split(k, num)``: ``threefry(k, (0, i))`` for ``i < num``, the new
+  keys; ``bernoulli(k, p, shape)``: ``uniform < p`` over ``shape`` in
+  row-major order (Dropout's masks, ``ops/tensor_ops.py``).
 """
 
 from __future__ import annotations
@@ -83,6 +86,16 @@ def bits(k: torch.Tensor, n: int) -> torch.Tensor:
     return y0 ^ y1
 
 
+def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(k, num)`` per key of ``k`` (``(..., 2)``):
+    ``k.shape[:-1] + (num, 2)``, key ``i`` being both words of
+    ``threefry(k, (0, i))``."""
+    i = torch.arange(num, dtype=torch.int64, device=k.device)
+    y0, y1 = threefry2x32(k[..., 0, None], k[..., 1, None],
+                          torch.zeros_like(i), i)
+    return torch.stack([y0, y1], dim=-1)
+
+
 def uniform(k: torch.Tensor, n: int, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(k, (n,), float32, minval, maxval)`` per key:
@@ -94,6 +107,17 @@ def uniform(k: torch.Tensor, n: int, minval: float = 0.0,
     lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(minval))
     return torch.clamp_min((f - 1.0) * span + lo, lo)
+
+
+def bernoulli(k: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, shape)`` for one key ``(2,)`` and a
+    float ``p``: a bool tensor, ``uniform(k, shape, float32) < p`` with
+    the element of flat index ``i`` drawn from counter ``i``."""
+    shape = tuple(int(d) for d in shape)
+    n = 1
+    for d in shape:
+        n *= d
+    return (uniform(k, n) < float(np.float32(p))).reshape(shape)
 
 
 def gumbel(k: torch.Tensor, n: int) -> torch.Tensor:

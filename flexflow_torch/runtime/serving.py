@@ -32,10 +32,19 @@ The single-device core of ``flexflow_tpu/runtime/serving.py``:
   short), one decode superstep or speculative round over the batch,
   per-slot consumption with the EOS, budget and context limits,
   eviction, and the stats block.
+- **Failure model of the plain loop**: :class:`ServingFaultInjector`
+  (a NaN'd cache row or block, a raised slot fault, an engine fault,
+  SIGTERM, keyed by superstep), the request journal
+  (``flexflow_torch/serving/journal.py``: completed requests restored,
+  in-flight ones resumed by a re-prefill over ``prompt ‖ carried``),
+  and the drain on SIGTERM (``runtime/resilience.py::
+  PreemptionHandler``) at a superstep boundary.
+- **Dry run** (:meth:`ServingExecutor.abstract_programs`): every
+  program traced on ``meta`` tensors, no device compute.
 
-Left for later slices (ROADMAP.md queue 1): sharded decode, the
-scheduler and fleet, the journal, fault injection, drain, telemetry and
-checkpoint restore.
+Left for later slices (ROADMAP.md queue 1): checkpoint restore and
+telemetry (item 7), the scheduler, its failure model and the fleet
+(item 8), sharded decode (item 9).
 """
 
 from __future__ import annotations
@@ -44,7 +53,9 @@ import collections
 import dataclasses
 import hashlib
 import logging
+import os
 import re
+import signal
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -54,10 +65,12 @@ import torch
 from flexflow_torch.config import FFConfig
 from flexflow_torch.data.loader import DeviceMemoryError, _device_bytes_limit
 from flexflow_torch.graph import FFModel
+from flexflow_torch.ops import kernels
 from flexflow_torch.ops.attention import MultiHeadAttention, PositionEmbedding
 from flexflow_torch.runtime import keyed_random
 from flexflow_torch.runtime.executor import Executor, resolve_device
 from flexflow_torch.runtime.graphs import StepGraph
+from flexflow_torch.runtime.resilience import PreemptionHandler
 from flexflow_torch.runtime.trainer import relay_safe_steps
 
 _log = logging.getLogger("ff.serving")
@@ -66,13 +79,119 @@ _log = logging.getLogger("ff.serving")
 Sample = Optional[Tuple[float, int, int]]
 
 
+class ServingFault(RuntimeError):
+    """A raised fault attributed to one decode slot: the loop errors out
+    that slot's request and keeps serving the rest."""
+
+    def __init__(self, slot: int, msg: str = ""):
+        super().__init__(msg or f"injected serving fault in slot {slot}")
+        self.slot = slot
+
+
+class ServingEngineFault(RuntimeError):
+    """A fault of the engine, not of one slot (a program raised, the
+    cache pool is suspect).  The plain loop lets it propagate: that is
+    the crash the request journal recovers from."""
+
+
+class ServingCrashLoop(RuntimeError):
+    """The engine-restart budget is exhausted (the scheduler's failure
+    model, ROADMAP.md queue 1 item 8, raises it); an app maps it to
+    :data:`EXIT_SERVING_FAILURE`."""
+
+
+#: Process exit code of an unrecoverable serving engine: restarting the
+#: same process is pointless (beside the elastic world's 76).
+EXIT_SERVING_FAILURE = 77
+
+
+class ServingFaultInjector:
+    """Scheduled faults for the serving loop, keyed by decode-superstep
+    index (the JAX package's ``ServingFaultInjector``; its telemetry
+    events come with item 7).
+
+    - ``nan_cache_at``: ``{superstep: slot}``: before that superstep the
+      slot's layer-0 K cache row (padded) or its first owned pool block
+      (paged; never scratch block 0) becomes NaN, so its logits go
+      non-finite and the finiteness flag at the readback errors the
+      request out.  Written in place into the cache tensors a decode
+      graph captured, between two replays.
+    - ``raise_at``: ``{superstep: slot}``: a :class:`ServingFault`
+      before the dispatch; the superstep does not run.
+    - ``engine_raise_at``: ``{superstep: message}``: a
+      :class:`ServingEngineFault` before the dispatch.
+    - ``preempt_at``: ``{superstep}``: SIGTERM to this process before
+      the dispatch; a drain-armed Server drains at the next boundary.
+
+    Each fires once.  ``fired`` logs ``(mode, superstep, slot or -1)``.
+    """
+
+    def __init__(self, nan_cache_at: Optional[Dict[int, int]] = None,
+                 raise_at: Optional[Dict[int, int]] = None,
+                 engine_raise_at: Optional[Dict[int, str]] = None,
+                 preempt_at: Optional[Sequence[int]] = None):
+        self.nan_cache_at = dict(nan_cache_at or {})
+        self.raise_at = dict(raise_at or {})
+        self.engine_raise_at = dict(engine_raise_at or {})
+        self.preempt_at = set(preempt_at or ())
+        self.fired: List[Tuple[str, int, int]] = []
+
+    def before_superstep(self, idx: int, caches, block_table=None):
+        """Returns ``(caches, nan_slot)``, the caches (NaN'd in place)
+        and the slot whose cache was NaN'd (None otherwise); may raise
+        :class:`ServingFault` or :class:`ServingEngineFault` or SIGTERM
+        the process.  ``caches=None`` (a compute-free caller) returns the
+        target slot alone.  ``block_table`` (host ``(B, nblk)`` int32)
+        selects the paged layout: the slot's first owned block is NaN'd,
+        and a slot that owns none is left alone."""
+        if idx in self.preempt_at:
+            self.preempt_at.discard(idx)
+            self.fired.append(("preempt", idx, -1))
+            os.kill(os.getpid(), signal.SIGTERM)
+        if idx in self.engine_raise_at:
+            msg = self.engine_raise_at.pop(idx)
+            self.fired.append(("engine", idx, -1))
+            raise ServingEngineFault(
+                msg or f"injected engine fault at superstep {idx}")
+        if idx in self.raise_at:
+            slot = self.raise_at.pop(idx)
+            self.fired.append(("raise", idx, slot))
+            raise ServingFault(slot)
+        if idx in self.nan_cache_at:
+            slot = self.nan_cache_at.pop(idx)
+            self.fired.append(("nan_cache", idx, slot))
+            if caches is None:
+                return None, slot
+            k = caches[next(iter(caches))]["k"]
+            dest = slot
+            if block_table is not None:
+                dest = int(block_table[slot][0])
+                if dest == 0:  # the slot owns no block: nothing to NaN
+                    return caches, None
+            with torch.inference_mode():
+                k[dest].fill_(float("nan"))
+            return caches, slot
+        return caches, None
+
+
 @dataclasses.dataclass
 class Request:
-    """One generation request (closed loop: eligible at run start)."""
+    """One generation request.  ``arrival_ms`` / ``priority`` /
+    ``slo_ms`` are the open-loop scheduler's fields (item 8): arrival on
+    its virtual clock, the priority tier (0 highest) and the end-to-end
+    deadline in virtual ms (inf: best effort).  The closed loop admits
+    every request at run start."""
 
     id: int
     prompt: np.ndarray  # 1-D int32 token ids
     max_new_tokens: int = 16
+    arrival_ms: float = 0.0
+    priority: int = 0
+    slo_ms: float = float("inf")
+
+    @property
+    def deadline_ms(self) -> float:
+        return self.arrival_ms + self.slo_ms
 
 
 def prefix_digests(tokens, block: int) -> List[bytes]:
@@ -298,9 +417,16 @@ class _Slot:
     request: Request
     pos: int                 # position of the NEXT token to decode
     last_tok: int            # token fed to the next decode step
-    tokens: List[int]        # tokens generated so far
+    tokens: List[int]        # tokens generated in this occupancy
     t_eligible: float
     prefill_s: float
+    #: Tokens carried from an earlier (crashed or drained) run through
+    #: the journal: the re-prefill over ``prompt ‖ carried`` resume.
+    carried: List[int] = dataclasses.field(default_factory=list)
+
+    @property
+    def all_tokens(self) -> List[int]:
+        return self.carried + self.tokens
 
 
 def _readback(*tensors: torch.Tensor) -> List[np.ndarray]:
@@ -985,6 +1111,83 @@ class ServingExecutor:
         return spec
 
 
+    # -- compute-free mode ---------------------------------------------------
+
+    def abstract_programs(self, decode_steps: int = 8, speculate: int = 0):
+        """The serving dry run: every program traced on ``meta`` tensors
+        (shapes and dtypes only, under ``kernels.shapes_only``; no device
+        compute, no kernel launch, the kernels' gates still checked), the
+        counterpart of JAX's
+        ``jax.eval_shape`` over the same programs.  Returns the program
+        table ``{"cache": {op: (kv shape) tensor}, "prefill": {bucket:
+        first-token tensor}, "decode": (K, B) tokens}``, with
+        ``"prefill_from"`` (the offset prefill at offset ``kv_block`` per
+        bucket above it) under the prefix cache and ``"spec"`` (the (d+1,
+        B) verified tokens) with ``speculate=d``; every tensor is on
+        ``meta``.  The decode runs eagerly (a graph needs a card)."""
+        meta = torch.device("meta")
+        B, S = self.max_batch, self.max_seq
+        params = {}
+        for op in self.model.layers:
+            specs = op.param_specs()
+            if specs:
+                params[op.name] = {k: torch.empty(sp.shape, dtype=sp.dtype,
+                                                  device=meta)
+                                   for k, sp in specs.items()}
+
+        def ints(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=meta)
+
+        def prompt(bucket):  # host tokens, as the loop passes them
+            return np.zeros((1, bucket), np.int32)
+
+        def cache_of(specs, lead):
+            return {name: {kv: torch.empty(lead + (h, hd), dtype=dt,
+                                           device=meta) for kv in ("k", "v")}
+                    for name, (h, hd, dt) in specs.items()}
+
+        lead = (self.kv_blocks, self.kv_block) if self.paged else (B, S)
+        device, self.device = self.device, meta
+        try:
+            with kernels.shapes_only():
+                caches = cache_of(self._cache_specs, lead)
+                out: Dict[str, Any] = {
+                    "cache": {n: c["k"] for n, c in caches.items()},
+                    "prefill": {}}
+                for bucket in self.buckets:
+                    _rows, tok, _ok = self.build_prefill(bucket)(
+                        params, {}, prompt(bucket), bucket)
+                    out["prefill"][bucket] = tok
+                bt = (ints(B, self.blocks_per_slot),) if self.paged else ()
+                dec = self.build_decode_superstep(decode_steps, graph=False)
+                _c, _p, _t, (toks, _ok) = dec(params, {}, caches, *bt,
+                                              ints(B), ints(B))
+                out["decode"] = toks
+                if self.paged and self.prefix_cache:
+                    out["prefill_from"] = {}
+                    o = self.kv_block
+                    for bucket in self.buckets:
+                        if bucket <= o:
+                            continue
+                        _rows, tok, _ok = self.build_prefill_from(bucket, o)(
+                            params, {}, caches, np.zeros((1,), np.int32),
+                            prompt(bucket), bucket)
+                        out["prefill_from"][bucket] = tok
+                if speculate:
+                    dcaches = cache_of(self._draft_cache_specs, (B, S))
+                    for bucket in self.buckets:
+                        self.build_draft_prefill(bucket)(params, {},
+                                                         prompt(bucket))
+                    spec = self.build_spec_step(speculate, graph=False)
+                    *_c, (ys, _ok, _acc) = spec(params, params, {}, caches,
+                                                dcaches, *bt, ints(B),
+                                                ints(B))
+                    out["spec"] = ys
+        finally:
+            self.device = device
+        return out
+
+
 class Server:
     """Closed-loop FIFO serving over a :class:`ServingExecutor`.
 
@@ -1002,13 +1205,28 @@ class Server:
     table / request-id tensors and its decode program across runs (each
     run zeroes the caches), so on CUDA the graph captured in the first
     run replays in the next.  ``graph`` as in
-    :meth:`ServingExecutor.build_decode_superstep`."""
+    :meth:`ServingExecutor.build_decode_superstep`.
+
+    The failure model of the plain loop, as JAX's:
+    ``fault_injector`` (:class:`ServingFaultInjector`) fires before the
+    supersteps it names; a :class:`ServingFault` errors out its slot's
+    request only, a :class:`ServingEngineFault` propagates.
+    ``journal`` (``serving/journal.py::RequestJournal``) records each
+    admission, each superstep's tokens and each completion; a run on a
+    journal with records restores the completed requests without
+    re-running them and resumes the in-flight ones by a re-prefill over
+    ``prompt ‖ carried``.  A journal arms ``drain_on_preempt``: on
+    SIGTERM or SIGINT the run stops at the next superstep boundary with
+    its in-flight work journaled (``stats["drained"]``), and a run on
+    the same journal serves the rest."""
 
     def __init__(self, executor: ServingExecutor, params, op_state,
                  decode_steps: int = 8, eos_id: Optional[int] = None,
                  temperature: float = 0.0, top_k: int = 0,
                  sample_seed: int = 0, speculate: int = 0,
-                 draft_params=None, graph: Optional[bool] = None):
+                 draft_params=None, graph: Optional[bool] = None,
+                 fault_injector: Optional[ServingFaultInjector] = None,
+                 journal=None, drain_on_preempt: bool = False):
         self.ex = executor
         self.params = params
         self.op_state = op_state
@@ -1025,6 +1243,9 @@ class Server:
             if temperature > 0.0 else None
         )
         self.graph = graph
+        self.injector = fault_injector
+        self.journal = journal
+        self.drain_on_preempt = bool(drain_on_preempt) or journal is not None
         #: ``(program, caches, dcaches, carry)`` of this Server: the decode
         #: superstep or speculative round, the KV caches (paged: the
         #: pool), the draft's caches (None unless speculating) and the
@@ -1072,198 +1293,306 @@ class Server:
         slots: List[Optional[_Slot]] = [None] * B
         queue = collections.deque(requests)
         results: Dict[int, RequestResult] = {}
+        superstep_idx = 0
         total_tokens = decode_tokens = supersteps = prefills = 0
         prefix_hits = full_hits = prefill_tokens_saved = kv_cows = 0
         draft_prefills = spec_accept_total = spec_draft_total = 0
         decode_s = 0.0
         t_run0 = time.perf_counter()
+        # -- journal replay: completed requests are restored, in-flight
+        # ones resume with their validated tokens carried --
+        jr = self.journal
+        carried_map: Dict[int, List[int]] = {}
+        if jr is not None:
+            st = jr.replay()
+            for rid, rec in st.completed.items():
+                results[rid] = RequestResult(
+                    id=rid, prompt_len=int(rec.get("plen") or 0),
+                    tokens=list(rec.get("tokens", [])),
+                    error=rec.get("error"),
+                    latency_s=float(rec.get("latency_s") or 0.0))
+            carried_map = {int(rid): list(t)
+                           for rid, t in st.in_flight.items()}
+            queue = collections.deque(r for r in queue
+                                      if r.id not in results)
+            if not st.empty:
+                _log.info("journal replay (%s): %d completed restored, %d "
+                          "in flight resume with carried tokens%s", jr.path,
+                          len(st.completed), len(carried_map),
+                          " [torn tail tolerated]" if st.torn_tail else "")
+        drained = False
+        preempt = PreemptionHandler(install=self.drain_on_preempt)
 
         def finish(slot_i: int, error: Optional[str] = None):
             sl = slots[slot_i]
+            toks = sl.all_tokens
+            lat = time.perf_counter() - sl.t_eligible
             results[sl.request.id] = RequestResult(
                 id=sl.request.id, prompt_len=len(sl.request.prompt),
-                tokens=list(sl.tokens), error=error,
-                latency_s=time.perf_counter() - sl.t_eligible,
+                tokens=list(toks), error=error, latency_s=lat,
                 prefill_s=sl.prefill_s,
             )
+            if jr is not None:
+                jr.done(sl.request.id, len(sl.request.prompt), len(toks),
+                        error, latency_s=round(lat, 6))
             if ledger is not None:
                 ledger.free(slot_i)
                 block_table[slot_i] = 0
             slots[slot_i] = None
 
         def slot_done(sl: _Slot) -> bool:
-            if self.eos_id is not None and sl.tokens and \
-                    sl.tokens[-1] == self.eos_id:
+            toks = sl.all_tokens
+            if self.eos_id is not None and toks and toks[-1] == self.eos_id:
                 return True
-            if len(sl.tokens) >= sl.request.max_new_tokens:
+            if len(toks) >= sl.request.max_new_tokens:
                 return True
             return sl.pos >= ex.max_seq  # context limit
 
         def reject(r: Request, err: str):
+            lat = time.perf_counter() - t_run0
             results[r.id] = RequestResult(
                 id=r.id, prompt_len=len(r.prompt), tokens=[], error=err,
-                latency_s=time.perf_counter() - t_run0)
+                latency_s=lat)
+            if jr is not None:
+                jr.done(r.id, len(r.prompt), 0, err, latency_s=round(lat, 6))
 
-        while queue or any(slots):
-            # -- admissions (between decode supersteps) --
-            while queue and None in slots:
-                r = queue[0]
-                plen = len(r.prompt)
-                try:
-                    bucket = ex.bucket_for(plen)
-                except ValueError as e:
-                    queue.popleft()
-                    reject(r, str(e))
-                    continue
-                plan = None
-                if ledger is not None:
-                    need = ledger.blocks_for(plen, r.max_new_tokens)
-                    if need > ledger.capacity_blocks:
+        def resume_complete(r: Request, prior: List[int]) -> bool:
+            """A journaled in-flight request that had already finished
+            (the crash fell between its token record and its done
+            record): its result is restored without a prefill."""
+            plen = len(r.prompt)
+            if len(prior) < r.max_new_tokens and \
+                    plen + len(prior) < ex.max_seq and \
+                    not (self.eos_id is not None and prior and
+                         prior[-1] == self.eos_id):
+                return False
+            lat = time.perf_counter() - t_run0
+            results[r.id] = RequestResult(
+                id=r.id, prompt_len=plen, tokens=list(prior), error=None,
+                latency_s=lat)
+            if jr is not None:
+                jr.done(r.id, plen, len(prior), None, latency_s=round(lat, 6))
+            return True
+
+        preempt.__enter__()
+        try:
+            while queue or any(slots):
+                if preempt.triggered and self.drain_on_preempt:
+                    # -- the drain: no more admissions; the in-flight
+                    # work is journaled at the last fence, and a run on
+                    # the journal serves the rest --
+                    drained = True
+                    n_flight = sum(1 for sl in slots if sl is not None)
+                    _log.warning("drain: signal %s; %d in flight journaled, "
+                                 "%d queued; resume from the journal to "
+                                 "serve the rest", preempt.signum, n_flight,
+                                 len(queue))
+                    if jr is not None:
+                        jr.drain(n_flight, len(queue))
+                    break
+                # -- admissions (between decode supersteps) --
+                while queue and None in slots:
+                    r = queue[0]
+                    plen = len(r.prompt)
+                    prior = carried_map.get(r.id, [])
+                    flen = plen + len(prior)
+                    if prior and resume_complete(r, prior):
                         queue.popleft()
-                        reject(r, f"request needs {need} KV blocks but the "
-                                  f"paged pool holds "
-                                  f"{ledger.capacity_blocks}")
+                        carried_map.pop(r.id, None)
                         continue
-                    # Shared blocks stay off the free list: admission
-                    # needs only the tail's.
-                    plan = ledger.plan_prefix(r.prompt)
-                    if not ledger.can_admit(need - plan.use):
-                        # Head-of-line wait until a slot frees blocks
-                        # (FIFO; the whole pool covers any admissible
-                        # request, so this cannot livelock).
-                        break
-                queue.popleft()
-                slot_i = slots.index(None)
-                padded = np.zeros((1, bucket), np.int32)
-                padded[0, :plen] = np.asarray(r.prompt, np.int32)
-                digests = (prefix_digests(r.prompt, ledger.block)
-                           if ledger is not None and ledger.prefix_cache
-                           else [])
-                sargs = ((np.int32(plen), np.int32(r.id))
-                         if self.sample is not None else ())
-                t0 = time.perf_counter()
-                if plan is not None and plan.full_hit:
-                    # No prefill at all: every block resident and the
-                    # first token memoized.
-                    tok0, ok, rows, pf_s = plan.tok0, True, None, 0.0
-                    prefix_hits += 1
-                    full_hits += 1
-                    prefill_tokens_saved += plan.offset
-                elif plan is not None and plan.use > 0:
-                    # Partial hit: gather the shared span, compute the tail.
-                    pf = ex.build_prefill_from(bucket, plan.offset,
-                                               sample=self.sample)
-                    rows, tok0, okf = pf(
-                        self.params, self.op_state, caches,
-                        np.asarray(plan.shared, np.int32), padded,
-                        np.int32(plen), *sargs)
-                    tok0, ok = (int(x) for x in _readback(tok0, okf))
-                    pf_s = time.perf_counter() - t0
-                    prefills += 1
-                    prefix_hits += 1
-                    prefill_tokens_saved += plan.offset
-                    kv_cows += plan.cow
-                else:
-                    pf = ex.build_prefill(bucket, sample=self.sample)
-                    rows, tok0, okf = pf(self.params, self.op_state, padded,
-                                         np.int32(plen), *sargs)
-                    tok0, ok = (int(x) for x in _readback(tok0, okf))
-                    pf_s = time.perf_counter() - t0
-                    prefills += 1
-                if not ok:
-                    slots[slot_i] = _Slot(r, plen, 0, [], t_run0, pf_s)
-                    finish(slot_i, error="non-finite logits in prefill")
-                    continue
-                if ledger is not None:
-                    row = ledger.alloc(slot_i, need, shared=plan.shared)
-                    block_table[slot_i] = row
-                    if rows is not None:
-                        # Masked install: the shared entries write their
-                        # zero chunks into scratch block 0, never into the
-                        # donor's blocks; the table keeps the shared ids.
-                        masked = row.copy()
-                        masked[: plan.use] = 0
-                        ex.install_paged(caches, rows, masked)
-                    if digests:
-                        # Index only after the readback validated the
-                        # install; memoize the first token of a fresh,
-                        # block-aligned prompt (a later full hit).
-                        ledger.register_prefix(slot_i, digests,
-                                               start=plan.use)
-                        if plen % ledger.block == 0 and not plan.full_hit:
-                            ledger.record_next(digests[-1], int(tok0))
-                else:
-                    ex.install(caches, rows, slot_i)
-                if spec_d:
-                    drows = ex.build_draft_prefill(bucket)(
-                        self.draft_params, self.op_state, padded)
-                    ex.install(dcaches, drows, slot_i)
-                    draft_prefills += 1
-                sl = _Slot(request=r, pos=plen, last_tok=int(tok0),
-                           tokens=[int(tok0)], t_eligible=t_run0,
-                           prefill_s=pf_s)
-                total_tokens += 1
-                slots[slot_i] = sl
-                if slot_done(sl):
-                    finish(slot_i)
-
-            active = [i for i, sl in enumerate(slots) if sl is not None]
-            if not active:
-                break
-
-            # -- one decode superstep (or speculative round) --
-            with torch.inference_mode():
-                dev["pos"].copy_(torch.from_numpy(np.array(
-                    [sl.pos if sl else 0 for sl in slots], np.int32)))
-                dev["tok"].copy_(torch.from_numpy(np.array(
-                    [sl.last_tok if sl else 0 for sl in slots], np.int32)))
-                args = ()
-                if block_table is not None:
-                    dev["bt"].copy_(torch.from_numpy(block_table))
-                    args += (dev["bt"],)
-                args += (dev["pos"], dev["tok"])
-                if self.sample is not None:
-                    dev["req"].copy_(torch.from_numpy(np.array(
-                        [sl.request.id if sl else 0 for sl in slots],
-                        np.int32)))
-                    args += (dev["req"],)
-            t_call = time.perf_counter()
-            if spec_d:
-                *_s, (toks, oks, acc) = step_fn(
-                    self.params, self.draft_params, self.op_state, caches,
-                    dcaches, *args)
-                host_toks, host_oks, host_acc = _readback(toks, oks, acc)
-            else:
-                *_s, (toks, oks) = step_fn(self.params, self.op_state, caches,
-                                           *args)
-                host_toks, host_oks = _readback(toks, oks)
-            decode_s += time.perf_counter() - t_call
-            supersteps += 1
-            for i in active:
-                sl = slots[i]
-                err = None
-                if spec_d:
-                    n_take = int(host_acc[i]) + 1
-                    spec_accept_total += int(host_acc[i])
-                else:
-                    n_take = k
-                for j in range(n_take):
-                    if not host_oks[j, i]:
-                        err = "non-finite logits in decode"
-                        break
-                    sl.tokens.append(int(host_toks[j, i]))
-                    sl.pos += 1
+                    try:
+                        bucket = ex.bucket_for(flen)
+                    except ValueError as e:
+                        queue.popleft()
+                        carried_map.pop(r.id, None)
+                        reject(r, str(e))
+                        continue
+                    plan = None
+                    if ledger is not None:
+                        need = ledger.blocks_for(plen, r.max_new_tokens)
+                        if need > ledger.capacity_blocks:
+                            queue.popleft()
+                            reject(r, f"request needs {need} KV blocks but "
+                                      f"the paged pool holds "
+                                      f"{ledger.capacity_blocks}")
+                            continue
+                        # Shared blocks stay off the free list: admission
+                        # needs only the tail's.
+                        plan = ledger.plan_prefix(r.prompt, total_len=flen)
+                        if not ledger.can_admit(need - plan.use):
+                            # Head-of-line wait until a slot frees blocks
+                            # (FIFO; the whole pool covers any admissible
+                            # request, so this cannot livelock).
+                            break
+                    queue.popleft()
+                    carried_map.pop(r.id, None)
+                    slot_i = slots.index(None)
+                    # The prefill runs over prompt ‖ carried: a resumed
+                    # request continues where its journal stopped.
+                    padded = np.zeros((1, bucket), np.int32)
+                    padded[0, :plen] = np.asarray(r.prompt, np.int32)
+                    if prior:
+                        padded[0, plen:flen] = np.asarray(prior, np.int32)
+                    digests = (prefix_digests(r.prompt, ledger.block)
+                               if ledger is not None and ledger.prefix_cache
+                               else [])
+                    sargs = ((np.int32(plen), np.int32(r.id))
+                             if self.sample is not None else ())
+                    t0 = time.perf_counter()
+                    if plan is not None and plan.full_hit:
+                        # No prefill at all: every block resident and the
+                        # first token memoized.
+                        tok0, ok, rows, pf_s = plan.tok0, True, None, 0.0
+                        prefix_hits += 1
+                        full_hits += 1
+                        prefill_tokens_saved += plan.offset
+                    elif plan is not None and plan.use > 0:
+                        # Partial hit: gather the shared span, compute the
+                        # tail.
+                        pf = ex.build_prefill_from(bucket, plan.offset,
+                                                   sample=self.sample)
+                        rows, tok0, okf = pf(
+                            self.params, self.op_state, caches,
+                            np.asarray(plan.shared, np.int32), padded,
+                            np.int32(flen), *sargs)
+                        tok0, ok = (int(x) for x in _readback(tok0, okf))
+                        pf_s = time.perf_counter() - t0
+                        prefills += 1
+                        prefix_hits += 1
+                        prefill_tokens_saved += plan.offset
+                        kv_cows += plan.cow
+                    else:
+                        # A sampled run prefills through the sampled
+                        # first token, so a resumed position replays the
+                        # decode's keyed draw (greedy when flen == plen).
+                        pf = ex.build_prefill(bucket, sample=self.sample)
+                        rows, tok0, okf = pf(self.params, self.op_state,
+                                             padded, np.int32(flen), *sargs)
+                        tok0, ok = (int(x) for x in _readback(tok0, okf))
+                        pf_s = time.perf_counter() - t0
+                        prefills += 1
+                    if jr is not None:
+                        jr.admit(r.id, plen, int(tok0) if ok else None,
+                                 resumed=len(prior))
+                    if not ok:
+                        slots[slot_i] = _Slot(r, flen, 0, [], t_run0, pf_s,
+                                              carried=list(prior))
+                        finish(slot_i, error="non-finite logits in prefill")
+                        continue
+                    if ledger is not None:
+                        row = ledger.alloc(slot_i, need, shared=plan.shared)
+                        block_table[slot_i] = row
+                        if rows is not None:
+                            # Masked install: the shared entries write
+                            # their zero chunks into scratch block 0, never
+                            # into the donor's blocks; the table keeps the
+                            # shared ids.
+                            masked = row.copy()
+                            masked[: plan.use] = 0
+                            ex.install_paged(caches, rows, masked)
+                        if digests:
+                            # Index only after the readback validated the
+                            # install; memoize the first token of a fresh,
+                            # block-aligned prompt (a later full hit).
+                            ledger.register_prefix(slot_i, digests,
+                                                   start=plan.use)
+                            if flen == plen and plen % ledger.block == 0 \
+                                    and not plan.full_hit:
+                                ledger.record_next(digests[-1], int(tok0))
+                    else:
+                        ex.install(caches, rows, slot_i)
+                    if spec_d:
+                        drows = ex.build_draft_prefill(bucket)(
+                            self.draft_params, self.op_state, padded)
+                        ex.install(dcaches, drows, slot_i)
+                        draft_prefills += 1
+                    sl = _Slot(request=r, pos=flen, last_tok=int(tok0),
+                               tokens=[int(tok0)], t_eligible=t_run0,
+                               prefill_s=pf_s, carried=list(prior))
                     total_tokens += 1
-                    decode_tokens += 1
+                    slots[slot_i] = sl
                     if slot_done(sl):
-                        break
-                sl.last_tok = sl.tokens[-1] if sl.tokens else 0
-                if err is not None:
-                    finish(i, error=err)
-                elif slot_done(sl):
-                    finish(i)
-            if spec_d:
-                spec_draft_total += spec_d * len(active)
+                        finish(slot_i)
+
+                active = [i for i, sl in enumerate(slots) if sl is not None]
+                if not active:
+                    break
+
+                # -- faults, then one decode superstep (or round) --
+                if self.injector is not None:
+                    try:
+                        caches, _nan = self.injector.before_superstep(
+                            superstep_idx, caches, block_table)
+                    except ServingFault as f:
+                        superstep_idx += 1
+                        if slots[f.slot] is not None:
+                            finish(f.slot, error=f"raised fault: {f}")
+                        continue
+                with torch.inference_mode():
+                    dev["pos"].copy_(torch.from_numpy(np.array(
+                        [sl.pos if sl else 0 for sl in slots], np.int32)))
+                    dev["tok"].copy_(torch.from_numpy(np.array(
+                        [sl.last_tok if sl else 0 for sl in slots],
+                        np.int32)))
+                    args = ()
+                    if block_table is not None:
+                        dev["bt"].copy_(torch.from_numpy(block_table))
+                        args += (dev["bt"],)
+                    args += (dev["pos"], dev["tok"])
+                    if self.sample is not None:
+                        dev["req"].copy_(torch.from_numpy(np.array(
+                            [sl.request.id if sl else 0 for sl in slots],
+                            np.int32)))
+                        args += (dev["req"],)
+                t_call = time.perf_counter()
+                if spec_d:
+                    *_s, (toks, oks, acc) = step_fn(
+                        self.params, self.draft_params, self.op_state,
+                        caches, dcaches, *args)
+                    host_toks, host_oks, host_acc = _readback(toks, oks, acc)
+                else:
+                    *_s, (toks, oks) = step_fn(self.params, self.op_state,
+                                               caches, *args)
+                    host_toks, host_oks = _readback(toks, oks)
+                decode_s += time.perf_counter() - t_call
+                supersteps += 1
+                superstep_idx += 1
+                for i in active:
+                    sl = slots[i]
+                    err = None
+                    appended: List[int] = []
+                    if spec_d:
+                        n_take = int(host_acc[i]) + 1
+                        spec_accept_total += int(host_acc[i])
+                    else:
+                        n_take = k
+                    for j in range(n_take):
+                        if not host_oks[j, i]:
+                            err = "non-finite logits in decode"
+                            break
+                        sl.tokens.append(int(host_toks[j, i]))
+                        appended.append(int(host_toks[j, i]))
+                        sl.pos += 1
+                        total_tokens += 1
+                        decode_tokens += 1
+                        if slot_done(sl):
+                            break
+                    sl.last_tok = sl.tokens[-1] if sl.tokens else 0
+                    # The validated delta goes to the journal before any
+                    # done record (under speculation: accepted tokens
+                    # only, so a resume is the same as plain decode's).
+                    if jr is not None and appended:
+                        jr.tokens(sl.request.id, appended)
+                    if err is not None:
+                        finish(i, error=err)
+                    elif slot_done(sl):
+                        finish(i)
+                if spec_d:
+                    spec_draft_total += spec_d * len(active)
+        finally:
+            preempt.__exit__(None, None, None)
+            if jr is not None:
+                jr.close()
 
         elapsed = time.perf_counter() - t_run0
         lats = sorted(r.latency_s for r in results.values() if r.error is None)
@@ -1311,6 +1640,8 @@ class Server:
                 spec_accept_total / max(spec_draft_total, 1), 4)
             stats["spec_tokens_per_dispatch"] = round(
                 decode_tokens / max(supersteps, 1), 3)
+        if self.drain_on_preempt:
+            stats["drained"] = drained
         return results, stats
 
 

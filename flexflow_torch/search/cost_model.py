@@ -13,6 +13,7 @@ import dataclasses
 import math
 
 from flexflow_torch.ops import (
+    LSTM,
     Embedding,
     MultiEmbedding,
     MultiHeadAttention,
@@ -40,16 +41,18 @@ def op_cost(op: Op) -> OpCost:
     ``prod(W)`` elements (2-D or more) is contracted against each of the
     output's positions not tagged ``c``, ``2 * prod(out dims not 'c') *
     prod(W)``, which is exact for a conv (``2 N Ho Wo kh kw Cin Cout``)
-    and a linear.  Attention has its explicit formula (its output carries
-    no ``c`` tag): the q/k/v/o projections and the ``O(seq^2)`` scores
-    and values."""
+    and a linear.  Attention and the LSTM have explicit formulas (their
+    outputs carry no ``c`` tag): the q/k/v/o projections and the
+    ``O(seq^2)`` scores and values; the gate products ``2 b (in + h) 4h``
+    a step, charged 4x as JAX charges them (small sequential products
+    use its matrix unit poorly)."""
     out = op.outputs[0]
     non_c = 1.0
     for ext, ax in zip(out.shape, out.dim_axes):
         if ax != "c":
             non_c *= ext
     flops = 0.0
-    if not isinstance(op, LOOKUP_OPS + (MultiHeadAttention,)):
+    if not isinstance(op, LOOKUP_OPS + (MultiHeadAttention, LSTM)):
         for spec in op.param_specs().values():
             if len(spec.shape) >= 2:
                 flops += 2.0 * non_c * float(math.prod(spec.shape))
@@ -57,6 +60,9 @@ def op_cost(op: Op) -> OpCost:
         b, s, d = op.inputs[0].shape
         flops += 8.0 * b * s * float(d) ** 2
         flops += 4.0 * b * float(s) ** 2 * d
+    if isinstance(op, LSTM):
+        b, s, h = op.outputs[0].shape
+        flops += 4.0 * (2.0 * b * s * 4.0 * h * (op.in_dim + h))
     return OpCost(flops=flops)
 
 

@@ -56,3 +56,19 @@ def opt_state_from_numpy(np_state, device="cuda"):
                 "t": torch.tensor(int(np.asarray(np_state["t"])),
                                   dtype=torch.int32, device=device)}
     return params_from_numpy(np_state, device)
+
+
+def state_from_numpy(np_state, device="cuda"):
+    """A JAX op state, after ``jax.device_get``, as the port's: the same
+    ``{op: {key: array}}`` tree, with unsigned integer arrays (Dropout's
+    uint32 threefry key) widened to int64, the form
+    ``runtime/keyed_random.py`` computes in."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for op, group in np_state.items():
+        out[op] = {}
+        for name, arr in group.items():
+            a = np.asarray(arr)
+            if a.dtype.kind == "u":
+                a = a.astype(np.int64)
+            out[op][name] = _tensor(a).to(device)
+    return out

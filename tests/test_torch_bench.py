@@ -171,7 +171,8 @@ SERVING_KEYS = {
     "spec_match"}
 
 
-def _stand_in_card(monkeypatch, dlrm=None, superstep=None, serving=None):
+def _stand_in_card(monkeypatch, dlrm=None, superstep=None, serving=None,
+                   nmt=None):
     """``main`` on the CPU: a card that is said to exist, and every leg
     at a small size on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -190,6 +191,9 @@ def _stand_in_card(monkeypatch, dlrm=None, superstep=None, serving=None):
         bench.bench_superstep, device="cpu", batch=8, width=16, iters=16))
     monkeypatch.setattr(bench, "bench_serving", serving or functools.partial(
         bench.bench_serving, **_SMALL_SERVING))
+    monkeypatch.setattr(bench, "bench_nmt", nmt or functools.partial(
+        bench.bench_nmt, device="cpu", batch=4, hidden=32, vocab=128, seq=6,
+        iters=2, warmup=1))
 
 
 def _one_line(capsys):
@@ -209,7 +213,7 @@ def test_main_prints_one_line_with_bench_py_keys(monkeypatch, capsys):
             "batch_size", "alexnet_mfu", "dlrm_samples_per_s", "dlrm_mfu"}
     for leg in ("transformer", "transformer_8k", "transformer_32k"):
         keys |= {f"{leg}_tokens_per_s", f"{leg}_mfu"}
-    keys |= {"superstep", "serving"}
+    keys |= {"superstep", "serving", "nmt_pairs_per_s", "nmt_10iter_time_s"}
     assert set(line["extra"]) == keys
     assert set(line["extra"]["serving"]) == SERVING_KEYS
     assert line["extra"]["platform"] == "gpu" and line["extra"]["n_chips"] == 1
@@ -264,6 +268,18 @@ def test_a_failing_serving_leg_becomes_its_error(monkeypatch, capsys):
     assert line["value"] > 0
     assert line["extra"]["serving_error"] == "RuntimeError: planted"
     assert "serving" not in line["extra"]
+
+
+def test_a_failing_nmt_leg_becomes_its_error(monkeypatch, capsys):
+    def broken(**kw):
+        raise RuntimeError("planted")
+
+    _stand_in_card(monkeypatch, nmt=broken)
+    bench.main()
+    line = _one_line(capsys)
+    assert line["value"] > 0
+    assert line["extra"]["nmt_error"] == "RuntimeError: planted"
+    assert "nmt_pairs_per_s" not in line["extra"]
 
 
 def test_serving_leg_runs_small_on_cpu():

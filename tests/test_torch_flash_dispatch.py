@@ -443,6 +443,121 @@ def test_unkernelled_head_dims_do_not_raise_off_the_cpu(t, hd):
 
 
 # ---------------------------------------------------------------------------
+# the padded decode's route around K6's gate (queue 3's decode fault)
+# ---------------------------------------------------------------------------
+
+
+_K6, _EINSUM_DECODE = kernels.flash_decode, tattn._einsum_decode
+
+
+def _decode_route(monkeypatch, hd, decode_kernel=None, dtype=torch.float32):
+    """``_decode_attend`` on meta tensors (the card's stand-in): which of
+    K6's wrapper and the einsum it reached, recorded before any launch."""
+    seen = []
+    real_k6, real_einsum = _K6, _EINSUM_DECODE
+
+    def k6(*a):
+        seen.append("k6")
+        return real_k6(*a)
+
+    def einsum(*a):
+        seen.append("einsum")
+        return real_einsum(*a)
+
+    monkeypatch.setattr(kernels, "flash_decode", k6)
+    monkeypatch.setattr(tattn, "_einsum_decode", einsum)
+    mha = tattn.MultiHeadAttention.__new__(tattn.MultiHeadAttention)
+    mha.decode_kernel = decode_kernel
+    B, S, h = 2, 16, 2
+    q = torch.empty((B, h, hd), dtype=dtype, device="meta")
+    ck = torch.empty((B, S, h, hd), dtype=dtype, device="meta")
+    pos = torch.zeros((B,), dtype=torch.int32, device="meta")
+    before = real_k6.launches
+    with kernels.shapes_only():   # K6 takes meta: gate checked, no launch
+        out = mha._decode_attend(q, ck, ck, pos)
+    assert out.shape == (B, h, hd) and real_k6.launches == before
+    return seen
+
+
+@pytest.mark.parametrize("hd,route", [(4, "einsum"), (12, "einsum"),
+                                      (64, "k6"), (256, "einsum")])
+def test_decode_routes_around_k6s_gate(monkeypatch, hd, route):
+    """``decode_kernel=None`` takes K6 where its gate holds (hd a multiple
+    of 8 in [8, 128]) and the einsum elsewhere, as JAX's
+    ``_decode_attend`` asks ``flash_decode_supported``; before, hd 4, 12
+    and 256 went to K6's wrapper and raised on the card."""
+    shape = (2, 16, 2, hd)
+    assert kernels.flash_decode_supported(shape, torch.float32) == \
+        (route == "k6")
+    assert kernels.flash_decode_supported(shape, torch.bfloat16) == \
+        (route == "k6")
+    assert _decode_route(monkeypatch, hd) == [route]
+    # JAX's gate takes hd >= 8: hd 12 and 256 differ by design.
+    assert pk.flash_decode_supported(shape, jnp.float32) == (hd >= 8)
+
+
+def test_decode_kernel_true_and_false(monkeypatch):
+    """True launches K6 (and so raises outside its gate on the card);
+    False is the einsum at any head dim; a dtype K6 is not built for
+    takes the einsum under None.  Outside the dry run's mode a meta
+    tensor is no card, and K6's wrapper refuses it."""
+    with pytest.raises(ValueError, match="head dim 12"):
+        _decode_route(monkeypatch, 12, decode_kernel=True)
+    q = torch.empty((2, 2, 64), device="meta")
+    c = torch.empty((2, 16, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="needs CUDA"):
+        kernels.flash_decode(q, c, c, torch.ones((2,), dtype=torch.int32,
+                                                 device="meta"))
+    assert _decode_route(monkeypatch, 64, decode_kernel=False) == ["einsum"]
+    assert _decode_route(monkeypatch, 64, dtype=torch.float16) == ["einsum"]
+    assert not kernels.flash_decode_supported((16, 2, 64), torch.float32)
+
+
+@pytest.mark.parametrize("d_model,heads", [(8, 2), (24, 2)])
+def test_decode_logits_at_unkernelled_head_dims_match_jax(d_model, heads):
+    """The LM at hd 4 and hd 12: a prefill of 6 tokens and 10 decode
+    steps fed the true next tokens, logits within
+    ``tests/test_torch_serving.py``'s ``DECODE_TOL`` (1e-4) of JAX's
+    (hd 4 on JAX's einsum, hd 12 on its Pallas kernel in interpret
+    mode)."""
+    from flexflow_tpu.runtime import serving as jserving
+    from flexflow_torch.runtime import serving as tserving
+
+    V_, S_, prefix = 64, 16, 6
+    kw = dict(batch_size=2, seq_len=S_, vocab_size=V_, d_model=d_model,
+              num_heads=heads, num_layers=2)
+    jlm = jbuild(config=JConfig(batch_size=2), **kw)
+    jsex = jserving.ServingExecutor(jlm, max_batch=2, max_seq=S_, buckets=(8,))
+    jparams, _ = jsex.init(seed=0)
+    tlm = tbuild(config=TConfig(batch_size=2), **kw)
+    tsex = tserving.ServingExecutor(tlm, max_batch=2, max_seq=S_, buckets=(8,),
+                                    device="cpu")
+    tparams = params_from_numpy(jax.device_get(jparams), device="cpu")
+    toks = np.random.default_rng(4).integers(0, V_, size=S_).astype(np.int32)
+
+    def run(sex, params):
+        padded = np.zeros((1, 8), np.int32)
+        padded[0, :prefix] = toks[:prefix]
+        rows, tok0, _ok = sex.build_prefill(8)(params, {}, padded,
+                                               np.int32(prefix))
+        caches = sex.install(sex.init_cache(), rows, 0)
+        dec = sex.build_decode_superstep(1, return_logits=True)
+        pos, out = np.array([prefix, 0], np.int32), []
+        for t in range(prefix, S_):
+            caches, pos_d, _t, (_n, okf, logits) = dec(
+                params, {}, caches, pos, np.array([toks[t], 0], np.int32))
+            assert bool(np.asarray(okf)[0, 0])
+            out.append(np.asarray(logits)[0, 0])
+            pos = np.asarray(pos_d)
+        return int(tok0), np.stack(out)
+
+    jtok, jlog = run(jsex, jparams)
+    ttok, tlog = run(tsex, tparams)
+    assert ttok == jtok
+    assert float(np.max(np.abs(tlog - jlog))) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
 # the slice as a whole: the LM with the streamed dispatch on
 # ---------------------------------------------------------------------------
 

@@ -219,9 +219,10 @@ def test_serve_app_on_cpu(capsys):
     assert stats["tokens"] == 15 and stats["prefills"] == 3
 
 
-@pytest.mark.parametrize("flag", [["--shard", "2,2"], ["--journal", "PATH"],
+@pytest.mark.parametrize("flag", [["--shard", "2,2"], ["--ckpt-dir", "PATH"],
                                   ["--sched", "fifo"], ["--telemetry", "d"],
-                                  ["--dry-run"], ["--dtype", "float16"]])
+                                  ["--serve-retries", "2"],
+                                  ["--dtype", "float16"]])
 def test_serve_app_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as e:
         tserve.main(_APP_ARGV + flag, device="cpu")
