@@ -48,6 +48,9 @@ _NOT_PORTED = {
                       "item 11)",
     "--calibration": "the execution-config search (ROADMAP.md queue 1, "
                      "item 11)",
+    "--resilient": "the resilient trainer (ROADMAP.md queue 1, item 7)",
+    "--telemetry": "telemetry (ROADMAP.md queue 1, item 7)",
+    "--granules": "multi-host hybrid meshes (ROADMAP.md queue 1, item 9)",
 }
 
 _DTYPES = ("float32", "bfloat16")

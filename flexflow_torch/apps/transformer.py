@@ -11,10 +11,13 @@ the environment, the streamed K1s and K1sb) and the fused cross-entropy
 ``tokens/s``.
 
 Flags beyond the common set: ``--seq --vocab --d-model --heads
---layers``.  The common set includes ``--steps-per-call K`` (K steps as
-one CUDA graph), ``--accum-steps N`` and ``--remat``.  ``--dp``, ``--sp`` and ``--tp`` above 1 (hybrid and ring
-parallelism) and ``--experts`` (MoE FFNs) are refused: those slices are
-still to be ported (ROADMAP.md queue 1).
+--layers`` and ``--experts N`` (every block's MLP a switch-style
+mixture-of-experts FFN of N experts, top-1, capacity factor 1.25,
+``ops/moe.py``).  The common set includes ``--steps-per-call K`` (K steps
+as one CUDA graph), ``--accum-steps N`` and ``--remat``.  ``--dp``,
+``--sp`` and ``--tp`` above 1 (hybrid and ring parallelism; with
+``--experts``, ``--tp`` shards the experts) are refused: multi-device
+strategies are ROADMAP.md queue 1, item 9.
 
 Example (the shape ``bench.py`` trains the LM at)::
 
@@ -62,14 +65,15 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
         raise SystemExit(f"flexflow_torch transformer does not support "
                          f"{', '.join(wide)} yet: multi-device strategies "
                          f"are ROADMAP.md queue 1, item 9")
-    if experts > 0:
-        raise SystemExit("--experts: the mixture-of-experts FFN is not "
-                         "ported yet (ROADMAP.md queue 1, item 5)")
     cfg = parse_training_args(argv)
-    ff = build_transformer_lm(
-        batch_size=cfg.batch_size, seq_len=seq, vocab_size=vocab,
-        d_model=d_model, num_heads=heads, num_layers=layers, config=cfg,
-    )
+    try:
+        ff = build_transformer_lm(
+            batch_size=cfg.batch_size, seq_len=seq, vocab_size=vocab,
+            d_model=d_model, num_heads=heads, num_layers=layers,
+            moe_experts=experts, config=cfg,
+        )
+    except ValueError as e:
+        raise SystemExit(f"transformer: {e}")
     stats = run_training(ff, cfg, label="sequences", device=device)
     print(f"tokens/s = {stats['samples_per_s'] * seq:.0f}")
     if stats_out is not None:

@@ -17,15 +17,17 @@ the superstep sweep (``superstep``: ms/step of a small MLP at k = 1, 4,
 (``serving``: bench.py's columns that the port computes, decode
 supersteps as CUDA graphs), the NMT leg (``nmt_pairs_per_s`` and
 ``nmt_10iter_time_s``: batch 64, 2 layers, hidden = embed = 2048, vocab
-20480, seq 20, bf16, SGD lr 0.01, 2 + 10 steps) and the card's name and
-power limit.  Throughput is ``iterations x batch / elapsed``
-with one fence at the end (``Trainer.fit``); the flops come from
+20480, seq 20, bf16, SGD lr 0.01, 2 + 10 steps), the Candle-Uno leg
+(``candle_samples_per_s``: the reference's widths, batch 512, bf16, SGD
+lr 0.01, 2 + 10 steps) and the card's name and power limit.  Throughput
+is ``iterations x batch / elapsed`` with one fence at the end
+(``Trainer.fit``); the flops come from
 ``search/cost_model.py::train_flops``.  A leg that fails becomes
 ``<leg>_error`` and does not sink the headline.  Without a CUDA device
 the line carries ``"value": null`` and the error; nothing is measured
 on the CPU.
 
-``bench.py``'s other legs (Candle-Uno, pipeline,
+``bench.py``'s other legs (pipeline,
 telemetry, data plane, search, op-parallel) and the serving leg's
 scheduler, failure-model, fleet, sharded and prefix-workload columns
 wait for their slices of the port (ROADMAP.md queue 1).  The leg functions take the
@@ -276,6 +278,28 @@ def bench_nmt(device="cuda", batch: int = 64, hidden: int = 2048,
     return stats["elapsed_s"], stats["samples_per_s"], iters
 
 
+def bench_candle(device="cuda", batch: int = 512, iters: int = 10,
+                 warmup: int = 2, candle=None,
+                 stats_out: dict | None = None) -> float:
+    """``bench.py:337-358``: Candle-Uno at the reference's widths
+    (``CandleConfig()``: six inputs, 3 x 1000 feature towers and trunk),
+    batch 512, bf16, ``SGDOptimizer(lr=0.01)``, ``warmup`` + ``iters``
+    steps.  Returns samples/s."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.candle_uno import build_candle_uno
+    from flexflow_torch.optim import SGDOptimizer
+    from flexflow_torch.runtime.executor import Executor
+    from flexflow_torch.runtime.trainer import Trainer
+
+    cfg = FFConfig(batch_size=batch, compute_dtype="bfloat16")
+    ff = build_candle_uno(batch_size=batch, candle=candle, config=cfg)
+    ex = Executor(ff, cfg, optimizer=SGDOptimizer(lr=0.01), device=device)
+    stats = Trainer(ex).fit(iterations=iters, warmup=warmup)
+    if stats_out is not None:
+        stats_out.update(stats)
+    return stats["samples_per_s"]
+
+
 def _card() -> dict:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     out = subprocess.run(
@@ -334,6 +358,11 @@ def _run() -> dict:
         extra["nmt_10iter_time_s"] = round(nmt_s, 4)
     except Exception as e:  # an NMT failure must not sink the headline
         extra["nmt_error"] = f"{type(e).__name__}: {e}"
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            extra["candle_samples_per_s"] = round(bench_candle(), 2)
+    except Exception as e:  # nor a Candle-Uno failure
+        extra["candle_error"] = f"{type(e).__name__}: {e}"
     return {
         "metric": "alexnet_imgs_per_sec_per_chip",
         "value": round(per_chip, 2),

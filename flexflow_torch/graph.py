@@ -3,9 +3,8 @@
 Apps call its methods to append ops to ``self.layers``; each method
 infers shapes and does no compute.  Op naming (``_unique``) and the
 dtype rules match the JAX package, so the two packages make graphs with
-the same op names, parameter keys and shapes.  The port has the methods
-that ``build_transformer_lm``, ``build_dlrm``, ``build_alexnet`` and
-``build_nmt`` call.
+the same op names, parameter keys and shapes, and ``summary()`` prints
+the JAX package's text for the same graph.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import torch
 from flexflow_torch.config import FFConfig
 from flexflow_torch.ops import (
     Add,
+    BatchNorm,
     Concat,
     Conv2D,
     DotInteraction,
@@ -28,6 +28,7 @@ from flexflow_torch.ops import (
     LayerNorm,
     Linear,
     MSELoss,
+    MixtureOfExperts,
     MultiEmbedding,
     MultiHeadAttention,
     Op,
@@ -125,6 +126,13 @@ class FFModel:
             stride_w, padding_h, padding_w, pool_type=pool_type,
             activation=activation))
 
+    def batch_norm(self, x: TensorSpec, relu: bool = False,
+                   name: Optional[str] = None) -> TensorSpec:
+        """Batch normalization over (n, h, w) with running statistics as
+        op state (``ops/norm.py``)."""
+        return self._add(BatchNorm(self._unique("batchnorm", name), x,
+                                   relu=relu))
+
     def flat(self, x: TensorSpec, name: Optional[str] = None) -> TensorSpec:
         return self._add(Flat(self._unique("flat", name), x))
 
@@ -197,6 +205,15 @@ class FFModel:
         return self._add(MultiHeadAttention(self._unique("attention", name),
                                             x, num_heads, causal=causal, **kw))
 
+    def moe(self, x: TensorSpec, num_experts: int, ffn_dim: int,
+            capacity_factor: float = 1.25, name: Optional[str] = None,
+            **kw) -> TensorSpec:
+        """Mixture-of-experts FFN (``top_k=1`` switch routing by default,
+        ``top_k=2`` with renormalized gates; ``ops/moe.py``)."""
+        return self._add(MixtureOfExperts(
+            self._unique("moe", name), x, num_experts, ffn_dim,
+            capacity_factor=capacity_factor, **kw))
+
     def layer_norm(self, x: TensorSpec, name: Optional[str] = None,
                    **kw) -> TensorSpec:
         return self._add(LayerNorm(self._unique("layernorm", name), x, **kw))
@@ -245,3 +262,18 @@ class FFModel:
     @property
     def loss_ops(self) -> List[Op]:
         return [op for op in self.layers if op.is_loss]
+
+    def find_op(self, name: str) -> Op:
+        for op in self.layers:
+            if op.name == name:
+                return op
+        raise KeyError(name)
+
+    def summary(self) -> str:
+        """One line per input and per op: class name, op name and output
+        shapes, the JAX package's format."""
+        lines = [f"input   {t.name:24s} {t.shape}" for t in self.input_tensors]
+        for op in self.layers:
+            outs = ", ".join(str(o.shape) for o in op.outputs)
+            lines.append(f"{type(op).__name__:8s}{op.name:24s} -> {outs}")
+        return "\n".join(lines)

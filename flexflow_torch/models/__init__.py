@@ -1,1 +1,30 @@
-"""Models of the port (the counterparts of ``flexflow_tpu/models``)."""
+"""Models of the port (the counterparts of ``flexflow_tpu/models``).
+``dlrm_strategy``, the DLRM's table-parallel placement, comes with the
+multi-device strategies (ROADMAP.md queue 1, item 9)."""
+
+from flexflow_torch.models.alexnet import build_alexnet
+from flexflow_torch.models.candle_uno import CandleConfig, build_candle_uno
+from flexflow_torch.models.cnn_catalog import (
+    build_densenet121,
+    build_inception_v3,
+    build_resnet101,
+    build_vgg16,
+)
+from flexflow_torch.models.dlrm import (
+    DLRMConfig,
+    build_dlrm,
+    dlrm_random_benchmark_config,
+)
+
+__all__ = [
+    "build_alexnet",
+    "build_vgg16",
+    "build_inception_v3",
+    "build_densenet121",
+    "build_resnet101",
+    "build_dlrm",
+    "DLRMConfig",
+    "dlrm_random_benchmark_config",
+    "build_candle_uno",
+    "CandleConfig",
+]

@@ -12,6 +12,8 @@ from flexflow_torch.ops.embedding import (
 )
 from flexflow_torch.ops.linear import Linear
 from flexflow_torch.ops.losses import MSELoss, SoftmaxCrossEntropy
+from flexflow_torch.ops.moe import MixtureOfExperts
+from flexflow_torch.ops.norm import BatchNorm
 from flexflow_torch.ops.rnn import LSTM
 from flexflow_torch.ops.tensor_ops import (
     Add,
@@ -22,9 +24,9 @@ from flexflow_torch.ops.tensor_ops import (
 )
 
 __all__ = [
-    "Add", "Concat", "Conv2D", "DotInteraction", "Dropout", "Embedding",
-    "Flat", "HeteroEmbedding", "LSTM", "LayerNorm", "Linear", "MSELoss",
-    "MultiEmbedding",
+    "Add", "BatchNorm", "Concat", "Conv2D", "DotInteraction", "Dropout",
+    "Embedding", "Flat", "HeteroEmbedding", "LSTM", "LayerNorm", "Linear",
+    "MSELoss", "MixtureOfExperts", "MultiEmbedding",
     "MultiHeadAttention", "Op", "ParamSpec", "Pool2D", "PositionEmbedding",
     "Reshape", "SoftmaxCrossEntropy",
     "TensorSpec", "WordEmbedding", "apply_activation", "check_activation",

@@ -261,14 +261,17 @@ class Executor:
         return total_loss, metrics, new_state, env
 
     @torch.inference_mode()
-    def forward_step(self, params, batch) -> Dict[str, torch.Tensor]:
+    def forward_step(self, params, batch,
+                     state=None) -> Dict[str, torch.Tensor]:
         """Eval forward over the non-loss ops, returning every non-loss
         op output by tensor name (``outs["lm_head:out"]`` is the LM's
         full-sequence logits).  ``batch`` needs only the inputs those
-        ops read (an LM's labels feed its loss alone)."""
+        ops read (an LM's labels feed its loss alone); ``state`` is the
+        op state an eval forward reads (BatchNorm's running
+        statistics)."""
         layers = [op for op in self.model.layers if not op.is_loss]
-        _, _, _, env = self.forward(params, {}, batch, training=False,
-                                    layers=layers)
+        _, _, _, env = self.forward(params, state or {}, batch,
+                                    training=False, layers=layers)
         return {t.name: env[t.name] for op in layers for t in op.outputs}
 
     # -- steps ---------------------------------------------------------------

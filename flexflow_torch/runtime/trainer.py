@@ -106,7 +106,8 @@ class Trainer:
         ``ex.init()`` on one fixed synthetic batch; returns throughput
         stats computed with the reference formula.  The stats carry,
         beside the JAX package's keys, ``step_losses``: every step's
-        loss, warmup included, read at the fences.
+        loss, warmup included, read at the fences, and ``last_metrics``:
+        the last timed step's metrics on the host.
 
         ``steps_per_call > 1`` takes the superstep loop
         (:meth:`_fit_superstep`, clamped at ``MAX_STEPS_PER_CALL``);
@@ -184,6 +185,7 @@ class Trainer:
             "batch_size": batch_size,
             "loss": float(self.metrics.avg_loss),
             "step_losses": [float(x) for x in losses],
+            "last_metrics": final_m,
         }
 
     def _fit_superstep(self, iterations: int, warmup: int, log_every: int,
@@ -238,11 +240,13 @@ class Trainer:
         timed = plan[warm_calls:]
 
         steps_done = 0
+        last = {}
         start = time.perf_counter()
         for n in timed:
             host_ms = call(n)
             for j in range(n):
-                self.metrics.update(Executor.metrics_row(host_ms, j))
+                last = Executor.metrics_row(host_ms, j)
+                self.metrics.update(last)
                 steps_done += 1
                 if log_every and steps_done % log_every == 0:
                     print(f"iter {steps_done}: {self.metrics.report()}")
@@ -262,6 +266,7 @@ class Trainer:
             "steps_per_call": k,
             "supersteps": len(timed),
             "step_losses": losses,
+            "last_metrics": last,
         }
 
     def evaluate(self, params, state, batches: Iterable[Dict[str, Any]],

@@ -15,6 +15,7 @@ import math
 from flexflow_torch.ops import (
     LSTM,
     Embedding,
+    MixtureOfExperts,
     MultiEmbedding,
     MultiHeadAttention,
     Op,
@@ -45,14 +46,18 @@ def op_cost(op: Op) -> OpCost:
     outputs carry no ``c`` tag): the q/k/v/o projections and the
     ``O(seq^2)`` scores and values; the gate products ``2 b (in + h) 4h``
     a step, charged 4x as JAX charges them (small sequential products
-    use its matrix unit poorly)."""
+    use its matrix unit poorly).  The MoE op carries JAX's formula over
+    unchanged: the router, the one-hot dispatch and combine
+    (``2 * 2 S E C d``, work the port's index form does not do) and the
+    two expert products over the ``E * C`` slots."""
     out = op.outputs[0]
     non_c = 1.0
     for ext, ax in zip(out.shape, out.dim_axes):
         if ax != "c":
             non_c *= ext
     flops = 0.0
-    if not isinstance(op, LOOKUP_OPS + (MultiHeadAttention, LSTM)):
+    if not isinstance(op, LOOKUP_OPS + (MultiHeadAttention, LSTM,
+                                        MixtureOfExperts)):
         for spec in op.param_specs().values():
             if len(spec.shape) >= 2:
                 flops += 2.0 * non_c * float(math.prod(spec.shape))
@@ -60,6 +65,14 @@ def op_cost(op: Op) -> OpCost:
         b, s, d = op.inputs[0].shape
         flops += 8.0 * b * s * float(d) ** 2
         flops += 4.0 * b * float(s) ** 2 * d
+    if isinstance(op, MixtureOfExperts):
+        b, t, d = op.inputs[0].shape
+        s = float(b * t)
+        e = op.attrs["num_experts"]
+        cap = float(op.capacity(b * t))
+        flops += 2.0 * s * d * e
+        flops += 2.0 * 2.0 * s * e * cap * d
+        flops += 2.0 * 2.0 * e * cap * d * op.attrs["ffn_dim"]
     if isinstance(op, LSTM):
         b, s, h = op.outputs[0].shape
         flops += 4.0 * (2.0 * b * s * 4.0 * h * (op.in_dim + h))

@@ -62,7 +62,8 @@ def state_from_numpy(np_state, device="cuda"):
     """A JAX op state, after ``jax.device_get``, as the port's: the same
     ``{op: {key: array}}`` tree, with unsigned integer arrays (Dropout's
     uint32 threefry key) widened to int64, the form
-    ``runtime/keyed_random.py`` computes in."""
+    ``runtime/keyed_random.py`` computes in; float state (BatchNorm's
+    running statistics) keeps its dtype."""
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for op, group in np_state.items():
         out[op] = {}

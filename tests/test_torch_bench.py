@@ -18,6 +18,7 @@ and the repo's ``bench.py`` on the CPU.
 
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -171,8 +172,18 @@ SERVING_KEYS = {
     "spec_match"}
 
 
+def _small_candle():
+    """``tests/test_models.py``'s small Candle-Uno widths."""
+    from flexflow_torch.models.candle_uno import CandleConfig
+
+    return CandleConfig(dense_layers=[32, 32], dense_feature_layers=[16],
+                        feature_shapes={"dose": 1, "cell.rnaseq": 24,
+                                        "drug.descriptors": 40,
+                                        "drug.fingerprints": 16})
+
+
 def _stand_in_card(monkeypatch, dlrm=None, superstep=None, serving=None,
-                   nmt=None):
+                   nmt=None, candle=None):
     """``main`` on the CPU: a card that is said to exist, and every leg
     at a small size on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -194,6 +205,9 @@ def _stand_in_card(monkeypatch, dlrm=None, superstep=None, serving=None,
     monkeypatch.setattr(bench, "bench_nmt", nmt or functools.partial(
         bench.bench_nmt, device="cpu", batch=4, hidden=32, vocab=128, seq=6,
         iters=2, warmup=1))
+    monkeypatch.setattr(bench, "bench_candle", candle or functools.partial(
+        bench.bench_candle, device="cpu", batch=8, iters=2, warmup=1,
+        candle=_small_candle()))
 
 
 def _one_line(capsys):
@@ -213,7 +227,8 @@ def test_main_prints_one_line_with_bench_py_keys(monkeypatch, capsys):
             "batch_size", "alexnet_mfu", "dlrm_samples_per_s", "dlrm_mfu"}
     for leg in ("transformer", "transformer_8k", "transformer_32k"):
         keys |= {f"{leg}_tokens_per_s", f"{leg}_mfu"}
-    keys |= {"superstep", "serving", "nmt_pairs_per_s", "nmt_10iter_time_s"}
+    keys |= {"superstep", "serving", "nmt_pairs_per_s", "nmt_10iter_time_s",
+             "candle_samples_per_s"}
     assert set(line["extra"]) == keys
     assert set(line["extra"]["serving"]) == SERVING_KEYS
     assert line["extra"]["platform"] == "gpu" and line["extra"]["n_chips"] == 1
@@ -280,6 +295,37 @@ def test_a_failing_nmt_leg_becomes_its_error(monkeypatch, capsys):
     assert line["value"] > 0
     assert line["extra"]["nmt_error"] == "RuntimeError: planted"
     assert "nmt_pairs_per_s" not in line["extra"]
+
+
+def test_a_failing_candle_leg_becomes_its_error(monkeypatch, capsys):
+    def broken(**kw):
+        raise RuntimeError("planted")
+
+    _stand_in_card(monkeypatch, candle=broken)
+    bench.main()
+    line = _one_line(capsys)
+    assert line["value"] > 0
+    assert line["extra"]["candle_error"] == "RuntimeError: planted"
+    assert "candle_samples_per_s" not in line["extra"]
+    assert line["extra"]["nmt_pairs_per_s"] > 0
+
+
+def test_candle_leg_runs_small_on_cpu():
+    """``bench.py``'s Candle-Uno leg: bf16, SGD lr 0.01, warmup + timed
+    steps; samples/s from the fit's stats."""
+    stats = {}
+    sps = bench.bench_candle(device="cpu", batch=8, iters=2, warmup=2,
+                             candle=_small_candle(), stats_out=stats)
+    assert sps == stats["samples_per_s"] > 0
+    assert stats["iterations"] == 2 and len(stats["step_losses"]) == 4
+    assert all(math.isfinite(x) for x in stats["step_losses"])
+    with open(os.path.join(REPO, "bench.py")) as f:
+        src = f.read()
+    leg = src[src.index("def bench_candle"):]
+    leg = leg[:leg.index("\ndef ")]
+    assert "batch = 512 if on_tpu" in leg and "SGDOptimizer(lr=0.01)" in leg
+    assert 'compute_dtype="bfloat16"' in leg and "warmup=2" in leg
+    assert '"candle_samples_per_s"' in src and '"candle_error"' in src
 
 
 def test_serving_leg_runs_small_on_cpu():

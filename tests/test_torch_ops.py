@@ -231,12 +231,6 @@ def test_transformer_graph_matches(dtype):
             assert np.dtype(jsp[k].dtype).name == str(tsp[k].dtype).split(".")[1]
 
 
-def test_moe_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(batch_size=1, seq_len=8, vocab_size=16, d_model=8,
-               num_heads=2, num_layers=1, moe_experts=2)
-
-
 # ---------------------------------------------------------------------------
 # backward of each op, against jax.vjp
 # ---------------------------------------------------------------------------

@@ -231,7 +231,7 @@ def test_transformer_app_on_cpu(capsys, dtype):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--dp", "2"], ["--sp", "2"], ["--tp", "2"], ["--experts", "4"],
+    ["--dp", "2"], ["--sp", "2"], ["--tp", "2"],
     ["--resilient"], ["--telemetry", "d"], ["--lazy-sparse-opt"],
     ["-ll:gpu", "2"], ["--dtype", "float16"], ["--ckpt-dir", "d"],
     ["--bogus"]])
