@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Twenty-three phases, in order; any failure raises and exits non-zero:
+Twenty-four phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -274,13 +274,34 @@ Twenty-three phases, in order; any failure raises and exits non-zero:
     989 TFLOP/s of the work the port does (``cost_model``'s one-hot
     dispatch and combine left out); as graphs of 2 bit for bit against
     the eager steps; one profiled MoE-LM step.
+24. **Item 7's training side** (``item7``, ``ITEM7``: phase 5's LM).
+    (a) ``ResilientTrainer`` at ``steps_per_call=4`` (graphs), a save
+    every 4 (async), 12 steps, with a NaN loss at step 6, a raised fault
+    at 9 and a NaN batch at 10 (inert: the LM's inputs are integer):
+    losses, params and Adam's m, v and t bit-identical to the unfaulted
+    run; rollbacks, batches drawn again, ms a rollback, the snapshot's
+    bytes and ms a save (sync; async blocking + flush); (f)
+    ``ServingExecutor.restore`` of (a)'s last snapshot serves bench.py's
+    16 requests (max_seq = the training seq): greedy tokens equal to the
+    in-memory params', K1f and K6 launched; (b) ``apps.transformer
+    --resilient --sync-ckpt`` in a subprocess, SIGTERM once step 4 is
+    saved, exit 0, the rerun on the same ``--ckpt-dir`` ends at 12 bit
+    for bit with the uninterrupted run; (c) ``--telemetry``: the same
+    fences with it and without, every event in the catalog, exit
+    ``clean``, the index row, ``overhead_pct`` (on, off, on, off) and the
+    watchdog (0.5 s deadline, a 1.5 s host stall: one ``stall`` event,
+    one SIGUSR1 to a child waiting for it); (d) ``--trace``: the run's
+    ``trace_summary`` names K1f's, K1b's and cuBLAS's kernels with their
+    device ms; (e) ``--profiling``'s per-op table; (g) the chaos matrix
+    through ``tools.chaos_smoke``: every ported scenario passes, the
+    rest print ``NOT PORTED`` with their item.
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
 DLRM, long-context, race, AlexNet, superstep, serve-features,
-serve-resilience, NMT, CNN, Candle and MoE runs together, split in
-``launches_by_path``;
-the superstep, serve-features and serve-resilience paths count what
-their graph runs launched eagerly or captured; K3's entries name the
+serve-resilience, NMT, CNN, Candle, MoE and item-7 runs together, split
+in ``launches_by_path``; the superstep, serve-features,
+serve-resilience and item-7 paths count what their graph runs launched
+eagerly or captured; K3's entries name the
 form each main-path shape takes, and K3's, K4's and K5's carry the NMT
 shape, K3's the CNN catalog's), the card's name
 and power limit from ``nvidia-smi``, and as its last line the JSON
@@ -4603,6 +4624,431 @@ def phase_item5(torch, kernels, F):
     return rows, launches
 
 
+#: Phase 24 (item 7's training side): the LM of phase 5 at bench.py's
+#: widths, 12 resilient steps as graphs of 4 with a save every 4, and the
+#: faults of (a) (a NaN batch of an LM is inert: its inputs are integer
+#: ids, and the injector NaNs float inputs only, as JAX's does).
+ITEM7 = dict(TRAIN, iters=12, k=4, save_every=4, warmup=1)
+ITEM7_FAULTS = dict(nan_loss_at=(6,), raise_at=(9,), nan_batch_at=(10,))
+#: (f): bench.py's serve requests on the trained model; its max_seq is
+#: the training seq (the position table is (seq, d_model)).
+ITEM7_SERVE = dict(SERVE, max_seq=TRAIN["seq"])
+#: (c): the watchdog's deadline and how long the host stalls.
+ITEM7_STALL = (0.5, 1.5)
+
+
+def _item7_argv(c, ckpt=None, extra=()):
+    argv = _train_argv(c)
+    if ckpt is not None:
+        argv += ["--resilient", "--save-every", str(c["save_every"]),
+                 "--steps-per-call", str(c["k"]), "--ckpt-dir", ckpt]
+    return argv + list(extra)
+
+
+def _tree_bytes(*trees) -> int:
+    from flexflow_torch.runtime.checkpoint import flatten
+
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in flatten(tree).values())
+
+
+def _app_lines(main, argv) -> list:
+    """One in-process app run on the card; its report lines."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv, device="cuda")
+    _check(rc == 0, f"{argv}: exit {rc}")
+    return out.getvalue().splitlines()
+
+
+def _counting_fences():
+    """Counts the trainer's fences (``telemetry.host_fence``) from here
+    on; returns the counter list and a function restoring the fence."""
+    from flexflow_torch.runtime import telemetry
+
+    real, seen = telemetry.host_fence, [0]
+
+    def counted(value):
+        seen[0] += 1
+        return real(value)
+
+    telemetry.host_fence = counted
+    return seen, lambda: setattr(telemetry, "host_fence", real)
+
+
+def _run_log(tdir):
+    """The one run log under ``tdir``: its events."""
+    import glob
+
+    paths = glob.glob(f"{tdir}/run-*.jsonl")
+    _check(len(paths) == 1, f"{tdir}: run logs {paths}")
+    with open(paths[0]) as f:
+        return [json.loads(line) for line in f]
+
+
+def _stall_child_check(tdir) -> str:
+    """(c)'s watchdog: a 0.5 s deadline, a host that stalls 1.5 s, and a
+    child that waits for SIGUSR1: one ``stall`` event, one signal."""
+    from flexflow_torch.runtime.telemetry import Telemetry
+
+    child = subprocess.Popen(
+        [sys.executable, "-c",
+         "import signal, sys\n"
+         "signal.pthread_sigmask(signal.SIG_BLOCK, [signal.SIGUSR1])\n"
+         "print('ready', flush=True)\n"
+         "got = signal.sigtimedwait([signal.SIGUSR1], 60)\n"
+         "sys.exit(0 if got and got.si_signo == signal.SIGUSR1 else 3)\n"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        _check(child.stdout.readline().strip() == "ready", "stall child")
+        deadline, stall = ITEM7_STALL
+        with Telemetry(tdir, stall_deadline_s=deadline,
+                       notify_pid=child.pid) as tel:
+            tel.heartbeat("before the stall")
+            time.sleep(stall)  # the stalled host
+            tel.heartbeat("after the stall")
+        rc = child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    events = _run_log(tdir)
+    stalls = [e for e in events if e["ev"] == "stall"]
+    _check(len(stalls) == 1 and stalls[0]["notified_pid"] == child.pid,
+           f"watchdog: stall events {stalls}")
+    _check(rc == 0, f"watchdog: the child saw no SIGUSR1 (exit {rc})")
+    _check(any(e["ev"] == "stall_recovered" for e in events),
+           "watchdog: no stall_recovered")
+    return (f"one stall event after {stalls[0]['idle_s']} s idle (deadline "
+            f"{deadline} s), SIGUSR1 delivered to pid {child.pid}")
+
+
+def phase_item7(torch, kernels):
+    """ROADMAP item 7's training side on the card (phase 24): (a) the
+    resilient 2k LM as graphs, faulted, bit for bit against unfaulted;
+    save and rollback times; (b) SIGTERM and resume of the app; (c)
+    telemetry; (d) ``--trace``; (e) ``--profiling``; (f) the
+    train-to-serve handoff; (g) the chaos matrix.  Returns the launch
+    counts of (a)'s faulted run and (f)'s served run."""
+    import contextlib
+    import gc
+    import io
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from flexflow_torch.apps import transformer
+    from flexflow_torch.apps.common import (
+        make_batch_fn,
+        make_optimizer,
+        parse_training_args,
+    )
+    from flexflow_torch.models.transformer import build_transformer_lm
+    from flexflow_torch.obs.events import EVENT_CATALOG
+    from flexflow_torch.obs.registry import index_path
+    from flexflow_torch.runtime.checkpoint import CheckpointManager
+    from flexflow_torch.runtime.executor import Executor
+    from flexflow_torch.runtime.resilience import (
+        FaultInjector,
+        ResilientTrainer,
+    )
+    from flexflow_torch.runtime.serving import (
+        Server,
+        ServingExecutor,
+        synthetic_requests,
+    )
+    from flexflow_torch.tools import chaos_smoke
+
+    card = _card()
+    c = ITEM7
+    root = tempfile.mkdtemp(prefix="ff_item7_")
+    launches = {}
+    try:
+        # -- (a) the resilient run, faulted against unfaulted --
+        argv = _train_argv(c)
+        for flag in ("--seq", "--layers", "--vocab", "--d-model", "--heads"):
+            i = argv.index(flag)  # the app's own flags, popped before
+            del argv[i:i + 2]     # parse_training_args
+        cfg = parse_training_args(argv)
+        ff = build_transformer_lm(
+            batch_size=c["batch"], seq_len=c["seq"], vocab_size=c["vocab"],
+            d_model=c["d_model"], num_heads=c["heads"],
+            num_layers=c["layers"], config=cfg)
+        drawn = []
+        base_fn = make_batch_fn(ff, cfg)
+
+        def batch_fn(step):
+            drawn.append(step)
+            return base_fn(step)
+
+        def factory():
+            return Executor(ff, cfg, optimizer=make_optimizer(cfg),
+                            device="cuda")
+
+        def resilient(tag, injector=None, sync=False):
+            ck = CheckpointManager(os.path.join(root, tag),
+                                   async_save=not sync)
+            rt = ResilientTrainer(factory, ck, fault_injector=injector)
+            with contextlib.redirect_stdout(io.StringIO()):
+                out = rt.fit(iterations=c["iters"], batch_fn=batch_fn,
+                             save_every=c["save_every"], seed=cfg.seed,
+                             steps_per_call=c["k"])
+            ck.close()
+            return rt, out
+
+        _, clean = resilient("clean")
+        drawn.clear()
+        inj = FaultInjector(**ITEM7_FAULTS)
+        _zero_counts()
+        rt, faulted = resilient("faulted", inj)
+        launches["item7_train"] = counts = _counts()
+        for name in ("flash_attention_lse", "flash_attention_lse_bwd",
+                     "softmax_xent", "softmax_xent_bwd"):
+            _check(counts[name] > 0, f"item7 (a): {name} never launched")
+        floats = any(t.dtype.is_floating_point for t in ff.input_tensors)
+        want_restarts = 2 + floats
+        _check(rt.total_restarts == want_restarts,
+               f"item7 (a): {rt.total_restarts} rollbacks, expected "
+               f"{want_restarts} (fired {inj.fired})")
+        _check(sorted(m for m, _ in inj.fired) ==
+               ["nan_batch", "nan_loss", "raise"], f"fired {inj.fired}")
+        steps = range(c["iters"])
+        _check([faulted["losses"][s] for s in steps] ==
+               [clean["losses"][s] for s in steps],
+               f"item7 (a): losses {faulted['losses']} vs {clean['losses']}")
+        diff = _bit_diff(torch, faulted["params"], clean["params"]) + \
+            _bit_diff(torch, faulted["opt_state"], clean["opt_state"])
+        _check(not diff, f"item7 (a): final tensors differ in bits: {diff}")
+        replayed = len(drawn) - len(set(drawn))
+        roll_ms = [1e3 * s for s in rt.rollback_s]
+        print(f"[item7] (a) {c['iters']} steps as graphs of {c['k']}, a save "
+              f"every {c['save_every']}, faults {ITEM7_FAULTS}: "
+              f"{rt.total_restarts} rollbacks (the NaN batch is inert on "
+              f"an all-integer batch: fired {inj.fired}), {replayed} "
+              f"batches drawn again; losses and final params, Adam's m, v "
+              f"and t bit-identical to the unfaulted run; ms a rollback "
+              f"{', '.join(f'{m:.3f}' for m in roll_ms)}; launches "
+              f"{counts}; {card}")
+        # Save times of this snapshot, sync and async.
+        p, o, s = clean["params"], clean["opt_state"], clean["state"]
+        nbytes = _tree_bytes(p, o, s)
+        times = {}
+        for tag, async_save in (("sync", False), ("async", True)):
+            for rep in range(2):
+                with CheckpointManager(os.path.join(root, f"save_{tag}"),
+                                       async_save=async_save) as ck:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ck.save(100 + rep, p, o, s)
+                    t1 = time.perf_counter()
+                    ck.wait_until_finished()
+                    t2 = time.perf_counter()
+                times[(tag, rep)] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
+        print(f"[item7] (a) snapshot {nbytes} bytes (params, Adam m, v, t); "
+              f"ms a save, first and second: sync "
+              f"{times[('sync', 0)][0]:.3f} / {times[('sync', 1)][0]:.3f}; "
+              f"async blocking {times[('async', 0)][0]:.3f} / "
+              f"{times[('async', 1)][0]:.3f} + flush "
+              f"{times[('async', 0)][1]:.3f} / {times[('async', 1)][1]:.3f}"
+              f"; {card}")
+
+        # -- (f) the train-to-serve handoff of (a)'s last snapshot --
+        sv = ITEM7_SERVE
+        sex = ServingExecutor(
+            build_transformer_lm(
+                batch_size=sv["max_batch"], seq_len=sv["max_seq"],
+                vocab_size=sv["vocab"], d_model=sv["d_model"],
+                num_heads=sv["heads"], num_layers=sv["layers"], config=cfg),
+            cfg, max_batch=sv["max_batch"], max_seq=sv["max_seq"],
+            buckets=tuple(sv["buckets"]), device="cuda")
+        step, sparams, sstate = sex.restore(os.path.join(root, "faulted"))
+        _check(step == c["iters"], f"item7 (f): restored step {step}")
+
+        def reqs():
+            return synthetic_requests(
+                sv["requests"], sv["vocab"], prompt_len=tuple(sv["prompt"]),
+                max_new_tokens=sv["max_new"], seed=0)
+
+        _zero_counts()
+        got, gstats = Server(sex, sparams, sstate,
+                             decode_steps=sv["decode_steps"]).run(reqs())
+        launches["item7_serve"] = scounts = _counts()
+        live, _ = Server(sex, faulted["params"], {},
+                         decode_steps=sv["decode_steps"]).run(reqs())
+        _check(not any(r.error for r in got.values()), "item7 (f): errors")
+        _check({r: list(v.tokens) for r, v in got.items()} ==
+               {r: list(v.tokens) for r, v in live.items()},
+               "item7 (f): restored tokens differ from the in-memory ones")
+        for name in ("flash_attention_lse", "flash_decode"):
+            _check(scounts[name] > 0, f"item7 (f): {name} never launched")
+        print(f"[item7] (f) ServingExecutor.restore of step {step}: "
+              f"{gstats['completed']} requests, {gstats['tokens']} greedy "
+              f"tokens equal to serving the in-memory params; launches "
+              f"{scounts}; {card}")
+        del sex, sparams, sstate, got, live, rt, clean, faulted, p, o, s
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (b) SIGTERM after the first save, then the same --ckpt-dir --
+        ckb = os.path.join(root, "app")
+        argv = _item7_argv(c, ckb, ["--sync-ckpt"])
+        cmd = [sys.executable, "-m", "flexflow_torch.apps.transformer", *argv]
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        logs = []
+        for run in range(2):
+            log = open(os.path.join(root, f"app{run}.log"), "w+")
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                    env=env, cwd=os.path.dirname(
+                                        os.path.abspath(__file__)))
+            try:
+                if run == 0:
+                    first = os.path.join(ckb, str(c["save_every"]))
+                    t0 = time.perf_counter()
+                    while not os.path.isdir(first):
+                        _check(proc.poll() is None and
+                               time.perf_counter() - t0 < 600,
+                               "item7 (b): no first save")
+                        time.sleep(0.001)
+                    proc.send_signal(signal.SIGTERM)
+                rc = proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            log.seek(0)
+            logs.append(log.read())
+            log.close()
+            _check(rc == 0, f"item7 (b) run {run}: exit {rc}\n{logs[-1]}")
+        stopped = [ln for ln in logs[0].splitlines() if "PREEMPTED" in ln]
+        _check(len(stopped) == 1, f"item7 (b): not preempted\n{logs[0]}")
+        at = int(stopped[0].rsplit(" ", 1)[1])
+        _check(at < c["iters"], f"item7 (b): preempted only at step {at}")
+        _check("PREEMPTED" not in logs[1] and "restarts = 0" in logs[1],
+               f"item7 (b): the resumed run\n{logs[1]}")
+        ex = factory()
+        with CheckpointManager(ckb) as ck:
+            step, pb, ob, _ = ck.restore(templates=ex.init())
+        ex2 = factory()
+        with CheckpointManager(os.path.join(root, "clean")) as ck:
+            _, pc, oc, _ = ck.restore(templates=ex2.init(),
+                                      step=c["iters"])
+        _check(step == c["iters"], f"item7 (b): last step {step}")
+        diff = _bit_diff(torch, pb, pc) + _bit_diff(torch, ob, oc)
+        _check(not diff, f"item7 (b): resumed params differ: {diff}")
+        print(f"[item7] (b) apps.transformer --resilient --sync-ckpt: "
+              f"SIGTERM after the save at step {c['save_every']}, emergency "
+              f"save at step {at}, exit 0; the rerun resumed and ended at "
+              f"step {step}, params and Adam state bit-identical to the "
+              f"uninterrupted run")
+        del ex, ex2, pb, ob, pc, oc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (c) telemetry: fences, events, exit, index, overhead --
+        argv = _item7_argv(c, extra=["-p", "4"])
+        seen, restore = _counting_fences()
+        elapsed = {"on": [], "off": []}
+        try:
+            for pair in range(2):
+                for mode in ("on", "off"):
+                    tdir = os.path.join(root, f"tel_{pair}")
+                    stats = {}
+                    extra = ["--telemetry", tdir] if mode == "on" else []
+                    before = seen[0]
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        rc = transformer.main(argv + extra, device="cuda",
+                                              stats_out=stats)
+                    _check(rc == 0, f"item7 (c): exit {rc}")
+                    elapsed[mode].append(stats["elapsed_s"])
+                    if pair == 0:
+                        fences = seen[0] - before
+                        if mode == "on":
+                            tel = stats["telemetry"]
+                            fences_on = fences
+                            _check(tel["fences"] == fences, f"{tel}")
+                        else:
+                            _check(fences == fences_on,
+                                   f"item7 (c): {fences_on} fences with "
+                                   f"telemetry, {fences} without")
+        finally:
+            restore()
+        events = _run_log(os.path.join(root, "tel_0"))
+        unknown = {e["ev"] for e in events} - EVENT_CATALOG
+        _check(not unknown, f"item7 (c): events outside the catalog {unknown}")
+        _check(events[-1]["ev"] == "run_end" and
+               events[-1]["exit"] == "clean", f"{events[-1]}")
+        with open(index_path(os.path.join(root, "tel_0"))) as f:
+            rows = [json.loads(line) for line in f]
+        _check(len(rows) == 1 and rows[0]["exit"] == "clean" and
+               rows[0]["fingerprint"]["platform"] == "gpu", f"index {rows}")
+        on_s, off_s = sum(elapsed["on"]), sum(elapsed["off"])
+        stall = _stall_child_check(os.path.join(root, "stall"))
+        print(f"[item7] (c) {tel['steps']} steps, {tel['fences']} fences "
+              f"with telemetry and without ({tel['fences_per_step']} a "
+              f"step); step ms p50/p95/max {tel['step_ms_p50']} / "
+              f"{tel['step_ms_p95']} / {tel['step_ms_max']}; "
+              f"{len(events)} events, all in the catalog; exit clean; "
+              f"index row written; overhead_pct "
+              f"{100 * (on_s - off_s) / off_s:.3f} (on, off, on, off: "
+              f"{', '.join(f'{x:.4f}' for pair in zip(elapsed['on'], elapsed['off']) for x in pair)} s); "
+              f"watchdog: {stall}; {card}")
+
+        # -- (d) --trace and (e) --profiling in one run --
+        tdir, trdir = os.path.join(root, "tel_trace"), os.path.join(root, "tr")
+        lines = _app_lines(transformer.main, _item7_argv(
+            dict(c, iters=2), extra=["--telemetry", tdir, "--trace", trdir,
+                                     "--profiling"]))
+        summary = _run_log(tdir)[-1].get("trace_summary")
+        _check(summary is not None and summary["lane"] == "device",
+               f"item7 (d): no device-lane trace_summary: {summary}")
+        names = [o["op"] for o in summary["top_ops"]]
+        for what, keys in (("K1f", ("wg_fwd_kernel",)),
+                           ("K1b", ("wg_dq_kernel", "wg_dkv_kernel")),
+                           ("a cuBLAS product",
+                            ("gemm", "cutlass", "nvjet"))):
+            _check(any(k in n for n in names for k in keys),
+                   f"item7 (d): top_ops name no {what}: {names}")
+        print(f"[item7] (d) --trace: device {summary['device_ms_total']} ms "
+              f"in the 2 timed steps, annotations "
+              f"{summary['annotations']}; top ops:")
+        for o in summary["top_ops"]:
+            print(f"[item7]   {o['device_ms']:9.3f} ms x{o['count']:<4d} "
+                  f"{o['op'][:90]}")
+        table = [ln for ln in lines if " us  -> " in ln or "TOTAL" in ln]
+        _check(len(table) == len(ff.layers) + 1,
+               f"item7 (e): {len(table)} profile rows for "
+               f"{len(ff.layers)} ops")
+        print("[item7] (e) --profiling, each op's forward alone (CUDA "
+              f"events, mean of 5); {card}:")
+        for ln in table:
+            print(f"[item7]   {ln}")
+
+        # -- (g) the chaos matrix on the card --
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = chaos_smoke.main([])
+        rows = out.getvalue().splitlines()
+        for ln in rows:
+            print(f"[item7] (g) {ln}")
+        _check(rc == 0, "item7 (g): a chaos scenario failed")
+        from flexflow_torch.runtime.chaos import PORTED, SCENARIOS
+
+        for name in SCENARIOS:
+            want = "PASS" if name in PORTED else "NOT PORTED"
+            _check(any(ln.startswith(want) and f" {name} " in ln
+                       for ln in rows), f"item7 (g): {name} not {want}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _card() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
@@ -4679,12 +5125,14 @@ def main() -> int:
     item5_rows, item5_launches = phase_item5(torch, kernels, F)
     rows.update(item5_rows)
     t.append(time.perf_counter())
+    item7_launches = phase_item7(torch, kernels)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
              "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
              "longctx-parity", "probe-kernels", "alexnet-kernels",
              "alexnet-train", "alexnet-parity", "superstep", "serve-features",
-             "serve-resilience", "nmt", "item5")
+             "serve-resilience", "nmt", "item5", "item7")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -4725,7 +5173,9 @@ def main() -> int:
                    "serve_resilience": resilience_launches.get(name, 0),
                    "nmt": nmt_launches.get(name, 0),
                    **{path: counts.get(name, 0)
-                      for path, counts in item5_launches.items()}}
+                      for path, counts in item5_launches.items()},
+                   **{path: counts.get(name, 0)
+                      for path, counts in item7_launches.items()}}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])

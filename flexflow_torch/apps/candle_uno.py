@@ -10,12 +10,12 @@ reference throughput lines.
 
 Flags beyond the common set: ``--dense-layers A-B-C`` (the trunk's
 widths, default 1000-1000-1000) and ``--dense-feature-layers A-B-C`` (each
-feature tower's).  ``--steps-per-call``, ``--accum-steps`` and ``--remat``
-work as on the other apps.  Refused until their slices
+feature tower's).  ``--steps-per-call``, ``--accum-steps``, ``--remat``,
+the checkpoint flags, ``--resilient``, ``--telemetry``, ``--trace`` and
+``--profiling`` work as on the other apps.  Refused until their slices
 land (ROADMAP.md queue 1): ``-d`` (one CSV per input, ``data/csv.py``,
-item 12), ``--resilient`` and telemetry (item 7), ``--granules`` and
-strategies over more than one GPU (item 9), ``-s auto`` and ``--search``
-(item 11).
+item 12), ``--granules`` and strategies over more than one GPU (item 9),
+``-s auto`` and ``--search`` (item 11), ``--elastic`` (item 13).
 
 Example (``bench.py``'s Candle-Uno leg)::
 

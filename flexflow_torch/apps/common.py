@@ -1,11 +1,17 @@
 """Shared app harness: the flag helpers, ``make_optimizer``,
-``load_strategy`` and the single-device ``run_training`` (with
-``--eval-iters``, ``--steps-per-call``, ``--accum-steps`` and
-``--remat``) of ``flexflow_tpu/apps/common.py``."""
+``load_strategy``, ``make_batch_fn`` and the single-device
+``run_training`` (with ``--eval-iters``, ``--steps-per-call``,
+``--accum-steps``, ``--remat``, checkpoints, ``--resilient``, run
+telemetry, ``--trace`` and ``--profiling``) of
+``flexflow_tpu/apps/common.py``."""
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Any, Dict, Optional
+
+import numpy as np
 
 from flexflow_torch.config import FFConfig
 from flexflow_torch.optim import AdamOptimizer, SGDOptimizer
@@ -23,6 +29,13 @@ Training apps also read:
                       clamped at 20)
   --accum-steps N (one update from N microbatches of the batch)
   --remat (recompute each layer's activations in the backward)
+  --save-every N   --ckpt-dir PATH (checkpoints; a run on the same
+                   directory resumes from its latest step)
+  --resilient (failure detection, rollback and deterministic replay,
+               SIGTERM emergency save)   --max-restarts N   --sync-ckpt
+  --telemetry DIR (JSONL run telemetry, heartbeat, stall watchdog)
+  --stall-deadline S   --stall-notify-pid PID
+  --trace DIR (torch.profiler trace of the timed loop)   --profiling
 Every other flag of the JAX package's apps is refused until its slice
 of the port lands (ROADMAP.md queue 1)."""
 
@@ -33,10 +46,12 @@ TRAINING_FLAGS = (
     "--dtype", "--seed", "--optimizer", "--momentum", "--lr-schedule",
     "--warmup", "--decay-steps", "--min-lr", "--lr-gamma", "--clip-norm",
     "-ll:gpu", "-ll:tpu", "--eval-iters", "-s", "--strategy",
-    "--steps-per-call", "--accum-steps",
+    "--steps-per-call", "--accum-steps", "--save-every", "--ckpt-dir",
+    "--max-restarts", "--telemetry", "--stall-deadline",
+    "--stall-notify-pid", "--trace",
 )
 #: The FFConfig flags a training app reads that take no value.
-TRAINING_SWITCHES = ("--remat",)
+TRAINING_SWITCHES = ("--remat", "--resilient", "--sync-ckpt", "--profiling")
 
 #: Flags of the JAX package's apps that name a feature still to be
 #: ported, with the ROADMAP.md item that brings it.
@@ -48,8 +63,9 @@ _NOT_PORTED = {
                       "item 11)",
     "--calibration": "the execution-config search (ROADMAP.md queue 1, "
                      "item 11)",
-    "--resilient": "the resilient trainer (ROADMAP.md queue 1, item 7)",
-    "--telemetry": "telemetry (ROADMAP.md queue 1, item 7)",
+    "--elastic": "elastic multi-host resize (ROADMAP.md queue 1, item 13)",
+    "--stream-dataset": "the streaming loader (ROADMAP.md queue 1, "
+                        "item 12)",
     "--granules": "multi-host hybrid meshes (ROADMAP.md queue 1, item 9)",
 }
 
@@ -184,6 +200,102 @@ def load_strategy(cfg: FFConfig):
     return store
 
 
+def make_batch_fn(ff, cfg: FFConfig, int_high: Optional[Dict[str, int]] = None):
+    """Deterministic per-step host batches for the resilient loop:
+    ``batch_fn(step)`` gives the SAME batch every time a step is played,
+    so a replay after a rollback reproduces the unfaulted trajectory bit
+    for bit.  Synthetic inputs under the key ``(seed, step)``, through
+    ``synthetic_host_batch``'s rules (the JAX package's draw).  The
+    dataset form comes with the data plane (ROADMAP.md queue 1, item
+    12)."""
+    from flexflow_torch.data.loader import synthetic_host_batch
+
+    def batch_fn(step: int) -> Dict[str, np.ndarray]:
+        return synthetic_host_batch(
+            ff, np.random.default_rng((cfg.seed, step)), int_high)
+
+    return batch_fn
+
+
+def _run_eval(trainer, params, state, cfg: FFConfig):
+    """``--eval-iters``: read-only steps on the trained params, on fresh
+    synthetic batches (seeds ``cfg.seed + 1 + i``), one implementation
+    for the plain and the resilient path."""
+    batches = (trainer.synthetic_batch(seed=cfg.seed + 1 + i)
+               for i in range(cfg.eval_iters))
+    ev = trainer.evaluate(params, state, batches, iterations=cfg.eval_iters)
+    print(f"EVAL loss = {ev['loss']:.6f} "
+          f"accuracy = {100.0 * ev['accuracy']:.2f}%")
+    return ev
+
+
+def _ckpt_dir(cfg: FFConfig) -> str:
+    return cfg.ckpt_dir or os.path.join(os.getcwd(), "ckpts")
+
+
+def _run_resilient(ff, cfg: FFConfig, executor_factory, label: str
+                   ) -> Dict[str, Any]:
+    """``--resilient``: the ResilientTrainer loop (failure detection,
+    rollback to the latest checkpoint with deterministic replay, the
+    SIGTERM emergency save), with ``--steps-per-call`` (detection at the
+    one fence of each superstep).  A preempted run prints where it saved
+    and exits 0; the same ``--ckpt-dir`` resumes there."""
+    from flexflow_torch.runtime.checkpoint import CheckpointManager
+    from flexflow_torch.runtime.resilience import (
+        FailurePolicy,
+        ResilientTrainer,
+    )
+    from flexflow_torch.runtime.trainer import Trainer
+
+    if cfg.accum_steps > 1:
+        raise SystemExit("--resilient does not compose with --accum-steps "
+                         "yet")
+    batch_fn = make_batch_fn(ff, cfg)
+    iters = cfg.iterations * max(cfg.epochs, 1)
+    with CheckpointManager(_ckpt_dir(cfg),
+                           async_save=cfg.async_checkpointing) as ck:
+        rt = ResilientTrainer(executor_factory, ck,
+                              policy=FailurePolicy(
+                                  max_restarts=cfg.max_restarts))
+        start = time.perf_counter()
+        out = rt.fit(iterations=iters, batch_fn=batch_fn,
+                     save_every=cfg.save_every, seed=cfg.seed,
+                     steps_per_call=cfg.steps_per_call)
+        elapsed = time.perf_counter() - start
+    completed = len(out["losses"])
+    throughput = completed * cfg.batch_size / max(elapsed, 1e-9)
+    print(f"time = {elapsed:.4f}s")
+    print(f"tp = {throughput:.2f} samples/s")
+    print(f"ELAPSED TIME = {elapsed:.4f}s")
+    print(f"THROUGHPUT = {throughput:.2f} {label}/s")
+    print(f"restarts = {out['restarts']}")
+    if completed == 0:
+        print(f"resumed at step {out['step']}: already complete")
+    if out["preempted"]:
+        # Out before any eval: the grace window is for the save.
+        print(f"PREEMPTED: emergency checkpoint at step {out['step']}")
+        raise SystemExit(0)
+    stats = {
+        "elapsed_s": elapsed,
+        "samples_per_s": throughput,
+        "iterations": out["step"],
+        "batch_size": cfg.batch_size,
+        "loss": out["loss"],
+        "restarts": out["restarts"],
+        # Steps this process ran (a resumed run's "iterations" is its
+        # absolute step): the denominator of this run's elapsed_s.
+        "steps_this_run": completed,
+        "step_losses": [out["losses"][s] for s in sorted(out["losses"])],
+        "final": (out["params"], out["opt_state"], out["state"]),
+    }
+    if "telemetry" in out:
+        stats["telemetry"] = out["telemetry"]
+    if cfg.eval_iters > 0 and rt.executor is not None:
+        stats["eval"] = _run_eval(Trainer(rt.executor), out["params"],
+                                  out["state"], cfg)
+    return stats
+
+
 def run_training(ff, cfg: FFConfig, label: str = "samples",
                  device="cuda") -> Dict[str, Any]:
     """Build the executor, run ``cfg.epochs x cfg.iterations`` timed
@@ -195,31 +307,65 @@ def run_training(ff, cfg: FFConfig, label: str = "samples",
     integer inputs are drawn in ``{0, 1}``.  With ``--eval-iters N``,
     ``N`` read-only eval steps follow on the trained params, on fresh
     synthetic batches (seeds ``cfg.seed + 1 + i``, as in the JAX
-    package), and print the ``EVAL`` line.  Returns the fit stats, with
-    the trained ``(params, opt_state, state)`` under ``"final"`` and
-    the eval results under ``"eval"``."""
+    package), and print the ``EVAL`` line.
+
+    ``--resilient`` takes the ResilientTrainer loop on per-step batches
+    from :func:`make_batch_fn`; ``--ckpt-dir`` / ``--save-every`` alone
+    give ``Trainer.fit`` a checkpoint (resume, periodic and final saves,
+    the SIGTERM emergency save: a preempted run exits 0).  With
+    ``--telemetry DIR`` (or ``FF_TELEMETRY_DIR``) the whole run, the
+    executor's build included, reports into one JSONL stream.  Returns
+    the fit stats, with the trained ``(params, opt_state, state)`` under
+    ``"final"`` and the eval results under ``"eval"``."""
+    from flexflow_torch.runtime import telemetry as _telemetry
+
+    with _telemetry.maybe_run(cfg, meta={"app": label}):
+        return _run_training(ff, cfg, label, device)
+
+
+def _run_training(ff, cfg: FFConfig, label: str, device) -> Dict[str, Any]:
+    from flexflow_torch.runtime.checkpoint import CheckpointManager
     from flexflow_torch.runtime.executor import Executor
     from flexflow_torch.runtime.trainer import Trainer
 
     load_strategy(cfg)
-    ex = Executor(ff, cfg, optimizer=make_optimizer(cfg), device=device)
-    trainer = Trainer(ex)
-    stats = trainer.fit(iterations=cfg.iterations * max(cfg.epochs, 1),
-                        warmup=1, log_every=cfg.print_freq,
-                        accum_steps=cfg.accum_steps,
-                        steps_per_call=cfg.steps_per_call)
-    print(f"ELAPSED TIME = {stats['elapsed_s']:.4f}s")
-    print(f"THROUGHPUT = {stats['samples_per_s']:.2f} {label}/s")
-    if cfg.eval_iters > 0:
-        params, _, state = trainer.final
-        batches = (trainer.synthetic_batch(seed=cfg.seed + 1 + i)
-                   for i in range(cfg.eval_iters))
-        ev = trainer.evaluate(params, state, batches,
-                              iterations=cfg.eval_iters)
-        print(f"EVAL loss = {ev['loss']:.6f} "
-              f"accuracy = {100.0 * ev['accuracy']:.2f}%")
-        stats["eval"] = ev
-    #: The trained (params, opt_state, state), for a caller that checks
-    #: or evaluates them.
-    stats["final"] = trainer.final
+
+    def build():
+        return Executor(ff, cfg, optimizer=make_optimizer(cfg), device=device)
+
+    ex = build()
+    if cfg.resilient:
+        def executor_factory(_first=[ex]):
+            # The first call takes the executor built above; a recovery
+            # from a raised fault builds a fresh one.
+            return _first.pop() if _first else build()
+
+        stats = _run_resilient(ff, cfg, executor_factory, label)
+    else:
+        trainer = Trainer(ex)
+        ck = None
+        if cfg.ckpt_dir or cfg.save_every > 0:
+            ck = CheckpointManager(_ckpt_dir(cfg),
+                                   async_save=cfg.async_checkpointing)
+        try:
+            stats = trainer.fit(iterations=cfg.iterations * max(cfg.epochs, 1),
+                                warmup=1, log_every=cfg.print_freq,
+                                checkpoint=ck, save_every=cfg.save_every,
+                                accum_steps=cfg.accum_steps,
+                                steps_per_call=cfg.steps_per_call)
+        finally:
+            if ck is not None:
+                ck.close()
+        print(f"ELAPSED TIME = {stats['elapsed_s']:.4f}s")
+        print(f"THROUGHPUT = {stats['samples_per_s']:.2f} {label}/s")
+        if stats.get("preempted"):
+            print(f"PREEMPTED: emergency checkpoint at step "
+                  f"{stats['checkpoint_step']}")
+            raise SystemExit(0)
+        if cfg.eval_iters > 0:
+            params, _, state = trainer.final
+            stats["eval"] = _run_eval(trainer, params, state, cfg)
+        #: The trained (params, opt_state, state), for a caller that
+        #: checks or evaluates them.
+        stats["final"] = trainer.final
     return stats

@@ -59,8 +59,10 @@ _REFUSED = {
 def _refuse(argv) -> None:
     for a in argv:
         why = _REFUSED.get(a)
-        if why is None and a.startswith("--trace"):
-            why = "traces (ROADMAP.md queue 1, items 7 and 12)"
+        if why is None and a.startswith("--trace-"):
+            # --trace-alpha / --trace-burst shape --prod-trace; --trace
+            # DIR (the profiler) is a common flag.
+            why = "production traces (ROADMAP.md queue 1, item 12)"
         if why is not None:
             raise SystemExit(f"flexflow_torch dlrm does not support {a!r} yet: "
                              f"{why} is not ported")

@@ -1,7 +1,9 @@
 """Transformer LM serving app: the closed-loop path of
 ``flexflow_tpu/apps/serve.py`` on one GPU.
 
-Builds the transformer LM at serving shapes with fresh seeded weights
+Builds the transformer LM at serving shapes, restores its params from a
+training checkpoint when ``--ckpt-dir`` names one (the train-to-serve
+handoff, ``ServingExecutor.restore``; fresh seeded weights otherwise),
 and drives the continuous-batching loop (``runtime/serving.py``) over a
 synthetic request stream: pad-to-bucket prefill per admission, K-token
 decode supersteps (one CUDA graph and one host readback per superstep
@@ -35,6 +37,14 @@ Speculation flags:
                      output equals plain decode's.
   --draft-layers L   self-draft through the first L transformer blocks
                      (0 = the full model, acceptance 1.0)
+  --draft-ckpt PATH  restore the draft's params from their own training
+                     checkpoint (same architecture; default: the
+                     serving params, a self-draft)
+
+Checkpoint flags:
+  --ckpt-dir PATH    serve the params of the latest readable step of a
+                     training checkpoint directory (``apps.transformer
+                     --ckpt-dir PATH`` at the same model flags)
 
 Sampling flags (greedy stays the default):
   --temperature T    temperature sampling on the device (0 = greedy)
@@ -53,8 +63,8 @@ Failure-model flags of the plain loop:
                      compute, no kernel launch
 
 Refused by name, with the ROADMAP.md queue 1 item that brings each:
-sharding, checkpoints, the scheduler's failure model, the scheduler and
-fleet, and telemetry.  Any other unknown flag is refused too.
+sharding, the scheduler's failure model, the scheduler and fleet, and
+the serving loop's telemetry.  Any other unknown flag is refused too.
 
 Example::
 
@@ -85,12 +95,10 @@ _DTYPES = ("float32", "bfloat16")
 #: queue 1 item that brings each.
 UNPORTED = {
     "--shard": "item 9 (multi-device strategies)",
-    "--draft-ckpt": "item 7 (checkpoints)",
-    "--ckpt-dir": "item 7 (checkpoints)",
     **{f: "item 8 (the scheduler's failure model)" for f in (
         "--serve-retries", "--serve-max-restarts", "--expire-waiting",
         "--retry-backoff-ms")},
-    "--telemetry": "item 7 (telemetry)",
+    "--telemetry": "item 7's rest (the serving loop's telemetry events)",
     **{f: "item 8 (the scheduler and fleet)" for f in (
         "--sched", "--workload-trace", "--trace-alpha", "--mean-gap-ms",
         "--burst", "--slo-ms", "--priorities", "--shed-depth",
@@ -129,6 +137,8 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     speculate = pop_int(argv, "--speculate", 0)
     draft_layers = pop_int(argv, "--draft-layers", 0)
     journal_path = pop_str(argv, "--journal", "")
+    ckpt_dir = pop_str(argv, "--ckpt-dir", "")
+    draft_ckpt = pop_str(argv, "--draft-ckpt", "")
     switches = {}
     for flag in ("--no-decode-kernel", "--prefix-cache", "--dry-run"):
         switches[flag] = flag in argv
@@ -164,10 +174,10 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
             "--kv-block N")
     if speculate < 0:
         raise SystemExit(f"--speculate expects d >= 0, got {speculate}")
-    if draft_layers and not speculate:
+    if (draft_ckpt or draft_layers) and not speculate:
         raise SystemExit(
-            "--draft-layers configures the DRAFT source and needs "
-            "--speculate d to arm speculation")
+            "--draft-ckpt/--draft-layers configure the DRAFT source and "
+            "need --speculate d to arm speculation")
     if buckets_s:
         buckets = tuple(int(b) for b in buckets_s.split(","))
     else:
@@ -193,7 +203,15 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
         raise SystemExit(str(e))
     if switches["--dry-run"]:
         return _dry_run(sex, decode_steps, speculate)
-    params, state = sex.init(cfg.seed)
+    if ckpt_dir:
+        step, params, state = sex.restore(ckpt_dir)
+        print(f"restored training checkpoint step {step} from {ckpt_dir}")
+    else:
+        params, state = sex.init(cfg.seed)
+    draft_params = None
+    if draft_ckpt:
+        dstep, draft_params, _ds = sex.restore(draft_ckpt)
+        print(f"restored draft checkpoint step {dstep} from {draft_ckpt}")
     requests = synthetic_requests(
         n_requests, vocab, prompt_len=(lo, hi), max_new_tokens=max_new,
         seed=cfg.seed,
@@ -202,7 +220,7 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
                  eos_id=None if eos < 0 else eos, temperature=temperature,
                  top_k=top_k, sample_seed=sample_seed, speculate=speculate,
                  journal=RequestJournal(journal_path) if journal_path
-                 else None)
+                 else None, draft_params=draft_params)
     t0 = time.perf_counter()
     results, stats = srv.run(requests)
     elapsed = time.perf_counter() - t0

@@ -19,7 +19,9 @@ supersteps as CUDA graphs), the NMT leg (``nmt_pairs_per_s`` and
 ``nmt_10iter_time_s``: batch 64, 2 layers, hidden = embed = 2048, vocab
 20480, seq 20, bf16, SGD lr 0.01, 2 + 10 steps), the Candle-Uno leg
 (``candle_samples_per_s``: the reference's widths, batch 512, bf16, SGD
-lr 0.01, 2 + 10 steps) and the card's name and power limit.  Throughput
+lr 0.01, 2 + 10 steps), the telemetry leg (``telemetry``: bench.py's
+fences/step, step-time percentiles and the telemetry-on overhead of a
+small MLP) and the card's name and power limit.  Throughput
 is ``iterations x batch / elapsed`` with one fence at the end
 (``Trainer.fit``); the flops come from
 ``search/cost_model.py::train_flops``.  A leg that fails becomes
@@ -28,7 +30,7 @@ the line carries ``"value": null`` and the error; nothing is measured
 on the CPU.
 
 ``bench.py``'s other legs (pipeline,
-telemetry, data plane, search, op-parallel) and the serving leg's
+data plane, search, op-parallel) and the serving leg's
 scheduler, failure-model, fleet, sharded and prefix-workload columns
 wait for their slices of the port (ROADMAP.md queue 1).  The leg functions take the
 device and their sizes as arguments, so a test can run them small on
@@ -167,6 +169,63 @@ def bench_superstep(device="cuda", batch: int = 64, width: int = 256,
     out["amortization_k8_vs_k1"] = round(
         out["k1_ms_per_step"] / out["k8_ms_per_step"], 3)
     return out
+
+
+def bench_telemetry(device="cuda", batch: int = 64, width: int = 256,
+                    iters: int = 32) -> dict:
+    """``bench.py``'s run-telemetry leg (``bench_telemetry``) at its
+    one-chip TPU sizes: bench.py's MLP (``width`` -> ``width`` ReLU -> 8
+    classes, SGD lr 0.01 momentum 0.9) trained ``iters`` steps with
+    in-memory telemetry (counters and percentiles, no JSONL) and
+    without, in two pairs (on, off, on, off) in this process.
+    Returns fences/step, the host step-time p50/p95/max of the last
+    telemetry run, and the overhead of telemetry over the summed
+    elapsed times.  ``FF_TELEMETRY_DIR`` is unset around the legs, so
+    the "off" fits are off.  ``programs_per_step`` needs the pipeline
+    (item 10); on one device the JAX leg leaves it out too."""
+    import os
+
+    import torch
+
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.graph import FFModel
+    from flexflow_torch.optim import SGDOptimizer
+    from flexflow_torch.runtime.executor import Executor
+    from flexflow_torch.runtime.telemetry import Telemetry
+    from flexflow_torch.runtime.trainer import Trainer
+
+    def build():
+        ff = FFModel(FFConfig(batch_size=batch, seed=7))
+        x = ff.create_tensor((batch, width), name="x")
+        lbl = ff.create_tensor((batch,), dtype=torch.int32, name="label")
+        t = ff.dense(x, width, activation="relu", name="fc1")
+        t = ff.dense(t, 8, name="fc2")
+        ff.softmax(t, lbl, name="softmax")
+        return Executor(ff, optimizer=SGDOptimizer(lr=0.01, momentum=0.9),
+                        device=device)
+
+    env_dir = os.environ.pop("FF_TELEMETRY_DIR", None)
+    on_s = off_s = 0.0
+    try:
+        for _ in range(2):
+            with Telemetry():
+                on = Trainer(build()).fit(iterations=iters, warmup=1)
+            off = Trainer(build()).fit(iterations=iters, warmup=1)
+            on_s += on["elapsed_s"]
+            off_s += off["elapsed_s"]
+    finally:
+        if env_dir is not None:
+            os.environ["FF_TELEMETRY_DIR"] = env_dir
+    t = on["telemetry"]
+    return {
+        "batch_size": batch,
+        "iterations": iters,
+        "fences_per_step": t.get("fences_per_step"),
+        "step_ms_p50": t.get("step_ms_p50"),
+        "step_ms_p95": t.get("step_ms_p95"),
+        "step_ms_max": t.get("step_ms_max"),
+        "overhead_pct": round((on_s - off_s) / off_s * 100, 2),
+    }
 
 
 def bench_serving(device="cuda", vocab: int = 32768, d_model: int = 512,
@@ -346,6 +405,11 @@ def _run() -> dict:
             extra["superstep"] = bench_superstep()
     except Exception as e:
         extra["superstep_error"] = f"{type(e).__name__}: {e}"
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            extra["telemetry"] = bench_telemetry()
+    except Exception as e:
+        extra["telemetry_error"] = f"{type(e).__name__}: {e}"
     try:
         with contextlib.redirect_stdout(sys.stderr):
             extra["serving"] = bench_serving()

@@ -41,10 +41,14 @@ The single-device core of ``flexflow_tpu/runtime/serving.py``:
   PreemptionHandler``) at a superstep boundary.
 - **Dry run** (:meth:`ServingExecutor.abstract_programs`): every
   program traced on ``meta`` tensors, no device compute.
+- **Train to serve** (:meth:`ServingExecutor.restore`): a training
+  checkpoint's params and op state onto the serving device
+  (``runtime/checkpoint.py``).
 
-Left for later slices (ROADMAP.md queue 1): checkpoint restore and
-telemetry (item 7), the scheduler, its failure model and the fleet
-(item 8), sharded decode (item 9).
+Left for later slices (ROADMAP.md queue 1): the serving loop's
+telemetry events (item 7's rest; the injector's ``fault`` events are
+in), the scheduler, its failure model and the fleet (item 8), sharded
+decode (item 9).
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ from flexflow_torch.graph import FFModel
 from flexflow_torch.ops import kernels
 from flexflow_torch.ops.attention import MultiHeadAttention, PositionEmbedding
 from flexflow_torch.runtime import keyed_random
+from flexflow_torch.runtime import telemetry as _telemetry
 from flexflow_torch.runtime.executor import Executor, resolve_device
 from flexflow_torch.runtime.graphs import StepGraph
 from flexflow_torch.runtime.resilience import PreemptionHandler
@@ -107,8 +112,8 @@ EXIT_SERVING_FAILURE = 77
 
 class ServingFaultInjector:
     """Scheduled faults for the serving loop, keyed by decode-superstep
-    index (the JAX package's ``ServingFaultInjector``; its telemetry
-    events come with item 7).
+    index (the JAX package's ``ServingFaultInjector``; each fault is also
+    a ``fault`` event of the current run telemetry).
 
     - ``nan_cache_at``: ``{superstep: slot}``: before that superstep the
       slot's layer-0 K cache row (padded) or its first owned pool block
@@ -151,15 +156,21 @@ class ServingFaultInjector:
         if idx in self.engine_raise_at:
             msg = self.engine_raise_at.pop(idx)
             self.fired.append(("engine", idx, -1))
+            _telemetry.current().emit("fault", mode="serving_engine",
+                                      superstep=idx, slot=None)
             raise ServingEngineFault(
                 msg or f"injected engine fault at superstep {idx}")
         if idx in self.raise_at:
             slot = self.raise_at.pop(idx)
             self.fired.append(("raise", idx, slot))
+            _telemetry.current().emit("fault", mode="serving_raise",
+                                      superstep=idx, slot=slot)
             raise ServingFault(slot)
         if idx in self.nan_cache_at:
             slot = self.nan_cache_at.pop(idx)
             self.fired.append(("nan_cache", idx, slot))
+            _telemetry.current().emit("fault", mode="serving_nan",
+                                      superstep=idx, slot=slot)
             if caches is None:
                 return None, slot
             k = caches[next(iter(caches))]["k"]
@@ -594,6 +605,29 @@ class ServingExecutor:
         params = Executor(self.model, config=self.config,
                           device=self.device).init_params(seed)
         return params, {}
+
+    # -- params / checkpoint handoff ---------------------------------------
+
+    def _templates(self):
+        """``(params, None, op_state)`` templates on the serving device,
+        from the init path training uses, so a training snapshot restores
+        into the same structure.  The optimizer's template is None: the
+        snapshot's optimizer state (whatever the optimizer was) is read
+        and dropped."""
+        params, state = Executor(self.model, config=self.config,
+                                 device=self.device).init_params_and_state()
+        return params, None, state
+
+    def restore(self, ckpt_dir: str, step: Optional[int] = None):
+        """The train-to-serve handoff: ``(step, params, op_state)`` of a
+        training checkpoint directory (the latest readable step, or
+        ``step``), restored into tensors on the serving device."""
+        from flexflow_torch.runtime.checkpoint import CheckpointManager
+
+        with CheckpointManager(ckpt_dir, read_only=True) as ck:
+            got, params, _opt, state = ck.restore(
+                templates=self._templates(), step=step)
+        return got, params, state
 
     # -- capacity ------------------------------------------------------------
 

@@ -208,6 +208,8 @@ def _stand_in_card(monkeypatch, dlrm=None, superstep=None, serving=None,
     monkeypatch.setattr(bench, "bench_candle", candle or functools.partial(
         bench.bench_candle, device="cpu", batch=8, iters=2, warmup=1,
         candle=_small_candle()))
+    monkeypatch.setattr(bench, "bench_telemetry", functools.partial(
+        bench.bench_telemetry, device="cpu", batch=8, width=16, iters=4))
 
 
 def _one_line(capsys):
@@ -228,7 +230,7 @@ def test_main_prints_one_line_with_bench_py_keys(monkeypatch, capsys):
     for leg in ("transformer", "transformer_8k", "transformer_32k"):
         keys |= {f"{leg}_tokens_per_s", f"{leg}_mfu"}
     keys |= {"superstep", "serving", "nmt_pairs_per_s", "nmt_10iter_time_s",
-             "candle_samples_per_s"}
+             "candle_samples_per_s", "telemetry"}
     assert set(line["extra"]) == keys
     assert set(line["extra"]["serving"]) == SERVING_KEYS
     assert line["extra"]["platform"] == "gpu" and line["extra"]["n_chips"] == 1

@@ -219,7 +219,8 @@ def test_serve_app_on_cpu(capsys):
     assert stats["tokens"] == 15 and stats["prefills"] == 3
 
 
-@pytest.mark.parametrize("flag", [["--shard", "2,2"], ["--ckpt-dir", "PATH"],
+@pytest.mark.parametrize("flag", [["--shard", "2,2"],
+                                  ["--serve-max-restarts", "2"],
                                   ["--sched", "fifo"], ["--telemetry", "d"],
                                   ["--serve-retries", "2"],
                                   ["--dtype", "float16"]])

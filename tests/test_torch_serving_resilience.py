@@ -3,8 +3,9 @@ the fault injector, the request journal and its resume, the drain on
 SIGTERM and the dry-run program table, held against the JAX package and
 inside the port on the CPU.
 
-Four of JAX's chaos scenarios (``flexflow_tpu/runtime/chaos.py``) run
-as port tests on the scenarios' own stack (vocab 32, d_model 16, 2
+Four of JAX's chaos scenarios, ported into
+``flexflow_torch/runtime/chaos.py``, run as port tests on the scenarios'
+own stack (vocab 32, d_model 16, 2
 heads, 1 layer, 2 slots, max_seq 32; the JAX parameters carried
 across), each on the padded and the paged layout and with ``graph=False``
 and ``graph=True`` (on the CPU the graph form runs its steps as a loop,
@@ -34,6 +35,7 @@ from flexflow_torch.apps import serve as tserve
 from flexflow_torch.config import FFConfig as TConfig
 from flexflow_torch.models.transformer import build_transformer_lm as tbuild
 from flexflow_torch.ops import kernels
+from flexflow_torch.runtime import chaos
 from flexflow_torch.runtime import serving as tserving
 from flexflow_torch.runtime.resilience import PreemptionHandler
 from flexflow_torch.serving import journal as tjournal
@@ -99,115 +101,64 @@ def base(jax_params):
     return _tokens(res)
 
 
-# -- chaos.scenario_serving_decode_fault ----------------------------------------
+# -- the chaos scenarios (flexflow_torch/runtime/chaos.py) ------------------------
 
 
 @pytest.mark.parametrize("graph", GRAPH)
 @pytest.mark.parametrize("kv_block", LAYOUTS)
 def test_decode_fault_isolates_the_faulted_slots(jax_params, base, kv_block,
-                                                 graph):
-    """A NaN'd cache row (padded) or first block (paged) before superstep
-    1 and a raise before superstep 3: requests 0 and 2 error out, 1 and 3
-    keep the unfaulted tokens."""
-    inj = tserving.ServingFaultInjector(nan_cache_at={1: 0}, raise_at={3: 0})
-    res, stats = _serve(_stack(jax_params, kv_block), _requests(),
-                        fault_injector=inj, graph=graph)
-    assert stats["kv_layout"] == ("paged" if kv_block else "padded")
-    assert {m for m, _, _ in inj.fired} == {"nan_cache", "raise"}
-    assert _failed(res) == [0, 2]
-    assert res[0].error == "non-finite logits in decode"
-    assert res[2].error.startswith("raised fault")
-    for rid in (1, 3):
-        assert res[rid].tokens == base[rid]
-
-
-# -- chaos.scenario_serving_sigterm_drain ---------------------------------------
+                                                 graph, tmp_path):
+    """``chaos.scenario_serving_decode_fault``: a NaN'd cache row
+    (padded) or first block (paged) before superstep 1 and a raise before
+    superstep 3: requests 0 and 2 error out, 1 and 3 keep the unfaulted
+    tokens (``base``: JAX's too)."""
+    ok, detail = chaos.scenario_serving_decode_fault(
+        str(tmp_path), device="cpu", layouts=(kv_block,), graph=graph,
+        params=jax_params)
+    assert ok, detail
 
 
 @pytest.mark.parametrize("graph", GRAPH)
 @pytest.mark.parametrize("kv_block", LAYOUTS)
 def test_sigterm_drains_and_the_journal_resumes(jax_params, base, kv_block,
                                                 graph, tmp_path):
-    """SIGTERM before superstep 1 on a journaled Server: the run drains
-    at the next boundary with no error and work left; a fresh Server on
-    the journal serves the rest, and the merged output equals the
-    undrained run."""
-    stack = _stack(jax_params, kv_block, buckets=RECOVERY_BUCKETS)
-    path = str(tmp_path / "journal.jsonl")
-    inj = tserving.ServingFaultInjector(preempt_at={1})
-    res_d, st_d = _serve(stack, _requests(), graph=graph, fault_injector=inj,
-                         journal=tjournal.RequestJournal(path))
-    assert st_d["drained"] is True and inj.fired == [("preempt", 1, -1)]
-    assert not _failed(res_d) and len(res_d) < 4
-    assert tjournal.RequestJournal(path).replay().drained
-    res_r, st_r = _serve(stack, _requests(), graph=graph,
-                         journal=tjournal.RequestJournal(path))
-    assert st_r["drained"] is False
-    assert _tokens(res_r) == base
-    # A SIGTERM outside a run has the default handling back.
-    assert signal.getsignal(signal.SIGTERM) == signal.SIG_DFL
-
-
-# -- chaos.scenario_serving_spec_fault ------------------------------------------
+    """``chaos.scenario_serving_sigterm_drain``: SIGTERM before superstep
+    1 on a journaled Server drains at the next boundary with no error and
+    work left; a fresh Server on the journal serves the rest, the merged
+    output equals the undrained run, and SIGTERM's default handling is
+    back."""
+    ok, detail = chaos.scenario_serving_sigterm_drain(
+        str(tmp_path), device="cpu", layouts=(kv_block,), graph=graph,
+        params=jax_params)
+    assert ok, detail
 
 
 @pytest.mark.parametrize("graph", GRAPH)
 @pytest.mark.parametrize("kv_block", LAYOUTS)
 def test_spec_fault_isolates_at_the_verify_fence(jax_params, base, kv_block,
-                                                 graph):
-    """Speculation (full self-draft, d = 4): clean, the tokens equal
-    plain decode's; under the fault matrix requests 0 and 2 error out at
-    the verify fence and 1 and 3 keep the unspeculated tokens."""
-    stack = _stack(jax_params, kv_block)
-    clean, st = _serve(stack, _requests(), speculate=4, graph=graph)
-    assert st["speculate"] == 4 and _tokens(clean) == base
-    inj = tserving.ServingFaultInjector(nan_cache_at={1: 0}, raise_at={3: 0})
-    res, _ = _serve(stack, _requests(), speculate=4, graph=graph,
-                    fault_injector=inj)
-    assert {m for m, _, _ in inj.fired} == {"nan_cache", "raise"}
-    assert _failed(res) == [0, 2]
-    for rid in (1, 3):
-        assert res[rid].tokens == base[rid]
-
-
-# -- chaos.scenario_prefix_donor_eviction ---------------------------------------
-
-
-def _prefix_requests():
-    rng = np.random.default_rng(11)
-    span = rng.integers(0, 32, size=8).astype(np.int32)
-    tails = [rng.integers(0, 32, size=n).astype(np.int32) for n in (3, 4, 3)]
-    other = rng.integers(0, 32, size=5).astype(np.int32)
-    prompts = [np.concatenate([span, t]).astype(np.int32)
-               for t in tails] + [other]
-    budgets = (8, 16, 8, 8)
-    return [tserving.Request(id=i, prompt=p, max_new_tokens=budgets[i])
-            for i, p in enumerate(prompts)]
+                                                 graph, tmp_path):
+    """``chaos.scenario_serving_spec_fault``: speculation (full
+    self-draft, d = 4), clean, gives plain decode's tokens; under the
+    fault matrix requests 0 and 2 error out at the verify fence and 1 and
+    3 keep the unspeculated tokens."""
+    ok, detail = chaos.scenario_serving_spec_fault(
+        str(tmp_path), device="cpu", layouts=(kv_block,), graph=graph,
+        params=jax_params)
+    assert ok, detail
 
 
 @pytest.mark.parametrize("graph", GRAPH)
-def test_prefix_donor_crash_leaves_the_sharers_intact(jax_params, graph):
-    """Requests 0-2 share an 8-token block; the donor (0) is raised out
-    before superstep 1 while sharer 1 still points at its block.  The
-    refcount keeps the block, the index survives (r2 still hits), and
-    every sharer equals the unshared padded oracle; the paged run with
-    the cache off equals it too."""
-    oracle, _ = _serve(_stack(jax_params, buckets=(16,)), _prefix_requests(),
-                       graph=graph)
-    assert not _failed(oracle)
-    off, _ = _serve(_stack(jax_params, 8, buckets=(16,)), _prefix_requests(),
-                    graph=graph)
-    assert _tokens(off) == _tokens(oracle)
-    stack = _stack(jax_params, 8, buckets=(16,), prefix_cache=True)
-    on, st = _serve(stack, _prefix_requests(), graph=graph)
-    assert st["prefix_hits"] >= 2 and _tokens(on) == _tokens(oracle)
-    inj = tserving.ServingFaultInjector(raise_at={1: 0})
-    res, st = _serve(stack, _prefix_requests(), graph=graph,
-                     fault_injector=inj)
-    assert {m for m, _, _ in inj.fired} == {"raise"}
-    assert _failed(res) == [0] and st["prefix_hits"] >= 2
-    for rid in (1, 2, 3):
-        assert res[rid].tokens == oracle[rid].tokens
+def test_prefix_donor_crash_leaves_the_sharers_intact(jax_params, graph,
+                                                      tmp_path):
+    """``chaos.scenario_prefix_donor_eviction``: requests 0-2 share an
+    8-token block; the donor (0) is raised out before superstep 1 while
+    sharer 1 still points at its block.  The refcount keeps the block,
+    the index survives (r2 still hits), and every sharer equals the
+    unshared padded oracle; the paged run with the cache off equals it
+    too."""
+    ok, detail = chaos.scenario_prefix_donor_eviction(
+        str(tmp_path), device="cpu", graph=graph, params=jax_params)
+    assert ok, detail
 
 
 # -- engine faults, journals across packages ---------------------------------

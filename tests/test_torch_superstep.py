@@ -602,8 +602,8 @@ def test_alexnet_app_runs_supersteps():
 
 @pytest.mark.parametrize("flags,what", [
     (["--accum-steps", "3"], "microbatches"),
-    (["--remat", "--resilient"], "--resilient"),
-    (["--remat", "--telemetry", "d"], "--telemetry"),
+    (["--remat", "--resilient", "--accum-steps", "2"], "--resilient"),
+    (["--remat", "--telemetry"], "--telemetry"),
 ])
 def test_training_apps_refuse_what_does_not_fit(flags, what):
     """The refusal walk steps over the bare ``--remat`` and over each

@@ -203,14 +203,30 @@ def test_fit_loss_trajectory_matches_jax(start):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(batches=iter([{}])), "batch iterator"),
-    (dict(checkpoint=object()), "checkpoint"), ({}, "telemetry")])
+    (dict(batches=iter([{}])), "batch iterator")])
 def test_trainer_refuses_what_is_not_ported(kw, what):
     ex = _torch_executor()
-    if what == "telemetry":
-        ex.config.telemetry_dir = "unused"
     with pytest.raises(NotImplementedError, match=what):
         TTrainer(ex).fit(iterations=1, **kw)
+
+
+@pytest.mark.parametrize("what", ["checkpoint", "telemetry"])
+def test_trainer_takes_checkpoints_and_telemetry(tmp_path, what):
+    """What item 7 brought: a checkpoint (saved at the end) and run
+    telemetry (its summary in the stats), the losses unchanged."""
+    from flexflow_torch.runtime.checkpoint import CheckpointManager
+
+    plain = TTrainer(_torch_executor()).fit(iterations=1)
+    ex = _torch_executor()
+    if what == "telemetry":
+        ex.config.telemetry_dir = str(tmp_path)
+        stats = TTrainer(ex).fit(iterations=1)
+        assert stats["telemetry"]["steps"] == 1
+    else:
+        with CheckpointManager(str(tmp_path)) as ck:
+            stats = TTrainer(ex).fit(iterations=1, checkpoint=ck)
+            assert ck.all_steps() == [2]
+    assert stats["step_losses"] == plain["step_losses"]
 
 
 _APP = ["-b", "2", "--seq", "16", "--layers", "2", "--vocab", "64",
@@ -232,8 +248,8 @@ def test_transformer_app_on_cpu(capsys, dtype):
 
 @pytest.mark.parametrize("flag", [
     ["--dp", "2"], ["--sp", "2"], ["--tp", "2"],
-    ["--resilient"], ["--telemetry", "d"], ["--lazy-sparse-opt"],
-    ["-ll:gpu", "2"], ["--dtype", "float16"], ["--ckpt-dir", "d"],
+    ["--elastic"], ["--telemetry"], ["--lazy-sparse-opt"],
+    ["-ll:gpu", "2"], ["--dtype", "float16"], ["--ckpt-dir"],
     ["--bogus"]])
 def test_transformer_app_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as e:
