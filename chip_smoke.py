@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Twenty-four phases, in order; any failure raises and exits non-zero:
+Twenty-five phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -295,10 +295,35 @@ Twenty-four phases, in order; any failure raises and exits non-zero:
     device ms; (e) ``--profiling``'s per-op table; (g) the chaos matrix
     through ``tools.chaos_smoke``: every ported scenario passes, the
     rest print ``NOT PORTED`` with their item.
+25. **Item 7's rest and item 8's scheduler** (``serve-sched``, ``SCHED``:
+    phase 3's widths, bf16, over the serving leg's bursty workload of 2 x
+    16 requests).  (a) the plain ``Server`` at K = 8, telemetry on and
+    off: the same tokens and fences, one start and one end event per
+    request, 1/8 program a step, ``python -m flexflow_torch.obs report``
+    on the log, telemetry's host time per dispatch (and by kind) and
+    ``overhead_pct``; (b) ``ScheduledServer`` slo and fifo on the card: the bench columns,
+    tokens equal to the plain Server's, decisions and dispatches equal
+    to the simulated run's, exact K1f and K6 launches (K6 at each k's
+    capture), wall ms per superstep by k beside the plain graph's and
+    each k's capture ms and bytes; (c) one retry and one engine restart
+    (``bench.SCHED_FAULTS``): counters and decisions equal to the
+    simulated run's, untouched requests' tokens equal (b)'s, K6 captured
+    again after the restart, no degraded rung, ms a restart; (d) every
+    timeline of (b)'s log reconciles to the microsecond, the autopsy of
+    the stats is the one the reader folds from the log, ``obs request
+    LOG --id N``; (e) the prefix workload on the paged pool (kv_block 16)
+    with the prefix cache against the pool without it: the same hits in
+    bf16 and f32, tokens equal in f32, and in bf16 unequal for at most
+    ``PREFIX_BF16_MOVED`` requests, each one that shared a prefix (the
+    offset prefill's tail runs the einsum where a fresh prefill runs
+    K1f), and for none once every fresh prefill runs that einsum too;
+    speculation d = 4, tokens equal to plain decode; (f) (b)'s slo run
+    under the latency model fitted on (a)'s log, both sets of virtual-ms
+    columns labelled.
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
 DLRM, long-context, race, AlexNet, superstep, serve-features,
-serve-resilience, NMT, CNN, Candle, MoE and item-7 runs together, split
+serve-resilience, NMT, CNN, Candle, MoE, item-7 and scheduled runs together, split
 in ``launches_by_path``; the superstep, serve-features,
 serve-resilience and item-7 paths count what their graph runs launched
 eagerly or captured; K3's entries name the
@@ -4665,18 +4690,23 @@ def _app_lines(main, argv) -> list:
 
 
 def _counting_fences():
-    """Counts the trainer's fences (``telemetry.host_fence``) from here
-    on; returns the counter list and a function restoring the fence."""
-    from flexflow_torch.runtime import telemetry
+    """Counts the trainer's fences (``telemetry.host_fence``) and the
+    serving loop's (``serving._readback``) from here on; returns the
+    counter list and a function restoring both."""
+    from flexflow_torch.runtime import serving, telemetry
 
-    real, seen = telemetry.host_fence, [0]
+    seen, real = [0], [(m, n, getattr(m, n)) for m, n in
+                       ((telemetry, "host_fence"), (serving, "_readback"))]
 
-    def counted(value):
-        seen[0] += 1
-        return real(value)
+    def counting(fn):
+        def counted(value):
+            seen[0] += 1
+            return fn(value)
+        return counted
 
-    telemetry.host_fence = counted
-    return seen, lambda: setattr(telemetry, "host_fence", real)
+    for m, n, fn in real:
+        setattr(m, n, counting(fn))
+    return seen, lambda: [setattr(m, n, fn) for m, n, fn in real]
 
 
 def _run_log(tdir):
@@ -5049,6 +5079,572 @@ def phase_item7(torch, kernels):
     return launches
 
 
+#: Phase 25: bench.py's serving leg's scheduled workload (``bench.
+#: sched_workload``: 2 x 16 requests, prompts of 4-32 tokens, 2-32 new,
+#: bursts of 16 2 virtual ms apart, 2 tiers, tier-0 SLO 60 virtual ms,
+#: seed 13) at ``SERVE`` widths in bf16; the prefix cache's block and the
+#: speculative depth of (e).
+SCHED = dict(n_req=16, kv_block=16, speculate=4)
+
+
+#: Phase 25 (e): the most bf16 requests whose tokens may differ between
+#: the prefix cache's arms (each a sharer), where the offset prefill's tail
+#: attends through the einsum and a fresh prefill through K1f.
+PREFIX_BF16_MOVED = 2
+
+
+def _einsum_prefill_arms(torch, server, workload) -> dict:
+    """The results of ``server(on).run(workload())`` for ``on`` False and
+    True with every multi-token prefill from row 0 attending through
+    ``MultiHeadAttention._attend_chunk`` at offset 0, the offset prefill's
+    einsum, in place of K1f."""
+    from flexflow_torch.ops.attention import MultiHeadAttention
+
+    real = MultiHeadAttention._forward_cached
+
+    def einsum_prefill(self, params, x, state):
+        if x.shape[1] > 1 and "chunk" not in state:
+            state = dict(state, chunk=0)
+        return real(self, params, x, state)
+
+    MultiHeadAttention._forward_cached = einsum_prefill
+    try:
+        return {on: server(on).run(workload())[0] for on in (False, True)}
+    finally:
+        MultiHeadAttention._forward_cached = real
+
+
+def _first_calls(torch):
+    """Times each real scheduler engine's programs at their first call
+    (eager steps and the capture, between two synchronizes) with the
+    bytes the CUDA caching allocator reserved for them: ``({engine:
+    {("decode" | "spec", n): {"first_call_s", "bytes"}}}, restore)``."""
+    from flexflow_torch.serving import scheduler
+
+    table = {}
+    real = scheduler._RealEngine._program
+
+    def program(self, kind, n):
+        fn, key = real(self, kind, n), (kind, n)
+        rec = table.setdefault(self, {})
+        if key in rec:
+            return fn
+
+        def first(*a, **k):
+            cuda = torch.cuda.is_available()
+            if cuda:
+                torch.cuda.synchronize()
+            r0 = torch.cuda.memory_reserved() if cuda else 0
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if cuda:
+                torch.cuda.synchronize()
+            rec[key] = {"first_call_s": time.perf_counter() - t0,
+                        "bytes": (torch.cuda.memory_reserved() - r0
+                                  if cuda else 0)}
+            return out
+        return first
+
+    scheduler._RealEngine._program = program
+    return table, lambda: setattr(scheduler._RealEngine, "_program", real)
+
+
+def _timed_telemetry(tel, acc: dict) -> None:
+    """Times the host work ``tel`` adds to a run into ``acc["hooks"]``
+    (s): every hook of the loop, outermost calls only, and of
+    ``tel.fence`` only its wrapper (``acc["wait"]``, the device wait of
+    the fence it wraps, is taken back out).  ``acc["by"]`` splits the
+    same time by kind: an outermost ``emit`` by its event, every other
+    hook by its name (``fence`` without its wait), each as ``[seconds,
+    calls]``."""
+    from flexflow_torch.runtime import telemetry
+
+    depth = [0]
+    by = acc.setdefault("by", {})
+
+    def wrap(fn, name):
+        def timed(*a, **k):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            w0 = acc["wait"]
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[0] -= 1
+                dt = time.perf_counter() - t0
+                if name == "wait":
+                    acc["wait"] += dt
+                elif depth[0] == 0:
+                    acc["hooks"] += dt
+                    kind = f"emit:{a[0]}" if name == "emit" else name
+                    row = by.setdefault(kind, [0.0, 0])
+                    row[0] += dt - (acc["wait"] - w0)
+                    row[1] += 1
+        return timed
+
+    for name in ("emit", "record_step", "add_programs", "program_cost",
+                 "note_summary", "fence"):
+        setattr(tel, name, wrap(getattr(tel, name), name))
+    real = tel.fence
+
+    def fence(value, label="fence", read=None):
+        return real(value, label,
+                    read=wrap(read or telemetry.host_fence, "wait"))
+
+    tel.fence = fence
+
+
+def _log_path(tdir) -> str:
+    """The one run log under ``tdir``."""
+    import glob
+
+    paths = glob.glob(f"{tdir}/run-*.jsonl")
+    _check(len(paths) == 1, f"{tdir}: run logs {paths}")
+    return paths[0]
+
+
+def _decode_ks(decisions, since: int = 0) -> list:
+    return [d["k"] for d in decisions[since:] if d["d"] == "decode"]
+
+
+def _reprefilled(*servers) -> set:
+    """Requests that a preemption, a retry or an engine restart sent back
+    through a re-prefill in any of ``servers``' runs."""
+    out = set()
+    for srv in servers:
+        for e in srv.span_events:
+            if e["ev"] in ("request_preempt", "request_retry"):
+                out.add(e["id"])
+            elif e["ev"] == "engine_restart":
+                out.update(e["requeued"])
+    return out
+
+
+def _obs_cli(*argv) -> str:
+    """``python -m flexflow_torch.obs ARGV`` in a child process: its
+    standard output (exit 0 required)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-m", "flexflow_torch.obs",
+                          *argv], capture_output=True, text=True, timeout=120,
+                         env=env)
+    _check(out.returncode == 0, f"obs {argv}: exit {out.returncode}\n"
+                                f"{out.stderr[-2000:]}")
+    return out.stdout
+
+
+def phase_serve_sched(torch, kernels, device="cuda"):
+    """ROADMAP item 7's rest and item 8's scheduler on the card (phase
+    25), at ``SERVE`` widths in bf16 over the serving leg's bursty
+    workload (``SCHED``).  (a) the plain ``Server`` at K = 8 with
+    telemetry on and off (on, off, on, off after a warm run): the same
+    tokens and fences, a start and an end event per request, 1/8 program
+    per step, ``python -m flexflow_torch.obs report`` on the log, the
+    host time of telemetry per dispatch, by kind, and ``overhead_pct``;
+    (b) the
+    scheduler, slo (telemetry on) and fifo, on the real engine: the bench
+    columns, tokens equal to the plain Server's, the simulated run's
+    decisions and dispatches, exact K1f and K6 launches, wall ms per
+    superstep by k beside the plain graph's and each k's capture; (c) the
+    failure model (``bench.SCHED_FAULTS``, one retry and one restart):
+    its counters and decisions equal the simulated run's, the untouched
+    requests' tokens equal (b)'s, the restarted engine captures K6 again,
+    no degraded rung, ms a restart; (d) every timeline of (b)'s log
+    reconciles, the stats' autopsy is the one the reader folds from the
+    log, ``obs request LOG --id N``'s waterfall; (e) the prefix workload
+    on the paged pool with and without the prefix cache (tokens equal in
+    f32; in bf16 at most ``PREFIX_BF16_MOVED`` sharers differ, and none
+    once every fresh prefill attends through the offset prefill's einsum)
+    and speculation d = 4 (tokens equal to plain decode); (f) (b)'s slo run under the latency model
+    fitted on (a)'s log.  Returns the launches of each run."""
+    import os
+    import shutil
+    import tempfile
+
+    from flexflow_torch import bench
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.transformer import build_transformer_lm
+    from flexflow_torch.obs import spans
+    from flexflow_torch.obs.reader import RunLog
+    from flexflow_torch.runtime import telemetry
+    from flexflow_torch.runtime.serving import (
+        Server,
+        ServingExecutor,
+        ServingFaultInjector,
+    )
+    from flexflow_torch.serving import (
+        ScheduledServer,
+        SchedulerPolicy,
+        ServingLatencyModel,
+        ServingResilience,
+        SlotShape,
+    )
+
+    card = _card() if device == "cuda" else device
+    c, L, n_req = SERVE, SERVE["layers"], SCHED["n_req"]
+
+    def model(dtype):
+        return build_transformer_lm(
+            batch_size=c["max_batch"], seq_len=c["max_seq"],
+            vocab_size=c["vocab"], d_model=c["d_model"],
+            num_heads=c["heads"], num_layers=L,
+            config=FFConfig(batch_size=c["max_batch"], compute_dtype=dtype))
+
+    ff = model("bfloat16")
+    geometry = dict(max_batch=c["max_batch"], max_seq=c["max_seq"],
+                    buckets=c["buckets"])
+
+    def executor(lm=None, **kw):
+        return ServingExecutor(lm or ff, device=device, **geometry, **kw)
+
+    def workload(shared=0):
+        return bench.sched_workload(n_req, c["vocab"], c["max_seq"],
+                                    c["max_new"], shared)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    sex = executor()
+    params, state = sex.init(0)
+    n = 2 * n_req
+    root = tempfile.mkdtemp(prefix="ff_sched_")
+    launches = {}
+
+    def counted(tag, fn):
+        _zero_counts()
+        out = fn()
+        sync()
+        launches[tag] = _counts()
+        return out
+
+    def held(tag, want):
+        _held_launches(f"sched {tag}", launches[tag],
+                       {k: v for k, v in want.items() if v})
+        _check(all(launches[tag][k] > 0 for k in want if want[k]),
+               f"sched {tag}: {launches[tag]}")
+
+    def toks(res):
+        return {i: r.tokens for i, r in res.items()}
+
+    first_calls, unpatch = _first_calls(torch)
+    try:
+        # -- (a) telemetry on the plain Server at K = 8 --
+        srv = Server(sex, params, state, decode_steps=8)
+        seen, restore = _counting_fences()
+        acc = {"hooks": 0.0, "wait": 0.0}
+        runs = []
+        try:
+            base, base_st = counted("plain", lambda: srv.run(workload()))
+            for pair in range(2):
+                for mode in ("on", "off"):
+                    before = seen[0]
+                    if mode == "on":
+                        tel = telemetry.Telemetry(
+                            os.path.join(root, f"plain_{pair}"))
+                        _timed_telemetry(tel, acc)
+                        with tel:
+                            res, st = srv.run(workload())
+                    else:
+                        res, st = srv.run(workload())
+                    runs.append((mode, res, st, seen[0] - before))
+        finally:
+            restore()
+        held("plain", {"flash_attention_lse": L * base_st["prefills"],
+                       "flash_decode": 2 * L * 8})
+        for mode, res, st, fences in runs:
+            _check(toks(res) == toks(base) and not st["failed"],
+                   f"sched (a): telemetry {mode} changed a token")
+            _check(fences == runs[0][3] ==
+                   st["prefills"] + st["decode_supersteps"],
+                   f"sched (a): {fences} fences with telemetry {mode}, "
+                   f"{runs[0][3]} on")
+        plain_log = RunLog.load(_log_path(os.path.join(root, "plain_0")))
+        _check(len(plain_log.select("request_start")) ==
+               len(plain_log.select("request_end")) == n,
+               "sched (a): not one start and one end event per request")
+        summ = plain_log.summary()
+        _check(summ["programs_per_step"] == 0.125 and
+               summ["fences"] == runs[0][3],
+               f"sched (a): summary {summ}")
+        report = _obs_cli("report", plain_log.path)
+        _check("programs_per_step: 0.125" in report and
+               "program costs (first build):" in report,
+               f"sched (a): obs report\n{report}")
+        on = [r for r in runs if r[0] == "on"]
+        off = [r for r in runs if r[0] == "off"]
+        dispatches = sum(st["prefills"] + st["decode_supersteps"]
+                         for _m, _r, st, _f in on)
+        on_s = sum(st["elapsed_s"] for _m, _r, st, _f in on)
+        off_s = sum(st["elapsed_s"] for _m, _r, st, _f in off)
+        plain_ms = statistics.median(
+            st["decode_s"] * 1e3 / st["decode_supersteps"]
+            for _m, _r, st, _f in runs)
+        print(f"[sched] (a) plain Server K=8, {n} requests: the same tokens "
+              f"and {runs[0][3]} fences ({summ['fences_per_step']} a step) "
+              f"with telemetry on and off; {len(plain_log.events)} events, "
+              f"programs_per_step {summ['programs_per_step']}; telemetry's "
+              f"host time {(acc['hooks'] - acc['wait']) / dispatches * 1e6:.1f}"
+              f" us per dispatch ({dispatches} dispatches); overhead_pct "
+              f"{100 * (on_s - off_s) / off_s:.3f} (on, off, on, off: "
+              f"{', '.join(f'{r[2]['elapsed_s']:.4f}' for r in runs)} s); "
+              f"decode {plain_ms:.3f} ms per superstep (graph replay); "
+              f"{card}")
+        print("[sched] (a) telemetry's host time by kind, us per dispatch "
+              "(calls): " + ", ".join(
+                  f"{kind} {sec / dispatches * 1e6:.1f} ({calls})"
+                  for kind, (sec, calls) in sorted(
+                      acc["by"].items(), key=lambda kv: -kv[1][0])))
+        print("[sched] (a) obs report: " + "; ".join(
+            ln.strip() for ln in report.splitlines()
+            if ln.startswith(("exit:", "  prefill:", "  decode_superstep:"))))
+
+        # -- (b) the scheduler, slo and fifo, on the real engine --
+        slo_dir = os.path.join(root, "sched_slo")
+        servers, out = {}, {}
+
+        def sched(tag, policy, engine=None, tdir=None, reqs=None,
+                  weights=None, **kw):
+            p, st_ = weights or (params, state)
+            s = ScheduledServer(engine or sex, p, st_, decode_steps=8,
+                                policy=policy, **kw)
+            servers[tag] = s
+
+            def go():
+                if tdir is None:
+                    return s.run(reqs or workload())
+                with telemetry.Telemetry(tdir):
+                    return s.run(reqs or workload())
+
+            out[tag] = counted(tag, go)
+            return out[tag]
+
+        slo, fifo = SchedulerPolicy(name="slo"), SchedulerPolicy.fifo()
+        sched("slo", slo, tdir=slo_dir)
+        sched("fifo", fifo)
+        shape = SlotShape(**geometry)
+        preempted = _reprefilled(servers["slo"], servers["fifo"])
+        for tag, pol in (("slo", slo), ("fifo", fifo)):
+            res, st = out[tag]
+            s = servers[tag]
+            ks = _decode_ks(s.decisions)
+            held(tag, {"flash_attention_lse": L * st["prefills"],
+                       "flash_decode": 2 * L * sum(set(ks))})
+            sim = ScheduledServer.simulated(shape, decode_steps=8,
+                                            policy=pol)
+            _r, sst = sim.run(workload())
+            _check(sim.decisions == s.decisions and
+                   (sst["prefills"], sst["decode_supersteps"]) ==
+                   (st["prefills"], st["decode_supersteps"]),
+                   f"sched (b) {tag}: the simulated run decided otherwise")
+            _check(st["completed"] + st["request_sheds"] == n and
+                   "degraded_rungs" not in st, f"sched (b) {tag}: {st}")
+            same = [i for i in res if i not in preempted]
+            _check(all(res[i].tokens == base[i].tokens for i in same),
+                   f"sched (b) {tag}: tokens differ from the plain Server's")
+            moved = [i for i in preempted if res[i].tokens != base[i].tokens]
+            print(f"[sched] (b) {tag}: {st['prefills']} prefills, "
+                  f"{st['decode_supersteps']} supersteps (k {sorted(set(ks))})"
+                  f" = the simulated run's, decisions equal; tokens of "
+                  f"{len(same)} requests equal the plain Server's, "
+                  f"{len(moved)} of {len(preempted)} re-prefilled ones "
+                  f"differ (bf16 re-prefill rounding); launches "
+                  f"{ {k: v for k, v in launches[tag].items() if v} }")
+        slo_log = RunLog.load(_log_path(slo_dir))
+        eng = servers["slo"].engine
+        B = c["max_batch"]
+        for k in (1, 2, 4, 8, 16):
+            # Every adaptive candidate's graph on the finished run's engine
+            # (a k the run did not choose is captured here, outside the
+            # counted runs), for its first-call time and pool bytes.
+            if ("decode", k) not in first_calls[eng]:
+                eng.decode([0] * B, [0] * B, k)
+        by_k = {}
+        for e in slo_log.select("decode_superstep"):
+            by_k.setdefault(e["k"], []).append(e["wall_s"] * 1e3)
+        for k in (1, 2, 4, 8, 16):
+            prog = first_calls[eng][("decode", k)]
+            later = by_k.get(k, [])[1:]
+            print(f"[sched] (b) k={k}: {len(by_k.get(k, []))} supersteps in "
+                  f"the slo run, "
+                  f"{statistics.median(later) if later else float('nan'):.3f}"
+                  f" ms wall per superstep after the first (plain graph "
+                  f"K=8: {plain_ms:.3f} ms); first call (eager + capture) "
+                  f"{prog['first_call_s'] * 1e3:.1f} ms, {prog['bytes']} "
+                  f"bytes reserved; {card}")
+
+        # -- (c) the failure model --
+        builds = []
+        rsrv_kw = dict(resilience=ServingResilience(max_retries=1,
+                                                    max_restarts=1))
+        s = ScheduledServer(sex, params, state, decode_steps=8, policy=slo,
+                            fault_injector=ServingFaultInjector(
+                                **bench.SCHED_FAULTS), **rsrv_kw)
+        real_build = s._build_engine
+
+        def timed_build(initial=False):
+            t0 = time.perf_counter()
+            e = real_build(initial)
+            builds.append(time.perf_counter() - t0)
+            return e
+
+        s._build_engine = timed_build
+        servers["failure"] = s
+        out["failure"] = counted("failure", lambda: s.run(workload()))
+        res, st = out["failure"]
+        sim = ScheduledServer.simulated(
+            shape, decode_steps=8, policy=slo, fault_injector=
+            ServingFaultInjector(**bench.SCHED_FAULTS), **rsrv_kw)
+        _r, sst = sim.run(workload())
+        keys = ("request_retries", "engine_restarts", "request_expiries",
+                "prefills", "decode_supersteps")
+        _check(sim.decisions == s.decisions and
+               all(sst[k] == st[k] for k in keys) and
+               st["request_retries"] == st["engine_restarts"] == 1,
+               f"sched (c): real {[st[k] for k in keys]}, simulated "
+               f"{[sst[k] for k in keys]}")
+        _check("degraded_rungs" not in st and sex.decode_kernel is not False,
+               f"sched (c): a degraded rung without a kernel fault: {st}")
+        cut = next(i for i, d in enumerate(s.decisions)
+                   if d["d"] == "engine_restart")
+        before, after = _decode_ks(s.decisions[:cut]), \
+            _decode_ks(s.decisions, cut)
+        held("failure", {"flash_attention_lse": L * st["prefills"],
+                         "flash_decode": 2 * L * (sum(set(before)) +
+                                                  sum(set(after)))})
+        _check(after, "sched (c): no decode after the restart")
+        touched = _reprefilled(servers["slo"], s)
+        slo_res = out["slo"][0]
+        _check(all(res[i].tokens == slo_res[i].tokens for i in res
+                   if i not in touched and res[i].error is None),
+               "sched (c): an untouched request's tokens differ from (b)'s")
+        recapture = sum(p["first_call_s"]
+                        for p in first_calls[s.engine].values())
+        print(f"[sched] (c) retries {st['request_retries']}, restarts "
+              f"{st['engine_restarts']}, expiries {st['request_expiries']} "
+              f"= the simulated run's, decisions equal; no degraded rung; "
+              f"the restarted engine captured k {sorted(set(after))} again "
+              f"(K6 {launches['failure']['flash_decode']}); a restart "
+              f"{(builds[0] + recapture) * 1e3:.1f} ms (engine build "
+              f"{builds[0] * 1e3:.1f} ms + re-capture "
+              f"{recapture * 1e3:.1f} ms); {card}")
+
+        # -- (d) spans --
+        tls = spans.timelines_from_run(slo_log)
+        bad = [i for i, t in tls.items() if not t.reconciled]
+        _check(len(tls) == n and not bad, f"sched (d): {len(tls)} "
+                                          f"timelines, unreconciled {bad}")
+        autopsy = out["slo"][1].get("slo_autopsy")
+        _check(spans.slo_autopsy(tls) == (autopsy or {}) and
+               slo_log.reconstruct_summary().get("slo_autopsy") == autopsy
+               == slo_log.summary().get("slo_autopsy"),
+               f"sched (d): autopsy {autopsy} vs the log's")
+        rid = min((i for i, t in tls.items() if t.slo_ok is False),
+                  default=0)
+        fall = _obs_cli("request", slo_log.path, "--id", str(rid))
+        _check(f"request {rid} " in fall and "reconciled=yes" in fall,
+               f"sched (d): waterfall\n{fall}")
+        _check("serving:" in _obs_cli("report", slo_log.path),
+               "sched (d): no serving block")
+        print(f"[sched] (d) {len(tls)} timelines reconcile to the "
+              f"microsecond; autopsy {autopsy}; obs request --id {rid}:")
+        for ln in fall.splitlines():
+            print(f"[sched]   {ln}")
+
+        # -- (e) prefix sharing and speculation under the scheduler --
+        # The bench's arms in bf16, and in f32 the same arms for the
+        # token check: an offset prefill runs its tail through the einsum
+        # where a fresh one runs K1f, so bf16 rounding may flip a
+        # sharer's greedy token (phase 20 holds the cache in f32 too).
+        kvb = SCHED["kv_block"]
+        ff32 = model("float32")
+        w32 = executor(ff32).init(0)
+        for tag, lm, w in (("prefix_off", ff, None), ("prefix_on", ff, None),
+                           ("prefix_off_f32", ff32, w32),
+                           ("prefix_on_f32", ff32, w32)):
+            engine = executor(lm, kv_block=kvb,
+                              prefix_cache=tag.startswith("prefix_on"))
+            sched(tag, slo, engine, reqs=workload(kvb), weights=w)
+            fresh = sum(1 for e in servers[tag].span_events
+                        if e["ev"] == "prefill" and "offset" not in e)
+            held(tag, {"flash_attention_lse": L * fresh})
+        cols = bench.sched_columns(out)
+        f32 = bench.sched_columns(dict(out, prefix_on=out["prefix_on_f32"],
+                                       prefix_off=out["prefix_off_f32"]))
+        sharers = {e["id"] for e in servers["prefix_on"].span_events
+                   if e["ev"] == "prefix_hit"}
+        moved = [i for i, r in out["prefix_off"][0].items()
+                 if out["prefix_on"][0][i].tokens != r.tokens]
+        # The witness: the same bf16 arms with every fresh prefill routed
+        # through the offset prefill's einsum (``_attend_chunk`` from row
+        # 0) in place of K1f.  Both arms then attend through one route.
+        wit = _einsum_prefill_arms(torch, lambda on: ScheduledServer(
+            executor(ff, kv_block=kvb, prefix_cache=on), params, state,
+            decode_steps=8, policy=slo), lambda: workload(kvb))
+        wit_moved = [i for i, r in wit[False].items()
+                     if wit[True][i].tokens != r.tokens]
+        _check(f32["prefix_match"] is True and cols["prefix_hits"] > 0 and
+               f32["prefix_hits"] == cols["prefix_hits"] and
+               set(moved) <= sharers and len(moved) <= PREFIX_BF16_MOVED
+               and not wit_moved,
+               f"sched (e): prefix columns {cols}; f32 {f32}; bf16 tokens "
+               f"differ for {moved}, sharers {sorted(sharers)}; with the "
+               f"fresh prefill on the einsum for {wit_moved}")
+        d = SCHED["speculate"]
+        sched("spec", slo, speculate=d)
+        res, st = out["spec"]
+        _check(st["spec_acceptance_rate"] == 1.0 and all(
+            res[i].tokens == base[i].tokens for i in res
+            if i not in _reprefilled(servers["spec"])),
+            f"sched (e): speculation d={d} changed a token: {st}")
+        held("spec", {"flash_attention_lse": 2 * L * st["prefills"],
+                      "flash_decode": 2 * (d + 1) * 2 * L})
+        print(f"[sched] (e) prefix cache on the paged pool (kv_block "
+              f"{kvb}): {cols['prefix_hits']} hits, "
+              f"{cols['prefix_prefills']} prefills against "
+              f"{cols['prefix_off_prefills']}; f32 tokens equal without "
+              f"it; bf16 tokens of {len(moved)} of {len(sharers)} sharers "
+              f"differ (at most {PREFIX_BF16_MOVED}), of no other request, "
+              f"and of none with the fresh prefill on the offset prefill's "
+              f"einsum ({len(wit_moved)}); speculation "
+              f"d={d}: acceptance {st['spec_acceptance_rate']}, "
+              f"{st['spec_tokens_per_dispatch']} tokens a dispatch, tokens "
+              f"equal plain decode's")
+        print("[sched] bench columns (latencies in virtual ms, model "
+              "defaults): " + json.dumps(cols))
+
+        # -- (f) the latency model fitted on (a)'s log --
+        fitted = ServingLatencyModel.from_run(plain_log)
+        _check(fitted.calibrated, f"sched (f): {fitted.describe()}")
+        sched("slo_fit", slo, latency_model=fitted)
+        held("slo_fit", {"flash_attention_lse": L * out["slo_fit"][1][
+            "prefills"], "flash_decode": 2 * L * sum(set(_decode_ks(
+                servers["slo_fit"].decisions)))})
+        virt = ("queue_wait_ms_p50", "queue_wait_ms_p99", "e2e_ms_p50",
+                "e2e_ms_p99", "slo_attainment", "request_preempts",
+                "request_sheds", "decode_supersteps")
+        for tag, label in (("slo", "model defaults (unitless constants, "
+                                   "virtual ms)"),
+                           ("slo_fit", f"virtual ms priced by a fit on "
+                                       f"{card}: {fitted.describe()}")):
+            st, s = out[tag][1], servers[tag]
+            used = {("decode", k) for k in _decode_ks(s.decisions)}
+            first = sum(first_calls[s.engine][p]["first_call_s"]
+                        for p in used)
+            replays = st["decode_supersteps"] - len(used)
+            print(f"[sched] (f) {label}: "
+                  f"{ {k: st.get(k) for k in virt} }; wall "
+                  f"{(st['decode_s'] - first) * 1e3 / max(replays, 1):.3f}"
+                  f" ms per superstep over {replays} replays (first calls "
+                  f"left out); {card}")
+    finally:
+        unpatch()
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def _card() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
@@ -5127,12 +5723,14 @@ def main() -> int:
     t.append(time.perf_counter())
     item7_launches = phase_item7(torch, kernels)
     t.append(time.perf_counter())
+    sched_launches = phase_serve_sched(torch, kernels)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
              "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
              "longctx-parity", "probe-kernels", "alexnet-kernels",
              "alexnet-train", "alexnet-parity", "superstep", "serve-features",
-             "serve-resilience", "nmt", "item5", "item7")
+             "serve-resilience", "nmt", "item5", "item7", "serve-sched")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -5175,7 +5773,9 @@ def main() -> int:
                    **{path: counts.get(name, 0)
                       for path, counts in item5_launches.items()},
                    **{path: counts.get(name, 0)
-                      for path, counts in item7_launches.items()}}
+                      for path, counts in item7_launches.items()},
+                   **{f"sched_{run}": counts.get(name, 0)
+                      for run, counts in sched_launches.items()}}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])

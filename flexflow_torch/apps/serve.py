@@ -1,5 +1,5 @@
-"""Transformer LM serving app: the closed-loop path of
-``flexflow_tpu/apps/serve.py`` on one GPU.
+"""Transformer LM serving app: ``flexflow_tpu/apps/serve.py`` on one
+GPU, the closed loop and the scheduled one.
 
 Builds the transformer LM at serving shapes, restores its params from a
 training checkpoint when ``--ckpt-dir`` names one (the train-to-serve
@@ -7,7 +7,9 @@ handoff, ``ServingExecutor.restore``; fresh seeded weights otherwise),
 and drives the continuous-batching loop (``runtime/serving.py``) over a
 synthetic request stream: pad-to-bucket prefill per admission, K-token
 decode supersteps (one CUDA graph and one host readback per superstep
-on a GPU), and admission and eviction between supersteps.
+on a GPU), and admission and eviction between supersteps.  Any
+scheduler flag below runs the SLO scheduler (``serving/scheduler.py``)
+over the same programs instead.
 
 Flags beyond the common set:
   --max-seq N        serving context length (cache rows per slot; 64)
@@ -52,19 +54,52 @@ Sampling flags (greedy stays the default):
   --sample-seed S    draws keyed by (S, request id, position): the same
                      tokens whatever the batch or the superstep length
 
-Failure-model flags of the plain loop:
+Scheduler flags (any of them, or a failure-model flag below but
+--journal, runs the SLO scheduler of ``serving/scheduler.py``: open-loop
+arrivals on a virtual clock, tier + EDF admission, adaptive decode k,
+preemption and shedding; every latency it prints is in virtual ms):
+  --sched POLICY     fifo | slo (slo when another scheduler flag is given)
+  --workload-trace [zipf]  the open-loop workload (zipf-skewed lengths,
+                     bursts) instead of the uniform stream; ``prod[...]``
+                     (prompt tokens from the production trace) comes with
+                     ROADMAP.md queue 1 item 12
+  --trace-alpha A    zipf skew of prompt and output lengths (1.5)
+  --mean-gap-ms X    mean gap between bursts, virtual ms (8.0)
+  --burst N          requests per burst (4)
+  --slo-ms X         tier-0 SLO, virtual ms (tier t gets X * (t + 1);
+                     unset = best effort)
+  --priorities N     priority tiers, 0 highest (1)
+  --shed-depth N     shed waiting requests past this queue depth (0 = off)
+  --calibration PATH the serving latency model's run log (a file, or a
+                     telemetry dir's latest run); default: the latest run
+                     under --telemetry's dir, else the model defaults
+
+Failure-model flags:
   --journal PATH     append-only request journal: a run on a journal
                      with records restores its completed requests and
                      resumes its in-flight ones; SIGTERM drains at the
                      next superstep boundary (re-run with the same
-                     --journal to serve the rest)
+                     --journal to serve the rest).  Plain or scheduled.
+  --serve-retries N  retries per request for slot faults (virtual-clock
+                     exponential backoff; scheduled)
+  --retry-backoff-ms X  backoff base, virtual ms (8.0)
+  --serve-max-restarts N  engine-restart budget (default --max-restarts
+                     when the failure model is armed); exhausted, the app
+                     exits 77 (EXIT_SERVING_FAILURE)
+  --expire-waiting   expire waiting requests past their deadline (SLO
+                     misses)
+
+Telemetry and checks:
+  --telemetry DIR    the run's JSONL event stream under DIR (read it with
+                     ``python -m flexflow_torch.obs report|request DIR``)
   --dry-run          print the program table (cache, prefill per bucket,
-                     decode, spec), traced on meta tensors: no device
-                     compute, no kernel launch
+                     one decode program per k the scheduler may choose,
+                     spec), traced on meta tensors: no device compute, no
+                     kernel launch
 
 Refused by name, with the ROADMAP.md queue 1 item that brings each:
-sharding, the scheduler's failure model, the scheduler and fleet, and
-the serving loop's telemetry.  Any other unknown flag is refused too.
+sharding (item 9), the fleet and the serving config search (item 8's
+rest).  Any other unknown flag is refused too.
 
 Example::
 
@@ -75,6 +110,7 @@ Example::
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from typing import Optional
@@ -82,12 +118,25 @@ from typing import Optional
 from flexflow_torch.apps.common import check_help, pop_float, pop_int, pop_str
 from flexflow_torch.config import FFConfig
 from flexflow_torch.models.transformer import build_transformer_lm
+from flexflow_torch.runtime import telemetry as _telemetry
 from flexflow_torch.runtime.serving import (
+    EXIT_SERVING_FAILURE,
     Server,
+    ServingCrashLoop,
     ServingExecutor,
     synthetic_requests,
 )
-from flexflow_torch.serving.journal import RequestJournal
+from flexflow_torch.serving import (
+    RequestJournal,
+    ScheduledServer,
+    SchedulerPolicy,
+    ServingLatencyModel,
+    ServingResilience,
+    SlotShape,
+    WorkloadSpec,
+    make_workload,
+    uniform_workload,
+)
 
 _DTYPES = ("float32", "bfloat16")
 
@@ -95,15 +144,31 @@ _DTYPES = ("float32", "bfloat16")
 #: queue 1 item that brings each.
 UNPORTED = {
     "--shard": "item 9 (multi-device strategies)",
-    **{f: "item 8 (the scheduler's failure model)" for f in (
-        "--serve-retries", "--serve-max-restarts", "--expire-waiting",
-        "--retry-backoff-ms")},
-    "--telemetry": "item 7's rest (the serving loop's telemetry events)",
-    **{f: "item 8 (the scheduler and fleet)" for f in (
-        "--sched", "--workload-trace", "--trace-alpha", "--mean-gap-ms",
-        "--burst", "--slo-ms", "--priorities", "--shed-depth",
-        "--serve-auto", "--replicas", "--router", "--calibration")},
+    **{f: "item 8's rest (the serving fleet)" for f in (
+        "--replicas", "--router")},
+    "--serve-auto": "item 8's rest (the serving config search)",
 }
+
+
+def _pop_flag(argv, flag) -> bool:
+    if flag in argv:
+        argv.remove(flag)
+        return True
+    return False
+
+
+def _pop_opt_str(argv, flag):
+    """A flag with an optional value: absent None, bare "", ``--flag v``
+    "v" (a following ``-...`` token is not taken)."""
+    if flag not in argv:
+        return None
+    i = argv.index(flag)
+    if i + 1 < len(argv) and not argv[i + 1].startswith("-"):
+        val = argv[i + 1]
+        del argv[i:i + 2]
+        return val
+    del argv[i]
+    return ""
 
 
 def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
@@ -139,13 +204,25 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     journal_path = pop_str(argv, "--journal", "")
     ckpt_dir = pop_str(argv, "--ckpt-dir", "")
     draft_ckpt = pop_str(argv, "--draft-ckpt", "")
-    switches = {}
-    for flag in ("--no-decode-kernel", "--prefix-cache", "--dry-run"):
-        switches[flag] = flag in argv
-        if switches[flag]:
-            argv.remove(flag)
+    no_kernel = _pop_flag(argv, "--no-decode-kernel")
+    prefix_cache = _pop_flag(argv, "--prefix-cache")
+    dry_run = _pop_flag(argv, "--dry-run")
+    # The scheduler's flags (JAX's names and meanings).
+    sched_s = pop_str(argv, "--sched", "")
+    workload_trace = _pop_opt_str(argv, "--workload-trace")
+    trace_alpha = pop_float(argv, "--trace-alpha", 1.5)
+    mean_gap_ms = pop_float(argv, "--mean-gap-ms", 8.0)
+    burst = pop_int(argv, "--burst", 4)
+    slo_ms = pop_float(argv, "--slo-ms", 0.0)
+    priorities = pop_int(argv, "--priorities", 0)
+    shed_depth = pop_int(argv, "--shed-depth", 0)
+    serve_retries = pop_int(argv, "--serve-retries", 0)
+    retry_backoff_ms = pop_float(argv, "--retry-backoff-ms", 8.0)
+    serve_max_restarts = pop_int(argv, "--serve-max-restarts", -1)
+    expire_waiting = _pop_flag(argv, "--expire-waiting")
     common = []
-    for flag in ("--dtype", "--seed"):
+    for flag in ("--dtype", "--seed", "--telemetry", "--calibration",
+                 "--max-restarts"):
         if flag in argv:
             i = argv.index(flag)
             common += argv[i:i + 2]
@@ -153,9 +230,10 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     if argv:
         raise SystemExit(
             f"flexflow_torch serve does not support {argv} yet: this slice "
-            f"of the port serves the single-GPU path (padded or paged KV, "
-            f"prefix cache, sampling, speculation); the other serving "
-            f"features are queued in ROADMAP.md queue 1"
+            f"of the port serves one GPU (padded or paged KV, prefix cache, "
+            f"sampling, speculation, the scheduler and its failure model, "
+            f"telemetry); the other serving features are queued in "
+            f"ROADMAP.md queue 1"
         )
     try:
         cfg = FFConfig.parse_args(common)
@@ -168,7 +246,17 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
         lo, hi = (int(v) for v in plen_s.split(":"))
     except ValueError:
         raise SystemExit("--prompt-len expects LO:HI")
-    if switches["--prefix-cache"] and kv_block <= 0:
+    if sched_s and sched_s not in ("fifo", "slo"):
+        raise SystemExit(f"--sched expects fifo|slo, got {sched_s!r}")
+    if workload_trace is not None and workload_trace.startswith("prod"):
+        raise SystemExit(
+            "--workload-trace prod reads the production trace of the data "
+            "plane (data/trace.py), which comes with ROADMAP.md queue 1 "
+            "item 12")
+    if workload_trace not in (None, "", "zipf"):
+        raise SystemExit(f"--workload-trace expects nothing or 'zipf', got "
+                         f"{workload_trace!r}")
+    if prefix_cache and kv_block <= 0:
         raise SystemExit(
             "--prefix-cache shares blocks of the PAGED pool and needs "
             "--kv-block N")
@@ -192,67 +280,185 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     try:
         sex = ServingExecutor(
             ff, cfg, max_batch=max_batch, max_seq=max_seq, buckets=buckets,
-            decode_kernel=False if switches["--no-decode-kernel"] else None,
+            decode_kernel=False if no_kernel else None,
             # The dry run traces on meta tensors and needs no device.
-            device="meta" if switches["--dry-run"] else device,
+            device="meta" if dry_run else device,
             kv_block=kv_block, kv_blocks=kv_blocks or None,
-            prefix_cache=switches["--prefix-cache"],
-            draft_layers=draft_layers,
+            prefix_cache=prefix_cache, draft_layers=draft_layers,
         )
     except ValueError as e:
         raise SystemExit(str(e))
-    if switches["--dry-run"]:
-        return _dry_run(sex, decode_steps, speculate)
-    if ckpt_dir:
-        step, params, state = sex.restore(ckpt_dir)
-        print(f"restored training checkpoint step {step} from {ckpt_dir}")
-    else:
-        params, state = sex.init(cfg.seed)
-    draft_params = None
-    if draft_ckpt:
-        dstep, draft_params, _ds = sex.restore(draft_ckpt)
-        print(f"restored draft checkpoint step {dstep} from {draft_ckpt}")
-    requests = synthetic_requests(
-        n_requests, vocab, prompt_len=(lo, hi), max_new_tokens=max_new,
-        seed=cfg.seed,
-    )
-    srv = Server(sex, params, state, decode_steps=decode_steps,
-                 eos_id=None if eos < 0 else eos, temperature=temperature,
-                 top_k=top_k, sample_seed=sample_seed, speculate=speculate,
-                 journal=RequestJournal(journal_path) if journal_path
-                 else None, draft_params=draft_params)
-    t0 = time.perf_counter()
-    results, stats = srv.run(requests)
-    elapsed = time.perf_counter() - t0
+
+    def weights():
+        if ckpt_dir:
+            step, params, state = sex.restore(ckpt_dir)
+            print(f"restored training checkpoint step {step} from {ckpt_dir}")
+        else:
+            params, state = sex.init(cfg.seed)
+        draft_params = None
+        if draft_ckpt:
+            dstep, draft_params, _ds = sex.restore(draft_ckpt)
+            print(f"restored draft checkpoint step {dstep} from "
+                  f"{draft_ckpt}")
+        return params, state, draft_params
+
+    journal = RequestJournal(journal_path) if journal_path else None
+    # Retries, expiry and restarts are scheduler semantics (virtual-clock
+    # backoff); the journal alone stays on either path.
+    use_sched = bool(sched_s or workload_trace is not None or slo_ms > 0
+                     or priorities > 0 or shed_depth > 0 or serve_retries > 0
+                     or serve_max_restarts >= 0 or expire_waiting)
+    if not use_sched:
+        with _telemetry.maybe_run(cfg, meta={"app": "serve"}):
+            if dry_run:
+                return _dry_run(sex, [decode_steps], speculate)
+            params, state, draft_params = weights()
+            requests = synthetic_requests(
+                n_requests, vocab, prompt_len=(lo, hi),
+                max_new_tokens=max_new, seed=cfg.seed)
+            srv = Server(sex, params, state, decode_steps=decode_steps,
+                         eos_id=None if eos < 0 else eos,
+                         temperature=temperature, top_k=top_k,
+                         sample_seed=sample_seed, speculate=speculate,
+                         journal=journal, draft_params=draft_params)
+            t0 = time.perf_counter()
+            results, stats = srv.run(requests)
+            elapsed = time.perf_counter() - t0
+        if stats_out is not None:
+            stats_out.update(stats)
+            stats_out["results"] = results
+        print(f"requests = {stats['requests']} "
+              f"completed = {stats['completed']} failed = {stats['failed']}")
+        _print_layout(stats)
+        if stats.get("drained"):
+            print(f"drained: remainder journaled in {journal_path or '?'} "
+                  f"(re-run with the same --journal to resume)")
+        print(f"time = {elapsed:.4f}s")
+        print(f"tokens/s = {stats['tokens_per_s']:.1f}")
+        print(f"request latency p50 = "
+              f"{stats['request_latency_ms_p50']:.1f} ms "
+              f"p95 = {stats['request_latency_ms_p95']:.1f} ms")
+        print(f"decode supersteps = {stats['decode_supersteps']} "
+              f"(k={stats['decode_steps_per_call']}, 1 readback per "
+              f"superstep)")
+        return _report_failures(results, stats)
+
+    # -- the scheduled path (JAX's _run_scheduled without the fleet) --
+    resilience = ServingResilience(
+        max_retries=serve_retries, retry_backoff_ms=retry_backoff_ms,
+        max_restarts=(serve_max_restarts if serve_max_restarts >= 0
+                      else cfg.max_restarts),
+        expire_waiting=expire_waiting,
+    ) if (serve_retries > 0 or serve_max_restarts >= 0 or expire_waiting
+          or journal_path) else None
+    base_slo = slo_ms if slo_ms > 0 else float("inf")
+    policy = (SchedulerPolicy.fifo() if sched_s == "fifo"
+              else SchedulerPolicy(name="slo", shed_depth=shed_depth))
+    with _telemetry.maybe_run(cfg, meta={"app": "serve"}):
+        model = _latency_model(cfg)
+        if workload_trace is not None:
+            requests = make_workload(WorkloadSpec(
+                n_requests=n_requests, vocab=vocab, prompt_len=(lo, hi),
+                prompt_alpha=trace_alpha, max_new=(1, max_new),
+                output_alpha=trace_alpha, mean_gap_ms=mean_gap_ms,
+                burst=burst, priorities=max(priorities, 1),
+                slo_ms=base_slo, seed=cfg.seed))
+        else:
+            requests = uniform_workload(
+                n_requests, vocab, prompt_len=(lo, hi),
+                max_new_tokens=max_new, seed=cfg.seed, slo_ms=base_slo)
+        srv_proto = ScheduledServer.simulated(
+            SlotShape(max_batch=max_batch, max_seq=max_seq, buckets=buckets,
+                      kv_block=kv_block, kv_blocks=kv_blocks or None,
+                      prefix_cache=prefix_cache),
+            decode_steps=decode_steps, policy=policy, latency_model=model)
+        if dry_run:
+            return _dry_run(sex, srv_proto._k_candidates, speculate)
+        params, state, draft_params = weights()
+        srv = ScheduledServer(
+            sex, params, state, decode_steps=decode_steps,
+            eos_id=None if eos < 0 else eos, policy=policy,
+            latency_model=model, temperature=temperature, top_k=top_k,
+            sample_seed=sample_seed, resilience=resilience, journal=journal,
+            speculate=speculate, draft_params=draft_params)
+        t0 = time.perf_counter()
+        try:
+            results, stats = srv.run(requests)
+        except ServingCrashLoop as e:
+            print(f"serving crash loop: {e}", file=sys.stderr)
+            print(f"exiting {EXIT_SERVING_FAILURE} for the external "
+                  f"supervisor (engine restart budget exhausted; the "
+                  f"journal carries completed + in-flight state)")
+            return EXIT_SERVING_FAILURE
+        elapsed = time.perf_counter() - t0
     if stats_out is not None:
         stats_out.update(stats)
         stats_out["results"] = results
+        stats_out["decisions"] = srv.decisions
+    print(f"policy = {policy.describe()}")
+    print(f"latency model = {model.describe()}")
     print(f"requests = {stats['requests']} "
-          f"completed = {stats['completed']} failed = {stats['failed']}")
+          f"completed = {stats['completed']} failed = {stats['failed']} "
+          f"shed = {stats['request_sheds']} "
+          f"preempted = {stats['request_preempts']}")
     _print_layout(stats)
+    print(f"time = {elapsed:.4f}s")
+    print(f"tokens/s = {stats['tokens_per_s']:.1f}")
+    print(f"queue wait p50 = {stats['queue_wait_ms_p50']:.1f} ms "
+          f"p95 = {stats['queue_wait_ms_p95']:.1f} ms "
+          f"p99 = {stats['queue_wait_ms_p99']:.1f} ms (virtual)")
+    print(f"e2e p50 = {stats['e2e_ms_p50']:.1f} ms "
+          f"p99 = {stats['e2e_ms_p99']:.1f} ms (virtual)")
+    if "slo_attainment" in stats:
+        print(f"SLO attainment = {stats['slo_attainment'] * 100:.1f}%")
+    for tier, row in (stats.get("slo_autopsy") or {}).items():
+        # Waterfalls: python -m flexflow_torch.obs request DIR
+        print(f"slo autopsy tier {tier}: {row['missed']} missed, "
+              f"dominant phase = {row['dominant_phase']}")
+    print(f"decode supersteps = {stats['decode_supersteps']} "
+          f"(k<={stats['decode_steps_per_call']}, 1 dispatch + 1 fence "
+          f"per superstep)")
+    if stats.get("request_retries") or stats.get("request_expiries") \
+            or stats.get("engine_restarts"):
+        print(f"failure model: retries = {stats['request_retries']} "
+              f"expiries = {stats['request_expiries']} "
+              f"engine restarts = {stats['engine_restarts']}")
+    if stats.get("degraded_rungs"):
+        print(f"DEGRADED: rungs taken = "
+              f"{', '.join(stats['degraded_rungs'])}")
     if stats.get("drained"):
         print(f"drained: remainder journaled in {journal_path or '?'} "
               f"(re-run with the same --journal to resume)")
-    print(f"time = {elapsed:.4f}s")
-    print(f"tokens/s = {stats['tokens_per_s']:.1f}")
-    print(f"request latency p50 = {stats['request_latency_ms_p50']:.1f} ms "
-          f"p95 = {stats['request_latency_ms_p95']:.1f} ms")
-    print(f"decode supersteps = {stats['decode_supersteps']} "
-          f"(k={stats['decode_steps_per_call']}, 1 readback per superstep)")
-    if stats["failed"]:
-        for rid in sorted(results):
-            if results[rid].error:
-                print(f"request {rid} FAILED: {results[rid].error}")
-        return 1
-    return 0
+    return _report_failures(results, stats)
 
 
-def _dry_run(sex, decode_steps: int, speculate: int = 0) -> int:
+def _latency_model(cfg) -> ServingLatencyModel:
+    """The scheduler's latency model, as JAX's ``_latency_model`` resolves
+    it: ``--calibration PATH`` (a run log, or a dir's latest run) wins,
+    else the latest run under the telemetry dir (not the active run's own
+    file, which holds nothing yet); that run's calibration block and
+    serving events fit it (``ServingLatencyModel.from_run``).  No run:
+    the model defaults."""
+    from flexflow_torch.obs.reader import RunLog, latest_run
+
+    active = _telemetry.current().path
+    src = cfg.search_calibration or cfg.telemetry_dir or \
+        os.environ.get("FF_TELEMETRY_DIR")
+    path = latest_run(src, exclude=active) if src and os.path.isdir(src) \
+        else src
+    if not path or not os.path.isfile(path):
+        return ServingLatencyModel()
+    return ServingLatencyModel.from_run(RunLog.load(path))
+
+
+def _dry_run(sex, decode_ks, speculate: int = 0) -> int:
     """The serving dry run: the program table of
     ``ServingExecutor.abstract_programs`` (traced on meta tensors), in
-    the JAX app's layout.  JAX's dry run then runs its program audit,
-    which comes with ROADMAP.md queue 1 item 14."""
-    table = sex.abstract_programs(decode_steps=decode_steps,
+    the JAX app's layout, with one decode row per k the run may dispatch
+    (the scheduler's adaptive candidates).  JAX's dry run then runs its
+    program audit, which comes with ROADMAP.md queue 1 item 14."""
+    decode_ks = sorted(set(decode_ks))
+    table = sex.abstract_programs(decode_steps=decode_ks[-1],
                                   speculate=speculate)
     print(f"{'program':<18} {'shape':<28} notes")
     for name, t in sorted(table["cache"].items()):
@@ -267,9 +473,10 @@ def _dry_run(sex, decode_steps: int, speculate: int = 0) -> int:
         print(f"{'prefill L=' + str(bucket) + ' o=' + str(o):<18} "
               f"{'(1, ' + str(bucket) + ') from row ' + str(o):<28} "
               f"offset prefill (shared prefix skipped)")
-    shape = tuple(table["decode"].shape)
-    print(f"{'decode k=' + str(shape[0]):<18} {str(shape) + ' tokens':<28} "
-          f"1 dispatch + 1 fence per {shape[0]} tokens")
+    for k in decode_ks:
+        shape = (k,) + tuple(table["decode"].shape[1:])
+        print(f"{'decode k=' + str(k):<18} {str(shape) + ' tokens':<28} "
+              f"1 dispatch + 1 fence per {k} tokens")
     if speculate:
         shape = tuple(table["spec"].shape)
         print(f"{'spec d=' + str(speculate):<18} "
@@ -296,6 +503,15 @@ def _print_layout(stats) -> None:
               f"{stats['spec_acceptance_rate'] * 100:.1f}%, "
               f"{stats['spec_tokens_per_dispatch']:.2f} tokens/"
               f"dispatch, {stats['draft_prefills']} draft prefills)")
+
+
+def _report_failures(results, stats) -> int:
+    if stats["failed"]:
+        for rid in sorted(results):
+            if results[rid].error:
+                print(f"request {rid} FAILED: {results[rid].error}")
+        return 1
+    return 0
 
 
 if __name__ == "__main__":

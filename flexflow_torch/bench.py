@@ -15,7 +15,8 @@ and 32k (2 + 3), each with its MFU against the H100's dense bf16 peak,
 the superstep sweep (``superstep``: ms/step of a small MLP at k = 1, 4,
 8 and 16 steps per call, the k > 1 ones as CUDA graphs), the serving leg
 (``serving``: bench.py's columns that the port computes, decode
-supersteps as CUDA graphs), the NMT leg (``nmt_pairs_per_s`` and
+supersteps as CUDA graphs; the scheduler's fifo/slo A/B, tail autopsy,
+failure-model and prefix-workload columns in virtual ms), the NMT leg (``nmt_pairs_per_s`` and
 ``nmt_10iter_time_s``: batch 64, 2 layers, hidden = embed = 2048, vocab
 20480, seq 20, bf16, SGD lr 0.01, 2 + 10 steps), the Candle-Uno leg
 (``candle_samples_per_s``: the reference's widths, batch 512, bf16, SGD
@@ -30,9 +31,8 @@ the line carries ``"value": null`` and the error; nothing is measured
 on the CPU.
 
 ``bench.py``'s other legs (pipeline,
-data plane, search, op-parallel) and the serving leg's
-scheduler, failure-model, fleet, sharded and prefix-workload columns
-wait for their slices of the port (ROADMAP.md queue 1).  The leg functions take the
+data plane, search, op-parallel) and the serving leg's fleet and
+sharded columns wait for their slices of the port (ROADMAP.md queue 1).  The leg functions take the
 device and their sizes as arguments, so a test can run them small on
 the CPU.
 """
@@ -228,6 +228,61 @@ def bench_telemetry(device="cuda", batch: int = 64, width: int = 256,
     }
 
 
+#: The serving leg's injected faults (``bench.py``'s): a NaN'd cache row
+#: of slot 0 before decode superstep 1, an engine fault before 3.
+SCHED_FAULTS = dict(nan_cache_at={1: 0},
+                    engine_raise_at={3: "injected engine fault"})
+
+
+def sched_workload(n_req: int, vocab: int, max_seq: int, max_new: int,
+                   shared_prefix: int = 0):
+    """``bench.py``'s bursty open-loop workload: 2 x ``n_req`` requests
+    of 4 to ``max_seq / 4`` prompt tokens and 2 to ``max_new`` new ones,
+    bursts of ``n_req`` 2 virtual ms apart on average, 2 tiers, tier-0
+    SLO 60 virtual ms, seed 13; ``shared_prefix`` arms its shared
+    system-prompt span."""
+    from flexflow_torch.serving import WorkloadSpec, make_workload
+
+    return make_workload(WorkloadSpec(
+        n_requests=2 * n_req, vocab=vocab, prompt_len=(4, max_seq // 4),
+        max_new=(2, max_new), mean_gap_ms=2.0, burst=n_req, priorities=2,
+        slo_ms=60.0, shared_prefix=shared_prefix, seed=13))
+
+
+def sched_columns(runs: dict) -> dict:
+    """``bench.py``'s scheduler columns, its names and formulas, from the
+    ``(results, stats)`` of the leg's scheduled runs: ``slo`` and
+    ``fifo`` (the A/B and the slo run's tail autopsy), ``failure`` (the
+    slo run under :data:`SCHED_FAULTS` with one retry and one restart),
+    ``prefix_on`` / ``prefix_off`` (the shared-prefix workload on the
+    paged pool with and without the prefix cache).  Every latency column
+    is in virtual ms."""
+    slo, fifo = runs["slo"][1], runs["fifo"][1]
+    out = {k: slo[k] for k in (
+        "queue_wait_ms_p50", "queue_wait_ms_p95", "queue_wait_ms_p99",
+        "e2e_ms_p99", "slo_attainment", "request_sheds", "request_preempts")}
+    out["fifo_queue_wait_ms_p99"] = fifo["queue_wait_ms_p99"]
+    out["fifo_slo_attainment"] = fifo["slo_attainment"]
+    out["fifo_vs_slo_queue_wait_p99"] = round(
+        fifo["queue_wait_ms_p99"] / max(slo["queue_wait_ms_p99"], 1e-9), 3)
+    autopsy = slo.get("slo_autopsy") or {}
+    out["slo_missed"] = sum(r["missed"] for r in autopsy.values())
+    out["slo_dominant_phase"] = {
+        tier: row["dominant_phase"] for tier, row in autopsy.items()}
+    for k in ("request_retries", "request_expiries", "engine_restarts"):
+        out[k] = runs["failure"][1][k]
+    (on_res, on), (off_res, off) = runs["prefix_on"], runs["prefix_off"]
+    out["prefix_hits"] = on["prefix_hits"]
+    out["prefix_hit_rate"] = on["prefix_hit_rate"]
+    out["prefill_tokens_saved"] = on["prefill_tokens_saved"]
+    out["prefix_kv_cows"] = on["kv_cows"]
+    out["prefix_prefills"] = on["prefills"]
+    out["prefix_off_prefills"] = off["prefills"]
+    out["prefix_match"] = all(
+        on_res[r].tokens == off_res[r].tokens for r in off_res)
+    return out
+
+
 def bench_serving(device="cuda", vocab: int = 32768, d_model: int = 512,
                   heads: int = 8, layers: int = 6, max_seq: int = 128,
                   max_batch: int = 8, n_req: int = 16, max_new: int = 32,
@@ -242,11 +297,22 @@ def bench_serving(device="cuda", vocab: int = 32768, d_model: int = 512,
     per slot, the batch the padded cache's budget admits in each layout)
     and tokens/s at K = 8; a d = ``speculate`` full self-draft against
     plain K = 8 (tokens per decode dispatch, acceptance, and whether the
-    tokens match)."""
+    tokens match).  Then ``bench.py``'s scheduler columns over its bursty
+    workload (2 x ``n_req`` requests, ``mean_gap_ms`` 2, bursts of
+    ``n_req``, 2 tiers, ``slo_ms`` 60, seed 13), each ``ScheduledServer``
+    run once: the slo policy against fifo (queue wait, e2e p99, SLO
+    attainment, sheds, preemptions), the slo run's tail autopsy, the
+    failure model (a NaN'd cache before superstep 1 and an engine fault
+    before superstep 3 under one retry and one restart), and the
+    prefix workload (a ``kv_block``-token shared span) on the paged pool
+    with and without the prefix cache.  Every scheduler latency column is
+    in virtual ms (``serving/latency_model.py``, the model defaults)."""
     from flexflow_torch.config import FFConfig
     from flexflow_torch.models.transformer import build_transformer_lm
     from flexflow_torch.runtime.serving import (
-        Server, ServingExecutor, synthetic_requests)
+        Server, ServingExecutor, ServingFaultInjector, synthetic_requests)
+    from flexflow_torch.serving import (
+        ScheduledServer, SchedulerPolicy, ServingResilience)
 
     ff = build_transformer_lm(
         batch_size=max_batch, seq_len=max_seq, vocab_size=vocab,
@@ -309,6 +375,28 @@ def bench_serving(device="cuda", vocab: int = 32768, d_model: int = 512,
         spec_stats["spec_tokens_per_dispatch"] / max(plain_tpd, 1e-9), 3)
     out["spec_match"] = all(
         spec_res[r].tokens == plain_res[r].tokens for r in plain_res)
+
+    # -- the scheduler's columns, bench.py's formulas --
+    slo_kw = dict(policy=SchedulerPolicy(name="slo"), decode_steps=8)
+    runs = {
+        "slo": ScheduledServer(sex, params, state, **slo_kw).run(
+            sched_workload(n_req, vocab, max_seq, max_new)),
+        "fifo": ScheduledServer(sex, params, state, decode_steps=8,
+                                policy=SchedulerPolicy.fifo()).run(
+            sched_workload(n_req, vocab, max_seq, max_new)),
+        "failure": ScheduledServer(
+            sex, params, state, **slo_kw,
+            resilience=ServingResilience(max_retries=1, max_restarts=1),
+            fault_injector=ServingFaultInjector(**SCHED_FAULTS)).run(
+            sched_workload(n_req, vocab, max_seq, max_new)),
+    }
+    sexpc = ServingExecutor(ff, max_batch=max_batch, max_seq=max_seq,
+                            buckets=buckets, device=device,
+                            kv_block=kv_block, prefix_cache=True)
+    for tag, engine in (("prefix_off", sexp), ("prefix_on", sexpc)):
+        runs[tag] = ScheduledServer(engine, params, state, **slo_kw).run(
+            sched_workload(n_req, vocab, max_seq, max_new, kv_block))
+    out.update(sched_columns(runs))
     return out
 
 

@@ -1,0 +1,268 @@
+"""CLI of the port's run analytics: the counterpart of
+``python -m flexflow_tpu.obs``, reading logs written on the card
+(OBSERVABILITY.md's schema) with the stdlib and the port's reader.
+
+- ``python -m flexflow_torch.obs report RUN``: one run's narrative
+  (exit, meta, fingerprint, summary, serving block, tail autopsy,
+  calibration, faults, program costs, trace summary).  RUN is a run-log
+  path or a telemetry dir (a dir resolves to its latest run).
+- ``python -m flexflow_torch.obs compare A B [--gate]``: the drift table
+  and verdict; ``--gate`` exits 1 on a ``drift:*`` verdict.
+- ``python -m flexflow_torch.obs history DIR``: the run-registry table.
+- ``python -m flexflow_torch.obs request RUN [ID | --id ID] [--slo-miss]
+  [--worst N] [--stream PATH ...] [--journal PREFIX]``: per-request span
+  waterfalls and the tail autopsy; ``--stream`` merges extra
+  per-process telemetry files, ``--journal`` cross-checks ids against
+  the request journal(s).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from flexflow_torch.obs.compare import compare_paths
+from flexflow_torch.obs.reader import RunLog, resolve_run
+from flexflow_torch.obs.registry import format_history, history
+
+
+def _fmt_block(d, indent="  ") -> str:
+    return "\n".join(f"{indent}{k}: {d[k]}" for k in d)
+
+
+#: Summary keys rendered as the serving section of a report: latency,
+#: goodput, failure-model counters and fleet health in one block.
+_SERVING_KEYS = (
+    "queue_wait_ms_p50", "queue_wait_ms_p95", "queue_wait_ms_p99",
+    "slo_attainment", "request_sheds", "request_preempts",
+    "request_retries", "request_expiries", "engine_restarts",
+    "prefix_hit_rate", "prefill_tokens_saved",
+    "spec_acceptance_rate", "spec_tokens_per_dispatch",
+    "fleet_replicas", "fleet_dead_replicas", "fleet_redistributed",
+)
+
+
+def _print_autopsy(autopsy, indent="  ") -> None:
+    for tier in autopsy:
+        row = autopsy[tier]
+        phases = ", ".join(f"{p}={v}ms"
+                           for p, v in (row.get("phase_ms") or {}).items())
+        print(f"{indent}tier {tier}: {row.get('missed')} missed, "
+              f"dominant phase {row.get('dominant_phase')}"
+              + (f"  ({phases})" if phases else ""))
+
+
+def cmd_report(args) -> int:
+    path = resolve_run(args.run)
+    if path is None:
+        print(f"report: no run log under {args.run!r}", file=sys.stderr)
+        return 2
+    log = RunLog.load(path)
+    if log.read_error:
+        print(f"report: cannot read {path}: {log.read_error}",
+              file=sys.stderr)
+        return 2
+    print(f"run {log.run_id or '?'}  ({path})")
+    print(f"exit: {log.exit}"
+          + ("  [torn tail line]" if log.torn_tail else ""))
+    if log.malformed:
+        print(f"malformed records dropped: {log.malformed}")
+    if log.unknown_events:
+        print("unknown event types: " + ", ".join(log.unknown_events))
+    rs = log.run_start
+    if rs is not None:
+        meta = {k: v for k, v in rs.data.items()
+                if k not in ("ts", "seq", "ev", "run_id", "pid",
+                             "fingerprint")}
+        if meta:
+            print("meta:")
+            print(_fmt_block(meta))
+    if log.fingerprint:
+        print("fingerprint:")
+        print(_fmt_block(log.fingerprint))
+    summary = log.summary()
+    autopsy = summary.pop("slo_autopsy", None)
+    serving = {k: summary.pop(k) for k in _SERVING_KEYS if k in summary}
+    if summary:
+        print("summary" + ("" if log.complete
+                           else " (reconstructed from events)") + ":")
+        print(_fmt_block(summary))
+    if serving:
+        print("serving:")
+        print(_fmt_block(serving))
+    if autopsy:
+        print("slo autopsy (dominant phase per missed tier — "
+              "`obs request` for waterfalls):")
+        _print_autopsy(autopsy)
+    cal = log.calibration()
+    if cal:
+        print("calibration:")
+        print(_fmt_block(cal))
+    # Resilience narrative: what went wrong and what recovery did.
+    for ev_name in ("fault", "rollback", "replay", "preempt", "stall",
+                    "ckpt_torn"):
+        evs = log.select(ev_name)
+        if evs:
+            print(f"{ev_name} x{len(evs)}: "
+                  + "; ".join(
+                      str({k: v for k, v in e.data.items()
+                           if k not in ("ts", "seq", "ev")})
+                      for e in evs[:5])
+                  + (" ..." if len(evs) > 5 else ""))
+    costs = log.select("program_cost")
+    if costs:
+        print("program costs (first build):")
+        for e in costs:
+            extra = {k: v for k, v in e.data.items()
+                     if k not in ("ts", "seq", "ev", "kind", "flops",
+                                  "bytes_accessed", "transcendentals")}
+            print(f"  {e.get('kind')}: "
+                  f"{float(e.get('flops', 0.0)) / 1e9:.3f} GF, "
+                  f"{float(e.get('bytes_accessed', 0.0)) / 1e6:.1f} MB"
+                  + (f"  {extra}" if extra else ""))
+    ts = log.trace_summary()
+    if ts:
+        print(f"trace summary (device total "
+              f"{ts.get('device_ms_total')} ms):")
+        for row in ts.get("top_ops", []):
+            print(f"  {row['op']:<40} {row['device_ms']:>10.3f} ms "
+                  f"x{row['count']}")
+        for name, a in (ts.get("annotations") or {}).items():
+            print(f"  step '{name}': {a['count']} windows, host "
+                  f"{a['host_ms']} ms, device {a['device_ms']} ms")
+    search = log.first("search")
+    if search is not None:
+        print("execution search: "
+              + str({k: v for k, v in search.data.items()
+                     if k not in ("ts", "seq", "ev")}))
+    return 0
+
+
+def cmd_request(args) -> int:
+    from flexflow_torch.obs import spans as _spans
+
+    path = resolve_run(args.run)
+    if path is None:
+        print(f"request: no run log under {args.run!r}", file=sys.stderr)
+        return 2
+    paths = [path] + list(args.stream or [])
+    log = RunLog.load_streams(paths) if len(paths) > 1 else RunLog.load(path)
+    if log.read_error:
+        print(f"request: cannot read {path}: {log.read_error}",
+              file=sys.stderr)
+        return 2
+    tls = _spans.timelines_from_run(log)
+    if args.journal:
+        outcomes = _spans.journal_outcomes(
+            _spans.fleet_journal_paths(args.journal))
+        missing = sorted(set(outcomes) - set(tls))
+        if missing:
+            print(f"journal-only requests (telemetry stream lost them): "
+                  f"{missing}")
+    if not tls:
+        print("request: no stamped serving requests in this run",
+              file=sys.stderr)
+        return 2
+    bad = sorted(i for i, t in tls.items() if not t.reconciled)
+    if bad:
+        print(f"WARNING: {len(bad)} request(s) do NOT reconcile "
+              f"(phase sum != e2e): {bad}")
+    rid = args.id if args.id is not None else args.id_flag
+    if rid is not None:
+        tl = tls.get(rid)
+        if tl is None:
+            print(f"request: no request id {rid} in this run "
+                  f"(ids: {sorted(tls)})", file=sys.stderr)
+            return 2
+        print(_spans.render_waterfall(tl))
+        return 0
+    chosen = sorted(tls.values(), key=lambda t: (-t.e2e_ms, t.id))
+    if args.slo_miss:
+        chosen = [t for t in chosen if t.slo_ok is False]
+        if not chosen:
+            print("no SLO misses in this run")
+            return 0
+    if args.worst:
+        chosen = chosen[:args.worst]
+    if args.slo_miss or args.worst:
+        for tl in chosen:
+            print(_spans.render_waterfall(tl))
+            print()
+    else:
+        print(f"{'id':>5} {'tier':>4} {'e2e_ms':>10} {'queue_ms':>9} "
+              f"{'tokens':>6} {'slo':>4}  dominant")
+        for tl in sorted(tls.values(), key=lambda t: t.id):
+            slo = ("miss" if tl.slo_ok is False
+                   else "ok" if tl.slo_ok else "-")
+            qw = "-" if tl.queue_wait_ms is None \
+                else f"{tl.queue_wait_ms:.3f}"
+            mark = "  [transplanted]" if tl.transplanted else ""
+            print(f"{tl.id:>5} {tl.tier if tl.tier is not None else '-':>4} "
+                  f"{tl.e2e_ms:>10.3f} {qw:>9} {tl.tokens:>6} {slo:>4}"
+                  f"  {tl.dominant_phase}{mark}")
+    autopsy = _spans.slo_autopsy(tls)
+    if autopsy:
+        print("slo autopsy:")
+        _print_autopsy(autopsy)
+    return 0
+
+
+def cmd_compare(args) -> int:
+    try:
+        result = compare_paths(args.a, args.b)
+    except FileNotFoundError as e:
+        print(f"compare: {e}", file=sys.stderr)
+        return 2
+    print(result.format())
+    if args.gate and not result.ok:
+        return 1
+    return 0
+
+
+def cmd_history(args) -> int:
+    print(format_history(history(args.dir)))
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m flexflow_torch.obs",
+        description="Run analytics: report / compare / history "
+                    "(OBSERVABILITY.md 'Reading across runs').",
+    )
+    sub = p.add_subparsers(dest="cmd", required=True)
+    pr = sub.add_parser("report", help="one run's narrative")
+    pr.add_argument("run", help="run-log path or telemetry dir")
+    pr.set_defaults(fn=cmd_report)
+    pq = sub.add_parser(
+        "request", help="per-request span waterfalls + tail autopsy")
+    pq.add_argument("run", help="run-log path or telemetry dir")
+    pq.add_argument("id", nargs="?", type=int,
+                    help="one request id's waterfall")
+    pq.add_argument("--id", dest="id_flag", type=int, metavar="ID",
+                    help="one request id's waterfall (as the positional)")
+    pq.add_argument("--slo-miss", action="store_true",
+                    help="waterfalls for every SLO miss")
+    pq.add_argument("--worst", type=int, default=0, metavar="N",
+                    help="waterfalls for the N slowest requests")
+    pq.add_argument("--stream", action="append", metavar="PATH",
+                    help="extra per-process telemetry stream(s) to merge")
+    pq.add_argument("--journal", metavar="PREFIX",
+                    help="request journal (fleet .r{i} fan-out globbed) "
+                         "to cross-check ids against")
+    pq.set_defaults(fn=cmd_request)
+    pc = sub.add_parser("compare", help="drift table + verdict")
+    pc.add_argument("a", help="baseline run log or telemetry dir")
+    pc.add_argument("b", help="candidate run log or telemetry dir")
+    pc.add_argument("--gate", action="store_true",
+                    help="exit 1 on any drift:* verdict")
+    pc.set_defaults(fn=cmd_compare)
+    ph = sub.add_parser("history", help="run-registry table")
+    ph.add_argument("dir", help="telemetry dir holding runs.jsonl")
+    ph.set_defaults(fn=cmd_history)
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

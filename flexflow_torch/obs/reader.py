@@ -1,0 +1,438 @@
+"""Typed reader for one run's JSONL telemetry stream: the port's copy of
+``flexflow_tpu/obs/reader.py`` (stdlib only), so a run log written on the
+card reads where JAX is not installed.
+
+The one way the port parses its logs: the obs CLI, the cross-run
+comparator, the span fold, the serving latency model's fit and the
+request journal's replay (``serving/journal.py``) all load through
+:class:`RunLog`.  It reads the JAX package's logs as well: both write
+the schema of OBSERVABILITY.md.
+
+Contracts the reader owns:
+
+- **Truncation tolerance**: a crashed run's log ends in a torn tail
+  line (the writer flushes whole lines, but the process can die
+  mid-``write``); ``load`` never raises on it — the torn line is
+  counted, everything before it is kept, and :attr:`RunLog.exit`
+  classifies the run ``truncated`` when no ``run_end`` arrived.
+- **Schema validation**: every record must be a JSON object carrying
+  ``ev`` (else it is counted malformed and dropped); ``ts``/``seq``
+  default when absent — the writer always stamps them, but hand-built
+  logs (the calibration fixtures) legitimately omit them.  Unknown
+  event names are kept but collected in
+  :attr:`RunLog.unknown_events` — a reader should surface them, not
+  crash on them (forward compatibility).
+- **Replayed-step overwrite**: reconstruction takes the LAST ``step``
+  event per index — after a rollback the replayed steps are recorded
+  again and overwrite (the chaos contract,
+  ``tests/test_telemetry.py::test_chaos_log_reconstructs_run``).
+- **Summary reconstruction**: :meth:`RunLog.reconstruct_summary`
+  replicates ``Telemetry.step_summary`` field for field from raw
+  events, and :meth:`RunLog.summary` prefers the authoritative
+  ``run_end`` block when the log is complete.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+from typing import Any, Dict, Iterator, List, Optional, Sequence
+
+from flexflow_torch.obs.events import EVENT_CATALOG, EXIT_CLEAN, EXIT_TRUNCATED
+
+_log = logging.getLogger("ff.obs")
+
+#: The one key every event record must carry to be schema-valid.
+#: ``ts``/``seq`` are always written by ``Telemetry`` but default on
+#: read (0.0 / arrival order) so hand-built logs stay loadable —
+#: the calibration fixtures' contract.
+REQUIRED_KEYS = ("ev",)
+
+
+@dataclasses.dataclass
+class Event:
+    """One schema-valid telemetry record.  ``data`` is the full raw
+    dict (including ``ts``/``seq``/``ev``) so round-tripping loses
+    nothing; item access delegates to it."""
+
+    ts: float
+    seq: int
+    ev: str
+    data: Dict[str, Any]
+
+    def __getitem__(self, key: str) -> Any:
+        return self.data[key]
+
+    def get(self, key: str, default: Any = None) -> Any:
+        return self.data.get(key, default)
+
+    @property
+    def raw(self) -> Dict[str, Any]:
+        return self.data
+
+
+def _pct(sorted_vals: Sequence[float], p: float) -> float:
+    """Nearest-rank percentile — EXACTLY ``Telemetry.step_summary``'s
+    formula, so reconstruction is bit-identical."""
+    n = len(sorted_vals)
+    return sorted_vals[min(n - 1, int(round(p * (n - 1))))]
+
+
+@dataclasses.dataclass
+class RunLog:
+    """One parsed run: the event list plus everything the load learned
+    about the file's health."""
+
+    path: Optional[str]
+    events: List[Event]
+    #: Records dropped for not being a JSON object carrying ``ev``.
+    malformed: int = 0
+    #: True when the file's last line did not parse (crashed writer).
+    torn_tail: bool = False
+    #: Event names seen that are not in the registered catalog.
+    unknown_events: List[str] = dataclasses.field(default_factory=list)
+    #: OSError text when the file could not be read at all.
+    read_error: Optional[str] = None
+
+    # -- loading -------------------------------------------------------------
+
+    @classmethod
+    def load(cls, path: str) -> "RunLog":
+        """Tolerant line-by-line load; never raises on a missing,
+        unreadable, torn or partially-garbled file."""
+        events: List[Event] = []
+        malformed = 0
+        torn = False
+        unknown: List[str] = []
+        seen_unknown = set()
+        try:
+            with open(path) as f:
+                lines = f.read().splitlines()
+        except OSError as e:
+            return cls(path=path, events=[], read_error=str(e))
+        for i, line in enumerate(lines):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                if i == len(lines) - 1:
+                    torn = True  # torn tail line of a crashed run
+                else:
+                    malformed += 1
+                continue
+            if not isinstance(rec, dict) or any(
+                k not in rec for k in REQUIRED_KEYS
+            ):
+                malformed += 1
+                continue
+            ev = str(rec["ev"])
+            if ev not in EVENT_CATALOG and ev not in seen_unknown:
+                seen_unknown.add(ev)
+                unknown.append(ev)
+            events.append(
+                Event(ts=float(rec.get("ts", 0.0)),
+                      seq=int(rec.get("seq", len(events))), ev=ev,
+                      data=rec)
+            )
+        return cls(path=path, events=events, malformed=malformed,
+                   torn_tail=torn, unknown_events=unknown)
+
+    @classmethod
+    def load_streams(cls, paths: Sequence[str]) -> "RunLog":
+        """Merge several per-process streams (a fleet's ``PATH.r{i}``
+        journals, a multi-host run's ``-p<id>`` telemetry files) into
+        ONE log: events concatenated in the given path order — per-
+        stream order is what the span fold keys on, and the shared
+        virtual clock makes cross-stream order immaterial.  Each
+        stream is loaded with the full tolerance contract
+        independently, so a torn tail (or unreadable file) in one
+        stream never poisons the others' events."""
+        merged = cls(path=" + ".join(paths) if paths else None, events=[])
+        seen_unknown: set = set()
+        errors: List[str] = []
+        for p in paths:
+            part = cls.load(p)
+            merged.events.extend(part.events)
+            merged.malformed += part.malformed
+            merged.torn_tail = merged.torn_tail or part.torn_tail
+            for u in part.unknown_events:
+                if u not in seen_unknown:
+                    seen_unknown.add(u)
+                    merged.unknown_events.append(u)
+            if part.read_error:
+                errors.append(f"{p}: {part.read_error}")
+        if errors and not merged.events:
+            merged.read_error = "; ".join(errors)
+        return merged
+
+    @classmethod
+    def from_events(cls, records) -> "RunLog":
+        """Wrap already-parsed dicts (an in-memory stream)."""
+        events = [
+            Event(ts=float(r.get("ts", 0.0)), seq=int(r.get("seq", i)),
+                  ev=str(r["ev"]), data=r)
+            for i, r in enumerate(records)
+        ]
+        return cls(path=None, events=events)
+
+    def iter_raw(self) -> Iterator[Dict[str, Any]]:
+        for e in self.events:
+            yield e.data
+
+    # -- selection -----------------------------------------------------------
+
+    def select(self, *names: str) -> List[Event]:
+        want = set(names)
+        return [e for e in self.events if e.ev in want]
+
+    def first(self, name: str) -> Optional[Event]:
+        for e in self.events:
+            if e.ev == name:
+                return e
+        return None
+
+    @property
+    def run_start(self) -> Optional[Event]:
+        return self.first("run_start")
+
+    @property
+    def run_end(self) -> Optional[Event]:
+        # The last event of a clean log; scan from the back.
+        for e in reversed(self.events):
+            if e.ev == "run_end":
+                return e
+        return None
+
+    @property
+    def run_id(self) -> Optional[str]:
+        rs = self.run_start
+        return rs.get("run_id") if rs else None
+
+    @property
+    def fingerprint(self) -> Dict[str, Any]:
+        """The box-state fingerprint recorded on ``run_start`` (empty
+        for pre-fingerprint logs)."""
+        rs = self.run_start
+        fp = rs.get("fingerprint") if rs else None
+        return dict(fp) if isinstance(fp, dict) else {}
+
+    @property
+    def complete(self) -> bool:
+        return self.run_end is not None
+
+    @property
+    def exit(self) -> str:
+        """``clean`` / ``exception:<type>`` / ``preempt`` from the
+        ``run_end`` event, or ``truncated`` when the run never reached
+        one (crashed hard / still running) — the three recorded
+        outcomes plus the one only absence can signal."""
+        end = self.run_end
+        if end is None:
+            return EXIT_TRUNCATED
+        return str(end.get("exit", EXIT_CLEAN))
+
+    # -- reconstruction ------------------------------------------------------
+
+    def steps(self) -> Dict[int, Event]:
+        """Last ``step`` event per index — replays overwrite."""
+        out: Dict[int, Event] = {}
+        for e in self.events:
+            if e.ev == "step":
+                out[int(e["step"])] = e
+        return out
+
+    def losses(self) -> Dict[int, Any]:
+        """The validated loss trajectory (last event per index)."""
+        return {
+            i: e.get("loss") for i, e in self.steps().items()
+        }
+
+    def reconstruct_summary(self) -> Dict[str, Any]:
+        """``Telemetry.step_summary`` recomputed from raw events —
+        same counters, same nearest-rank percentiles, same rounding.
+        ``programs_per_step`` is NOT recoverable from raw events (the
+        counter never leaves the process except via ``run_end``), so
+        it is absent here; :meth:`summary` prefers the authoritative
+        block when the log has one."""
+        step_walls: List[float] = []
+        input_waits: List[float] = []
+        queue_waits: List[float] = []
+        slo_oks: List[bool] = []
+        steps = fences = sheds = preempts = 0
+        retries = expiries = restarts = 0
+        spec_rounds = spec_accepted = spec_draft = spec_emitted = 0
+        prefill_evs = prefix_hits = full_hits = tokens_saved = 0
+        for e in self.events:
+            if e.ev == "step":
+                steps += 1
+                w = e.get("wall_s")
+                if w is not None:
+                    step_walls.append(float(w))
+            elif e.ev == "fence":
+                fences += 1
+            elif e.ev == "input_wait":
+                input_waits.append(float(e["wall_s"]))
+            elif e.ev == "request_end":
+                # Scheduler-era request_end events carry the rounded
+                # virtual-clock split (SERVING.md); legacy ones don't,
+                # and then no serving rows are reconstructed.
+                qw = e.get("queue_wait_ms")
+                if qw is not None:
+                    queue_waits.append(float(qw))
+                if e.get("slo_ok") is not None:
+                    slo_oks.append(bool(e["slo_ok"]))
+            elif e.ev == "request_shed":
+                sheds += 1
+            elif e.ev == "request_preempt":
+                preempts += 1
+            elif e.ev == "request_retry":
+                retries += 1
+            elif e.ev == "request_expire":
+                expiries += 1
+            elif e.ev == "engine_restart":
+                restarts += 1
+            elif e.ev == "prefill":
+                # One event per executed prefill dispatch — full
+                # prefix hits execute none and emit none, so the
+                # counts reproduce the serving loops' hit-rate
+                # denominator (prefills + full hits) exactly.
+                prefill_evs += 1
+            elif e.ev == "prefix_hit":
+                prefix_hits += 1
+                if e.get("full"):
+                    full_hits += 1
+                tokens_saved += int(e.get("tokens_saved", 0))
+            elif e.ev == "spec_verify":
+                # One event per speculative round (= per decode
+                # dispatch in spec mode), so the counts reproduce the
+                # server's acceptance/tokens-per-dispatch exactly.
+                spec_rounds += 1
+                spec_accepted += int(e.get("accepted", 0))
+                spec_draft += int(e.get("draft", 0))
+                spec_emitted += int(e.get("emitted", 0))
+        out: Dict[str, Any] = {"steps": steps, "fences": fences}
+        out["fences_per_step"] = round(fences / max(steps, 1), 4)
+        if step_walls:
+            ts = sorted(step_walls)
+            out["step_ms_p50"] = round(_pct(ts, 0.50) * 1e3, 3)
+            out["step_ms_p95"] = round(_pct(ts, 0.95) * 1e3, 3)
+            out["step_ms_max"] = round(ts[-1] * 1e3, 3)
+        if input_waits:
+            ws = sorted(input_waits)
+            out["input_wait_ms_p50"] = round(_pct(ws, 0.50) * 1e3, 3)
+            out["input_wait_ms_p95"] = round(_pct(ws, 0.95) * 1e3, 3)
+            out["input_waits"] = len(ws)
+            out["input_wait_s_total"] = round(sum(ws), 6)
+        if queue_waits:
+            # Percentiles over the events' already-rounded ms values —
+            # the scheduler's note_summary computes the same numbers
+            # from the same rounded inputs, so run_end and
+            # reconstruction agree bit-for-bit.
+            qs = sorted(queue_waits)
+            out["queue_wait_ms_p50"] = round(_pct(qs, 0.50), 3)
+            out["queue_wait_ms_p95"] = round(_pct(qs, 0.95), 3)
+            out["queue_wait_ms_p99"] = round(_pct(qs, 0.99), 3)
+            out["request_sheds"] = sheds
+            out["request_preempts"] = preempts
+        if queue_waits or retries or expiries or restarts:
+            # Failure-model counters (SERVING.md "Failure model"):
+            # present whenever the run was a scheduled serving run or
+            # any fault-recovery event fired, matching the
+            # scheduler's note_summary field set.
+            out["request_retries"] = retries
+            out["request_expiries"] = expiries
+            out["engine_restarts"] = restarts
+        if slo_oks:
+            out["slo_attainment"] = round(sum(slo_oks) / len(slo_oks), 4)
+        if prefix_hits:
+            # Same formula, gating and rounding as the serving loops'
+            # note_summary (runtime/serving.py / serving/scheduler.py).
+            out["prefix_hit_rate"] = round(
+                prefix_hits / max(prefill_evs + full_hits, 1), 4
+            )
+            out["prefill_tokens_saved"] = tokens_saved
+        if spec_rounds:
+            # Same formulas and rounding as the serving stats block
+            # (runtime/serving.py / serving/scheduler.py).
+            out["spec_acceptance_rate"] = round(
+                spec_accepted / max(spec_draft, 1), 4
+            )
+            out["spec_tokens_per_dispatch"] = round(
+                spec_emitted / max(spec_rounds, 1), 3
+            )
+        if slo_oks and not all(slo_oks):
+            # Tail autopsy (OBSERVABILITY.md "Reading a request"):
+            # the SAME span fold the scheduler runs over its in-memory
+            # event copy, so run_end.summary and reconstruction agree
+            # bit-for-bit.  Lazy import keeps module load light.
+            from flexflow_torch.obs import spans as _spans
+
+            autopsy = _spans.slo_autopsy(
+                _spans.build_timelines(self.iter_raw()))
+            if autopsy:
+                out["slo_autopsy"] = autopsy
+        return out
+
+    def summary(self) -> Dict[str, Any]:
+        """The run's counters/percentile block: the ``run_end``
+        event's (authoritative — carries ``programs_per_step``) when
+        the log is complete, else :meth:`reconstruct_summary`."""
+        end = self.run_end
+        if end is not None and isinstance(end.get("summary"), dict):
+            return dict(end["summary"])
+        return self.reconstruct_summary()
+
+    def calibration(self) -> Dict[str, Any]:
+        """The ``run_end`` calibration block (empty when truncated —
+        ``Calibration.from_events`` re-derives what it can)."""
+        end = self.run_end
+        if end is not None and isinstance(end.get("calibration"), dict):
+            return dict(end["calibration"])
+        return {}
+
+    def trace_summary(self) -> Dict[str, Any]:
+        """The device-time attribution block on ``run_end`` (present
+        only for ``--trace`` + ``--telemetry`` runs)."""
+        end = self.run_end
+        if end is not None and isinstance(end.get("trace_summary"), dict):
+            return dict(end["trace_summary"])
+        return {}
+
+
+def run_files(directory: str) -> List[str]:
+    """All ``run-*.jsonl`` under ``directory``, name-sorted (UTC
+    timestamps in the name make this creation order)."""
+    try:
+        names = sorted(
+            n for n in os.listdir(directory)
+            if n.startswith("run-") and n.endswith(".jsonl")
+        )
+    except OSError:
+        return []
+    return [os.path.join(directory, n) for n in names]
+
+
+def latest_run(directory: str,
+               exclude: Optional[str] = None) -> Optional[str]:
+    """Newest run log under ``directory`` by mtime (optionally
+    excluding e.g. the ACTIVE run's own file) — the selection rule
+    ``Calibration.from_dir`` has always used."""
+    paths = run_files(directory)
+    if exclude is not None:
+        ex = os.path.abspath(exclude)
+        paths = [p for p in paths if os.path.abspath(p) != ex]
+    if not paths:
+        return None
+    return max(paths, key=os.path.getmtime)
+
+
+def resolve_run(path: str) -> Optional[str]:
+    """CLI argument -> run-log path: a file is itself; a directory
+    resolves to its latest run."""
+    if os.path.isdir(path):
+        return latest_run(path)
+    return path

@@ -10,7 +10,9 @@ index, the port's copy of ``flexflow_tpu/obs/registry.py``.
 - The index (``runs.jsonl`` next to the run logs, one line per finished
   run: id, path, exit, fingerprint, headline summary numbers) is
   appended by ``Telemetry.close``; its name does not match the
-  ``run-*.jsonl`` glob of the run logs.
+  ``run-*.jsonl`` glob of the run logs.  :func:`history` reads it back
+  (tolerant of a torn tail line) and :func:`format_history` is the
+  ``python -m flexflow_torch.obs history`` table.
 """
 
 from __future__ import annotations
@@ -118,3 +120,52 @@ def index_record(tel) -> Dict[str, Any]:
         if k in summary:
             rec[k] = summary[k]
     return rec
+
+
+def history(directory: str) -> List[Dict[str, Any]]:
+    """All index rows under ``directory``, oldest first; tolerant of a
+    torn tail line exactly like the run-log reader."""
+    rows: List[Dict[str, Any]] = []
+    try:
+        with open(index_path(directory)) as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return rows
+    for line in lines:
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(rec, dict):
+            rows.append(rec)
+    return rows
+
+
+def format_history(rows: List[Dict[str, Any]]) -> str:
+    """The ``obs history`` table."""
+    if not rows:
+        return "run registry: no runs recorded"
+    hdr = (f"{'run_id':<26} {'exit':<20} {'steps':>6} {'p50 ms':>8} "
+           f"{'fence/st':>8} {'qw p99':>8} {'slo':>6} {'git':>8}  app")
+    lines = [hdr, "-" * len(hdr)]
+    for r in rows:
+        fp = r.get("fingerprint") or {}
+        meta = r.get("meta") or {}
+        p50 = r.get("step_ms_p50")
+        fps = r.get("fences_per_step")
+        qw99 = r.get("queue_wait_ms_p99")
+        slo = r.get("slo_attainment")
+        lines.append(
+            f"{str(r.get('run_id')):<26} {str(r.get('exit')):<20} "
+            f"{str(r.get('steps', '')):>6} "
+            f"{('' if p50 is None else format(p50, '.3f')):>8} "
+            f"{('' if fps is None else format(fps, '.2f')):>8} "
+            f"{('' if qw99 is None else format(qw99, '.2f')):>8} "
+            f"{('' if slo is None else format(slo, '.3f')):>6} "
+            f"{str(fp.get('git_sha') or ''):>8}  "
+            f"{meta.get('app', '')}"
+        )
+    return "\n".join(lines)

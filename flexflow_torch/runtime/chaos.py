@@ -12,10 +12,13 @@ Their model is JAX's chaos MLP (16 -> 32 ReLU -> 4, softmax, SGD lr 0.1,
 batch 8) on one device: JAX runs it under an ``n2c4`` strategy on 8
 virtual devices, which waits for the multi-device strategies (item 9).
 
-The serving scenarios run the plain ``Server``'s failure model on JAX's
-scenario stack (vocab 32, d_model 16, 2 heads, 1 layer, 2 slots,
-max_seq 32, f32): a fault isolates the faulted slots and every other
-request keeps the unfaulted tokens, on the padded and the paged layout.
+The serving scenarios run the plain ``Server``'s and the scheduler's
+failure models on JAX's scenario stack (vocab 32, d_model 16, 2 heads,
+1 layer, 2 slots, max_seq 32, f32): a fault isolates the faulted slots
+and every other request keeps the unfaulted tokens, on the padded and
+the paged layout; an overload sheds the same requests on every replay;
+an engine crash resumes from the journal, or restarts in process, with
+the uninterrupted run's tokens.
 They take ``params`` (a ``{op: {name: array}}`` tree: the tests carry
 JAX's across) or draw the port's own from seed 0.
 
@@ -470,6 +473,145 @@ def scenario_prefix_donor_eviction(root: str, device="cuda",
                   f"({st['prefix_hits']} hits through the fault)")
 
 
+def scenario_serving_overload_shed(root: str, device="cuda",
+                                   graph: Optional[bool] = None,
+                                   params=None) -> Result:
+    """Overload shedding as a fault property: 10 requests in bursts of 5
+    against 2 slots and ``shed_depth`` 3 spill the waiting queue, and the
+    scheduler sheds the worst tier and latest deadline.  The decisions
+    run on the virtual clock, so a replay sheds the same requests with
+    the same decision log, and every survivor's tokens equal a
+    no-shedding run of the survivors alone; the paged stack makes the
+    same decisions with the same tokens."""
+    from flexflow_torch.serving import (
+        ScheduledServer, SchedulerPolicy, WorkloadSpec, make_workload)
+
+    def overload():
+        return make_workload(WorkloadSpec(
+            n_requests=10, vocab=32, prompt_len=(3, 6), max_new=(2, 8),
+            mean_gap_ms=1.0, burst=5, priorities=2, slo_ms=30.0, seed=11))
+
+    policy = SchedulerPolicy(name="slo", preempt=False, shed_depth=3)
+
+    def serve(stack, requests, pol=policy):
+        sex, p = stack
+        srv = ScheduledServer(sex, p, {}, decode_steps=4, policy=pol,
+                              graph=graph)
+        results, stats = srv.run(requests)
+        return srv.decisions, results, stats
+
+    def shed(results):
+        return sorted(rid for rid, r in results.items()
+                      if r.error and r.error.startswith("shed"))
+
+    stack = _serving_setup(device, params=params)
+    dec_a, res_a, _ = serve(stack, overload())
+    shed_a = shed(res_a)
+    if not shed_a:
+        return False, "overload_shed: the burst never tripped shed_depth"
+    if [rid for rid in _failed(res_a) if rid not in shed_a]:
+        return False, f"overload_shed: errors besides the sheds: " \
+                      f"{_failed(res_a)}"
+    dec_b, res_b, _ = serve(stack, overload())
+    if shed(res_b) != shed_a or dec_b != dec_a:
+        return False, (f"overload_shed: the replay DIVERGED: shed "
+                       f"{shed_a} vs {shed(res_b)}")
+    survivors = [r for r in overload() if r.id not in shed_a]
+    _d, res_c, _ = serve(stack, survivors, SchedulerPolicy(
+        name="slo", preempt=False, shed_depth=0))
+    if _failed(res_c):
+        return False, "overload_shed: the survivors-only run had errors"
+    for rid in res_c:
+        if res_a[rid].tokens != res_c[rid].tokens:
+            return False, (f"overload_shed: survivor {rid}'s tokens "
+                           f"DIVERGED from the no-shedding run")
+    dec_p, res_p, st_p = serve(_serving_setup(device, 8, params=params),
+                               overload())
+    if st_p.get("kv_layout") != "paged":
+        return False, "overload_shed: the paged check did not run paged"
+    if shed(res_p) != shed_a or dec_p != dec_a:
+        return False, (f"overload_shed[paged]: decisions DIVERGED from the "
+                       f"padded run: shed {shed(res_p)} vs {shed_a}")
+    if _tokens(res_p) != _tokens(res_a):
+        return False, "overload_shed[paged]: tokens DIVERGED from padded"
+    return True, (f"overload_shed: requests {shed_a} shed alike on every "
+                  f"replay; all {len(res_c)} survivors byte-identical to "
+                  f"the no-shedding run (padded and paged layouts)")
+
+
+def scenario_serving_engine_crash(root: str, device="cuda",
+                                  graph: Optional[bool] = None,
+                                  params=None) -> Result:
+    """Engine-crash recovery of the scheduler: an engine fault before
+    superstep 2 with a restart budget of 0 raises ``ServingCrashLoop``
+    (the process death); a fresh server on the same journal restores the
+    completed requests and resumes the in-flight ones, with the
+    uninterrupted run's tokens.  With a budget of 1 the same fault
+    restarts the engine in process (caches, graphs and ledger built
+    anew), same tokens; and the crash and resume on the paged stack give
+    the padded run's tokens."""
+    from flexflow_torch.runtime.serving import (
+        ServingCrashLoop, ServingFaultInjector)
+    from flexflow_torch.serving import (
+        RequestJournal, ScheduledServer, ServingResilience)
+
+    def run(stack, journal=None, injector=None, max_restarts=0):
+        sex, p = stack
+        return ScheduledServer(
+            sex, p, {}, decode_steps=4,
+            resilience=ServingResilience(max_restarts=max_restarts),
+            journal=journal, fault_injector=injector, graph=graph,
+        ).run(_serving_requests())
+
+    def death(msg="injected engine death"):
+        return ServingFaultInjector(engine_raise_at={2: msg})
+
+    d = os.path.join(root, "engine_crash")
+    stack = _serving_setup(device, buckets=RECOVERY_BUCKETS, params=params)
+    base, _ = run(stack)
+    if _failed(base):
+        return False, "engine_crash: the unfaulted run had errors"
+    inj = death()
+    try:
+        run(stack, RequestJournal(os.path.join(d, "journal.jsonl")), inj)
+        return False, "engine_crash: the crash-loop budget never tripped"
+    except ServingCrashLoop:
+        pass
+    if not any(m == "engine" for m, _, _ in inj.fired):
+        return False, f"engine_crash: the injector fired {inj.fired}"
+    res_r, _ = run(stack, RequestJournal(os.path.join(d, "journal.jsonl")))
+    if _failed(res_r) or _tokens(res_r) != _tokens(base):
+        return False, ("engine_crash: the journal resume DIVERGED from the "
+                       "uninterrupted run")
+    res_i, st_i = run(stack, RequestJournal(os.path.join(d, "inproc.jsonl")),
+                      death(), max_restarts=1)
+    if st_i.get("engine_restarts") != 1:
+        return False, (f"engine_crash: expected 1 in-process restart, got "
+                       f"{st_i.get('engine_restarts')}")
+    if st_i.get("degraded_rungs"):
+        return False, (f"engine_crash: one fault took degraded rungs "
+                       f"{st_i['degraded_rungs']}")
+    if _failed(res_i) or _tokens(res_i) != _tokens(base):
+        return False, ("engine_crash: the in-process restart DIVERGED from "
+                       "the uninterrupted run")
+    paged = _serving_setup(device, 8, RECOVERY_BUCKETS, params=params)
+    pj = os.path.join(d, "journal_paged.jsonl")
+    try:
+        run(paged, RequestJournal(pj), death())
+        return False, "engine_crash[paged]: the budget never tripped"
+    except ServingCrashLoop:
+        pass
+    res_p, st_p = run(paged, RequestJournal(pj))
+    if st_p.get("kv_layout") != "paged":
+        return False, "engine_crash: the paged check did not run paged"
+    if _failed(res_p) or _tokens(res_p) != _tokens(base):
+        return False, ("engine_crash[paged]: the journal resume DIVERGED "
+                       "from the padded uninterrupted run")
+    return True, ("engine_crash: journal resume and in-process restart "
+                  "both byte-identical to the uninterrupted run (padded "
+                  "and paged layouts)")
+
+
 # -- not ported yet ----------------------------------------------------------
 
 
@@ -496,14 +638,12 @@ SCENARIOS: Dict[str, Callable[..., Result]] = {
     "loader_fault": _not_ported(
         "loader_fault", "item 12", "the streaming loader"),
     "serving_decode_fault": scenario_serving_decode_fault,
-    "serving_overload_shed": _not_ported(
-        "serving_overload_shed", "item 8", "the serving scheduler"),
-    "serving_engine_crash": _not_ported(
-        "serving_engine_crash", "item 8", "the scheduler's failure model"),
+    "serving_overload_shed": scenario_serving_overload_shed,
+    "serving_engine_crash": scenario_serving_engine_crash,
     "serving_sigterm_drain": scenario_serving_sigterm_drain,
     "serving_spec_fault": scenario_serving_spec_fault,
     "prefix_donor_eviction": scenario_prefix_donor_eviction,
-    "replica_loss": _not_ported("replica_loss", "item 8",
+    "replica_loss": _not_ported("replica_loss", "item 8's rest",
                                 "the serving fleet"),
     "host_loss": _not_ported("host_loss", "item 13",
                              "the multi-host elastic rig"),

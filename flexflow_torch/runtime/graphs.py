@@ -23,7 +23,12 @@ On CUDA:
   has already warmed the same step (the trainer's tail superstep);
 - a call whose carry is not the captured tensors (compared by
   ``data_ptr``) raises: a replay would update the captured ones;
-- a capture that fails raises.  Nothing falls back to eager steps.
+- a capture that fails raises.  Nothing falls back to eager steps;
+- Python's cyclic garbage collector is paused during a capture: a graph
+  that became garbage in a reference cycle (an old executor's) is
+  destroyed by the collector, and destroying a graph while another
+  stream captures invalidates the capture
+  (``cudaErrorStreamCaptureInvalidated``).
 
 The stacked outputs of a replay are the graph's static tensors: they
 hold until the next call overwrites them, so the caller reads them (the
@@ -36,6 +41,7 @@ it replays.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -148,8 +154,14 @@ class StepGraph:
         before = _ptrs(carry)
         static_in = {n: v.clone() for n, v in stacked.items()}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out_carry, outs = self._run(carry, static_in)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                out_carry, outs = self._run(carry, static_in)
+        finally:
+            if collecting:
+                gc.enable()
         if _ptrs(out_carry) != before:
             raise RuntimeError(
                 "the captured step hands back other tensors than it was "

@@ -13,7 +13,7 @@ The single-device core of ``flexflow_tpu/runtime/serving.py``:
   steps over the whole slot batch, token selection on the device
   (greedy, or the keyed temperature / top-k draw of
   ``runtime/keyed_random.py``), and ONE host readback of the ``(K, B)``
-  tokens and finiteness flags per superstep (:func:`_readback`).  On
+  tokens and finiteness flags per superstep (:func:`_fenced`).  On
   CUDA the K steps are one CUDA graph (``runtime/graphs.py::StepGraph``,
   the port's counterpart of JAX's one ``lax.scan`` dispatch): its carry
   ``(caches, pos, tok, block_table, req_ids)`` is updated in place.
@@ -44,11 +44,20 @@ The single-device core of ``flexflow_tpu/runtime/serving.py``:
 - **Train to serve** (:meth:`ServingExecutor.restore`): a training
   checkpoint's params and op state onto the serving device
   (``runtime/checkpoint.py``).
+- **Telemetry**: the JAX package's serving events (OBSERVABILITY.md):
+  ``serving_program`` at the first build of each program,
+  ``request_start`` / ``request_end``, ``prefill`` (``bucket``,
+  ``wall_s``), ``prefix_hit``, ``kv_cow``, ``decode_superstep`` (``k``,
+  ``active``, ``slots``, ``wall_s``), ``spec_verify`` and
+  ``serving_drain``, and a ``program_cost`` per program with its flops
+  from ``search/cost_model.py::serving_flops``.  Each dispatch's one
+  readback goes through ``Telemetry.fence``, so the fences are the same
+  with telemetry on and off; every event is emitted on the host between
+  dispatches, never inside a captured graph.
 
-Left for later slices (ROADMAP.md queue 1): the serving loop's
-telemetry events (item 7's rest; the injector's ``fault`` events are
-in), the scheduler, its failure model and the fleet (item 8), sharded
-decode (item 9).
+The SLO scheduler over these programs is ``serving/scheduler.py``.  Left
+for later slices (ROADMAP.md queue 1): the fleet (item 8's rest) and
+sharded decode (item 9).
 """
 
 from __future__ import annotations
@@ -101,7 +110,7 @@ class ServingEngineFault(RuntimeError):
 
 class ServingCrashLoop(RuntimeError):
     """The engine-restart budget is exhausted (the scheduler's failure
-    model, ROADMAP.md queue 1 item 8, raises it); an app maps it to
+    model, ``serving/scheduler.py``, raises it); an app maps it to
     :data:`EXIT_SERVING_FAILURE`."""
 
 
@@ -188,10 +197,10 @@ class ServingFaultInjector:
 @dataclasses.dataclass
 class Request:
     """One generation request.  ``arrival_ms`` / ``priority`` /
-    ``slo_ms`` are the open-loop scheduler's fields (item 8): arrival on
-    its virtual clock, the priority tier (0 highest) and the end-to-end
-    deadline in virtual ms (inf: best effort).  The closed loop admits
-    every request at run start."""
+    ``slo_ms`` are the open-loop scheduler's fields
+    (``serving/scheduler.py``): arrival on its virtual clock, the priority
+    tier (0 highest) and the end-to-end deadline in virtual ms (inf: best
+    effort).  The closed loop admits every request at run start."""
 
     id: int
     prompt: np.ndarray  # 1-D int32 token ids
@@ -440,10 +449,9 @@ class _Slot:
         return self.carried + self.tokens
 
 
-def _readback(*tensors: torch.Tensor) -> List[np.ndarray]:
+def _readback(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     """ONE device-to-host copy of int/bool tensors (as int32), split back
-    into their shapes: the fence that ends a prefill, a decode superstep
-    or a speculative round."""
+    into their shapes."""
     flat = torch.cat([t.reshape(-1).to(torch.int32) for t in tensors])
     flat = flat.cpu().numpy()
     out, i = [], 0
@@ -452,6 +460,13 @@ def _readback(*tensors: torch.Tensor) -> List[np.ndarray]:
         out.append(flat[i:i + n].reshape(tuple(t.shape)))
         i += n
     return out
+
+
+def _fenced(tel, label: str, *tensors: torch.Tensor) -> List[np.ndarray]:
+    """The fence that ends a prefill, a decode superstep or a speculative
+    round: :func:`_readback` through ``tel.fence`` (with telemetry on
+    also timed and a ``fence`` event; no fence of its own)."""
+    return tel.fence(tensors, label, read=_readback)
 
 
 def _f32(like: torch.Tensor, value: float) -> torch.Tensor:
@@ -599,6 +614,10 @@ class ServingExecutor:
             if name not in self._draft_skip
         }
         self._prefill_fns: Dict[Any, Any] = {}
+        #: Program keys whose ``serving_program`` event went out (JAX
+        #: emits one at each program's first build; a scheduler's engine
+        #: restart clears this with the prefill cache).
+        self._built: set = set()
 
     def init(self, seed: Optional[int] = None):
         """Fresh ``(params, op_state)`` on the serving device."""
@@ -836,6 +855,24 @@ class ServingExecutor:
 
     # -- programs -----------------------------------------------------------
 
+    def _announce(self, key, **fields) -> None:
+        """One ``serving_program`` event at the first build of ``key``."""
+        if key not in self._built:
+            self._built.add(key)
+            _telemetry.current().emit("serving_program", **fields)
+
+    @property
+    def _layout(self) -> str:
+        return "paged" if self.paged else "padded"
+
+    def program_flops(self, tokens: int) -> float:
+        """Analytic forward flops of a program over ``tokens`` token
+        positions (``search/cost_model.py::serving_flops``): the
+        ``program_cost`` events' number."""
+        from flexflow_torch.search.cost_model import serving_flops
+
+        return serving_flops(self.model, tokens)
+
     def _tokens(self, tokens, shape: Tuple[int, int]) -> torch.Tensor:
         tokens = torch.as_tensor(np.asarray(tokens), device=self.device)
         if tuple(tokens.shape) != shape:
@@ -873,6 +910,8 @@ class ServingExecutor:
             return rows, tok, ok
 
         self._prefill_fns[key] = prefill
+        self._announce(("prefill",) + key, kind="prefill", bucket=int(bucket),
+                       sampled=sample is not None)
         return prefill
 
     def build_prefill_from(self, bucket: int, offset: int,
@@ -926,6 +965,8 @@ class ServingExecutor:
             return rows, tok, ok
 
         self._prefill_fns[key] = prefill
+        self._announce(key, kind="prefill_from", bucket=int(bucket), offset=o,
+                       sampled=sample is not None)
         return prefill
 
     def build_draft_prefill(self, bucket: int):
@@ -949,6 +990,8 @@ class ServingExecutor:
                     for name, c in caches.items()}
 
         self._prefill_fns[key] = prefill
+        self._announce(key, kind="draft_prefill", bucket=int(bucket),
+                       draft_layers=self.draft_layers)
         return prefill
 
     @torch.inference_mode()
@@ -1042,6 +1085,9 @@ class ServingExecutor:
             return params, op_state, caches, block_table, pos, tok, req_ids, out
 
         runner = StepGraph(step, k, self.device) if graph else None
+        self._announce(("decode", k, return_logits, sample), kind="decode",
+                       k=int(k), layout=self._layout, sharded=False,
+                       sampled=sample is not None)
 
         @torch.inference_mode()
         def superstep(params, op_state, caches, *args):
@@ -1127,6 +1173,9 @@ class ServingExecutor:
                     {"tokens": ys, "finite": oks, "accepted": accepted})
 
         runner = StepGraph(spec_round, 1, self.device) if graph else None
+        self._announce(("spec", d, sample), kind="spec", d=int(d),
+                       draft_layers=self.draft_layers, layout=self._layout,
+                       sharded=False, sampled=sample is not None)
 
         @torch.inference_mode()
         def spec(params, draft_params, op_state, caches, dcaches, *args):
@@ -1317,6 +1366,7 @@ class Server:
         return self.engine
 
     def run(self, requests: Sequence[Request]):
+        tel = _telemetry.current()
         ex = self.ex
         B, k = ex.max_batch, self.decode_steps
         spec_d = self.speculate
@@ -1366,6 +1416,8 @@ class Server:
                 tokens=list(toks), error=error, latency_s=lat,
                 prefill_s=sl.prefill_s,
             )
+            tel.emit("request_end", id=sl.request.id, tokens=len(toks),
+                     error=error, latency_s=round(lat, 6))
             if jr is not None:
                 jr.done(sl.request.id, len(sl.request.prompt), len(toks),
                         error, latency_s=round(lat, 6))
@@ -1383,10 +1435,15 @@ class Server:
             return sl.pos >= ex.max_seq  # context limit
 
         def reject(r: Request, err: str):
+            # A complete start/end pair in the log, as for a served one.
+            tel.emit("request_start", id=r.id, prompt_len=len(r.prompt),
+                     bucket=None, slot=None)
             lat = time.perf_counter() - t_run0
             results[r.id] = RequestResult(
                 id=r.id, prompt_len=len(r.prompt), tokens=[], error=err,
                 latency_s=lat)
+            tel.emit("request_end", id=r.id, tokens=0, error=err,
+                     latency_s=round(lat, 6))
             if jr is not None:
                 jr.done(r.id, len(r.prompt), 0, err, latency_s=round(lat, 6))
 
@@ -1400,10 +1457,14 @@ class Server:
                     not (self.eos_id is not None and prior and
                          prior[-1] == self.eos_id):
                 return False
+            tel.emit("request_start", id=r.id, prompt_len=plen, bucket=None,
+                     slot=None)
             lat = time.perf_counter() - t_run0
             results[r.id] = RequestResult(
                 id=r.id, prompt_len=plen, tokens=list(prior), error=None,
                 latency_s=lat)
+            tel.emit("request_end", id=r.id, tokens=len(prior), error=None,
+                     latency_s=round(lat, 6))
             if jr is not None:
                 jr.done(r.id, plen, len(prior), None, latency_s=round(lat, 6))
             return True
@@ -1417,6 +1478,8 @@ class Server:
                     # the journal serves the rest --
                     drained = True
                     n_flight = sum(1 for sl in slots if sl is not None)
+                    tel.emit("serving_drain", signum=preempt.signum,
+                             in_flight=n_flight, queued=len(queue))
                     _log.warning("drain: signal %s; %d in flight journaled, "
                                  "%d queued; resume from the journal to "
                                  "serve the rest", preempt.signum, n_flight,
@@ -1461,6 +1524,8 @@ class Server:
                     queue.popleft()
                     carried_map.pop(r.id, None)
                     slot_i = slots.index(None)
+                    tel.emit("request_start", id=r.id, prompt_len=plen,
+                             bucket=bucket, slot=slot_i)
                     # The prefill runs over prompt ‖ carried: a resumed
                     # request continues where its journal stopped.
                     padded = np.zeros((1, bucket), np.int32)
@@ -1480,31 +1545,49 @@ class Server:
                         prefix_hits += 1
                         full_hits += 1
                         prefill_tokens_saved += plan.offset
+                        tel.emit("prefix_hit", id=r.id, blocks=plan.use,
+                                 full=True, tokens_saved=plan.offset)
                     elif plan is not None and plan.use > 0:
                         # Partial hit: gather the shared span, compute the
                         # tail.
                         pf = ex.build_prefill_from(bucket, plan.offset,
                                                    sample=self.sample)
+                        tel.program_cost(
+                            "prefill", pf, flops=lambda: ex.program_flops(
+                                bucket - plan.offset), bucket=bucket)
                         rows, tok0, okf = pf(
                             self.params, self.op_state, caches,
                             np.asarray(plan.shared, np.int32), padded,
                             np.int32(flen), *sargs)
-                        tok0, ok = (int(x) for x in _readback(tok0, okf))
+                        tok0, ok = (int(x) for x in
+                                    _fenced(tel, "prefill", tok0, okf))
                         pf_s = time.perf_counter() - t0
                         prefills += 1
                         prefix_hits += 1
                         prefill_tokens_saved += plan.offset
-                        kv_cows += plan.cow
+                        tel.emit("prefill", id=r.id, bucket=bucket,
+                                 offset=plan.offset, wall_s=round(pf_s, 6))
+                        tel.emit("prefix_hit", id=r.id, blocks=plan.use,
+                                 full=False, tokens_saved=plan.offset)
+                        if plan.cow:
+                            kv_cows += plan.cow
+                            tel.emit("kv_cow", id=r.id, blocks=plan.cow)
                     else:
                         # A sampled run prefills through the sampled
                         # first token, so a resumed position replays the
                         # decode's keyed draw (greedy when flen == plen).
                         pf = ex.build_prefill(bucket, sample=self.sample)
+                        tel.program_cost(
+                            "prefill", pf, bucket=bucket,
+                            flops=lambda: ex.program_flops(bucket))
                         rows, tok0, okf = pf(self.params, self.op_state,
                                              padded, np.int32(flen), *sargs)
-                        tok0, ok = (int(x) for x in _readback(tok0, okf))
+                        tok0, ok = (int(x) for x in
+                                    _fenced(tel, "prefill", tok0, okf))
                         pf_s = time.perf_counter() - t0
                         prefills += 1
+                        tel.emit("prefill", id=r.id, bucket=bucket,
+                                 wall_s=round(pf_s, 6))
                     if jr is not None:
                         jr.admit(r.id, plen, int(tok0) if ok else None,
                                  resumed=len(prior))
@@ -1536,8 +1619,11 @@ class Server:
                     else:
                         ex.install(caches, rows, slot_i)
                     if spec_d:
-                        drows = ex.build_draft_prefill(bucket)(
-                            self.draft_params, self.op_state, padded)
+                        dpf = ex.build_draft_prefill(bucket)
+                        tel.program_cost(
+                            "draft_prefill", dpf, bucket=bucket,
+                            flops=lambda: ex.program_flops(bucket))
+                        drows = dpf(self.draft_params, self.op_state, padded)
                         ex.install(dcaches, drows, slot_i)
                         draft_prefills += 1
                     sl = _Slot(request=r, pos=flen, last_tok=int(tok0),
@@ -1580,17 +1666,41 @@ class Server:
                         args += (dev["req"],)
                 t_call = time.perf_counter()
                 if spec_d:
+                    tel.program_cost("spec_verify", step_fn,
+                                     flops=lambda: ex.program_flops(
+                                         2 * (spec_d + 1) * B), d=spec_d)
                     *_s, (toks, oks, acc) = step_fn(
                         self.params, self.draft_params, self.op_state,
                         caches, dcaches, *args)
-                    host_toks, host_oks, host_acc = _readback(toks, oks, acc)
+                    host_toks, host_oks, host_acc = _fenced(
+                        tel, "spec_verify", toks, oks, acc)
+                    k_eff = spec_d + 1
                 else:
+                    tel.program_cost(
+                        "decode_superstep", step_fn, k=k,
+                        flops=lambda: ex.program_flops(k * B))
                     *_s, (toks, oks) = step_fn(self.params, self.op_state,
                                                caches, *args)
-                    host_toks, host_oks = _readback(toks, oks)
-                decode_s += time.perf_counter() - t_call
+                    host_toks, host_oks = _fenced(tel, "decode_superstep",
+                                                  toks, oks)
+                    k_eff = k
+                wall = time.perf_counter() - t_call
+                decode_s += wall
                 supersteps += 1
                 superstep_idx += 1
+                # One host program (a graph replay on CUDA) and one fence
+                # covered k_eff decode steps.
+                tel.add_programs(1, steps=k_eff)
+                # The batch's occupancy by request id, before finish()
+                # frees slots: the span layer's decode attribution.
+                occ = [slots[i].request.id for i in active]
+                if not spec_d:
+                    tel.emit("decode_superstep", k=k, active=len(active),
+                             slots=occ, wall_s=round(wall, 6))
+                for j in range(k_eff):
+                    tel.record_step((supersteps - 1) * k_eff + j,
+                                    wall_s=wall / k_eff)
+                emitted_round = 0
                 for i in active:
                     sl = slots[i]
                     err = None
@@ -1612,6 +1722,7 @@ class Server:
                         if slot_done(sl):
                             break
                     sl.last_tok = sl.tokens[-1] if sl.tokens else 0
+                    emitted_round += len(appended)
                     # The validated delta goes to the journal before any
                     # done record (under speculation: accepted tokens
                     # only, so a resume is the same as plain decode's).
@@ -1623,6 +1734,12 @@ class Server:
                         finish(i)
                 if spec_d:
                     spec_draft_total += spec_d * len(active)
+                    tel.emit("spec_verify", d=spec_d, active=len(active),
+                             accepted=int(sum(int(host_acc[i])
+                                              for i in active)),
+                             draft=spec_d * len(active),
+                             emitted=emitted_round, slots=occ,
+                             wall_s=round(wall, 6))
         finally:
             preempt.__exit__(None, None, None)
             if jr is not None:
@@ -1666,6 +1783,11 @@ class Server:
                 prefix_hits / max(prefills + full_hits, 1), 4)
             stats["prefill_tokens_saved"] = prefill_tokens_saved
             stats["kv_cows"] = kv_cows
+            if prefix_hits:
+                # The reader's reconstruct_summary recomputes both from
+                # the prefill and prefix_hit events.
+                tel.note_summary(prefix_hit_rate=stats["prefix_hit_rate"],
+                                 prefill_tokens_saved=prefill_tokens_saved)
         if spec_d:
             stats["speculate"] = spec_d
             stats["draft_layers"] = ex.draft_layers
@@ -1674,9 +1796,12 @@ class Server:
                 spec_accept_total / max(spec_draft_total, 1), 4)
             stats["spec_tokens_per_dispatch"] = round(
                 decode_tokens / max(supersteps, 1), 3)
+            tel.note_summary(
+                spec_acceptance_rate=stats["spec_acceptance_rate"],
+                spec_tokens_per_dispatch=stats["spec_tokens_per_dispatch"])
         if self.drain_on_preempt:
             stats["drained"] = drained
-        return results, stats
+        return results, tel.fold_stats(stats)
 
 
 def synthetic_requests(

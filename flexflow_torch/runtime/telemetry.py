@@ -122,8 +122,8 @@ class _NullTelemetry:
     enabled = False
     path = None
 
-    def fence(self, value, label: str = "fence"):
-        return host_fence(value)
+    def fence(self, value, label: str = "fence", read=None):
+        return (read or host_fence)(value)
 
     def emit(self, ev: str, **fields) -> None:
         pass
@@ -137,7 +137,8 @@ class _NullTelemetry:
     def add_programs(self, n: int, steps: int = 1) -> None:
         pass
 
-    def program_cost(self, kind, model, steps: int = 1, **meta) -> None:
+    def program_cost(self, kind, model, steps: int = 1, flops=None,
+                     **meta) -> None:
         pass
 
     def attach_trace_summary(self, log_dir, device_type) -> None:
@@ -385,13 +386,14 @@ class Telemetry:
         self.input_waits.append(w)
         self.emit("input_wait", step=int(step), wall_s=w, **depths)
 
-    def fence(self, value, label: str = "fence"):
-        """The trainer's fence (:func:`host_fence`), wrapped: heartbeats
-        on both edges, timed, a ``fence`` event; returns the host
-        values.  It adds no fence of its own."""
+    def fence(self, value, label: str = "fence", read=None):
+        """The caller's fence, ``read(value)`` (the trainer's is
+        :func:`host_fence`), wrapped: heartbeats on both edges, timed, a
+        ``fence`` event; returns the host values.  It adds no fence of
+        its own."""
         self.heartbeat(f"fence:{label}:in-flight")
         t0 = time.perf_counter()
-        host = host_fence(value)
+        host = (read or host_fence)(value)
         dt = time.perf_counter() - t0
         self.counts["fences"] += 1
         self.fence_times.append((label, dt))
@@ -404,21 +406,28 @@ class Telemetry:
         self.counts["host_programs"] += int(n)
         self.counts["program_steps"] += int(steps)
 
-    def program_cost(self, kind: str, model, steps: int = 1, **meta) -> None:
+    def program_cost(self, kind: str, model, steps: int = 1, flops=None,
+                     **meta) -> None:
         """One ``program_cost`` event per program at its first timed
         call: the analytic flops of ``steps`` train steps of ``model``
         (``search/cost_model.py::train_flops``, ``source:
-        "cost_model"``).  Deduplicated per (kind, model, steps); never
-        raises."""
+        "cost_model"``), or ``flops()`` when the caller passes a function
+        computing them (a serving program passes itself as ``model``, as
+        the JAX package keys its events by program; the function runs
+        only for a new key).  Deduplicated per (kind, model, steps);
+        never raises."""
         key = (kind, id(model), int(steps))
         if key in self._cost_seen:
             return
         self._cost_seen.add(key)
         try:
-            from flexflow_torch.search.cost_model import train_flops
+            if flops is None:
+                from flexflow_torch.search.cost_model import train_flops
 
-            self.emit("program_cost", kind=kind,
-                      flops=float(train_flops(model)) * int(steps),
+                flops = float(train_flops(model)) * int(steps)
+            else:
+                flops = flops()
+            self.emit("program_cost", kind=kind, flops=float(flops),
                       source="cost_model", **meta)
         except Exception as e:
             _log.debug("program_cost(%s): flops unavailable: %s", kind, e)

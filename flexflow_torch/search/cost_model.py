@@ -2,7 +2,9 @@
 ``flexflow_tpu/search/cost_model.py`` (``FWD_BWD_FACTOR``, ``OpCost``,
 ``op_cost``).
 
-The bench entry's MFU divides these flops by the step time.  The byte,
+The bench entry's MFU divides these flops by the step time, and the
+serving programs' ``program_cost`` events carry :func:`serving_flops`.
+The byte,
 sync and device-model parts, which rank strategies in the search, come
 with the search (ROADMAP.md queue 1, item 11).
 """
@@ -83,3 +85,15 @@ def train_flops(ff) -> float:
     """Analytic flops of one train step of the graph ``ff``: the forward
     of every op times ``FWD_BWD_FACTOR`` (``bench.py::_train_flops``)."""
     return FWD_BWD_FACTOR * sum(op_cost(op).flops for op in ff.layers)
+
+
+def serving_flops(ff, tokens: int) -> float:
+    """Analytic forward flops of a serving program over ``tokens`` token
+    positions (a prefill's bucket, a decode superstep's ``k * batch``):
+    the graph's forward flops per token position, ``sum(op_cost) /
+    prod(input shape[:2])`` of the ``(batch, seq)`` graph the serving
+    executor is built on, times ``tokens``.  Attention's ``seq^2`` term is
+    charged at the graph's own sequence length."""
+    x = ff.input_tensors[0].shape
+    positions = float(x[0] * (x[1] if len(x) > 1 else 1))
+    return sum(op_cost(op).flops for op in ff.layers) / positions * tokens

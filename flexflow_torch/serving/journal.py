@@ -30,11 +30,10 @@ Replay folds the records into :class:`JournalState`: a request with an
 in flight (it resumes with its carried tokens), any other is still
 queued.  A resumed server appends to the same file, so a second crash
 replays the union.  Records of an unknown kind are skipped with one
-warning.  The file is read line by line by :func:`read_records`, the
-port's copy of the tolerant parse of ``flexflow_tpu/obs/reader.py::
-RunLog.load``: a torn last line (a crash mid-append) is dropped and
-flagged, a garbled line inside the file is counted and dropped, and
-nothing raises.
+warning.  The file is read by ``obs/reader.py::RunLog.load``, the
+port's one JSONL reader: a torn last line (a crash mid-append) is
+dropped and flagged, a garbled line inside the file is counted and
+dropped, and nothing raises.
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ import dataclasses
 import json
 import os
 import warnings
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional
 
 EV_ADMIT = "sv_admit"
 EV_TOKENS = "sv_tokens"
@@ -122,42 +121,11 @@ def fold_journal_events(events: Iterable[Any]) -> JournalState:
     return state
 
 
-def read_records(path: str) -> Tuple[List[Dict[str, Any]], bool, int]:
-    """``(records, torn_tail, malformed)`` of a JSONL file: every line
-    that parses to an object carrying ``ev``; an unparsable LAST line is
-    a torn tail, any other bad line is counted malformed.  A file that
-    cannot be read gives no records."""
-    try:
-        with open(path, encoding="utf-8") as f:
-            lines = f.read().splitlines()
-    except OSError:
-        return [], False, 0
-    records: List[Dict[str, Any]] = []
-    torn, malformed = False, 0
-    for i, line in enumerate(lines):
-        line = line.strip()
-        if not line:
-            continue
-        try:
-            rec = json.loads(line)
-        except ValueError:
-            if i == len(lines) - 1:
-                torn = True
-            else:
-                malformed += 1
-            continue
-        if not isinstance(rec, dict) or "ev" not in rec:
-            malformed += 1
-            continue
-        records.append(rec)
-    return records, torn, malformed
-
-
 class RequestJournal:
     """Append-only JSONL journal of one serving loop.  Each record is one
     line, flushed when written (the loop writes only at its fences, so
     the flush is paid once a superstep); :meth:`replay` reads it back
-    through :func:`read_records`."""
+    through ``RunLog.load``."""
 
     def __init__(self, path: str):
         self.path = str(path)
@@ -214,10 +182,12 @@ class RequestJournal:
         tolerated; unknown kinds are skipped with one warning."""
         if not os.path.exists(self.path):
             return JournalState(completed={}, in_flight={})
-        records, torn, malformed = read_records(self.path)
-        state = fold_journal_events(records)
-        state.torn_tail = torn
-        state.malformed = malformed
+        from flexflow_torch.obs.reader import RunLog
+
+        log = RunLog.load(self.path)
+        state = fold_journal_events(log.events)
+        state.torn_tail = log.torn_tail
+        state.malformed = log.malformed
         return state
 
 

@@ -7,7 +7,9 @@ killed between its phases) must end with a loss trajectory bit-identical
 to the unfaulted run's; the serving ones (a decode fault, the drain on
 SIGTERM, a fault under speculation, the prefix donor's crash) must
 isolate the faulted requests and leave every other one's tokens as the
-unfaulted run's, padded and paged.  Scenarios whose machinery is not
+unfaulted run's, padded and paged, and the scheduler's (an overload
+shed, an engine crash) must shed the same requests on every replay and
+resume a crash with the uninterrupted run's tokens.  Scenarios whose machinery is not
 ported yet print ``NOT PORTED`` with their ROADMAP.md item and count
 neither as passed nor as failed.
 

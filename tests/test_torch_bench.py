@@ -157,8 +157,7 @@ _SMALL_SERVING = dict(device="cpu", vocab=64, d_model=32, heads=2, layers=2,
                       max_seq=32, max_batch=4, n_req=6, max_new=12,
                       kv_block=8, dtype="float32")
 #: The serving leg's columns: bench.py's (``bench_serving``) that the port
-#: computes; the scheduler, failure-model, fleet, sharded and
-#: prefix-workload columns wait for their slices.
+#: computes; the fleet and sharded columns wait for their slices.
 SERVING_KEYS = {
     "max_batch", "max_seq", "requests", "k1_tokens_per_s",
     "k1_decode_ms_per_token", "k8_tokens_per_s", "k8_decode_ms_per_token",
@@ -169,7 +168,13 @@ SERVING_KEYS = {
     "paged_tokens_per_s", "speculate", "spec_tokens_per_s",
     "spec_acceptance_rate", "spec_tokens_per_dispatch",
     "plain_tokens_per_dispatch", "spec_vs_plain_tokens_per_dispatch",
-    "spec_match"}
+    "spec_match", "queue_wait_ms_p50", "queue_wait_ms_p95",
+    "queue_wait_ms_p99", "e2e_ms_p99", "slo_attainment", "request_sheds",
+    "request_preempts", "fifo_queue_wait_ms_p99", "fifo_slo_attainment",
+    "fifo_vs_slo_queue_wait_p99", "slo_missed", "slo_dominant_phase",
+    "request_retries", "request_expiries", "engine_restarts", "prefix_hits",
+    "prefix_hit_rate", "prefill_tokens_saved", "prefix_kv_cows",
+    "prefix_prefills", "prefix_off_prefills", "prefix_match"}
 
 
 def _small_candle():
@@ -352,6 +357,14 @@ def test_serving_leg_runs_small_on_cpu():
         out["k1_decode_ms_per_token"] / out["k8_decode_ms_per_token"], 3)
     assert out["paged_max_admitted_batch"] > out["padded_max_admitted_batch"]
     assert out["paged_hbm_per_slot_bytes"] < out["hbm_per_slot_bytes"]
+    # The scheduler's columns: the injected faults were absorbed, the
+    # shared prefix was hit without changing a token.
+    assert out["request_retries"] == out["engine_restarts"] == 1
+    assert out["prefix_match"] is True and out["prefix_hits"] > 0
+    assert out["prefix_prefills"] < out["prefix_off_prefills"]
+    assert out["fifo_vs_slo_queue_wait_p99"] == round(
+        out["fifo_queue_wait_ms_p99"] / max(out["queue_wait_ms_p99"], 1e-9),
+        3)
 
 
 def test_a_failing_leg_does_not_sink_the_headline(monkeypatch, capsys):

@@ -68,7 +68,7 @@ def test_matrix_reports_what_is_not_ported(tmp_path):
     got = {name: (ok, detail) for ok, name, detail in rows}
     assert got["loader_fault"] == (None, "not ported (item 12)")
     assert got["host_loss"] == (None, "not ported (item 13)")
-    assert got["replica_loss"] == (None, "not ported (item 8)")
+    assert got["replica_loss"] == (None, "not ported (item 8's rest)")
     assert got["pipeline_superstep_nan"] == (None, "not ported (item 10)")
     assert got["force_save_kill"][0] is True
     with pytest.raises(NotImplementedError, match="item 13"):
@@ -80,10 +80,10 @@ def test_matrix_reports_what_is_not_ported(tmp_path):
 
 def test_chaos_smoke_tool_on_cpu(capsys):
     assert chaos_smoke.main(["--device", "cpu", "sigterm",
-                             "serving_engine_crash"]) == 0
+                             "replica_loss"]) == 0
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("PASS") and " sigterm " in out[0]
-    assert out[1].startswith("NOT PORTED") and "(item 8)" in out[1]
+    assert out[1].startswith("NOT PORTED") and "(item 8's rest)" in out[1]
     assert "1/1 ported scenarios passed, 1 not ported" in out[2]
     assert chaos_smoke.main(["--device", "cpu", "no_such"]) == 2
 

@@ -220,9 +220,9 @@ def test_serve_app_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--shard", "2,2"],
-                                  ["--serve-max-restarts", "2"],
-                                  ["--sched", "fifo"], ["--telemetry", "d"],
-                                  ["--serve-retries", "2"],
+                                  ["--replicas", "2"],
+                                  ["--router", "affinity"], ["--serve-auto"],
+                                  ["--workload-trace", "prod"],
                                   ["--dtype", "float16"]])
 def test_serve_app_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as e:
@@ -282,6 +282,11 @@ def _port_sources():
 def test_port_imports_neither_jax_nor_the_jax_package():
     srcs = _port_sources()
     assert len(srcs) > 15
+    rel = {os.path.relpath(p, REPO) for p in srcs}
+    for mod in ("obs/reader.py", "obs/spans.py", "obs/compare.py",
+                "obs/__main__.py", "serving/scheduler.py",
+                "serving/workload.py", "serving/latency_model.py"):
+        assert os.path.join("flexflow_torch", mod) in rel, mod
     bad = []
     for path in srcs:
         with open(path) as f:

@@ -455,6 +455,33 @@ def test_step_graph_refuses_other_tensors_than_the_captured(monkeypatch):
     assert g._graph.replays == 2
 
 
+def test_step_graph_captures_with_the_collector_paused(monkeypatch):
+    """The cyclic collector is paused during a capture (a dead graph
+    destroyed mid-capture invalidates the capture on the card), then
+    resumed, also after a failed capture."""
+    import gc
+
+    enabled = []
+
+    def step(p, batch):
+        enabled.append(gc.isenabled())
+        p["w"].add_(1.0)
+        return p, {"s": p["w"].sum()}
+
+    assert gc.isenabled()
+    _graph_on_cpu(monkeypatch, step).capture({"w": torch.zeros(3)},
+                                             {"x": torch.ones(2, 4)})
+    assert enabled == [False, False] and gc.isenabled()
+
+    def planted(p, batch):
+        raise RuntimeError("planted")
+
+    with pytest.raises(RuntimeError, match="planted"):
+        _graph_on_cpu(monkeypatch, planted).capture(
+            {"w": torch.zeros(3)}, {"x": torch.ones(2, 4)})
+    assert gc.isenabled()
+
+
 def test_step_graph_refuses_a_step_that_rebinds_its_state(monkeypatch):
     def step(p, batch):
         return {"w": p["w"] + batch["x"].sum()}, {"s": p["w"].sum()}
