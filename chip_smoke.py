@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Twenty-five phases, in order; any failure raises and exits non-zero:
+Twenty-six phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -213,8 +213,9 @@ Twenty-five phases, in order; any failure raises and exits non-zero:
     out), a call with a clone of ``pos`` raises, a fresh capture rises
     by L x K K6 launches and one profiled replay runs K6 L x K times by
     kernel name; (f) every run's K1f and K6 launches exact
-    (``_serve_launches``: none on the paged main-model decode, none from
-    the offset prefill or a full hit) and no training kernel.  Prints
+    (``_serve_launches``: none on the paged main-model decode, K1f for an
+    offset prefill as for a fresh one, none for a full hit) and no
+    training kernel.  Prints
     decode ms/step eager and as a graph, tokens/s, acceptance and tokens
     per round, the prefix hit rate and saved tokens, beside the card's
     name and power limit.
@@ -313,17 +314,32 @@ Twenty-five phases, in order; any failure raises and exits non-zero:
     the stats is the one the reader folds from the log, ``obs request
     LOG --id N``; (e) the prefix workload on the paged pool (kv_block 16)
     with the prefix cache against the pool without it: the same hits in
-    bf16 and f32, tokens equal in f32, and in bf16 unequal for at most
-    ``PREFIX_BF16_MOVED`` requests, each one that shared a prefix (the
-    offset prefill's tail runs the einsum where a fresh prefill runs
-    K1f), and for none once every fresh prefill runs that einsum too;
-    speculation d = 4, tokens equal to plain decode; (f) (b)'s slo run
+    bf16 and f32, tokens equal in both (an offset prefill attends on K1f
+    over its bucket's span, as a fresh one does; K1f's launches count
+    both), and per bucket the tail K/V elements of one sharer's offset
+    prefill that differ from a fresh prefill's, by layer; speculation d =
+    4, tokens equal to plain decode; (f) (b)'s slo run
     under the latency model fitted on (a)'s log, both sets of virtual-ms
     columns labelled.
+26. **Item 8's rest** (``fleet``, ``FLEET``: phase 25's widths and
+    workload on 2 replicas, each with its own executor, caches and decode
+    graphs).  (a) bf16, least-loaded: the router's and each replica's
+    decisions and the dispatches equal the simulated fleet's, the tokens
+    of every request no re-prefill touched equal the single-replica slo
+    run's, exact K1f and K6 launches; (b) replica 0 lost before its decode
+    superstep 1 (restart budget 0), in f32 and bf16: decisions equal the
+    simulated fleet's, the dead engine released, f32 tokens all equal the
+    unfaulted single replica's, bf16 the untouched ones (how many
+    redistributed ones differ is printed), the wall ms from the death to
+    the survivor's first resumed token; (c) ``apps.serve --serve-auto
+    --replicas 2``: the chosen config runs the predicted dispatches; (d)
+    wall ms a fleet run, first-call ms and bytes per replica per k, the
+    bench's fleet columns.
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
 DLRM, long-context, race, AlexNet, superstep, serve-features,
-serve-resilience, NMT, CNN, Candle, MoE, item-7 and scheduled runs together, split
+serve-resilience, NMT, CNN, Candle, MoE, item-7, scheduled and fleet runs
+together, split
 in ``launches_by_path``; the superstep, serve-features,
 serve-resilience and item-7 paths count what their graph runs launched
 eagerly or captured; K3's entries name the
@@ -3325,10 +3341,10 @@ def _serve_runs(torch, ex, params, reqs, runs=1, **kw):
     return srv, outs, _counts()
 
 
-def _serve_launches(ex, srv, outs, fresh=None) -> dict:
+def _serve_launches(ex, srv, outs) -> dict:
     """The K1f and K6 launches a Server's runs must count: K1f L per
-    prefill that shares no block (``fresh``, default every prefill) and
-    the draft's kept layers per draft prefill; K6 L per padded decode step
+    prefill, from row 0 or an offset one (a full prefix hit runs none),
+    and the draft's kept layers per draft prefill; K6 L per padded decode step
     (none on the paged main-model decode or with ``decode_kernel=False``)
     and the kept layers per draft step, counted at each step of an eager
     call and, for a graph, at its first call's eager steps and capture."""
@@ -3341,8 +3357,7 @@ def _serve_launches(ex, srv, outs, fresh=None) -> dict:
     main = L if kernel and not ex.paged else 0
     per_call = (d + 1) * (main + (Ld if kernel else 0)) if d else K * main
     graph = srv.engine[0].graph is not None
-    fresh = prefills if fresh is None else fresh
-    return {"flash_attention_lse": L * fresh + (Ld * prefills if d else 0),
+    return {"flash_attention_lse": L * prefills + (Ld * prefills if d else 0),
             "flash_decode": 2 * per_call if graph else per_call * calls}
 
 
@@ -3481,15 +3496,14 @@ def phase_serve_features(torch, kernels):
         add(counts)
         st = o[0][1]
         full = st["requests"] - st["prefills"]
-        fresh = st["prefills"] - (st.get("prefix_hits", 0) - full)
         _held_launches(f"prefix arm (cache {cache})", counts,
-                       _serve_launches(ex, srv, o, fresh))
-        outs[cache] = (o[0][0], st, full, fresh)
+                       _serve_launches(ex, srv, o))
+        outs[cache] = (o[0][0], st, full, st.get("prefix_hits", 0) - full)
         del params32
     diff = [r for r in outs[False][0] if outs[False][0][r] != outs[True][0][r]]
     _check(not diff, f"shared-prefix f32 tokens differ from unshared for "
            f"requests {diff}")
-    _, st, full, fresh = outs[True]
+    _, st, full, offset = outs[True]
     _check(st["prefix_hits"] > 0 and full > 0 and
            st["prefill_tokens_saved"] > 0, f"prefix arm: hits "
            f"{st['prefix_hits']}, full hits {full}, saved "
@@ -3499,8 +3513,8 @@ def phase_serve_features(torch, kernels):
           f"{st['prefix_hits']} ({full} full, no prefill), hit rate "
           f"{st['prefix_hit_rate']}, prefill tokens saved "
           f"{st['prefill_tokens_saved']}, CoW blocks {st['kv_cows']}; "
-          f"prefills {st['prefills']}, K1f = {L} x {fresh} that shared no "
-          f"block")
+          f"prefills {st['prefills']} ({offset} from an offset), K1f = {L} "
+          f"x {st['prefills']}")
     del ff32
 
     # -- (c), (d), (e): speculation, sampling, graph against eager -------
@@ -5087,31 +5101,27 @@ def phase_item7(torch, kernels):
 SCHED = dict(n_req=16, kv_block=16, speculate=4)
 
 
-#: Phase 25 (e): the most bf16 requests whose tokens may differ between
-#: the prefix cache's arms (each a sharer), where the offset prefill's tail
-#: attends through the einsum and a fresh prefill through K1f.
-PREFIX_BF16_MOVED = 2
+def _tail_diffs(torch, ex, params, state, prompt, offset: int) -> list:
+    """Per layer, the elements of the K/V rows ``[offset, len(prompt))``
+    that the offset prefill of ``prompt`` over its own resident prefix
+    writes otherwise than a fresh prefill of the same bucket."""
+    import numpy as np
 
-
-def _einsum_prefill_arms(torch, server, workload) -> dict:
-    """The results of ``server(on).run(workload())`` for ``on`` False and
-    True with every multi-token prefill from row 0 attending through
-    ``MultiHeadAttention._attend_chunk`` at offset 0, the offset prefill's
-    einsum, in place of K1f."""
-    from flexflow_torch.ops.attention import MultiHeadAttention
-
-    real = MultiHeadAttention._forward_cached
-
-    def einsum_prefill(self, params, x, state):
-        if x.shape[1] > 1 and "chunk" not in state:
-            state = dict(state, chunk=0)
-        return real(self, params, x, state)
-
-    MultiHeadAttention._forward_cached = einsum_prefill
-    try:
-        return {on: server(on).run(workload())[0] for on in (False, True)}
-    finally:
-        MultiHeadAttention._forward_cached = real
+    n = len(prompt)
+    bucket = ex.bucket_for(n)
+    padded = np.zeros((1, bucket), np.int32)
+    padded[0, :n] = prompt
+    fresh, _t, _ok = ex.build_prefill(bucket)(params, state, padded,
+                                              np.int32(n))
+    pool = ex.init_cache()
+    table = np.arange(1, ex.blocks_per_slot + 1, dtype=np.int32)
+    ex.install_paged(pool, fresh, table)
+    got, _t, _ok = ex.build_prefill_from(bucket, offset)(
+        params, state, pool, table[:offset // ex.kv_block], padded,
+        np.int32(n))
+    return [int(sum((got[name][kv][offset:n] != fresh[name][kv][offset:n])
+                    .sum().item() for kv in ("k", "v")))
+            for name in fresh]
 
 
 def _first_calls(torch):
@@ -5119,9 +5129,12 @@ def _first_calls(torch):
     (eager steps and the capture, between two synchronizes) with the
     bytes the CUDA caching allocator reserved for them: ``({engine:
     {("decode" | "spec", n): {"first_call_s", "bytes"}}}, restore)``."""
+    import weakref
+
     from flexflow_torch.serving import scheduler
 
-    table = {}
+    # Weak keys: a released engine (a fleet's dead replica) is freed.
+    table = weakref.WeakKeyDictionary()
     real = scheduler._RealEngine._program
 
     def program(self, kind, n):
@@ -5255,10 +5268,11 @@ def phase_serve_sched(torch, kernels, device="cuda"):
     reconciles, the stats' autopsy is the one the reader folds from the
     log, ``obs request LOG --id N``'s waterfall; (e) the prefix workload
     on the paged pool with and without the prefix cache (tokens equal in
-    f32; in bf16 at most ``PREFIX_BF16_MOVED`` sharers differ, and none
-    once every fresh prefill attends through the offset prefill's einsum)
-    and speculation d = 4 (tokens equal to plain decode); (f) (b)'s slo run under the latency model
-    fitted on (a)'s log.  Returns the launches of each run."""
+    f32 and bf16, K1f launched by every prefill, fresh or offset; per
+    bucket, the tail K/V elements of one sharer's offset prefill that
+    differ from a fresh prefill's) and speculation d = 4 (tokens equal to
+    plain decode); (f) (b)'s slo run under the latency model fitted on
+    (a)'s log.  Returns the launches of each run."""
     import os
     import shutil
     import tempfile
@@ -5554,10 +5568,9 @@ def phase_serve_sched(torch, kernels, device="cuda"):
             print(f"[sched]   {ln}")
 
         # -- (e) prefix sharing and speculation under the scheduler --
-        # The bench's arms in bf16, and in f32 the same arms for the
-        # token check: an offset prefill runs its tail through the einsum
-        # where a fresh one runs K1f, so bf16 rounding may flip a
-        # sharer's greedy token (phase 20 holds the cache in f32 too).
+        # The bench's arms in bf16 and in f32.  An offset prefill attends
+        # on the fresh prefill's route (K1f over the bucket's span), so
+        # the prefix cache's tokens equal those without it in both.
         kvb = SCHED["kv_block"]
         ff32 = model("float32")
         w32 = executor(ff32).init(0)
@@ -5567,31 +5580,50 @@ def phase_serve_sched(torch, kernels, device="cuda"):
             engine = executor(lm, kv_block=kvb,
                               prefix_cache=tag.startswith("prefix_on"))
             sched(tag, slo, engine, reqs=workload(kvb), weights=w)
-            fresh = sum(1 for e in servers[tag].span_events
-                        if e["ev"] == "prefill" and "offset" not in e)
-            held(tag, {"flash_attention_lse": L * fresh})
+            pf = [e for e in servers[tag].span_events if e["ev"] == "prefill"]
+            held(tag, {"flash_attention_lse": L * len(pf)})
+            if tag == "prefix_on":
+                offset_prefills = sum(1 for e in pf if e.get("offset"))
         cols = bench.sched_columns(out)
         f32 = bench.sched_columns(dict(out, prefix_on=out["prefix_on_f32"],
                                        prefix_off=out["prefix_off_f32"]))
-        sharers = {e["id"] for e in servers["prefix_on"].span_events
-                   if e["ev"] == "prefix_hit"}
+        sharers = {e["id"]: e["tokens_saved"]
+                   for e in servers["prefix_on"].span_events
+                   if e["ev"] == "prefix_hit" and not e["full"]}
         moved = [i for i, r in out["prefix_off"][0].items()
                  if out["prefix_on"][0][i].tokens != r.tokens]
-        # The witness: the same bf16 arms with every fresh prefill routed
-        # through the offset prefill's einsum (``_attend_chunk`` from row
-        # 0) in place of K1f.  Both arms then attend through one route.
-        wit = _einsum_prefill_arms(torch, lambda on: ScheduledServer(
-            executor(ff, kv_block=kvb, prefix_cache=on), params, state,
-            decode_steps=8, policy=slo), lambda: workload(kvb))
-        wit_moved = [i for i, r in wit[False].items()
-                     if wit[True][i].tokens != r.tokens]
-        _check(f32["prefix_match"] is True and cols["prefix_hits"] > 0 and
-               f32["prefix_hits"] == cols["prefix_hits"] and
-               set(moved) <= sharers and len(moved) <= PREFIX_BF16_MOVED
-               and not wit_moved,
+        _check(f32["prefix_match"] is True and cols["prefix_match"] is True
+               and not moved and cols["prefix_hits"] > 0 and
+               f32["prefix_hits"] == cols["prefix_hits"] and offset_prefills,
                f"sched (e): prefix columns {cols}; f32 {f32}; bf16 tokens "
-               f"differ for {moved}, sharers {sorted(sharers)}; with the "
-               f"fresh prefill on the einsum for {wit_moved}")
+               f"differ for {moved}, sharers {sorted(sharers)}")
+        # One sharer per bucket: its tail's K/V against a fresh prefill of
+        # the same prompt (a bucket no sharer reached takes a prompt of
+        # bucket - 3 tokens over one shared block).
+        paged = executor(ff, kv_block=kvb, prefix_cache=True)
+        reqs_e = {r.id: r for r in workload(kvb)}
+        tails = {}
+        for b in c["buckets"]:
+            rid = min((i for i in sharers
+                       if paged.bucket_for(len(reqs_e[i].prompt)) == b),
+                      default=None)
+            if rid is not None:
+                prompt, o = list(reqs_e[rid].prompt), sharers[rid]
+            else:
+                prompt, o = (list(reqs_e[0].prompt) * b)[:b - 3], kvb
+            tails[b] = (rid, o, _tail_diffs(torch, paged, params, state,
+                                            prompt, o))
+        print(f"[sched] (e) prefix cache on the paged pool (kv_block "
+              f"{kvb}): {cols['prefix_hits']} hits, "
+              f"{cols['prefix_prefills']} prefills ({offset_prefills} of them "
+              f"offset prefills on K1f) against "
+              f"{cols['prefix_off_prefills']}; tokens equal without it in "
+              f"f32 and in bf16 ({len(sharers)} sharers, 0 differ)")
+        for b, (rid, o, diffs) in tails.items():
+            who = "a synthetic prompt" if rid is None else f"request {rid}"
+            print(f"[sched] (e) bucket {b}: {who}, offset {o}: tail K/V "
+                  f"elements that differ from a fresh prefill, by layer "
+                  f"(bf16): {diffs}")
         d = SCHED["speculate"]
         sched("spec", slo, speculate=d)
         res, st = out["spec"]
@@ -5601,14 +5633,7 @@ def phase_serve_sched(torch, kernels, device="cuda"):
             f"sched (e): speculation d={d} changed a token: {st}")
         held("spec", {"flash_attention_lse": 2 * L * st["prefills"],
                       "flash_decode": 2 * (d + 1) * 2 * L})
-        print(f"[sched] (e) prefix cache on the paged pool (kv_block "
-              f"{kvb}): {cols['prefix_hits']} hits, "
-              f"{cols['prefix_prefills']} prefills against "
-              f"{cols['prefix_off_prefills']}; f32 tokens equal without "
-              f"it; bf16 tokens of {len(moved)} of {len(sharers)} sharers "
-              f"differ (at most {PREFIX_BF16_MOVED}), of no other request, "
-              f"and of none with the fresh prefill on the offset prefill's "
-              f"einsum ({len(wit_moved)}); speculation "
+        print(f"[sched] (e) speculation "
               f"d={d}: acceptance {st['spec_acceptance_rate']}, "
               f"{st['spec_tokens_per_dispatch']} tokens a dispatch, tokens "
               f"equal plain decode's")
@@ -5642,6 +5667,290 @@ def phase_serve_sched(torch, kernels, device="cuda"):
     finally:
         unpatch()
         shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+#: Phase 26: phase 25's widths and workload on a fleet of
+#: ``replicas`` behind the least-loaded router; (b) kills replica 0 before
+#: its decode superstep ``death_at`` with a restart budget of 0.
+FLEET = dict(replicas=2, death_at=1)
+
+
+def phase_fleet(torch, kernels, device="cuda"):
+    """ROADMAP item 8's rest on the card (phase 26), at ``SERVE`` widths
+    over the serving leg's bursty workload (``SCHED``), each replica with
+    its own executor, caches and decode graphs, the weights shared.  (a)
+    bf16, least-loaded: the router's and every replica's decisions and
+    the dispatches equal the simulated fleet's; the tokens of every
+    request no re-prefill touched equal the single-replica slo run's;
+    exact K1f and K6 launches.  (b) the loss of replica 0, in f32 and in
+    bf16: decisions equal the simulated fleet's under the same fault
+    plan; the dead replica's engine is released; in f32 every request's
+    tokens equal the unfaulted single-replica run's, in bf16 every
+    untouched request's (and how many redistributed ones differ is
+    printed); the wall ms from the death to the survivor's first resumed
+    token.  (c) ``apps.serve --serve-auto --replicas 2`` over the app's
+    bursty workload: the chosen config runs and executes the predicted
+    dispatches.  (d) wall ms of a fleet run beside the single replica's,
+    first-call ms and bytes per replica per k, and the bench's fleet
+    columns.  Returns the launches of each run."""
+    import contextlib
+    import io
+    import weakref
+
+    from flexflow_torch import bench
+    from flexflow_torch.apps import serve as serve_app
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.transformer import build_transformer_lm
+    from flexflow_torch.runtime.serving import (
+        ServingCrashLoop,
+        ServingExecutor,
+        ServingFaultInjector,
+    )
+    from flexflow_torch.serving import (
+        FleetRouter,
+        MemoryJournal,
+        ScheduledServer,
+        SchedulerPolicy,
+        ServingResilience,
+        SlotShape,
+    )
+
+    card = _card() if device == "cuda" else device
+    c, L, n_req, R = SERVE, SERVE["layers"], SCHED["n_req"], FLEET["replicas"]
+    n = 2 * n_req
+    slo = SchedulerPolicy(name="slo")
+    geometry = dict(max_batch=c["max_batch"], max_seq=c["max_seq"],
+                    buckets=c["buckets"])
+    shape = SlotShape(**geometry)
+    budget = ServingResilience(max_restarts=0)
+
+    def model(dtype):
+        return build_transformer_lm(
+            batch_size=c["max_batch"], seq_len=c["max_seq"],
+            vocab_size=c["vocab"], d_model=c["d_model"],
+            num_heads=c["heads"], num_layers=L,
+            config=FFConfig(batch_size=c["max_batch"], compute_dtype=dtype))
+
+    def executor(lm):
+        return ServingExecutor(lm, device=device, **geometry)
+
+    def workload():
+        return bench.sched_workload(n_req, c["vocab"], c["max_seq"],
+                                    c["max_new"])
+
+    def death():
+        return ServingFaultInjector(
+            engine_raise_at={FLEET["death_at"]: "injected replica death"})
+
+    def real_fleet(lm, w, dies=False):
+        return FleetRouter([ScheduledServer(
+            executor(lm), *w, decode_steps=8, policy=slo, resilience=budget,
+            journal=MemoryJournal(),
+            fault_injector=death() if dies and i == 0 else None)
+            for i in range(R)], router="least-loaded")
+
+    def sim_fleet(dies=False):
+        return FleetRouter.simulated(
+            shape, R, router="least-loaded", decode_steps=8, policy=slo,
+            resilience=budget, fault_injectors={0: death()} if dies else None)
+
+    launches, walls = {}, {}
+
+    def counted(tag, fn):
+        _zero_counts()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        launches[tag] = _counts()
+        return out
+
+    def held(tag, servers):
+        """K1f: L a prefill of any replica, fresh or resumed; K6: 2 L k at
+        each k's capture, on each replica's engine."""
+        pf = sum(1 for s in servers for e in s.span_events
+                 if e["ev"] == "prefill")
+        ks = sum(sum(set(_decode_ks(s.decisions))) for s in servers)
+        _held_launches(f"fleet {tag}", launches[tag],
+                       {"flash_attention_lse": L * pf,
+                        "flash_decode": 2 * L * ks})
+
+    def same_as_sim(tag, fl, st, sim):
+        _r, sst = sim.run(workload())
+        _check(sim.decisions == fl.decisions and
+               sim.merged_decisions() == fl.merged_decisions() and
+               all(a.decisions == b.decisions
+                   for a, b in zip(sim.replicas, fl.replicas)) and
+               (sst["prefills"], sst["decode_supersteps"], sim.dead) ==
+               (st["prefills"], st["decode_supersteps"], fl.dead),
+               f"fleet {tag}: the simulated fleet decided otherwise")
+
+    def toks(res):
+        return {i: r.tokens for i, r in res.items()}
+
+    ff = model("bfloat16")
+    w16 = executor(ff).init(0)
+    first_calls, unpatch = _first_calls(torch)
+    try:
+        # -- (a) two replicas, least-loaded, against one --
+        single = ScheduledServer(executor(ff), *w16, decode_steps=8,
+                                 policy=slo)
+        base, base_st = counted("single", lambda: single.run(workload()))
+        fl = real_fleet(ff, w16)
+        res, st = counted("a", lambda: fl.run(workload()))
+        held("a", fl.replicas)
+        same_as_sim("(a)", fl, st, sim_fleet())
+        touched = _reprefilled(single, *fl.replicas)
+        same = [i for i in res if i not in touched]
+        _check(st["completed"] == n and not st["failed"] and
+               all(res[i].tokens == base[i].tokens for i in same),
+               f"fleet (a): {st['completed']} of {n} completed, or an "
+               f"untouched request's tokens differ from one replica's")
+        routed = [d["replica"] for d in fl.decisions if d["d"] == "route"]
+        print(f"[fleet] (a) {R} replicas, least-loaded, {n} requests "
+              f"(routed {[routed.count(i) for i in range(R)]}): decisions, "
+              f"merged decisions and dispatches ({st['prefills']} prefills, "
+              f"{st['decode_supersteps']} supersteps) equal the simulated "
+              f"fleet's; tokens of {len(same)} requests equal one replica's "
+              f"({len(touched)} re-prefilled left out); launches "
+              f"{ {k: v for k, v in launches['a'].items() if v} }; "
+              f"queue wait p99 {st['queue_wait_ms_p99']} against "
+              f"{base_st['queue_wait_ms_p99']}, SLO attainment "
+              f"{st['slo_attainment']} against {base_st['slo_attainment']} "
+              f"(virtual ms)")
+
+        # -- (b) the loss of replica 0, f32 and bf16 --
+        ff32 = model("float32")
+        w32 = executor(ff32).init(0)
+        single32 = ScheduledServer(executor(ff32), *w32, decode_steps=8,
+                                   policy=slo)
+        base32, _ = counted("single_f32", lambda: single32.run(workload()))
+        losses = {}
+        for tag, lm, w, ref, ref_srv in (("loss_f32", ff32, w32, base32,
+                                          single32),
+                                         ("loss", ff, w16, base, single)):
+            fl_l = real_fleet(lm, w, dies=True)
+            times = {}
+            victim, surv = fl_l.replicas[0], fl_l.replicas[1]
+            run0, pf1, release = victim.run, surv.engine.prefill, \
+                victim.release
+
+            def run_victim(batch, run0=run0, times=times):
+                try:
+                    return run0(batch)
+                except ServingCrashLoop:
+                    times["death"] = time.perf_counter()
+                    raise
+
+            def timed_release(release=release, times=times):
+                t0 = time.perf_counter()
+                release()
+                times["release"] = time.perf_counter() - t0
+
+            def resumed_prefill(prompt, *a, fl_l=fl_l, pf1=pf1, times=times,
+                                **kw):
+                out = pf1(prompt, *a, **kw)
+                carried = {d["id"] for d in fl_l.decisions
+                           if d["d"] == "redistribute" and d["carried"]}
+                if "resumed" not in times and kw.get("rid") in carried:
+                    times["resumed"] = time.perf_counter()
+                return out
+
+            victim.run, surv.engine.prefill = run_victim, resumed_prefill
+            victim.release = timed_release
+            engine0 = weakref.ref(victim.engine)
+            res_l, st_l = counted(tag, lambda: fl_l.run(workload()))
+            held(tag, fl_l.replicas)
+            same_as_sim(f"(b) {tag}", fl_l, st_l, sim_fleet(dies=True))
+            moved = {d["id"] for d in fl_l.decisions
+                     if d["d"] == "redistribute"}
+            carried = sum(1 for d in fl_l.decisions
+                          if d["d"] == "redistribute" and d["carried"])
+            _check(fl_l.dead == [0] and st_l["redistributed"] > 0 and
+                   victim.engine is None and engine0() is None and
+                   st_l["completed"] == n and "resumed" in times,
+                   f"fleet (b) {tag}: dead {fl_l.dead}, stats {st_l}")
+            differ = sorted(i for i in res_l
+                            if res_l[i].tokens != ref[i].tokens)
+            untouched = set(res_l) - _reprefilled(ref_srv, *fl_l.replicas)
+            if tag == "loss_f32":
+                _check(not differ, f"fleet (b) f32: requests {differ} differ "
+                                   f"from the unfaulted single replica's")
+            else:
+                _check(not untouched & set(differ),
+                       f"fleet (b) bf16: untouched requests "
+                       f"{sorted(untouched & set(differ))} differ")
+            losses[tag] = st_l
+            print(f"[fleet] (b) {tag.replace('loss', 'replica loss')}: "
+                  f"replica 0 dead before its superstep {FLEET['death_at']},"
+                  f" {st_l['redistributed']} requests redistributed "
+                  f"({carried} with carried tokens), its engine released "
+                  f"(and freed) in {times['release'] * 1e3:.1f} ms; "
+                  f"decisions equal the "
+                  f"simulated fleet's; {len(differ)} of {len(moved)} "
+                  f"redistributed requests differ from the unfaulted single "
+                  f"replica (untouched ones: none); death to the survivor's "
+                  f"first resumed token "
+                  f"{(times['resumed'] - times['death']) * 1e3:.1f} ms "
+                  f"(the survivor's own queue runs first); launches "
+                  f"{ {k: v for k, v in launches[tag].items() if v} }; {card}")
+
+        # -- (c) --serve-auto at a fleet baseline, through the app --
+        argv = ["--vocab", str(c["vocab"]), "--d-model", str(c["d_model"]),
+                "--heads", str(c["heads"]), "--layers", str(L),
+                "--max-seq", str(c["max_seq"]),
+                "--max-batch", str(c["max_batch"]),
+                "--buckets", ",".join(map(str, c["buckets"])),
+                "--requests", str(n), "--prompt-len", f"4:{c['max_seq'] // 4}",
+                "--max-new", str(c["max_new"]), "--decode-steps", "8",
+                "--dtype", "bfloat16", "--seed", "13", "--workload-trace",
+                "--mean-gap-ms", "2", "--burst", str(n_req),
+                "--priorities", "2", "--slo-ms", "60", "--serve-auto",
+                "--replicas", str(R)]
+        auto, buf = {}, io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = counted("serve_auto", lambda: serve_app.main(
+                argv, device=device, stats_out=auto))
+        lines = buf.getvalue().splitlines()
+        chose = next((ln for ln in lines
+                      if ln.startswith("serve-auto: chose ")), "")
+        epi = next((ln for ln in lines
+                    if ln.startswith("serve-auto: predicted e2e")), "")
+        _check(rc == 0 and chose and epi, f"fleet (c): exit {rc}\n"
+                                          + "\n".join(lines[-20:]))
+        pred = int(epi.split("predicted dispatches ")[1].split(",")[0])
+        done = int(epi.rsplit("executed ", 1)[1])
+        by_src = {}
+        for d in auto.get("merged_decisions", auto["decisions"]):
+            if d["d"] == "decode":
+                by_src.setdefault(d.get("src"), set()).add(d["k"])
+        _held_launches("fleet (c)", launches["serve_auto"], {
+            "flash_attention_lse": L * auto["prefills"],
+            "flash_decode": 2 * L * sum(sum(ks) for ks in by_src.values())})
+        _check(pred == done == auto["prefills"] + auto["decode_supersteps"],
+               f"fleet (c): predicted {pred}, executed {done}")
+        print(f"[fleet] (c) {chose}")
+        print(f"[fleet] (c) {epi}; {card}")
+
+        # -- (d) wall time, first calls, the bench's columns --
+        print(f"[fleet] (d) wall: a fleet run {walls['a'] * 1e3:.1f} ms, one "
+              f"replica {walls['single'] * 1e3:.1f} ms (replicas run in turn "
+              f"on one card), the bf16 loss run {walls['loss'] * 1e3:.1f} ms;"
+              f" {card}")
+        for i, srv in enumerate(fl.replicas):
+            rows = sorted(first_calls.get(srv.engine, {}).items())
+            print(f"[fleet] (d) replica {i} first calls (eager + capture): "
+                  + ", ".join(f"k={k} {p['first_call_s'] * 1e3:.1f} ms "
+                              f"{p['bytes']} bytes"
+                              for (_kind, k), p in rows))
+        print("[fleet] bench columns (virtual ms, model defaults): "
+              + json.dumps(bench.fleet_columns(st, losses["loss"], base_st)))
+    finally:
+        unpatch()
     return launches
 
 
@@ -5725,12 +6034,15 @@ def main() -> int:
     t.append(time.perf_counter())
     sched_launches = phase_serve_sched(torch, kernels)
     t.append(time.perf_counter())
+    fleet_launches = phase_fleet(torch, kernels)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
              "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
              "longctx-parity", "probe-kernels", "alexnet-kernels",
              "alexnet-train", "alexnet-parity", "superstep", "serve-features",
-             "serve-resilience", "nmt", "item5", "item7", "serve-sched")
+             "serve-resilience", "nmt", "item5", "item7", "serve-sched",
+             "fleet")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -5775,7 +6087,9 @@ def main() -> int:
                    **{path: counts.get(name, 0)
                       for path, counts in item7_launches.items()},
                    **{f"sched_{run}": counts.get(name, 0)
-                      for run, counts in sched_launches.items()}}
+                      for run, counts in sched_launches.items()},
+                   **{f"fleet_{run}": counts.get(name, 0)
+                      for run, counts in fleet_launches.items()}}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])

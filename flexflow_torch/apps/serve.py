@@ -54,15 +54,18 @@ Sampling flags (greedy stays the default):
   --sample-seed S    draws keyed by (S, request id, position): the same
                      tokens whatever the batch or the superstep length
 
-Scheduler flags (any of them, or a failure-model flag below but
---journal, runs the SLO scheduler of ``serving/scheduler.py``: open-loop
-arrivals on a virtual clock, tier + EDF admission, adaptive decode k,
-preemption and shedding; every latency it prints is in virtual ms):
+Scheduler flags (any of them, a fleet flag, or a failure-model flag
+below but --journal, runs the SLO scheduler of ``serving/scheduler.py``:
+open-loop arrivals on a virtual clock, tier + EDF admission, adaptive
+decode k, preemption and shedding; every latency it prints is in virtual
+ms):
   --sched POLICY     fifo | slo (slo when another scheduler flag is given)
-  --workload-trace [zipf]  the open-loop workload (zipf-skewed lengths,
-                     bursts) instead of the uniform stream; ``prod[...]``
-                     (prompt tokens from the production trace) comes with
-                     ROADMAP.md queue 1 item 12
+  --workload-trace [zipf|prod[:alpha=A,prefix=P]]  the open-loop workload
+                     (zipf-skewed lengths, bursts) instead of the uniform
+                     stream; ``prod`` reads the prompt tokens from the data
+                     plane's production trace (``data/trace.py``: id skew
+                     A, default 1.2) with the same lengths and arrivals,
+                     ``prefix=P`` a shared P-token system-prompt span
   --trace-alpha A    zipf skew of prompt and output lengths (1.5)
   --mean-gap-ms X    mean gap between bursts, virtual ms (8.0)
   --burst N          requests per burst (4)
@@ -73,13 +76,31 @@ preemption and shedding; every latency it prints is in virtual ms):
   --calibration PATH the serving latency model's run log (a file, or a
                      telemetry dir's latest run); default: the latest run
                      under --telemetry's dir, else the model defaults
+  --serve-auto       search buckets x k x max_batch x adaptive k (x the
+                     paged block and the prefix cache when paged, x d when
+                     speculating, x replicas and router for a fleet)
+                     against the latency model by simulating the
+                     scheduler over the workload, and serve the winner
+                     (``serving/search.py``); prints the predicted against
+                     the measured p99 and dispatches
+
+Fleet flags (``serving/fleet.py``):
+  --replicas N       N scheduled replicas, each with its own executor,
+                     caches and decode graphs (replica 0 reuses the app's
+                     executor), behind one router on the shared virtual
+                     clock; a replica whose restart budget runs out is
+                     dropped and its journaled work moves to the
+                     survivors; when the last one dies the app exits 78
+                     (EXIT_FLEET_FAILURE)
+  --router POLICY    least-loaded | tier-aware | affinity (least-loaded)
 
 Failure-model flags:
   --journal PATH     append-only request journal: a run on a journal
                      with records restores its completed requests and
                      resumes its in-flight ones; SIGTERM drains at the
                      next superstep boundary (re-run with the same
-                     --journal to serve the rest).  Plain or scheduled.
+                     --journal to serve the rest).  Plain or scheduled;
+                     a fleet journals replica i to PATH.r{i}.
   --serve-retries N  retries per request for slot faults (virtual-clock
                      exponential backoff; scheduled)
   --retry-backoff-ms X  backoff base, virtual ms (8.0)
@@ -97,9 +118,8 @@ Telemetry and checks:
                      spec), traced on meta tensors: no device compute, no
                      kernel launch
 
-Refused by name, with the ROADMAP.md queue 1 item that brings each:
-sharding (item 9), the fleet and the serving config search (item 8's
-rest).  Any other unknown flag is refused too.
+Refused by name: --shard (sharded decode comes with ROADMAP.md queue 1
+item 9).  Any other unknown flag is refused too.
 
 Example::
 
@@ -110,6 +130,7 @@ Example::
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
@@ -119,6 +140,7 @@ from flexflow_torch.apps.common import check_help, pop_float, pop_int, pop_str
 from flexflow_torch.config import FFConfig
 from flexflow_torch.models.transformer import build_transformer_lm
 from flexflow_torch.runtime import telemetry as _telemetry
+from flexflow_torch.runtime.trainer import relay_safe_steps
 from flexflow_torch.runtime.serving import (
     EXIT_SERVING_FAILURE,
     Server,
@@ -127,14 +149,21 @@ from flexflow_torch.runtime.serving import (
     synthetic_requests,
 )
 from flexflow_torch.serving import (
+    EXIT_FLEET_FAILURE,
+    ROUTER_POLICIES,
+    FleetCrashLoop,
+    FleetRouter,
     RequestJournal,
     ScheduledServer,
     SchedulerPolicy,
+    ServingConfig,
     ServingLatencyModel,
     ServingResilience,
     SlotShape,
     WorkloadSpec,
     make_workload,
+    production_workload,
+    search_serving_config,
     uniform_workload,
 )
 
@@ -142,12 +171,7 @@ _DTYPES = ("float32", "bfloat16")
 
 #: The JAX app's flags this port does not serve yet, with the ROADMAP.md
 #: queue 1 item that brings each.
-UNPORTED = {
-    "--shard": "item 9 (multi-device strategies)",
-    **{f: "item 8's rest (the serving fleet)" for f in (
-        "--replicas", "--router")},
-    "--serve-auto": "item 8's rest (the serving config search)",
-}
+UNPORTED = {"--shard": "item 9 (multi-device strategies)"}
 
 
 def _pop_flag(argv, flag) -> bool:
@@ -220,6 +244,10 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     retry_backoff_ms = pop_float(argv, "--retry-backoff-ms", 8.0)
     serve_max_restarts = pop_int(argv, "--serve-max-restarts", -1)
     expire_waiting = _pop_flag(argv, "--expire-waiting")
+    serve_auto = _pop_flag(argv, "--serve-auto")
+    router_given = "--router" in argv
+    replicas = pop_int(argv, "--replicas", 1)
+    router = pop_str(argv, "--router", "least-loaded")
     common = []
     for flag in ("--dtype", "--seed", "--telemetry", "--calibration",
                  "--max-restarts"):
@@ -248,20 +276,22 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
         raise SystemExit("--prompt-len expects LO:HI")
     if sched_s and sched_s not in ("fifo", "slo"):
         raise SystemExit(f"--sched expects fifo|slo, got {sched_s!r}")
-    if workload_trace is not None and workload_trace.startswith("prod"):
+    if workload_trace not in (None, "", "zipf") \
+            and not workload_trace.startswith("prod"):
         raise SystemExit(
-            "--workload-trace prod reads the production trace of the data "
-            "plane (data/trace.py), which comes with ROADMAP.md queue 1 "
-            "item 12")
-    if workload_trace not in (None, "", "zipf"):
-        raise SystemExit(f"--workload-trace expects nothing or 'zipf', got "
-                         f"{workload_trace!r}")
+            f"--workload-trace expects nothing, 'zipf' or "
+            f"'prod[:alpha=A,prefix=P]', got {workload_trace!r}")
     if prefix_cache and kv_block <= 0:
         raise SystemExit(
             "--prefix-cache shares blocks of the PAGED pool and needs "
             "--kv-block N")
     if speculate < 0:
         raise SystemExit(f"--speculate expects d >= 0, got {speculate}")
+    if replicas < 1:
+        raise SystemExit(f"--replicas expects N >= 1, got {replicas}")
+    if router not in ROUTER_POLICIES:
+        raise SystemExit(f"--router expects {'|'.join(ROUTER_POLICIES)}, "
+                         f"got {router!r}")
     if (draft_ckpt or draft_layers) and not speculate:
         raise SystemExit(
             "--draft-ckpt/--draft-layers configure the DRAFT source and "
@@ -272,22 +302,27 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
         buckets = tuple(sorted({max(max_seq // 4, hi), max_seq // 2,
                                 max_seq}))
     buckets = tuple(b for b in buckets if b <= max_seq)
+    models = {}
 
-    ff = build_transformer_lm(
-        batch_size=max_batch, seq_len=max_seq, vocab_size=vocab,
-        d_model=d_model, num_heads=heads, num_layers=layers, config=cfg,
-    )
-    try:
-        sex = ServingExecutor(
-            ff, cfg, max_batch=max_batch, max_seq=max_seq, buckets=buckets,
-            decode_kernel=False if no_kernel else None,
-            # The dry run traces on meta tensors and needs no device.
-            device="meta" if dry_run else device,
-            kv_block=kv_block, kv_blocks=kv_blocks or None,
-            prefix_cache=prefix_cache, draft_layers=draft_layers,
-        )
-    except ValueError as e:
-        raise SystemExit(str(e))
+    def make_executor():
+        """An executor at the current config, which ``--serve-auto`` may
+        change; the model is built once per ``max_batch``."""
+        if max_batch not in models:
+            models[max_batch] = build_transformer_lm(
+                batch_size=max_batch, seq_len=max_seq, vocab_size=vocab,
+                d_model=d_model, num_heads=heads, num_layers=layers,
+                config=cfg)
+        try:
+            return ServingExecutor(
+                models[max_batch], cfg, max_batch=max_batch, max_seq=max_seq,
+                buckets=buckets, decode_kernel=False if no_kernel else None,
+                # The dry run traces on meta tensors and needs no device.
+                device="meta" if dry_run else device,
+                kv_block=kv_block, kv_blocks=kv_blocks or None,
+                prefix_cache=prefix_cache, draft_layers=draft_layers,
+            )
+        except ValueError as e:
+            raise SystemExit(str(e))
 
     def weights():
         if ckpt_dir:
@@ -302,13 +337,17 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
                   f"{draft_ckpt}")
         return params, state, draft_params
 
-    journal = RequestJournal(journal_path) if journal_path else None
+    def journal(path):
+        return RequestJournal(path) if journal_path else None
+
     # Retries, expiry and restarts are scheduler semantics (virtual-clock
     # backoff); the journal alone stays on either path.
     use_sched = bool(sched_s or workload_trace is not None or slo_ms > 0
-                     or priorities > 0 or shed_depth > 0 or serve_retries > 0
-                     or serve_max_restarts >= 0 or expire_waiting)
+                     or priorities > 0 or shed_depth > 0 or serve_auto
+                     or serve_retries > 0 or serve_max_restarts >= 0
+                     or expire_waiting or replicas > 1 or router_given)
     if not use_sched:
+        sex = make_executor()
         with _telemetry.maybe_run(cfg, meta={"app": "serve"}):
             if dry_run:
                 return _dry_run(sex, [decode_steps], speculate)
@@ -320,7 +359,8 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
                          eos_id=None if eos < 0 else eos,
                          temperature=temperature, top_k=top_k,
                          sample_seed=sample_seed, speculate=speculate,
-                         journal=journal, draft_params=draft_params)
+                         journal=journal(journal_path),
+                         draft_params=draft_params)
             t0 = time.perf_counter()
             results, stats = srv.run(requests)
             elapsed = time.perf_counter() - t0
@@ -343,7 +383,8 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
               f"superstep)")
         return _report_failures(results, stats)
 
-    # -- the scheduled path (JAX's _run_scheduled without the fleet) --
+    # -- the scheduled path (JAX's _run_scheduled) --
+    decode_steps = relay_safe_steps(decode_steps, what="decode_steps")
     resilience = ServingResilience(
         max_retries=serve_retries, retry_backoff_ms=retry_backoff_ms,
         max_restarts=(serve_max_restarts if serve_max_restarts >= 0
@@ -357,45 +398,115 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     with _telemetry.maybe_run(cfg, meta={"app": "serve"}):
         model = _latency_model(cfg)
         if workload_trace is not None:
-            requests = make_workload(WorkloadSpec(
+            spec = WorkloadSpec(
                 n_requests=n_requests, vocab=vocab, prompt_len=(lo, hi),
                 prompt_alpha=trace_alpha, max_new=(1, max_new),
                 output_alpha=trace_alpha, mean_gap_ms=mean_gap_ms,
                 burst=burst, priorities=max(priorities, 1),
-                slo_ms=base_slo, seed=cfg.seed))
+                slo_ms=base_slo, seed=cfg.seed)
+            if workload_trace.startswith("prod"):
+                requests = _production_requests(spec, workload_trace)
+            else:
+                requests = make_workload(spec)
         else:
             requests = uniform_workload(
                 n_requests, vocab, prompt_len=(lo, hi),
                 max_new_tokens=max_new, seed=cfg.seed, slo_ms=base_slo)
+        choice = None
+        if serve_auto:
+            baseline = ServingConfig(
+                buckets=buckets, decode_steps=decode_steps,
+                max_batch=max_batch, max_seq=max_seq, policy=policy,
+                kv_block=kv_block, kv_blocks=kv_blocks or None,
+                prefix_cache=prefix_cache, speculate=speculate,
+                replicas=replicas, router=router)
+            res = search_serving_config(requests, baseline, model)
+            choice = res.chosen
+            if choice.config.to_json() == baseline.to_json():
+                print("serve-auto: the app's default serving config "
+                      "already wins the searched space; keeping it")
+            print(res.describe())
+            print(f"serve-auto: {model.describe()}")
+            c = choice.config
+            buckets, decode_steps, max_batch = (c.buckets, c.decode_steps,
+                                                c.max_batch)
+            policy, kv_block, kv_blocks = c.policy, c.kv_block, \
+                c.kv_blocks or 0
+            prefix_cache, speculate = c.prefix_cache, c.speculate
+            replicas, router = c.replicas, c.router
+            _telemetry.current().emit(
+                "search", kind="serving", chosen=c.to_json(),
+                baseline=res.baseline.config.to_json(),
+                predicted_p99_ms=round(choice.predicted_p99_ms, 4),
+                baseline_predicted_p99_ms=round(
+                    res.baseline.predicted_p99_ms, 4),
+                predicted_dispatches=choice.predicted_dispatches,
+                latency_model=model.to_json(),
+                candidates=len(res.candidates),
+                wall_s=round(res.wall_s, 3))
+        sex = make_executor()
         srv_proto = ScheduledServer.simulated(
             SlotShape(max_batch=max_batch, max_seq=max_seq, buckets=buckets,
                       kv_block=kv_block, kv_blocks=kv_blocks or None,
                       prefix_cache=prefix_cache),
             decode_steps=decode_steps, policy=policy, latency_model=model)
         if dry_run:
-            return _dry_run(sex, srv_proto._k_candidates, speculate)
+            return _dry_run(sex, srv_proto._k_candidates, speculate,
+                            replicas, router)
         params, state, draft_params = weights()
-        srv = ScheduledServer(
-            sex, params, state, decode_steps=decode_steps,
-            eos_id=None if eos < 0 else eos, policy=policy,
-            latency_model=model, temperature=temperature, top_k=top_k,
-            sample_seed=sample_seed, resilience=resilience, journal=journal,
-            speculate=speculate, draft_params=draft_params)
+
+        def make_server(sex_i, journal_i):
+            return ScheduledServer(
+                sex_i, params, state, decode_steps=decode_steps,
+                eos_id=None if eos < 0 else eos, policy=policy,
+                latency_model=model, temperature=temperature, top_k=top_k,
+                sample_seed=sample_seed, resilience=resilience,
+                journal=journal_i, speculate=speculate,
+                draft_params=draft_params)
+
         t0 = time.perf_counter()
-        try:
-            results, stats = srv.run(requests)
-        except ServingCrashLoop as e:
-            print(f"serving crash loop: {e}", file=sys.stderr)
-            print(f"exiting {EXIT_SERVING_FAILURE} for the external "
-                  f"supervisor (engine restart budget exhausted; the "
-                  f"journal carries completed + in-flight state)")
-            return EXIT_SERVING_FAILURE
+        if replicas > 1:
+            # Replica 0 reuses the executor built above, each peer gets
+            # its own (programs, caches, graphs); params are shared.
+            # --journal PATH fans out to PATH.r{i}, the medium of
+            # redistribution.
+            srv = FleetRouter([
+                make_server(sex if i == 0 else make_executor(),
+                            journal(f"{journal_path}.r{i}"))
+                for i in range(replicas)], router=router)
+            try:
+                results, stats = srv.run(requests)
+            except FleetCrashLoop as e:
+                print(f"fleet crash: {e}", file=sys.stderr)
+                print(f"exiting {EXIT_FLEET_FAILURE} for the external "
+                      f"supervisor (every replica's restart budget "
+                      f"exhausted; the per-replica journals carry "
+                      f"completed + in-flight state)")
+                return EXIT_FLEET_FAILURE
+        else:
+            srv = make_server(sex, journal(journal_path))
+            try:
+                results, stats = srv.run(requests)
+            except ServingCrashLoop as e:
+                print(f"serving crash loop: {e}", file=sys.stderr)
+                print(f"exiting {EXIT_SERVING_FAILURE} for the external "
+                      f"supervisor (engine restart budget exhausted; the "
+                      f"journal carries completed + in-flight state)")
+                return EXIT_SERVING_FAILURE
         elapsed = time.perf_counter() - t0
     if stats_out is not None:
         stats_out.update(stats)
         stats_out["results"] = results
         stats_out["decisions"] = srv.decisions
+        if replicas > 1:
+            stats_out["merged_decisions"] = srv.merged_decisions()
     print(f"policy = {policy.describe()}")
+    if replicas > 1:
+        print(f"fleet = {stats['replicas']} replicas "
+              f"router={stats['router']} "
+              f"live={stats['live_replicas']} "
+              f"dead={stats['dead_replicas']} "
+              f"redistributed={stats['redistributed']}")
     print(f"latency model = {model.describe()}")
     print(f"requests = {stats['requests']} "
           f"completed = {stats['completed']} failed = {stats['failed']} "
@@ -429,7 +540,29 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     if stats.get("drained"):
         print(f"drained: remainder journaled in {journal_path or '?'} "
               f"(re-run with the same --journal to resume)")
+    if choice is not None:
+        print(f"serve-auto: predicted e2e p99 "
+              f"{choice.predicted_p99_ms:.3f} ms, measured "
+              f"{stats['e2e_ms_p99']:.3f} ms (virtual clock); "
+              f"predicted dispatches {choice.predicted_dispatches}, "
+              f"executed {stats['prefills'] + stats['decode_supersteps']}")
     return _report_failures(results, stats)
+
+
+def _production_requests(spec, workload_trace: str):
+    """``--workload-trace prod[:alpha=A,prefix=P]``: JAX's parsing, then
+    ``production_workload``."""
+    args = workload_trace[5:] if workload_trace.startswith("prod:") else ""
+    kv = dict(p.split("=", 1) for p in args.split(",") if p)
+    id_alpha = float(kv.pop("alpha", 1.2))
+    shared_prefix = int(kv.pop("prefix", 0))
+    if kv:
+        raise SystemExit(
+            f"--workload-trace prod: unknown args {sorted(kv)} "
+            f"(supported: alpha=A, prefix=P)")
+    if shared_prefix:
+        spec = dataclasses.replace(spec, shared_prefix=shared_prefix)
+    return production_workload(spec, id_alpha=id_alpha)
 
 
 def _latency_model(cfg) -> ServingLatencyModel:
@@ -451,7 +584,8 @@ def _latency_model(cfg) -> ServingLatencyModel:
     return ServingLatencyModel.from_run(RunLog.load(path))
 
 
-def _dry_run(sex, decode_ks, speculate: int = 0) -> int:
+def _dry_run(sex, decode_ks, speculate: int = 0, replicas: int = 1,
+             router: str = "least-loaded") -> int:
     """The serving dry run: the program table of
     ``ServingExecutor.abstract_programs`` (traced on meta tensors), in
     the JAX app's layout, with one decode row per k the run may dispatch
@@ -482,6 +616,11 @@ def _dry_run(sex, decode_ks, speculate: int = 0) -> int:
         print(f"{'spec d=' + str(speculate):<18} "
               f"{str(shape) + ' tokens':<28} 1 dispatch + 1 fence per round "
               f"(<= {speculate + 1} accepted)")
+    if replicas > 1:
+        # Routing is host-side: every replica builds this same program
+        # family.
+        print(f"fleet: {replicas} replicas (router={router}) x the "
+              f"program family above; no extra programs")
     print("DRY RUN OK (no device compute)")
     return 0
 

@@ -16,8 +16,8 @@ the superstep sweep (``superstep``: ms/step of a small MLP at k = 1, 4,
 8 and 16 steps per call, the k > 1 ones as CUDA graphs), the serving leg
 (``serving``: bench.py's columns that the port computes, decode
 supersteps as CUDA graphs; the scheduler's fifo/slo A/B, tail autopsy,
-failure-model and prefix-workload columns in virtual ms), the NMT leg (``nmt_pairs_per_s`` and
-``nmt_10iter_time_s``: batch 64, 2 layers, hidden = embed = 2048, vocab
+failure-model, prefix-workload and fleet columns in virtual ms), the NMT
+leg (``nmt_pairs_per_s`` and ``nmt_10iter_time_s``: batch 64, 2 layers, hidden = embed = 2048, vocab
 20480, seq 20, bf16, SGD lr 0.01, 2 + 10 steps), the Candle-Uno leg
 (``candle_samples_per_s``: the reference's widths, batch 512, bf16, SGD
 lr 0.01, 2 + 10 steps), the telemetry leg (``telemetry``: bench.py's
@@ -30,11 +30,10 @@ is ``iterations x batch / elapsed`` with one fence at the end
 the line carries ``"value": null`` and the error; nothing is measured
 on the CPU.
 
-``bench.py``'s other legs (pipeline,
-data plane, search, op-parallel) and the serving leg's fleet and
-sharded columns wait for their slices of the port (ROADMAP.md queue 1).  The leg functions take the
-device and their sizes as arguments, so a test can run them small on
-the CPU.
+``bench.py``'s other legs (pipeline, data plane, search, op-parallel)
+and the serving leg's sharded columns wait for their slices of the port
+(ROADMAP.md queue 1).  The leg functions take the device and their
+sizes as arguments, so a test can run them small on the CPU.
 """
 
 from __future__ import annotations
@@ -283,6 +282,25 @@ def sched_columns(runs: dict) -> dict:
     return out
 
 
+def fleet_columns(fleet: dict, loss: dict, slo: dict) -> dict:
+    """``bench.py``'s fleet columns, its names and formulas, from the
+    stats of the leg's 2-replica least-loaded fleet over the bursty
+    workload (``fleet``), of the same fleet with replica 0 killed before
+    its decode superstep 1 (``loss``), and of the single-replica slo run
+    (``slo``).  Virtual ms."""
+    return {
+        "fleet_replicas": fleet["replicas"],
+        "fleet_router": fleet["router"],
+        "fleet_queue_wait_ms_p99": fleet["queue_wait_ms_p99"],
+        "fleet_slo_attainment": fleet["slo_attainment"],
+        "fleet_vs_single_attainment": round(
+            fleet["slo_attainment"] / max(slo["slo_attainment"], 1e-9), 3),
+        "fleet_dead_replicas": loss["dead_replicas"],
+        "fleet_redistributed": loss["redistributed"],
+        "fleet_loss_slo_attainment": loss["slo_attainment"],
+    }
+
+
 def bench_serving(device="cuda", vocab: int = 32768, d_model: int = 512,
                   heads: int = 8, layers: int = 6, max_seq: int = 128,
                   max_batch: int = 8, n_req: int = 16, max_new: int = 32,
@@ -305,14 +323,18 @@ def bench_serving(device="cuda", vocab: int = 32768, d_model: int = 512,
     failure model (a NaN'd cache before superstep 1 and an engine fault
     before superstep 3 under one retry and one restart), and the
     prefix workload (a ``kv_block``-token shared span) on the paged pool
-    with and without the prefix cache.  Every scheduler latency column is
-    in virtual ms (``serving/latency_model.py``, the model defaults)."""
+    with and without the prefix cache; and the fleet columns
+    (:func:`fleet_columns`: 2 replicas behind the least-loaded router,
+    each with its own executor and journal, with and without the loss of
+    replica 0).  Every scheduler latency column is in virtual ms
+    (``serving/latency_model.py``, the model defaults)."""
     from flexflow_torch.config import FFConfig
     from flexflow_torch.models.transformer import build_transformer_lm
     from flexflow_torch.runtime.serving import (
         Server, ServingExecutor, ServingFaultInjector, synthetic_requests)
     from flexflow_torch.serving import (
-        ScheduledServer, SchedulerPolicy, ServingResilience)
+        FleetRouter, MemoryJournal, ScheduledServer, SchedulerPolicy,
+        ServingResilience)
 
     ff = build_transformer_lm(
         batch_size=max_batch, seq_len=max_seq, vocab_size=vocab,
@@ -397,6 +419,27 @@ def bench_serving(device="cuda", vocab: int = 32768, d_model: int = 512,
         runs[tag] = ScheduledServer(engine, params, state, **slo_kw).run(
             sched_workload(n_req, vocab, max_seq, max_new, kv_block))
     out.update(sched_columns(runs))
+
+    # -- the fleet's columns: replica 0 on the leg's executor, replica 1 on
+    # its own, the same weights from the same seed --
+    sexf = ServingExecutor(ff, max_batch=max_batch, max_seq=max_seq,
+                           buckets=buckets, device=device)
+    pf, sf = sexf.init(0)
+
+    def fleet(injected):
+        return FleetRouter([ScheduledServer(
+            ex_i, p_i, s_i, **slo_kw,
+            resilience=ServingResilience(max_restarts=0),
+            journal=MemoryJournal(),
+            fault_injector=ServingFaultInjector(
+                engine_raise_at={1: "injected replica death"})
+            if injected and i == 0 else None)
+            for i, (ex_i, p_i, s_i) in enumerate(
+                ((sex, params, state), (sexf, pf, sf)))],
+            router="least-loaded").run(
+            sched_workload(n_req, vocab, max_seq, max_new))[1]
+
+    out.update(fleet_columns(fleet(False), fleet(True), runs["slo"][1]))
     return out
 
 

@@ -12,9 +12,12 @@ Cached decode on the padded cache takes JAX's route: the flash-decode
 kernel (``kernels.flash_decode``) where its gate
 (``kernels.flash_decode_supported``) holds, the plain ``_einsum_decode``
 where it does not or when ``decode_kernel`` is False.
-The paged decode (a block pool and a per-slot block table) and the
-offset prefill of a shared prefix run plain torch, as the JAX package
-runs jnp there: neither reaches a Pallas kernel.  On CPU tensors both
+The paged decode (a block pool and a per-slot block table) runs plain
+torch, as the JAX package runs jnp there.  The offset prefill of a
+shared prefix attends on the route of a fresh prefill of its bucket
+(``_attend_offset``: the dispatcher, so K1f on the card), where JAX runs
+the jnp ``_attend_chunk``: on the card, two routes for one bucket would
+round a bf16 sharer's tokens apart from its unshared run's.  On CPU tensors both
 kernel wrappers run their plain versions.  The ring (sequence-parallel)
 path comes with a later slice (ROADMAP.md queue 1).
 """
@@ -198,15 +201,18 @@ class MultiHeadAttention(Op):
         b, h, t, hd = x.shape
         return x.transpose(1, 2).reshape(b, t, h * hd).to(dtype)
 
-    def _attend_dense(self, q, k, v, dtype):
-        """The single-device branch of JAX's ``_attend_dense`` /
-        ``_flash_dense``: the dispatcher's formulation, or the einsum when
-        it returns None."""
-        q, k, v = map(self._split_heads, (q, k, v))
+    def _attend_heads(self, q, k, v):
+        """(b, h, t, hd) heads through the dispatcher's formulation, or the
+        einsum when it returns None: the one route of every prefill."""
         causal = self.attrs["causal"]
         res = kernels.flash_attention_lse_auto(q, k, v, causal)
-        out = _einsum_attention(q, k, v, causal) if res is None else res[0]
-        return self._merge_heads(out, dtype)
+        return _einsum_attention(q, k, v, causal) if res is None else res[0]
+
+    def _attend_dense(self, q, k, v, dtype):
+        """The single-device branch of JAX's ``_attend_dense`` /
+        ``_flash_dense``."""
+        q, k, v = map(self._split_heads, (q, k, v))
+        return self._merge_heads(self._attend_heads(q, k, v), dtype)
 
     def _out_proj(self, params, y):
         y = y @ params["wo"]
@@ -274,7 +280,7 @@ class MultiHeadAttention(Op):
             o = int(state["chunk"])
             ck[:, o:o + t] = kh.transpose(1, 2).to(ck.dtype)
             cv[:, o:o + t] = vh.transpose(1, 2).to(cv.dtype)
-            y = self._attend_chunk(qh, ck, cv, o, t, x.dtype)
+            y = self._attend_offset(qh, ck, cv, o, x.dtype)
         else:
             ck[:, :t] = kh.transpose(1, 2).to(ck.dtype)
             cv[:, :t] = vh.transpose(1, 2).to(cv.dtype)
@@ -284,26 +290,27 @@ class MultiHeadAttention(Op):
         new_state["cache_v"] = cv
         return [self._out_proj(params, y)], new_state
 
-    def _attend_chunk(self, qh, ck, cv, offset: int, t: int, dtype):
-        """Offset-prefill attention: ``t`` queries at absolute positions
-        ``offset .. offset + t - 1`` against cache rows ``[0, offset +
-        t)``, the shared prefix and this call's own writes; f32 einsum
-        under the offset-causal mask (key j visible to query i iff j <=
-        offset + i), as JAX's ``_attend_chunk``."""
+    def _attend_offset(self, qh, ck, cv, offset: int, dtype):
+        """Offset-prefill attention on a fresh prefill's route: the ``t``
+        queries sit at their absolute rows ``[offset, offset + t)`` of a
+        zero query over the span ``offset + t`` (the bucket), against
+        cache rows ``[0, offset + t)`` (the shared prefix and this call's
+        own writes), through ``_attend_heads`` (K1f on the card).  The
+        formulation, the query tiles and the key tiles each row visits
+        are then those of a fresh prefill of the same bucket, so the tail
+        rows equal that prefill's bit for bit, as long as the cache dtype
+        is the compute dtype (the cached K/V rows are then the same bits
+        as a fresh projection's).  The zero rows cost one bucket of
+        wasted queries and are dropped.  JAX's ``_attend_chunk`` computes
+        the same function as an f32 einsum under the offset-causal mask."""
+        b, h, t, hd = qh.shape
         span = offset + t
-        kh = ck[:, :span].transpose(1, 2)             # (B, h, span, hd)
-        vh = cv[:, :span].transpose(1, 2)
-        q, k, v = qh.float(), kh.float(), vh.float()
-        scale = 1.0 / math.sqrt(q.shape[-1])
-        scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
-        if self.attrs["causal"]:
-            keys = torch.arange(span, device=q.device)
-            rows = offset + torch.arange(t, device=q.device)
-            mask = keys[None, :] <= rows[:, None]
-            scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
-        attn = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
-        return self._merge_heads(out, dtype)
+        q = qh.new_zeros((b, h, span, hd))
+        q[:, :, offset:] = qh
+        k = ck[:, :span].transpose(1, 2).to(qh.dtype)
+        v = cv[:, :span].transpose(1, 2).to(qh.dtype)
+        out = self._attend_heads(q, k, v)
+        return self._merge_heads(out[:, :, offset:], dtype)
 
     def _decode_attend(self, q1, ck, cv, pos):
         """``q1``: (B, h, hd).  JAX's route: ``decode_kernel`` None takes

@@ -18,7 +18,8 @@ failure models on JAX's scenario stack (vocab 32, d_model 16, 2 heads,
 and every other request keeps the unfaulted tokens, on the padded and
 the paged layout; an overload sheds the same requests on every replay;
 an engine crash resumes from the journal, or restarts in process, with
-the uninterrupted run's tokens.
+the uninterrupted run's tokens; a fleet that loses a replica finishes its
+requests on the survivor with a single replica's tokens.
 They take ``params`` (a ``{op: {name: array}}`` tree: the tests carry
 JAX's across) or draw the port's own from seed 0.
 
@@ -612,6 +613,99 @@ def scenario_serving_engine_crash(root: str, device="cuda",
                   "and paged layouts)")
 
 
+def scenario_replica_loss(root: str, device="cuda",
+                          graph: Optional[bool] = None,
+                          params=None) -> Result:
+    """Fleet replica loss: a 2-replica ``FleetRouter`` over real
+    scheduled servers, each journaling to its own file.  An engine fault
+    with a restart budget of 0 kills replica 0 before its decode
+    superstep 1; the router marks it dead, releases its engine, replays
+    its journal and redistributes its unfinished requests to replica 1,
+    which resumes them by its journal-replay prelude (re-prefill over
+    prompt ‖ carried).  The fleet's tokens equal an unfaulted
+    single-replica run's, whichever replica finished each request; every
+    request's span timeline, transplanted ones included, reconciles from
+    the telemetry log alone; and the same loss on the paged fleet gives
+    the padded run's tokens."""
+    from flexflow_torch.obs import spans
+    from flexflow_torch.obs.reader import RunLog
+    from flexflow_torch.runtime.serving import ServingFaultInjector
+    from flexflow_torch.runtime.telemetry import Telemetry
+    from flexflow_torch.serving import (
+        FleetRouter, RequestJournal, ScheduledServer, ServingResilience)
+
+    d = os.path.join(root, "replica_loss")
+
+    def make_fleet(tag, stacks):
+        inj = ServingFaultInjector(
+            engine_raise_at={1: "injected replica death"})
+        reps = [ScheduledServer(
+            sex, p, {}, decode_steps=4,
+            resilience=ServingResilience(max_restarts=0),
+            journal=RequestJournal(os.path.join(d, f"journal_{tag}.r{i}")),
+            fault_injector=inj if i == 0 else None, graph=graph)
+            for i, (sex, p) in enumerate(stacks)]
+        return FleetRouter(reps, router="least-loaded"), inj
+
+    def setup(kv_block=0):
+        return _serving_setup(device, kv_block, RECOVERY_BUCKETS,
+                              params=params)
+
+    sex, p = setup()
+    base, _ = ScheduledServer(sex, p, {}, decode_steps=4,
+                              graph=graph).run(_serving_requests())
+    if _failed(base):
+        return False, "replica_loss: the unfaulted single replica had errors"
+    # The survivor reuses the baseline's stack; the victim has its own.
+    fleet, inj = make_fleet("padded", [setup(), (sex, p)])
+    tel = Telemetry(os.path.join(d, "telemetry"))
+    with tel:
+        res, st = fleet.run(_serving_requests())
+    if not any(m == "engine" for m, _, _ in inj.fired):
+        return False, f"replica_loss: the injector fired {inj.fired}"
+    if st.get("dead_replicas") != 1 or fleet.dead != [0]:
+        return False, f"replica_loss: expected replica 0 dead, got " \
+                      f"{fleet.dead}"
+    if not st.get("redistributed"):
+        return False, "replica_loss: nothing was redistributed"
+    if fleet.replicas[0].engine is not None:
+        return False, "replica_loss: the dead replica's engine was kept"
+    if _failed(res) or _tokens(res) != _tokens(base):
+        return False, ("replica_loss: the redistributed outputs DIVERGED "
+                       "from the unfaulted single-replica run")
+    carried = [x for x in fleet.decisions
+               if x["d"] == "redistribute" and x["carried"]]
+    if not carried:
+        return False, ("replica_loss: no redistributed request carried a "
+                       "journaled prefix")
+    tls = spans.timelines_from_run(RunLog.load(tel.path))
+    if sorted(tls) != sorted(res):
+        return False, f"replica_loss: span timelines {sorted(tls)} for " \
+                      f"requests {sorted(res)}"
+    bad = [i for i in sorted(tls) if not tls[i].reconciled]
+    moved = [i for i in sorted(tls) if tls[i].transplanted]
+    if bad or not moved:
+        return False, (f"replica_loss: unreconciled timelines {bad}, "
+                       f"transplanted {moved}")
+    pfleet, _pinj = make_fleet("paged", [setup(8), setup(8)])
+    res_p, st_p = pfleet.run(_serving_requests())
+    if st_p.get("kv_layout") != "paged":
+        return False, "replica_loss: the paged check did not run paged"
+    if st_p.get("dead_replicas") != 1 or not st_p.get("redistributed"):
+        return False, (f"replica_loss[paged]: dead "
+                       f"{st_p.get('dead_replicas')}, redistributed "
+                       f"{st_p.get('redistributed')}")
+    if _failed(res_p) or _tokens(res_p) != _tokens(base):
+        return False, ("replica_loss[paged]: the redistributed outputs "
+                       "DIVERGED from the padded single-replica run")
+    return True, (f"replica_loss: replica 0 died mid-decode; "
+                  f"{st['redistributed']} request(s) ({len(carried)} with "
+                  f"carried prefixes) finished on the survivor with the "
+                  f"single-replica run's tokens (padded and paged "
+                  f"layouts); {len(tls)} span timelines ({len(moved)} "
+                  f"transplanted) reconciled from the telemetry log")
+
+
 # -- not ported yet ----------------------------------------------------------
 
 
@@ -643,8 +737,7 @@ SCENARIOS: Dict[str, Callable[..., Result]] = {
     "serving_sigterm_drain": scenario_serving_sigterm_drain,
     "serving_spec_fault": scenario_serving_spec_fault,
     "prefix_donor_eviction": scenario_prefix_donor_eviction,
-    "replica_loss": _not_ported("replica_loss", "item 8's rest",
-                                "the serving fleet"),
+    "replica_loss": scenario_replica_loss,
     "host_loss": _not_ported("host_loss", "item 13",
                              "the multi-host elastic rig"),
     "coordinator_loss": _not_ported("coordinator_loss", "item 13",

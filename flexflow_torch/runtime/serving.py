@@ -925,9 +925,13 @@ class ServingExecutor:
         are zero over ``[0, offset)`` (the masked install writes those
         chunks into scratch block 0).  K/V at row r depends only on tokens
         ``[0, r]``, so the gathered rows equal what this prompt's own
-        prefill would write; the tail runs ``_attend_chunk`` (einsum)
-        where the full prefill runs the flash kernel, so tokens agree
-        with the unshared run and logits within rounding."""
+        prefill would write.  The tail attends on the fresh prefill's
+        route over the same span (``MultiHeadAttention._attend_offset``:
+        its queries at their absolute rows of a zero query over the
+        bucket, through the dispatcher, so K1f on the card), so with the
+        cache in the compute dtype its rows, logits and token are those of
+        the unshared prefill, as long as the projections round alike at
+        ``bucket - offset`` rows as at ``bucket``."""
         if not self.paged or not self.prefix_cache:
             raise ValueError("build_prefill_from needs paged + prefix_cache")
         o = int(offset)

@@ -595,9 +595,7 @@ class ScheduledServer:
             return _SimEngine(self.ex)
         ex = self.ex
         if not initial:
-            self.engine = None
-            ex._prefill_fns.clear()
-            ex._built.clear()
+            self.release()
         while True:
             try:
                 return _RealEngine(ex, self._params, self._op_state,
@@ -628,6 +626,17 @@ class ScheduledServer:
                     rung.get("max_batch", rung.get("kv_blocks")),
                 )
                 _telemetry.current().emit("degraded_mode", **rung)
+
+    def release(self) -> None:
+        """Drop the device engine (its caches, carry tensors and graphs)
+        and the executor's prefill programs: an engine restart before it
+        builds anew, a fleet for a dead replica before a survivor runs.
+        A simulated engine has nothing to drop."""
+        if getattr(self.engine, "simulated", False):
+            return
+        self.engine = None
+        self.ex._prefill_fns.clear()
+        self.ex._built.clear()
 
     # -- policy orderings ---------------------------------------------------
 

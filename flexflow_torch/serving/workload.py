@@ -13,8 +13,9 @@ Arrivals are stamped in virtual milliseconds (``Request.arrival_ms``):
 the scheduler's clock advances by modeled program costs
 (``serving/latency_model.py``), never by wall time.
 
-``production_workload`` (prompt tokens read from the data plane's
-production trace) comes with ROADMAP.md queue 1, item 12.
+``production_workload`` reads its prompt tokens from the data plane's
+production trace (``data/trace.py``) with the same length, tier and
+arrival draws.
 """
 
 from __future__ import annotations
@@ -159,11 +160,43 @@ def make_workload(spec: WorkloadSpec) -> List[Request]:
 
 def production_workload(spec: WorkloadSpec,
                         id_alpha: float = 1.2) -> List[Request]:
-    """The production-trace workload reads its prompt tokens from the data
-    plane's ``ProductionTraceSource``, which the port does not have yet."""
-    raise NotImplementedError(
-        "production_workload needs the data plane's production trace "
-        "(data/trace.py), not ported yet (ROADMAP.md queue 1, item 12)")
+    """The production-trace workload (``--workload-trace prod[...]``):
+    prompt tokens are read from the data plane's
+    :class:`~flexflow_torch.data.trace.ProductionTraceSource` (one id
+    column, power-law skewed: a few hot ids dominate every prompt), while
+    lengths, budgets, tiers and burst-paced arrivals keep
+    :func:`make_workload`'s draws from the same per-request rng block, so
+    the two generators differ only in token content.  ``id_alpha`` is the
+    source's id skew, apart from the length-shaping ``prompt_alpha``."""
+    from flexflow_torch.data.trace import ProductionTraceSource
+
+    hi = spec.prompt_len[1]
+    src = ProductionTraceSource(
+        num_samples=spec.n_requests * hi, dense_dim=1,
+        vocab_sizes=[spec.vocab], alpha=id_alpha, seed=spec.seed,
+        block=max(hi, 64),
+    )
+    out: List[Request] = []
+    t_ms = 0.0
+    span = _shared_span(spec)
+    for i in range(spec.n_requests):
+        rng = np.random.default_rng([spec.seed, i])
+        plen = _bounded_zipf(rng, spec.prompt_alpha, *spec.prompt_len)
+        # Request i owns trace rows [i * hi, i * hi + plen).
+        prompt = src.read(i * hi, i * hi + plen)["sparse_input"][:, 0]
+        prompt = np.ascontiguousarray(prompt, np.int32)
+        rng.integers(0, spec.vocab, size=plen)  # keeps the draws aligned
+        max_new = _bounded_zipf(rng, spec.output_alpha, *spec.max_new)
+        tier = int(rng.integers(0, spec.priorities))
+        if i % spec.burst == 0 and i > 0:
+            t_ms += float(rng.exponential(spec.mean_gap_ms * spec.burst))
+        prompt = _maybe_share(spec, span, rng, prompt)
+        out.append(Request(
+            id=i, prompt=prompt, max_new_tokens=max_new,
+            arrival_ms=round(t_ms, 3), priority=tier,
+            slo_ms=spec.slo_ms * (tier + 1),
+        ))
+    return out
 
 
 def uniform_workload(

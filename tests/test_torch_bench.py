@@ -157,7 +157,7 @@ _SMALL_SERVING = dict(device="cpu", vocab=64, d_model=32, heads=2, layers=2,
                       max_seq=32, max_batch=4, n_req=6, max_new=12,
                       kv_block=8, dtype="float32")
 #: The serving leg's columns: bench.py's (``bench_serving``) that the port
-#: computes; the fleet and sharded columns wait for their slices.
+#: computes; the sharded columns wait for their slice.
 SERVING_KEYS = {
     "max_batch", "max_seq", "requests", "k1_tokens_per_s",
     "k1_decode_ms_per_token", "k8_tokens_per_s", "k8_decode_ms_per_token",
@@ -174,7 +174,11 @@ SERVING_KEYS = {
     "fifo_vs_slo_queue_wait_p99", "slo_missed", "slo_dominant_phase",
     "request_retries", "request_expiries", "engine_restarts", "prefix_hits",
     "prefix_hit_rate", "prefill_tokens_saved", "prefix_kv_cows",
-    "prefix_prefills", "prefix_off_prefills", "prefix_match"}
+    "prefix_prefills", "prefix_off_prefills", "prefix_match",
+    "fleet_replicas", "fleet_router", "fleet_queue_wait_ms_p99",
+    "fleet_slo_attainment", "fleet_vs_single_attainment",
+    "fleet_dead_replicas", "fleet_redistributed",
+    "fleet_loss_slo_attainment"}
 
 
 def _small_candle():
@@ -365,6 +369,12 @@ def test_serving_leg_runs_small_on_cpu():
     assert out["fifo_vs_slo_queue_wait_p99"] == round(
         out["fifo_queue_wait_ms_p99"] / max(out["queue_wait_ms_p99"], 1e-9),
         3)
+    # The fleet's columns: two replicas, one of them lost and its work
+    # redistributed in the second run.
+    assert (out["fleet_replicas"], out["fleet_router"]) == (2, "least-loaded")
+    assert out["fleet_dead_replicas"] == 1 and out["fleet_redistributed"] > 0
+    assert out["fleet_vs_single_attainment"] == round(
+        out["fleet_slo_attainment"] / max(out["slo_attainment"], 1e-9), 3)
 
 
 def test_a_failing_leg_does_not_sink_the_headline(monkeypatch, capsys):

@@ -178,6 +178,23 @@ def test_attention_cached_prefill(t):
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("offset,t", [(4, 12), (8, 8), (12, 4)])
+def test_attention_offset_prefill_matches_jax_attend_chunk(offset, t, causal):
+    """``chunk``: t queries at rows [offset, offset + t) over a cache
+    whose rows [0, offset) hold a prefix.  JAX attends through its jnp
+    ``_attend_chunk``; the port through ``_attend_offset`` (the queries
+    placed in a zero query over the span, on a fresh prefill's route).
+    Outputs and caches agree."""
+    jop, top, jp, tp = _mha(causal)
+    jst, tst = _caches(17, B=1)
+    jst["chunk"], tst["chunk"] = offset, offset
+    jout, tout = _run(jop, top, jp, tp, [_x(18, (1, t, 32))], jst, tst)
+    for key in ("cache_k", "cache_v"):
+        np.testing.assert_allclose(tout[key].numpy(), np.asarray(jout[key]),
+                                   atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
 def test_einsum_attention_reference(causal):
     q, k, v = (_x(s, (2, 2, 12, 16)) for s in (20, 21, 22))
     want = jattn._einsum_attention(*(jnp.asarray(a) for a in (q, k, v)), causal)

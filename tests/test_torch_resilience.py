@@ -61,14 +61,12 @@ def test_force_save_kill_scenario(tmp_path):
 
 def test_matrix_reports_what_is_not_ported(tmp_path):
     rows = chaos.run_matrix(str(tmp_path), ["loader_fault", "host_loss",
-                                             "replica_loss",
                                              "pipeline_superstep_nan",
                                              "force_save_kill"],
                             device="cpu")
     got = {name: (ok, detail) for ok, name, detail in rows}
     assert got["loader_fault"] == (None, "not ported (item 12)")
     assert got["host_loss"] == (None, "not ported (item 13)")
-    assert got["replica_loss"] == (None, "not ported (item 8's rest)")
     assert got["pipeline_superstep_nan"] == (None, "not ported (item 10)")
     assert got["force_save_kill"][0] is True
     with pytest.raises(NotImplementedError, match="item 13"):
@@ -80,10 +78,10 @@ def test_matrix_reports_what_is_not_ported(tmp_path):
 
 def test_chaos_smoke_tool_on_cpu(capsys):
     assert chaos_smoke.main(["--device", "cpu", "sigterm",
-                             "replica_loss"]) == 0
+                             "host_loss"]) == 0
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("PASS") and " sigterm " in out[0]
-    assert out[1].startswith("NOT PORTED") and "(item 8's rest)" in out[1]
+    assert out[1].startswith("NOT PORTED") and "(item 13)" in out[1]
     assert "1/1 ported scenarios passed, 1 not ported" in out[2]
     assert chaos_smoke.main(["--device", "cpu", "no_such"]) == 2
 

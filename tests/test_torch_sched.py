@@ -135,9 +135,49 @@ def test_workload_validation_matches_jax(bad):
     assert msgs[0] == msgs[1]
 
 
-def test_production_workload_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tsv.production_workload(tsv.WorkloadSpec())
+@pytest.mark.parametrize("spec,alpha", [
+    (BURSTY, 1.2), (dict(BURSTY, shared_prefix=4), 1.1),
+    (WORKLOADS[2], 1.5)])
+def test_production_workload_matches_jax(spec, alpha):
+    """Prompt tokens read from the production trace, lengths, budgets,
+    tiers and arrivals from ``make_workload``'s draws: JAX's requests bit
+    for bit."""
+    j, t = _both(lambda p, r: p.production_workload(p.WorkloadSpec(**spec),
+                                                    id_alpha=alpha))
+    _same_requests(j, t)
+    plain = tsv.make_workload(tsv.WorkloadSpec(**spec))
+    assert [r.arrival_ms for r in t] == [r.arrival_ms for r in plain]
+    assert any(not np.array_equal(a.prompt, b.prompt)
+               for a, b in zip(t, plain))
+
+
+def test_production_trace_source_matches_jax():
+    """``ProductionTraceSource`` and ``SyntheticStreamSource`` read JAX's
+    rows, at any chunk boundary."""
+    from flexflow_tpu.data import stream as jstream
+    from flexflow_tpu.data import trace as jtrace
+    from flexflow_torch.data import stream as tstream
+    from flexflow_torch.data import trace as ttrace
+
+    kw = dict(num_samples=300, dense_dim=3, vocab_sizes=[50, 7], alpha=1.3,
+              seed=4, block=64)
+    specs = {"x": ((2,), np.float32), "ids": ((3,), np.int32)}
+    for jsrc, tsrc in (
+            (jtrace.ProductionTraceSource(**kw),
+             ttrace.ProductionTraceSource(**kw)),
+            (jstream.SyntheticStreamSource(specs, 300, seed=2, block=64,
+                                           int_high={"ids": 9}),
+             tstream.SyntheticStreamSource(specs, 300, seed=2, block=64,
+                                           int_high={"ids": 9}))):
+        assert tsrc.specs() == jsrc.specs()
+        for lo, hi in ((0, 64), (50, 200), (250, 400)):
+            a, b = jsrc.read(lo, hi), tsrc.read(lo, hi)
+            assert list(a) == list(b)
+            for k in a:
+                assert a[k].dtype == b[k].dtype
+                assert np.array_equal(a[k], b[k])
+    with pytest.raises(ValueError, match="alpha"):
+        ttrace.ProductionTraceSource(10, 1, [5], alpha=1.0)
 
 
 # -- the simulated scheduler against JAX's -----------------------------------------
@@ -455,16 +495,14 @@ def test_a_device_error_is_not_an_engine_restart(monkeypatch, error):
 
 
 def test_bf16_prefix_tokens_agree_on_one_attention_route():
-    """In bf16 the offset prefill's tail (the einsum of ``_attend_chunk``)
-    and a fresh prefill (K1f's plain version) round differently, so a
-    prefix sharer's greedy token may change (here, at ``bench.py``'s
-    geometry and workload on a narrow LM, two sharers' do).  With every
-    fresh prefill on the same einsum (``chip_smoke._einsum_prefill_arms``,
-    phase 25 (e)'s witness) the prefix cache's tokens equal those without
-    it exactly."""
-    import torch
-
-    import chip_smoke
+    """In bf16, at ``bench.py``'s geometry and workload on a narrow LM,
+    the prefix cache's greedy tokens equal those without it, request for
+    request, on the default route: the offset prefill's tail attends
+    through the dispatcher over the bucket's span
+    (``MultiHeadAttention._attend_offset``), as a fresh prefill of the
+    same bucket does (K1f's plain version here).  When the tail attended
+    through an f32 einsum of its own, two sharers' tokens moved at this
+    geometry."""
     from flexflow_torch import bench
 
     lm = tbuild(batch_size=8, seq_len=128, vocab_size=512, d_model=64,
@@ -483,15 +521,46 @@ def test_bf16_prefix_tokens_agree_on_one_attention_route():
     params, _ = ex(False).init(0)
     reqs = lambda: bench.sched_workload(16, 512, 128, 32, 16)  # noqa: E731
     on = server(True)
-    k1f = {False: server(False).run(reqs())[0], True: on.run(reqs())[0]}
+    got = {False: server(False).run(reqs())[0], True: on.run(reqs())[0]}
     sharers = {e["id"] for e in on.span_events if e["ev"] == "prefix_hit"}
-    moved = {i for i, r in k1f[False].items()
-             if k1f[True][i].tokens != r.tokens}
-    assert sharers and moved <= sharers
-    arms = chip_smoke._einsum_prefill_arms(torch, server, reqs)
-    assert {i: r.tokens for i, r in arms[True].items()} == \
-        {i: r.tokens for i, r in arms[False].items()}
-    assert all(r.error is None for r in arms[True].values())
+    assert len(sharers) >= 8
+    assert {i: r.tokens for i, r in got[True].items()} == \
+        {i: r.tokens for i, r in got[False].items()}
+    assert all(r.error is None for r in got[True].values())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_offset_prefill_tail_equals_a_fresh_prefill(dtype):
+    """The offset prefill of a prompt over its own resident prefix writes
+    the tail's K/V rows of every layer bit for bit as a fresh prefill of
+    the same prompt and bucket does, and picks the same first token, at
+    every block offset, in f32 and bf16."""
+    import torch
+
+    lm = tbuild(batch_size=2, seq_len=128, vocab_size=V, d_model=64,
+                num_heads=4, num_layers=L,
+                config=TConfig(batch_size=2, compute_dtype=dtype))
+    ex = trs.ServingExecutor(lm, max_batch=2, max_seq=128, buckets=(64, 128),
+                             device="cpu", kv_block=16, prefix_cache=True)
+    params, state = ex.init(0)
+    for bucket in (64, 128):
+        n = bucket - 3
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :n] = np.random.default_rng(bucket).integers(0, V, n)
+        rows, tok, _ok = ex.build_prefill(bucket)(params, state, padded,
+                                                  np.int32(n))
+        pool = ex.init_cache()
+        table = np.arange(1, 9, dtype=np.int32)
+        ex.install_paged(pool, rows, table)
+        for o in range(16, n, 16):
+            got, tok_o, ok = ex.build_prefill_from(bucket, o)(
+                params, state, pool, table[:o // 16], padded, np.int32(n))
+            assert bool(ok) and int(tok_o) == int(tok)
+            for name, r in rows.items():
+                for kv in ("k", "v"):
+                    assert got[name][kv].dtype == r[kv].dtype
+                    assert torch.equal(got[name][kv][o:n], r[kv][o:n]), \
+                        (bucket, o, name, kv)
 
 
 # -- the degraded rungs ----------------------------------------------------------
@@ -622,12 +691,10 @@ def test_serve_app_failure_flags_and_crash_loop_exit(capsys, monkeypatch,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--replicas", "2"], "item 8's rest"), (["--router", "affinity"],
-                                             "item 8's rest"),
-    (["--serve-auto"], "item 8's rest"), (["--workload-trace", "prod"],
-                                          "item 12"),
-    (["--workload-trace", "prod:alpha=1.1"], "item 12"),
-    (["--sched", "lifo"], "fifo|slo")])
+    (["--shard", "2,1"], "item 9"), (["--sched", "lifo"], "fifo|slo"),
+    (["--workload-trace", "prod:beta=2"], "unknown args"),
+    (["--router", "round-robin"], "least-loaded|tier-aware|affinity"),
+    (["--replicas", "0"], "N >= 1")])
 def test_serve_app_refuses_what_later_items_bring(argv, item):
     with pytest.raises(SystemExit, match=item):
         tserve.main(_APP + argv, device="cpu")

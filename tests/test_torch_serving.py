@@ -220,9 +220,6 @@ def test_serve_app_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--shard", "2,2"],
-                                  ["--replicas", "2"],
-                                  ["--router", "affinity"], ["--serve-auto"],
-                                  ["--workload-trace", "prod"],
                                   ["--dtype", "float16"]])
 def test_serve_app_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as e:

@@ -13,9 +13,9 @@ ulp of ``max(|g|, 1)`` (``torch.log`` and XLA's ``log`` round apart);
 greedy, paged, prefix-shared, speculative and sampled tokens exactly.
 Inside the port, with both sides on ``decode_kernel=False`` as JAX's
 fixtures: paged decode logits bit for bit equal to padded; shared
-prefix tokens equal to unshared (the offset prefill runs the einsum
-``_attend_chunk`` where the full prefill runs the flash path, so only
-tokens are held, as JAX holds them); speculative tokens equal to plain;
+prefix tokens equal to unshared (only tokens are held here, as JAX
+holds them; ``tests/test_torch_sched.py`` holds the offset prefill's
+tail rows bit for bit); speculative tokens equal to plain;
 sampled tokens that replay across K, batch composition and reruns; and
 the graph form of the decode superstep and of the speculative round
 equal to the eager form bit for bit, updating ``pos`` and ``tok`` in
