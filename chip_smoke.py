@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Twenty-six phases, in order; any failure raises and exits non-zero:
+Twenty-seven phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -335,11 +335,38 @@ Twenty-six phases, in order; any failure raises and exits non-zero:
     --replicas 2``: the chosen config runs the predicted dispatches; (d)
     wall ms a fleet run, first-call ms and bytes per replica per k, the
     bench's fleet columns.
+27. **The mesh** (``mesh``, ``MESH``: phase 5's command line through
+    ``apps.transformer.main`` on ``parallel/``'s worlds,
+    ``flexflow_torch/tools/mesh_smoke.py::chip_app`` the rank body).  (a)
+    The app in this process (the plain ``Executor``), then on a world of
+    1 (``-ll:gpu 1``): its 1 + 5 steps' losses and every parameter after
+    them bit for bit the plain run's.  (b) The app with ``-ll:gpu 2``
+    inside a world of 2 under ``--dp 2``, ``--tp 2``, ``--dp 2
+    --zero-opt`` (one rank per card over NCCL with two or more cards; on
+    one card both ranks share it over gloo, passed explicitly), 1 + 5
+    steps each: the losses within ``TOL_MESH_LOSS`` of (a)'s, the trained
+    parameters within ``TOL_MESH_DIST`` of (a)'s over the size of their
+    change, equal bit for bit on every rank, exact launch counts on each
+    rank (K1f = K1b = 6 x steps, K3 forward = backward = steps), the
+    shapes each rank ran them at (dp 2: attention (8, 8, 2048, 64), K3
+    (16384, 32768); tp 2: (16, 8, 2048, 64), (32768, 32768)), K1f, K1b
+    and K3 held on each rank at those shapes against their plain versions
+    (phase 2's rules), one report counting the global batch, ZeRO's
+    lm_head moments split, the app's ms a step per rank and the share of
+    one more step in collectives (each synchronised alone), labelled with
+    the backend.  A planted fault, dp 2 without the gradient all-reduce,
+    must fail a bar.  With four or more cards also dp 2 x tp 2 on a world
+    of 4 over NCCL; with two or more, ``-ll:gpu 2 --dp 2`` from this
+    process, the app spawning its own world.  K1f, K1b and K3 timed at dp
+    2's local shapes.  (c) The small CNN of
+    ``tests/test_sharding_equivalence.py`` in f32 under DP 4, TP, spatial
+    and hybrid tables on 4 ranks of CUDA tensors against one rank, at the
+    CPU tests' tolerance.
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
 DLRM, long-context, race, AlexNet, superstep, serve-features,
 serve-resilience, NMT, CNN, Candle, MoE, item-7, scheduled and fleet runs
-together, split
+together, and phase 27's ranks, split
 in ``launches_by_path``; the superstep, serve-features,
 serve-resilience and item-7 paths count what their graph runs launched
 eagerly or captured; K3's entries name the
@@ -5954,6 +5981,333 @@ def phase_fleet(torch, kernels, device="cuda"):
     return launches
 
 
+#: Phase 27: the configurations of (b), each a world of 2 on phase 5's
+#: command line; ``fault`` drops the gradient all-reduce (a rank trains
+#: on its half of the batch), a planted fault the bars must catch.  The
+#: bars against the world of 1: the losses, relative, for bf16 gradients
+#: summed as two half-batch partial sums (each rounded to bf16 before the
+#: all-reduce) where one rank rounds the whole batch's once; the trained
+#: parameters' distance from the world of 1's over the size of its change
+#: (both L2 over every parameter).  Every rank's parameters must also be
+#: equal bit for bit.  On one H100 over gloo, sound runs read loss gaps
+#: of 1.97e-5 to 2.24e-5 and distances of 0.0092 to 0.0164, the fault
+#: 6.24e-5 and 0.0934: the loss bar alone does not catch it, the
+#: distance bar and the ranks' disagreement do (PERF.md, the mesh).
+MESH = dict(configs=[dict(name="dp2", dp=2, tp=1),
+                     dict(name="tp2", dp=1, tp=2),
+                     dict(name="zero", dp=2, tp=1, zero=True),
+                     dict(name="fault", dp=2, tp=1, fault=True)],
+            cnn_tables={"dp": {},
+                        "tp": {"fc1": dict(n=2, c=2), "fc2": dict(n=2, c=2)},
+                        "spatial": {"conv1": dict(h=2, w=2),
+                                    "pool1": dict(n=2, h=2)},
+                        "hybrid": {"conv1": dict(n=2, c=2), "fc1": dict(c=4),
+                                   "fc2": dict(n=4)}})
+TOL_MESH_LOSS = 1e-4
+TOL_MESH_DIST = 0.04
+#: (c)'s bar, the CPU tests' (tests/test_torch_sharding.py).
+TOL_MESH_CNN = (2e-4, 1e-5)
+
+
+def mesh_attention_hold(torch, kernels, shape) -> dict:
+    """K1f and K1b (bf16, causal) at ``shape`` against their plain
+    versions by phase 2's element rules; raises on a miss.  Returns the
+    worst elements' shares of their tolerances."""
+    g = torch.Generator(device="cuda").manual_seed(27)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    g_lse = torch.randn(shape[:3], generator=g, device="cuda")
+    o, lse = kernels.flash_attention_lse(q, k, v, True)
+    po, plse = kernels.flash_attention_lse_plain(q, k, v, True)
+    fwd = _flash_fwd_close(kernels, q, k, v, True, o, po)
+    got = kernels.flash_attention_lse_bwd(q, k, v, po, plse, do, g_lse, True)
+    want = kernels.flash_attention_lse_bwd_plain(q, k, v, po, plse, do,
+                                                 g_lse, True)
+    rtol, arel, atop = TOL_ELEM["stream_bwd"]["bfloat16"]
+    mass = _flash_bwd_mass(q, k, v, po, plse, do, g_lse, True)
+    tops = _flash_bwd_top(q, k, v, po, plse, do, g_lse, True)
+    bwd = max(_close(a, w, m, rtol, arel, tp, atop)
+              for a, w, m, tp in zip(got, want, mass, tops))
+    lse_err = (lse - plse).abs().max().item()
+    _check(fwd <= 1.0 and bwd <= 1.0 and lse_err <= TOL_LSE,
+           f"mesh: K1f/K1b at {shape}: forward {fwd}, backward {bwd} of the "
+           f"element tolerance, lse err {lse_err}")
+    return dict(k1f=fwd, k1b=bwd, lse=lse_err)
+
+
+def mesh_xent_hold(torch, kernels, n: int, v: int) -> dict:
+    """K3 forward and backward (bf16, the chooser's form) at ``(n, v)``
+    against the plain versions by phase 2's rules; raises on a miss."""
+    g = torch.Generator(device="cuda").manual_seed(28)
+    x, labels, _ = _xent_inputs(torch, g, n, v, "bfloat16")
+    gn = torch.full((n,), 1.0 / n, device="cuda")
+    gl = torch.randn((n,), generator=g, device="cuda")
+    errs, _ = _xent_hold(torch, kernels, x, labels, gn, gl)
+    _xent_held(errs, f"mesh: softmax_xent ({n}, {v})")
+    return {k: errs[k] for k in ("nll", "lse", "dlogits", "pred")}
+
+
+def _mesh_times(torch, kernels, F, attn, n: int, v: int) -> dict:
+    """K1f, K1b and K3 (forward and backward) timed at a rank's local
+    shapes beside their plain versions, one library call and the bound."""
+    g = torch.Generator(device="cuda").manual_seed(29)
+    q, k, vv, do = (torch.randn(attn, generator=g, device="cuda")
+                    .to(torch.bfloat16) for _ in range(4))
+    g_lse = torch.randn(attn[:3], generator=g, device="cuda")
+    o, lse = kernels.flash_attention_lse(q, k, vv, True)
+    b, h, t, hd = attn
+    pairs = t * (t + 1) // 2
+    rows = {}
+    rows["flash_attention_lse"] = dict(
+        ms=_device_ms(lambda: kernels.flash_attention_lse(q, k, vv, True)),
+        plain_ms=_device_ms(lambda: kernels.flash_attention_lse_plain(
+            q, k, vv, True)),
+        library_ms=_device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, vv, is_causal=True)))
+    rows["flash_attention_lse"].update(zip(("bound_ms", "bound_by"), _bound_ms(
+        4 * b * h * t * hd * 2 + b * h * t * 4, 4 * b * h * hd * pairs,
+        "bfloat16")))
+    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, vv))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    rows["flash_attention_lse_bwd"] = dict(
+        ms=_device_ms(lambda: kernels.flash_attention_lse_bwd(
+            q, k, vv, o, lse, do, g_lse, True)),
+        plain_ms=_device_ms(lambda: kernels.flash_attention_lse_bwd_plain(
+            q, k, vv, o, lse, do, g_lse, True)),
+        library_ms=_device_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True)))
+    rows["flash_attention_lse_bwd"].update(zip(
+        ("bound_ms", "bound_by"), _bound_ms(
+            8 * b * h * t * hd * 2 + 2 * b * h * t * 4,
+            10 * b * h * hd * pairs, "bfloat16")))
+    del q, k, vv, do, o, qs, ks, vs, out
+    x = (3.0 * torch.randn((n, v), generator=g, device="cuda")).to(
+        torch.bfloat16)
+    labels = torch.randint(0, v, (n,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    gn = torch.full((n,), 1.0 / n, device="cuda")
+    gl = torch.randn((n,), generator=g, device="cuda")
+    _, xlse, _ = kernels.softmax_xent(x, labels)
+    lab64 = labels.long()
+    rows["softmax_xent"] = dict(
+        ms=_device_ms(lambda: kernels.softmax_xent(x, labels)),
+        plain_ms=_device_ms(lambda: kernels.softmax_xent_plain(x, labels)),
+        library_ms=_device_ms(lambda: F.cross_entropy(x, lab64,
+                                                      reduction="none")))
+    rows["softmax_xent"].update(zip(("bound_ms", "bound_by"), _bound_ms(
+        n * v * 2 + 16 * n, 4 * n * v, "float32")))
+    xr = x.detach().clone().requires_grad_(True)
+    ce = F.cross_entropy(xr, lab64, reduction="none")
+    rows["softmax_xent_bwd"] = dict(
+        ms=_device_ms(lambda: kernels.softmax_xent_bwd(x, labels, xlse, gn,
+                                                       gl)),
+        plain_ms=_device_ms(lambda: kernels.softmax_xent_bwd_plain(
+            x, labels, xlse, gn, gl)),
+        library_ms=_device_ms(lambda: torch.autograd.grad(
+            ce, xr, gn.to(ce.dtype), retain_graph=True)))
+    rows["softmax_xent_bwd"].update(zip(("bound_ms", "bound_by"), _bound_ms(
+        2 * n * v * 2 + 16 * n, 4 * n * v, "float32")))
+    for name, r in rows.items():
+        print(f"[mesh] {name} at the dp 2 rank's shape "
+              f"{attn if 'flash' in name else (n, v)} bf16: {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
+              f"bound {r['bound_ms']:.5f} by {r['bound_by']})")
+    return rows
+
+
+def _mesh_lm_world(configs, nprocs: int, cards: int, one, ref_path) -> dict:
+    """Phase 27 (b): phase 5's command line through ``apps.transformer``
+    under each of ``configs`` on a world of ``nprocs`` ranks (NCCL, a card
+    each, when there are as many cards; else gloo on shared cards), held
+    rank by rank against the world of 1 ``one``; returns ``{path:
+    launches summed over the ranks}``.  A ``fault`` configuration must
+    fail the bars."""
+    from flexflow_torch.parallel import launch
+
+    backend = "nccl" if cards >= nprocs else "gloo"
+    ranks = launch.run("flexflow_torch.tools.mesh_smoke:chip_app",
+                       (configs, _train_argv(TRAIN), ref_path),
+                       nprocs=nprocs, device="cuda",
+                       backend=None if backend == "nccl" else "gloo",
+                       timeout_s=900)
+    L, steps = TRAIN["layers"], TRAIN["warmup"] + TRAIN["iters"]
+    want_counts = dict(flash_attention_lse=L * steps,
+                       flash_attention_lse_bwd=L * steps,
+                       softmax_xent=steps, softmax_xent_bwd=steps)
+    b, t, h = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"]
+    hd, v = TRAIN["d_model"] // h, TRAIN["vocab"]
+    launches = {}
+    for i, c in enumerate(configs):
+        bl = b // c["dp"]
+        want_shapes = {"flash_attention_lse_auto": [(bl, h, t, hd)],
+                       "softmax_xent": [(bl * t, v)]}
+        what = f"mesh (b) {c['name']} on {nprocs} ranks"
+        res = [r[i] for r in ranks]
+        gaps = [max(abs(a - w) / abs(w) for a, w in zip(got["losses"],
+                                                         one["losses"]))
+                for got in res]
+        agree = all(got["digest"] == res[0]["digest"] for got in res)
+        dist_ = max(got["distance"] for got in res)
+        caught = [name for name, on in (
+            ("loss", max(gaps) > TOL_MESH_LOSS),
+            ("distance", dist_ > TOL_MESH_DIST),
+            ("ranks disagree", not agree)) if on]
+        print(f"[mesh] (b) {c['name']} ({backend}): loss gap to the world of "
+              f"1 {max(gaps):.3g} (bar {TOL_MESH_LOSS}), parameter distance "
+              f"{dist_:.3g} of the change (bar {TOL_MESH_DIST}), ranks' "
+              f"parameters {'equal' if agree else 'differ'}")
+        if c.get("fault"):
+            _check("distance" in caught and "ranks disagree" in caught,
+                   f"{what}: the planted fault (no gradient all-reduce) is "
+                   f"caught by {caught} only")
+            print(f"[mesh] (b) {c['name']}: the planted fault is caught by "
+                  f"{', '.join(caught)}")
+            continue
+        _check(not caught, f"{what}: {', '.join(caught)} (losses "
+               f"{[got['losses'] for got in res]} vs {one['losses']})")
+        path = launches.setdefault(f"mesh_{c['name']}", {})
+        for r, got in enumerate(res):
+            what = f"mesh (b) {c['name']} rank {r} of {nprocs}"
+            _check(got["code"] == 0 and got["backend"] == backend
+                   and not got["jax_imported"],
+                   f"{what}: exit {got['code']}, backend {got['backend']}, "
+                   f"jax imported {got['jax_imported']}")
+            _check(got["counts"] == want_counts,
+                   f"{what}: launch counts {got['counts']}, expected "
+                   f"{want_counts}")
+            _check(got["shapes"] == want_shapes,
+                   f"{what}: kernel shapes {got['shapes']}, expected "
+                   f"{want_shapes}")
+            _check(got["losses"][-1] < got["losses"][0]
+                   and got["report"].count("THROUGHPUT = ") == 1
+                   and got["report"].count("tokens/s = ") == 1
+                   and abs(got["samples"] - b * TRAIN["iters"]) < 1e-6 * b,
+                   f"{what}: losses {got['losses']}, {got['samples']} "
+                   f"samples counted, report {got['report']!r}")
+            if c.get("zero"):
+                _check(got["lm_head_moments"]["kernel"] == (v // 2,
+                                                            TRAIN["d_model"]),
+                       f"{what}: lm_head moments {got['lm_head_moments']}")
+            share = got["comm_ms"] / got["one_step_ms"]
+            print(f"[mesh] (b) {c['name']} rank {r} of {nprocs} ({backend}, "
+                  f"cuda:{got['device']}): losses "
+                  f"{[round(x, 5) for x in got['losses']]}, "
+                  f"{got['ms_step']:.3f} ms/step (the app's), collectives "
+                  f"{got['comm_ms']:.3f} of {got['one_step_ms']:.3f} ms in a "
+                  f"step with each one synchronised alone "
+                  f"({100 * share:.1f}%); holds "
+                  + "; ".join(f"{k}: " + ", ".join(
+                      f"{n} {x:.3g}" for n, x in e.items())
+                      for k, e in got["holds"].items()))
+            for k, n in got["counts"].items():
+                path[k] = path.get(k, 0) + n
+        print(f"[mesh] (b) {c['name']}: launches per rank {want_counts}")
+    return launches
+
+
+def phase_mesh(torch, kernels, F):
+    """Phase 27 (module docstring).  Returns ``(rows, launches)``: the
+    kernels' rows at dp 2's local shapes and ``{path: counts}`` summed
+    over each world's ranks."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from flexflow_torch.apps import transformer
+    from flexflow_torch.parallel import launch
+    from flexflow_torch.tools import mesh_smoke as ms
+
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    tmp = tempfile.mkdtemp(prefix="ff_mesh_")
+    ref_path = os.path.join(tmp, "ref.pt")
+    try:
+        # (a) the app in this process (the plain Executor), its parameters
+        # the reference of every world; then the app on a world of 1.
+        plain = {}
+        _check(transformer.main(_train_argv(TRAIN), device="cuda",
+                                stats_out=plain) == 0, "mesh (a): the app")
+        ex = plain.pop("executor")
+        full = {"trained": plain.pop("final")[0], "init": ex.init()[0]}
+        torch.save({n: {op: {k: v.detach().float().cpu()
+                             for k, v in g.items()} for op, g in tr.items()}
+                    for n, tr in full.items()}, ref_path)
+        want = ms.digest(full["trained"])
+        del ex, full
+        torch.cuda.empty_cache()
+        one = launch.run("flexflow_torch.tools.mesh_smoke:chip_app",
+                         ([dict(name="one", dp=1, tp=1)], _train_argv(TRAIN),
+                          ref_path), nprocs=1, device="cuda",
+                         timeout_s=600)[0][0]
+        diff = sorted(k for k in want if want[k] != one["digest"].get(k))
+        _check(one["code"] == 0 and one["losses"] == plain["step_losses"]
+               and not diff and one["distance"] == 0.0,
+               f"mesh (a): the app on a world of 1 differs from the plain "
+               f"Executor: losses {one['losses']} vs {plain['step_losses']},"
+               f" parameters {diff[:5]}")
+        print(f"[mesh] (a) apps.transformer on a world of 1 ({one['backend']}"
+              f"): {len(one['losses'])} steps' losses "
+              f"{[round(x, 5) for x in one['losses']]} and all {len(want)} "
+              f"parameters bit for bit the plain Executor's")
+        # (b) worlds of 2; with four cards also dp 2 x tp 2 on a world of
+        # 4; with two, the app's own world (-ll:gpu 2 from this process).
+        launches = _mesh_lm_world(MESH["configs"], 2, cards, one, ref_path)
+        if cards >= 4:
+            launches.update(_mesh_lm_world([dict(name="dp2tp2", dp=2, tp=2)],
+                                           4, cards, one, ref_path))
+        if cards >= 2:
+            st = {}
+            rc = transformer.main(_train_argv(TRAIN) + [
+                "-ll:gpu", "2", "--dp", "2"], device="cuda", stats_out=st)
+            gap = max(abs(a - w) / abs(w) for a, w in zip(st["step_losses"],
+                                                           one["losses"]))
+            _check(rc == 0 and gap <= TOL_MESH_LOSS,
+                   f"mesh (b): apps.transformer -ll:gpu 2 --dp 2 exit {rc}, "
+                   f"losses {st['step_losses']} vs {one['losses']}")
+            print(f"[mesh] (b) apps.transformer -ll:gpu 2 --dp 2 spawning its"
+                  f" own NCCL world: losses "
+                  f"{[round(x, 5) for x in st['step_losses']]}, gap "
+                  f"{gap:.3g}, {st['samples_per_s'] * TRAIN['seq']:.0f} "
+                  f"tokens/s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    b, t, h = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"]
+    hd, v = TRAIN["d_model"] // h, TRAIN["vocab"]
+    rows = _mesh_times(torch, kernels, F, (b // 2, h, t, hd), b // 2 * t, v)
+    # (c) the small CNN's tables in f32 on 4 ranks of CUDA tensors.
+    rng = np.random.default_rng(42)
+    batches = [{"x": rng.standard_normal((8, 8, 8, 4)).astype(np.float32),
+                "lbl": rng.integers(0, 4, size=(8,)).astype(np.int32)}
+               for _ in range(3)]
+    p0 = ms._numpy(ms.executor_for({"model": "small_cnn",
+                                    "device": "cuda"})[1].init()[0])
+    cases = [dict(model="small_cnn", table=tb, batches=batches, params=p0,
+                  device="cuda") for tb in MESH["cnn_tables"].values()]
+    want = ms.train_case(dict(cases[0], table={}))
+    got = launch.run("flexflow_torch.tools.mesh_smoke:run_cases", (cases,),
+                     nprocs=4, device="cuda",
+                     backend=None if cards >= 4 else "gloo", timeout_s=600)
+    rtol, atol = TOL_MESH_CNN
+    for name, res in zip(MESH["cnn_tables"], got[0]):
+        np.testing.assert_allclose(res["losses"], want["losses"], rtol=rtol,
+                                   atol=atol, err_msg=f"mesh (c) {name}")
+        err = 0.0
+        for op, gr in want["params"].items():
+            for k, w in gr.items():
+                np.testing.assert_allclose(res["params"][op][k], w,
+                                           rtol=rtol, atol=atol,
+                                           err_msg=f"mesh (c) {name} {op}.{k}")
+                err = max(err, float(np.abs(res["params"][op][k] - w).max()))
+        print(f"[mesh] (c) small CNN f32, {name} table on 4 ranks "
+              f"({'nccl' if cards >= 4 else 'gloo'}): losses "
+              f"{[round(x, 6) for x in res['losses']]}, worst parameter "
+              f"difference from one rank {err:.3g} (bar rtol {rtol}, atol "
+              f"{atol})")
+    return rows, launches
+
+
 def _card() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
@@ -6036,13 +6390,15 @@ def main() -> int:
     t.append(time.perf_counter())
     fleet_launches = phase_fleet(torch, kernels)
     t.append(time.perf_counter())
+    mesh_rows, mesh_launches = phase_mesh(torch, kernels, F)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
              "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
              "longctx-parity", "probe-kernels", "alexnet-kernels",
              "alexnet-train", "alexnet-parity", "superstep", "serve-features",
              "serve-resilience", "nmt", "item5", "item7", "serve-sched",
-             "fleet")
+             "fleet", "mesh")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -6089,10 +6445,14 @@ def main() -> int:
                    **{f"sched_{run}": counts.get(name, 0)
                       for run, counts in sched_launches.items()},
                    **{f"fleet_{run}": counts.get(name, 0)
-                      for run, counts in fleet_launches.items()}}
+                      for run, counts in fleet_launches.items()},
+                   **{path: counts.get(name, 0)
+                      for path, counts in mesh_launches.items()}}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])
+        if name in mesh_rows:
+            entry["mesh_dp2_shape"] = mesh_rows[name]
         if name == "flash_attention_lse":
             entry["train_shape"] = rows["flash_attention_lse@train"]
             entry["longctx_shape"] = rows["flash_attention_lse@8k"]

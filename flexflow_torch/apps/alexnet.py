@@ -18,8 +18,9 @@ Flags beyond the common set: ``--image-size N`` (default 229, the
 reference's); the common ``--steps-per-call``, ``--accum-steps`` and
 ``--remat`` apply.  Refused until their slices land (ROADMAP.md queue 1):
 image folders (``-d``, item 12), the strategy searches (``-s auto``,
-``--search``, item 11) and strategy files that place an op on more than
-the one GPU (item 9).
+``--search``, item 11) and strategy files that place an op on a subset of
+the devices (item 10).  ``-ll:gpu N`` trains on N ranks, data-parallel
+unless ``-s FILE.json`` gives other degrees.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from flexflow_torch.apps.common import (
     parse_training_args,
     pop_int,
     run_training,
+    spawn_ranks,
 )
 from flexflow_torch.models.alexnet import build_alexnet
 from flexflow_torch.ops.conv import time_conv_plans
@@ -43,8 +45,13 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     receives the run's stats."""
     argv = sys.argv[1:] if argv is None else list(argv)
     check_help(argv, __doc__)
+    full_argv = list(argv)
     image_size = pop_int(argv, "--image-size", 229)
     cfg = parse_training_args(argv)
+    code = spawn_ranks(cfg, "flexflow_torch.apps.alexnet:main", full_argv,
+                       device, stats_out)
+    if code is not None:
+        return code
     ff = build_alexnet(batch_size=cfg.batch_size, image_size=image_size,
                        config=cfg)
     time_conv_plans(device)

@@ -14,8 +14,8 @@ feature tower's).  ``--steps-per-call``, ``--accum-steps``, ``--remat``,
 the checkpoint flags, ``--resilient``, ``--telemetry``, ``--trace`` and
 ``--profiling`` work as on the other apps.  Refused until their slices
 land (ROADMAP.md queue 1): ``-d`` (one CSV per input, ``data/csv.py``,
-item 12), ``--granules`` and strategies over more than one GPU (item 9),
-``-s auto`` and ``--search`` (item 11), ``--elastic`` (item 13).
+item 12), ``candle_uno_strategy``'s table over more than one rank (item
+9d; ``-ll:gpu N`` trains data-parallel), ``-s auto`` and ``--search`` (item 11), ``--elastic`` (item 13).
 
 Example (``bench.py``'s Candle-Uno leg)::
 
@@ -33,6 +33,7 @@ from flexflow_torch.apps.common import (
     parse_training_args,
     pop_str,
     run_training,
+    spawn_ranks,
 )
 from flexflow_torch.models.candle_uno import CandleConfig, build_candle_uno
 
@@ -42,6 +43,7 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     CPU (tests); ``stats_out``, when given, receives the run's stats."""
     argv = sys.argv[1:] if argv is None else list(argv)
     check_help(argv, __doc__)
+    full_argv = list(argv)
     try:
         candle = CandleConfig.parse_args(argv)
     except ValueError as e:
@@ -49,6 +51,10 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     for flag in ("--dense-layers", "--dense-feature-layers"):
         pop_str(argv, flag, None)
     cfg = parse_training_args(argv)
+    code = spawn_ranks(cfg, "flexflow_torch.apps.candle_uno:main", full_argv,
+                       device, stats_out)
+    if code is not None:
+        return code
     ff = build_candle_uno(batch_size=cfg.batch_size, candle=candle,
                           config=cfg)
     stats = run_training(ff, cfg, device=device)

@@ -20,8 +20,9 @@ Example::
 The common ``--steps-per-call``, ``--accum-steps`` and ``--remat`` apply.
 Refused until their slices land (ROADMAP.md queue 1): image folders
 (``-d``, item 12), the strategy searches (``-s auto``, ``--search``,
-item 11) and strategy files that place an op on more than the one GPU
-(item 9).
+item 11) and strategy files that place an op on a subset of the devices
+(item 10).  ``-ll:gpu N`` trains on N ranks, data-parallel unless ``-s
+FILE.json`` gives other degrees.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from flexflow_torch.apps.common import (
     parse_training_args,
     pop_str,
     run_training,
+    spawn_ranks,
 )
 from flexflow_torch.models.alexnet import build_alexnet
 from flexflow_torch.models.cnn_catalog import (
@@ -60,10 +62,15 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     receives the run's stats."""
     argv = sys.argv[1:] if argv is None else list(argv)
     check_help(argv, __doc__)
+    full_argv = list(argv)
     model = pop_str(argv, "--model", "alexnet")
     if model not in MODELS:
         raise SystemExit(f"unknown --model {model!r}; one of {sorted(MODELS)}")
     cfg = parse_training_args(argv)
+    code = spawn_ranks(cfg, "flexflow_torch.apps.cnn:main", full_argv,
+                       device, stats_out)
+    if code is not None:
+        return code
     build, image_size = MODELS[model]
     ff = build(batch_size=cfg.batch_size, image_size=image_size, config=cfg)
     time_conv_plans(device)

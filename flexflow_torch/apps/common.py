@@ -1,6 +1,6 @@
 """Shared app harness: the flag helpers, ``make_optimizer``,
-``load_strategy``, ``make_batch_fn`` and the single-device
-``run_training`` (with ``--eval-iters``, ``--steps-per-call``,
+``load_strategy``, ``make_batch_fn``, the world of ``-ll:gpu N``
+(``world_ranks``, ``spawn_ranks``) and ``run_training`` (with ``--eval-iters``, ``--steps-per-call``,
 ``--accum-steps``, ``--remat``, checkpoints, ``--resilient``, run
 telemetry, ``--trace`` and ``--profiling``) of
 ``flexflow_tpu/apps/common.py``."""
@@ -23,8 +23,12 @@ Training apps also read:
   -b/--batch-size N   -i/--iterations N   -e/--epochs N   -p/--print-freq N
   --lr F   --wd F   --optimizer sgd|adam   --momentum F   --clip-norm F
   --lr-schedule constant|cosine|step   --warmup N   --decay-steps N
-  --min-lr F   --lr-gamma F (adam only)   -ll:gpu 1   --eval-iters N
-  -s/--strategy FILE.json (every op on the one GPU)
+  --min-lr F   --lr-gamma F (adam only)   --eval-iters N
+  -ll:gpu N (N ranks, one per card, over NCCL; default one rank;
+             more than are visible is refused)
+  -s/--strategy FILE.json (per-op degrees over the full mesh)
+  --zero-opt (ZeRO-1: optimizer state split over the data-parallel axes)
+  --granules N (the mesh's outer axes over N islands)
   --steps-per-call K (K steps as one CUDA graph, one readback per K;
                       clamped at 20)
   --accum-steps N (one update from N microbatches of the batch)
@@ -36,6 +40,8 @@ Training apps also read:
   --telemetry DIR (JSONL run telemetry, heartbeat, stall watchdog)
   --stall-deadline S   --stall-notify-pid PID
   --trace DIR (torch.profiler trace of the timed loop)   --profiling
+  (--steps-per-call, --accum-steps, --remat, checkpoints, --resilient,
+   --telemetry, --trace and --profiling run on one rank only so far)
 Every other flag of the JAX package's apps is refused until its slice
 of the port lands (ROADMAP.md queue 1)."""
 
@@ -48,10 +54,11 @@ TRAINING_FLAGS = (
     "-ll:gpu", "-ll:tpu", "--eval-iters", "-s", "--strategy",
     "--steps-per-call", "--accum-steps", "--save-every", "--ckpt-dir",
     "--max-restarts", "--telemetry", "--stall-deadline",
-    "--stall-notify-pid", "--trace",
+    "--stall-notify-pid", "--trace", "--granules",
 )
 #: The FFConfig flags a training app reads that take no value.
-TRAINING_SWITCHES = ("--remat", "--resilient", "--sync-ckpt", "--profiling")
+TRAINING_SWITCHES = ("--remat", "--resilient", "--sync-ckpt", "--profiling",
+                     "--zero-opt")
 
 #: Flags of the JAX package's apps that name a feature still to be
 #: ported, with the ROADMAP.md item that brings it.
@@ -66,7 +73,6 @@ _NOT_PORTED = {
     "--elastic": "elastic multi-host resize (ROADMAP.md queue 1, item 13)",
     "--stream-dataset": "the streaming loader (ROADMAP.md queue 1, "
                         "item 12)",
-    "--granules": "multi-host hybrid meshes (ROADMAP.md queue 1, item 9)",
 }
 
 _DTYPES = ("float32", "bfloat16")
@@ -112,8 +118,7 @@ def parse_training_args(argv) -> FFConfig:
     """The FFConfig of a training app.  Every flag outside
     ``TRAINING_FLAGS`` and ``TRAINING_SWITCHES`` is refused (the JAX
     parser passes unknown flags through; here they would name features
-    the port lacks), and so are more than one device and a dtype other
-    than f32 or bf16."""
+    the port lacks), and so is a dtype other than f32 or bf16."""
     i = 0
     while i < len(argv):
         flag = argv[i]
@@ -125,16 +130,12 @@ def parse_training_args(argv) -> FFConfig:
                              f"{_NOT_PORTED[flag]} is not ported")
         raise SystemExit(
             f"flexflow_torch does not support {flag!r} yet: the port "
-            f"trains on one GPU on a synthetic batch; the other training "
+            f"trains on a synthetic batch; the other training "
             f"features are queued in ROADMAP.md queue 1")
     try:
         cfg = FFConfig.parse_args(argv)
     except ValueError as e:
         raise SystemExit(str(e))
-    if cfg.num_devices > 1:
-        raise SystemExit(f"-ll:gpu {cfg.num_devices}: this slice of the port "
-                         f"trains on one GPU (multi-device strategies are "
-                         f"ROADMAP.md queue 1, item 9)")
     if cfg.compute_dtype not in _DTYPES:
         raise SystemExit(f"--dtype expects one of {_DTYPES}, got "
                          f"{cfg.compute_dtype!r}")
@@ -143,6 +144,91 @@ def parse_training_args(argv) -> FFConfig:
                          f"({cfg.batch_size}) must split into that many "
                          f"equal microbatches")
     return cfg
+
+
+def world_ranks(cfg: FFConfig, device="cuda",
+                refuse: Optional[str] = None) -> int:
+    """The ranks of ``-ll:gpu N``: one unless ``N > 1`` is passed.  (The
+    JAX package's default spans every visible device; here a run without
+    ``-ll:gpu`` stays one process, so an app on a multi-card host does not
+    start a world whose replicated ops each run the whole batch.)  On CUDA
+    ``N`` above the visible cards raises: two ranks never share a card.
+    Inside a world, the world's size.  Under more than one rank, the
+    training features this slice does not make rank-aware are refused by
+    name (ROADMAP.md item 9d), and so is the whole app when ``refuse``
+    names its item."""
+    import torch
+
+    from flexflow_torch.parallel import launch
+
+    if launch.in_world():
+        n = launch.world_size()
+    else:
+        n = max(cfg.num_devices, 1)
+        cards = torch.cuda.device_count()
+        if n > 1 and torch.device(device).type == "cuda" and n > cards:
+            raise SystemExit(f"-ll:gpu {n}: {cards} CUDA devices are "
+                             f"visible; the port runs one rank per card and "
+                             f"never shares one")
+    if n == 1:
+        return n
+    if refuse:
+        raise SystemExit(f"-ll:gpu {n}: {refuse}")
+    wide = [flag for flag, on in (
+        ("--steps-per-call", cfg.steps_per_call > 1),
+        ("--accum-steps", cfg.accum_steps > 1),
+        ("--remat", cfg.remat),
+        ("--resilient", cfg.resilient),
+        ("--save-every/--ckpt-dir", cfg.save_every > 0 or bool(cfg.ckpt_dir)),
+        ("--telemetry", bool(cfg.telemetry_dir
+                             or os.environ.get("FF_TELEMETRY_DIR"))),
+        ("--trace", bool(cfg.trace_dir)),
+        ("--profiling", cfg.profiling)) if on]
+    if wide:
+        raise SystemExit(f"-ll:gpu {n}: {', '.join(wide)} under more than "
+                         f"one rank is ROADMAP.md queue 1, item 9d")
+    return n
+
+
+def spawn_ranks(cfg: FFConfig, target: str, argv, device="cuda",
+                stats_out: Optional[dict] = None) -> Optional[int]:
+    """Under ``-ll:gpu N > 1`` outside a world, run the app ``target``
+    (``"module:main"``) with ``argv`` on each rank of a new world
+    (``parallel/launch.py``: NCCL a card a rank on CUDA, gloo on the CPU);
+    returns the first non-zero exit code of the ranks, else 0, and puts
+    rank 0's stats into ``stats_out``.  Returns None when this process is
+    to run the app itself (one rank, or a rank of the world)."""
+    import torch
+
+    from flexflow_torch.parallel import launch
+
+    n = world_ranks(cfg, device)
+    if n == 1 or launch.in_world():
+        return None
+    kind = torch.device(device).type
+    try:
+        ranks = launch.run("flexflow_torch.apps.common:rank_app",
+                           (target, list(argv), kind), nprocs=n, device=kind)
+    except Exception as e:  # a rank's failure, with its traceback above
+        raise SystemExit(f"-ll:gpu {n}: {type(e).__name__}: {e}")
+    if stats_out is not None:
+        stats_out.update(ranks[0][1])
+    return next((code for code, _ in ranks if code), 0)
+
+
+def rank_app(target: str, argv, device: str):
+    """A rank's body under :func:`spawn_ranks`: the app ``target`` on this
+    rank.  Returns its exit code and its stats, less the trained tensors
+    and the executor (``"final"``, ``"executor"``: the rank's shards stay
+    in the rank)."""
+    import importlib
+
+    mod, _, fn = target.partition(":")
+    stats: Dict[str, Any] = {}
+    code = getattr(importlib.import_module(mod), fn)(
+        argv, device=device, stats_out=stats)
+    return code, {k: v for k, v in stats.items()
+                  if k not in ("final", "executor")}
 
 
 def make_optimizer(cfg: FFConfig):
@@ -172,12 +258,12 @@ def make_optimizer(cfg: FFConfig):
 
 
 def load_strategy(cfg: FFConfig):
-    """``-s FILE``: the strategy table of the JAX package's JSON file,
-    accepted when every op it names sits on the one GPU (all degrees 1,
-    no device but 0).  The port has no other placement, so such a table
-    changes nothing; any other table, ``-s auto`` and the reference's
-    ``.pb`` files are refused by name.  Returns the store, or None
-    without ``-s``."""
+    """``-s FILE``: the strategy table of the JAX package's JSON file, its
+    degrees over the full mesh of the world's ranks.  A table that places
+    an op on a proper subset of the devices (the pipeline, item 10),
+    ``-s auto`` and the reference's ``.pb`` files are refused by name.
+    Returns the store, or None without ``-s``."""
+    from flexflow_torch.parallel import launch
     from flexflow_torch.parallel.strategy import StrategyStore
 
     path = cfg.strategy_file
@@ -188,15 +274,10 @@ def load_strategy(cfg: FFConfig):
         raise SystemExit(f"{flag}: the execution-config search is not ported "
                          f"(ROADMAP.md queue 1, item 11)")
     try:
-        store = StrategyStore.load(path, num_devices=cfg.num_devices)
+        store = StrategyStore.load(path, num_devices=launch.world_size())
+        store.check_full_mesh()
     except (OSError, ValueError, KeyError, TypeError) as e:
         raise SystemExit(f"{flag}: {e}")
-    for name, pc in sorted(store.table.items()):
-        if pc.num_parts != 1 or set(pc.device_ids or ()) - {0}:
-            raise SystemExit(
-                f"{flag}: op {name!r} is placed as {pc.to_json()}; the port "
-                f"runs every op on one GPU (multi-device strategies are "
-                f"ROADMAP.md queue 1, item 9)")
     return store
 
 
@@ -297,7 +378,7 @@ def _run_resilient(ff, cfg: FFConfig, executor_factory, label: str
 
 
 def run_training(ff, cfg: FFConfig, label: str = "samples",
-                 device="cuda") -> Dict[str, Any]:
+                 device="cuda", strategy=None) -> Dict[str, Any]:
     """Build the executor, run ``cfg.epochs x cfg.iterations`` timed
     steps (after one warmup step; a whole superstep of warmup with
     ``--steps-per-call``) on one fixed device-resident synthetic batch
@@ -320,18 +401,23 @@ def run_training(ff, cfg: FFConfig, label: str = "samples",
     from flexflow_torch.runtime import telemetry as _telemetry
 
     with _telemetry.maybe_run(cfg, meta={"app": label}):
-        return _run_training(ff, cfg, label, device)
+        return _run_training(ff, cfg, label, device, strategy)
 
 
-def _run_training(ff, cfg: FFConfig, label: str, device) -> Dict[str, Any]:
+def _run_training(ff, cfg: FFConfig, label: str, device,
+                  strategy) -> Dict[str, Any]:
     from flexflow_torch.runtime.checkpoint import CheckpointManager
     from flexflow_torch.runtime.executor import Executor
     from flexflow_torch.runtime.trainer import Trainer
 
-    load_strategy(cfg)
+    strategy = load_strategy(cfg) or strategy
 
     def build():
-        return Executor(ff, cfg, optimizer=make_optimizer(cfg), device=device)
+        try:
+            return Executor(ff, cfg, optimizer=make_optimizer(cfg),
+                            device=device, strategy=strategy)
+        except ValueError as e:
+            raise SystemExit(str(e))
 
     ex = build()
     if cfg.resilient:
@@ -365,7 +451,8 @@ def _run_training(ff, cfg: FFConfig, label: str, device) -> Dict[str, Any]:
         if cfg.eval_iters > 0:
             params, _, state = trainer.final
             stats["eval"] = _run_eval(trainer, params, state, cfg)
-        #: The trained (params, opt_state, state), for a caller that
-        #: checks or evaluates them.
+        #: The trained (params, opt_state, state) and the executor that
+        #: trained them, for a caller that checks or evaluates them.
         stats["final"] = trainer.final
+        stats["executor"] = ex
     return stats

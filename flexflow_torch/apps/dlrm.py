@@ -38,7 +38,12 @@ from __future__ import annotations
 import sys
 from typing import Optional
 
-from flexflow_torch.apps.common import check_help, parse_training_args, run_training
+from flexflow_torch.apps.common import (
+    check_help,
+    parse_training_args,
+    run_training,
+    world_ranks,
+)
 from flexflow_torch.models.dlrm import DLRMConfig, build_dlrm
 
 #: The DLRM flags, each taking a value (``DLRMConfig.parse_args``).
@@ -52,7 +57,7 @@ _REFUSED = {
     "--stream-dataset": "the streaming data plane (ROADMAP.md queue 1, item 12)",
     "--zc-dataset": "device-resident datasets (ROADMAP.md queue 1, item 12)",
     "--prod-trace": "production traces (ROADMAP.md queue 1, item 12)",
-    "--shard-embeddings": "row-sharded tables (ROADMAP.md queue 1, item 9)",
+    "--shard-embeddings": "row-sharded tables (ROADMAP.md queue 1, item 9b)",
 }
 
 
@@ -86,6 +91,8 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
             del argv[i:i + 2]
     cfg = parse_training_args(argv)
     cfg.lazy_sparse_optimizer = lazy
+    world_ranks(cfg, device, refuse="DLRM's row-sparse tables under more "
+                "than one rank are ROADMAP.md queue 1, item 9b")
     if any(a.startswith("--arch-") for a in dlrm_argv):
         try:
             dlrm = DLRMConfig.parse_args(dlrm_argv)

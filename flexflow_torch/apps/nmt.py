@@ -33,6 +33,7 @@ from flexflow_torch.apps.common import (
     pop_float,
     pop_int,
     run_training,
+    world_ranks,
 )
 from flexflow_torch.models.nmt import build_nmt
 
@@ -60,6 +61,8 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     layers = pop_int(argv, "--layers", 2)
     dropout = pop_float(argv, "--dropout", 0.2)  # lstm.cu:152
     cfg = parse_training_args(argv)
+    world_ranks(cfg, device, refuse="NMT's row-sparse word embeddings under "
+                "more than one rank are ROADMAP.md queue 1, item 9b")
     try:
         ff = build_nmt(
             batch_size=cfg.batch_size, src_len=src_len, tgt_len=tgt_len,

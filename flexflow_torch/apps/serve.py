@@ -119,7 +119,7 @@ Telemetry and checks:
                      kernel launch
 
 Refused by name: --shard (sharded decode comes with ROADMAP.md queue 1
-item 9).  Any other unknown flag is refused too.
+item 9c).  Any other unknown flag is refused too.
 
 Example::
 
@@ -171,7 +171,7 @@ _DTYPES = ("float32", "bfloat16")
 
 #: The JAX app's flags this port does not serve yet, with the ROADMAP.md
 #: queue 1 item that brings each.
-UNPORTED = {"--shard": "item 9 (multi-device strategies)"}
+UNPORTED = {"--shard": "item 9c (sharded serving)"}
 
 
 def _pop_flag(argv, flag) -> bool:

@@ -1,6 +1,6 @@
 """Models of the port (the counterparts of ``flexflow_tpu/models``).
 ``dlrm_strategy``, the DLRM's table-parallel placement, comes with the
-multi-device strategies (ROADMAP.md queue 1, item 9)."""
+sharded embeddings (ROADMAP.md queue 1, item 9b)."""
 
 from flexflow_torch.models.alexnet import build_alexnet
 from flexflow_torch.models.candle_uno import CandleConfig, build_candle_uno

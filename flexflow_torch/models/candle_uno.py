@@ -9,7 +9,7 @@ concatenated, then a dense trunk (``dense_layers``, 3 x 1000) and a
 1-unit head into a mean MSE loss (``candle_uno.cc:82-112``).  The same
 op names and shapes as the JAX package.  ``candle_uno_strategy`` is the
 JAX function's table on one device (every degree 1); more devices are
-ROADMAP.md queue 1, item 9.
+ROADMAP.md queue 1, item 9d (the app trains data-parallel by default).
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ def candle_uno_strategy(
 ) -> StrategyStore:
     """The JAX function's table (the trunk's dense layers ``n x c``
     hybrid, the towers data-parallel) for one device: ``n = 1, c = 1``
-    on every trunk layer.  More devices are ROADMAP.md queue 1, item 9."""
+    on every trunk layer.  More devices are ROADMAP.md queue 1, item 9d."""
     candle = candle or CandleConfig()
     if tp is None:
         tp = 2 if num_devices % 2 == 0 and num_devices > 1 else 1
@@ -115,7 +115,7 @@ def candle_uno_strategy(
         raise ValueError(
             f"candle_uno_strategy({num_devices}, tp={tp}): the port places "
             f"Candle-Uno on one device; multi-device strategies are "
-            f"ROADMAP.md queue 1, item 9")
+            f"ROADMAP.md queue 1, item 9d")
     store = StrategyStore(1)
     for j in range(len(candle.dense_layers)):
         store.table[f"trunk_dense{j}"] = ParallelConfig(n=1, c=1)

@@ -12,7 +12,7 @@ one ``MultiEmbedding``; otherwise each is an ``Embedding`` of its own.
 
 ``dlrm_strategy`` (the reference's table-parallel placement) is not
 ported: it does something only on more than one device, and waits for
-the multi-device strategies (ROADMAP.md queue 1, item 9).
+sharded embeddings (ROADMAP.md queue 1, item 9b).
 """
 
 from __future__ import annotations

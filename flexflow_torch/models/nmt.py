@@ -9,7 +9,7 @@ seed the decoder's layer of the same index; a vocabulary projection and
 the fused softmax cross-entropy (K3 on the card) close the graph.
 
 ``nmt_strategy`` is the reference's placement on one device (every
-degree 1); more devices wait for ROADMAP.md queue 1 item 9, and the
+degree 1); more devices wait for ROADMAP.md queue 1 item 9d, and the
 layer-wise ``nmt_pipeline_strategy`` for item 10.
 """
 
@@ -70,12 +70,12 @@ def nmt_strategy(num_devices: int = 1, dp: Optional[int] = None,
     """The reference's placement (``nmt.cc:269-308``) on one device:
     every op at degree 1, the table the JAX function gives for one
     device.  More devices (the LSTMs over batch and sequence chunks,
-    the projection over the vocabulary) are ROADMAP.md queue 1 item 9."""
+    the projection over the vocabulary) are ROADMAP.md queue 1 item 9d."""
     if num_devices != 1 or (dp or 1) != 1 or (sp or 1) != 1:
         raise ValueError(
             f"nmt_strategy({num_devices}, dp={dp}, sp={sp}): the port places "
             f"NMT on one device; multi-device strategies are ROADMAP.md "
-            f"queue 1 item 9")
+            f"queue 1 item 9d")
     store = StrategyStore(1)
     one = ParallelConfig()
     for side in ("enc", "dec"):

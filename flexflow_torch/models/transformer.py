@@ -5,9 +5,10 @@ Pre-LN GPT-style blocks, with the same op names (``embed``, ``pos``,
 ``blk{i}_*``, ``ln_f``, ``lm_head``, ``softmax``) and parameter shapes as
 the JAX package.  ``moe_experts > 0`` swaps every block's dense MLP for
 a mixture-of-experts FFN (``ops/moe.py``, ``blk{i}_moe``).
-``transformer_strategy`` is the JAX function's table on one device
-(every degree 1); more devices, expert parallelism among them, are
-ROADMAP.md queue 1, item 9.
+``transformer_strategy`` is the JAX function's table: data parallelism
+on the token ops, ``dp x tp`` on the MLPs' up projection and ``lm_head``.
+Sequence parallelism (``sp > 1``, ring attention) and the experts split
+over devices are ROADMAP.md queue 1, item 9d.
 """
 
 from __future__ import annotations
@@ -64,22 +65,37 @@ def build_transformer_lm(
 def transformer_strategy(num_devices: int = 1, num_layers: int = 6,
                          dp: int = 1, sp: int = 1, tp: int = 1,
                          moe: bool = False) -> StrategyStore:
-    """The JAX function's table (``dp x sp`` on the token ops, ``dp x tp``
-    on the MLPs, the MoE ops and ``lm_head``) for one device: every
-    degree 1.  More devices (``tp`` sharding the experts among them) are
-    ROADMAP.md queue 1, item 9."""
-    if num_devices != 1 or dp * sp * tp != 1:
-        raise ValueError(
-            f"transformer_strategy({num_devices}, dp={dp}, sp={sp}, "
-            f"tp={tp}): the port places the LM on one device; multi-device "
-            f"strategies are ROADMAP.md queue 1, item 9")
-    one = ParallelConfig()
-    names = ["embed", "pos"]
+    """The JAX function's table (``flexflow_tpu/models/transformer.py:
+    65-97``): attention and the token-level ops get ``(n=dp, s=sp)``, the
+    MLPs' up projection and ``lm_head`` ``(n=dp, c=tp)``, the down
+    projection ``(n=dp, s=sp)``; with ``moe`` each block's MoE op gets
+    ``(n=dp, c=tp)``."""
+    if sp > 1:
+        raise ValueError(f"transformer_strategy(sp={sp}): ring attention is "
+                         f"ROADMAP.md queue 1, item 9d")
+    if moe and (num_devices > 1 or tp > 1):
+        raise ValueError(f"transformer_strategy(moe=True, tp={tp}) on "
+                         f"{num_devices} devices: expert-parallel MoE is "
+                         f"ROADMAP.md queue 1, item 9d")
+    if dp * tp > num_devices:
+        raise ValueError(f"transformer_strategy({num_devices}, dp={dp}, "
+                         f"tp={tp}): {dp * tp} parts on {num_devices} "
+                         f"devices (-ll:gpu {dp * tp})")
+    store = StrategyStore(num_devices)
+    seq_pc = ParallelConfig(n=dp, s=sp)
+    tp_pc = ParallelConfig(n=dp, c=tp)
+    store.set("embed", seq_pc)
+    store.set("pos", seq_pc)
     for i in range(num_layers):
-        names += [f"blk{i}_ln1", f"blk{i}_attn", f"blk{i}_res1",
-                  f"blk{i}_ln2"]
-        names += ([f"blk{i}_moe"] if moe
-                  else [f"blk{i}_mlp_up", f"blk{i}_mlp_down"])
-        names.append(f"blk{i}_res2")
-    names += ["ln_f", "lm_head", "softmax"]
-    return StrategyStore(1, {name: one for name in names})
+        for name in ("ln1", "attn", "res1", "ln2"):
+            store.set(f"blk{i}_{name}", seq_pc)
+        if moe:
+            store.set(f"blk{i}_moe", tp_pc)
+        else:
+            store.set(f"blk{i}_mlp_up", tp_pc)
+            store.set(f"blk{i}_mlp_down", seq_pc)
+        store.set(f"blk{i}_res2", seq_pc)
+    store.set("ln_f", seq_pc)
+    store.set("lm_head", tp_pc)
+    store.set("softmax", seq_pc)
+    return store

@@ -1,5 +1,5 @@
-"""Attention operators: the single-device path of
-``flexflow_tpu/ops/attention.py``.
+"""Attention operators: the port of ``flexflow_tpu/ops/attention.py``
+(its ring path aside).
 
 ``LayerNorm``, ``PositionEmbedding`` and ``MultiHeadAttention`` with its
 dense forward and the padded KV-cache protocol (prefill and decode).
@@ -18,8 +18,17 @@ shared prefix attends on the route of a fresh prefill of its bucket
 (``_attend_offset``: the dispatcher, so K1f on the card), where JAX runs
 the jnp ``_attend_chunk``: on the card, two routes for one bucket would
 round a bf16 sharer's tokens apart from its unshared run's.  On CPU tensors both
-kernel wrappers run their plain versions.  The ring (sequence-parallel)
-path comes with a later slice (ROADMAP.md queue 1).
+kernel wrappers run their plain versions.
+
+Under a mesh the dense route runs the dispatcher, and with it K1f and
+K1b, on the rank's local ``(b/n, h/c, t, hd)`` heads, as JAX's
+``shard_map`` does (``attention.py:507-528``): ``n`` splits the batch,
+``c`` the heads (the projections' columns, ``wo``'s rows), the input
+enters through ``copy_to`` and the row-parallel output is all-reduced
+over ``c``.  Where the heads do not split over ``c`` the op gathers its
+projections and runs every head on each rank, as JAX returns to the
+unsharded route.  ``s > 1`` (ring attention) is ROADMAP.md item 9d.
+``LayerNorm`` reads its feature dim whole and stays local.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch.nn.functional as F
 from flexflow_torch.initializers import GlorotUniform, OnesInitializer, ZeroInitializer
 from flexflow_torch.ops import kernels
 from flexflow_torch.ops.base import Op, ParamSpec, TensorSpec
+from flexflow_torch.parallel import collectives
 
 _NEG_INF = -1e30
 
@@ -91,6 +101,13 @@ class LayerNorm(Op):
             "scale": ParamSpec((d,), dt, OnesInitializer()),
             "bias": ParamSpec((d,), dt, ZeroInitializer()),
         }
+
+    def input_spec(self, i, frm):
+        x = self.inputs[0]
+        return self._spec(x.dim_axes[:-1] + (None,), x.shape)
+
+    def output_spec(self, j):
+        return self.input_spec(0, None)
 
     def forward(self, params, xs, state, training):
         (x,) = xs
@@ -191,10 +208,11 @@ class MultiHeadAttention(Op):
             qkv = qkv + torch.cat([params["bq"], params["bk"], params["bv"]])
         return qkv.chunk(3, dim=-1)
 
-    def _split_heads(self, x):
-        """(b, t, d) -> (b, h, t, hd), keeping the compute dtype."""
+    def _split_heads(self, x, heads: Optional[int] = None):
+        """(b, t, d) -> (b, h, t, hd), keeping the compute dtype; ``heads``
+        the rank's heads under a ``c`` split (default all)."""
         b, t, d = x.shape
-        h = self.attrs["num_heads"]
+        h = heads or self.attrs["num_heads"]
         return x.reshape(b, t, h, d // h).transpose(1, 2)
 
     def _merge_heads(self, x, dtype):
@@ -208,10 +226,10 @@ class MultiHeadAttention(Op):
         res = kernels.flash_attention_lse_auto(q, k, v, causal)
         return _einsum_attention(q, k, v, causal) if res is None else res[0]
 
-    def _attend_dense(self, q, k, v, dtype):
-        """The single-device branch of JAX's ``_attend_dense`` /
-        ``_flash_dense``."""
-        q, k, v = map(self._split_heads, (q, k, v))
+    def _attend_dense(self, q, k, v, dtype, heads: Optional[int] = None):
+        """JAX's ``_attend_dense`` / ``_flash_dense`` on this rank's
+        ``heads``."""
+        q, k, v = (self._split_heads(x, heads) for x in (q, k, v))
         return self._merge_heads(self._attend_heads(q, k, v), dtype)
 
     def _out_proj(self, params, y):
@@ -220,12 +238,44 @@ class MultiHeadAttention(Op):
             y = y + params["bo"]
         return y
 
+    def input_spec(self, i, frm):
+        x = self.inputs[0]
+        return self._spec(x.dim_axes[:-1] + (None,), x.shape)
+
+    def output_spec(self, j):
+        return self.input_spec(0, None)
+
+    def _mesh_params(self, params, x):
+        """``(params, x, c_axes)`` for the rank's heads: the projections
+        as held and ``x`` through ``copy_to`` when the heads split over
+        ``c``; else the projections gathered whole and ``c_axes`` empty."""
+        c = self.param_spec("wq")[1]
+        if not c:
+            return params, x, ()
+        if self.attrs["num_heads"] % self._plan.size(c) == 0:
+            return params, collectives.copy_to(x, self._world, c), c
+        whole = {k: collectives.gather(v, 1 if k in ("wq", "wk", "wv") else 0,
+                                       self._world, self.param_spec(k)[
+                                           1 if k in ("wq", "wk", "wv")
+                                           else 0])
+                 for k, v in params.items()}
+        return whole, x, ()
+
     def forward(self, params, xs, state, training):
         (x,) = xs
         if "cache_k" in state:
             return self._forward_cached(params, x, state)
+        c = ()
+        if self._world is not None:
+            params, x, c = self._mesh_params(params, x)
         q, k, v = self._project(params, x)
-        y = self._attend_dense(q, k, v, x.dtype)
+        heads = self.attrs["num_heads"] // (self._plan.size(c) if c else 1)
+        y = self._attend_dense(q, k, v, x.dtype, heads)
+        if c:
+            y = collectives.all_reduce(y @ params["wo"], self._world, c)
+            if self.attrs["use_bias"]:
+                y = y + params["bo"]
+            return [y], state
         return [self._out_proj(params, y)], state
 
     # -- KV-cache protocol (runtime/serving.py) ------------------------------

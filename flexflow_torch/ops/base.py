@@ -7,6 +7,16 @@ contract as the JAX package, so graphs, parameter dicts and the serving
 state protocol carry over name for name.  Embedding ops also implement
 the row-sparse gradient protocol (``sparse_*``) that the executor's
 sparse train step drives.
+
+Under a mesh of more than one rank (``parallel/mesh.py``) the executor
+binds each op to the plan and its ``ParallelConfig`` (``bind_mesh``),
+reshards each input into the spec the op asks for (``input_spec``) and
+records the spec the op's outputs come out in (``output_spec``); an op
+then computes on its local blocks, issuing its own collectives where its
+work needs them (``parallel/collectives.py``).  By default an op takes
+and gives every tensor in the spec of its own tags, which is right for
+elementwise work; ops whose work reads a whole dim override the specs.
+An op that sets ``mesh_refusal`` raises under more than one rank.
 """
 
 from __future__ import annotations
@@ -24,8 +34,8 @@ class ParamSpec:
     shape: Tuple[int, ...]
     dtype: torch.dtype
     initializer: Initializer
-    #: Semantic axis per dim (the JAX package's sharding tags); kept so
-    #: the specs read alike, unused on one device.
+    #: Semantic axis per dim (the JAX package's sharding tags): the
+    #: parameter's spec under a mesh (``MeshPlan.spec``).
     dim_axes: Tuple[Optional[str], ...] = ()
 
     def __post_init__(self):
@@ -62,10 +72,43 @@ class Op:
     #: worth recomputing opts back in with True.
     allow_remat = False
 
+    #: Set to the ROADMAP.md item that brings this op to a mesh of more
+    #: than one rank; the executor raises naming it.
+    mesh_refusal: Optional[str] = None
+    #: The binding of ``bind_mesh`` (None until the executor binds).
+    _plan = _pc = _world = None
+
     def __init__(self, name: str, inputs: Sequence[TensorSpec]):
         self.name = name
         self.inputs: List[TensorSpec] = list(inputs)
         self.outputs: List[TensorSpec] = []
+
+    # -- mesh binding -------------------------------------------------------
+
+    def bind_mesh(self, plan, pc, world=None) -> None:
+        """Called by the executor before ``forward`` with the MeshPlan,
+        this op's ParallelConfig and the rank's ``World`` (None on one
+        device), as JAX's ``Op.bind_mesh``."""
+        self._plan, self._pc, self._world = plan, pc, world
+
+    def _spec(self, dim_axes, shape):
+        return self._plan.spec(self._pc, dim_axes, shape)
+
+    def input_spec(self, i: int, frm):
+        """The spec this op reads input ``i`` in; ``frm`` is the spec its
+        producer left it in."""
+        t = self.inputs[i]
+        return self._spec(t.dim_axes, t.shape)
+
+    def output_spec(self, j: int):
+        """The spec output ``j`` comes out in."""
+        t = self.outputs[j]
+        return self._spec(t.dim_axes, t.shape)
+
+    def param_spec(self, key: str):
+        """The spec parameter (or state) ``key`` is held in."""
+        spec = {**self.param_specs(), **self.state_specs()}[key]
+        return self._spec(spec.dim_axes, spec.shape)
 
     def param_specs(self) -> Dict[str, ParamSpec]:
         return {}

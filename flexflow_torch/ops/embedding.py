@@ -16,9 +16,9 @@ unique rows of the table and of its state in one K4 launch
 dtype (f32 under the graph's rule) and the rows are cast to the output
 dtype, as in the reference.
 
-One device only: row-sharded tables (``shard_rows``,
-``--shard-embeddings``) are refused until the multi-device slice
-(ROADMAP.md queue 1, item 9).
+Row-sharded tables (``shard_rows``, ``--shard-embeddings``) are refused
+until ROADMAP.md queue 1, item 9b, and so are the stacked tables under
+more than one rank.
 """
 
 from __future__ import annotations
@@ -38,8 +38,7 @@ def _refuse_shard_rows(name: str, shard_rows: bool) -> None:
     if shard_rows:
         raise NotImplementedError(
             f"{name}: row-sharded embedding tables (shard_rows, "
-            f"--shard-embeddings) need the multi-device slice of the port "
-            f"(ROADMAP.md queue 1, item 9)")
+            f"--shard-embeddings) are ROADMAP.md queue 1, item 9b")
 
 
 def _gather_dispatch(table, flat_ids):
@@ -124,6 +123,8 @@ class MultiEmbedding(Op):
     DLRM form): int ids (batch, T) -> (batch, T, D), row ``idx[b, t]`` of
     table ``t``.  The flat row of ``(b, t)`` in the ``(T*V, D)`` view is
     ``t*V + idx[b, t]``, computed in int64."""
+
+    mesh_refusal = "the stacked DLRM tables, ROADMAP.md queue 1, item 9b"
 
     def __init__(
         self,
@@ -213,6 +214,8 @@ class HeteroEmbedding(Op):
     ``(rows, D)`` parameter, ``rows`` the vocabulary total padded to a
     multiple of ``pad_to``: int ids (batch, T) -> (batch, T, D), row
     ``offsets[t] + idx[b, t]``.  Padding rows are never indexed."""
+
+    mesh_refusal = "the stacked DLRM tables, ROADMAP.md queue 1, item 9b"
 
     def __init__(
         self,

@@ -7,6 +7,14 @@ CPU its plain version (the JAX op's unfused branch, ``losses.py:112-116``)
 runs.  The softmax probabilities are not computed: no op of a training
 or eval step reads them (in JAX, XLA removes them as dead code), and in
 eager PyTorch they would be an ``(N, V)`` tensor per step.
+
+Under a mesh both losses run on the rank's rows (the ``n`` and ``s``
+blocks of the labels), K3 at the local row count with the vocabulary
+whole on each rank, as JAX's ``shard_map`` keeps it (``losses.py:60-62``):
+the executor gathers ``c``-split logits first.  The rank's mean is
+all-reduced over the row axes into the global batch's mean (``mean``
+reduction; a sum for ``sum``), and the counts are summed the same way,
+so every rank holds the global loss and metrics.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import torch
 
 from flexflow_torch.ops import kernels
 from flexflow_torch.ops.base import Op, TensorSpec
+from flexflow_torch.parallel import collectives
 
 
 class _RowMean(torch.autograd.Function):
@@ -35,11 +44,40 @@ class _RowMean(torch.autograd.Function):
         return (g / ctx.v).to(ctx.dtype)[:, None].expand(-1, ctx.v)
 
 
-class SoftmaxCrossEntropy(Op):
-    """Softmax + cross-entropy against int labels, mean over every
-    leading dim, with optional uniform label smoothing."""
+class _RowLoss(Op):
+    """The mesh side of a loss over rows: inputs whole along their last
+    dim, the rows split over the labels' ``n``/``s`` axes."""
 
     is_loss = True
+
+    def input_spec(self, i, frm):
+        t = self.inputs[i]
+        tags = t.dim_axes
+        if t.ndim >= 2 and (i == 0 or self.inputs[0].ndim == t.ndim):
+            tags = tags[:-1] + (None,)  # the class (or feature) dim whole
+        return self._spec(tags, t.shape)
+
+    def _row_axes(self):
+        if self._world is None:
+            return ()
+        return collectives.axes_of(self.input_spec(1, None))
+
+    def _global(self, loss, correct, total: int, mean: bool):
+        """The global batch's ``(loss, correct, total)`` from this rank's
+        (one rank: unchanged)."""
+        rows = self._row_axes()
+        if not rows:
+            return loss, correct, total
+        parts = self._plan.size(rows)
+        loss = collectives.all_reduce(loss, self._world, rows)
+        if mean:
+            loss = loss * (1.0 / parts)
+        return (loss, self._world.all_reduce(correct, rows), total * parts)
+
+
+class SoftmaxCrossEntropy(_RowLoss):
+    """Softmax + cross-entropy against int labels, mean over every
+    leading dim, with optional uniform label smoothing."""
 
     def __init__(self, name: str, logits: TensorSpec, labels: TensorSpec,
                  label_smoothing: float = 0.0):
@@ -75,23 +113,23 @@ class SoftmaxCrossEntropy(Op):
         loss = nll.mean()
         correct = (pred == labels.reshape(-1).to(torch.int32)).sum(
             dtype=torch.int32)
+        loss, correct, total = self._global(loss, correct, labels.numel(),
+                                            mean=True)
         metrics = {
             "train_loss": loss.detach(),
             "train_correct": correct,
             # A fill, not a host-to-device copy (which would sync).
-            "train_all": torch.full((), labels.numel(), dtype=torch.int32,
+            "train_all": torch.full((), total, dtype=torch.int32,
                                     device=labels.device),
         }
         return (loss, metrics, []), state
 
 
-class MSELoss(Op):
+class MSELoss(_RowLoss):
     """Mean-squared error in f32 with the reference's accuracy rule:
     with one column a prediction is correct when ``|pred - label| <
     0.5``, with several when the argmaxes match (``mse_loss.cu:61-125``);
     ``reduction`` is ``mean`` or ``sum``."""
-
-    is_loss = True
 
     def __init__(self, name: str, pred: TensorSpec, label: TensorSpec,
                  reduction: str = "mean"):
@@ -121,6 +159,8 @@ class MSELoss(Op):
         else:
             correct = torch.zeros((), dtype=torch.int32, device=pred.device)
             total = pred.shape[0] if pred.dim() >= 1 else 1
+        loss, correct, total = self._global(loss, correct, total,
+                                            mean=self.reduction == "mean")
         metrics = {
             "train_loss": loss.detach(),
             "train_correct": correct,

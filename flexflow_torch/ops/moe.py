@@ -57,6 +57,8 @@ class MixtureOfExperts(Op):
     metrics ``{name}_aux_loss`` and ``{name}_dropped`` and the FFN's
     output."""
 
+    mesh_refusal = "expert-parallel MoE, ROADMAP.md queue 1, item 9d"
+
     is_loss = True
     #: The heaviest op of its block; its loss is a scalar byproduct, so
     #: ``--remat`` recomputes it as it does the other ops.

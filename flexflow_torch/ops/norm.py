@@ -9,6 +9,11 @@ so the op is written in tensor ops.  The running statistics are op
 state: a training forward returns the new values and the executor
 copies them into the state's tensors in place (so a captured superstep
 advances them, and ``--remat``'s recompute does not advance them twice).
+
+Under an ``n``, ``h`` or ``w`` split each rank sums ``x`` and ``x^2``
+over its block and all-reduces the sums over those axes before JAX's
+``E[x^2] - mean^2``: the global batch's statistics, which GSPMD computes
+for the JAX op.  A ``c`` split keeps its channels local.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 from flexflow_torch.initializers import OnesInitializer, ZeroInitializer
 from flexflow_torch.ops.activations import apply_activation
 from flexflow_torch.ops.base import Op, ParamSpec, TensorSpec
+from flexflow_torch.parallel import collectives
 
 
 class BatchNorm(Op):
@@ -59,9 +65,22 @@ class BatchNorm(Op):
         (x,) = xs
         eps = self.attrs["eps"]
         xf = x.float()
-        if training:
+        split = (collectives.axes_of(self.input_spec(0, None)[:3])
+                 if self._world is not None else ())
+        if training and split:
+            sums = torch.stack([xf.sum(dim=(0, 1, 2)),
+                                xf.square().sum(dim=(0, 1, 2))])
+            sums = collectives.copy_to(
+                collectives.all_reduce(sums, self._world, split),
+                self._world, split)
+            count = x.shape[0] * x.shape[1] * x.shape[2] * \
+                self._plan.size(split)
+            mean = sums[0] / count
+            var = sums[1] / count - mean.square()
+        elif training:
             mean = xf.mean(dim=(0, 1, 2))
             var = xf.square().mean(dim=(0, 1, 2)) - mean.square()
+        if training:
             m = self.attrs["momentum"]
             # JAX multiplies the state by m in the state's dtype (a weak
             # Python scalar takes the array's type), so m is rounded to

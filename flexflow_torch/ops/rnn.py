@@ -8,7 +8,7 @@ product; the recurrence keeps only ``h @ wh`` per step, a loop over
 products that JAX leaves to XLA and no Pallas kernel, so here they go to
 ``torch.matmul`` (cuBLAS).  The sequence-parallel pipeline of the JAX op
 (the ``s`` degree, over which ``num_microbatches`` splits the batch)
-comes with the multi-device strategies (ROADMAP.md queue 1, item 9); on
+comes with ROADMAP.md queue 1, item 9d (the LSTM's pipeline); on
 one device, as in JAX at ``s = 1``, ``num_microbatches`` is kept and
 unused.
 """
@@ -44,6 +44,8 @@ class LSTM(Op):
     state ``(h0, c0)``.  Outputs: ``y (batch, seq, hidden)``, ``hT`` and
     ``cT (batch, hidden)``.  Params ``wx (in, 4h)``, ``wh (h, 4h)`` and
     ``bias (4h,)`` with JAX's initializers and layouts."""
+
+    mesh_refusal = "the LSTM's sequence pipeline, ROADMAP.md queue 1, item 9d"
 
     def __init__(
         self,

@@ -1,6 +1,10 @@
 """Structural tensor operators: ``Concat``, ``Add``, ``Reshape``,
 ``DotInteraction`` and ``Dropout`` of ``flexflow_tpu/ops/tensor_ops.py``
-(the others come with later slices)."""
+(the others come with later slices).
+
+Under a mesh ``Add`` and ``Concat`` read every input in their output's
+spec, ``Reshape`` and ``DotInteraction`` split the sample dim only, and
+``Dropout`` keeps the rank's block of the global batch's mask."""
 
 from __future__ import annotations
 
@@ -34,6 +38,9 @@ class Concat(Op):
         dim_axes[axis] = None
         self._make_output(tuple(out_shape), inputs[0].dtype, tuple(dim_axes))
 
+    def input_spec(self, i, frm):
+        return self.output_spec(0)
+
     def forward(self, params, xs, state, training):
         return [torch.cat(list(xs), dim=self.axis)], state
 
@@ -47,6 +54,9 @@ class Add(Op):
             raise ValueError(f"{name}: add needs one shape and dtype, got "
                              f"{a.shape}/{a.dtype} and {b.shape}/{b.dtype}")
         self._make_output(a.shape, a.dtype, a.dim_axes)
+
+    def input_spec(self, i, frm):
+        return self.output_spec(0)
 
     def forward(self, params, xs, state, training):
         a, b = xs
@@ -66,6 +76,15 @@ class Reshape(Op):
         if dim_axes is None:
             dim_axes = ("n",) + tuple(None for _ in shape[1:])
         self._make_output(shape, x.dtype, tuple(dim_axes))
+
+    def _sample_only(self, t):
+        return self._spec((t.dim_axes[0],) + (None,) * (t.ndim - 1), t.shape)
+
+    def input_spec(self, i, frm):
+        return self._sample_only(self.inputs[0])
+
+    def output_spec(self, j):
+        return self._sample_only(self.outputs[0])
 
     def forward(self, params, xs, state, training):
         (x,) = xs
@@ -91,6 +110,10 @@ class DotInteraction(Op):
         self._pairs: Dict[torch.device, torch.Tensor] = {}
         self._make_output((b, d + f * (f - 1) // 2), dense.dtype, ("n", None))
 
+    def input_spec(self, i, frm):
+        t = self.inputs[i]
+        return self._spec(("n",) + (None,) * (t.ndim - 1), t.shape)
+
     def _tril(self, f: int, device) -> torch.Tensor:
         """Flat indices ``i*f + j`` of the pairs ``j < i`` (row-major),
         made on the device once."""
@@ -112,7 +135,9 @@ class DotInteraction(Op):
 class Dropout(Op):
     """Inverted dropout with JAX's masks: the op keeps a threefry key as
     state ``rng``; each training step splits it (``keyed_random.split``)
-    and keeps ``bernoulli(sub, 1 - rate, x.shape)``, the bits
+    and keeps ``bernoulli(sub, 1 - rate, shape)`` over the global batch's
+    shape (the rank's block of it under a mesh, since JAX's draw does not
+    depend on the sharding), the bits
     ``jax.random`` draws from the same key, then ``y = where(keep, x / (1
     - rate), 0)`` in x's dtype (the divisor a tensor of x's dtype, as JAX
     divides by the weakly typed constant).  The new key comes back as
@@ -137,6 +162,12 @@ class Dropout(Op):
         if not training or rate == 0.0:
             return [x], state
         new_key, sub = keyed_random.split(state["rng"])
-        keep = keyed_random.bernoulli(sub, 1.0 - rate, x.shape)
+        if self._world is None:
+            keep = keyed_random.bernoulli(sub, 1.0 - rate, x.shape)
+        else:
+            spec = self.output_spec(0)
+            shape = [n * self._plan.size(a) for n, a in zip(x.shape, spec)]
+            keep = keyed_random.bernoulli(sub, 1.0 - rate, shape)[
+                self._plan.local_slices(spec, shape, self._world.rank)]
         scale = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
         return [torch.where(keep, x / scale, 0)], {"rng": new_key}

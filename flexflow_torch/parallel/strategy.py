@@ -10,10 +10,12 @@ JSON file, byte for byte::
 
     {"num_devices": 8, "ops": {"conv1": {"c": 2, "n": 4}}, "version": 1}
 
-The port runs on one GPU, so the apps accept only a store that puts
-every op there (``apps.common.load_strategy``); spreading ops over
-devices is ROADMAP.md queue 1, item 9.  The reference's protobuf files
-(``.pb``) are refused: their codec is the JAX package's native
+Every op runs on the full mesh (``parallel/mesh.py``); an op the table
+does not name takes data parallelism over every device, as in the JAX
+package.  A table that places an op on a proper subset of the devices
+is layer-wise placement, the pipeline of ROADMAP.md item 10, and is
+refused (``StrategyStore.check_full_mesh``).  The reference's protobuf
+files (``.pb``) are refused: their codec is the JAX package's native
 ``ffproto.cc``.
 """
 
@@ -39,9 +41,18 @@ class ParallelConfig:
     s: int = 1
     device_ids: Optional[Tuple[int, ...]] = None
 
+    def degree(self, axis: str) -> int:
+        return getattr(self, axis)
+
     @property
     def num_parts(self) -> int:
         return self.n * self.c * self.h * self.w * self.s
+
+    @staticmethod
+    def data_parallel(num_devices: int) -> "ParallelConfig":
+        """The reference's DataParallelismID fallback: the sample dim
+        split over every device."""
+        return ParallelConfig(n=num_devices)
 
     def to_json(self) -> Dict:
         d = {a: getattr(self, a) for a in AXES if getattr(self, a) != 1}
@@ -58,15 +69,51 @@ class ParallelConfig:
 
 
 class StrategyStore:
-    """Op name -> ParallelConfig, as the JAX package's JSON file holds it.
-    The port reads a store only to check that it places every op on the
-    one GPU; the JAX store's lookup and its data-parallel fallback come
-    with the slice that spreads ops over devices."""
+    """Op name -> ParallelConfig with a data-parallel fallback, as the
+    JAX package's store (``FFConfig::find_parallel_config`` of the
+    reference)."""
 
     def __init__(self, num_devices: int,
                  table: Optional[Dict[str, ParallelConfig]] = None):
         self.num_devices = num_devices
         self.table: Dict[str, ParallelConfig] = dict(table or {})
+
+    def find(self, op_name: str) -> ParallelConfig:
+        pc = self.table.get(op_name)
+        if pc is None:
+            return ParallelConfig.data_parallel(self.num_devices)
+        return pc
+
+    def set(self, op_name: str, pc: ParallelConfig) -> None:
+        if pc.num_parts > self.num_devices:
+            raise ValueError(f"strategy for {op_name!r} uses {pc.num_parts} "
+                             f"parts but only {self.num_devices} devices "
+                             f"exist")
+        self.table[op_name] = pc
+
+    @staticmethod
+    def data_parallel(num_devices: int) -> "StrategyStore":
+        return StrategyStore(num_devices, {})
+
+    def check_full_mesh(self) -> None:
+        """Raise unless every op runs on all the devices: an op pinned to
+        a proper subset (``device_ids``) is layer-wise placement, which
+        the JAX package runs on its ``PipelineExecutor`` (ROADMAP.md
+        item 10)."""
+        full = set(range(self.num_devices))
+        for name, pc in sorted(self.table.items()):
+            if pc.num_parts > self.num_devices:
+                raise ValueError(f"strategy for {name!r} uses "
+                                 f"{pc.num_parts} parts but only "
+                                 f"{self.num_devices} devices exist "
+                                 f"(-ll:gpu {pc.num_parts})")
+            ids = pc.device_ids
+            if ids is not None and set(ids) != full:
+                raise ValueError(
+                    f"strategy for {name!r} places on devices "
+                    f"{sorted(set(ids))} of {self.num_devices}; layer-wise "
+                    f"placement on device subsets is the pipeline, "
+                    f"ROADMAP.md queue 1, item 10")
 
     # -- (de)serialization ------------------------------------------------
 

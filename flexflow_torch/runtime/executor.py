@@ -1,7 +1,7 @@
 """Graph executor: parameter init, the forward over the op graph, and the
-dense single-device train step.
+dense train step, on one device or on each rank of a mesh.
 
-The single-device path of ``flexflow_tpu/runtime/executor.py``:
+The port of ``flexflow_tpu/runtime/executor.py``:
 
 - ``init_params`` returns the params on the device, and ``init``
   ``(params, opt_state, state)`` for training;
@@ -35,7 +35,34 @@ no table-sized gradient exists.  Plain SGD scatters ``-lr * g`` per
 occurrence; lazy momentum/Adam (``--lazy-sparse-opt``) sum the gradients
 per unique row and scatter-add deltas of the parameter and state rows.
 
-Strategies and meshes come with a later slice (ROADMAP.md queue 1).
+Under a world of ranks (``parallel/launch.py``) the executor binds a
+``MeshPlan`` of the world's size and each op's ``ParallelConfig`` (the
+strategy's, data parallelism for an op it does not name), as JAX's does
+(``executor.py:108-131``, ``:357``), and every rank runs the same program
+on its blocks: shard_map done by hand.
+
+- ``init`` draws the full parameters from the seed, as on one device;
+  each rank keeps its block of each (``MeshPlan.local_slices``).
+  ``shard_batch`` keeps the rank's block of a host (numpy) batch; a
+  tensor batch is taken as the rank's block already.
+- The forward reshards each input from its producer's spec to the spec
+  its consumer reads (``Op.input_spec``, ``collectives.reshard``), JAX's
+  ``_reshard_input``.
+- Each parameter's gradient is all-reduced over every mesh axis on which
+  the parameter is replicated but its op's work is split (the axes of
+  the op's input specs); the ``--clip-norm`` norm sums the squares of a
+  sharded parameter over its shards and counts a replicated one once;
+  the loss ops reduce the loss and metrics over the mesh, so
+  ``train_loss`` is the global batch's mean.
+- ZeRO-1 (``--zero-opt``, JAX's ``executor.py:203-261``): the optimizer
+  state is born split on its leading dim over the op's data-parallel
+  axes, appended after the parameter's own leading-dim axes (each rank
+  then holds the state of rows it holds; JAX sorts them into mesh order,
+  which GSPMD realizes with a shuffle).  The gradients over those axes
+  are reduce-scattered, each rank updates its slice, and the parameter
+  is all-gathered.
+- The row-sparse step (item 9b), supersteps, gradient accumulation and
+  ``--remat`` (item 9d) are refused under more than one rank.
 """
 
 from __future__ import annotations
@@ -52,6 +79,10 @@ from flexflow_torch.graph import FFModel
 from flexflow_torch.ops import kernels
 from flexflow_torch.ops.base import Op
 from flexflow_torch.ops.embedding import _scatter_add_dispatch
+from flexflow_torch.parallel import collectives, launch
+from flexflow_torch.parallel.distributed import build_hybrid_mesh_plan
+from flexflow_torch.parallel.mesh import replicated
+from flexflow_torch.parallel.strategy import StrategyStore
 from flexflow_torch.runtime.graphs import StepGraph
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
@@ -121,9 +152,22 @@ def mean_metrics(metrics: Dict[str, torch.Tensor], count: Optional[int] = None,
             for k, v in metrics.items()}
 
 
+_WORLDS: Dict[tuple, "collectives.World"] = {}
+
+
+def _world_for(plan) -> "collectives.World":
+    """The rank's ``World`` for ``plan``, made once per mesh shape (its
+    groups are made by every rank together)."""
+    key = (plan.axis_names, plan.axis_sizes)
+    if key not in _WORLDS:
+        _WORLDS[key] = collectives.World(plan)
+    return _WORLDS[key]
+
+
 class Executor:
     def __init__(self, model: FFModel, config: Optional[FFConfig] = None,
-                 optimizer=None, device=None):
+                 optimizer=None, device=None,
+                 strategy: Optional[StrategyStore] = None):
         self.model = model
         self.config = config or model.config
         self.device = resolve_device(device)
@@ -131,6 +175,60 @@ class Executor:
         #: ``train_step`` need one (``apps.common.make_optimizer`` builds
         #: it from the flags).
         self.optimizer = optimizer
+        nd = launch.world_size()
+        self.plan = build_hybrid_mesh_plan(nd, max(self.config.granules, 1))
+        self.strategy = strategy or StrategyStore.data_parallel(nd)
+        self.strategy.check_full_mesh()
+        #: The rank's World in a world of ranks (one included), else None:
+        #: one device, no spec bookkeeping at all.
+        self.world = _world_for(self.plan) if launch.in_world() else None
+        if nd > 1:
+            self._check_mesh(nd)
+        #: Per op, the mesh axes its work is split on (``_op_work_axes``).
+        self._work_axes: Dict[str, tuple] = {}
+
+    def _check_mesh(self, nd: int) -> None:
+        """What this slice does not run under more than one rank raises,
+        naming the ROADMAP.md item that brings it."""
+        def refuse(what, item):
+            raise ValueError(f"{what} under {nd} ranks is ROADMAP.md queue 1, "
+                             f"item {item}")
+
+        for op in self.model.layers:
+            pc = self._pc(op)
+            self.plan.assign(pc)  # InfeasibleStrategyError here
+            if pc.s > 1:
+                refuse(f"{op.name}: s={pc.s} (ring attention, sequence "
+                       f"parallelism)", "9d")
+            if op.mesh_refusal:
+                raise ValueError(f"{op.name}: {op.mesh_refusal} (under {nd} "
+                                 f"ranks)")
+        if self.config.remat:
+            refuse("--remat", "9d")
+
+    def _pc(self, op: Op):
+        return self.strategy.find(op.name)
+
+    def _bind(self, op: Op) -> Op:
+        op.bind_mesh(self.plan, self._pc(op), self.world)
+        return op
+
+    def _param_spec(self, op: Op, spec):
+        return self.plan.spec(self._pc(op), spec.dim_axes, spec.shape)
+
+    @functools.cached_property
+    def _batch_specs(self) -> Dict[str, tuple]:
+        """Each input's spec: the one its first consumer reads it in (the
+        mapper slicing the loader over the consumer's tasks)."""
+        out = {}
+        for t in self.model.input_tensors:
+            out[t.name] = replicated(t.ndim)
+            for op in self.model.layers:
+                if t in op.inputs:
+                    out[t.name] = self._bind(op).input_spec(
+                        op.inputs.index(t), replicated(t.ndim))
+                    break
+        return out
 
     def _require_optimizer(self, what: str):
         if self.optimizer is None:
@@ -156,11 +254,93 @@ class Executor:
                                 (state, op.state_specs())):
                 if specs:
                     tree[op.name] = {
-                        k: specs[k].initializer(gen, specs[k].shape,
-                                                specs[k].dtype).to(self.device)
+                        k: self._local(op, specs[k], specs[k].initializer(
+                            gen, specs[k].shape, specs[k].dtype))
                         for k in sorted(specs)
                     }
         return params, state
+
+    def _local(self, op: Op, spec, full: torch.Tensor) -> torch.Tensor:
+        """The rank's block of a full parameter (or state) on the
+        device."""
+        if self.world is not None:
+            full = full[self.plan.local_slices(
+                self._param_spec(op, spec), full.shape,
+                self.world.rank)].contiguous()
+        return full.to(self.device)
+
+    def param_specs(self) -> Dict[str, Dict[str, tuple]]:
+        """``{op: {key: spec}}`` of every parameter, and of the op state
+        under the same keys' op (``weights.params_from_numpy`` cuts full
+        arrays by these)."""
+        out: Dict[str, Dict[str, tuple]] = {}
+        for op in self.model.layers:
+            specs = {**op.param_specs(), **op.state_specs()}
+            if specs:
+                out[op.name] = {k: self._param_spec(op, v)
+                                for k, v in specs.items()}
+        return out
+
+    def zero_specs(self) -> Dict[str, Dict[str, tuple]]:
+        """``{op: {key: spec}}`` of the optimizer state's parameter-shaped
+        leaves: the parameter's spec under plain training, with
+        ``--zero-opt`` its leading dim further split over the op's
+        data-parallel axes (appended minor-most, see the module
+        docstring)."""
+        out: Dict[str, Dict[str, tuple]] = {}
+        for op in self.model.layers:
+            if op.param_specs():
+                out[op.name] = {}
+                for k, v in op.param_specs().items():
+                    spec = self._param_spec(op, v)
+                    extra = self._zero_axes(op, v)
+                    out[op.name][k] = ((spec[0] + extra,) + spec[1:]
+                                       if extra else spec)
+        return out
+
+    @torch.no_grad()
+    def gather_full(self, tree, specs=None):
+        """The full tensors of a ``{op: {key: block}}`` tree (parameters,
+        op state, or with ``specs=zero_specs()`` the optimizer state's
+        moments), reassembled on every rank; the tree itself on one
+        device."""
+        if self.world is None:
+            return tree
+        specs = specs or self.param_specs()
+        return {op: {k: collectives.reshard(v, specs[op][k],
+                                            replicated(v.dim()), self.world)
+                     for k, v in group.items()}
+                for op, group in tree.items()}
+
+    def _zero_axes(self, op: Op, spec) -> tuple:
+        """The data-parallel axes ZeRO-1 splits a parameter's optimizer
+        state over: those JAX's spec adds to the leading dim
+        (``MeshPlan.spec(extra_leading_axes=...)``) along which the
+        parameter is replicated and its gradient a partial sum."""
+        if not self.config.zero_sharded_optimizer or self.world is None \
+                or not spec.shape:
+            return ()
+        pc = self._pc(op)
+        own = self._param_spec(op, spec)
+        jax_spec = self.plan.spec(pc, spec.dim_axes, spec.shape,
+                                  extra_leading_axes=self.plan.assign(pc).get(
+                                      "n", ()))
+        work = self._op_work_axes(op)
+        return tuple(a for a in jax_spec[0]
+                     if a not in own[0] and a in work
+                     and a not in collectives.axes_of(own))
+
+    def _op_work_axes(self, op: Op) -> tuple:
+        """The mesh axes of the specs ``op`` reads its inputs in: its
+        work is split on them.  (``Linear`` may read a contraction split
+        on its own ``c`` axes, which split its kernel as well, so they
+        never reduce a gradient.)"""
+        if op.name not in self._work_axes:
+            self._bind(op)
+            self._work_axes[op.name] = collectives.axes_of(*(
+                op.input_spec(i, replicated(t.ndim))
+                for i, t in enumerate(op.inputs)))
+        return self._work_axes[op.name]
 
     def init_params(self, seed: Optional[int] = None) -> Tree:
         """The params of :meth:`init_params_and_state`."""
@@ -171,13 +351,42 @@ class Executor:
         holds the op state (``{}`` when no op keeps any)."""
         opt = self._require_optimizer("init")
         params, state = self.init_params_and_state(seed)
+        if self.config.zero_sharded_optimizer and self.world is not None:
+            # Born split: the moments of each rank's slice only.
+            return params, opt.init(self._zero_views(params)), state
         return params, opt.init(params), state
+
+    def _zero_views(self, tree):
+        """Each parameter's ZeRO-1 slice as a view of the rank's block
+        (the whole block where no data-parallel axis splits it)."""
+        out = {}
+        for op in self.model.layers:
+            if op.name not in tree:
+                continue
+            out[op.name] = {}
+            for k, v in op.param_specs().items():
+                p = tree[op.name][k]
+                extra = self._zero_axes(op, v)
+                out[op.name][k] = self.world.block(p, 0, extra) if extra \
+                    else p
+        return out
 
     def shard_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """A host batch as tensors on the device, each in its input's
-        dtype (one device: nothing is sharded)."""
-        return {t.name: torch.as_tensor(batch[t.name]).to(self.device, t.dtype)
-                for t in self.model.input_tensors if t.name in batch}
+        dtype.  Under a mesh a host (numpy) array is the global batch and
+        the rank keeps its block of it; a tensor is taken as the rank's
+        block already."""
+        out = {}
+        for t in self.model.input_tensors:
+            if t.name not in batch:
+                continue
+            v = batch[t.name]
+            if self.world is not None and not isinstance(v, torch.Tensor):
+                v = np.asarray(v)
+                v = v[self.plan.local_slices(self._batch_specs[t.name],
+                                             v.shape, self.world.rank)]
+            out[t.name] = torch.as_tensor(v).to(self.device, t.dtype)
+        return out
 
     # -- forward -------------------------------------------------------------
 
@@ -190,9 +399,11 @@ class Executor:
         for t in self.model.input_tensors:
             # The sample dim may shrink; feature dims are structural.
             strict = 1 if (t.dim_axes and t.dim_axes[0] == "n") else 0
+            shape = t.shape if self.world is None else \
+                self.plan.local_shape(self._batch_specs[t.name], t.shape)
             if t.name in env and \
-                    tuple(env[t.name].shape[strict:]) != t.shape[strict:]:
-                raise ValueError(f"input {t.name}: expected {t.shape}, got "
+                    tuple(env[t.name].shape[strict:]) != shape[strict:]:
+                raise ValueError(f"input {t.name}: expected {shape}, got "
                                  f"{tuple(env[t.name].shape)}")
         return env
 
@@ -209,11 +420,20 @@ class Executor:
         layers = self.model.layers if layers is None else layers
         rows_override = rows_override or {}
         env = self._inputs(batch, {t.name for op in layers for t in op.inputs})
+        specs = {} if self.world is None else {
+            k: self._batch_specs[k] for k in env}
         total_loss = None
         metrics: Dict[str, torch.Tensor] = {}
         new_state: Dict[str, Any] = {}
         for op in layers:
-            xs = [env[t.name] for t in op.inputs]
+            self._bind(op)
+            if self.world is None:
+                xs = [env[t.name] for t in op.inputs]
+            else:
+                xs = [collectives.reshard(env[t.name], specs[t.name],
+                                          op.input_spec(i, specs[t.name]),
+                                          self.world)
+                      for i, t in enumerate(op.inputs)]
             s = state.get(op.name, {})
             if op.name in rows_override:
                 result, s_new = op.sparse_forward(rows_override[op.name], xs,
@@ -243,8 +463,10 @@ class Executor:
                 metrics = _merge_metrics(metrics, m)
             else:
                 ys = result
-            for t, y in zip(op.outputs, ys):
+            for j, (t, y) in enumerate(zip(op.outputs, ys)):
                 env[t.name] = y
+                if self.world is not None:
+                    specs[t.name] = op.output_spec(j)
             if s and s_new is not s:
                 # The op's new state goes into its state's tensors in
                 # place: a captured step must hand back the tensors it
@@ -279,9 +501,45 @@ class Executor:
     def loss_and_grads(self, params, state, batch):
         """``(loss, metrics, new_state, grads)`` of one training forward
         and backward; ``grads`` has the params' structure and dtypes
-        (zeros for a parameter the loss does not reach, as JAX gives)."""
+        (zeros for a parameter the loss does not reach, as JAX gives).
+        Under a mesh each gradient is the rank's block of the global
+        batch's gradient."""
         loss, metrics, new_state, grads, _ = self._grads(params, state, batch)
-        return loss, metrics, new_state, grads
+        return loss, metrics, new_state, self._reduce_grads(grads)
+
+    def _reduce_grads(self, grads, zero: bool = False):
+        """All-reduce each gradient over the axes on which its parameter
+        is replicated but its op's work is split (bucketed by axes and
+        dtype: one collective per bucket).  With ``zero`` the op's ZeRO-1
+        axes are reduce-scattered along the leading dim instead, and the
+        result is the rank's ZeRO slice of each gradient."""
+        if self.world is None:
+            return grads
+        out = {op: dict(g) for op, g in grads.items()}
+        buckets: Dict[tuple, List[tuple]] = {}
+        for op in self.model.layers:
+            if op.name not in grads:
+                continue
+            work = self._op_work_axes(op)
+            for k, spec in op.param_specs().items():
+                own = collectives.axes_of(self._param_spec(op, spec))
+                red = tuple(a for a in work if a not in own)
+                extra = self._zero_axes(op, spec) if zero else ()
+                if extra:
+                    out[op.name][k] = self.world.reduce_scatter(
+                        grads[op.name][k], 0, extra)
+                    red = tuple(a for a in red if a not in extra)
+                if red:
+                    g = out[op.name][k]
+                    buckets.setdefault((red, g.dtype), []).append(
+                        (op.name, k))
+        for (axes, _), items in buckets.items():
+            flat = torch.cat([out[o][k].reshape(-1) for o, k in items])
+            flat = self.world.all_reduce(flat, axes)
+            for (o, k), part in zip(items, flat.split(
+                    [out[o][k].numel() for o, k in items])):
+                out[o][k] = part.view_as(out[o][k])
+        return out
 
     def _grads(self, params, state, batch, rows=None):
         """The forward and one ``torch.autograd.grad`` over the params and
@@ -312,9 +570,26 @@ class Executor:
         """The --clip-norm factor ``min(1, c / ||g||)`` over the global L2
         norm of ``grads`` plus ``extra_sq`` (the sparse ops' squared
         per-unique-row sums): one f32 device scalar, nothing read back.
-        One formula for the dense and the sparse step."""
-        sq = extra_sq + sum(g.float().square().sum() for group in grads.values()
-                            for g in group.values())
+        One formula for the dense and the sparse step.  Under a mesh the
+        squares of a gradient split over some axes are summed over them
+        (its spec's, or its ZeRO slice's with ``--zero-opt``); a
+        replicated one counts once."""
+        if self.world is None:
+            sq = extra_sq + sum(g.float().square().sum()
+                                for group in grads.values()
+                                for g in group.values())
+        else:
+            by_axes: Dict[tuple, Any] = {}
+            specs = (self.zero_specs() if self.config.zero_sharded_optimizer
+                     else self.param_specs())
+            for op, group in grads.items():
+                for k, g in group.items():
+                    axes = collectives.axes_of(specs[op][k])
+                    by_axes[axes] = by_axes.get(axes, 0.0) + \
+                        g.float().square().sum()
+            sq = extra_sq
+            for axes, part in by_axes.items():
+                sq = sq + self.world.all_reduce(part, axes)
         return torch.clamp(self.config.clip_norm
                            * torch.rsqrt(torch.clamp(sq, min=1e-30)), max=1.0)
 
@@ -357,11 +632,30 @@ class Executor:
         place.  Returns ``(params, opt_state, state, metrics)``."""
         opt = self._require_optimizer("train_step")
         if self._sparse_ops:
+            if self.plan.num_devices > 1:
+                raise ValueError(
+                    f"the row-sparse embedding update of "
+                    f"{[op.name for op in self._sparse_ops]} under "
+                    f"{self.plan.num_devices} ranks is ROADMAP.md queue 1, "
+                    f"item 9b")
             return self._sparse_train_step(params, opt_state, state, batch)
-        _loss, metrics, new_state, grads = self.loss_and_grads(
-            params, state, batch)
-        grads = self._clip_grads(grads)
-        params, opt_state = opt.update(params, opt_state, grads)
+        zero = self.config.zero_sharded_optimizer and self.world is not None
+        _loss, metrics, new_state, grads, _ = self._grads(params, state, batch)
+        grads = self._clip_grads(self._reduce_grads(grads, zero=zero))
+        if not zero:
+            params, opt_state = opt.update(params, opt_state, grads)
+            return params, opt_state, new_state, metrics
+        # ZeRO-1: each rank updates its slice, then the slices are
+        # all-gathered into the parameters.
+        views = self._zero_views(params)
+        _, opt_state = opt.update(views, opt_state, grads)
+        with torch.no_grad():
+            for op in self.model.layers:
+                for k, spec in op.param_specs().items():
+                    extra = self._zero_axes(op, spec)
+                    if extra:
+                        params[op.name][k].copy_(self.world.all_gather(
+                            views[op.name][k], 0, extra))
         return params, opt_state, new_state, metrics
 
     def _sparse_train_step(self, params, opt_state, state, batch):
@@ -468,6 +762,7 @@ class Executor:
                     f"gradient accumulation requires mean-reduction "
                     f"losses; {op.name!r} uses {op.reduction!r}")
         opt = self._require_optimizer("accum_train_step")
+        self._refuse_multi("gradient accumulation (--accum-steps)")
 
         def step(params, opt_state, state, stacked):
             acc, ms = None, []
@@ -509,12 +804,17 @@ class Executor:
 
     # -- superstep execution ---------------------------------------------
 
+    def _refuse_multi(self, what: str) -> None:
+        if self.plan.num_devices > 1:
+            raise ValueError(f"{what} under {self.plan.num_devices} ranks is "
+                             f"ROADMAP.md queue 1, item 9d")
+
     @property
     def superstep_fused(self) -> bool:
-        """Whether ``steps_per_call > 1`` fuses into one dispatch here:
-        always, on the one device of the port (the trainer routes on
-        it, as the JAX package's does)."""
-        return True
+        """Whether ``steps_per_call > 1`` fuses into one dispatch here (the
+        trainer routes on it, as the JAX package's does): on one rank;
+        under more, supersteps are item 9d."""
+        return self.plan.num_devices == 1
 
     def build_superstep(self, k: int, accum_steps: int = 1):
         """K full train steps (accumulated steps with ``accum_steps >
@@ -533,6 +833,7 @@ class Executor:
         ``trainer.relay_safe_steps``."""
         if k < 1:
             raise ValueError(f"steps_per_call must be >= 1, got {k}")
+        self._refuse_multi("the superstep (--steps-per-call)")
         step = (self.accum_train_step(accum_steps) if accum_steps > 1
                 else self.train_step)
         return StepGraph(step, k, self.device)

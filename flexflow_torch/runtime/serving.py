@@ -55,9 +55,9 @@ The single-device core of ``flexflow_tpu/runtime/serving.py``:
   with telemetry on and off; every event is emitted on the host between
   dispatches, never inside a captured graph.
 
-The SLO scheduler over these programs is ``serving/scheduler.py``.  Left
-for later slices (ROADMAP.md queue 1): the fleet (item 8's rest) and
-sharded decode (item 9).
+The SLO scheduler over these programs is ``serving/scheduler.py``, and
+the fleet of replicas behind a router ``serving/fleet.py::FleetRouter``.
+Sharded decode is ROADMAP.md queue 1, item 9c.
 """
 
 from __future__ import annotations

@@ -670,8 +670,8 @@ class ScheduledServer:
         return self.ex.max_seq
 
     def advertised_capacity(self) -> Dict[str, Any]:
-        """The capacity a fleet router reads (the fleet is ROADMAP.md
-        queue 1 item 8's rest): ``slots`` after any degraded rung (the
+        """The capacity a fleet router reads
+        (``serving/fleet.py::FleetRouter``): ``slots`` after any degraded rung (the
         rungs shrink ``max_batch`` or the pool in place) and ``degraded``,
         the rungs taken.  The same in real and simulated mode."""
         return {

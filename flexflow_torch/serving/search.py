@@ -18,7 +18,7 @@ Legality is checked when a candidate is built, through
 search emits only configs the executor accepts.  The app's own config
 competes as a candidate, so the winner's predicted p99 is printed against
 it.  A ``shard`` other than None is refused: sharded decode comes with
-ROADMAP.md queue 1 item 9.
+ROADMAP.md queue 1 item 9c.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ class ServingConfig:
     #: Prefix sharing on the paged pool (searched on and off).
     prefix_cache: bool = False
     #: Mesh shard (n, c), carried and never searched; anything but None
-    #: is refused until ROADMAP.md queue 1 item 9.
+    #: is refused until ROADMAP.md queue 1 item 9c.
     shard: Optional[Tuple[int, int]] = None
     #: Speculative draft depth (0 = plain fused decode), searched only
     #: when the baseline speculates.
@@ -78,7 +78,7 @@ class ServingConfig:
         if self.shard is not None:
             raise ValueError(
                 f"shard={self.shard}: sharded serving comes with ROADMAP.md "
-                f"queue 1 item 9 (multi-device strategies)")
+                f"queue 1 item 9c (sharded serving)")
         shape = self.shape()
         object.__setattr__(self, "buckets", shape.buckets)
         object.__setattr__(self, "kv_blocks", shape.kv_blocks)

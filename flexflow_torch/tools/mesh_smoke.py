@@ -1,0 +1,391 @@
+"""Training runs across a world of ranks, for the mesh's checks.
+
+``run_cases(cases)`` is a rank's body (``parallel/launch.py``): each case
+builds a small model (``MODELS``), places it by a strategy table, loads
+given full parameters (numpy, cut to the rank's blocks), trains a few
+steps on given numpy batches and returns the losses and the full
+parameters and optimizer moments, reassembled on every rank.  The CPU
+tests hold these against the JAX package's runs of the same tables;
+``chip_smoke.py`` runs them on CUDA tensors.  A case is a dict:
+
+- ``model`` (a key of ``MODELS``) and ``model_kw``;
+- ``table``: ``{op: ParallelConfig JSON}`` (missing ops data-parallel);
+- ``optimizer``: ``("sgd" | "adam", kwargs)``; ``config``: FFConfig
+  fields (``zero_sharded_optimizer``, ``clip_norm``, ...);
+- ``params`` (full numpy tree, or None for the executor's own init),
+  ``state`` (likewise), ``batches`` (a list of numpy dicts, one a step);
+- ``device`` (``"cpu"`` or ``"cuda"``), ``dropout_masks`` (also return
+  each Dropout output's global zero pattern from one training forward),
+  ``record_shapes`` (also return the shapes the attention dispatcher and
+  K3's wrapper were called with on this rank).
+
+``chip_app(configs, argv, ref_path)`` is the rank body of
+``chip_smoke.py``'s phase 27: the full-width bf16 LM through
+``apps.transformer.main`` under each configuration in turn, with its
+losses, report, launch counts, the shapes the kernels ran at (each held
+against its plain version on the rank), its parameters against a
+reference run's, ms a step and the share of a step spent in collectives.
+
+``python -m flexflow_torch.tools.mesh_smoke --gloo-probe`` prints which
+collectives and dtypes gloo runs on CUDA tensors on this machine.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+
+def small_cnn(batch: int = 8, dtype=torch.float32):
+    """``tests/test_sharding_equivalence.py``'s model: conv 3x3 (8) ->
+    pool 2x2 -> flat -> fc 16 (relu) -> fc 4 -> softmax, on 8x8x4
+    images."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.graph import FFModel
+
+    ff = FFModel(FFConfig(batch_size=batch, seed=7))
+    x = ff.create_tensor((batch, 8, 8, 4), dtype=dtype, name="x")
+    lbl = ff.create_tensor((batch,), dtype=torch.int32, name="lbl")
+    t = ff.conv2d(x, 8, 3, 3, 1, 1, 1, 1, activation="relu", name="conv1")
+    t = ff.pool2d(t, 2, 2, 2, 2, 0, 0, name="pool1")
+    t = ff.flat(t, name="flat")
+    t = ff.dense(t, 16, activation="relu", name="fc1")
+    t = ff.dense(t, 4, activation=None, name="fc2")
+    ff.softmax(t, lbl, name="softmax")
+    return ff
+
+
+def norm_cnn(batch: int = 8):
+    """A conv with BatchNorm and a Dropout before the head: the ops whose
+    training forward reads the whole batch (statistics) or a key (the
+    mask)."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.graph import FFModel
+
+    ff = FFModel(FFConfig(batch_size=batch, seed=3))
+    x = ff.create_tensor((batch, 8, 8, 4), name="x")
+    lbl = ff.create_tensor((batch,), dtype=torch.int32, name="lbl")
+    t = ff.conv2d(x, 8, 3, 3, 1, 1, 1, 1, name="conv1")
+    t = ff.batch_norm(t, relu=True, name="bn1")
+    t = ff.flat(t, name="flat")
+    t = ff.dropout(t, 0.5, name="drop")
+    t = ff.dense(t, 4, name="fc")
+    ff.softmax(t, lbl, name="softmax")
+    return ff
+
+
+def lm(**kw):
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.transformer import build_transformer_lm
+
+    return build_transformer_lm(config=FFConfig(batch_size=kw["batch_size"],
+                                                seed=0), **kw)
+
+
+MODELS = {"small_cnn": small_cnn, "norm_cnn": norm_cnn, "lm": lm}
+
+
+def _numpy(tree):
+    return {op: {k: v.detach().float().cpu().numpy() if v.is_floating_point()
+                 else v.cpu().numpy() for k, v in g.items()}
+            for op, g in tree.items()}
+
+
+def executor_for(case: Dict[str, Any]):
+    """The case's model and executor (on this rank's world, if any)."""
+    from flexflow_torch.optim import AdamOptimizer, SGDOptimizer
+    from flexflow_torch.parallel import launch
+    from flexflow_torch.parallel.strategy import ParallelConfig, StrategyStore
+    from flexflow_torch.runtime.executor import Executor
+
+    ff = MODELS[case["model"]](**case.get("model_kw", {}))
+    for k, v in case.get("config", {}).items():
+        setattr(ff.config, k, v)
+    name, kw = case.get("optimizer", ("sgd", {"lr": 0.05, "momentum": 0.9}))
+    opt = (AdamOptimizer if name == "adam" else SGDOptimizer)(**kw)
+    table = {k: ParallelConfig.from_json(v)
+             for k, v in case.get("table", {}).items()}
+    store = StrategyStore(launch.world_size(), table)
+    return ff, Executor(ff, optimizer=opt, device=case.get("device", "cpu"),
+                        strategy=store)
+
+
+def _recording(shapes: Dict[str, list]):
+    """Have the attention op's and the loss's view of ``ops.kernels``
+    record the input shape of each call of the attention dispatcher and
+    of K3's wrapper (the wrappers themselves, and their launch counters,
+    stay as they are); returns the undo."""
+    from flexflow_torch.ops import attention, kernels, losses
+
+    class _Recorder:
+        def __getattr__(self, name):
+            fn = getattr(kernels, name)
+            if name not in ("flash_attention_lse_auto", "softmax_xent"):
+                return fn
+
+            def call(x, *a, **kw):
+                shapes.setdefault(name, []).append(tuple(x.shape))
+                return fn(x, *a, **kw)
+            return call
+
+    for mod in (attention, losses):
+        mod.kernels = _Recorder()
+    return lambda: [setattr(mod, "kernels", kernels)
+                    for mod in (attention, losses)]
+
+
+def train_case(case: Dict[str, Any]) -> Dict[str, Any]:
+    """One case on this rank (see the module docstring)."""
+    shapes: Dict[str, list] = {}
+    undo = _recording(shapes) if case.get("record_shapes") else None
+    try:
+        out = _train(case)
+    finally:
+        if undo:
+            undo()
+    if undo:
+        out["kernel_shapes"] = shapes
+    return out
+
+
+def _train(case: Dict[str, Any]) -> Dict[str, Any]:
+    from flexflow_torch.weights import params_from_numpy, state_from_numpy
+
+    if case.get("device") == "cuda":  # f32 held in f32: no TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    ff, ex = executor_for(case)
+    params, opt_state, state = ex.init()
+    w = ex.world
+    where = dict(plan=ex.plan if w else None, rank=w.rank if w else 0)
+    dev = ex.device
+    if case.get("params") is not None:
+        params = params_from_numpy(case["params"], dev,
+                                   specs=ex.param_specs(), **where)
+        opt_state = ex.optimizer.init(
+            ex._zero_views(params) if w is not None and
+            ex.config.zero_sharded_optimizer else params)
+    if case.get("state") is not None:
+        state = state_from_numpy(case["state"], dev, specs=ex.param_specs(),
+                                 **where)
+    out: Dict[str, Any] = {"jax_imported": "jax" in sys.modules}
+    if case.get("dropout_masks"):
+        _, _, _, env = ex.forward(params, {k: {n: t.clone()
+                                                for n, t in g.items()}
+                                           for k, g in state.items()},
+                                  case["batches"][0], training=True)
+        masks = {}
+        for op in ff.layers:
+            if type(op).__name__ == "Dropout":
+                y = env[op.outputs[0].name].detach()
+                if w is not None:
+                    from flexflow_torch.parallel import collectives
+                    from flexflow_torch.parallel.mesh import replicated
+
+                    y = collectives.reshard(y, op.output_spec(0),
+                                            replicated(y.dim()), w)
+                masks[op.name] = (y == 0).cpu().numpy()
+        out["dropout_masks"] = masks
+    losses = []
+    for batch in case["batches"]:
+        params, opt_state, state, m = ex.train_step(
+            params, opt_state, state, ex.shard_batch(batch))
+        losses.append(float(m["train_loss"]))
+    out["losses"] = losses
+    out["params"] = _numpy(ex.gather_full(params))
+    if opt_state is not None and isinstance(opt_state, dict) and \
+            "m" in opt_state:
+        specs = ex.zero_specs()
+        out["moments"] = {k: _numpy(ex.gather_full(opt_state[k], specs))
+                          for k in ("m", "v")}
+        out["moment_shapes"] = {op: {k: tuple(v.shape) for k, v in g.items()}
+                                for op, g in opt_state["m"].items()}
+    return out
+
+
+def run_cases(cases: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Every case in turn on this rank of the world."""
+    return [train_case(c) for c in cases]
+
+
+def digest(params) -> Dict[str, str]:
+    """A sha256 of each parameter's bytes: bit-for-bit comparisons across
+    processes without moving the tensors."""
+    import hashlib
+
+    out = {}
+    for op, g in params.items():
+        for k, v in g.items():
+            raw = v.detach().contiguous().view(torch.uint8).cpu().numpy()
+            out[f"{op}.{k}"] = hashlib.sha256(raw.tobytes()).hexdigest()
+    return out
+
+
+def chip_app(configs: List[Dict[str, Any]], argv: List[str],
+             ref_path: str) -> List[Dict[str, Any]]:
+    """Rank body of chip_smoke's phase 27: per configuration (``dp``,
+    ``tp``, ``zero``; ``fault`` runs without the gradient all-reduce, a
+    planted fault the phase's bars must catch), the command line ``argv``
+    through ``apps.transformer.main`` with ``-ll:gpu`` the world's size,
+    every kernel counter zeroed first.  Returns per configuration the
+    app's exit code, report, losses and ms a step, the launch counts, the
+    shapes the attention dispatcher and K3 were called with, the digest
+    of the trained parameters gathered whole, their distance from the
+    reference run's (``ref_path``: ``{"init", "trained"}`` full tensors)
+    over the reference's change, the share of one more step spent in
+    collectives; K1f, K1b and K3 are held against their plain versions at
+    each new shape the rank launched them at (chip_smoke's rules)."""
+    import contextlib
+    import io
+    import time
+
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from flexflow_torch.apps import transformer
+    from flexflow_torch.data.loader import synthetic_host_batch
+    from flexflow_torch.ops import kernels
+    from flexflow_torch.parallel import launch
+    from flexflow_torch.runtime.executor import Executor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.load(ref_path, map_location="cuda")
+    out, held = [], {}
+    for c in configs:
+        args = list(argv) + ["-ll:gpu", str(launch.world_size()), "--dp",
+                             str(c["dp"]), "--tp", str(c["tp"])]
+        if c.get("zero"):
+            args.append("--zero-opt")
+        shapes: Dict[str, list] = {}
+        stats: Dict[str, Any] = {}
+        report = io.StringIO()
+        undo = _recording(shapes)
+        reduce_grads = Executor._reduce_grads
+        if c.get("fault"):
+            Executor._reduce_grads = lambda self, grads, zero=False: grads
+        cs._zero_counts()
+        try:
+            with contextlib.redirect_stdout(report):
+                code = transformer.main(args, device="cuda", stats_out=stats)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+            Executor._reduce_grads = reduce_grads
+        counts = {k: v for k, v in cs._counts().items() if v}
+        ex = stats.pop("executor")
+        params, opt_state, state = stats.pop("final")
+        full = ex.gather_full(params)
+        dig, num, den = digest(full), 0.0, 0.0
+        for op, g in ref["trained"].items():
+            for k, want in g.items():
+                num += float((full[op][k].detach().float() - want)
+                             .square().sum())
+                den += float((want - ref["init"][op][k]).square().sum())
+        del full
+        # One more step with each collective timed alone (it updates the
+        # parameters in place).
+        batch = ex.shard_batch(synthetic_host_batch(ex.model,
+                                                    np.random.default_rng(0)))
+        w = ex.world
+        dist.barrier()
+        torch.cuda.synchronize()
+        w.comm_s, w.timed = 0.0, True
+        t0 = time.perf_counter()
+        _, _, _, m = ex.train_step(params, opt_state, state, batch)
+        float(m["train_loss"])
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        comm_ms, w.timed = w.comm_s * 1e3, False
+        moments = {k: tuple(v.shape) for k, v in
+                   opt_state["m"]["lm_head"].items()}
+        result = dict(
+            config=c, code=code, report=report.getvalue(),
+            losses=stats["step_losses"], counts=counts,
+            ms_step=stats["elapsed_s"] * 1e3 / stats["iterations"],
+            samples=stats["samples_per_s"] * stats["elapsed_s"],
+            shapes={k: sorted(set(v)) for k, v in shapes.items()},
+            digest=dig, distance=(num / den) ** 0.5,
+            one_step_ms=one_ms, comm_ms=comm_ms, lm_head_moments=moments,
+            backend=dist.get_backend(), device=torch.cuda.current_device(),
+            jax_imported="jax" in sys.modules)
+        del ex, params, opt_state, state, batch, m, stats
+        torch.cuda.empty_cache()
+        holds = {}
+        for shape in sorted(set(shapes.get("flash_attention_lse_auto", []))):
+            if ("attn", shape) not in held:
+                held[("attn", shape)] = cs.mesh_attention_hold(torch, kernels,
+                                                               shape)
+            holds[f"K1f/K1b {shape}"] = held[("attn", shape)]
+        for shape in sorted(set(shapes.get("softmax_xent", []))):
+            if ("xent", shape) not in held:
+                held[("xent", shape)] = cs.mesh_xent_hold(torch, kernels,
+                                                          *shape)
+            holds[f"K3 {shape}"] = held[("xent", shape)]
+        torch.cuda.empty_cache()
+        out.append(dict(result, holds=holds))
+    return out
+
+
+def fail_rank(bad_rank: int) -> None:
+    """Rank ``bad_rank`` raises before a collective the others wait in:
+    the world must fail, not hang (the launcher's contract)."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == bad_rank:
+        raise RuntimeError(f"rank {bad_rank} fails on purpose")
+    t = torch.ones(4)
+    dist.all_reduce(t)
+
+
+def gloo_probe() -> Dict[str, str]:
+    """Which collectives gloo runs on CUDA tensors here (rank body of a
+    world of 2 on one card): ``{"name dtype": "ok" | error}``."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda")
+    n = dist.get_world_size()
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.arange(4, dtype=dt, device=dev)
+
+        def probe(name, fn):
+            try:
+                fn()
+                torch.cuda.synchronize()
+                res[f"{name} {str(dt)[6:]}"] = "ok"
+            except Exception as e:  # the answer, recorded per collective
+                res[f"{name} {str(dt)[6:]}"] = f"{type(e).__name__}: " \
+                    f"{str(e).splitlines()[0][:60]}"
+
+        probe("all_reduce", lambda: dist.all_reduce(x.clone()))
+        probe("all_gather", lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(n)], x))
+        probe("reduce_scatter", lambda: dist.reduce_scatter(
+            torch.empty(4 // n, dtype=dt, device=dev),
+            list(x.clone().chunk(n))))
+        probe("all_to_all_single", lambda: dist.all_to_all_single(
+            torch.empty_like(x), x))
+        probe("broadcast", lambda: dist.broadcast(x.clone(), 0))
+    return res
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv != ["--gloo-probe"]:
+        print("usage: python -m flexflow_torch.tools.mesh_smoke --gloo-probe")
+        return 2
+    from flexflow_torch.parallel import launch
+
+    res = launch.run("flexflow_torch.tools.mesh_smoke:gloo_probe", nprocs=2,
+                     device="cuda", backend="gloo", timeout_s=120)[0]
+    for k, v in res.items():
+        print(f"{k:28s} {v}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

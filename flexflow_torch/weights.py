@@ -23,52 +23,71 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy torch owns
 
 
+def _block(arr, plan, rank: int, specs, op: str, name: str):
+    """The rank's block of a full array (the array itself without a
+    plan)."""
+    a = np.asarray(arr)
+    if plan is None:
+        return a
+    return a[plan.local_slices(specs[op][name], a.shape, rank)]
+
+
 def params_from_numpy(
     np_params: Mapping[str, Mapping[str, np.ndarray]],
     device="cuda",
     dtype: Optional[torch.dtype] = None,
+    plan=None,
+    rank: int = 0,
+    specs=None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """``{op: {param: array}}`` -> the same tree of tensors on
     ``device``.  Each array keeps its own dtype unless ``dtype`` is
-    given, which then applies to every floating-point parameter."""
+    given, which then applies to every floating-point parameter.  With a
+    ``MeshPlan``, each array is cut to ``rank``'s block under
+    ``specs[op][param]``."""
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for op, group in np_params.items():
         out[op] = {}
         for name, arr in group.items():
-            t = _tensor(arr)
+            t = _tensor(_block(arr, plan, rank, specs, op, name))
             if dtype is not None and t.is_floating_point():
                 t = t.to(dtype)
             out[op][name] = t.to(device)
     return out
 
 
-def opt_state_from_numpy(np_state, device="cuda"):
+def opt_state_from_numpy(np_state, device="cuda", plan=None, rank: int = 0,
+                         specs=None):
     """A JAX optimizer state, after ``jax.device_get``, as the port's:
     Adam's ``{"m": tree, "v": tree, "t": array}`` becomes f32 moment
     trees and a 0-d int32 step count on ``device``; SGD's momentum tree (or None)
     becomes a tree of tensors in its own dtype (or None).  Both packages
-    can then continue from one state."""
+    can then continue from one state.  With a ``MeshPlan`` each moment is
+    cut to ``rank``'s block under ``specs`` (``Executor.zero_specs``)."""
     if np_state is None:
         return None
+    kw = dict(plan=plan, rank=rank, specs=specs)
     if set(np_state) == {"m", "v", "t"}:
-        return {"m": params_from_numpy(np_state["m"], device),
-                "v": params_from_numpy(np_state["v"], device),
+        return {"m": params_from_numpy(np_state["m"], device, **kw),
+                "v": params_from_numpy(np_state["v"], device, **kw),
                 "t": torch.tensor(int(np.asarray(np_state["t"])),
                                   dtype=torch.int32, device=device)}
-    return params_from_numpy(np_state, device)
+    return params_from_numpy(np_state, device, **kw)
 
 
-def state_from_numpy(np_state, device="cuda"):
+def state_from_numpy(np_state, device="cuda", plan=None, rank: int = 0,
+                     specs=None):
     """A JAX op state, after ``jax.device_get``, as the port's: the same
     ``{op: {key: array}}`` tree, with unsigned integer arrays (Dropout's
     uint32 threefry key) widened to int64, the form
     ``runtime/keyed_random.py`` computes in; float state (BatchNorm's
-    running statistics) keeps its dtype."""
+    running statistics) keeps its dtype; with a ``MeshPlan`` each array is
+    cut to ``rank``'s block under ``specs``."""
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for op, group in np_state.items():
         out[op] = {}
         for name, arr in group.items():
-            a = np.asarray(arr)
+            a = _block(arr, plan, rank, specs, op, name)
             if a.dtype.kind == "u":
                 a = a.astype(np.int64)
             out[op][name] = _tensor(a).to(device)

@@ -253,7 +253,7 @@ def test_alexnet_app_on_cpu(capsys, dtype):
     (["-d", "images/"], "item 12"), (["--dataset", "images/"], "item 12"),
     (["-s", "auto"], "item 11"), (["--search"], "item 11"),
     (["--search-iters", "10"], "item 11"), (["-s", "s.pb"], "protobuf"),
-    (["-ll:gpu", "2"], "item 9")])
+    (["-ll:gpu", "2", "--remat"], "item 9")])
 def test_alexnet_app_refuses_by_name(flag, why):
     with pytest.raises(SystemExit) as e:
         tapp.main(_APP + flag, device="cpu")
@@ -263,7 +263,9 @@ def test_alexnet_app_refuses_by_name(flag, why):
 
 def test_alexnet_app_takes_a_one_gpu_strategy_file(tmp_path, capsys):
     """A JSON file written by the JAX package: every op on the one GPU
-    runs; an op split two ways is refused, naming the op."""
+    runs; on one rank an op split two ways is refused, naming the op and
+    the ranks it needs, and an op on a subset of the devices naming the
+    pipeline (item 10)."""
     ok = JStore(1)
     ok.set("conv1", JPC(n=1))
     ok.set("linear1", JPC(device_ids=(0,)))
@@ -273,9 +275,14 @@ def test_alexnet_app_takes_a_one_gpu_strategy_file(tmp_path, capsys):
     wide = JStore(2)
     wide.set("linear1", JPC(c=2))
     wide.save(str(tmp_path / "two.json"))
-    with pytest.raises(SystemExit, match="'linear1'.*item 9"):
+    with pytest.raises(SystemExit, match="'linear1'.*-ll:gpu 2"):
         tapp.main(_APP + ["--strategy", str(tmp_path / "two.json")],
                   device="cpu")
+    subset = JStore(1)
+    subset.set("linear1", JPC(device_ids=(1,)))
+    subset.save(str(tmp_path / "subset.json"))
+    with pytest.raises(SystemExit, match="'linear1'.*item 10"):
+        tapp.main(_APP + ["-s", str(tmp_path / "subset.json")], device="cpu")
 
 
 def test_eval_iters_match_jax(capsys):

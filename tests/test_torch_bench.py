@@ -107,7 +107,7 @@ def test_strategy_refusals(tmp_path):
         StrategyStore.load(str(tmp_path / "s.pb"))
     StrategyStore(2, {"x": ParallelConfig(c=2)}).save(str(tmp_path / "s.json"))
     cfg = TConfig(batch_size=2, strategy_file=str(tmp_path / "s.json"))
-    with pytest.raises(SystemExit, match="'x'.*item 9"):
+    with pytest.raises(SystemExit, match="'x'.*-ll:gpu 2"):
         load_strategy(cfg)
 
 

@@ -131,7 +131,7 @@ def test_candle_app_on_cpu(flags):
 
 @pytest.mark.parametrize("flag,msg", [
     (["-d", "csvs"], "item 12"), (["--elastic"], "item 13"),
-    (["--granules", "2"], "item 9"), (["--stream-dataset"], "item 12"),
+    (["--granules", "2"], "granules"), (["--stream-dataset"], "item 12"),
     (["-s", "auto"], "item 11"), (["--search", "5"], "item 11"),
     (["--dense-layers", "a-b"], "invalid")])
 def test_candle_app_refuses(flag, msg):

@@ -430,8 +430,10 @@ def test_transformer_app_trains_experts_on_cpu(capsys, flags):
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
-@pytest.mark.parametrize("flag,msg", [(["--tp", "2"], "item 9"),
-                                      (["--experts", "1"], "experts")])
+@pytest.mark.parametrize("flag,msg", [
+    # --tp 2 on one rank needs a second one (the id is the case's old one)
+    pytest.param(["--tp", "2"], "-ll:gpu 2", id="flag0-item 9"),
+    (["--experts", "1"], "experts")])
 def test_transformer_app_refuses(flag, msg):
     with pytest.raises(SystemExit, match=msg):
         tapp.main(_APP[:-2] + flag, device="cpu")

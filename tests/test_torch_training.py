@@ -249,7 +249,7 @@ def test_transformer_app_on_cpu(capsys, dtype):
 @pytest.mark.parametrize("flag", [
     ["--dp", "2"], ["--sp", "2"], ["--tp", "2"],
     ["--elastic"], ["--telemetry"], ["--lazy-sparse-opt"],
-    ["-ll:gpu", "2"], ["--dtype", "float16"], ["--ckpt-dir"],
+    ["-ll:gpu", "2", "--remat"], ["--dtype", "float16"], ["--ckpt-dir"],
     ["--bogus"]])
 def test_transformer_app_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as e:
