@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Twenty-seven phases, in order; any failure raises and exits non-zero:
+Twenty-eight phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -362,11 +362,40 @@ Twenty-seven phases, in order; any failure raises and exits non-zero:
     ``tests/test_sharding_equivalence.py`` in f32 under DP 4, TP, spatial
     and hybrid tables on 4 ranks of CUDA tensors against one rank, at the
     CPU tests' tolerance.
+28. **The DLRM on a mesh** (``mesh-dlrm``, ``MESH_DLRM``: phase 9's
+    command line through ``apps.dlrm.main`` on worlds of ranks,
+    ``flexflow_torch/tools/mesh_smoke.py::dlrm_app`` the rank body; every
+    run of a world from one draw of the tables).  (a) A world of 1
+    (``-ll:gpu 1``): plain SGD's losses, dense parameters and the batch's
+    table rows bit for bit phase 9's, no other row moved; lazy Adam and
+    momentum SGD beside it as the references of (b).  (b) Worlds of 2
+    (NCCL a card a rank with two cards, gloo on one), the tables set by a
+    ``-s`` table: ``embeddings`` replicated (n=2 c=1) and row-sharded
+    (c=2, ``dlrm_strategy(2)``'s: 4 of the 8 tables a rank), under plain
+    SGD, lazy Adam and momentum SGD.  Per rank: exit code, local table
+    shape, exact K4 / ``gather_rows_multi`` / K5 counts, only the batch's
+    rows moved (lazy Adam: and its moments).  The sharded tables equal
+    the replicated ones bit for bit under SGD and lazy Adam (the dense
+    arm within ``TOL_MESH_DLRM_ULP``: its table gradient is summed in
+    another order), the dense parameters equal on every rank, the losses
+    within ``TOL_MESH_LOSS`` of (a)'s and the parameters within
+    ``TOL_MESH_DIST`` of them over their change.  (c) Planted faults on
+    rank 1 (its gather keeps its window's rows instead of the
+    all-reduce; it scatters without its window) must fail the bars.  (d)
+    With four cards the tables at c=4 on a world of 4, held bit for bit
+    against the replicated tables (n=4) on the same world, and the first
+    fault at c=4 failing that equality; with two the app spawning its own
+    world (``-ll:gpu 2``), its losses bit for bit (b)'s c=2 SGD run's and
+    within ``TOL_MESH_LOSS`` of (a)'s.  Windowed K4, K4 over
+    three tables and K5 held bit for bit against their plain versions at
+    a c=2 rank's shapes and timed beside ``F.embedding`` with the mask and
+    ``index_add_`` on the window; ms a step, the collective share and
+    peak memory a rank.
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
 DLRM, long-context, race, AlexNet, superstep, serve-features,
 serve-resilience, NMT, CNN, Candle, MoE, item-7, scheduled and fleet runs
-together, and phase 27's ranks, split
+together, and phases 27's and 28's ranks, split
 in ``launches_by_path``; the superstep, serve-features,
 serve-resilience and item-7 paths count what their graph runs launched
 eagerly or captured; K3's entries name the
@@ -1431,13 +1460,14 @@ def phase_train_parity(torch, kernels, streamed: bool = False):
           f"updated-param err {worst_p:.3g} (lr {c['lr']})")
 
 
-def _dlrm_model(batch: int, vocab: int, dtype: str, seed: int, **cfg_kw):
+def _dlrm_model(batch: int, vocab: int, dtype: str, seed: int, c=None,
+                **cfg_kw):
     """The DLRM graph of the DLRM phases (``apps.dlrm``'s for the same
     flags) and its config."""
     from flexflow_torch.config import FFConfig
     from flexflow_torch.models.dlrm import DLRMConfig, build_dlrm
 
-    c = DLRM
+    c = c or DLRM
     cfg = FFConfig(batch_size=batch, compute_dtype=dtype, seed=seed, **cfg_kw)
     spec = DLRMConfig(sparse_feature_size=c["dim"],
                       embedding_size=[vocab] * c["tables"],
@@ -1445,13 +1475,14 @@ def _dlrm_model(batch: int, vocab: int, dtype: str, seed: int, **cfg_kw):
     return build_dlrm(batch, spec, cfg), cfg
 
 
-def _dlrm_argv(optimizer: str = "sgd", extra=()):
-    c = DLRM
+def _dlrm_argv(optimizer: str = "sgd", extra=(), iters=None, c=None):
+    c = c or DLRM
 
     def dash(xs):
         return "-".join(str(x) for x in xs)
 
-    return ["-b", str(c["batch"]), "-i", str(c["iters"]), "--dtype", "bfloat16",
+    return ["-b", str(c["batch"]), "-i", str(iters or c["iters"]),
+            "--dtype", "bfloat16",
             "--optimizer", optimizer, "--lr", str(c["lr"]), "--momentum", "0",
             "--wd", "0", "--seed", str(c["seed"]),
             "--arch-sparse-feature-size", str(c["dim"]),
@@ -1718,7 +1749,8 @@ def _gather_main(torch, kernels, F, table, ids, g):
 def phase_dlrm_train(torch, kernels):
     """The full-width DLRM through ``apps.dlrm.main``: plain SGD and lazy
     Adam on the row-sparse path, momentum SGD on the dense path.  Returns
-    the launch counts by run and the SGD run's trained params."""
+    the launch counts by run and the SGD run's trained params and
+    losses."""
     import numpy as np
 
     from flexflow_torch.apps import dlrm
@@ -1741,7 +1773,7 @@ def phase_dlrm_train(torch, kernels):
             # scatters into the table, m and v.
             ("lazy_adam", _dlrm_argv("adam", ["--lazy-sparse-opt"]), 2, 3),
             ("dense", _dlrm_argv("sgd", ["--momentum", "0.9"]), 0, 0))
-    by_run, sgd_params = {}, None
+    by_run, sgd_params, sgd_losses = {}, None, None
     for name, argv, k4, k5 in runs:
         stats = {}
         torch.cuda.reset_peak_memory_stats()
@@ -1781,11 +1813,11 @@ def phase_dlrm_train(torch, kernels):
               f"rows changed, the other rows bit-identical; launches {launches}")
         by_run[name] = launches
         if name == "sgd":
-            sgd_params = params
+            sgd_params, sgd_losses = params, losses
         del stats, params, opt_state, table, changed
     print(f"[dlrm-train] table init (CPU draw of 8 x 10^6 x 64 f32, then "
           f"copied to the card) {init_s:.1f}s")
-    return by_run, sgd_params
+    return by_run, sgd_params, sgd_losses
 
 
 def phase_dlrm_parity(torch, kernels):
@@ -6308,6 +6340,433 @@ def phase_mesh(torch, kernels, F):
     return rows, launches
 
 
+#: Phase 28: the DLRM of phase 9 on worlds of ranks.  ``arms``: (name,
+#: optimizer flags, timed iterations, K4 / ``gather_rows_multi`` / K5
+#: launches a step); the dense arm all-reduces the replicated tables'
+#: 2 GB gradient every step (on one card over gloo, through the host), so
+#: it runs fewer steps.  ``tables``: the ``-s`` tables of (b).
+MESH_DLRM = dict(
+    arms=(("sgd", ("sgd", ()), None, (1, 0, 1)),
+          ("lazy", ("adam", ("--lazy-sparse-opt",)), None, (2, 1, 3)),
+          ("dense", ("sgd", ("--momentum", "0.9")), 2, (0, 0, 0))),
+    tables={"rep": {"embeddings": {"n": 2}},
+            "shard": {"embeddings": {"c": 2}},
+            "rep4": {"embeddings": {"n": 4}},
+            "shard4": {"embeddings": {"c": 4}}},
+    faults=("no_all_reduce", "no_window"))
+#: The dense arm's sharded tables against the replicated ones, in units in
+#: the last place (the JAX package's own bar for its sharded tables): the
+#: replicated tables' gradient is two ranks' partial sums all-reduced, the
+#: sharded tables' one masked backward over the whole batch (their op is
+#: not split on ``n``), so the f32 sums differ in order.  The row-sparse
+#: arms sum each row's updates in batch order either way: bit for bit.
+TOL_MESH_DLRM_ULP = 4
+
+
+def dlrm_reference(torch, params, losses, c=None) -> dict:
+    """Phase 9's plain SGD run as phase 28 (a) reads it: its losses, its
+    dense parameters and the batch's rows of its tables (the app's fixed
+    synthetic batch, ids in {0, 1})."""
+    import numpy as np
+
+    from flexflow_torch.data.loader import synthetic_host_batch
+
+    c = c or DLRM
+    ff, _ = _dlrm_model(c["batch"], c["vocab"], "bfloat16", c["seed"], c)
+    ids = synthetic_host_batch(ff, np.random.default_rng(0))["sparse_input"]
+    rows = np.unique(np.arange(c["tables"])[None, :] * c["vocab"] + ids)
+    flat = params["embeddings"]["tables"].reshape(-1, c["dim"])
+    return dict(losses=list(losses), rows=rows.tolist(),
+                trained_rows=flat[torch.as_tensor(rows, device=flat.device)]
+                .detach().cpu().numpy(),
+                dense={op: {k: v.detach().float().cpu().numpy()
+                            for k, v in g.items()}
+                       for op, g in params.items() if op != "embeddings"})
+
+
+def _ulps(a, b) -> int:
+    """The most units in the last place between two f32 arrays."""
+    import numpy as np
+
+    def key(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(2 ** 31) - i, i)
+
+    d = np.abs(key(a) - key(b))
+    return int(d.max()) if d.size else 0
+
+
+def _world_rows(res) -> dict:
+    """``{flat row: trained row}`` of the batch's rows, from each rank's
+    window."""
+    out = {}
+    for r in res:
+        out.update(zip(r["rows"], r["trained_rows"]))
+    return out
+
+
+def _mesh_dlrm_gap(res, one) -> tuple:
+    """(the worst loss gap to ``one`` over the ranks, the parameters'
+    distance from ``one``'s over ``one``'s change): dense parameters and
+    the batch's table rows, the only rows that move."""
+    import numpy as np
+
+    gap = max(max(abs(a - w) / abs(w) for a, w in zip(r["losses"],
+                                                      one["losses"]))
+              for r in res)
+    got, want = _world_rows(res), dict(zip(one["rows"], one["trained_rows"]))
+    init = dict(zip(one["rows"], one["init_rows"]))
+    num = sum(float(np.square(got[k].astype(np.float64) - want[k]).sum())
+              for k in want)
+    den = sum(float(np.square(want[k].astype(np.float64) - init[k]).sum())
+              for k in want)
+    for op, g in one["dense"].items():
+        for k, w in g.items():
+            num += float(np.square(res[0]["dense"][op][k].astype(np.float64)
+                                   - w).sum())
+            den += float(np.square(w.astype(np.float64)
+                                   - one["init_dense"][op][k]).sum())
+    return gap, (num / den) ** 0.5
+
+
+def _mesh_dlrm_world(nprocs: int, configs, device: str, backend):
+    """``mesh_smoke.dlrm_app`` under ``configs`` on a world of
+    ``nprocs``: ``{name: [rank results]}``."""
+    from flexflow_torch.parallel import launch
+
+    ranks = launch.run("flexflow_torch.tools.mesh_smoke:dlrm_app",
+                       (configs, [], device), nprocs=nprocs, device=device,
+                       backend=backend, timeout_s=900)
+    return {cfg["name"]: [r[i] for r in ranks]
+            for i, cfg in enumerate(configs)}
+
+
+def _held_rank(what, got, shape, want_counts, backend) -> None:
+    _check(got["code"] == 0 and not got["jax_imported"]
+           and got["backend"] == backend and got["local_shape"] == shape
+           and got["counts"] == want_counts and got["only_batch_rows"]
+           and got["batch_rows_moved"]
+           and got["moments_only_batch"] in (None, True)
+           and got["report"].count("THROUGHPUT = ") == 1,
+           f"{what}: exit {got['code']}, backend {got['backend']}, local "
+           f"table {got['local_shape']} (want {shape}), launches "
+           f"{got['counts']} (want {want_counts}), only the batch's rows "
+           f"moved {got['only_batch_rows']}, all of them "
+           f"{got['batch_rows_moved']}, moments {got['moments_only_batch']}")
+
+
+def _dlrm_window_kernels(torch, kernels, F, c, launches) -> dict:
+    """Windowed K4, K4 over three tables and K5 at a c=2 rank's shapes
+    (rank 1: rows [T/2 V, T V) of the flat tables, the step's 2048 ids):
+    each held bit for bit against its plain version and timed beside it,
+    ``F.embedding`` with the mask (K4's) or ``index_add_`` on the window
+    (K5's), and the bound of the bytes this run's ids need."""
+    import numpy as np
+
+    from flexflow_torch.data.loader import synthetic_host_batch
+
+    g = torch.Generator(device="cuda").manual_seed(28)
+    T, V, D = c["tables"], c["vocab"], c["dim"]
+    R, start = T // 2 * V, T // 2 * V
+    ff, _ = _dlrm_model(c["batch"], V, "bfloat16", c["seed"], c)
+    host = synthetic_host_batch(ff, np.random.default_rng(0))["sparse_input"]
+    ids = (torch.arange(T, device="cuda")[None, :] * V
+           + torch.as_tensor(host, device="cuda").long()).reshape(-1)
+    n = ids.shape[0]
+    table = torch.randn((R, D), generator=g, device="cuda")
+    loc = ids - start
+    ok = (loc >= 0) & (loc < R)
+    m_in = int(ok.sum())
+    uniq = torch.unique(ids)
+    safe = torch.cat([uniq, uniq.new_zeros(n - uniq.numel())])
+    u_in = int(((uniq >= start) & (uniq < start + R)).sum())
+    rows = {}
+
+    def exact(what, got, want):
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want))
+        _check(same, f"mesh-dlrm: windowed {what} differs from its plain "
+               f"version")
+        return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+    err = exact("gather_rows", [kernels.gather_rows(table, ids, start)],
+                [kernels.gather_rows_plain(table, ids, start)])
+
+    def masked_embedding():
+        r = F.embedding(torch.where(ok, loc, 0), table)
+        return torch.where(ok[:, None], r, 0.0)
+
+    rows["gather_rows"] = dict(
+        max_abs_err=err,
+        ms=_device_ms(lambda: kernels.gather_rows(table, ids, start)),
+        plain_ms=_device_ms(lambda: kernels.gather_rows_plain(table, ids,
+                                                              start)),
+        library_ms=_device_ms(masked_embedding))
+    rows["gather_rows"].update(zip(("bound_ms", "bound_by"), _bound_ms(
+        n * 8 + (u_in + n) * D * 4, 0.0, "float32")))
+    three = (table, table.neg(), table * 0.5)
+    err = exact("gather_rows_multi",
+                kernels.gather_rows_multi(three, safe, start),
+                kernels.gather_rows_multi_plain(three, safe, start))
+    rows["gather_rows_multi"] = dict(
+        max_abs_err=err,
+        ms=_device_ms(lambda: kernels.gather_rows_multi(three, safe, start)),
+        plain_ms=_device_ms(lambda: kernels.gather_rows_multi_plain(
+            three, safe, start)), library_ms=None)
+    in_slots = int(((safe >= start) & (safe < start + R)).sum())
+    rows["gather_rows_multi"].update(zip(("bound_ms", "bound_by"), _bound_ms(
+        n * 8 + 3 * (in_slots + n) * D * 4, 0.0, "float32")))
+    del three
+    upd = torch.randn((n, D), generator=g, device="cuda")
+    a, b = table.clone(), table.clone()
+    kernels.scatter_add_rows(a, ids, upd, start)
+    kernels.scatter_add_rows_plain(b, ids, upd, start)
+    err = exact("scatter_add_rows", [a], [b])
+    del a, b
+    work = table.clone()
+    loc_in, upd_in = loc[ok], upd[ok]
+    rows["scatter_add_rows"] = dict(
+        max_abs_err=err,
+        ms=_device_ms(lambda: kernels.scatter_add_rows(work, ids, upd,
+                                                       start)),
+        plain_ms=_device_ms(lambda: kernels.scatter_add_rows_plain(
+            work, ids, upd, start)),
+        library_ms=_device_ms(lambda: work.index_add_(0, loc_in, upd_in)))
+    rows["scatter_add_rows"].update(zip(("bound_ms", "bound_by"), _bound_ms(
+        n * 8 + m_in * D * 4 + 2 * u_in * D * 4, 0.0, "float32")))
+    del work, table
+    torch.cuda.empty_cache()
+    card = _card()
+    reads = {"gather_rows": f"the step's; {m_in} in the window, {u_in} "
+                            f"distinct rows",
+             "gather_rows_multi": f"the lazy step's {uniq.numel()} unique "
+                                  f"rows padded; {in_slots} in the window",
+             "scatter_add_rows": f"the step's, with their updates; {m_in} "
+                                 f"in the window onto {u_in} distinct rows"}
+    for name, r in rows.items():
+        r["launches"] = sum(counts.get(name, 0) for counts in
+                            launches.values())
+        r["shape"] = (f"a c=2 rank's window: ({R}, {D}) f32, rows "
+                      f"[{start}, {start + R}), {n} int64 ids "
+                      f"({reads[name]})")
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.6f}"
+        print(f"[mesh-dlrm] windowed {name} at {r['shape']}: {r['ms']:.6f} "
+              f"ms (plain {r['plain_ms']:.6f}, library {lib}, bound "
+              f"{r['bound_ms']:.3e} by {r['bound_by']}), {r['launches']} "
+              f"launches on the mesh runs, bit for bit its plain version; "
+              f"{card}")
+    return rows
+
+
+def phase_mesh_dlrm(torch, kernels, F, ref=None, c=None, device="cuda"):
+    """Phase 28 (module docstring).  ``ref`` is phase 9's plain SGD run
+    (:func:`dlrm_reference`; None: the app runs it here).  Returns
+    ``(rows, launches)``: the windowed kernels' rows and ``{path: counts}``
+    summed over each world's ranks.  ``c`` and ``device="cpu"`` rehearse
+    it at a smaller width on CPU ranks (no kernel rows then)."""
+    import numpy as np
+
+    from flexflow_torch.apps import dlrm
+
+    c = c or DLRM
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+    cards = torch.cuda.device_count() if cuda else 0
+    card = _card() if cuda else "cpu"
+    T, V, D = c["tables"], c["vocab"], c["dim"]
+    arms = {name: (_dlrm_argv(opt, extra, iters, c), (iters or c["iters"])
+                   + c["warmup"], per) for name, (opt, extra), iters, per
+            in MESH_DLRM["arms"]}
+
+    def want_counts(name):
+        k4, multi, k5 = arms[name][2]
+        steps = arms[name][1]
+        return {k: v for k, v in (("gather_rows", k4 * steps),
+                                  ("gather_rows_multi", multi * steps),
+                                  ("scatter_add_rows", k5 * steps)) if v} \
+            if cuda else {}
+
+    if ref is None:
+        st = {}
+        _check(dlrm.main(arms["sgd"][0], device=device, stats_out=st) == 0,
+               "mesh-dlrm: the plain app")
+        ref = dlrm_reference(torch, st.pop("final")[0], st["step_losses"], c)
+        del st
+    # (a) a world of 1, every arm from one draw.
+    one = _mesh_dlrm_world(1, [dict(name=n, table=None, extra=a[0])
+                               for n, a in arms.items()], device,
+                           None if cuda else "gloo")
+    launches = {}
+    sgd = one["sgd"][0]
+    diff = [k for k, v in zip(ref["rows"], ref["trained_rows"])
+            if not np.array_equal(_world_rows([sgd]).get(k), v)]
+    diff += [f"{op}.{k}" for op, g in ref["dense"].items()
+             for k, v in g.items() if not np.array_equal(sgd["dense"][op][k],
+                                                         v)]
+    _check(sgd["losses"] == ref["losses"] and not diff
+           and sgd["only_batch_rows"],
+           f"mesh-dlrm (a): the app on a world of 1 differs from phase 9's "
+           f"plain run: losses {sgd['losses']} vs {ref['losses']}, "
+           f"parameters {diff[:5]}")
+    for name, res in one.items():
+        _held_rank(f"mesh-dlrm (a) {name}", res[0], (T, V, D),
+                   want_counts(name), res[0]["backend"])
+        launches[f"mesh_dlrm_one_{name}"] = res[0]["counts"]
+    print(f"[mesh-dlrm] (a) apps.dlrm -ll:gpu 1: plain SGD's "
+          f"{len(sgd['losses'])} losses, dense parameters and the batch's "
+          f"{len(ref['rows'])} table rows bit for bit phase 9's, no other "
+          f"row moved; {card}")
+    # (b) worlds of 2 under each table, (c) the planted faults.
+    backend = "nccl" if cards >= 2 else "gloo"
+    configs = [dict(name=f"{arm}_{tab}", table=MESH_DLRM["tables"][tab],
+                    extra=arms[arm][0])
+               for arm in arms for tab in ("rep", "shard")]
+    configs += [dict(name=f, table=MESH_DLRM["tables"]["shard"],
+                     extra=arms["sgd"][0], fault=f)
+                for f in MESH_DLRM["faults"]]
+    two = _mesh_dlrm_world(2, configs, device,
+                           None if backend == "nccl" else "gloo")
+    for arm in arms:
+        rep, shard = two[f"{arm}_rep"], two[f"{arm}_shard"]
+        ulp = max(_ulps(_world_rows(rep)[k], v)
+                  for k, v in _world_rows(shard).items())
+        ulp_dense = max(_ulps(rep[0]["dense"][op][k], v)
+                        for op, g in shard[0]["dense"].items()
+                        for k, v in g.items())
+        bar = 0 if arm != "dense" else TOL_MESH_DLRM_ULP
+        _check(_world_rows(rep).keys() == _world_rows(shard).keys()
+               and ulp <= bar and ulp_dense <= bar,
+               f"mesh-dlrm (b) {arm}: the sharded tables differ from the "
+               f"replicated ones by {ulp} ULP, the dense parameters by "
+               f"{ulp_dense} (bar {bar})")
+        for tab, res in (("rep", rep), ("shard", shard)):
+            what = f"mesh-dlrm (b) {arm} {tab}"
+            shape = (T, V, D) if tab == "rep" else (T // 2, V, D)
+            for r, got in enumerate(res):
+                _held_rank(f"{what} rank {r}", got, shape, want_counts(arm),
+                           backend)
+            _check(all(got["dense_digest"] == res[0]["dense_digest"]
+                       for got in res)
+                   and (tab == "shard" or all(
+                       np.array_equal(a, b) for a, b in zip(
+                           res[0]["trained_rows"], res[1]["trained_rows"]))),
+                   f"{what}: the ranks' replicated parameters differ")
+            gap, dist_ = _mesh_dlrm_gap(res, one[arm][0])
+            _check(gap <= TOL_MESH_LOSS and dist_ <= TOL_MESH_DIST,
+                   f"{what}: loss gap {gap:.3g} (bar {TOL_MESH_LOSS}), "
+                   f"distance {dist_:.3g} (bar {TOL_MESH_DIST}) from (a)")
+            launches[f"mesh_dlrm_{arm}_{tab}"] = {
+                k: sum(got["counts"].get(k, 0) for got in res)
+                for k in ("gather_rows", "gather_rows_multi",
+                          "scatter_add_rows")}
+            for r, got in enumerate(res):
+                print(f"[mesh-dlrm] (b) {arm} {tab} rank {r} of 2 "
+                      f"({backend}): losses "
+                      f"{[round(x, 6) for x in got['losses']]}, table "
+                      f"{got['local_shape']} rows [{got['window'][0]}, "
+                      f"{sum(got['window'])}), {got['ms_step']:.3f} ms/step "
+                      f"(the app's), collectives {got['comm_ms']:.3f} of "
+                      f"{got['one_step_ms']:.3f} ms in one more step "
+                      f"({100 * got['comm_ms'] / got['one_step_ms']:.1f}%),"
+                      f" peak memory {got['peak_gb']} GB, launches "
+                      f"{got['counts']}; {card}")
+            print(f"[mesh-dlrm] (b) {arm} {tab}: loss gap to (a) {gap:.3g}, "
+                  f"parameter distance {dist_:.3g} of the change")
+        print(f"[mesh-dlrm] (b) {arm}: the sharded tables {ulp} ULP from "
+              f"the replicated ones (bar {bar}), the dense parameters "
+              f"{ulp_dense}")
+    for fault in MESH_DLRM["faults"]:
+        res, rep = two[fault], two["sgd_rep"]
+        gap, dist_ = _mesh_dlrm_gap(res, one["sgd"][0])
+        got, want = _world_rows(res), _world_rows(rep)
+        caught = [name for name, on in (
+            ("table", got.keys() != want.keys() or any(
+                not np.array_equal(got[k], want[k]) for k in want)),
+            ("loss", gap > TOL_MESH_LOSS), ("distance", dist_ > TOL_MESH_DIST),
+            ("ranks disagree", res[0]["dense_digest"]
+             != res[1]["dense_digest"])) if on]
+        _check("table" in caught, f"mesh-dlrm (c) {fault}: the planted fault "
+               f"is caught by {caught} only")
+        print(f"[mesh-dlrm] (c) {fault} on rank 1: caught by "
+              f"{', '.join(caught)} (loss gap {gap:.3g}, distance "
+              f"{dist_:.3g})")
+    # (d) four cards: c=4 against the replicated tables on the same world,
+    # and the no_all_reduce fault at c=4; two: the app's own world from
+    # this process (CPU rehearsals run both over gloo).
+    wide = "nccl" if cuda else "gloo"
+    if cards >= 4 or not cuda:
+        four = _mesh_dlrm_world(4, [
+            dict(name=name, table=MESH_DLRM["tables"][tab],
+                 extra=arms["sgd"][0], fault=fault)
+            for name, tab, fault in (("sgd_c4", "shard4", None),
+                                     ("sgd_rep4", "rep4", None),
+                                     ("no_all_reduce_c4", "shard4",
+                                      "no_all_reduce"))],
+            device, None if cuda else "gloo")
+        shard, rep = four["sgd_c4"], four["sgd_rep4"]
+        gap, dist_ = _mesh_dlrm_gap(shard, one["sgd"][0])
+        ulp = max(_ulps(_world_rows(rep)[k], v)
+                  for k, v in _world_rows(shard).items())
+        ulp_dense = max(_ulps(rep[0]["dense"][op][k], v)
+                        for op, g in shard[0]["dense"].items()
+                        for k, v in g.items())
+        for tab, res in (("c=4", shard), ("n=4", rep)):
+            for r, got in enumerate(res):
+                _held_rank(f"mesh-dlrm (d) {tab} rank {r}", got,
+                           (T // 4 if tab == "c=4" else T, V, D),
+                           want_counts("sgd"), wide)
+                print(f"[mesh-dlrm] (d) sgd {tab} rank {r} of 4 ({wide}): "
+                      f"{got['ms_step']:.3f} ms/step, collectives "
+                      f"{got['comm_ms']:.3f} of {got['one_step_ms']:.3f} ms, "
+                      f"peak memory {got['peak_gb']} GB; {card}")
+            _check(all(got["dense_digest"] == res[0]["dense_digest"]
+                       for got in res)
+                   and (tab == "c=4" or all(
+                       np.array_equal(a, b) for got in res[1:] for a, b in
+                       zip(res[0]["trained_rows"], got["trained_rows"]))),
+                   f"mesh-dlrm (d) {tab}: the ranks' replicated parameters "
+                   f"differ")
+        _check(_world_rows(rep).keys() == _world_rows(shard).keys()
+               and ulp == 0 and ulp_dense == 0
+               and gap <= TOL_MESH_LOSS and dist_ <= TOL_MESH_DIST,
+               f"mesh-dlrm (d) c=4: the sharded tables {ulp} ULP from the "
+               f"replicated ones, the dense parameters {ulp_dense} (bar 0); "
+               f"loss gap {gap:.3g}, distance {dist_:.3g}")
+        got, want = _world_rows(four["no_all_reduce_c4"]), _world_rows(rep)
+        _check(got.keys() != want.keys() or any(
+            not np.array_equal(got[k], want[k]) for k in want),
+            "mesh-dlrm (d): the no_all_reduce fault at c=4 is not caught by "
+            "the table's equality")
+        fgap, fdist = _mesh_dlrm_gap(four["no_all_reduce_c4"], one["sgd"][0])
+        print(f"[mesh-dlrm] (d) sgd c=4: the sharded tables and the dense "
+              f"parameters bit for bit n=4's; loss gap to (a) {gap:.3g}, "
+              f"distance {dist_:.3g}; no_all_reduce at c=4 caught by the "
+              f"table (loss gap {fgap:.3g}, distance {fdist:.3g})")
+        for name in ("sgd_c4", "sgd_rep4"):
+            launches[f"mesh_dlrm_{name}"] = {
+                k: sum(got["counts"].get(k, 0) for got in four[name])
+                for k in ("gather_rows", "scatter_add_rows")}
+    if cards >= 2 or not cuda:
+        st = {}
+        rc = dlrm.main(arms["sgd"][0] + ["-ll:gpu", "2"], device=device,
+                       stats_out=st)
+        gap = max(abs(a - w) / abs(w) for a, w in zip(st["step_losses"],
+                                                       ref["losses"]))
+        _check(rc == 0 and gap <= TOL_MESH_LOSS
+               and st["step_losses"] == two["sgd_shard"][0]["losses"],
+               f"mesh-dlrm (d): apps.dlrm -ll:gpu 2 exit {rc}, losses "
+               f"{st['step_losses']}: (a)'s {ref['losses']}, (b) sgd "
+               f"shard's {two['sgd_shard'][0]['losses']}")
+        print(f"[mesh-dlrm] (d) apps.dlrm -ll:gpu 2 spawning its own "
+              f"{wide} world (dlrm_strategy: c=2): losses bit for bit (b) sgd "
+              f"shard's, loss gap to (a) {gap:.3g}, "
+              f"{st['samples_per_s']:.1f} samples/s")
+    rows = _dlrm_window_kernels(torch, kernels, F, c, launches) if cuda \
+        else {}
+    return rows, launches
+
+
 def _card() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
@@ -6349,7 +6808,8 @@ def main() -> int:
     t.append(time.perf_counter())
     rows.update(phase_dlrm_kernels(torch, kernels, F))
     t.append(time.perf_counter())
-    dlrm_launches, dlrm_params = phase_dlrm_train(torch, kernels)
+    dlrm_launches, dlrm_params, dlrm_losses = phase_dlrm_train(torch, kernels)
+    dlrm_ref = dlrm_reference(torch, dlrm_params, dlrm_losses)
     t.append(time.perf_counter())
     phase_dlrm_parity(torch, kernels)
     t.append(time.perf_counter())
@@ -6392,13 +6852,16 @@ def main() -> int:
     t.append(time.perf_counter())
     mesh_rows, mesh_launches = phase_mesh(torch, kernels, F)
     t.append(time.perf_counter())
+    dlrm_mesh_rows, dlrm_mesh_launches = phase_mesh_dlrm(torch, kernels, F,
+                                                         dlrm_ref)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
              "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
              "longctx-parity", "probe-kernels", "alexnet-kernels",
              "alexnet-train", "alexnet-parity", "superstep", "serve-features",
              "serve-resilience", "nmt", "item5", "item7", "serve-sched",
-             "fleet", "mesh")
+             "fleet", "mesh", "mesh-dlrm")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -6447,12 +6910,16 @@ def main() -> int:
                    **{f"fleet_{run}": counts.get(name, 0)
                       for run, counts in fleet_launches.items()},
                    **{path: counts.get(name, 0)
-                      for path, counts in mesh_launches.items()}}
+                      for path, counts in mesh_launches.items()},
+                   **{path: counts.get(name, 0)
+                      for path, counts in dlrm_mesh_launches.items()}}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])
         if name in mesh_rows:
             entry["mesh_dp2_shape"] = mesh_rows[name]
+        if name in dlrm_mesh_rows:
+            entry["mesh_dlrm_shape"] = dlrm_mesh_rows[name]
         if name == "flash_attention_lse":
             entry["train_shape"] = rows["flash_attention_lse@train"]
             entry["longctx_shape"] = rows["flash_attention_lse@8k"]

@@ -146,8 +146,7 @@ def parse_training_args(argv) -> FFConfig:
     return cfg
 
 
-def world_ranks(cfg: FFConfig, device="cuda",
-                refuse: Optional[str] = None) -> int:
+def world_ranks(cfg: FFConfig, device="cuda") -> int:
     """The ranks of ``-ll:gpu N``: one unless ``N > 1`` is passed.  (The
     JAX package's default spans every visible device; here a run without
     ``-ll:gpu`` stays one process, so an app on a multi-card host does not
@@ -155,8 +154,7 @@ def world_ranks(cfg: FFConfig, device="cuda",
     ``N`` above the visible cards raises: two ranks never share a card.
     Inside a world, the world's size.  Under more than one rank, the
     training features this slice does not make rank-aware are refused by
-    name (ROADMAP.md item 9d), and so is the whole app when ``refuse``
-    names its item."""
+    name (ROADMAP.md item 9d)."""
     import torch
 
     from flexflow_torch.parallel import launch
@@ -172,8 +170,6 @@ def world_ranks(cfg: FFConfig, device="cuda",
                              f"never shares one")
     if n == 1:
         return n
-    if refuse:
-        raise SystemExit(f"-ll:gpu {n}: {refuse}")
     wide = [flag for flag, on in (
         ("--steps-per-call", cfg.steps_per_call > 1),
         ("--accum-steps", cfg.accum_steps > 1),
@@ -205,6 +201,7 @@ def spawn_ranks(cfg: FFConfig, target: str, argv, device="cuda",
     n = world_ranks(cfg, device)
     if n == 1 or launch.in_world():
         return None
+    load_strategy(cfg, n)  # a table the world cannot run fails here
     kind = torch.device(device).type
     try:
         ranks = launch.run("flexflow_torch.apps.common:rank_app",
@@ -257,12 +254,13 @@ def make_optimizer(cfg: FFConfig):
     raise SystemExit(f"unknown --optimizer {cfg.optimizer!r} (sgd|adam)")
 
 
-def load_strategy(cfg: FFConfig):
+def load_strategy(cfg: FFConfig, num_devices: Optional[int] = None):
     """``-s FILE``: the strategy table of the JAX package's JSON file, its
-    degrees over the full mesh of the world's ranks.  A table that places
-    an op on a proper subset of the devices (the pipeline, item 10),
-    ``-s auto`` and the reference's ``.pb`` files are refused by name.
-    Returns the store, or None without ``-s``."""
+    degrees over the full mesh of ``num_devices`` (default: the world's
+    ranks).  A table that needs more devices, one that places an op on a
+    proper subset of them (the pipeline, item 10), ``-s auto`` and the
+    reference's ``.pb`` files are refused by name.  Returns the store, or
+    None without ``-s``."""
     from flexflow_torch.parallel import launch
     from flexflow_torch.parallel.strategy import StrategyStore
 
@@ -274,7 +272,8 @@ def load_strategy(cfg: FFConfig):
         raise SystemExit(f"{flag}: the execution-config search is not ported "
                          f"(ROADMAP.md queue 1, item 11)")
     try:
-        store = StrategyStore.load(path, num_devices=launch.world_size())
+        store = StrategyStore.load(path, num_devices=num_devices
+                                   or launch.world_size())
         store.check_full_mesh()
     except (OSError, ValueError, KeyError, TypeError) as e:
         raise SystemExit(f"{flag}: {e}")

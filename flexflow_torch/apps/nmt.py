@@ -61,8 +61,7 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     layers = pop_int(argv, "--layers", 2)
     dropout = pop_float(argv, "--dropout", 0.2)  # lstm.cu:152
     cfg = parse_training_args(argv)
-    world_ranks(cfg, device, refuse="NMT's row-sparse word embeddings under "
-                "more than one rank are ROADMAP.md queue 1, item 9b")
+    ranks = world_ranks(cfg, device)
     try:
         ff = build_nmt(
             batch_size=cfg.batch_size, src_len=src_len, tgt_len=tgt_len,
@@ -71,6 +70,11 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
         )
     except ValueError as e:
         raise SystemExit(f"nmt: {e}")
+    # The word embeddings run on a mesh; the LSTM waits for item 9d, and
+    # each rank's executor would refuse it: say so before any starts.
+    lstm = next(op for op in ff.layers if op.mesh_refusal)
+    if ranks > 1:
+        raise SystemExit(f"-ll:gpu {ranks}: {lstm.name}: {lstm.mesh_refusal}")
     stats = run_training(ff, cfg, label="sentence-pairs", device=device)
     print(f"time = {stats['elapsed_s']:.4f}s")  # nmt.cc:77-83
     if stats_out is not None:

@@ -18,6 +18,15 @@
 // scatter drops their updates.  The plain versions in
 // flexflow_torch/ops/kernels.py do the same.
 //
+// The row window of a row-sharded table.  A rank that holds rows
+// [row_start, row_start + R) of a table split by row ranges over its mesh
+// (flexflow_torch/ops/embedding.py) launches both kernels on its block
+// with row_start and the global ids: each works on loc = id - row_start.
+// In a windowed launch the gather writes a zero row where loc is outside
+// [0, R) (JAX's masked take, whose psum over the shards then assembles
+// full rows) and the scatter drops those updates in its binning pass.  A
+// launch without a window is row_start = 0 with the NaN fill.
+//
 // What bounds the gather.  At the DLRM step (2048 ids, 256-byte rows) it
 // moves 0.5 MB each way, 3.2e-4 ms at 3.35 TB/s; the launch and its chain
 // of round trips (the ids, then the rows, then the stores draining) take
@@ -112,6 +121,13 @@ __device__ __forceinline__ float4 nan_row(float4) {
   return make_float4(x, x, x, x);
 }
 
+// The value of a row the launch does not hold: zeros in a windowed launch,
+// else NaN.
+template <typename V>
+__device__ __forceinline__ V fill_row(bool window) {
+  return window ? V{} : nan_row(V{});
+}
+
 // Row `row` of table t, as `cols` values of type V.
 template <typename V>
 __device__ __forceinline__ const V* src_row(const Tables& p, int t,
@@ -124,11 +140,12 @@ __device__ __forceinline__ const V* src_row(const Tables& p, int t,
 // 16-byte rows and pointers, else float.  Each thread loads its id (the
 // group's loads of one id coalesce into one request) and issues its loads
 // from every table, kBatch columns apart, before its first store.  The
-// grid is at most one wave; threads past it loop.
+// grid is at most one wave; threads past it loop.  The tables hold rows
+// [start, start + R) (module comment).
 template <typename Id, typename V, int T>
 __global__ void __launch_bounds__(kThreads)
-gather_regs_kernel(Tables p, const Id* __restrict__ ids, long long R,
-                   int cols, int n, int log_g) {
+gather_regs_kernel(Tables p, const Id* __restrict__ ids, long long start,
+                   long long R, int cols, int n, int log_g, bool window) {
   constexpr int kBatch = T == 1 ? 4 : 2;  // columns a thread holds a table
   const int G = 1 << log_g;
   const long long all = (long long)n << log_g;
@@ -136,7 +153,7 @@ gather_regs_kernel(Tables p, const Id* __restrict__ ids, long long R,
        t += (long long)gridDim.x * kThreads) {
     const long long i = t >> log_g;
     const int lane = (int)(t & (G - 1));
-    const long long row = (long long)__ldg(ids + i);
+    const long long row = (long long)__ldg(ids + i) - start;
     const bool live = row >= 0 && row < R;
     for (int c0 = lane; c0 < cols; c0 += G * kBatch) {
       V val[T][kBatch];
@@ -147,7 +164,7 @@ gather_regs_kernel(Tables p, const Id* __restrict__ ids, long long R,
 #pragma unroll
         for (int u = 0; u < T; ++u)
           val[u][k] = live ? __ldg(src_row<V>(p, u, row, cols) + c)
-                           : nan_row(V{});
+                           : fill_row<V>(window);
       }
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
@@ -320,7 +337,8 @@ __device__ __forceinline__ void add_segment_staged(
   }
 }
 
-// Grid: `ctas` CTAs, CTA b owning the rows with owner(row) == b.  With
+// Grid: `ctas` CTAs, CTA b owning the rows with owner(row) == b, a row being
+// id - start (the window, module comment).  With
 // kShared its arrays are in dynamic shared memory laid out for n entries
 // (the compiler then issues shared loads and stores, not generic
 // ones); otherwise in `scratch`, laid out for n entries, its region after
@@ -328,8 +346,9 @@ __device__ __forceinline__ void add_segment_staged(
 template <typename Id, bool kVec, bool kShared>
 __global__ void __launch_bounds__(kThreads)
 scatter_add_rows_kernel(float* __restrict__ table, const Id* __restrict__ ids,
-                        const float* __restrict__ upd, long long R, int D,
-                        int n, int log_g, const int* __restrict__ counts,
+                        const float* __restrict__ upd, long long start,
+                        long long R, int D, int n, int log_g,
+                        const int* __restrict__ counts,
                         unsigned char* scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int wsum[kWarps];
@@ -364,7 +383,7 @@ scatter_add_rows_kernel(float* __restrict__ table, const Id* __restrict__ ids,
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
       const int i = w0 + j * 32 + lane;
-      rows[j] = i < n ? (u64)(long long)__ldg(ids + i) : kEmpty;
+      rows[j] = i < n ? (u64)((long long)__ldg(ids + i) - start) : kEmpty;
     }
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
@@ -535,12 +554,12 @@ scatter_add_rows_kernel(float* __restrict__ table, const Id* __restrict__ ids,
 // counts[b] = the number of ids CTA b of the scatter owns.
 template <typename Id>
 __global__ void __launch_bounds__(kThreads)
-count_owned_kernel(const Id* __restrict__ ids, long long R, int n,
-                   int* __restrict__ counts) {
+count_owned_kernel(const Id* __restrict__ ids, long long start, long long R,
+                   int n, int* __restrict__ counts) {
   __shared__ int wsum[kWarps];
   int c = 0;
   for (int i = threadIdx.x; i < n; i += kThreads) {
-    const long long r = (long long)__ldg(ids + i);
+    const long long r = (long long)__ldg(ids + i) - start;
     c += r >= 0 && r < R && owner((u64)r, gridDim.x) == (int)blockIdx.x;
   }
 #pragma unroll
@@ -555,36 +574,38 @@ count_owned_kernel(const Id* __restrict__ ids, long long R, int n,
 }
 
 template <typename Id, typename V>
-cudaError_t launch_regs(const Tables& p, int T, const Id* ids, long long R,
-                        int cols, int n, int log_g, int ctas,
-                        cudaStream_t s) {
+cudaError_t launch_regs(const Tables& p, int T, const Id* ids, long long start,
+                        long long R, int cols, int n, int log_g, bool window,
+                        int ctas, cudaStream_t s) {
   if (T == 1)
-    gather_regs_kernel<Id, V, 1><<<ctas, kThreads, 0, s>>>(p, ids, R, cols, n,
-                                                          log_g);
+    gather_regs_kernel<Id, V, 1><<<ctas, kThreads, 0, s>>>(
+        p, ids, start, R, cols, n, log_g, window);
   else if (T == 2)
-    gather_regs_kernel<Id, V, 2><<<ctas, kThreads, 0, s>>>(p, ids, R, cols, n,
-                                                          log_g);
+    gather_regs_kernel<Id, V, 2><<<ctas, kThreads, 0, s>>>(
+        p, ids, start, R, cols, n, log_g, window);
   else
-    gather_regs_kernel<Id, V, 3><<<ctas, kThreads, 0, s>>>(p, ids, R, cols, n,
-                                                          log_g);
+    gather_regs_kernel<Id, V, 3><<<ctas, kThreads, 0, s>>>(
+        p, ids, start, R, cols, n, log_g, window);
   return cudaGetLastError();
 }
 
 template <typename Id>
 cudaError_t launch_gather(const Tables& p, int T, const void* ids,
-                          long long R, int D, int n, int vec, int log_g,
-                          int ctas, cudaStream_t s) {
+                          long long start, long long R, int D, int n, int vec,
+                          int log_g, bool window, int ctas, cudaStream_t s) {
   const Id* id = static_cast<const Id*>(ids);
   if (vec)
-    return launch_regs<Id, float4>(p, T, id, R, D / 4, n, log_g, ctas, s);
-  return launch_regs<Id, float>(p, T, id, R, D, n, log_g, ctas, s);
+    return launch_regs<Id, float4>(p, T, id, start, R, D / 4, n, log_g,
+                                   window, ctas, s);
+  return launch_regs<Id, float>(p, T, id, start, R, D, n, log_g, window, ctas,
+                                s);
 }
 
 template <typename Id, bool kVec>
 cudaError_t launch_scatter(float* table, const Id* ids, const float* upd,
-                           long long R, int D, int n, int log_g, int ctas,
-                           unsigned char* scratch, long long scratch_bytes,
-                           cudaStream_t stream) {
+                           long long start, long long R, int D, int n,
+                           int log_g, int ctas, unsigned char* scratch,
+                           long long scratch_bytes, cudaStream_t stream) {
   if (scratch == nullptr) {
     auto* kernel = scatter_add_rows_kernel<Id, kVec, true>;
     if ((long long)kBytesPerEntry * n > kMaxDynamicShared)
@@ -593,35 +614,36 @@ cudaError_t launch_scatter(float* table, const Id* ids, const float* upd,
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<ctas, kThreads, smem, stream>>>(table, ids, upd, R, D, n, log_g,
-                                             nullptr, nullptr);
+    kernel<<<ctas, kThreads, smem, stream>>>(table, ids, upd, start, R, D, n,
+                                             log_g, nullptr, nullptr);
     return cudaGetLastError();
   }
   const long long arrays = (long long)kBytesPerEntry * n;
   if (scratch_bytes < arrays + 4LL * ctas) return cudaErrorInvalidValue;
   int* counts = reinterpret_cast<int*>(scratch + arrays);
-  count_owned_kernel<Id><<<ctas, kThreads, 0, stream>>>(ids, R, n, counts);
+  count_owned_kernel<Id><<<ctas, kThreads, 0, stream>>>(ids, start, R, n,
+                                                        counts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   scatter_add_rows_kernel<Id, kVec, false>
-      <<<ctas, kThreads, kStageBytes, stream>>>(table, ids, upd, R, D, n,
-                                                log_g, counts, scratch);
+      <<<ctas, kThreads, kStageBytes, stream>>>(table, ids, upd, start, R, D,
+                                                n, log_g, counts, scratch);
   return cudaGetLastError();
 }
 
 template <typename Id>
 cudaError_t dispatch_scatter(void* table, const void* ids, const void* upd,
-                             long long R, int D, int n, int log_g, int vec,
-                             int ctas, void* scratch, long long scratch_bytes,
-                             cudaStream_t s) {
+                             long long start, long long R, int D, int n,
+                             int log_g, int vec, int ctas, void* scratch,
+                             long long scratch_bytes, cudaStream_t s) {
   float* tb = static_cast<float*>(table);
   const Id* id = static_cast<const Id*>(ids);
   const float* u = static_cast<const float*>(upd);
   unsigned char* sc = static_cast<unsigned char*>(scratch);
   if (vec)
-    return launch_scatter<Id, true>(tb, id, u, R, D, n, log_g, ctas, sc,
-                                    scratch_bytes, s);
-  return launch_scatter<Id, false>(tb, id, u, R, D, n, log_g, ctas, sc,
+    return launch_scatter<Id, true>(tb, id, u, start, R, D, n, log_g, ctas,
+                                    sc, scratch_bytes, s);
+  return launch_scatter<Id, false>(tb, id, u, start, R, D, n, log_g, ctas, sc,
                                    scratch_bytes, s);
 }
 
@@ -636,12 +658,15 @@ bool bad_args(long long R, int D, int n, int log_g) {
 // (n, D) f32, by the same ids: (n,) int32 (id64 = 0) or int64 (id64 = 1).
 // All contiguous on the device; vec = 1 only when D % 4 == 0 and every
 // table and output is 16-byte aligned.  2^log_g threads per id, ctas the
-// grid.  Returns the launch's cudaError_t (0 = launched).
+// grid.  The tables hold rows [row_start, row_start + R) of the ids'
+// range; window = 1 writes zero rows for ids outside it, window = 0 (with
+// row_start = 0) NaN rows.  Returns the launch's cudaError_t (0 =
+// launched).
 extern "C" int ff_gather_rows(int T, const void* t0, const void* t1,
                               const void* t2, void* o0, void* o1, void* o2,
                               const void* ids, long long R, int D, int n,
                               int id64, int vec, int log_g, int ctas,
-                              void* stream) {
+                              long long row_start, int window, void* stream) {
   if (T < 1 || T > kMaxTables || bad_args(R, D, n, log_g) || ctas < 1)
     return (int)cudaErrorInvalidValue;
   const Tables p = {{static_cast<const float*>(t0),
@@ -651,13 +676,15 @@ extern "C" int ff_gather_rows(int T, const void* t0, const void* t1,
                      static_cast<float*>(o2)}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (id64)
-    return (int)launch_gather<long long>(p, T, ids, R, D, n, vec, log_g, ctas,
-                                         s);
-  return (int)launch_gather<int>(p, T, ids, R, D, n, vec, log_g, ctas, s);
+    return (int)launch_gather<long long>(p, T, ids, row_start, R, D, n, vec,
+                                         log_g, window != 0, ctas, s);
+  return (int)launch_gather<int>(p, T, ids, row_start, R, D, n, vec, log_g,
+                                 window != 0, ctas, s);
 }
 
-// table: (R, D) f32, updated in place; ids: (n,) int32 or int64 in batch
-// order; upd: (n, D) f32.  All contiguous on the device; vec = 1 only when
+// table: (R, D) f32, rows [row_start, row_start + R) of the ids' range,
+// updated in place (updates of ids outside it are dropped); ids: (n,)
+// int32 or int64 in batch order; upd: (n, D) f32.  All contiguous on the device; vec = 1 only when
 // D % 4 == 0 and table and upd are 16-byte aligned.  ctas: the grid (the
 // owners of the rows), in [1, 1024].  scratch null: one launch, binning
 // in shared memory (n x kBytesPerEntry must fit it); else a counting
@@ -668,16 +695,17 @@ extern "C" int ff_scatter_add_rows(void* table, const void* ids,
                                    const void* upd, long long R, int D, int n,
                                    int log_g, int id64, int vec, int ctas,
                                    void* scratch, long long scratch_bytes,
-                                   void* stream) {
+                                   long long row_start, void* stream) {
   if (bad_args(R, D, n, log_g) || n > (1 << 30) || ctas < 1 || ctas > 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (id64)
-    return (int)dispatch_scatter<long long>(table, ids, upd, R, D, n, log_g,
-                                            vec, ctas, scratch, scratch_bytes,
-                                            s);
-  return (int)dispatch_scatter<int>(table, ids, upd, R, D, n, log_g, vec, ctas,
-                                    scratch, scratch_bytes, s);
+    return (int)dispatch_scatter<long long>(table, ids, upd, row_start, R, D,
+                                            n, log_g, vec, ctas, scratch,
+                                            scratch_bytes, s);
+  return (int)dispatch_scatter<int>(table, ids, upd, row_start, R, D, n,
+                                    log_g, vec, ctas, scratch, scratch_bytes,
+                                    s);
 }
 
 // Bytes of the scratch ff_scatter_add_rows's two-launch route takes for n

@@ -157,7 +157,8 @@ class FFModel:
                   aggr: str = "sum", name: Optional[str] = None,
                   **kw) -> TensorSpec:
         """Single-table lookup with bag sum/avg, (batch, bag) -> (batch,
-        dim); ``--shard-embeddings`` is refused by the op."""
+        dim); ``--shard-embeddings`` (``shard_rows``) range-shards its rows
+        over the op's ``c`` axes."""
         self._embedding_dtypes(kw)
         kw.setdefault("shard_rows", self.config.shard_embeddings)
         return self._add(Embedding(self._unique("embedding", name), x,
@@ -180,7 +181,8 @@ class FFModel:
 
     def word_embedding(self, x: TensorSpec, num_entries: int, out_dim: int,
                        name: Optional[str] = None, **kw) -> TensorSpec:
-        """Token embedding (batch, seq) -> (batch, seq, dim)."""
+        """Token embedding (batch, seq) -> (batch, seq, dim);
+        ``--shard-embeddings`` range-shards its rows as :meth:`embedding`'s."""
         self._embedding_dtypes(kw)
         kw.setdefault("shard_rows", self.config.shard_embeddings)
         return self._add(WordEmbedding(self._unique("word_embedding", name),

@@ -1,6 +1,4 @@
-"""Models of the port (the counterparts of ``flexflow_tpu/models``).
-``dlrm_strategy``, the DLRM's table-parallel placement, comes with the
-sharded embeddings (ROADMAP.md queue 1, item 9b)."""
+"""Models of the port (the counterparts of ``flexflow_tpu/models``)."""
 
 from flexflow_torch.models.alexnet import build_alexnet
 from flexflow_torch.models.candle_uno import CandleConfig, build_candle_uno
@@ -14,6 +12,7 @@ from flexflow_torch.models.dlrm import (
     DLRMConfig,
     build_dlrm,
     dlrm_random_benchmark_config,
+    dlrm_strategy,
 )
 
 __all__ = [
@@ -25,6 +24,7 @@ __all__ = [
     "build_dlrm",
     "DLRMConfig",
     "dlrm_random_benchmark_config",
+    "dlrm_strategy",
     "build_candle_uno",
     "CandleConfig",
 ]

@@ -9,10 +9,8 @@ at ``sigmoid_layer`` and relu elsewhere (``dlrm.cc:26-39``); tables draw
 U(-1/sqrt(V), 1/sqrt(V)) (``dlrm.cc:41-47``).  When every table has one
 vocabulary (``run_random.sh``: 8 x 1M x 64) the tables are stacked into
 one ``MultiEmbedding``; otherwise each is an ``Embedding`` of its own.
-
-``dlrm_strategy`` (the reference's table-parallel placement) is not
-ported: it does something only on more than one device, and waits for
-sharded embeddings (ROADMAP.md queue 1, item 9b).
+``dlrm_strategy`` is the reference's table-parallel placement over a
+world of ranks (``ops/embedding.py``'s row-sharded tables).
 """
 
 from __future__ import annotations
@@ -27,6 +25,7 @@ from flexflow_torch.config import FFConfig
 from flexflow_torch.graph import FFModel
 from flexflow_torch.initializers import NormInitializer, UniformInitializer
 from flexflow_torch.ops.base import TensorSpec
+from flexflow_torch.parallel.strategy import ParallelConfig, StrategyStore
 
 
 @dataclasses.dataclass
@@ -172,3 +171,28 @@ def dlrm_random_benchmark_config(num_tables: int = 8) -> DLRMConfig:
         mlp_bot=[64, 512, 512, 64],
         mlp_top=[64 + 64 * num_tables, 1024, 1024, 1024, 1],
     )
+
+
+def dlrm_strategy(num_devices: int, dlrm: DLRMConfig,
+                  shard_embeddings: bool = False) -> StrategyStore:
+    """The reference's DLRM strategy (``dlrm_strategy.cc:5-36``), as the
+    JAX package's: the tables spread over the devices (table
+    parallelism), every MLP, concat and loss op data-parallel (the
+    fallback).  Tables of one vocabulary are the stacked
+    ``embeddings`` at ``c = gcd(T, num_devices)``: its stacked dim is the
+    leading dim of the flat view, so each rank holds ``T / c`` whole
+    tables.  With ``shard_embeddings`` (``--shard-embeddings``) and mixed
+    vocabularies each ``embedding{i}`` gets ``c = gcd(vocab_i,
+    num_devices)``, its ``shard_rows`` table range-sharded over them."""
+    store = StrategyStore(num_devices)
+    num_tables = len(dlrm.embedding_size)
+    uniform = len(set(dlrm.embedding_size)) == 1
+    ep = math.gcd(num_tables, num_devices)
+    if uniform and ep > 1:
+        store.set("embeddings", ParallelConfig(c=ep))
+    if shard_embeddings and not uniform:
+        for i, vocab in enumerate(dlrm.embedding_size):
+            c = math.gcd(vocab, num_devices)
+            if c > 1:
+                store.set(f"embedding{i}", ParallelConfig(c=c))
+    return store

@@ -108,7 +108,15 @@ class Op:
     def param_spec(self, key: str):
         """The spec parameter (or state) ``key`` is held in."""
         spec = {**self.param_specs(), **self.state_specs()}[key]
-        return self._spec(spec.dim_axes, spec.shape)
+        return self._spec(self.mesh_tags(spec, self._plan, self._pc),
+                          spec.shape)
+
+    def mesh_tags(self, spec: "ParamSpec", plan, pc):
+        """The tags parameter ``spec`` is placed by under ``plan`` and
+        ``pc``: its own, unless the op runs a tagged dim whole under that
+        placement (an embedding table whose rows the ``c`` degree does not
+        divide, ``ops/embedding.py``)."""
+        return spec.dim_axes
 
     def param_specs(self) -> Dict[str, ParamSpec]:
         return {}
@@ -133,9 +141,9 @@ class Op:
         """Param keys eligible for row-sparse updates (() = none)."""
         return ()
 
-    def sparse_ok(self) -> bool:
-        """Whether the sparse path is valid for this op (one device: the
-        JAX package's placement check has nothing to check here)."""
+    def sparse_ok(self, plan, pc) -> bool:
+        """Whether the sparse path is valid under this placement (JAX's
+        signature; every placement of the port's embedding ops is)."""
         return True
 
     def sparse_rows(self, params, xs):

@@ -171,10 +171,11 @@ def _load(name: str) -> ctypes.CDLL:
         lib.ff_xent_bwd.restype = i
     elif name == "embedding_rows":
         ll = ctypes.c_longlong
-        lib.ff_gather_rows.argtypes = [i] + [p] * 7 + [ll] + [i] * 6 + [p]
+        lib.ff_gather_rows.argtypes = [i] + [p] * 7 + [ll] + [i] * 6 + [
+            ll, i, p]
         lib.ff_gather_rows.restype = i
         lib.ff_scatter_add_rows.argtypes = [p, p, p, ll, i, i, i, i, i, i, p,
-                                            ll, p]
+                                            ll, ll, p]
         lib.ff_scatter_add_rows.restype = i
         lib.ff_scatter_scratch_bytes.argtypes = [ll, i]
         lib.ff_scatter_scratch_bytes.restype = ll
@@ -979,25 +980,40 @@ def _row_ids_ok(ids: torch.Tensor, num_rows: int) -> torch.Tensor:
     return (ids >= 0) & (ids < num_rows)
 
 
-def gather_rows_plain(table, ids):
+def _window(ids: torch.Tensor, row_start: Optional[int]) -> torch.Tensor:
+    """The ids as rows of a table that holds rows ``[row_start, row_start
+    + R)`` (the rank's block of a row-sharded table); the ids themselves
+    without a window."""
+    return ids if row_start is None else ids.long() - int(row_start)
+
+
+def gather_rows_plain(table, ids, row_start: Optional[int] = None):
     """Plain version of :func:`gather_rows`: ``table[ids]``, with a NaN
-    row (``jnp.take``'s fill) for an id outside ``[0, R)``."""
-    ok = _row_ids_ok(ids, table.shape[0])
-    rows = table.index_select(0, torch.where(ok, ids, 0).long())
-    return torch.where(ok[:, None], rows, torch.full_like(rows, math.nan))
+    row (``jnp.take``'s fill) for an id outside ``[0, R)``; with
+    ``row_start``, ``table[ids - row_start]`` with a zero row for an id
+    outside ``[row_start, row_start + R)`` (JAX's masked take)."""
+    loc = _window(ids, row_start)
+    ok = _row_ids_ok(loc, table.shape[0])
+    rows = table.index_select(0, torch.where(ok, loc, 0).long())
+    fill = math.nan if row_start is None else 0.0
+    return torch.where(ok[:, None], rows, torch.full_like(rows, fill))
 
 
-def scatter_add_rows_plain(table, ids, upd):
+def scatter_add_rows_plain(table, ids, upd, row_start: Optional[int] = None):
     """Plain version of :func:`scatter_add_rows`, in place, with the
     kernel's exact arithmetic: the updates of each row are summed in f32
     from 0 in stable-sorted order (batch order within a row), and the sum
     is added to the table row once; updates of ids outside ``[0, R)`` are
     dropped.  Round ``k`` adds the ``k``-th update of every run at once;
     a run that has ended adds ``+0.0``, which leaves its sum unchanged
-    (a sum that starts at ``+0.0`` is never ``-0.0``)."""
+    (a sum that starts at ``+0.0`` is never ``-0.0``).  With
+    ``row_start`` the table holds rows ``[row_start, row_start + R)``:
+    row ``id - row_start`` takes the updates, and those of ids outside
+    the window are dropped."""
     n = ids.shape[0]
     if n == 0:
         return table
+    ids = _window(ids, row_start)
     sid, perm = torch.sort(ids, stable=True)
     su = upd.float().index_select(0, perm)
     first = torch.ones(n, dtype=torch.bool, device=ids.device)
@@ -1098,14 +1114,14 @@ def _tables_check(what, tables):
                              f"{t0.device} and {t.device}")
 
 
-def _gather(what, tables, ids, counters):
+def _gather(what, tables, ids, counters, row_start=None):
     """K4 over ``tables`` (already gated) by ``ids``: one launch on CUDA,
     counted once in each wrapper of ``counters``; returns one output per
     table."""
     table = tables[0]
     _row_check(what, table, ids)
     if table.device.type == "cpu":
-        return [gather_rows_plain(t, ids) for t in tables]
+        return [gather_rows_plain(t, ids, row_start) for t in tables]
     ids = ids.contiguous()
     n, d = ids.shape[0], table.shape[1]
     outs = [torch.empty((n, d), dtype=table.dtype, device=table.device)
@@ -1123,7 +1139,9 @@ def _gather(what, tables, ids, counters):
     err = _load("embedding_rows").ff_gather_rows(
         k, *ptrs, *optrs, ids.data_ptr(), table.shape[0], d, n,
         int(ids.dtype == torch.int64), int(vec), log_g,
-        gather_ctas(n, log_g, _sm_count(table.device)), stream,
+        gather_ctas(n, log_g, _sm_count(table.device)),
+        0 if row_start is None else int(row_start), int(row_start is not None),
+        stream,
     )
     _raise_on(err, what)
     for fn in counters:
@@ -1131,36 +1149,40 @@ def _gather(what, tables, ids, counters):
     return outs
 
 
-def gather_rows(table, ids):
+def gather_rows(table, ids, row_start: Optional[int] = None):
     """``table (R, D) [ids (n,)] -> (n, D)``, reading only the addressed
-    rows; an id outside ``[0, R)`` gives a NaN row.  The port of
+    rows; an id outside ``[0, R)`` gives a NaN row.  With ``row_start``
+    (the first row of a rank's block of a row-sharded table) row ``i`` is
+    ``table[ids[i] - row_start]``, a zero row where that is outside
+    ``[0, R)``: JAX's masked take.  The port of
     ``pallas_kernels.gather_rows`` (kernel ``_gather_kernel``); source
     ``csrc/embedding_rows.cu``.  Any ``D``; f32 tables, int32 or int64
     ids."""
-    return _gather("gather_rows", (table,), ids, (gather_rows,))[0]
+    return _gather("gather_rows", (table,), ids, (gather_rows,),
+                   row_start)[0]
 
 
 gather_rows.launches = 0
 
 
-def gather_rows_multi_plain(tables, ids):
+def gather_rows_multi_plain(tables, ids, row_start: Optional[int] = None):
     """Plain version of :func:`gather_rows_multi`: one
     :func:`gather_rows_plain` per table."""
-    return [gather_rows_plain(t, ids) for t in tables]
+    return [gather_rows_plain(t, ids, row_start) for t in tables]
 
 
-def gather_rows_multi(tables, ids):
+def gather_rows_multi(tables, ids, row_start: Optional[int] = None):
     """``[t[ids] for t in tables]`` in ONE K4 launch: 1 to 3 tables of one
     ``(R, D)``, dtype and device, gathered by the same ids (the lazy
     optimizers' param and state rows), each output the bits
     :func:`gather_rows` gives for its table.  Counted in
     ``gather_rows.launches`` (one launch, one count) and in its own
     ``launches``.  A mismatch of the tables raises ``ValueError`` on every
-    device."""
+    device.  ``row_start`` windows every table as in :func:`gather_rows`."""
     tables = tuple(tables)
     _tables_check("gather_rows_multi", tables)
     return _gather("gather_rows_multi", tables, ids,
-                   (gather_rows, gather_rows_multi))
+                   (gather_rows, gather_rows_multi), row_start)
 
 
 gather_rows_multi.launches = 0
@@ -1184,18 +1206,22 @@ def scatter_plan(n: int) -> Tuple[int, int]:
     return (1 if n <= _SCATTER_CAP else 2), ctas
 
 
-def scatter_add_rows(table, ids, upd):
+def scatter_add_rows(table, ids, upd, row_start: Optional[int] = None):
     """``table[ids] += upd`` IN PLACE, touching only the addressed rows,
     with no float atomics: duplicate ids are summed in f32 in batch order
     and added to their row once, so two calls on the same inputs give
     bit-identical tables; updates of ids outside ``[0, R)`` are dropped
-    and ``n = 0`` is a no-op.  Returns ``table``.  The port of
+    and ``n = 0`` is a no-op.  With ``row_start`` (the first row of a
+    rank's block of a row-sharded table) the update of ``ids[i]`` goes to
+    row ``ids[i] - row_start``, and those outside ``[0, R)`` are dropped.
+    Returns ``table``.  The port of
     ``pallas_kernels.scatter_add_rows`` (kernel ``_scatter_add_kernel``;
     ``_collapse_runs``' sort becomes the kernel's own binning, see
     :func:`scatter_plan`); source ``csrc/embedding_rows.cu``.  Any ``D``;
     f32 tables and updates, int32 or int64 ids."""
     _row_check("scatter_add_rows", table, ids, upd)
     if table.device.type == "cpu":
+        ids = _window(ids, row_start)
         return scatter_add_rows_plain(table, ids, upd)
     if upd.dtype != table.dtype:
         raise ValueError(f"scatter_add_rows: updates must be {table.dtype}, "
@@ -1217,7 +1243,8 @@ def scatter_add_rows(table, ids, upd):
     err = lib.ff_scatter_add_rows(
         table.data_ptr(), ids.data_ptr(), upd.data_ptr(), table.shape[0],
         table.shape[1], n, log_g, int(ids.dtype == torch.int64), int(vec),
-        ctas, None if scratch is None else scratch.data_ptr(), nbytes, stream,
+        ctas, None if scratch is None else scratch.data_ptr(), nbytes,
+        0 if row_start is None else int(row_start), stream,
     )
     _raise_on(err, "scatter_add_rows")
     scatter_add_rows.launches += 1

@@ -61,8 +61,20 @@ on its blocks: shard_map done by hand.
   which GSPMD realizes with a shuffle).  The gradients over those axes
   are reduce-scattered, each rank updates its slice, and the parameter
   is all-gathered.
-- The row-sparse step (item 9b), supersteps, gradient accumulation and
-  ``--remat`` (item 9d) are refused under more than one rank.
+- The row-sparse step runs on each rank's tables (``ops/embedding.py``):
+  the ids and row gradients of the batch are all-gathered over each
+  op's ``n`` axes in rank order, a replicated table takes the whole
+  batch with K5 (every replica the same bits), a row-sharded one the
+  rows in its window.  The unique row sums (the clip norm's squares,
+  the lazy optimizers' steps) are taken over that global batch, so they
+  are the same on every rank and the clip norm counts them once.  Lazy
+  momentum and Adam keep the table's state split as the table is; each
+  rank gathers and scatters the unique rows it holds (K4 and K5 with its
+  window).  Under ZeRO-1 the row-sparse tables' state keeps the table's
+  own split: JAX's lazy step reads it whole through GSPMD, so the values
+  are the same.
+- Supersteps, gradient accumulation and ``--remat`` (item 9d) are
+  refused under more than one rank.
 """
 
 from __future__ import annotations
@@ -76,9 +88,8 @@ import torch.utils.checkpoint
 
 from flexflow_torch.config import FFConfig
 from flexflow_torch.graph import FFModel
-from flexflow_torch.ops import kernels
+from flexflow_torch.ops import embedding, kernels
 from flexflow_torch.ops.base import Op
-from flexflow_torch.ops.embedding import _scatter_add_dispatch
 from flexflow_torch.parallel import collectives, launch
 from flexflow_torch.parallel.distributed import build_hybrid_mesh_plan
 from flexflow_torch.parallel.mesh import replicated
@@ -214,7 +225,9 @@ class Executor:
         return op
 
     def _param_spec(self, op: Op, spec):
-        return self.plan.spec(self._pc(op), spec.dim_axes, spec.shape)
+        pc = self._pc(op)
+        return self.plan.spec(pc, op.mesh_tags(spec, self.plan, pc),
+                              spec.shape)
 
     @functools.cached_property
     def _batch_specs(self) -> Dict[str, tuple]:
@@ -230,6 +243,16 @@ class Executor:
                     break
         return out
 
+    def _op_inputs(self, op: Op, env) -> List[torch.Tensor]:
+        """``op``'s inputs from ``env`` (the batch's blocks), each in the
+        spec the op reads it in."""
+        if self.world is None:
+            return [env[t.name] for t in op.inputs]
+        return [collectives.reshard(env[t.name], self._batch_specs[t.name],
+                                    op.input_spec(i, self._batch_specs[
+                                        t.name]), self.world)
+                for i, t in enumerate(op.inputs)]
+
     def _require_optimizer(self, what: str):
         if self.optimizer is None:
             raise ValueError(
@@ -239,12 +262,11 @@ class Executor:
 
     # -- initialization ------------------------------------------------------
 
-    def init_params_and_state(self, seed: Optional[int] = None):
-        """Fresh ``(params, state)``, each ``{op_name: {key: tensor}}`` on
-        the device, drawn from a ``torch.Generator`` seeded with ``seed``
-        (default ``config.seed``): op by op, its params and then its
-        state, key by key in sorted order: the JAX package's order, not
-        its values."""
+    def draw_params_and_state(self, seed: Optional[int] = None):
+        """The full ``(params, state)`` on the host, drawn from a
+        ``torch.Generator`` seeded with ``seed`` (default
+        ``config.seed``): op by op, its params and then its state, key by
+        key in sorted order: the JAX package's order, not its values."""
         seed = self.config.seed if seed is None else seed
         gen = torch.Generator().manual_seed(int(seed))
         params: Tree = {}
@@ -253,21 +275,32 @@ class Executor:
             for tree, specs in ((params, op.param_specs()),
                                 (state, op.state_specs())):
                 if specs:
-                    tree[op.name] = {
-                        k: self._local(op, specs[k], specs[k].initializer(
-                            gen, specs[k].shape, specs[k].dtype))
-                        for k in sorted(specs)
-                    }
+                    tree[op.name] = {k: specs[k].initializer(
+                        gen, specs[k].shape, specs[k].dtype)
+                        for k in sorted(specs)}
         return params, state
 
+    def init_params_and_state(self, seed: Optional[int] = None):
+        """Fresh ``(params, state)``, each ``{op_name: {key: tensor}}`` on
+        the device: the rank's blocks of :meth:`draw_params_and_state`'s."""
+        params, state = self.draw_params_and_state(seed)
+        out = []
+        for tree, specs_of in ((params, lambda op: op.param_specs()),
+                               (state, lambda op: op.state_specs())):
+            out.append({op.name: {k: self._local(op, specs_of(op)[k],
+                                                 tree[op.name][k])
+                                  for k in tree[op.name]}
+                        for op in self.model.layers if op.name in tree})
+        return tuple(out)
+
     def _local(self, op: Op, spec, full: torch.Tensor) -> torch.Tensor:
-        """The rank's block of a full parameter (or state) on the
-        device."""
+        """The rank's block of a full parameter (or state) on the device,
+        a tensor of its own (``full`` is never trained in place)."""
         if self.world is not None:
             full = full[self.plan.local_slices(
-                self._param_spec(op, spec), full.shape,
-                self.world.rank)].contiguous()
-        return full.to(self.device)
+                self._param_spec(op, spec), full.shape, self.world.rank)]
+        return full.to(self.device, memory_format=torch.contiguous_format,
+                       copy=True)
 
     def param_specs(self) -> Dict[str, Dict[str, tuple]]:
         """``{op: {key: spec}}`` of every parameter, and of the op state
@@ -318,11 +351,12 @@ class Executor:
         (``MeshPlan.spec(extra_leading_axes=...)``) along which the
         parameter is replicated and its gradient a partial sum."""
         if not self.config.zero_sharded_optimizer or self.world is None \
-                or not spec.shape:
+                or not spec.shape or op in self._sparse_ops:
             return ()
         pc = self._pc(op)
         own = self._param_spec(op, spec)
-        jax_spec = self.plan.spec(pc, spec.dim_axes, spec.shape,
+        jax_spec = self.plan.spec(pc, op.mesh_tags(spec, self.plan, pc),
+                                  spec.shape,
                                   extra_leading_axes=self.plan.assign(pc).get(
                                       "n", ()))
         work = self._op_work_axes(op)
@@ -623,52 +657,61 @@ class Executor:
             if keys and set(keys) == set(specs) and \
                     all(s.dtype == torch.float32 for s in specs.values()) and \
                     all(t.name in input_names for t in op.inputs) and \
-                    op.sparse_ok():
+                    op.sparse_ok(self.plan, self._pc(op)):
                 out.append(op)
         return out
 
     def train_step(self, params, opt_state, state, batch):
         """One iteration: forward, backward, clip, optimizer update in
         place.  Returns ``(params, opt_state, state, metrics)``."""
-        opt = self._require_optimizer("train_step")
+        self._require_optimizer("train_step")
         if self._sparse_ops:
-            if self.plan.num_devices > 1:
-                raise ValueError(
-                    f"the row-sparse embedding update of "
-                    f"{[op.name for op in self._sparse_ops]} under "
-                    f"{self.plan.num_devices} ranks is ROADMAP.md queue 1, "
-                    f"item 9b")
             return self._sparse_train_step(params, opt_state, state, batch)
-        zero = self.config.zero_sharded_optimizer and self.world is not None
         _loss, metrics, new_state, grads, _ = self._grads(params, state, batch)
-        grads = self._clip_grads(self._reduce_grads(grads, zero=zero))
+        opt_state, _ = self._dense_update(params, opt_state, grads)
+        return params, opt_state, new_state, metrics
+
+    def _dense_update(self, params, opt_state, grads, extra_sq=0.0):
+        """Reduce ``grads`` over the mesh, clip them (the norm taking
+        ``extra_sq`` too) and update ``params`` in place; under ZeRO-1
+        each rank updates its slice and the slices are all-gathered into
+        the parameters.  Returns ``(opt_state, clip scale or None)``."""
+        opt = self.optimizer
+        zero = self.config.zero_sharded_optimizer and self.world is not None
+        grads = self._reduce_grads(grads, zero=zero)
+        scale = None
+        if self.config.clip_norm and self.config.clip_norm > 0.0:
+            scale = self._clip_scale(grads, extra_sq)
+            grads = self._scaled(grads, scale)
         if not zero:
-            params, opt_state = opt.update(params, opt_state, grads)
-            return params, opt_state, new_state, metrics
-        # ZeRO-1: each rank updates its slice, then the slices are
-        # all-gathered into the parameters.
+            _, opt_state = opt.update(params, opt_state, grads)
+            return opt_state, scale
         views = self._zero_views(params)
         _, opt_state = opt.update(views, opt_state, grads)
         with torch.no_grad():
             for op in self.model.layers:
+                if op.name not in params:
+                    continue
                 for k, spec in op.param_specs().items():
                     extra = self._zero_axes(op, spec)
                     if extra:
                         params[op.name][k].copy_(self.world.all_gather(
                             views[op.name][k], 0, extra))
-        return params, opt_state, new_state, metrics
+        return opt_state, scale
 
     def _sparse_train_step(self, params, opt_state, state, batch):
         """The train step with the sparse ops' tables updated row-wise
         (``flexflow_tpu/runtime/executor.py``'s sparse step): the rows
         are gathered, the dense params and the rows differentiated in one
         backward, the dense params updated first (the sparse tables'
-        optimizer state filtered out and put back), then the tables."""
+        optimizer state filtered out and put back), then the tables.
+        Under a mesh the unique row sums are taken over the global batch
+        (``embedding.gather_batch``), the same on every rank."""
         opt = self.optimizer
-        ops = self._sparse_ops
+        ops = [self._bind(op) for op in self._sparse_ops]
         names = {op.name for op in ops}
         env = self._inputs(batch, {t.name for op in ops for t in op.inputs})
-        xs = {op.name: [env[t.name] for t in op.inputs] for op in ops}
+        xs = {op.name: self._op_inputs(op, env) for op in ops}
         with torch.no_grad():
             rows = {op.name: op.sparse_rows(params[op.name], xs[op.name])
                     for op in ops}
@@ -679,20 +722,19 @@ class Executor:
         clip = self.config.clip_norm > 0.0
         uniq = {}
         if clip or not stateless:
-            for op in ops:
-                ids = op.sparse_flat_ids(params[op.name], xs[op.name])
-                g = rg[op.name]
-                uniq[op.name] = _unique_row_sums(ids.reshape(-1),
-                                                 g.reshape(-1, g.shape[-1]))
-        scale = None
-        if clip:
-            extra_sq = sum(gsum.square().sum() for _, gsum, _ in uniq.values())
-            scale = self._clip_scale(dg, extra_sq)
-            dg = self._scaled(dg, scale)
+            with torch.no_grad():
+                for op in ops:
+                    ids, g = embedding.gather_batch(
+                        op, op.sparse_flat_ids(params[op.name], xs[op.name]),
+                        rg[op.name])
+                    uniq[op.name] = _unique_row_sums(
+                        ids.reshape(-1), g.reshape(-1, g.shape[-1]))
+        extra_sq = sum(gsum.square().sum() for _, gsum, _ in uniq.values()) \
+            if clip else 0.0
         opt_dense = opt.map_param_states(
             opt_state, lambda tree: {k: v for k, v in tree.items()
                                      if k not in names})
-        _, new_opt = opt.update(dense, opt_dense, dg)
+        new_opt, scale = self._dense_update(dense, opt_dense, dg, extra_sq)
         if new_opt is not None:
             new_opt = opt.restore_param_states(new_opt, opt_state, names)
         with torch.no_grad():
@@ -723,15 +765,24 @@ class Executor:
         safe = torch.where(mask, uids, 0)
         bufs = {k: b.reshape(-1, b.shape[-1]) for k, b in
                 opt.sparse_state_buffers(opt_state, op.name, key).items()}
-        p_rows, *rows = kernels.gather_rows_multi([flat, *bufs.values()],
-                                                  safe)
+        # A row-sharded table's rank steps the unique rows it holds: its
+        # window of the table and of the state, the same split.
+        tables = [flat, *bufs.values()]
+        shard = embedding._row_sharding(op, key)
+        if shard is None:
+            p_rows, *rows = kernels.gather_rows_multi(tables, safe)
+        else:
+            p_rows, *rows = kernels.gather_rows_multi(
+                tables, safe, row_start=embedding._shard_offset(op, shard))
         buf_rows = dict(zip(bufs, rows))
         d_p, d_bufs = opt.sparse_row_step(p_rows, gsum, buf_rows,
                                           t=opt.sparse_step_count(opt_state))
         m = mask[:, None]
-        _scatter_add_dispatch(flat, safe, torch.where(m, d_p, 0.0))
+        embedding._scatter_add_dispatch(op, flat, safe,
+                                        torch.where(m, d_p, 0.0))
         for k, b in bufs.items():
-            _scatter_add_dispatch(b, safe, torch.where(m, d_bufs[k], 0.0))
+            embedding._scatter_add_dispatch(op, b, safe,
+                                            torch.where(m, d_bufs[k], 0.0))
         if bufs:
             opt_state = opt.with_sparse_state_buffers(
                 opt_state, op.name, key,

@@ -19,6 +19,15 @@ tests hold these against the JAX package's runs of the same tables;
   ``record_shapes`` (also return the shapes the attention dispatcher and
   K3's wrapper were called with on this rank).
 
+``dlrm_app(configs, argv)`` is the rank body of the DLRM's worlds (the
+CPU tests' and ``chip_smoke.py``'s phase 28): ``apps.dlrm.main`` with
+``-ll:gpu`` the world's size under each configuration in turn, every run
+from one draw of the initial parameters (the seed's, or given ones),
+returning its losses, launch counts, local table shape, ms a step, the
+collective share, peak memory, whether only the batch's rows moved, and
+the batch's rows of the rank's table block (the parent holds tables
+against each other through them).
+
 ``chip_app(configs, argv, ref_path)`` is the rank body of
 ``chip_smoke.py``'s phase 27: the full-width bf16 LM through
 ``apps.transformer.main`` under each configuration in turn, with its
@@ -85,7 +94,107 @@ def lm(**kw):
                                                 seed=0), **kw)
 
 
-MODELS = {"small_cnn": small_cnn, "norm_cnn": norm_cnn, "lm": lm}
+def emb_model(batch: int = 8, vocab: int = 64):
+    """``tests/test_sharding_equivalence.py``'s sharded-embedding model:
+    a (batch, 4) bag of ids into a ``shard_rows`` table (vocab 64, dim 8),
+    summed, then fc 16 (relu) -> fc 4 -> softmax."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.graph import FFModel
+
+    ff = FFModel(FFConfig(batch_size=batch, seed=7, shard_embeddings=True))
+    ids = ff.create_tensor((batch, 4), dtype=torch.int32, name="ids")
+    lbl = ff.create_tensor((batch,), dtype=torch.int32, name="lbl")
+    t = ff.embedding(ids, vocab, 8, aggr="sum", name="emb")
+    t = ff.dense(t, 16, activation="relu", name="fc1")
+    t = ff.dense(t, 4, activation=None, name="fc2")
+    ff.softmax(t, lbl, name="softmax")
+    return ff
+
+
+#: The tables of ``table_model``: its ids' width and the call that adds the op.
+TABLES = {
+    "multi": (4, lambda ff, ids: ff.multi_embedding(ids, 4, 16, 8,
+                                                    name="emb")),
+    # 17 rows padded to 20 (c = 2, 4 divide them) or to 18 (c = 4 does
+    # not: the table runs replicated).
+    "hetero": (3, lambda ff, ids: ff.hetero_embedding(ids, (5, 9, 3), 8,
+                                                      pad_to=4, name="emb")),
+    "hetero18": (3, lambda ff, ids: ff.hetero_embedding(
+        ids, (5, 9, 3), 8, pad_to=2, name="emb")),
+    "word": (4, lambda ff, ids: ff.word_embedding(ids, 64, 8, name="emb",
+                                                  shard_rows=True)),
+}
+
+
+def table_model(kind: str, batch: int = 8):
+    """A table of ``TABLES[kind]`` over (batch, k) ids, its rows flattened
+    into fc 4 -> softmax."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.graph import FFModel
+
+    k, build = TABLES[kind]
+    ff = FFModel(FFConfig(batch_size=batch, seed=5))
+    ids = ff.create_tensor((batch, k), dtype=torch.int32, name="ids")
+    lbl = ff.create_tensor((batch,), dtype=torch.int32, name="lbl")
+    t = build(ff, ids)
+    t = ff.reshape(t, (batch, k * 8), name="rows")
+    t = ff.dense(t, 4, activation=None, name="fc")
+    ff.softmax(t, lbl, name="softmax")
+    return ff
+
+
+MODELS = {"small_cnn": small_cnn, "norm_cnn": norm_cnn, "lm": lm,
+          "emb": emb_model, "table": table_model}
+
+
+def _skip_all_reduce(real):
+    """The planted fault ``no_all_reduce``: the sharded gather keeps its
+    own window's rows instead of the all-reduce over the ``c`` axes (the
+    collective still runs, so the other ranks do not wait on it)."""
+    def gather(op, table, flat_ids):
+        w = op._world
+        w.all_reduce = lambda x, axes: (type(w).all_reduce(w, x, axes), x)[1]
+        try:
+            return real(op, table, flat_ids)
+        finally:
+            del w.all_reduce
+    return gather
+
+
+def _no_window(real):
+    """The planted fault ``no_window``: the sharded scatter-add runs
+    without its window (``row_start = 0``)."""
+    from flexflow_torch.ops import embedding
+
+    def scatter(op, table, flat_ids, upd):
+        offset = embedding._shard_offset
+        embedding._shard_offset = lambda op, shard: 0
+        try:
+            return real(op, table, flat_ids, upd)
+        finally:
+            embedding._shard_offset = offset
+    return scatter
+
+
+#: Planted faults of the sharded tables, by name: ``(function of
+#: ops/embedding.py, wrapper)``.  Rank 1 runs the wrapped function.
+FAULTS = {"no_all_reduce": ("_gather_dispatch", _skip_all_reduce),
+          "no_window": ("_scatter_add_dispatch", _no_window)}
+
+
+def planted(fault):
+    """Install ``FAULTS[fault]`` on this rank when it is rank 1 (nothing
+    for ``fault`` None); returns the undo."""
+    import torch.distributed as dist
+
+    from flexflow_torch.ops import embedding
+
+    if fault is None or not dist.is_initialized() or dist.get_rank() != 1:
+        return lambda: None
+    name, wrap = FAULTS[fault]
+    real = getattr(embedding, name)
+    setattr(embedding, name, wrap(real))
+    return lambda: setattr(embedding, name, real)
 
 
 def _numpy(tree):
@@ -195,6 +304,8 @@ def _train(case: Dict[str, Any]) -> Dict[str, Any]:
             params, opt_state, state, ex.shard_batch(batch))
         losses.append(float(m["train_loss"]))
     out["losses"] = losses
+    out["local_shapes"] = {op: {k: tuple(v.shape) for k, v in g.items()}
+                           for op, g in params.items()}
     out["params"] = _numpy(ex.gather_full(params))
     if opt_state is not None and isinstance(opt_state, dict) and \
             "m" in opt_state:
@@ -327,6 +438,175 @@ def chip_app(configs: List[Dict[str, Any]], argv: List[str],
             holds[f"K3 {shape}"] = held[("xent", shape)]
         torch.cuda.empty_cache()
         out.append(dict(result, holds=holds))
+    return out
+
+
+def _table_op(ff):
+    """The DLRM's table op: the stacked ``embeddings`` (one vocabulary)."""
+    return next(op for op in ff.layers if op.sparse_keys())
+
+
+class _InitOnce:
+    """``Executor.draw_params_and_state`` memoised for one world process:
+    the seed's draw (made at the first call) or ``params`` (a full numpy
+    tree), so every run of a world starts from the same values without
+    drawing the tables again."""
+
+    def __init__(self, params=None):
+        from flexflow_torch.runtime.executor import Executor
+
+        self.full = None if params is None else (
+            {op: {k: torch.from_numpy(np.array(v)) for k, v in g.items()}
+             for op, g in params.items()}, {})
+        self.real = Executor.draw_params_and_state
+
+    def __enter__(self):
+        from flexflow_torch.runtime.executor import Executor
+
+        def draw(ex, seed=None):
+            if self.full is None:
+                self.full = self.real(ex, seed)
+            return self.full
+
+        Executor.draw_params_and_state = draw
+        return self
+
+    def __exit__(self, *exc):
+        from flexflow_torch.runtime.executor import Executor
+
+        Executor.draw_params_and_state = self.real
+
+
+def dlrm_app(configs: List[Dict[str, Any]], argv: List[str],
+             device: str = "cuda", params=None) -> List[Dict[str, Any]]:
+    """Rank body of the DLRM's worlds: ``apps.dlrm.main(argv + -ll:gpu N
+    + config["extra"])`` under each configuration, with ``-s`` a table
+    file this rank writes from ``config["table"]`` (``{op: ParallelConfig
+    JSON}``; None: the app's ``dlrm_strategy``) and ``config["fault"]``
+    planted on rank 1 (:data:`FAULTS`).  Every run starts from the same
+    parameters (:class:`_InitOnce`).  Returns per configuration the exit
+    code, the report, the losses, the launch counts, the local table
+    shape, the rank's window of the flat table, the dense parameters
+    whole and the rows of the window the batch names (before and after),
+    whether the batch's rows and only they moved (the lazy optimizers'
+    moments too), ms a step, the ms of one more step and of its
+    collectives (each synchronised alone), and the peak memory."""
+    import contextlib
+    import io
+    import json
+    import os
+    import tempfile
+    import time
+
+    import torch.distributed as dist
+
+    from flexflow_torch.apps import dlrm
+    from flexflow_torch.data.loader import synthetic_host_batch
+    from flexflow_torch.ops import embedding, probe_kernels
+    from flexflow_torch.parallel import launch
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    n = launch.world_size()
+    tmp = tempfile.mkdtemp(prefix="ff_dlrm_")
+    out = []
+    with _InitOnce(params) as once:
+        for c in configs:
+            args = list(argv) + ["-ll:gpu", str(n)] + list(c.get("extra", ()))
+            if c.get("table") is not None:
+                path = os.path.join(tmp, f"{c['name']}.json")
+                with open(path, "w") as f:
+                    json.dump({"version": 1, "num_devices": n,
+                               "ops": c["table"]}, f)
+                args += ["-s", path]
+            for fn in probe_kernels.KERNELS:
+                fn.launches = 0
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            stats: Dict[str, Any] = {}
+            report = io.StringIO()
+            unplant = planted(c.get("fault"))
+            try:
+                with contextlib.redirect_stdout(report):
+                    code = dlrm.main(args, device=device, stats_out=stats)
+                if cuda:
+                    torch.cuda.synchronize()
+            finally:
+                unplant()
+            counts = {fn.__name__: fn.launches for fn in probe_kernels.KERNELS
+                      if fn.launches}
+            peak = (torch.cuda.max_memory_allocated() - held) / 1e9 \
+                if cuda else None
+            ex = stats.pop("executor")
+            p, opt_state, state = stats.pop("final")
+            op = ex._bind(_table_op(ex.model))
+            key = op.sparse_keys()[0]
+            table = p[op.name][key]
+            flat = table.reshape(-1, table.shape[-1])
+            shard = embedding._row_sharding(op, key)
+            start = 0 if shard is None else embedding._shard_offset(op, shard)
+            ids = synthetic_host_batch(ex.model, np.random.default_rng(0))
+            batch_rows = np.unique(op.sparse_flat_ids(
+                p[op.name], [torch.from_numpy(ids[t.name])
+                             for t in op.inputs]).numpy())
+            mine = batch_rows[(batch_rows >= start)
+                              & (batch_rows < start + flat.shape[0])]
+            init_flat = ex._local(op, op.param_specs()[key],
+                                  once.full[0][op.name][key]).reshape(
+                                      flat.shape)
+            changed = (flat != init_flat).any(-1)
+            named = torch.zeros_like(changed)
+            named[torch.as_tensor(mine - start, device=changed.device)] = True
+            moved = None
+            if isinstance(opt_state, dict) and "m" in opt_state:
+                m = opt_state["m"][op.name][key].reshape(flat.shape)
+                moved = not bool(((m != 0).any(-1) & ~named).any())
+            sel = torch.as_tensor(mine - start, device=flat.device)
+            dense = _numpy(ex.gather_full({k: g for k, g in p.items()
+                                           if k != op.name}))
+            result = dict(
+                name=c["name"], code=code, report=report.getvalue(),
+                losses=stats["step_losses"], counts=counts,
+                local_shape=tuple(table.shape), window=(start, flat.shape[0]),
+                rows=mine.tolist(),
+                trained_rows=flat[sel].detach().cpu().numpy(),
+                init_rows=init_flat[sel].cpu().numpy(),
+                dense=dense if dist.get_rank() == 0 else None,
+                init_dense=_numpy({k: g for k, g in once.full[0].items()
+                                   if k != op.name})
+                if dist.get_rank() == 0 else None,
+                dense_digest=digest({op: {k: torch.from_numpy(v)
+                                          for k, v in g.items()}
+                                     for op, g in dense.items()}),
+                only_batch_rows=not bool((changed & ~named).any()),
+                batch_rows_moved=bool(changed[named].all()),
+                moments_only_batch=moved,
+                ms_step=stats["elapsed_s"] * 1e3 / stats["iterations"],
+                peak_gb=peak, backend=dist.get_backend(),
+                jax_imported="jax" in sys.modules)
+            del init_flat, changed, named, flat, table
+            # One more step, each collective timed alone (in place).
+            w = ex.world
+            batch = ex.shard_batch(ids)
+            dist.barrier()
+            if cuda:
+                torch.cuda.synchronize()
+            w.comm_s, w.timed = 0.0, True
+            t0 = time.perf_counter()
+            _, _, _, mt = ex.train_step(p, opt_state, state, batch)
+            float(mt["train_loss"])
+            if cuda:
+                torch.cuda.synchronize()
+            result["one_step_ms"] = (time.perf_counter() - t0) * 1e3
+            result["comm_ms"], w.timed = w.comm_s * 1e3, False
+            out.append(result)
+            del ex, p, opt_state, state, stats, batch, mt
+            if cuda:
+                torch.cuda.empty_cache()
     return out
 
 

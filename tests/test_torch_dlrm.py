@@ -205,15 +205,6 @@ def test_mse_loss(shape, reduction):
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=TOL, rtol=0)
 
 
-def test_shard_rows_refused():
-    _, ts = _specs("ids", (2, 3), ints=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        tops.Embedding("e", ts, 10, 4, shard_rows=True)
-    with pytest.raises(NotImplementedError, match="shard"):
-        TModel(TConfig(shard_embeddings=True)).word_embedding(
-            TSpec("t", (2, 3), torch.int32, ("n", "s")), 10, 4)
-
-
 # ---------------------------------------------------------------------------
 # the sparse protocol of each op
 # ---------------------------------------------------------------------------
@@ -638,12 +629,36 @@ def test_dlrm_app_lazy_adam_and_dot_on_cpu():
 @pytest.mark.parametrize("flag", [
     ["-d", "x.h5"], ["--dataset", "x.h5"], ["--stream-dataset"],
     ["--zc-dataset"], ["--prod-trace"], ["--trace-alpha", "1.5"],
-    ["--trace-burst", "0.1"], ["--shard-embeddings"], ["-s", "s.json"],
-    ["--strategy", "s.json"]])
+    ["--trace-burst", "0.1"],
+    # The ids these two had beside the --shard-embeddings case, which
+    # now runs (test_dlrm_app_shard_embeddings_runs_on_one_rank).
+    pytest.param(["-s", "s.json"], id="flag8"),
+    pytest.param(["--strategy", "s.json"], id="flag9")])
 def test_dlrm_app_refuses_by_name(flag):
     with pytest.raises(SystemExit) as e:
         tapp.main(["-b", "8"] + flag, device="cpu")
     assert isinstance(e.value.code, str) and flag[0] in e.value.code
+
+
+def test_dlrm_app_shard_embeddings_runs_on_one_rank():
+    """``--shard-embeddings`` tags each mixed-vocabulary table
+    ``("c", None)``; on one rank that places it whole, and the app trains
+    as without the flag (``tests/test_torch_dlrm_mesh.py`` runs it over
+    two ranks)."""
+    argv = ["-b", "8", "-i", "2", "--optimizer", "sgd", "--momentum", "0",
+            "--wd", "0", "--arch-sparse-feature-size", "8",
+            "--arch-embedding-size", "50-60-70", "--arch-mlp-bot", "4-8",
+            "--arch-mlp-top", "32-8-1"]
+    runs = []
+    for extra in (["--shard-embeddings"], []):
+        stats = {}
+        assert tapp.main(argv + extra, device="cpu", stats_out=stats) == 0
+        runs.append(stats)
+    assert runs[0]["step_losses"] == runs[1]["step_losses"]
+    ex = runs[0]["executor"]
+    assert ex.param_specs()["embedding0"]["table"] == ((), ())
+    op = next(op for op in ex.model.layers if op.name == "embedding0")
+    assert op.param_specs()["table"].dim_axes == ("c", None)
 
 
 def test_dlrm_app_refuses_a_bad_shape():
