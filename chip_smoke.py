@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Twenty-eight phases, in order; any failure raises and exits non-zero:
+Twenty-nine phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -391,12 +391,41 @@ Twenty-eight phases, in order; any failure raises and exits non-zero:
     a c=2 rank's shapes and timed beside ``F.embedding`` with the mask and
     ``index_add_`` on the window; ms a step, the collective share and
     peak memory a rank.
+29. **Sharded serving** (``mesh-serve``, ``MESH_SERVE``: phase 3's LM and
+    16 requests, K = 8, through ``ServingExecutor(shard=(n, c))`` on
+    worlds of ranks, ``flexflow_torch/tools/mesh_smoke.py::serve_cases``
+    the rank body).  (a) ``apps.serve`` on a world of 1 without a shard:
+    phase 3's tokens bit for bit.  (b) Worlds of 2 ((2, 1), (1, 2)) and 4
+    ((2, 2)), NCCL a card a rank with enough cards, else gloo with every
+    rank on the one card; each shard padded and paged (16-token blocks),
+    f32 and bf16, every rank asserting ``ex.shard == (n, c)``: f32 tokens
+    (and the teacher-forced first token) equal the one-engine run's, bf16
+    teacher-forced decode logits within ``TOL_MESH_SERVE_BF16`` of the
+    one-engine run's (the requests whose tokens differ are counted), every
+    rank's tokens the same, K1f launched on every rank at its (1, h/c,
+    bucket, hd) heads and K6 on its (B/n, S, h/c, hd) block (padded; none
+    on the paged pool), no other kernel.  In the world of 4 each rank
+    also runs ``apps.serve --shard 2,2`` (f32): exit 0, shard [2, 2] and
+    one engine's tokens on every rank, K1f and K6 launched on each.  For
+    each bf16 arm whose tokens differ: the first differing step and the
+    one engine's top-2 logit margin there.  (c) The planted faults of
+    ``mesh_smoke.SERVE_FAULTS`` on rank 1 (it keeps its own partial
+    product instead of the ``c`` all-reduce; it concatenates the gathered
+    tokens in reverse order) must change tokens (f32), and the first,
+    run in bf16, must put the teacher logits past the bf16 bar.  (d) With four cards
+    (two) ``apps.serve --shard 2,2`` (``2,1``) spawning its own NCCL
+    world.  (e) K6 and K1f at every rank-local shape, f32 and bf16,
+    against their plain versions by phase 1's rules, timed beside them,
+    SDPA (masked for K6) and the bound.  Per arm: ms a decode superstep,
+    tokens/s, the share of the run's wall in collectives (host clock,
+    each collective synchronised alone) and peak memory, by rank.
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
 DLRM, long-context, race, AlexNet, superstep, serve-features,
 serve-resilience, NMT, CNN, Candle, MoE, item-7, scheduled and fleet runs
-together, and phases 27's and 28's ranks, split
-in ``launches_by_path``; the superstep, serve-features,
+together, and phases 27's, 28's and 29's ranks, split
+in ``launches_by_path``; K1f's and K6's ``mesh_serve_shapes`` rows at
+phase 29's rank-local shapes; the superstep, serve-features,
 serve-resilience and item-7 paths count what their graph runs launched
 eagerly or captured; K3's entries name the
 form each main-path shape takes, and K3's, K4's and K5's carry the NMT
@@ -1185,6 +1214,11 @@ def _serve_argv(dtype: str, c=SERVE):
             "--dtype", dtype, "--seed", str(c["seed"])]
 
 
+#: Phase 3's tokens by request id (phase 29 (a) holds a world of 1 to
+#: them).
+SERVE_TOKENS: dict = {}
+
+
 def phase_serve(torch, kernels):
     """The app at SERVE widths in bf16.  The decode supersteps are one
     CUDA graph: the counters rise at the first call's eager steps and at
@@ -1198,6 +1232,8 @@ def phase_serve(torch, kernels):
     torch.cuda.synchronize()
     launches = _counts()
     _check(rc == 0, f"serve exited {rc}")
+    SERVE_TOKENS.update({rid: r.tokens for rid, r in
+                         stats["results"].items()})
     _check(stats["completed"] == SERVE["requests"] and stats["failed"] == 0,
            f"serve completed {stats['completed']} of {SERVE['requests']}, "
            f"failed {stats['failed']}")
@@ -6767,6 +6803,457 @@ def phase_mesh_dlrm(torch, kernels, F, ref=None, c=None, device="cuda"):
     return rows, launches
 
 
+#: Phase 29 (``mesh-serve``): phase 3's LM and requests on worlds of
+#: ranks, ``ServingExecutor(shard=(n, c))`` through
+#: ``tools/mesh_smoke.py::serve_cases``, every shard padded and paged
+#: (16-token blocks) in f32 and in bf16; ``teacher_steps``: the
+#: teacher-forced decode steps (to max_seq, after a prefill in the
+#: largest bucket) whose logits every arm returns; ``faults``: the
+#: planted faults run f32 padded, ``bf16_fault`` the one also run bf16
+#: padded with the teacher (its logits must fail the bf16 bar); ``app``:
+#: the shard of ``apps.serve --shard`` run by each rank of the world of
+#: its size, f32 padded.
+MESH_SERVE = dict(shards=((2, 1), (1, 2), (2, 2)), kv_block=16,
+                  teacher_steps=16, faults=(("skip_c_all_reduce", (1, 2)),
+                          ("gather_order", (2, 1))),
+                  bf16_fault=("skip_c_all_reduce", (1, 2)), app=(2, 2))
+#: bf16 bar of phase 29 (b): the teacher-forced decode logits of a sharded
+#: engine against the one-engine run's, max |difference| over max |logit|
+#: (the row-parallel ``wo`` sums its c partial products in another order
+#: before the bf16 rounding, and the difference grows through 6 layers).
+TOL_MESH_SERVE_BF16 = 2.0 ** -4
+
+
+def _mesh_serve_kw(c):
+    return dict(batch_size=c["max_batch"], seq_len=c["max_seq"],
+                vocab_size=c["vocab"], d_model=c["d_model"],
+                num_heads=c["heads"], num_layers=c["layers"], seed=c["seed"])
+
+
+def _mesh_serve_cases(c, shards, tag_of, teacher):
+    """Every arm of (b): per shard, padded and paged, f32 and bf16."""
+    from flexflow_torch.runtime.serving import synthetic_requests
+
+    reqs = [(r.id, r.prompt.tolist(), r.max_new_tokens) for r in
+            synthetic_requests(c["requests"], c["vocab"],
+                               prompt_len=c["prompt"],
+                               max_new_tokens=c["max_new"], seed=c["seed"])]
+    out = []
+    for shard in shards:
+        for layout in ("padded", "paged"):
+            for dtype in ("float32", "bfloat16"):
+                out.append(dict(
+                    name=f"{layout}-{dtype}-{tag_of(shard)}", shard=shard,
+                    dtype=dtype, requests=reqs, teacher=teacher,
+                    timed=shard is not None,
+                    ex=dict(max_seq=c["max_seq"], buckets=c["buckets"],
+                            kv_block=MESH_SERVE["kv_block"]
+                            if layout == "paged" else 0),
+                    server_kw=dict(decode_steps=c["decode_steps"])))
+    return out
+
+
+def _mesh_serve_world(nprocs: int, model_kw, cases, device: str, backend):
+    """``mesh_smoke.serve_cases`` on a world of ``nprocs``: ``{name: [rank
+    results]}``."""
+    from flexflow_torch.parallel import launch
+
+    ranks = launch.run("flexflow_torch.tools.mesh_smoke:serve_cases",
+                       (model_kw, None, cases, device), nprocs=nprocs,
+                       device=device, backend=backend, timeout_s=900)
+    return {cs["name"]: [r[i] for r in ranks] for i, cs in enumerate(cases)}
+
+
+def _mesh_serve_hold(torch, kernels, F, k6, k1f) -> dict:
+    """K6 at each rank-local cache shape ``(b, S, h, hd)`` (slot lengths
+    drawn over ``[1, S]``) and K1f at each local prefill shape ``(1, h, t,
+    hd)`` (causal), f32 and bf16: every element by phase 1's rules and
+    each timed beside its plain version, SDPA (masked for K6) and the
+    bound.  Returns ``{kernel: {shape: bf16 row}}``."""
+    g = torch.Generator(device="cuda").manual_seed(29)
+    rows = {"flash_decode": {}, "flash_attention_lse": {}}
+    for shape in k6:
+        B, S, h, hd = shape
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, h, hd), generator=g, device="cuda").to(dt)
+            ck, cv = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                      for _ in range(2))
+            lengths = torch.randint(1, S + 1, (B,), generator=g,
+                                    device="cuda", dtype=torch.int32)
+            o = kernels.flash_decode(q, ck, cv, lengths)
+            po = kernels.flash_decode_plain(q, ck, cv, lengths)
+            err = (o.float() - po.float()).abs().max().item()
+            elem = _decode_close(kernels, q, ck, cv, lengths, o, po)
+            name = _dtype_name(dt)
+            _check(elem <= 1.0 and err <= TOL_O[name],
+                   f"mesh-serve (e): flash_decode {shape} {name}: |o| err "
+                   f"{err} ({elem} of the element tolerance)")
+            qs = q[:, :, None]
+            ks, vs = ck.transpose(1, 2), cv.transpose(1, 2)
+            mask = (torch.arange(S, device="cuda")[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            ms, plain = _pair_ms(
+                lambda: kernels.flash_decode(q, ck, cv, lengths),
+                lambda: kernels.flash_decode_plain(q, ck, cv, lengths))
+            lib = _device_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask))
+            keys = int(lengths.sum())
+            size = q.element_size()
+            bound, by = _bound_ms(2 * keys * h * hd * size
+                                  + 2 * B * h * hd * size + 4 * B,
+                                  4 * h * hd * keys, name)
+            print(f"[mesh-serve] (e) flash_decode at the rank's {shape} "
+                  f"{name}: err o {err:.3g} ({elem:.3g} of the element "
+                  f"tolerance); {ms:.4f} ms (plain {plain:.4f}, sdpa masked "
+                  f"{lib:.4f}, bound {bound:.5f} by {by})")
+            if dt == torch.bfloat16:
+                rows["flash_decode"][str(shape)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                    bound_by=by, library_ms=lib)
+    for shape in k1f:
+        b, h, t, hd = shape
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                       for _ in range(3))
+            o, lse = kernels.flash_attention_lse(q, k, v, True)
+            po, plse = kernels.flash_attention_lse_plain(q, k, v, True)
+            err = (o.float() - po.float()).abs().max().item()
+            elem = _flash_fwd_close(kernels, q, k, v, True, o, po)
+            err_lse = (lse - plse).abs().max().item()
+            name = _dtype_name(dt)
+            _check(elem <= 1.0 and err <= TOL_O[name] and err_lse <= TOL_LSE,
+                   f"mesh-serve (e): flash_attention_lse {shape} {name}: |o| "
+                   f"err {err} ({elem} of the element tolerance), |lse| err "
+                   f"{err_lse}")
+            ms, plain = _pair_ms(
+                lambda: kernels.flash_attention_lse(q, k, v, True),
+                lambda: kernels.flash_attention_lse_plain(q, k, v, True))
+            lib = _device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True))
+            bound, by = _bound_ms(4 * b * h * t * hd * q.element_size()
+                                  + b * h * t * 4,
+                                  4 * b * h * hd * t * (t + 1) // 2, name)
+            print(f"[mesh-serve] (e) flash_attention_lse at the rank's "
+                  f"{shape} causal {name}: err o {err:.3g} ({elem:.3g} of "
+                  f"the element tolerance) lse {err_lse:.3g}; {ms:.4f} ms "
+                  f"(plain {plain:.4f}, sdpa {lib:.4f}, bound {bound:.5f} by "
+                  f"{by})")
+            if dt == torch.bfloat16:
+                rows["flash_attention_lse"][str(shape)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                    bound_by=by, library_ms=lib)
+    return rows
+
+
+def _rel_logits(got, want) -> float:
+    return float(abs(got - want).max() / max(abs(want).max(), 1e-30))
+
+
+def _first_difference(want: dict, got: dict):
+    """``(request id, step)`` of the first token of ``got`` that differs
+    from ``want``'s, taking requests in id order, with step >= 1 (step 0
+    comes from the prefill, whose logits the teacher does not return);
+    None when there is none."""
+    for rid in sorted(want):
+        j = next((i for i, (a, b) in enumerate(zip(want[rid], got[rid]))
+                  if a != b), None)
+        if j:
+            return rid, j
+    return None
+
+
+def _mesh_serve_margins(kw, c, one, diffs, device):
+    """Per bf16 arm in ``diffs`` (``{arm: (rid, step, its token)}``): the
+    one engine teacher-forced along its own tokens of that request to the
+    first differing step, in one engine run.  Returns ``{arm: (margin,
+    above, own)}``: the one engine's top-2 logit margin at that step, how
+    many of its logits there lie above the sharded engine's token (0: a
+    tie for the top) and whether its top token is the one it served."""
+    import numpy as np
+
+    from flexflow_torch.runtime.serving import synthetic_requests
+    from flexflow_torch.tools import mesh_smoke
+
+    prompts = {r.id: r.prompt for r in synthetic_requests(
+        c["requests"], c["vocab"], prompt_len=c["prompt"],
+        max_new_tokens=c["max_new"], seed=c["seed"])}
+    cases = []
+    for arm, (rid, j, _tok) in diffs.items():
+        layout = arm.split("-")[0]
+        p = prompts[rid]
+        seq = np.zeros(c["max_seq"], np.int32)
+        seq[:len(p)] = p
+        mine = one[f"{layout}-bfloat16"]["tokens"][rid]
+        seq[len(p):len(p) + len(mine)] = mine
+        cases.append(dict(
+            name=arm, shard=None, dtype="bfloat16", requests=[],
+            teacher=(seq, len(p), min(b for b in c["buckets"]
+                                      if b >= len(p)), j),
+            ex=dict(max_seq=c["max_seq"], buckets=c["buckets"],
+                    kv_block=MESH_SERVE["kv_block"]
+                    if layout == "paged" else 0)))
+    out = {}
+    for res, (arm, (rid, j, tok)) in zip(
+            mesh_smoke.serve_cases(kw, None, cases, device), diffs.items()):
+        row = res["teacher"][1][j - 1]
+        top = np.sort(row)[::-1]
+        mine = one[f"{arm.split('-')[0]}-bfloat16"]["tokens"][rid][j]
+        out[arm] = (float(top[0] - top[1]), int((row > row[tok]).sum()),
+                    int(row.argmax()) == mine)
+    return out
+
+
+def phase_mesh_serve(torch, kernels, F, c=None, device="cuda"):
+    """Phase 29 (module docstring).  Returns ``(rows, launches)``: K6's and
+    K1f's rows at the ranks' local shapes and ``{path: counts}`` summed
+    over each arm's ranks.  ``c`` and ``device="cpu"`` rehearse it at a
+    smaller width on CPU ranks (no launch counts or kernel rows then)."""
+    import numpy as np
+
+    from flexflow_torch.apps import serve
+    from flexflow_torch.parallel import launch
+    from flexflow_torch.tools import mesh_smoke
+
+    c = c or SERVE
+    cuda = device == "cuda"
+    cards = torch.cuda.device_count() if cuda else 0
+    card = _card() if cuda else "cpu"
+    L, hd, S = c["layers"], c["d_model"] // c["heads"], c["max_seq"]
+    kw = _mesh_serve_kw(c)
+    # (a) a world of 1 without a shard: phase 3's tokens bit for bit.
+    if not SERVE_TOKENS:
+        st = {}
+        _check(serve.main(_serve_argv("bfloat16", c), device=device,
+                          stats_out=st) == 0, "mesh-serve (a): the app")
+        SERVE_TOKENS.update({rid: r.tokens for rid, r in
+                             st["results"].items()})
+    (code, st), = launch.run(
+        "flexflow_torch.apps.common:rank_app",
+        ("flexflow_torch.apps.serve:main", _serve_argv("bfloat16", c),
+         device), nprocs=1, device=device, timeout_s=900)
+    got = {rid: r.tokens for rid, r in st["results"].items()}
+    _check(code == 0 and st["shard"] is None and got == SERVE_TOKENS,
+           f"mesh-serve (a): apps.serve on a world of 1 exit {code}, shard "
+           f"{st['shard']}, tokens equal phase 3's: {got == SERVE_TOKENS}")
+    print(f"[mesh-serve] (a) apps.serve (bf16) on a world of 1, no shard: "
+          f"{len(got)} requests' tokens bit for bit phase 3's")
+    # The one-engine references, in this process.
+    rng = np.random.default_rng(0)
+    prefix = max(S - MESH_SERVE["teacher_steps"], S // 2)
+    teacher = (rng.integers(0, c["vocab"], size=S).astype(np.int32), prefix,
+               min(b for b in c["buckets"] if b >= prefix))
+    one = {r["name"][:-4]: r for r in mesh_smoke.serve_cases(
+        kw, None, _mesh_serve_cases(c, [None], lambda s: "one", teacher),
+        device)}
+    tag = "{0[0]}x{0[1]}".format
+    worlds = {2: [s for s in MESH_SERVE["shards"] if s[0] * s[1] == 2],
+              4: [s for s in MESH_SERVE["shards"] if s[0] * s[1] == 4]}
+    launches, k6, k1f, bf16_diffs = {}, set(), set(), {}
+    for nprocs, shards in worlds.items():
+        backend = None if cuda and cards >= nprocs else "gloo"
+        cases = _mesh_serve_cases(c, shards, tag, teacher)
+        if nprocs == 2:
+            # (c) the planted faults, f32 padded, and one bf16 padded with
+            # the teacher.
+            cases += [dict(next(a for a in cases if a["name"] ==
+                                f"padded-float32-{tag(shard)}"),
+                           name=f"fault-{fault}", fault=fault, timed=False,
+                           teacher=None)
+                      for fault, shard in MESH_SERVE["faults"]]
+            fault, shard = MESH_SERVE["bf16_fault"]
+            cases.append(dict(next(a for a in cases if a["name"] ==
+                                   f"padded-bfloat16-{tag(shard)}"),
+                              name=f"fault-bf16-{fault}", fault=fault,
+                              timed=False))
+        app = MESH_SERVE["app"]
+        if app[0] * app[1] == nprocs:
+            # apps.serve --shard in each rank of this world, f32 padded.
+            cases.append(dict(name=f"app-{tag(app)}", app=_serve_argv(
+                "float32", c) + ["--shard", f"{app[0]},{app[1]}"]))
+        t0 = time.perf_counter()
+        res = _mesh_serve_world(nprocs, kw, cases, device, backend)
+        wall = time.perf_counter() - t0
+        used = "nccl" if backend is None else "gloo"
+        print(f"[mesh-serve] (b) a world of {nprocs} over {used} "
+              f"({cards} cards): {len(cases)} runs in {wall:.1f} s; {card}")
+        for name, ranks in res.items():
+            if name.startswith(("fault-", "app-")):
+                continue
+            layout, dtype, sh = name.split("-")
+            shard = next(s for s in shards if tag(s) == sh)
+            n, cc = shard
+            ref = one[f"{layout}-{dtype}"]
+            for r, got in enumerate(ranks):
+                want_k6 = [(c["max_batch"] // n, c["heads"] // cc, hd)] \
+                    if layout == "padded" else []
+                _check(got["shard"] == shard and got["stats"]["failed"] == 0
+                       and got["stats"]["shard"] == list(shard)
+                       and not got["jax_imported"]
+                       and got["shapes"].get("flash_decode", []) == want_k6
+                       and {t[:2] for t in
+                            got["shapes"]["flash_attention_lse_auto"]}
+                       == {(1, c["heads"] // cc)},
+                       f"mesh-serve (b) {name} rank {r}: shard "
+                       f"{got['shard']}, failed {got['stats']['failed']}, "
+                       f"K6 shapes {got['shapes'].get('flash_decode')} (want "
+                       f"{want_k6}), dispatcher shapes "
+                       f"{got['shapes']['flash_attention_lse_auto']}")
+                if cuda:
+                    want = {"flash_attention_lse"} | (
+                        {"flash_decode"} if layout == "padded" else set())
+                    _check(set(got["counts"]) == want
+                           and all(v > 0 for v in got["counts"].values()),
+                           f"mesh-serve (b) {name} rank {r}: launches "
+                           f"{got['counts']}, want {sorted(want)} above 0")
+                k6.update((b, S, h, d) for b, h, d in
+                          got["shapes"].get("flash_decode", []))
+                # The served prefills' shapes and the teacher's bucket.
+                k1f.update(got["shapes"]["flash_attention_lse_auto"])
+                k1f.add((1, c["heads"] // cc, teacher[2], hd))
+            launches[f"mesh_serve_{name}"] = {
+                k: sum(g["counts"].get(k, 0) for g in ranks)
+                for k in ("flash_attention_lse", "flash_decode")}
+            tok0 = ranks[0]["teacher"][0]
+            rel = max(_rel_logits(g["teacher"][1], ref["teacher"][1])
+                      for g in ranks)
+            diff = sum(ranks[0]["tokens"][rid] != t
+                       for rid, t in ref["tokens"].items())
+            first = _first_difference(ref["tokens"], ranks[0]["tokens"])
+            if dtype == "bfloat16" and first:
+                rid, j = first
+                bf16_diffs[name] = (rid, j, ranks[0]["tokens"][rid][j])
+            if dtype == "float32":
+                _check(all(g["tokens"] == ref["tokens"] for g in ranks)
+                       and tok0 == ref["teacher"][0],
+                       f"mesh-serve (b) {name}: f32 tokens differ from the "
+                       f"one-engine run's in {diff} requests (first token "
+                       f"{tok0} vs {ref['teacher'][0]}; logits {rel:.3g} of "
+                       f"their max)")
+            else:
+                _check(rel <= TOL_MESH_SERVE_BF16
+                       and all(g["tokens"] == ranks[0]["tokens"]
+                               for g in ranks),
+                       f"mesh-serve (b) {name}: bf16 logits {rel:.3g} of "
+                       f"their max from the one-engine run's (bar "
+                       f"{TOL_MESH_SERVE_BF16}), or the ranks' tokens differ")
+            st0 = ranks[0]["stats"]
+            share = ", ".join(
+                f"{g['comm_ms'] / g['timed_ms'] * 100:.1f}%" for g in ranks)
+            peak = ", ".join(f"{g['peak_gb']:.3f}" if g["peak_gb"] is not None
+                             else "-" for g in ranks)
+            absd = max(float(abs(g["teacher"][1] - ref["teacher"][1]).max())
+                       for g in ranks)
+            print(f"[mesh-serve] (b) {name} over {used}: "
+                  f"{ranks[0]['ms_superstep']:.3f} ms a decode superstep "
+                  f"(K={c['decode_steps']}, eager, each collective "
+                  f"synchronised alone), {st0['tokens_per_s']:.1f} "
+                  f"tokens/s, {st0['decode_supersteps']} supersteps; "
+                  f"collectives {share} of the run's wall by rank; peak "
+                  f"memory {peak} GB by rank; teacher logits {rel:.3g} of "
+                  f"their max ({absd:.4g} absolute) from one engine's; "
+                  f"first differing (request, step) {first}; requests "
+                  f"whose tokens "
+                  f"differ from one engine's {diff} of {len(ref['tokens'])}; "
+                  f"launches {launches[f'mesh_serve_{name}']}")
+        for fault, shard in MESH_SERVE["faults"]:
+            if f"fault-{fault}" not in res:
+                continue
+            want = one["padded-float32"]["tokens"]
+            got = [g["tokens"] for g in res[f"fault-{fault}"]]
+            bad = [sum(g[rid] != t for rid, t in want.items()) for g in got]
+            _check(any(bad),
+                   f"mesh-serve (c): the planted fault {fault} at "
+                   f"{tag(shard)} left every rank's tokens equal")
+            print(f"[mesh-serve] (c) planted {fault} on rank 1 at "
+                  f"{tag(shard)} (f32 padded): requests whose tokens differ "
+                  f"from one engine's by rank {bad}")
+        fault, shard = MESH_SERVE["bf16_fault"]
+        if f"fault-bf16-{fault}" in res:
+            ref = one["padded-bfloat16"]
+            ranks = res[f"fault-bf16-{fault}"]
+            rel = max(_rel_logits(g["teacher"][1], ref["teacher"][1])
+                      for g in ranks)
+            bad = [sum(g["tokens"][rid] != t
+                       for rid, t in ref["tokens"].items()) for g in ranks]
+            _check(rel > TOL_MESH_SERVE_BF16,
+                   f"mesh-serve (c): the planted fault {fault} at "
+                   f"{tag(shard)} (bf16 padded) left the teacher logits "
+                   f"{rel:.3g} of their max, within the bf16 bar "
+                   f"{TOL_MESH_SERVE_BF16}")
+            print(f"[mesh-serve] (c) planted {fault} on rank 1 at "
+                  f"{tag(shard)} (bf16 padded): teacher logits {rel:.4g} of "
+                  f"their max from one engine's (bar {TOL_MESH_SERVE_BF16}); "
+                  f"requests whose tokens differ by rank {bad}")
+        app = f"app-{tag(MESH_SERVE['app'])}"
+        if app in res:
+            n, cc = MESH_SERVE["app"]
+            want_k6 = [(c["max_batch"] // n, c["heads"] // cc, hd)]
+            for r, got in enumerate(res[app]):
+                _check(got["code"] == 0
+                       and got["stats"]["shard"] == [n, cc]
+                       and got["stats"]["failed"] == 0
+                       and not got["jax_imported"]
+                       and got["tokens"] == one["padded-float32"]["tokens"]
+                       and got["shapes"].get("flash_decode") == want_k6
+                       and {t[:2] for t in
+                            got["shapes"]["flash_attention_lse_auto"]}
+                       == {(1, c["heads"] // cc)}
+                       and (not cuda or (
+                           got["counts"].get("flash_decode", 0) > 0
+                           and got["counts"].get("flash_attention_lse", 0)
+                           > 0)),
+                       f"mesh-serve (b) {app} rank {r}: exit {got['code']}, "
+                       f"shard {got['stats'].get('shard')}, tokens equal one "
+                       f"engine's f32: {got['tokens'] == one['padded-float32']['tokens']}, "
+                       f"K6 shapes {got['shapes'].get('flash_decode')} (want "
+                       f"{want_k6}), launches {got['counts']}")
+            line = f"mesh shard = batch n={n} x heads c={cc}"
+            _check(line in res[app][0]["report"],
+                   f"mesh-serve (b) {app}: rank 0's report lacks {line!r}")
+            launches[f"mesh_serve_{app}"] = {
+                k: sum(g["counts"].get(k, 0) for g in res[app])
+                for k in ("flash_attention_lse", "flash_decode")}
+            st0 = res[app][0]["stats"]
+            print(f"[mesh-serve] (b) apps.serve --shard {n},{cc} (f32) in "
+                  f"each rank of this world over {used}: exit 0 on every "
+                  f"rank, '{line}', {st0['completed']} requests' tokens "
+                  f"bit for bit one engine's, {st0['tokens_per_s']:.1f} "
+                  f"tokens/s, {st0['decode_s'] * 1e3 / max(st0['decode_supersteps'], 1):.3f} "
+                  f"ms a decode superstep (untimed collectives), launches "
+                  f"{launches[f'mesh_serve_{app}']}")
+    if bf16_diffs:
+        for arm, (margin, above, own) in _mesh_serve_margins(
+                kw, c, one, bf16_diffs, device).items():
+            rid, j, _tok = bf16_diffs[arm]
+            print(f"[mesh-serve] (b) {arm}: first differing token of "
+                  f"request {rid} at step {j}; the one engine's top-2 logit "
+                  f"margin there {margin:.4g} (teacher-forced along its own "
+                  f"tokens; its top token there is the one it served: "
+                  f"{own}); the one engine's logits above the sharded "
+                  f"engine's token there: {above} (0: tied for the top)")
+    # (d) the app's own world where the machine has a card a rank.
+    for shard in ((2, 2), (2, 1)):
+        if cuda and cards >= shard[0] * shard[1]:
+            st = {}
+            rc = serve.main(_serve_argv("bfloat16", c)
+                            + ["--shard", f"{shard[0]},{shard[1]}"],
+                            device=device, stats_out=st)
+            diff = sum(st["results"][rid].tokens != t
+                       for rid, t in one["padded-bfloat16"]["tokens"].items())
+            _check(rc == 0 and st["shard"] == list(shard)
+                   and st["completed"] == c["requests"],
+                   f"mesh-serve (d): apps.serve --shard {tag(shard)} exit "
+                   f"{rc}, shard {st['shard']}, completed {st['completed']}")
+            print(f"[mesh-serve] (d) apps.serve --shard {tag(shard)} "
+                  f"spawning its own NCCL world (bf16): {st['completed']} "
+                  f"requests, {st['tokens_per_s']:.1f} tokens/s, "
+                  f"{diff} requests' tokens differ from one engine's")
+            break
+    rows = _mesh_serve_hold(torch, kernels, F, sorted(k6), sorted(k1f)) \
+        if cuda else {}
+    return rows, launches
+
+
 def _card() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
@@ -6855,13 +7342,15 @@ def main() -> int:
     dlrm_mesh_rows, dlrm_mesh_launches = phase_mesh_dlrm(torch, kernels, F,
                                                          dlrm_ref)
     t.append(time.perf_counter())
+    serve_mesh_rows, serve_mesh_launches = phase_mesh_serve(torch, kernels, F)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
              "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
              "longctx-parity", "probe-kernels", "alexnet-kernels",
              "alexnet-train", "alexnet-parity", "superstep", "serve-features",
              "serve-resilience", "nmt", "item5", "item7", "serve-sched",
-             "fleet", "mesh", "mesh-dlrm")
+             "fleet", "mesh", "mesh-dlrm", "mesh-serve")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -6912,7 +7401,9 @@ def main() -> int:
                    **{path: counts.get(name, 0)
                       for path, counts in mesh_launches.items()},
                    **{path: counts.get(name, 0)
-                      for path, counts in dlrm_mesh_launches.items()}}
+                      for path, counts in dlrm_mesh_launches.items()},
+                   **{path: counts.get(name, 0)
+                      for path, counts in serve_mesh_launches.items()}}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])
@@ -6920,6 +7411,8 @@ def main() -> int:
             entry["mesh_dp2_shape"] = mesh_rows[name]
         if name in dlrm_mesh_rows:
             entry["mesh_dlrm_shape"] = dlrm_mesh_rows[name]
+        if name in serve_mesh_rows:
+            entry["mesh_serve_shapes"] = serve_mesh_rows[name]
         if name == "flash_attention_lse":
             entry["train_shape"] = rows["flash_attention_lse@train"]
             entry["longctx_shape"] = rows["flash_attention_lse@8k"]

@@ -1,5 +1,6 @@
 """Transformer LM serving app: ``flexflow_tpu/apps/serve.py`` on one
-GPU, the closed loop and the scheduled one.
+GPU or sharded over a world of ranks, the closed loop and the scheduled
+one.
 
 Builds the transformer LM at serving shapes, restores its params from a
 training checkpoint when ``--ckpt-dir`` names one (the train-to-serve
@@ -32,6 +33,16 @@ Capacity flags:
   --prefix-cache     prefix sharing on the paged pool (needs --kv-block):
                      resident full-block prompt prefixes are shared at
                      admission, their prefill skipped
+  --shard N,C        shard the decode batch over mesh axis n and the KV
+                     heads over c (``ServingExecutor(shard=(n, c))``):
+                     outside a world the app runs on a world of N*C ranks
+                     (``parallel/launch.py``: gloo on the CPU, NCCL a card
+                     a rank when the machine has N*C cards) and prints
+                     rank 0's report; with fewer cards it falls back
+                     loudly to the single-mesh engine on one.  Each rank
+                     writes its own --journal (rank r > 0: PATH.rank{r});
+                     --telemetry under more than one rank and --dry-run
+                     with --shard are refused (ROADMAP.md items 9d, 14)
 
 Speculation flags:
   --speculate d      draft d tokens and verify d+1 in one round; each
@@ -118,8 +129,7 @@ Telemetry and checks:
                      spec), traced on meta tensors: no device compute, no
                      kernel launch
 
-Refused by name: --shard (sharded decode comes with ROADMAP.md queue 1
-item 9c).  Any other unknown flag is refused too.
+Refused: any flag the JAX app does not take.
 
 Example::
 
@@ -139,6 +149,7 @@ from typing import Optional
 from flexflow_torch.apps.common import check_help, pop_float, pop_int, pop_str
 from flexflow_torch.config import FFConfig
 from flexflow_torch.models.transformer import build_transformer_lm
+from flexflow_torch.parallel import launch
 from flexflow_torch.runtime import telemetry as _telemetry
 from flexflow_torch.runtime.trainer import relay_safe_steps
 from flexflow_torch.runtime.serving import (
@@ -169,10 +180,6 @@ from flexflow_torch.serving import (
 
 _DTYPES = ("float32", "bfloat16")
 
-#: The JAX app's flags this port does not serve yet, with the ROADMAP.md
-#: queue 1 item that brings each.
-UNPORTED = {"--shard": "item 9c (sharded serving)"}
-
 
 def _pop_flag(argv, flag) -> bool:
     if flag in argv:
@@ -202,10 +209,7 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     per-request results."""
     argv = sys.argv[1:] if argv is None else list(argv)
     check_help(argv, __doc__)
-    for flag, item in UNPORTED.items():
-        if flag in argv:
-            raise SystemExit(f"flexflow_torch serve does not support {flag} "
-                             f"yet: it comes with ROADMAP.md queue 1 {item}")
+    argv0 = list(argv)
     max_seq = pop_int(argv, "--max-seq", 64)
     max_batch = pop_int(argv, "--max-batch", 4)
     decode_steps = pop_int(argv, "--decode-steps", 8)
@@ -248,6 +252,7 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     router_given = "--router" in argv
     replicas = pop_int(argv, "--replicas", 1)
     router = pop_str(argv, "--router", "least-loaded")
+    shard_s = pop_str(argv, "--shard", "")
     common = []
     for flag in ("--dtype", "--seed", "--telemetry", "--calibration",
                  "--max-restarts"):
@@ -296,6 +301,24 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
         raise SystemExit(
             "--draft-ckpt/--draft-layers configure the DRAFT source and "
             "need --speculate d to arm speculation")
+    shard = None
+    if shard_s:
+        try:
+            sn, sc = (int(v) for v in shard_s.split(","))
+        except ValueError:
+            raise SystemExit("--shard expects N,C (e.g. --shard 2,2)")
+        shard = (sn, sc)
+        if dry_run:
+            raise SystemExit("--dry-run with --shard (the rank-local "
+                             "programs on meta tensors) is ROADMAP.md queue "
+                             "1, item 14")
+    ranks = launch.world_size() if launch.in_world() or not shard \
+        else _shard_ranks(shard, device)
+    if ranks > 1 and (cfg.telemetry_dir or os.environ.get("FF_TELEMETRY_DIR")):
+        raise SystemExit(f"--shard under {ranks} ranks: --telemetry is "
+                         f"ROADMAP.md queue 1, item 9d")
+    if ranks > 1 and not launch.in_world():
+        return _spawn_shard(argv0, ranks, device, stats_out)
     if buckets_s:
         buckets = tuple(int(b) for b in buckets_s.split(","))
     else:
@@ -320,6 +343,7 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
                 device="meta" if dry_run else device,
                 kv_block=kv_block, kv_blocks=kv_blocks or None,
                 prefix_cache=prefix_cache, draft_layers=draft_layers,
+                shard=shard,
             )
         except ValueError as e:
             raise SystemExit(str(e))
@@ -338,7 +362,12 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
         return params, state, draft_params
 
     def journal(path):
-        return RequestJournal(path) if journal_path else None
+        """A journal at ``path``; each rank of a world keeps its own (rank
+        r > 0 at ``path.rank{r}``), so no two ranks write one file."""
+        if not journal_path:
+            return None
+        r = launch.rank()
+        return RequestJournal(f"{path}.rank{r}" if r else path)
 
     # Retries, expiry and restarts are scheduler semantics (virtual-clock
     # backoff); the journal alone stays on either path.
@@ -418,7 +447,7 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
                 buckets=buckets, decode_steps=decode_steps,
                 max_batch=max_batch, max_seq=max_seq, policy=policy,
                 kv_block=kv_block, kv_blocks=kv_blocks or None,
-                prefix_cache=prefix_cache, speculate=speculate,
+                prefix_cache=prefix_cache, shard=shard, speculate=speculate,
                 replicas=replicas, router=router)
             res = search_serving_config(requests, baseline, model)
             choice = res.chosen
@@ -549,6 +578,37 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     return _report_failures(results, stats)
 
 
+def _shard_ranks(shard, device) -> int:
+    """The ranks ``--shard N,C`` runs on from outside a world: ``N * C``
+    (gloo on the CPU; NCCL a card a rank), or 1 on a machine with fewer
+    cards, where the executor falls back loudly to the single-mesh
+    engine, as JAX's does."""
+    import torch
+
+    n = shard[0] * shard[1]
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() < n:
+        return 1
+    return n
+
+
+def _spawn_shard(argv, n: int, device, stats_out) -> int:
+    """The app on each rank of a new world of ``n``; returns the first
+    non-zero exit code of the ranks, else 0, with rank 0's stats in
+    ``stats_out``."""
+    import torch
+
+    kind = torch.device(device).type
+    try:
+        ranks = launch.run("flexflow_torch.apps.common:rank_app",
+                           ("flexflow_torch.apps.serve:main", list(argv),
+                            kind), nprocs=n, device=kind)
+    except Exception as e:  # a rank's failure, with its traceback above
+        raise SystemExit(f"--shard: {type(e).__name__}: {e}")
+    if stats_out is not None:
+        stats_out.update(ranks[0][1])
+    return next((code for code, _ in ranks if code), 0)
+
+
 def _production_requests(spec, workload_trace: str):
     """``--workload-trace prod[:alpha=A,prefix=P]``: JAX's parsing, then
     ``production_workload``."""
@@ -634,6 +694,9 @@ def _print_layout(stats) -> None:
               f"(rate {stats['prefix_hit_rate'] * 100:.1f}%), "
               f"{stats['prefill_tokens_saved']} prefill tokens saved, "
               f"{stats['kv_cows']} CoW blocks")
+    if stats.get("shard"):
+        n, c = stats["shard"]
+        print(f"mesh shard = batch n={n} x heads c={c}")
     if stats.get("sampled"):
         print("sampling = seeded temperature/top-k (replayable)")
     if stats.get("speculate"):

@@ -31,8 +31,7 @@ the line carries ``"value": null`` and the error; nothing is measured
 on the CPU.
 
 ``bench.py``'s other legs (pipeline, data plane, search, op-parallel)
-and the serving leg's sharded columns wait for their slices of the port
-(ROADMAP.md queue 1).  The leg functions take the device and their
+wait for their slices of the port (ROADMAP.md queue 1).  The leg functions take the device and their
 sizes as arguments, so a test can run them small on the CPU.
 """
 
@@ -313,7 +312,11 @@ def bench_serving(device="cuda", vocab: int = 32768, d_model: int = 512,
     the K = 1 and K = 8 decode supersteps (tokens/s, decode ms/token,
     their ratio, the K = 8 latencies); the paged layout's capacity (HBM
     per slot, the batch the padded cache's budget admits in each layout)
-    and tokens/s at K = 8; a d = ``speculate`` full self-draft against
+    and tokens/s at K = 8; the sharded engine at ``shard=(2, 1)``
+    (:func:`sharded_serving`: ``sharded_mesh``, its tokens/s and their
+    ratio to the K = 8 single-mesh run's; with fewer than two cards the
+    executor's fallback engine is the K = 8 run's, whose stats then
+    stand for it); a d = ``speculate`` full self-draft against
     plain K = 8 (tokens per decode dispatch, acceptance, and whether the
     tokens match).  Then ``bench.py``'s scheduler columns over its bursty
     workload (2 x ``n_req`` requests, ``mean_gap_ms`` 2, bursts of
@@ -328,32 +331,24 @@ def bench_serving(device="cuda", vocab: int = 32768, d_model: int = 512,
     each with its own executor and journal, with and without the loss of
     replica 0).  Every scheduler latency column is in virtual ms
     (``serving/latency_model.py``, the model defaults)."""
-    from flexflow_torch.config import FFConfig
-    from flexflow_torch.models.transformer import build_transformer_lm
-    from flexflow_torch.runtime.serving import (
-        Server, ServingExecutor, ServingFaultInjector, synthetic_requests)
+    from flexflow_torch.runtime.serving import (ServingExecutor,
+                                                ServingFaultInjector)
     from flexflow_torch.serving import (
         FleetRouter, MemoryJournal, ScheduledServer, SchedulerPolicy,
         ServingResilience)
 
-    ff = build_transformer_lm(
-        batch_size=max_batch, seq_len=max_seq, vocab_size=vocab,
-        d_model=d_model, num_heads=heads, num_layers=layers,
-        config=FFConfig(batch_size=max_batch, compute_dtype=dtype))
+    lm = dict(vocab=vocab, d_model=d_model, heads=heads, layers=layers,
+              max_seq=max_seq, max_batch=max_batch, n_req=n_req,
+              max_new=max_new, dtype=dtype)
+    ff = _serving_lm(lm)
     buckets = (max_seq // 2, max_seq)
     sex = ServingExecutor(ff, max_batch=max_batch, max_seq=max_seq,
                           buckets=buckets, device=device)
     params, state = sex.init(0)
     out = {"max_batch": max_batch, "max_seq": max_seq, "requests": n_req}
 
-    def reqs():
-        return synthetic_requests(n_req, vocab, prompt_len=(4, max_seq // 4),
-                                  max_new_tokens=max_new, seed=13)
-
     def measured(engine, **kw):
-        srv = Server(engine, params, state, **kw)
-        srv.run(reqs())  # warm: builds and captures outside the measure
-        return srv.run(reqs())
+        return serving_run(engine, params, state, lm, **kw)
 
     k8_stats = None
     for k in (1, 8):
@@ -383,6 +378,15 @@ def bench_serving(device="cuda", vocab: int = 32768, d_model: int = 512,
         budget, plen, max_new)
     out["paged_tokens_per_s"] = round(
         measured(sexp, decode_steps=8)[1]["tokens_per_s"], 1)
+    # bench.py's sharded columns at shard=(2, 1): a world of 2 over NCCL
+    # where the machine has two cards.  Elsewhere the executor takes JAX's
+    # fallback to the single-mesh engine, which is the K = 8 run's, so
+    # that run's stats stand for it (``sharded_mesh`` None).
+    sstats = sharded_serving(device, lm) or dict(k8_stats, shard=None)
+    out["sharded_mesh"] = sstats["shard"]
+    out["sharded_tokens_per_s"] = round(sstats["tokens_per_s"], 1)
+    out["sharded_vs_single_mesh_tokens_per_s"] = round(
+        sstats["tokens_per_s"] / max(out["k8_tokens_per_s"], 1e-9), 3)
 
     plain_res, _ = measured(sex, decode_steps=8)
     spec_res, spec_stats = measured(sex, decode_steps=8, speculate=speculate)
@@ -441,6 +445,70 @@ def bench_serving(device="cuda", vocab: int = 32768, d_model: int = 512,
 
     out.update(fleet_columns(fleet(False), fleet(True), runs["slo"][1]))
     return out
+
+
+def _serving_lm(lm: dict):
+    """The serving leg's LM at the sizes ``lm`` (:func:`bench_serving`'s
+    arguments by name, ``heads`` and ``layers`` its count of each)."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.transformer import build_transformer_lm
+
+    return build_transformer_lm(
+        batch_size=lm["max_batch"], seq_len=lm["max_seq"],
+        vocab_size=lm["vocab"], d_model=lm["d_model"],
+        num_heads=lm["heads"], num_layers=lm["layers"],
+        config=FFConfig(batch_size=lm["max_batch"],
+                        compute_dtype=lm["dtype"]))
+
+
+def serving_run(engine, params, state, lm: dict, **server_kw):
+    """One ``Server(engine, ...)`` over the leg's ``n_req`` synthetic
+    requests (seed 13, prompts of 4 to max_seq / 4 tokens), run once to
+    warm (on CUDA: build and capture its graphs outside the measure) and
+    once measured: the measured run's ``(results, stats)``."""
+    from flexflow_torch.runtime.serving import Server, synthetic_requests
+
+    def reqs():
+        return synthetic_requests(lm["n_req"], lm["vocab"],
+                                  prompt_len=(4, lm["max_seq"] // 4),
+                                  max_new_tokens=lm["max_new"], seed=13)
+
+    srv = Server(engine, params, state, **server_kw)
+    srv.run(reqs())
+    return srv.run(reqs())
+
+
+def sharded_serving_rank(lm: dict, device: str = "cuda",
+                         shard=(2, 1)) -> dict:
+    """The serving leg's K = 8 run (:func:`serving_run`) on this rank's
+    ``ServingExecutor(shard=shard)``: the measured run's stats."""
+    from flexflow_torch.runtime.serving import ServingExecutor
+
+    ex = ServingExecutor(_serving_lm(lm), max_batch=lm["max_batch"],
+                         max_seq=lm["max_seq"],
+                         buckets=(lm["max_seq"] // 2, lm["max_seq"]),
+                         device=device, shard=shard)
+    params, state = ex.init(0)
+    return {k: v for k, v in serving_run(ex, params, state, lm,
+                                         decode_steps=8)[1].items()
+            if k in ("shard", "tokens_per_s", "decode_s",
+                     "decode_supersteps", "tokens")}
+
+
+def sharded_serving(device: str, lm: dict, shard=(2, 1)):
+    """:func:`sharded_serving_rank` on a world of ``n * c`` ranks over
+    NCCL, one card a rank: rank 0's stats; None where the machine has
+    fewer cards (the executor would fall back to one engine, as JAX's
+    does on one device)."""
+    import torch
+
+    from flexflow_torch.parallel import launch
+
+    n = shard[0] * shard[1]
+    if torch.device(device).type != "cuda" or torch.cuda.device_count() < n:
+        return None
+    return launch.run("flexflow_torch.bench:sharded_serving_rank",
+                      (lm, "cuda", shard), nprocs=n, device="cuda")[0]
 
 
 def bench_nmt(device="cuda", batch: int = 64, hidden: int = 2048,

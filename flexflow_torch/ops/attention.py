@@ -29,6 +29,16 @@ over ``c``.  Where the heads do not split over ``c`` the op gathers its
 projections and runs every head on each rank, as JAX returns to the
 unsharded route.  ``s > 1`` (ring attention) is ROADMAP.md item 9d.
 ``LayerNorm`` reads its feature dim whole and stays local.
+
+The KV-cache protocol runs on a rank's share too, bound by the serving
+shard (``runtime/serving.py``, ``ServingExecutor(shard=(n, c))``): the
+parameters are whole on every rank and the op cuts its ``h/c`` heads
+from them (``_serving_heads``: the columns of ``wq``/``wk``/``wv``, the
+rows of ``wo``), projects, writes and attends its local cache block
+(padded ``(B/n, S, h/c, hd)``, so K6 runs at the local shape, or the
+pool ``(NB, bs, h/c, hd)``) and all-reduces the row-parallel output over
+``c``; a prefill attends its ``h/c`` heads through the dispatcher (K1f
+on the card).
 """
 
 from __future__ import annotations
@@ -271,12 +281,18 @@ class MultiHeadAttention(Op):
         q, k, v = self._project(params, x)
         heads = self.attrs["num_heads"] // (self._plan.size(c) if c else 1)
         y = self._attend_dense(q, k, v, x.dtype, heads)
-        if c:
-            y = collectives.all_reduce(y @ params["wo"], self._world, c)
-            if self.attrs["use_bias"]:
-                y = y + params["bo"]
-            return [y], state
-        return [self._out_proj(params, y)], state
+        return [self._row_parallel_out(params, y, c)], state
+
+    def _row_parallel_out(self, params, y, c):
+        """The output projection of the rank's heads: their rows of ``wo``,
+        the partial products summed over ``c``, then ``bo``; with ``c``
+        empty, ``_out_proj``."""
+        if not c:
+            return self._out_proj(params, y)
+        y = collectives.all_reduce(y @ params["wo"], self._world, c)
+        if self.attrs["use_bias"]:
+            y = y + params["bo"]
+        return y
 
     # -- KV-cache protocol (runtime/serving.py) ------------------------------
     #
@@ -302,10 +318,36 @@ class MultiHeadAttention(Op):
     # attended: the ``<= pos`` mask hides them until the position walk
     # overwrites them.
 
+    def _serving_heads(self, params):
+        """``(params, heads, c_axes)`` of the rank's heads under the
+        serving shard, whose parameters are whole on every rank: views of
+        the ``h/c`` heads' columns of ``wq``/``wk``/``wv`` and their
+        biases and of their rows of ``wo`` (``bo`` whole).  Unbound, or
+        with ``c`` = 1, the parameters as they are and ``c_axes`` empty."""
+        h = self.attrs["num_heads"]
+        if self._world is None:
+            return params, h, ()
+        c = self._plan.assign(self._pc)["c"]
+        parts = self._plan.size(c)
+        if parts == 1:
+            return params, h, ()
+        w = params["wq"].shape[1] // parts
+        i = self._world.index(c)
+        cols = slice(i * w, (i + 1) * w)
+        cut = dict(params)
+        for key in ("wq", "wk", "wv"):
+            cut[key] = params[key][:, cols]
+        for key in ("bq", "bk", "bv", "wo"):
+            if key in params:
+                cut[key] = params[key][cols]
+        return cut, h // parts, c
+
     def _forward_cached(self, params, x, state):
         ck, cv = state["cache_k"], state["cache_v"]
+        params, heads, c = self._serving_heads(params)
         q, k, v = self._project(params, x)
-        qh, kh, vh = map(self._split_heads, (q, k, v))   # (B, h, t, hd)
+        qh, kh, vh = (self._split_heads(t, heads)
+                      for t in (q, k, v))                 # (B, h, t, hd)
         b, h, t, hd = qh.shape
         if t == 1 and "block_table" in state:
             pos = state["pos"].long()
@@ -334,11 +376,11 @@ class MultiHeadAttention(Op):
         else:
             ck[:, :t] = kh.transpose(1, 2).to(ck.dtype)
             cv[:, :t] = vh.transpose(1, 2).to(cv.dtype)
-            y = self._attend_dense(q, k, v, x.dtype)
+            y = self._attend_dense(q, k, v, x.dtype, heads)
         new_state = dict(state)
         new_state["cache_k"] = ck
         new_state["cache_v"] = cv
-        return [self._out_proj(params, y)], new_state
+        return [self._row_parallel_out(params, y, c)], new_state
 
     def _attend_offset(self, qh, ck, cv, offset: int, dtype):
         """Offset-prefill attention on a fresh prefill's route: the ``t``

@@ -56,6 +56,13 @@ def world_size() -> int:
     return dist.get_world_size() if in_world() else 1
 
 
+def rank() -> int:
+    """This process's rank (0 outside a world)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if in_world() else 0
+
+
 def _resolve(target: str):
     mod, _, fn = target.partition(":")
     if not mod.startswith("flexflow_torch") or not fn:

@@ -55,9 +55,27 @@ The single-device core of ``flexflow_tpu/runtime/serving.py``:
   with telemetry on and off; every event is emitted on the host between
   dispatches, never inside a captured graph.
 
+- **Sharded serving** (``shard=(n, c)``): inside a world of ``n * c``
+  ranks (``parallel/launch.py``) the padded slot batch splits over mesh
+  axis ``n`` and the heads over ``c``; the paged pool splits its heads
+  over ``c`` and ``n`` replicates it, as the JAX package places them
+  (``("n", None, "c", None)`` and ``(None, None, "c", None)``).  Each
+  rank runs its share with explicit collectives: the attention ops
+  project and attend the rank's ``h/c`` heads and all-reduce their
+  output over ``c`` (``ops/attention.py``), every other op runs on the
+  rank's rows, and a padded decode superstep or speculative round
+  all-gathers its chosen tokens, finiteness flags (and logits) over
+  ``n`` once at its end, so the ``(K, B)`` readback is the whole batch's
+  on every rank.  Host state stays whole and identical on every rank
+  (the carry, the block table, the ledger, the loops' decisions); a
+  prefill runs on every rank and installs only into the rank's own
+  slots.  Under a shard the programs run eagerly (gloo's collectives
+  cannot be captured).  Outside such a world the executor warns and
+  falls back to the single-mesh engine, as JAX's does on too few
+  devices.
+
 The SLO scheduler over these programs is ``serving/scheduler.py``, and
 the fleet of replicas behind a router ``serving/fleet.py::FleetRouter``.
-Sharded decode is ROADMAP.md queue 1, item 9c.
 """
 
 from __future__ import annotations
@@ -80,9 +98,12 @@ from flexflow_torch.data.loader import DeviceMemoryError, _device_bytes_limit
 from flexflow_torch.graph import FFModel
 from flexflow_torch.ops import kernels
 from flexflow_torch.ops.attention import MultiHeadAttention, PositionEmbedding
+from flexflow_torch.parallel import launch
+from flexflow_torch.parallel.mesh import build_mesh_plan
+from flexflow_torch.parallel.strategy import ParallelConfig
 from flexflow_torch.runtime import keyed_random
 from flexflow_torch.runtime import telemetry as _telemetry
-from flexflow_torch.runtime.executor import Executor, resolve_device
+from flexflow_torch.runtime.executor import Executor, _world_for, resolve_device
 from flexflow_torch.runtime.graphs import StepGraph
 from flexflow_torch.runtime.resilience import PreemptionHandler
 from flexflow_torch.runtime.trainer import relay_safe_steps
@@ -150,14 +171,18 @@ class ServingFaultInjector:
         self.preempt_at = set(preempt_at or ())
         self.fired: List[Tuple[str, int, int]] = []
 
-    def before_superstep(self, idx: int, caches, block_table=None):
+    def before_superstep(self, idx: int, caches, block_table=None,
+                         slot_row=None):
         """Returns ``(caches, nan_slot)``, the caches (NaN'd in place)
         and the slot whose cache was NaN'd (None otherwise); may raise
         :class:`ServingFault` or :class:`ServingEngineFault` or SIGTERM
         the process.  ``caches=None`` (a compute-free caller) returns the
         target slot alone.  ``block_table`` (host ``(B, nblk)`` int32)
         selects the paged layout: the slot's first owned block is NaN'd,
-        and a slot that owns none is left alone."""
+        and a slot that owns none is left alone.  ``slot_row``
+        (:meth:`ServingExecutor.slot_row`) maps a slot to its row of a
+        sharded padded cache: a rank that does not hold the slot NaNs
+        nothing and reports the slot all the same (its owner NaN'd it)."""
         if idx in self.preempt_at:
             self.preempt_at.discard(idx)
             self.fired.append(("preempt", idx, -1))
@@ -188,6 +213,10 @@ class ServingFaultInjector:
                 dest = int(block_table[slot][0])
                 if dest == 0:  # the slot owns no block: nothing to NaN
                     return caches, None
+            elif slot_row is not None:
+                dest = slot_row(slot)
+                if dest is None:  # another rank holds the slot's row
+                    return caches, slot
             with torch.inference_mode():
                 k[dest].fill_(float("nan"))
             return caches, slot
@@ -488,7 +517,7 @@ def _check_sample(sample: Sample) -> Sample:
 
 class ServingExecutor:
     """Forward-only serving programs for an FFModel transformer LM on one
-    device.
+    device, or on a rank's share of a world of ranks (``shard``).
 
     Capacity and drafting knobs, as the JAX executor's:
 
@@ -502,6 +531,15 @@ class ServingExecutor:
     - ``draft_layers``: the speculative draft runs only the first L
       ``blk{i}_`` transformer blocks (the skipped ones pass the residual
       stream through); 0 runs the whole graph as the draft.
+    - ``shard=(n, c)``: sharded serving (the module docstring) inside a
+      world of exactly ``n * c`` ranks, with JAX's checks (``n * c >=
+      2``; ``n`` divides ``max_batch`` on the padded layout; ``c``
+      divides every attention op's heads); a world of another size
+      raises.  Outside a world the executor warns on ``ff.serving`` and
+      falls back to the single-mesh engine (``self.shard`` None), as
+      JAX's does on a box with too few devices.  Parameters stay whole
+      on every rank (:meth:`init`, :meth:`restore`: a one-rank training
+      checkpoint serves sharded with no conversion).
     """
 
     def __init__(
@@ -517,6 +555,7 @@ class ServingExecutor:
         kv_blocks: Optional[int] = None,
         draft_layers: int = 0,
         prefix_cache: bool = False,
+        shard: Optional[Tuple[int, int]] = None,
     ):
         self.model = model
         self.config = config or model.config
@@ -583,6 +622,41 @@ class ServingExecutor:
                 "sharing is block-table indirection, and the padded layout "
                 "has no blocks to share"
             )
+        # -- sharded serving: the padded batch on 'n', the heads on 'c';
+        # the paged pool has no batch axis, so 'n' replicates it --
+        self._plan = self._pc = self._world = None
+        if shard is not None:
+            n, c = int(shard[0]), int(shard[1])
+            if n < 1 or c < 1 or n * c < 2:
+                raise ValueError(f"shard=(n, c) needs n*c >= 2, got {shard}")
+            if not launch.in_world():
+                _log.warning(
+                    "sharded decode needs %d devices, have %d (this process "
+                    "is not a rank of a world, parallel/launch.py): falling "
+                    "back to the single-mesh engine", n * c, 1)
+            else:
+                if launch.world_size() != n * c:
+                    raise ValueError(
+                        f"shard=({n}, {c}) needs a world of {n * c} ranks, "
+                        f"this one has {launch.world_size()}")
+                if not self.paged and self.max_batch % n:
+                    raise ValueError(
+                        f"shard batch degree n={n} must divide "
+                        f"max_batch={self.max_batch}")
+                bad = [name for name, (h, _hd, _dt)
+                       in self._cache_specs.items() if h % c]
+                if bad:
+                    raise ValueError(
+                        f"shard head degree c={c} must divide num_heads of "
+                        f"every attention op; offenders: {bad}")
+                self._plan = build_mesh_plan(n * c)
+                self._pc = ParallelConfig(n=n, c=c)
+                self._world = _world_for(self._plan)
+                #: The mesh axes 'n' takes: a padded superstep's
+                #: readback is all-gathered over them in rank order.
+                self._n_axes = self._plan.assign(self._pc)["n"]
+        self.shard = ((self._pc.n, self._pc.c) if self._pc is not None
+                      else None)
         # -- speculative drafting: the first ``draft_layers`` blk{i}_
         # blocks; the skipped ones pass the residual stream through --
         self.draft_layers = int(draft_layers or 0)
@@ -620,7 +694,9 @@ class ServingExecutor:
         self._built: set = set()
 
     def init(self, seed: Optional[int] = None):
-        """Fresh ``(params, op_state)`` on the serving device."""
+        """Fresh ``(params, op_state)`` on the serving device, whole on
+        every rank (the throwaway executor's default strategy is data
+        parallel)."""
         params = Executor(self.model, config=self.config,
                           device=self.device).init_params(seed)
         return params, {}
@@ -657,10 +733,15 @@ class ServingExecutor:
                    for (h, hd, dt) in self._cache_specs.values())
 
     def cache_total_bytes(self) -> int:
-        """Bytes :meth:`init_cache` allocates (the budget estimate)."""
+        """Bytes :meth:`init_cache` allocates on this rank (the budget
+        estimate): under a shard the paged pool's share of ``c`` and the
+        padded cache's of ``n * c``."""
         if self.paged:
-            return self.kv_blocks * self.kv_block * self._bytes_per_token
-        return self.max_batch * self.max_seq * self._bytes_per_token
+            total = self.kv_blocks * self.kv_block * self._bytes_per_token
+            return total // self.shard[1] if self.shard else total
+        total = self.max_batch * self.max_seq * self._bytes_per_token
+        return total // (self.shard[0] * self.shard[1]) if self.shard \
+            else total
 
     def hbm_per_slot_bytes(self, prompt_len: Optional[int] = None,
                            max_new_tokens: Optional[int] = None) -> int:
@@ -724,35 +805,67 @@ class ServingExecutor:
                 f"the device's memory): {hint}"
             )
 
+    # -- the rank's share ------------------------------------------------------
+
+    @property
+    def _rows(self) -> slice:
+        """The slots this rank runs: its ``n`` block of the padded batch,
+        else the whole batch (the paged layout, ``n`` = 1, no shard)."""
+        if not self.shard or self.paged or self.shard[0] == 1:
+            return slice(0, self.max_batch)
+        b = self.max_batch // self.shard[0]
+        i = self._world.index(self._n_axes)
+        return slice(i * b, (i + 1) * b)
+
+    def slot_row(self, slot: int) -> Optional[int]:
+        """``slot``'s row of this rank's padded caches (the main model's
+        and the draft's), or None when another rank holds it."""
+        rows = self._rows
+        return slot - rows.start if rows.start <= slot < rows.stop else None
+
+    def _local(self, specs):
+        """Cache specs cut to the rank's ``h/c`` heads."""
+        c = self.shard[1] if self.shard else 1
+        return {name: (h // c, hd, dt) for name, (h, hd, dt) in specs.items()}
+
     # -- caches -------------------------------------------------------------
 
     def _zeros(self, specs, lead: Tuple[int, int]):
+        """Zeroed K/V over ``lead`` for each op of ``specs``, at the
+        rank's heads."""
         return {
             name: {
                 "k": torch.zeros(lead + (h, hd), dtype=dt, device=self.device),
                 "v": torch.zeros(lead + (h, hd), dtype=dt, device=self.device),
             }
-            for name, (h, hd, dt) in specs.items()
+            for name, (h, hd, dt) in self._local(specs).items()
         }
 
     @torch.inference_mode()
     def init_cache(self):
         """Zeroed per-layer caches: padded ``{op: {"k"/"v": (max_batch,
         max_seq, heads, d_head)}}``, or paged the block pool
-        ``(kv_blocks, kv_block, heads, d_head)``."""
+        ``(kv_blocks, kv_block, heads, d_head)``; under a shard the
+        rank's block, ``(max_batch / n, max_seq, heads / c, d_head)`` or
+        ``(kv_blocks, kv_block, heads / c, d_head)``."""
         self._budget_check()
         if self.paged:
             return self._zeros(self._cache_specs,
                                (self.kv_blocks, self.kv_block))
-        return self._zeros(self._cache_specs, (self.max_batch, self.max_seq))
+        rows = self._rows
+        return self._zeros(self._cache_specs,
+                           (rows.stop - rows.start, self.max_seq))
 
     @torch.inference_mode()
     def init_draft_cache(self):
         """The draft's own caches, always padded ``(max_batch, max_seq,
         h, hd)`` over the layers the truncation keeps: an acceleration
-        structure that costs acceptance, never correctness."""
+        structure that costs acceptance, never correctness.  Under a
+        shard the rank's block: its ``n`` rows on the padded layout, every
+        row on the paged one (JAX shards the heads only there)."""
+        rows = self._rows
         return self._zeros(self._draft_cache_specs,
-                           (self.max_batch, self.max_seq))
+                           (rows.stop - rows.start, self.max_seq))
 
     def bucket_for(self, prompt_len: int) -> int:
         for b in self.buckets:
@@ -783,8 +896,15 @@ class ServingExecutor:
                 for t in op.outputs:
                     env[t.name] = passed
                 continue
+            # JAX's binding: the serving shard's plan on the attention
+            # ops only (their c-split heads); every other op runs
+            # mesh-less on the rank's rows, whatever a training executor
+            # last bound on these shared op objects.
             if isinstance(op, MultiHeadAttention):
+                op.bind_mesh(self._plan, self._pc, self._world)
                 op.decode_kernel = self.decode_kernel
+            else:
+                op.bind_mesh(None, None, None)
             xs = [env[t.name] for t in op.inputs]
             s = dict(op_state.get(op.name, {}))
             if op.name in caches:
@@ -954,7 +1074,7 @@ class ServingExecutor:
             ids = torch.as_tensor(np.asarray(shared_ids), dtype=torch.long,
                                   device=self.device)
             caches = self._zeros(self._cache_specs, (1, self.max_seq))
-            for name, (h, hd, _dt) in self._cache_specs.items():
+            for name, (h, hd, _dt) in self._local(self._cache_specs).items():
                 for kv in ("k", "v"):
                     caches[name][kv][0, :o] = pool[name][kv][ids].reshape(
                         o, h, hd)
@@ -1002,10 +1122,14 @@ class ServingExecutor:
     def install(self, caches, rows, slot: int):
         """Copy a prefilled cache row into ``slot`` of every layer's K
         and V (a padded cache or the draft's), in place; returns
-        ``caches``."""
+        ``caches``.  Under a shard only the rank that holds the slot
+        writes (:meth:`slot_row`)."""
+        row = self.slot_row(slot)
+        if row is None:
+            return caches
         for name, r in rows.items():
-            caches[name]["k"][slot].copy_(r["k"])
-            caches[name]["v"][slot].copy_(r["v"])
+            caches[name]["k"][row].copy_(r["k"])
+            caches[name]["v"][row].copy_(r["v"])
         return caches
 
     @torch.inference_mode()
@@ -1033,6 +1157,19 @@ class ServingExecutor:
             return x
         return torch.as_tensor(np.asarray(x), dtype=torch.int32,
                                device=self.device)
+
+    def _graph(self, graph: Optional[bool]) -> bool:
+        """The ``graph`` option: by default on CUDA; never under a shard
+        (gloo's collectives cannot be captured; NCCL's in the decode graph
+        are ROADMAP.md item 1)."""
+        if self.shard is not None:
+            if graph:
+                raise ValueError(
+                    f"shard={self.shard}: the sharded programs run eagerly "
+                    f"(graph=False); capturing their collectives is "
+                    f"ROADMAP.md queue 1, item 1")
+            return False
+        return self.device.type == "cuda" if graph is None else bool(graph)
 
     def _split_args(self, args, sample, what: str):
         want = 2 + int(self.paged) + int(sample is not None)
@@ -1066,31 +1203,39 @@ class ServingExecutor:
         ``graph=False`` is the eager loop, the oracle the graph is held
         against.  A graph form is built anew on every call of this
         method (it binds to the tensors of its first call); the eager
-        form has nothing to bind."""
+        form has nothing to bind.
+
+        Under a shard the K steps run eagerly on the rank's slots
+        (:attr:`_rows`) and the stacked outputs are all-gathered over
+        ``n`` once at the end, after which ``tok`` holds the whole
+        batch's last tokens on every rank."""
         if k < 1:
             raise ValueError(f"decode steps per call must be >= 1, got {k}")
         sample = _check_sample(sample)
-        graph = self.device.type == "cuda" if graph is None else bool(graph)
+        graph = self._graph(graph)
         S = self.max_seq
         pick = self._picker(sample)
+        rows = self._rows
 
         def step(params, op_state, caches, block_table, pos, tok, req_ids,
                  _inputs):
-            logits, _ = self._forward(params, op_state, tok[:, None], caches,
-                                      pos, block_table=block_table)
+            p, t = pos[rows], tok[rows]
+            logits, _ = self._forward(params, op_state, t[:, None], caches,
+                                      p, block_table=block_table)
             logits = logits[:, 0]                                # (B, V)
-            nxt = pick(logits, req_ids, pos)
+            nxt = pick(logits, None if req_ids is None else req_ids[rows], p)
             out = {"tokens": nxt,
                    "finite": torch.isfinite(logits.float()).all(dim=-1)}
             if return_logits:
                 out["logits"] = logits
-            tok.copy_(nxt)
+            t.copy_(nxt)
             pos.copy_(torch.clamp(pos + 1, max=S - 1))
             return params, op_state, caches, block_table, pos, tok, req_ids, out
 
         runner = StepGraph(step, k, self.device) if graph else None
         self._announce(("decode", k, return_logits, sample), kind="decode",
-                       k=int(k), layout=self._layout, sharded=False,
+                       k=int(k), layout=self._layout,
+                       sharded=self.shard is not None,
                        sampled=sample is not None)
 
         @torch.inference_mode()
@@ -1105,6 +1250,17 @@ class ServingExecutor:
                     *carry, out = step(*carry, {})
                     steps.append(out)
                 outs = {n: torch.stack([o[n] for o in steps]) for n in steps[0]}
+                if rows != slice(0, self.max_batch):
+                    # One all-gather over n for the int outputs, one for
+                    # the logits; then the carry's tokens are whole.
+                    both = self._world.all_gather(torch.stack(
+                        [outs["tokens"], outs["finite"].to(torch.int32)]), 2,
+                        self._n_axes)
+                    outs["tokens"], outs["finite"] = both[0], both[1].bool()
+                    if return_logits:
+                        outs["logits"] = self._world.all_gather(
+                            outs["logits"], 1, self._n_axes)
+                    tok.copy_(outs["tokens"][-1])
             res = (outs["tokens"], outs["finite"])
             if return_logits:
                 res += (outs["logits"],)
@@ -1141,34 +1297,45 @@ class ServingExecutor:
                 f"build_decode_superstep)")
         d = relay_safe_steps(d, what="speculate", log=_log)
         sample = _check_sample(sample)
-        graph = self.device.type == "cuda" if graph is None else bool(graph)
+        graph = self._graph(graph)
         S = self.max_seq
         pick = self._picker(sample)
+        rows = self._rows
 
         def spec_round(params, draft_params, op_state, caches, dcaches,
                        block_table, pos, tok, req_ids, _inputs):
-            p, t = pos, tok
+            # The rank's slots (the whole batch off a padded shard).
+            pos_r, tok_r = pos[rows], tok[rows]
+            rids = None if req_ids is None else req_ids[rows]
+            p, t = pos_r, tok_r
             proposals = []
             for _ in range(d + 1):
                 logits, _ = self._forward(draft_params, op_state, t[:, None],
                                           dcaches, p, skip=self._draft_skip)
-                t = pick(logits[:, 0], req_ids, p)
+                t = pick(logits[:, 0], rids, p)
                 proposals.append(t)
                 p = torch.clamp(p + 1, max=S - 1)
             draft_toks = torch.stack(proposals[:d])             # (d, B)
-            tok_seq = torch.cat([tok[None], draft_toks])        # (d+1, B)
-            p = pos
+            tok_seq = torch.cat([tok_r[None], draft_toks])      # (d+1, B)
+            p = pos_r
             ys, oks = [], []
             for i in range(d + 1):
                 logits, _ = self._forward(params, op_state, tok_seq[i][:, None],
                                           caches, p, block_table=block_table)
                 logits = logits[:, 0]
-                ys.append(pick(logits, req_ids, p))
+                ys.append(pick(logits, rids, p))
                 oks.append(torch.isfinite(logits.float()).all(dim=-1))
                 p = torch.clamp(p + 1, max=S - 1)
             ys, oks = torch.stack(ys), torch.stack(oks)
             matches = (draft_toks == ys[:d]).to(torch.int32)
             accepted = torch.cumprod(matches, dim=0).sum(dim=0).to(torch.int32)
+            if rows != slice(0, self.max_batch):
+                # One all-gather over n: the whole batch's round.
+                both = self._world.all_gather(torch.cat(
+                    [ys, oks.to(torch.int32), accepted[None]]), 1,
+                    self._n_axes)
+                ys, oks, accepted = (both[:d + 1], both[d + 1:-1].bool(),
+                                     both[-1])
             nxt = ys.gather(0, accepted[None].long())[0]
             pos.copy_(torch.clamp(pos + accepted + 1, max=S - 1))
             tok.copy_(nxt)
@@ -1179,7 +1346,8 @@ class ServingExecutor:
         runner = StepGraph(spec_round, 1, self.device) if graph else None
         self._announce(("spec", d, sample), kind="spec", d=int(d),
                        draft_layers=self.draft_layers, layout=self._layout,
-                       sharded=False, sampled=sample is not None)
+                       sharded=self.shard is not None,
+                       sampled=sample is not None)
 
         @torch.inference_mode()
         def spec(params, draft_params, op_state, caches, dcaches, *args):
@@ -1211,7 +1379,12 @@ class ServingExecutor:
         ``"prefill_from"`` (the offset prefill at offset ``kv_block`` per
         bucket above it) under the prefix cache and ``"spec"`` (the (d+1,
         B) verified tokens) with ``speculate=d``; every tensor is on
-        ``meta``.  The decode runs eagerly (a graph needs a card)."""
+        ``meta``.  The decode runs eagerly (a graph needs a card).  A
+        sharded engine's dry run is ROADMAP.md queue 1, item 14."""
+        if self.shard is not None:
+            raise ValueError(
+                f"the dry run of a sharded engine (shard={self.shard}) is "
+                f"ROADMAP.md queue 1, item 14")
         meta = torch.device("meta")
         B, S = self.max_batch, self.max_seq
         params = {}
@@ -1646,7 +1819,8 @@ class Server:
                 if self.injector is not None:
                     try:
                         caches, _nan = self.injector.before_superstep(
-                            superstep_idx, caches, block_table)
+                            superstep_idx, caches, block_table,
+                            slot_row=ex.slot_row)
                     except ServingFault as f:
                         superstep_idx += 1
                         if slots[f.slot] is not None:
@@ -1774,7 +1948,7 @@ class Server:
             # One host program per superstep: a graph replay on CUDA.
             "programs_per_decode_superstep": 1,
             "kv_layout": "paged" if ex.paged else "padded",
-            "shard": None,
+            "shard": list(ex.shard) if ex.shard is not None else None,
             "sampled": self.sample is not None,
         }
         if ex.paged:

@@ -613,6 +613,11 @@ class ScheduledServer:
                     ex.kv_blocks = nb
                 else:
                     nb = ex.max_batch // 2
+                    if ex.shard is not None:
+                        # The padded batch splits over 'n': keep it a
+                        # multiple of n.
+                        n = ex.shard[0]
+                        nb = max(nb - nb % n, n)
                     if nb < 1 or nb == ex.max_batch:
                         raise  # floor: one slot still over budget
                     rung = {"rung": "shrink_batch", "max_batch": nb,
@@ -1355,6 +1360,7 @@ class ScheduledServer:
                                 superstep_idx, caches,
                                 block_table if ledger is not None
                                 else None,
+                                slot_row=getattr(self.ex, "slot_row", None),
                             )
                         if new_caches is not None:
                             self.engine.caches = new_caches

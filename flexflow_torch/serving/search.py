@@ -17,8 +17,8 @@ Legality is checked when a candidate is built, through
 (``MAX_DECODE_STEPS_PER_CALL``, the ``relay_safe_steps`` clamp): the
 search emits only configs the executor accepts.  The app's own config
 competes as a candidate, so the winner's predicted p99 is printed against
-it.  A ``shard`` other than None is refused: sharded decode comes with
-ROADMAP.md queue 1 item 9c.
+it.  The mesh ``shard`` is a deployment fact: every candidate carries the
+baseline's, and none is searched.
 """
 
 from __future__ import annotations
@@ -63,8 +63,7 @@ class ServingConfig:
     kv_blocks: Optional[int] = None
     #: Prefix sharing on the paged pool (searched on and off).
     prefix_cache: bool = False
-    #: Mesh shard (n, c), carried and never searched; anything but None
-    #: is refused until ROADMAP.md queue 1 item 9c.
+    #: Mesh shard (n, c), carried and never searched.
     shard: Optional[Tuple[int, int]] = None
     #: Speculative draft depth (0 = plain fused decode), searched only
     #: when the baseline speculates.
@@ -75,10 +74,6 @@ class ServingConfig:
     router: str = "least-loaded"
 
     def __post_init__(self):
-        if self.shard is not None:
-            raise ValueError(
-                f"shard={self.shard}: sharded serving comes with ROADMAP.md "
-                f"queue 1 item 9c (sharded serving)")
         shape = self.shape()
         object.__setattr__(self, "buckets", shape.buckets)
         object.__setattr__(self, "kv_blocks", shape.kv_blocks)
@@ -113,6 +108,8 @@ class ServingConfig:
             bits += f" kv={self.kv_blocks}x{self.kv_block}"
         if self.prefix_cache:
             bits += " prefix-cache"
+        if self.shard is not None:
+            bits += f" shard={self.shard[0]}x{self.shard[1]}"
         if self.speculate > 0:
             bits += f" spec={self.speculate}"
         if self.replicas > 1:
@@ -132,7 +129,7 @@ class ServingConfig:
             "kv_block": self.kv_block,
             "kv_blocks": self.kv_blocks,
             "prefix_cache": self.prefix_cache,
-            "shard": None,
+            "shard": list(self.shard) if self.shard is not None else None,
             "speculate": self.speculate,
             "replicas": self.replicas,
             "router": self.router,
@@ -312,6 +309,7 @@ def search_serving_config(
                                         policy=pol,
                                         kv_block=kvb, kv_blocks=kvn,
                                         prefix_cache=pfx,
+                                        shard=baseline.shard,
                                         speculate=sp,
                                         replicas=rep, router=rt,
                                     ))

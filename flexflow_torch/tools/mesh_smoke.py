@@ -35,6 +35,15 @@ losses, report, launch counts, the shapes the kernels ran at (each held
 against its plain version on the rank), its parameters against a
 reference run's, ms a step and the share of a step spent in collectives.
 
+``serve_cases(model_kw, params, cases, device)`` is the rank body of the
+sharded serving worlds (the CPU tests' and ``chip_smoke.py``'s phase
+29): per case a ``ServingExecutor(shard=(n, c))`` on this rank, its
+requests through the plain ``Server``, a ``ScheduledServer`` or a
+2-replica ``FleetRouter``, with ``SERVE_FAULTS`` planted on rank 1;
+returns the tokens, errors, stats and decisions, the decode logits of a
+teacher-forced request, the launch counts, the shapes K1f's dispatcher
+and K6 ran at, ms a superstep, the collective share and peak memory.
+
 ``python -m flexflow_torch.tools.mesh_smoke --gloo-probe`` prints which
 collectives and dtypes gloo runs on CUDA tensors on this machine.
 """
@@ -222,17 +231,19 @@ def executor_for(case: Dict[str, Any]):
                         strategy=store)
 
 
-def _recording(shapes: Dict[str, list]):
+def _recording(shapes: Dict[str, list],
+               names=("flash_attention_lse_auto", "softmax_xent")):
     """Have the attention op's and the loss's view of ``ops.kernels``
-    record the input shape of each call of the attention dispatcher and
-    of K3's wrapper (the wrappers themselves, and their launch counters,
-    stay as they are); returns the undo."""
+    record the input shape of each call of the wrappers in ``names`` (by
+    default the attention dispatcher and K3's wrapper; the wrappers
+    themselves, and their launch counters, stay as they are); returns
+    the undo."""
     from flexflow_torch.ops import attention, kernels, losses
 
     class _Recorder:
         def __getattr__(self, name):
             fn = getattr(kernels, name)
-            if name not in ("flash_attention_lse_auto", "softmax_xent"):
+            if name not in names:
                 return fn
 
             def call(x, *a, **kw):
@@ -608,6 +619,302 @@ def dlrm_app(configs: List[Dict[str, Any]], argv: List[str],
             if cuda:
                 torch.cuda.empty_cache()
     return out
+
+
+def _keep_own_sum(world):
+    """The planted fault ``skip_c_all_reduce``: the attention output's
+    all-reduce over ``c`` runs (the other ranks do not wait on it) and
+    the rank keeps its own partial product."""
+    real = type(world).all_reduce
+    world.all_reduce = lambda x, axes: (real(world, x, axes), x)[1]
+
+
+def _reversed_gather(world):
+    """The planted fault ``gather_order``: the tokens' all-gather over
+    ``n`` runs and the rank concatenates the blocks in reverse order."""
+    real = type(world).all_gather
+
+    def gather(x, dim, axes):
+        out = real(world, x, dim, axes)
+        return torch.cat(out.chunk(world.plan.size(axes), dim)[::-1], dim)
+    world.all_gather = gather
+
+
+#: Planted faults of sharded serving, by name: each patches rank 1's
+#: ``World`` and keeps every collective matched.
+SERVE_FAULTS = {"skip_c_all_reduce": _keep_own_sum,
+                "gather_order": _reversed_gather}
+
+
+def _serve_requests(case):
+    from flexflow_torch.runtime.serving import Request
+
+    return [Request(id=int(r[0]), prompt=np.asarray(r[1], np.int32),
+                    max_new_tokens=int(r[2]),
+                    arrival_ms=float(r[3]) if len(r) > 3 else 0.0)
+            for r in case["requests"]]
+
+
+def _teacher_logits(ex, params, tokens, prefix: int, bucket: int,
+                    steps=None):
+    """Prefill ``prefix`` of ``tokens`` into slot 0, then decode K = 1
+    steps (to ``max_seq``, or ``steps`` of them) feeding the true next
+    tokens: the first token and each step's slot-0 logits (numpy),
+    ``tests/test_serving.py``'s protocol (on the paged pool through a
+    ledger's table row)."""
+    S = ex.max_seq
+    padded = np.zeros((1, bucket), np.int32)
+    padded[0, :prefix] = tokens[:prefix]
+    rows, tok0, _ok = ex.build_prefill(bucket)(params, {}, padded,
+                                               np.int32(prefix))
+    bt = ()
+    if ex.paged:
+        led = ex.make_ledger()
+        row = led.alloc(0, led.blocks_for(prefix, S))
+        table = np.zeros((ex.max_batch, led.blocks_per_slot), np.int32)
+        table[0] = row
+        caches = ex.install_paged(ex.init_cache(), rows, row)
+        bt = (table,)
+    else:
+        caches = ex.install(ex.init_cache(), rows, 0)
+    dec = ex.build_decode_superstep(1, return_logits=True, graph=False)
+    pos = np.zeros((ex.max_batch,), np.int32)
+    pos[0] = prefix
+    out = []
+    for t in range(prefix, S if steps is None else min(S, prefix + steps)):
+        tok = np.zeros((ex.max_batch,), np.int32)
+        tok[0] = tokens[t]
+        caches, pos_d, _t, (_n, _ok, logits) = dec(params, {}, caches, *bt,
+                                                   pos, tok)
+        out.append(logits[0, 0].float().cpu().numpy())
+        pos = pos_d.cpu().numpy()
+    return int(tok0), np.stack(out)
+
+
+def serve_cases(model_kw: Dict[str, Any], params, cases: List[Dict[str, Any]],
+                device: str = "cpu") -> List[Dict[str, Any]]:
+    """Rank body of the sharded serving worlds.  ``model_kw``: the LM's
+    ``build_transformer_lm`` arguments plus ``dtype`` and ``seed``;
+    ``params``: a full numpy tree, or None for ``ServingExecutor.init``'s
+    draw.  A case is a dict:
+
+    - ``shard`` ((n, c) or None) and the executor's ``max_batch``,
+      ``max_seq``, ``buckets``, ``kv_block``, ``prefix_cache``,
+      ``decode_kernel`` (``ex`` a dict of them); ``model``: overrides of
+      ``model_kw``; ``dtype``: the compute dtype (default
+      ``model_kw``'s); ``env``: environment variables set for the case
+      (``FF_DEVICE_MEM_BYTES``);
+    - ``server``: ``"plain"`` (default), ``"sched"`` (the slo policy) or
+      ``"fleet"`` (2 replicas, least-loaded), with ``server_kw``
+      (``decode_steps``, ``speculate``, ``temperature``, ...) and
+      ``nan_cache_at`` (a ``ServingFaultInjector``'s);
+    - ``requests``: ``(id, prompt, max_new[, arrival_ms])`` tuples (none:
+      the teacher only);
+    - ``fault``: a key of :data:`SERVE_FAULTS`, planted on rank 1 before
+      the teacher and the run;
+    - ``teacher``: ``(tokens, prefix, bucket[, steps])``, also return the
+      decode logits of :func:`_teacher_logits`;
+    - ``app``: instead of all of the above, ``apps.serve.main`` on this
+      argv in this rank (:func:`_serve_app_case`);
+    - ``ckpt``: serve the params ``ServingExecutor.restore`` reads there;
+    - ``init_digest``: also return the digest of ``ServingExecutor.init``;
+    - ``timed``: synchronise each collective alone during the run and
+      return the milliseconds spent in them (``comm_ms`` of the run's
+      ``timed_ms``);
+    - ``expect_error``: build the executor only and return the
+      ``ValueError``'s message.
+
+    Returns per case the executor's ``shard``, the tokens and errors by
+    request id, the stats, the decisions and degraded rungs (scheduler
+    and fleet), the launch counts and the shapes K1f's dispatcher and K6
+    ran at on this rank, ms a decode superstep and the peak memory
+    (CUDA)."""
+    import os
+
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.transformer import build_transformer_lm
+    from flexflow_torch.runtime.serving import ServingExecutor
+    from flexflow_torch.weights import params_from_numpy
+
+    if device == "cuda":  # f32 held in f32: no TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    kw = dict(model_kw)
+    dtype0, seed = kw.pop("dtype", "float32"), kw.pop("seed", 0)
+    models: Dict[tuple, Any] = {}
+    weights: Dict[str, Any] = {}
+    out = []
+    for case in cases:
+        if case.get("app") is not None:
+            out.append(_serve_app_case(case, device))
+            continue
+        exkw = dict(case.get("ex", {}))
+        B = exkw.pop("max_batch", kw["batch_size"])
+        dtype = case.get("dtype", dtype0)
+        mkw = dict(kw, batch_size=B, **case.get("model", {}))
+        key = tuple(sorted(mkw.items())) + (dtype,)
+        if key not in models:
+            models[key] = build_transformer_lm(
+                config=FFConfig(batch_size=B, compute_dtype=dtype), **mkw)
+
+        def make(ff=models[key], B=B, exkw=exkw, shard=case.get("shard")):
+            return ServingExecutor(ff, max_batch=B, device=device,
+                                   shard=shard, **exkw)
+
+        def weights_of(ex, dtype=dtype):
+            if dtype not in weights:  # one draw (or copy) a dtype
+                weights[dtype] = (ex.init(seed)[0] if params is None else
+                                  params_from_numpy(params, device))
+            return weights[dtype]
+
+        saved = {k: os.environ.get(k) for k in case.get("env", {})}
+        os.environ.update(case.get("env", {}))
+        try:
+            out.append(_serve_case(case, make, weights_of, seed, device))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _serve_case(case, make, weights_of, seed: int, device: str):
+    """One case of :func:`serve_cases` on this rank."""
+    import time
+
+    import torch.distributed as dist
+
+    from flexflow_torch.ops import probe_kernels
+    from flexflow_torch.runtime.serving import Server, ServingFaultInjector
+    from flexflow_torch.serving import (FleetRouter, ScheduledServer,
+                                        SchedulerPolicy)
+
+    cuda = device == "cuda"
+    if case.get("expect_error"):
+        try:
+            make()
+        except ValueError as e:
+            return dict(name=case["name"], error=str(e))
+        return dict(name=case["name"], error=None)
+    ex = make()
+    res: Dict[str, Any] = dict(name=case["name"], shard=ex.shard,
+                               jax_imported="jax" in sys.modules)
+    if case.get("init_digest"):
+        res["init_digest"] = digest(ex.init(seed)[0])
+    if case.get("ckpt"):
+        _step, p, state = ex.restore(case["ckpt"])
+    else:
+        p, state = weights_of(ex), {}
+    if case.get("fault") and ex._world is not None and dist.get_rank() == 1:
+        SERVE_FAULTS[case["fault"]](ex._world)
+    if case.get("teacher") is not None:
+        res["teacher"] = _teacher_logits(ex, p, *case["teacher"])
+    if not case["requests"]:
+        return res
+    skw = dict(case.get("server_kw", {}))
+    inj = case.get("nan_cache_at")
+    kind = case.get("server", "plain")
+
+    def build():
+        injector = ServingFaultInjector(nan_cache_at=inj) if inj else None
+        if kind == "plain":
+            return Server(ex, p, state, fault_injector=injector, **skw)
+        if kind == "sched":
+            return ScheduledServer(ex, p, state,
+                                   policy=SchedulerPolicy(name="slo"),
+                                   fault_injector=injector, **skw)
+        return FleetRouter([ScheduledServer(
+            e, p, state, policy=SchedulerPolicy(name="slo"), **skw)
+            for e in (ex, make())], router="least-loaded")
+
+    srv = build()
+    shapes: Dict[str, list] = {}
+    undo = _recording(shapes, ("flash_attention_lse_auto", "flash_decode"))
+    for fn in probe_kernels.KERNELS:
+        fn.launches = 0
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    w = ex._world if case.get("timed") else None
+    if w is not None:
+        dist.barrier()
+        w.comm_s, w.timed = 0.0, True
+    t0 = time.perf_counter()
+    try:
+        results, stats = srv.run(_serve_requests(case))
+        if cuda:
+            torch.cuda.synchronize()
+    finally:
+        undo()
+        if ex._world is not None:
+            ex._world.timed = False
+            for name in ("all_reduce", "all_gather"):
+                ex._world.__dict__.pop(name, None)
+    if w is not None:
+        res["timed_ms"] = (time.perf_counter() - t0) * 1e3
+        res["comm_ms"] = w.comm_s * 1e3
+    res["counts"] = {fn.__name__: fn.launches
+                     for fn in probe_kernels.KERNELS if fn.launches}
+    res["peak_gb"] = ((torch.cuda.max_memory_allocated() - held) / 1e9
+                      if cuda else None)
+    res["shapes"] = {k: sorted(set(v)) for k, v in shapes.items()}
+    res["tokens"] = {rid: list(r.tokens) for rid, r in results.items()}
+    res["errors"] = {rid: r.error for rid, r in results.items()}
+    res["stats"] = {k: v for k, v in stats.items()
+                    if isinstance(v, (int, float, str, bool, list,
+                                      type(None)))}
+    res["max_batch"] = ex.max_batch
+    res["rows"] = (ex._rows.start, ex._rows.stop)  # after any rung
+    if kind != "plain":
+        res["decisions"] = (srv.merged_decisions() if kind == "fleet"
+                            else srv.decisions)
+        res["degraded"] = list(getattr(srv, "degraded_rungs", []))
+    res["ms_superstep"] = (stats.get("decode_s", 0.0) * 1e3
+                           / max(stats["decode_supersteps"], 1))
+    return res
+
+
+def _serve_app_case(case, device: str):
+    """An ``app`` case of :func:`serve_cases`: ``apps.serve.main`` on the
+    argv ``case["app"]`` in this rank, so the app's own code under its
+    ``--shard`` runs on the world, every launch counter zeroed first.
+    Returns its exit code, report, stats, tokens by request id, the
+    launch counts and the shapes K1f's dispatcher and K6 ran at."""
+    import contextlib
+    import io
+
+    from flexflow_torch.apps import serve
+    from flexflow_torch.ops import probe_kernels
+
+    shapes: Dict[str, list] = {}
+    stats: Dict[str, Any] = {}
+    report = io.StringIO()
+    undo = _recording(shapes, ("flash_attention_lse_auto", "flash_decode"))
+    for fn in probe_kernels.KERNELS:
+        fn.launches = 0
+    try:
+        with contextlib.redirect_stdout(report):
+            code = serve.main(list(case["app"]), device=device,
+                              stats_out=stats)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        undo()
+    results = stats.pop("results", {})
+    return dict(name=case["name"], code=code, report=report.getvalue(),
+                stats={k: v for k, v in stats.items()
+                       if isinstance(v, (int, float, str, bool, list,
+                                         type(None)))},
+                tokens={rid: list(r.tokens) for rid, r in results.items()},
+                counts={fn.__name__: fn.launches
+                        for fn in probe_kernels.KERNELS if fn.launches},
+                shapes={k: sorted(set(v)) for k, v in shapes.items()},
+                jax_imported="jax" in sys.modules)
 
 
 def fail_rank(bad_rank: int) -> None:

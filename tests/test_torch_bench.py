@@ -157,7 +157,7 @@ _SMALL_SERVING = dict(device="cpu", vocab=64, d_model=32, heads=2, layers=2,
                       max_seq=32, max_batch=4, n_req=6, max_new=12,
                       kv_block=8, dtype="float32")
 #: The serving leg's columns: bench.py's (``bench_serving``) that the port
-#: computes; the sharded columns wait for their slice.
+#: computes.
 SERVING_KEYS = {
     "max_batch", "max_seq", "requests", "k1_tokens_per_s",
     "k1_decode_ms_per_token", "k8_tokens_per_s", "k8_decode_ms_per_token",
@@ -165,7 +165,8 @@ SERVING_KEYS = {
     "request_latency_ms_p95", "programs_per_decode_superstep",
     "hbm_per_slot_bytes", "paged_hbm_per_slot_bytes",
     "padded_max_admitted_batch", "paged_max_admitted_batch",
-    "paged_tokens_per_s", "speculate", "spec_tokens_per_s",
+    "paged_tokens_per_s", "sharded_mesh", "sharded_tokens_per_s",
+    "sharded_vs_single_mesh_tokens_per_s", "speculate", "spec_tokens_per_s",
     "spec_acceptance_rate", "spec_tokens_per_dispatch",
     "plain_tokens_per_dispatch", "spec_vs_plain_tokens_per_dispatch",
     "spec_match", "queue_wait_ms_p50", "queue_wait_ms_p95",
@@ -361,6 +362,11 @@ def test_serving_leg_runs_small_on_cpu():
         out["k1_decode_ms_per_token"] / out["k8_decode_ms_per_token"], 3)
     assert out["paged_max_admitted_batch"] > out["padded_max_admitted_batch"]
     assert out["paged_hbm_per_slot_bytes"] < out["hbm_per_slot_bytes"]
+    # One process: the sharded engine takes JAX's single-mesh fallback,
+    # the K = 8 run's engine, whose stats stand for it.
+    assert out["sharded_mesh"] is None
+    assert out["sharded_tokens_per_s"] == out["k8_tokens_per_s"] > 0
+    assert out["sharded_vs_single_mesh_tokens_per_s"] == 1.0
     # The scheduler's columns: the injected faults were absorbed, the
     # shared prefix was hit without changing a token.
     assert out["request_retries"] == out["engine_restarts"] == 1

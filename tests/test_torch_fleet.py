@@ -300,10 +300,13 @@ def test_serving_config_validation_matches_jax(bad):
             pkg.ServingConfig(**kw)
         msgs.append(str(e.value))
     assert msgs[0] == msgs[1]
-    with pytest.raises(ValueError, match="item 9"):
-        tsv.ServingConfig(buckets=(8,), decode_steps=8, max_batch=2,
-                          max_seq=S, policy=tsv.SchedulerPolicy(),
-                          shard=(2, 1))
+    # The mesh shard is carried, as JAX's is.
+    sharded = [pkg.ServingConfig(buckets=(8,), decode_steps=8, max_batch=2,
+                                 max_seq=S, policy=pkg.SchedulerPolicy(),
+                                 shard=(2, 1)) for pkg in (jsv, tsv)]
+    assert sharded[1].to_json() == sharded[0].to_json()
+    assert sharded[1].describe() == sharded[0].describe()
+    assert sharded[1].to_json()["shard"] == [2, 1]
 
 
 SEARCHES = {

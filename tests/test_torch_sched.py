@@ -691,7 +691,8 @@ def test_serve_app_failure_flags_and_crash_loop_exit(capsys, monkeypatch,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--shard", "2,1"], "item 9"), (["--sched", "lifo"], "fifo|slo"),
+    (["--shard", "2,1", "--telemetry", "telemetry-under-ranks"], "item 9d"),
+    (["--sched", "lifo"], "fifo|slo"),
     (["--workload-trace", "prod:beta=2"], "unknown args"),
     (["--router", "round-robin"], "least-loaded|tier-aware|affinity"),
     (["--replicas", "0"], "N >= 1")])

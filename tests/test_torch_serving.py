@@ -219,7 +219,7 @@ def test_serve_app_on_cpu(capsys):
     assert stats["tokens"] == 15 and stats["prefills"] == 3
 
 
-@pytest.mark.parametrize("flag", [["--shard", "2,2"],
+@pytest.mark.parametrize("flag", [["--shard", "2,2", "--dry-run"],
                                   ["--dtype", "float16"]])
 def test_serve_app_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as e:
