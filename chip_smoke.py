@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Twenty-nine phases, in order; any failure raises and exits non-zero:
+Thirty phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -419,13 +419,41 @@ Twenty-nine phases, in order; any failure raises and exits non-zero:
     SDPA (masked for K6) and the bound.  Per arm: ms a decode superstep,
     tokens/s, the share of the run's wall in collectives (host clock,
     each collective synchronised alone) and peak memory, by rank.
+30. **The model strategies** (``mesh-seq``, ``MESH_SEQ``: the apps on a
+    world of four ranks, ``flexflow_torch/tools/mesh_smoke.py::seq_app``
+    the rank body; gloo with every rank on one card, NCCL a card a rank
+    with four; each run held against the same app on one rank in this
+    process).  (a) The f32 arm on a world of 1: one rank's losses and
+    parameters bit for bit.  (b) The LM at full width, 4 x 8192 bf16,
+    1 + 2 Adam steps, at ``--sp 2``, ``--sp 4`` and ``--dp 2 --sp 2``
+    (ring attention), and with four cards 1 x 32768 streamed at ``--sp
+    4``: losses within ``TOL_MESH_SEQ_LOSS`` and parameters within
+    ``TOL_MESH_SEQ_DIST`` of one rank's, every rank's parameters equal,
+    K1f and K1b (K1s and K1sb streamed) ``layers x steps x (1 + s_idx)``
+    times on rank ``s_idx`` at its ``(b/dp, h, t/sp, hd)`` chunk, K3 once a
+    step each way at its rows; the f32 arm (1 x 2048, two layers) at
+    ``--sp 4`` within ``TOL_MESH_SEQ_F32``.  (c) The MoE LM of phase 23 at
+    ``--tp 2`` and ``--dp 2 --tp 2``: the first step's drops equal one
+    rank's exactly, the losses within the bar.  (d) NMT at phase 22's
+    widths under ``nmt_strategy(2)`` and ``(4)`` (bf16), and at 4 in f32;
+    K3, K4 and K5 counted.  (e) Candle-Uno at batch 512 under
+    ``candle_uno_strategy(2)`` and ``(4)``.  (f) ``mesh_smoke.SEQ_FAULTS``
+    on every rank must break a bar: ``ring_attend_future`` and
+    ``ring_reverse`` at the f32 arm, ``ep_local_capacity`` at ``--dp 2
+    --tp 2`` (the drops), ``lstm_no_carry`` at NMT f32.  (g) K1f causal
+    and non-causal and K1b (causal and not, a nonzero lse cotangent) at
+    each local chunk shape the ring ran, against their plain versions by
+    phase 2's element rules, timed beside them, SDPA and the bound.  Per
+    LM arm: ms a step a rank and, for one more step, the collectives by
+    name (host clock, each synchronised alone).
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
 DLRM, long-context, race, AlexNet, superstep, serve-features,
 serve-resilience, NMT, CNN, Candle, MoE, item-7, scheduled and fleet runs
-together, and phases 27's, 28's and 29's ranks, split
+together, and phases 27's, 28's, 29's and 30's ranks, split
 in ``launches_by_path``; K1f's and K6's ``mesh_serve_shapes`` rows at
-phase 29's rank-local shapes; the superstep, serve-features,
+phase 29's rank-local shapes, K1f's and K1b's ``mesh_seq_shapes`` at
+phase 30's ring chunks; the superstep, serve-features,
 serve-resilience and item-7 paths count what their graph runs launched
 eagerly or captured; K3's entries name the
 form each main-path shape takes, and K3's, K4's and K5's carry the NMT
@@ -6077,29 +6105,33 @@ TOL_MESH_DIST = 0.04
 TOL_MESH_CNN = (2e-4, 1e-5)
 
 
-def mesh_attention_hold(torch, kernels, shape) -> dict:
-    """K1f and K1b (bf16, causal) at ``shape`` against their plain
-    versions by phase 2's element rules; raises on a miss.  Returns the
-    worst elements' shares of their tolerances."""
+def mesh_attention_hold(torch, kernels, shape, causal: bool = True,
+                        dtype: str = "bfloat16") -> dict:
+    """K1f and K1b (with a nonzero lse cotangent) at ``shape`` against
+    their plain versions by phase 2's element rules; raises on a miss.
+    Returns the worst elements' shares of their tolerances."""
     g = torch.Generator(device="cuda").manual_seed(27)
-    q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                   for _ in range(4))
     g_lse = torch.randn(shape[:3], generator=g, device="cuda")
-    o, lse = kernels.flash_attention_lse(q, k, v, True)
-    po, plse = kernels.flash_attention_lse_plain(q, k, v, True)
-    fwd = _flash_fwd_close(kernels, q, k, v, True, o, po)
-    got = kernels.flash_attention_lse_bwd(q, k, v, po, plse, do, g_lse, True)
+    o, lse = kernels.flash_attention_lse(q, k, v, causal)
+    po, plse = kernels.flash_attention_lse_plain(q, k, v, causal)
+    fwd = _flash_fwd_close(kernels, q, k, v, causal, o, po)
+    got = kernels.flash_attention_lse_bwd(q, k, v, po, plse, do, g_lse,
+                                          causal)
     want = kernels.flash_attention_lse_bwd_plain(q, k, v, po, plse, do,
-                                                 g_lse, True)
-    rtol, arel, atop = TOL_ELEM["stream_bwd"]["bfloat16"]
-    mass = _flash_bwd_mass(q, k, v, po, plse, do, g_lse, True)
-    tops = _flash_bwd_top(q, k, v, po, plse, do, g_lse, True)
+                                                 g_lse, causal)
+    rtol, arel, atop = TOL_ELEM["stream_bwd"][dtype]
+    mass = _flash_bwd_mass(q, k, v, po, plse, do, g_lse, causal)
+    tops = _flash_bwd_top(q, k, v, po, plse, do, g_lse, causal)
     bwd = max(_close(a, w, m, rtol, arel, tp, atop)
               for a, w, m, tp in zip(got, want, mass, tops))
     lse_err = (lse - plse).abs().max().item()
     _check(fwd <= 1.0 and bwd <= 1.0 and lse_err <= TOL_LSE,
-           f"mesh: K1f/K1b at {shape}: forward {fwd}, backward {bwd} of the "
-           f"element tolerance, lse err {lse_err}")
+           f"mesh: K1f/K1b at {shape} {dtype} causal={causal}: forward "
+           f"{fwd}, backward {bwd} of the element tolerance, lse err "
+           f"{lse_err}")
     return dict(k1f=fwd, k1b=bwd, lse=lse_err)
 
 
@@ -7254,6 +7286,424 @@ def phase_mesh_serve(torch, kernels, F, c=None, device="cuda"):
     return rows, launches
 
 
+#: Phase 30: the model families' own strategies on a world of four ranks
+#: (gloo, every rank on one card; NCCL a card a rank with four cards),
+#: through the apps, each held against the same app on one rank in this
+#: process.  The LM at full width (``lm``: 4 x 8192, bf16, 1 + 2 Adam
+#: steps) under ``lm_tables`` (name, dp, sp); on four cards also
+#: ``lm32k`` (1 x 32768, streamed) at sp 4.  The f32 arm (``f32``, two
+#: layers at 1 x 2048) at sp 4, also with the ring's planted faults.  The
+#: MoE LM of phase 23 (``moe``) under ``moe_tables`` (name, dp, tp), also
+#: with ``ep_local_capacity``.  NMT (phase 22's widths) under
+#: ``nmt_strategy(2)`` and ``(4)`` in bf16 and at 4 in f32, also with
+#: ``lstm_no_carry``; Candle-Uno at batch 512 in f32 under
+#: ``candle_uno_strategy(2)`` and ``(4)``, SGD lr 1e-3 (in bf16 two SGD
+#: steps moved its MSE by 2e-3 between splits; at phase 23's lr 0.01 its
+#: loss climbs 1.10, 1.46, 2.68 and each step multiplies an f32 rounding
+#: difference about 20 times).  A planted fault's run takes 1 + 1 steps.
+#: On one card only the LM's ``dp2sp2`` runs of ``lm_tables``, the MoE's
+#: ``tp2`` and ``nmt_strategy(2)`` do not, and no step is timed alone:
+#: over gloo on one card a step of the LM's tables takes seconds, most of
+#: it in the all-gather of the logits' cotangent that JAX's table implies
+#: (``lm_head`` runs the whole sequence, the loss its rows; the MoE's
+#: ``tp`` gathers the logits' vocabulary), and the script must end inside
+#: its limit.  Four cards run every arm.
+MESH_SEQ = dict(
+    lm=dict(TRAIN, batch=4, seq=8192, iters=2),
+    lm32k=dict(TRAIN, batch=1, seq=32768, iters=2),
+    f32=dict(TRAIN, batch=1, seq=2048, layers=2, iters=2),
+    moe=dict(MOE, iters=2),
+    nmt=dict(NMT, iters=2),
+    candle=dict(CANDLE, iters=2, lr=1e-3),
+    lm_tables=(("sp2", 1, 2), ("sp4", 1, 4), ("dp2sp2", 2, 2)),
+    moe_tables=(("tp2", 1, 2), ("dp2tp2", 2, 2)))
+#: Phase 30's bars against one rank: bf16 losses within
+#: ``TOL_MESH_SEQ_LOSS`` relative (each ring chunk's ``o`` rounds to bf16
+#: before the f32 merge, where one rank's K1f rounds once) and the trained
+#: parameters within ``TOL_MESH_SEQ_DIST`` of the one-rank run's change
+#: (``mesh_smoke._distance``); f32 losses within ``TOL_MESH_SEQ_F32``
+#: relative.  The MoE drops of the first step (the routing of the initial
+#: parameters) equal one rank's exactly; later steps route after a bf16
+#: update whose bits the split changes, and are printed.  Each planted
+#: fault must break a bar.
+TOL_MESH_SEQ_LOSS = 2e-3
+TOL_MESH_SEQ_DIST = 0.1
+TOL_MESH_SEQ_F32 = 1e-5
+
+
+def _seq_argv(c, dtype="bfloat16", extra=()):
+    argv = _train_argv(c)
+    argv[argv.index("--dtype") + 1] = dtype
+    return argv + list(extra)
+
+
+def _candle_argv(c):
+    return ["-b", str(c["batch"]), "-i", str(c["iters"]), "--dtype",
+            "float32", "--optimizer", "sgd", "--lr", str(c["lr"]),
+            "--momentum", "0", "--wd", "0", "--seed", "0"]
+
+
+def _seq_runs(cards: int):
+    """Phase 30's runs on the world of four: ``(runs, refs_wanted)``; each
+    run names its one-rank reference (``base``) and, for the parameter
+    bar, the reference file (``ref``)."""
+    c = MESH_SEQ
+    runs = []
+    for name, dp, sp in c["lm_tables"]:
+        if name != "dp2sp2" and cards < 4:
+            continue
+        runs.append(dict(name=f"lm_{name}", app="transformer", base="lm",
+                         ref="lm", timed=cards >= 4, dp=dp, sp=sp,
+                         argv=_seq_argv(c["lm"], extra=(
+                             "--dp", str(dp), "--sp", str(sp)))))
+    if cards >= 4:
+        runs.append(dict(name="lm32k_sp4", app="transformer", base="lm32k",
+                         ref="lm32k", timed=True, dp=1, sp=4, streamed=True,
+                         argv=_seq_argv(c["lm32k"], extra=("--sp", "4"))))
+    for fault in (None, "ring_attend_future", "ring_reverse"):
+        runs.append(dict(name=f"f32_sp4{'_' + fault if fault else ''}",
+                         app="transformer", base="f32", ref="f32", dp=1,
+                         sp=4, fault=fault, f32=True,
+                         argv=_seq_argv(c["f32"], "float32", ("--sp", "4"))))
+    # The candle and NMT f32 runs and the faults' reference parameters.
+    for name, dp, tp in c["moe_tables"]:
+        if dp == 1 and cards < 4:
+            continue
+        for fault in (None, "ep_local_capacity") if dp > 1 else (None,):
+            runs.append(dict(
+                name=f"moe_{name}{'_' + fault if fault else ''}",
+                app="transformer", base="moe", dp=dp, sp=1, fault=fault,
+                argv=_seq_argv(c["moe"], extra=(
+                    "--experts", str(c["moe"]["experts"]), "--dp", str(dp),
+                    "--tp", str(tp)))))
+    nmt = _nmt_argv(c["nmt"], ("-i", str(c["nmt"]["iters"]), "--seed", "0"))
+    for n in (2, 4) if cards >= 4 else (4,):
+        runs.append(dict(name=f"nmt_{n}", app="nmt", base="nmt", nmt=n,
+                         argv=nmt))
+    f32 = list(nmt)
+    f32[f32.index("--dtype") + 1] = "float32"
+    for fault in (None, "lstm_no_carry"):
+        runs.append(dict(name=f"nmt_f32_4{'_' + fault if fault else ''}",
+                         app="nmt", base="nmt_f32", ref="nmt_f32", nmt=4,
+                         fault=fault, f32=True, argv=f32))
+    for n in (2, 4):
+        runs.append(dict(name=f"candle_{n}", app="candle_uno",
+                         base="candle", ref="candle", candle=n, f32=True,
+                         argv=_candle_argv(c["candle"])))
+    for run in runs:
+        if run.get("fault"):
+            argv = run["argv"] = list(run["argv"])
+            argv[argv.index("-i") + 1] = "1"
+    return runs
+
+
+def _seq_refs(torch, tmp, cards: int) -> dict:
+    """The one-rank runs in this process: ``{base: (stats, counts)}``, the
+    trained parameters of ``lm``, ``lm32k``, ``f32``, ``nmt_f32`` and
+    ``candle`` with the squared norm of their change from the initial
+    draw saved (``{"trained", "change"}``) under ``tmp`` for the ranks'
+    distance bar, and the f32 run's digest."""
+    import os
+
+    from flexflow_torch.apps import candle_uno, nmt, transformer
+    from flexflow_torch.ops import kernels
+    from flexflow_torch.tools import mesh_smoke as ms
+
+    c = MESH_SEQ
+    nmt_argv = _nmt_argv(c["nmt"], ("-i", str(c["nmt"]["iters"]), "--seed",
+                                    "0"))
+    nmt_f32 = list(nmt_argv)
+    nmt_f32[nmt_f32.index("--dtype") + 1] = "float32"
+    from flexflow_torch.tools.mesh_smoke import step_drops
+
+    todo = {"lm": (transformer.main, _seq_argv(c["lm"])),
+            "f32": (transformer.main, _seq_argv(c["f32"], "float32")),
+            "moe": (transformer.main, _seq_argv(c["moe"], extra=(
+                "--experts", str(c["moe"]["experts"])))),
+            "nmt": (nmt.main, nmt_argv), "nmt_f32": (nmt.main, nmt_f32),
+            "candle": (candle_uno.main, _candle_argv(c["candle"]))}
+    if cards >= 4:
+        todo["lm32k"] = (transformer.main, _seq_argv(c["lm32k"]))
+    out, paths = {}, {}
+    for base, (main, argv) in todo.items():
+        kernels._STREAMED = base == "lm32k"
+        try:
+            with step_drops() as drops, ms._InitOnce() as once:
+                stats, counts, _ = _run_app(torch, main, argv)
+        finally:
+            kernels._STREAMED = False
+        stats["drops"] = drops
+        stats.pop("executor")
+        trained = stats.pop("final")[0]
+        if base in ("lm", "lm32k", "f32", "nmt_f32", "candle"):
+            paths[base] = os.path.join(tmp, f"{base}.pt")
+            init = once.full[0]
+            torch.save({"trained": {op: {k: v.detach().cpu() for k, v in
+                                         g.items()}
+                                    for op, g in trained.items()},
+                        "change": sum(float((v.detach().float() - init[op][
+                            k].to(v.device).float()).square().sum())
+                            for op, g in trained.items()
+                            for k, v in g.items())}, paths[base])
+        if base == "f32":
+            stats["digest"] = ms.digest(trained)
+        del trained, once
+        torch.cuda.empty_cache()
+        out[base] = (stats, counts)
+    return out, paths
+
+
+def _seq_gap(got, want) -> float:
+    """The largest relative loss gap over the steps both ran."""
+    return max(abs(a - w) / abs(w) for a, w in zip(got, want))
+
+
+def _seq_held(run, res, refs, plan, cards) -> list:
+    """Phase 30's checks of one run on every rank: the names of the bars
+    it breaks (a planted fault must break one; a sound run none)."""
+    from flexflow_torch.parallel.strategy import ParallelConfig
+
+    stats, _ = refs[run["base"]]
+    want = stats["step_losses"]
+    bar = TOL_MESH_SEQ_F32 if run.get("f32") else TOL_MESH_SEQ_LOSS
+    gap = max(_seq_gap(r["losses"], want) for r in res)
+    broken = [n for n, on in (
+        ("loss", gap > bar),
+        ("distance", max(r.get("distance", 0.0) for r in res)
+         > TOL_MESH_SEQ_DIST),
+        ("ranks disagree", any(r["digest"] != res[0]["digest"]
+                               for r in res)),
+        ("drops", any(r["dropped"][:1] != stats["drops"][:1]
+                      for r in res))) if on]
+    if run.get("fault"):
+        return broken
+    backend = "nccl" if cards >= 4 else "gloo"
+    for r in res:
+        _check(r["code"] == 0 and r["backend"] == backend
+               and not r["jax_imported"],
+               f"mesh-seq {run['name']} rank {r['rank']}: exit {r['code']}, "
+               f"backend {r['backend']}, jax {r['jax_imported']}")
+    if run["app"] != "transformer":
+        # NMT: K3 once a step each way, K4 and K5 once a word embedding a
+        # step (the row-sparse path); Candle-Uno launches no kernel.
+        steps = 1 + MESH_SEQ[run["app"].split("_")[0]]["iters"]
+        want_counts = dict(softmax_xent=steps, softmax_xent_bwd=steps,
+                           gather_rows=2 * steps,
+                           scatter_add_rows=2 * steps) \
+            if run["app"] == "nmt" else {}
+        for r in res:
+            _check(r["counts"] == want_counts,
+                   f"mesh-seq {run['name']} rank {r['rank']}: launches "
+                   f"{r['counts']}, expected {want_counts}")
+        return broken
+    # Launches: K1f and K1b once a layer a step for each chunk a rank
+    # attends (its own and every earlier rank's under the causal mask),
+    # K3 once a step each way; the shapes at the rank's block.
+    c = MESH_SEQ["moe" if "moe" in run["name"] else run["base"]]
+    steps, L = 1 + c["iters"], c["layers"]
+    dp, sp = run["dp"], run["sp"]
+    s_axes = plan.assign(ParallelConfig(n=dp, s=sp))["s"]
+    hd = c["d_model"] // c["heads"]
+    fwd, bwd = (("flash_attention_lse_streamed",
+                 "flash_attention_lse_streamed_bwd") if run.get("streamed")
+                else ("flash_attention_lse", "flash_attention_lse_bwd"))
+    for r in res:
+        chunks = 1 + plan.block_index(s_axes, r["rank"])
+        want_counts = {fwd: L * steps * chunks, bwd: L * steps * chunks,
+                       "softmax_xent": steps, "softmax_xent_bwd": steps}
+        _check(r["counts"] == want_counts,
+               f"mesh-seq {run['name']} rank {r['rank']}: launches "
+               f"{r['counts']}, expected {want_counts}")
+        rows = c["batch"] // dp * c["seq"] // sp
+        want_shapes = {"flash_attention_lse_auto": [(
+            c["batch"] // dp, c["heads"], c["seq"] // sp, hd)],
+            "softmax_xent": [(rows, c["vocab"])]}
+        _check(r["shapes"] == want_shapes,
+               f"mesh-seq {run['name']} rank {r['rank']}: shapes "
+               f"{r['shapes']}, expected {want_shapes}")
+    return broken
+
+
+def _ring_kernel_rows(torch, kernels, F, shapes) -> dict:
+    """(g): K1f causal and not, and K1b with a nonzero lse cotangent,
+    causal and not, at each local shape the ring ran (bf16; f32 for the
+    f32 arm's), held against the plain versions and timed beside them,
+    SDPA and the bound.  Returns ``{"flash_attention_lse": [...],
+    "flash_attention_lse_bwd": [...]}``, a row a shape and mask."""
+    rows = {"flash_attention_lse": [], "flash_attention_lse_bwd": []}
+    for shape, dtype in shapes:
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device="cuda").manual_seed(30)
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                       for _ in range(4))
+        g_lse = torch.randn(shape[:3], generator=g, device="cuda")
+        b, h, t, hd = shape
+        for causal in (True, False):
+            held = mesh_attention_hold(torch, kernels, shape, causal, dtype)
+            o, lse = kernels.flash_attention_lse(q, k, v, causal)
+            pairs = t * (t + 1) // 2 if causal else t * t
+            fwd = dict(shape=list(shape), dtype=dtype, causal=causal,
+                       held=held["k1f"],
+                       ms=_device_ms(lambda: kernels.flash_attention_lse(
+                           q, k, v, causal)),
+                       plain_ms=_device_ms(
+                           lambda: kernels.flash_attention_lse_plain(
+                               q, k, v, causal), 5),
+                       library_ms=_device_ms(
+                           lambda: F.scaled_dot_product_attention(
+                               q, k, v, is_causal=causal)))
+            fwd.update(zip(("bound_ms", "bound_by"), _bound_ms(
+                4 * b * h * t * hd * q.element_size() + b * h * t * 4,
+                4 * b * h * hd * pairs, dtype)))
+            qs, ks, vs = (x.detach().clone().requires_grad_(True)
+                          for x in (q, k, v))
+            ref = F.scaled_dot_product_attention(qs, ks, vs,
+                                                 is_causal=causal)
+            bwd = dict(shape=list(shape), dtype=dtype, causal=causal,
+                       held=held["k1b"],
+                       ms=_device_ms(lambda: kernels.flash_attention_lse_bwd(
+                           q, k, v, o, lse, do, g_lse, causal)),
+                       plain_ms=_device_ms(
+                           lambda: kernels.flash_attention_lse_bwd_plain(
+                               q, k, v, o, lse, do, g_lse, causal), 5),
+                       library_ms=_device_ms(lambda: torch.autograd.grad(
+                           ref, (qs, ks, vs), do, retain_graph=True)))
+            bwd.update(zip(("bound_ms", "bound_by"), _bound_ms(
+                8 * b * h * t * hd * q.element_size() + 2 * b * h * t * 4,
+                10 * b * h * hd * pairs, dtype)))
+            rows["flash_attention_lse"].append(fwd)
+            rows["flash_attention_lse_bwd"].append(bwd)
+            for name, r in (("K1f", fwd), ("K1b", bwd)):
+                print(f"[mesh-seq] (g) {name} {tuple(shape)} {dtype} "
+                      f"{'causal' if causal else 'non-causal'}"
+                      f"{' (g_lse != 0)' if name == 'K1b' else ''}: held "
+                      f"{r['held']:.3g} of the element bar, {r['ms']:.4f} ms "
+                      f"(plain {r['plain_ms']:.4f}, SDPA "
+                      f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} by "
+                      f"{r['bound_by']})")
+            del ref, qs, ks, vs, o, lse
+        del q, k, v, do, g_lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_mesh_seq(torch, kernels, F):
+    """Phase 30 (module docstring).  Returns ``(rows, launches)``: K1f's
+    and K1b's rows at the ring's local shapes and ``{path: launches
+    summed over the ranks}``."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    from flexflow_torch.parallel import launch
+    from flexflow_torch.parallel.mesh import build_mesh_plan
+
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 4 else "gloo"
+    card = _card().splitlines()[0]
+    tmp = tempfile.mkdtemp(prefix="ff_mesh_seq_")
+    t = [time.perf_counter()]
+    try:
+        refs, paths = _seq_refs(torch, tmp, cards)
+        torch.cuda.empty_cache()
+        t.append(time.perf_counter())
+        # (a) the f32 arm's app on a world of 1: the one-rank run's losses
+        # and parameters bit for bit.
+        one, = launch.run("flexflow_torch.tools.mesh_smoke:seq_app",
+                          ([dict(name="one", app="transformer",
+                                 argv=_seq_argv(MESH_SEQ["f32"],
+                                                "float32"))], paths),
+                          nprocs=1, device="cuda", timeout_s=600)
+        one = one[0]
+        want = refs["f32"][0]
+        _check(one["code"] == 0 and one["losses"] == want["step_losses"]
+               and one["digest"] == want["digest"],
+               f"mesh-seq (a): a world of 1 differs from one rank: losses "
+               f"{one['losses']} vs {want['step_losses']}")
+        print(f"[mesh-seq] (a) the f32 arm on a world of 1 "
+              f"({one['backend']}): losses {one['losses']} and all "
+              f"{len(one['digest'])} parameters bit for bit one rank's")
+        t.append(time.perf_counter())
+        runs = _seq_runs(cards)
+        for run in runs:
+            for key, fn in (("nmt", "nmt_strategy"),
+                            ("candle", "candle_uno_strategy")):
+                if run.get(key):
+                    from flexflow_torch.models import candle_uno, nmt
+
+                    mod = nmt if key == "nmt" else candle_uno
+                    table = getattr(mod, fn)(run[key])
+                    path = os.path.join(tmp, f"{run['name']}.json")
+                    with open(path, "w") as f:
+                        json.dump({"version": 1, "num_devices": 4,
+                                   "ops": {k: v.to_json() for k, v in
+                                           table.table.items()}}, f)
+                    run["argv"] = list(run["argv"]) + ["-s", path]
+        ranks = launch.run("flexflow_torch.tools.mesh_smoke:seq_app",
+                           (runs, paths), nprocs=4, device="cuda",
+                           backend=None if cards >= 4 else "gloo",
+                           timeout_s=900)
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    plan = build_mesh_plan(4)
+    launches, shapes = {}, set()
+    for i, run in enumerate(runs):
+        res = [r[i] for r in ranks]
+        broken = _seq_held(run, res, refs, plan, cards)
+        gap = max(_seq_gap(r["losses"], refs[run["base"]][0]["step_losses"])
+                  for r in res)
+        dist_ = max(r.get("distance", 0.0) for r in res)
+        if run.get("fault"):
+            _check(bool(broken), f"mesh-seq {run['name']}: the planted fault "
+                   f"breaks no bar (loss gap {gap:.3g}, distance {dist_:.3g})")
+            print(f"[mesh-seq] (f) {run['name']}: caught by "
+                  f"{', '.join(broken)} (loss gap {gap:.3g}, distance "
+                  f"{dist_:.3g})")
+            continue
+        _check(not broken, f"mesh-seq {run['name']} ({backend}): "
+               f"{', '.join(broken)}: losses {[r['losses'] for r in res]} "
+               f"vs one rank {refs[run['base']][0]['step_losses']}, "
+               f"distance {dist_:.3g}, drops "
+               f"{[r['dropped'] for r in res]}")
+        path = launches.setdefault(f"mesh_seq_{run['name']}", {})
+        for r in res:
+            for k, n in r["counts"].items():
+                path[k] = path.get(k, 0) + n
+            for shape in r["shapes"].get("flash_attention_lse_auto", []):
+                if run.get("sp", 1) > 1:
+                    shapes.add((tuple(shape),
+                                "float32" if run.get("f32") else "bfloat16"))
+        steps = ", ".join(
+            f"r{r['rank']} {r['ms_step']:.1f}" + (
+                f" (one step {r['one_step_ms']:.1f}: collectives "
+                f"{r['comm_ms']:.1f}: " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in sorted(r["comm_by"].items()))
+                + ")" if "one_step_ms" in r else "")
+            for r in res)
+        drops = ""
+        if res[0]["dropped"] and res[0]["dropped"][0]:
+            want = refs[run["base"]][0]["drops"]
+            drops = (f", drops a step (first layer) "
+                     f"{[next(iter(d.values())) for d in res[0]['dropped']]}"
+                     f" vs one rank {[next(iter(d.values())) for d in want]}")
+        print(f"[mesh-seq] {run['name']} ({backend}, {card}): loss gap "
+              f"{gap:.3g}, distance {dist_:.3g}{drops}, launches of rank 0 "
+              f"{res[0]['counts'] or '-'}, K1f by rank "
+              f"{[sum(n for k, n in r['counts'].items() if k.startswith('flash_attention_lse') and not k.endswith('bwd')) for r in res]}"
+              f", peak GB {max(r['peak_gb'] for r in res):.2f}; ms a step "
+              f"{steps}")
+    rows = _ring_kernel_rows(torch, kernels, F, sorted(shapes))
+    t.append(time.perf_counter())
+    print("[mesh-seq] " + ", ".join(
+        f"{n} {b - a:.1f} s" for n, a, b in zip(
+            ("one-rank references", "the world of 1",
+             f"the world of 4 ({len(runs)} runs)", "(g)"), t, t[1:])))
+    return rows, launches
+
+
 def _card() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
@@ -7344,13 +7794,15 @@ def main() -> int:
     t.append(time.perf_counter())
     serve_mesh_rows, serve_mesh_launches = phase_mesh_serve(torch, kernels, F)
     t.append(time.perf_counter())
+    seq_rows, seq_launches = phase_mesh_seq(torch, kernels, F)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
              "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
              "longctx-parity", "probe-kernels", "alexnet-kernels",
              "alexnet-train", "alexnet-parity", "superstep", "serve-features",
              "serve-resilience", "nmt", "item5", "item7", "serve-sched",
-             "fleet", "mesh", "mesh-dlrm", "mesh-serve")
+             "fleet", "mesh", "mesh-dlrm", "mesh-serve", "mesh-seq")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -7403,7 +7855,9 @@ def main() -> int:
                    **{path: counts.get(name, 0)
                       for path, counts in dlrm_mesh_launches.items()},
                    **{path: counts.get(name, 0)
-                      for path, counts in serve_mesh_launches.items()}}
+                      for path, counts in serve_mesh_launches.items()},
+                   **{path: counts.get(name, 0)
+                      for path, counts in seq_launches.items()}}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])
@@ -7413,6 +7867,8 @@ def main() -> int:
             entry["mesh_dlrm_shape"] = dlrm_mesh_rows[name]
         if name in serve_mesh_rows:
             entry["mesh_serve_shapes"] = serve_mesh_rows[name]
+        if name in seq_rows:
+            entry["mesh_seq_shapes"] = seq_rows[name]
         if name == "flash_attention_lse":
             entry["train_shape"] = rows["flash_attention_lse@train"]
             entry["longctx_shape"] = rows["flash_attention_lse@8k"]

@@ -14,8 +14,10 @@ feature tower's).  ``--steps-per-call``, ``--accum-steps``, ``--remat``,
 the checkpoint flags, ``--resilient``, ``--telemetry``, ``--trace`` and
 ``--profiling`` work as on the other apps.  Refused until their slices
 land (ROADMAP.md queue 1): ``-d`` (one CSV per input, ``data/csv.py``,
-item 12), ``candle_uno_strategy``'s table over more than one rank (item
-9d; ``-ll:gpu N`` trains data-parallel), ``-s auto`` and ``--search`` (item 11), ``--elastic`` (item 13).
+item 12), ``-s auto`` and ``--search`` (item 11), ``--elastic`` (item
+13).  Under ``-ll:gpu N`` each rank trains its blocks under
+``candle_uno_strategy(N)``'s table (or ``-s FILE``'s), as JAX's app
+does: the towers data-parallel, the trunk ``n x c``.
 
 Example (``bench.py``'s Candle-Uno leg)::
 
@@ -34,8 +36,13 @@ from flexflow_torch.apps.common import (
     pop_str,
     run_training,
     spawn_ranks,
+    world_ranks,
 )
-from flexflow_torch.models.candle_uno import CandleConfig, build_candle_uno
+from flexflow_torch.models.candle_uno import (
+    CandleConfig,
+    build_candle_uno,
+    candle_uno_strategy,
+)
 
 
 def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
@@ -57,7 +64,8 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
         return code
     ff = build_candle_uno(batch_size=cfg.batch_size, candle=candle,
                           config=cfg)
-    stats = run_training(ff, cfg, device=device)
+    stats = run_training(ff, cfg, device=device, strategy=candle_uno_strategy(
+        world_ranks(cfg, device), candle))
     if stats_out is not None:
         stats_out.update(stats)
     return 0

@@ -154,7 +154,7 @@ def world_ranks(cfg: FFConfig, device="cuda") -> int:
     ``N`` above the visible cards raises: two ranks never share a card.
     Inside a world, the world's size.  Under more than one rank, the
     training features this slice does not make rank-aware are refused by
-    name (ROADMAP.md item 9d)."""
+    name (ROADMAP.md item 9e)."""
     import torch
 
     from flexflow_torch.parallel import launch
@@ -182,7 +182,7 @@ def world_ranks(cfg: FFConfig, device="cuda") -> int:
         ("--profiling", cfg.profiling)) if on]
     if wide:
         raise SystemExit(f"-ll:gpu {n}: {', '.join(wide)} under more than "
-                         f"one rank is ROADMAP.md queue 1, item 9d")
+                         f"one rank is ROADMAP.md queue 1, item 9e")
     return n
 
 

@@ -13,13 +13,15 @@ the environment, the streamed K1s and K1sb) and the fused cross-entropy
 Flags beyond the common set: ``--seq --vocab --d-model --heads
 --layers`` and ``--experts N`` (every block's MLP a switch-style
 mixture-of-experts FFN of N experts, top-1, capacity factor 1.25,
-``ops/moe.py``), ``--dp N`` and ``--tp N`` (``transformer_strategy``'s
-table over ``-ll:gpu`` ranks: ``dp`` splits the batch of every op, ``tp``
-the MLPs' up projection and ``lm_head``; each rank runs K1f, K1b and K3
-on its own rows).  The common set includes ``--steps-per-call K`` (K
-steps as one CUDA graph), ``--accum-steps N``, ``--remat`` and
-``--zero-opt``.  ``--sp`` above 1 (ring attention) and ``--experts``
-over more than one rank are ROADMAP.md queue 1, item 9d.
+``ops/moe.py``), ``--dp N``, ``--sp N`` and ``--tp N``
+(``transformer_strategy``'s table over ``-ll:gpu`` ranks: ``dp`` splits
+the batch of every op, ``sp`` the sequence of the token ops and of
+attention, which then runs as a ring (each rank launches K1f and K1b on
+its chunk against its own and every earlier rank's), ``tp`` the MLPs' up
+projection and ``lm_head``, and with ``--experts`` the experts of every
+MoE op; each rank runs K1f, K1b and K3 on its own rows).  The common set
+includes ``--steps-per-call K`` (K steps as one CUDA graph),
+``--accum-steps N``, ``--remat`` and ``--zero-opt``.
 
 Example (the shape ``bench.py`` trains the LM at)::
 
@@ -32,6 +34,12 @@ Data parallelism over two cards (each rank at batch 8)::
     python -m flexflow_torch.apps.transformer -ll:gpu 2 --dp 2 -b 16 \\
         --seq 2048 --layers 6 --vocab 32768 --d-model 512 --heads 8 \\
         --optimizer adam --lr 1e-4 --dtype bfloat16 -i 5
+
+Ring attention over four cards (each rank a 2048-token chunk)::
+
+    python -m flexflow_torch.apps.transformer -ll:gpu 4 --sp 4 -b 4 \\
+        --seq 8192 --layers 6 --vocab 32768 --d-model 512 --heads 8 \\
+        --optimizer adam --lr 1e-4 --dtype bfloat16 -i 2
 
 Long context (``bench.py``'s 8k leg; its 32k leg is ``-b 1 --seq 32768
 -i 3``) on the streamed kernels::
@@ -74,10 +82,6 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     layers = pop_int(argv, "--layers", 4)
     parallel = {f: pop_int(argv, f, 1) for f in ("--dp", "--sp", "--tp")}
     experts = pop_int(argv, "--experts", 0)
-    if parallel["--sp"] > 1:
-        raise SystemExit(f"flexflow_torch transformer does not support --sp "
-                         f"{parallel['--sp']} yet: ring attention is "
-                         f"ROADMAP.md queue 1, item 9d")
     cfg = parse_training_args(argv)
     code = spawn_ranks(cfg, "flexflow_torch.apps.transformer:main", full_argv,
                        device, stats_out)
@@ -86,8 +90,8 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     ranks = world_ranks(cfg, device)
     try:
         strategy = transformer_strategy(
-            ranks, layers, dp=parallel["--dp"], tp=parallel["--tp"],
-            moe=experts > 0)
+            ranks, layers, dp=parallel["--dp"], sp=parallel["--sp"],
+            tp=parallel["--tp"], moe=experts > 0)
         ff = build_transformer_lm(
             batch_size=cfg.batch_size, seq_len=seq, vocab_size=vocab,
             d_model=d_model, num_heads=heads, num_layers=layers,

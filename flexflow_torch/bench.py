@@ -386,7 +386,7 @@ def bench_serving(device="cuda", vocab: int = 32768, d_model: int = 512,
     out["sharded_mesh"] = sstats["shard"]
     out["sharded_tokens_per_s"] = round(sstats["tokens_per_s"], 1)
     out["sharded_vs_single_mesh_tokens_per_s"] = round(
-        sstats["tokens_per_s"] / max(out["k8_tokens_per_s"], 1e-9), 3)
+        out["sharded_tokens_per_s"] / max(out["k8_tokens_per_s"], 1e-9), 3)
 
     plain_res, _ = measured(sex, decode_steps=8)
     spec_res, spec_stats = measured(sex, decode_steps=8, speculate=speculate)

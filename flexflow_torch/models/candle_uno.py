@@ -8,8 +8,8 @@ fingerprints); each cell/drug input passes through its own feature tower
 concatenated, then a dense trunk (``dense_layers``, 3 x 1000) and a
 1-unit head into a mean MSE loss (``candle_uno.cc:82-112``).  The same
 op names and shapes as the JAX package.  ``candle_uno_strategy`` is the
-JAX function's table on one device (every degree 1); more devices are
-ROADMAP.md queue 1, item 9d (the app trains data-parallel by default).
+JAX function's table: the feature towers data-parallel, the trunk's
+dense layers the ``n x c`` hybrid.
 """
 
 from __future__ import annotations
@@ -105,18 +105,18 @@ def candle_uno_strategy(
     candle: Optional[CandleConfig] = None,
     tp: Optional[int] = None,
 ) -> StrategyStore:
-    """The JAX function's table (the trunk's dense layers ``n x c``
-    hybrid, the towers data-parallel) for one device: ``n = 1, c = 1``
-    on every trunk layer.  More devices are ROADMAP.md queue 1, item 9d."""
+    """The JAX function's table (``flexflow_tpu/models/candle_uno.py:
+    99-120``): every trunk dense layer at ``n = num_devices / tp, c =
+    tp`` (``tp`` 2 on an even count of devices above one, else 1), the
+    feature towers data-parallel (not in the table)."""
     candle = candle or CandleConfig()
     if tp is None:
         tp = 2 if num_devices % 2 == 0 and num_devices > 1 else 1
-    if num_devices != 1 or tp != 1:
-        raise ValueError(
-            f"candle_uno_strategy({num_devices}, tp={tp}): the port places "
-            f"Candle-Uno on one device; multi-device strategies are "
-            f"ROADMAP.md queue 1, item 9d")
-    store = StrategyStore(1)
+    if num_devices % tp:
+        raise ValueError(f"candle_uno_strategy({num_devices}, tp={tp}): tp "
+                         f"must divide the devices")
+    store = StrategyStore(num_devices)
     for j in range(len(candle.dense_layers)):
-        store.table[f"trunk_dense{j}"] = ParallelConfig(n=1, c=1)
+        store.set(f"trunk_dense{j}",
+                  ParallelConfig(n=num_devices // tp, c=tp))
     return store

@@ -8,9 +8,12 @@ stacked layers (cuDNN RNN semantics, rate 0.2 in the reference,
 seed the decoder's layer of the same index; a vocabulary projection and
 the fused softmax cross-entropy (K3 on the card) close the graph.
 
-``nmt_strategy`` is the reference's placement on one device (every
-degree 1); more devices wait for ROADMAP.md queue 1 item 9d, and the
-layer-wise ``nmt_pipeline_strategy`` for item 10.
+``nmt_strategy`` is the JAX function's table: the LSTMs and the
+dropouts between them over (batch, sequence chunk) at ``(n=dp, s=sp)``
+(the sequence pipeline of ``ops/rnn.py``), the vocabulary projection
+tensor-parallel over the vocabulary at ``(n=dp, c=sp)``, the loss over
+``n = dp x sp`` rows.  The layer-wise ``nmt_pipeline_strategy`` waits
+for ROADMAP.md queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -67,24 +70,32 @@ def build_nmt(
 def nmt_strategy(num_devices: int = 1, dp: Optional[int] = None,
                  sp: Optional[int] = None,
                  num_layers: int = 2) -> StrategyStore:
-    """The reference's placement (``nmt.cc:269-308``) on one device:
-    every op at degree 1, the table the JAX function gives for one
-    device.  More devices (the LSTMs over batch and sequence chunks,
-    the projection over the vocabulary) are ROADMAP.md queue 1 item 9d."""
-    if num_devices != 1 or (dp or 1) != 1 or (sp or 1) != 1:
-        raise ValueError(
-            f"nmt_strategy({num_devices}, dp={dp}, sp={sp}): the port places "
-            f"NMT on one device; multi-device strategies are ROADMAP.md "
-            f"queue 1 item 9d")
-    store = StrategyStore(1)
-    one = ParallelConfig()
+    """The reference's GlobalConfig placement (``nmt.cc:269-308``) as the
+    JAX function gives it (``flexflow_tpu/models/nmt.py:72-100``): with
+    neither degree given, ``sp`` doubles while ``dp`` halves and stays
+    above it (2 devices: dp 1 x sp 2; 4: 2 x 2; 8: 2 x 4)."""
+    if dp is None and sp is None:
+        sp, dp = 1, num_devices
+        while dp > sp and dp % 2 == 0:
+            dp //= 2
+            sp *= 2
+    elif dp is None:
+        dp = max(1, num_devices // sp)
+    elif sp is None:
+        sp = max(1, num_devices // dp)
+    if dp * sp > num_devices:
+        raise ValueError(f"nmt_strategy({num_devices}, dp={dp}, sp={sp}): "
+                         f"{dp * sp} parts on {num_devices} devices")
+    store = StrategyStore(num_devices)
     for side in ("enc", "dec"):
         for i in range(num_layers):
-            store.table[f"{side}_lstm{i}"] = one
+            store.set(f"{side}_lstm{i}", ParallelConfig(n=dp, s=sp))
             if i < num_layers - 1:
-                store.table[f"{side}_drop{i}"] = one
-    store.table["vocab_proj"] = one
-    store.table["softmax"] = one
+                # The dropout between stacked layers keeps the LSTMs'
+                # placement: no reshard between them.
+                store.set(f"{side}_drop{i}", ParallelConfig(n=dp, s=sp))
+    store.set("vocab_proj", ParallelConfig(n=dp, c=sp))
+    store.set("softmax", ParallelConfig(n=dp * sp))
     return store
 
 

@@ -5,10 +5,10 @@ Pre-LN GPT-style blocks, with the same op names (``embed``, ``pos``,
 ``blk{i}_*``, ``ln_f``, ``lm_head``, ``softmax``) and parameter shapes as
 the JAX package.  ``moe_experts > 0`` swaps every block's dense MLP for
 a mixture-of-experts FFN (``ops/moe.py``, ``blk{i}_moe``).
-``transformer_strategy`` is the JAX function's table: data parallelism
-on the token ops, ``dp x tp`` on the MLPs' up projection and ``lm_head``.
-Sequence parallelism (``sp > 1``, ring attention) and the experts split
-over devices are ROADMAP.md queue 1, item 9d.
+``transformer_strategy`` is the JAX function's table: ``dp x sp`` on the
+token ops and attention (``sp``: the sequence split, ring attention),
+``dp x tp`` on the MLPs' up projection and ``lm_head``, and with
+``moe`` on each block's MoE op, whose ``c`` splits the experts.
 """
 
 from __future__ import annotations
@@ -69,18 +69,12 @@ def transformer_strategy(num_devices: int = 1, num_layers: int = 6,
     65-97``): attention and the token-level ops get ``(n=dp, s=sp)``, the
     MLPs' up projection and ``lm_head`` ``(n=dp, c=tp)``, the down
     projection ``(n=dp, s=sp)``; with ``moe`` each block's MoE op gets
-    ``(n=dp, c=tp)``."""
-    if sp > 1:
-        raise ValueError(f"transformer_strategy(sp={sp}): ring attention is "
-                         f"ROADMAP.md queue 1, item 9d")
-    if moe and (num_devices > 1 or tp > 1):
-        raise ValueError(f"transformer_strategy(moe=True, tp={tp}) on "
-                         f"{num_devices} devices: expert-parallel MoE is "
-                         f"ROADMAP.md queue 1, item 9d")
-    if dp * tp > num_devices:
+    ``(n=dp, c=tp)``, ``c`` splitting its experts."""
+    if dp * sp > num_devices or dp * tp > num_devices:
+        need = dp * max(sp, tp)
         raise ValueError(f"transformer_strategy({num_devices}, dp={dp}, "
-                         f"tp={tp}): {dp * tp} parts on {num_devices} "
-                         f"devices (-ll:gpu {dp * tp})")
+                         f"sp={sp}, tp={tp}): {need} parts on {num_devices} "
+                         f"devices (-ll:gpu {need})")
     store = StrategyStore(num_devices)
     seq_pc = ParallelConfig(n=dp, s=sp)
     tp_pc = ParallelConfig(n=dp, c=tp)

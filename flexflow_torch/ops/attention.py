@@ -1,5 +1,4 @@
-"""Attention operators: the port of ``flexflow_tpu/ops/attention.py``
-(its ring path aside).
+"""Attention operators: the port of ``flexflow_tpu/ops/attention.py``.
 
 ``LayerNorm``, ``PositionEmbedding`` and ``MultiHeadAttention`` with its
 dense forward and the padded KV-cache protocol (prefill and decode).
@@ -27,8 +26,28 @@ K1b, on the rank's local ``(b/n, h/c, t, hd)`` heads, as JAX's
 enters through ``copy_to`` and the row-parallel output is all-reduced
 over ``c``.  Where the heads do not split over ``c`` the op gathers its
 projections and runs every head on each rank, as JAX returns to the
-unsharded route.  ``s > 1`` (ring attention) is ROADMAP.md item 9d.
-``LayerNorm`` reads its feature dim whole and stays local.
+unsharded route.  ``LayerNorm`` reads its feature dim whole and stays
+local.
+
+Under an ``s`` degree each rank holds a contiguous ``t/S`` chunk of the
+sequence and attention runs as a ring (JAX's ``_attend_ring``,
+``attention.py:532-629``), on the rank's ``h/c`` heads when ``c`` splits
+them too.  Step ``j`` attends the rank's queries to the K/V chunk of rank
+``(s_idx - j) mod S``, which the stacked K/V reach through ``j`` cyclic
+shifts (``collectives.shift``).  The flash route runs each chunk through
+the dispatcher (K1f forward, K1b backward on the card) and merges the
+``(o, lse)`` partials in f32 (``kernels.merge_lse``), so K1b sees the
+merge's nonzero lse cotangent; where the dispatcher takes no shape, the
+einsum route accumulates every chunk in f32 (``_streaming_attention_block``).
+Causality is exact at the level of chunks (``_chunk_visible``): the
+rank's own chunk under the kernel's causal mask, the chunks of earlier
+ranks whole (``causal=False``), later ones skipped, which launches
+nothing and adds exactly what JAX's ``(0, lse = -1e30)`` partial adds.
+The shifts run on every rank whatever it attends, the backward's reverse
+shifts too: the last rotation, which only the last rank reads under the
+causal mask, is anchored into the output elsewhere (``collectives.anchor``).
+Under the causal mask rank ``s_idx`` launches ``1 + s_idx`` kernels a
+layer.
 
 The KV-cache protocol runs on a rank's share too, bound by the serving
 shard (``runtime/serving.py``, ``ServingExecutor(shard=(n, c))``): the
@@ -87,6 +106,37 @@ def _einsum_attention(q, k, v, causal: bool):
         scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
     attn = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", attn, v).to(dtype)
+
+
+def _streaming_attention_block(q, k, v, scores_mask, m, denom, acc):
+    """One flash accumulation step in f32 (JAX's function of the same
+    name): ``q`` ``(b, h, tq, hd)``, ``k``/``v`` ``(b, h, tk, hd)``,
+    ``scores_mask`` ``(tq, tk)`` bool (True attends) or None, ``m`` and
+    ``denom`` ``(b, h, tq)``, ``acc`` ``(b, h, tq, hd)``."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if scores_mask is not None:
+        scores = torch.where(scores_mask, scores,
+                             torch.full_like(scores, _NEG_INF))
+    m_new = torch.maximum(m, scores.amax(dim=-1))
+    p = torch.exp(scores - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, v)
+    denom = denom * corr + p.sum(dim=-1)
+    return m_new, denom, acc
+
+
+def _chunk_visible(j: int, s_idx: int, size: int, causal: bool) -> bool:
+    """Whether ring step ``j``'s chunk (the K/V of rank ``(s_idx - j) mod
+    size``) reaches rank ``s_idx``'s queries: every chunk without the
+    causal mask; under it the rank's own and those of earlier ranks."""
+    return not causal or j == 0 or (s_idx - j) % size < s_idx
+
+
+def _rotate(kv, world, axes):
+    """The ring's step: the stacked K/V from the predecessor along
+    ``axes``."""
+    return collectives.shift(kv, world, axes, cyclic=True)
 
 
 class LayerNorm(Op):
@@ -280,8 +330,59 @@ class MultiHeadAttention(Op):
             params, x, c = self._mesh_params(params, x)
         q, k, v = self._project(params, x)
         heads = self.attrs["num_heads"] // (self._plan.size(c) if c else 1)
-        y = self._attend_dense(q, k, v, x.dtype, heads)
+        s = self.input_spec(0, None)[1] if self._world is not None else ()
+        if s and self._plan.size(s) > 1:
+            y = self._attend_ring(q, k, v, x.dtype, heads, s)
+        else:
+            y = self._attend_dense(q, k, v, x.dtype, heads)
         return [self._row_parallel_out(params, y, c)], state
+
+    def _attend_ring(self, q, k, v, dtype, heads, s):
+        """Ring attention over the ``s`` axes on this rank's ``heads``
+        (module docstring): the flash route, or the einsum route where
+        the dispatcher takes no shape."""
+        world, size = self._world, self._plan.size(s)
+        s_idx = world.index(s)
+        causal = self.attrs["causal"]
+        qh, kh, vh = (self._split_heads(x, heads) for x in (q, k, v))
+        own = kernels.flash_attention_lse_auto(qh, kh, vh, causal)
+        if own is None:
+            return self._ring_einsum(qh, kh, vh, dtype, s, s_idx, size)
+        o, lse = own
+        o = o.float()
+        kv = torch.stack([kh, vh])
+        for j in range(1, size):
+            kv = _rotate(kv, world, s)
+            if not _chunk_visible(j, s_idx, size, causal):
+                if j == size - 1:
+                    o = collectives.anchor(o, kv)
+                continue
+            res = kernels.flash_attention_lse_auto(qh, kv[0], kv[1], False)
+            o, lse = kernels.merge_lse(o, lse, res[0].float(), res[1])
+        return self._merge_heads(o, dtype)
+
+    def _ring_einsum(self, qh, kh, vh, dtype, s, s_idx, size):
+        """The ring's einsum route: every chunk accumulated in f32."""
+        causal = self.attrs["causal"]
+        q, k, v = qh.float(), kh.float(), vh.float()
+        b, h, t, _ = q.shape
+        m = q.new_full((b, h, t), _NEG_INF)
+        denom = q.new_zeros((b, h, t))
+        acc = torch.zeros_like(q)
+        mask = torch.ones((t, t), dtype=torch.bool,
+                          device=q.device).tril() if causal else None
+        m, denom, acc = _streaming_attention_block(q, k, v, mask, m, denom,
+                                                   acc)
+        kv = torch.stack([k, v])
+        for j in range(1, size):
+            kv = _rotate(kv, self._world, s)
+            if not _chunk_visible(j, s_idx, size, causal):
+                if j == size - 1:
+                    acc = collectives.anchor(acc, kv)
+                continue
+            m, denom, acc = _streaming_attention_block(q, kv[0], kv[1], None,
+                                                       m, denom, acc)
+        return self._merge_heads(acc / denom[..., None], dtype)
 
     def _row_parallel_out(self, params, y, c):
         """The output projection of the rank's heads: their rows of ``wo``,

@@ -16,7 +16,6 @@ then computes on its local blocks, issuing its own collectives where its
 work needs them (``parallel/collectives.py``).  By default an op takes
 and gives every tensor in the spec of its own tags, which is right for
 elementwise work; ops whose work reads a whole dim override the specs.
-An op that sets ``mesh_refusal`` raises under more than one rank.
 """
 
 from __future__ import annotations
@@ -72,9 +71,6 @@ class Op:
     #: worth recomputing opts back in with True.
     allow_remat = False
 
-    #: Set to the ROADMAP.md item that brings this op to a mesh of more
-    #: than one rank; the executor raises naming it.
-    mesh_refusal: Optional[str] = None
     #: The binding of ``bind_mesh`` (None until the executor binds).
     _plan = _pc = _world = None
 

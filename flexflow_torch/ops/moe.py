@@ -21,6 +21,25 @@ by its gates rounded to the compute dtype (the JAX op's
 dispatch is exact and the combine sums the same ``k`` terms.  Nothing
 reads a device value on the host, so a step with this op can be
 captured as a CUDA graph.
+
+Under a mesh the ``c`` degree splits the expert dim of ``w1``, ``b1``,
+``w2`` and ``b2`` and ``n`` the tokens; the op reads its input whole
+along the sequence.  The routing keeps JAX's global semantics, since
+JAX's forward sees the whole batch (``moe.py:135-207``): each rank
+routes its own tokens, and one all-gather over ``n`` of the per-choice
+expert counts (exact integers in f32, ``_global_counts``) gives the
+capacity of the global token count, each queue's offset from the tokens
+of earlier ``n`` ranks and earlier choices (slot-major over the global
+batch), the aux loss's ``load`` and the drops.  Each rank fills the
+slots of its ``E/c`` experts with its tokens; the slots are summed over
+``n`` and each ``n`` rank keeps its ``C/n`` of them
+(``collectives.reduce_scatter``: every slot holds one token, so the sum
+is exact), runs the two products on them, and the products are
+all-gathered back over ``n``.  Each rank combines the terms of its
+experts and the partial outputs are summed over ``c``.  The router's
+inputs are replicated over ``c`` and the dispatch and the combine split
+over it, so ``x`` and the gates enter them through ``copy_to``; the
+aux loss's ``importance`` is all-reduced over ``n``.
 """
 
 from __future__ import annotations
@@ -32,6 +51,7 @@ import torch
 from flexflow_torch.initializers import GlorotUniform, ZeroInitializer
 from flexflow_torch.ops.activations import apply_activation, check_activation
 from flexflow_torch.ops.base import Op, ParamSpec, TensorSpec
+from flexflow_torch.parallel import collectives
 
 
 def top_k_lowest_index(probs: torch.Tensor, k: int):
@@ -56,8 +76,6 @@ class MixtureOfExperts(Op):
     its forward returns the weighted aux loss (zero in eval), the
     metrics ``{name}_aux_loss`` and ``{name}_dropped`` and the FFN's
     output."""
-
-    mesh_refusal = "expert-parallel MoE, ROADMAP.md queue 1, item 9d"
 
     is_loss = True
     #: The heaviest op of its block; its loss is a scalar byproduct, so
@@ -132,13 +150,30 @@ class MixtureOfExperts(Op):
             "b2": ParamSpec((e, d), dt, ZeroInitializer(), ("c", None)),
         }
 
+    def input_spec(self, i, frm):
+        x = self.inputs[0]
+        return self._spec((x.dim_axes[0], None, None), x.shape)
+
+    def output_spec(self, j):
+        return self.input_spec(0, None)
+
+    def _mesh_axes(self):
+        """``(n, c)``: the mesh axes that split the tokens and the experts
+        (each ``()`` on one device)."""
+        if self._world is None:
+            return (), ()
+        return self.input_spec(0, None)[0], self.param_spec("w1")[0]
+
     def forward(self, params, xs, state, training):
         (x,) = xs
         b, t, d = x.shape
         e = self.attrs["num_experts"]
         k = self.attrs["top_k"]
         s = b * t
-        cap = self.capacity(s)
+        n_ax, c_ax = self._mesh_axes()
+        world = self._world
+        parts = self._plan.size(n_ax) if n_ax else 1
+        cap = self.capacity(s * parts)
         xf = x.reshape(s, d)
         dev = x.device
 
@@ -149,48 +184,62 @@ class MixtureOfExperts(Op):
         gates = topk_p if k == 1 else topk_p / topk_p.sum(-1, keepdim=True)
         experts = torch.arange(e, device=dev)
         tokens = torch.arange(s, device=dev)
-        counts = torch.zeros((e,), dtype=torch.float32, device=dev)
+        # The one-hot choices expert-major, (E, S): the f32 running count
+        # runs along the contiguous axis.  A scan over the outer axis of
+        # the (32768, 8) token-major mask took 5.2 ms a layer on an H100
+        # 80GB HBM3 at 700 W (chip_smoke phase 23 profile).
+        masks = [(experts[:, None] == topk_e[:, j]).float() for j in range(k)]
+        offsets, load = _global_counts(
+            torch.stack([m.sum(1) for m in masks]), world, n_ax)
+        # The rank's experts [e0, e0 + el) and each n rank's slots: the
+        # capacity padded to a multiple of the n degree (the padding slots
+        # stay empty and no token reads them).
+        el = e // (self._plan.size(c_ax) if c_ax else 1)
+        e0 = el * world.index(c_ax) if c_ax else 0
+        slots = -(-cap // parts) * parts
         keep_total = torch.zeros((), dtype=torch.float32, device=dev)
         dest, gather_idx, weights = [], [], []
-        first_mask = None
+        xf_in = collectives.copy_to(xf, world, c_ax)
+        gates = collectives.copy_to(gates, world, c_ax)
         for j in range(k):
-            ej = topk_e[:, j]
-            # The one-hot choices expert-major, (E, S): the f32 running
-            # count runs along the contiguous axis.  A scan over the outer
-            # axis of the (32768, 8) token-major mask took 5.2 ms a layer
-            # on an H100 80GB HBM3 at 700 W (chip_smoke phase 23 profile).
-            mask = (experts[:, None] == ej).float()
-            if j == 0:
-                first_mask = mask
-            pos = ((mask.cumsum(1) - 1.0) + counts[:, None]).gather(
+            ej, mask = topk_e[:, j], masks[j]
+            pos = ((mask.cumsum(1) - 1.0) + offsets[j][:, None]).gather(
                 0, ej[None, :])[0].long()
             keep = pos < cap
-            slot = ej * cap + pos
-            dest.append(torch.where(keep, slot, e * cap + j * s + tokens))
-            gather_idx.append(torch.where(keep, slot, 0))
-            weights.append(torch.where(keep, gates[:, j], 0.0))
+            mine = keep & (ej >= e0) & (ej < e0 + el)
+            slot = (ej - e0) * slots + pos
+            dest.append(torch.where(mine, slot, el * slots + j * s + tokens))
+            gather_idx.append(torch.where(mine, slot, 0))
+            weights.append(torch.where(mine, gates[:, j], 0.0))
             keep_total = keep_total + keep.float().sum()
-            counts = counts + mask.sum(1)
 
         # -- expert compute: every slot row holds at most one token --
         cd = x.dtype
-        rows = xf.new_zeros((e * cap + k * s, d)).index_copy(
-            0, torch.cat(dest), xf.repeat(k, 1))
-        expert_in = rows[:e * cap].view(e, cap, d)
+        rows = xf.new_zeros((el * slots + k * s, d)).index_copy(
+            0, torch.cat(dest), xf_in.repeat(k, 1))
+        expert_in = collectives.reduce_scatter(
+            rows[:el * slots].view(el, slots, d), 1, world, n_ax)
         h = torch.bmm(expert_in, params["w1"])
         h = apply_activation(h + params["b1"][:, None, :],
                              self.attrs["activation"])
         y_e = torch.bmm(h, params["w2"]) + params["b2"][:, None, :]
-        y_flat = y_e.reshape(e * cap, d)
+        y_flat = collectives.all_gather(y_e, 1, world, n_ax).reshape(
+            el * slots, d)
         y = None
         for j in range(k):
             term = (weights[j].to(cd).float()[:, None]
                     * y_flat.index_select(0, gather_idx[j]).float())
             y = term if y is None else y + term
-        y = y.to(cd)
+        y = collectives.all_reduce(y, world, c_ax).to(cd)
 
         # -- aux load-balance loss (first-choice load) --
-        aux = e * torch.sum(first_mask.mean(1) * probs.mean(0))
+        if n_ax:
+            importance = collectives.all_reduce(probs.sum(0), world,
+                                                n_ax) / float(s * parts)
+            keep_total = world.all_reduce(keep_total, n_ax)
+        else:
+            load, importance = masks[0].mean(1), probs.mean(0)
+        aux = e * torch.sum(load * importance)
         w = self.attrs["aux_loss_weight"]
         loss = (w * aux).float() if training else torch.zeros(
             (), dtype=torch.float32, device=dev)
@@ -198,6 +247,25 @@ class MixtureOfExperts(Op):
             f"{self.name}_aux_loss": aux.detach().float(),
             # Dropped assignments: a top-2 token losing one slot counts
             # once and still flows through its other slot.
-            f"{self.name}_dropped": float(s * k) - keep_total,
+            f"{self.name}_dropped": float(s * parts * k) - keep_total,
         }
         return (loss, metrics, [y.reshape(b, t, d)]), state
+
+
+def _global_counts(counts, world, n_axes):
+    """``(offsets, load)`` from this rank's ``(k, E)`` per-choice expert
+    counts: ``offsets[j]``, the slots of each expert that choice ``j`` of
+    this rank's tokens queues behind (every earlier choice of the global
+    batch, then choice ``j`` of the tokens of earlier ``n`` ranks), and
+    ``load``, the global share of first choices per expert (None on one
+    device, where the caller takes the mean of its mask)."""
+    if not n_axes:
+        return torch.cat([counts.new_zeros((1, counts.shape[1])),
+                          counts[:-1].cumsum(0)]), None
+    every = world.all_gather(counts[None], 0, n_axes)          # (N, k, E)
+    mine = world.index(n_axes)
+    total = every.sum(0)
+    before = every[:mine].sum(0)
+    offsets = torch.cat([total.new_zeros((1, total.shape[1])),
+                         total[:-1].cumsum(0)]) + before
+    return offsets, total[0] / total[0].sum()

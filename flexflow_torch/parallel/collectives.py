@@ -26,8 +26,20 @@ all-reduces it (``copy_to``, or the executor for parameters).  So:
 - ``all_reduce`` sums partial results whose sum is read replicated (a
   row-parallel product, the loss): its backward is the identity.
   ``copy_to`` is its dual: the identity forward, an all-reduce backward.
+- ``reduce_scatter`` sums partial results of which each rank reads its
+  chunk (the MoE's expert slots filled from every ``n`` rank's tokens):
+  its backward all-gathers; ``all_gather`` is its adjoint.
 - ``move`` (an all-to-all that moves an axis between dims) runs the
   reverse all-to-all in its backward.
+- ``shift`` sends each rank's block to its successor along the axes
+  (JAX's ``lax.ppermute``): ``cyclic`` for the ring (``i -> (i + 1) mod
+  S``), else the chain (``i -> i + 1``; the first rank receives zeros,
+  the last sends nothing).  Its backward is the reverse shift.  Autograd
+  runs no backward for an output nothing reads, and a shift's backward
+  is a collective every rank of the group must enter: ``anchor(y, *xs)``
+  is ``y`` with zero cotangents for ``xs``, so a rank whose work does not
+  read a shifted block still runs the reverse shift, in the same order
+  as its neighbours.
 - ``halo_window`` sends each neighbour the boundary rows its window
   reads, and adds the halo rows' cotangents back into their owners.
 - ``reshard(x, frm, to)`` walks ``MeshPlan.reshard_hops``'s chain with
@@ -40,7 +52,9 @@ flexflow_torch.tools.mesh_smoke --gloo-probe``: all_reduce, all_gather,
 reduce_scatter, all_to_all_single, broadcast); it stages them through
 the host itself.  So both backends run the same calls on the same
 tensors, and no other form exists here: a backend that refuses one
-raises.
+raises.  The one exception is ``shift``'s point-to-point send and
+receive, which gloo takes on CPU tensors only: over gloo a CUDA block is
+copied to the host and back around them.
 """
 
 from __future__ import annotations
@@ -83,8 +97,10 @@ class World:
                 if self.rank in ranks:
                     self._groups[axes] = (pg, list(ranks))
         #: Seconds spent in collectives while ``timed`` (each one then
-        #: waits for the device before it starts and before it returns).
+        #: waits for the device before it starts and before it returns),
+        #: and the same seconds by the collective's name.
         self.comm_s = 0.0
+        self.comm_by: Dict[str, float] = {}
         self.timed = False
 
     def _key(self, axes: Sequence[str]) -> Tuple[str, ...]:
@@ -101,11 +117,11 @@ class World:
 
     # -- plain collectives (no autograd) ---------------------------------
 
-    def _run(self, fn, x: torch.Tensor):
+    def _run(self, fn, x: torch.Tensor, kind: str):
         """``fn`` on ``x`` made contiguous; with ``timed`` the device is
         synchronised before and after ``fn`` and the host seconds between
-        are added to ``comm_s`` (the work queued before the collective is
-        not charged to it)."""
+        are added to ``comm_s`` and to ``comm_by[kind]`` (the work queued
+        before the collective is not charged to it)."""
         import time
 
         x = x.contiguous()
@@ -116,7 +132,9 @@ class World:
         if self.timed:
             if out.is_cuda:
                 torch.cuda.synchronize(out.device)
-            self.comm_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.comm_s += dt
+            self.comm_by[kind] = self.comm_by.get(kind, 0.0) + dt
         return out
 
     def all_reduce(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
@@ -130,7 +148,7 @@ class World:
             dist.all_reduce(t, group=g[0])
             return t
 
-        return self._run(fn, x)
+        return self._run(fn, x, "all_reduce")
 
     def all_gather(self, x: torch.Tensor, dim: int,
                    axes: Sequence[str]) -> torch.Tensor:
@@ -146,7 +164,7 @@ class World:
             dist.all_gather(out, t, group=g[0])
             return torch.cat(out, dim)
 
-        return self._run(fn, x)
+        return self._run(fn, x, "all_gather")
 
     def reduce_scatter(self, x: torch.Tensor, dim: int,
                        axes: Sequence[str]) -> torch.Tensor:
@@ -162,7 +180,7 @@ class World:
             dist.reduce_scatter(out, parts, group=g[0])
             return out
 
-        return self._run(fn, x)
+        return self._run(fn, x, "reduce_scatter")
 
     def all_to_all(self, x: torch.Tensor, split_dim: int, cat_dim: int,
                    axes: Sequence[str]) -> torch.Tensor:
@@ -180,7 +198,40 @@ class World:
             dist.all_to_all_single(out, inp, group=g[0])
             return torch.cat(out.unbind(0), cat_dim)
 
-        return self._run(fn, x)
+        return self._run(fn, x, "all_to_all")
+
+    def shift(self, x: torch.Tensor, axes: Sequence[str], cyclic: bool,
+              reverse: bool = False) -> torch.Tensor:
+        """Each member's ``x`` from its predecessor along ``axes`` (member
+        order, the block index along a dim they split): cyclic, ``i -> (i
+        + 1) mod S``; else the chain ``i -> i + 1``, where the first member
+        receives zeros and the last sends nothing.  ``reverse`` runs the
+        same shift the other way (its adjoint).  One ``batch_isend_irecv``
+        of at most one send and one receive a rank."""
+        g = self.group(axes)
+        if g is None:
+            return x if cyclic else torch.zeros_like(x)
+        pg, members = g
+        size, i = len(members), members.index(self.rank)
+        step = -1 if reverse else 1
+        dst, src = i + step, i - step
+        if cyclic:
+            dst, src = dst % size, src % size
+        stage = self.backend == "gloo" and x.is_cuda
+
+        def fn(t):
+            send = t.cpu() if stage else t
+            recv = torch.zeros_like(send)
+            ops = []
+            if 0 <= dst < size:
+                ops.append(dist.P2POp(dist.isend, send, members[dst], pg))
+            if 0 <= src < size:
+                ops.append(dist.P2POp(dist.irecv, recv, members[src], pg))
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+            return recv.to(t.device) if stage else recv
+
+        return self._run(fn, x, "shift")
 
     def block(self, x: torch.Tensor, dim: int,
               axes: Sequence[str]) -> torch.Tensor:
@@ -231,6 +282,18 @@ class _AllGather(torch.autograd.Function):
         return world.reduce_scatter(g, dim, axes), None, None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, world, axes):
+        ctx.args = (dim, world, axes)
+        return world.reduce_scatter(x, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, world, axes = ctx.args
+        return world.all_gather(g, dim, axes), None, None, None
+
+
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, world, axes):
@@ -265,6 +328,33 @@ class _Move(torch.autograd.Function):
         return world.all_to_all(g, src, dst, axes), None, None, None, None
 
 
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, world, axes, cyclic, reverse):
+        ctx.args = (world, axes, cyclic, reverse)
+        return world.shift(x, axes, cyclic, reverse)
+
+    @staticmethod
+    def backward(ctx, g):
+        world, axes, cyclic, reverse = ctx.args
+        return world.shift(g, axes, cyclic, not reverse), None, None, None, \
+            None
+
+
+class _Anchor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, *xs):
+        ctx.metas = [(x.shape, x.dtype, x.device) for x in xs]
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        zeros = [torch.zeros(shape, dtype=dtype, device=device)
+                 if need else None for need, (shape, dtype, device)
+                 in zip(ctx.needs_input_grad[1:], ctx.metas)]
+        return (g if ctx.needs_input_grad[0] else None, *zeros)
+
+
 def _live(world: Optional[World], axes: Sequence[str]) -> bool:
     return world is not None and world.plan.size(axes) > 1
 
@@ -290,6 +380,14 @@ def all_gather(x, dim: int, world: Optional[World], axes: Sequence[str]):
         if _live(world, axes) else x
 
 
+def reduce_scatter(x, dim: int, world: Optional[World],
+                   axes: Sequence[str]):
+    """This rank's chunk along ``dim`` of the sum over ``axes`` of partial
+    results; the backward all-gathers the chunks' cotangents."""
+    return _ReduceScatter.apply(x, dim, world, tuple(axes)) \
+        if _live(world, axes) else x
+
+
 def all_reduce(x, world: Optional[World], axes: Sequence[str]):
     """The sum over ``axes`` of partial results read replicated; the
     backward is the identity."""
@@ -310,6 +408,25 @@ def move(x, src: int, dst: int, world: Optional[World],
     minor-most end of dim ``dst``'s (one all-to-all)."""
     return _Move.apply(x, src, dst, world, tuple(axes)) \
         if _live(world, axes) else x
+
+
+def shift(x, world: Optional[World], axes: Sequence[str], cyclic: bool = True,
+          reverse: bool = False):
+    """The predecessor's block along ``axes`` (``World.shift``); the
+    backward sends each cotangent back the other way.  Every rank of the
+    group must call it in the same order, forward and backward: anchor an
+    output this rank's work does not read (:func:`anchor`)."""
+    if not _live(world, axes):
+        return x if cyclic else torch.zeros_like(x)
+    return _Shift.apply(x, world, tuple(axes), bool(cyclic), bool(reverse))
+
+
+def anchor(y, *xs):
+    """``y``, with each of ``xs`` given a zero cotangent: the backward of
+    whatever made ``xs`` (a shift) then runs on this rank although its
+    work does not read them."""
+    xs = [x for x in xs if x is not None and x.requires_grad]
+    return _Anchor.apply(y, *xs) if xs else y
 
 
 # -- halo exchange -----------------------------------------------------------

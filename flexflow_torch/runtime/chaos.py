@@ -10,7 +10,7 @@ CUDA; k = 1 the per-step path) with saves every 8 steps, and require the
 recovered loss trajectory to equal the unfaulted run's bit for bit.
 Their model is JAX's chaos MLP (16 -> 32 ReLU -> 4, softmax, SGD lr 0.1,
 batch 8) on one device: JAX runs it under an ``n2c4`` strategy on 8
-virtual devices, which waits for ROADMAP.md queue 1, item 9d.
+virtual devices, which waits for ROADMAP.md queue 1, item 9e.
 
 The serving scenarios run the plain ``Server``'s and the scheduler's
 failure models on JAX's scenario stack (vocab 32, d_model 16, 2 heads,

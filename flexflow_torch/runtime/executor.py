@@ -73,7 +73,10 @@ on its blocks: shard_map done by hand.
   window).  Under ZeRO-1 the row-sparse tables' state keeps the table's
   own split: JAX's lazy step reads it whole through GSPMD, so the values
   are the same.
-- Supersteps, gradient accumulation and ``--remat`` (item 9d) are
+- The ``s`` degree splits the sequence: the ops that read it whole
+  split their work along it themselves (ring attention,
+  ``ops/attention.py``; the LSTM's pipeline, ``ops/rnn.py``).
+- Supersteps, gradient accumulation and ``--remat`` (item 9e) are
   refused under more than one rank.
 """
 
@@ -206,16 +209,9 @@ class Executor:
                              f"item {item}")
 
         for op in self.model.layers:
-            pc = self._pc(op)
-            self.plan.assign(pc)  # InfeasibleStrategyError here
-            if pc.s > 1:
-                refuse(f"{op.name}: s={pc.s} (ring attention, sequence "
-                       f"parallelism)", "9d")
-            if op.mesh_refusal:
-                raise ValueError(f"{op.name}: {op.mesh_refusal} (under {nd} "
-                                 f"ranks)")
+            self.plan.assign(self._pc(op))  # InfeasibleStrategyError here
         if self.config.remat:
-            refuse("--remat", "9d")
+            refuse("--remat", "9e")
 
     def _pc(self, op: Op):
         return self.strategy.find(op.name)
@@ -858,13 +854,13 @@ class Executor:
     def _refuse_multi(self, what: str) -> None:
         if self.plan.num_devices > 1:
             raise ValueError(f"{what} under {self.plan.num_devices} ranks is "
-                             f"ROADMAP.md queue 1, item 9d")
+                             f"ROADMAP.md queue 1, item 9e")
 
     @property
     def superstep_fused(self) -> bool:
         """Whether ``steps_per_call > 1`` fuses into one dispatch here (the
         trainer routes on it, as the JAX package's does): on one rank;
-        under more, supersteps are item 9d."""
+        under more, supersteps are item 9e."""
         return self.plan.num_devices == 1
 
     def build_superstep(self, k: int, accum_steps: int = 1):

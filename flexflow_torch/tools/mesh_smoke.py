@@ -17,7 +17,12 @@ tests hold these against the JAX package's runs of the same tables;
 - ``device`` (``"cpu"`` or ``"cuda"``), ``dropout_masks`` (also return
   each Dropout output's global zero pattern from one training forward),
   ``record_shapes`` (also return the shapes the attention dispatcher and
-  K3's wrapper were called with on this rank).
+  K3's wrapper were called with on this rank), ``outputs`` (tensor names:
+  also return them whole from one eval forward of the first batch),
+  ``fault`` (a key of ``SEQ_FAULTS``, planted on every rank for the case).
+
+Every case returns the losses and each step's metrics (``metrics``: the
+MoE's ``{name}_dropped`` among them).
 
 ``dlrm_app(configs, argv)`` is the rank body of the DLRM's worlds (the
 CPU tests' and ``chip_smoke.py``'s phase 28): ``apps.dlrm.main`` with
@@ -43,6 +48,14 @@ requests through the plain ``Server``, a ``ScheduledServer`` or a
 returns the tokens, errors, stats and decisions, the decode logits of a
 teacher-forced request, the launch counts, the shapes K1f's dispatcher
 and K6 ran at, ms a superstep, the collective share and peak memory.
+
+``seq_app(runs, refs)`` is the rank body of ``chip_smoke.py``'s phase
+30: the LM (``--dp``/``--sp``/``--tp``, ``--experts``), NMT and
+Candle-Uno apps under their model strategies, ``SEQ_FAULTS`` planted
+where a run names one; returns each run's losses, MoE drops, launch
+counts, the shapes the dispatcher and K3 ran at, its parameters'
+distance from a reference run's and their digest, ms a step, the share
+of one more step in collectives, by collective, and the peak memory.
 
 ``python -m flexflow_torch.tools.mesh_smoke --gloo-probe`` prints which
 collectives and dtypes gloo runs on CUDA tensors on this machine.
@@ -152,8 +165,82 @@ def table_model(kind: str, batch: int = 8):
     return ff
 
 
+def mha_model(batch: int = 4, seq: int = 8, d: int = 12, heads: int = 3,
+              causal: bool = True):
+    """``tests/test_attention.py``'s model: attention over a float
+    ``(batch, seq, d)`` input, a dense head of 5 and the softmax."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.graph import FFModel
+
+    ff = FFModel(FFConfig(batch_size=batch, seed=0))
+    x = ff.create_tensor((batch, seq, d), name="x", dim_axes=("n", "s", None))
+    lbl = ff.create_tensor((batch, seq), dtype=torch.int32, name="label",
+                           dim_axes=("n", "s"))
+    y = ff.multihead_attention(x, heads, causal=causal, name="attn")
+    ff.softmax(ff.dense(y, 5, name="head"), lbl, name="softmax")
+    return ff
+
+
+def lstm_model(batch: int = 8, seq: int = 8, feat: int = 5, hidden: int = 6,
+               microbatches=None, initial_state: bool = False):
+    """``tests/test_rnn.py``'s LSTM models: an LSTM over ``(batch, seq,
+    feat)`` (from the inputs ``h0``/``c0`` with ``initial_state``), a
+    dense head of 4 on its final ``h`` and the softmax."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.graph import FFModel
+
+    ff = FFModel(FFConfig(batch_size=batch, seed=0))
+    x = ff.create_tensor((batch, seq, feat), name="x",
+                         dim_axes=("n", "s", None))
+    state = None
+    if initial_state:
+        state = tuple(ff.create_tensor((batch, hidden), name=n,
+                                       dim_axes=("n", None))
+                      for n in ("h0", "c0"))
+    lbl = ff.create_tensor((batch,), dtype=torch.int32, name="label")
+    _, hT, _ = ff.lstm(x, hidden, initial_state=state,
+                       num_microbatches=microbatches, name="lstm")
+    ff.softmax(ff.dense(hT, 4, name="head"), lbl, name="softmax")
+    return ff
+
+
+def moe_model(batch: int = 8, seq: int = 4, d: int = 8, experts: int = 4,
+              ffn: int = 16, cf: float = 8.0, top_k: int = 1):
+    """``tests/test_moe.py``'s model: an MoE over a float ``(batch, seq,
+    d)`` input, a dense head of 4 and the softmax."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.graph import FFModel
+
+    ff = FFModel(FFConfig(batch_size=batch, seed=3))
+    x = ff.create_tensor((batch, seq, d), name="x", dim_axes=("n", "s", None))
+    lbl = ff.create_tensor((batch, seq), dtype=torch.int32, name="lbl",
+                           dim_axes=("n", "s"))
+    t = ff.moe(x, experts, ffn, capacity_factor=cf, top_k=top_k, name="moe")
+    ff.softmax(ff.dense(t, 4, name="head"), lbl, name="softmax")
+    return ff
+
+
+def nmt(**kw):
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.nmt import build_nmt
+
+    return build_nmt(config=FFConfig(batch_size=kw["batch_size"], seed=0),
+                     **kw)
+
+
+def candle(batch_size: int = 8, **kw):
+    """Candle-Uno at ``CandleConfig(**kw)``'s widths."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.candle_uno import CandleConfig, build_candle_uno
+
+    return build_candle_uno(batch_size=batch_size, candle=CandleConfig(**kw),
+                            config=FFConfig(batch_size=batch_size, seed=0))
+
+
 MODELS = {"small_cnn": small_cnn, "norm_cnn": norm_cnn, "lm": lm,
-          "emb": emb_model, "table": table_model}
+          "emb": emb_model, "table": table_model, "mha": mha_model,
+          "lstm": lstm_model, "moe": moe_model, "nmt": nmt,
+          "candle": candle}
 
 
 def _skip_all_reduce(real):
@@ -204,6 +291,65 @@ def planted(fault):
     real = getattr(embedding, name)
     setattr(embedding, name, wrap(real))
     return lambda: setattr(embedding, name, real)
+
+
+def _attend_future(real):
+    """``ring_attend_future``: the ring attends every chunk, the later
+    ranks' (invisible under the causal mask) too."""
+    return lambda j, s_idx, size, causal: True
+
+
+def _rotate_back(real):
+    """``ring_reverse``: the ring rotates the K/V the wrong way (each rank
+    receives its successor's chunk)."""
+    from flexflow_torch.parallel import collectives
+
+    return lambda kv, world, axes: collectives.shift(kv, world, axes,
+                                                     cyclic=True,
+                                                     reverse=True)
+
+
+def _local_counts(real):
+    """``ep_local_capacity``: capacity and queue positions from the
+    rank's own tokens (the routing counts never leave the rank)."""
+    def counts(c, world, n_axes):
+        offsets, _ = real(c, world, ())
+        return offsets, c[0] / c[0].sum()
+    return counts
+
+
+def _no_carry(real):
+    """``lstm_no_carry``: every chunk of the pipeline starts from the
+    op's initial state, never from its predecessor's carry."""
+    return lambda first, h0, c0, carry: (h0, c0)
+
+
+#: Planted faults of the model strategies, by name: ``(module of the
+#: port, function, wrapper)``; a case's ``fault`` plants one on every
+#: rank, so every collective still matches.
+SEQ_FAULTS = {
+    "ring_attend_future": ("flexflow_torch.ops.attention", "_chunk_visible",
+                           _attend_future),
+    "ring_reverse": ("flexflow_torch.ops.attention", "_rotate",
+                     _rotate_back),
+    "ep_local_capacity": ("flexflow_torch.ops.moe", "_global_counts",
+                          _local_counts),
+    "lstm_no_carry": ("flexflow_torch.ops.rnn", "_carry_in", _no_carry),
+}
+
+
+def plant_seq(fault):
+    """Install ``SEQ_FAULTS[fault]`` on this rank (nothing for None);
+    returns the undo."""
+    import importlib
+
+    if fault is None:
+        return lambda: None
+    mod, name, wrap = SEQ_FAULTS[fault]
+    mod = importlib.import_module(mod)
+    real = getattr(mod, name)
+    setattr(mod, name, wrap(real))
+    return lambda: setattr(mod, name, real)
 
 
 def _numpy(tree):
@@ -261,9 +407,11 @@ def train_case(case: Dict[str, Any]) -> Dict[str, Any]:
     """One case on this rank (see the module docstring)."""
     shapes: Dict[str, list] = {}
     undo = _recording(shapes) if case.get("record_shapes") else None
+    unplant = plant_seq(case.get("fault"))
     try:
         out = _train(case)
     finally:
+        unplant()
         if undo:
             undo()
     if undo:
@@ -309,12 +457,28 @@ def _train(case: Dict[str, Any]) -> Dict[str, Any]:
                                             replicated(y.dim()), w)
                 masks[op.name] = (y == 0).cpu().numpy()
         out["dropout_masks"] = masks
-    losses = []
+    if case.get("outputs"):
+        outs = ex.forward_step(params, case["batches"][0], state)
+        from flexflow_torch.parallel import collectives
+        from flexflow_torch.parallel.mesh import replicated
+
+        out["outputs"] = {}
+        for op in ff.layers:
+            for j, t in enumerate(op.outputs):
+                if t.name in case["outputs"]:
+                    y = outs[t.name]
+                    if w is not None:
+                        y = collectives.reshard(y, op.output_spec(j),
+                                                replicated(y.dim()), w)
+                    out["outputs"][t.name] = y.float().cpu().numpy()
+    losses, metrics = [], []
     for batch in case["batches"]:
         params, opt_state, state, m = ex.train_step(
             params, opt_state, state, ex.shard_batch(batch))
         losses.append(float(m["train_loss"]))
+        metrics.append({k: float(v) for k, v in m.items()})
     out["losses"] = losses
+    out["metrics"] = metrics
     out["local_shapes"] = {op: {k: tuple(v.shape) for k, v in g.items()}
                            for op, g in params.items()}
     out["params"] = _numpy(ex.gather_full(params))
@@ -449,6 +613,132 @@ def chip_app(configs: List[Dict[str, Any]], argv: List[str],
             holds[f"K3 {shape}"] = held[("xent", shape)]
         torch.cuda.empty_cache()
         out.append(dict(result, holds=holds))
+    return out
+
+
+def _distance(full, ref) -> float:
+    """The distance of the parameters ``full`` from ``ref["trained"]``
+    over the reference's own change (``ref["change"]``, its squared L2
+    norm from the initial draw), in f32."""
+    num = 0.0
+    for op, g in ref["trained"].items():
+        for k, want in g.items():
+            num += float((full[op][k].detach().float() - want.float())
+                         .square().sum())
+    return (num / ref["change"]) ** 0.5
+
+
+class step_drops:
+    """Each train step's MoE drop counts (``{name}_dropped``, read on the
+    host), in order, while the context is open: ``Executor.train_step``
+    wrapped for the duration."""
+
+    def __enter__(self):
+        from flexflow_torch.runtime.executor import Executor
+
+        self.real, self.steps = Executor.train_step, []
+
+        def step(ex, *a, **kw):
+            out = self.real(ex, *a, **kw)
+            self.steps.append({k: float(v) for k, v in out[3].items()
+                               if k.endswith("_dropped")})
+            return out
+
+        Executor.train_step = step
+        return self.steps
+
+    def __exit__(self, *exc):
+        from flexflow_torch.runtime.executor import Executor
+
+        Executor.train_step = self.real
+
+
+def seq_app(runs: List[Dict[str, Any]], refs: Dict[str, str]
+            ) -> List[Dict[str, Any]]:
+    """Rank body of chip_smoke's phase 30: per run, ``argv`` through the
+    app ``app`` (``transformer``, ``nmt`` or ``candle_uno``) with
+    ``-ll:gpu`` the world's size, every kernel counter zeroed first, the
+    streamed kernels chosen when ``streamed``, ``fault`` (a key of
+    ``SEQ_FAULTS``) planted on every rank.  ``ref`` names a reference
+    (``refs[name]``: a file of ``{"trained", "change"}``) the trained
+    parameters are held against (``_distance``); ``timed`` runs one more
+    step with each collective synchronised alone."""
+    import contextlib
+    import importlib
+    import io
+    import time
+
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from flexflow_torch.data.loader import synthetic_host_batch
+    from flexflow_torch.ops import kernels
+    from flexflow_torch.parallel import launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    streamed = kernels._STREAMED
+    out = []
+    for run in runs:
+        app = importlib.import_module(f"flexflow_torch.apps.{run['app']}")
+        args = list(run["argv"]) + ["-ll:gpu", str(launch.world_size())]
+        shapes: Dict[str, list] = {}
+        stats: Dict[str, Any] = {}
+        report = io.StringIO()
+        kernels._STREAMED = bool(run.get("streamed"))
+        undo = _recording(shapes)
+        unplant = plant_seq(run.get("fault"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        cs._zero_counts()
+        try:
+            with contextlib.redirect_stdout(report), \
+                    step_drops() as drops:
+                code = app.main(args, device="cuda", stats_out=stats)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in cs._counts().items() if v}
+            ex = stats.pop("executor")
+            params, opt_state, state = stats.pop("final")
+            full = ex.gather_full(params)
+            result = dict(
+                name=run["name"], code=code, report=report.getvalue(),
+                losses=stats["step_losses"], counts=counts,
+                shapes={k: sorted(set(v)) for k, v in shapes.items()},
+                dropped=drops,
+                ms_step=stats["elapsed_s"] * 1e3 / stats["iterations"],
+                peak_gb=(torch.cuda.max_memory_allocated() - held) / 1e9,
+                digest=digest(full), backend=dist.get_backend(),
+                rank=dist.get_rank(), device=torch.cuda.current_device(),
+                jax_imported="jax" in sys.modules)
+            if run.get("ref"):
+                ref = torch.load(refs[run["ref"]], map_location="cuda")
+                result["distance"] = _distance(full, ref)
+                del ref
+            del full
+            if run.get("timed"):
+                batch = ex.shard_batch(synthetic_host_batch(
+                    ex.model, np.random.default_rng(0)))
+                w = ex.world
+                dist.barrier()
+                torch.cuda.synchronize()
+                w.comm_s, w.comm_by, w.timed = 0.0, {}, True
+                t0 = time.perf_counter()
+                _, _, _, m = ex.train_step(params, opt_state, state, batch)
+                float(m["train_loss"])
+                torch.cuda.synchronize()
+                result.update(one_step_ms=(time.perf_counter() - t0) * 1e3,
+                              comm_ms=w.comm_s * 1e3,
+                              comm_by={k: v * 1e3
+                                       for k, v in w.comm_by.items()})
+                w.timed = False
+        finally:
+            unplant()
+            undo()
+            kernels._STREAMED = streamed
+        del ex, params, opt_state, state, stats
+        torch.cuda.empty_cache()
+        out.append(result)
     return out
 
 

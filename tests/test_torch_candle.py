@@ -106,8 +106,11 @@ def test_candle_strategy_one_device():
         ["trunk_dense0", "trunk_dense1", "trunk_dense2"]
     assert all(pc.n == pc.c == 1 == pc.num_parts
                for pc in store.table.values())
-    with pytest.raises(ValueError, match="item 9"):
-        candle_uno_strategy(2)
+    # More devices give JAX's n x c trunk (it ran refused before item 9d).
+    for n in (2, 4, 8):
+        assert {k: v.to_json() for k, v in candle_uno_strategy(n).table.items()} \
+            == {k: v.to_json() for k, v in jstrategy(n).table.items()}
+    assert candle_uno_strategy(4).table["trunk_dense0"].c == 2
 
 
 _APP = ["-b", "8", "--dense-layers", "32-32", "--dense-feature-layers",

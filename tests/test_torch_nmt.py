@@ -384,8 +384,10 @@ def test_nmt_strategies():
     store = nmt_strategy(1)
     assert all(pc.num_parts == 1 for pc in store.table.values())
     assert "enc_drop0" in store.table and "vocab_proj" in store.table
-    with pytest.raises(ValueError, match="item 9"):
-        nmt_strategy(2)
+    # Two devices: JAX's default split, the LSTMs' pipeline at sp 2.
+    two = nmt_strategy(2)
+    assert two.table["enc_lstm0"].s == 2 and two.table["vocab_proj"].c == 2
+    assert two.table["softmax"].n == 2
     with pytest.raises(NotImplementedError, match="item 10"):
         nmt_pipeline_strategy(2)
 
