@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Thirty phases, in order; any failure raises and exits non-zero:
+Thirty-one phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -446,11 +446,36 @@ Thirty phases, in order; any failure raises and exits non-zero:
     phase 2's element rules, timed beside them, SDPA and the bound.  Per
     LM arm: ms a step a rank and, for one more step, the collectives by
     name (host clock, each synchronised alone).
+31. **The training machinery on a mesh** (``mesh-train``,
+    ``MESH_TRAIN``: phase 5's 2k LM at full width, bf16;
+    ``flexflow_torch/tools/mesh_train.py`` the rank bodies).  A world of
+    two ranks (gloo with both on one card, NCCL a card a rank with two or
+    more) runs ``apps.transformer -ll:gpu 2 --dp 2`` with (a)
+    ``--steps-per-call 4 --accum-steps 2 --telemetry DIR``: losses within
+    ``TOL_MESH_LOSS`` and parameters within ``TOL_MESH_DIST`` of the same
+    flags on one rank in this process, the ranks' parameters equal, one
+    ``-p<rank>`` run file a rank; (b) the same with ``--remat``; (c)
+    ``--resilient --save-every 4 --steps-per-call 4`` with a raised fault
+    before step 6 on every rank: the trajectory and parameters bit for
+    bit the unfaulted world's, one restart, and its last snapshot
+    restored on one rank in this process equal to the world's gathered
+    parameters bit for bit.  K1f, K1b and K3 launched on every rank, held
+    against their plain versions at the shapes the ranks ran them at
+    (phase 27's holds).  With four cards (NCCL), a world of four: (d)
+    the LM at ``--dp 2 --tp 2`` through ``Trainer.fit``, two eager fits
+    and one of k = 4 supersteps, each rank's superstep one CUDA graph
+    with its collectives, bit for bit; launches at capture and, by kernel
+    name, in a profiled replay (K1f, K1b, K3); ms a step eagerly and as a
+    graph; a gathered snapshot saved and restored on the world and
+    restored (and saved again) on one rank, timed, bit for bit; (e)
+    phase 9's DLRM under ``dlrm_strategy(4)`` (its tables a quarter a
+    rank), the same with K4 and K5; (f) the chaos scenarios at ``n2c2``,
+    k = 8 graphs, each recovering bit for bit.
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
 DLRM, long-context, race, AlexNet, superstep, serve-features,
 serve-resilience, NMT, CNN, Candle, MoE, item-7, scheduled and fleet runs
-together, and phases 27's, 28's, 29's and 30's ranks, split
+together, and phases 27's, 28's, 29's, 30's and 31's ranks, split
 in ``launches_by_path``; K1f's and K6's ``mesh_serve_shapes`` rows at
 phase 29's rank-local shapes, K1f's and K1b's ``mesh_seq_shapes`` at
 phase 30's ring chunks; the superstep, serve-features,
@@ -7704,6 +7729,267 @@ def phase_mesh_seq(torch, kernels, F):
     return rows, launches
 
 
+#: Phase 31: phase 5's LM on a world of two (``app``: the flags of (a),
+#: (b), (c); the fault of (c) before step ``fault``), and with four cards
+#: the NCCL arms: the LM at dp 2 x tp 2 and the DLRM as k-step graphs
+#: (``k``, ``iters`` timed steps after a superstep of warmup), the chaos
+#: scenarios at n2c2.
+MESH_TRAIN = dict(
+    app=dict(iters=4, k=4, accum=2, save_every=4, resilient_iters=8,
+             fault=6),
+    lm=dict(TRAIN, dp=2, tp=2, k=4, iters=4),
+    dlrm=dict(DLRM, k=4, iters=4),
+    chaos=("raised_fault", "nan_batch", "nan_loss", "sigterm",
+           "corrupt_checkpoint", "force_save_kill"))
+
+
+def _mesh_train_refs(torch, argv, ref_path, device="cuda") -> dict:
+    """(a)'s flags on one rank in this process: its losses, and its
+    initial and trained parameters saved whole to ``ref_path``."""
+    import contextlib
+    import io
+
+    from flexflow_torch.apps import transformer
+
+    st = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        _check(transformer.main(argv, device=device, stats_out=st) == 0,
+               "mesh-train: the one-rank reference")
+    ex = st.pop("executor")
+    full = {"trained": st.pop("final")[0], "init": ex.init()[0]}
+    torch.save({n: {op: {k: v.detach().float().cpu() for k, v in g.items()}
+                    for op, g in tr.items()} for n, tr in full.items()},
+               ref_path)
+    del ex, full
+    return st
+
+
+def _one_rank_snapshot(torch, d, c, want: dict, tag: str,
+                       device="cuda") -> tuple:
+    """Restore the snapshot under ``d`` on one rank (this process, the
+    plain executor at ``c``'s widths), hold its parameters against the
+    world's digest ``want``, and save it again on one rank: the restore's
+    and the save's seconds."""
+    import os
+
+    from flexflow_torch.apps.common import make_optimizer
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.transformer import build_transformer_lm
+    from flexflow_torch.runtime.checkpoint import CheckpointManager
+    from flexflow_torch.runtime.executor import Executor
+    from flexflow_torch.tools import mesh_smoke as ms
+
+    cfg = FFConfig(batch_size=c["batch"], compute_dtype="bfloat16",
+                   optimizer="adam", learning_rate=c["lr"], seed=c["seed"])
+    ff = build_transformer_lm(
+        batch_size=c["batch"], seq_len=c["seq"], vocab_size=c["vocab"],
+        d_model=c["d_model"], num_heads=c["heads"], num_layers=c["layers"],
+        config=cfg)
+    ex = Executor(ff, cfg, optimizer=make_optimizer(cfg), device=device)
+    templates = ex.init()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    with CheckpointManager(d, read_only=True) as ck:
+        sync()
+        t0 = time.perf_counter()
+        step, params, opt_state, state = ck.restore(templates=templates)
+        sync()
+        restore_s = time.perf_counter() - t0
+    got = ms.digest(params)
+    diff = sorted(k for k in want if want[k] != got.get(k))
+    _check(not diff, f"mesh-train {tag}: the snapshot restored on one rank "
+           f"differs from the world's gathered parameters: {diff[:5]}")
+    with CheckpointManager(d + "-one") as ck:
+        t0 = time.perf_counter()
+        ck.save(step, params, opt_state, state)
+        save_s = time.perf_counter() - t0
+    del ex, templates, params, opt_state, state
+    return restore_s, save_s
+
+
+def phase_mesh_train(torch, kernels, F, c=None, device="cuda"):
+    """Phase 31 (module docstring); ``c`` other widths than ``TRAIN``'s
+    and ``device="cpu"`` rehearse it on the CPU (no holds, no card).
+    Returns ``{path: launches summed over the ranks}``."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from flexflow_torch.parallel import launch
+    from flexflow_torch.tools import mesh_train as mt
+
+    t = [time.perf_counter()]
+    lmc = c or TRAIN
+    cuda = device == "cuda"
+    cards = torch.cuda.device_count() if cuda else 0
+    card = _card() if cuda else "the CPU"
+    c = MESH_TRAIN["app"]
+    tmp = tempfile.mkdtemp(prefix="ff_mesh_train_")
+    launches = {}
+    try:
+        argv = _train_argv(dict(lmc, iters=c["iters"])) + [
+            "--steps-per-call", str(c["k"]), "--accum-steps", str(c["accum"])]
+        ref_path = os.path.join(tmp, "ref.pt")
+        one = _mesh_train_refs(torch, argv, ref_path, device)
+        t.append(time.perf_counter())
+        tel = os.path.join(tmp, "tel")
+        res_argv = _train_argv(dict(lmc, iters=c["resilient_iters"])) + [
+            "--resilient", "--save-every", str(c["save_every"]),
+            "--steps-per-call", str(c["k"])]
+        runs = [dict(name="accum", argv=argv + ["--dp", "2", "--telemetry",
+                                                tel], distance=True),
+                dict(name="remat", argv=argv + ["--dp", "2", "--remat"],
+                     distance=True),
+                dict(name="clean", argv=res_argv + [
+                    "--dp", "2", "--ckpt-dir", os.path.join(tmp, "clean")]),
+                dict(name="faulted", fault=c["fault"], argv=res_argv + [
+                    "--dp", "2", "--ckpt-dir", os.path.join(tmp, "faulted")])]
+        nccl = cards >= 2
+        ranks = launch.run("flexflow_torch.tools.mesh_train:chip_world",
+                           (runs, ref_path, device), nprocs=2, device=device,
+                           backend=None if nccl or not cuda else "gloo",
+                           timeout_s=600)
+        t.append(time.perf_counter())
+        backend = "nccl" if nccl else "gloo"
+        b, h = lmc["batch"], lmc["heads"]
+        hd, v, seq = lmc["d_model"] // h, lmc["vocab"], lmc["seq"]
+        mb = b // 2 // c["accum"]  # a rank's microbatch
+        want_shapes = {"flash_attention_lse_auto": [(mb, h, seq, hd)],
+                       "softmax_xent": [(mb * seq, v)]}
+        for i, run in enumerate(runs):
+            res = [r[i] for r in ranks]
+            what = f"mesh-train ({run['name']}, {backend})"
+            for r, got in enumerate(res):
+                _check(got["code"] == 0 and got["backend"] == backend
+                       and not got["jax_imported"]
+                       and all(math.isfinite(x) for x in got["losses"]),
+                       f"{what} rank {r}: exit {got['code']}, backend "
+                       f"{got['backend']}, losses {got['losses']}")
+                _check(got["graph"] in (None, nccl), f"{what}: superstep "
+                       f"graph {got['graph']} over {backend}")
+                for name in ("flash_attention_lse", "flash_attention_lse_bwd",
+                             "softmax_xent", "softmax_xent_bwd"):
+                    _check(got["counts"].get(name, 0) > 0 or not cuda,
+                           f"{what} rank {r}: {name} never launched")
+                _check(got["shapes"] == want_shapes if run["name"] in (
+                    "accum", "remat") else True, f"{what} rank {r}: kernel "
+                    f"shapes {got['shapes']}, expected {want_shapes}")
+                path = launches.setdefault(f"mesh_train_{run['name']}", {})
+                for k, n in got["counts"].items():
+                    path[k] = path.get(k, 0) + n
+            _check(all(got["digest"] == res[0]["digest"] for got in res),
+                   f"{what}: the ranks' parameters differ")
+            _check(res[0]["losses"] == res[1]["losses"],
+                   f"{what}: the ranks' losses differ")
+            if run.get("distance"):
+                gap = max(abs(a - w) / abs(w) for a, w in
+                          zip(res[0]["losses"], one["step_losses"]))
+                dist_ = max(got["distance"] for got in res)
+                _check(len(res[0]["losses"]) == len(one["step_losses"])
+                       and gap <= TOL_MESH_LOSS and dist_ <= TOL_MESH_DIST,
+                       f"{what}: loss gap {gap} (bar {TOL_MESH_LOSS}), "
+                       f"distance {dist_} (bar {TOL_MESH_DIST}); losses "
+                       f"{res[0]['losses']} vs {one['step_losses']}")
+                print(f"[mesh-train] ({run['name']}) -ll:gpu 2 --dp 2 "
+                      f"--steps-per-call {c['k']} --accum-steps {c['accum']}"
+                      f"{' --remat' if run['name'] == 'remat' else ''} "
+                      f"({backend}): {len(res[0]['losses'])} steps, loss gap "
+                      f"to one rank {gap:.3g} (bar {TOL_MESH_LOSS}), "
+                      f"parameter distance {dist_:.3g} (bar "
+                      f"{TOL_MESH_DIST}), launches a rank "
+                      f"{res[0]['counts']}")
+        runs_by = {run["name"]: [r[i] for r in ranks]
+                   for i, run in enumerate(runs)}
+        files = sorted(glob.glob(os.path.join(tel, "run-*-p*.jsonl")))
+        _check([f[-9:] for f in files] == ["-p0.jsonl", "-p1.jsonl"],
+               f"mesh-train (a): telemetry run files {files}")
+        clean, faulted = runs_by["clean"][0], runs_by["faulted"][0]
+        _check(faulted["restarts"] == 1 and clean["restarts"] == 0
+               and faulted["losses"] == clean["losses"]
+               and faulted["digest"] == clean["digest"],
+               f"mesh-train (c): faulted {faulted['losses']} (restarts "
+               f"{faulted['restarts']}) vs clean {clean['losses']}")
+        restore_s, save_s = _one_rank_snapshot(
+            torch, os.path.join(tmp, "faulted"), lmc, faulted["digest"],
+            "(c)", device)
+        print(f"[mesh-train] (c) --resilient --save-every {c['save_every']} "
+              f"--steps-per-call {c['k']}, a raised fault before step "
+              f"{c['fault']} on both ranks ({backend}): one restart, "
+              f"{len(clean['losses'])} losses and every parameter bit for "
+              f"bit the unfaulted world's; the last snapshot restored on one "
+              f"rank in {restore_s:.3f} s equals the world's gathered "
+              f"parameters bit for bit; (a) wrote {len(files)} run files")
+        t.append(time.perf_counter())
+        shapes = {s for r in ranks for got in r
+                  for s in got["shapes"].get("flash_attention_lse_auto", [])}
+        if not cuda:
+            shapes = set()
+        holds = [f"K1f/K1b {sh}: " + ", ".join(
+            f"{k} {x:.3g}" for k, x in mesh_attention_hold(
+                torch, kernels, sh).items()) for sh in sorted(shapes)]
+        for n, vv in sorted({s for r in ranks for got in r
+                             for s in got["shapes"].get("softmax_xent", [])}
+                            if cuda else ()):
+            holds.append(f"K3 ({n}, {vv}): " + ", ".join(
+                f"{k} {x:.3g}" for k, x in mesh_xent_hold(
+                    torch, kernels, n, vv).items()))
+        print("[mesh-train] holds at the ranks' shapes: " + "; ".join(holds))
+        t.append(time.perf_counter())
+        if cards >= 4:
+            spec = dict(root=os.path.join(tmp, "graphs"),
+                        lm=MESH_TRAIN["lm"], dlrm=MESH_TRAIN["dlrm"],
+                        chaos=list(MESH_TRAIN["chaos"]))
+            worlds = launch.run("flexflow_torch.tools.mesh_train:chip_graphs",
+                                (spec,), nprocs=4, device="cuda",
+                                timeout_s=900)
+            lm = [w["lm"] for w in worlds]
+            _check(all(x["digest"] == lm[0]["digest"] for x in lm),
+                   "mesh-train (d): the ranks' parameters differ")
+            for arm in ("lm", "dlrm"):
+                for r, w in enumerate(worlds):
+                    path = launches.setdefault(f"mesh_train_graph_{arm}", {})
+                    for k, n in w[arm]["counts"].items():
+                        path[k] = path.get(k, 0) + n
+            for r, w in enumerate(worlds):
+                for name, got in w["chaos"].items():
+                    if name == "baseline":
+                        continue
+                    _check(got[0], f"mesh-train (f) rank {r}: {got[1]}")
+            restore1, save1 = _one_rank_snapshot(
+                torch, lm[0]["snapshot"], MESH_TRAIN["lm"], lm[0]["digest"],
+                "(d)")
+            for arm, tag in (("lm", "(d) the LM at dp 2 x tp 2"),
+                             ("dlrm", "(e) the DLRM under dlrm_strategy(4)")):
+                ms_ = [w[arm] for w in worlds]
+                print(f"[mesh-train] {tag} (NCCL, four cards): a k="
+                      f"{MESH_TRAIN[arm]['k']} superstep a CUDA graph on "
+                      f"every rank, bit for bit two eager fits; ms a step "
+                      f"eager (k=1) {[round(x['eager_ms'], 3) for x in ms_]}"
+                      f", as a graph {[round(x['graph_ms'], 3) for x in ms_]}"
+                      f"; one replay's device busy "
+                      f"{[round(x['replay_busy_ms'], 3) for x in ms_]} ms; "
+                      f"launches a rank {ms_[0]['counts']}")
+            print(f"[mesh-train] (d) snapshot of the 2k LM with Adam's "
+                  f"state, gathered: saved on the world in "
+                  f"{[round(x['save_s'], 3) for x in lm]} s, restored on it "
+                  f"in {[round(x['restore_s'], 3) for x in lm]} s; on one "
+                  f"rank restored in {restore1:.3f} s, saved in {save1:.3f} "
+                  f"s; bit for bit")
+            print(f"[mesh-train] (e) DLRM table block a rank "
+                  f"{worlds[0]['dlrm']['table_block']}; (f) chaos at n2c2, "
+                  f"k=8 graphs: {sorted(k for k in worlds[0]['chaos'] if k != 'baseline')} "
+                  f"recovered bit for bit on every rank in "
+                  f"{worlds[0]['chaos_s']:.1f} s")
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("[mesh-train] " + ", ".join(
+        f"{n} {b_ - a:.1f} s" for n, a, b_ in zip(
+            ("one-rank reference", "the world of 2", "(c) one rank",
+             "holds", "the NCCL world of 4"), t, t[1:])) + f"; {card}")
+    return launches
+
+
 def _card() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
@@ -7796,13 +8082,16 @@ def main() -> int:
     t.append(time.perf_counter())
     seq_rows, seq_launches = phase_mesh_seq(torch, kernels, F)
     t.append(time.perf_counter())
+    train_mesh_launches = phase_mesh_train(torch, kernels, F)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
              "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
              "longctx-parity", "probe-kernels", "alexnet-kernels",
              "alexnet-train", "alexnet-parity", "superstep", "serve-features",
              "serve-resilience", "nmt", "item5", "item7", "serve-sched",
-             "fleet", "mesh", "mesh-dlrm", "mesh-serve", "mesh-seq")
+             "fleet", "mesh", "mesh-dlrm", "mesh-serve", "mesh-seq",
+             "mesh-train")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -7857,7 +8146,9 @@ def main() -> int:
                    **{path: counts.get(name, 0)
                       for path, counts in serve_mesh_launches.items()},
                    **{path: counts.get(name, 0)
-                      for path, counts in seq_launches.items()}}
+                      for path, counts in seq_launches.items()},
+                   **{path: counts.get(name, 0)
+                      for path, counts in train_mesh_launches.items()}}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])

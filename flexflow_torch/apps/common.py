@@ -40,8 +40,10 @@ Training apps also read:
   --telemetry DIR (JSONL run telemetry, heartbeat, stall watchdog)
   --stall-deadline S   --stall-notify-pid PID
   --trace DIR (torch.profiler trace of the timed loop)   --profiling
-  (--steps-per-call, --accum-steps, --remat, checkpoints, --resilient,
-   --telemetry, --trace and --profiling run on one rank only so far)
+  (under -ll:gpu N every rank runs them: a superstep is one CUDA graph
+   a rank over NCCL; checkpoints hold whole tensors, written by rank 0
+   and restored under any strategy; each rank writes its own telemetry
+   run and trace file, tagged -p<rank>)
 Every other flag of the JAX package's apps is refused until its slice
 of the port lands (ROADMAP.md queue 1)."""
 
@@ -152,9 +154,9 @@ def world_ranks(cfg: FFConfig, device="cuda") -> int:
     ``-ll:gpu`` stays one process, so an app on a multi-card host does not
     start a world whose replicated ops each run the whole batch.)  On CUDA
     ``N`` above the visible cards raises: two ranks never share a card.
-    Inside a world, the world's size.  Under more than one rank, the
-    training features this slice does not make rank-aware are refused by
-    name (ROADMAP.md item 9e)."""
+    Inside a world, the world's size.  Every training feature runs under
+    any number of ranks (the executor's and the trainers' docstrings say
+    how each is made the same on every rank)."""
     import torch
 
     from flexflow_torch.parallel import launch
@@ -168,21 +170,6 @@ def world_ranks(cfg: FFConfig, device="cuda") -> int:
             raise SystemExit(f"-ll:gpu {n}: {cards} CUDA devices are "
                              f"visible; the port runs one rank per card and "
                              f"never shares one")
-    if n == 1:
-        return n
-    wide = [flag for flag, on in (
-        ("--steps-per-call", cfg.steps_per_call > 1),
-        ("--accum-steps", cfg.accum_steps > 1),
-        ("--remat", cfg.remat),
-        ("--resilient", cfg.resilient),
-        ("--save-every/--ckpt-dir", cfg.save_every > 0 or bool(cfg.ckpt_dir)),
-        ("--telemetry", bool(cfg.telemetry_dir
-                             or os.environ.get("FF_TELEMETRY_DIR"))),
-        ("--trace", bool(cfg.trace_dir)),
-        ("--profiling", cfg.profiling)) if on]
-    if wide:
-        raise SystemExit(f"-ll:gpu {n}: {', '.join(wide)} under more than "
-                         f"one rank is ROADMAP.md queue 1, item 9e")
     return n
 
 
@@ -208,6 +195,10 @@ def spawn_ranks(cfg: FFConfig, target: str, argv, device="cuda",
                            (target, list(argv), kind), nprocs=n, device=kind)
     except Exception as e:  # a rank's failure, with its traceback above
         raise SystemExit(f"-ll:gpu {n}: {type(e).__name__}: {e}")
+    refused = next((code for code, _ in ranks if isinstance(code, str)),
+                   None)
+    if refused is not None:  # a rank's refusal, with its own words
+        raise SystemExit(refused)
     if stats_out is not None:
         stats_out.update(ranks[0][1])
     return next((code for code, _ in ranks if code), 0)
@@ -222,8 +213,11 @@ def rank_app(target: str, argv, device: str):
 
     mod, _, fn = target.partition(":")
     stats: Dict[str, Any] = {}
-    code = getattr(importlib.import_module(mod), fn)(
-        argv, device=device, stats_out=stats)
+    try:
+        code = getattr(importlib.import_module(mod), fn)(
+            argv, device=device, stats_out=stats)
+    except SystemExit as e:  # a refusal (a message) or an exit code
+        code = e.code
     return code, {k: v for k, v in stats.items()
                   if k not in ("final", "executor")}
 
@@ -367,6 +361,7 @@ def _run_resilient(ff, cfg: FFConfig, executor_factory, label: str
         "steps_this_run": completed,
         "step_losses": [out["losses"][s] for s in sorted(out["losses"])],
         "final": (out["params"], out["opt_state"], out["state"]),
+        "executor": rt.executor,
     }
     if "telemetry" in out:
         stats["telemetry"] = out["telemetry"]
@@ -413,8 +408,11 @@ def _run_training(ff, cfg: FFConfig, label: str, device,
 
     def build():
         try:
-            return Executor(ff, cfg, optimizer=make_optimizer(cfg),
-                            device=device, strategy=strategy)
+            ex = Executor(ff, cfg, optimizer=make_optimizer(cfg),
+                          device=device, strategy=strategy)
+            # Under a mesh a microbatch splits over every op's n too.
+            ex.check_microbatches(cfg.accum_steps)
+            return ex
         except ValueError as e:
             raise SystemExit(str(e))
 

@@ -40,9 +40,10 @@ Capacity flags:
                      a rank when the machine has N*C cards) and prints
                      rank 0's report; with fewer cards it falls back
                      loudly to the single-mesh engine on one.  Each rank
-                     writes its own --journal (rank r > 0: PATH.rank{r});
-                     --telemetry under more than one rank and --dry-run
-                     with --shard are refused (ROADMAP.md items 9e, 14)
+                     writes its own --journal (rank r > 0: PATH.rank{r})
+                     and, with --telemetry, its own run (-p<rank>);
+                     --dry-run with --shard is refused (ROADMAP.md item
+                     14)
 
 Speculation flags:
   --speculate d      draft d tokens and verify d+1 in one round; each
@@ -314,9 +315,6 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
                              "1, item 14")
     ranks = launch.world_size() if launch.in_world() or not shard \
         else _shard_ranks(shard, device)
-    if ranks > 1 and (cfg.telemetry_dir or os.environ.get("FF_TELEMETRY_DIR")):
-        raise SystemExit(f"--shard under {ranks} ranks: --telemetry is "
-                         f"ROADMAP.md queue 1, item 9e")
     if ranks > 1 and not launch.in_world():
         return _spawn_shard(argv0, ranks, device, stats_out)
     if buckets_s:

@@ -52,7 +52,10 @@ STEP_WINDOWS = ("train", "superstep")
 
 
 def find_trace(log_dir: str) -> Optional[str]:
-    """The newest ``*.pt.trace.json[.gz]`` under ``log_dir``."""
+    """The newest ``*.pt.trace.json[.gz]`` under ``log_dir`` (``log_dir``
+    itself when it names a trace file)."""
+    if os.path.isfile(log_dir):
+        return log_dir
     paths = [p for suffix in (TRACE_SUFFIX, TRACE_SUFFIX + ".gz")
              for p in glob.glob(os.path.join(log_dir, "**", "*" + suffix),
                                 recursive=True)]

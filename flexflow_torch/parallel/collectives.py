@@ -96,6 +96,12 @@ class World:
                 pg = dist.new_group(list(ranks))
                 if self.rank in ranks:
                     self._groups[axes] = (pg, list(ranks))
+        #: The group the host's decisions are agreed over (``agree``,
+        #: ``broadcast_int``): the world's own under gloo, a gloo group of
+        #: every rank beside NCCL's, so an agreement never touches the
+        #: device nor waits for its queue.
+        self._host = None if self.backend == "gloo" else \
+            dist.new_group(backend="gloo")
         #: Seconds spent in collectives while ``timed`` (each one then
         #: waits for the device before it starts and before it returns),
         #: and the same seconds by the collective's name.
@@ -232,6 +238,22 @@ class World:
             return recv.to(t.device) if stage else recv
 
         return self._run(fn, x, "shift")
+
+    # -- the host's agreements -----------------------------------------
+
+    def agree(self, *flags: bool) -> Tuple[bool, ...]:
+        """Each flag OR-ed over every rank: one all-reduce (max) of a small
+        CPU tensor over the host group, so every rank takes the same
+        branch after it."""
+        t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._host)
+        return tuple(bool(v) for v in t.tolist())
+
+    def broadcast_int(self, value: int) -> int:
+        """Rank 0's ``value`` on every rank (over the host group)."""
+        t = torch.tensor([int(value)], dtype=torch.int64)
+        dist.broadcast(t, src=0, group=self._host)
+        return int(t.item())
 
     def block(self, x: torch.Tensor, dim: int,
               axes: Sequence[str]) -> torch.Tensor:

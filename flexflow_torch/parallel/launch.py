@@ -19,6 +19,9 @@ Backends:
   ``r % cards``, all ranks on the one card of a one-card machine.  Only
   an explicit ``backend="gloo"`` takes this form.
 
+A rank that has written its result leaves; over NCCL without tearing
+the process group down (see ``_rank_main``).
+
 Only rank 0's standard output is kept (the report a run prints once);
 every rank keeps its standard error.  A rank that raises fails the run:
 the parent stops the other ranks and raises with the rank's traceback.
@@ -118,6 +121,14 @@ def _rank_main(r: int, nprocs: int, tmp: str, backend: str, device: str,
     with open(os.path.join(tmp, f"rank{r}.pkl"), "wb") as f:
         pickle.dump(out, f)
     sys.stdout.flush()
+    if backend == "nccl":
+        # NCCL's teardown waited forever on H100s (NCCL 2.28.9, torch
+        # 2.11) once the world's collectives had been captured into CUDA
+        # graphs at full width; the rank's result is written and the
+        # device idle, so it leaves without tearing the group down.
+        torch.cuda.synchronize()
+        sys.stderr.flush()
+        os._exit(0)
     dist.destroy_process_group()
 
 

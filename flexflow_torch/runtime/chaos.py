@@ -9,8 +9,10 @@ Training scenarios inject a fault through
 CUDA; k = 1 the per-step path) with saves every 8 steps, and require the
 recovered loss trajectory to equal the unfaulted run's bit for bit.
 Their model is JAX's chaos MLP (16 -> 32 ReLU -> 4, softmax, SGD lr 0.1,
-batch 8) on one device: JAX runs it under an ``n2c4`` strategy on 8
-virtual devices, which waits for ROADMAP.md queue 1, item 9e.
+batch 8).  On a world of 8 ranks it runs under JAX's own table, ``fc1``
+hybrid-parallel ``n2c4`` (``chaos_table``), every rank of the world
+running the scenario together (each with its own injector, the same
+schedule); on 4 ranks under ``n2c2``; on one device, as a plain run.
 
 The serving scenarios run the plain ``Server``'s and the scheduler's
 failure models on JAX's scenario stack (vocab 32, d_model 16, 2 heads,
@@ -43,6 +45,8 @@ import torch
 from flexflow_torch.config import FFConfig
 from flexflow_torch.graph import FFModel
 from flexflow_torch.optim import SGDOptimizer
+from flexflow_torch.parallel import launch
+from flexflow_torch.parallel.strategy import ParallelConfig, StrategyStore
 from flexflow_torch.runtime.checkpoint import CheckpointManager
 from flexflow_torch.runtime.executor import Executor
 from flexflow_torch.runtime.resilience import (
@@ -58,8 +62,17 @@ K, ITERS, SAVE_EVERY = 8, 16, 8
 Result = Tuple[bool, str]
 
 
+def chaos_table(ranks: int) -> Dict[str, ParallelConfig]:
+    """The chaos model's strategy table on ``ranks`` ranks: JAX's ``fc1``
+    at ``n2c4`` on 8 (``flexflow_tpu/runtime/chaos.py``), ``n2c2`` on 4,
+    none (data parallelism, or one device) otherwise."""
+    c = {8: 4, 4: 2}.get(ranks)
+    return {"fc1": ParallelConfig(n=2, c=c)} if c else {}
+
+
 def tiny_factory(device="cuda") -> Callable[[], Executor]:
-    """Executor factory of the chaos model on ``device``."""
+    """Executor factory of the chaos model on ``device``, under
+    :func:`chaos_table` of the world's size."""
 
     def make() -> Executor:
         ff = FFModel(FFConfig(batch_size=8))
@@ -68,7 +81,9 @@ def tiny_factory(device="cuda") -> Callable[[], Executor]:
         t = ff.dense(x, 32, activation="relu", name="fc1")
         t = ff.dense(t, 4, name="fc2")
         ff.softmax(t, lbl, name="softmax")
-        return Executor(ff, optimizer=SGDOptimizer(lr=0.1), device=device)
+        ranks = launch.world_size()
+        return Executor(ff, optimizer=SGDOptimizer(lr=0.1), device=device,
+                        strategy=StrategyStore(ranks, chaos_table(ranks)))
 
     return make
 

@@ -49,6 +49,19 @@ failed there is raised at the next ``save``, ``wait_until_finished``,
 One writer: ``is_primary`` is rank 0 of an initialised
 ``torch.distributed`` world that is not ``read_only``, and True
 otherwise; only it writes.
+
+**Under a world of ranks** the trainer binds the executor's
+``layout`` (``Executor.snapshot_layout``; the manager itself knows no
+strategy), and the format stays the same: whole tensors.  ``save`` has
+every rank gather its blocks into whole tensors (``layout.full``, a
+collective, on the caller's thread) before the primary check; only rank
+0 copies them to the host and writes.  ``restore`` has rank 0 flush its
+pending write and choose the step (the newest readable one), which is
+broadcast, so every rank loads the same step; each rank copies its
+block of every whole tensor (``layout.cut``) into its template, the
+key, shape and dtype checks made against the whole shape.  So a
+snapshot written under one strategy or number of ranks restores under
+any other, ZeRO-1's moments with ZeRO off included.
 """
 
 from __future__ import annotations
@@ -160,6 +173,9 @@ class CheckpointManager:
         self._writer: Optional[threading.Thread] = None
         self._write_error: Optional[BaseException] = None
         self._pinned: Dict[Tuple[str, str], torch.Tensor] = {}
+        #: The executor's snapshot layout under a world of ranks (see the
+        #: module docstring); None: the tensors are whole already.
+        self.layout = None
         if self.is_primary:
             os.makedirs(self.directory, exist_ok=True)
             self._recover_pending_force()
@@ -219,14 +235,21 @@ class CheckpointManager:
             torch.cuda.synchronize()
         return out
 
-    def _items(self, params, opt_state, state) -> Dict[str, Dict]:
-        """``{item: flat host map}``, items without a tensor left out."""
+    def _whole(self, params, opt_state, state) -> Dict[str, Dict]:
+        """``{item: flat map of whole tensors}``, items without a tensor
+        left out; under a layout every rank gathers here."""
         items = {}
         for name, tree in zip(ITEMS, (params, opt_state, state)):
             flat = flatten(tree)
             if flat or name == "params":
-                items[name] = self._host_copy(name, flat)
+                items[name] = flat if self.layout is None else \
+                    self.layout.full(name, flat)
         return items
+
+    def _items(self, params, opt_state, state) -> Dict[str, Dict]:
+        """``{item: flat host map}``, items without a tensor left out."""
+        return {name: self._host_copy(name, flat) for name, flat in
+                self._whole(params, opt_state, state).items()}
 
     def _write(self, dest: str, items: Dict[str, Dict]) -> None:
         """Write ``items`` into a staging directory, then rename it to
@@ -266,8 +289,17 @@ class CheckpointManager:
 
     def _save(self, step: int, params, opt_state, state, force: bool) -> bool:
         self.wait_until_finished()  # one write at a time; raises its error
+        whole = self._whole(params, opt_state, state) \
+            if self.layout is not None else None  # every rank gathers
         if not self.is_primary:
             return False
+
+        def items():
+            if whole is None:
+                return self._items(params, opt_state, state)
+            return {name: self._host_copy(name, flat)
+                    for name, flat in whole.items()}
+
         if step in self.all_steps():
             torn = not self._readable(step)
             if not (force or torn):
@@ -276,13 +308,12 @@ class CheckpointManager:
             if torn and not force:
                 _log.warning("step %d exists but is torn; replacing it",
                              step)
-            tmp = self._write_force_tmp(
-                step, self._items(params, opt_state, state))
+            tmp = self._write_force_tmp(step, items())
             self._promote_force_tmp(step, tmp)
             return True
         if not force and not self._should_save(step):
             return False
-        items = self._items(params, opt_state, state)
+        items = items()
         dest = os.path.join(self.directory, str(step))
         if self.async_save:
             self._writer = threading.Thread(
@@ -354,6 +385,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def has_step(self, step: int) -> bool:
+        """Whether ``step`` is committed, its pending write flushed first;
+        under a layout rank 0's answer, the same on every rank."""
+        self.wait_until_finished()
+        found = step in self.all_steps()
+        if self.layout is None:
+            return found
+        return bool(self.layout.broadcast_int(int(found)))
+
     def _item_path(self, step: int, item: str) -> str:
         return os.path.join(self.directory, str(step), item, ITEM_FILE)
 
@@ -379,6 +419,31 @@ class CheckpointManager:
         self.wait_until_finished()  # async saves must be visible
         if step is not None:
             return self._restore_step(int(step), templates)
+        if self.layout is None:
+            chosen, loaded = self._choose()
+            return self._restore_step(chosen, templates, loaded)
+        # Rank 0 chooses; every rank loads the step it chose.
+        chosen, loaded, err = -1, None, None
+        if self.layout.rank == 0:
+            try:
+                chosen, loaded = self._choose()
+            except TornCheckpointError as e:
+                chosen, err = -2, e
+            except FileNotFoundError as e:
+                err = e
+        chosen = self.layout.broadcast_int(chosen)
+        if chosen == -1:
+            raise err or FileNotFoundError(
+                f"no checkpoint found under {self.directory}")
+        if chosen == -2:
+            raise err or TornCheckpointError(
+                f"no restorable checkpoint under {self.directory}")
+        return self._restore_step(chosen, templates, loaded)
+
+    def _choose(self):
+        """``(step, loaded items)`` of the newest readable step; a torn
+        step is skipped (``ckpt_torn``).  Raises FileNotFoundError with
+        no step, TornCheckpointError when every step is torn."""
         steps = self.all_steps()[::-1]
         if not steps:
             raise FileNotFoundError(
@@ -386,7 +451,7 @@ class CheckpointManager:
         last_err: Optional[Exception] = None
         for s in steps:
             try:
-                return self._restore_step(s, templates)
+                return s, self._load_step(s)
             # Narrow on purpose: a ValueError is a template mismatch and
             # must surface, never fall back to an older step.
             except (TornCheckpointError, FileNotFoundError, OSError) as e:
@@ -419,10 +484,11 @@ class CheckpointManager:
                                       f"tensor map")
         return flat
 
-    @staticmethod
-    def _into(item: str, saved: Optional[Dict[str, torch.Tensor]], template):
-        """``saved`` copied into ``template``'s tensors; the template is
-        returned.  No saved item: the template (it held no tensor)."""
+    def _into(self, item: str, saved: Optional[Dict[str, torch.Tensor]],
+              template):
+        """``saved`` copied into ``template``'s tensors (under a layout the
+        rank's block of each); the template is returned.  No saved item:
+        the template (it held no tensor)."""
         want = flatten(template)
         if saved is None:
             if want:
@@ -439,20 +505,29 @@ class CheckpointManager:
                 f"checkpoint {item}: key mismatch: the template has "
                 f"{missing[:4]} the snapshot lacks, the snapshot has "
                 f"{extra[:4]} the template lacks")
+        lay = self.layout
         for k, dst in want.items():
             src = saved[k]
-            if src.shape != dst.shape or src.dtype != dst.dtype:
+            shape = tuple(dst.shape) if lay is None else \
+                lay.full_shape(item, k, dst)
+            if tuple(src.shape) != shape or src.dtype != dst.dtype:
                 raise ValueError(
                     f"checkpoint {item}/{k}: saved {tuple(src.shape)} "
-                    f"{src.dtype}, template {tuple(dst.shape)} {dst.dtype}")
+                    f"{src.dtype}, template {shape} {dst.dtype}")
         with torch.no_grad():
             for k, dst in want.items():
-                dst.copy_(saved[k])
+                dst.copy_(saved[k] if lay is None else
+                          lay.cut(item, k, saved[k]))
         return template
 
-    def _restore_step(self, step: int, templates):
+    def _load_step(self, step: int):
+        return {item: self._load(step, item) for item in ITEMS}
+
+    def _restore_step(self, step: int, templates, loaded=None):
+        """``step`` restored into ``templates`` from its ``loaded`` items
+        (None: read them now)."""
         t_params, t_opt, t_state = templates
-        loaded = {item: self._load(step, item) for item in ITEMS}
+        loaded = loaded or self._load_step(step)
         return (step,
                 self._into("params", loaded["params"], t_params),
                 self._into("opt_state", loaded["opt_state"], t_opt),

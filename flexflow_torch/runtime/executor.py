@@ -76,8 +76,26 @@ on its blocks: shard_map done by hand.
 - The ``s`` degree splits the sequence: the ops that read it whole
   split their work along it themselves (ring attention,
   ``ops/attention.py``; the LSTM's pipeline, ``ops/rnn.py``).
-- Supersteps, gradient accumulation and ``--remat`` (item 9e) are
-  refused under more than one rank.
+- The training machinery runs on every rank (JAX's single controller
+  makes each of its decisions once; here every rank makes it the same
+  way):
+
+  - gradient accumulation sums each rank's unreduced microbatch
+    gradients in f32 and reduces their mean once (``_dense_update``:
+    the all-reduce, or ZeRO-1's reduce-scatter, then the world's clip
+    norm and one update);
+  - ``--remat`` recomputes an op's forward in the backward, its
+    collectives (the ring's shifts, the MoE's reduce-scatter and
+    all-gathers) issued again by every rank in the same order;
+  - a superstep's stacked inputs are cut to the rank's blocks after
+    their leading step (and microbatch) dims (``stack_steps``); over
+    NCCL on CUDA the k steps are one CUDA graph with their collectives
+    captured, over gloo a loop (``superstep_graph``);
+  - snapshots hold whole tensors whatever the strategy
+    (``snapshot_layout``: every rank gathers before rank 0 writes, and
+    each rank cuts its blocks out of what it restores);
+  - ``agree`` ORs the host's flags (a preemption, a failed step) over the
+    world, so every rank takes the same branch.
 """
 
 from __future__ import annotations
@@ -197,21 +215,10 @@ class Executor:
         #: one device, no spec bookkeeping at all.
         self.world = _world_for(self.plan) if launch.in_world() else None
         if nd > 1:
-            self._check_mesh(nd)
+            for op in self.model.layers:
+                self.plan.assign(self._pc(op))  # InfeasibleStrategyError
         #: Per op, the mesh axes its work is split on (``_op_work_axes``).
         self._work_axes: Dict[str, tuple] = {}
-
-    def _check_mesh(self, nd: int) -> None:
-        """What this slice does not run under more than one rank raises,
-        naming the ROADMAP.md item that brings it."""
-        def refuse(what, item):
-            raise ValueError(f"{what} under {nd} ranks is ROADMAP.md queue 1, "
-                             f"item {item}")
-
-        for op in self.model.layers:
-            self.plan.assign(self._pc(op))  # InfeasibleStrategyError here
-        if self.config.remat:
-            refuse("--remat", "9e")
 
     def _pc(self, op: Op):
         return self.strategy.find(op.name)
@@ -401,10 +408,13 @@ class Executor:
                     else p
         return out
 
-    def shard_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    def shard_batch(self, batch: Mapping[str, Any],
+                    lead: int = 0) -> Dict[str, torch.Tensor]:
         """A host batch as tensors on the device, each in its input's
         dtype.  Under a mesh a host (numpy) array is the global batch and
-        the rank keeps its block of it; a tensor is taken as the rank's
+        the rank keeps its block of it, cut on the dims after the
+        ``lead`` leading ones (a superstep's steps, an accumulated step's
+        microbatches), which stay whole; a tensor is taken as the rank's
         block already."""
         out = {}
         for t in self.model.input_tensors:
@@ -413,10 +423,25 @@ class Executor:
             v = batch[t.name]
             if self.world is not None and not isinstance(v, torch.Tensor):
                 v = np.asarray(v)
-                v = v[self.plan.local_slices(self._batch_specs[t.name],
-                                             v.shape, self.world.rank)]
+                v = v[(slice(None),) * lead + self.plan.local_slices(
+                    self._batch_specs[t.name], v.shape[lead:],
+                    self.world.rank)]
             out[t.name] = torch.as_tensor(v).to(self.device, t.dtype)
         return out
+
+    def agree(self, *flags: bool) -> tuple:
+        """The host's ``flags`` OR-ed over the world (one small
+        collective on the host), so every rank takes the same branch;
+        the flags themselves on one device."""
+        if self.world is None:
+            return tuple(bool(f) for f in flags)
+        return self.world.agree(*flags)
+
+    def snapshot_layout(self) -> Optional["SnapshotLayout"]:
+        """The layout hook of ``CheckpointManager`` under a world (whole
+        tensors on disk, the rank's blocks in memory); None on one
+        device, where the two are the same."""
+        return None if self.world is None else SnapshotLayout(self)
 
     # -- forward -------------------------------------------------------------
 
@@ -629,13 +654,6 @@ class Executor:
                      for k, g in group.items()}
                 for op, group in grads.items()}
 
-    def _clip_grads(self, grads):
-        """--clip-norm: scale every gradient by ``min(1, c / ||g||)``."""
-        c = self.config.clip_norm
-        if not c or c <= 0.0:
-            return grads
-        return self._scaled(grads, self._clip_scale(grads))
-
     @functools.cached_property
     def _sparse_ops(self) -> List[Op]:
         """Ops taking the row-sparse update path: embedding ops whose
@@ -808,13 +826,13 @@ class Executor:
                 raise ValueError(
                     f"gradient accumulation requires mean-reduction "
                     f"losses; {op.name!r} uses {op.reduction!r}")
-        opt = self._require_optimizer("accum_train_step")
-        self._refuse_multi("gradient accumulation (--accum-steps)")
+        self._require_optimizer("accum_train_step")
+        self.check_microbatches(accum_steps)
 
         def step(params, opt_state, state, stacked):
             acc, ms = None, []
             for i in range(accum_steps):
-                _, m, state, grads = self.loss_and_grads(
+                _, m, state, grads, _ = self._grads(
                     params, state, {k: v[i] for k, v in stacked.items()})
                 ms.append(m)
                 if acc is None:  # f32 sums, in microbatch order
@@ -827,13 +845,26 @@ class Executor:
             grads = {op: {k: (a / accum_steps).to(params[op][k].dtype)
                           for k, a in group.items()}
                      for op, group in acc.items()}
-            grads = self._clip_grads(grads)
             metrics = mean_metrics({k: torch.stack([m[k] for m in ms])
                                     for k in ms[0]}, stacked=True)
-            params, opt_state = opt.update(params, opt_state, grads)
+            # The mean reduced once over the mesh, clipped over the
+            # world, one update (ZeRO-1's included).
+            opt_state, _ = self._dense_update(params, opt_state, grads)
             return params, opt_state, state, metrics
 
         return step
+
+    def check_microbatches(self, accum_steps: int) -> None:
+        """Raise when a microbatch of the batch does not split over an
+        op's ``n`` degree (``--accum-steps`` under a mesh)."""
+        batch = self.model.input_tensors[0].shape[0]
+        micro = batch // max(accum_steps, 1)
+        for op in self.model.layers:
+            n = self._pc(op).degree("n")
+            if accum_steps > 1 and micro % n:
+                raise ValueError(
+                    f"--accum-steps {accum_steps}: a microbatch of {micro} "
+                    f"samples does not split over op {op.name!r}'s n = {n}")
 
     @staticmethod
     def stack_microbatches(batch: Mapping[str, Any], accum_steps: int):
@@ -851,17 +882,22 @@ class Executor:
 
     # -- superstep execution ---------------------------------------------
 
-    def _refuse_multi(self, what: str) -> None:
-        if self.plan.num_devices > 1:
-            raise ValueError(f"{what} under {self.plan.num_devices} ranks is "
-                             f"ROADMAP.md queue 1, item 9e")
-
     @property
     def superstep_fused(self) -> bool:
-        """Whether ``steps_per_call > 1`` fuses into one dispatch here (the
-        trainer routes on it, as the JAX package's does): on one rank;
-        under more, supersteps are item 9e."""
-        return self.plan.num_devices == 1
+        """Whether ``steps_per_call > 1`` runs as one superstep here (the
+        trainer routes on it, as the JAX package's does on
+        ``strategy.superstep_capable()``): always, since every strategy
+        the port runs spans the full mesh (``check_full_mesh``)."""
+        return True
+
+    @property
+    def superstep_graph(self) -> bool:
+        """Whether a superstep is one CUDA graph here: on CUDA, on one
+        device or a world over NCCL (its collectives are captured); over
+        gloo, whose collectives cannot be, the k steps run as a loop."""
+        return self.device.type == "cuda" and (
+            self.world is None or self.world.backend != "gloo"
+            or self.plan.num_devices == 1)
 
     def build_superstep(self, k: int, accum_steps: int = 1):
         """K full train steps (accumulated steps with ``accum_steps >
@@ -875,15 +911,18 @@ class Executor:
         updated in place, a call on other tensors than the captured ones
         raises, a failed capture raises, and ``ms`` holds until the next
         call; ``capture`` records the graph without running it);
-        elsewhere they run as a loop.  Each call of this method builds a
-        new graph; the caller clamps ``k`` with
-        ``trainer.relay_safe_steps``."""
+        elsewhere, and over gloo under a world (``superstep_graph``), they
+        run as a loop.  Under NCCL the graph holds the steps' collectives
+        and the first call's eager steps make NCCL's communicators before
+        the capture.  Each call of this method builds a new graph; the
+        caller clamps ``k`` with ``trainer.relay_safe_steps``."""
         if k < 1:
             raise ValueError(f"steps_per_call must be >= 1, got {k}")
-        self._refuse_multi("the superstep (--steps-per-call)")
         step = (self.accum_train_step(accum_steps) if accum_steps > 1
                 else self.train_step)
-        return StepGraph(step, k, self.device)
+        return StepGraph(step, k, self.device, graph=self.superstep_graph,
+                         capture_error_mode="global" if self.world is None
+                         else "thread_local")
 
     @staticmethod
     def metrics_row(ms: Dict[str, Any], j: int) -> Dict[str, Any]:
@@ -897,10 +936,15 @@ class Executor:
         ``(k, ...)`` device tensors :meth:`build_superstep` takes, each in
         its input's dtype; with ``accum_steps > 1`` each step first takes
         the ``(accum, b, ...)`` microbatch layout.  Integer inputs (ids,
-        labels) are staged first, as the JAX package stages them."""
+        labels) are staged first, as the JAX package stages them.  Under a
+        mesh numpy batches are global and the rank keeps its block of
+        each, cut after the leading step (and microbatch) dims, JAX's
+        placement "under unsharded leading dims"; tensors are taken as
+        the rank's blocks already."""
         if accum_steps > 1:
             batches = [self.stack_microbatches(b, accum_steps)
                        for b in batches]
+        lead = 2 if accum_steps > 1 else 1
         dtypes = {t.name: t.dtype for t in self.model.input_tensors}
         names = sorted(batches[0],
                        key=lambda n: dtypes[n].is_floating_point)
@@ -908,7 +952,7 @@ class Executor:
         for name in names:
             vals = [b[name] for b in batches]
             if all(isinstance(v, np.ndarray) for v in vals):
-                stacked = torch.from_numpy(np.stack(vals))
+                stacked = self.shard_batch({name: np.stack(vals)}, lead)[name]
             else:
                 stacked = torch.stack([torch.as_tensor(v).to(self.device)
                                        for v in vals])
@@ -921,3 +965,66 @@ class Executor:
         loss, metrics, _, _ = self.forward(params, state, batch,
                                            training=False)
         return loss, metrics
+
+
+class SnapshotLayout:
+    """The executor's side of a snapshot under a world of ranks
+    (``CheckpointManager.layout``): on disk every tensor is whole, as one
+    device holds it, so a snapshot restores under any strategy and any
+    number of ranks; in memory each rank holds its blocks.
+
+    - ``full`` reassembles the parameters, op state and optimizer state
+      on every rank (``Executor.gather_full``'s reshard: by
+      ``param_specs()`` for the parameters and op state, by
+      ``zero_specs()`` for the optimizer's parameter-shaped leaves, which
+      are the parameter's spec without ``--zero-opt``); every rank calls
+      it, before rank 0 writes;
+    - ``full_shape`` and ``cut`` give a saved tensor's whole shape and the
+      rank's block of it, by the same specs, for ``restore``;
+    - ``broadcast_int`` hands rank 0's choice (the step to restore) to
+      every rank.
+
+    A leaf the specs do not name (Adam's step count) is replicated."""
+
+    def __init__(self, ex: Executor):
+        self.world = ex.world
+        self.rank = ex.world.rank
+        self._ex = ex
+        self._specs = {"params": ex.param_specs(), "state": ex.param_specs(),
+                       "opt_state": ex.zero_specs()}
+        self._shapes = {}
+        for op in ex.model.layers:
+            for k, spec in {**op.param_specs(), **op.state_specs()}.items():
+                self._shapes[(op.name, k)] = tuple(spec.shape)
+
+    def _key(self, path: str):
+        parts = path.split("/")
+        return tuple(parts[-2:]) if len(parts) >= 2 else None
+
+    def _spec(self, item: str, path: str, t: torch.Tensor):
+        key = self._key(path)
+        if key is not None:
+            spec = self._specs[item].get(key[0], {}).get(key[1])
+            if spec is not None:
+                return spec
+        return replicated(t.dim())
+
+    @torch.no_grad()
+    def full(self, item: str, flat: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        """The whole tensors of ``item``'s flat ``{path: block}`` map."""
+        return {path: collectives.reshard(t, self._spec(item, path, t),
+                                          replicated(t.dim()), self.world)
+                for path, t in flat.items()}
+
+    def full_shape(self, item: str, path: str, t: torch.Tensor) -> tuple:
+        """The whole shape of the tensor whose block ``t`` is."""
+        return self._shapes.get(self._key(path), tuple(t.shape))
+
+    def cut(self, item: str, path: str, full: torch.Tensor) -> torch.Tensor:
+        """The rank's block of a whole saved tensor."""
+        spec = self._spec(item, path, full)
+        return full[self._ex.plan.local_slices(spec, full.shape, self.rank)]
+
+    def broadcast_int(self, value: int) -> int:
+        return self.world.broadcast_int(value)

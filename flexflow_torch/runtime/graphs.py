@@ -34,6 +34,19 @@ The stacked outputs of a replay are the graph's static tensors: they
 hold until the next call overwrites them, so the caller reads them (the
 trainer's one host readback per superstep) before calling again.
 
+Under a world of ranks the steps hold collectives:
+
+- over NCCL they are captured with the kernels into the rank's graph
+  (NCCL's communicators are made by the eager first call, before any
+  capture); the executor captures them in ``thread_local`` error mode,
+  so the process group's watchdog thread may still query its own events
+  meanwhile;
+- over gloo (the CPU, or ranks sharing one card) nothing of a
+  collective can be captured: the caller builds the step graph with
+  ``graph=False`` and the k steps run as a loop on CUDA too.  That is
+  chosen from the backend before the first call, never after a failed
+  capture.
+
 Elsewhere (the CPU) the k steps run as a Python loop.  The kernels'
 Python launch counters advance while a graph is captured and not when
 it replays.
@@ -71,12 +84,17 @@ class StepGraph:
     """``k`` steps of ``step`` over a stacked input, as one CUDA graph on
     CUDA and a Python loop elsewhere (see the module docstring)."""
 
-    def __init__(self, step: Callable, k: int, device: torch.device):
+    def __init__(self, step: Callable, k: int, device: torch.device,
+                 graph: bool = True, capture_error_mode: str = "global"):
         if k < 1:
             raise ValueError(f"a step graph needs k >= 1, got {k}")
         self.step = step
         self.k = k
         self.device = torch.device(device)
+        #: Whether the k steps are one CUDA graph (on CUDA, unless the
+        #: caller asks for the loop: ranks over gloo).
+        self.graphed = graph and self.device.type == "cuda"
+        self.capture_error_mode = capture_error_mode
         self._graph = None
         self._static_in: Dict[str, torch.Tensor] = {}
         self._static_out: Dict[str, torch.Tensor] = {}
@@ -98,7 +116,7 @@ class StepGraph:
         """``step``'s carry and then the stacked inputs in; ``(*carry,
         outs)`` out after k steps, ``outs`` stacked ``(k, ...)``."""
         carry, stacked = args[:-1], args[-1]
-        if self.device.type != "cuda":
+        if not self.graphed:
             carry, outs = self._run(carry, stacked)
         elif self._graph is None:
             carry, outs = self._warm(carry, stacked)
@@ -146,8 +164,9 @@ class StepGraph:
         step must already have run eagerly in this process at these
         shapes (a first call does that), so no kernel is built or
         planned while capturing."""
-        if self.device.type != "cuda":
-            raise ValueError("only a step graph on CUDA is captured")
+        if not self.graphed:
+            raise ValueError("only a step graph on CUDA, built with "
+                             "graph=True, is captured")
         if self._graph is not None:
             raise RuntimeError("this step graph is already captured")
         carry, stacked = args[:-1], args[-1]
@@ -157,7 +176,9 @@ class StepGraph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            mode = {} if self.capture_error_mode == "global" else {
+                "capture_error_mode": self.capture_error_mode}
+            with torch.cuda.graph(graph, **mode):
                 out_carry, outs = self._run(carry, static_in)
         finally:
             if collecting:

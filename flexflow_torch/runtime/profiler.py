@@ -12,11 +12,16 @@ The reference times each task with a cudaEvent pair under
   has no skip (and no ``profile_skipped`` event).
 - :func:`trace` records everything run inside it with ``torch.profiler``
   (host ops, and on CUDA the kernels and copies) and writes a Chrome
-  trace ``DIR/<host>_<pid>.<n>.pt.trace.json``, which
-  ``obs/trace.py`` summarises.
+  trace ``DIR/<host>_<pid><tag>.<n>.pt.trace.json``, which
+  ``obs/trace.py`` summarises; under a world of ranks ``<tag>`` is the
+  rank's ``-p<rank>`` (``telemetry.process_tag``), one file a rank.
+
+Under a world every rank runs :func:`profile_ops` (the ops hold
+collectives, so every rank times each op, in the same order, on its
+blocks); the caller prints rank 0's table.
 
 The measured cost tables of the strategy search (``measured_degree_table``,
-``measured_cost_table``) come with items 9 and 11.
+``measured_cost_table``) come with item 11, the search.
 """
 
 from __future__ import annotations
@@ -75,10 +80,20 @@ def profile_ops(ex, params: Any, state: Any, batch: Dict[str, Any],
     """Time every op's forward (inference mode) alone, in graph order, on
     the inputs the ops before it produced from ``batch``.  One row per op
     with its name, type and declared output shapes."""
+    from flexflow_torch.parallel import collectives
+
     env = ex._inputs(batch, {t.name for t in ex.model.input_tensors})
+    specs = {} if ex.world is None else {k: ex._batch_specs[k] for k in env}
     profiles: List[OpProfile] = []
     for op in ex.model.layers:
-        xs = [env[t.name] for t in op.inputs]
+        ex._bind(op)
+        if ex.world is None:
+            xs = [env[t.name] for t in op.inputs]
+        else:
+            xs = [collectives.reshard(env[t.name], specs[t.name],
+                                      op.input_spec(i, specs[t.name]),
+                                      ex.world)
+                  for i, t in enumerate(op.inputs)]
         p = params.get(op.name, {})
         s = state.get(op.name, {})
 
@@ -88,8 +103,10 @@ def profile_ops(ex, params: Any, state: Any, batch: Dict[str, Any],
 
         ys = run()
         us = _timed_us(run, ex.device, reps, warmup)
-        for t, y in zip(op.outputs, ys):
+        for j, (t, y) in enumerate(zip(op.outputs, ys)):
             env[t.name] = y
+            if ex.world is not None:
+                specs[t.name] = op.output_spec(j)
         profiles.append(OpProfile(
             name=op.name, op_type=type(op).__name__, time_us=us,
             output_shapes=[tuple(t.shape) for t in op.outputs]))
@@ -107,8 +124,10 @@ def report(profiles: List[OpProfile]) -> str:
 def trace(log_dir: str):
     """Record everything run inside the block with ``torch.profiler``
     (the kernels too when CUDA is up) and write its Chrome trace into
-    ``log_dir`` on the way out."""
+    ``log_dir`` on the way out (its path then in ``prof.trace_path``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_torch.runtime.telemetry import process_tag
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -118,6 +137,7 @@ def trace(log_dir: str):
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(
-        log_dir, f"{socket.gethostname()}_{os.getpid()}."
-                 f"{next(_TRACES)}{TRACE_SUFFIX}"))
+    prof.trace_path = os.path.join(
+        log_dir, f"{socket.gethostname()}_{os.getpid()}{process_tag()}."
+                 f"{next(_TRACES)}{TRACE_SUFFIX}")
+    prof.export_chrome_trace(prof.trace_path)

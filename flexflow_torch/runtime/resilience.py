@@ -24,6 +24,21 @@ resilience.py`` (RESILIENCE.md has the failure model).
   NaN batches (every float input of the step's batch), NaN losses (the
   host-read loss), self-preemption and checkpoint corruption, each
   firing once; a bare ``callable(step)`` is accepted too.
+- **A world of ranks.** Every decision is made the same way on every
+  rank, or the others would wait in a collective until the process
+  group's timeout.  A superstep's host side (the injector, the batches)
+  is prepared while the one before it runs, and at each boundary one
+  small host collective (``Executor.agree``) ORs three flags over the
+  world: a non-finite loss, the preemption flag and a recoverable error
+  of the next superstep's host side.  (A host side prepared ahead that a
+  silent failure's rollback leaves unused is kept for the replay, so
+  each injected fault still fires once and costs its own rollback.)  So a SIGTERM to one rank saves
+  every rank's same step; a failure on one rank rolls every rank back
+  (a :class:`PeerFailure` on the others) to the step rank 0 chose
+  (``CheckpointManager`` under the executor's snapshot layout); faults
+  that act on the shared directory act on rank 0 only.  At k = 1 the
+  host side and the flag are agreed before each step and the losses at
+  each read.
 - :class:`PreemptionHandler` turns SIGTERM / SIGINT into a flag the
   loops read at their step or superstep boundaries: the resilient loop
   and ``Trainer.fit`` with a checkpoint save and exit cleanly, the
@@ -75,6 +90,11 @@ class FailurePolicy:
 
 class StepFailure(RuntimeError):
     """A detected silent failure (a non-finite loss)."""
+
+
+class PeerFailure(RuntimeError):
+    """Another rank of the world raised a recoverable failure: this rank
+    recovers with it (a fresh executor, the same restored step)."""
 
 
 class PreemptionHandler:
@@ -203,7 +223,10 @@ class FaultInjector:
     @staticmethod
     def corrupt(checkpoint: CheckpointManager) -> None:
         """Delete the newest snapshot's ``params`` item: the torn
-        directory the restore fallback must survive."""
+        directory the restore fallback must survive.  Under a world only
+        the writer (rank 0) acts: the directory is shared."""
+        if not checkpoint.is_primary:
+            return
         checkpoint.wait_until_finished()
         step = checkpoint.latest_step()
         if step is None:
@@ -276,6 +299,9 @@ class ResilientTrainer:
         With ``current`` (the live trees of a kept executor) both land in
         its tensors, in place."""
         templates = current if current is not None else ex.init(seed=seed)
+        # Under a world: whole tensors on disk, rank 0's choice of step.
+        self.checkpoint.layout = getattr(ex, "snapshot_layout",
+                                         lambda: None)()
         try:
             step, params, opt_state, state = self.checkpoint.restore(
                 templates=templates)
@@ -348,6 +374,28 @@ class ResilientTrainer:
         # of a whole run.
         self.restarts = 0
 
+    def _prepare(self, injector, batch_fn, first: int, n: int):
+        """The host side of steps ``first .. first + n - 1``: the
+        injector's ``before_step`` and each step's (poisoned) batch.
+        Returns ``(batches, None)``, or ``(None, error)`` for a
+        recoverable error, which the loop raises where every rank agrees
+        on it (see :meth:`fit`)."""
+        group = []
+        try:
+            for i in range(n):
+                injector.before_step(first + i)
+                group.append(injector.poison_batch(first + i,
+                                                   batch_fn(first + i)))
+        except self.policy.recoverable as e:
+            return None, e
+        return group, None
+
+    @staticmethod
+    def _raise(err, what: str):
+        """A failure every rank has agreed on: this rank's own, or a
+        :class:`PeerFailure`."""
+        raise err if err is not None else PeerFailure(what)
+
     def _fit(self, ex, iterations, batch_fn, save_every, seed,
              steps_per_call) -> Dict[str, Any]:
         tel = _telemetry.current()
@@ -366,62 +414,116 @@ class ResilientTrainer:
         pending: List[tuple] = []  # k = 1: (step, device loss) unread
         preempted = False
         fn = ms = None
+        #: k > 1: the next superstep's host side, prepared while the
+        #: current one runs (its error agreed at the current boundary),
+        #: and the step it starts at.
+        ahead, ahead_at = None, None
+        #: Prepared host sides a silent failure's rollback left unused, by
+        #: their first step: the replay takes them when it gets there, so
+        #: every fault fires once and costs its own rollback, as when the
+        #: steps are prepared in turn.
+        kept: Dict[int, tuple] = {}
+
+        def multi():
+            return getattr(ex, "world", None) is not None
 
         def validate_pending():
+            """The unread losses read in one fence: the first bad one's
+            message, or None (each then recorded)."""
             nonlocal pending
             if not pending:
-                return
+                return None
             host = tel.fence([m for _, m in pending], "validate")
             todo, pending = pending, []
-            for (s, _), v in zip(todo, host):
-                self._record(losses, injector, s, float(v))
+            return self._record(losses, injector, [s for s, _ in todo],
+                                [float(v) for v in host])
 
         with PreemptionHandler() as preempt:
             while step < iterations:
                 try:
                     if k == 1:
-                        injector.before_step(step)
-                        batch = ex.shard_batch(
-                            injector.poison_batch(step, batch_fn(step)))
+                        group, err = self._prepare(injector, batch_fn, step,
+                                                   1)
+                        if multi():
+                            # Every rank's host side agreed before the
+                            # step's collectives; the flag with it.
+                            failed, agreed = ex.agree(err is not None,
+                                                      preempt.triggered)
+                            if failed:
+                                self._raise(err, f"a peer rank failed "
+                                                 f"before step {step}")
+                        elif err is not None:
+                            raise err
+                        batch = ex.shard_batch(group[0])
                         params, opt_state, state, metrics = ex.train_step(
                             params, opt_state, state, batch)
                         pending.append((step, metrics["train_loss"]))
                         step += 1
-                        trig = preempt.triggered
+                        trig = agreed if multi() else preempt.triggered
                         at_save = bool(save_every) and step % save_every == 0
                         if len(pending) >= check_every or at_save or \
                                 step >= iterations or trig:
-                            validate_pending()
+                            bad = validate_pending()
+                            if multi():
+                                bad_any, = ex.agree(bad is not None)
+                            else:
+                                bad_any = bad is not None
+                            if bad_any:
+                                raise StepFailure(
+                                    bad or "a peer rank read a non-finite "
+                                           "loss")
                             if at_save:
                                 self._save(step, params, opt_state, state,
                                            injector)
                     else:
                         n = min(k, iterations - step)
-                        group = []
-                        for i in range(n):
-                            injector.before_step(step + i)
-                            group.append(injector.poison_batch(
-                                step + i, batch_fn(step + i)))
+                        if ahead is None:
+                            ahead = kept.pop(step, None) or self._prepare(
+                                injector, batch_fn, step, n)
+                            failed = ahead[1] is not None
+                            if multi():
+                                failed, = ex.agree(failed)
+                            if failed:
+                                self._raise(ahead[1], f"a peer rank failed "
+                                                      f"before step {step}")
+                        group, ahead = ahead[0], None
                         fn = sstep_fns.get(n)
                         if fn is None:
                             fn = sstep_fns[n] = ex.build_superstep(n)
                         params, opt_state, state, ms = fn(
                             params, opt_state, state, ex.stack_steps(group))
+                        # The next superstep's host side while this one
+                        # runs; its error waits for this boundary.
+                        nxt = min(k, iterations - step - n)
+                        ahead_at = step + n
+                        ahead = (kept.pop(ahead_at, None) or self._prepare(
+                            injector, batch_fn, ahead_at, nxt)) if nxt \
+                            else ([], None)
                         # ONE fence a superstep: the stacked losses.
                         host = tel.fence(ms["train_loss"], "superstep")
                         # The flag is read after the fence: a signal that
                         # landed during the superstep stops at THIS
                         # boundary.
-                        trig = preempt.triggered
-                        for j in range(n):
-                            self._record(losses, injector, step + j,
-                                         float(host[j]),
-                                         f" (superstep offset {j} of {n})")
+                        bad = self._record(
+                            losses, injector, list(range(step, step + n)),
+                            [float(v) for v in host],
+                            f" (superstep offset {{j}} of {n})")
+                        flags = (bad is not None, preempt.triggered,
+                                 ahead[1] is not None)
+                        if multi():  # the one agreement of the superstep
+                            flags = ex.agree(*flags)
+                        bad_any, trig, next_failed = flags
+                        if bad_any:
+                            raise StepFailure(bad or "a peer rank read a "
+                                                     "non-finite loss")
                         prev, step = step, step + n
                         if save_every and \
                                 step // save_every > prev // save_every:
                             self._save(step, params, opt_state, state,
                                        injector)
+                        if not trig and next_failed:
+                            self._raise(ahead[1], f"a peer rank failed "
+                                                  f"before step {step}")
                     if trig:
                         preempted = True
                         tel.emit("preempt", step=int(step),
@@ -433,6 +535,9 @@ class ResilientTrainer:
                     if self.policy.fatal is not None and self.policy.fatal(e):
                         raise
                     pending = []
+                    if isinstance(e, StepFailure) and ahead is not None:
+                        kept[ahead_at] = ahead
+                    ahead = None
                     current = None
                     if isinstance(e, StepFailure):
                         current = (params, opt_state, state)
@@ -445,10 +550,9 @@ class ResilientTrainer:
                         ex, seed, e, current)
         # The final (or emergency) save, unless this very step was saved
         # periodically (its async write flushed first, so the check sees
-        # it); then the flush, so the snapshot is on disk before the
-        # process can exit.
-        self.checkpoint.wait_until_finished()
-        if step not in self.checkpoint.all_steps():
+        # it; under a world rank 0's answer); then the flush, so the
+        # snapshot is on disk before the process can exit.
+        if not self.checkpoint.has_step(step):
             self.checkpoint.save(step, params, opt_state, state, force=True)
         self.checkpoint.wait_until_finished()
         self.executor = ex
@@ -463,10 +567,16 @@ class ResilientTrainer:
             "preempted": preempted,
         })
 
-    def _record(self, losses, injector, s: int, v: float, where: str = ""):
-        """One host loss at the fence: recorded, or a StepFailure."""
-        v = injector.poison_loss(s, v)
-        if not math.isfinite(v):
-            raise StepFailure(f"non-finite loss at step {s}{where}: {v}")
-        losses[s] = v
-        _telemetry.current().record_step(s, loss=v)
+    def _record(self, losses, injector, steps: List[int],
+                values: List[float], where: str = "") -> Optional[str]:
+        """The host losses of ``steps`` at a fence, each through the
+        injector and recorded in order up to the first non-finite one,
+        whose message (``where`` may name its offset ``{j}``) is
+        returned; None when every one is finite."""
+        for j, (s, v) in enumerate(zip(steps, values)):
+            v = injector.poison_loss(s, v)
+            if not math.isfinite(v):
+                return f"non-finite loss at step {s}{where.format(j=j)}: {v}"
+            losses[s] = v
+            _telemetry.current().record_step(s, loss=v)
+        return None

@@ -36,6 +36,16 @@ accumulation (``accum_steps``); and ``evaluate``, the read-only pass of
 - ``--profiling``: each op's forward timed alone after the run
   (``runtime/profiler.py::profile_ops``), its table printed.
 
+Under a world of ranks every rank runs the loop on its blocks: the
+fixed batch is the global host draw, each rank keeping its block (of
+every step and microbatch); a checkpoint binds the executor's snapshot
+layout (whole tensors, gathered by every rank, written by rank 0); a
+SIGTERM to any rank is agreed over the world at the boundary (one small
+host collective), so every rank saves the same step and returns; each
+rank writes its own telemetry run and ``--trace`` file (``-p<rank>``);
+``--profiling`` times every op on every rank and rank 0 prints the
+table.
+
 User batch iterators (and so prefetching loaders) come with the data
 plane (ROADMAP.md queue 1, item 12) and are refused by name.
 ``MAX_STEPS_PER_CALL`` and ``relay_safe_steps`` clamp the steps of a
@@ -94,10 +104,29 @@ def _window(ex, name: str):
 
 
 def _print_profile(ex, params, state, batch) -> None:
-    """``--profiling``: the per-op table of the trained params."""
+    """``--profiling``: the per-op table of the trained params (every rank
+    times the ops; rank 0 prints)."""
     from flexflow_torch.runtime.profiler import profile_ops, report
 
-    print(report(profile_ops(ex, params, state, batch)))
+    table = report(profile_ops(ex, params, state, batch))
+    if ex.world is None or ex.world.rank == 0:
+        print(table)
+
+
+def _attach_trace(ex, tel, prof) -> None:
+    """Fold this rank's own trace file into the run's summary."""
+    if ex.config.trace_dir and tel.enabled:
+        tel.attach_trace_summary(getattr(prof, "trace_path", None)
+                                 or ex.config.trace_dir, ex.device.type)
+
+
+def _stop(ex, preempt, checkpoint) -> bool:
+    """Whether to stop at this boundary: the preemption flag, agreed over
+    the world when a checkpoint is attached (the flag's handler is
+    installed only then), and written back so every rank reports it."""
+    if checkpoint is not None and ex.world is not None:
+        preempt.triggered = ex.agree(preempt.triggered)[0]
+    return preempt.triggered
 
 
 class Trainer:
@@ -114,12 +143,17 @@ class Trainer:
 
     def _restore(self, checkpoint, templates):
         """``(start_step, params, opt_state, state)``: the latest snapshot
-        restored into ``templates`` when there is one to resume from."""
-        if checkpoint is not None and checkpoint.latest_step() is not None:
+        restored into ``templates`` when there is one to resume from (the
+        step rank 0 chose, under a world)."""
+        if checkpoint is None:
+            return (0, *templates)
+        checkpoint.layout = self.ex.snapshot_layout()
+        try:
             out = checkpoint.restore(templates=templates)
-            print(f"resumed from step {out[0]}")
-            return out
-        return (0, *templates)
+        except FileNotFoundError:
+            return (0, *templates)
+        print(f"resumed from step {out[0]}")
+        return out
 
     def fit(
         self,
@@ -209,16 +243,17 @@ class Trainer:
 
         tel = _telemetry.current()
         ex = self.ex
+        host = synthetic_host_batch(ex.model, np.random.default_rng(0))
+        plain = ex.shard_batch(host)
         if accum_steps > 1:
-            accum_fn = ex.accum_train_step(accum_steps)
-
-            def step_fn(p, o, s, b):
-                return accum_fn(p, o, s, ex.stack_microbatches(b, accum_steps))
+            # The global batch's microbatches, each rank's block of each.
+            step_fn = ex.accum_train_step(accum_steps)
+            batch = ex.shard_batch(ex.stack_microbatches(host, accum_steps),
+                                   lead=1)
         else:
-            step_fn = ex.train_step
+            step_fn, batch = ex.train_step, plain
         start_step, params, opt_state, state = self._restore(
             checkpoint, ex.init())
-        batch = self.synthetic_batch()
         losses = []
         m = None
         with PreemptionHandler(install=checkpoint is not None) as preempt:
@@ -234,7 +269,7 @@ class Trainer:
                 tel.fence(m, "warmup")
 
             ckpt_s = 0.0  # checkpoint time, left out of the throughput
-            with _trace_ctx(ex):
+            with _trace_ctx(ex) as prof:
                 start = time.perf_counter()
                 t_prev = start
                 for it in range(iterations):
@@ -265,21 +300,19 @@ class Trainer:
                                         opt_state, state)
                         ckpt_s += time.perf_counter() - t0
                         t_prev = time.perf_counter()
-                    if preempt.triggered:
+                    if _stop(ex, preempt, checkpoint):
                         break  # the emergency save below, then out
                 completed = it + 1
                 # The execution fence (dlrm.cc:159-162): every queued step
                 # done, then the final step's metrics read back.
                 final_m = tel.fence(m, "final")
                 elapsed = time.perf_counter() - start - ckpt_s
-            if ex.config.trace_dir and tel.enabled:
-                tel.attach_trace_summary(ex.config.trace_dir,
-                                         ex.device.type)
+            _attach_trace(ex, tel, prof)
             self.metrics.update(final_m)
             self._final_save(checkpoint, start_step + completed, params,
                              opt_state, state, preempt)
             if ex.config.profiling:
-                _print_profile(ex, params, state, batch)
+                _print_profile(ex, params, state, plain)
             #: The trained (params, opt_state, state) of the run that just
             #: finished, for evaluation after training.
             self.final = (params, opt_state, state)
@@ -348,7 +381,7 @@ class Trainer:
             steps_done = 0
             last = {}
             ckpt_s = 0.0
-            with _trace_ctx(ex):
+            with _trace_ctx(ex) as prof:
                 start = time.perf_counter()
                 for n in timed:
                     t_call = time.perf_counter()
@@ -379,12 +412,10 @@ class Trainer:
                         checkpoint.save(start_step + steps_done, params,
                                         opt_state, state)
                         ckpt_s += time.perf_counter() - t0
-                    if preempt.triggered:
+                    if _stop(ex, preempt, checkpoint):
                         break  # the emergency save at this boundary
                 elapsed = time.perf_counter() - start - ckpt_s
-            if ex.config.trace_dir and tel.enabled:
-                tel.attach_trace_summary(ex.config.trace_dir,
-                                         ex.device.type)
+            _attach_trace(ex, tel, prof)
             self._final_save(checkpoint, start_step + steps_done, params,
                              opt_state, state, preempt)
             if ex.config.profiling:
@@ -392,7 +423,8 @@ class Trainer:
             self.final = (params, opt_state, state)
             return self._stats(elapsed, steps_done, losses, last, start_step,
                                preempt, steps_per_call=k,
-                               supersteps=len(timed))
+                               supersteps=len(timed),
+                               superstep_graph=fns[k].graphed)
 
     def evaluate(self, params, state, batches: Iterable[Dict[str, Any]],
                  iterations: Optional[int] = None) -> Dict[str, float]:

@@ -14,6 +14,8 @@ tests hold these against the JAX package's runs of the same tables;
   fields (``zero_sharded_optimizer``, ``clip_norm``, ...);
 - ``params`` (full numpy tree, or None for the executor's own init),
   ``state`` (likewise), ``batches`` (a list of numpy dicts, one a step);
+- ``accum`` (microbatches of an accumulated step, default 1) and
+  ``superstep`` (steps a superstep, default 1: every step on its own);
 - ``device`` (``"cpu"`` or ``"cuda"``), ``dropout_masks`` (also return
   each Dropout output's global zero pattern from one training forward),
   ``record_shapes`` (also return the shapes the attention dispatcher and
@@ -228,6 +230,20 @@ def nmt(**kw):
                      **kw)
 
 
+def dlrm(batch: int = 8, tables: int = 4, vocab: int = 64, dim: int = 8):
+    """A small DLRM (``models/dlrm.py``): ``tables`` stacked tables of
+    ``vocab`` rows of ``dim`` on the row-sparse path (plain SGD), MLPs
+    8-16-dim and (dim + tables * dim)-16-1."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.models.dlrm import DLRMConfig, build_dlrm
+
+    cfg = DLRMConfig(sparse_feature_size=dim, embedding_size=[vocab] * tables,
+                     mlp_bot=[8, 16, dim],
+                     mlp_top=[dim + tables * dim, 16, 1])
+    return build_dlrm(batch_size=batch, dlrm=cfg,
+                      config=FFConfig(batch_size=batch, seed=3))
+
+
 def candle(batch_size: int = 8, **kw):
     """Candle-Uno at ``CandleConfig(**kw)``'s widths."""
     from flexflow_torch.config import FFConfig
@@ -238,6 +254,7 @@ def candle(batch_size: int = 8, **kw):
 
 
 MODELS = {"small_cnn": small_cnn, "norm_cnn": norm_cnn, "lm": lm,
+          "dlrm": dlrm,
           "emb": emb_model, "table": table_model, "mha": mha_model,
           "lstm": lstm_model, "moe": moe_model, "nmt": nmt,
           "candle": candle}
@@ -472,9 +489,30 @@ def _train(case: Dict[str, Any]) -> Dict[str, Any]:
                                                 replicated(y.dim()), w)
                     out["outputs"][t.name] = y.float().cpu().numpy()
     losses, metrics = [], []
-    for batch in case["batches"]:
-        params, opt_state, state, m = ex.train_step(
-            params, opt_state, state, ex.shard_batch(batch))
+    from flexflow_torch.runtime.trainer import relay_safe_steps
+
+    accum = case.get("accum", 1)
+    k = relay_safe_steps(case.get("superstep", 1))
+    batches = case["batches"]
+    if k > 1:  # supersteps of k steps (a CUDA graph a rank over NCCL)
+        fn = ex.build_superstep(k, accum)
+        for i in range(0, len(batches), k):
+            params, opt_state, state, ms = fn(
+                params, opt_state, state, ex.stack_steps(batches[i:i + k],
+                                                         accum))
+            for j in range(k):
+                m = {name: v[j] for name, v in ms.items()}
+                losses.append(float(m["train_loss"]))
+                metrics.append({n: float(v) for n, v in m.items()})
+        out["superstep_graph"] = fn.graphed
+    step = ex.accum_train_step(accum) if accum > 1 else ex.train_step
+    for batch in batches if k == 1 else ():
+        if accum > 1:  # the global microbatches, the rank's block of each
+            batch = ex.shard_batch(ex.stack_microbatches(batch, accum),
+                                   lead=1)
+        else:
+            batch = ex.shard_batch(batch)
+        params, opt_state, state, m = step(params, opt_state, state, batch)
         losses.append(float(m["train_loss"]))
         metrics.append({k: float(v) for k, v in m.items()})
     out["losses"] = losses

@@ -6,8 +6,9 @@ CPU, held against the JAX package where JAX defines the answer.
   loss trajectory bit-identical to the unfaulted run, at K = 1 (the
   per-step path) and K = 8 (supersteps).
 - The unfaulted trajectory equals JAX's on the chaos MLP from the same
-  weights and the same ``chaos_batch_fn`` batches (JAX on one device:
-  ``tiny_factory``'s ``n2c4`` strategy waits for item 9), within 1e-5.
+  weights and the same ``chaos_batch_fn`` batches, within 1e-5, both on
+  one device (JAX's ``n2c4`` table on 8 devices against the port's world
+  of 8 ranks: ``tests/test_torch_chaos_mesh.py``).
 - The restart budget, its reset on durable progress, ``fatal``, and the
   narrow ``recoverable`` types behave as ``tests/test_resilience.py``
   pins them for JAX.

@@ -691,7 +691,7 @@ def test_serve_app_failure_flags_and_crash_loop_exit(capsys, monkeypatch,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--shard", "2,1", "--telemetry", "telemetry-under-ranks"], "item 9e"),
+    (["--shard", "2,1", "--dry-run"], "item 14"),
     (["--sched", "lifo"], "fifo|slo"),
     (["--workload-trace", "prod:beta=2"], "unknown args"),
     (["--router", "round-robin"], "least-loaded|tier-aware|affinity"),
