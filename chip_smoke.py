@@ -5,7 +5,7 @@ for Hopper, sm_90a)::
 
     python3 chip_smoke.py
 
-Thirty-one phases, in order; any failure raises and exits non-zero:
+Thirty-two phases, in order; any failure raises and exits non-zero:
 
 1. **Kernels.**  Builds every CUDA kernel of the port from
    ``flexflow_torch/csrc`` and holds the serving kernels against their
@@ -343,7 +343,10 @@ Thirty-one phases, in order; any failure raises and exits non-zero:
     them bit for bit the plain run's.  (b) The app with ``-ll:gpu 2``
     inside a world of 2 under ``--dp 2``, ``--tp 2``, ``--dp 2
     --zero-opt`` (one rank per card over NCCL with two or more cards; on
-    one card both ranks share it over gloo, passed explicitly), 1 + 5
+    one card both ranks share it over gloo, passed explicitly, and run
+    only ``--dp 2`` and the fault: ``--tp 2`` and ``--zero-opt`` over gloo
+    took 3.3 and 2.0 s a step there, and every multi-card run repeats
+    them over NCCL), 1 + 5
     steps each: the losses within ``TOL_MESH_LOSS`` of (a)'s, the trained
     parameters within ``TOL_MESH_DIST`` of (a)'s over the size of their
     change, equal bit for bit on every rank, exact launch counts on each
@@ -471,21 +474,49 @@ Thirty-one phases, in order; any failure raises and exits non-zero:
     phase 9's DLRM under ``dlrm_strategy(4)`` (its tables a quarter a
     rank), the same with K4 and K5; (f) the chaos scenarios at ``n2c2``,
     k = 8 graphs, each recovering bit for bit.
+32. **The layer-wise pipeline** (``mesh-pipeline``, ``MESH_PIPE``:
+    ``runtime/pipeline.py``'s ``PipelineExecutor`` through the apps on a
+    world of four, ``flexflow_torch/tools/mesh_pipeline.py::chip_apps``
+    the rank body; gloo with every rank on one card, NCCL a card a rank
+    with four).  (a) ``apps.alexnet -s strategies/alexnet_readme_4dev.json
+    --microbatches 4`` (the reference README's table: six stages, GPU 0
+    in five of them, ``[0, 2, 1, 3]`` one of its own) at image 229 and
+    1000 classes in f32, batch 64 over gloo on one card (256 over NCCL),
+    1 + 2 SGD steps under 1f1b and under gpipe: losses within
+    ``TOL_MESH_LOSS`` and parameters within ``TOL_MESH_DIST`` of the same
+    app on one rank in this process (the plain Executor, same seed and
+    batch), every rank's losses the same, K3 once each way a microbatch
+    on the last stage's rank and nowhere else, gpipe and 1f1b bit for bit.
+    (b) ``apps.nmt --pipeline`` at bench.py's widths in bf16 (encoder on
+    ranks {0, 1}, decoder on {2, 3}), plain SGD so the word embeddings
+    take the row path: at ``--microbatches 1`` held against the app on
+    one rank (Dropout's masks are one rank's only at m = 1), at 2 under
+    1f1b and gpipe bit for bit; K3 on the decoder ranks, K4 a
+    microbatch's backward and K5 once a step on every rank (each holds an
+    embedding).  (c) The loss seeded with 1 instead of ``1/m``
+    (``mesh_pipeline.FAULTS["seed_one"]``) must break a bar.  (d) The
+    AlexNet 1f1b run and the NMT m = 1 run time one more step with every
+    hand-off synchronised alone: ms a step a rank and the hand-offs'
+    share.  K3 at the last stages' microbatch shapes (AlexNet (16, 1000)
+    f32, NMT (320, 20480) bf16) and K4 at an embedding stage's 320 ids,
+    held against their plain versions, timed beside them, the library
+    call and the bound.
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
 DLRM, long-context, race, AlexNet, superstep, serve-features,
-serve-resilience, NMT, CNN, Candle, MoE, item-7, scheduled and fleet runs
-together, and phases 27's, 28's, 29's, 30's and 31's ranks, split
-in ``launches_by_path``; K1f's and K6's ``mesh_serve_shapes`` rows at
-phase 29's rank-local shapes, K1f's and K1b's ``mesh_seq_shapes`` at
-phase 30's ring chunks; the superstep, serve-features,
-serve-resilience and item-7 paths count what their graph runs launched
-eagerly or captured; K3's entries name the
+serve-resilience, NMT, CNN, Candle, MoE, item-7, scheduled and fleet
+runs together, and phases 27's, 28's, 29's, 30's, 31's and 32's ranks
+(``mesh_pipeline_*``), split in ``launches_by_path``; K3's and K4's
+``mesh_pipeline_*_shape`` rows at phase 32's microbatch shapes; K1f's
+and K6's ``mesh_serve_shapes`` rows at phase 29's rank-local shapes,
+K1f's and K1b's ``mesh_seq_shapes`` at phase 30's ring chunks; the
+superstep, serve-features, serve-resilience and item-7 paths count what
+their graph runs launched eagerly or captured; K3's entries name the
 form each main-path shape takes, and K3's, K4's and K5's carry the NMT
-shape, K3's the CNN catalog's), the card's name
-and power limit from ``nvidia-smi``, and as its last line the JSON
-object ``{"ok": true, "device": {...}}``.  Without a CUDA device it
-exits 2 and prints no result.
+shape, K3's the CNN catalog's), the card's name and power limit from
+``nvidia-smi``, and as its last line the JSON object ``{"ok": true,
+"device": {...}}``. Without a CUDA device it exits 2 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -6114,7 +6145,10 @@ def phase_fleet(torch, kernels, device="cuda"):
 #: of 1.97e-5 to 2.24e-5 and distances of 0.0092 to 0.0164, the fault
 #: 6.24e-5 and 0.0934: the loss bar alone does not catch it, the
 #: distance bar and the ranks' disagreement do (PERF.md, the mesh).
-MESH = dict(configs=[dict(name="dp2", dp=2, tp=1),
+#: ``gloo_skip``: the configurations a one-card run leaves out (a run on
+#: two or more cards holds them over NCCL).
+MESH = dict(gloo_skip=("tp2", "zero"),
+            configs=[dict(name="dp2", dp=2, tp=1),
                      dict(name="tp2", dp=1, tp=2),
                      dict(name="zero", dp=2, tp=1, zero=True),
                      dict(name="fault", dp=2, tp=1, fault=True)],
@@ -6378,7 +6412,9 @@ def phase_mesh(torch, kernels, F):
               f"parameters bit for bit the plain Executor's")
         # (b) worlds of 2; with four cards also dp 2 x tp 2 on a world of
         # 4; with two, the app's own world (-ll:gpu 2 from this process).
-        launches = _mesh_lm_world(MESH["configs"], 2, cards, one, ref_path)
+        configs = [c for c in MESH["configs"]
+                   if cards >= 2 or c["name"] not in MESH["gloo_skip"]]
+        launches = _mesh_lm_world(configs, 2, cards, one, ref_path)
         if cards >= 4:
             launches.update(_mesh_lm_world([dict(name="dp2tp2", dp=2, tp=2)],
                                            4, cards, one, ref_path))
@@ -7990,6 +8026,284 @@ def phase_mesh_train(torch, kernels, F, c=None, device="cuda"):
     return launches
 
 
+#: Phase 32: the layer-wise pipeline on a world of four.  AlexNet at the
+#: app's widths in f32 under the reference README's table (batch 64 over
+#: gloo on one card, 256 over NCCL on four), NMT at bench.py's widths in
+#: bf16 under ``--pipeline``; each held against the same app on one rank.
+#: NMT's dropout draws each microbatch's masks from the key the previous
+#: one left, so only m = 1 draws the one rank's masks: its held run is at
+#: m = 1 and its schedules are compared at m = 2.
+MESH_PIPE = dict(
+    alexnet=dict(batch=64, batch4=256, image=229, classes=1000, m=4,
+                 iters=2, lr=0.01),
+    nmt=dict(NMT, iters=2, m=2),
+    table="strategies/alexnet_readme_4dev.json")
+
+
+def _pipe_alex_argv(c, batch):
+    return ["-b", str(batch), "--image-size", str(c["image"]), "-i",
+            str(c["iters"]), "--optimizer", "sgd", "--lr", str(c["lr"]),
+            "--dtype", "float32", "--seed", "0"]
+
+
+def _pipe_refs(torch, tmp, alex, nmt_argv, device="cuda") -> dict:
+    """Phase 32's one-rank runs in this process (the plain Executor):
+    ``{name: (losses, ref file, launches)}``, the trained parameters and
+    the squared norm of their change from the initial draw saved for
+    the ranks' distance bar."""
+    import os
+
+    from flexflow_torch.apps import alexnet, nmt
+    from flexflow_torch.tools import mesh_smoke as ms
+
+    out = {}
+    for name, main, argv in (("alexnet", alexnet.main, alex),
+                             ("nmt", nmt.main, nmt_argv)):
+        with ms._InitOnce() as once:
+            if device == "cuda":
+                stats, counts, _ = _run_app(torch, main, argv)
+            else:
+                stats, counts = {}, {}
+                _check(main(argv, device=device, stats_out=stats) == 0, name)
+        stats.pop("executor")
+        trained = stats.pop("final")[0]
+        init = once.full[0]
+        path = os.path.join(tmp, f"{name}.pt")
+        torch.save({"trained": {op: {k: v.detach().float().cpu()
+                                     for k, v in g.items()}
+                                for op, g in trained.items()},
+                    "change": sum(float((v.detach().float() - init[op][k]
+                                         .to(v.device).float()).square()
+                                        .sum())
+                                  for op, g in trained.items()
+                                  for k, v in g.items())}, path)
+        out[name] = (stats["step_losses"], path, counts)
+        del trained, once, stats
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _pipe_kernel_rows(torch, kernels, F, alex_rows: int, nmt_n: int,
+                      nmt_ids: int) -> dict:
+    """K3 at the pipeline's last stages' microbatch shapes (AlexNet f32,
+    NMT bf16) and K4 at an NMT embedding stage's microbatch ids, held
+    against the plain versions (K3 by phase 2's rules, K4 bit for bit),
+    timed beside them, the library call and the bound."""
+    c, g = MESH_PIPE, torch.Generator(device="cuda").manual_seed(32)
+    rows = {}
+    for tag, n, v, dt in (("alexnet", alex_rows, c["alexnet"]["classes"],
+                           "float32"),
+                          ("nmt", nmt_n, c["nmt"]["vocab"], "bfloat16")):
+        x, labels, _ = _xent_inputs(torch, g, n, v, dt)
+        gn = torch.full((n,), 1.0 / n, device="cuda")
+        gl = torch.randn((n,), generator=g, device="cuda")
+        errs, _ = _xent_hold(torch, kernels, x, labels, gn, gl)
+        _xent_held(errs, f"mesh-pipeline: softmax_xent ({n}, {v}) {dt}")
+        lab = labels.clone()
+        lab[-1] = 0
+        lab64 = lab.long()
+        lse = kernels.softmax_xent(x, lab)[1]
+        xr = x.detach().clone().requires_grad_(True)
+        ce = F.cross_entropy(xr, lab64, reduction="none")
+        esz = 4 if dt == "float32" else 2
+        for name, kern, plain, lib, nbytes, keys in (
+                ("softmax_xent", lambda: kernels.softmax_xent(x, lab),
+                 lambda: kernels.softmax_xent_plain(x, lab),
+                 lambda: F.cross_entropy(x, lab64, reduction="none"),
+                 n * v * esz + 16 * n, ("nll", "lse")),
+                ("softmax_xent_bwd",
+                 lambda: kernels.softmax_xent_bwd(x, lab, lse, gn, gl),
+                 lambda: kernels.softmax_xent_bwd_plain(x, lab, lse, gn, gl),
+                 lambda: torch.autograd.grad(ce, xr, gn.to(ce.dtype),
+                                             retain_graph=True),
+                 2 * n * v * esz + 16 * n, ("dlogits_abs",))):
+            ms, lib_ms = _pair_ms(kern, lib)
+            bound, by = _bound_ms(nbytes, 4 * n * v, "float32")
+            rows[f"{name}@pipeline_{tag}"] = dict(
+                shape=[n, v], dtype=dt, ms=ms, plain_ms=_device_ms(plain),
+                library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=max(errs[k] for k in keys))
+        del x, xr, ce
+    v, d = c["nmt"]["vocab"], c["nmt"]["hidden"]
+    table = torch.randn((v, d), generator=g, device="cuda")
+    ids = torch.randint(0, 2, (nmt_ids,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    got = kernels.gather_rows(table, ids)
+    _check(torch.equal(got, kernels.gather_rows_plain(table, ids)),
+           "mesh-pipeline: gather_rows at the stage's ids differs from plain")
+    lib_idx = ids.long()
+    ms, lib_ms = _pair_ms(lambda: kernels.gather_rows(table, ids),
+                          lambda: F.embedding(lib_idx, table))
+    uniq = int(torch.unique(ids).numel())
+    bound, by = _bound_ms(uniq * d * 4 + nmt_ids * d * 4 + 4 * nmt_ids, 0,
+                          "float32")
+    rows["gather_rows@pipeline_nmt"] = dict(
+        shape=[v, d, nmt_ids], dtype="float32", ms=ms,
+        plain_ms=_device_ms(lambda: kernels.gather_rows_plain(table, ids)),
+        library_ms=lib_ms, bound_ms=bound, bound_by=by, max_abs_err=0.0)
+    for name, r in rows.items():
+        print(f"[mesh-pipeline] {name} {r['shape']} {r['dtype']}: held "
+              f"(max abs err {r['max_abs_err']:.3g}); {r['ms']:.6f} ms "
+              f"(plain {r['plain_ms']:.6f}, library {r['library_ms']:.6f}, "
+              f"bound {r['bound_ms']:.3e} by {r['bound_by']})")
+    return rows
+
+
+def phase_mesh_pipeline(torch, kernels, F, c=None, device="cuda"):
+    """Phase 32 (module docstring).  Returns ``(rows, launches)``: the
+    kernels' rows at the pipeline's microbatch shapes and ``{path:
+    launches summed over the ranks}``.  ``c`` (other widths than
+    ``MESH_PIPE``'s) and ``device="cpu"`` rehearse it on CPU ranks (no
+    launch counts, no kernel rows)."""
+    import os
+    import shutil
+    import tempfile
+
+    from flexflow_torch.parallel import launch
+
+    t = [time.perf_counter()]
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+    # The f32 references in full f32, as the ranks run (no TF32).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cards = torch.cuda.device_count() if cuda else 0
+    nccl = cards >= 4
+    backend = "nccl" if nccl else "gloo"
+    card = _card() if cuda else "the CPU"
+    c = c or MESH_PIPE
+    ca, cn = c["alexnet"], c["nmt"]
+    batch = ca["batch4"] if nccl else ca["batch"]
+    alex = _pipe_alex_argv(ca, batch)
+    table = ["-s", c["table"], "--microbatches", str(ca["m"])]
+    nmt1 = _nmt_argv(cn, ("-i", str(cn["iters"]), "--seed", "0"))
+    tmp = tempfile.mkdtemp(prefix="ff_mesh_pipe_")
+    try:
+        refs = _pipe_refs(torch, tmp, alex, nmt1, device)
+        t.append(time.perf_counter())
+        pipe = ["--pipeline", "--microbatches"]
+        runs = [dict(name="alex_1f1b", app="alexnet", ref="alexnet",
+                     argv=alex + table, timed=True),
+                dict(name="alex_gpipe", app="alexnet", ref="alexnet",
+                     argv=alex + table + ["--pipeline-schedule", "gpipe"]),
+                dict(name="alex_seed_one", app="alexnet", ref="alexnet",
+                     argv=alex + table, fault="seed_one"),
+                dict(name="nmt_m1", app="nmt", ref="nmt",
+                     argv=nmt1 + pipe + ["1"], timed=True),
+                dict(name="nmt_1f1b", app="nmt",
+                     argv=nmt1 + pipe + [str(cn["m"])]),
+                dict(name="nmt_gpipe", app="nmt",
+                     argv=nmt1 + pipe + [str(cn["m"]), "--pipeline-schedule",
+                                         "gpipe"])]
+        ranks = launch.run(
+            "flexflow_torch.tools.mesh_pipeline:chip_apps",
+            (runs, {k: v[1] for k, v in refs.items()}, device), nprocs=4,
+            device=device, backend=None if nccl or not cuda else "gloo",
+            timeout_s=600)
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {run["name"]: [r[i] for r in ranks] for i, run in enumerate(runs)}
+    launches = {}
+    for run in runs:
+        name, got = run["name"], res[run["name"]]
+        what = f"mesh-pipeline {name}"
+        want = refs[run["app"]][0] if run.get("ref") else None
+        for r, g in enumerate(got):
+            _check(g["code"] == 0 and g["kind"] == "PipelineExecutor"
+                   and g["backend"] == backend and not g["jax_imported"],
+                   f"{what} rank {r}: exit {g['code']}, {g['kind']}, "
+                   f"{g['backend']}, jax imported {g['jax_imported']}")
+            _check(g["losses"] == got[0]["losses"]
+                   and all(math.isfinite(x) for x in g["losses"]),
+                   f"{what} rank {r}: losses {g['losses']} vs rank 0's "
+                   f"{got[0]['losses']}")
+        gap = max(abs(a - w) / abs(w) for a, w in
+                  zip(got[0]["losses"], want)) if want else 0.0
+        dist_ = got[0].get("distance", 0.0)
+        caught = [n for n, on in (("loss", gap > TOL_MESH_LOSS),
+                                  ("distance", dist_ > TOL_MESH_DIST)) if on]
+        if run.get("fault"):
+            _check(bool(caught), f"{what}: the planted fault ({run['fault']})"
+                   f" passes every bar (loss gap {gap:.3g}, distance "
+                   f"{dist_:.3g})")
+            print(f"[mesh-pipeline] (c) planted {run['fault']}: caught by "
+                  f"{', '.join(caught)} (loss gap {gap:.3g}, distance "
+                  f"{dist_:.3g})")
+            continue
+        _check(not caught, f"{what}: {caught} (loss gap {gap:.3g}, distance "
+               f"{dist_:.3g}; losses {got[0]['losses']} vs {want})")
+        path = launches.setdefault(f"mesh_pipeline_{name}", {})
+        by_rank = []
+        for g in got:
+            by_rank.append(g["counts"])
+            for k, n in g["counts"].items():
+                path[k] = path.get(k, 0) + n
+        steps = len(got[0]["losses"])
+        if not cuda:  # the counters count CUDA launches only
+            pass
+        elif run["app"] == "alexnet":
+            # K3 once each way a microbatch, on the last stage's one rank.
+            want_k3 = [ca["m"] * steps if r in got[0]["stages"][-1] else 0
+                       for r in range(4)]
+            _check([g["counts"].get("softmax_xent", 0) for g in got]
+                   == want_k3 and [g["counts"].get("softmax_xent_bwd", 0)
+                                   for g in got] == want_k3,
+                   f"{what}: K3 launches by rank {by_rank}, want {want_k3}")
+        else:
+            m = 1 if name == "nmt_m1" else cn["m"]
+            dec = got[0]["stages"][-1]
+            want_k3 = [m * steps if r in dec else 0 for r in range(4)]
+            # K4 a microbatch's backward, K5 once a step, on each
+            # embedding's own stage (every rank holds one embedding).
+            want_k4 = [m * steps] * 4
+            _check([g["counts"].get("softmax_xent", 0) for g in got]
+                   == want_k3
+                   and [g["counts"].get("gather_rows", 0) for g in got]
+                   == want_k4
+                   and [g["counts"].get("scatter_add_rows", 0) for g in got]
+                   == [steps] * 4,
+                   f"{what}: launches by rank {by_rank}")
+        print(f"[mesh-pipeline] {name} ({backend}, {len(got[0]['stages'])} "
+              f"stages {got[0]['stages']}): losses "
+              f"{[round(x, 6) for x in got[0]['losses']]}, loss gap to one "
+              f"rank {gap:.3g} (bar {TOL_MESH_LOSS}), distance "
+              f"{dist_:.3g} (bar {TOL_MESH_DIST}), {got[0]['schedule_len']} "
+              f"events a step, ms a step by rank "
+              f"{[round(g['ms_step'], 3) for g in got]}, launches by rank "
+              f"{by_rank}; {card}")
+        if run.get("timed"):
+            shares = ", ".join(
+                f"{g['one_step_ms']:.3f} ms of which hand-offs "
+                f"{g['handoff_ms']:.3f} "
+                f"({100 * g['handoff_ms'] / g['one_step_ms']:.1f}%)"
+                for g in got)
+            print(f"[mesh-pipeline] (d) {name}: one step with each hand-off "
+                  f"synchronised alone, by rank: {shares} ({backend}); "
+                  f"{card}")
+    for a, b in (("alex_gpipe", "alex_1f1b"), ("nmt_gpipe", "nmt_1f1b")):
+        _check(res[a][0]["losses"] == res[b][0]["losses"]
+               and res[a][0]["digest"] == res[b][0]["digest"],
+               f"mesh-pipeline: {a} differs from {b}")
+    print(f"[mesh-pipeline] gpipe and 1f1b bit for bit (losses and every "
+          f"parameter) for AlexNet at m = {ca['m']} and NMT at m = {cn['m']}")
+    stages = res["alex_1f1b"][0]["stages"]
+    rows = _pipe_kernel_rows(
+        torch, kernels, F, batch // ca["m"] // len(stages[-1]),
+        cn["batch"] // cn["m"] // 2 * cn["seq"],
+        cn["batch"] // cn["m"] // 2 * cn["seq"]) if cuda else {}
+    t.append(time.perf_counter())
+    print("[mesh-pipeline] " + ", ".join(
+        f"{n} {b_ - a:.1f} s" for n, a, b_ in zip(
+            ("one-rank references", f"the world of 4 ({backend})",
+             "kernel holds"), t, t[1:])) + f"; AlexNet batch {batch}"
+          f"{' (smaller over gloo on one card)' if not nccl else ''}; "
+          f"{card}")
+    return rows, launches
+
+
 def _card() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
@@ -8084,6 +8398,8 @@ def main() -> int:
     t.append(time.perf_counter())
     train_mesh_launches = phase_mesh_train(torch, kernels, F)
     t.append(time.perf_counter())
+    pipe_rows, pipe_launches = phase_mesh_pipeline(torch, kernels, F)
+    t.append(time.perf_counter())
     names = ("kernels", "train-kernels", "serve", "parity", "train",
              "train-parity", "profile", "dlrm-kernels", "dlrm-train",
              "dlrm-parity", "dlrm-profile", "stream-kernels", "longctx-train",
@@ -8091,7 +8407,7 @@ def main() -> int:
              "alexnet-train", "alexnet-parity", "superstep", "serve-features",
              "serve-resilience", "nmt", "item5", "item7", "serve-sched",
              "fleet", "mesh", "mesh-dlrm", "mesh-serve", "mesh-seq",
-             "mesh-train")
+             "mesh-train", "mesh-pipeline")
     print("[phases] " + ", ".join(f"{n} {b - a:.1f}s"
                                   for n, a, b in zip(names, t, t[1:])))
 
@@ -8148,7 +8464,9 @@ def main() -> int:
                    **{path: counts.get(name, 0)
                       for path, counts in seq_launches.items()},
                    **{path: counts.get(name, 0)
-                      for path, counts in train_mesh_launches.items()}}
+                      for path, counts in train_mesh_launches.items()},
+                   **{path: counts.get(name, 0)
+                      for path, counts in pipe_launches.items()}}
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=sum(by_path.values()),
                      launches_by_path=by_path, **rows[name])
@@ -8160,6 +8478,10 @@ def main() -> int:
             entry["mesh_serve_shapes"] = serve_mesh_rows[name]
         if name in seq_rows:
             entry["mesh_seq_shapes"] = seq_rows[name]
+        for tag in ("alexnet", "nmt"):
+            if f"{name}@pipeline_{tag}" in pipe_rows:
+                entry[f"mesh_pipeline_{tag}_shape"] = pipe_rows[
+                    f"{name}@pipeline_{tag}"]
         if name == "flash_attention_lse":
             entry["train_shape"] = rows["flash_attention_lse@train"]
             entry["longctx_shape"] = rows["flash_attention_lse@8k"]

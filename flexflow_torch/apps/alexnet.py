@@ -17,10 +17,14 @@ Example (``bench.py``'s AlexNet leg)::
 Flags beyond the common set: ``--image-size N`` (default 229, the
 reference's); the common ``--steps-per-call``, ``--accum-steps`` and
 ``--remat`` apply.  Refused until their slices land (ROADMAP.md queue 1):
-image folders (``-d``, item 12), the strategy searches (``-s auto``,
-``--search``, item 11) and strategy files that place an op on a subset of
-the devices (item 10).  ``-ll:gpu N`` trains on N ranks, data-parallel
-unless ``-s FILE.json`` gives other degrees.
+image folders (``-d``, item 12) and the strategy searches (``-s auto``,
+``--search``, item 11).  ``-ll:gpu N`` trains on N ranks, data-parallel
+unless ``-s FILE.json`` gives other degrees.  A file that places ops on
+subsets of the devices trains them as pipeline stages, each on its own
+ranks (``runtime/pipeline.py``), e.g. the reference README's table::
+
+    python -m flexflow_torch.apps.alexnet -ll:gpu 4 \\
+        -s strategies/alexnet_readme_4dev.json --microbatches 4
 """
 
 from __future__ import annotations

@@ -19,10 +19,11 @@ Example::
 
 The common ``--steps-per-call``, ``--accum-steps`` and ``--remat`` apply.
 Refused until their slices land (ROADMAP.md queue 1): image folders
-(``-d``, item 12), the strategy searches (``-s auto``, ``--search``,
-item 11) and strategy files that place an op on a subset of the devices
-(item 10).  ``-ll:gpu N`` trains on N ranks, data-parallel unless ``-s
-FILE.json`` gives other degrees.
+(``-d``, item 12) and the strategy searches (``-s auto``, ``--search``,
+item 11).  ``-ll:gpu N`` trains on N ranks, data-parallel unless ``-s
+FILE.json`` gives other degrees; a file that places ops on subsets of
+the devices trains them as pipeline stages (``--microbatches``,
+``--pipeline-schedule``).
 """
 
 from __future__ import annotations

@@ -3,7 +3,10 @@
 (``world_ranks``, ``spawn_ranks``) and ``run_training`` (with ``--eval-iters``, ``--steps-per-call``,
 ``--accum-steps``, ``--remat``, checkpoints, ``--resilient``, run
 telemetry, ``--trace`` and ``--profiling``) of
-``flexflow_tpu/apps/common.py``."""
+``flexflow_tpu/apps/common.py``.  ``run_training`` builds its executor
+through ``runtime/pipeline.py::make_executor``: a table that places ops
+on proper subsets of the ranks (``device_ids``) trains on the pipeline,
+with ``--microbatches`` and ``--pipeline-schedule``."""
 
 from __future__ import annotations
 
@@ -26,7 +29,9 @@ Training apps also read:
   --min-lr F   --lr-gamma F (adam only)   --eval-iters N
   -ll:gpu N (N ranks, one per card, over NCCL; default one rank;
              more than are visible is refused)
-  -s/--strategy FILE.json (per-op degrees over the full mesh)
+  -s/--strategy FILE.json (per-op degrees; ops on proper subsets of the
+                           devices, device_ids, run as pipeline stages)
+  --microbatches N   --pipeline-schedule 1f1b|gpipe (layer-wise tables)
   --zero-opt (ZeRO-1: optimizer state split over the data-parallel axes)
   --granules N (the mesh's outer axes over N islands)
   --steps-per-call K (K steps as one CUDA graph, one readback per K;
@@ -56,7 +61,8 @@ TRAINING_FLAGS = (
     "-ll:gpu", "-ll:tpu", "--eval-iters", "-s", "--strategy",
     "--steps-per-call", "--accum-steps", "--save-every", "--ckpt-dir",
     "--max-restarts", "--telemetry", "--stall-deadline",
-    "--stall-notify-pid", "--trace", "--granules",
+    "--stall-notify-pid", "--trace", "--granules", "--microbatches",
+    "--pipeline-schedule",
 )
 #: The FFConfig flags a training app reads that take no value.
 TRAINING_SWITCHES = ("--remat", "--resilient", "--sync-ckpt", "--profiling",
@@ -75,6 +81,10 @@ _NOT_PORTED = {
     "--elastic": "elastic multi-host resize (ROADMAP.md queue 1, item 13)",
     "--stream-dataset": "the streaming loader (ROADMAP.md queue 1, "
                         "item 12)",
+    "--pipeline-chunk": "the chunked pipeline (ROADMAP.md queue 1, item "
+                        "10b)",
+    "--pipeline-compiled": "the compiled pipeline step (ROADMAP.md queue 1, "
+                           "item 10b)",
 }
 
 _DTYPES = ("float32", "bfloat16")
@@ -249,12 +259,12 @@ def make_optimizer(cfg: FFConfig):
 
 
 def load_strategy(cfg: FFConfig, num_devices: Optional[int] = None):
-    """``-s FILE``: the strategy table of the JAX package's JSON file, its
-    degrees over the full mesh of ``num_devices`` (default: the world's
-    ranks).  A table that needs more devices, one that places an op on a
-    proper subset of them (the pipeline, item 10), ``-s auto`` and the
-    reference's ``.pb`` files are refused by name.  Returns the store, or
-    None without ``-s``."""
+    """``-s FILE``: the strategy table of the JAX package's JSON file over
+    ``num_devices`` (default: the world's ranks).  A table that needs more
+    devices, ``-s auto`` and the reference's ``.pb`` files are refused by
+    name; one that places ops on proper subsets of the devices runs as a
+    pipeline (``runtime/pipeline.py::make_executor``).  Returns the store,
+    or None without ``-s``."""
     from flexflow_torch.parallel import launch
     from flexflow_torch.parallel.strategy import StrategyStore
 
@@ -268,7 +278,7 @@ def load_strategy(cfg: FFConfig, num_devices: Optional[int] = None):
     try:
         store = StrategyStore.load(path, num_devices=num_devices
                                    or launch.world_size())
-        store.check_full_mesh()
+        store.check_devices()
     except (OSError, ValueError, KeyError, TypeError) as e:
         raise SystemExit(f"{flag}: {e}")
     return store
@@ -307,8 +317,8 @@ def _ckpt_dir(cfg: FFConfig) -> str:
     return cfg.ckpt_dir or os.path.join(os.getcwd(), "ckpts")
 
 
-def _run_resilient(ff, cfg: FFConfig, executor_factory, label: str
-                   ) -> Dict[str, Any]:
+def _run_resilient(ff, cfg: FFConfig, executor_factory, label: str,
+                   first_ex=None) -> Dict[str, Any]:
     """``--resilient``: the ResilientTrainer loop (failure detection,
     rollback to the latest checkpoint with deterministic replay, the
     SIGTERM emergency save), with ``--steps-per-call`` (detection at the
@@ -321,6 +331,15 @@ def _run_resilient(ff, cfg: FFConfig, executor_factory, label: str
     )
     from flexflow_torch.runtime.trainer import Trainer
 
+    from flexflow_torch.runtime.pipeline import PipelineExecutor
+
+    if isinstance(first_ex, PipelineExecutor) and cfg.steps_per_call > 1:
+        raise SystemExit(
+            "--resilient --steps-per-call K>1 requires a fused superstep "
+            "(full-mesh strategies, or a layer-wise one with "
+            "--pipeline-compiled, ROADMAP.md queue 1 item 10b); host-driven "
+            "layer-wise strategies compose with --resilient at "
+            "steps-per-call 1")
     if cfg.accum_steps > 1:
         raise SystemExit("--resilient does not compose with --accum-steps "
                          "yet")
@@ -401,20 +420,31 @@ def run_training(ff, cfg: FFConfig, label: str = "samples",
 def _run_training(ff, cfg: FFConfig, label: str, device,
                   strategy) -> Dict[str, Any]:
     from flexflow_torch.runtime.checkpoint import CheckpointManager
-    from flexflow_torch.runtime.executor import Executor
+    from flexflow_torch.runtime.pipeline import PipelineExecutor, make_executor
     from flexflow_torch.runtime.trainer import Trainer
 
     strategy = load_strategy(cfg) or strategy
 
     def build():
         try:
-            ex = Executor(ff, cfg, optimizer=make_optimizer(cfg),
-                          device=device, strategy=strategy)
-            # Under a mesh a microbatch splits over every op's n too.
-            ex.check_microbatches(cfg.accum_steps)
-            return ex
+            ex = make_executor(
+                ff, strategy, config=cfg, optimizer=make_optimizer(cfg),
+                device=device, microbatches=cfg.microbatches,
+                schedule=cfg.pipeline_schedule, chunk=cfg.pipeline_chunk,
+                compiled=cfg.pipeline_compiled, accum_steps=cfg.accum_steps)
         except ValueError as e:
             raise SystemExit(str(e))
+        if isinstance(ex, PipelineExecutor):
+            if cfg.granules > 1:
+                raise SystemExit("--granules (hybrid mesh) and device-subset "
+                                 "placement cannot combine yet")
+            return ex
+        try:
+            # Under a mesh a microbatch splits over every op's n too.
+            ex.check_microbatches(cfg.accum_steps)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        return ex
 
     ex = build()
     if cfg.resilient:
@@ -423,7 +453,7 @@ def _run_training(ff, cfg: FFConfig, label: str, device,
             # from a raised fault builds a fresh one.
             return _first.pop() if _first else build()
 
-        stats = _run_resilient(ff, cfg, executor_factory, label)
+        stats = _run_resilient(ff, cfg, executor_factory, label, ex)
     else:
         trainer = Trainer(ex)
         ck = None

@@ -14,15 +14,22 @@ Flags beyond the common set: ``--src-len --tgt-len --vocab --hidden
 ``--accum-steps`` and ``--remat`` work as on the other apps.  Under
 ``-ll:gpu N`` each of N ranks trains its blocks under ``nmt_strategy``'s
 table (or ``-s FILE``'s): the LSTMs' sequence pipeline over ``(n, s)``,
-the vocabulary projection over ``(n, c)``.  Refused until their slices
-land: ``--pipeline`` (ROADMAP.md queue 1 item 10) and the strategy
-search (item 11).
+the vocabulary projection over ``(n, c)``.  ``--pipeline`` takes the
+reference's layer-wise placement instead (``nmt_pipeline_strategy``: the
+encoder on the first half of the ranks, the decoder on the second, each
+a pipeline stage; ``--microbatches``, ``--pipeline-schedule``).  The
+strategy search (item 11) is refused until its slice lands.
 
 Example (``bench.py``'s NMT leg)::
 
     python -m flexflow_torch.apps.nmt -b 64 -i 10 --hidden 2048 \\
         --vocab 20480 --dtype bfloat16 --optimizer sgd --lr 0.01 \\
         --momentum 0 --wd 0
+
+The reference's layer-wise placement over four cards::
+
+    python -m flexflow_torch.apps.nmt --pipeline -ll:gpu 4 -b 64 \\
+        --hidden 2048 --vocab 20480 --microbatches 2
 
 The same over four cards (``nmt_strategy(4)``: dp 2 x sp 2)::
 
@@ -45,13 +52,14 @@ from flexflow_torch.apps.common import (
     spawn_ranks,
     world_ranks,
 )
-from flexflow_torch.models.nmt import build_nmt, nmt_strategy
+from flexflow_torch.models.nmt import (
+    build_nmt,
+    nmt_pipeline_strategy,
+    nmt_strategy,
+)
 
 #: The JAX app's flags this port does not serve yet.
-UNPORTED = {
-    "--pipeline": "the layer-wise placement through the pipeline executor "
-                  "(ROADMAP.md queue 1, item 10)",
-}
+UNPORTED: dict = {}
 
 
 def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
@@ -61,6 +69,9 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     check_help(argv, __doc__)
     full_argv = list(argv)
+    pipeline = "--pipeline" in argv
+    if pipeline:
+        argv.remove("--pipeline")
     for flag, why in UNPORTED.items():
         if flag in argv:
             raise SystemExit(f"flexflow_torch nmt does not support {flag} "
@@ -85,8 +96,13 @@ def main(argv=None, device="cuda", stats_out: Optional[dict] = None) -> int:
         )
     except ValueError as e:
         raise SystemExit(f"nmt: {e}")
+    try:
+        strategy = (nmt_pipeline_strategy(ranks, num_layers=layers)
+                    if pipeline else nmt_strategy(ranks, num_layers=layers))
+    except ValueError as e:
+        raise SystemExit(f"nmt --pipeline: {e}")
     stats = run_training(ff, cfg, label="sentence-pairs", device=device,
-                         strategy=nmt_strategy(ranks, num_layers=layers))
+                         strategy=strategy)
     print(f"time = {stats['elapsed_s']:.4f}s")  # nmt.cc:77-83
     if stats_out is not None:
         stats_out.update(stats)

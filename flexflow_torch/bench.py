@@ -179,8 +179,8 @@ def bench_telemetry(device="cuda", batch: int = 64, width: int = 256,
     Returns fences/step, the host step-time p50/p95/max of the last
     telemetry run, and the overhead of telemetry over the summed
     elapsed times.  ``FF_TELEMETRY_DIR`` is unset around the legs, so
-    the "off" fits are off.  ``programs_per_step`` needs the pipeline
-    (item 10); on one device the JAX leg leaves it out too."""
+    the "off" fits are off.  ``programs_per_step`` needs the pipeline's
+    leg (item 10b); on one device the JAX leg leaves it out too."""
     import os
 
     import torch

@@ -12,8 +12,10 @@ the fused softmax cross-entropy (K3 on the card) close the graph.
 dropouts between them over (batch, sequence chunk) at ``(n=dp, s=sp)``
 (the sequence pipeline of ``ops/rnn.py``), the vocabulary projection
 tensor-parallel over the vocabulary at ``(n=dp, c=sp)``, the loss over
-``n = dp x sp`` rows.  The layer-wise ``nmt_pipeline_strategy`` waits
-for ROADMAP.md queue 1 item 10.
+``n = dp x sp`` rows.  ``nmt_pipeline_strategy`` is the reference's
+layer-wise placement (encoder on the first half of the devices, decoder
+on the second), which the pipeline executor runs
+(``runtime/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -99,10 +101,28 @@ def nmt_strategy(num_devices: int = 1, dp: Optional[int] = None,
     return store
 
 
-def nmt_pipeline_strategy(num_devices: int, num_layers: int = 2):
-    """The reference's layer-wise placement (encoder on half the devices,
-    decoder on the other half) runs through the pipeline executor, which
-    the port brings with ROADMAP.md queue 1 item 10."""
-    raise NotImplementedError(
-        "nmt_pipeline_strategy: the layer-wise placement needs the pipeline "
-        "executor, ROADMAP.md queue 1 item 10")
+def nmt_pipeline_strategy(num_devices: int,
+                          num_layers: int = 2) -> StrategyStore:
+    """The reference's layer-wise NMT placement (``nmt.cc:269-308``), as
+    the JAX function gives it (``flexflow_tpu/models/nmt.py:103-126``):
+    the encoder stack (embedding and LSTMs) on the first half of the
+    devices, the decoder stack (embedding, LSTMs, vocabulary projection
+    and loss) on the second, data-parallel within each; the dropouts
+    between the layers inherit their LSTM's placement.  Runs on
+    ``runtime/pipeline.py``'s ``PipelineExecutor``."""
+    if num_devices % 2 != 0:
+        raise ValueError(
+            f"pipeline placement splits the devices into encoder and "
+            f"decoder halves and needs an even device count, got "
+            f"{num_devices}")
+    enc = tuple(range(num_devices // 2))
+    dec = tuple(range(num_devices // 2, num_devices))
+    store = StrategyStore(num_devices)
+    store.set("src_embed", ParallelConfig(n=len(enc), device_ids=enc))
+    store.set("tgt_embed", ParallelConfig(n=len(dec), device_ids=dec))
+    for i in range(num_layers):
+        store.set(f"enc_lstm{i}", ParallelConfig(n=len(enc), device_ids=enc))
+        store.set(f"dec_lstm{i}", ParallelConfig(n=len(dec), device_ids=dec))
+    store.set("vocab_proj", ParallelConfig(n=len(dec), device_ids=dec))
+    store.set("softmax", ParallelConfig(n=len(dec), device_ids=dec))
+    return store

@@ -163,15 +163,23 @@ def _scatter_add_dispatch(op: Op, table, flat_ids, upd):
     version on the CPU) over the global batch (:func:`gather_batch`); a
     row-sharded table's rank takes the rows in its window.  Returns
     ``table``."""
-    d = table.shape[1]
     ids, upd = gather_batch(op, flat_ids, upd.to(table.dtype))
+    return scatter_add_global(op, table, ids, upd)
+
+
+def scatter_add_global(op: Op, table, ids, upd):
+    """:func:`_scatter_add_dispatch` on ids and updates that are the
+    global batch's already, the same on every rank (the pipeline gathers
+    each microbatch's with :func:`gather_batch` and concatenates them in
+    microbatch order)."""
+    d = table.shape[1]
     shard = _row_sharding(op, op.sparse_keys()[0])
     if shard is not None:
         _note_shard_event(op, "embedding_combine", shards=int(shard[1]),
                           rows_per_shard=int(shard[2]),
                           combine="local_scatter_add")
     return kernels.scatter_add_rows(
-        table, ids.reshape(-1), upd.reshape(-1, d),
+        table, ids.reshape(-1), upd.to(table.dtype).reshape(-1, d),
         row_start=None if shard is None else _shard_offset(op, shard))
 
 

@@ -69,19 +69,43 @@ from flexflow_torch.parallel.mesh import MeshPlan, Spec
 
 class World:
     """A rank's binding of a ``MeshPlan`` to the initialised process
-    group."""
+    group, over every rank of the world or over the subset ``ranks`` (a
+    pipeline stage's): plan index ``i`` is global rank ``ranks[i]``.
+    ``rank``, ``index``, ``group``'s members and ``shift`` speak in plan
+    indices.  Every rank of the world builds every World, its own stages'
+    and the others', in the same order: ``dist.new_group`` is collective
+    over the default group.  ``rank`` is None on a rank outside
+    ``ranks``, which then uses nothing of it.
 
-    def __init__(self, plan: MeshPlan):
+    The host group of ``agree`` and ``broadcast_int`` is the world's,
+    one a process (gloo: the default group; beside NCCL, one gloo group
+    of every rank), so every rank of the world calls them."""
+
+    def __init__(self, plan: MeshPlan, ranks: Optional[Sequence[int]] = None):
         if not dist.is_initialized():
             raise RuntimeError("a World needs an initialised process group "
                                "(flexflow_torch.parallel.launch)")
-        if dist.get_world_size() != plan.num_devices:
-            raise ValueError(f"the mesh has {plan.num_devices} devices but "
-                             f"the world has {dist.get_world_size()} ranks")
+        size = dist.get_world_size()
+        if ranks is None:
+            if size != plan.num_devices:
+                raise ValueError(f"the mesh has {plan.num_devices} devices "
+                                 f"but the world has {size} ranks")
+            ranks = range(size)
+        ranks = tuple(int(r) for r in ranks)
+        if len(ranks) != plan.num_devices or len(set(ranks)) != len(ranks) \
+                or not all(0 <= r < size for r in ranks):
+            raise ValueError(f"a mesh of {plan.num_devices} devices over "
+                             f"ranks {list(ranks)} of a world of {size}")
         self.plan = plan
-        self.rank = dist.get_rank()
+        #: The global rank of each plan index.
+        self.ranks = ranks
+        me = dist.get_rank()
+        self.rank = ranks.index(me) if me in ranks else None
         self.backend = dist.get_backend()
         self._groups: Dict[Tuple[str, ...], Tuple[object, List[int]]] = {}
+        #: Per group whose plan order is not its global order: the group
+        #: rank of each member (in plan order).
+        self._perm: Dict[Tuple[str, ...], List[int]] = {}
         names = plan.axis_names
         for mask in range(1, 1 << len(names)):
             axes = tuple(a for i, a in enumerate(names) if mask >> i & 1)
@@ -89,19 +113,23 @@ class World:
                 continue
             made = set()
             for r in range(plan.num_devices):
-                ranks = tuple(plan.group_ranks(axes, r))
-                if ranks in made:
+                members = tuple(plan.group_ranks(axes, r))
+                if members in made:
                     continue
-                made.add(ranks)
-                pg = dist.new_group(list(ranks))
-                if self.rank in ranks:
-                    self._groups[axes] = (pg, list(ranks))
-        #: The group the host's decisions are agreed over (``agree``,
-        #: ``broadcast_int``): the world's own under gloo, a gloo group of
-        #: every rank beside NCCL's, so an agreement never touches the
-        #: device nor waits for its queue.
-        self._host = None if self.backend == "gloo" else \
-            dist.new_group(backend="gloo")
+                made.add(members)
+                glob = [ranks[i] for i in members]
+                pg = dist.new_group(glob)
+                if self.rank in members:
+                    self._groups[axes] = (pg, list(members))
+                    # A group numbers its members by ascending global
+                    # rank; the collectives below order blocks by plan
+                    # index, so a stage over reordered ranks ([0, 2, 1,
+                    # 3]) permutes between the two.
+                    order = sorted(glob)
+                    pos = [order.index(r) for r in glob]
+                    if pos != sorted(pos):
+                        self._perm[axes] = pos
+        self._host = _host_group(self.backend)
         #: Seconds spent in collectives while ``timed`` (each one then
         #: waits for the device before it starts and before it returns),
         #: and the same seconds by the collective's name.
@@ -165,9 +193,13 @@ class World:
         if g is None:
             return x
 
+        pos = self._perm.get(self._key(axes))
+
         def fn(t):
             out = [torch.empty_like(t) for _ in g[1]]
             dist.all_gather(out, t, group=g[0])
+            if pos is not None:
+                out = [out[p] for p in pos]
             return torch.cat(out, dim)
 
         return self._run(fn, x, "all_gather")
@@ -180,8 +212,12 @@ class World:
         if g is None:
             return x
 
+        pos = self._perm.get(self._key(axes))
+
         def fn(t):
             parts = [c.contiguous() for c in t.chunk(len(g[1]), dim)]
+            if pos is not None:
+                parts = [parts[pos.index(r)] for r in range(len(pos))]
             out = torch.empty_like(parts[0])
             dist.reduce_scatter(out, parts, group=g[0])
             return out
@@ -197,12 +233,19 @@ class World:
         if g is None:
             return x
         n = len(g[1])
+        pos = self._perm.get(self._key(axes))
 
         def fn(t):
-            inp = torch.stack(t.chunk(n, split_dim)).contiguous()
+            chunks = t.chunk(n, split_dim)
+            if pos is not None:  # chunk j to member j, in group order
+                chunks = [chunks[pos.index(r)] for r in range(n)]
+            inp = torch.stack(chunks).contiguous()
             out = torch.empty_like(inp)
             dist.all_to_all_single(out, inp, group=g[0])
-            return torch.cat(out.unbind(0), cat_dim)
+            got = out.unbind(0)
+            if pos is not None:
+                got = [got[p] for p in pos]
+            return torch.cat(got, cat_dim)
 
         return self._run(fn, x, "all_to_all")
 
@@ -230,9 +273,11 @@ class World:
             recv = torch.zeros_like(send)
             ops = []
             if 0 <= dst < size:
-                ops.append(dist.P2POp(dist.isend, send, members[dst], pg))
+                ops.append(dist.P2POp(dist.isend, send,
+                                      self.ranks[members[dst]], pg))
             if 0 <= src < size:
-                ops.append(dist.P2POp(dist.irecv, recv, members[src], pg))
+                ops.append(dist.P2POp(dist.irecv, recv,
+                                      self.ranks[members[src]], pg))
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
             return recv.to(t.device) if stage else recv
@@ -250,9 +295,9 @@ class World:
         return tuple(bool(v) for v in t.tolist())
 
     def broadcast_int(self, value: int) -> int:
-        """Rank 0's ``value`` on every rank (over the host group)."""
+        """Plan index 0's ``value`` on every rank (over the host group)."""
         t = torch.tensor([int(value)], dtype=torch.int64)
-        dist.broadcast(t, src=0, group=self._host)
+        dist.broadcast(t, src=self.ranks[0], group=self._host)
         return int(t.item())
 
     def block(self, x: torch.Tensor, dim: int,
@@ -263,6 +308,21 @@ class World:
         if n == 1:
             return x
         return x.chunk(n, dim)[self.index(axes)]
+
+
+_HOST: Dict[str, object] = {}
+
+
+def _host_group(backend: str):
+    """The world's host group: None (the default group) under gloo, else
+    one gloo group of every rank, made by the first World of the process
+    (every rank makes its first World at the same point), so an
+    agreement never touches the device nor waits for its queue."""
+    if backend == "gloo":
+        return None
+    if "host" not in _HOST:
+        _HOST["host"] = dist.new_group(backend="gloo")
+    return _HOST["host"]
 
 
 # -- autograd functions ------------------------------------------------------

@@ -19,8 +19,11 @@ its coordinates on that dim's axes, in the order the entry lists them.
 ``local_slices`` cuts that block from a full array; the collectives of
 ``parallel/collectives.py`` move blocks between specs.
 
-``build_stage_mesh_plan`` and ``check_stage_mesh_feasible`` (the
-pipeline's stage meshes) come with ROADMAP.md item 10.
+``check_stage_mesh_feasible`` and ``build_stage_mesh_plan`` are the
+shared stage mesh of the compiled pipeline step (JAX's ``mesh.py:362``,
+``:385``): arithmetic only here.  The host-driven pipeline
+(``runtime/pipeline.py``) gives each stage a plan of its own over its
+ranks, as JAX's host mode does.
 """
 
 from __future__ import annotations
@@ -294,3 +297,33 @@ def build_mesh_plan(num_devices: int) -> MeshPlan:
         raise ValueError(f"a mesh needs at least one device, got "
                          f"{num_devices}")
     return make_plan(*factor_axes(num_devices))
+
+
+def check_stage_mesh_feasible(stage_device_ids: Sequence[Sequence[int]]
+                              ) -> None:
+    """Raise ``InfeasibleStrategyError`` unless the stages can share one
+    stage-shaped mesh: equal sizes and disjoint device sets (JAX's
+    predicate, shared by ``build_stage_mesh_plan`` and the compiled
+    pipeline's eligibility check)."""
+    sizes = {len(ids) for ids in stage_device_ids}
+    if len(sizes) != 1:
+        raise InfeasibleStrategyError(
+            f"shared stage mesh needs equal-size stages, got sizes "
+            f"{sorted(len(ids) for ids in stage_device_ids)}")
+    flat = [d for ids in stage_device_ids for d in ids]
+    if len(set(flat)) != len(flat):
+        raise InfeasibleStrategyError(
+            "shared stage mesh needs disjoint stage device sets "
+            "(overlapping stages serialize and have no mesh row)")
+
+
+def build_stage_mesh_plan(stage_device_ids: Sequence[Sequence[int]]
+                          ) -> MeshPlan:
+    """The one compact plan every stage of a compiled pipeline step
+    shares: one stage's device count prime-factored into ``s0..sk``, the
+    factorization a stand-alone stage plan of that size has, so each
+    stage's intra-stage assignment (and its reduction orders) is the
+    same on both.  Feasibility first (:func:`check_stage_mesh_feasible`).
+    """
+    check_stage_mesh_feasible(stage_device_ids)
+    return make_plan(*factor_axes(len(stage_device_ids[0]), prefix="s"))

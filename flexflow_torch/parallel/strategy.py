@@ -10,12 +10,13 @@ JSON file, byte for byte::
 
     {"num_devices": 8, "ops": {"conv1": {"c": 2, "n": 4}}, "version": 1}
 
-Every op runs on the full mesh (``parallel/mesh.py``); an op the table
-does not name takes data parallelism over every device, as in the JAX
-package.  A table that places an op on a proper subset of the devices
-is layer-wise placement, the pipeline of ROADMAP.md item 10, and is
-refused (``StrategyStore.check_full_mesh``).  The reference's protobuf
-files (``.pb``) are refused: their codec is the JAX package's native
+An op the table does not name takes data parallelism over every device,
+as in the JAX package.  A table that places an op on a proper subset of
+the devices (``device_ids``) is layer-wise placement: the pipeline runs
+it (``runtime/pipeline.py``, chosen by ``make_executor``), and the plain
+``Executor``, which runs every op on the full mesh, refuses it
+(``StrategyStore.check_full_mesh``).  The reference's protobuf files
+(``.pb``) are refused: their codec is the JAX package's native
 ``ffproto.cc``.
 """
 
@@ -95,25 +96,39 @@ class StrategyStore:
     def data_parallel(num_devices: int) -> "StrategyStore":
         return StrategyStore(num_devices, {})
 
-    def check_full_mesh(self) -> None:
-        """Raise unless every op runs on all the devices: an op pinned to
-        a proper subset (``device_ids``) is layer-wise placement, which
-        the JAX package runs on its ``PipelineExecutor`` (ROADMAP.md
-        item 10)."""
-        full = set(range(self.num_devices))
+    def check_devices(self) -> None:
+        """Raise when an op needs more devices than the store has: more
+        parts than devices, or a device id past the last."""
         for name, pc in sorted(self.table.items()):
             if pc.num_parts > self.num_devices:
                 raise ValueError(f"strategy for {name!r} uses "
                                  f"{pc.num_parts} parts but only "
                                  f"{self.num_devices} devices exist "
                                  f"(-ll:gpu {pc.num_parts})")
+            ids = pc.device_ids or ()
+            if any(not 0 <= d < self.num_devices for d in ids):
+                raise ValueError(
+                    f"strategy for {name!r} places on devices "
+                    f"{sorted(set(ids))} but only {self.num_devices} "
+                    f"devices exist (-ll:gpu {max(ids) + 1})")
+
+    def check_full_mesh(self) -> None:
+        """Raise unless every op runs on all the devices (the plain
+        ``Executor``'s rule, as JAX's): an op pinned to a proper subset
+        (``device_ids``) is layer-wise placement, which
+        ``runtime/pipeline.py``'s ``PipelineExecutor`` runs
+        (``make_executor`` chooses it)."""
+        self.check_devices()
+        full = set(range(self.num_devices))
+        for name, pc in sorted(self.table.items()):
             ids = pc.device_ids
             if ids is not None and set(ids) != full:
                 raise ValueError(
                     f"strategy for {name!r} places on devices "
-                    f"{sorted(set(ids))} of {self.num_devices}; layer-wise "
-                    f"placement on device subsets is the pipeline, "
-                    f"ROADMAP.md queue 1, item 10")
+                    f"{sorted(set(ids))} of {self.num_devices}; the "
+                    f"Executor runs every op on the full mesh: use "
+                    f"flexflow_torch.runtime.pipeline.PipelineExecutor (or "
+                    f"make_executor) for layer-wise placement")
 
     # -- (de)serialization ------------------------------------------------
 

@@ -743,7 +743,7 @@ SCENARIOS: Dict[str, Callable[..., Result]] = {
     "corrupt_checkpoint": scenario_corrupt_checkpoint,
     "force_save_kill": scenario_force_save_kill,
     "pipeline_superstep_nan": _not_ported(
-        "pipeline_superstep_nan", "item 10", "the compiled pipeline"),
+        "pipeline_superstep_nan", "item 10b", "the compiled pipeline"),
     "loader_fault": _not_ported(
         "loader_fault", "item 12", "the streaming loader"),
     "serving_decode_fault": scenario_serving_decode_fault,

@@ -239,11 +239,18 @@ class CheckpointManager:
         """``{item: flat map of whole tensors}``, items without a tensor
         left out; under a layout every rank gathers here."""
         items = {}
+        every = getattr(self.layout, "every_item", False)
         for name, tree in zip(ITEMS, (params, opt_state, state)):
             flat = flatten(tree)
-            if flat or name == "params":
-                items[name] = flat if self.layout is None else \
-                    self.layout.full(name, flat)
+            if self.layout is None:
+                if flat or name == "params":
+                    items[name] = flat
+            elif flat or name == "params" or every:
+                # A layout whose ranks hold different items (a pipeline's
+                # stages) gathers every item on every rank.
+                whole = self.layout.full(name, flat)
+                if whole or name == "params":
+                    items[name] = whole
         return items
 
     def _items(self, params, opt_state, state) -> Dict[str, Dict]:
@@ -498,6 +505,11 @@ class CheckpointManager:
             return template
         if template is None:
             return unflatten(saved)
+        lay = self.layout
+        if lay is not None and hasattr(lay, "select"):
+            # The layout names the saved tensors by other paths than the
+            # template's (a pipeline's per-stage trees): its own share.
+            saved = lay.select(item, saved, want)
         if set(saved) != set(want):
             missing = sorted(set(want) - set(saved))
             extra = sorted(set(saved) - set(want))
@@ -505,7 +517,6 @@ class CheckpointManager:
                 f"checkpoint {item}: key mismatch: the template has "
                 f"{missing[:4]} the snapshot lacks, the snapshot has "
                 f"{extra[:4]} the template lacks")
-        lay = self.layout
         for k, dst in want.items():
             src = saved[k]
             shape = tuple(dst.shape) if lay is None else \

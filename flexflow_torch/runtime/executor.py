@@ -36,10 +36,11 @@ occurrence; lazy momentum/Adam (``--lazy-sparse-opt``) sum the gradients
 per unique row and scatter-add deltas of the parameter and state rows.
 
 Under a world of ranks (``parallel/launch.py``) the executor binds a
-``MeshPlan`` of the world's size and each op's ``ParallelConfig`` (the
-strategy's, data parallelism for an op it does not name), as JAX's does
-(``executor.py:108-131``, ``:357``), and every rank runs the same program
-on its blocks: shard_map done by hand.
+``MeshPlan`` of the world's size (of its ranks' count for a pipeline
+stage, ``ranks=``: ``runtime/pipeline.py``) and each op's
+``ParallelConfig`` (the strategy's, data parallelism for an op it does
+not name), as JAX's does (``executor.py:108-131``, ``:357``), and every
+rank runs the same program on its blocks: shard_map done by hand.
 
 - ``init`` draws the full parameters from the seed, as on one device;
   each rank keeps its block of each (``MeshPlan.local_slices``).
@@ -113,7 +114,7 @@ from flexflow_torch.ops import embedding, kernels
 from flexflow_torch.ops.base import Op
 from flexflow_torch.parallel import collectives, launch
 from flexflow_torch.parallel.distributed import build_hybrid_mesh_plan
-from flexflow_torch.parallel.mesh import replicated
+from flexflow_torch.parallel.mesh import build_mesh_plan, replicated
 from flexflow_torch.parallel.strategy import StrategyStore
 from flexflow_torch.runtime.graphs import StepGraph
 
@@ -187,19 +188,50 @@ def mean_metrics(metrics: Dict[str, torch.Tensor], count: Optional[int] = None,
 _WORLDS: Dict[tuple, "collectives.World"] = {}
 
 
-def _world_for(plan) -> "collectives.World":
-    """The rank's ``World`` for ``plan``, made once per mesh shape (its
-    groups are made by every rank together)."""
-    key = (plan.axis_names, plan.axis_sizes)
+def _world_for(plan, ranks: Optional[Sequence[int]] = None
+               ) -> "collectives.World":
+    """The rank's ``World`` for ``plan`` over ``ranks`` (default: the
+    whole world), made once per mesh shape and rank set (its groups are
+    made by every rank together)."""
+    key = (plan.axis_names, plan.axis_sizes,
+           None if ranks is None else tuple(ranks))
     if key not in _WORLDS:
-        _WORLDS[key] = collectives.World(plan)
+        _WORLDS[key] = collectives.World(plan, ranks)
     return _WORLDS[key]
 
 
+def draw_params_and_state(model, config, seed: Optional[int] = None):
+    """The full ``(params, state)`` of ``model``'s ops on the host, drawn
+    from a ``torch.Generator`` seeded with ``seed`` (default
+    ``config.seed``): op by op, its params and then its state, key by key
+    in sorted order: the JAX package's order, not its values.  The same
+    draw whatever the strategy, so a pipeline's stages start where one
+    executor does."""
+    seed = config.seed if seed is None else seed
+    gen = torch.Generator().manual_seed(int(seed))
+    params: Tree = {}
+    state: Tree = {}
+    for op in model.layers:
+        for tree, specs in ((params, op.param_specs()),
+                            (state, op.state_specs())):
+            if specs:
+                tree[op.name] = {k: specs[k].initializer(
+                    gen, specs[k].shape, specs[k].dtype)
+                    for k in sorted(specs)}
+    return params, state
+
+
 class Executor:
+    """The op graph's runtime on one device, on every rank of a world,
+    or (``ranks``: a pipeline stage's global ranks, ``runtime/
+    pipeline.py``) on a subset of the world's ranks: then the plan covers
+    ``len(ranks)`` devices (``build_mesh_plan``, as JAX's stage executor
+    on its sub-devices) and the World is the subset's."""
+
     def __init__(self, model: FFModel, config: Optional[FFConfig] = None,
                  optimizer=None, device=None,
-                 strategy: Optional[StrategyStore] = None):
+                 strategy: Optional[StrategyStore] = None,
+                 ranks: Optional[Sequence[int]] = None):
         self.model = model
         self.config = config or model.config
         self.device = resolve_device(device)
@@ -207,13 +239,19 @@ class Executor:
         #: ``train_step`` need one (``apps.common.make_optimizer`` builds
         #: it from the flags).
         self.optimizer = optimizer
-        nd = launch.world_size()
-        self.plan = build_hybrid_mesh_plan(nd, max(self.config.granules, 1))
+        if ranks is None:
+            nd = launch.world_size()
+            self.plan = build_hybrid_mesh_plan(nd,
+                                               max(self.config.granules, 1))
+        else:
+            nd = len(ranks)
+            self.plan = build_mesh_plan(nd)
         self.strategy = strategy or StrategyStore.data_parallel(nd)
         self.strategy.check_full_mesh()
         #: The rank's World in a world of ranks (one included), else None:
         #: one device, no spec bookkeeping at all.
-        self.world = _world_for(self.plan) if launch.in_world() else None
+        self.world = _world_for(self.plan, ranks) if launch.in_world() \
+            else None
         if nd > 1:
             for op in self.model.layers:
                 self.plan.assign(self._pc(op))  # InfeasibleStrategyError
@@ -266,27 +304,16 @@ class Executor:
     # -- initialization ------------------------------------------------------
 
     def draw_params_and_state(self, seed: Optional[int] = None):
-        """The full ``(params, state)`` on the host, drawn from a
-        ``torch.Generator`` seeded with ``seed`` (default
-        ``config.seed``): op by op, its params and then its state, key by
-        key in sorted order: the JAX package's order, not its values."""
-        seed = self.config.seed if seed is None else seed
-        gen = torch.Generator().manual_seed(int(seed))
-        params: Tree = {}
-        state: Tree = {}
-        for op in self.model.layers:
-            for tree, specs in ((params, op.param_specs()),
-                                (state, op.state_specs())):
-                if specs:
-                    tree[op.name] = {k: specs[k].initializer(
-                        gen, specs[k].shape, specs[k].dtype)
-                        for k in sorted(specs)}
-        return params, state
+        """The full ``(params, state)`` on the host
+        (:func:`draw_params_and_state` of the model)."""
+        return draw_params_and_state(self.model, self.config, seed)
 
-    def init_params_and_state(self, seed: Optional[int] = None):
+    def init_params_and_state(self, seed: Optional[int] = None, drawn=None):
         """Fresh ``(params, state)``, each ``{op_name: {key: tensor}}`` on
-        the device: the rank's blocks of :meth:`draw_params_and_state`'s."""
-        params, state = self.draw_params_and_state(seed)
+        the device: the rank's blocks of :meth:`draw_params_and_state`'s,
+        or of ``drawn`` (a host draw of a larger graph holding these ops:
+        a pipeline stage's share of the whole model's draw)."""
+        params, state = drawn or self.draw_params_and_state(seed)
         out = []
         for tree, specs_of in ((params, lambda op: op.param_specs()),
                                (state, lambda op: op.state_specs())):
@@ -383,11 +410,12 @@ class Executor:
         """The params of :meth:`init_params_and_state`."""
         return self.init_params_and_state(seed)[0]
 
-    def init(self, seed: Optional[int] = None):
+    def init(self, seed: Optional[int] = None, drawn=None):
         """Fresh ``(params, opt_state, state)`` for training; ``state``
-        holds the op state (``{}`` when no op keeps any)."""
+        holds the op state (``{}`` when no op keeps any); ``drawn`` as in
+        :meth:`init_params_and_state`."""
         opt = self._require_optimizer("init")
-        params, state = self.init_params_and_state(seed)
+        params, state = self.init_params_and_state(seed, drawn)
         if self.config.zero_sharded_optimizer and self.world is not None:
             # Born split: the moments of each rank's slice only.
             return params, opt.init(self._zero_views(params)), state
@@ -625,28 +653,31 @@ class Executor:
         """The --clip-norm factor ``min(1, c / ||g||)`` over the global L2
         norm of ``grads`` plus ``extra_sq`` (the sparse ops' squared
         per-unique-row sums): one f32 device scalar, nothing read back.
-        One formula for the dense and the sparse step.  Under a mesh the
-        squares of a gradient split over some axes are summed over them
-        (its spec's, or its ZeRO slice's with ``--zero-opt``); a
-        replicated one counts once."""
+        One formula for the dense and the sparse step."""
+        return torch.clamp(self.config.clip_norm * torch.rsqrt(torch.clamp(
+            self._grad_sq(grads, extra_sq), min=1e-30)), max=1.0)
+
+    def _grad_sq(self, grads, extra_sq=0.0):
+        """The squared L2 norm of ``grads`` plus ``extra_sq``, the same on
+        every rank: under a mesh the squares of a gradient split over some
+        axes are summed over them (its spec's, or its ZeRO slice's with
+        ``--zero-opt``); a replicated one counts once."""
         if self.world is None:
-            sq = extra_sq + sum(g.float().square().sum()
-                                for group in grads.values()
-                                for g in group.values())
-        else:
-            by_axes: Dict[tuple, Any] = {}
-            specs = (self.zero_specs() if self.config.zero_sharded_optimizer
-                     else self.param_specs())
-            for op, group in grads.items():
-                for k, g in group.items():
-                    axes = collectives.axes_of(specs[op][k])
-                    by_axes[axes] = by_axes.get(axes, 0.0) + \
-                        g.float().square().sum()
-            sq = extra_sq
-            for axes, part in by_axes.items():
-                sq = sq + self.world.all_reduce(part, axes)
-        return torch.clamp(self.config.clip_norm
-                           * torch.rsqrt(torch.clamp(sq, min=1e-30)), max=1.0)
+            return extra_sq + sum(g.float().square().sum()
+                                  for group in grads.values()
+                                  for g in group.values())
+        by_axes: Dict[tuple, Any] = {}
+        specs = (self.zero_specs() if self.config.zero_sharded_optimizer
+                 else self.param_specs())
+        for op, group in grads.items():
+            for k, g in group.items():
+                axes = collectives.axes_of(specs[op][k])
+                by_axes[axes] = by_axes.get(axes, 0.0) + \
+                    g.float().square().sum()
+        sq = extra_sq
+        for axes, part in by_axes.items():
+            sq = sq + self.world.all_reduce(part, axes)
+        return sq
 
     @staticmethod
     def _scaled(grads, scale):
@@ -886,8 +917,10 @@ class Executor:
     def superstep_fused(self) -> bool:
         """Whether ``steps_per_call > 1`` runs as one superstep here (the
         trainer routes on it, as the JAX package's does on
-        ``strategy.superstep_capable()``): always, since every strategy
-        the port runs spans the full mesh (``check_full_mesh``)."""
+        ``strategy.superstep_capable()``): always, since this executor
+        runs full-mesh strategies only (``check_full_mesh``); a
+        layer-wise one runs on ``runtime/pipeline.py``, whose steps do
+        not fuse."""
         return True
 
     @property

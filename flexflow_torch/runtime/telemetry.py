@@ -271,7 +271,8 @@ class Telemetry:
 
         self.fingerprint: Dict[str, Any] = box_fingerprint()
         #: ``fences`` and ``steps`` give fences/step; ``host_programs`` /
-        #: ``program_steps`` programs/step (the pipeline's, item 10).
+        #: ``program_steps`` programs/step (the pipeline's
+        #: event list, ``runtime/pipeline.py``).
         self.counts: Dict[str, int] = {
             "fences": 0, "steps": 0, "host_programs": 0, "program_steps": 0,
         }

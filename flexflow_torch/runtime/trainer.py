@@ -36,6 +36,12 @@ accumulation (``accum_steps``); and ``evaluate``, the read-only pass of
 - ``--profiling``: each op's forward timed alone after the run
   (``runtime/profiler.py::profile_ops``), its table printed.
 
+Over a layer-wise pipeline (``runtime/pipeline.py``) the per-step loop
+is the same; ``steps_per_call = K`` takes ``_fit_superstep_pipeline``
+(K host-driven steps, one fence), ``accum_steps`` must be the one the
+executor lowered into microbatches, and ``--profiling`` prints JAX's
+"unavailable" line.
+
 Under a world of ranks every rank runs the loop on its blocks: the
 fixed batch is the global host draw, each rank keeping its block (of
 every step and microbatch); a checkpoint binds the executor's snapshot
@@ -67,6 +73,7 @@ from flexflow_torch.data.loader import synthetic_host_batch
 from flexflow_torch.metrics import PerfMetrics
 from flexflow_torch.runtime import telemetry as _telemetry
 from flexflow_torch.runtime.executor import Executor
+from flexflow_torch.runtime.pipeline import PipelineExecutor
 
 _log = logging.getLogger("ff.trainer")
 
@@ -105,8 +112,14 @@ def _window(ex, name: str):
 
 def _print_profile(ex, params, state, batch) -> None:
     """``--profiling``: the per-op table of the trained params (every rank
-    times the ops; rank 0 prints)."""
+    times the ops; rank 0 prints); a pipeline has none (JAX's words)."""
     from flexflow_torch.runtime.profiler import profile_ops, report
+
+    if isinstance(ex, PipelineExecutor):
+        if ex.rank == 0:
+            print("profiling: per-op breakdown unavailable for pipeline "
+                  "executors")
+        return
 
     table = report(profile_ops(ex, params, state, batch))
     if ex.world is None or ex.world.rank == 0:
@@ -191,8 +204,25 @@ class Trainer:
                 "synthetic batch (ROADMAP.md queue 1, item 12)")
         if iterations <= 0:
             raise ValueError("fit() needs at least one iteration")
+        pipe = isinstance(self.ex, PipelineExecutor)
         with _telemetry.maybe_run(self.ex.config):
+            if pipe and accum_steps > 1:
+                # A pipeline lowers accumulation at construction (a
+                # groups x m microbatches are a*m microbatches); the
+                # trainer must not stack again.
+                if accum_steps != self.ex.accum_steps:
+                    raise ValueError(
+                        f"accum_steps={accum_steps} on a layer-wise "
+                        f"strategy must be lowered at construction: build "
+                        f"the PipelineExecutor (or make_executor) with "
+                        f"accum_steps={accum_steps} (this one has "
+                        f"accum_steps={self.ex.accum_steps})")
+                accum_steps = 1
             if steps_per_call > 1:
+                if pipe:
+                    return self._fit_superstep_pipeline(
+                        iterations, warmup, log_every, checkpoint,
+                        save_every, accum_steps, steps_per_call)
                 return self._fit_superstep(iterations, warmup, log_every,
                                            checkpoint, save_every,
                                            accum_steps, steps_per_call)
@@ -425,6 +455,108 @@ class Trainer:
                                preempt, steps_per_call=k,
                                supersteps=len(timed),
                                superstep_graph=fns[k].graphed)
+
+    def _fit_superstep_pipeline(self, iterations: int, warmup: int,
+                                log_every: int, checkpoint, save_every: int,
+                                accum_steps: int, k: int) -> Dict[str, Any]:
+        """Supersteps over the host-driven pipeline (JAX's
+        ``_fit_superstep_pipeline``): its step is one host-driven program
+        a (stage, microbatch) event and cannot fuse into one graph, but
+        the fence amortizes: ``k`` ``train_step`` calls back to back and
+        one fence a superstep, which reads their ``k`` metrics.  With
+        ``clip_norm > 0`` the global norm is one more collective a step,
+        not a fence here, but JAX's floor of one fence a step is warned
+        of as JAX warns.  Warmup is not rounded (no graph is captured).
+        Saves land at the first superstep boundary past each
+        ``save_every`` multiple.  The stats add ``steps_per_call`` and
+        ``supersteps``."""
+        from flexflow_torch.runtime.resilience import PreemptionHandler
+
+        tel = _telemetry.current()
+        ex = self.ex
+        if accum_steps > 1:
+            raise ValueError("accum_steps composes with full-mesh strategies "
+                             "only; pipeline strategies microbatch via "
+                             "microbatches=")
+        k = relay_safe_steps(k)
+        if ex.config.clip_norm > 0.0:
+            _log.warning(
+                "steps_per_call=%d with clip_norm=%g: the global-norm "
+                "fetch is a per-step fence, so dispatch amortizes but "
+                "the fence does not (one-fence-per-step floor)",
+                k, ex.config.clip_norm)
+        start_step, params, opt_state, state = self._restore(
+            checkpoint, ex.init())
+        host = synthetic_host_batch(ex.model, np.random.default_rng(0))
+        batch = ex.shard_batch(host)
+        losses: List[Any] = []
+        with PreemptionHandler(install=checkpoint is not None) as preempt:
+            m = None
+            for _ in range(warmup):
+                params, opt_state, state, m = ex.train_step(
+                    params, opt_state, state, batch)
+                losses.append(m["train_loss"])
+            start_step += warmup
+            if m is not None:
+                tel.fence(m, "warmup")
+            steps_done = supersteps = 0
+            last: Dict[str, Any] = {}
+            ckpt_s = 0.0
+            with _trace_ctx(ex) as prof:
+                start = time.perf_counter()
+                while steps_done < iterations:
+                    n = min(k, iterations - steps_done)
+                    t_call = time.perf_counter()
+                    if steps_done == 0:
+                        tel.program_cost("train_step", ex.model)
+                    ms, walls = [], []
+                    for _ in range(n):
+                        t_disp = time.perf_counter()
+                        with _window(ex, "train"):
+                            params, opt_state, state, m = ex.train_step(
+                                params, opt_state, state, batch)
+                        walls.append(time.perf_counter() - t_disp)
+                        ms.append(m)
+                    # ONE readback a superstep: its n steps' metrics.
+                    host_ms = tel.fence(ms, "superstep")
+                    if tel.enabled:
+                        tel.emit("superstep", k=n, mode="amortized",
+                                 wall_s=round(time.perf_counter() - t_call,
+                                              6),
+                                 first_step=start_step + steps_done,
+                                 programs_per_step=len(ex.last_schedule))
+                    supersteps += 1
+                    for i, hm in enumerate(host_ms):
+                        if tel.enabled:
+                            tel.record_step(start_step + steps_done,
+                                            loss=hm.get("train_loss"),
+                                            wall_s=walls[i])
+                        self.metrics.update(hm)
+                        losses.append(hm["train_loss"])
+                        last = hm
+                        steps_done += 1
+                        if log_every and steps_done % log_every == 0:
+                            print(f"iter {steps_done}: "
+                                  f"{self.metrics.report()}")
+                    if checkpoint is not None and save_every and \
+                            steps_done // save_every > \
+                            (steps_done - n) // save_every:
+                        t0 = time.perf_counter()
+                        checkpoint.save(start_step + steps_done, params,
+                                        opt_state, state)
+                        ckpt_s += time.perf_counter() - t0
+                    if _stop(ex, preempt, checkpoint):
+                        break  # the emergency save at this boundary
+                elapsed = time.perf_counter() - start - ckpt_s
+            _attach_trace(ex, tel, prof)
+            self._final_save(checkpoint, start_step + steps_done, params,
+                             opt_state, state, preempt)
+            if ex.config.profiling:
+                _print_profile(ex, params, state, batch)
+            self.final = (params, opt_state, state)
+            return self._stats(elapsed, steps_done, losses, last, start_step,
+                               preempt, steps_per_call=k,
+                               supersteps=supersteps)
 
     def evaluate(self, params, state, batches: Iterable[Dict[str, Any]],
                  iterations: Optional[int] = None) -> Dict[str, float]:

@@ -3,7 +3,9 @@
 The port keeps the JAX package's parameter names and logical layouts
 (``(out, in)`` linear kernels, ``(in, out)`` attention projections), so
 moving a ``{op: {name: array}}`` tree from ``jax.device_get`` into the
-port is a copy per array and nothing is transposed.
+port is a copy per array and nothing is transposed.  A pipeline's
+per-stage trees (``{si: {op: ...}}``, JAX's ``PipelineExecutor`` form)
+cross the same way, each stage cut by its own executor's specs.
 """
 
 from __future__ import annotations
@@ -92,3 +94,29 @@ def state_from_numpy(np_state, device="cuda", plan=None, rank: int = 0,
                 a = a.astype(np.int64)
             out[op][name] = _tensor(a).to(device)
     return out
+
+
+def _stage_tree(tree, pipe, si: int):
+    """Stage ``si``'s share of a numpy tree: ``tree[si]`` of a per-stage
+    ``{si: {op: ...}}`` tree (JAX's ``PipelineExecutor`` form), or the
+    stage's ops of a one-executor ``{op: ...}`` tree."""
+    if si in tree or str(si) in tree:
+        return tree.get(si, tree.get(str(si)))
+    ops = {op.name for op in pipe.stages[si].ops}
+    return {op: g for op, g in tree.items() if op in ops}
+
+
+def pipeline_params_from_numpy(np_params, pipe, device="cuda",
+                               dtype: Optional[torch.dtype] = None):
+    """JAX's per-stage parameter tree ``{si: {op: {param: array}}}`` (or
+    one executor's ``{op: ...}``, split by stage) as the port's per-stage
+    dicts for ``pipe``'s stages on this rank, each array cut to the rank's
+    block under its stage executor's specs."""
+    out = {}
+    for si in pipe.mine:
+        ex = pipe.stage_ex[si]
+        out[si] = params_from_numpy(_stage_tree(np_params, pipe, si), device,
+                                    dtype, plan=ex.plan, rank=ex.world.rank,
+                                    specs=ex.param_specs())
+    return out
+

@@ -267,8 +267,8 @@ def test_alexnet_app_refuses_by_name(flag, why):
 def test_alexnet_app_takes_a_one_gpu_strategy_file(tmp_path, capsys):
     """A JSON file written by the JAX package: every op on the one GPU
     runs; on one rank an op split two ways is refused, naming the op and
-    the ranks it needs, and an op on a subset of the devices naming the
-    pipeline (item 10)."""
+    the ranks it needs, and so is an op placed on a device past the one
+    rank (a layer-wise table needs the ranks it names)."""
     ok = JStore(1)
     ok.set("conv1", JPC(n=1))
     ok.set("linear1", JPC(device_ids=(0,)))
@@ -284,7 +284,7 @@ def test_alexnet_app_takes_a_one_gpu_strategy_file(tmp_path, capsys):
     subset = JStore(1)
     subset.set("linear1", JPC(device_ids=(1,)))
     subset.save(str(tmp_path / "subset.json"))
-    with pytest.raises(SystemExit, match="'linear1'.*item 10"):
+    with pytest.raises(SystemExit, match="'linear1'.*only 1 devices exist"):
         tapp.main(_APP + ["-s", str(tmp_path / "subset.json")], device="cpu")
 
 

@@ -388,8 +388,11 @@ def test_nmt_strategies():
     two = nmt_strategy(2)
     assert two.table["enc_lstm0"].s == 2 and two.table["vocab_proj"].c == 2
     assert two.table["softmax"].n == 2
-    with pytest.raises(NotImplementedError, match="item 10"):
-        nmt_pipeline_strategy(2)
+    # The layer-wise placement: the encoder on the first half, the
+    # decoder on the second (JAX's table, tests/test_torch_pipeline.py).
+    pipe = nmt_pipeline_strategy(2)
+    assert pipe.table["src_embed"].device_ids == (0,)
+    assert pipe.table["softmax"].device_ids == (1,)
 
 
 # -- the app and the bench leg -------------------------------------------------
@@ -411,7 +414,9 @@ def test_nmt_app_on_cpu(capsys, flags):
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
-@pytest.mark.parametrize("flag,msg", [(["--pipeline"], "item 10"),
+# ``--pipeline`` runs since the pipeline landed; its chunked form is the
+# refused one now (item 10b: the match covers it).
+@pytest.mark.parametrize("flag,msg", [(["--pipeline-chunk", "2"], "item 10"),
                                       (["--search", "5"], "search")])
 def test_nmt_app_refuses(flag, msg):
     with pytest.raises(SystemExit, match=msg):

@@ -432,13 +432,13 @@ def test_a_failing_rank_fails_the_world():
 def test_device_subset_table_names_the_pipeline():
     """``strategies/alexnet_readme_4dev.json`` pins ops to proper device
     subsets (``flat`` on [0, 2], ``linear3`` on [0]): layer-wise
-    placement, refused naming ROADMAP item 10 as JAX's ``Executor``
-    refuses it."""
+    placement, which the plain Executor refuses naming the pipeline
+    executor, as JAX's ``Executor`` refuses it."""
     from flexflow_torch.parallel.strategy import StrategyStore
 
     store = StrategyStore.load("strategies/alexnet_readme_4dev.json",
                                num_devices=4)
-    with pytest.raises(ValueError, match="'flat'.*item 10"):
+    with pytest.raises(ValueError, match="'flat'.*PipelineExecutor"):
         store.check_full_mesh()
     with pytest.raises(ValueError, match="places on devices"):
         JExecutor(_jax_cnn(), strategy=JStore(4, {"flat": JPC(
