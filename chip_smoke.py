@@ -500,7 +500,16 @@ Thirty-two phases, in order; any failure raises and exits non-zero:
     share.  K3 at the last stages' microbatch shapes (AlexNet (16, 1000)
     f32, NMT (320, 20480) bf16) and K4 at an embedding stage's 320 ids,
     held against their plain versions, timed beside them, the library
-    call and the bound.
+    call and the bound.  (e) The chunked and the compiled pipeline in
+    the same world: AlexNet with ``--pipeline-chunk 2`` and NMT with
+    ``--pipeline-chunk 2`` (= m), each bit for bit its 1f1b arm; NMT
+    with ``--pipeline-compiled --steps-per-call 3`` (the gloo loop on
+    one card, one CUDA graph a rank with its NCCL hand-offs on four) bit
+    for bit a host-driven run of the same six steps; K3/K4/K5 by rank in each, and on four cards
+    the compiled graph's launches at capture and by kernel name in a
+    profiled replay; ms a step by rank host-driven, chunked and
+    compiled; ``runtime/chaos.py``'s ``pipeline_superstep_nan`` on the
+    world (two stages of two), recovering bit for bit.
 
 Then it prints a ``kernels`` JSON line (``launches``: the serve, train,
 DLRM, long-context, race, AlexNet, superstep, serve-features,
@@ -3214,6 +3223,23 @@ def _named_leaves(tree, prefix=""):
             yield from _named_leaves(tree[k], f"{prefix}.{k}" if prefix else k)
 
 
+def _leaf_paths(tree, path=()):
+    """``(key path, tensor)`` of every tensor of a tree of dicts."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], path + (k,))
+    elif hasattr(tree, "numel"):
+        yield path, tree
+
+
+def _with_clone(tree, path):
+    """A copy of the dicts along ``path`` with the tensor there cloned
+    (every other tensor the same object)."""
+    if not path:
+        return tree.clone()
+    return {**tree, path[0]: _with_clone(tree[path[0]], path[1:])}
+
+
 def _bit_diff(torch, a, b) -> list:
     """The leaves where two trees of tensors differ in any bit."""
     la, lb = dict(_named_leaves(a)), dict(_named_leaves(b))
@@ -3264,16 +3290,15 @@ def _replay_counts(torch, tag, fn, carry, stacked, per_step) -> float:
     _check(counts == want, f"{tag}: launches at capture {counts}, expected "
            f"{want}")
     params = carry[0]
-    op, key = min(((op, key) for op, g in params.items() for key in g),
-                  key=lambda ok: params[ok[0]][ok[1]].numel())
-    other = {**params, op: {**params[op], key: params[op][key].clone()}}
+    path = min(_leaf_paths(params), key=lambda p: p[1].numel())[0]
+    other = _with_clone(params, path)
     try:
         fn(other, *carry[1:], stacked)
     except ValueError as e:
         _check("captured on other tensors" in str(e), f"{tag}: {e}")
     else:
         raise RuntimeError(f"chip_smoke: {tag}: a call with a clone of "
-                           f"{op}.{key} replayed the graph")
+                           f"{'.'.join(map(str, path))} replayed the graph")
     replays = []
 
     def replay():
@@ -8035,8 +8060,8 @@ def phase_mesh_train(torch, kernels, F, c=None, device="cuda"):
 #: m = 1 and its schedules are compared at m = 2.
 MESH_PIPE = dict(
     alexnet=dict(batch=64, batch4=256, image=229, classes=1000, m=4,
-                 iters=2, lr=0.01),
-    nmt=dict(NMT, iters=2, m=2),
+                 iters=2, lr=0.01, c=2),
+    nmt=dict(NMT, iters=2, m=2, k=3),
     table="strategies/alexnet_readme_4dev.json")
 
 
@@ -8179,6 +8204,11 @@ def phase_mesh_pipeline(torch, kernels, F, c=None, device="cuda"):
     alex = _pipe_alex_argv(ca, batch)
     table = ["-s", c["table"], "--microbatches", str(ca["m"])]
     nmt1 = _nmt_argv(cn, ("-i", str(cn["iters"]), "--seed", "0"))
+    kc = cn["k"]
+    # The compiled arm: one superstep of warmup, then k timed steps; the
+    # host-driven run it is held against takes the same 2 k steps.
+    nmt_host = _nmt_argv(cn, ("-i", str(2 * kc - 1), "--seed", "0"))
+    nmt_comp = _nmt_argv(cn, ("-i", str(kc), "--seed", "0"))
     tmp = tempfile.mkdtemp(prefix="ff_mesh_pipe_")
     try:
         refs = _pipe_refs(torch, tmp, alex, nmt1, device)
@@ -8196,7 +8226,25 @@ def phase_mesh_pipeline(torch, kernels, F, c=None, device="cuda"):
                      argv=nmt1 + pipe + [str(cn["m"])]),
                 dict(name="nmt_gpipe", app="nmt",
                      argv=nmt1 + pipe + [str(cn["m"]), "--pipeline-schedule",
-                                         "gpipe"])]
+                                         "gpipe"]),
+                # (e) chunked, compiled, and the rollback of a fused
+                # pipeline superstep.
+                dict(name="chunk_alex", app="alexnet", ref="alexnet",
+                     argv=alex + table + ["--pipeline-chunk", str(ca["c"])]),
+                dict(name="chunk_nmt", app="nmt",
+                     argv=nmt1 + pipe + [str(cn["m"]), "--pipeline-chunk",
+                                         str(cn["m"])]),
+                dict(name="nmt_host", app="nmt",
+                     argv=nmt_host + pipe + [str(cn["m"])]),
+                dict(name="compiled_nmt", app="nmt",
+                     argv=nmt_comp + pipe + [str(cn["m"]),
+                                             "--pipeline-compiled",
+                                             "--steps-per-call", str(kc)],
+                     replay={"every": {"gather_rows": cn["m"],
+                                       "scatter_add_rows": 1},
+                             "last_stage": {"softmax_xent": cn["m"],
+                                            "softmax_xent_bwd": cn["m"]}}),
+                dict(name="chaos_pipe", chaos=True)]
         ranks = launch.run(
             "flexflow_torch.tools.mesh_pipeline:chip_apps",
             (runs, {k: v[1] for k, v in refs.items()}, device), nprocs=4,
@@ -8210,6 +8258,16 @@ def phase_mesh_pipeline(torch, kernels, F, c=None, device="cuda"):
     for run in runs:
         name, got = run["name"], res[run["name"]]
         what = f"mesh-pipeline {name}"
+        if run.get("chaos"):
+            for r, g in enumerate(got):
+                _check(g["ok"] and g["backend"] == backend
+                       and not g["jax_imported"],
+                       f"{what} rank {r}: {g['detail']} ({g['backend']})")
+            print(f"[mesh-pipeline] (e) pipeline_superstep_nan on the "
+                  f"compiled pipeline ({backend}, k = 8, "
+                  f"{'a CUDA graph a rank' if nccl else 'a loop'}): "
+                  f"{got[0]['detail']}; {max(g['s'] for g in got):.1f} s")
+            continue
         want = refs[run["app"]][0] if run.get("ref") else None
         for r, g in enumerate(got):
             _check(g["code"] == 0 and g["kind"] == "PipelineExecutor"
@@ -8255,6 +8313,9 @@ def phase_mesh_pipeline(torch, kernels, F, c=None, device="cuda"):
         else:
             m = 1 if name == "nmt_m1" else cn["m"]
             dec = got[0]["stages"][-1]
+            # A compiled superstep on NCCL counts at its eager first call
+            # and its capture (2 k steps), its replays not at all; its
+            # 2 k steps make the same counts a step.
             want_k3 = [m * steps if r in dec else 0 for r in range(4)]
             # K4 a microbatch's backward, K5 once a step, on each
             # embedding's own stage (every rank holds one embedding).
@@ -8283,12 +8344,36 @@ def phase_mesh_pipeline(torch, kernels, F, c=None, device="cuda"):
             print(f"[mesh-pipeline] (d) {name}: one step with each hand-off "
                   f"synchronised alone, by rank: {shares} ({backend}); "
                   f"{card}")
-    for a, b in (("alex_gpipe", "alex_1f1b"), ("nmt_gpipe", "nmt_1f1b")):
+    for a, b in (("alex_gpipe", "alex_1f1b"), ("nmt_gpipe", "nmt_1f1b"),
+                 ("chunk_alex", "alex_1f1b"), ("chunk_nmt", "nmt_1f1b"),
+                 ("compiled_nmt", "nmt_host")):
         _check(res[a][0]["losses"] == res[b][0]["losses"]
                and res[a][0]["digest"] == res[b][0]["digest"],
                f"mesh-pipeline: {a} differs from {b}")
+    _check(res["nmt_host"][0]["losses"][:len(res["nmt_1f1b"][0]["losses"])]
+           == res["nmt_1f1b"][0]["losses"],
+           "mesh-pipeline: nmt_host's first steps differ from nmt_1f1b's")
+    comp = res["compiled_nmt"]
+    _check(all(g["compiled"] and g["graphed"] is nccl for g in comp)
+           and not any(g["compiled"] for g in res["chunk_nmt"]),
+           f"mesh-pipeline: compiled_nmt took compiled "
+           f"{[g['compiled'] for g in comp]}, graphs "
+           f"{[g['graphed'] for g in comp]} ({backend})")
     print(f"[mesh-pipeline] gpipe and 1f1b bit for bit (losses and every "
-          f"parameter) for AlexNet at m = {ca['m']} and NMT at m = {cn['m']}")
+          f"parameter) for AlexNet at m = {ca['m']} and NMT at m = {cn['m']}; "
+          f"(e) --pipeline-chunk {ca['c']} (AlexNet) and {cn['m']} (NMT) bit "
+          f"for bit 1f1b; NMT --pipeline-compiled --steps-per-call {kc} "
+          f"({'one CUDA graph a rank, its NCCL hand-offs inside' if nccl else 'the gloo loop'}) "
+          f"bit for bit the host-driven {2 * kc} steps; ms a step by rank: "
+          f"host-driven {[round(g['ms_step'], 3) for g in res['nmt_1f1b']]}, "
+          f"chunk = m {[round(g['ms_step'], 3) for g in res['chunk_nmt']]}, "
+          f"compiled {[round(g['ms_step'], 3) for g in comp]}; {card}")
+    if nccl:
+        print(f"[mesh-pipeline] (e) compiled_nmt's graph of {kc} steps by "
+              f"rank: launches a step {[g['replay_per_step'] for g in comp]} "
+              f"at capture and by kernel name in a profiled replay, device "
+              f"busy {[round(g['replay_busy_ms'], 3) for g in comp]} ms a "
+              f"replay; {card}")
     stages = res["alex_1f1b"][0]["stages"]
     rows = _pipe_kernel_rows(
         torch, kernels, F, batch // ca["m"] // len(stages[-1]),

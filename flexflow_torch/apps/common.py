@@ -6,7 +6,8 @@ telemetry, ``--trace`` and ``--profiling``) of
 ``flexflow_tpu/apps/common.py``.  ``run_training`` builds its executor
 through ``runtime/pipeline.py::make_executor``: a table that places ops
 on proper subsets of the ranks (``device_ids``) trains on the pipeline,
-with ``--microbatches`` and ``--pipeline-schedule``."""
+with ``--microbatches``, ``--pipeline-schedule``, ``--pipeline-chunk``
+and ``--pipeline-compiled``."""
 
 from __future__ import annotations
 
@@ -32,10 +33,18 @@ Training apps also read:
   -s/--strategy FILE.json (per-op degrees; ops on proper subsets of the
                            devices, device_ids, run as pipeline stages)
   --microbatches N   --pipeline-schedule 1f1b|gpipe (layer-wise tables)
+  --pipeline-chunk C (C microbatches a stage program, one hand-off a
+                      chunk)
+  --pipeline-compiled (the whole pipeline step as one program: makes
+                       --steps-per-call fuse, one CUDA graph a rank over
+                       NCCL, and --resilient compose at K>1 on
+                       layer-wise tables)
   --zero-opt (ZeRO-1: optimizer state split over the data-parallel axes)
   --granules N (the mesh's outer axes over N islands)
-  --steps-per-call K (K steps as one CUDA graph, one readback per K;
-                      clamped at 20)
+  --steps-per-call K (K steps as one CUDA graph, one readback per K,
+                      on full-mesh tables and compiled pipelines; K
+                      host-driven pipeline steps under one readback
+                      otherwise; clamped at 20)
   --accum-steps N (one update from N microbatches of the batch)
   --remat (recompute each layer's activations in the backward)
   --save-every N   --ckpt-dir PATH (checkpoints; a run on the same
@@ -62,11 +71,11 @@ TRAINING_FLAGS = (
     "--steps-per-call", "--accum-steps", "--save-every", "--ckpt-dir",
     "--max-restarts", "--telemetry", "--stall-deadline",
     "--stall-notify-pid", "--trace", "--granules", "--microbatches",
-    "--pipeline-schedule",
+    "--pipeline-schedule", "--pipeline-chunk",
 )
 #: The FFConfig flags a training app reads that take no value.
 TRAINING_SWITCHES = ("--remat", "--resilient", "--sync-ckpt", "--profiling",
-                     "--zero-opt")
+                     "--zero-opt", "--pipeline-compiled")
 
 #: Flags of the JAX package's apps that name a feature still to be
 #: ported, with the ROADMAP.md item that brings it.
@@ -81,10 +90,6 @@ _NOT_PORTED = {
     "--elastic": "elastic multi-host resize (ROADMAP.md queue 1, item 13)",
     "--stream-dataset": "the streaming loader (ROADMAP.md queue 1, "
                         "item 12)",
-    "--pipeline-chunk": "the chunked pipeline (ROADMAP.md queue 1, item "
-                        "10b)",
-    "--pipeline-compiled": "the compiled pipeline step (ROADMAP.md queue 1, "
-                           "item 10b)",
 }
 
 _DTYPES = ("float32", "bfloat16")
@@ -333,13 +338,13 @@ def _run_resilient(ff, cfg: FFConfig, executor_factory, label: str,
 
     from flexflow_torch.runtime.pipeline import PipelineExecutor
 
-    if isinstance(first_ex, PipelineExecutor) and cfg.steps_per_call > 1:
+    if isinstance(first_ex, PipelineExecutor) and cfg.steps_per_call > 1 \
+            and not first_ex.superstep_fused:
         raise SystemExit(
-            "--resilient --steps-per-call K>1 requires a fused superstep "
-            "(full-mesh strategies, or a layer-wise one with "
-            "--pipeline-compiled, ROADMAP.md queue 1 item 10b); host-driven "
-            "layer-wise strategies compose with --resilient at "
-            "steps-per-call 1")
+            "--resilient --steps-per-call K>1 requires a fused "
+            "superstep (full-mesh strategies, or a layer-wise one "
+            "with --pipeline-compiled); host-driven layer-wise "
+            "strategies compose with --resilient at steps-per-call 1")
     if cfg.accum_steps > 1:
         raise SystemExit("--resilient does not compose with --accum-steps "
                          "yet")

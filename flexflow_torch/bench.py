@@ -30,8 +30,14 @@ is ``iterations x batch / elapsed`` with one fence at the end
 the line carries ``"value": null`` and the error; nothing is measured
 on the CPU.
 
-``bench.py``'s other legs (pipeline, data plane, search, op-parallel)
-wait for their slices of the port (ROADMAP.md queue 1).  The leg functions take the device and their
+The pipeline leg (``pipeline``: ``bench.py``'s ms a step of a
+layer-wise MLP at S = 2 and 4 stages, m = 4 and 8 microbatches, chunk 1
+and m, host-driven and compiled, and k = 8 pipeline supersteps) and the
+telemetry leg's ``programs_per_step`` run on a world of one card a rank
+over NCCL; on fewer than 2 cards the leg reports ``skipped`` in
+``bench.py``'s words and measures nothing.  ``bench.py``'s other legs
+(data plane, search, op-parallel) wait for their slices of the port
+(ROADMAP.md queue 1).  The leg functions take the device and their
 sizes as arguments, so a test can run them small on the CPU.
 """
 
@@ -170,7 +176,7 @@ def bench_superstep(device="cuda", batch: int = 64, width: int = 256,
 
 
 def bench_telemetry(device="cuda", batch: int = 64, width: int = 256,
-                    iters: int = 32) -> dict:
+                    iters: int = 32, ranks: int | None = None) -> dict:
     """``bench.py``'s run-telemetry leg (``bench_telemetry``) at its
     one-chip TPU sizes: bench.py's MLP (``width`` -> ``width`` ReLU -> 8
     classes, SGD lr 0.01 momentum 0.9) trained ``iters`` steps with
@@ -179,8 +185,11 @@ def bench_telemetry(device="cuda", batch: int = 64, width: int = 256,
     Returns fences/step, the host step-time p50/p95/max of the last
     telemetry run, and the overhead of telemetry over the summed
     elapsed times.  ``FF_TELEMETRY_DIR`` is unset around the legs, so
-    the "off" fits are off.  ``programs_per_step`` needs the pipeline's
-    leg (item 10b); on one device the JAX leg leaves it out too."""
+    the "off" fits are off.  With ``ranks`` >= 2 (by default the
+    visible cards), ``programs_per_step``: a two-stage layer-wise run at
+    m = 4, chunk 4, on a world of that many ranks
+    (:func:`pipeline_programs_rank`); on one device the JAX leg leaves it
+    out too."""
     import os
 
     import torch
@@ -215,7 +224,7 @@ def bench_telemetry(device="cuda", batch: int = 64, width: int = 256,
         if env_dir is not None:
             os.environ["FF_TELEMETRY_DIR"] = env_dir
     t = on["telemetry"]
-    return {
+    out = {
         "batch_size": batch,
         "iterations": iters,
         "fences_per_step": t.get("fences_per_step"),
@@ -224,6 +233,168 @@ def bench_telemetry(device="cuda", batch: int = 64, width: int = 256,
         "step_ms_max": t.get("step_ms_max"),
         "overhead_pct": round((on_s - off_s) / off_s * 100, 2),
     }
+    nd = _world_size(device, ranks)
+    if nd >= 2:
+        out["programs_per_step"] = _pipeline_world(
+            "pipeline_programs_rank", device, nd, batch, width)
+    return out
+
+
+def _world_size(device, ranks: int | None) -> int:
+    """The ranks of a leg's world: ``ranks``, or the visible cards."""
+    import torch
+
+    if ranks is not None:
+        return ranks
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" \
+        else 1
+
+
+def _pipeline_world(body: str, device, nd: int, *args):
+    """Rank 0's result of ``body`` on a world of ``nd`` ranks: NCCL a card
+    a rank on CUDA, gloo on the CPU."""
+    import torch
+
+    from flexflow_torch.parallel import launch
+
+    kind = torch.device(device).type
+    return launch.run(f"flexflow_torch.bench:{body}", (kind, *args),
+                      nprocs=nd, device=kind)[0]
+
+
+def _pipeline_mlp(batch: int, width: int, depth: int, seed: int):
+    """``bench.py``'s pipeline MLP: ``depth`` ReLU layers of ``width``, an
+    8-class head and the loss."""
+    import torch
+
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.graph import FFModel
+
+    ff = FFModel(FFConfig(batch_size=batch, seed=seed))
+    x = ff.create_tensor((batch, width), name="x")
+    lbl = ff.create_tensor((batch,), dtype=torch.int32, name="label")
+    t = x
+    for i in range(depth):
+        t = ff.dense(t, width, activation="relu", name=f"fc{i}")
+    t = ff.dense(t, 8, name="head")
+    ff.softmax(t, lbl, name="softmax")
+    return ff
+
+
+def _pipeline_store(S: int, nd: int, names):
+    """``bench.py``'s layer-wise table: ``names`` in order over ``S``
+    stages of ``nd // S`` ranks each, data-parallel within a stage."""
+    from flexflow_torch.parallel.strategy import ParallelConfig, StrategyStore
+
+    st = StrategyStore(nd)
+    per = nd // S
+    for i, name in enumerate(names):
+        si = min(i * S // len(names), S - 1)
+        st.set(name, ParallelConfig(
+            n=per, device_ids=tuple(range(si * per, (si + 1) * per))))
+    return st
+
+
+def pipeline_programs_rank(device: str, batch: int, width: int):
+    """Rank body of the telemetry leg's ``programs_per_step``
+    (``bench.py:575-598``): a two-stage run (``fc0``; ``head`` and the
+    loss) at m = 4, chunk 4, 1 + 4 steps under in-memory telemetry."""
+    from flexflow_torch.optim import SGDOptimizer
+    from flexflow_torch.parallel import launch
+    from flexflow_torch.runtime.pipeline import PipelineExecutor
+    from flexflow_torch.runtime.telemetry import Telemetry
+    from flexflow_torch.runtime.trainer import Trainer
+
+    nd = launch.world_size()
+    ff = _pipeline_mlp(batch, width, 1, 7)
+    pipe = PipelineExecutor(
+        ff, _pipeline_store(2, nd, ["fc0", "head", "softmax"]),
+        optimizer=SGDOptimizer(lr=0.01, momentum=0.9), device=device,
+        microbatches=4, chunk=4)
+    with Telemetry() as ptel:
+        _quiet(lambda: Trainer(pipe).fit(iterations=4, warmup=1))
+    return ptel.step_summary().get("programs_per_step")
+
+
+def _quiet(fn):
+    """``fn()`` with its report lines swallowed."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def pipeline_rank(device: str, batch: int, width: int, iters: int,
+                  stages, micro, k: int) -> dict:
+    """Rank body of :func:`bench_pipeline`: ``bench.py``'s sweep on this
+    world (``bench.py:398-565``)."""
+    from flexflow_torch.optim import SGDOptimizer
+    from flexflow_torch.parallel import launch
+    from flexflow_torch.runtime.pipeline import PipelineExecutor
+    from flexflow_torch.runtime.trainer import Trainer
+
+    nd, depth = launch.world_size(), 4
+    names = [f"fc{i}" for i in range(depth)] + ["head", "softmax"]
+    ff = _pipeline_mlp(batch, width, depth, 5)
+
+    def fit(S, mb, steps_per_call=1, warmup=1, **kw):
+        pipe = PipelineExecutor(
+            ff, _pipeline_store(S, nd, names),
+            optimizer=SGDOptimizer(lr=0.01, momentum=0.9), device=device,
+            microbatches=mb, **kw)
+        stats = _quiet(lambda: Trainer(pipe).fit(
+            iterations=iters, warmup=warmup, steps_per_call=steps_per_call))
+        return round(stats["elapsed_s"] / iters * 1e3, 3), \
+            len(pipe.last_schedule)
+
+    out = {}
+    sweep = [S for S in stages if S <= nd]
+    for S in sweep:
+        for mb in micro:
+            for c in (1, mb):
+                key = f"s{S}_mb{mb}_c{c}"
+                out[f"{key}_ms_per_step"], out[f"{key}_programs"] = fit(
+                    S, mb, chunk=c)
+            key = f"s{S}_mb{mb}_compiled"
+            out[f"{key}_ms_per_step"], out[f"{key}_programs"] = fit(
+                S, mb, compiled=True)
+    S, mb = sweep[-1], micro[-1]
+    out["chunk_amortization"] = round(
+        out[f"s{S}_mb{mb}_c1_ms_per_step"]
+        / out[f"s{S}_mb{mb}_c{mb}_ms_per_step"], 3)
+    out["compiled_speedup"] = round(
+        out[f"s{S}_mb{mb}_c{mb}_ms_per_step"]
+        / out[f"s{S}_mb{mb}_compiled_ms_per_step"], 3)
+    # k steps under one fence: host-driven (amortized) and compiled (one
+    # fused superstep, a CUDA graph a rank over NCCL).
+    out[f"superstep_k{k}_ms_per_step"], _ = fit(
+        sweep[0], micro[0], steps_per_call=k, chunk=micro[0])
+    out[f"superstep_k{k}_compiled_ms_per_step"], _ = fit(
+        sweep[0], micro[0], steps_per_call=k, warmup=k, compiled=True)
+    return out
+
+
+def bench_pipeline(device="cuda", width: int = 256, iters: int = 16,
+                   ranks: int | None = None, batch: int | None = None,
+                   stages=(2, 4), micro=(4, 8), k: int = 8) -> dict:
+    """``bench.py``'s layer-wise pipeline leg (``bench_pipeline``): an
+    MLP of four ReLU layers of ``width`` (batch 64 a rank), S stages x m
+    microbatches at chunk 1 and m (``*_programs``: the step's events,
+    ``2 S ceil(m/c)``) and compiled (1 program a step), then k = 8
+    pipeline supersteps host-driven and compiled; ``iters`` timed steps
+    after one warmup (a superstep of warmup compiled).  Runs on a world
+    of ``ranks`` (the visible cards by default), NCCL a card a rank;
+    below 2 it reports why it skipped, in ``bench.py``'s words."""
+    nd = _world_size(device, ranks)
+    batch = batch or 64 * nd
+    out = {"batch_size": batch, "iterations": iters, "n_devices": nd}
+    if not [S for S in stages if S <= nd]:
+        out["skipped"] = (f"{nd} device(s): pipeline stages need distinct "
+                          f"device subsets (>= 2 devices)")
+        return out
+    out.update(_pipeline_world("pipeline_rank", device, nd, batch, width,
+                               iters, tuple(stages), tuple(micro), k))
+    return out
 
 
 #: The serving leg's injected faults (``bench.py``'s): a NaN'd cache row
@@ -609,6 +780,11 @@ def _run() -> dict:
             extra["telemetry"] = bench_telemetry()
     except Exception as e:
         extra["telemetry_error"] = f"{type(e).__name__}: {e}"
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            extra["pipeline"] = bench_pipeline()
+    except Exception as e:
+        extra["pipeline_error"] = f"{type(e).__name__}: {e}"
     try:
         with contextlib.redirect_stdout(sys.stderr):
             extra["serving"] = bench_serving()

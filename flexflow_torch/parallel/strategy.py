@@ -96,6 +96,31 @@ class StrategyStore:
     def data_parallel(num_devices: int) -> "StrategyStore":
         return StrategyStore(num_devices, {})
 
+    @property
+    def layer_wise(self) -> bool:
+        """True when some op pins a proper subset of the devices: the
+        table then runs as pipeline stages (``make_executor`` routes on
+        the same test).  JAX's one source of truth for
+        :meth:`superstep_mode`."""
+        return any(pc.device_ids is not None
+                   and len(set(pc.device_ids)) < self.num_devices
+                   for pc in self.table.values())
+
+    def superstep_mode(self, compiled: bool = False) -> str:
+        """How ``steps_per_call > 1`` runs this table (JAX's words):
+        ``"fused"``, K steps as one program (one CUDA graph a rank on
+        CUDA over NCCL), for full-mesh tables and for layer-wise ones on
+        the compiled pipeline step; ``"amortized"``, K host-driven
+        pipeline steps back to back under one fence
+        (``Trainer._fit_superstep_pipeline``), for layer-wise tables on
+        the host-driven pipeline."""
+        return "amortized" if self.layer_wise and not compiled else "fused"
+
+    def superstep_capable(self, compiled: bool = False) -> bool:
+        """Whether the fused superstep realizes this table (see
+        :meth:`superstep_mode`)."""
+        return self.superstep_mode(compiled=compiled) == "fused"
+
     def check_devices(self) -> None:
         """Raise when an op needs more devices than the store has: more
         parts than devices, or a device id past the last."""

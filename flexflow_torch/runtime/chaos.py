@@ -13,6 +13,9 @@ batch 8).  On a world of 8 ranks it runs under JAX's own table, ``fc1``
 hybrid-parallel ``n2c4`` (``chaos_table``), every rank of the world
 running the scenario together (each with its own injector, the same
 schedule); on 4 ranks under ``n2c2``; on one device, as a plain run.
+``pipeline_superstep_nan`` runs the same model layer-wise on the
+compiled pipeline (``pipeline_table``: two stages of half the world
+each), in a world of its own when started outside one.
 
 The serving scenarios run the plain ``Server``'s and the scheduler's
 failure models on JAX's scenario stack (vocab 32, d_model 16, 2 heads,
@@ -37,7 +40,7 @@ import os
 import signal
 import subprocess
 import sys
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,20 +73,56 @@ def chaos_table(ranks: int) -> Dict[str, ParallelConfig]:
     return {"fc1": ParallelConfig(n=2, c=c)} if c else {}
 
 
+def chaos_model() -> FFModel:
+    """JAX's chaos MLP: 16 -> 32 ReLU -> 4, softmax, batch 8."""
+    ff = FFModel(FFConfig(batch_size=8))
+    x = ff.create_tensor((8, 16), name="x")
+    lbl = ff.create_tensor((8,), dtype=torch.int32, name="label")
+    t = ff.dense(x, 32, activation="relu", name="fc1")
+    t = ff.dense(t, 4, name="fc2")
+    ff.softmax(t, lbl, name="softmax")
+    return ff
+
+
 def tiny_factory(device="cuda") -> Callable[[], Executor]:
     """Executor factory of the chaos model on ``device``, under
     :func:`chaos_table` of the world's size."""
 
     def make() -> Executor:
-        ff = FFModel(FFConfig(batch_size=8))
-        x = ff.create_tensor((8, 16), name="x")
-        lbl = ff.create_tensor((8,), dtype=torch.int32, name="label")
-        t = ff.dense(x, 32, activation="relu", name="fc1")
-        t = ff.dense(t, 4, name="fc2")
-        ff.softmax(t, lbl, name="softmax")
         ranks = launch.world_size()
-        return Executor(ff, optimizer=SGDOptimizer(lr=0.1), device=device,
+        return Executor(chaos_model(), optimizer=SGDOptimizer(lr=0.1),
+                        device=device,
                         strategy=StrategyStore(ranks, chaos_table(ranks)))
+
+    return make
+
+
+def pipeline_table(ranks: int) -> Dict[str, ParallelConfig]:
+    """JAX's layer-wise chaos table on ``ranks`` ranks: ``fc1`` on the
+    first half, ``fc2`` and the loss on the second, data-parallel in
+    each (two stages of four on 8 ranks, of two on 4)."""
+    h = ranks // 2
+    first, second = tuple(range(h)), tuple(range(h, 2 * h))
+    return {"fc1": ParallelConfig(n=h, device_ids=first),
+            "fc2": ParallelConfig(n=h, device_ids=second),
+            "softmax": ParallelConfig(n=h, device_ids=second)}
+
+
+def pipeline_factory(device="cuda") -> Callable[[], Any]:
+    """Executor factory of the pipeline scenario: the chaos model under
+    :func:`pipeline_table` of the world's size on the compiled pipeline
+    step, two microbatches (JAX's ``pipeline_factory``): the fused k = 8
+    superstep a rollback at k > 1 needs (one CUDA graph a rank over
+    NCCL, a loop over gloo)."""
+
+    def make():
+        from flexflow_torch.runtime.pipeline import PipelineExecutor
+
+        ranks = launch.world_size()
+        return PipelineExecutor(
+            chaos_model(), StrategyStore(ranks, pipeline_table(ranks)),
+            optimizer=SGDOptimizer(lr=0.1), device=device, microbatches=2,
+            compiled=True)
 
     return make
 
@@ -117,12 +156,16 @@ _BASELINES: Dict[tuple, np.ndarray] = {}
 
 
 def baseline(root: str, k: int = K, iters: int = ITERS,
-             save_every: int = SAVE_EVERY, device="cuda") -> np.ndarray:
-    """The unfaulted trajectory, computed once per shape and device."""
-    key = (str(torch.device(device)), k, iters, save_every)
+             save_every: int = SAVE_EVERY, device="cuda",
+             factory: Optional[Callable] = None, tag: str = "") -> np.ndarray:
+    """The unfaulted trajectory, computed once per shape, device and
+    model (``factory``, named by ``tag``)."""
+    key = (str(torch.device(device)), k, iters, save_every, tag)
     if key not in _BASELINES:
-        out = fit_once(os.path.join(root, f"baseline_{key[0]}_k{k}_{iters}"),
-                       k=k, iters=iters, save_every=save_every, device=device)
+        out = fit_once(os.path.join(root, f"baseline{tag}_{key[0]}_k{k}_"
+                                          f"{iters}"),
+                       k=k, iters=iters, save_every=save_every,
+                       factory=factory, device=device)
         assert out["restarts"] == 0 and not out["preempted"]
         _BASELINES[key] = trajectory(out["losses"], iters)
     return _BASELINES[key]
@@ -250,6 +293,47 @@ def scenario_force_save_kill(root: str, device="cuda", k: int = K) -> Result:
         return False, "force_kill: torn old + staged new not recovered"
     return True, ("force_kill: every kill point left a restorable "
                   "checkpoint (write-new-then-retire)")
+
+
+#: The world the pipeline scenario starts when it runs outside one.
+PIPELINE_RANKS = 4
+
+
+def pipeline_nan_rank(root: str, device="cuda", k: int = K) -> Result:
+    """The pipeline scenario on this rank of a world."""
+    inj = FaultInjector(nan_loss_at=(11,))
+    out = fit_once(os.path.join(root, f"pipe_nan_k{k}"), inj, k=k,
+                   factory=pipeline_factory, device=device)
+    if out["restarts"] != 1:
+        return False, (f"pipeline_superstep_nan: expected 1 restart, got "
+                       f"{out['restarts']}")
+    return _compare("pipeline_superstep_nan",
+                    baseline(root, k=k, device=device,
+                             factory=pipeline_factory, tag="_pipeline"),
+                    trajectory(out["losses"], ITERS), out)
+
+
+def scenario_pipeline_superstep_nan(root: str, device="cuda",
+                                    k: int = K) -> Result:
+    """ResilientTrainer over the COMPILED pipeline at k = 8 (JAX's
+    scenario): a silent NaN loss inside the second fused superstep is
+    caught at its one fence, rolled back to the step-8 snapshot (the
+    per-stage trees through ``PipelineLayout``, into the live tensors a
+    graph replays on) and replayed bit for bit.  Inside a world every
+    rank runs it under :func:`pipeline_table` of the world's size;
+    outside one it starts a world of :data:`PIPELINE_RANKS` (NCCL a card
+    a rank where the cards suffice, else gloo) and reports rank 0's
+    result, or the first rank's failure."""
+    if launch.in_world():
+        return pipeline_nan_rank(root, device, k)
+    kind = torch.device(device).type
+    backend = None if kind == "cpu" or \
+        torch.cuda.device_count() >= PIPELINE_RANKS else "gloo"
+    ranks = launch.run("flexflow_torch.runtime.chaos:pipeline_nan_rank",
+                       (root, kind, k), nprocs=PIPELINE_RANKS, device=kind,
+                       backend=backend, timeout_s=600)
+    bad = [r for r in ranks if not r[0]]
+    return bad[0] if bad else ranks[0]
 
 
 # -- serving scenarios -----------------------------------------------------
@@ -742,8 +826,7 @@ SCENARIOS: Dict[str, Callable[..., Result]] = {
     "sigterm": scenario_sigterm,
     "corrupt_checkpoint": scenario_corrupt_checkpoint,
     "force_save_kill": scenario_force_save_kill,
-    "pipeline_superstep_nan": _not_ported(
-        "pipeline_superstep_nan", "item 10b", "the compiled pipeline"),
+    "pipeline_superstep_nan": scenario_pipeline_superstep_nan,
     "loader_fault": _not_ported(
         "loader_fault", "item 12", "the streaming loader"),
     "serving_decode_fault": scenario_serving_decode_fault,

@@ -74,10 +74,34 @@ across, ``weights.pipeline_params_from_numpy``).  Snapshots hold whole
 tensors under one executor's names (``snapshot_layout``), so a pipeline
 run's snapshot restores under the one executor and the other way round.
 
-Not ported here (ROADMAP.md item 10b): the chunked stage programs
-(``--pipeline-chunk``), the compiled whole-step pipeline
-(``--pipeline-compiled``) and so fused pipeline supersteps; each raises
-naming the item.
+**Chunks** (``chunk = c``, ``--pipeline-chunk``): an event is one
+(stage, chunk of ``c`` microbatches), ``build_schedule(S, ceil(m/c))``,
+so a step walks ``2 * S * ceil(m/c)`` events.  Inside an event the stage
+runs its chunk's microbatches one after another in microbatch order, as
+JAX's ``lax.scan`` does (never one larger forward: a batch-mean loss, a
+BatchNorm or a Dropout mask would differ), and gradients and metrics go
+on summing in f32 in microbatch order, so every ``c`` is bit for bit the
+``c = 1`` loop.  A boundary tensor and its cotangent move once a chunk:
+the chunk's whole tensors stacked ``(L, mb, ...)`` in one
+``batch_isend_irecv`` (a short last chunk under its own header key).
+1f1b's memory bound becomes ``(S - si) * c`` microbatches on stage
+``si``.
+
+**The compiled step** (``compiled=True``, ``--pipeline-compiled``): the
+step at ``c = m`` with its tail, run as one program.  Its eligibility
+is JAX's (:func:`compiled_unsupported_reason`: disjoint stages of one
+size, no ``s``, ``h`` or ``w`` degree, ``c`` on ``Linear`` only), so
+every rank runs at most one stage.  After its first, eager call the
+step waits on nothing on the host (the hand-offs' headers and the
+metrics' layout are cached), so on CUDA over NCCL ``build_superstep(k)``
+captures ``k`` steps as one CUDA graph a rank, the NCCL point-to-point
+hand-offs and the stages' and the world's collectives inside
+(``runtime/graphs.py::StepGraph``, ``thread_local`` capture); over gloo
+and on the CPU the same body runs as a loop.  A failed capture raises.
+JAX puts every stage's parameters on one shared stage mesh; here each
+stage's stay on its own ranks (the same numerics).  ``make_executor``
+falls back to the host-driven pipeline, loudly and in JAX's words, on a
+table the compiled step refuses.
 """
 
 from __future__ import annotations
@@ -96,10 +120,17 @@ from flexflow_torch.config import FFConfig
 from flexflow_torch.graph import FFModel
 from flexflow_torch.ops import embedding
 from flexflow_torch.ops.base import Op, TensorSpec
+from flexflow_torch.ops.linear import Linear
 from flexflow_torch.parallel import collectives, launch
-from flexflow_torch.parallel.mesh import build_mesh_plan, replicated
+from flexflow_torch.parallel.mesh import (
+    InfeasibleStrategyError,
+    build_mesh_plan,
+    check_stage_mesh_feasible,
+    replicated,
+)
 from flexflow_torch.parallel.strategy import StrategyStore
 from flexflow_torch.runtime import telemetry as _telemetry
+from flexflow_torch.runtime.graphs import StepGraph
 from flexflow_torch.runtime.executor import (
     Executor,
     SnapshotLayout,
@@ -113,13 +144,15 @@ from flexflow_torch.runtime.executor import (
 
 _log = logging.getLogger("ff.pipeline")
 
-#: Where the chunked and the compiled pipeline come from.
-ITEM_10B = ("the chunked and the compiled pipeline are ROADMAP.md "
-            "queue 1, item 10b")
-
 
 class PlacementError(ValueError):
     pass
+
+
+class CompiledPipelineUnsupported(PlacementError):
+    """The compiled whole-step path cannot realize this model/strategy
+    combination; callers (``make_executor``) fall back LOUDLY to the
+    host-driven pipeline, which supports everything."""
 
 
 @dataclasses.dataclass
@@ -229,6 +262,40 @@ def derive_stages(model: FFModel, strategy: StrategyStore) -> List[Stage]:
     return stages
 
 
+def compiled_unsupported_reason(model: FFModel, strategy: StrategyStore,
+                                stages: Optional[List[Stage]] = None
+                                ) -> Optional[str]:
+    """``None`` when the compiled whole-step pipeline can realize this
+    model/strategy, else the blocker string ``PipelineExecutor`` raises as
+    :class:`CompiledPipelineUnsupported` (JAX's ladder and words, word for
+    word; the execution-config search's legality predicate too)."""
+    if stages is None:
+        try:
+            stages = derive_stages(model, strategy)
+        except PlacementError as e:
+            return str(e)
+    for st in stages:
+        for op in st.ops:
+            pc = strategy.find(op.name)
+            if pc.s > 1:
+                return ("compiled pipeline step does not support s-degree "
+                        "(explicit-collective sequence ops) inside stages "
+                        "yet")
+            if pc.h > 1 or pc.w > 1:
+                return (f"compiled pipeline step: spatial (h/w) degree on "
+                        f"{op.name!r} is unverified against the host "
+                        f"path's submesh numerics")
+            if pc.c > 1 and not isinstance(op, Linear):
+                return (f"compiled pipeline step: c-degree on non-Linear "
+                        f"op {op.name!r} is unverified against the host "
+                        f"path's submesh numerics")
+    try:
+        check_stage_mesh_feasible([st.device_ids for st in stages])
+    except InfeasibleStrategyError as e:
+        return f"compiled pipeline step: {e}"
+    return None
+
+
 def build_schedule(schedule: str, S: int, m: int
                    ) -> List[Tuple[str, int, int]]:
     """The step's event list ``("F"|"B", stage, microbatch)`` (JAX's
@@ -309,8 +376,10 @@ class PipelineExecutor:
     (module docstring).  ``microbatches`` splits the batch; 1 is the
     reference's plain layer-wise placement.  ``accum_steps > 1`` is
     lowered onto the microbatch loop, as JAX lowers it: ``a`` groups of
-    ``m`` microbatches are ``a * m`` microbatches.  ``chunk > 1`` and
-    ``compiled=True`` are ROADMAP.md item 10b and raise.
+    ``m`` microbatches are ``a * m`` microbatches.  ``chunk`` runs that
+    many microbatches an event (clamped to ``m``); ``compiled=True`` runs
+    the compiled step (module docstring) or raises
+    :class:`CompiledPipelineUnsupported`.
 
     The optimizer is shared by the stages; parameters, optimizer state and
     op state are updated in place, as the one executor updates them."""
@@ -330,14 +399,6 @@ class PipelineExecutor:
                 "PER-SUBMESH (each stage's moments split over that "
                 "stage's own devices) — not implemented; layer-wise "
                 "strategies keep replicated optimizer state")
-        if chunk != 1:
-            raise ValueError(f"pipeline chunk {chunk}: {ITEM_10B}; the "
-                             f"host-driven pipeline runs one stage program "
-                             f"a microbatch (chunk 1)")
-        if compiled:
-            raise ValueError(f"the compiled whole-step pipeline: "
-                             f"{ITEM_10B}; the host-driven pipeline runs "
-                             f"without it")
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         if schedule not in ("1f1b", "gpipe"):
@@ -352,10 +413,25 @@ class PipelineExecutor:
         if microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got {microbatches}")
         self.microbatches = microbatches
+        if chunk < 1:
+            raise ValueError(f"pipeline chunk must be >= 1, got {chunk}")
+        if chunk > microbatches:
+            _log.warning("pipeline chunk %d exceeds microbatches %d; "
+                         "clamping (c=m is already the dispatch-minimal "
+                         "limit)", chunk, microbatches)
+            chunk = microbatches
+        self.chunk = chunk
+        self.compiled = bool(compiled)
         self.schedule = schedule
         self.optimizer = optimizer
         self.strategy = strategy
         self.stages = derive_stages(model, strategy)
+        if self.compiled:
+            # JAX's one eligibility ladder, shared with the search.
+            reason = compiled_unsupported_reason(model, strategy,
+                                                 self.stages)
+            if reason is not None:
+                raise CompiledPipelineUnsupported(reason)
         if not launch.in_world():
             raise PlacementError(
                 f"a layer-wise strategy over {strategy.num_devices} devices "
@@ -425,17 +501,56 @@ class PipelineExecutor:
         #: the device before it starts and before it returns).
         self.timed = False
         self.handoff_s = 0.0
+        #: The hand-offs this rank sent in the last step (one
+        #: ``batch_isend_irecv`` each), counted where the step ran on the
+        #: host (at a graph's capture, not its replays).
+        self.last_sends = 0
         self._meta: Dict[tuple, tuple] = {}
         self._shared_meta: Dict[tuple, list] = {}
+        self._compiled_noted = False
 
     # -- the executor's surface ------------------------------------------
 
     @property
     def superstep_fused(self) -> bool:
-        """False: k host-driven steps cannot fuse into one program (the
-        trainer amortizes the fence instead, ``_fit_superstep_pipeline``;
-        the compiled step is item 10b)."""
-        return False
+        """Whether ``steps_per_call > 1`` fuses into one program here
+        (the trainer and the resilient trainer route on it): the compiled
+        step does; k host-driven steps do not (the trainer amortizes the
+        fence instead, ``_fit_superstep_pipeline``)."""
+        return self.compiled
+
+    @property
+    def superstep_graph(self) -> bool:
+        """Whether a fused superstep is one CUDA graph a rank: on CUDA
+        over NCCL; over gloo (the CPU, or ranks sharing a card) the k
+        steps run as a loop, chosen from the backend, never after a
+        failed capture."""
+        return self.device.type == "cuda" and self.backend == "nccl"
+
+    def note_fused_dispatch(self, steps: int = 1) -> None:
+        """Record one compiled program covering ``steps`` train steps:
+        the ``("C", 0, 0)`` event list and the telemetry counter, so
+        programs a step read ``1/k`` on the fused superstep path
+        (``train_step`` calls it with 1, ``Trainer._fit_superstep`` after
+        each superstep)."""
+        self.last_schedule = [("C", 0, 0)]
+        _telemetry.current().add_programs(1, steps=steps)
+
+    def _require_compiled(self, what: str) -> None:
+        if not self.compiled:
+            raise ValueError(
+                f"{what} requires the compiled pipeline step "
+                f"(PipelineExecutor(compiled=True) / --pipeline-compiled); "
+                f"the host-driven pipeline amortizes the fence instead "
+                f"(Trainer._fit_superstep_pipeline)")
+
+    def abstract_step(self):
+        """The compute-free step (JAX's ``abstract_step``), and so the
+        dry run of a layer-wise table, come with ROADMAP.md queue 1, item
+        14."""
+        raise NotImplementedError(
+            "PipelineExecutor.abstract_step (the dry run of a layer-wise "
+            "table) is not ported yet (ROADMAP.md queue 1, item 14)")
 
     def _require_optimizer(self):
         if self.optimizer is None:
@@ -509,6 +624,49 @@ class PipelineExecutor:
                           for mi in range(m)]
         return StagedBatch(blocks, rows, m)
 
+    def _staged(self, batch) -> StagedBatch:
+        """``batch`` as a :class:`StagedBatch`: one already, a step's row
+        of :meth:`stack_steps` (``{"si/name": (m, block...)}`` device
+        tensors, no host work: what a captured step reads), or a host
+        batch (:meth:`shard_batch`)."""
+        if isinstance(batch, StagedBatch):
+            return batch
+        if all("/" in k for k in batch):
+            m = self.microbatches
+            blocks = {si: [{} for _ in range(m)] for si in self.mine}
+            for key, v in batch.items():
+                si, name = key.split("/", 1)
+                for mi in range(m):
+                    blocks[int(si)][mi][name] = v[mi]
+            rows = self.model.input_tensors[0].shape[0] // m
+            return StagedBatch(blocks, rows, m)
+        return self.shard_batch(batch)
+
+    def stack_steps(self, batches: Sequence[Dict[str, Any]],
+                    accum_steps: int = 1) -> Dict[str, torch.Tensor]:
+        """Stack ``k`` per-step global host batches into the ``(k, m,
+        block...)`` device tensors :meth:`build_superstep` takes, keyed
+        ``"si/name"`` for each input each of the rank's stages reads
+        (integer inputs first, as JAX stages them)."""
+        self._require_compiled("stack_steps")
+        if accum_steps != 1:
+            raise ValueError(
+                "pipeline gradient accumulation is lowered at construction "
+                "(PipelineExecutor(accum_steps=...)); stack_steps composes "
+                "with it at accum_steps=1")
+        staged = [self.shard_batch(b) for b in batches]
+        m = self.microbatches
+        out = {}
+        for si in self.mine:
+            names = sorted(staged[0].blocks[si][0],
+                           key=lambda n: staged[0].blocks[si][0][n]
+                           .is_floating_point())
+            for name in names:
+                out[f"{si}/{name}"] = torch.stack([torch.stack(
+                    [sb.blocks[si][mi][name] for mi in range(m)])
+                    for sb in staged])
+        return out
+
     # -- hand-offs -------------------------------------------------------
 
     def _timed(self, fn):
@@ -555,6 +713,7 @@ class PipelineExecutor:
             shape, dtype = self._meta[key]
             if me == src:
                 exchange(t.contiguous().to(where), None)
+                self.last_sends += 1
                 return t
             buf = torch.empty(shape, dtype=dtype, device=where)
             exchange(None, buf)
@@ -583,43 +742,60 @@ class PipelineExecutor:
         j = [t.name for t in op.outputs].index(name)
         return self.stage_ex[si]._bind(op).output_spec(j)
 
-    def _forward_in(self, si: int, mi: int, name: str, rows: int,
+    @staticmethod
+    def _stacked(parts: List[torch.Tensor]) -> torch.Tensor:
+        """A chunk's tensors stacked ``(L, ...)`` for one message."""
+        return parts[0].unsqueeze(0) if len(parts) == 1 \
+            else torch.stack(parts)
+
+    def _forward_in(self, si: int, mis: List[int], name: str, rows: int,
                     wholes: List[Dict[str, torch.Tensor]]):
         """The hand-off of boundary tensor ``name`` into stage ``si`` for
-        microbatch ``mi``: its block on the ranks of ``si``, None
-        elsewhere."""
+        the chunk of microbatches ``mis`` (one message: the whole tensors
+        stacked): its block of each microbatch on the ranks of ``si``,
+        None elsewhere."""
         p = self._stage_of_tensor[name]
         prod = self.stages[p].device_ids
         cons = self.stages[si].device_ids
         dsts = [r for r in cons if r not in prod]
-        got = self._p2p(("F", name, si, rows), prod[0], dsts,
-                        wholes[mi].get(name) if self.rank == prod[0]
-                        else None)
+        send = self._stacked([wholes[mi][name] for mi in mis]) \
+            if self.rank == prod[0] and dsts else None
+        got = self._p2p(("F", name, si, rows, len(mis)), prod[0], dsts,
+                        send)
         if self.rank in prod:
-            got = wholes[mi][name]
+            parts = [wholes[mi][name] for mi in mis]
+        elif got is not None:
+            parts = list(got.unbind(0))
         if si == self._last_reader[name]:
-            wholes[mi].pop(name, None)
-        return None if self.rank not in cons else self._cut(si, name, got)
+            for mi in mis:
+                wholes[mi].pop(name, None)
+        return None if self.rank not in cons else \
+            [self._cut(si, name, g) for g in parts]
 
-    def _backward_out(self, si: int, mi: int, rows: int,
-                      dxs: Optional[Dict[str, torch.Tensor]],
+    def _backward_out(self, si: int, mis: List[int], rows: int,
+                      dxs: Optional[List[Dict[str, torch.Tensor]]],
                       dout_back: List[Dict[str, List[torch.Tensor]]]):
-        """Stage ``si``'s input cotangents of microbatch ``mi`` back to
-        their producers, whole, each appended to the producer's list."""
+        """Stage ``si``'s input cotangents of the chunk ``mis`` back to
+        their producers, whole (one message a tensor: the chunk's
+        stacked), each appended to the producer's list of its
+        microbatch."""
         for name in self._diffable(si):
             p = self._stage_of_tensor[name]
             prod = self.stages[p].device_ids
             cons = self.stages[si].device_ids
-            whole = None
+            dsts = [r for r in prod if r not in cons]
+            wholes = None
             if self.rank in cons:
                 ex = self.stage_ex[si]
-                whole = self._whole(si, dxs[name], ex._batch_specs[name])
-            got = self._p2p(("B", name, si, rows), cons[0],
-                            [r for r in prod if r not in cons],
-                            whole if self.rank == cons[0] else None)
+                wholes = [self._whole(si, d[name], ex._batch_specs[name])
+                          for d in dxs]
+            got = self._p2p(("B", name, si, rows, len(mis)), cons[0], dsts,
+                            self._stacked(wholes) if self.rank == cons[0]
+                            and dsts else None)
             if self.rank in prod:
-                dout_back[mi].setdefault(name, []).append(
-                    whole if self.rank in cons else got)
+                parts = wholes if self.rank in cons else got.unbind(0)
+                for mi, g in zip(mis, parts):
+                    dout_back[mi].setdefault(name, []).append(g)
 
     def _collect_douts(self, si: int, mi: int, dout_back, out_meta):
         """The stage's output cotangents of one microbatch, on its own
@@ -734,24 +910,100 @@ class PipelineExecutor:
     # -- the step ----------------------------------------------------------
 
     def train_step(self, params, opt_state, state, batch):
-        """One optimizer step over the microbatches: the schedule's events,
-        then ``_finish_step``.  Returns ``(params, opt_state, state,
-        metrics)``; params and states are updated in place and the metrics
-        (the last stage's, broadcast) are device tensors on every rank."""
+        """One optimizer step over the microbatches: the schedule's
+        events (one a stage and chunk), then ``_finish_step``; on the
+        compiled path the compiled step (:meth:`compiled_step`).
+        Returns ``(params, opt_state, state, metrics)``; params and
+        states are updated in place and the metrics (the last stage's,
+        broadcast) are device tensors on every rank."""
         self._require_optimizer()
+        if self.compiled:
+            tel = _telemetry.current()
+            if not self._compiled_noted:
+                self._compiled_noted = True
+                tel.emit("compiled_step", mode="compiled",
+                         S=len(self.stages), m=self.microbatches, k=1)
+            tel.program_cost("pipeline_compiled_step", self.model,
+                             S=len(self.stages))
+            self.note_fused_dispatch()
+            return self.compiled_step(params, opt_state, state, batch)
         batch = self.shard_batch(batch)
-        grads, sparse, metrics = self._run_microbatched(params, state, batch)
+        grads, sparse, metrics = self._run_chunked(params, state, batch,
+                                                   self.chunk)
         return self._finish_step(params, opt_state, state, grads, sparse,
                                  metrics)
 
-    def _run_microbatched(self, params, state, batch: StagedBatch):
-        """The event loop: one stage program per ``(stage, microbatch)``
-        event, every rank walking the same list."""
+    def compiled_step(self, params, opt_state, state, batch):
+        """The compiled step's body (JAX's ``_compiled_step_impl``): the
+        chunked loop at ``c = m`` (each stage's forward over the ``m``
+        microbatches in stage order, then each backward in reverse, the
+        cotangents summed as ``_collect_douts`` sums them) and the tail
+        with its clip on the device.  After its first call it waits on
+        nothing on the host, which is what lets :meth:`build_superstep`
+        capture it; ``batch`` may be a row of :meth:`stack_steps`."""
+        self._require_compiled("the compiled step")
+        grads, sparse, metrics = self._run_chunked(
+            params, state, self._staged(batch), self.microbatches,
+            record=False)
+        return self._finish_step(params, opt_state, state, grads, sparse,
+                                 metrics)
+
+    def build_compiled_step(self):
+        """The whole step as one program, with ``train_step``'s signature
+        (JAX's ``build_compiled_step``): :meth:`compiled_step`, whose
+        graph form is :meth:`build_superstep`."""
+        self._require_compiled("build_compiled_step")
+        return self.compiled_step
+
+    def build_superstep(self, k: int, accum_steps: int = 1) -> StepGraph:
+        """K compiled steps as one callable ``(params, opt_state, state,
+        stacked) -> (params, opt_state, state, ms)`` over
+        :meth:`stack_steps`' queue, ``ms`` every metric stacked ``(k,
+        ...)``: on CUDA over NCCL one CUDA graph a rank (run eagerly and
+        captured at its first call, which builds NCCL's pair
+        communicators and the hand-offs' header cache first; replayed
+        after), elsewhere the k steps as a loop (``superstep_graph``).
+        A failed capture raises.  Each call builds a new graph."""
+        self._require_compiled("build_superstep (fused pipeline supersteps)")
+        if k < 1:
+            raise ValueError(f"steps_per_call must be >= 1, got {k}")
+        if accum_steps != 1:
+            raise ValueError(
+                "pipeline gradient accumulation is lowered at construction "
+                "(PipelineExecutor(accum_steps=...)); build_superstep "
+                "composes with it at accum_steps=1")
+        self._require_optimizer()
+        _telemetry.current().emit("compiled_step", mode="compiled",
+                                  S=len(self.stages), m=self.microbatches,
+                                  k=k)
+        return StepGraph(self.compiled_step, k, self.device,
+                         graph=self.superstep_graph,
+                         capture_error_mode="thread_local")
+
+    def _chunk_plan(self, m: int, c: int) -> List[int]:
+        """Chunk lengths covering ``m`` microbatches: ``ceil(m/c)``
+        chunks of ``c``, the last possibly shorter (JAX's)."""
+        n = -(-m // c)
+        return [min(c, m - ci * c) for ci in range(n)]
+
+    def _run_chunked(self, params, state, batch: StagedBatch, c: int,
+                     record: bool = True):
+        """The event loop: one event per ``(stage, chunk)``, every rank
+        walking the same list; inside an event the chunk's microbatches
+        in microbatch order, each its own stage program.  ``record``
+        keeps the event list and counts its programs (the compiled
+        step's single program is counted by its caller)."""
         m, S = self.microbatches, len(self.stages)
         tel = _telemetry.current()
-        events = self.build_schedule(S, m)
-        self.last_schedule = events
-        tel.add_programs(len(events))
+        lengths = self._chunk_plan(m, c)
+        units = [list(range(ci * c, ci * c + n))
+                 for ci, n in enumerate(lengths)]
+        events = self.build_schedule(S, len(units))
+        if record:
+            self.last_schedule = events
+            tel.add_programs(len(events))
+        self.last_sends = 0
+        suffix = "_chunk" if c > 1 else ""
         dloss = self._loss_seed(m)
         wholes: List[Dict[str, torch.Tensor]] = [{} for _ in range(m)]
         stage_inputs: List[List[Any]] = [[None] * S for _ in range(m)]
@@ -762,67 +1014,78 @@ class PipelineExecutor:
         grads: Dict[int, Any] = {}
         sparse_acc: Dict[int, List[Any]] = {si: [] for si in self.mine}
         metrics_acc: Dict[str, torch.Tensor] = {}
-        for kind, si, mi in events:
+        for kind, si, ci in events:
             st = self.stages[si]
             ex = self.stage_ex[si]
+            mis = units[ci]
             if kind == "F":
-                inputs = dict(batch.blocks[si][mi]) if ex is not None \
-                    else None
+                blks = {}
                 for x in st.in_names:
                     if x not in self._graph_inputs:
-                        blk = self._forward_in(si, mi, x, batch.rows, wholes)
-                        if ex is not None:
-                            inputs[x] = blk
+                        blks[x] = self._forward_in(si, mis, x, batch.rows,
+                                                   wholes)
                 if ex is None:
                     continue
-                stage_inputs[mi][si] = inputs
-                fwd_state[mi][si] = {op: {k: v.clone() for k, v in g.items()}
-                                     for op, g in state[si].items()}
-                tel.program_cost("pipeline_stage_fwd", st, flops=functools.
-                                 partial(self._stage_flops, si, False),
-                                 stage=si)
-                outs = self._stage_fwd(si, params[si], state[si], inputs)
-                out_meta[mi][si] = {x: (tuple(y.shape), y.dtype)
-                                    for x, y in outs.items()}
-                for x, y in outs.items():
-                    wholes[mi][x] = self._whole(si, y, self._out_spec(si, x))
+                tel.program_cost(f"pipeline_stage_fwd{suffix}", st,
+                                 flops=functools.partial(
+                                     self._stage_flops, si, False,
+                                     len(mis)), stage=si)
+                for j, mi in enumerate(mis):
+                    inputs = dict(batch.blocks[si][mi])
+                    inputs.update({x: b[j] for x, b in blks.items()})
+                    stage_inputs[mi][si] = inputs
+                    fwd_state[mi][si] = {
+                        op: {k: v.clone() for k, v in g.items()}
+                        for op, g in state[si].items()}
+                    outs = self._stage_fwd(si, params[si], state[si], inputs)
+                    out_meta[mi][si] = {x: (tuple(y.shape), y.dtype)
+                                        for x, y in outs.items()}
+                    for x, y in outs.items():
+                        wholes[mi][x] = self._whole(si, y,
+                                                    self._out_spec(si, x))
                 continue
             dxs = None
             if ex is not None:
-                douts = self._collect_douts(si, mi, dout_back,
-                                            out_meta[mi][si])
-                tel.program_cost("pipeline_stage_bwd", st, flops=functools.
-                                 partial(self._stage_flops, si, True),
-                                 stage=si)
-                dparams, dxs, mets, sp = self._stage_bwd(
-                    si, params[si], fwd_state[mi][si], stage_inputs[mi][si],
-                    douts, dloss)
-                # The remat inputs and state this backward read are done
-                # with (1f1b's memory bound).
-                stage_inputs[mi][si] = fwd_state[mi][si] = None
-                out_meta[mi][si] = None
-                if si not in grads:  # f32 sums, in microbatch order
-                    grads[si] = {op: {k: g.float() for k, g in grp.items()}
-                                 for op, grp in dparams.items()}
-                else:
-                    for op, grp in dparams.items():
-                        for k, g in grp.items():
-                            grads[si][op][k].add_(g.float())
-                if sp:
-                    sparse_acc[si].append(sp)
-                if si == S - 1:
-                    metrics_acc = _merge_metrics(metrics_acc, mets)
-            self._backward_out(si, mi, batch.rows, dxs, dout_back)
+                dxs = []
+                tel.program_cost(f"pipeline_stage_bwd{suffix}", st,
+                                 flops=functools.partial(
+                                     self._stage_flops, si, True,
+                                     len(mis)), stage=si)
+                for mi in mis:
+                    douts = self._collect_douts(si, mi, dout_back,
+                                                out_meta[mi][si])
+                    dparams, dx, mets, sp = self._stage_bwd(
+                        si, params[si], fwd_state[mi][si],
+                        stage_inputs[mi][si], douts, dloss)
+                    # The remat inputs and state this backward read are
+                    # done with (1f1b's memory bound, a chunk at a time).
+                    stage_inputs[mi][si] = fwd_state[mi][si] = None
+                    out_meta[mi][si] = None
+                    if si not in grads:  # f32 sums, in microbatch order
+                        grads[si] = {op: {k: g.float()
+                                          for k, g in grp.items()}
+                                     for op, grp in dparams.items()}
+                    else:
+                        for op, grp in dparams.items():
+                            for k, g in grp.items():
+                                grads[si][op][k].add_(g.float())
+                    if sp:
+                        sparse_acc[si].append(sp)
+                    if si == S - 1:
+                        metrics_acc = _merge_metrics(metrics_acc, mets)
+                    dxs.append(dx)
+            self._backward_out(si, mis, batch.rows, dxs, dout_back)
         return grads, sparse_acc, metrics_acc
 
-    def _stage_flops(self, si: int, backward: bool) -> float:
-        """The cost model's flops of one stage program on one microbatch
-        (the backward recomputes the forward: ``FWD_BWD_FACTOR`` times
-        it)."""
+    def _stage_flops(self, si: int, backward: bool, count: int = 1
+                     ) -> float:
+        """The cost model's flops of one stage program on ``count``
+        microbatches (the backward recomputes the forward:
+        ``FWD_BWD_FACTOR`` times it)."""
         from flexflow_torch.search.cost_model import FWD_BWD_FACTOR, op_cost
 
         fwd = sum(op_cost(op).flops for op in self.stages[si].ops) \
-            / self.microbatches
+            * count / self.microbatches
         return FWD_BWD_FACTOR * fwd if backward else fwd
 
     def _sparse_global(self, si: int, pieces):
@@ -955,36 +1218,41 @@ class PipelineExecutor:
 
     @torch.no_grad()
     def eval_step(self, params, state, batch):
-        """Read-only forward over the microbatches, stage by stage:
-        ``(loss, metrics)``, the loss ops' stages' losses summed and their
-        metrics merged in stage order (JAX's ``eval_step``), each meaned
-        over the microbatches."""
-        batch = self.shard_batch(batch)
+        """Read-only forward over the microbatches, chunk by chunk and
+        stage by stage (one hand-off a boundary and chunk; the compiled
+        executor's one chunk of ``m``): ``(loss, metrics)``, the loss
+        ops' stages' losses summed and their metrics merged in stage
+        order (JAX's ``eval_step``), each meaned over the microbatches;
+        every ``c`` gives the same bits."""
+        batch = self._staged(batch)
         m, S = batch.units, len(self.stages)
+        c = m if self.compiled else self.chunk
         losses: Dict[int, Any] = {}
         mets: Dict[int, Dict[str, torch.Tensor]] = {}
         wholes: List[Dict[str, torch.Tensor]] = [{} for _ in range(m)]
-        for mi in range(m):
+        for ci, n in enumerate(self._chunk_plan(m, c)):
+            mis = list(range(ci * c, ci * c + n))
             for st in self.stages:
                 si, ex = st.index, self.stage_ex[st.index]
-                inputs = dict(batch.blocks[si][mi]) if ex is not None \
-                    else None
+                blks = {}
                 for x in st.in_names:
                     if x not in self._graph_inputs:
-                        blk = self._forward_in(si, mi, x, batch.rows, wholes)
-                        if ex is not None:
-                            inputs[x] = blk
+                        blks[x] = self._forward_in(si, mis, x, batch.rows,
+                                                   wholes)
                 if ex is None:
                     continue
-                loss, mt, _, env = ex.forward(params[si], state[si], inputs,
-                                              training=False)
-                if any(op.is_loss for op in st.ops):
-                    losses[si] = loss if si not in losses else \
-                        losses[si] + loss
-                    mets[si] = _merge_metrics(mets.get(si, {}), mt)
-                for x in st.out_names:
-                    wholes[mi][x] = self._whole(si, env[x],
-                                                self._out_spec(si, x))
+                for j, mi in enumerate(mis):
+                    inputs = dict(batch.blocks[si][mi])
+                    inputs.update({x: b[j] for x, b in blks.items()})
+                    loss, mt, _, env = ex.forward(params[si], state[si],
+                                                  inputs, training=False)
+                    if any(op.is_loss for op in st.ops):
+                        losses[si] = loss if si not in losses else \
+                            losses[si] + loss
+                        mets[si] = _merge_metrics(mets.get(si, {}), mt)
+                    for x in st.out_names:
+                        wholes[mi][x] = self._whole(si, env[x],
+                                                    self._out_spec(si, x))
         total, metrics = None, {}
         for st in self.stages:
             if not any(op.is_loss for op in st.ops):
@@ -1115,9 +1383,10 @@ def make_executor(model: FFModel, strategy: Optional[StrategyStore] = None,
     """The runtime of a strategy (JAX's ``make_executor``): the
     ``PipelineExecutor`` when some op's ``device_ids`` are a proper subset
     of the devices, else the plain ``Executor`` (with JAX's warning when
-    explicit ids span the whole mesh).  ``chunk > 1`` and
-    ``compiled=True`` raise, naming ROADMAP.md item 10b: the port does
-    not fall back."""
+    explicit ids span the whole mesh).  ``compiled=True``
+    (``--pipeline-compiled``) asks for the compiled step; a table it
+    cannot realize falls back LOUDLY, in JAX's words, to the host-driven
+    pipeline (the numerics oracle, which runs every table)."""
     mb = kwargs.pop("microbatches", 1)
     sched = kwargs.pop("schedule", "1f1b")
     chunk = kwargs.pop("chunk", 1)
@@ -1125,14 +1394,21 @@ def make_executor(model: FFModel, strategy: Optional[StrategyStore] = None,
     accum = kwargs.pop("accum_steps", 1)
     if strategy is not None and any(
             pc.device_ids is not None for pc in strategy.table.values()):
-        nd = strategy.num_devices
-        if any(len(set(pc.device_ids)) < nd
-               for pc in strategy.table.values()
-               if pc.device_ids is not None):
+        if strategy.layer_wise:
+            if compiled:
+                try:
+                    return PipelineExecutor(
+                        model, strategy, microbatches=mb, schedule=sched,
+                        chunk=chunk, compiled=True, accum_steps=accum,
+                        **kwargs)
+                except CompiledPipelineUnsupported as e:
+                    _log.warning(
+                        "--pipeline-compiled unavailable for this "
+                        "model/strategy (%s); falling back to the "
+                        "host-driven pipeline", e)
             return PipelineExecutor(model, strategy, microbatches=mb,
                                     schedule=sched, chunk=chunk,
-                                    compiled=compiled, accum_steps=accum,
-                                    **kwargs)
+                                    accum_steps=accum, **kwargs)
         _log.warning("strategy device_ids span the full mesh; explicit "
                      "ordering is realized by mesh coordinates "
                      "(placement-equivalent)")

@@ -37,10 +37,12 @@ accumulation (``accum_steps``); and ``evaluate``, the read-only pass of
   (``runtime/profiler.py::profile_ops``), its table printed.
 
 Over a layer-wise pipeline (``runtime/pipeline.py``) the per-step loop
-is the same; ``steps_per_call = K`` takes ``_fit_superstep_pipeline``
-(K host-driven steps, one fence), ``accum_steps`` must be the one the
-executor lowered into microbatches, and ``--profiling`` prints JAX's
-"unavailable" line.
+is the same; ``steps_per_call = K`` takes ``_fit_superstep`` on the
+compiled pipeline (its fused superstep: one CUDA graph a rank over NCCL)
+and ``_fit_superstep_pipeline`` on the host-driven one (K host-driven
+steps, one fence); ``accum_steps`` must be the one the executor lowered
+into microbatches, and ``--profiling`` prints JAX's "unavailable"
+line.
 
 Under a world of ranks every rank runs the loop on its blocks: the
 fixed batch is the global host draw, each rank keeping its block (of
@@ -219,7 +221,7 @@ class Trainer:
                         f"accum_steps={self.ex.accum_steps})")
                 accum_steps = 1
             if steps_per_call > 1:
-                if pipe:
+                if pipe and not self.ex.superstep_fused:
                     return self._fit_superstep_pipeline(
                         iterations, warmup, log_every, checkpoint,
                         save_every, accum_steps, steps_per_call)
@@ -394,6 +396,9 @@ class Trainer:
             params, opt_state, state, ms = fns[n](params, opt_state, state,
                                                   fixed[n])
             host_ms = tel.fence(ms, label)
+            if isinstance(ex, PipelineExecutor):
+                # The compiled pipeline: one program covered n steps.
+                ex.note_fused_dispatch(n)
             if fns[n].captured:
                 fixed[n] = fns[n].static_inputs  # the next call copies nothing
             losses.extend(host_ms["train_loss"])
@@ -403,7 +408,7 @@ class Trainer:
             for _ in range(warm_calls):
                 call(k, "warmup")
             start_step += warm_calls * k
-            if tail and warm_calls and ex.device.type == "cuda":
+            if tail and warm_calls and fns[tail].graphed:
                 fns[tail].capture(params, opt_state, state, fixed[tail])
                 fixed[tail] = fns[tail].static_inputs
             timed = plan[warm_calls:]

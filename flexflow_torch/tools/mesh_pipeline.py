@@ -6,14 +6,17 @@ A *case* is a dict: ``model`` (a key of :data:`MODELS`) and its
 ``model_kw``, ``config`` (FFConfig fields), ``table`` (op name ->
 ``ParallelConfig`` JSON, ``device_ids`` included: the world's ranks),
 ``optimizer`` (``(name, kwargs)``), ``microbatches``, ``schedule``,
-``batches`` (global host batches, numpy), ``params`` (a numpy tree, per
+``chunk``, ``compiled``, ``accum_steps``, ``superstep`` (``k``: the
+batches run through ``build_superstep(k)`` and ``stack_steps``, k at a
+time), ``batches`` (global host batches, numpy), ``params`` (a numpy tree, per
 stage or one executor's, carried in by ``weights``), ``eval`` (a batch
 for one ``eval_step`` after the steps), ``refusals`` (the trainer's),
 ``fault`` (a key of :data:`FAULTS`), ``snapshot`` (a directory to save
 the trained state into, or ``restore`` one to restore from before the
 steps).  Its result: the losses, every step's metrics, the event list,
-the trained parameters gathered whole (rank 0's; ``{}`` elsewhere) and
-whether ``jax`` was imported.  An ``app`` case runs an app's ``main`` on
+the hand-offs this rank sent in the last step, whether the executor took
+the compiled step, the trained parameters gathered whole (rank 0's;
+``{}`` elsewhere) and whether ``jax`` was imported.  An ``app`` case runs an app's ``main`` on
 its argv inside the rank instead.
 
 Run from a script under ``if __name__ == "__main__":`` (spawned ranks
@@ -26,6 +29,7 @@ import the main module)::
 
 from __future__ import annotations
 
+import logging
 import sys
 from typing import Any, Dict, List
 
@@ -33,8 +37,11 @@ import numpy as np
 import torch
 
 
-def two_stage(batch: int = 8, din: int = 12, dh: int = 16, classes: int = 4):
-    """JAX's ``tests/test_pipeline.py::_two_stage_model``."""
+def two_stage(batch: int = 8, din: int = 12, dh: int = 16, classes: int = 4,
+              dropout: float = 0.0):
+    """JAX's ``tests/test_pipeline.py::_two_stage_model`` (with
+    ``dropout``, ``tests/test_pipeline_chunk.py::_model``'s ``drop``
+    after ``enc1``)."""
     from flexflow_torch.config import FFConfig
     from flexflow_torch.graph import FFModel
 
@@ -43,6 +50,8 @@ def two_stage(batch: int = 8, din: int = 12, dh: int = 16, classes: int = 4):
     lbl = ff.create_tensor((batch,), dtype=torch.int32, name="label")
     t = ff.dense(x, dh, activation="relu", name="enc0")
     t = ff.dense(t, dh, activation="relu", name="enc1")
+    if dropout > 0.0:
+        t = ff.dropout(t, rate=dropout, name="drop")
     t = ff.dense(t, dh, activation="relu", name="dec0")
     t = ff.dense(t, classes, activation=None, name="dec1")
     ff.softmax(t, lbl, name="softmax")
@@ -63,6 +72,23 @@ def skip(batch: int = 8, din: int = 12, classes: int = 4):
     t2 = ff.concat([t0, t1], axis=1, name="s2cat")
     t3 = ff.dense(t2, classes, activation=None, name="s2fc")
     ff.softmax(t3, lbl, name="softmax")
+    return ff
+
+
+def deep(batch: int = 16, din: int = 12, classes: int = 4):
+    """JAX's ``tests/test_pipeline_chunk.py::_deep_model``: four ReLU
+    layers, a head and the loss."""
+    from flexflow_torch.config import FFConfig
+    from flexflow_torch.graph import FFModel
+
+    ff = FFModel(FFConfig(batch_size=batch))
+    x = ff.create_tensor((batch, din), name="x")
+    lbl = ff.create_tensor((batch,), dtype=torch.int32, name="label")
+    t = x
+    for i in range(4):
+        t = ff.dense(t, 16, activation="relu", name=f"fc{i}")
+    t = ff.dense(t, classes, activation=None, name="head")
+    ff.softmax(t, lbl, name="softmax")
     return ff
 
 
@@ -96,7 +122,7 @@ def nmt(**kw):
     return build_nmt(**kw)
 
 
-MODELS = {"two_stage": two_stage, "skip": skip, "emb": emb,
+MODELS = {"two_stage": two_stage, "skip": skip, "deep": deep, "emb": emb,
           "alexnet": alexnet, "nmt": nmt}
 
 
@@ -159,7 +185,10 @@ def build(case: Dict[str, Any]):
     ex = make_executor(ff, store, config=ff.config, optimizer=opt,
                        device=case.get("device", "cpu"),
                        microbatches=case.get("microbatches", 1),
-                       schedule=case.get("schedule", "1f1b"))
+                       schedule=case.get("schedule", "1f1b"),
+                       chunk=case.get("chunk", 1),
+                       compiled=case.get("compiled", False),
+                       accum_steps=case.get("accum_steps", 1))
     return ff, ex
 
 
@@ -167,6 +196,12 @@ def run_case(case: Dict[str, Any]) -> Dict[str, Any]:
     """One case on this rank (module docstring)."""
     if case.get("app"):
         return _app_case(case)
+    if case.get("chaos"):
+        from flexflow_torch.runtime import chaos
+
+        ok, detail = chaos.pipeline_nan_rank(case["chaos"],
+                                             case.get("device", "cpu"))
+        return {"ok": ok, "detail": detail}
     undo = planted(case.get("fault"))
     try:
         return _run(case)
@@ -174,11 +209,33 @@ def run_case(case: Dict[str, Any]) -> Dict[str, Any]:
         undo()
 
 
+class _Warnings(logging.Handler):
+    """The ``ff.pipeline`` warnings while open (``make_executor``'s
+    fallback among them)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages: List[str] = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger("ff.pipeline").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("ff.pipeline").removeHandler(self)
+
+
 def _run(case: Dict[str, Any]) -> Dict[str, Any]:
     from flexflow_torch.runtime.checkpoint import CheckpointManager
+    from flexflow_torch.runtime.executor import Executor
+    from flexflow_torch.runtime.trainer import relay_safe_steps
     from flexflow_torch.weights import pipeline_params_from_numpy
 
-    ff, ex = build(case)
+    with _Warnings() as warned:
+        ff, ex = build(case)
     params, opt_state, state = ex.init(case.get("seed"))
     dev = ex.device
     if case.get("params") is not None:
@@ -190,21 +247,38 @@ def _run(case: Dict[str, Any]) -> Dict[str, Any]:
                            "mine": list(ex.mine),
                            "sparse": {si: [op.name for op in
                                            ex.stage_ex[si]._sparse_ops]
-                                      for si in ex.mine}}
+                                      for si in ex.mine},
+                           "warnings": warned.messages,
+                           "chunk": getattr(ex, "chunk", None),
+                           "fused": getattr(ex, "superstep_fused", None)}
     if case.get("restore"):
         with CheckpointManager(case["restore"]) as ck:
             ck.layout = ex.snapshot_layout()
             out["restored_step"], params, opt_state, state = ck.restore(
                 (params, opt_state, state))
     losses, metrics = [], []
-    for batch in case.get("batches", []):
-        params, opt_state, state, m = ex.train_step(params, opt_state,
-                                                    state, batch)
-        losses.append(float(m["train_loss"]))
-        metrics.append({k: float(v) for k, v in m.items()})
+    batches = list(case.get("batches", []))
+    k = case.get("superstep")
+    while batches:
+        if k:
+            group, batches = batches[:k], batches[k:]
+            n = relay_safe_steps(len(group))
+            params, opt_state, state, ms = ex.build_superstep(n)(
+                params, opt_state, state, ex.stack_steps(group))
+            ex.note_fused_dispatch(n)
+            rows = [Executor.metrics_row(ms, j) for j in range(n)]
+        else:
+            params, opt_state, state, m = ex.train_step(
+                params, opt_state, state, batches.pop(0))
+            rows = [m]
+        for m in rows:
+            losses.append(float(m["train_loss"]))
+            metrics.append({name: float(v) for name, v in m.items()})
     out["losses"] = losses
     out["metrics"] = metrics
     out["schedule"] = list(ex.last_schedule)
+    out["sends"] = getattr(ex, "last_sends", None)
+    out["compiled"] = getattr(ex, "compiled", False)
     if case.get("snapshot"):
         with CheckpointManager(case["snapshot"]) as ck:
             ck.layout = ex.snapshot_layout()
@@ -313,11 +387,19 @@ def chip_apps(runs: List[Dict[str, Any]], refs: Dict[str, str],
     app ``app`` (``alexnet`` or ``nmt``) with ``-ll:gpu`` the world's
     size, every kernel counter zeroed first, ``fault`` (a key of
     :data:`FAULTS`) planted.  Returns per run the exit code, losses,
-    launch counts, the stages and this rank's, ms a step (the app's), and
-    on rank 0 the digest of the trained parameters gathered whole and
-    their distance from ``refs[run["ref"]]`` (a file of ``{"trained",
-    "change"}``); ``timed`` runs one more step with each hand-off
-    synchronised alone: its wall and the hand-offs' share.
+    launch counts, the stages and this rank's, ms a step (the app's),
+    whether the executor took the compiled step and its supersteps were
+    CUDA graphs, and on rank 0 the digest of the trained parameters
+    gathered whole and their distance from ``refs[run["ref"]]`` (a file
+    of ``{"trained", "change"}``); ``timed`` runs one more step with each
+    hand-off synchronised alone: its wall and the hand-offs' share.
+    ``replay`` (``{"every": {kernel: launches a step}, "last_stage":
+    {...}}``, the latter added on the last stage's ranks): where the
+    compiled superstep is a CUDA graph, a fresh ``--steps-per-call``
+    graph on the trained tensors, its launches at capture and by kernel
+    name in a profiled replay (``chip_smoke._replay_counts``).  A run
+    with ``chaos`` instead runs ``runtime/chaos.py``'s
+    ``pipeline_superstep_nan`` on the world (``{ok, detail, s}``).
     cuDNN takes deterministic algorithms only (its timed plans may pick
     atomic ones otherwise, and two schedules are compared bit for bit),
     and the runs of one model share one host draw of its parameters
@@ -332,6 +414,7 @@ def chip_apps(runs: List[Dict[str, Any]], refs: Dict[str, str],
     import chip_smoke as cs
     from flexflow_torch.data.loader import synthetic_host_batch
     from flexflow_torch.parallel import launch
+    from flexflow_torch.runtime.trainer import relay_safe_steps
     from flexflow_torch.tools.mesh_smoke import _distance, digest
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -346,6 +429,28 @@ def chip_apps(runs: List[Dict[str, Any]], refs: Dict[str, str],
     out = []
     draws = _DrawOnce()
     for run in runs:
+        if run.get("chaos"):
+            import shutil
+            import tempfile
+
+            from flexflow_torch.runtime import chaos
+
+            root = tempfile.mkdtemp(prefix="ff_pipe_chaos_") \
+                if launch.rank() == 0 else None
+            box = [root]
+            dist.broadcast_object_list(box, src=0)
+            sync()
+            t0 = time.perf_counter()
+            ok, detail = chaos.pipeline_nan_rank(box[0], device)
+            sync()
+            dist.barrier()
+            if root is not None:
+                shutil.rmtree(root, ignore_errors=True)
+            out.append(dict(name=run["name"], ok=ok, detail=detail,
+                            s=time.perf_counter() - t0,
+                            backend=dist.get_backend(),
+                            jax_imported="jax" in sys.modules))
+            continue
         app = importlib.import_module(f"flexflow_torch.apps.{run['app']}")
         args = list(run["argv"]) + ["-ll:gpu", str(launch.world_size())]
         stats: Dict[str, Any] = {}
@@ -364,6 +469,8 @@ def chip_apps(runs: List[Dict[str, Any]], refs: Dict[str, str],
             result = dict(
                 name=run["name"], code=code, losses=stats["step_losses"],
                 counts=counts, kind=type(ex).__name__,
+                compiled=ex.compiled,
+                graphed=bool(stats.get("superstep_graph")),
                 stages=[list(st.device_ids) for st in ex.stages],
                 mine=list(ex.mine), schedule_len=len(ex.last_schedule),
                 ms_step=stats["elapsed_s"] * 1e3 / stats["iterations"],
@@ -376,6 +483,20 @@ def chip_apps(runs: List[Dict[str, Any]], refs: Dict[str, str],
                     result["distance"] = _distance(full, ref)
                     del ref
             del full
+            if run.get("replay") and ex.superstep_graph:
+                k = relay_safe_steps(stats["steps_per_call"])
+                per_step = dict(run["replay"]["every"])
+                if launch.rank() in ex.stages[-1].device_ids:
+                    per_step.update(run["replay"]["last_stage"])
+                host = synthetic_host_batch(ex.model,
+                                            np.random.default_rng(0))
+                busy_us = cs._replay_counts(
+                    torch, f"mesh-pipeline {run['name']} rank "
+                    f"{launch.rank()}", ex.build_superstep(k),
+                    (params, opt_state, state), ex.stack_steps([host] * k),
+                    per_step)
+                result.update(replay_per_step=per_step, replay_k=k,
+                              replay_busy_ms=busy_us / 1e3)
             if run.get("timed"):
                 batch = ex.shard_batch(synthetic_host_batch(
                     ex.model, np.random.default_rng(0)))

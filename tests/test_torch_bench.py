@@ -240,8 +240,11 @@ def test_main_prints_one_line_with_bench_py_keys(monkeypatch, capsys):
     for leg in ("transformer", "transformer_8k", "transformer_32k"):
         keys |= {f"{leg}_tokens_per_s", f"{leg}_mfu"}
     keys |= {"superstep", "serving", "nmt_pairs_per_s", "nmt_10iter_time_s",
-             "candle_samples_per_s", "telemetry"}
+             "candle_samples_per_s", "telemetry", "pipeline"}
     assert set(line["extra"]) == keys
+    # One card (here none): the pipeline leg says why, in bench.py's words.
+    assert line["extra"]["pipeline"]["skipped"].endswith(
+        "pipeline stages need distinct device subsets (>= 2 devices)")
     assert set(line["extra"]["serving"]) == SERVING_KEYS
     assert line["extra"]["platform"] == "gpu" and line["extra"]["n_chips"] == 1
     sweep = line["extra"]["superstep"]
@@ -249,6 +252,33 @@ def test_main_prints_one_line_with_bench_py_keys(monkeypatch, capsys):
                           "k4_ms_per_step", "k8_ms_per_step",
                           "k16_ms_per_step", "amortization_k8_vs_k1"}
     assert sweep["batch_size"] == 8 and sweep["iterations"] == 16
+
+
+def test_pipeline_leg_runs_small_on_cpu():
+    """``bench.py``'s pipeline leg: skipped below two ranks, in its
+    words; on a gloo world of two, S = 2 at m = 4: the step's programs
+    at chunk 1 and 4 (``2 S ceil(m/c)``) and compiled (1), ms a step for
+    each and for k-step supersteps; the telemetry leg's
+    ``programs_per_step`` from a two-stage run at chunk 4."""
+    out = bench.bench_pipeline(device="cpu", ranks=1)
+    assert out["skipped"] == ("1 device(s): pipeline stages need distinct "
+                              "device subsets (>= 2 devices)")
+    assert not any(k.endswith("_ms_per_step") for k in out)
+    out = bench.bench_pipeline(device="cpu", ranks=2, width=16, iters=2,
+                               batch=16, stages=(2,), micro=(4,), k=2)
+    assert (out["s2_mb4_c1_programs"], out["s2_mb4_c4_programs"],
+            out["s2_mb4_compiled_programs"]) == (16, 4, 1)
+    assert "skipped" not in out and out["n_devices"] == 2
+    for key in ("s2_mb4_c1_ms_per_step", "s2_mb4_c4_ms_per_step",
+                "s2_mb4_compiled_ms_per_step", "superstep_k2_ms_per_step",
+                "superstep_k2_compiled_ms_per_step", "chunk_amortization",
+                "compiled_speedup"):
+        assert out[key] > 0, key
+    tel = bench.bench_telemetry(device="cpu", batch=16, width=16, iters=2,
+                                ranks=2)
+    assert tel["programs_per_step"] == 4.0
+    assert "programs_per_step" not in bench.bench_telemetry(
+        device="cpu", batch=8, width=16, iters=2)
 
 
 def test_superstep_leg_runs_small_on_cpu(monkeypatch):

@@ -12,7 +12,8 @@ initial weights (numpy).
 - Each of the six training scenarios (``raised_fault``, ``nan_batch``,
   ``nan_loss``, ``sigterm``, ``corrupt_checkpoint``, ``force_save_kill``)
   recovers on every rank with a trajectory bit for bit the unfaulted
-  one's.
+  one's, and so does ``pipeline_superstep_nan`` under JAX's own table
+  (two stages of four ranks on the compiled pipeline).
 - The unfaulted trajectory equals JAX's ``tiny_factory`` on 8 virtual
   devices (``flexflow_tpu/runtime/chaos.py``, the same table) within
   1e-5, the bar of ``tests/test_torch_resilience.py`` on one device.
@@ -35,7 +36,8 @@ RUN = "flexflow_torch.tools.mesh_train:chaos_world"
 WORLD_S = 240
 RANKS = 8
 SCENARIOS = ("raised_fault", "nan_batch", "nan_loss", "sigterm",
-             "corrupt_checkpoint", "force_save_kill")
+             "corrupt_checkpoint", "force_save_kill",
+             "pipeline_superstep_nan")
 
 
 @pytest.fixture(scope="module")

@@ -414,10 +414,13 @@ def test_nmt_app_on_cpu(capsys, flags):
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
-# ``--pipeline`` runs since the pipeline landed; its chunked form is the
-# refused one now (item 10b: the match covers it).
-@pytest.mark.parametrize("flag,msg", [(["--pipeline-chunk", "2"], "item 10"),
-                                      (["--search", "5"], "search")])
+# ``--pipeline`` and its chunked and compiled forms run since items 10a
+# and 10b landed; the execution-config search (item 11) is refused.  The
+# ids are the cases' first ones.
+@pytest.mark.parametrize("flag,msg", [
+    pytest.param(["--calibration", "c.json"], "item 11",
+                 id="flag0-item 10"),
+    pytest.param(["--search", "5"], "search", id="flag1-search")])
 def test_nmt_app_refuses(flag, msg):
     with pytest.raises(SystemExit, match=msg):
         tapp.main(_APP + flag, device="cpu")

@@ -16,9 +16,9 @@ world of ranks here.
 - ``make_executor``: the plain Executor for full-mesh tables (JAX's
   warning when explicit ids span the mesh), the pipeline for proper
   subsets, which needs a world; the plain Executor still refuses a
-  subset; ``--zero-opt``, ``chunk > 1`` and ``compiled`` refused in
-  JAX's words or naming item 10b, and the apps' ``--pipeline-chunk`` and
-  ``--pipeline-compiled`` too.
+  subset; ``--zero-opt`` refused in JAX's words, ``chunk < 1`` refused,
+  ``compiled`` on an ineligible table falling back loudly; the apps read
+  ``--pipeline-chunk`` and ``--pipeline-compiled``.
 - ``nmt_pipeline_strategy`` equal to JAX's table.
 """
 
@@ -257,26 +257,44 @@ def test_executor_still_refuses_subsets():
         jpipe.Executor(_jax_two_stage(), strategy=js)
 
 
-def test_refusals_name_jax_words_and_item_10b():
+def test_refusals_name_jax_words_and_item_10b(caplog):
+    """Item 10b landed: ``--zero-opt`` stays refused in JAX's words, a
+    chunk below 1 is refused, and a table the compiled step cannot run
+    falls back loudly to the host-driven pipeline (which then needs its
+    world), as JAX's ``make_executor`` does."""
     ff = mp.two_stage()
     ts, _ = _tables(_two_stage_table(4), 4)
     cfg = FFConfig(batch_size=8, zero_sharded_optimizer=True)
     with pytest.raises(tpipe.PlacementError,
                        match="--zero-opt supports the full-mesh Executor"):
         tpipe.PipelineExecutor(ff, ts, config=cfg)
-    with pytest.raises(ValueError, match="item 10b"):
-        tpipe.make_executor(ff, ts, chunk=2)
-    with pytest.raises(ValueError, match="item 10b"):
-        tpipe.make_executor(ff, ts, compiled=True)
+    with pytest.raises(ValueError, match="pipeline chunk must be >= 1"):
+        tpipe.make_executor(ff, ts, chunk=0)
+    unequal, _ = _tables({"enc0": {"n": 2, "device_ids": [0, 1]},
+                          "dec0": {"device_ids": [2]}}, 4)
+    with caplog.at_level(logging.WARNING, logger="ff.pipeline"):
+        with pytest.raises(tpipe.PlacementError, match="-ll:gpu 4"):
+            tpipe.make_executor(ff, unequal, compiled=True)
+    assert any("--pipeline-compiled unavailable for this model/strategy "
+               "(compiled pipeline step: shared stage mesh needs equal-size"
+               in r.message and "falling back to the host-driven pipeline"
+               in r.message for r in caplog.records)
 
 
 @pytest.mark.parametrize("flag", [["--pipeline-chunk", "2"],
                                   ["--pipeline-compiled"]])
 def test_apps_refuse_chunk_and_compiled(flag):
-    with pytest.raises(SystemExit, match="item 10b"):
+    """The flags are read since item 10b; on one rank each app then
+    refuses for its table's own reason."""
+    from flexflow_torch.apps.common import parse_training_args
+
+    cfg = parse_training_args(["-b", "4"] + flag)
+    assert (cfg.pipeline_chunk, cfg.pipeline_compiled) == (
+        (2, False) if "--pipeline-chunk" in flag else (1, True))
+    with pytest.raises(SystemExit, match="only 1 devices exist.*-ll:gpu 4"):
         talex.main(["-b", "4", "--image-size", "67", "-s", README]
                    + flag, device="cpu")
-    with pytest.raises(SystemExit, match="item 10b"):
+    with pytest.raises(SystemExit, match="even device count"):
         tnmt.main(["--pipeline", "-b", "4"] + flag, device="cpu")
 
 

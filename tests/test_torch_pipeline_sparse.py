@@ -1,6 +1,5 @@
 """The pipeline's per-stage row-sparse carry on a world of four gloo
-ranks (the unchunked, uncompiled cases of JAX's
-``tests/test_pipeline_sparse.py``), and its snapshots.
+ranks (JAX's ``tests/test_pipeline_sparse.py``), and its snapshots.
 
 The model is JAX's: an embedding (96 x 8, bags of 4) on ranks {0, 1}, two
 dense layers and the loss on {2, 3}, batch 16 in four microbatches.
@@ -18,6 +17,10 @@ dense layers and the loss on {2, 3}, batch 16 in four microbatches.
 - Snapshots: the pipeline's (lazy Adam, three steps) restored under one
   executor bit for bit, and one executor's restored under the pipeline
   and saved again, every tensor of both files the same.
+- Chunked and compiled (JAX's ``tests/test_pipeline_sparse.py:186-264``):
+  the row carry at c = 2 and 4, on the compiled step, under
+  ``--clip-norm`` and with the lazy optimizers, each bit for bit the
+  ``c = 1`` loop.
 """
 
 import os
@@ -160,6 +163,19 @@ def world(jax_runs, one_snapshot, tmp_path_factory):
         case("restore_one", kind="lazy_adam", batches=[],
              restore=one_snapshot, snapshot=os.path.join(root, "again")),
     ]
+    for tag, seed, kind, cfg in (("chunk", 2, "sgd", {}),
+                                 ("comp", 5, "sgd", {}),
+                                 ("clip", 3, "sgd", {"clip_norm": 0.5}),
+                                 ("lazy_mom", 6, "lazy_mom", {}),
+                                 ("lazy_adam", 6, "lazy_adam", {})):
+        bs = _batches(2, seed=seed)
+        cases += [case(f"{tag}_c1", kind=kind, batches=bs, config=cfg),
+                  case(f"{tag}_c2", kind=kind, batches=bs, config=cfg,
+                       chunk=2),
+                  case(f"{tag}_c4", kind=kind, batches=bs, config=cfg,
+                       chunk=4),
+                  case(f"{tag}_compiled", kind=kind, batches=bs, config=cfg,
+                       compiled=True)]
     ranks = launch.run(RUN, (cases,), nprocs=RANKS, device="cpu",
                        timeout_s=300)
     out = [{c["name"]: r for c, r in zip(cases, rank)} for rank in ranks]
@@ -270,3 +286,22 @@ def test_one_executor_snapshot_restores_under_pipeline(world, one_snapshot):
         for k, v in g.items():
             np.testing.assert_array_equal(v, a["params"][f"{op}/{k}"]
                                           .float().numpy())
+
+
+@pytest.mark.parametrize("tag", ["chunk", "comp", "clip", "lazy_mom",
+                                 "lazy_adam"])
+@pytest.mark.parametrize("form", ["c2", "c4", "compiled"])
+def test_chunked_and_compiled_sparse_bit_for_bit(world, tag, form):
+    """JAX's ``test_chunked_sparse_bit_identical``,
+    ``test_compiled_sparse_bit_identical``,
+    ``test_clip_norm_sparse_chunk_invariant``,
+    ``test_compiled_clip_norm_sparse`` and
+    ``test_lazy_sparse_chunk_and_compiled_invariant``: the row carry
+    flattened in microbatch order whatever the chunk, the compiled step's
+    tail the host-driven one's."""
+    got, ref = world[0][f"{tag}_{form}"], world[0][f"{tag}_c1"]
+    for r, rank in enumerate(world):
+        assert rank[f"{tag}_{form}"]["compiled"] is (form == "compiled")
+        want = {0: ["emb"]} if r < 2 else {1: []}
+        assert rank[f"{tag}_{form}"]["sparse"] == want
+    _same(got, ref)

@@ -68,7 +68,9 @@ def test_matrix_reports_what_is_not_ported(tmp_path):
     got = {name: (ok, detail) for ok, name, detail in rows}
     assert got["loader_fault"] == (None, "not ported (item 12)")
     assert got["host_loss"] == (None, "not ported (item 13)")
-    assert got["pipeline_superstep_nan"] == (None, "not ported (item 10b)")
+    # Ported since item 10b: it starts its own world of four gloo ranks.
+    ok, detail = got["pipeline_superstep_nan"]
+    assert ok and "restarts=1" in detail, detail
     assert got["force_save_kill"][0] is True
     with pytest.raises(NotImplementedError, match="item 13"):
         chaos.SCENARIOS["coordinator_loss"](str(tmp_path))
